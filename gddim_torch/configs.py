@@ -1,0 +1,81 @@
+"""Configs as plain dataclasses.
+
+Holds the fields of ``gddim_tpu/configs/cld/default_cifar10.py`` and
+``cld/accr_dcifar10.py`` that the sampling path reads, with the same values.
+``cld/accr_dcifar10`` is the 107.6M-parameter NCSN++ (nf=128, ch_mult
+(1,2,2,2), 8 BigGAN blocks per level, FIR resampling, attention at 16x16,
+progressive_input='residual'), set up for bf16 sampling through the fused
+kernels with the deis order-2, NFE=50 sampler of the repo's benchmark.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass
+class SamplingConfig:
+    method: str = "deis"
+    nfe: int = 50
+    deis_order: int = 2
+    ts_order: float = 2
+    noise_removal: bool = True
+
+
+@dataclasses.dataclass
+class DataConfig:
+    dataset: str = "CIFAR10"
+    image_size: int = 32
+    centered: bool = True
+    num_channels: int = 3
+
+
+@dataclasses.dataclass
+class ModelConfig:
+    name: str = "ncsnpp"
+    # CLD SDE
+    m_inv: float = 4.0
+    beta_0: float = 4.0
+    beta_1: float = 0.0
+    vv_gamma: float = 0.04
+    mixed_score: bool = False
+    # NCSN++
+    scale_by_sigma: bool = False
+    nonlinearity: str = "swish"
+    nf: int = 128
+    ch_mult: tuple = (1, 2, 2, 2)
+    num_res_blocks: int = 8
+    attn_resolutions: tuple = (16,)
+    conditional: bool = True
+    fir: bool = True
+    fir_kernel: tuple = (1, 3, 3, 1)
+    skip_rescale: bool = True
+    resblock_type: str = "biggan"
+    progressive: str = "none"
+    progressive_input: str = "residual"
+    init_scale: float = 0.0
+    embedding_type: str = "fourier"
+    fourier_scale: float = 16
+    # execution
+    dtype: str = "bfloat16"  # activations; parameters stay float32
+    conv_impl: str = "fused"  # 'fused' (the kernels) | 'plain' (torch composition)
+
+
+@dataclasses.dataclass
+class Config:
+    sde: str = "cld"
+    seed: int = 42
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    sampling: SamplingConfig = dataclasses.field(default_factory=SamplingConfig)
+
+
+_CONFIGS = {"cld/accr_dcifar10": Config}
+
+
+def get_config(name: str) -> Config:
+    """A fresh config by name ('cld/accr_dcifar10')."""
+    try:
+        return _CONFIGS[name]()
+    except KeyError:
+        raise ValueError(f"unknown config {name!r}; known: {sorted(_CONFIGS)}") from None

@@ -1,0 +1,131 @@
+"""flax param tree <-> the port's ``state_dict``.
+
+The flax tree is nested dicts of arrays keyed by the scope names
+``gddim_tpu`` produces: ``ResnetBlockBigGANpp_0..75``, ``AttnBlockpp_0..9``,
+``Downsample_0..2/Conv2d_0``, ``Conv_0/1``, ``Dense_0/1``,
+``GaussianFourierProjection_0``, ``GroupNorm_0``. Flax numbers scopes in
+creation order; ``NCSNpp.scopes`` records that order as the port builds the
+U-Net, so each scope is looked up by its own name and index (never by a
+string sort, under which ``_70`` comes before ``_8``). Layouts are shared:
+nothing is transposed.
+"""
+
+from __future__ import annotations
+
+import collections
+import re
+
+import numpy as np
+import torch
+
+from gddim_torch.models import blocks, layers, resample
+
+# torch module type -> {flax leaf: torch parameter}
+_LEAVES = {
+    layers.Conv: {"kernel": "weight", "bias": "bias"},
+    layers.Dense: {"kernel": "weight", "bias": "bias"},
+    layers.NIN: {"W": "weight", "b": "bias"},
+    layers.GroupNorm: {"scale": "weight", "bias": "bias"},
+    layers.GaussianFourierProjection: {"W": "weight"},
+    resample.Conv2d: {"weight": "weight", "bias": "bias"},
+}
+# block type -> {flax sub-scope: torch attribute}
+_SUBSCOPES = {
+    blocks.ResnetBlockBigGANpp: {
+        "GroupNorm_0": "norm1", "Conv_0": "conv1", "Dense_0": "temb_dense",
+        "GroupNorm_1": "norm2", "Conv_1": "conv2", "Conv_2": "skip",
+    },
+    blocks.AttnBlockpp: {
+        "GroupNorm_0": "norm", "NIN_0": "q", "NIN_1": "k", "NIN_2": "v", "NIN_3": "out",
+    },
+    blocks.Downsample: {"Conv2d_0": "conv"},
+}
+_SCOPE = re.compile(r"^(.*)_(\d+)$")
+
+
+def scope_key(name: str):
+    """'ResnetBlockBigGANpp_70' -> ('ResnetBlockBigGANpp', 70): sorts by index."""
+    m = _SCOPE.match(name)
+    if m is None:
+        raise ValueError(f"not a flax scope name: {name!r}")
+    return m.group(1), int(m.group(2))
+
+
+def module_pairs(mod, prefix: str = ""):
+    """[(flax path, torch key)] for one layer or block, relative to its scope."""
+    subs = _SUBSCOPES.get(type(mod))
+    children = [((), "", mod)] if subs is None else [
+        ((sub,), f"{attr}.", getattr(mod, attr)) for sub, attr in subs.items()
+        if getattr(mod, attr) is not None
+    ]
+    return [(path + (leaf,), f"{prefix}{pre}{attr}")
+            for path, pre, child in children
+            for leaf, attr in _LEAVES[type(child)].items()]
+
+
+def param_pairs(model):
+    """[(flax path tuple, torch state_dict key)] for every parameter of the model,
+    walked in the U-Net's creation order."""
+    names = {id(mod): name for name, mod in model.named_modules()}
+    return [((scope,) + path, key)
+            for scope, mod in model.scopes
+            for path, key in module_pairs(mod, names[id(mod)] + ".")]
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def check_scope_numbering(params: dict) -> None:
+    """Each scope class of the tree's top level must be numbered 0..n-1."""
+    by_cls = collections.defaultdict(list)
+    for name in params:
+        cls, idx = scope_key(name)
+        by_cls[cls].append(idx)
+    for cls, idxs in by_cls.items():
+        if sorted(idxs) != list(range(len(idxs))):
+            raise ValueError(f"scopes of {cls} are not numbered 0..{len(idxs) - 1}")
+
+
+def flax_to_state_dict(model, params: dict) -> dict:
+    """Map a flax param tree (nested dicts of arrays) onto ``model.state_dict()``
+    keys. Every flax leaf and every torch parameter is mapped exactly once.
+    ``model`` is an NCSNpp, or one layer or block with its own subtree."""
+    if hasattr(model, "scopes"):
+        check_scope_numbering(params)
+        pairs = param_pairs(model)
+    else:
+        pairs = module_pairs(model)
+    flat = dict(_flatten(params))
+    paths = [p for p, _ in pairs]
+    if set(paths) != set(flat) or len(paths) != len(flat):
+        missing = sorted(set(paths) - set(flat))[:5]
+        extra = sorted(set(flat) - set(paths))[:5]
+        raise ValueError(f"param trees differ: missing {missing}, unexpected {extra}")
+    ref = model.state_dict()
+    sd = {}
+    for path, key in pairs:
+        arr = np.asarray(flat[path], dtype=np.float32)
+        if tuple(arr.shape) != tuple(ref[key].shape):
+            raise ValueError(f"{'/'.join(path)}: shape {arr.shape} != {tuple(ref[key].shape)}")
+        sd[key] = torch.from_numpy(arr.copy())
+    if set(sd) != set(ref):
+        raise ValueError(f"unmapped torch parameters: {sorted(set(ref) - set(sd))[:5]}")
+    return sd
+
+
+def state_dict_to_flax(model) -> dict:
+    """The inverse: the model's parameters as a flax tree of numpy arrays."""
+    sd = model.state_dict()
+    tree: dict = {}
+    pairs = param_pairs(model) if hasattr(model, "scopes") else module_pairs(model)
+    for path, key in pairs:
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = sd[key].detach().float().cpu().numpy()
+    return tree

@@ -1,0 +1,190 @@
+// Spatial self-attention core of the fused attention block, for Hopper (sm_90a).
+//
+// Replaces the attention part of gddim_tpu/ops/attnblock.py:fused_attnblock
+// (K5, _attnblock_kernel). The whole block is one C call, gddim_attnblock,
+// which makes four launches, all hand-written:
+//   gddim_gn_affine (resblock.cu)    GN statistics -> per-(sample, channel) affine
+//   gddim_conv_gemm (resblock.cu)    [q|k|v] = GN(x) @ [Wq|Wk|Wv] + b, one N = 3C
+//                                    product with the GN affine as its prologue
+//   gddim_attention (this file)      a = softmax(q k^T / sqrt(C)) v per sample
+//   gddim_conv_gemm (resblock.cu)    out = (x + a @ Wo + bo) / sqrt(2) in the epilogue
+//
+// This kernel: one block per (sample, 16-query tile), 4 warps. S <= 256 keys
+// and C <= 256 channels, so the 16 x S score rows sit in shared memory: the
+// (S, S) score matrix never touches device memory. q k^T and p v run on the
+// tensor cores (bf16 WMMA, f32 accumulation); the softmax is f32, and p is
+// rounded to bf16 before p v, as the TPU kernel does.
+//
+// What bounds it on the H100: at S = 256, C = 256 each block does
+// 2 * 16 * 256 * 256 * 2 FLOPs against 16 * 256 * 2 bytes of q plus k and v
+// re-read from L2; it is latency-bound at these sizes (a few hundred blocks,
+// no pipelining). At S = 16 it is pure launch latency. The design's answer
+// is to keep the scores on chip and issue the products on tensor cores;
+// overlapping the loads is later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int QT = 16;       // query rows per block
+constexpr int MAX_S = 256;
+constexpr int MAX_C = 256;
+constexpr int ATT_THREADS = 128;
+
+// grid (S / QT, B)
+__global__ void __launch_bounds__(ATT_THREADS)
+attention_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out, int S,
+                 int C, float scale) {
+  __shared__ __align__(128) __nv_bfloat16 Qs[QT * (MAX_C + 8)];
+  __shared__ __align__(128) __nv_bfloat16 Ps[QT * (MAX_S + 8)];
+  __shared__ __align__(128) float SO[QT * ((MAX_S > MAX_C ? MAX_S : MAX_C) + 4)];
+
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * QT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long ld = 3L * C;  // row stride of qkv
+  const __nv_bfloat16* base = qkv + (long)b * S * ld;
+  const int ldq = C + 8, ldp = S + 8, lds = S + 4, ldo = C + 4;
+
+  // q tile -> shared
+  for (int v = threadIdx.x; v < QT * C / 8; v += ATT_THREADS) {
+    const int r = v / (C / 8), c = (v % (C / 8)) * 8;
+    *reinterpret_cast<uint4*>(&Qs[r * ldq + c]) =
+        *reinterpret_cast<const uint4*>(base + (long)(q0 + r) * ld + c);
+  }
+  __syncthreads();
+
+  // scores = q k^T (k read as a column-major K^T straight from qkv)
+  for (int jt = warp; jt < S / 16; jt += ATT_THREADS / 32) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.0f);
+    for (int kk = 0; kk < C; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
+      wmma::load_matrix_sync(fa, &Qs[kk], ldq);
+      wmma::load_matrix_sync(fb, base + (long)(jt * 16) * ld + C + kk, (unsigned)ld);
+      wmma::mma_sync(acc, fa, fb, acc);
+    }
+    wmma::store_matrix_sync(&SO[jt * 16], acc, lds, wmma::mem_row_major);
+  }
+  __syncthreads();
+
+  // f32 softmax over each row, p -> bf16
+  for (int r = warp; r < QT; r += ATT_THREADS / 32) {
+    float mx = -3.0e38f;
+    for (int j = lane; j < S; j += 32) mx = fmaxf(mx, SO[r * lds + j] * scale);
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float sum = 0.f;
+    for (int j = lane; j < S; j += 32) {
+      const float e = __expf(SO[r * lds + j] * scale - mx);
+      SO[r * lds + j] = e;
+      sum += e;
+    }
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float inv = 1.0f / sum;
+    for (int j = lane; j < S; j += 32) Ps[r * ldp + j] = __float2bfloat16(SO[r * lds + j] * inv);
+  }
+  __syncthreads();
+
+  // a = p v
+  for (int ct = warp; ct < C / 16; ct += ATT_THREADS / 32) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.0f);
+    for (int kk = 0; kk < S; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
+      wmma::load_matrix_sync(fa, &Ps[kk], ldp);
+      wmma::load_matrix_sync(fb, base + (long)kk * ld + 2 * C + ct * 16, (unsigned)ld);
+      wmma::mma_sync(acc, fa, fb, acc);
+    }
+    wmma::store_matrix_sync(&SO[ct * 16], acc, ldo, wmma::mem_row_major);
+  }
+  __syncthreads();
+
+  __nv_bfloat16* dst = out + ((long)b * S + q0) * C;
+  for (int v = threadIdx.x; v < QT * C; v += ATT_THREADS) {
+    const int r = v / C, c = v % C;
+    dst[(long)r * C + c] = __float2bfloat16(SO[r * ldo + c]);
+  }
+}
+
+size_t align256(size_t x) { return (x + 255) & ~(size_t)255; }
+
+struct Work {
+  float* sc;  // (B, C) GN affine
+  float* sh;
+  __nv_bfloat16* qkv;  // (M, 3C)
+  __nv_bfloat16* a;    // (M, C) attention output
+  float* partial;      // (splits, M, 3C) split-K partial sums
+  size_t bytes;
+};
+
+Work carve(char* base, int batch, long m, int c, int splits) {
+  Work w;
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base ? base + off : nullptr;
+    off += align256(bytes);
+    return p;
+  };
+  w.sc = (float*)take(sizeof(float) * batch * c);
+  w.sh = (float*)take(sizeof(float) * batch * c);
+  w.qkv = (__nv_bfloat16*)take(sizeof(__nv_bfloat16) * m * 3 * c);
+  w.a = (__nv_bfloat16*)take(sizeof(__nv_bfloat16) * m * c);
+  w.partial = splits > 1 ? (float*)take(sizeof(float) * splits * m * 3 * c) : nullptr;
+  w.bytes = off;
+  return w;
+}
+
+}  // namespace
+
+extern "C" {
+
+// from resblock.cu
+int gddim_gn_affine(const void* xa, const void* xb, int ca, int cb, int batch, int hw,
+                    int groups, const void* gamma, const void* beta, float eps, void* scale,
+                    void* shift, void* stream);
+int gddim_conv_gemm(const void* a0, const void* a1, int ca0, int ca1, const void* scale,
+                    const void* shift, int silu_on, int taps, const void* w, const void* s0,
+                    const void* s1, int cs0, int cs1, const void* ws, int batch, int h, int w_,
+                    int n, const void* bias, const void* bias2, const void* temb,
+                    const void* resid, float out_scale, void* out, void* partial, int splits,
+                    int kper, void* stream);
+
+long long gddim_attnblock_workspace(int batch, int s, int c, int splits) {
+  return (long long)carve(nullptr, batch, (long)batch * s, c, splits).bytes;
+}
+
+// The whole attention block: GN stats, [q|k|v] = GN(x) @ wqkv + bqkv (one
+// N = 3C GEMM), the attention core, out = (x + a @ wo + bo) * out_scale.
+// Scratch comes from `work`, gddim_attnblock_workspace bytes.
+int gddim_attnblock(const void* x, const void* gn_g, const void* gn_b, int groups,
+                    const void* wqkv, const void* bqkv, const void* wo, const void* bo, int batch,
+                    int s, int c, float eps, float out_scale, void* work, int splits1, int kper1,
+                    int splits2, int kper2, void* out, void* stream) {
+  if (s % QT != 0 || s > MAX_S || c % 16 != 0 || c > MAX_C) return (int)cudaErrorInvalidValue;
+  const Work wk = carve((char*)work, batch, (long)batch * s, c,
+                        splits1 > splits2 ? splits1 : splits2);
+  int err = gddim_gn_affine(x, nullptr, c, 0, batch, s, groups, gn_g, gn_b, eps, wk.sc, wk.sh,
+                            stream);
+  if (!err)
+    err = gddim_conv_gemm(x, nullptr, c, 0, wk.sc, wk.sh, 0, 1, wqkv, nullptr, nullptr, 0, 0,
+                          nullptr, batch, s, 1, 3 * c, bqkv, nullptr, nullptr, nullptr, 1.0f,
+                          wk.qkv, wk.partial, splits1, kper1, stream);
+  if (err) return err;
+  attention_kernel<<<dim3(s / QT, batch), ATT_THREADS, 0, (cudaStream_t)stream>>>(
+      wk.qkv, wk.a, s, c, 1.0f / sqrtf((float)c));
+  err = (int)cudaGetLastError();
+  if (!err)
+    err = gddim_conv_gemm(wk.a, nullptr, c, 0, nullptr, nullptr, 0, 1, wo, nullptr, nullptr, 0,
+                          0, nullptr, batch, s, 1, c, bo, nullptr, nullptr, x, out_scale, out,
+                          wk.partial, splits2, kper2, stream);
+  return err;
+}
+
+}  // extern "C"

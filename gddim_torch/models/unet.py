@@ -1,0 +1,153 @@
+"""NCSN++ score U-Net (counterpart of ``gddim_tpu/models/unet.py``).
+
+Covers the options ``cld/accr_dcifar10`` sets: Fourier time embedding, BigGAN
+blocks with FIR resampling, progressive_input='residual', progressive='none',
+skip rescaling. NHWC throughout; parameters float32, activations in
+``config.model.dtype``; ``config.model.conv_impl`` picks the fused kernels
+('fused') or the plain torch composition ('plain') for every block.
+
+Modules are created in the order ``gddim_tpu`` creates its flax scopes
+(``unet.py:221-312``), and ``scopes`` records each one's flax scope name, so
+converted weights map one to one (``gddim_torch/convert.py``).
+"""
+
+from __future__ import annotations
+
+import collections
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from gddim_torch.models.blocks import AttnBlockpp, Downsample, ResnetBlockBigGANpp
+from gddim_torch.models.layers import Conv, Dense, GaussianFourierProjection, GroupNorm
+
+_INV_SQRT2 = 0.7071067811865476
+_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16, "float32": torch.float32}
+
+
+def _require(cond: bool, what: str):
+    if not cond:
+        raise NotImplementedError(f"NCSNpp port: unsupported option {what}")
+
+
+class NCSNpp(nn.Module):
+    def __init__(self, config, generator: torch.Generator | None = None):
+        super().__init__()
+        m = config.model
+        _require(m.resblock_type.lower() == "biggan", f"resblock_type={m.resblock_type}")
+        _require(bool(m.fir), "fir=False")
+        _require(m.progressive.lower() == "none", f"progressive={m.progressive}")
+        _require(m.progressive_input.lower() == "residual",
+                 f"progressive_input={m.progressive_input}")
+        _require(m.embedding_type.lower() == "fourier", f"embedding_type={m.embedding_type}")
+        _require(bool(m.conditional), "conditional=False")
+        _require(m.nonlinearity.lower() == "swish", f"nonlinearity={m.nonlinearity}")
+        _require(not m.scale_by_sigma, "scale_by_sigma=True")
+        _require(bool(m.skip_rescale), "skip_rescale=False")
+        if m.conv_impl not in ("fused", "plain"):
+            raise ValueError(f"conv_impl must be 'fused' or 'plain', got {m.conv_impl!r}")
+        self.fused = m.conv_impl == "fused"
+        self.dtype = _DTYPES[str(m.dtype).lower()]
+        self.centered = bool(config.data.centered)
+        self.num_res_blocks = m.num_res_blocks
+        self.num_resolutions = len(m.ch_mult)
+        self.attn_resolutions = tuple(m.attn_resolutions)
+        nf, g = m.nf, generator
+        fir_kernel = tuple(m.fir_kernel)
+        channels = config.data.num_channels * 2  # (x, v) stacked
+        # (flax scope name, module) in the JAX package's creation order
+        self.scopes: list[tuple[str, nn.Module]] = []
+        counts = collections.Counter()
+
+        def add(cls_name, module):
+            self.scopes.append((f"{cls_name}_{counts[cls_name]}", module))
+            counts[cls_name] += 1
+            return module
+
+        def resblock(cin, out=None, **kw):
+            return add("ResnetBlockBigGANpp", ResnetBlockBigGANpp(
+                cin, out, 4 * nf, fir_kernel=fir_kernel, skip_rescale=m.skip_rescale,
+                init_scale=m.init_scale, generator=g, **kw))
+
+        def attn(c):
+            return add("AttnBlockpp", AttnBlockpp(c, skip_rescale=m.skip_rescale,
+                                                  init_scale=m.init_scale, generator=g))
+
+        self.fourier = add("GaussianFourierProjection",
+                           GaussianFourierProjection(nf, m.fourier_scale, generator=g))
+        self.temb0 = add("Dense", Dense(2 * nf, 4 * nf, generator=g))
+        self.temb1 = add("Dense", Dense(4 * nf, 4 * nf, generator=g))
+        self.conv_in = add("Conv", Conv(channels, nf, 3, generator=g))
+        self.down_blocks, self.down_attn = nn.ModuleList(), nn.ModuleList()
+        self.pyramid = nn.ModuleList()
+        res, c, pyr_c = config.data.image_size, nf, channels
+        hs_c = [c]
+        for i_level, mult in enumerate(m.ch_mult):
+            for _ in range(m.num_res_blocks):
+                self.down_blocks.append(resblock(c, nf * mult))
+                c = nf * mult
+                if res in self.attn_resolutions:
+                    self.down_attn.append(attn(c))
+                hs_c.append(c)
+            if i_level != self.num_resolutions - 1:
+                self.down_blocks.append(resblock(c, down=True))
+                self.pyramid.append(add("Downsample", Downsample(pyr_c, c, fir_kernel, g)))
+                pyr_c = c
+                res //= 2
+                hs_c.append(c)
+        self.mid = nn.ModuleList([resblock(c), attn(c), resblock(c)])
+        self.up_blocks, self.up_attn = nn.ModuleList(), nn.ModuleList()
+        for i_level in reversed(range(self.num_resolutions)):
+            for _ in range(m.num_res_blocks + 1):
+                self.up_blocks.append(resblock(c + hs_c.pop(), nf * m.ch_mult[i_level]))
+                c = nf * m.ch_mult[i_level]
+            if res in self.attn_resolutions:
+                self.up_attn.append(attn(c))
+            if i_level != 0:
+                self.up_blocks.append(resblock(c, up=True))
+                res *= 2
+        assert not hs_c
+        self.norm_out = add("GroupNorm", GroupNorm(c))
+        self.conv_out = add("Conv", Conv(c, channels, 3, init_scale=m.init_scale, generator=g))
+
+    def forward(self, x, time_cond):
+        """x: (B, H, W, 2*C) f32; time_cond: (B,) noise labels. Returns f32."""
+        fused = self.fused
+        temb = self.fourier(torch.log(time_cond.float()))
+        temb = self.temb0(temb.to(self.dtype))
+        temb = self.temb1(F.silu(temb))
+        if not self.centered:
+            x = 2 * x - 1.0
+        x = x.to(self.dtype)
+
+        blocks, attns, pyramid = iter(self.down_blocks), iter(self.down_attn), iter(self.pyramid)
+        input_pyramid = x
+        hs = [self.conv_in(x)]
+        for i_level in range(self.num_resolutions):
+            for _ in range(self.num_res_blocks):
+                h = next(blocks)(hs[-1], temb, fused)
+                if h.shape[1] in self.attn_resolutions:
+                    h = next(attns)(h, fused)
+                hs.append(h)
+            if i_level != self.num_resolutions - 1:
+                h = next(blocks)(hs[-1], temb, fused)
+                input_pyramid = (next(pyramid)(input_pyramid) + h) * _INV_SQRT2
+                h = input_pyramid
+                hs.append(h)
+
+        res1, attn, res2 = self.mid
+        h = res2(attn(res1(hs[-1], temb, fused), fused), temb, fused)
+
+        blocks, attns = iter(self.up_blocks), iter(self.up_attn)
+        for i_level in reversed(range(self.num_resolutions)):
+            for _ in range(self.num_res_blocks + 1):
+                h = next(blocks)((h, hs.pop()), temb, fused)
+            if h.shape[1] in self.attn_resolutions:
+                h = next(attns)(h, fused)
+            if i_level != 0:
+                h = next(blocks)(h, temb, fused)
+        assert not hs
+
+        h = self.norm_out(h, act=True, fused=fused)
+        return self.conv_out(h).float()

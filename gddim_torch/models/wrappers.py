@@ -1,0 +1,39 @@
+"""Model plumbing for CLD (counterpart of ``gddim_tpu/models/wrappers.py``).
+
+- (x, v) channel stacking "b ... d g -> b ... (g d)" in and out
+  (cld_jax/models/utils.py:141-164);
+- time conditioning labels = t * 999 (cld_jax/models/utils.py:172).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def stack_uv_to_channels(u: torch.Tensor) -> torch.Tensor:
+    """(B, ..., d, 2) -> (B, ..., 2d) with [x-channels | v-channels] order."""
+    moved = u.movedim(-1, -2)  # (..., 2, d)
+    return moved.reshape(u.shape[:-2] + (2 * u.shape[-2],))
+
+
+def unstack_channels_to_uv(h: torch.Tensor) -> torch.Tensor:
+    """(B, ..., 2d) -> (B, ..., d, 2), the inverse of stack_uv_to_channels."""
+    d = h.shape[-1] // 2
+    return h.reshape(h.shape[:-1] + (2, d)).movedim(-2, -1)
+
+
+def make_cld_eps_fn(sde):
+    """eps_apply(model, u, t_vec) -> eps for the CLD score model at inference.
+
+    u: (B, ..., d, 2) f32; t_vec: (B,). eps comes back f32, whatever the
+    model's activation dtype.
+    """
+    if sde.mixed_score:
+        raise NotImplementedError("mixed_score is not ported")
+
+    def eps_apply(model, u, t_vec):
+        with torch.inference_mode():
+            out = model(stack_uv_to_channels(u), t_vec * 999.0)
+        return unstack_channels_to_uv(out.float())
+
+    return eps_apply

@@ -1,0 +1,235 @@
+"""K2, K3, K4: the fused BigGAN residual block, NHWC.
+
+Replaces three Pallas kernels of ``gddim_tpu/ops/resblock.py``, which are one
+computation:
+
+- ``fused_resblock`` (K2, ``_resblock_kernel_v2``): every stride-1 block;
+- ``fused_resblock_pair`` (K3, ``_resblock_pair_kernel_v2``): the up-path
+  blocks on concat(xa, xb), without building the concat;
+- ``fused_resblock_tail`` (K4, ``_resblock_kernel_v2`` with GN1 off): the
+  up/down transition blocks after GN1+SiLU and the FIR resample.
+
+    h = silu(GN1(x))                          (K4: h arrives so)
+    h = conv3x3(h, W1) + b1 + (silu(temb) @ Wd + bd)
+    h = silu(GN2(h))
+    h = conv3x3(h, W2) + b2
+    out = (skip(x) + h) * 1/sqrt(2)           skip: identity or 1x1 conv + b_skip
+
+The CUDA implementation is ``csrc/resblock.cu`` (see its header for what
+bounds it on the H100 and how the design answers): five launches per block,
+all hand-written. On a CPU tensor each wrapper runs its plain version; on a
+CUDA tensor it launches the kernels or raises.
+
+Weights are in the JAX package's layout: conv kernels HWIO (3, 3, Cin, Cout),
+the skip (Cin, Cout), the temb Dense (K, Cout).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from gddim_torch import _build
+from gddim_torch.ops.groupnorm import group_norm_silu_reference
+
+_INV_SQRT2 = 0.7071067811865476
+
+
+# --------------------------------------------------------------------------
+# Plain versions (mirror gddim_tpu/ops/resblock.py:1617,1643)
+# --------------------------------------------------------------------------
+
+
+def temb_projection(temb, dense_w, dense_b):
+    """silu(temb) @ Wd + bd in f32: the per-sample row conv1 adds."""
+    return F.silu(temb.float()) @ dense_w.float() + dense_b.float()
+
+
+def conv3x3_nhwc(h, w, b=None):
+    """Stride-1 SAME 3x3 conv, NHWC input, HWIO kernel, in h's dtype."""
+    y = F.conv2d(h.permute(0, 3, 1, 2), w.to(h.dtype).permute(3, 2, 0, 1), padding=1)
+    y = y.permute(0, 2, 3, 1)
+    return y if b is None else y + b.to(h.dtype)
+
+
+def _tail(h, x_skip, temb_proj, w1, b1, gn2_scale, gn2_bias, w2, b2, w_skip, b_skip,
+          num_groups2, eps, skip_rescale):
+    y = conv3x3_nhwc(h, w1, b1) + temb_proj.to(h.dtype)[:, None, None, :]
+    y = group_norm_silu_reference(y, gn2_scale, gn2_bias, num_groups2, eps)
+    y = conv3x3_nhwc(y, w2, b2)
+    if w_skip is None:
+        skip = x_skip
+    else:
+        skip = torch.einsum("bhwc,cd->bhwd", x_skip, w_skip.to(x_skip.dtype))
+        if b_skip is not None:
+            skip = skip + b_skip.to(x_skip.dtype)
+    out = skip + y
+    return out * _INV_SQRT2 if skip_rescale else out
+
+
+def resblock_reference(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1,
+                       gn2_scale, gn2_bias, w2, b2, w_skip=None, b_skip=None, *,
+                       num_groups1: int, num_groups2: int, eps: float = 1e-6,
+                       skip_rescale: bool = True):
+    """Plain version of K2: the unfused composition."""
+    h = group_norm_silu_reference(x, gn1_scale, gn1_bias, num_groups1, eps)
+    return _tail(h, x, temb_projection(temb, dense_w, dense_b), w1, b1, gn2_scale,
+                 gn2_bias, w2, b2, w_skip, b_skip, num_groups2, eps, skip_rescale)
+
+
+def resblock_pair_reference(xa, xb, *args, **kwargs):
+    """Plain version of K3: K2's composition on the concat."""
+    return resblock_reference(torch.cat([xa, xb], -1), *args, **kwargs)
+
+
+def resblock_tail_reference(h, x_skip, temb, dense_w, dense_b, w1, b1, gn2_scale,
+                            gn2_bias, w2, b2, w_skip, b_skip, *, num_groups2: int,
+                            eps: float = 1e-6, skip_rescale: bool = True):
+    """Plain version of K4: h = silu(GN1(x)) already resampled."""
+    return _tail(h, x_skip, temb_projection(temb, dense_w, dense_b), w1, b1, gn2_scale,
+                 gn2_bias, w2, b2, w_skip, b_skip, num_groups2, eps, skip_rescale)
+
+
+# --------------------------------------------------------------------------
+# CUDA path
+# --------------------------------------------------------------------------
+
+_BM, _BN, _BK = 64, 64, 32  # conv_gemm_kernel's tile (csrc/resblock.cu)
+_TARGET_BLOCKS = 4 * 132  # four resident blocks on each of the H100's 132 SMs
+_MIN_SPLIT_SLICES = 8  # K slices per split, at least
+
+
+def split_k(m: int, n: int, k: int) -> tuple[int, int]:
+    """(splits, K per split) so that a small-M GEMM still fills the card."""
+    blocks = -(-m // _BM) * (n // _BN)
+    slices = k // _BK
+    splits = max(1, min(-(-_TARGET_BLOCKS // blocks), slices // _MIN_SPLIT_SLICES))
+    per = -(-slices // splits)
+    return -(-slices // per), per * _BK
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(b: int, h: int, w: int, cin: int, cskip: int, n: int):
+    """(splits1, kper1, splits2, kper2, workspace bytes) of one block shape."""
+    s1, k1 = split_k(b * h * w, n, 9 * cin)
+    s2, k2 = split_k(b * h * w, n, 9 * n + cskip)
+    return s1, k1, s2, k2, _build.workspace_bytes("gddim_resblock", b, h, w, cin, n, max(s1, s2))
+
+
+def _operand(t, what, dtype, shape=None):
+    """t as a contiguous CUDA tensor of ``dtype`` (cast if need be), or None."""
+    if t is None:
+        return None
+    t = t.to(dtype).contiguous()
+    if t.device.type != "cuda" or (shape is not None and tuple(t.shape) != tuple(shape)):
+        raise ValueError(f"{what}: needs a CUDA tensor of shape {shape}, got "
+                         f"{tuple(t.shape)} on {t.device}")
+    return t
+
+
+def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias, w2, b2,
+                skip_parts, w_skip, b_skip, *, num_groups2, eps, skip_rescale):
+    """One block through gddim_resblock. gn1: (scale, bias, groups), or None (K4);
+    skip_parts None: identity residual parts[0]."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    b, h, w, _ = parts[0].shape
+    xs = [_operand(p, "resblock input", bf16, (b, h, w, p.shape[-1])) for p in parts] + [None]
+    ss = [_operand(p, "skip input", bf16, (b, h, w, p.shape[-1]))
+          for p in skip_parts or ()] + [None, None]
+    c0, c1 = (p.shape[-1] if p is not None else 0 for p in xs[:2])
+    cs0, cs1 = (p.shape[-1] if p is not None else 0 for p in ss[:2])
+    cin, n = c0 + c1, w1.shape[-1]
+    if any(c % 8 for c in (c0, c1, cs0, cs1)) or cin % _BK or (cs0 + cs1) % _BK or n % _BN:
+        raise ValueError(f"resblock: unsupported channels {c0}+{c1} (skip {cs0}+{cs1}) -> {n}")
+    if skip_parts is None and cin != n:
+        raise ValueError("resblock: identity skip needs Cin == Cout")
+    s1, k1, s2, k2, nbytes = _plan(b, h, w, cin, cs0 + cs1, n)
+    temb = _operand(temb, "temb", f32)
+    gn1 = gn1 or (None, None, 0)
+    # operands stay referenced until the launch: a cast's temporary must not be freed
+    ops = [
+        temb, _operand(dense_w, "temb dense", f32, (temb.shape[-1], n)),
+        _operand(dense_b, "temb bias", f32, (n,)),
+        _operand(gn1[0], "gn1 scale", f32, (cin,)), _operand(gn1[1], "gn1 bias", f32, (cin,)),
+        _operand(w1, "conv1", bf16, (3, 3, cin, n)), _operand(b1, "b1", f32, (n,)),
+        _operand(gn2_scale, "gn2 scale", f32, (n,)), _operand(gn2_bias, "gn2 bias", f32, (n,)),
+        _operand(w2, "conv2", bf16, (3, 3, n, n)), _operand(b2, "b2", f32, (n,)),
+        _operand(w_skip, "skip", bf16, (cs0 + cs1, n)) if skip_parts is not None else None,
+        _operand(b_skip, "b_skip", f32, (n,)) if skip_parts is not None else None,
+    ]
+    temb_, dw, db, g1s, g1b, w1_, b1_, g2s, g2b, w2_, b2_, ws_, bs_ = map(_build.ptr, ops)
+    dev = xs[0].device
+    work = torch.empty(nbytes, device=dev, dtype=torch.uint8)
+    out = torch.empty((b, h, w, n), device=dev, dtype=bf16)
+    _build.launch(
+        "gddim_resblock", dev, _build.ptr(xs[0]), _build.ptr(xs[1]), c0, c1,
+        temb_, dw, db, temb.shape[-1], g1s, g1b, gn1[2], w1_, b1_, g2s, g2b, num_groups2,
+        w2_, b2_, _build.ptr(ss[0]), _build.ptr(ss[1]), cs0, cs1, ws_, bs_,
+        b, h, w, n, eps, _INV_SQRT2 if skip_rescale else 1.0, work.data_ptr(),
+        s1, k1, s2, k2, out.data_ptr(),
+    )
+    return out
+
+
+def _on_cpu(x, what):
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    return False
+
+
+def fused_resblock(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale,
+                   gn2_bias, w2, b2, w_skip=None, b_skip=None, *, num_groups1: int,
+                   num_groups2: int, eps: float = 1e-6, skip_rescale: bool = True):
+    """K2: one stride-1 block (identity skip when w_skip is None)."""
+    args = (x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias,
+            w2, b2, w_skip, b_skip)
+    if _on_cpu(x, "fused_resblock"):
+        return resblock_reference(*args, num_groups1=num_groups1, num_groups2=num_groups2,
+                                  eps=eps, skip_rescale=skip_rescale)
+    out = _block_cuda([x], temb, dense_w, dense_b, (gn1_scale, gn1_bias, num_groups1), w1,
+                      b1, gn2_scale, gn2_bias, w2, b2, None if w_skip is None else [x],
+                      w_skip, b_skip,
+                      num_groups2=num_groups2, eps=eps, skip_rescale=skip_rescale)
+    fused_resblock.launches += 1
+    return out
+
+
+def fused_resblock_pair(xa, xb, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1,
+                        gn2_scale, gn2_bias, w2, b2, w_skip, b_skip, *, num_groups1: int,
+                        num_groups2: int, eps: float = 1e-6, skip_rescale: bool = True):
+    """K3: K2 on concat(xa, xb) without building the concat; w_skip (c1+c2, Cout)."""
+    if _on_cpu(xa, "fused_resblock_pair"):
+        return resblock_pair_reference(
+            xa, xb, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale,
+            gn2_bias, w2, b2, w_skip, b_skip, num_groups1=num_groups1,
+            num_groups2=num_groups2, eps=eps, skip_rescale=skip_rescale)
+    out = _block_cuda([xa, xb], temb, dense_w, dense_b, (gn1_scale, gn1_bias, num_groups1),
+                      w1, b1, gn2_scale, gn2_bias, w2, b2, [xa, xb], w_skip, b_skip,
+                      num_groups2=num_groups2, eps=eps, skip_rescale=skip_rescale)
+    fused_resblock_pair.launches += 1
+    return out
+
+
+def fused_resblock_tail(h, x_skip, temb, dense_w, dense_b, w1, b1, gn2_scale, gn2_bias,
+                        w2, b2, w_skip, b_skip, *, num_groups2: int, eps: float = 1e-6,
+                        skip_rescale: bool = True):
+    """K4: the transition tail; h = silu(GN1(x)) after the resample, x_skip the
+    resampled block input, w_skip (C, Cout) required."""
+    if _on_cpu(h, "fused_resblock_tail"):
+        return resblock_tail_reference(
+            h, x_skip, temb, dense_w, dense_b, w1, b1, gn2_scale, gn2_bias, w2, b2,
+            w_skip, b_skip, num_groups2=num_groups2, eps=eps, skip_rescale=skip_rescale)
+    out = _block_cuda([h], temb, dense_w, dense_b, None, w1, b1, gn2_scale, gn2_bias, w2,
+                      b2, [x_skip], w_skip, b_skip, num_groups2=num_groups2, eps=eps,
+                      skip_rescale=skip_rescale)
+    fused_resblock_tail.launches += 1
+    return out
+
+
+fused_resblock.launches = 0  # block launches on CUDA tensors (one gddim_resblock each)
+fused_resblock_pair.launches = 0
+fused_resblock_tail.launches = 0

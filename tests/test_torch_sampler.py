@@ -1,0 +1,105 @@
+"""The port's deis sampler against the JAX package's, and the port's
+independence from JAX."""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from gddim_torch.cli import build_sampling_fn
+from gddim_torch.configs import get_config
+from gddim_torch.models.init import seeded_model, seeded_params
+from gddim_tpu.configs import get_config as jax_get_config
+from gddim_tpu.math.cld import CLD as JaxCLD
+from gddim_tpu.models import get_model
+from gddim_tpu.models import make_cld_eps_fn as jax_make_cld_eps_fn
+from gddim_tpu.samplers.factory import build_cld_sampler as jax_build_cld_sampler
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def small(cfg, nfe=4):
+    cfg.model.nf = 32
+    cfg.model.ch_mult = (1, 2)
+    cfg.model.num_res_blocks = 1
+    cfg.model.attn_resolutions = (16,)
+    cfg.data.image_size = 16
+    cfg.model.dtype = "float32"
+    cfg.sampling.method = "deis"
+    cfg.sampling.deis_order = 2
+    cfg.sampling.noise_removal = True
+    cfg.sampling.nfe = nfe
+    cfg.sampling.ts_order = 2
+    return cfg
+
+
+def test_deis_trajectory_matches_jax(tmp_path, monkeypatch):
+    monkeypatch.setenv("GDDIM_CACHE_DIR", str(tmp_path / "jax"))
+    monkeypatch.setenv("GDDIM_TORCH_CACHE_DIR", str(tmp_path / "torch"))
+    cfg = small(get_config("cld/accr_dcifar10"))
+    tree = seeded_params(cfg, 0)
+    u0 = np.random.default_rng(0).standard_normal((2, 16, 16, 3, 2)).astype(np.float32)
+    u0[..., 1] *= 0.5
+
+    x, v, nfe = build_sampling_fn(cfg)(None, seeded_model(cfg, 0), u0=torch.from_numpy(u0))
+
+    jcfg = small(jax_get_config("cld/accr_dcifar10"))
+    jcfg.model.conv_impl = "fused"
+    sde = JaxCLD.from_config(jcfg)
+    sampler = jax_build_cld_sampler(
+        jcfg, sde, jax_make_cld_eps_fn(sde, get_model("ncsnpp")(config=jcfg)), (16, 16, 3),
+        inverse_scaler=lambda a: (a + 1.0) / 2.0)
+    jxs, jvs, jnfe = sampler(jax.random.PRNGKey(0), {"params": jax.tree.map(jnp.asarray, tree)},
+                             u0=jnp.asarray(u0))
+    assert nfe == jnfe == 4
+    for got, want in ((x, jxs), (v, jvs)):
+        want = np.asarray(want, np.float64)
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        rel = np.abs(got.numpy() - want).max() / np.abs(want).max()
+        assert rel <= 1e-3, rel
+
+
+def test_prior_draw_and_cli_writes_samples(tmp_path, monkeypatch):
+    monkeypatch.setenv("GDDIM_TORCH_CACHE_DIR", str(tmp_path / "cache"))
+    from gddim_torch.cli import sample_data
+
+    cfg = small(get_config("cld/accr_dcifar10"), nfe=3)
+    model = seeded_model(cfg, 1)
+    (path,) = sample_data(cfg, model, tmp_path / "out", batch=2, rounds=1, seed=3,
+                          device=torch.device("cpu"))
+    with np.load(path) as f:
+        assert f["samples"].shape == (2, 16, 16, 3) and f["samples"].dtype == np.uint8
+        assert f["v"].shape == (2, 16, 16, 3) and int(f["nfe"]) == 3
+
+
+def test_port_imports_no_jax(tmp_path):
+    code = textwrap.dedent("""
+        import sys, torch
+        import gddim_torch, gddim_torch.cli, gddim_torch.convert
+        from gddim_torch.configs import get_config
+        from gddim_torch.math.cld import CLD
+        from gddim_torch.models.init import seeded_model
+        from gddim_torch.models.wrappers import make_cld_eps_fn
+        cfg = get_config("cld/accr_dcifar10")
+        cfg.model.nf, cfg.model.ch_mult, cfg.model.num_res_blocks = 32, (1, 2), 1
+        cfg.data.image_size, cfg.model.dtype = 16, "float32"
+        eps = make_cld_eps_fn(CLD.from_config(cfg))(
+            seeded_model(cfg, 0), torch.zeros(1, 16, 16, 3, 2), torch.full((1,), 0.5))
+        assert eps.shape == (1, 16, 16, 3, 2)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "ml_collections",
+                                            "gddim_tpu"))
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO), GDDIM_TORCH_CACHE_DIR=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=300, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
