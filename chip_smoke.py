@@ -1,19 +1,29 @@
 """Smoke run of the PyTorch/H100 port on one CUDA card.
 
-    python3 chip_smoke.py [--phases build,kernels,eps,sample] [--batch 16]
+    python3 chip_smoke.py [--phases build,kernels,eps,sample,train] [--batch 16]
 
-Phases (each prints one line; any failure raises and exits non-zero):
+Phases (each prints one line per check; any failure raises and exits non-zero):
   1. the card: torch.cuda must be available; prints nvidia-smi's name and
      power limit;
-  2. build: nvcc builds gddim_torch/csrc/*.cu, Triton compiles K1;
-  3. kernels: each of K1-K5 at every main-path shape of the
-     cld/accr_dcifar10 NCSN++ (B=4, bf16 inputs) against its plain version
-     in f32 (TF32 off) on the same inputs, with timings;
+  2. build: nvcc builds gddim_torch/csrc/*.cu (one process per source, in
+     parallel), Triton compiles K1;
+  3. kernels: each of K1-K5 at every sampling-path shape and K1 (f32, with
+     and without SiLU) and K6-K8 at every training-path shape of the
+     cld/accr_dcifar10 NCSN++ (B=4) against its plain version in f32 (TF32
+     off) on the same inputs, with timings; K7's 12 gradients each within its
+     bound, and two K7 runs bit-identical; K6 with conv2's weight zero, where
+     its output is the f32 residual (x + b2)/sqrt(2) to f32 rounding;
   4. eps: one full-width eps evaluation (B=4, t=0.5, seeded weights), kernel
      path in bf16 against the all-plain path in f32, with the launch counts
      of that one evaluation;
   5. sample: CLD deis-2 NFE=50 sampling through gddim_torch.cli's sampling
-     function (B=16, seeded weights): finite samples, launch counts, wall time.
+     function (B=16, seeded weights): finite samples, launch counts, wall time;
+  6. train: the full-width model in f32 (seeded weights) at the config's
+     training batch (128): one loss + backward on the kernel path against the
+     all-plain path with the same t, z and dropout masks (loss, gradient
+     norm, worst per-tensor error); then training.n_jitted_steps Adam steps through
+     gddim_torch.cli's train function: finite loss and parameters, launch
+     counts per step; img/s and peak memory of both paths for information.
 Then one line {"kernels": [...]}, one line with the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 """
@@ -31,16 +41,58 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# Bounds on max|kernel - plain| / max|plain|, bf16 inputs and weights, f32
-# plain version. The kernels write bf16 (a relative rounding of up to 2^-8 =
+# Bounds on max|kernel - plain| / max|plain|. K1-K5: bf16 inputs and weights,
+# f32 plain version; the kernels write bf16 (a relative rounding of up to 2^-8 =
 # 3.9e-3 per element) and measured 1.9e-3 to 3.4e-3 at every main-path shape
 # on an H100; the bounds leave about 3x margin over that.
-KERNEL_BOUND = {"K1": 1e-2, "K2": 1e-2, "K3": 1e-2, "K4": 1e-2, "K5": 1e-2}
+KERNEL_BOUND = {"K1": 1e-2, "K2": 1e-2, "K3": 1e-2, "K4": 1e-2, "K5": 1e-2,
+                # K6: f32 in and out, bf16 MMA operands: measured 1.3e-3 to 3.0e-3
+                # at every training-path shape on an H100 (f32 inputs)
+                "K6": 1e-2,
+                # K8: f32 FMA throughout: measured 3.5e-7 to 1.8e-6
+                "K8": 1e-5}
+# K1 in f32 (the training path's dtype) against the plain f32 version: both
+# reduce in f32 with a two-pass variance, so only the summation order differs;
+# measured 1.6e-7 to 3.1e-7 at the 12 training-path cases on an H100
+K1_F32_BOUND = 1e-6
+# K6 with conv2's weight zero: its output is (x + b2)/sqrt(2) computed in f32,
+# so x must reach the residual unrounded (a bf16 x would be off by ~2e-3);
+# measured 0 (the kernel rounds as the plain version does) on an H100
+K6_RESIDUAL_BOUND = 1e-6
+# K7, per gradient, against autograd of the plain f32 block. The gradients
+# that pass through bf16 tensor-core operands measured 1.4e-3 to 5.2e-3 on an
+# H100; db2 and db_skip are f32 sums of the cotangent only (2.7e-7 at most).
+K7_BOUND = {name: 1.5e-2 for name in ("dx", "dtemb", "dgn1s", "dgn1b", "dw1", "db1", "dgn2s",
+                                      "dgn2b", "dw2", "dwsk")}
+K7_BOUND.update(db2=1e-6, dbsk=1e-6)
+# Full-width train step (B=128), kernel path vs all-plain f32 path on the same
+# t, z and masks, on an H100: loss 1.7e-4, gradient norm 1.6e-3. Per gradient
+# tensor, max|kernel - plain| / max|plain| and the L2 ratio: the error grows
+# with the depth a gradient has passed through bf16 MMA operands (K7 runs in
+# 70 blocks), so tensors whose largest gradient is at least DEEP_SHARE of the
+# largest of all measured 1.65e-2 (L2 1.22e-2) and the smaller, deeper ones
+# (766 of 962, down to 6e-9 of the largest) 7.64e-2 (L2 4.99e-2). About 3x.
+TRAIN_BOUND = {"loss": 5e-4, "grad_norm": 5e-3, "worst_tensor": 5e-2, "worst_tensor_l2": 4e-2,
+               "worst_deep_tensor": 0.25, "worst_deep_tensor_l2": 0.15,
+               # the key biases' error against LEAF_FLOOR of the largest: measured
+               # 0.9e-8 to 1.1e-8, the noise of two computations of an exact zero
+               "key_bias": 5e-8}
+DEEP_SHARE = 1e-3
+# The attention key bias's exact gradient is zero (softmax ignores a constant
+# added to every logit of a row), so its tensor is rounding noise (1e-11 of
+# the largest gradient): its error is measured against LEAF_FLOOR of the
+# largest gradient. Every other tensor is measured on its own scale, however
+# small its gradient.
+LEAF_FLOOR = 1e-3
 # Whole network, bf16 kernel path vs f32 plain path: measured 7.1e-3 and
 # 7.6e-3 (seeded weights, B=4, t=0.5); about 2.5x margin.
 EPS_BOUND = 2e-2
 # kernel launches per eps evaluation of cld/accr_dcifar10
 PER_EVAL = {"K1": 7, "K2": 34, "K3": 36, "K4": 6, "K5": 10}
+# kernel launches per training step: K1 in the 6 transitions (GN1, GN2), the
+# 10 attention blocks and norm_out; K6 forward and K7 backward in the 34
+# stride-1 and 36 concatenated up-path blocks; K8 in the 10 attention blocks
+PER_STEP = {"K1": 23, "K6": 70, "K7": 70, "K8": 10}
 
 KERNELS = {
     "K1": dict(name="group_norm_silu", route="triton", source="gddim_torch/ops/groupnorm.py",
@@ -53,6 +105,13 @@ KERNELS = {
                replaces="gddim_tpu/ops/resblock.py:1111"),
     "K5": dict(name="fused_attnblock", route="cuda", source="gddim_torch/csrc/attnblock.cu",
                replaces="gddim_tpu/ops/attnblock.py:166"),
+    "K6": dict(name="fused_resblock_train", route="cuda", source="gddim_torch/csrc/resblock.cu",
+               replaces="gddim_tpu/ops/resblock.py:1709"),
+    "K7": dict(name="fused_resblock_train_grads", route="cuda",
+               source="gddim_torch/csrc/resblock_bwd.cu",
+               replaces="gddim_tpu/ops/resblock_bwd.py:353"),
+    "K8": dict(name="flash_attention", route="cuda", source="gddim_torch/csrc/flash.cu",
+               replaces="gddim_tpu/ops/flash.py:97"),
 }
 # main-path shapes of cld/accr_dcifar10 (H, channels in, channels out)
 SHAPES = {
@@ -62,7 +121,18 @@ SHAPES = {
            (16, (256, 128), 256), (32, (256, 128), 128), (32, (128, 128), 128)],
     "K4": [(16, 128, 128), (8, 256, 256), (4, 256, 256), (16, 256, 256), (32, 256, 256)],
     "K5": [(16, 256), (4, 256)],
+    # training path, f32: GN1/GN2 of the 6 transitions, the attention GNs
+    # (16x16x256 and 4x4x256, no SiLU) and norm_out (32x32x128)
+    "K1_train": [(32, 128), (16, 128), (16, 256), (8, 256), (4, 256), (32, 256)],
+    # training path: every stride-1 block shape (K6 and K7 alike)
+    "K6": [(32, 128, 128), (32, 384, 128), (32, 256, 128), (16, 512, 256), (16, 384, 256),
+           (16, 256, 256), (16, 128, 256), (8, 512, 256), (8, 256, 256), (4, 512, 256),
+           (4, 256, 256)],
+    # (B, S, C): the training path's 16x16 and 4x4 attention, and one long sequence
+    "K8": [(4, 256, 256), (4, 16, 256), (1, 2048, 128)],
 }
+GRADS = ["dx", "dtemb", "dgn1s", "dgn1b", "dw1", "db1", "dgn2s", "dgn2b", "dw2", "db2", "dwsk",
+         "dbsk"]
 TEMB = 512  # 4 * nf
 
 
@@ -166,6 +236,21 @@ def plain_bf16(kernel):
             "K5": attnblock.attnblock_reference}[kernel]
 
 
+def _rel(out, ref) -> float:
+    return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def _record(results, kernel, label, err, rel, ms, plain_ms, **extra):
+    r = results.setdefault(kernel, dict(max_abs_err=0.0, max_rel_err=0.0, ms=0.0,
+                                        plain_ms=0.0, shapes=[]))
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["max_rel_err"] = max(r["max_rel_err"], rel)
+    r["ms"] += ms
+    r["plain_ms"] += plain_ms
+    r["shapes"].append(dict(shape=label, max_abs_err=err, rel=rel, ms=ms, plain_ms=plain_ms,
+                            **extra))
+
+
 def phase_kernels(results: dict, B: int = 4):
     for kernel, label, fused, plain, args, kw in kernel_cases(B):
         out = fused()
@@ -174,33 +259,147 @@ def phase_kernels(results: dict, B: int = 4):
         if out.shape != ref.shape or out.dtype != torch.bfloat16:
             raise AssertionError(f"{kernel} {label}: got {out.dtype} {tuple(out.shape)}, "
                                  f"plain {tuple(ref.shape)}")
-        err = (out.float() - ref.float()).abs().max().item()
-        rel = err / max(ref.float().abs().max().item(), 1e-12)
+        err, rel = (out.float() - ref.float()).abs().max().item(), _rel(out, ref)
         ms = time_ms(fused)
         plain_ms = time_ms(lambda: plain_bf16(kernel)(*args, **kw))
         plain_f32_ms = time_ms(plain)
         print(f"kernel {kernel} {KERNELS[kernel]['name']} [{label}] B={B}: max|err|={err:.3e} "
               f"rel={rel:.3e} (bound {KERNEL_BOUND[kernel]:.0e}) ms={ms:.4f} "
               f"plain_bf16_ms={plain_ms:.4f} plain_f32_ms={plain_f32_ms:.4f}", flush=True)
-        r = results.setdefault(kernel, dict(max_abs_err=0.0, max_rel_err=0.0, ms=0.0,
-                                            plain_ms=0.0, shapes=[]))
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["max_rel_err"] = max(r["max_rel_err"], rel)
-        r["ms"] += ms
-        r["plain_ms"] += plain_ms
-        r["shapes"].append(dict(shape=label, max_abs_err=err, rel=rel, ms=ms,
-                                plain_bf16_ms=plain_ms, plain_f32_ms=plain_f32_ms))
+        _record(results, kernel, label, err, rel, ms, plain_ms, plain_f32_ms=plain_f32_ms)
         if not np.isfinite(rel) or rel > KERNEL_BOUND[kernel]:
             raise AssertionError(f"{kernel} {label}: rel err {rel:.3e} > "
                                  f"{KERNEL_BOUND[kernel]:.0e}")
 
 
+def train_block_inputs(inp: Inputs, B: int, h: int, cin: int, cout: int, keep: float = 0.9):
+    """f32 operands of one training block (not rounded to bf16, so the
+    kernels' bf16 operand rounding shows), a seeded dropout mask and a
+    cotangent."""
+    g = inp.g
+    act = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    w = lambda *shape: act(*shape) / float(np.prod(shape[:-1])) ** 0.5  # noqa: E731
+    skip = (w(cin, cout), inp.vec(cout)) if cin != cout else (None, None)
+    args = (act(B, h, h, cin), act(B, cout), inp.vec(cin, 1.0), inp.vec(cin),
+            w(3, 3, cin, cout), inp.vec(cout), inp.vec(cout, 1.0), inp.vec(cout),
+            w(3, 3, cout, cout), inp.vec(cout), *skip)
+    mask = (torch.rand((B, h, h, cout), generator=g, device="cuda") < keep).to(torch.int8)
+    return args, mask, act(B, h, h, cout)
+
+
+def phase_train_kernels(results: dict, B: int = 4):
+    """K1 in f32 at every training-path GroupNorm shape, K6 and K7 at every
+    training-path block shape, K8 at its shapes."""
+    from gddim_torch.ops import attention, groupnorm, resblock, resblock_bwd
+
+    inp = Inputs(1)
+    for h, c in SHAPES["K1_train"]:
+        args = (torch.randn((B, h, h, c), generator=inp.g, device="cuda"), inp.vec(c, 1.0),
+                inp.vec(c))
+        for silu in (True, False):
+            kw = dict(num_groups=32, eps=1e-6, apply_silu=silu)
+            label = f"f32 {h}x{h}x{c}{' silu' if silu else ''}"
+            fused = lambda: groupnorm.group_norm_silu(*args, **kw)  # noqa: E731
+            plain = lambda: groupnorm.group_norm_silu_reference(*args, **kw)  # noqa: E731
+            out = fused()
+            torch.cuda.synchronize()
+            ref = plain()
+            if out.dtype != torch.float32 or out.shape != ref.shape:
+                raise AssertionError(f"K1 {label}: got {out.dtype} {tuple(out.shape)}")
+            err, rel = (out - ref).abs().max().item(), _rel(out, ref)
+            ms, plain_ms = time_ms(fused), time_ms(plain)
+            print(f"kernel K1 group_norm_silu [{label}] B={B}: max|err|={err:.3e} rel={rel:.3e} "
+                  f"(bound {K1_F32_BOUND:.0e}) ms={ms:.4f} plain_f32_ms={plain_ms:.4f}",
+                  flush=True)
+            _record(results, "K1", label, err, rel, ms, plain_ms)
+            if not np.isfinite(rel) or rel > K1_F32_BOUND:
+                raise AssertionError(f"K1 {label}: rel err {rel:.3e} > {K1_F32_BOUND:.0e}")
+
+    for h, cin, cout in SHAPES["K6"]:
+        args, mask, g = train_block_inputs(inp, B, h, cin, cout)
+        kw = dict(keep_prob=0.9, num_groups1=min(cin // 4, 32), num_groups2=min(cout // 4, 32))
+        label = f"{h}x{h} {cin}->{cout}"
+        fused = lambda: resblock.fused_resblock_train(*args, mask, **kw)  # noqa: E731
+        plain = lambda: resblock.resblock_train_reference(*args, mask, **kw)  # noqa: E731
+        out = fused()
+        torch.cuda.synchronize()
+        ref = plain()
+        if out.shape != ref.shape or out.dtype != torch.float32:
+            raise AssertionError(f"K6 {label}: got {out.dtype} {tuple(out.shape)}")
+        err, rel = (out - ref).abs().max().item(), _rel(out, ref)
+        ms, plain_ms = time_ms(fused), time_ms(plain)
+        print(f"kernel K6 fused_resblock_train [{label}] B={B}: max|err|={err:.3e} "
+              f"rel={rel:.3e} (bound {KERNEL_BOUND['K6']:.0e}) ms={ms:.4f} "
+              f"plain_f32_ms={plain_ms:.4f}", flush=True)
+        _record(results, "K6", label, err, rel, ms, plain_ms)
+        if not np.isfinite(rel) or rel > KERNEL_BOUND["K6"]:
+            raise AssertionError(f"K6 {label}: rel err {rel:.3e} > {KERNEL_BOUND['K6']:.0e}")
+
+        kgrads = lambda: resblock_bwd.fused_resblock_train_grads(*args, mask, g, **kw)  # noqa: E731
+        pgrads = lambda: resblock_bwd.resblock_train_grads_reference(*args, mask, g, **kw)  # noqa: E731
+        got, again = kgrads(), kgrads()
+        torch.cuda.synchronize()
+        want = pgrads()
+        errs = {}
+        for name, a, b2, w in zip(GRADS, got, again, want):
+            if w is None:
+                if a is not None:
+                    raise AssertionError(f"K7 {label}: {name} should be None without a skip")
+                continue
+            if not torch.equal(a, b2):
+                raise AssertionError(f"K7 {label}: {name} differs between two runs")
+            errs[name] = _rel(a, w)
+        ms, plain_ms = time_ms(kgrads), time_ms(pgrads)
+        abs_err = max((a - w).abs().max().item() for a, w in zip(got, want) if w is not None)
+        print(f"kernel K7 fused_resblock_train_grads [{label}] B={B}: bit-identical on repeat; "
+              + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+              + f" (bounds {K7_BOUND['dx']:.1e}, db2 and dbsk {K7_BOUND['db2']:.0e}) "
+              f"ms={ms:.4f} plain_f32_ms={plain_ms:.4f}", flush=True)
+        _record(results, "K7", label, abs_err, max(errs.values()), ms, plain_ms, grads=errs)
+        bad = {k: v for k, v in errs.items() if not np.isfinite(v) or v > K7_BOUND[k]}
+        if bad:
+            raise AssertionError(f"K7 {label}: gradients over their bounds: {bad}")
+
+    # conv2's weight zero: out = (x + b2)/sqrt(2), so the identity residual
+    # shows whether x stays f32 through K6
+    args, mask, _ = train_block_inputs(inp, B, 16, 256, 256)
+    args = list(args)
+    args[8] = torch.zeros_like(args[8])
+    kw = dict(keep_prob=0.9, num_groups1=32, num_groups2=32)
+    out = resblock.fused_resblock_train(*args, mask, **kw)
+    ref = resblock.resblock_train_reference(*args, mask, **kw)
+    rel = _rel(out, ref)
+    print(f"kernel K6 fused_resblock_train [16x16 256->256, conv2 weight 0] B={B}: "
+          f"rel={rel:.3e} (bound {K6_RESIDUAL_BOUND:.0e}; a bf16 x would give ~2e-3)", flush=True)
+    results["K6"]["shapes"].append(dict(shape="16x16 256->256, conv2 weight 0", rel=rel))
+    if not np.isfinite(rel) or rel > K6_RESIDUAL_BOUND:
+        raise AssertionError(f"K6 residual: rel err {rel:.3e} > {K6_RESIDUAL_BOUND:.0e}")
+
+    for b, s_, c in SHAPES["K8"]:
+        q, k, v = (torch.randn((b, s_, c), generator=inp.g, device="cuda") for _ in range(3))
+        label = f"B={b} S={s_} C={c}"
+        fused = lambda: attention.flash_attention(q, k, v)  # noqa: E731
+        plain = lambda: attention.attention_xla(q, k, v)  # noqa: E731
+        out = fused()
+        torch.cuda.synchronize()
+        ref = plain()
+        err, rel = (out - ref).abs().max().item(), _rel(out, ref)
+        ms, plain_ms = time_ms(fused), time_ms(plain)
+        print(f"kernel K8 flash_attention [{label}]: max|err|={err:.3e} rel={rel:.3e} "
+              f"(bound {KERNEL_BOUND['K8']:.0e}) ms={ms:.4f} plain_f32_ms={plain_ms:.4f}",
+              flush=True)
+        _record(results, "K8", label, err, rel, ms, plain_ms)
+        if not np.isfinite(rel) or rel > KERNEL_BOUND["K8"]:
+            raise AssertionError(f"K8 {label}: rel err {rel:.3e} > {KERNEL_BOUND['K8']:.0e}")
+
+
 def counters():
-    from gddim_torch.ops import attnblock, groupnorm, resblock
+    from gddim_torch.ops import attention, attnblock, groupnorm, resblock, resblock_bwd
 
     return {"K1": groupnorm.group_norm_silu, "K2": resblock.fused_resblock,
             "K3": resblock.fused_resblock_pair, "K4": resblock.fused_resblock_tail,
-            "K5": attnblock.fused_attnblock}
+            "K5": attnblock.fused_attnblock, "K6": resblock.fused_resblock_train,
+            "K7": resblock_bwd.fused_resblock_train_grads, "K8": attention.flash_attention}
 
 
 def reset_counts():
@@ -225,7 +424,7 @@ def phase_eps(config):
     reset_counts()
     got = eps_apply(model, u, t)
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = {k: read_counts()[k] for k in PER_EVAL}
     model.fused, model.dtype = False, torch.float32
     ref = eps_apply(model, u, t)
     model.fused, model.dtype = True, torch.bfloat16
@@ -251,7 +450,7 @@ def phase_sample(config, model, batch: int, card: str):
         (path,) = sample_data(config, model, Path(tmp), batch, rounds=1, seed=8, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = read_counts()
+        counts = {k: read_counts()[k] for k in PER_EVAL}
         with np.load(path) as f:
             samples, v, nfe_rec = f["samples"], f["v"], int(f["nfe"])
     expected = {k: n * nfe for k, n in PER_EVAL.items()}
@@ -264,10 +463,128 @@ def phase_sample(config, model, batch: int, card: str):
     return counts
 
 
+def _loss_and_grads(model, loss_fn, images, t, z, seed):
+    """One loss + backward; the dropout masks come from a generator seeded
+    with ``seed``, so two paths draw the same masks."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for p in model.parameters():
+        p.grad = None
+    loss = loss_fn(model, images, gen, t=t, z=z)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters() if p.requires_grad}
+    for p in model.parameters():
+        p.grad = None
+    return loss.detach(), grads
+
+
+def _timed_steps(state, train_step, batches):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    info = train_step(state, batches)
+    loss = float(info["loss"])
+    torch.cuda.synchronize()
+    return loss, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_train(card: str):
+    from gddim_torch.cli import train
+    from gddim_torch.configs import train_config
+    from gddim_torch.data.synthetic import SyntheticStream, get_data_scaler
+    from gddim_torch.math.cld import CLD
+    from gddim_torch.models.init import seeded_model
+    from gddim_torch.train.losses import make_cld_loss_fn
+    from gddim_torch.train.step import make_train_step
+
+    config = train_config("cld/accr_dcifar10")
+    n_steps, batch = int(config.training.n_jitted_steps), int(config.training.batch_size)
+    model = seeded_model(config, seed=0, device="cuda").train()
+    sde = CLD.from_config(config)
+    loss_fn = make_cld_loss_fn(sde, train=True)
+    stream = SyntheticStream(config, batch, n_steps, seed=11)
+    batches = torch.from_numpy(get_data_scaler(config)(next(stream))).to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    t = 1e-5 + (sde.T - 1e-5) * torch.rand((batch,), generator=g, device="cuda")
+    z = torch.randn((batch, 32, 32, 3, 2), generator=g, device="cuda")
+
+    # one loss + backward, kernel path vs all-plain path, same t, z and masks
+    loss_k, grads_k = _loss_and_grads(model, loss_fn, batches[0], t, z, seed=9)
+    model.fused = False
+    loss_p, grads_p = _loss_and_grads(model, loss_fn, batches[0], t, z, seed=9)
+    model.fused = True
+    norm = lambda gs: torch.linalg.vector_norm(torch.stack([v.norm() for v in gs.values()]))  # noqa: E731
+    norm_k, norm_p = norm(grads_k).item(), norm(grads_p).item()
+    top = {n: v.abs().max().item() for n, v in grads_p.items()}
+    largest = max(top.values())
+    keys = [n for n in grads_p if n.endswith(".k.bias")]
+    key_err = max((grads_k[n] - grads_p[n]).abs().max().item() for n in keys) / (LEAF_FLOOR * largest)
+    rels, l2 = {}, {}
+    for n in grads_p:
+        if n not in keys:
+            d = grads_k[n] - grads_p[n]
+            rels[n] = d.abs().max().item() / top[n]
+            l2[n] = (d.norm() / grads_p[n].norm()).item()
+    errs = dict(loss=abs(loss_k.item() - loss_p.item()) / abs(loss_p.item()),
+                grad_norm=abs(norm_k - norm_p) / norm_p, key_bias=key_err)
+    print(f"train B={batch}: loss kernel {loss_k.item():.6f} plain {loss_p.item():.6f} "
+          f"rel={errs['loss']:.3e} (bound {TRAIN_BOUND['loss']:.0e}); grad norm kernel "
+          f"{norm_k:.5f} plain {norm_p:.5f} rel={errs['grad_norm']:.3e} "
+          f"(bound {TRAIN_BOUND['grad_norm']:.0e}); {len(grads_p)} gradient tensors", flush=True)
+    print(f"  attention key biases (exact gradient zero): {len(keys)}, plain share of the "
+          f"largest gradient up to {max(top[n] for n in keys) / largest:.2e}, error against "
+          f"{LEAF_FLOOR:.0e} of it {key_err:.3e} (bound {TRAIN_BOUND['key_bias']:.0e})", flush=True)
+    for tier, pick in (("", lambda n: top[n] >= DEEP_SHARE * largest),
+                       ("deep_", lambda n: top[n] < DEEP_SHARE * largest)):
+        band = [n for n in rels if pick(n)]
+        w, w2 = max(band, key=rels.get), max(band, key=l2.get)
+        errs[f"worst_{tier}tensor"], errs[f"worst_{tier}tensor_l2"] = rels[w], l2[w2]
+        print(f"  {len(band)} tensors with a largest gradient {'at least' if not tier else 'under'} "
+              f"{DEEP_SHARE:.0e} of the largest (down to {min(top[n] for n in band) / largest:.1e}): "
+              f"worst {w} rel={rels[w]:.3e} (bound {TRAIN_BOUND[f'worst_{tier}tensor']:.2g}), "
+              f"worst L2 {w2} {l2[w2]:.3e} (bound {TRAIN_BOUND[f'worst_{tier}tensor_l2']:.2g})",
+              flush=True)
+    bad = {k: v for k, v in errs.items() if not np.isfinite(v) or v > TRAIN_BOUND[k]}
+    if bad:
+        raise AssertionError(f"train step: kernel path vs plain path over bounds: {bad}")
+    del grads_k, grads_p
+
+    # the main path: n_jitted_steps Adam steps through the CLI's train function
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = train(config, model, Path(tmp), n_steps, batch, seed=3, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: read_counts()[k] for k in PER_STEP}
+    finite = all(torch.isfinite(p).all().item() for p in model.parameters())
+    print(f"train {n_steps} Adam steps B={batch} through gddim_torch.cli.train: {wall:.3f} s "
+          f"with data and checkpoint writes; launches {counts}; params finite: {finite}",
+          flush=True)
+    expected = {k: n * n_steps for k, n in PER_STEP.items()}
+    if counts != expected:
+        raise AssertionError(f"train launch counts {counts} != {expected}")
+    if not finite or state.step != n_steps:
+        raise AssertionError("train: non-finite parameters or missing steps")
+
+    # throughput and peak memory of both paths, for information
+    train_step = make_train_step(loss_fn)
+    for fused in (True, False, False, True):
+        model.fused = fused
+        loss, sec, peak = _timed_steps(state, train_step, batches)
+        if not np.isfinite(loss):
+            raise AssertionError(f"train: non-finite loss {loss} (fused={fused})")
+        print(f"train {'kernel' if fused else 'plain'} path: {n_steps} steps B={batch} "
+              f"{sec:.3f} s, {n_steps * batch / sec:.2f} img/s, loss {loss:.5f}, peak "
+              f"{peak:.2f} GiB [{card}] (information only)", flush=True)
+    model.fused = True
+    return counts
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="smoke run of gddim_torch on one CUDA card")
-    parser.add_argument("--phases", default="build,kernels,eps,sample")
-    parser.add_argument("--batch", type=int, default=16)
+    parser.add_argument("--phases", default="build,kernels,eps,sample,train")
+    parser.add_argument("--batch", type=int, default=16, help="sampling batch")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -294,6 +611,7 @@ def main(argv=None):
     results: dict = {}
     if "kernels" in phases:
         phase_kernels(results)
+        phase_train_kernels(results)
     config = get_config("cld/accr_dcifar10")
     model = phase_eps(config) if "eps" in phases else None
     counts = {}
@@ -303,7 +621,11 @@ def main(argv=None):
 
             model = seeded_model(config, seed=0, device="cuda")
         counts = phase_sample(config, model, args.batch, card)
-    if phases >= {"kernels", "sample"}:
+        del model
+    if "train" in phases:
+        train_counts = phase_train(card)
+        counts.update({k: n for k, n in train_counts.items() if k not in counts})
+    if phases >= {"kernels", "sample", "train"}:
         missing = [k for k in KERNELS if counts.get(k, 0) == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the main path: {missing}")

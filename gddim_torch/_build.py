@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` file into one shared library with a
-plain C interface, which ``ctypes`` loads. The build happens at first use,
+``nvcc`` compiles every ``csrc/*.cu`` file to an object, one process per
+source, all started together, and links the objects into one shared library
+with a plain C interface, which ``ctypes`` loads. The build happens at first use,
 into ``build/gddim_torch_kernels/`` in the checkout, keyed by a hash of the
 sources, so an edited source rebuilds and an unchanged one loads at once.
 Nothing here runs at import time.
@@ -25,7 +26,7 @@ _CSRC = _ROOT / "csrc"
 BUILD_DIR = _ROOT.parent / "build" / "gddim_torch_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo",
 ]
 
 _P = ctypes.c_void_p
@@ -44,6 +45,27 @@ _SIGNATURES = {
         _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
         _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
     ],
+    # gddim_resblock_train_workspace(B, H, W, Cin, N, splits)
+    "gddim_resblock_train_workspace": [_I, _I, _I, _I, _I, _I],
+    # gddim_resblock_train(x, c, temb_row, gn1_g, gn1_b, groups1, w1, b1, gn2_g, gn2_b,
+    #   groups2, w2, b2, ws, bs, mask, inv_keep, B, H, W, N, eps, out_scale, work,
+    #   splits1, kper1, splits2, kper2, out, stream)
+    "gddim_resblock_train": [
+        _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _F,
+        _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
+    ],
+    # gddim_resblock_bwd_workspace(B, H, W, Cin, N, groups1, groups2)
+    "gddim_resblock_bwd_workspace": [_I, _I, _I, _I, _I, _I, _I],
+    # gddim_resblock_bwd(x, temb_row, gn1_g, gn1_b, groups1, w1, w1t, b1, gn2_g, gn2_b,
+    #   groups2, w2t, wst, mask, inv_keep, g, B, H, W, Cin, N, eps, out_scale, work,
+    #   dx, dtemb, dgn1s, dgn1b, dw1, db1, dgn2s, dgn2b, dw2, db2, dws, dbs, stream)
+    "gddim_resblock_bwd": [
+        _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _F, _P,
+        _I, _I, _I, _I, _I, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    ],
+    # gddim_flash_attention(q, k, v, o, B, S, C, stream)
+    "gddim_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _P],
     # gddim_attnblock_workspace(B, S, C, splits)
     "gddim_attnblock_workspace": [_I, _I, _I, _I],
     # gddim_attnblock(x, gn_g, gn_b, groups, wqkv, bqkv, wo, bo, B, S, C, eps,
@@ -74,6 +96,40 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run(procs) -> None:
+    """Wait for every (label, Popen); raise with the output of the first failure."""
+    failed = None
+    for label, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"{label} failed ({proc.returncode}):\n{out}\n{err}"
+    if failed:
+        raise RuntimeError(failed)
+
+
+def _compile(sources, so: Path) -> None:
+    """One nvcc per source, all at once, then one link into ``so``."""
+    tag = f"{os.getpid()}.tmp"
+    objs = [so.with_name(f"{so.stem}.{src.stem}.{tag}.o") for src in sources]
+    nvcc = _nvcc()
+    procs = [
+        (f"nvcc {src.name}", subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for src, obj in zip(sources, objs)
+    ]
+    try:
+        _run(procs)
+        tmp = so.with_suffix(f".{tag}.so")
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        _run([("nvcc link", subprocess.Popen(link, stdout=subprocess.PIPE,
+                                              stderr=subprocess.PIPE, text=True))])
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib, build_seconds
@@ -86,15 +142,7 @@ def library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-                   *map(str, sources)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, so)
+            _compile(sources, so)
         build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(so))
         for name, argtypes in _SIGNATURES.items():

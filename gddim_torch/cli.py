@@ -1,18 +1,31 @@
-"""Command line: CLD sampling with the port.
+"""Command line: CLD sampling and training with the port.
 
     python -m gddim_torch.cli --config cld/accr_dcifar10 --mode sampling \\
         --batch 16 --seed 0 --out samples/ [--weights model.pt] [--rounds 1]
+    python -m gddim_torch.cli --config cld/accr_dcifar10 --mode train \\
+        --steps 10 --batch 128 --seed 0 --out run/ [--weights model.pt]
 
-Weights are seeded (``models/init.py``) unless ``--weights`` names a
-``state_dict`` file (``torch.save`` of ``convert.flax_to_state_dict``). Each
-round writes ``samples_<r>.npz`` holding uint8 images, v and nfe, as the JAX
-package's ``run_lib.sampling_from_fn`` does. Needs a CUDA device unless
-``--device cpu`` is given.
+Sampling: weights are seeded (``models/init.py``) unless ``--weights`` names
+a ``state_dict`` file (``torch.save`` of ``convert.flax_to_state_dict``, or
+a ``--mode train`` output). Each round writes ``samples_<r>.npz`` holding
+uint8 images, v and nfe, as the JAX package's ``run_lib.sampling_from_fn``
+does.
+
+Training: ``--steps`` Adam steps (``train/``) on the synthetic image stream
+(``data/synthetic.py``), f32 activations, ``training.n_jitted_steps`` steps
+per ``train_step`` call, from the config's own initialisation drawn from
+``--seed`` (or ``--weights``). Writes ``params.pt`` and ``ema.pt``, both
+``state_dict`` files that ``--mode sampling --weights`` reads. No preemption
+checkpoints.
+
+``--set key=value`` overrides a config field (``--set model.nf=32``), for a
+small model on the CPU. Needs a CUDA device unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import ast
 import logging
 import time
 from pathlib import Path
@@ -20,12 +33,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from gddim_torch.configs import get_config
+from gddim_torch.configs import get_config, train_config
+from gddim_torch.data.synthetic import SyntheticStream, get_data_scaler
 from gddim_torch.math.cld import CLD
 from gddim_torch.models.init import seeded_model
 from gddim_torch.models.unet import NCSNpp
 from gddim_torch.models.wrappers import make_cld_eps_fn
 from gddim_torch.samplers.factory import build_cld_sampler
+from gddim_torch.train.losses import make_cld_loss_fn
+from gddim_torch.train.state import create_train_state, ema_state_dict
+from gddim_torch.train.step import make_train_step
 
 logger = logging.getLogger("gddim_torch")
 
@@ -73,24 +90,86 @@ def sample_data(config, model, out_dir: Path, batch: int, rounds: int, seed: int
     return paths
 
 
+def init_model(config, device, weights: str | None = None, seed: int = 0):
+    """A model to train: the config's own initialisation from ``seed`` (drawn
+    on the CPU, so any device gets the same weights), or a state_dict file."""
+    if weights is not None:
+        return build_model(config, device, weights).train()
+    return NCSNpp(config, generator=torch.Generator().manual_seed(seed)).to(device).train()
+
+
+def train(config, model, out_dir: Path, steps: int, batch: int, seed: int, device):
+    """``steps`` Adam steps on the synthetic stream; writes params.pt and
+    ema.pt under ``out_dir``. Returns the TrainState."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    n_jitted = int(config.training.n_jitted_steps)
+    stream = SyntheticStream(config, batch, n_jitted, seed)
+    scaler = get_data_scaler(config)
+    loss_fn = make_cld_loss_fn(CLD.from_config(config), train=True,
+                               reduce_mean=config.training.reduce_mean)
+    state = create_train_state(config, model, torch.Generator(device=device).manual_seed(seed))
+    train_step = make_train_step(loss_fn)
+    while state.step < steps:
+        n = min(n_jitted, steps - state.step)
+        batches = torch.from_numpy(scaler(next(stream))[:n]).to(device)
+        t0 = time.perf_counter()
+        info = train_step(state, batches)
+        loss = float(info["loss"])
+        logger.info("step %d/%d: loss %.5f, grad norm %.4f, %.2f s for %d steps", state.step,
+                    steps, loss, float(info["grad_norm"]), time.perf_counter() - t0, n)
+        if not np.isfinite(loss):
+            raise FloatingPointError(f"non-finite loss at step {state.step}")
+    cpu = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
+    torch.save(cpu(model.state_dict()), out_dir / "params.pt")
+    torch.save(cpu(ema_state_dict(state)), out_dir / "ema.pt")
+    return state
+
+
+def _override(config, item: str):
+    """Apply one ``section.field=value`` override (value a Python literal)."""
+    key, _, raw = item.partition("=")
+    *path, field = key.split(".")
+    node = config
+    for part in path:
+        node = getattr(node, part)
+    if not hasattr(node, field):
+        raise SystemExit(f"--set {item}: unknown config field {key}")
+    try:
+        value = ast.literal_eval(raw)
+    except (ValueError, SyntaxError):
+        value = raw
+    setattr(node, field, value)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", default="cld/accr_dcifar10")
-    parser.add_argument("--mode", choices=["sampling"], default="sampling")
-    parser.add_argument("--batch", type=int, default=16)
+    parser.add_argument("--mode", choices=["sampling", "train"], default="sampling")
+    parser.add_argument("--batch", type=int, default=None,
+                        help="sampling: 16; train: training.batch_size")
+    parser.add_argument("--steps", type=int, default=5, help="train: optimizer steps")
     parser.add_argument("--rounds", type=int, default=1)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", required=True)
     parser.add_argument("--weights", default=None, help="state_dict file; seeded if absent")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                        help="override a config field, e.g. model.nf=32")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the plain versions")
     device = torch.device(args.device)
-    config = get_config(args.config)
+    config = (train_config if args.mode == "train" else get_config)(args.config)
+    for item in args.set:
+        _override(config, item)
+    if args.mode == "train":
+        model = init_model(config, device, args.weights, args.seed)
+        batch = args.batch or int(config.training.batch_size)
+        train(config, model, Path(args.out), args.steps, batch, args.seed, device)
+        return
     model = build_model(config, device, args.weights, args.seed)
-    sample_data(config, model, Path(args.out), args.batch, args.rounds, args.seed, device)
+    sample_data(config, model, Path(args.out), args.batch or 16, args.rounds, args.seed, device)
 
 
 if __name__ == "__main__":

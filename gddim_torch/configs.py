@@ -1,11 +1,13 @@
 """Configs as plain dataclasses.
 
 Holds the fields of ``gddim_tpu/configs/cld/default_cifar10.py`` and
-``cld/accr_dcifar10.py`` that the sampling path reads, with the same values.
-``cld/accr_dcifar10`` is the 107.6M-parameter NCSN++ (nf=128, ch_mult
-(1,2,2,2), 8 BigGAN blocks per level, FIR resampling, attention at 16x16,
-progressive_input='residual'), set up for bf16 sampling through the fused
-kernels with the deis order-2, NFE=50 sampler of the repo's benchmark.
+``cld/accr_dcifar10.py`` that the sampling and training paths read, with the
+same values. ``cld/accr_dcifar10`` is the 107.6M-parameter NCSN++ (nf=128,
+ch_mult (1,2,2,2), 8 BigGAN blocks per level, FIR resampling, attention at
+16x16, progressive_input='residual', dropout 0.1), set up for bf16 sampling
+through the fused kernels with the deis order-2, NFE=50 sampler of the repo's
+benchmark. ``train_config`` gives the same model for training: f32
+activations (``default_cifar10.py:95``), as the JAX package trains it.
 """
 
 from __future__ import annotations
@@ -23,11 +25,30 @@ class SamplingConfig:
 
 
 @dataclasses.dataclass
+class TrainingConfig:
+    batch_size: int = 128
+    n_jitted_steps: int = 5  # steps per train_step call (its batches' leading axis)
+    reduce_mean: bool = True
+
+
+@dataclasses.dataclass
+class OptimConfig:
+    optimizer: str = "Adam"
+    lr: float = 2e-4
+    beta1: float = 0.9
+    eps: float = 1e-8
+    warmup: int = 5000
+    grad_clip: float = 1.0
+    weight_decay: float = 0.0
+
+
+@dataclasses.dataclass
 class DataConfig:
     dataset: str = "CIFAR10"
     image_size: int = 32
     centered: bool = True
     num_channels: int = 3
+    random_flip: bool = True
 
 
 @dataclasses.dataclass
@@ -56,6 +77,8 @@ class ModelConfig:
     init_scale: float = 0.0
     embedding_type: str = "fourier"
     fourier_scale: float = 16
+    dropout: float = 0.1
+    ema_rate: float = 0.9999
     # execution
     dtype: str = "bfloat16"  # activations; parameters stay float32
     conv_impl: str = "fused"  # 'fused' (the kernels) | 'plain' (torch composition)
@@ -68,6 +91,8 @@ class Config:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     sampling: SamplingConfig = dataclasses.field(default_factory=SamplingConfig)
+    training: TrainingConfig = dataclasses.field(default_factory=TrainingConfig)
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
 
 
 _CONFIGS = {"cld/accr_dcifar10": Config}
@@ -79,3 +104,10 @@ def get_config(name: str) -> Config:
         return _CONFIGS[name]()
     except KeyError:
         raise ValueError(f"unknown config {name!r}; known: {sorted(_CONFIGS)}") from None
+
+
+def train_config(name: str) -> Config:
+    """The named config set up for training: f32 activations."""
+    config = get_config(name)
+    config.model.dtype = "float32"
+    return config

@@ -118,14 +118,31 @@ def flax_to_state_dict(model, params: dict) -> dict:
     return sd
 
 
-def state_dict_to_flax(model) -> dict:
-    """The inverse: the model's parameters as a flax tree of numpy arrays."""
-    sd = model.state_dict()
+def tensors_to_flax(model, tensors: dict) -> dict:
+    """Tensors keyed like ``model.state_dict()`` (parameters or their
+    gradients) as a flax tree of numpy float32 arrays; a key missing from
+    ``tensors`` or mapped to None (a parameter with no gradient, such as the
+    frozen Fourier frequencies) becomes zeros of the parameter's shape."""
+    ref = model.state_dict()
     tree: dict = {}
     pairs = param_pairs(model) if hasattr(model, "scopes") else module_pairs(model)
     for path, key in pairs:
         node = tree
         for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[path[-1]] = sd[key].detach().float().cpu().numpy()
+        t = tensors.get(key)
+        node[path[-1]] = (np.zeros(tuple(ref[key].shape), np.float32) if t is None
+                          else t.detach().float().cpu().numpy())
     return tree
+
+
+def state_dict_to_flax(model) -> dict:
+    """The inverse of flax_to_state_dict: the model's parameters as a flax tree
+    of numpy arrays."""
+    return tensors_to_flax(model, model.state_dict())
+
+
+def grads_to_flax(model) -> dict:
+    """The model's parameter gradients (``.grad``) in the flax tree's layout,
+    to hold leaf by leaf against ``jax.grad``."""
+    return tensors_to_flax(model, {n: p.grad for n, p in model.named_parameters()})

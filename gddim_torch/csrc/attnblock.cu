@@ -3,11 +3,11 @@
 // Replaces the attention part of gddim_tpu/ops/attnblock.py:fused_attnblock
 // (K5, _attnblock_kernel). The whole block is one C call, gddim_attnblock,
 // which makes four launches, all hand-written:
-//   gddim_gn_affine (resblock.cu)    GN statistics -> per-(sample, channel) affine
-//   gddim_conv_gemm (resblock.cu)    [q|k|v] = GN(x) @ [Wq|Wk|Wv] + b, one N = 3C
+//   gn_affine_launch (resblock.cu)   GN statistics -> per-(sample, channel) affine
+//   conv_gemm_launch (resblock.cu)   [q|k|v] = GN(x) @ [Wq|Wk|Wv] + b, one N = 3C
 //                                    product with the GN affine as its prologue
-//   gddim_attention (this file)      a = softmax(q k^T / sqrt(C)) v per sample
-//   gddim_conv_gemm (resblock.cu)    out = (x + a @ Wo + bo) / sqrt(2) in the epilogue
+//   attention_kernel (this file)     a = softmax(q k^T / sqrt(C)) v per sample
+//   conv_gemm_launch (resblock.cu)   out = (x + a @ Wo + bo) / sqrt(2) in the epilogue
 //
 // This kernel: one block per (sample, 16-query tile), 4 warps. S <= 256 keys
 // and C <= 256 channels, so the 16 x S score rows sit in shared memory: the
@@ -26,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
+
+#include "conv.cuh"
 
 using namespace nvcuda;
 
@@ -113,8 +115,6 @@ attention_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restric
   }
 }
 
-size_t align256(size_t x) { return (x + 255) & ~(size_t)255; }
-
 struct Work {
   float* sc;  // (B, C) GN affine
   float* sh;
@@ -145,17 +145,6 @@ Work carve(char* base, int batch, long m, int c, int splits) {
 
 extern "C" {
 
-// from resblock.cu
-int gddim_gn_affine(const void* xa, const void* xb, int ca, int cb, int batch, int hw,
-                    int groups, const void* gamma, const void* beta, float eps, void* scale,
-                    void* shift, void* stream);
-int gddim_conv_gemm(const void* a0, const void* a1, int ca0, int ca1, const void* scale,
-                    const void* shift, int silu_on, int taps, const void* w, const void* s0,
-                    const void* s1, int cs0, int cs1, const void* ws, int batch, int h, int w_,
-                    int n, const void* bias, const void* bias2, const void* temb,
-                    const void* resid, float out_scale, void* out, void* partial, int splits,
-                    int kper, void* stream);
-
 long long gddim_attnblock_workspace(int batch, int s, int c, int splits) {
   return (long long)carve(nullptr, batch, (long)batch * s, c, splits).bytes;
 }
@@ -170,20 +159,25 @@ int gddim_attnblock(const void* x, const void* gn_g, const void* gn_b, int group
   if (s % QT != 0 || s > MAX_S || c % 16 != 0 || c > MAX_C) return (int)cudaErrorInvalidValue;
   const Work wk = carve((char*)work, batch, (long)batch * s, c,
                         splits1 > splits2 ? splits1 : splits2);
-  int err = gddim_gn_affine(x, nullptr, c, 0, batch, s, groups, gn_g, gn_b, eps, wk.sc, wk.sh,
-                            stream);
-  if (!err)
-    err = gddim_conv_gemm(x, nullptr, c, 0, wk.sc, wk.sh, 0, 1, wqkv, nullptr, nullptr, 0, 0,
-                          nullptr, batch, s, 1, 3 * c, bqkv, nullptr, nullptr, nullptr, 1.0f,
-                          wk.qkv, wk.partial, splits1, kper1, stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  int err = gn_affine_launch(x, nullptr, c, 0, batch, s, groups, (const float*)gn_g,
+                             (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, false, st);
+  if (!err) {
+    // the projections are 1x1 convs over M = B*S pixels (H = S, W = 1)
+    err = conv_gemm_launch(conv_args(x, c, wk.sc, wk.sh, 0, 1, wqkv, batch, s, 1, 3 * c, bqkv,
+                                     1.0f, wk.qkv, wk.partial, splits1, kper1),
+                           false, st);
+  }
   if (err) return err;
-  attention_kernel<<<dim3(s / QT, batch), ATT_THREADS, 0, (cudaStream_t)stream>>>(
-      wk.qkv, wk.a, s, c, 1.0f / sqrtf((float)c));
+  attention_kernel<<<dim3(s / QT, batch), ATT_THREADS, 0, st>>>(wk.qkv, wk.a, s, c,
+                                                                1.0f / sqrtf((float)c));
   err = (int)cudaGetLastError();
-  if (!err)
-    err = gddim_conv_gemm(wk.a, nullptr, c, 0, nullptr, nullptr, 0, 1, wo, nullptr, nullptr, 0,
-                          0, nullptr, batch, s, 1, c, bo, nullptr, nullptr, x, out_scale, out,
-                          wk.partial, splits2, kper2, stream);
+  if (!err) {
+    ConvArgs p = conv_args(wk.a, c, nullptr, nullptr, 0, 1, wo, batch, s, 1, c, bo, out_scale,
+                           out, wk.partial, splits2, kper2);
+    p.resid = x;
+    err = conv_gemm_launch(p, false, st);
+  }
   return err;
 }
 

@@ -1,0 +1,103 @@
+// Shared interface of the implicit-GEMM conv and the GroupNorm statistics
+// (defined in resblock.cu), used by attnblock.cu and resblock_bwd.cu.
+//
+// Activations are bf16 (inference, K2-K5) or f32 (training, K6/K7); the
+// tensor-core operands are bf16 with f32 accumulation either way.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+constexpr int CONV_BM = 64;  // conv_gemm_kernel's output tile (M x N) and K slice
+constexpr int CONV_BN = 64;
+constexpr int CONV_BK = 32;
+
+struct ConvArgs {
+  const void* a0;  // A input(s), NHWC, the logical concat of (a0, a1)
+  const void* a1;
+  int ca0, ca1;
+  const float* scale;  // (B, ca0+ca1) GN affine applied to A, or null: no prologue
+  const float* shift;
+  int silu;
+  const int8_t* mask;  // (M, ca0) dropout mask applied after the prologue, or null
+  float inv_keep;
+  int taps;  // 9: 3x3 SAME, 1: 1x1
+  const __nv_bfloat16* w;  // (taps*Cin, N) row-major (HWIO flattened)
+  const void* s0;  // skip segment input(s), or null
+  const void* s1;
+  int cs0, cs1;
+  const __nv_bfloat16* ws;  // (cs0+cs1, N)
+  int B, H, W, N;
+  const float* bias;   // (N,) or null
+  const float* bias2;  // (N,) or null
+  const float* temb;   // (B, N) row added per sample, or null
+  const void* resid;   // (M, N) identity residual, or null
+  float out_scale;
+  void* out;       // (M, N)
+  float* partial;  // (splits, M, N) f32 split-K partial sums, when splits > 1
+  int splits;
+  int kper;  // K per split, a multiple of CONV_BK
+};
+
+// The arguments of one conv on a single A input with an optional prologue;
+// callers set the rest (pair input, mask, skip, temb, resid) on the result.
+inline ConvArgs conv_args(const void* a, int ca, const float* scale, const float* shift,
+                          int silu_on, int taps, const void* w, int batch, int h, int w_, int n,
+                          const void* bias, float out_scale, void* out, float* partial,
+                          int splits, int kper) {
+  ConvArgs p = {};
+  p.a0 = a;
+  p.ca0 = ca;
+  p.scale = scale;
+  p.shift = shift;
+  p.silu = silu_on;
+  p.taps = taps;
+  p.w = (const __nv_bfloat16*)w;
+  p.B = batch;
+  p.H = h;
+  p.W = w_;
+  p.N = n;
+  p.bias = (const float*)bias;
+  p.out_scale = out_scale;
+  p.out = out;
+  p.partial = partial;
+  p.splits = splits;
+  p.kper = kper;
+  return p;
+}
+
+// Scratch carving: every buffer starts on a 256-byte boundary.
+inline size_t align256(size_t x) { return (x + 255) & ~(size_t)255; }
+
+// Sum of v over a block of 256 threads (red: 32 floats of shared memory);
+// every thread gets the total.
+__device__ inline float block_sum256(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();  // red may still be read by a previous call
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float t = threadIdx.x < 8 ? red[threadIdx.x] : 0.f;
+    for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+    if (threadIdx.x == 0) red[0] = t;
+  }
+  __syncthreads();
+  return red[0];
+}
+
+// conv_gemm_kernel (+ the split-K reduction when p.splits > 1) with f32 or
+// bf16 activations (A, skip, resid and out alike). Returns cudaError_t.
+int conv_gemm_launch(const ConvArgs& p, bool f32, cudaStream_t stream);
+
+// (splits, K per split) that keep a small-M GEMM's grid filling the card.
+void conv_split_plan(long m, int n, int k, int* splits, int* kper);
+
+// Per-(sample, group) GroupNorm statistics of the logical concat (xa, xb),
+// folded with gamma/beta into a per-(sample, channel) affine (scale, shift);
+// mean and rstd per (sample, group) too when those pointers are non-null.
+int gn_affine_launch(const void* xa, const void* xb, int ca, int cb, int batch, int hw,
+                     int groups, const float* gamma, const float* beta, float eps, float* scale,
+                     float* shift, float* mean, float* rstd, bool f32, cudaStream_t stream);

@@ -1,97 +1,151 @@
-// Fused residual-block kernels for Hopper (sm_90a), bf16 with f32 accumulation.
+// Fused residual-block kernels for Hopper (sm_90a), bf16 tensor-core
+// operands with f32 accumulation.
 //
 // Replaces gddim_tpu/ops/resblock.py: fused_resblock (K2, _resblock_kernel_v2),
-// fused_resblock_pair (K3, _resblock_pair_kernel_v2) and fused_resblock_tail
-// (K4, _resblock_kernel_v2 with GN1 off). One implementation serves all three:
+// fused_resblock_pair (K3, _resblock_pair_kernel_v2), fused_resblock_tail
+// (K4, _resblock_kernel_v2 with GN1 off), and the training forward of
+// make_fused_resblock_train (K6: fused_resblock with f32 activations and the
+// dropout mask). One implementation serves all four:
 //
-//   gddim_gn_affine   per-(sample, group) mean and rstd in f32 (two-pass
+//   gn_affine_kernel  per-(sample, group) mean and rstd in f32 (two-pass
 //                     variance), folded with the GN scale/bias into a
 //                     per-(sample, channel) affine. Reads one input or two
 //                     (xa, xb) by logical channel, so a group that straddles
 //                     the xa/xb boundary gets statistics over both.
-//   gddim_temb_proj   silu(temb) @ W_dense + b_dense, the per-sample row the
-//                     first conv's epilogue adds.
-//   gddim_conv_gemm   implicit-GEMM NHWC conv (3x3 SAME or 1x1): M = B*H*W
+//   temb_proj_kernel  silu(temb) @ W_dense + b_dense, the per-sample row the
+//                     first conv's epilogue adds (K2-K4; K6 takes the row
+//                     precomputed, so autograd reaches the Dense layer).
+//   conv_gemm_kernel  implicit-GEMM NHWC conv (3x3 SAME or 1x1): M = B*H*W
 //                     pixels, N = Cout, K = taps*Cin (+ Cskip). The A tile is
-//                     loaded through an optional GN-affine(+SiLU) prologue,
-//                     from one pointer or two (the pair's logical concat).
+//                     loaded through an optional GN-affine(+SiLU)(x dropout
+//                     mask / keep) prologue, from one pointer or two (the
+//                     pair's logical concat), and rounded to bf16 there.
 //                     An optional second K segment runs the block's 1x1 skip
 //                     projection into the same accumulator. The epilogue adds
 //                     bias, b_skip, the temb row and an identity residual,
 //                     then scales (1/sqrt(2)).
 //
-// A block is one C call, gddim_resblock, which makes 5 launches: temb_proj,
-// stats(x), conv1, stats(h1), conv2+skip (plus a split-K reduction after a
-// conv whose grid is small), with its scratch carved from one workspace
-// buffer. h1 round-trips device memory in bf16.
+// Activations are a template parameter: bf16 for inference (K2-K4), f32 for
+// training (K6), where x is read in f32 for GN1's statistics, the skip and
+// the identity residual, h1 stays f32 between the convs, and the output is
+// f32; only the MMA operands are bf16, as on the TPU with mm_dtype bf16.
+//
+// A block is one C call, gddim_resblock (K2-K4) or gddim_resblock_train
+// (K6), which makes 4-5 launches: temb_proj (K2-K4 only), stats(x), conv1,
+// stats(h1), conv2+skip (plus a split-K reduction after a conv whose grid is
+// small), with its scratch carved from one workspace buffer.
 //
 // What bounds it on the H100: the two convs are tensor-core bound at 32x32
 // and 16x16 (2*M*9*Cin*Cout FLOPs against M*(Cin+Cout) bytes of activations
 // and 9*Cin*Cout of weights). At 8x8 and 4x4 they are memory- and latency-
 // bound: M = B*H*W is a few hundred rows, so each weight byte read feeds
 // only ~M FLOPs (under the card's ~295 FLOP/byte ridge at small batch) and
-// a 64x64 tile grid has 16-64 blocks. The design keeps the GN+SiLU and the skip,
-// bias, temb and residual work inside the conv's prologue and epilogue, so
-// the only extra passes over activations are the two small statistics
-// reads. The GEMM is a 64x64x32 WMMA tile with double-buffered shared
-// tiles fed from registers (the next K slice's loads are in flight during
-// the current slice's MMAs); small grids split K across blocks (the wrapper
-// picks the split) and a second kernel sums the partial tiles and runs the
-// epilogue. TMA, wgmma and a deeper pipeline are later work.
+// a 64x64 tile grid has 16-64 blocks. The design keeps the GN+SiLU, dropout,
+// skip, bias, temb and residual work inside the conv's prologue and
+// epilogue, so the only extra passes over activations are the two small
+// statistics reads. The GEMM is a 64x64x32 WMMA tile with double-buffered
+// shared tiles fed from registers (the next K slice's loads are in flight
+// during the current slice's MMAs); small grids split K across blocks (the
+// wrapper picks the split) and a second kernel sums the partial tiles and
+// runs the epilogue. TMA, wgmma and a deeper pipeline are later work.
 //
-// gddim_conv_gemm is also the GEMM of the attention block (attnblock.cu's
-// wrapper runs its q/k/v and output projections through it with taps = 1).
+// conv_gemm_kernel is also the GEMM of the attention block (attnblock.cu)
+// and of the block backward (resblock_bwd.cu), through conv.cuh.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "conv.cuh"
+
 using namespace nvcuda;
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 32;
+constexpr int BM = CONV_BM;
+constexpr int BN = CONV_BN;
+constexpr int BK = CONV_BK;
 constexpr int THREADS = 128;
 constexpr int LDA = BK + 8;  // bf16 elements; rows stay 32-byte aligned for WMMA
 constexpr int LDB = BN + 8;
 constexpr int LDC = BN + 4;  // f32 elements
+constexpr int TARGET_BLOCKS = 4 * 132;  // four resident blocks on each of 132 SMs
+constexpr int MIN_SPLIT_SLICES = 8;     // K slices per split, at least
+
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float silu(float v) { return v / (1.0f + __expf(-v)); }
 
 // ---------------------------------------------------------------------------
-// Block-wide sum over THREADS_GN threads.
-constexpr int THREADS_GN = 256;
+// Eight consecutive activations of type T, loaded as 16-byte vectors and
+// converted to f32 only when used (so the loads stay in flight meanwhile).
+template <typename T> struct Pack8;
+template <> struct Pack8<bf16> { uint4 v; };
+template <> struct Pack8<float> { uint4 v[2]; };
 
-__device__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();  // red may still be read by a previous call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = 0.f;
-  if (threadIdx.x < 32) {
-    t = threadIdx.x < THREADS_GN / 32 ? red[threadIdx.x] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-    if (threadIdx.x == 0) red[0] = t;
-  }
-  __syncthreads();
-  return red[0];
+__device__ __forceinline__ void ld8(Pack8<bf16>& p, const bf16* s) {
+  p.v = *reinterpret_cast<const uint4*>(s);
+}
+__device__ __forceinline__ void ld8(Pack8<float>& p, const float* s) {
+  const uint4* q = reinterpret_cast<const uint4*>(s);
+  p.v[0] = q[0];
+  p.v[1] = q[1];
+}
+__device__ __forceinline__ void zero8(Pack8<bf16>& p) { p.v = make_uint4(0, 0, 0, 0); }
+__device__ __forceinline__ void zero8(Pack8<float>& p) { p.v[0] = p.v[1] = make_uint4(0, 0, 0, 0); }
+__device__ __forceinline__ void unpack8(const Pack8<bf16>& p, float f[8]) {
+  const bf16* e = reinterpret_cast<const bf16*>(&p.v);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) f[j] = __bfloat162float(e[j]);
+}
+__device__ __forceinline__ void unpack8(const Pack8<float>& p, float f[8]) {
+  const float* e = reinterpret_cast<const float*>(p.v);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) f[j] = e[j];
+}
+__device__ __forceinline__ uint4 bf16x8(const float f[8]) {
+  uint4 v;
+  bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(f[j]);
+  return v;
+}
+__device__ __forceinline__ uint4 bf16x8(const Pack8<bf16>& p) { return p.v; }
+__device__ __forceinline__ uint4 bf16x8(const Pack8<float>& p) {
+  float f[8];
+  unpack8(p, f);
+  return bf16x8(f);
+}
+__device__ __forceinline__ void st8(bf16* d, const float f[8]) {
+  *reinterpret_cast<uint4*>(d) = bf16x8(f);
+}
+__device__ __forceinline__ void st8(float* d, const float f[8]) {
+  float4* q = reinterpret_cast<float4*>(d);
+  q[0] = make_float4(f[0], f[1], f[2], f[3]);
+  q[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
 
-__device__ __forceinline__ float load_logical(const __nv_bfloat16* xa, const __nv_bfloat16* xb,
-                                              int ca, int cb, long pix, int c) {
-  return c < ca ? __bfloat162float(xa[pix * ca + c]) : __bfloat162float(xb[pix * cb + (c - ca)]);
+constexpr int THREADS_GN = 256;  // block_sum256 (conv.cuh)
+
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+
+template <typename T>
+__device__ __forceinline__ float load_logical(const T* xa, const T* xb, int ca, int cb, long pix,
+                                              int c) {
+  return c < ca ? to_f(xa[pix * ca + c]) : to_f(xb[pix * cb + (c - ca)]);
 }
 
 // grid (G, B); one block per (group, sample)
+template <typename T>
 __global__ void __launch_bounds__(THREADS_GN)
-gn_affine_kernel(const __nv_bfloat16* __restrict__ xa, const __nv_bfloat16* __restrict__ xb,
-                 int ca, int cb, int hw, int groups, const float* __restrict__ gamma,
-                 const float* __restrict__ beta, float eps, float* __restrict__ scale,
-                 float* __restrict__ shift) {
+gn_affine_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, int cb, int hw,
+                 int groups, const float* __restrict__ gamma, const float* __restrict__ beta,
+                 float eps, float* __restrict__ scale, float* __restrict__ shift,
+                 float* __restrict__ mean_out, float* __restrict__ rstd_out) {
   __shared__ float red[32];
   const int g = blockIdx.x, b = blockIdx.y;
   const int c_tot = ca + cb;
@@ -103,20 +157,24 @@ gn_affine_kernel(const __nv_bfloat16* __restrict__ xa, const __nv_bfloat16* __re
     const int p = (int)(i / cg), c = g * cg + (int)(i % cg);
     s += load_logical(xa, xb, ca, cb, pix0 + p, c);
   }
-  const float mean = block_sum(s, red) / (float)n;
+  const float mean = block_sum256(s, red) / (float)n;
   float q = 0.f;
   for (long i = threadIdx.x; i < n; i += THREADS_GN) {
     const int p = (int)(i / cg), c = g * cg + (int)(i % cg);
     const float d = load_logical(xa, xb, ca, cb, pix0 + p, c) - mean;
     q += d * d;
   }
-  const float var = block_sum(q, red) / (float)n;
+  const float var = block_sum256(q, red) / (float)n;
   const float rstd = rsqrtf(var + eps);
   for (int j = threadIdx.x; j < cg; j += THREADS_GN) {
     const int c = g * cg + j;
     const float a = rstd * gamma[c];
     scale[(long)b * c_tot + c] = a;
     shift[(long)b * c_tot + c] = beta[c] - mean * a;
+  }
+  if (mean_out != nullptr && threadIdx.x == 0) {
+    mean_out[(long)b * groups + g] = mean;
+    rstd_out[(long)b * groups + g] = rstd;
   }
 }
 
@@ -147,42 +205,25 @@ temb_proj_kernel(const float* __restrict__ temb, const float* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-struct ConvArgs {
-  const __nv_bfloat16* a0;
-  const __nv_bfloat16* a1;
-  int ca0, ca1;
-  const float* scale;  // (B, ca0+ca1) GN affine, or null: no prologue
-  const float* shift;
-  int silu;
-  int taps;  // 9: 3x3 SAME, 1: 1x1
-  const __nv_bfloat16* w;  // (taps*Cin, N) row-major (HWIO flattened)
-  const __nv_bfloat16* s0;  // skip segment input(s), or null
-  const __nv_bfloat16* s1;
-  int cs0, cs1;
-  const __nv_bfloat16* ws;  // (cs0+cs1, N)
-  int B, H, W, N;
-  const float* bias;   // (N,)
-  const float* bias2;  // (N,) or null
-  const float* temb;   // (B, N) f32 or null
-  const __nv_bfloat16* resid;  // (M, N) or null
-  float out_scale;
-  __nv_bfloat16* out;  // (M, N)
-  float* partial;      // (splits, M, N) f32 split-K partial sums, when splits > 1
-  int splits;
-  int kper;            // K per split, a multiple of BK
-};
+// Only the f32 (training) instantiation reads a dropout mask: the bf16 one
+// compiles without the mask loads and multiplies.
+template <typename T>
+constexpr bool kMaskable = std::is_same<T, float>::value;
 
 // One thread's share of a K slice: two 8-channel vectors of A and two of B.
+template <typename T>
 struct Stage {
-  uint4 a[2];
+  Pack8<T> a[2];
+  uint2 m[2];     // dropout mask bytes of the 8 A values
   uint4 b[2];
   int a_b[2];     // sample index of the A row, -1 when the tap is padding or m >= M
   int a_c[2];     // logical channel of the first of the 8 values
   bool a_aff;     // the prologue applies to this slice
 };
 
+template <typename T>
 __device__ __forceinline__ void load_stage(const ConvArgs& p, int m0, int n0, int k0, int kconv,
-                                           Stage& st) {
+                                           Stage<T>& st) {
   const int t = threadIdx.x;
   const int cin = p.ca0 + p.ca1;
   const int hw = p.H * p.W;
@@ -194,67 +235,76 @@ __device__ __forceinline__ void load_stage(const ConvArgs& p, int m0, int n0, in
     const int row = (t >> 2) + 32 * i;
     const int col = (t & 3) * 8;
     const int m = m0 + row;
-    st.a[i] = make_uint4(0, 0, 0, 0);
+    zero8(st.a[i]);
     st.a_b[i] = -1;
     st.a_c[i] = 0;
     if (m < M) {
       const int b = m / hw, rem = m - b * hw;
       int y = rem / p.W, x = rem - (rem / p.W) * p.W;
-      const __nv_bfloat16* src;
-      int c, cstride;
       if (conv) {
         const int tap = k0 / cin;
-        c = k0 - tap * cin + col;
+        const int c = k0 - tap * cin + col;
         if (p.taps == 9) {
           y += tap / 3 - 1;
           x += tap % 3 - 1;
         }
-        if (c < p.ca0) { src = p.a0; cstride = p.ca0; }
-        else { src = p.a1; cstride = p.ca1; }
         if (y >= 0 && y < p.H && x >= 0 && x < p.W) {
+          const T* src = c < p.ca0 ? (const T*)p.a0 : (const T*)p.a1;
+          const int cstride = c < p.ca0 ? p.ca0 : p.ca1;
           const int cl = c < p.ca0 ? c : c - p.ca0;
           const long pix = ((long)b * p.H + y) * p.W + x;
-          st.a[i] = *reinterpret_cast<const uint4*>(src + pix * cstride + cl);
+          ld8(st.a[i], src + pix * cstride + cl);
+          if constexpr (kMaskable<T>) {
+            if (p.mask) st.m[i] = *reinterpret_cast<const uint2*>(p.mask + pix * cin + c);
+          }
           st.a_b[i] = b;
           st.a_c[i] = c;
         }
       } else {
-        c = k0 - kconv + col;
-        int cl;
-        if (c < p.cs0) { src = p.s0; cstride = p.cs0; cl = c; }
-        else { src = p.s1; cstride = p.cs1; cl = c - p.cs0; }
-        st.a[i] = *reinterpret_cast<const uint4*>(src + (long)m * cstride + cl);
+        const int c = k0 - kconv + col;
+        const T* src = c < p.cs0 ? (const T*)p.s0 : (const T*)p.s1;
+        const int cstride = c < p.cs0 ? p.cs0 : p.cs1;
+        const int cl = c < p.cs0 ? c : c - p.cs0;
+        ld8(st.a[i], src + (long)m * cstride + cl);
         st.a_b[i] = b;
         st.a_c[i] = c;
       }
     }
     const int krow = (t >> 3) + 16 * i;
     const int ncol = (t & 7) * 8;
-    const __nv_bfloat16* wsrc =
+    const bf16* wsrc =
         conv ? p.w + (long)(k0 + krow) * p.N : p.ws + (long)(k0 - kconv + krow) * p.N;
     st.b[i] = *reinterpret_cast<const uint4*>(wsrc + n0 + ncol);
   }
 }
 
-__device__ __forceinline__ void store_stage(const ConvArgs& p, const Stage& st,
-                                            __nv_bfloat16 (*As)[LDA], __nv_bfloat16 (*Bs)[LDB]) {
+template <typename T>
+__device__ __forceinline__ void store_stage(const ConvArgs& p, const Stage<T>& st,
+                                            bf16 (*As)[LDA], bf16 (*Bs)[LDB]) {
   const int t = threadIdx.x;
   const int cin = p.ca0 + p.ca1;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = (t >> 2) + 32 * i;
     const int col = (t & 3) * 8;
-    uint4 v = st.a[i];
+    uint4 v;
     if (st.a_aff && st.a_b[i] >= 0) {
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+      float f[8];
+      unpack8(st.a[i], f);
       const float* sc = p.scale + (long)st.a_b[i] * cin + st.a_c[i];
       const float* sh = p.shift + (long)st.a_b[i] * cin + st.a_c[i];
+      const int8_t* mk = reinterpret_cast<const int8_t*>(&st.m[i]);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        float f = __bfloat162float(e[j]) * sc[j] + sh[j];
-        if (p.silu) f = silu(f);
-        e[j] = __float2bfloat16(f);
+        f[j] = f[j] * sc[j] + sh[j];
+        if (p.silu) f[j] = silu(f[j]);
+        if constexpr (kMaskable<T>) {
+          if (p.mask) f[j] *= (float)mk[j] * p.inv_keep;
+        }
       }
+      v = bf16x8(f);
+    } else {
+      v = bf16x8(st.a[i]);
     }
     *reinterpret_cast<uint4*>(&As[row][col]) = v;
     const int krow = (t >> 3) + 16 * i;
@@ -264,35 +314,37 @@ __device__ __forceinline__ void store_stage(const ConvArgs& p, const Stage& st,
 }
 
 // bias, b_skip, temb row and residual for 8 consecutive output channels,
-// then the scale; stores bf16
+// then the scale; stores T
+template <typename T>
 __device__ __forceinline__ void epilogue8(const ConvArgs& p, int m, int n, float r[8]) {
   const int b = m / (p.H * p.W);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    r[j] += p.bias[n + j];
+    if (p.bias) r[j] += p.bias[n + j];
     if (p.bias2) r[j] += p.bias2[n + j];
     if (p.temb) r[j] += p.temb[(long)b * p.N + n + j];
   }
   if (p.resid) {
-    const uint4 rv = *reinterpret_cast<const uint4*>(p.resid + (long)m * p.N + n);
-    const __nv_bfloat16* re = reinterpret_cast<const __nv_bfloat16*>(&rv);
+    Pack8<T> rv;
+    ld8(rv, (const T*)p.resid + (long)m * p.N + n);
+    float f[8];
+    unpack8(rv, f);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) r[j] += __bfloat162float(re[j]);
+    for (int j = 0; j < 8; ++j) r[j] += f[j];
   }
-  uint4 ov;
-  __nv_bfloat16* oe = reinterpret_cast<__nv_bfloat16*>(&ov);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) oe[j] = __float2bfloat16(r[j] * p.out_scale);
-  *reinterpret_cast<uint4*>(p.out + (long)m * p.N + n) = ov;
+  for (int j = 0; j < 8; ++j) r[j] *= p.out_scale;
+  st8((T*)p.out + (long)m * p.N + n, r);
 }
 
 // grid (ceil(M/BM), N/BN, splits), THREADS threads: 4 warps in 2x2, 32x32
 // each. Split z accumulates K slices [z*kper, (z+1)*kper). The shared tiles
 // are double-buffered: the next slice's global loads are in flight in
 // registers during the MMAs, then land in the other buffer.
+template <typename T>
 __global__ void __launch_bounds__(THREADS) conv_gemm_kernel(const ConvArgs p) {
-  __shared__ __align__(128) __nv_bfloat16 As[2][BM][LDA];
-  __shared__ __align__(128) __nv_bfloat16 Bs[2][BK][LDB];
+  __shared__ __align__(128) bf16 As[2][BM][LDA];
+  __shared__ __align__(128) bf16 Bs[2][BK][LDB];
   __shared__ __align__(128) float Cs[BM][LDC];
 
   const int m0 = blockIdx.x * BM;
@@ -310,7 +362,7 @@ __global__ void __launch_bounds__(THREADS) conv_gemm_kernel(const ConvArgs p) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
-  Stage st;
+  Stage<T> st;
   load_stage(p, m0, n0, kbeg, kconv, st);
   store_stage(p, st, As[0], Bs[0]);
   __syncthreads();
@@ -320,8 +372,8 @@ __global__ void __launch_bounds__(THREADS) conv_gemm_kernel(const ConvArgs p) {
     if (more) load_stage(p, m0, n0, k0 + BK, kconv, st);  // in flight during the MMAs
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], &As[buf][wm + 16 * i][kk], LDA);
 #pragma unroll
@@ -358,13 +410,14 @@ __global__ void __launch_bounds__(THREADS) conv_gemm_kernel(const ConvArgs p) {
       dst[0] = make_float4(r[0], r[1], r[2], r[3]);
       dst[1] = make_float4(r[4], r[5], r[6], r[7]);
     } else {
-      epilogue8(p, m, n0 + col, r);
+      epilogue8<T>(p, m, n0 + col, r);
     }
   }
 }
 
-// Split-K reduction: sums the partial tiles, then the usual epilogue.
-// grid ceil(M*N/8 / 256), 256 threads, 8 channels each.
+// Split-K reduction: sums the partial tiles in split order, then the usual
+// epilogue. grid ceil(M*N/8 / 256), 256 threads, 8 channels each.
+template <typename T>
 __global__ void __launch_bounds__(256) splitk_epilogue_kernel(const ConvArgs p) {
   const long M = (long)p.B * p.H * p.W;
   const long v = (long)blockIdx.x * 256 + threadIdx.x;
@@ -378,24 +431,34 @@ __global__ void __launch_bounds__(256) splitk_epilogue_kernel(const ConvArgs p) 
     r[0] += a.x; r[1] += a.y; r[2] += a.z; r[3] += a.w;
     r[4] += b.x; r[5] += b.y; r[6] += b.z; r[7] += b.w;
   }
-  epilogue8(p, (int)m, n, r);
+  epilogue8<T>(p, (int)m, n, r);
+}
+
+template <typename T>
+int conv_gemm_run(const ConvArgs& p, cudaStream_t stream) {
+  const long m = (long)p.B * p.H * p.W;
+  dim3 grid((unsigned)((m + BM - 1) / BM), p.N / BN, p.splits);
+  conv_gemm_kernel<T><<<grid, THREADS, 0, stream>>>(p);
+  if (p.splits > 1) {
+    const long vecs = m * p.N / 8;
+    splitk_epilogue_kernel<T><<<(unsigned)((vecs + 255) / 256), 256, 0, stream>>>(p);
+  }
+  return (int)cudaGetLastError();
 }
 
 // Scratch of one block, carved from one workspace buffer (null base: sizes only).
-size_t align256(size_t x) { return (x + 255) & ~(size_t)255; }
-
 struct Work {
   float* temb;  // (B, N) temb row
   float* sc1;   // (B, Cin) GN1 affine
   float* sh1;
-  __nv_bfloat16* h1;  // (M, N) conv1 output
+  void* h1;     // (M, N) conv1 output, activation type
   float* sc2;   // (B, N) GN2 affine
   float* sh2;
   float* partial;  // (splits, M, N) split-K partial sums
   size_t bytes;
 };
 
-Work carve(char* base, int batch, long m, int cin, int n, int splits) {
+Work carve(char* base, int batch, long m, int cin, int n, int splits, size_t act_bytes) {
   Work w;
   size_t off = 0;
   auto take = [&](size_t bytes) {
@@ -406,7 +469,7 @@ Work carve(char* base, int batch, long m, int cin, int n, int splits) {
   w.temb = (float*)take(sizeof(float) * batch * n);
   w.sc1 = (float*)take(sizeof(float) * batch * cin);
   w.sh1 = (float*)take(sizeof(float) * batch * cin);
-  w.h1 = (__nv_bfloat16*)take(sizeof(__nv_bfloat16) * m * n);
+  w.h1 = take(act_bytes * m * n);
   w.sc2 = (float*)take(sizeof(float) * batch * n);
   w.sh2 = (float*)take(sizeof(float) * batch * n);
   w.partial = splits > 1 ? (float*)take(sizeof(float) * splits * m * n) : nullptr;
@@ -414,80 +477,106 @@ Work carve(char* base, int batch, long m, int cin, int n, int splits) {
   return w;
 }
 
+// One residual block in activation type T. temb_row non-null: the (B, N)
+// temb projection precomputed (K6); else temb_proj_kernel makes it from
+// (temb, dense_w, dense_b). groups1 = 0: no GN1 on the conv1 input (K4).
+// s0 == null selects the identity residual x0. mask non-null: dropout after
+// GN2+SiLU (K6).
+template <typename T>
+int resblock_run(const void* x0, const void* x1, int c0, int c1, const void* temb_row,
+                 const void* temb, const void* dense_w, const void* dense_b, int temb_k,
+                 const void* gn1_g, const void* gn1_b, int groups1, const void* w1, const void* b1,
+                 const void* gn2_g, const void* gn2_b, int groups2, const void* w2, const void* b2,
+                 const void* s0, const void* s1, int cs0, int cs1, const void* ws, const void* bs,
+                 const void* mask, float inv_keep, int batch, int h, int w_, int n, float eps,
+                 float out_scale, void* work, int splits1, int kper1, int splits2, int kper2,
+                 void* out, cudaStream_t stream) {
+  constexpr bool f32 = std::is_same<T, float>::value;
+  const int cin = c0 + c1;
+  const int hw = h * w_;
+  const Work wk = carve((char*)work, batch, (long)batch * hw, cin, n,
+                        splits1 > splits2 ? splits1 : splits2, sizeof(T));
+  const bool gn1 = groups1 > 0;
+  int err = 0;
+  const float* trow = (const float*)temb_row;
+  if (trow == nullptr) {
+    temb_proj_kernel<<<dim3((n + 31) / 32, batch), dim3(32, TEMB_ROWS), 0, stream>>>(
+        (const float*)temb, (const float*)dense_w, (const float*)dense_b, wk.temb, temb_k, n);
+    err = (int)cudaGetLastError();
+    trow = wk.temb;
+  }
+  if (!err && gn1)
+    err = gn_affine_launch(x0, x1, c0, c1, batch, hw, groups1, (const float*)gn1_g,
+                           (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr, f32, stream);
+  if (!err) {
+    ConvArgs p = conv_args(x0, c0, gn1 ? wk.sc1 : nullptr, gn1 ? wk.sh1 : nullptr, gn1 ? 1 : 0, 9,
+                           w1, batch, h, w_, n, b1, 1.0f, wk.h1, wk.partial, splits1, kper1);
+    p.a1 = x1;
+    p.ca1 = c1;
+    p.temb = trow;
+    err = conv_gemm_run<T>(p, stream);
+  }
+  if (!err)
+    err = gn_affine_launch(wk.h1, nullptr, n, 0, batch, hw, groups2, (const float*)gn2_g,
+                           (const float*)gn2_b, eps, wk.sc2, wk.sh2, nullptr, nullptr, f32, stream);
+  if (!err) {
+    ConvArgs p = conv_args(wk.h1, n, wk.sc2, wk.sh2, 1, 9, w2, batch, h, w_, n, b2, out_scale,
+                           out, wk.partial, splits2, kper2);
+    p.mask = (const int8_t*)mask;
+    p.inv_keep = inv_keep;
+    p.s0 = s0;
+    p.s1 = s1;
+    p.cs0 = cs0;
+    p.cs1 = cs1;
+    p.ws = (const bf16*)ws;
+    p.bias2 = (const float*)bs;
+    p.resid = s0 ? nullptr : x0;
+    err = conv_gemm_run<T>(p, stream);
+  }
+  return err;
+}
+
 }  // namespace
+
+int conv_gemm_launch(const ConvArgs& p, bool f32, cudaStream_t stream) {
+  return f32 ? conv_gemm_run<float>(p, stream) : conv_gemm_run<bf16>(p, stream);
+}
+
+void conv_split_plan(long m, int n, int k, int* splits, int* kper) {
+  const long blocks = ((m + BM - 1) / BM) * (n / BN);
+  const int slices = k / BK;
+  long s = (TARGET_BLOCKS + blocks - 1) / blocks;
+  if (s > slices / MIN_SPLIT_SLICES) s = slices / MIN_SPLIT_SLICES;
+  if (s < 1) s = 1;
+  const int per = (int)((slices + s - 1) / s);
+  *kper = per * BK;
+  *splits = (slices + per - 1) / per;
+}
+
+int gn_affine_launch(const void* xa, const void* xb, int ca, int cb, int batch, int hw,
+                     int groups, const float* gamma, const float* beta, float eps, float* scale,
+                     float* shift, float* mean, float* rstd, bool f32, cudaStream_t stream) {
+  dim3 grid(groups, batch);
+  if (f32)
+    gn_affine_kernel<float><<<grid, THREADS_GN, 0, stream>>>(
+        (const float*)xa, (const float*)xb, ca, cb, hw, groups, gamma, beta, eps, scale, shift,
+        mean, rstd);
+  else
+    gn_affine_kernel<bf16><<<grid, THREADS_GN, 0, stream>>>(
+        (const bf16*)xa, (const bf16*)xb, ca, cb, hw, groups, gamma, beta, eps, scale, shift,
+        mean, rstd);
+  return (int)cudaGetLastError();
+}
 
 extern "C" {
 
-int gddim_gn_affine(const void* xa, const void* xb, int ca, int cb, int batch, int hw,
-                    int groups, const void* gamma, const void* beta, float eps, void* scale,
-                    void* shift, void* stream) {
-  dim3 grid(groups, batch);
-  gn_affine_kernel<<<grid, THREADS_GN, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)xa, (const __nv_bfloat16*)xb, ca, cb, hw, groups,
-      (const float*)gamma, (const float*)beta, eps, (float*)scale, (float*)shift);
-  return (int)cudaGetLastError();
-}
-
-int gddim_temb_proj(const void* temb, const void* w, const void* bias, void* out, int batch,
-                    int k, int n, void* stream) {
-  dim3 grid((n + 31) / 32, batch);
-  temb_proj_kernel<<<grid, dim3(32, TEMB_ROWS), 0, (cudaStream_t)stream>>>(
-      (const float*)temb, (const float*)w, (const float*)bias, (float*)out, k, n);
-  return (int)cudaGetLastError();
-}
-
-int gddim_conv_gemm(const void* a0, const void* a1, int ca0, int ca1, const void* scale,
-                    const void* shift, int silu_on, int taps, const void* w, const void* s0,
-                    const void* s1, int cs0, int cs1, const void* ws, int batch, int h, int w_,
-                    int n, const void* bias, const void* bias2, const void* temb,
-                    const void* resid, float out_scale, void* out, void* partial, int splits,
-                    int kper, void* stream) {
-  ConvArgs p;
-  p.a0 = (const __nv_bfloat16*)a0;
-  p.a1 = (const __nv_bfloat16*)a1;
-  p.ca0 = ca0;
-  p.ca1 = ca1;
-  p.scale = (const float*)scale;
-  p.shift = (const float*)shift;
-  p.silu = silu_on;
-  p.taps = taps;
-  p.w = (const __nv_bfloat16*)w;
-  p.s0 = (const __nv_bfloat16*)s0;
-  p.s1 = (const __nv_bfloat16*)s1;
-  p.cs0 = cs0;
-  p.cs1 = cs1;
-  p.ws = (const __nv_bfloat16*)ws;
-  p.B = batch;
-  p.H = h;
-  p.W = w_;
-  p.N = n;
-  p.bias = (const float*)bias;
-  p.bias2 = (const float*)bias2;
-  p.temb = (const float*)temb;
-  p.resid = (const __nv_bfloat16*)resid;
-  p.out_scale = out_scale;
-  p.out = (__nv_bfloat16*)out;
-  p.partial = (float*)partial;
-  p.splits = splits;
-  p.kper = kper;
-  const long m = (long)batch * h * w_;
-  dim3 grid((unsigned)((m + BM - 1) / BM), n / BN, splits);
-  conv_gemm_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(p);
-  if (splits > 1) {
-    const long vecs = m * n / 8;
-    splitk_epilogue_kernel<<<(unsigned)((vecs + 255) / 256), 256, 0, (cudaStream_t)stream>>>(p);
-  }
-  return (int)cudaGetLastError();
-}
-
 long long gddim_resblock_workspace(int batch, int h, int w, int cin, int n, int splits) {
-  return (long long)carve(nullptr, batch, (long)batch * h * w, cin, n, splits).bytes;
+  return (long long)carve(nullptr, batch, (long)batch * h * w, cin, n, splits, sizeof(bf16)).bytes;
 }
 
-// One residual block: K2 (x0, identity or 1x1 skip on x0), K3 (x0 and x1 as
-// the logical concat) or K4 (groups1 = 0: no GN1 on the conv1 input; the
-// skip reads s0). s0 == null selects the identity residual x0. Scratch comes
-// from `work`, gddim_resblock_workspace bytes.
+// K2 (x0, identity or 1x1 skip on x0), K3 (x0 and x1 as the logical concat)
+// or K4 (groups1 = 0: no GN1 on the conv1 input; the skip reads s0), bf16
+// activations. Scratch comes from `work`, gddim_resblock_workspace bytes.
 int gddim_resblock(const void* x0, const void* x1, int c0, int c1, const void* temb,
                    const void* dense_w, const void* dense_b, int temb_k, const void* gn1_g,
                    const void* gn1_b, int groups1, const void* w1, const void* b1,
@@ -496,28 +585,31 @@ int gddim_resblock(const void* x0, const void* x1, int c0, int c1, const void* t
                    const void* ws, const void* bs, int batch, int h, int w_, int n, float eps,
                    float out_scale, void* work, int splits1, int kper1, int splits2, int kper2,
                    void* out, void* stream) {
-  const int cin = c0 + c1;
-  const int hw = h * w_;
-  const Work wk = carve((char*)work, batch, (long)batch * hw, cin, n,
-                        splits1 > splits2 ? splits1 : splits2);
-  const bool gn1 = groups1 > 0;
-  int err = gddim_temb_proj(temb, dense_w, dense_b, wk.temb, batch, temb_k, n, stream);
-  if (!err && gn1)
-    err = gddim_gn_affine(x0, x1, c0, c1, batch, hw, groups1, gn1_g, gn1_b, eps, wk.sc1, wk.sh1,
-                          stream);
-  if (!err)
-    err = gddim_conv_gemm(x0, x1, c0, c1, gn1 ? wk.sc1 : nullptr, gn1 ? wk.sh1 : nullptr,
-                          gn1 ? 1 : 0, 9, w1, nullptr, nullptr, 0, 0, nullptr, batch, h, w_, n, b1,
-                          nullptr, wk.temb, nullptr, 1.0f, wk.h1, wk.partial, splits1, kper1,
-                          stream);
-  if (!err)
-    err = gddim_gn_affine(wk.h1, nullptr, n, 0, batch, hw, groups2, gn2_g, gn2_b, eps, wk.sc2,
-                          wk.sh2, stream);
-  if (!err)
-    err = gddim_conv_gemm(wk.h1, nullptr, n, 0, wk.sc2, wk.sh2, 1, 9, w2, s0, s1, cs0, cs1, ws,
-                          batch, h, w_, n, b2, bs, nullptr, s0 ? nullptr : x0, out_scale, out,
-                          wk.partial, splits2, kper2, stream);
-  return err;
+  return resblock_run<bf16>(x0, x1, c0, c1, nullptr, temb, dense_w, dense_b, temb_k, gn1_g, gn1_b,
+                            groups1, w1, b1, gn2_g, gn2_b, groups2, w2, b2, s0, s1, cs0, cs1, ws,
+                            bs, nullptr, 1.0f, batch, h, w_, n, eps, out_scale, work, splits1,
+                            kper1, splits2, kper2, out, (cudaStream_t)stream);
+}
+
+long long gddim_resblock_train_workspace(int batch, int h, int w, int cin, int n, int splits) {
+  return (long long)carve(nullptr, batch, (long)batch * h * w, cin, n, splits, sizeof(float)).bytes;
+}
+
+// K6: the training forward of one stride-1 block, f32 activations. temb_row
+// (B, N) f32 is the precomputed temb projection; ws == null: identity skip;
+// mask (B, H, W, N) int8 or null (no dropout).
+int gddim_resblock_train(const void* x, int c, const void* temb_row, const void* gn1_g,
+                         const void* gn1_b, int groups1, const void* w1, const void* b1,
+                         const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
+                         const void* b2, const void* ws, const void* bs, const void* mask,
+                         float inv_keep, int batch, int h, int w_, int n, float eps,
+                         float out_scale, void* work, int splits1, int kper1, int splits2,
+                         int kper2, void* out, void* stream) {
+  return resblock_run<float>(x, nullptr, c, 0, temb_row, nullptr, nullptr, nullptr, 0, gn1_g,
+                             gn1_b, groups1, w1, b1, gn2_g, gn2_b, groups2, w2, b2,
+                             ws ? x : nullptr, nullptr, ws ? c : 0, 0, ws, bs, mask, inv_keep,
+                             batch, h, w_, n, eps, out_scale, work, splits1, kper1, splits2,
+                             kper2, out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,18 +1,25 @@
 """Device-side CLD schedule: what the sampler needs from the SDE.
 
-Counterpart of ``gddim_tpu/math/cld.py`` for the sampling path: the static
-hyperparameters, the float64 host twin (``host()``) the coefficient layer
-reads, and the prior draw x ~ N(0, 1), v ~ N(0, 1/m) (cld_jax/sde_lib.py:270-274).
+Counterpart of ``gddim_tpu/math/cld.py``: the static hyperparameters, the
+float64 host twin (``host()``) the coefficient layer reads, the prior draw
+x ~ N(0, 1), v ~ N(0, 1/m) (cld_jax/sde_lib.py:270-274), and for training
+the closed-form transition ``psi``, ``mean`` and R(t) from the same uniform
+f32 table the JAX package interpolates (n = 32768, ``CLD.create``), with
+the full-covariance forward perturbation ``perturb_data``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 
 from gddim_torch.math.cld_host import CLDParams, HostCLD
+from gddim_torch.math.linalg2 import bmm
+
+R_TABLE_SIZE = 32768  # gddim_tpu/math/cld.py:48
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,3 +58,49 @@ class CLD:
         xs = torch.randn(shape, generator=generator, device=device, dtype=dtype)
         vs = torch.randn(shape, generator=generator, device=device, dtype=dtype)
         return torch.stack([xs, vs / math.sqrt(self.params.m_inv)], -1)
+
+    # --- training: forward process ----------------------------------------
+
+    @functools.cached_property
+    def _r_table(self):
+        ts, rs = self.host().r_table(n=R_TABLE_SIZE)
+        return torch.from_numpy(rs), float(ts[-1])
+
+    def beta_int(self, t):
+        return self.params.beta_0 * t + 0.5 * self.params.beta_1 * t ** 2
+
+    def psi(self, s, t):
+        """Psi(s, t), (..., 2, 2) f32 (cld_jax/sde_lib.py:182-205)."""
+        tau = self.beta_int(t) - self.beta_int(s)
+        a = 2.0 * math.sqrt(self.params.m_inv)
+        coef = torch.exp(-a * tau / 2.0)
+        one = torch.ones_like(tau)
+        m = torch.stack([torch.stack([one + a * tau / 2.0, 0.25 * a * a * tau], -1),
+                         torch.stack([-tau, one - a * tau / 2.0], -1)], -2)
+        return m * coef[..., None, None]
+
+    def R(self, t):
+        """R(t) by linear interpolation in the uniform f32 table."""
+        table, t_max = self._r_table
+        table = table.to(t.device)
+        n = table.shape[0]
+        h = t_max / (n - 1)
+        t = t.clamp(0.0, t_max)
+        pos = t / h
+        idx = pos.to(torch.int32).clamp(0, n - 2).long()
+        frac = pos - idx.to(pos.dtype)
+        lo, hi = table[idx], table[idx + 1]
+        return lo + frac[..., None, None] * (hi - lo)
+
+    def mean(self, batch, ts):
+        """Psi(0, t_b) applied per batch element; batch (B, ..., d, 2)."""
+        return bmm(self.psi(torch.zeros_like(ts), ts), batch)
+
+    def perturb_data(self, batch, ts, generator: torch.Generator | None = None, z=None):
+        """(mean + R(t) z, mean, z) with z ~ N(0, I) from ``generator``
+        unless given."""
+        mean = self.mean(batch, ts)
+        if z is None:
+            z = torch.randn(mean.shape, generator=generator, device=mean.device,
+                            dtype=mean.dtype)
+        return mean + bmm(self.R(ts), z), mean, z

@@ -1,10 +1,17 @@
 """NCSN++ building blocks (counterpart of ``gddim_tpu/models/blocks.py``).
 
 Each block takes its kernel choice explicitly: ``fused=True`` runs the
-block through its kernel wrapper (K2-K5, and K1 for a transition's GN1),
-which on a CPU tensor is the plain composition and on a CUDA tensor the
-hand-written kernels; ``fused=False`` runs the plain composition on any
-device.
+block through its kernel wrappers, which on a CPU tensor are the plain
+composition and on a CUDA tensor the hand-written kernels; ``fused=False``
+runs the plain composition on any device.
+
+- inference (``train=False``): K2-K4 for the residual blocks (with K1 for a
+  transition's GN1) and K5 for attention; no gradients;
+- training (``train=True``, gddim_tpu/models/blocks.py:107-147,405-459,
+  545-584): stride-1 residual blocks (up-path pairs concatenated) through
+  K6/K7, transitions as the plain composition with K1 for GN1 and GN2, and
+  attention as K1 GroupNorm, the NIN projections and K8. Dropout masks are
+  drawn in the block, outside any kernel, from the caller's generator.
 """
 
 from __future__ import annotations
@@ -16,11 +23,13 @@ from gddim_torch.models import resample
 from gddim_torch.models.layers import NIN, Conv, Dense, GroupNorm, num_groups_for
 from gddim_torch.ops import attnblock as attn_ops
 from gddim_torch.ops import resblock as rb
+from gddim_torch.ops.attention import self_attention_2d
 
 
 class _KernelWeights:
-    """bf16 copies of a block's conv kernels for the fused path, remade
-    only when a parameter changes (in place or by replacement)."""
+    """bf16 copies of a block's conv kernels for the fused inference path
+    (detached: K2-K4 have no backward), remade only when a parameter changes
+    (in place or by replacement)."""
 
     def __init__(self):
         self._key = None
@@ -40,10 +49,11 @@ class ResnetBlockBigGANpp(nn.Module):
 
     def __init__(self, cin: int, out_ch: int | None, temb_dim: int, up: bool = False,
                  down: bool = False, fir_kernel=(1, 3, 3, 1), skip_rescale: bool = True,
-                 init_scale: float = 0.0, generator=None):
+                 init_scale: float = 0.0, dropout: float = 0.0, generator=None):
         super().__init__()
         out_ch = out_ch or cin
         self.up, self.down = up, down
+        self.dropout = dropout
         self.fir_kernel = tuple(fir_kernel)
         self.skip_rescale = skip_rescale
         self.norm1 = GroupNorm(cin)
@@ -55,8 +65,12 @@ class ResnetBlockBigGANpp(nn.Module):
                      if cin != out_ch or up or down else None)
         self._kw = _KernelWeights()
 
-    def forward(self, x, temb, fused: bool = False):
-        """x: (B, H, W, C), or the up path's (h, skip) pair."""
+    def forward(self, x, temb, fused: bool = False, train: bool = False,
+                generator: torch.Generator | None = None):
+        """x: (B, H, W, C), or the up path's (h, skip) pair. train: dropout
+        masks from ``generator``, and the differentiable kernels."""
+        if train:
+            return self._forward_train(x, temb, fused, generator)
         w1, w2 = self.conv1.weight, self.conv2.weight
         w_skip = b_skip = None
         if self.skip is not None:
@@ -86,6 +100,42 @@ class ResnetBlockBigGANpp(nn.Module):
         op = rb.fused_resblock if fused else rb.resblock_reference
         return op(x, temb, *tail, *gn1, *mid, **kw)
 
+    def _forward_train(self, x, temb, fused, generator):
+        if isinstance(x, (tuple, list)):
+            x = torch.cat(x, -1)
+        b, h, w, _ = x.shape
+        if self.up:
+            h, w = 2 * h, 2 * w
+        elif self.down:
+            h, w = h // 2, w // 2
+        out_ch = self.conv1.weight.shape[-1]
+        keep = 1.0 - self.dropout
+        mask = None
+        if keep < 1.0:
+            probs = torch.full((b, h, w, out_ch), keep, device=x.device)
+            mask = torch.bernoulli(probs, generator=generator).to(torch.int8)
+        temb_proj = rb.temb_projection(temb, self.temb_dense.weight, self.temb_dense.bias)
+        w_skip = b_skip = None
+        if self.skip is not None:
+            w_skip, b_skip = self.skip.weight[0, 0], self.skip.bias
+        if not (self.up or self.down):
+            op = rb.fused_resblock_train if fused else rb.resblock_train_reference
+            return op(x, temb_proj, self.norm1.weight, self.norm1.bias, self.conv1.weight,
+                      self.conv1.bias, self.norm2.weight, self.norm2.bias, self.conv2.weight,
+                      self.conv2.bias, w_skip, b_skip, mask, keep_prob=keep,
+                      num_groups1=self.norm1.num_groups, num_groups2=self.norm2.num_groups,
+                      eps=self.norm2.eps, skip_rescale=self.skip_rescale)
+        hh = self.norm1(x, act=True, fused=fused)
+        res = resample.upsample_2d if self.up else resample.downsample_2d
+        hh, x = res(hh, self.fir_kernel), res(x, self.fir_kernel)
+        hh = self.conv1(hh) + temb_proj.to(hh.dtype)[:, None, None, :]
+        hh = self.norm2(hh, act=True, fused=fused)
+        if mask is not None:
+            hh = hh * (mask.to(hh.dtype) * (1.0 / keep))
+        hh = self.conv2(hh)
+        out = self.skip(x) + hh
+        return out * rb._INV_SQRT2 if self.skip_rescale else out
+
 
 class AttnBlockpp(nn.Module):
     """Spatial self-attention block (reference layerspp.py:61-83)."""
@@ -100,7 +150,12 @@ class AttnBlockpp(nn.Module):
         self.v = NIN(c, c, generator=generator)
         self.out = NIN(c, c, init_scale=init_scale, generator=generator)
 
-    def forward(self, x, fused: bool = False):
+    def forward(self, x, fused: bool = False, train: bool = False):
+        if train:
+            h = self.norm(x, act=False, fused=fused)
+            h = self_attention_2d(self.q(h), self.k(h), self.v(h), fused=fused)
+            out = x + self.out(h)
+            return out * attn_ops._INV_SQRT2 if self.skip_rescale else out
         op = attn_ops.fused_attnblock if fused else attn_ops.attnblock_reference
         return op(x, self.norm.weight, self.norm.bias,
                   self.q.weight, self.q.bias, self.k.weight, self.k.bias,

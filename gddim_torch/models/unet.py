@@ -4,7 +4,10 @@ Covers the options ``cld/accr_dcifar10`` sets: Fourier time embedding, BigGAN
 blocks with FIR resampling, progressive_input='residual', progressive='none',
 skip rescaling. NHWC throughout; parameters float32, activations in
 ``config.model.dtype``; ``config.model.conv_impl`` picks the fused kernels
-('fused') or the plain torch composition ('plain') for every block.
+('fused') or the plain torch composition ('plain') for every block. With
+``train=True`` the blocks take their training paths (dropout, K1/K6/K7/K8),
+and the dropout masks are drawn in the order the blocks run from the
+caller's generator.
 
 Modules are created in the order ``gddim_tpu`` creates its flax scopes
 (``unet.py:221-312``), and ``scopes`` records each one's flax scope name, so
@@ -68,7 +71,7 @@ class NCSNpp(nn.Module):
         def resblock(cin, out=None, **kw):
             return add("ResnetBlockBigGANpp", ResnetBlockBigGANpp(
                 cin, out, 4 * nf, fir_kernel=fir_kernel, skip_rescale=m.skip_rescale,
-                init_scale=m.init_scale, generator=g, **kw))
+                init_scale=m.init_scale, dropout=m.dropout, generator=g, **kw))
 
         def attn(c):
             return add("AttnBlockpp", AttnBlockpp(c, skip_rescale=m.skip_rescale,
@@ -111,9 +114,18 @@ class NCSNpp(nn.Module):
         self.norm_out = add("GroupNorm", GroupNorm(c))
         self.conv_out = add("Conv", Conv(c, channels, 3, init_scale=m.init_scale, generator=g))
 
-    def forward(self, x, time_cond):
-        """x: (B, H, W, 2*C) f32; time_cond: (B,) noise labels. Returns f32."""
+    def forward(self, x, time_cond, train: bool = False,
+                generator: torch.Generator | None = None):
+        """x: (B, H, W, 2*C) f32; time_cond: (B,) noise labels. Returns f32.
+        train: the training paths, dropout masks drawn from ``generator``."""
         fused = self.fused
+
+        def res(block, h):
+            return block(h, temb, fused, train, generator)
+
+        def att(block, h):
+            return block(h, fused, train)
+
         temb = self.fourier(torch.log(time_cond.float()))
         temb = self.temb0(temb.to(self.dtype))
         temb = self.temb1(F.silu(temb))
@@ -126,27 +138,27 @@ class NCSNpp(nn.Module):
         hs = [self.conv_in(x)]
         for i_level in range(self.num_resolutions):
             for _ in range(self.num_res_blocks):
-                h = next(blocks)(hs[-1], temb, fused)
+                h = res(next(blocks), hs[-1])
                 if h.shape[1] in self.attn_resolutions:
-                    h = next(attns)(h, fused)
+                    h = att(next(attns), h)
                 hs.append(h)
             if i_level != self.num_resolutions - 1:
-                h = next(blocks)(hs[-1], temb, fused)
+                h = res(next(blocks), hs[-1])
                 input_pyramid = (next(pyramid)(input_pyramid) + h) * _INV_SQRT2
                 h = input_pyramid
                 hs.append(h)
 
         res1, attn, res2 = self.mid
-        h = res2(attn(res1(hs[-1], temb, fused), fused), temb, fused)
+        h = res(res2, att(attn, res(res1, hs[-1])))
 
         blocks, attns = iter(self.up_blocks), iter(self.up_attn)
         for i_level in reversed(range(self.num_resolutions)):
             for _ in range(self.num_res_blocks + 1):
-                h = next(blocks)((h, hs.pop()), temb, fused)
+                h = res(next(blocks), (h, hs.pop()))
             if h.shape[1] in self.attn_resolutions:
-                h = next(attns)(h, fused)
+                h = att(next(attns), h)
             if i_level != 0:
-                h = next(blocks)(h, temb, fused)
+                h = res(next(blocks), h)
         assert not hs
 
         h = self.norm_out(h, act=True, fused=fused)

@@ -22,18 +22,23 @@ def unstack_channels_to_uv(h: torch.Tensor) -> torch.Tensor:
     return h.reshape(h.shape[:-1] + (2, d)).movedim(-2, -1)
 
 
-def make_cld_eps_fn(sde):
-    """eps_apply(model, u, t_vec) -> eps for the CLD score model at inference.
+def make_cld_eps_fn(sde, train: bool = False):
+    """eps_apply(model, u, t_vec, generator=None) -> eps for the CLD score model.
 
     u: (B, ..., d, 2) f32; t_vec: (B,). eps comes back f32, whatever the
-    model's activation dtype.
+    model's activation dtype. train=False: inference (no autograd, no
+    dropout); train=True: the model's training path, differentiable, with
+    dropout masks drawn from ``generator``.
     """
     if sde.mixed_score:
         raise NotImplementedError("mixed_score is not ported")
 
-    def eps_apply(model, u, t_vec):
-        with torch.inference_mode():
-            out = model(stack_uv_to_channels(u), t_vec * 999.0)
+    def eps_apply(model, u, t_vec, generator=None):
+        if train:
+            out = model(stack_uv_to_channels(u), t_vec * 999.0, train=True, generator=generator)
+        else:
+            with torch.inference_mode():
+                out = model(stack_uv_to_channels(u), t_vec * 999.0)
         return unstack_channels_to_uv(out.float())
 
     return eps_apply

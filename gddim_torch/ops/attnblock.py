@@ -12,7 +12,9 @@ q/k/v projection (one N = 3C product with the GN affine as its prologue) from
 ``csrc/resblock.cu``, the attention core from ``csrc/attnblock.cu``, and the
 output projection with the residual and 1/sqrt(2) in its epilogue. See the
 two sources for what bounds each on the H100. On a CPU tensor the wrapper
-runs the plain version; on a CUDA tensor it launches the kernels or raises.
+runs the plain version; on a CUDA tensor it launches the kernels or raises,
+and, having no backward, raises when autograd would need one (the training
+path runs its attention through K1 and K8 instead, ``models/blocks.py``).
 """
 
 from __future__ import annotations
@@ -22,18 +24,11 @@ import functools
 import torch
 
 from gddim_torch import _build
+from gddim_torch.ops.attention import attention_xla
 from gddim_torch.ops.groupnorm import group_norm_silu_reference
-from gddim_torch.ops.resblock import _operand, split_k
+from gddim_torch.ops.resblock import _operand, require_no_grad, split_k
 
 _INV_SQRT2 = 0.7071067811865476
-
-
-def attention_reference(q, k, v):
-    """(B, S, C) attention, f32 logits and softmax (gddim_tpu/ops/attention.py:21)."""
-    c = q.shape[-1]
-    logits = torch.einsum("bsc,btc->bst", q.float(), k.float()) * c ** (-0.5)
-    w = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bst,btc->bsc", w.float(), v.float()).to(q.dtype)
 
 
 def attnblock_reference(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo, *,
@@ -46,7 +41,7 @@ def attnblock_reference(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo, *,
     q = flat @ wq.to(dt) + bq.to(dt)
     k = flat @ wk.to(dt) + bk.to(dt)
     v = flat @ wv.to(dt) + bv.to(dt)
-    a = attention_reference(q, k, v)
+    a = attention_xla(q, k, v)
     o = a @ wo.to(dt) + bo.to(dt)
     out = x + o.reshape(b, h, w, c)
     return out * _INV_SQRT2 if skip_rescale else out
@@ -68,6 +63,7 @@ def fused_attnblock(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo, *,
                                    num_groups=num_groups, eps=eps, skip_rescale=skip_rescale)
     if x.device.type != "cuda":
         raise ValueError(f"fused_attnblock: unsupported device {x.device}")
+    require_no_grad("fused_attnblock", x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo)
     b, h, w, c = x.shape
     s = h * w
     if s % 16 or s > 256 or c > 256 or c % 64:

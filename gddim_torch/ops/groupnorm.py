@@ -7,10 +7,15 @@ again to normalise (from L2 at these sizes: one sample is at most 512 KB of
 bf16) and writes the output once; there is no tensor-core work. The Triton
 kernel runs one program per (sample, group), reduces in f32 with a two-pass
 variance (E[x^2] - mean^2 cancels at 32x32 with bf16 inputs), then applies
-normalise + affine + SiLU in one elementwise pass and writes bf16.
+normalise + affine + SiLU in one elementwise pass and writes x's dtype
+(bf16 in sampling, f32 in training).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. Either way it is an ``autograd.Function``
+whose backward is autograd of the plain version recomputed from
+(x, scale, bias), as the JAX ``custom_vjp`` does (``groupnorm.py:183-195``):
+the training path (K1 in the transitions, attention and ``norm_out``) gets
+the kernel's forward and exact plain gradients.
 """
 
 from __future__ import annotations
@@ -91,14 +96,8 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def group_norm_silu(x, scale, bias, num_groups: int = 32, eps: float = 1e-6,
-                    apply_silu: bool = True):
-    """GroupNorm(+SiLU) over (B, H, W, C): the Triton kernel on CUDA tensors,
-    the plain version on CPU tensors."""
-    if x.device.type == "cpu":
-        return group_norm_silu_reference(x, scale, bias, num_groups, eps, apply_silu)
-    if x.device.type != "cuda":
-        raise ValueError(f"group_norm_silu: unsupported device {x.device}")
+def _group_norm_silu_kernel(x, scale, bias, num_groups: int, eps: float, apply_silu: bool):
+    """The Triton launch on CUDA tensors."""
     b, h, w, c = x.shape
     if c % num_groups or x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise ValueError(f"group_norm_silu: unsupported input {tuple(x.shape)} {x.dtype}")
@@ -116,6 +115,44 @@ def group_norm_silu(x, scale, bias, num_groups: int = 32, eps: float = 1e-6,
     )
     group_norm_silu.launches += 1
     return out
+
+
+def _forward(x, scale, bias, num_groups, eps, apply_silu):
+    if x.device.type == "cpu":
+        return group_norm_silu_reference(x, scale, bias, num_groups, eps, apply_silu)
+    return _group_norm_silu_kernel(x, scale, bias, num_groups, eps, apply_silu)
+
+
+class _GroupNormSiLU(torch.autograd.Function):
+    """Kernel (or, on the CPU, plain) forward; backward by autograd of the
+    plain version recomputed from the saved (x, scale, bias)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, apply_silu):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.cfg = (num_groups, eps, apply_silu)
+        return _forward(x, scale, bias, num_groups, eps, apply_silu)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(True) for t in (x, scale, bias)]
+            out = group_norm_silu_reference(*xs, *ctx.cfg)
+            grads = torch.autograd.grad(out, xs, g)
+        return (*grads, None, None, None)
+
+
+def group_norm_silu(x, scale, bias, num_groups: int = 32, eps: float = 1e-6,
+                    apply_silu: bool = True):
+    """GroupNorm(+SiLU) over (B, H, W, C): the Triton kernel on CUDA tensors,
+    the plain version on CPU tensors; differentiable either way. When autograd
+    does not record (sampling), the ``autograd.Function`` is skipped."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"group_norm_silu: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
+        return _GroupNormSiLU.apply(x, scale, bias, num_groups, eps, apply_silu)
+    return _forward(x, scale, bias, num_groups, eps, apply_silu)
 
 
 group_norm_silu.launches = 0  # kernel launches on CUDA tensors

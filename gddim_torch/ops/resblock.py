@@ -1,13 +1,18 @@
-"""K2, K3, K4: the fused BigGAN residual block, NHWC.
+"""K2, K3, K4, K6: the fused BigGAN residual block, NHWC.
 
-Replaces three Pallas kernels of ``gddim_tpu/ops/resblock.py``, which are one
+Replaces four Pallas kernels of ``gddim_tpu/ops/resblock.py``, which are one
 computation:
 
 - ``fused_resblock`` (K2, ``_resblock_kernel_v2``): every stride-1 block;
 - ``fused_resblock_pair`` (K3, ``_resblock_pair_kernel_v2``): the up-path
   blocks on concat(xa, xb), without building the concat;
 - ``fused_resblock_tail`` (K4, ``_resblock_kernel_v2`` with GN1 off): the
-  up/down transition blocks after GN1+SiLU and the FIR resample.
+  up/down transition blocks after GN1+SiLU and the FIR resample;
+- ``fused_resblock_train`` (K6, ``make_fused_resblock_train``): every
+  stride-1 block of a training step, f32 activations, with the dropout mask
+  applied after GN2+SiLU. An ``autograd.Function`` that saves only x, the
+  temb row, the mask and the parameters; its backward is K7
+  (``ops/resblock_bwd.py``), which recomputes the interior.
 
     h = silu(GN1(x))                          (K4: h arrives so)
     h = conv3x3(h, W1) + b1 + (silu(temb) @ Wd + bd)
@@ -16,9 +21,10 @@ computation:
     out = (skip(x) + h) * 1/sqrt(2)           skip: identity or 1x1 conv + b_skip
 
 The CUDA implementation is ``csrc/resblock.cu`` (see its header for what
-bounds it on the H100 and how the design answers): five launches per block,
-all hand-written. On a CPU tensor each wrapper runs its plain version; on a
-CUDA tensor it launches the kernels or raises.
+bounds it on the H100 and how the design answers): four or five launches per
+block, all hand-written. On a CPU tensor each wrapper runs its plain version;
+on a CUDA tensor it launches the kernels or raises. K2-K4 have no gradient:
+on CUDA tensors they raise when autograd would need one.
 
 Weights are in the JAX package's layout: conv kernels HWIO (3, 3, Cin, Cout),
 the skip (Cin, Cout), the temb Dense (K, Cout).
@@ -92,6 +98,26 @@ def resblock_tail_reference(h, x_skip, temb, dense_w, dense_b, w1, b1, gn2_scale
                  gn2_bias, w2, b2, w_skip, b_skip, num_groups2, eps, skip_rescale)
 
 
+def resblock_train_reference(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias,
+                             w2, b2, w_skip, b_skip, mask, *, keep_prob: float,
+                             num_groups1: int, num_groups2: int, eps: float = 1e-6,
+                             skip_rescale: bool = True):
+    """Plain version of K6 (gddim_tpu/ops/resblock.py:1673): one training
+    block, dropout ``h * mask / keep_prob`` after GN2+SiLU with an explicit
+    (B, H, W, Cout) {0, 1} mask (unused when keep_prob == 1). temb_proj is
+    the (B, Cout) row silu(temb) @ Wd + bd; w_skip None: identity skip."""
+    h = group_norm_silu_reference(x, gn1_scale, gn1_bias, num_groups1, eps)
+    h = conv3x3_nhwc(h, w1, b1) + temb_proj.to(h.dtype)[:, None, None, :]
+    h = group_norm_silu_reference(h, gn2_scale, gn2_bias, num_groups2, eps)
+    if keep_prob < 1.0:
+        h = h * (mask.to(h.dtype) * (1.0 / keep_prob))
+    h = conv3x3_nhwc(h, w2, b2)
+    skip = x if w_skip is None else (
+        torch.einsum("bhwc,cd->bhwd", x, w_skip.to(x.dtype)) + b_skip.to(x.dtype))
+    out = skip + h
+    return out * _INV_SQRT2 if skip_rescale else out
+
+
 # --------------------------------------------------------------------------
 # CUDA path
 # --------------------------------------------------------------------------
@@ -111,11 +137,20 @@ def split_k(m: int, n: int, k: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(b: int, h: int, w: int, cin: int, cskip: int, n: int):
-    """(splits1, kper1, splits2, kper2, workspace bytes) of one block shape."""
+def _plan(entry: str, b: int, h: int, w: int, cin: int, cskip: int, n: int):
+    """(splits1, kper1, splits2, kper2, workspace bytes) of one block shape
+    through ``entry`` (gddim_resblock or gddim_resblock_train)."""
     s1, k1 = split_k(b * h * w, n, 9 * cin)
     s2, k2 = split_k(b * h * w, n, 9 * n + cskip)
-    return s1, k1, s2, k2, _build.workspace_bytes("gddim_resblock", b, h, w, cin, n, max(s1, s2))
+    return s1, k1, s2, k2, _build.workspace_bytes(entry, b, h, w, cin, n, max(s1, s2))
+
+
+def require_no_grad(what: str, *tensors) -> None:
+    """Raise where a kernel without a backward would hand autograd an output
+    with no history: grad mode on and some input requiring grad."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the kernel has no backward; call it under "
+                           "torch.no_grad() or inference_mode, or use the training path")
 
 
 def _operand(t, what, dtype, shape=None):
@@ -133,6 +168,8 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
                 skip_parts, w_skip, b_skip, *, num_groups2, eps, skip_rescale):
     """One block through gddim_resblock. gn1: (scale, bias, groups), or None (K4);
     skip_parts None: identity residual parts[0]."""
+    require_no_grad("resblock kernel", *parts, temb, dense_w, dense_b, *(gn1 or ())[:2], w1,
+                    b1, gn2_scale, gn2_bias, w2, b2, *(skip_parts or ()), w_skip, b_skip)
     bf16, f32 = torch.bfloat16, torch.float32
     b, h, w, _ = parts[0].shape
     xs = [_operand(p, "resblock input", bf16, (b, h, w, p.shape[-1])) for p in parts] + [None]
@@ -145,7 +182,7 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
         raise ValueError(f"resblock: unsupported channels {c0}+{c1} (skip {cs0}+{cs1}) -> {n}")
     if skip_parts is None and cin != n:
         raise ValueError("resblock: identity skip needs Cin == Cout")
-    s1, k1, s2, k2, nbytes = _plan(b, h, w, cin, cs0 + cs1, n)
+    s1, k1, s2, k2, nbytes = _plan("gddim_resblock", b, h, w, cin, cs0 + cs1, n)
     temb = _operand(temb, "temb", f32)
     gn1 = gn1 or (None, None, 0)
     # operands stay referenced until the launch: a cast's temporary must not be freed
@@ -230,6 +267,80 @@ def fused_resblock_tail(h, x_skip, temb, dense_w, dense_b, w1, b1, gn2_scale, gn
     return out
 
 
+def _resblock_train_cuda(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, w2,
+                         b2, w_skip, b_skip, mask, *, keep_prob, num_groups1, num_groups2, eps,
+                         skip_rescale):
+    """K6 through gddim_resblock_train: f32 x and out, bf16 MMA operands."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    if x.dtype != f32:
+        raise ValueError(f"fused_resblock_train: needs f32 x, got {x.dtype}")
+    b, h, w, cin = x.shape
+    n = w1.shape[-1]
+    if cin % _BK or n % _BN or (w_skip is None and cin != n):
+        raise ValueError(f"fused_resblock_train: unsupported channels {cin} -> {n}")
+    drop = keep_prob < 1.0
+    # operands stay referenced until the launch: a cast's temporary must not be freed
+    ops = [
+        _operand(x, "x", f32, (b, h, w, cin)), _operand(temb_proj, "temb_proj", f32, (b, n)),
+        _operand(gn1_scale, "gn1 scale", f32, (cin,)), _operand(gn1_bias, "gn1 bias", f32, (cin,)),
+        _operand(w1, "conv1", bf16, (3, 3, cin, n)), _operand(b1, "b1", f32, (n,)),
+        _operand(gn2_scale, "gn2 scale", f32, (n,)), _operand(gn2_bias, "gn2 bias", f32, (n,)),
+        _operand(w2, "conv2", bf16, (3, 3, n, n)), _operand(b2, "b2", f32, (n,)),
+        _operand(w_skip, "skip", bf16, (cin, n)), _operand(b_skip, "b_skip", f32, (n,)),
+        _operand(mask, "mask", torch.int8, (b, h, w, n)) if drop else None,
+    ]
+    x_, t_, g1s, g1b, w1_, b1_, g2s, g2b, w2_, b2_, ws_, bs_, m_ = map(_build.ptr, ops)
+    s1, k1, s2, k2, nbytes = _plan("gddim_resblock_train", b, h, w, cin,
+                                   0 if w_skip is None else cin, n)
+    work = torch.empty(nbytes, device=x.device, dtype=torch.uint8)
+    out = torch.empty((b, h, w, n), device=x.device, dtype=f32)
+    _build.launch(
+        "gddim_resblock_train", x.device, x_, cin, t_, g1s, g1b, num_groups1, w1_, b1_, g2s, g2b,
+        num_groups2, w2_, b2_, ws_, bs_, m_, 1.0 / keep_prob if drop else 1.0, b, h, w, n, eps,
+        _INV_SQRT2 if skip_rescale else 1.0, work.data_ptr(), s1, k1, s2, k2, out.data_ptr(),
+    )
+    fused_resblock_train.launches += 1
+    return out
+
+
+class _ResblockTrain(torch.autograd.Function):
+    """K6 forward (plain on the CPU); backward K7 (plain on the CPU) from the
+    saved inputs: no interior activation is kept."""
+
+    @staticmethod
+    def forward(ctx, x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, w2, b2,
+                w_skip, b_skip, mask, cfg):
+        args = (x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, w2, b2, w_skip,
+                b_skip, mask)
+        ctx.save_for_backward(*args)
+        ctx.cfg = cfg
+        if x.device.type == "cpu":
+            return resblock_train_reference(*args, **cfg)
+        return _resblock_train_cuda(*args, **cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        from gddim_torch.ops.resblock_bwd import fused_resblock_train_grads
+
+        *args, mask = ctx.saved_tensors
+        grads = fused_resblock_train_grads(*args, mask, g, **ctx.cfg)
+        return (*grads, None, None)
+
+
+def fused_resblock_train(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, w2,
+                         b2, w_skip, b_skip, mask, *, keep_prob: float, num_groups1: int,
+                         num_groups2: int, eps: float = 1e-6, skip_rescale: bool = True):
+    """K6: one differentiable training block (see resblock_train_reference
+    for the arguments); the kernel forward and the K7 backward on CUDA
+    tensors, the plain versions of both on CPU tensors."""
+    _on_cpu(x, "fused_resblock_train")
+    cfg = dict(keep_prob=keep_prob, num_groups1=num_groups1, num_groups2=num_groups2, eps=eps,
+               skip_rescale=skip_rescale)
+    return _ResblockTrain.apply(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias,
+                                w2, b2, w_skip, b_skip, mask, cfg)
+
+
 fused_resblock.launches = 0  # block launches on CUDA tensors (one gddim_resblock each)
 fused_resblock_pair.launches = 0
 fused_resblock_tail.launches = 0
+fused_resblock_train.launches = 0  # one gddim_resblock_train each
