@@ -1,16 +1,20 @@
 """Smoke run of the PyTorch/H100 port on one CUDA card.
 
-    python3 chip_smoke.py [--phases build,kernels,eps,sample,train] [--batch 16]
+    python3 chip_smoke.py [--phases build,kernels,eps,sample,int8,train] [--batch 16]
 
 Phases (each prints one line per check; any failure raises and exits non-zero):
   1. the card: torch.cuda must be available; prints nvidia-smi's name and
      power limit;
   2. build: nvcc builds gddim_torch/csrc/*.cu (one process per source, in
      parallel), Triton compiles K1;
-  3. kernels: each of K1-K5 at every sampling-path shape and K1 (f32, with
+  3. kernels: each of K1-K5, and the int8 modes of K2-K5 with static and
+     with per-sample scales, at every sampling-path shape and K1 (f32, with
      and without SiLU) and K6-K8 at every training-path shape of the
-     cld/accr_dcifar10 NCSN++ (B=4) against its plain version in f32 (TF32
-     off) on the same inputs, with timings; K7's 12 gradients each within its
+     cld/accr_dcifar10 NCSN++ (B=4) against its plain version (K1-K8 in f32
+     with TF32 off; the int8 modes against their int8 plain versions) on the
+     same inputs, with timings and each call's bound (the least time the card
+     could take: bytes over 3.35 TB/s or operations over the type's peak,
+     whichever is larger); K7's 12 gradients each within its
      bound, and two K7 runs bit-identical; K6 with conv2's weight zero, where
      its output is the f32 residual (x + b2)/sqrt(2) to f32 rounding;
   4. eps: one full-width eps evaluation (B=4, t=0.5, seeded weights), kernel
@@ -18,7 +22,14 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      of that one evaluation;
   5. sample: CLD deis-2 NFE=50 sampling through gddim_torch.cli's sampling
      function (B=16, seeded weights): finite samples, launch counts, wall time;
-  6. train: the full-width model in f32 (seeded weights) at the config's
+  6. int8: the int8 path (conv_impl 'fused_int8'): static scales calibrated on
+     the card (gddim_torch.cli.calibrate_int8), one full-width eps evaluation
+     (B=4, t=0.5) with static scales against the bf16 kernel path and the f32
+     plain path, and with per-sample scales against the f32 plain path, with
+     the launch counts; then NFE=50 sampling at B=16 from the same seed as the
+     bf16 run: finite samples, launch counts, wall time, and the pixel
+     correlation and max|dx| of the int8 samples against the bf16 ones;
+  7. train: the full-width model in f32 (seeded weights) at the config's
      training batch (128): one loss + backward on the kernel path against the
      all-plain path with the same t, z and dropout masks (loss, gradient
      norm, worst per-tensor error); then training.n_jitted_steps Adam steps through
@@ -26,11 +37,16 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      counts per step; img/s and peak memory of both paths for information.
 Then one line {"kernels": [...]}, one line with the card's name and power
 limit, and last {"ok": true, "device": {...}}.
+
+``--phases profile`` (not in the default run) traces one eval of the bf16 and
+the int8 kernel paths at ``--batch`` with torch.profiler and prints the wall,
+the device time and the kernels that take it.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import subprocess
 import sys
@@ -40,6 +56,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # Bounds on max|kernel - plain| / max|plain|. K1-K5: bf16 inputs and weights,
 # f32 plain version; the kernels write bf16 (a relative rounding of up to 2^-8 =
@@ -84,11 +101,34 @@ DEEP_SHARE = 1e-3
 # largest gradient. Every other tensor is measured on its own scale, however
 # small its gradient.
 LEAF_FLOOR = 1e-3
+# The int8 modes against their int8 plain versions (the same int8 weights
+# and scales, f32 inputs holding the bf16 values): both quantize alike, so the
+# gap is the kernels' bf16 output and the rare value whose rounding flips on
+# an f32 last-bit difference; measured 1.8e-3 to 3.5e-3 at every sampling-path
+# shape, static and per-sample, on an H100
+KERNEL_BOUND.update({"K2-int8": 1e-2, "K3-int8": 1e-2, "K4-int8": 1e-2, "K5-int8": 1e-2})
 # Whole network, bf16 kernel path vs f32 plain path: measured 7.1e-3 and
 # 7.6e-3 (seeded weights, B=4, t=0.5); about 2.5x margin.
 EPS_BOUND = 2e-2
+# Whole network through the int8 kernels (B=4, t=0.5, seeded weights), max
+# |int8 - other| / max |other|: static scales against the bf16 kernel path
+# and the f32 plain path, per-sample scales against the f32 plain path;
+# measured 5.1e-2, 5.0e-2 and 3.2e-2 on an H100, about 3x
+EPS_INT8_BOUND = {"static_vs_bf16": 0.15, "static_vs_f32": 0.15, "dynamic_vs_f32": 0.1}
+# NFE=50 int8 samples against the bf16 samples from the same seed (uint8
+# images / 255): pixel correlation measured 0.99115 on an H100, so at least
+# 1 - 3 * 0.00885; mean |dx| measured 0.00439, bounded at about 3x. max|dx|
+# reads 1: the random weights drive some pixels to 0 or 255, and one pixel
+# that lands on opposite ends in the two runs reaches the whole range.
+SAMPLE_INT8_BOUND = {"corr": 0.97, "mean_dx": 0.015, "max_dx": 1.0}
 # kernel launches per eps evaluation of cld/accr_dcifar10
 PER_EVAL = {"K1": 7, "K2": 34, "K3": 36, "K4": 6, "K5": 10}
+# ... of its int8 path: the same blocks through the int8 modes
+PER_EVAL_INT8 = {"K1": 7, "K2-int8": 34, "K3-int8": 36, "K4-int8": 6, "K5-int8": 10}
+# H100 SXM peaks (NVIDIA's data sheet, dense): operations per second by type,
+# and device memory bytes per second
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+HBM = 3.35e12
 # kernel launches per training step: K1 in the 6 transitions (GN1, GN2), the
 # 10 attention blocks and norm_out; K6 forward and K7 backward in the 34
 # stride-1 and 36 concatenated up-path blocks; K8 in the 10 attention blocks
@@ -112,6 +152,16 @@ KERNELS = {
                replaces="gddim_tpu/ops/resblock_bwd.py:353"),
     "K8": dict(name="flash_attention", route="cuda", source="gddim_torch/csrc/flash.cu",
                replaces="gddim_tpu/ops/flash.py:97"),
+    "K2-int8": dict(name="fused_resblock_int8", route="cuda",
+                    source="gddim_torch/csrc/resblock.cu", replaces="gddim_tpu/ops/resblock.py:600"),
+    "K3-int8": dict(name="fused_resblock_pair_int8", route="cuda",
+                    source="gddim_torch/csrc/resblock.cu", replaces="gddim_tpu/ops/resblock.py:993"),
+    "K4-int8": dict(name="fused_resblock_tail_int8", route="cuda",
+                    source="gddim_torch/csrc/resblock.cu",
+                    replaces="gddim_tpu/ops/resblock.py:1111"),
+    "K5-int8": dict(name="fused_attnblock_int8", route="cuda",
+                    source="gddim_torch/csrc/attnblock.cu",
+                    replaces="gddim_tpu/ops/attnblock.py:166"),
 }
 # main-path shapes of cld/accr_dcifar10 (H, channels in, channels out)
 SHAPES = {
@@ -236,40 +286,166 @@ def plain_bf16(kernel):
             "K5": attnblock.attnblock_reference}[kernel]
 
 
+# Static amaxes of the int8 kernel cases: the seeded N(0, 1) inputs through
+# GN(+SiLU) reach about 5, which the 1.5x calibration margin on 4 covers; the
+# attention output (a convex combination of v rows) stays near 1
+INT8_AMAX = {"res": (4.0, 4.0), "attn": (4.0, 1.0)}
+
+
+def int8_kernel_cases(B: int):
+    """(kernel, label, fused fn, plain fn, kernel args) of K2-K5's int8 modes at
+    every sampling-path shape, static and per-sample scales. Weights are
+    quantized from bf16 values, as the model does; the plain version gets
+    the same int8 weights and scales, and the activations in f32."""
+    from gddim_torch.ops import attnblock, resblock as rb
+
+    inp = Inputs(2)
+    qw = lambda *shape: rb.quantize_weight(inp.w(*shape))  # noqa: E731
+    for static in (True, False):
+        mode = "static" if static else "dynamic"
+        res_s, attn_s = (torch.stack(rb.act_scales_from_amax(INT8_AMAX[k])).cuda() if static
+                         else None for k in ("res", "attn"))
+        for h, cin, cout in SHAPES["K2"]:
+            skip = (inp.w(cin, cout), inp.vec(cout)) if cin != cout else (None, None)
+            args = (inp.act(B, h, h, cin), inp.act(B, TEMB), inp.w(TEMB, cout).float(),
+                    inp.vec(cout), inp.vec(cin, 1.0), inp.vec(cin), qw(3, 3, cin, cout),
+                    inp.vec(cout), inp.vec(cout, 1.0), inp.vec(cout), qw(3, 3, cout, cout),
+                    inp.vec(cout), *skip, res_s)
+            kw = dict(num_groups1=min(cin // 4, 32), num_groups2=min(cout // 4, 32))
+            yield ("K2-int8", f"{mode} {h}x{h} {cin}->{cout}",
+                   lambda a=args, k=kw: rb.fused_resblock_int8(*a, **k),
+                   lambda a=args, k=kw: rb.resblock_int8_reference(*_f32(a), **k), args)
+        for h, (c1, c2), cout in SHAPES["K3"]:
+            cin = c1 + c2
+            args = (inp.act(B, h, h, c1), inp.act(B, h, h, c2), inp.act(B, TEMB),
+                    inp.w(TEMB, cout).float(), inp.vec(cout), inp.vec(cin, 1.0), inp.vec(cin),
+                    qw(3, 3, cin, cout), inp.vec(cout), inp.vec(cout, 1.0), inp.vec(cout),
+                    qw(3, 3, cout, cout), inp.vec(cout), inp.w(cin, cout), inp.vec(cout), res_s)
+            kw = dict(num_groups1=min(cin // 4, 32), num_groups2=min(cout // 4, 32))
+            yield ("K3-int8", f"{mode} {h}x{h} {c1}+{c2}->{cout}",
+                   lambda a=args, k=kw: rb.fused_resblock_pair_int8(*a, **k),
+                   lambda a=args, k=kw: rb.resblock_pair_int8_reference(*_f32(a), **k), args)
+        for h, c, cout in SHAPES["K4"]:
+            args = (inp.act(B, h, h, c), inp.act(B, h, h, c), inp.act(B, TEMB),
+                    inp.w(TEMB, cout).float(), inp.vec(cout), qw(3, 3, c, cout), inp.vec(cout),
+                    inp.vec(cout, 1.0), inp.vec(cout), qw(3, 3, cout, cout), inp.vec(cout),
+                    inp.w(c, cout), inp.vec(cout), res_s)
+            kw = dict(num_groups2=min(cout // 4, 32))
+            yield ("K4-int8", f"{mode} {h}x{h} {c}->{cout}",
+                   lambda a=args, k=kw: rb.fused_resblock_tail_int8(*a, **k),
+                   lambda a=args, k=kw: rb.resblock_tail_int8_reference(*_f32(a), **k), args)
+        for h, c in SHAPES["K5"]:
+            args = (inp.act(B, h, h, c), inp.vec(c, 1.0), inp.vec(c), qw(c, 3 * c),
+                    inp.vec(3 * c), qw(c, c), inp.vec(c), attn_s)
+            kw = dict(num_groups=32, skip_rescale=True)
+            yield ("K5-int8", f"{mode} {h}x{h}x{c}",
+                   lambda a=args, k=kw: attnblock.fused_attnblock_int8(*a, **k),
+                   lambda a=args, k=kw: attnblock.attnblock_int8_reference(*_f32(a), **k), args)
+
+
 def _rel(out, ref) -> float:
     return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
-def _record(results, kernel, label, err, rel, ms, plain_ms, **extra):
-    r = results.setdefault(kernel, dict(max_abs_err=0.0, max_rel_err=0.0, ms=0.0,
-                                        plain_ms=0.0, shapes=[]))
+def nbytes(*objs) -> int:
+    """Bytes of every tensor in objs (tuples and lists flattened; None skipped)."""
+    total = 0
+    for o in objs:
+        if isinstance(o, (tuple, list)):
+            total += nbytes(*o)
+        elif isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+    return total
+
+
+def block_ops(kernel: str, B: int, h: int, cin: int, cout: int, skip: bool) -> dict:
+    """Operations of one residual block call by type: the two 3x3 convs (bf16
+    or int8 tensor-core operands), the bf16 1x1 skip, the f32 temb row; K7
+    recomputes conv1 and runs both convs' dgrads and wgrads and the skip's."""
+    m = B * h * h
+    conv = 2 * m * 9 * (cin * cout + cout * cout)
+    sk = 2 * m * cin * cout if skip else 0
+    if kernel == "K7":
+        return {"bf16": 2 * m * 9 * (3 * cin * cout + 2 * cout * cout) + 2 * sk}
+    if kernel == "K6":
+        return {"bf16": conv + sk}
+    return {"int8" if kernel.endswith("int8") else "bf16": conv, "bf16_skip": sk,
+            "f32": 2 * B * TEMB * cout}
+
+
+def attn_ops(kernel: str, B: int, s: int, c: int) -> dict:
+    """K5: the q/k/v and output projections and the two attention products."""
+    return {"int8" if kernel.endswith("int8") else "bf16": 2 * B * s * c * 4 * c,
+            "bf16_attn": 4 * B * s * s * c}
+
+
+def bound(bytes_: int, ops: dict):
+    """(bound ms, bytes ms, operations ms): the least time the card could take,
+    bytes over HBM and operations over their type's peak, whichever is larger."""
+    t_bytes = 1e3 * bytes_ / HBM
+    t_ops = 1e3 * sum(n / PEAK[k.split("_")[0]] for k, n in ops.items())
+    return max(t_bytes, t_ops), t_bytes, t_ops
+
+
+def _record(results, kernel, label, err, rel, ms, plain_ms, bound_ms, library_ms=None, **extra):
+    r = results.setdefault(kernel, dict(max_abs_err=0.0, max_rel_err=0.0, ms=0.0, plain_ms=0.0,
+                                        bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+                                        library_ms=None, shapes=[]))
     r["max_abs_err"] = max(r["max_abs_err"], err)
     r["max_rel_err"] = max(r["max_rel_err"], rel)
     r["ms"] += ms
     r["plain_ms"] += plain_ms
+    for key, v in zip(("bound_ms", "bytes_ms", "ops_ms"), bound_ms):
+        r[key] += v
+    if library_ms is not None:
+        r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
     r["shapes"].append(dict(shape=label, max_abs_err=err, rel=rel, ms=ms, plain_ms=plain_ms,
-                            **extra))
+                            bound_ms=bound_ms[0], library_ms=library_ms, **extra))
+
+
+def _ops_of(kernel, B, args, out):
+    """Operations of one K1-K5 case from its arguments' and output's shapes."""
+    x, cout = args[0], out.shape[-1]
+    if kernel == "K1":
+        return {"f32": 8 * x.numel()}  # statistics, affine and SiLU per element
+    if kernel.startswith("K5"):
+        return attn_ops(kernel, B, x.shape[1] * x.shape[2], x.shape[3])
+    if kernel.startswith("K3"):
+        return block_ops(kernel, B, x.shape[1], x.shape[3] + args[1].shape[3], cout, True)
+    skip = args[11] is not None if kernel.startswith("K4") else args[12] is not None
+    return block_ops(kernel, B, x.shape[1], x.shape[3], cout, skip)
+
+
+def _check_kernel(results, kernel, label, fused, plain, B, args, plain_timed, plain_reps=20,
+                  **extra):
+    """Run one case: kernel vs plain (bf16 output within KERNEL_BOUND), timings,
+    bound from the arguments' bytes and shapes."""
+    out = fused()
+    torch.cuda.synchronize()
+    ref = plain()
+    if out.shape != ref.shape or out.dtype != torch.bfloat16:
+        raise AssertionError(f"{kernel} {label}: got {out.dtype} {tuple(out.shape)}, "
+                             f"plain {tuple(ref.shape)}")
+    err, rel = (out.float() - ref.float()).abs().max().item(), _rel(out, ref)
+    ms = time_ms(fused)
+    plain_ms = time_ms(plain_timed, plain_reps)
+    bd = bound(nbytes(args, out), _ops_of(kernel, B, args, out))
+    print(f"kernel {kernel} {KERNELS[kernel]['name']} [{label}] B={B}: max|err|={err:.3e} "
+          f"rel={rel:.3e} (bound {KERNEL_BOUND[kernel]:.0e}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bd[0]:.4f} ({'bytes' if bd[1] >= bd[2] else 'operations'})"
+          + "".join(f" {k}={v:.4f}" for k, v in extra.items()), flush=True)
+    _record(results, kernel, label, err, rel, ms, plain_ms, bd, **extra)
+    if not np.isfinite(rel) or rel > KERNEL_BOUND[kernel]:
+        raise AssertionError(f"{kernel} {label}: rel err {rel:.3e} > {KERNEL_BOUND[kernel]:.0e}")
 
 
 def phase_kernels(results: dict, B: int = 4):
     for kernel, label, fused, plain, args, kw in kernel_cases(B):
-        out = fused()
-        torch.cuda.synchronize()
-        ref = plain()
-        if out.shape != ref.shape or out.dtype != torch.bfloat16:
-            raise AssertionError(f"{kernel} {label}: got {out.dtype} {tuple(out.shape)}, "
-                                 f"plain {tuple(ref.shape)}")
-        err, rel = (out.float() - ref.float()).abs().max().item(), _rel(out, ref)
-        ms = time_ms(fused)
-        plain_ms = time_ms(lambda: plain_bf16(kernel)(*args, **kw))
-        plain_f32_ms = time_ms(plain)
-        print(f"kernel {kernel} {KERNELS[kernel]['name']} [{label}] B={B}: max|err|={err:.3e} "
-              f"rel={rel:.3e} (bound {KERNEL_BOUND[kernel]:.0e}) ms={ms:.4f} "
-              f"plain_bf16_ms={plain_ms:.4f} plain_f32_ms={plain_f32_ms:.4f}", flush=True)
-        _record(results, kernel, label, err, rel, ms, plain_ms, plain_f32_ms=plain_f32_ms)
-        if not np.isfinite(rel) or rel > KERNEL_BOUND[kernel]:
-            raise AssertionError(f"{kernel} {label}: rel err {rel:.3e} > "
-                                 f"{KERNEL_BOUND[kernel]:.0e}")
+        _check_kernel(results, kernel, label, fused, plain, B, args,
+                      lambda: plain_bf16(kernel)(*args, **kw), plain_f32_ms=time_ms(plain))
+    for kernel, label, fused, plain, args in int8_kernel_cases(B):
+        # the int8 plain version sums exactly in float64: no yardstick of speed
+        _check_kernel(results, kernel, label, fused, plain, B, args, plain, plain_reps=5)
 
 
 def train_block_inputs(inp: Inputs, B: int, h: int, cin: int, cout: int, keep: float = 0.9):
@@ -308,10 +484,11 @@ def phase_train_kernels(results: dict, B: int = 4):
                 raise AssertionError(f"K1 {label}: got {out.dtype} {tuple(out.shape)}")
             err, rel = (out - ref).abs().max().item(), _rel(out, ref)
             ms, plain_ms = time_ms(fused), time_ms(plain)
+            bd = bound(nbytes(args, out), {"f32": 8 * out.numel()})
             print(f"kernel K1 group_norm_silu [{label}] B={B}: max|err|={err:.3e} rel={rel:.3e} "
-                  f"(bound {K1_F32_BOUND:.0e}) ms={ms:.4f} plain_f32_ms={plain_ms:.4f}",
-                  flush=True)
-            _record(results, "K1", label, err, rel, ms, plain_ms)
+                  f"(bound {K1_F32_BOUND:.0e}) ms={ms:.4f} plain_f32_ms={plain_ms:.4f} "
+                  f"bound_ms={bd[0]:.4f}", flush=True)
+            _record(results, "K1", label, err, rel, ms, plain_ms, bd)
             if not np.isfinite(rel) or rel > K1_F32_BOUND:
                 raise AssertionError(f"K1 {label}: rel err {rel:.3e} > {K1_F32_BOUND:.0e}")
 
@@ -328,10 +505,12 @@ def phase_train_kernels(results: dict, B: int = 4):
             raise AssertionError(f"K6 {label}: got {out.dtype} {tuple(out.shape)}")
         err, rel = (out - ref).abs().max().item(), _rel(out, ref)
         ms, plain_ms = time_ms(fused), time_ms(plain)
+        skip = args[10] is not None
+        bd = bound(nbytes(args, mask, out), block_ops("K6", B, h, cin, cout, skip))
         print(f"kernel K6 fused_resblock_train [{label}] B={B}: max|err|={err:.3e} "
               f"rel={rel:.3e} (bound {KERNEL_BOUND['K6']:.0e}) ms={ms:.4f} "
-              f"plain_f32_ms={plain_ms:.4f}", flush=True)
-        _record(results, "K6", label, err, rel, ms, plain_ms)
+              f"plain_f32_ms={plain_ms:.4f} bound_ms={bd[0]:.4f}", flush=True)
+        _record(results, "K6", label, err, rel, ms, plain_ms, bd)
         if not np.isfinite(rel) or rel > KERNEL_BOUND["K6"]:
             raise AssertionError(f"K6 {label}: rel err {rel:.3e} > {KERNEL_BOUND['K6']:.0e}")
 
@@ -351,11 +530,12 @@ def phase_train_kernels(results: dict, B: int = 4):
             errs[name] = _rel(a, w)
         ms, plain_ms = time_ms(kgrads), time_ms(pgrads)
         abs_err = max((a - w).abs().max().item() for a, w in zip(got, want) if w is not None)
+        bd = bound(nbytes(args, mask, g, got), block_ops("K7", B, h, cin, cout, skip))
         print(f"kernel K7 fused_resblock_train_grads [{label}] B={B}: bit-identical on repeat; "
               + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
               + f" (bounds {K7_BOUND['dx']:.1e}, db2 and dbsk {K7_BOUND['db2']:.0e}) "
-              f"ms={ms:.4f} plain_f32_ms={plain_ms:.4f}", flush=True)
-        _record(results, "K7", label, abs_err, max(errs.values()), ms, plain_ms, grads=errs)
+              f"ms={ms:.4f} plain_f32_ms={plain_ms:.4f} bound_ms={bd[0]:.4f}", flush=True)
+        _record(results, "K7", label, abs_err, max(errs.values()), ms, plain_ms, bd, grads=errs)
         bad = {k: v for k, v in errs.items() if not np.isfinite(v) or v > K7_BOUND[k]}
         if bad:
             raise AssertionError(f"K7 {label}: gradients over their bounds: {bad}")
@@ -385,10 +565,12 @@ def phase_train_kernels(results: dict, B: int = 4):
         ref = plain()
         err, rel = (out - ref).abs().max().item(), _rel(out, ref)
         ms, plain_ms = time_ms(fused), time_ms(plain)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        bd = bound(nbytes(q, k, v, out), {"f32": 4 * b * s_ * s_ * c})  # f32 FMA, no tensor cores
         print(f"kernel K8 flash_attention [{label}]: max|err|={err:.3e} rel={rel:.3e} "
-              f"(bound {KERNEL_BOUND['K8']:.0e}) ms={ms:.4f} plain_f32_ms={plain_ms:.4f}",
-              flush=True)
-        _record(results, "K8", label, err, rel, ms, plain_ms)
+              f"(bound {KERNEL_BOUND['K8']:.0e}) ms={ms:.4f} plain_f32_ms={plain_ms:.4f} "
+              f"sdpa_ms={library_ms:.4f} bound_ms={bd[0]:.4f}", flush=True)
+        _record(results, "K8", label, err, rel, ms, plain_ms, bd, library_ms=library_ms)
         if not np.isfinite(rel) or rel > KERNEL_BOUND["K8"]:
             raise AssertionError(f"K8 {label}: rel err {rel:.3e} > {KERNEL_BOUND['K8']:.0e}")
 
@@ -399,7 +581,10 @@ def counters():
     return {"K1": groupnorm.group_norm_silu, "K2": resblock.fused_resblock,
             "K3": resblock.fused_resblock_pair, "K4": resblock.fused_resblock_tail,
             "K5": attnblock.fused_attnblock, "K6": resblock.fused_resblock_train,
-            "K7": resblock_bwd.fused_resblock_train_grads, "K8": attention.flash_attention}
+            "K7": resblock_bwd.fused_resblock_train_grads, "K8": attention.flash_attention,
+            "K2-int8": resblock.fused_resblock_int8, "K3-int8": resblock.fused_resblock_pair_int8,
+            "K4-int8": resblock.fused_resblock_tail_int8,
+            "K5-int8": attnblock.fused_attnblock_int8}
 
 
 def reset_counts():
@@ -411,6 +596,22 @@ def read_counts():
     return {k: fn.launches for k, fn in counters().items()}
 
 
+def eps_inputs(batch: int = 4):
+    """The eps phases' (u, t): seeded u, t = 0.5."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    u = torch.randn((batch, 32, 32, 3, 2), generator=g, device="cuda")
+    return u, torch.full((batch,), 0.5, device="cuda")
+
+
+def launches_of(keys):
+    """The counts of ``keys``; raises if a kernel outside them launched."""
+    counts = read_counts()
+    stray = {k: n for k, n in counts.items() if k not in keys and n}
+    if stray:
+        raise AssertionError(f"kernels of another path launched: {stray}")
+    return {k: counts[k] for k in keys}
+
+
 def phase_eps(config):
     from gddim_torch.math.cld import CLD
     from gddim_torch.models.init import seeded_model
@@ -418,13 +619,11 @@ def phase_eps(config):
 
     model = seeded_model(config, seed=0, device="cuda")
     eps_apply = make_cld_eps_fn(CLD.from_config(config))
-    g = torch.Generator(device="cuda").manual_seed(1)
-    u = torch.randn((4, 32, 32, 3, 2), generator=g, device="cuda")
-    t = torch.full((4,), 0.5, device="cuda")
+    u, t = eps_inputs()
     reset_counts()
     got = eps_apply(model, u, t)
     torch.cuda.synchronize()
-    counts = {k: read_counts()[k] for k in PER_EVAL}
+    counts = launches_of(PER_EVAL)
     model.fused, model.dtype = False, torch.float32
     ref = eps_apply(model, u, t)
     model.fused, model.dtype = True, torch.bfloat16
@@ -450,7 +649,7 @@ def phase_sample(config, model, batch: int, card: str):
         (path,) = sample_data(config, model, Path(tmp), batch, rounds=1, seed=8, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {k: read_counts()[k] for k in PER_EVAL}
+        counts = launches_of(PER_EVAL)
         with np.load(path) as f:
             samples, v, nfe_rec = f["samples"], f["v"], int(f["nfe"])
     expected = {k: n * nfe for k, n in PER_EVAL.items()}
@@ -460,7 +659,127 @@ def phase_sample(config, model, batch: int, card: str):
         raise AssertionError(f"bad samples {samples.shape} nfe={nfe_rec}")
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != {expected}")
+    return counts, samples
+
+
+def phase_int8(config, samples_bf16, batch: int, card: str):
+    """The int8 path as a user runs it (conv_impl fused_int8, scales calibrated
+    on the card), against the bf16 kernel path and the f32 plain path."""
+    from gddim_torch.cli import build_model, calibrate_int8, sample_data
+    from gddim_torch.math.cld import CLD
+    from gddim_torch.models.wrappers import make_cld_eps_fn
+
+    config = copy.deepcopy(config)
+    config.model.conv_impl = "fused_int8"
+    model = build_model(config, "cuda", None, seed=0)
+    seconds = calibrate_int8(config, model, seed=0)
+    sites = sum(len(v) for v in model.qscales.values())
+    print(f"int8 calibration: {len(model.qscales)} blocks, {sites} sites, batch 8, order-0 NFE 12 "
+          f"on the card in {seconds:.3f} s", flush=True)
+
+    eps_apply = make_cld_eps_fn(CLD.from_config(config))
+    u, t = eps_inputs()
+    reset_counts()
+    got = eps_apply(model, u, t)
+    torch.cuda.synchronize()
+    counts = launches_of(PER_EVAL_INT8)
+    qscales, model.qscales = model.qscales, {}
+    dynamic = eps_apply(model, u, t)
+    model.qscales, model.int8 = qscales, False
+    bf16 = eps_apply(model, u, t)
+    model.fused, model.dtype = False, torch.float32
+    f32 = eps_apply(model, u, t)
+    model.fused, model.int8, model.dtype = True, True, torch.bfloat16
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()  # noqa: E731
+    errs = dict(static_vs_bf16=rel(got, bf16), static_vs_f32=rel(got, f32),
+                dynamic_vs_f32=rel(dynamic, f32), bf16_vs_f32=rel(bf16, f32))
+    print("eps B=4 t=0.5 int8 path: " + ", ".join(
+        f"{k} {v:.3e}" + (f" (bound {EPS_INT8_BOUND[k]:.2g})" if k in EPS_INT8_BOUND else "")
+        for k, v in errs.items()) + f"; launches {counts}", flush=True)
+    bad = {k: v for k, v in errs.items() if k in EPS_INT8_BOUND
+           and not (np.isfinite(v) and v <= EPS_INT8_BOUND[k])}
+    if bad:
+        raise AssertionError(f"int8 eps over bounds: {bad}")
+    if counts != PER_EVAL_INT8:
+        raise AssertionError(f"int8 launch counts {counts} != {PER_EVAL_INT8}")
+
+    nfe = int(config.sampling.nfe)
+    with tempfile.TemporaryDirectory() as tmp:
+        sample_data(config, model, Path(tmp), batch, rounds=1, seed=7, device="cuda")  # warm
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (path,) = sample_data(config, model, Path(tmp), batch, rounds=1, seed=8, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches_of(PER_EVAL_INT8)
+        with np.load(path) as f:
+            samples, v, nfe_rec = f["samples"], f["v"], int(f["nfe"])
+    a, b = samples_bf16.astype(np.float64) / 255.0, samples.astype(np.float64) / 255.0
+    corr = float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+    mean_dx, max_dx = float(np.abs(a - b).mean()), float(np.abs(a - b).max())
+    print(f"sample int8 static deis-2 NFE={nfe_rec} B={batch}: wall {wall:.3f} s, "
+          f"{batch / wall:.2f} img/s [{card}] (information only); launches {counts}; against the "
+          f"bf16 samples of the same seed: pixel corr {corr:.5f} (bound >= "
+          f"{SAMPLE_INT8_BOUND['corr']}), mean|dx| {mean_dx:.5f} (bound "
+          f"{SAMPLE_INT8_BOUND['mean_dx']}), max|dx| {max_dx:.4f} (bound "
+          f"{SAMPLE_INT8_BOUND['max_dx']}), mean {b.mean():.4f} (bf16 {a.mean():.4f})",
+          flush=True)
+    if samples.shape != (batch, 32, 32, 3) or not np.isfinite(v).all() or nfe_rec != nfe:
+        raise AssertionError(f"bad int8 samples {samples.shape} nfe={nfe_rec}")
+    expected = {k: n * nfe for k, n in PER_EVAL_INT8.items()}
+    if counts != expected:
+        raise AssertionError(f"int8 launch counts {counts} != {expected}")
+    if not (corr >= SAMPLE_INT8_BOUND["corr"] and mean_dx <= SAMPLE_INT8_BOUND["mean_dx"]
+            and max_dx <= SAMPLE_INT8_BOUND["max_dx"]):
+        raise AssertionError(f"int8 samples: corr {corr:.5f}, mean|dx| {mean_dx:.5f}, "
+                             f"max|dx| {max_dx:.4f} over bounds")
     return counts
+
+
+def phase_profile(config, batch: int, card: str, evals: int = 5):
+    """Where one eval's time goes, bf16 and int8 static kernel paths: wall
+    (host clock to a synchronize, mean of ``evals``), host enqueue, and under
+    torch.profiler the device time and the kernels that take it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gddim_torch.cli import build_model, calibrate_int8
+    from gddim_torch.math.cld import CLD
+    from gddim_torch.models.wrappers import make_cld_eps_fn
+
+    config = copy.deepcopy(config)
+    config.model.conv_impl = "fused_int8"
+    model = build_model(config, "cuda", None, seed=0)
+    calibrate_int8(config, model, seed=0)
+    eps_apply = make_cld_eps_fn(CLD.from_config(config))
+    u, t = eps_inputs(batch)
+    for name, int8 in (("bf16", False), ("int8", True), ("int8", True), ("bf16", False)):
+        model.int8 = int8
+        for _ in range(2):
+            eps_apply(model, u, t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(evals):
+            eps_apply(model, u, t)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / evals * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eps_apply(model, u, t)
+            enqueue = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            traced = (time.perf_counter() - t0) * 1e3
+        dev = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        total = sum(ms for _, ms, _ in dev)
+        top = sorted(dev, key=lambda r: -r[1])[:8]
+        print(f"profile {name} eval B={batch} [{card}]: wall {wall:.3f} ms (mean of {evals}); "
+              f"traced eval: wall {traced:.3f} ms, host enqueue {enqueue:.3f} ms, device "
+              f"{total:.3f} ms in {sum(n for *_, n in dev)} kernels, idle share "
+              f"{1 - total / traced:.3f}", flush=True)
+        for key, ms, n in top:
+            print(f"  {ms:8.3f} ms {n:5d}x {key[:110]}", flush=True)
 
 
 def _loss_and_grads(model, loss_fn, images, t, z, seed):
@@ -583,7 +902,7 @@ def phase_train(card: str):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="smoke run of gddim_torch on one CUDA card")
-    parser.add_argument("--phases", default="build,kernels,eps,sample,train")
+    parser.add_argument("--phases", default="build,kernels,eps,sample,int8,train")
     parser.add_argument("--batch", type=int, default=16, help="sampling batch")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -614,25 +933,37 @@ def main(argv=None):
         phase_train_kernels(results)
     config = get_config("cld/accr_dcifar10")
     model = phase_eps(config) if "eps" in phases else None
-    counts = {}
+    # each path's launches, counted from 0 just before it runs: the bf16
+    # sampling path, then the int8 one and the training one for their kernels
+    counts, samples = {}, None
     if "sample" in phases:
         if model is None:
             from gddim_torch.models.init import seeded_model
 
             model = seeded_model(config, seed=0, device="cuda")
-        counts = phase_sample(config, model, args.batch, card)
-        del model
+        counts, samples = phase_sample(config, model, args.batch, card)
+    del model
+    if "int8" in phases:
+        if samples is None:
+            raise SystemExit("chip_smoke: the int8 phase compares with the sample phase's output")
+        int8_counts = phase_int8(config, samples, args.batch, card)
+        counts.update({k: n for k, n in int8_counts.items() if k not in counts})
+    if "profile" in phases:
+        phase_profile(config, args.batch, card)
     if "train" in phases:
         train_counts = phase_train(card)
         counts.update({k: n for k, n in train_counts.items() if k not in counts})
-    if phases >= {"kernels", "sample", "train"}:
+    if phases >= {"kernels", "sample", "int8", "train"}:
         missing = [k for k in KERNELS if counts.get(k, 0) == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the main path: {missing}")
         print(json.dumps({"kernels": [
             dict(**KERNELS[k], launches=counts[k], max_abs_err=results[k]["max_abs_err"],
                  max_rel_err=results[k]["max_rel_err"], ms=results[k]["ms"],
-                 plain_ms=results[k]["plain_ms"], shapes=results[k]["shapes"])
+                 plain_ms=results[k]["plain_ms"], bound_ms=results[k]["bound_ms"],
+                 bound_by="bytes" if results[k]["bytes_ms"] >= results[k]["ops_ms"]
+                 else "operations",
+                 library_ms=results[k]["library_ms"], shapes=results[k]["shapes"])
             for k in KERNELS
         ]}), flush=True)
     print(card, flush=True)

@@ -45,6 +45,17 @@ _SIGNATURES = {
         _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
         _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
     ],
+    # gddim_resblock_int8_workspace(B, H, W, Cin, N, splits)
+    "gddim_resblock_int8_workspace": [_I, _I, _I, _I, _I, _I],
+    # gddim_resblock_int8(x0, x1, c0, c1, temb, dense_w, dense_b, temb_k, gn1_g, gn1_b,
+    #   groups1, w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, s0, s1, cs0, cs1, ws, bs,
+    #   act_scales, B, H, W, N, eps, out_scale, work, splits1, kper1, splits2, kper2, out,
+    #   stream)
+    "gddim_resblock_int8": [
+        _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
+        _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+        _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
+    ],
     # gddim_resblock_train_workspace(B, H, W, Cin, N, splits)
     "gddim_resblock_train_workspace": [_I, _I, _I, _I, _I, _I],
     # gddim_resblock_train(x, c, temb_row, gn1_g, gn1_b, groups1, w1, b1, gn2_g, gn2_b,
@@ -72,6 +83,14 @@ _SIGNATURES = {
     #   out_scale, work, splits1, kper1, splits2, kper2, out, stream)
     "gddim_attnblock": [
         _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
+    ],
+    # gddim_attnblock_int8_workspace(B, S, C, splits)
+    "gddim_attnblock_int8_workspace": [_I, _I, _I, _I],
+    # gddim_attnblock_int8(x, gn_g, gn_b, groups, wqkv, wqkv_s, bqkv, wo, wo_s, bo, act_scales,
+    #   B, S, C, eps, out_scale, work, splits1, kper1, splits2, kper2, out, stream)
+    "gddim_attnblock_int8": [
+        _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
     ],
 }
 

@@ -9,7 +9,10 @@ Sampling: weights are seeded (``models/init.py``) unless ``--weights`` names
 a ``state_dict`` file (``torch.save`` of ``convert.flax_to_state_dict``, or
 a ``--mode train`` output). Each round writes ``samples_<r>.npz`` holding
 uint8 images, v and nfe, as the JAX package's ``run_lib.sampling_from_fn``
-does.
+does. With ``--set model.conv_impl=fused_int8`` the network runs the int8
+kernels; their static activation scales are calibrated first
+(``models/calibrate.py``, seeded by ``--seed``), as ``bench.py`` does,
+unless ``--no-static`` asks for per-sample scales.
 
 Training: ``--steps`` Adam steps (``train/``) on the synthetic image stream
 (``data/synthetic.py``), f32 activations, ``training.n_jitted_steps`` steps
@@ -36,6 +39,7 @@ import torch
 from gddim_torch.configs import get_config, train_config
 from gddim_torch.data.synthetic import SyntheticStream, get_data_scaler
 from gddim_torch.math.cld import CLD
+from gddim_torch.models.calibrate import calibrate_cld_qscales
 from gddim_torch.models.init import seeded_model
 from gddim_torch.models.unet import NCSNpp
 from gddim_torch.models.wrappers import make_cld_eps_fn
@@ -88,6 +92,21 @@ def sample_data(config, model, out_dir: Path, batch: int, rounds: int, seed: int
                     r + 1, rounds, batch, time.perf_counter() - t0, nfe)
         paths.append(path)
     return paths
+
+
+def calibrate_int8(config, model, seed: int = 0) -> float:
+    """Calibrate the int8 static activation scales into ``model.qscales``;
+    returns the seconds it took."""
+    device = next(model.parameters()).device
+    t0 = time.perf_counter()
+    model.qscales = calibrate_cld_qscales(
+        config, model, CLD.from_config(config),
+        generator=torch.Generator(device=device).manual_seed(seed))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    logger.info("calibrated the int8 scales of %d blocks in %.2f s", len(model.qscales), seconds)
+    return seconds
 
 
 def init_model(config, device, weights: str | None = None, seed: int = 0):
@@ -153,6 +172,8 @@ def main(argv=None):
     parser.add_argument("--out", required=True)
     parser.add_argument("--weights", default=None, help="state_dict file; seeded if absent")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--no-static", action="store_true",
+                        help="fused_int8 sampling: per-sample activation scales, no calibration")
     parser.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                         help="override a config field, e.g. model.nf=32")
     args = parser.parse_args(argv)
@@ -169,6 +190,8 @@ def main(argv=None):
         train(config, model, Path(args.out), args.steps, batch, args.seed, device)
         return
     model = build_model(config, device, args.weights, args.seed)
+    if config.model.conv_impl == "fused_int8" and not args.no_static:
+        calibrate_int8(config, model, args.seed)
     sample_data(config, model, Path(args.out), args.batch or 16, args.rounds, args.seed, device)
 
 

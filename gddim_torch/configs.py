@@ -81,7 +81,9 @@ class ModelConfig:
     ema_rate: float = 0.9999
     # execution
     dtype: str = "bfloat16"  # activations; parameters stay float32
-    conv_impl: str = "fused"  # 'fused' (the kernels) | 'plain' (torch composition)
+    # 'fused' (the kernels) | 'fused_int8' (their int8 modes, as bench.py ships
+    # the JAX package) | 'plain' (torch composition)
+    conv_impl: str = "fused"
 
 
 @dataclasses.dataclass

@@ -7,7 +7,8 @@ The flax tree is nested dicts of arrays keyed by the scope names
 creation order; ``NCSNpp.scopes`` records that order as the port builds the
 U-Net, so each scope is looked up by its own name and index (never by a
 string sort, under which ``_70`` comes before ``_8``). Layouts are shared:
-nothing is transposed.
+nothing is transposed. ``qscales_from_flax`` carries the JAX package's int8
+calibration ('qscales' collection) over the same way.
 """
 
 from __future__ import annotations
@@ -116,6 +117,27 @@ def flax_to_state_dict(model, params: dict) -> dict:
     if set(sd) != set(ref):
         raise ValueError(f"unmapped torch parameters: {sorted(set(ref) - set(sd))[:5]}")
     return sd
+
+
+# int8 quantization sites each block kind records (gddim_tpu/models/blocks.py)
+QSCALE_SITES = {blocks.ResnetBlockBigGANpp: {"a1", "a2", "x"}, blocks.AttnBlockpp: {"h", "a"}}
+
+
+def qscales_from_flax(model, tree: dict) -> dict:
+    """A JAX 'qscales' collection ({scope: {site: amax}}, what
+    ``gddim_tpu.models.calibrate`` returns) as ``NCSNpp.qscales``: 0-d f32
+    tensors on the model's device under the same scope names. A scope the
+    model lacks, or a site its block does not have, raises."""
+    kinds = {name: type(mod) for name, mod in model.scopes}
+    device = next(model.parameters()).device
+    out = {}
+    for scope, sites in tree.items():
+        allowed = QSCALE_SITES.get(kinds.get(scope), set())
+        if not set(sites) <= allowed:
+            raise ValueError(f"qscales: {scope} has no sites {sorted(set(sites) - allowed)}")
+        out[scope] = {k: torch.tensor(np.asarray(v, np.float32), device=device)
+                      for k, v in sites.items()}
+    return out
 
 
 def tensors_to_flax(model, tensors: dict) -> dict:

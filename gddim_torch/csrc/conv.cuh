@@ -2,7 +2,8 @@
 // (defined in resblock.cu), used by attnblock.cu and resblock_bwd.cu.
 //
 // Activations are bf16 (inference, K2-K5) or f32 (training, K6/K7); the
-// tensor-core operands are bf16 with f32 accumulation either way.
+// tensor-core operands are bf16 with f32 accumulation either way, or int8
+// with int32 accumulation in the int8 mode of K2-K5.
 
 #pragma once
 
@@ -94,6 +95,31 @@ int conv_gemm_launch(const ConvArgs& p, bool f32, cudaStream_t stream);
 
 // (splits, K per split) that keep a small-M GEMM's grid filling the card.
 void conv_split_plan(long m, int n, int k, int* splits, int* kper);
+
+// The int8 mode of the conv GEMM (K2-K5 with mm_dtype int8): the prologue
+// quantizes A to int8, W arrives int8 with one scale per output channel, the
+// products accumulate in int32 and the epilogue dequantizes them.
+struct Int8Args {
+  const int8_t* wq;   // (taps*Cin, N) int8, row-major (HWIO flattened)
+  const float* wsc;   // (N,) weight scales
+  const float* qs;    // static mode: the activation scale s (one device float), or null
+  const float* amax;  // dynamic mode: (B,) per-sample amax of the quantized activation
+  int inv_mul;        // dynamic: q = a * (127 / amax) (the pair's conv1) instead of a / (amax / 127)
+};
+
+// conv_gemm_s8_kernel (+ the split-K reduction). p as for conv_gemm_launch,
+// except that p.w is unused and a bf16 skip segment (p.s0 ...) accumulates
+// in f32 beside the int32 sum. a_f32: A is f32, else bf16; out_f32: p.out is
+// f32, else bf16. The skip input and the identity residual are bf16.
+int conv_gemm_s8_launch(const ConvArgs& p, const Int8Args& q, bool a_f32, bool out_f32,
+                        cudaStream_t stream);
+
+// amax[b] = max |f(x)| over sample b of the logical concat (xa, xb), f the
+// per-(sample, channel) affine (scale, shift; none when null) and SiLU when
+// silu is set. Zeroes amax first.
+int amax_launch(const void* xa, const void* xb, int ca, int cb, int batch, int hw,
+                const float* scale, const float* shift, int silu, float* amax, bool f32,
+                cudaStream_t stream);
 
 // Per-(sample, group) GroupNorm statistics of the logical concat (xa, xb),
 // folded with gamma/beta into a per-(sample, channel) affine (scale, shift);

@@ -51,6 +51,44 @@
 //
 // conv_gemm_kernel is also the GEMM of the attention block (attnblock.cu)
 // and of the block backward (resblock_bwd.cu), through conv.cuh.
+//
+// int8 mode (K2-K4 with mm_dtype int8, conv_impl 'fused_int8'; the entry
+// gddim_resblock_int8). Replaces the same three Pallas kernels' int8 path:
+// _resblock_kernel_v2 with static scales, _resblock_kernel and
+// _resblock_pair_kernel with per-sample (dynamic) scales.
+//
+//   conv_gemm_s8_kernel  the implicit GEMM with int8 A and W tiles (WMMA s8
+//                        16x16x16, int32 sums). The prologue applies the GN
+//                        affine (+SiLU) in f32 and quantizes straight to
+//                        int8: clip(rint(a * (1/s))) with a static scale,
+//                        clip(rint(a / s_b)) with s_b = max(amax_b, 1e-12)/127
+//                        per sample (the pair's conv1: a * (127/amax_b)), as
+//                        the TPU kernels write each. W is int8 with a scale
+//                        per output channel. The epilogue dequantizes the
+//                        int32 sum by (w_scale * s) and adds bias and temb.
+//   amax_kernel          dynamic mode only: the per-sample amax of the
+//                        quantized activation, one pass before each conv;
+//                        atomicMax on the bit patterns of non-negative
+//                        floats, so the result does not depend on the order.
+//
+// h1 stays f32 between the convs (GN2's statistics and the a2 quantization
+// read it). The 1x1 skip runs bf16 (the TPU kernels' dynamic-skip form; the
+// model never passes a static skip scale): an int32 and an f32 sum cannot
+// share an accumulator, so conv2's kernel keeps two sets, int32 for the conv
+// slices and f32 for the skip slices, and adds them in the epilogue (a
+// separate skip GEMM would write and re-read an M x N f32 scratch). A split
+// of split-K dequantizes its own int32 partial and adds its f32 skip partial;
+// the reduction sums the f32 partials in split order. Dequantization is
+// linear, so the only difference from summing int32 partials is one f32
+// rounding per partial (relative 6e-8), far under the bf16 output's 4e-3.
+//
+// What bounds it on the H100: the same as the bf16 mode, now against the
+// int8 peak (1,979 TOP/s) and 3.35 TB/s: at 32x32 and 16x16 the int8 convs
+// would be tensor-core bound, at 8x8 and 4x4 the weight bytes (halved by
+// int8) and launch latency. The design keeps the quantization inside the
+// conv prologue, so int8 adds no pass over activations in static mode; the
+// dynamic mode adds one amax read per conv. A 64x64x32 WMMA tile with a
+// register-staged double buffer is the simple first form, as in bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -446,6 +484,332 @@ int conv_gemm_run(const ConvArgs& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// int8 mode. The int8 tiles keep each 16-wide K half as its own array of
+// 16-byte rows, so every WMMA fragment starts 32-byte aligned and is one
+// contiguous 256-byte block.
+
+__device__ __forceinline__ int8_t quant8(float v) {
+  return (int8_t)fminf(fmaxf(rintf(v), -127.0f), 127.0f);  // rintf: half to even
+}
+
+// One thread's share of an int8 K slice: two 8-channel vectors of A (in the
+// activation type, quantized at the store) and 16 int8 weights.
+template <typename T>
+struct StageS8 {
+  Pack8<T> a[2];
+  uint4 b;
+  int a_b[2];  // sample index of the A row, -1 when the tap is padding or m >= M
+  int a_c[2];  // logical channel of the first of the 8 values
+};
+
+template <typename T>
+__device__ __forceinline__ void load_stage_s8(const ConvArgs& p, const int8_t* wq, int m0, int n0,
+                                              int k0, StageS8<T>& st) {
+  const int t = threadIdx.x;
+  const int cin = p.ca0 + p.ca1;
+  const int hw = p.H * p.W;
+  const int M = p.B * hw;
+  const int tap = k0 / cin;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = (t >> 2) + 32 * i;
+    const int col = (t & 3) * 8;
+    const int m = m0 + row;
+    zero8(st.a[i]);
+    st.a_b[i] = -1;
+    st.a_c[i] = 0;
+    if (m < M) {
+      const int b = m / hw, rem = m - b * hw;
+      int y = rem / p.W, x = rem - (rem / p.W) * p.W;
+      const int c = k0 - tap * cin + col;
+      if (p.taps == 9) {
+        y += tap / 3 - 1;
+        x += tap % 3 - 1;
+      }
+      if (y >= 0 && y < p.H && x >= 0 && x < p.W) {
+        const T* src = c < p.ca0 ? (const T*)p.a0 : (const T*)p.a1;
+        const int cstride = c < p.ca0 ? p.ca0 : p.ca1;
+        const int cl = c < p.ca0 ? c : c - p.ca0;
+        const long pix = ((long)b * p.H + y) * p.W + x;
+        ld8(st.a[i], src + pix * cstride + cl);
+        st.a_b[i] = b;
+        st.a_c[i] = c;
+      }
+    }
+  }
+  st.b = *reinterpret_cast<const uint4*>(wq + (long)(k0 + (t >> 2)) * p.N + n0 + (t & 3) * 16);
+}
+
+// A through the GN affine (+SiLU) in f32, quantized to int8; zero where the
+// tap is padding (the TPU kernels pad the quantized tile with zeros).
+template <typename T>
+__device__ __forceinline__ void store_stage_s8(const ConvArgs& p, const Int8Args& q,
+                                               float inv_static, const StageS8<T>& st,
+                                               int8_t (*As)[BM][16], int8_t (*Bs)[BK][16]) {
+  const int t = threadIdx.x;
+  const int cin = p.ca0 + p.ca1;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = (t >> 2) + 32 * i;
+    const int col = (t & 3) * 8;
+    uint2 v = make_uint2(0u, 0u);
+    if (st.a_b[i] >= 0) {
+      float f[8];
+      unpack8(st.a[i], f);
+      if (p.scale != nullptr) {
+        const float* sc = p.scale + (long)st.a_b[i] * cin + st.a_c[i];
+        const float* sh = p.shift + (long)st.a_b[i] * cin + st.a_c[i];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          f[j] = f[j] * sc[j] + sh[j];
+          if (p.silu) f[j] = silu(f[j]);
+        }
+      }
+      int8_t* e = reinterpret_cast<int8_t*>(&v);
+      if (q.qs != nullptr) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) e[j] = quant8(f[j] * inv_static);
+      } else {
+        const float am = fmaxf(q.amax[st.a_b[i]], 1e-12f);
+        if (q.inv_mul) {
+          const float inv = 127.0f / am;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) e[j] = quant8(f[j] * inv);
+        } else {
+          const float s = am / 127.0f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) e[j] = quant8(f[j] / s);
+        }
+      }
+    }
+    *reinterpret_cast<uint2*>(&As[col >> 4][row][col & 15]) = v;
+  }
+  *reinterpret_cast<uint4*>(&Bs[t & 3][t >> 2][0]) = st.b;
+}
+
+// shared memory of conv_gemm_s8_kernel: the K loops' tiles, then (aliased)
+// the int32 and f32 sums staged for the epilogue
+constexpr int S8_A8 = 2 * (BK / 16) * BM * 16;  // int8 A tiles, double-buffered
+constexpr int S8_B8 = 2 * (BN / 16) * BK * 16;  // int8 W tiles
+constexpr int S8_A16 = 2 * BM * LDA * 2;        // bf16 skip A tiles
+constexpr int S8_B16 = 2 * BK * LDB * 2;        // bf16 skip W tiles
+constexpr int S8_LOOP = S8_A8 + S8_B8 + S8_A16 + S8_B16;
+constexpr int S8_EPI = 2 * BM * LDC * 4;
+constexpr int S8_SMEM = S8_LOOP > S8_EPI ? S8_LOOP : S8_EPI;
+
+// grid (ceil(M/BM), N/BN, splits), THREADS threads, 4 warps of 32x32 as in
+// conv_gemm_kernel. TA: the A activation type (bf16 x, or f32 h1 / attention
+// output); TO: the output type (f32 h1, or bf16). Split z runs the int8 conv
+// slices of [z*kper, (z+1)*kper), then its bf16 skip slices.
+template <typename TA, typename TO>
+__global__ void __launch_bounds__(THREADS) conv_gemm_s8_kernel(const ConvArgs p, const Int8Args q) {
+  __shared__ __align__(128) unsigned char smem[S8_SMEM];
+  auto As8 = reinterpret_cast<int8_t(*)[BK / 16][BM][16]>(smem);
+  auto Bs8 = reinterpret_cast<int8_t(*)[BN / 16][BK][16]>(smem + S8_A8);
+  auto As = reinterpret_cast<bf16(*)[BM][LDA]>(smem + S8_A8 + S8_B8);
+  auto Bs = reinterpret_cast<bf16(*)[BK][LDB]>(smem + S8_A8 + S8_B8 + S8_A16);
+  auto Ci = reinterpret_cast<int(*)[LDC]>(smem);
+  auto Cf = reinterpret_cast<float(*)[LDC]>(smem + BM * LDC * 4);
+
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int kconv = p.taps * (p.ca0 + p.ca1);
+  const int ktot = kconv + (p.s0 != nullptr ? p.cs0 + p.cs1 : 0);
+  const int kbeg = blockIdx.z * p.kper;
+  const int kend = min(ktot, kbeg + p.kper);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][2];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> accf[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::fill_fragment(acc[i][j], 0);
+      wmma::fill_fragment(accf[i][j], 0.0f);
+    }
+
+  const int k8end = min(kend, kconv);
+  if (kbeg < k8end) {
+    const float inv_static = q.qs != nullptr ? 1.0f / *q.qs : 0.0f;
+    StageS8<TA> st;
+    load_stage_s8(p, q.wq, m0, n0, kbeg, st);
+    store_stage_s8(p, q, inv_static, st, As8[0], Bs8[0]);
+    __syncthreads();
+    int buf = 0;
+    for (int k0 = kbeg; k0 < k8end; k0 += BK, buf ^= 1) {
+      const bool more = k0 + BK < k8end;
+      if (more) load_stage_s8(p, q.wq, m0, n0, k0 + BK, st);  // in flight during the MMAs
+#pragma unroll
+      for (int kh = 0; kh < BK / 16; ++kh) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> fb[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], &As8[buf][kh][wm + 16 * i][0], 16);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::load_matrix_sync(fb[j], &Bs8[buf][(wn >> 4) + j][16 * kh][0], 16);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+      }
+      if (more) store_stage_s8(p, q, inv_static, st, As8[buf ^ 1], Bs8[buf ^ 1]);
+      __syncthreads();
+    }
+  }
+
+  const int ksbeg = max(kbeg, kconv);
+  if (ksbeg < kend) {  // the bf16 skip projection, f32 sums
+    Stage<bf16> st;
+    load_stage<bf16>(p, m0, n0, ksbeg, kconv, st);
+    store_stage<bf16>(p, st, As[0], Bs[0]);
+    __syncthreads();
+    int buf = 0;
+    for (int k0 = ksbeg; k0 < kend; k0 += BK, buf ^= 1) {
+      const bool more = k0 + BK < kend;
+      if (more) load_stage<bf16>(p, m0, n0, k0 + BK, kconv, st);
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], &As[buf][wm + 16 * i][kk], LDA);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], &Bs[buf][kk][wn + 16 * j], LDB);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) wmma::mma_sync(accf[i][j], fa[i], fb[j], accf[i][j]);
+      }
+      if (more) store_stage<bf16>(p, st, As[buf ^ 1], Bs[buf ^ 1]);
+      __syncthreads();
+    }
+  }
+
+  // both loops end on a barrier, so the tiles are free for the sums
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(&Ci[wm + 16 * i][wn + 16 * j], acc[i][j], LDC, wmma::mem_row_major);
+      wmma::store_matrix_sync(&Cf[wm + 16 * i][wn + 16 * j], accf[i][j], LDC, wmma::mem_row_major);
+    }
+  __syncthreads();
+
+  const int hw = p.H * p.W;
+  const int M = p.B * hw;
+  for (int v = threadIdx.x; v < BM * BN / 8; v += THREADS) {
+    const int row = v / (BN / 8);
+    const int col = (v % (BN / 8)) * 8;
+    const int m = m0 + row;
+    if (m >= M) continue;
+    const int n = n0 + col;
+    // the activation scale: static, or this row's sample's
+    const float s = q.qs != nullptr ? *q.qs : fmaxf(q.amax[m / hw], 1e-12f) / 127.0f;
+    float r[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r[j] = (float)Ci[row][col + j] * (q.wsc[n + j] * s) + Cf[row][col + j];
+    if (p.splits > 1) {
+      float4* dst = reinterpret_cast<float4*>(p.partial + ((long)blockIdx.z * M + m) * p.N + n);
+      dst[0] = make_float4(r[0], r[1], r[2], r[3]);
+      dst[1] = make_float4(r[4], r[5], r[6], r[7]);
+    } else {
+      // the residual, when there is one, is bf16 and so is TO
+      epilogue8<TO>(p, m, n, r);
+    }
+  }
+}
+
+template <typename TA, typename TO>
+int conv_gemm_s8_run(const ConvArgs& p, const Int8Args& q, cudaStream_t stream) {
+  const long m = (long)p.B * p.H * p.W;
+  dim3 grid((unsigned)((m + BM - 1) / BM), p.N / BN, p.splits);
+  conv_gemm_s8_kernel<TA, TO><<<grid, THREADS, 0, stream>>>(p, q);
+  if (p.splits > 1) {
+    const long vecs = m * p.N / 8;
+    splitk_epilogue_kernel<TO><<<(unsigned)((vecs + 255) / 256), 256, 0, stream>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+// grid (chunks, B), THREADS_GN threads; see amax_launch
+template <typename T>
+__global__ void __launch_bounds__(THREADS_GN)
+amax_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, int cb, int hw,
+            const float* __restrict__ scale, const float* __restrict__ shift, int silu_on,
+            float* __restrict__ amax) {
+  __shared__ float red[THREADS_GN / 32];
+  const int b = blockIdx.y;
+  const int c_tot = ca + cb;
+  const long vecs = (long)hw * c_tot / 8;
+  float mx = 0.f;
+  for (long v = (long)blockIdx.x * THREADS_GN + threadIdx.x; v < vecs;
+       v += (long)gridDim.x * THREADS_GN) {
+    const long pix = (long)b * hw + v * 8 / c_tot;
+    const int c = (int)(v * 8 % c_tot);
+    Pack8<T> pk;
+    if (c < ca)
+      ld8(pk, xa + pix * ca + c);
+    else
+      ld8(pk, xb + pix * cb + (c - ca));
+    float f[8];
+    unpack8(pk, f);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float y = f[j];
+      if (scale != nullptr) y = y * scale[(long)b * c_tot + c + j] + shift[(long)b * c_tot + c + j];
+      if (silu_on) y = silu(y);
+      mx = fmaxf(mx, fabsf(y));
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 1; w < THREADS_GN / 32; ++w) mx = fmaxf(mx, red[w]);
+    // non-negative floats order as their bit patterns do, so the max is the
+    // same whatever order the blocks arrive in
+    atomicMax(reinterpret_cast<int*>(amax + b), __float_as_int(mx));
+  }
+}
+
+// Scratch of one int8 block (null base: sizes only).
+struct WorkS8 {
+  float* temb;     // (B, N) temb row
+  float* sc1;      // (B, Cin) GN1 affine
+  float* sh1;
+  float* h1;       // (M, N) conv1 output, f32
+  float* sc2;      // (B, N) GN2 affine
+  float* sh2;
+  float* amax;     // (2, B) dynamic mode: per-sample amax of a1, a2
+  float* partial;  // (splits, M, N) split-K partial sums
+  size_t bytes;
+};
+
+WorkS8 carve_s8(char* base, int batch, long m, int cin, int n, int splits) {
+  WorkS8 w;
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base ? base + off : nullptr;
+    off += align256(bytes);
+    return p;
+  };
+  w.temb = (float*)take(sizeof(float) * batch * n);
+  w.sc1 = (float*)take(sizeof(float) * batch * cin);
+  w.sh1 = (float*)take(sizeof(float) * batch * cin);
+  w.h1 = (float*)take(sizeof(float) * m * n);
+  w.sc2 = (float*)take(sizeof(float) * batch * n);
+  w.sh2 = (float*)take(sizeof(float) * batch * n);
+  w.amax = (float*)take(sizeof(float) * 2 * batch);
+  w.partial = splits > 1 ? (float*)take(sizeof(float) * splits * m * n) : nullptr;
+  w.bytes = off;
+  return w;
+}
+
 // Scratch of one block, carved from one workspace buffer (null base: sizes only).
 struct Work {
   float* temb;  // (B, N) temb row
@@ -568,7 +932,98 @@ int gn_affine_launch(const void* xa, const void* xb, int ca, int cb, int batch, 
   return (int)cudaGetLastError();
 }
 
+int conv_gemm_s8_launch(const ConvArgs& p, const Int8Args& q, bool a_f32, bool out_f32,
+                        cudaStream_t stream) {
+  if (!a_f32 && out_f32) return conv_gemm_s8_run<bf16, float>(p, q, stream);
+  if (a_f32 && !out_f32) return conv_gemm_s8_run<float, bf16>(p, q, stream);
+  if (!a_f32 && !out_f32) return conv_gemm_s8_run<bf16, bf16>(p, q, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+int amax_launch(const void* xa, const void* xb, int ca, int cb, int batch, int hw,
+                const float* scale, const float* shift, int silu_on, float* amax, bool f32,
+                cudaStream_t stream) {
+  const int err = (int)cudaMemsetAsync(amax, 0, sizeof(float) * batch, stream);
+  if (err) return err;
+  // about four 8-value vectors a thread, at most 64 blocks a sample
+  const long vecs = (long)hw * (ca + cb) / 8;
+  long chunks = (vecs + 4 * THREADS_GN - 1) / (4 * THREADS_GN);
+  if (chunks > 64) chunks = 64;
+  const dim3 grid((unsigned)chunks, batch);
+  if (f32)
+    amax_kernel<float><<<grid, THREADS_GN, 0, stream>>>((const float*)xa, (const float*)xb, ca, cb,
+                                                        hw, scale, shift, silu_on, amax);
+  else
+    amax_kernel<bf16><<<grid, THREADS_GN, 0, stream>>>((const bf16*)xa, (const bf16*)xb, ca, cb, hw,
+                                                       scale, shift, silu_on, amax);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
+
+long long gddim_resblock_int8_workspace(int batch, int h, int w, int cin, int n, int splits) {
+  return (long long)carve_s8(nullptr, batch, (long)batch * h * w, cin, n, splits).bytes;
+}
+
+// The int8 mode of K2 / K3 / K4 (arguments as gddim_resblock, with the
+// convs' int8 weights w1q/w2q (HWIO) and their per-output-channel scales
+// w1s/w2s). act_scales: the static scales [s1, s2] (a device array), or
+// null for per-sample scales; x1 non-null (the pair) quantizes conv1's input
+// as a * (127 / amax). The skip (ws, bs) is bf16.
+int gddim_resblock_int8(const void* x0, const void* x1, int c0, int c1, const void* temb,
+                        const void* dense_w, const void* dense_b, int temb_k, const void* gn1_g,
+                        const void* gn1_b, int groups1, const void* w1q, const void* w1s,
+                        const void* b1, const void* gn2_g, const void* gn2_b, int groups2,
+                        const void* w2q, const void* w2s, const void* b2, const void* s0,
+                        const void* s1, int cs0, int cs1, const void* ws, const void* bs,
+                        const void* act_scales, int batch, int h, int w_, int n, float eps,
+                        float out_scale, void* work, int splits1, int kper1, int splits2,
+                        int kper2, void* out, void* stream) {
+  const int hw = h * w_;
+  const WorkS8 wk = carve_s8((char*)work, batch, (long)batch * hw, c0 + c1, n,
+                             splits1 > splits2 ? splits1 : splits2);
+  const bool gn1 = groups1 > 0;
+  const float* qs = (const float*)act_scales;
+  cudaStream_t st = (cudaStream_t)stream;
+  temb_proj_kernel<<<dim3((n + 31) / 32, batch), dim3(32, TEMB_ROWS), 0, st>>>(
+      (const float*)temb, (const float*)dense_w, (const float*)dense_b, wk.temb, temb_k, n);
+  int err = (int)cudaGetLastError();
+  if (!err && gn1)
+    err = gn_affine_launch(x0, x1, c0, c1, batch, hw, groups1, (const float*)gn1_g,
+                           (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr, false, st);
+  if (!err && qs == nullptr)
+    err = amax_launch(x0, x1, c0, c1, batch, hw, gn1 ? wk.sc1 : nullptr, gn1 ? wk.sh1 : nullptr,
+                      gn1 ? 1 : 0, wk.amax, false, st);
+  if (!err) {  // h1 = conv1(q(a1)) * (w1s * s1) + b1 + temb, f32
+    ConvArgs p = conv_args(x0, c0, gn1 ? wk.sc1 : nullptr, gn1 ? wk.sh1 : nullptr, gn1 ? 1 : 0, 9,
+                           nullptr, batch, h, w_, n, b1, 1.0f, wk.h1, wk.partial, splits1, kper1);
+    p.a1 = x1;
+    p.ca1 = c1;
+    p.temb = wk.temb;
+    const Int8Args q = {(const int8_t*)w1q, (const float*)w1s, qs, wk.amax, x1 != nullptr};
+    err = conv_gemm_s8_launch(p, q, false, true, st);
+  }
+  if (!err)
+    err = gn_affine_launch(wk.h1, nullptr, n, 0, batch, hw, groups2, (const float*)gn2_g,
+                           (const float*)gn2_b, eps, wk.sc2, wk.sh2, nullptr, nullptr, true, st);
+  if (!err && qs == nullptr)
+    err = amax_launch(wk.h1, nullptr, n, 0, batch, hw, wk.sc2, wk.sh2, 1, wk.amax + batch, true, st);
+  if (!err) {  // out = (conv2(q(a2)) * (w2s * s2) + skip + b2 + b_skip) * out_scale
+    ConvArgs p = conv_args(wk.h1, n, wk.sc2, wk.sh2, 1, 9, nullptr, batch, h, w_, n, b2, out_scale,
+                           out, wk.partial, splits2, kper2);
+    p.s0 = s0;
+    p.s1 = s1;
+    p.cs0 = cs0;
+    p.cs1 = cs1;
+    p.ws = (const bf16*)ws;
+    p.bias2 = (const float*)bs;
+    p.resid = s0 ? nullptr : x0;
+    const Int8Args q = {(const int8_t*)w2q, (const float*)w2s, qs ? qs + 1 : nullptr,
+                        wk.amax + batch, 0};
+    err = conv_gemm_s8_launch(p, q, true, false, st);
+  }
+  return err;
+}
 
 long long gddim_resblock_workspace(int batch, int h, int w, int cin, int n, int splits) {
   return (long long)carve(nullptr, batch, (long)batch * h * w, cin, n, splits, sizeof(bf16)).bytes;

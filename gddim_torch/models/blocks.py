@@ -6,7 +6,15 @@ composition and on a CUDA tensor the hand-written kernels; ``fused=False``
 runs the plain composition on any device.
 
 - inference (``train=False``): K2-K4 for the residual blocks (with K1 for a
-  transition's GN1) and K5 for attention; no gradients;
+  transition's GN1) and K5 for attention; no gradients. ``int8=True`` takes
+  their int8 modes (``conv_impl='fused_int8'``, gddim_tpu/models/blocks.py:
+  75-105,341-403,467-537): weights quantized once per block from their
+  values rounded to the activation dtype (bench.py's bf16 pre-cast), and
+  static activation scales when the block's ``qscales`` hold every site it
+  needs ("a1", "a2"; "h", "a"), else per-sample scales (``_static_scales``,
+  blocks.py:46-62). The skip site "x" is calibrated but never used;
+- calibration (``sow``): the plain composition, with sow(site, tensor)
+  seeing each int8 quantization site (blocks.py:27-43,135-143,562-580);
 - training (``train=True``, gddim_tpu/models/blocks.py:107-147,405-459,
   545-584): stride-1 residual blocks (up-path pairs concatenated) through
   K6/K7, transitions as the plain composition with K1 for GN1 and GN2, and
@@ -27,20 +35,51 @@ from gddim_torch.ops.attention import self_attention_2d
 
 
 class _KernelWeights:
-    """bf16 copies of a block's conv kernels for the fused inference path
-    (detached: K2-K4 have no backward), remade only when a parameter changes
-    (in place or by replacement)."""
+    """A block's weights as the fused inference kernels take them (detached:
+    K2-K5 have no backward): ``make()``'s result, remade only when a tensor of
+    ``tensors`` changes (in place or by replacement) or ``tag`` does."""
 
     def __init__(self):
         self._key = None
         self._val = None
 
-    def get(self, params):
-        key = tuple((p.data_ptr(), p._version, p.device) for p in params)
+    def get(self, tensors, make, tag=()):
+        key = (tag, tuple((t.data_ptr(), t.device, 0 if t.is_inference() else t._version)
+                          for t in tensors))
         if key != self._key:
-            self._val = [p.detach().to(torch.bfloat16).contiguous() for p in params]
+            self._val = make()
             self._key = key
         return self._val
+
+
+def _bf16(params):
+    return [p.detach().to(torch.bfloat16).contiguous() for p in params]
+
+
+def _site_amaxes(qscales, sites):
+    """The calibrated amaxes of ``sites``, or [] (per-sample scales) unless
+    ``qscales`` holds every one of them."""
+    if not qscales or not all(k in qscales for k in sites):
+        return []
+    return [qscales[k] for k in sites]
+
+
+def _static_scales(amaxes):
+    """The static scales of the sites' amaxes as one f32 row, or None."""
+    return torch.stack(rb.act_scales_from_amax(amaxes)) if amaxes else None
+
+
+def _quantized(w, dtype):
+    """quantize_weight of w rounded to the activation dtype first."""
+    return rb.quantize_weight(w.detach().to(dtype))
+
+
+# (int8 kernel, bf16 kernel, plain composition) of each residual block kind
+_RES_OPS = {
+    "tail": (rb.fused_resblock_tail_int8, rb.fused_resblock_tail, rb.resblock_tail_reference),
+    "pair": (rb.fused_resblock_pair_int8, rb.fused_resblock_pair, rb.resblock_pair_reference),
+    "stride1": (rb.fused_resblock_int8, rb.fused_resblock, rb.resblock_reference),
+}
 
 
 class ResnetBlockBigGANpp(nn.Module):
@@ -64,11 +103,15 @@ class ResnetBlockBigGANpp(nn.Module):
         self.skip = (Conv(cin, out_ch, 1, generator=generator)
                      if cin != out_ch or up or down else None)
         self._kw = _KernelWeights()
+        self._kw8 = _KernelWeights()
 
     def forward(self, x, temb, fused: bool = False, train: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, int8: bool = False,
+                qscales: dict | None = None, sow=None):
         """x: (B, H, W, C), or the up path's (h, skip) pair. train: dropout
-        masks from ``generator``, and the differentiable kernels."""
+        masks from ``generator``, and the differentiable kernels. int8 (with
+        fused): the int8 kernels, static scales from this block's ``qscales``
+        amaxes. sow: calibration (the plain composition)."""
         if train:
             return self._forward_train(x, temb, fused, generator)
         w1, w2 = self.conv1.weight, self.conv2.weight
@@ -76,29 +119,44 @@ class ResnetBlockBigGANpp(nn.Module):
         if self.skip is not None:
             w_skip, b_skip = self.skip.weight[0, 0], self.skip.bias
         first = x[0] if isinstance(x, (tuple, list)) else x
-        if fused and first.is_cuda:
-            kw = [w1, w2] + ([w_skip] if w_skip is not None else [])
-            kw = self._kw.get(kw)
+        int8 = fused and int8
+        params = [w1, w2] + ([w_skip] if w_skip is not None else [])
+        if int8:
+            w1, w2, w_skip, scales = self._int8_weights(params, first.dtype, qscales)
+        elif fused and first.is_cuda:
+            kw = self._kw.get(params, lambda: _bf16(params))
             w1, w2 = kw[0], kw[1]
             w_skip = kw[2] if w_skip is not None else None
         tail = (self.temb_dense.weight, self.temb_dense.bias)
         mid = (w1, self.conv1.bias, self.norm2.weight, self.norm2.bias, w2, self.conv2.bias,
-               w_skip, b_skip)
+               w_skip, b_skip) + ((scales,) if int8 else ())
         kw = dict(num_groups2=self.norm2.num_groups, eps=self.norm2.eps,
                   skip_rescale=self.skip_rescale)
+        if not fused and sow is not None:
+            kw["sow"] = sow
+        mode = 0 if int8 else 1 if fused else 2
         if self.up or self.down:
             h = self.norm1(x, act=True, fused=fused)
             res = resample.upsample_2d if self.up else resample.downsample_2d
             h, xr = res(h, self.fir_kernel), res(x, self.fir_kernel)
-            op = rb.fused_resblock_tail if fused else rb.resblock_tail_reference
-            return op(h, xr, temb, *tail, *mid, **kw)
+            return _RES_OPS["tail"][mode](h, xr, temb, *tail, *mid, **kw)
         gn1 = (self.norm1.weight, self.norm1.bias)
         kw["num_groups1"] = self.norm1.num_groups
         if isinstance(x, (tuple, list)):
-            op = rb.fused_resblock_pair if fused else rb.resblock_pair_reference
-            return op(x[0], x[1], temb, *tail, *gn1, *mid, **kw)
-        op = rb.fused_resblock if fused else rb.resblock_reference
-        return op(x, temb, *tail, *gn1, *mid, **kw)
+            return _RES_OPS["pair"][mode](x[0], x[1], temb, *tail, *gn1, *mid, **kw)
+        return _RES_OPS["stride1"][mode](x, temb, *tail, *gn1, *mid, **kw)
+
+    def _int8_weights(self, params, dtype, qscales):
+        """(conv1 and conv2 quantized, the bf16 skip or None, the static
+        [s1, s2] or None), made once and remade when a weight or amax changes."""
+        amaxes = _site_amaxes(qscales, ("a1", "a2"))
+
+        def make():
+            w1, w2, *skip = params
+            return (_quantized(w1, dtype), _quantized(w2, dtype), _bf16(skip)[0] if skip else None,
+                    _static_scales(amaxes))
+
+        return self._kw8.get(params + amaxes, make, tag=(dtype,))
 
     def _forward_train(self, x, temb, fused, generator):
         if isinstance(x, (tuple, list)):
@@ -149,19 +207,45 @@ class AttnBlockpp(nn.Module):
         self.k = NIN(c, c, generator=generator)
         self.v = NIN(c, c, generator=generator)
         self.out = NIN(c, c, init_scale=init_scale, generator=generator)
+        self._kw8 = _KernelWeights()
 
-    def forward(self, x, fused: bool = False, train: bool = False):
+    def forward(self, x, fused: bool = False, train: bool = False, int8: bool = False,
+                qscales: dict | None = None, sow=None):
+        """int8 (with fused): K5's int8 mode, static scales from this block's
+        ``qscales`` amaxes. sow: calibration (the plain composition)."""
         if train:
             h = self.norm(x, act=False, fused=fused)
             h = self_attention_2d(self.q(h), self.k(h), self.v(h), fused=fused)
             out = x + self.out(h)
             return out * attn_ops._INV_SQRT2 if self.skip_rescale else out
+        kw = dict(num_groups=num_groups_for(x.shape[-1]), eps=self.norm.eps,
+                  skip_rescale=self.skip_rescale)
+        if fused and int8:
+            wqkv, bqkv, wo, scales = self._int8_weights(x.dtype, qscales)
+            return attn_ops.fused_attnblock_int8(x, self.norm.weight, self.norm.bias, wqkv, bqkv,
+                                                 wo, self.out.bias, scales, **kw)
+        if not fused and sow is not None:
+            kw["sow"] = sow
         op = attn_ops.fused_attnblock if fused else attn_ops.attnblock_reference
         return op(x, self.norm.weight, self.norm.bias,
                   self.q.weight, self.q.bias, self.k.weight, self.k.bias,
-                  self.v.weight, self.v.bias, self.out.weight, self.out.bias,
-                  num_groups=num_groups_for(x.shape[-1]), eps=self.norm.eps,
-                  skip_rescale=self.skip_rescale)
+                  self.v.weight, self.v.bias, self.out.weight, self.out.bias, **kw)
+
+    def _int8_weights(self, dtype, qscales):
+        """([Wq|Wk|Wv] quantized, [bq|bk|bv], Wo quantized, the static
+        [s_h, s_a] or None), made once and remade when a parameter or amax
+        changes."""
+        amaxes = _site_amaxes(qscales, ("h", "a"))
+        params = [self.q.weight, self.k.weight, self.v.weight, self.q.bias, self.k.bias,
+                  self.v.bias, self.out.weight]
+
+        def make():
+            wqkv = torch.cat([self.q.weight, self.k.weight, self.v.weight], 1)
+            bqkv = torch.cat([self.q.bias, self.k.bias, self.v.bias]).detach()
+            return (_quantized(wqkv, dtype), bqkv, _quantized(self.out.weight, dtype),
+                    _static_scales(amaxes))
+
+        return self._kw8.get(params + amaxes, make, tag=(dtype,))
 
 
 class Downsample(nn.Module):

@@ -4,10 +4,15 @@ Covers the options ``cld/accr_dcifar10`` sets: Fourier time embedding, BigGAN
 blocks with FIR resampling, progressive_input='residual', progressive='none',
 skip rescaling. NHWC throughout; parameters float32, activations in
 ``config.model.dtype``; ``config.model.conv_impl`` picks the fused kernels
-('fused') or the plain torch composition ('plain') for every block. With
-``train=True`` the blocks take their training paths (dropout, K1/K6/K7/K8),
-and the dropout masks are drawn in the order the blocks run from the
-caller's generator.
+('fused'), their int8 modes ('fused_int8') or the plain torch composition
+('plain') for every block. With ``train=True`` the blocks take their
+training paths (dropout, K1/K6/K7/K8), and the dropout masks are drawn in
+the order the blocks run from the caller's generator.
+
+``qscales`` holds the int8 calibration, in the layout of the JAX package's
+'qscales' collection: {scope name: {site: amax}} (``models/calibrate.py``,
+``convert.qscales_from_flax``). It is a plain attribute, outside
+``state_dict``, so weight files load as they are.
 
 Modules are created in the order ``gddim_tpu`` creates its flax scopes
 (``unet.py:221-312``), and ``scopes`` records each one's flax scope name, so
@@ -34,6 +39,16 @@ def _require(cond: bool, what: str):
         raise NotImplementedError(f"NCSNpp port: unsupported option {what}")
 
 
+def _amax_sow(sites: dict):
+    """sow(site, tensor) folding max|tensor| (f32, on its device) into sites."""
+
+    def sow(name, t):
+        a = t.detach().float().abs().amax()
+        sites[name] = torch.maximum(sites[name], a) if name in sites else a
+
+    return sow
+
+
 class NCSNpp(nn.Module):
     def __init__(self, config, generator: torch.Generator | None = None):
         super().__init__()
@@ -48,9 +63,12 @@ class NCSNpp(nn.Module):
         _require(m.nonlinearity.lower() == "swish", f"nonlinearity={m.nonlinearity}")
         _require(not m.scale_by_sigma, "scale_by_sigma=True")
         _require(bool(m.skip_rescale), "skip_rescale=False")
-        if m.conv_impl not in ("fused", "plain"):
-            raise ValueError(f"conv_impl must be 'fused' or 'plain', got {m.conv_impl!r}")
-        self.fused = m.conv_impl == "fused"
+        if m.conv_impl not in ("fused", "fused_int8", "plain"):
+            raise ValueError(
+                f"conv_impl must be 'fused', 'fused_int8' or 'plain', got {m.conv_impl!r}")
+        self.fused = m.conv_impl != "plain"
+        self.int8 = m.conv_impl == "fused_int8"
+        self.qscales: dict = {}
         self.dtype = _DTYPES[str(m.dtype).lower()]
         self.centered = bool(config.data.centered)
         self.num_res_blocks = m.num_res_blocks
@@ -64,7 +82,8 @@ class NCSNpp(nn.Module):
         counts = collections.Counter()
 
         def add(cls_name, module):
-            self.scopes.append((f"{cls_name}_{counts[cls_name]}", module))
+            module.scope = f"{cls_name}_{counts[cls_name]}"
+            self.scopes.append((module.scope, module))
             counts[cls_name] += 1
             return module
 
@@ -115,16 +134,24 @@ class NCSNpp(nn.Module):
         self.conv_out = add("Conv", Conv(c, channels, 3, init_scale=m.init_scale, generator=g))
 
     def forward(self, x, time_cond, train: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, calib: dict | None = None):
         """x: (B, H, W, 2*C) f32; time_cond: (B,) noise labels. Returns f32.
-        train: the training paths, dropout masks drawn from ``generator``."""
-        fused = self.fused
+        train: the training paths, dropout masks drawn from ``generator``.
+        calib: a dict that collects the int8 calibration (the JAX package's
+        apply with mutable 'qscales'): every block runs its plain composition
+        and folds each site's max|activation| into calib[scope][site]."""
+        fused = self.fused and calib is None
+
+        def extra(block):
+            if calib is not None:
+                return {"sow": _amax_sow(calib.setdefault(block.scope, {}))}
+            return {"int8": True, "qscales": self.qscales.get(block.scope)} if self.int8 else {}
 
         def res(block, h):
-            return block(h, temb, fused, train, generator)
+            return block(h, temb, fused, train, generator, **extra(block))
 
         def att(block, h):
-            return block(h, fused, train)
+            return block(h, fused, train, **extra(block))
 
         temb = self.fourier(torch.log(time_cond.float()))
         temb = self.temb0(temb.to(self.dtype))

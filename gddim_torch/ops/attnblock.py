@@ -15,6 +15,14 @@ two sources for what bounds each on the H100. On a CPU tensor the wrapper
 runs the plain version; on a CUDA tensor it launches the kernels or raises,
 and, having no backward, raises when autograd would need one (the training
 path runs its attention through K1 and K8 instead, ``models/blocks.py``).
+
+``fused_attnblock_int8`` is K5's int8 mode (``mm_dtype=jnp.int8``): h = GN(x)
+in f32 quantized to int8 (static scale s_h, or per sample), the q/k/v and
+output projections as int8 products dequantized per output channel, the
+attention products in bf16 on the dequantized q, k, v with an f32 softmax,
+and the attention output a quantized from f32 (s_a, or per sample). On the
+card the q/k/v and output GEMMs are the int8 conv GEMM of ``resblock.cu``
+and the attention core writes a in f32 for the output projection's prologue.
 """
 
 from __future__ import annotations
@@ -26,33 +34,92 @@ import torch
 from gddim_torch import _build
 from gddim_torch.ops.attention import attention_xla
 from gddim_torch.ops.groupnorm import group_norm_silu_reference
-from gddim_torch.ops.resblock import _operand, require_no_grad, split_k
+from gddim_torch.ops.resblock import (
+    _operand,
+    check_act_scales,
+    group_norm_tpu,
+    int8_matmul_exact,
+    quant_dynamic,
+    quant_static,
+    require_no_grad,
+    split_k,
+)
 
 _INV_SQRT2 = 0.7071067811865476
 
 
 def attnblock_reference(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo, *,
-                        num_groups: int, eps: float = 1e-6, skip_rescale: bool = False):
-    """Plain version: the unfused composition (gddim_tpu/ops/attnblock.py:257)."""
+                        num_groups: int, eps: float = 1e-6, skip_rescale: bool = False,
+                        sow=None):
+    """Plain version: the unfused composition (gddim_tpu/ops/attnblock.py:257).
+    sow(site, tensor), if given, sees the int8 quantization sites "h" (the
+    q/k/v input) and "a" (the output projection's input), as the JAX
+    package's calibration records them (``gddim_tpu/models/blocks.py:135-143``)."""
     b, h, w, c = x.shape
     hn = group_norm_silu_reference(x, gn_scale, gn_bias, num_groups, eps, apply_silu=False)
+    if sow is not None:
+        sow("h", hn)
     flat = hn.reshape(b, h * w, c)
     dt = flat.dtype
     q = flat @ wq.to(dt) + bq.to(dt)
     k = flat @ wk.to(dt) + bk.to(dt)
     v = flat @ wv.to(dt) + bv.to(dt)
     a = attention_xla(q, k, v)
+    if sow is not None:
+        sow("a", a)
     o = a @ wo.to(dt) + bo.to(dt)
     out = x + o.reshape(b, h, w, c)
     return out * _INV_SQRT2 if skip_rescale else out
 
 
+def attnblock_int8_reference(x, gn_scale, gn_bias, wqkv, bqkv, wo, bo, act_scales=None, *,
+                             num_groups: int, eps: float = 1e-6, skip_rescale: bool = False):
+    """Plain version of K5's int8 mode (``_attnblock_kernel``, attnblock.py:47-163).
+    wqkv: (int8 (C, 3C), scales (3C,)) of [Wq | Wk | Wv], which
+    quantize_weight makes column by column, so it equals the three quantized
+    apart; bqkv (3C,); wo: (int8 (C, C), scales); act_scales None (per
+    sample) or [s_h, s_a]."""
+    check_act_scales(act_scales)
+    b, h, w, c = x.shape
+    (wq, ws), (woq, wos) = wqkv, wo
+    hn = group_norm_tpu(x.float(), gn_scale, gn_bias, num_groups, eps, False,
+                        fold=act_scales is not None).reshape(b, h * w, c)
+    if act_scales is not None:
+        s_h, s_a = act_scales.float()
+        qh, dq = quant_static(hn, s_h), ws * s_h
+    else:
+        qh, sb = quant_dynamic(hn)
+        dq = sb * ws
+    qkv = int8_matmul_exact(qh, wq) * dq + bqkv.float()
+    q, k, v = qkv.to(torch.bfloat16).split(c, dim=-1)
+    logits = (q.float() @ k.float().transpose(1, 2)) * c ** (-0.5)
+    a = torch.softmax(logits, dim=-1).to(torch.bfloat16).float() @ v.float()
+    if act_scales is not None:
+        qa, dq = quant_static(a, s_a), wos * s_a
+    else:
+        qa, sb = quant_dynamic(a)
+        dq = sb * wos
+    out = x.float().reshape(b, h * w, c) + (int8_matmul_exact(qa, woq) * dq + bo.float())
+    out = out * _INV_SQRT2 if skip_rescale else out
+    return out.reshape(b, h, w, c).to(x.dtype)
+
+
 @functools.lru_cache(maxsize=None)
-def _plan(b: int, s: int, c: int):
-    """(splits, kper) of the q/k/v and output GEMMs, and the workspace bytes."""
+def _plan(entry: str, b: int, s: int, c: int):
+    """(splits, kper) of the q/k/v and output GEMMs, and the workspace bytes
+    of ``entry`` (gddim_attnblock or gddim_attnblock_int8)."""
     s1, k1 = split_k(b * s, 3 * c, c)
     s2, k2 = split_k(b * s, c, c)
-    return s1, k1, s2, k2, _build.workspace_bytes("gddim_attnblock", b, s, c, max(s1, s2))
+    return s1, k1, s2, k2, _build.workspace_bytes(entry, b, s, c, max(s1, s2))
+
+
+def _check(x, what):
+    """(B, S, C) of a CUDA input the kernels take."""
+    b, h, w, c = x.shape
+    s = h * w
+    if s % 16 or s > 256 or c > 256 or c % 64:
+        raise ValueError(f"{what}: unsupported shape {tuple(x.shape)}")
+    return b, s, c
 
 
 def fused_attnblock(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo, *,
@@ -64,10 +131,7 @@ def fused_attnblock(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo, *,
     if x.device.type != "cuda":
         raise ValueError(f"fused_attnblock: unsupported device {x.device}")
     require_no_grad("fused_attnblock", x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo)
-    b, h, w, c = x.shape
-    s = h * w
-    if s % 16 or s > 256 or c > 256 or c % 64:
-        raise ValueError(f"fused_attnblock: unsupported shape {tuple(x.shape)}")
+    b, s, c = _check(x, "fused_attnblock")
     bf16, f32 = torch.bfloat16, torch.float32
     # operands stay referenced until the launch: a cast's temporary must not be freed
     ops = [
@@ -78,9 +142,9 @@ def fused_attnblock(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo, *,
         _operand(wo, "wo", bf16, (c, c)), _operand(bo, "bo", f32, (c,)),
     ]
     x_, gs, gb, wqkv, bqkv, wo_, bo_ = map(_build.ptr, ops)
-    s1, k1, s2, k2, nbytes = _plan(b, s, c)
+    s1, k1, s2, k2, nbytes = _plan("gddim_attnblock", b, s, c)
     work = torch.empty(nbytes, device=x.device, dtype=torch.uint8)
-    out = torch.empty((b, h, w, c), device=x.device, dtype=bf16)
+    out = torch.empty(x.shape, device=x.device, dtype=bf16)
     _build.launch(
         "gddim_attnblock", x.device, x_, gs, gb, num_groups, wqkv, bqkv, wo_, bo_,
         b, s, c, eps, _INV_SQRT2 if skip_rescale else 1.0, work.data_ptr(),
@@ -90,4 +154,39 @@ def fused_attnblock(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo, *,
     return out
 
 
+def fused_attnblock_int8(x, gn_scale, gn_bias, wqkv, bqkv, wo, bo, act_scales=None, *,
+                         num_groups: int, eps: float = 1e-6, skip_rescale: bool = False):
+    """K5's int8 mode (see attnblock_int8_reference for the arguments)."""
+    if x.device.type == "cpu":
+        return attnblock_int8_reference(x, gn_scale, gn_bias, wqkv, bqkv, wo, bo, act_scales,
+                                        num_groups=num_groups, eps=eps, skip_rescale=skip_rescale)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_attnblock_int8: unsupported device {x.device}")
+    require_no_grad("fused_attnblock_int8", x, gn_scale, gn_bias, *wqkv, bqkv, *wo, bo)
+    check_act_scales(act_scales)
+    b, s, c = _check(x, "fused_attnblock_int8")
+    bf16, f32 = torch.bfloat16, torch.float32
+    # operands stay referenced until the launch: a cast's temporary must not be freed
+    ops = [
+        _operand(x, "attnblock input", bf16), _operand(gn_scale, "gn scale", f32, (c,)),
+        _operand(gn_bias, "gn bias", f32, (c,)),
+        _operand(wqkv[0], "wqkv", torch.int8, (c, 3 * c)),
+        _operand(wqkv[1], "wqkv scales", f32, (3 * c,)), _operand(bqkv, "bqkv", f32, (3 * c,)),
+        _operand(wo[0], "wo", torch.int8, (c, c)), _operand(wo[1], "wo scales", f32, (c,)),
+        _operand(bo, "bo", f32, (c,)), _operand(act_scales, "act scales", f32, (2,)),
+    ]
+    x_, gs, gb, wqkv_, wqkvs, bqkv_, wo_, wos, bo_, qs = map(_build.ptr, ops)
+    s1, k1, s2, k2, nbytes = _plan("gddim_attnblock_int8", b, s, c)
+    work = torch.empty(nbytes, device=x.device, dtype=torch.uint8)
+    out = torch.empty(x.shape, device=x.device, dtype=bf16)
+    _build.launch(
+        "gddim_attnblock_int8", x.device, x_, gs, gb, num_groups, wqkv_, wqkvs, bqkv_, wo_, wos,
+        bo_, qs, b, s, c, eps, _INV_SQRT2 if skip_rescale else 1.0, work.data_ptr(),
+        s1, k1, s2, k2, out.data_ptr(),
+    )
+    fused_attnblock_int8.launches += 1
+    return out
+
+
 fused_attnblock.launches = 0  # block launches on CUDA tensors (one gddim_attnblock each)
+fused_attnblock_int8.launches = 0  # one gddim_attnblock_int8 each

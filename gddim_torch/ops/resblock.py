@@ -26,6 +26,20 @@ block, all hand-written. On a CPU tensor each wrapper runs its plain version;
 on a CUDA tensor it launches the kernels or raises. K2-K4 have no gradient:
 on CUDA tensors they raise when autograd would need one.
 
+The int8 mode of K2-K4 (``mm_dtype=jnp.int8``, what ``conv_impl='fused_int8'``
+runs): ``fused_resblock_int8``, ``fused_resblock_pair_int8`` and
+``fused_resblock_tail_int8`` take each conv's weights as ``quantize_weight``
+made them (int8 HWIO and per-output-channel scales) and quantize the conv
+inputs a1 = silu(GN1(x)) (K4: h) and a2 = silu(GN2(h1)), both in f32, to int8:
+with calibrated static scales ``act_scales = [s1, s2]``
+(``act_scales_from_amax``) as clip(round(a * (1/s))), else per sample as
+clip(round(a / s_b)), s_b = max(max|a|, 1e-12) / 127 (the pair's a1:
+a * (127 / amax), as its TPU kernel writes it). The int32 sums are
+dequantized by (weight scale * s), h1 stays f32 between the convs, and the
+1x1 skip runs bf16 with f32 sums: the model never hands the kernels a static
+skip scale (the JAX package's ``static_skip`` opt-in), and these wrappers
+refuse one.
+
 Weights are in the JAX package's layout: conv kernels HWIO (3, 3, Cin, Cout),
 the skip (Cin, Cout), the temb Dense (K, Cout).
 """
@@ -61,13 +75,19 @@ def conv3x3_nhwc(h, w, b=None):
 
 
 def _tail(h, x_skip, temb_proj, w1, b1, gn2_scale, gn2_bias, w2, b2, w_skip, b_skip,
-          num_groups2, eps, skip_rescale):
+          num_groups2, eps, skip_rescale, sow=None):
+    if sow is not None:
+        sow("a1", h)
     y = conv3x3_nhwc(h, w1, b1) + temb_proj.to(h.dtype)[:, None, None, :]
     y = group_norm_silu_reference(y, gn2_scale, gn2_bias, num_groups2, eps)
+    if sow is not None:
+        sow("a2", y)
     y = conv3x3_nhwc(y, w2, b2)
     if w_skip is None:
         skip = x_skip
     else:
+        if sow is not None:
+            sow("x", x_skip)
         skip = torch.einsum("bhwc,cd->bhwd", x_skip, w_skip.to(x_skip.dtype))
         if b_skip is not None:
             skip = skip + b_skip.to(x_skip.dtype)
@@ -78,11 +98,14 @@ def _tail(h, x_skip, temb_proj, w1, b1, gn2_scale, gn2_bias, w2, b2, w_skip, b_s
 def resblock_reference(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1,
                        gn2_scale, gn2_bias, w2, b2, w_skip=None, b_skip=None, *,
                        num_groups1: int, num_groups2: int, eps: float = 1e-6,
-                       skip_rescale: bool = True):
-    """Plain version of K2: the unfused composition."""
+                       skip_rescale: bool = True, sow=None):
+    """Plain version of K2: the unfused composition. sow(site, tensor), if
+    given, sees the int8 quantization sites as the JAX package's calibration
+    records them (``gddim_tpu/models/blocks.py:562-580``): "a1" (the conv1
+    input), "a2" (the conv2 input) and, with a skip projection, "x"."""
     h = group_norm_silu_reference(x, gn1_scale, gn1_bias, num_groups1, eps)
     return _tail(h, x, temb_projection(temb, dense_w, dense_b), w1, b1, gn2_scale,
-                 gn2_bias, w2, b2, w_skip, b_skip, num_groups2, eps, skip_rescale)
+                 gn2_bias, w2, b2, w_skip, b_skip, num_groups2, eps, skip_rescale, sow)
 
 
 def resblock_pair_reference(xa, xb, *args, **kwargs):
@@ -92,10 +115,175 @@ def resblock_pair_reference(xa, xb, *args, **kwargs):
 
 def resblock_tail_reference(h, x_skip, temb, dense_w, dense_b, w1, b1, gn2_scale,
                             gn2_bias, w2, b2, w_skip, b_skip, *, num_groups2: int,
-                            eps: float = 1e-6, skip_rescale: bool = True):
+                            eps: float = 1e-6, skip_rescale: bool = True, sow=None):
     """Plain version of K4: h = silu(GN1(x)) already resampled."""
     return _tail(h, x_skip, temb_projection(temb, dense_w, dense_b), w1, b1, gn2_scale,
-                 gn2_bias, w2, b2, w_skip, b_skip, num_groups2, eps, skip_rescale)
+                 gn2_bias, w2, b2, w_skip, b_skip, num_groups2, eps, skip_rescale, sow)
+
+
+# --------------------------------------------------------------------------
+# int8 mode: quantizers and plain versions (gddim_tpu/ops/resblock.py:61-88,
+# 177-430, 638-675, 739-982)
+# --------------------------------------------------------------------------
+
+# margin on calibrated amaxes (gddim_tpu/ops/resblock.py:79): sampling-time
+# activations exceed a calibration sweep's by up to ~1.35x on trained weights
+CALIB_MARGIN = 1.5
+
+
+def _div(a, b: float):
+    """a / b in f32 by true division: a CUDA tensor divided by a Python scalar
+    is multiplied by its reciprocal instead, one rounding off JAX's."""
+    return a / torch.full((), b, dtype=a.dtype, device=a.device)
+
+
+def act_scales_from_amax(amaxes):
+    """(amax...) -> (scale...): max(amax, 1e-12) * (CALIB_MARGIN / 127) in f32,
+    None staying None (``act_scales_from_amax``, resblock.py:82)."""
+    def scale(a):
+        a = torch.as_tensor(a, dtype=torch.float32)
+        return a.clamp_min(1e-12) * torch.full((), CALIB_MARGIN / 127.0, device=a.device)
+
+    return tuple(None if a is None else scale(a) for a in amaxes)
+
+
+def quantize_weight(w):
+    """(int8 weights, f32 scale per output channel) of ``prep_w``
+    (resblock.py:638-648): sc = max(max|w| over all but the last axis,
+    1e-12) / 127, q = clip(round(w / sc), -127, 127), from w in f32."""
+    w = w.detach().float()
+    sc = _div(w.abs().amax(dim=tuple(range(w.dim() - 1))).clamp_min(1e-12), 127.0)
+    return torch.clamp(torch.round(w / sc), -127, 127).to(torch.int8), sc
+
+
+def check_act_scales(act_scales):
+    """act_scales must be None (dynamic) or the two static scales; the static
+    int8 skip projection (a third scale, sx) is not ported."""
+    if act_scales is not None and act_scales.numel() != 2:
+        raise NotImplementedError(
+            f"int8 kernels take 2 static activation scales, got {act_scales.numel()}: "
+            "the static int8 skip projection (sx) is not ported")
+
+
+def quant_static(a, s):
+    """clip(round(a * (1/s)), -127, 127) of an f32 tensor, s a 0-d scale."""
+    inv = torch.ones_like(s) / s
+    return torch.clamp(torch.round(a * inv), -127, 127)
+
+
+def quant_dynamic(a, inv_mul: bool = False):
+    """Per-sample quantization of (B, ...) f32: (q, s_b with a's rank).
+    s_b = max(max|a|, 1e-12) / 127 and q = clip(round(a / s_b)); inv_mul:
+    q = clip(round(a * (127 / amax))), the pair kernel's form."""
+    amax = a.abs().amax(dim=tuple(range(1, a.dim())), keepdim=True).clamp_min(1e-12)
+    s = _div(amax, 127.0)
+    q = a * (torch.full_like(amax, 127.0) / amax) if inv_mul else a / s
+    return torch.clamp(torch.round(q), -127, 127), s
+
+
+def group_norm_tpu(x, scale, bias, num_groups: int, eps: float, apply_silu: bool, fold: bool):
+    """GroupNorm(+SiLU) of f32 (B, ..., C) as the TPU kernels compute it
+    (resblock.py:48-58,345-356, attnblock.py:31-37,86-92): one-pass
+    statistics var = E[x^2] - mean^2 scaled by 1/n, then (x - mean) * rstd *
+    scale + bias in the per-sample bodies (dynamic scales), or with fold the
+    affine x * a + (bias - mean * a), a = rstd * scale, of the vectorized
+    bodies (static scales). An int8 rounding hinges on the last bit of these
+    values, so the int8 plain versions follow the TPU's arithmetic here."""
+    b, c = x.shape[0], x.shape[-1]
+    xf = x.reshape(b, -1, c)
+    cg = c // num_groups
+    inv_n = torch.tensor(1.0 / (xf.shape[1] * cg), dtype=torch.float32, device=x.device)
+
+    def group_mean(t):  # (B, C) channel sums -> each channel's group mean
+        return t.reshape(b, num_groups, cg).sum(-1).repeat_interleave(cg, -1)[:, None] * inv_n
+
+    mean, esq = group_mean(xf.sum(1)), group_mean((xf * xf).sum(1))
+    rstd = torch.rsqrt(esq - mean * mean + eps)
+    if fold:
+        a = rstd * scale.float()
+        out = xf * a + (bias.float() - mean * a)
+    else:
+        out = (xf - mean) * rstd * scale.float() + bias.float()
+    if apply_silu:
+        out = out * torch.sigmoid(out)
+    return out.reshape(x.shape)
+
+
+def int8_matmul_exact(q, wq):
+    """Exact int32 sums of (..., K) int-valued q by (K, N) int8 wq (float64
+    products: 127^2 * 9 * 512 exceeds f32's 2^24), rounded once to f32."""
+    return (q.double() @ wq.double()).float()
+
+
+def conv3x3_int8_exact(q, wq):
+    """Exact 3x3 SAME conv of NHWC int-valued q by HWIO int8 wq, in f32."""
+    return conv3x3_nhwc(q.double(), wq.double()).float()
+
+
+def _int8_block(a1, x_skip, temb_proj, w1, b1, gn2_scale, gn2_bias, w2, b2, w_skip, b_skip,
+                act_scales, num_groups2, eps, skip_rescale, out_dtype, pair: bool):
+    """conv1 .. out of the int8 block from a1 (f32, the conv1 input)."""
+    (w1q, w1s), (w2q, w2s) = w1, w2
+    static = act_scales is not None
+    if static:
+        s1, s2 = act_scales.float()
+        q1, dq1 = quant_static(a1, s1), w1s * s1
+    else:
+        q1, sb = quant_dynamic(a1, inv_mul=pair)
+        dq1 = sb * w1s
+    h = conv3x3_int8_exact(q1, w1q) * dq1 + b1.float() + temb_proj[:, None, None, :]
+    a2 = group_norm_tpu(h, gn2_scale, gn2_bias, num_groups2, eps, True, fold=static)
+    if static:
+        q2, dq2 = quant_static(a2, s2), w2s * s2
+    else:
+        q2, sb = quant_dynamic(a2)
+        dq2 = sb * w2s
+    h = conv3x3_int8_exact(q2, w2q) * dq2 + b2.float()
+    if w_skip is None:
+        skip = x_skip.float()
+    else:
+        skip = x_skip.to(torch.bfloat16).float() @ w_skip.to(torch.bfloat16).float()
+        skip = skip + b_skip.float()
+    out = skip + h
+    return (out * _INV_SQRT2 if skip_rescale else out).to(out_dtype)
+
+
+def resblock_int8_reference(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1,
+                            gn2_scale, gn2_bias, w2, b2, w_skip=None, b_skip=None,
+                            act_scales=None, *, num_groups1: int, num_groups2: int,
+                            eps: float = 1e-6, skip_rescale: bool = True):
+    """Plain version of K2's int8 mode. w1, w2: (int8 HWIO, scale) pairs
+    from quantize_weight; act_scales: None (per-sample) or [s1, s2]."""
+    check_act_scales(act_scales)
+    a1 = group_norm_tpu(x.float(), gn1_scale, gn1_bias, num_groups1, eps, True,
+                        fold=act_scales is not None)
+    return _int8_block(a1, x, temb_projection(temb, dense_w, dense_b), w1, b1, gn2_scale,
+                       gn2_bias, w2, b2, w_skip, b_skip, act_scales, num_groups2, eps,
+                       skip_rescale, x.dtype, pair=False)
+
+
+def resblock_pair_int8_reference(xa, xb, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1,
+                                 gn2_scale, gn2_bias, w2, b2, w_skip, b_skip, act_scales=None,
+                                 *, num_groups1: int, num_groups2: int, eps: float = 1e-6,
+                                 skip_rescale: bool = True):
+    """Plain version of K3's int8 mode: K2's on concat(xa, xb)."""
+    check_act_scales(act_scales)
+    x = torch.cat([xa, xb], -1)
+    a1 = group_norm_tpu(x.float(), gn1_scale, gn1_bias, num_groups1, eps, True,
+                        fold=act_scales is not None)
+    return _int8_block(a1, x, temb_projection(temb, dense_w, dense_b), w1, b1, gn2_scale,
+                       gn2_bias, w2, b2, w_skip, b_skip, act_scales, num_groups2, eps,
+                       skip_rescale, xa.dtype, pair=True)
+
+
+def resblock_tail_int8_reference(h, x_skip, temb, dense_w, dense_b, w1, b1, gn2_scale,
+                                 gn2_bias, w2, b2, w_skip, b_skip, act_scales=None, *,
+                                 num_groups2: int, eps: float = 1e-6, skip_rescale: bool = True):
+    """Plain version of K4's int8 mode: h = silu(GN1(x)) already resampled."""
+    check_act_scales(act_scales)
+    return _int8_block(h.float(), x_skip, temb_projection(temb, dense_w, dense_b), w1, b1,
+                       gn2_scale, gn2_bias, w2, b2, w_skip, b_skip, act_scales, num_groups2,
+                       eps, skip_rescale, h.dtype, pair=False)
 
 
 def resblock_train_reference(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias,
@@ -139,7 +327,7 @@ def split_k(m: int, n: int, k: int) -> tuple[int, int]:
 @functools.lru_cache(maxsize=None)
 def _plan(entry: str, b: int, h: int, w: int, cin: int, cskip: int, n: int):
     """(splits1, kper1, splits2, kper2, workspace bytes) of one block shape
-    through ``entry`` (gddim_resblock or gddim_resblock_train)."""
+    through ``entry`` (gddim_resblock, gddim_resblock_int8 or gddim_resblock_train)."""
     s1, k1 = split_k(b * h * w, n, 9 * cin)
     s2, k2 = split_k(b * h * w, n, 9 * n + cskip)
     return s1, k1, s2, k2, _build.workspace_bytes(entry, b, h, w, cin, n, max(s1, s2))
@@ -165,11 +353,15 @@ def _operand(t, what, dtype, shape=None):
 
 
 def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias, w2, b2,
-                skip_parts, w_skip, b_skip, *, num_groups2, eps, skip_rescale):
-    """One block through gddim_resblock. gn1: (scale, bias, groups), or None (K4);
-    skip_parts None: identity residual parts[0]."""
-    require_no_grad("resblock kernel", *parts, temb, dense_w, dense_b, *(gn1 or ())[:2], w1,
-                    b1, gn2_scale, gn2_bias, w2, b2, *(skip_parts or ()), w_skip, b_skip)
+                skip_parts, w_skip, b_skip, *, num_groups2, eps, skip_rescale, int8=False,
+                act_scales=None):
+    """One block through gddim_resblock, or gddim_resblock_int8 when int8
+    (w1, w2 then (int8 weights, scale) pairs; act_scales None or [s1, s2]).
+    gn1: (scale, bias, groups), or None (K4); skip_parts None: identity
+    residual parts[0]."""
+    convs = [*w1, *w2] if int8 else [w1, w2]
+    require_no_grad("resblock kernel", *parts, temb, dense_w, dense_b, *(gn1 or ())[:2], *convs,
+                    b1, gn2_scale, gn2_bias, b2, *(skip_parts or ()), w_skip, b_skip)
     bf16, f32 = torch.bfloat16, torch.float32
     b, h, w, _ = parts[0].shape
     xs = [_operand(p, "resblock input", bf16, (b, h, w, p.shape[-1])) for p in parts] + [None]
@@ -177,36 +369,46 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
           for p in skip_parts or ()] + [None, None]
     c0, c1 = (p.shape[-1] if p is not None else 0 for p in xs[:2])
     cs0, cs1 = (p.shape[-1] if p is not None else 0 for p in ss[:2])
-    cin, n = c0 + c1, w1.shape[-1]
+    cin, n = c0 + c1, (w1[0] if int8 else w1).shape[-1]
     if any(c % 8 for c in (c0, c1, cs0, cs1)) or cin % _BK or (cs0 + cs1) % _BK or n % _BN:
         raise ValueError(f"resblock: unsupported channels {c0}+{c1} (skip {cs0}+{cs1}) -> {n}")
     if skip_parts is None and cin != n:
         raise ValueError("resblock: identity skip needs Cin == Cout")
-    s1, k1, s2, k2, nbytes = _plan("gddim_resblock", b, h, w, cin, cs0 + cs1, n)
+    entry = "gddim_resblock_int8" if int8 else "gddim_resblock"
+    s1, k1, s2, k2, nbytes = _plan(entry, b, h, w, cin, cs0 + cs1, n)
     temb = _operand(temb, "temb", f32)
     gn1 = gn1 or (None, None, 0)
-    # operands stay referenced until the launch: a cast's temporary must not be freed
-    ops = [
-        temb, _operand(dense_w, "temb dense", f32, (temb.shape[-1], n)),
-        _operand(dense_b, "temb bias", f32, (n,)),
-        _operand(gn1[0], "gn1 scale", f32, (cin,)), _operand(gn1[1], "gn1 bias", f32, (cin,)),
-        _operand(w1, "conv1", bf16, (3, 3, cin, n)), _operand(b1, "b1", f32, (n,)),
-        _operand(gn2_scale, "gn2 scale", f32, (n,)), _operand(gn2_bias, "gn2 bias", f32, (n,)),
-        _operand(w2, "conv2", bf16, (3, 3, n, n)), _operand(b2, "b2", f32, (n,)),
-        _operand(w_skip, "skip", bf16, (cs0 + cs1, n)) if skip_parts is not None else None,
-        _operand(b_skip, "b_skip", f32, (n,)) if skip_parts is not None else None,
+    skip = skip_parts is not None
+    keep = []  # operands stay referenced until the launch: a cast's temporary must not be freed
+
+    def op(t, what, dtype, shape=None):
+        keep.append(_operand(t, what, dtype, shape))
+        return _build.ptr(keep[-1])
+
+    def conv(wt, what, shape):  # bf16 weights, or int8 weights and their scales
+        if not int8:
+            return [op(wt, what, bf16, shape)]
+        return [op(wt[0], what, torch.int8, shape), op(wt[1], f"{what} scales", f32, shape[-1:])]
+
+    args = [
+        _build.ptr(xs[0]), _build.ptr(xs[1]), c0, c1, _build.ptr(temb),
+        op(dense_w, "temb dense", f32, (temb.shape[-1], n)), op(dense_b, "temb bias", f32, (n,)),
+        temb.shape[-1], op(gn1[0], "gn1 scale", f32, (cin,)), op(gn1[1], "gn1 bias", f32, (cin,)),
+        gn1[2], *conv(w1, "conv1", (3, 3, cin, n)), op(b1, "b1", f32, (n,)),
+        op(gn2_scale, "gn2 scale", f32, (n,)), op(gn2_bias, "gn2 bias", f32, (n,)), num_groups2,
+        *conv(w2, "conv2", (3, 3, n, n)), op(b2, "b2", f32, (n,)),
+        _build.ptr(ss[0]), _build.ptr(ss[1]), cs0, cs1,
+        op(w_skip, "skip", bf16, (cs0 + cs1, n)) if skip else None,
+        op(b_skip, "b_skip", f32, (n,)) if skip else None,
     ]
-    temb_, dw, db, g1s, g1b, w1_, b1_, g2s, g2b, w2_, b2_, ws_, bs_ = map(_build.ptr, ops)
+    if int8:
+        check_act_scales(act_scales)
+        args.append(op(act_scales, "act scales", f32, (2,)))
     dev = xs[0].device
     work = torch.empty(nbytes, device=dev, dtype=torch.uint8)
     out = torch.empty((b, h, w, n), device=dev, dtype=bf16)
-    _build.launch(
-        "gddim_resblock", dev, _build.ptr(xs[0]), _build.ptr(xs[1]), c0, c1,
-        temb_, dw, db, temb.shape[-1], g1s, g1b, gn1[2], w1_, b1_, g2s, g2b, num_groups2,
-        w2_, b2_, _build.ptr(ss[0]), _build.ptr(ss[1]), cs0, cs1, ws_, bs_,
-        b, h, w, n, eps, _INV_SQRT2 if skip_rescale else 1.0, work.data_ptr(),
-        s1, k1, s2, k2, out.data_ptr(),
-    )
+    _build.launch(entry, dev, *args, b, h, w, n, eps, _INV_SQRT2 if skip_rescale else 1.0,
+                  work.data_ptr(), s1, k1, s2, k2, out.data_ptr())
     return out
 
 
@@ -264,6 +466,55 @@ def fused_resblock_tail(h, x_skip, temb, dense_w, dense_b, w1, b1, gn2_scale, gn
                       b2, [x_skip], w_skip, b_skip, num_groups2=num_groups2, eps=eps,
                       skip_rescale=skip_rescale)
     fused_resblock_tail.launches += 1
+    return out
+
+
+def fused_resblock_int8(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale,
+                        gn2_bias, w2, b2, w_skip=None, b_skip=None, act_scales=None, *,
+                        num_groups1: int, num_groups2: int, eps: float = 1e-6,
+                        skip_rescale: bool = True):
+    """K2's int8 mode (see resblock_int8_reference for the arguments)."""
+    args = (x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias,
+            w2, b2, w_skip, b_skip, act_scales)
+    kw = dict(num_groups2=num_groups2, eps=eps, skip_rescale=skip_rescale)
+    if _on_cpu(x, "fused_resblock_int8"):
+        return resblock_int8_reference(*args, num_groups1=num_groups1, **kw)
+    out = _block_cuda([x], temb, dense_w, dense_b, (gn1_scale, gn1_bias, num_groups1), w1, b1,
+                      gn2_scale, gn2_bias, w2, b2, None if w_skip is None else [x], w_skip,
+                      b_skip, int8=True, act_scales=act_scales, **kw)
+    fused_resblock_int8.launches += 1
+    return out
+
+
+def fused_resblock_pair_int8(xa, xb, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1,
+                             gn2_scale, gn2_bias, w2, b2, w_skip, b_skip, act_scales=None, *,
+                             num_groups1: int, num_groups2: int, eps: float = 1e-6,
+                             skip_rescale: bool = True):
+    """K3's int8 mode: K2's on concat(xa, xb) without building the concat."""
+    kw = dict(num_groups2=num_groups2, eps=eps, skip_rescale=skip_rescale)
+    if _on_cpu(xa, "fused_resblock_pair_int8"):
+        return resblock_pair_int8_reference(
+            xa, xb, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias,
+            w2, b2, w_skip, b_skip, act_scales, num_groups1=num_groups1, **kw)
+    out = _block_cuda([xa, xb], temb, dense_w, dense_b, (gn1_scale, gn1_bias, num_groups1),
+                      w1, b1, gn2_scale, gn2_bias, w2, b2, [xa, xb], w_skip, b_skip,
+                      int8=True, act_scales=act_scales, **kw)
+    fused_resblock_pair_int8.launches += 1
+    return out
+
+
+def fused_resblock_tail_int8(h, x_skip, temb, dense_w, dense_b, w1, b1, gn2_scale, gn2_bias,
+                             w2, b2, w_skip, b_skip, act_scales=None, *, num_groups2: int,
+                             eps: float = 1e-6, skip_rescale: bool = True):
+    """K4's int8 mode: the transition tail on h = silu(GN1(x)) resampled."""
+    kw = dict(num_groups2=num_groups2, eps=eps, skip_rescale=skip_rescale)
+    if _on_cpu(h, "fused_resblock_tail_int8"):
+        return resblock_tail_int8_reference(h, x_skip, temb, dense_w, dense_b, w1, b1,
+                                            gn2_scale, gn2_bias, w2, b2, w_skip, b_skip,
+                                            act_scales, **kw)
+    out = _block_cuda([h], temb, dense_w, dense_b, None, w1, b1, gn2_scale, gn2_bias, w2, b2,
+                      [x_skip], w_skip, b_skip, int8=True, act_scales=act_scales, **kw)
+    fused_resblock_tail_int8.launches += 1
     return out
 
 
@@ -343,4 +594,7 @@ def fused_resblock_train(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale, g
 fused_resblock.launches = 0  # block launches on CUDA tensors (one gddim_resblock each)
 fused_resblock_pair.launches = 0
 fused_resblock_tail.launches = 0
+fused_resblock_int8.launches = 0  # one gddim_resblock_int8 each
+fused_resblock_pair_int8.launches = 0
+fused_resblock_tail_int8.launches = 0
 fused_resblock_train.launches = 0  # one gddim_resblock_train each

@@ -99,3 +99,33 @@ def deis_bundle(
         nfe=nfe,
         denoise=_denoise_consts(host) if denoising else None,
     )
+
+
+def order0_bundle(
+    host: HostCLD,
+    nfe: int,
+    denoising: bool = True,
+    is_em: bool = False,
+    ts_order: float = 2.0,
+) -> ABBundle:
+    """Exact-ODE order-0 / naive-Euler sampler (cld_jax/sampling.py:156-202);
+    the int8 calibration runs its trajectory (``models/calibrate.py``)."""
+    rev_ts = _grid(host, nfe, ts_order, denoising)
+
+    def build():
+        if is_em:
+            mean, eps = deis.naive_em_coef(host, rev_ts)
+        else:
+            mean = host.psi(rev_ts[:-1], rev_ts[1:])
+            eps = deis.order0_eps_coef(host, rev_ts, n_quad=1000)
+        return {"stack": np.concatenate([mean[:, None], eps[:, None]], axis=1)}
+
+    out = _cached_stack("cld_order0", (host.p.key_parts(), rev_ts, bool(is_em)), build)
+    return ABBundle(
+        name="order0",
+        rev_ts=rev_ts,
+        stack=out["stack"],
+        hist_len=0,
+        nfe=nfe,
+        denoise=_denoise_consts(host) if denoising else None,
+    )
