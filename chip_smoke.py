@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/H100 port on one CUDA card.
 
-    python3 chip_smoke.py [--phases build,kernels,eps,sample,int8,train] [--batch 16]
+    python3 chip_smoke.py [--phases build,kernels,eps,sample,int8,blur,train] [--batch 16]
 
 Phases (each prints one line per check; any failure raises and exits non-zero):
   1. the card: torch.cuda must be available; prints nvidia-smi's name and
@@ -16,10 +16,16 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      could take: bytes over 3.35 TB/s or operations over the type's peak,
      whichever is larger); K7's 12 gradients each within its
      bound, and two K7 runs bit-identical; K6 with conv2's weight zero, where
-     its output is the f32 residual (x + b2)/sqrt(2) to f32 rounding;
+     its output is the f32 residual (x + b2)/sqrt(2) to f32 rounding; then the
+     layer-wise kernels at every shape of the trunk's layer-wise paths: K11
+     (bf16, against its f32 plain version, with F.conv2d's time), K11-int8
+     (bit-identical to its exact plain version) and K12 (scales, and int8
+     values at most one step apart), and K1 without SiLU at the attention
+     shapes beside F.group_norm's time;
   4. eps: one full-width eps evaluation (B=4, t=0.5, seeded weights), kernel
-     path in bf16 against the all-plain path in f32, with the launch counts
-     of that one evaluation;
+     path in bf16 against the all-plain path in f32, then the layer-wise paths
+     ('pallas' and 'int8') against the same f32 path, with the launch counts
+     of each evaluation;
   5. sample: CLD deis-2 NFE=50 sampling through gddim_torch.cli's sampling
      function (B=16, seeded weights): finite samples, launch counts, wall time;
   6. int8: the int8 path (conv_impl 'fused_int8'): static scales calibrated on
@@ -29,7 +35,13 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      the launch counts; then NFE=50 sampling at B=16 from the same seed as the
      bf16 run: finite samples, launch counts, wall time, and the pixel
      correlation and max|dx| of the int8 samples against the bf16 ones;
-  7. train: the full-width model in f32 (seeded weights) at the config's
+  7. blur: blur/ddpm_deep_cifar10 order-0 NFE=50 sampling at B=16 through
+     gddim_torch.cli's sampling function, one seed, conv_impl 'fused', then
+     'int8' (layer-wise: K12, K11-int8, K1, K8), 'fused_int8' (calibrated on
+     the card) and 'pallas' (layer-wise: K1, K11, K8): finite samples, launch
+     counts, wall time, and each other run's pixel correlation and mean|dx|
+     against the 'fused' samples;
+  8. train: the full-width model in f32 (seeded weights) at the config's
      training batch (128): one loss + backward on the kernel path against the
      all-plain path with the same t, z and dropout masks (loss, gradient
      norm, worst per-tensor error); then training.n_jitted_steps Adam steps through
@@ -38,9 +50,10 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
 Then one line {"kernels": [...]}, one line with the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 
-``--phases profile`` (not in the default run) traces one eval of the bf16 and
-the int8 kernel paths at ``--batch`` with torch.profiler and prints the wall,
-the device time and the kernels that take it.
+``--phases profile`` (not in the default run) traces one eval of the CLD bf16
+and int8 kernel paths, then of the blur 'fused_int8' and layer-wise 'int8'
+paths, at ``--batch`` with torch.profiler and prints the wall, the device time
+and the kernels that take it.
 """
 
 from __future__ import annotations
@@ -121,8 +134,30 @@ EPS_INT8_BOUND = {"static_vs_bf16": 0.15, "static_vs_f32": 0.15, "dynamic_vs_f32
 # reads 1: the random weights drive some pixels to 0 or 255, and one pixel
 # that lands on opposite ends in the two runs reaches the whole range.
 SAMPLE_INT8_BOUND = {"corr": 0.97, "mean_dx": 0.015, "max_dx": 1.0}
+# The layer-wise kernels against their plain versions. K11 bf16: f32 sums in
+# another order, one bf16 rounding (as K2-K5). K11-int8: exact int32 sums and
+# the plain version's dequant arithmetic, so bit-identical (bound 0). K12:
+# the dequantized values q * s, one int8 step of the sample's amax at most
+# (1/127 = 7.9e-3), with its scales within K12_SCALE_BOUND and at most
+# K12_FLIP_SHARE of the int8 values one step apart (a value on a half step
+# flips on a last-bit difference of the f32 GroupNorm).
+KERNEL_BOUND.update({"K11": 1e-2, "K11-int8": 0.0, "K12": 1e-2})
+K12_SCALE_BOUND = 1e-5
+K12_FLIP_SHARE = 1e-3
+# The layer-wise paths of the whole network against the f32 plain path
+# (B=4, t=0.5, seeded weights)
+EPS_LAYER_BOUND = {"pallas_vs_f32": 2e-2, "int8_vs_f32": 0.1}
+# Blur NFE=50 samples of another path against the 'fused' (bf16) samples of
+# the same seed: the int8 runs are gated as the CLD int8 samples are
+# (SAMPLE_INT8_BOUND); 'pallas' is bf16 too and held to the same gate
 # kernel launches per eps evaluation of cld/accr_dcifar10
 PER_EVAL = {"K1": 7, "K2": 34, "K3": 36, "K4": 6, "K5": 10}
+# ... of its layer-wise paths (and blur/ddpm_deep_cifar10's, the same trunk):
+# K1 in the 6 transitions' GN1, the 10 attention GNs and the head, and
+# ('pallas') every other GN; K12 in the 70 stride-1 and pair blocks' GN1 and
+# all 76 GN2s; K11 in the 76 blocks' two convs; K8 in the 10 attention blocks
+PER_EVAL_PALLAS = {"K1": 163, "K11": 152, "K8": 10}
+PER_EVAL_LAYER_INT8 = {"K1": 17, "K12": 146, "K11-int8": 152, "K8": 10}
 # ... of its int8 path: the same blocks through the int8 modes
 PER_EVAL_INT8 = {"K1": 7, "K2-int8": 34, "K3-int8": 36, "K4-int8": 6, "K5-int8": 10}
 # H100 SXM peaks (NVIDIA's data sheet, dense): operations per second by type,
@@ -162,6 +197,14 @@ KERNELS = {
     "K5-int8": dict(name="fused_attnblock_int8", route="cuda",
                     source="gddim_torch/csrc/attnblock.cu",
                     replaces="gddim_tpu/ops/attnblock.py:166"),
+    "K11": dict(name="conv3x3_pallas", route="cuda", source="gddim_torch/csrc/conv3x3.cu",
+                replaces="gddim_tpu/ops/conv3x3.py:87"),
+    "K11-int8": dict(name="conv3x3_pallas_int8", route="cuda",
+                     source="gddim_torch/csrc/conv3x3.cu",
+                     replaces="gddim_tpu/ops/conv3x3.py:206"),
+    "K12": dict(name="group_norm_silu_quant", route="triton",
+                source="gddim_torch/ops/groupnorm.py",
+                replaces="gddim_tpu/ops/groupnorm.py:140"),
 }
 # main-path shapes of cld/accr_dcifar10 (H, channels in, channels out)
 SHAPES = {
@@ -180,6 +223,16 @@ SHAPES = {
            (4, 256, 256)],
     # (B, S, C): the training path's 16x16 and 4x4 attention, and one long sequence
     "K8": [(4, 256, 256), (4, 16, 256), (1, 2048, 128)],
+    # the layer-wise paths (logged from one eval of the trunk): every 3x3 conv
+    # (H, Cin, Cout) of the 76 residual blocks, K11 and K11-int8 alike ...
+    "K11": [(32, 128, 128), (32, 256, 128), (32, 256, 256), (32, 384, 128), (16, 128, 128),
+            (16, 128, 256), (16, 256, 256), (16, 384, 256), (16, 512, 256), (8, 256, 256),
+            (8, 512, 256), (4, 256, 256), (4, 512, 256)],
+    # ... every K12 input (H, C): the stride-1 and pair blocks' GN1, every GN2
+    "K12": [(32, 128), (32, 256), (32, 384), (16, 128), (16, 256), (16, 384), (16, 512),
+            (8, 256), (8, 512), (4, 256), (4, 512)],
+    # K1 without SiLU: the attention GroupNorms (layer-wise and training paths)
+    "K1_attn": [(16, 256), (4, 256)],
 }
 GRADS = ["dx", "dtemb", "dgn1s", "dgn1b", "dw1", "db1", "dgn2s", "dgn2b", "dw2", "db2", "dwsk",
          "dbsk"]
@@ -416,10 +469,11 @@ def _ops_of(kernel, B, args, out):
     return block_ops(kernel, B, x.shape[1], x.shape[3], cout, skip)
 
 
-def _check_kernel(results, kernel, label, fused, plain, B, args, plain_timed, plain_reps=20,
-                  **extra):
-    """Run one case: kernel vs plain (bf16 output within KERNEL_BOUND), timings,
-    bound from the arguments' bytes and shapes."""
+def _check_kernel(results, kernel, label, fused, plain, args, ops, plain_timed=None,
+                  plain_reps=20, library_ms=None, B=4, **extra):
+    """Run one case: kernel vs plain (bf16 output within KERNEL_BOUND), timings
+    (of plain_timed, else of plain), bound from the arguments' bytes and the
+    operations ``ops`` by type (a dict, or a function of the output)."""
     out = fused()
     torch.cuda.synchronize()
     ref = plain()
@@ -428,24 +482,27 @@ def _check_kernel(results, kernel, label, fused, plain, B, args, plain_timed, pl
                              f"plain {tuple(ref.shape)}")
     err, rel = (out.float() - ref.float()).abs().max().item(), _rel(out, ref)
     ms = time_ms(fused)
-    plain_ms = time_ms(plain_timed, plain_reps)
-    bd = bound(nbytes(args, out), _ops_of(kernel, B, args, out))
+    plain_ms = time_ms(plain_timed or plain, plain_reps)
+    bd = bound(nbytes(args, out), ops(out) if callable(ops) else ops)
+    lib = "" if library_ms is None else f" library_ms={library_ms:.4f}"
     print(f"kernel {kernel} {KERNELS[kernel]['name']} [{label}] B={B}: max|err|={err:.3e} "
           f"rel={rel:.3e} (bound {KERNEL_BOUND[kernel]:.0e}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={bd[0]:.4f} ({'bytes' if bd[1] >= bd[2] else 'operations'})"
+          f"bound_ms={bd[0]:.4f} ({'bytes' if bd[1] >= bd[2] else 'operations'}){lib}"
           + "".join(f" {k}={v:.4f}" for k, v in extra.items()), flush=True)
-    _record(results, kernel, label, err, rel, ms, plain_ms, bd, **extra)
+    _record(results, kernel, label, err, rel, ms, plain_ms, bd, library_ms, **extra)
     if not np.isfinite(rel) or rel > KERNEL_BOUND[kernel]:
         raise AssertionError(f"{kernel} {label}: rel err {rel:.3e} > {KERNEL_BOUND[kernel]:.0e}")
 
 
 def phase_kernels(results: dict, B: int = 4):
     for kernel, label, fused, plain, args, kw in kernel_cases(B):
-        _check_kernel(results, kernel, label, fused, plain, B, args,
-                      lambda: plain_bf16(kernel)(*args, **kw), plain_f32_ms=time_ms(plain))
+        _check_kernel(results, kernel, label, fused, plain, args,
+                      lambda out, k=kernel, a=args: _ops_of(k, B, a, out),
+                      lambda: plain_bf16(kernel)(*args, **kw), B=B, plain_f32_ms=time_ms(plain))
     for kernel, label, fused, plain, args in int8_kernel_cases(B):
         # the int8 plain version sums exactly in float64: no yardstick of speed
-        _check_kernel(results, kernel, label, fused, plain, B, args, plain, plain_reps=5)
+        _check_kernel(results, kernel, label, fused, plain, args,
+                      lambda out, k=kernel, a=args: _ops_of(k, B, a, out), plain_reps=5, B=B)
 
 
 def train_block_inputs(inp: Inputs, B: int, h: int, cin: int, cout: int, keep: float = 0.9):
@@ -575,8 +632,70 @@ def phase_train_kernels(results: dict, B: int = 4):
             raise AssertionError(f"K8 {label}: rel err {rel:.3e} > {KERNEL_BOUND['K8']:.0e}")
 
 
+def phase_layer_kernels(results: dict, B: int = 4):
+    """K11 (bf16 and int8) and K12 at every shape of the layer-wise paths,
+    and K1 without SiLU at the attention shapes beside F.group_norm."""
+    from gddim_torch.ops import conv3x3, groupnorm
+
+    inp = Inputs(3)
+    for h, cin, cout in SHAPES["K11"]:
+        label = f"{h}x{h} {cin}->{cout}"
+        x, w = inp.act(B, h, h, cin), inp.w(3, 3, cin, cout)
+        products = 2 * B * h * h * 9 * cin * cout
+        # the library yardstick: cuDNN on the same NHWC bytes (a channels_last view)
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        _check_kernel(results, "K11", label, lambda: conv3x3.conv3x3_pallas(x, w),
+                      lambda: conv3x3.conv3x3_reference(x, w), (x, w), {"bf16": products},
+                      library_ms=time_ms(lambda: F.conv2d(xc, wc, padding=1)), B=B)
+        x8, sx = conv3x3.quantize_per_sample(x)
+        w8, sw = conv3x3.quantize_weight_per_channel(w)
+        args = (x8, w8, sw, sx, inp.vec(cout))
+        # the plain version sums exactly in float64: no yardstick of speed
+        _check_kernel(results, "K11-int8", label, lambda: conv3x3.conv3x3_pallas_int8(*args),
+                      lambda: conv3x3.conv3x3_int8_reference(*args), args, {"int8": products},
+                      plain_reps=5, B=B)
+    for h, c in SHAPES["K12"]:
+        label = f"{h}x{h}x{c}"
+        x, gs, gb = inp.act(B, h, h, c), inp.vec(c, 1.0), inp.vec(c)
+        fused = lambda: groupnorm.group_norm_silu_quant(x, gs, gb, 32)  # noqa: E731
+        plain = lambda: groupnorm.group_norm_silu_quant_reference(x, gs, gb, 32)  # noqa: E731
+        (q, qs), (q_ref, qs_ref) = fused(), plain()
+        torch.cuda.synchronize()
+        if q.dtype != torch.int8 or q.shape != x.shape or qs.shape != (B,):
+            raise AssertionError(f"K12 {label}: got {q.dtype} {tuple(q.shape)}, {tuple(qs.shape)}")
+        deq, deq_ref = (a.float() * b[:, None, None, None] for a, b in ((q, qs), (q_ref, qs_ref)))
+        err = (deq - deq_ref).abs().max().item()
+        rel = err / deq_ref.abs().max().item()
+        scale_rel = ((qs - qs_ref).abs() / qs_ref).max().item()
+        step = (q.int() - q_ref.int()).abs()
+        steps, share = step.max().item(), (step > 0).float().mean().item()
+        ms, plain_ms = time_ms(fused), time_ms(plain)
+        bd = bound(nbytes(x, gs, gb, q, qs), {"f32": 12 * x.numel()})
+        print(f"kernel K12 group_norm_silu_quant [{label}] B={B}: dequantized max|err|={err:.3e} "
+              f"rel={rel:.3e} (bound {KERNEL_BOUND['K12']:.0e}), scales rel={scale_rel:.3e} "
+              f"(bound {K12_SCALE_BOUND:.0e}), int8 values one step apart: {share:.2e} (bound "
+              f"{K12_FLIP_SHARE:.0e}), largest step {steps}; ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bd[0]:.4f}", flush=True)
+        _record(results, "K12", label, err, rel, ms, plain_ms, bd, scale_rel=scale_rel,
+                flip_share=share)
+        if not (np.isfinite(rel) and rel <= KERNEL_BOUND["K12"] and scale_rel <= K12_SCALE_BOUND
+                and steps <= 1 and share <= K12_FLIP_SHARE):
+            raise AssertionError(f"K12 {label}: rel {rel:.3e}, scales {scale_rel:.3e}, "
+                                 f"steps {steps}, share {share:.2e} over bounds")
+    for h, c in SHAPES["K1_attn"]:
+        label = f"{h}x{h}x{c} no silu"
+        x, gs, gb = inp.act(B, h, h, c), inp.vec(c, 1.0), inp.vec(c)
+        kw = dict(num_groups=32, eps=1e-6, apply_silu=False)
+        gs16, gb16, xc = gs.to(x.dtype), gb.to(x.dtype), x.permute(0, 3, 1, 2)
+        _check_kernel(results, "K1", label, lambda: groupnorm.group_norm_silu(x, gs, gb, **kw),
+                      lambda: groupnorm.group_norm_silu_reference(x.float(), gs, gb, **kw),
+                      (x, gs, gb), {"f32": 8 * x.numel()},
+                      library_ms=time_ms(lambda: F.group_norm(xc, 32, gs16, gb16, 1e-6)), B=B)
+
+
 def counters():
-    from gddim_torch.ops import attention, attnblock, groupnorm, resblock, resblock_bwd
+    from gddim_torch.ops import attention, attnblock, conv3x3, groupnorm, resblock, resblock_bwd
 
     return {"K1": groupnorm.group_norm_silu, "K2": resblock.fused_resblock,
             "K3": resblock.fused_resblock_pair, "K4": resblock.fused_resblock_tail,
@@ -584,7 +703,8 @@ def counters():
             "K7": resblock_bwd.fused_resblock_train_grads, "K8": attention.flash_attention,
             "K2-int8": resblock.fused_resblock_int8, "K3-int8": resblock.fused_resblock_pair_int8,
             "K4-int8": resblock.fused_resblock_tail_int8,
-            "K5-int8": attnblock.fused_attnblock_int8}
+            "K5-int8": attnblock.fused_attnblock_int8, "K11": conv3x3.conv3x3_pallas,
+            "K11-int8": conv3x3.conv3x3_pallas_int8, "K12": groupnorm.group_norm_silu_quant}
 
 
 def reset_counts():
@@ -634,6 +754,22 @@ def phase_eps(config):
         raise AssertionError(f"eps rel err {rel:.3e} > {EPS_BOUND:.0e}")
     if counts != PER_EVAL:
         raise AssertionError(f"launch counts {counts} != {PER_EVAL}")
+    # the layer-wise paths of the same network (conv_impl 'pallas' and 'int8')
+    for impl, per_eval in (("pallas", PER_EVAL_PALLAS), ("int8", PER_EVAL_LAYER_INT8)):
+        model.layer = impl
+        reset_counts()
+        got = eps_apply(model, u, t)
+        torch.cuda.synchronize()
+        counts = launches_of(per_eval)
+        key = f"{impl}_vs_f32"
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        print(f"eps B=4 t=0.5: layer-wise '{impl}' path (bf16) vs plain path (f32) rel={rel:.3e} "
+              f"(bound {EPS_LAYER_BOUND[key]:.0e}); launches {counts}", flush=True)
+        if not np.isfinite(rel) or rel > EPS_LAYER_BOUND[key]:
+            raise AssertionError(f"'{impl}' eps rel err {rel:.3e} > {EPS_LAYER_BOUND[key]:.0e}")
+        if counts != per_eval:
+            raise AssertionError(f"'{impl}' launch counts {counts} != {per_eval}")
+    model.layer = None
     return model
 
 
@@ -737,16 +873,117 @@ def phase_int8(config, samples_bf16, batch: int, card: str):
     return counts
 
 
-def phase_profile(config, batch: int, card: str, evals: int = 5):
-    """Where one eval's time goes, bf16 and int8 static kernel paths: wall
-    (host clock to a synchronize, mean of ``evals``), host enqueue, and under
-    torch.profiler the device time and the kernels that take it."""
+# blur NFE=50 runs of the blur phase, in order: (conv_impl, launches per eval)
+BLUR_PATHS = [("fused", PER_EVAL), ("int8", PER_EVAL_LAYER_INT8), ("fused_int8", PER_EVAL_INT8),
+              ("pallas", PER_EVAL_PALLAS)]
+
+
+def phase_blur(batch: int, card: str):
+    """blur/ddpm_deep_cifar10 order-0 NFE=50 sampling through the CLI's
+    sampling function, one path after another from the same seed; each path
+    warmed by an NFE=2 run first. Returns each kernel's launches from the
+    first path that runs it."""
+    from gddim_torch.cli import build_model, calibrate_int8, sample_data
+    from gddim_torch.configs import get_config
+
+    launches, ref = {}, None
+    for impl, per_eval in BLUR_PATHS:
+        config = get_config("blur/ddpm_deep_cifar10")
+        config.model.conv_impl = impl
+        nfe = int(config.sampling.nfe)
+        model = build_model(config, "cuda", None, seed=0)
+        note = ""
+        if impl == "fused_int8":
+            seconds = calibrate_int8(config, model, seed=0)
+            note = f"; calibrated {len(model.qscales)} blocks on the card in {seconds:.3f} s"
+        warm = copy.deepcopy(config)
+        warm.sampling.nfe = 2
+        finite = []  # every network output of the run is finite
+        hook = model.register_forward_hook(lambda m, i, out: finite.append(torch.isfinite(out).all()))
+        with tempfile.TemporaryDirectory() as tmp:
+            sample_data(warm, model, Path(tmp), batch, rounds=1, seed=7, device="cuda")
+            finite.clear()
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (path,) = sample_data(config, model, Path(tmp), batch, rounds=1, seed=8, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launches_of(per_eval)
+            with np.load(path) as f:
+                samples, nfe_rec = f["samples"], int(f["nfe"])
+        hook.remove()
+        all_finite = len(finite) == nfe and bool(torch.stack(finite).all())
+        x = samples.astype(np.float64) / 255.0
+        line = (f"sample blur order-0 NFE={nfe_rec} B={batch} conv_impl={impl}: wall {wall:.3f} s, "
+                f"{batch / wall:.2f} img/s [{card}] (information only){note}; launches {counts}; "
+                f"every eval finite: {all_finite}")
+        bad = []
+        if ref is None:
+            ref = x
+        else:
+            corr = float(np.corrcoef(ref.ravel(), x.ravel())[0, 1])
+            mean_dx = float(np.abs(ref - x).mean())
+            line += (f"; against the 'fused' samples of the same seed: pixel corr {corr:.5f} "
+                     f"(bound >= {SAMPLE_INT8_BOUND['corr']}), mean|dx| {mean_dx:.5f} (bound "
+                     f"{SAMPLE_INT8_BOUND['mean_dx']}), mean {x.mean():.4f} (fused {ref.mean():.4f})")
+            if not (corr >= SAMPLE_INT8_BOUND["corr"] and mean_dx <= SAMPLE_INT8_BOUND["mean_dx"]):
+                bad.append(f"corr {corr:.5f}, mean|dx| {mean_dx:.5f} over bounds")
+        print(line, flush=True)
+        expected = {k: n * nfe for k, n in per_eval.items()}
+        if samples.shape != (batch, 32, 32, 3) or nfe_rec != nfe or not all_finite:
+            bad.append(f"bad samples {samples.shape} nfe={nfe_rec} finite={all_finite}")
+        if counts != expected:
+            bad.append(f"launch counts {counts} != {expected}")
+        if bad:
+            raise AssertionError(f"blur {impl}: " + "; ".join(bad))
+        launches.update({k: n for k, n in counts.items() if k not in launches})
+        del model
+    return launches
+
+
+def _profile(name: str, run, batch: int, card: str, evals: int):
+    """Wall of ``run()`` (host clock to a synchronize, mean of ``evals``), and
+    one traced run under torch.profiler: host enqueue, device time, idle
+    share and the kernels that take the time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(evals):
+        run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / evals * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        enqueue = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) * 1e3
+    dev = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
+           for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(ms for _, ms, _ in dev)
+    top = sorted(dev, key=lambda r: -r[1])[:8]
+    print(f"profile {name} eval B={batch} [{card}]: wall {wall:.3f} ms (mean of {evals}); "
+          f"traced eval: wall {traced:.3f} ms, host enqueue {enqueue:.3f} ms, device "
+          f"{total:.3f} ms in {sum(n for *_, n in dev)} kernels, idle share "
+          f"{1 - total / traced:.3f}", flush=True)
+    for key, ms, n in top:
+        print(f"  {ms:8.3f} ms {n:5d}x {key[:110]}", flush=True)
+
+
+def phase_profile(config, batch: int, card: str, evals: int = 5):
+    """Where one eval's time goes: the CLD bf16 and int8 static kernel paths,
+    then the blur 'fused_int8' and layer-wise 'int8' paths, each pair in the
+    order a, b, b, a."""
     from gddim_torch.cli import build_model, calibrate_int8
+    from gddim_torch.configs import get_config
+    from gddim_torch.math.blur import BlurSDE
     from gddim_torch.math.cld import CLD
-    from gddim_torch.models.wrappers import make_cld_eps_fn
+    from gddim_torch.models.wrappers import make_blur_yeps_fn, make_cld_eps_fn
 
     config = copy.deepcopy(config)
     config.model.conv_impl = "fused_int8"
@@ -756,30 +993,19 @@ def phase_profile(config, batch: int, card: str, evals: int = 5):
     u, t = eps_inputs(batch)
     for name, int8 in (("bf16", False), ("int8", True), ("int8", True), ("bf16", False)):
         model.int8 = int8
-        for _ in range(2):
-            eps_apply(model, u, t)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(evals):
-            eps_apply(model, u, t)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / evals * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eps_apply(model, u, t)
-            enqueue = (time.perf_counter() - t0) * 1e3
-            torch.cuda.synchronize()
-            traced = (time.perf_counter() - t0) * 1e3
-        dev = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
-               for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        total = sum(ms for _, ms, _ in dev)
-        top = sorted(dev, key=lambda r: -r[1])[:8]
-        print(f"profile {name} eval B={batch} [{card}]: wall {wall:.3f} ms (mean of {evals}); "
-              f"traced eval: wall {traced:.3f} ms, host enqueue {enqueue:.3f} ms, device "
-              f"{total:.3f} ms in {sum(n for *_, n in dev)} kernels, idle share "
-              f"{1 - total / traced:.3f}", flush=True)
-        for key, ms, n in top:
-            print(f"  {ms:8.3f} ms {n:5d}x {key[:110]}", flush=True)
+        _profile(name, lambda: eps_apply(model, u, t), batch, card, evals)
+    del model
+
+    config = get_config("blur/ddpm_deep_cifar10")
+    config.model.conv_impl = "fused_int8"
+    model = build_model(config, "cuda", None, seed=0)
+    calibrate_int8(config, model, seed=0)
+    yeps = make_blur_yeps_fn(BlurSDE.from_config(config))
+    y = u[..., 0]
+    for layer in (None, "int8", "int8", None):
+        model.layer = layer
+        _profile(f"blur {'layer-wise int8' if layer else 'fused_int8'}",
+                 lambda: yeps(model, y, t), batch, card, evals)
 
 
 def _loss_and_grads(model, loss_fn, images, t, z, seed):
@@ -902,7 +1128,7 @@ def phase_train(card: str):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="smoke run of gddim_torch on one CUDA card")
-    parser.add_argument("--phases", default="build,kernels,eps,sample,int8,train")
+    parser.add_argument("--phases", default="build,kernels,eps,sample,int8,blur,train")
     parser.add_argument("--batch", type=int, default=16, help="sampling batch")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -931,6 +1157,7 @@ def main(argv=None):
     if "kernels" in phases:
         phase_kernels(results)
         phase_train_kernels(results)
+        phase_layer_kernels(results)
     config = get_config("cld/accr_dcifar10")
     model = phase_eps(config) if "eps" in phases else None
     # each path's launches, counted from 0 just before it runs: the bf16
@@ -948,12 +1175,15 @@ def main(argv=None):
             raise SystemExit("chip_smoke: the int8 phase compares with the sample phase's output")
         int8_counts = phase_int8(config, samples, args.batch, card)
         counts.update({k: n for k, n in int8_counts.items() if k not in counts})
+    if "blur" in phases:
+        blur_counts = phase_blur(args.batch, card)
+        counts.update({k: n for k, n in blur_counts.items() if k not in counts})
     if "profile" in phases:
         phase_profile(config, args.batch, card)
     if "train" in phases:
         train_counts = phase_train(card)
         counts.update({k: n for k, n in train_counts.items() if k not in counts})
-    if phases >= {"kernels", "sample", "int8", "train"}:
+    if phases >= {"kernels", "sample", "int8", "blur", "train"}:
         missing = [k for k in KERNELS if counts.get(k, 0) == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the main path: {missing}")

@@ -92,6 +92,14 @@ _SIGNATURES = {
         _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
     ],
+    # gddim_conv3x3_workspace(B, H, W, Cin, N)
+    "gddim_conv3x3_workspace": [_I, _I, _I, _I, _I],
+    # gddim_conv3x3(x, w, B, H, W, Cin, N, work, out, stream)
+    "gddim_conv3x3": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # gddim_conv3x3_int8_workspace(B, H, W, Cin, N)
+    "gddim_conv3x3_int8_workspace": [_I, _I, _I, _I, _I],
+    # gddim_conv3x3_int8(x8, w8, w_scale, act_scale, bias, B, H, W, Cin, N, work, out, stream)
+    "gddim_conv3x3_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

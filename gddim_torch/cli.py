@@ -1,18 +1,24 @@
-"""Command line: CLD sampling and training with the port.
+"""Command line: CLD and blur sampling, CLD training with the port.
 
     python -m gddim_torch.cli --config cld/accr_dcifar10 --mode sampling \\
         --batch 16 --seed 0 --out samples/ [--weights model.pt] [--rounds 1]
+    python -m gddim_torch.cli --config blur/ddpm_deep_cifar10 --mode sampling \\
+        --batch 16 --seed 0 --out samples/ [--set model.conv_impl=int8]
     python -m gddim_torch.cli --config cld/accr_dcifar10 --mode train \\
         --steps 10 --batch 128 --seed 0 --out run/ [--weights model.pt]
 
-Sampling: weights are seeded (``models/init.py``) unless ``--weights`` names
-a ``state_dict`` file (``torch.save`` of ``convert.flax_to_state_dict``, or
-a ``--mode train`` output). Each round writes ``samples_<r>.npz`` holding
-uint8 images, v and nfe, as the JAX package's ``run_lib.sampling_from_fn``
-does. With ``--set model.conv_impl=fused_int8`` the network runs the int8
-kernels; their static activation scales are calibrated first
-(``models/calibrate.py``, seeded by ``--seed``), as ``bench.py`` does,
-unless ``--no-static`` asks for per-sample scales.
+Sampling, by the config's family: CLD deis (``samplers/factory.py``) or blur
+order-0 in DCT space (``samplers/blur.py``). Weights are seeded
+(``models/init.py``) unless ``--weights`` names a ``state_dict`` file
+(``torch.save`` of ``convert.flax_to_state_dict``, or a ``--mode train``
+output). Each round writes ``samples_<r>.npz`` holding uint8 images and nfe
+(and CLD's v), as the JAX package's ``run_lib.sampling_from_fn`` does.
+``--set model.conv_impl=...`` picks the network's kernels (``configs.py``):
+with 'fused_int8' the whole-block kernels' int8 modes run with static
+activation scales calibrated first (``models/calibrate.py``, the family's
+calibration, seeded by ``--seed``), as ``bench.py`` does, unless
+``--no-static`` asks for per-sample scales; 'int8' (layer-wise, per-sample
+scales) and 'pallas' need no calibration.
 
 Training: ``--steps`` Adam steps (``train/``) on the synthetic image stream
 (``data/synthetic.py``), f32 activations, ``training.n_jitted_steps`` steps
@@ -38,11 +44,13 @@ import torch
 
 from gddim_torch.configs import get_config, train_config
 from gddim_torch.data.synthetic import SyntheticStream, get_data_scaler
+from gddim_torch.math.blur import BlurSDE
 from gddim_torch.math.cld import CLD
-from gddim_torch.models.calibrate import calibrate_cld_qscales
+from gddim_torch.models.calibrate import calibrate_blur_qscales, calibrate_cld_qscales
 from gddim_torch.models.init import seeded_model
 from gddim_torch.models.unet import NCSNpp
-from gddim_torch.models.wrappers import make_cld_eps_fn
+from gddim_torch.models.wrappers import make_blur_yeps_fn, make_cld_eps_fn
+from gddim_torch.samplers.blur import build_blur_sampler_from_config
 from gddim_torch.samplers.factory import build_cld_sampler
 from gddim_torch.train.losses import make_cld_loss_fn
 from gddim_torch.train.state import create_train_state, ema_state_dict
@@ -63,12 +71,23 @@ def build_model(config, device, weights: str | None = None, seed: int = 0):
 
 
 def build_sampling_fn(config):
-    """sample_fn(generator, model, batch_size, u0=None) -> (x in [0, 1], v, nfe)."""
-    sde = CLD.from_config(config)
+    """sample_fn(generator, model, batch_size, u0=None) -> (x in [0, 1], v,
+    nfe) by the config's family; blur has no v (None)."""
     size = config.data.image_size
     data_shape = (size, size, config.data.num_channels)
     inverse_scaler = (lambda x: (x + 1.0) / 2.0) if config.data.centered else (lambda x: x)
-    return build_cld_sampler(config, sde, make_cld_eps_fn(sde), data_shape, inverse_scaler)
+    if config.sde != "blur":
+        sde = CLD.from_config(config)
+        return build_cld_sampler(config, sde, make_cld_eps_fn(sde), data_shape, inverse_scaler)
+    sde = BlurSDE.from_config(config)
+    blur_fn = build_blur_sampler_from_config(config, sde, make_blur_yeps_fn(sde), data_shape,
+                                             inverse_scaler)
+
+    def sample_blur(generator, model, batch_size=None, u0=None):
+        x, nfe = blur_fn(generator, model, batch_size, u0)
+        return x, None, nfe
+
+    return sample_blur
 
 
 def sample_data(config, model, out_dir: Path, batch: int, rounds: int, seed: int,
@@ -87,7 +106,8 @@ def sample_data(config, model, out_dir: Path, batch: int, rounds: int, seed: int
                            r + 1, int((~np.isfinite(x)).sum()))
         x8 = np.clip(x * 255.0, 0, 255).astype(np.uint8)
         path = out_dir / f"samples_{r}.npz"
-        np.savez_compressed(path, samples=x8, nfe=nfe, v=v.cpu().numpy())
+        extra = {} if v is None else {"v": v.cpu().numpy()}
+        np.savez_compressed(path, samples=x8, nfe=nfe, **extra)
         logger.info("round %d/%d: %d samples in %.1fs (nfe=%s)",
                     r + 1, rounds, batch, time.perf_counter() - t0, nfe)
         paths.append(path)
@@ -95,13 +115,17 @@ def sample_data(config, model, out_dir: Path, batch: int, rounds: int, seed: int
 
 
 def calibrate_int8(config, model, seed: int = 0) -> float:
-    """Calibrate the int8 static activation scales into ``model.qscales``;
-    returns the seconds it took."""
+    """Calibrate the int8 static activation scales into ``model.qscales``
+    with the config family's calibration; returns the seconds it took."""
     device = next(model.parameters()).device
     t0 = time.perf_counter()
-    model.qscales = calibrate_cld_qscales(
-        config, model, CLD.from_config(config),
-        generator=torch.Generator(device=device).manual_seed(seed))
+    generator = torch.Generator(device=device).manual_seed(seed)
+    if config.sde == "blur":
+        model.qscales = calibrate_blur_qscales(config, model, BlurSDE.from_config(config),
+                                               generator=generator)
+    else:
+        model.qscales = calibrate_cld_qscales(config, model, CLD.from_config(config),
+                                              generator=generator)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
@@ -185,6 +209,8 @@ def main(argv=None):
     for item in args.set:
         _override(config, item)
     if args.mode == "train":
+        if config.sde != "cld":
+            raise SystemExit(f"--mode train: the {config.sde} loss is not ported (CLD only)")
         model = init_model(config, device, args.weights, args.seed)
         batch = args.batch or int(config.training.batch_size)
         train(config, model, Path(args.out), args.steps, batch, args.seed, device)

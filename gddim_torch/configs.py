@@ -1,13 +1,16 @@
 """Configs as plain dataclasses.
 
-Holds the fields of ``gddim_tpu/configs/cld/default_cifar10.py`` and
-``cld/accr_dcifar10.py`` that the sampling and training paths read, with the
-same values. ``cld/accr_dcifar10`` is the 107.6M-parameter NCSN++ (nf=128,
+Holds the fields of ``gddim_tpu/configs/cld/default_cifar10.py``,
+``cld/accr_dcifar10.py``, ``blur/default_cifar10.py`` and
+``blur/ddpm_deep_cifar10.py`` that the sampling and training paths read, with
+the same values. ``cld/accr_dcifar10`` is the 107.6M-parameter NCSN++ (nf=128,
 ch_mult (1,2,2,2), 8 BigGAN blocks per level, FIR resampling, attention at
 16x16, progressive_input='residual', dropout 0.1), set up for bf16 sampling
 through the fused kernels with the deis order-2, NFE=50 sampler of the repo's
-benchmark. ``train_config`` gives the same model for training: f32
-activations (``default_cifar10.py:95``), as the JAX package trains it.
+benchmark. ``blur/ddpm_deep_cifar10`` is the same network on 3 channels for
+blurring diffusion, set up the same way with the order-0 NFE=50 sampler in
+DCT space. ``train_config`` gives a model for training: f32 activations
+(``default_cifar10.py:95``), as the JAX package trains it.
 """
 
 from __future__ import annotations
@@ -22,6 +25,13 @@ class SamplingConfig:
     deis_order: int = 2
     ts_order: float = 2
     noise_removal: bool = True
+
+
+@dataclasses.dataclass
+class BlurSamplingConfig(SamplingConfig):
+    method: str = "order0"
+    noise_removal: bool = False  # no final denoising step
+    t0: float = 1e-5  # the last time of the reverse grid (BlurSDE.sampling_eps)
 
 
 @dataclasses.dataclass
@@ -53,14 +63,10 @@ class DataConfig:
 
 @dataclasses.dataclass
 class ModelConfig:
+    """The network and its execution (both families); the SDE's fields are
+    the family's subclass's."""
+
     name: str = "ncsnpp"
-    # CLD SDE
-    m_inv: float = 4.0
-    beta_0: float = 4.0
-    beta_1: float = 0.0
-    vv_gamma: float = 0.04
-    mixed_score: bool = False
-    # NCSN++
     scale_by_sigma: bool = False
     nonlinearity: str = "swish"
     nf: int = 128
@@ -81,9 +87,26 @@ class ModelConfig:
     ema_rate: float = 0.9999
     # execution
     dtype: str = "bfloat16"  # activations; parameters stay float32
-    # 'fused' (the kernels) | 'fused_int8' (their int8 modes, as bench.py ships
-    # the JAX package) | 'plain' (torch composition)
+    # 'fused' (the whole-block kernels) | 'fused_int8' (their int8 modes, as
+    # bench.py ships the JAX package) | 'pallas' (layer-wise: GroupNorm and
+    # 3x3 conv kernels, bf16) | 'int8' (layer-wise, int8 convs fed by
+    # GroupNorm+SiLU+quantize) | 'plain' (torch composition; the JAX 'xla')
     conv_impl: str = "fused"
+
+
+@dataclasses.dataclass
+class CLDModelConfig(ModelConfig):
+    m_inv: float = 4.0
+    beta_0: float = 4.0
+    beta_1: float = 0.0
+    vv_gamma: float = 0.04
+    mixed_score: bool = False
+
+
+@dataclasses.dataclass
+class BlurModelConfig(ModelConfig):
+    sigma_blur_max: float = 10.0
+    min_scale: float = 0.001
 
 
 @dataclasses.dataclass
@@ -91,17 +114,25 @@ class Config:
     sde: str = "cld"
     seed: int = 42
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
-    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    model: ModelConfig = dataclasses.field(default_factory=CLDModelConfig)
     sampling: SamplingConfig = dataclasses.field(default_factory=SamplingConfig)
     training: TrainingConfig = dataclasses.field(default_factory=TrainingConfig)
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
 
 
-_CONFIGS = {"cld/accr_dcifar10": Config}
+def blur_config() -> Config:
+    """``blur/ddpm_deep_cifar10``: the accr trunk on 3 channels, blur SDE,
+    order-0 sampling at NFE=50."""
+    return Config(sde="blur", model=BlurModelConfig(), sampling=BlurSamplingConfig())
+
+
+_CONFIGS = {"cld/accr_dcifar10": Config, "blur/ddpm_deep_cifar10": blur_config}
+
+CONV_IMPLS = ("fused", "fused_int8", "pallas", "int8", "plain")
 
 
 def get_config(name: str) -> Config:
-    """A fresh config by name ('cld/accr_dcifar10')."""
+    """A fresh config by name ('cld/accr_dcifar10', 'blur/ddpm_deep_cifar10')."""
     try:
         return _CONFIGS[name]()
     except KeyError:

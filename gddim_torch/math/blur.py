@@ -1,0 +1,114 @@
+"""Blurring-diffusion SDE (Hoogeboom & Salimans), counterpart of
+``gddim_tpu/math/blur.py:32-182``.
+
+The forward process damps each DCT frequency by D(t) on top of a cosine
+alpha(t) schedule and adds isotropic pixel noise; sampling runs order-0
+updates in DCT space. Every "matrix" is a per-frequency scalar, a (H, W, 1)
+map. The schedule functions take numpy arrays (the host-side coefficient
+stacks, in float64) or torch tensors (on the device, in their dtype);
+``prior_sampling`` draws from a ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from gddim_torch.math.dct import batch_img_dct, batch_img_idct
+
+
+def _xp(t):
+    return torch if isinstance(t, torch.Tensor) else np
+
+
+def _per_sample(a, x):
+    """(B,) a times (B, ...) x, one scalar per sample."""
+    return a.reshape((-1,) + (1,) * (x.ndim - 1)) * x
+
+
+@dataclasses.dataclass(frozen=True)
+class BlurSDE:
+    min_scale: float = 0.001
+    sigma_blur_max: float = 10.0
+    sampling_eps: float = 1e-5
+    img_dim: int = 32
+
+    @classmethod
+    def from_config(cls, config) -> "BlurSDE":
+        return cls(min_scale=float(config.model.min_scale),
+                   sigma_blur_max=float(config.model.sigma_blur_max),
+                   sampling_eps=float(config.sampling.t0),
+                   img_dim=int(config.data.image_size))
+
+    def labda(self, like=None):
+        """Per-frequency dissipation rates (1, H, W, 1), float64 numpy, or a
+        tensor on ``like``'s device in its dtype."""
+        n = self.img_dim
+        freqs = np.pi * np.linspace(0, n - 1, n) / n
+        lab = freqs[None, :, None, None] ** 2 + freqs[None, None, :, None] ** 2
+        if isinstance(like, torch.Tensor):
+            return torch.as_tensor(lab, dtype=like.dtype, device=like.device)
+        return lab
+
+    @property
+    def alpha_start(self) -> float:
+        return float(self.t2alpha_fn(np.float64(0.0)))
+
+    @property
+    def sampling_T(self) -> float:
+        """EDM-style start time rho2t(80) (reference sde_lib.py:33-35,47-51)."""
+        return float(self.rho2t(80.0))
+
+    # --- schedule ---------------------------------------------------------
+    def t2alpha_fn(self, t):
+        return _xp(t).cos((t + 0.004) / 1.008 * math.pi / 2) ** 2
+
+    def alpha2t_fn(self, alpha):
+        xp = _xp(alpha)
+        return xp.arccos(xp.sqrt(alpha)) * 2 / math.pi * 1.008 - 0.004
+
+    def rho2t(self, rho: float):
+        a0 = self.alpha_start
+        return self.alpha2t_fn(np.float64(a0 / ((rho + math.sqrt(1 - a0)) ** 2 + a0)))
+
+    def get_frequency_scaling(self, t):
+        """D(t): (B, H, W, 1) damping per frequency (reference sde_lib.py:79-88)."""
+        xp = _xp(t)
+        t = t.reshape(-1) if xp is torch else np.atleast_1d(t)
+        sigma_blur = self.sigma_blur_max * xp.sin(t * math.pi / 2) ** 2
+        dissipation_time = sigma_blur ** 2 / 2
+        logits = dissipation_time[:, None, None, None] * self.labda(t if xp is torch else None)
+        return xp.exp(-logits) * (1 - self.min_scale) + self.min_scale
+
+    def y_mean_coef(self, ts):
+        """sqrt(alpha(t)) D(t): (B, H, W, 1)."""
+        xp = _xp(ts)
+        ts = ts.reshape(-1) if xp is torch else np.atleast_1d(ts)
+        return _per_sample(xp.sqrt(self.t2alpha_fn(ts)), self.get_frequency_scaling(ts))
+
+    def y_std_coef(self, ts):
+        """sqrt(1 - alpha(t)): (B,)."""
+        return _xp(ts).sqrt(1 - self.t2alpha_fn(ts))
+
+    # --- pixel <-> frequency, the model adapter --------------------------------
+    def x2y(self, xs: torch.Tensor) -> torch.Tensor:
+        return batch_img_dct(xs)
+
+    def y2x(self, ys: torch.Tensor) -> torch.Tensor:
+        return batch_img_idct(ys)
+
+    def encode_t(self, t):
+        """The network's noise label (reference sde_lib.py:146-163)."""
+        return 999 * t
+
+    def prior_sampling(self, generator: torch.Generator, shape, device,
+                       dtype=torch.float32) -> torch.Tensor:
+        return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+
+    def xeps2x0(self, xt: torch.Tensor, ts: torch.Tensor, xeps: torch.Tensor) -> torch.Tensor:
+        """The clean image implied by the pixel-space eps at time ts (B,)."""
+        clean = xt - _per_sample(self.y_std_coef(ts), xeps)
+        return self.y2x(1.0 / self.y_mean_coef(ts) * self.x2y(clean))

@@ -5,6 +5,16 @@ block through its kernel wrappers, which on a CPU tensor are the plain
 composition and on a CUDA tensor the hand-written kernels; ``fused=False``
 runs the plain composition on any device.
 
+- layer-wise inference (``layer='pallas'`` or ``'int8'`` with fused, the
+  JAX package's path when ``CONV3X3_IMPL`` is neither fused mode,
+  gddim_tpu/models/blocks.py:135-147,405-406,539-584): the residual block
+  layer by layer, the (h, skip) pair concatenated first; GN+SiLU through K1
+  ('pallas', and a transition's GN1 either way) or K12 ('int8': the int8
+  tensor and per-sample scale the conv takes), FIR resampling, each 3x3 conv
+  through K11 in bf16 or int8 (a transition's conv1 on
+  ``quantize_per_sample`` of the resampled h), the temb Dense, the plain
+  1x1 skip; attention as K1 GroupNorm (no SiLU), the NIN projections and K8;
+
 - inference (``train=False``): K2-K4 for the residual blocks (with K1 for a
   transition's GN1) and K5 for attention; no gradients. ``int8=True`` takes
   their int8 modes (``conv_impl='fused_int8'``, gddim_tpu/models/blocks.py:
@@ -25,31 +35,23 @@ runs the plain composition on any device.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gddim_torch.models import resample
-from gddim_torch.models.layers import NIN, Conv, Dense, GroupNorm, num_groups_for
+from gddim_torch.models.layers import (
+    NIN,
+    Conv,
+    Dense,
+    GroupNorm,
+    _KernelWeights,
+    int8_conv_fusion_ok,
+    norm_act,
+    num_groups_for,
+)
 from gddim_torch.ops import attnblock as attn_ops
 from gddim_torch.ops import resblock as rb
 from gddim_torch.ops.attention import self_attention_2d
-
-
-class _KernelWeights:
-    """A block's weights as the fused inference kernels take them (detached:
-    K2-K5 have no backward): ``make()``'s result, remade only when a tensor of
-    ``tensors`` changes (in place or by replacement) or ``tag`` does."""
-
-    def __init__(self):
-        self._key = None
-        self._val = None
-
-    def get(self, tensors, make, tag=()):
-        key = (tag, tuple((t.data_ptr(), t.device, 0 if t.is_inference() else t._version)
-                          for t in tensors))
-        if key != self._key:
-            self._val = make()
-            self._key = key
-        return self._val
 
 
 def _bf16(params):
@@ -107,13 +109,16 @@ class ResnetBlockBigGANpp(nn.Module):
 
     def forward(self, x, temb, fused: bool = False, train: bool = False,
                 generator: torch.Generator | None = None, int8: bool = False,
-                qscales: dict | None = None, sow=None):
+                qscales: dict | None = None, sow=None, layer: str | None = None):
         """x: (B, H, W, C), or the up path's (h, skip) pair. train: dropout
         masks from ``generator``, and the differentiable kernels. int8 (with
         fused): the int8 kernels, static scales from this block's ``qscales``
-        amaxes. sow: calibration (the plain composition)."""
+        amaxes. layer (with fused): the layer-wise path, 'pallas' or 'int8'.
+        sow: calibration (the plain composition)."""
         if train:
             return self._forward_train(x, temb, fused, generator)
+        if fused and layer is not None:
+            return self._forward_layerwise(x, temb, layer)
         w1, w2 = self.conv1.weight, self.conv2.weight
         w_skip = b_skip = None
         if self.skip is not None:
@@ -157,6 +162,25 @@ class ResnetBlockBigGANpp(nn.Module):
                     _static_scales(amaxes))
 
         return self._kw8.get(params + amaxes, make, tag=(dtype,))
+
+    def _forward_layerwise(self, x, temb, impl):
+        """The block layer by layer (inference), the 3x3 convs through K11
+        ('pallas': bf16; 'int8': int8, fed by K12 where GN+SiLU feeds them)."""
+        if isinstance(x, (tuple, list)):
+            x = torch.cat(x, -1)
+        out_ch = self.conv1.weight.shape[-1]
+        resampled = self.up or self.down
+        fuse1 = not resampled and int8_conv_fusion_ok(x.shape, out_ch, impl)
+        h = norm_act(self.norm1, x, quantize_out=fuse1)
+        if resampled:
+            res = resample.upsample_2d if self.up else resample.downsample_2d
+            h, x = res(h, self.fir_kernel), res(x, self.fir_kernel)
+        h = self.conv1(h, impl)
+        h = h + self.temb_dense(F.silu(temb))[:, None, None, :].to(h.dtype)
+        h = norm_act(self.norm2, h, quantize_out=int8_conv_fusion_ok(h.shape, out_ch, impl))
+        h = self.conv2(h, impl)
+        out = (x if self.skip is None else self.skip(x)) + h
+        return out * rb._INV_SQRT2 if self.skip_rescale else out
 
     def _forward_train(self, x, temb, fused, generator):
         if isinstance(x, (tuple, list)):
@@ -210,10 +234,12 @@ class AttnBlockpp(nn.Module):
         self._kw8 = _KernelWeights()
 
     def forward(self, x, fused: bool = False, train: bool = False, int8: bool = False,
-                qscales: dict | None = None, sow=None):
+                qscales: dict | None = None, sow=None, layer: str | None = None):
         """int8 (with fused): K5's int8 mode, static scales from this block's
-        ``qscales`` amaxes. sow: calibration (the plain composition)."""
-        if train:
+        ``qscales`` amaxes. layer (with fused): the layer-wise path, K1, the
+        NIN projections and K8, as in training. sow: calibration (the plain
+        composition)."""
+        if train or (fused and layer is not None):
             h = self.norm(x, act=False, fused=fused)
             h = self_attention_2d(self.q(h), self.k(h), self.v(h), fused=fused)
             out = x + self.out(h)

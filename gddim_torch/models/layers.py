@@ -3,17 +3,65 @@
 Parameters keep the JAX package's layouts, so converted weights load as
 they are: conv kernels HWIO, Dense and NIN kernels (in, out). Activations are
 NHWC. Parameters stay float32; a layer computes in its input's dtype.
+
+The layer-wise inference paths (``conv_impl`` 'pallas' and 'int8',
+``layers.py:42-149,261-343``) pass their choice to each call: ``Conv``
+runs a qualifying 3x3 conv through K11 (``ops/conv3x3.py``), bf16 or int8,
+and ``GroupNorm(quantize_out=True)`` emits a ``QuantizedActivation``
+through K12, which the int8 conv takes without another quantize pass.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
 
-from gddim_torch.ops.groupnorm import group_norm_silu, group_norm_silu_reference
+from gddim_torch.ops import conv3x3 as c3
+from gddim_torch.ops.groupnorm import (
+    group_norm_silu,
+    group_norm_silu_quant,
+    group_norm_silu_reference,
+)
 from gddim_torch.ops.resblock import conv3x3_nhwc
+
+
+class _KernelWeights:
+    """A module's weights as the inference kernels take them (detached: they
+    have no backward): ``make()``'s result, remade only when a tensor of
+    ``tensors`` changes (in place or by replacement) or ``tag`` does."""
+
+    def __init__(self):
+        self._key = None
+        self._val = None
+
+    def get(self, tensors, make, tag=()):
+        key = (tag, tuple((t.data_ptr(), t.device, 0 if t.is_inference() else t._version)
+                          for t in tensors))
+        if key != self._key:
+            self._val = make()
+            self._key = key
+        return self._val
+
+
+class QuantizedActivation(NamedTuple):
+    """A per-sample int8 activation passed from K12 to the int8 conv:
+    value ~= q * scale[b], standing for a tensor of ``dtype`` (the
+    activation dtype it was quantized from, which the conv writes)."""
+
+    q: torch.Tensor  # (B, H, W, C) int8
+    scale: torch.Tensor  # (B,) f32
+    dtype: torch.dtype
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    def dequant(self):
+        srow = self.scale.reshape((-1,) + (1,) * (self.q.dim() - 1))
+        return (self.q.float() * srow).to(self.dtype)
 
 
 def default_init(scale: float = 1.0):
@@ -34,15 +82,40 @@ def default_init(scale: float = 1.0):
 
 
 class Conv(nn.Module):
-    """k x k stride-1 SAME conv (k in {1, 3}); weight (k, k, Cin, Cout)."""
+    """k x k stride-1 SAME conv (k in {1, 3}); weight (k, k, Cin, Cout).
+
+    ``impl`` (inference only): 'plain', or the layer-wise paths for a 3x3
+    conv that ``conv3x3.supported`` takes: 'pallas' runs K11 on the weight
+    in the activation dtype and adds the bias in that dtype; 'int8' runs
+    K11's int8 form on the incoming ``QuantizedActivation`` (or on
+    ``quantize_per_sample(x)``) with the weight quantized per output channel
+    from its value in the activation dtype, the bias fused in f32
+    (``layers.py:87-148``). The cast or quantized weight is made once and
+    kept until the parameter changes."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, init_scale: float = 1.0,
                  generator=None):
         super().__init__()
         self.weight = nn.Parameter(default_init(init_scale)((kernel, kernel, cin, cout), generator))
         self.bias = nn.Parameter(torch.zeros(cout))
+        self._kw = _KernelWeights()
 
-    def forward(self, x):
+    def forward(self, x, impl: str = "plain"):
+        q_in = x if isinstance(x, QuantizedActivation) else None
+        shape, dtype = (q_in.shape, q_in.dtype) if q_in is not None else (x.shape, x.dtype)
+        qualifies = impl in ("pallas", "int8") and c3.supported(shape, self.weight.shape)
+        if qualifies and impl == "int8":
+            w8, sw = self._kw.get([self.weight], lambda: c3.quantize_weight_per_channel(
+                self.weight.detach().to(dtype)), tag=("int8", dtype))
+            x8, sx = (q_in.q, q_in.scale) if q_in is not None else c3.quantize_per_sample(x)
+            return c3.conv3x3_pallas_int8(x8, w8, sw, sx, bias=self.bias.detach(),
+                                          out_dtype=dtype)
+        if q_in is not None:  # a quantized input but no int8 conv for this shape
+            x = q_in.dequant()
+        if qualifies:
+            w = self._kw.get([self.weight], lambda: self.weight.detach().to(dtype).contiguous(),
+                             tag=("pallas", dtype))
+            return c3.conv3x3_pallas(x, w) + self.bias.to(dtype)
         if self.weight.shape[0] == 1:
             return torch.einsum("bhwc,cd->bhwd", x, self.weight[0, 0].to(x.dtype)) + \
                 self.bias.to(x.dtype)
@@ -92,7 +165,9 @@ def num_groups_for(c: int) -> int:
 
 class GroupNorm(nn.Module):
     """GroupNorm, eps 1e-6, min(C//4, 32) groups, f32 statistics; weight is
-    the JAX 'scale'. ``act=True`` fuses the SiLU; ``fused=True`` runs K1."""
+    the JAX 'scale'. ``act=True`` fuses the SiLU; ``fused=True`` runs K1;
+    ``quantize_out=True`` runs K12 and returns a ``QuantizedActivation``
+    (inference only)."""
 
     def __init__(self, c: int, eps: float = 1e-6):
         super().__init__()
@@ -101,7 +176,23 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
 
-    def forward(self, x, act: bool = False, fused: bool = False):
+    def forward(self, x, act: bool = False, fused: bool = False, quantize_out: bool = False):
+        if quantize_out:
+            q, s = group_norm_silu_quant(x, self.weight, self.bias, self.num_groups, self.eps, act)
+            return QuantizedActivation(q, s, x.dtype)
         op = group_norm_silu if fused else group_norm_silu_reference
         return op(x, self.weight, self.bias, self.num_groups, self.eps, act)
+
+
+def norm_act(norm: GroupNorm, x, fused: bool = True, quantize_out: bool = False):
+    """GroupNorm followed by SiLU, one kernel (K1), or with quantize_out K12's
+    ``QuantizedActivation`` for an int8 conv that follows directly
+    (``layers.py:310-324``)."""
+    return norm(x, act=True, fused=fused, quantize_out=quantize_out)
+
+
+def int8_conv_fusion_ok(x_shape, out_ch: int, impl: str) -> bool:
+    """True when a norm_act -> 3x3 conv pair runs the int8 pipeline (K12 into
+    K11's int8 form): impl 'int8' and a shape K11 takes (``layers.py:337-343``)."""
+    return impl == "int8" and c3.supported(x_shape, (3, 3, x_shape[-1], out_ch))
 

@@ -1,11 +1,17 @@
 """NCSN++ score U-Net (counterpart of ``gddim_tpu/models/unet.py``).
 
-Covers the options ``cld/accr_dcifar10`` sets: Fourier time embedding, BigGAN
-blocks with FIR resampling, progressive_input='residual', progressive='none',
-skip rescaling. NHWC throughout; parameters float32, activations in
-``config.model.dtype``; ``config.model.conv_impl`` picks the fused kernels
-('fused'), their int8 modes ('fused_int8') or the plain torch composition
-('plain') for every block. With ``train=True`` the blocks take their
+Covers the options ``cld/accr_dcifar10`` and ``blur/ddpm_deep_cifar10`` set:
+Fourier time embedding, BigGAN blocks with FIR resampling,
+progressive_input='residual', progressive='none', skip rescaling; the input
+and output have ``data.num_channels`` channels, doubled for CLD's (x, v)
+(``gddim_tpu/models/wrappers.py:33``). NHWC throughout; parameters float32,
+activations in ``config.model.dtype``; ``config.model.conv_impl`` picks, for
+every block, the whole-block kernels ('fused'), their int8 modes
+('fused_int8'), the layer-wise kernels ('pallas': GroupNorm and 3x3 conv
+kernels in bf16; 'int8': int8 3x3 convs fed by GroupNorm+SiLU+quantize) or
+the plain torch composition ('plain'). The stem, head and pyramid convs stay
+plain in every mode: their channel counts are outside what the 3x3 conv
+kernel takes, as in the JAX package. With ``train=True`` the blocks take their
 training paths (dropout, K1/K6/K7/K8), and the dropout masks are drawn in
 the order the blocks run from the caller's generator.
 
@@ -27,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gddim_torch.configs import CONV_IMPLS
 from gddim_torch.models.blocks import AttnBlockpp, Downsample, ResnetBlockBigGANpp
 from gddim_torch.models.layers import Conv, Dense, GaussianFourierProjection, GroupNorm
 
@@ -63,11 +70,11 @@ class NCSNpp(nn.Module):
         _require(m.nonlinearity.lower() == "swish", f"nonlinearity={m.nonlinearity}")
         _require(not m.scale_by_sigma, "scale_by_sigma=True")
         _require(bool(m.skip_rescale), "skip_rescale=False")
-        if m.conv_impl not in ("fused", "fused_int8", "plain"):
-            raise ValueError(
-                f"conv_impl must be 'fused', 'fused_int8' or 'plain', got {m.conv_impl!r}")
-        self.fused = m.conv_impl != "plain"
-        self.int8 = m.conv_impl == "fused_int8"
+        if m.conv_impl not in CONV_IMPLS:
+            raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {m.conv_impl!r}")
+        self.fused = m.conv_impl != "plain"  # kernels (False: the plain composition)
+        self.int8 = m.conv_impl == "fused_int8"  # the whole-block kernels' int8 modes
+        self.layer = m.conv_impl if m.conv_impl in ("pallas", "int8") else None  # layer-wise
         self.qscales: dict = {}
         self.dtype = _DTYPES[str(m.dtype).lower()]
         self.centered = bool(config.data.centered)
@@ -76,7 +83,7 @@ class NCSNpp(nn.Module):
         self.attn_resolutions = tuple(m.attn_resolutions)
         nf, g = m.nf, generator
         fir_kernel = tuple(m.fir_kernel)
-        channels = config.data.num_channels * 2  # (x, v) stacked
+        channels = config.data.num_channels * (2 if config.sde == "cld" else 1)  # CLD: (x, v)
         # (flax scope name, module) in the JAX package's creation order
         self.scopes: list[tuple[str, nn.Module]] = []
         counts = collections.Counter()
@@ -135,7 +142,8 @@ class NCSNpp(nn.Module):
 
     def forward(self, x, time_cond, train: bool = False,
                 generator: torch.Generator | None = None, calib: dict | None = None):
-        """x: (B, H, W, 2*C) f32; time_cond: (B,) noise labels. Returns f32.
+        """x: (B, H, W, C) f32 (CLD: 2*C, the stacked (x, v)); time_cond: (B,)
+        noise labels. Returns f32.
         train: the training paths, dropout masks drawn from ``generator``.
         calib: a dict that collects the int8 calibration (the JAX package's
         apply with mutable 'qscales'): every block runs its plain composition
@@ -145,6 +153,8 @@ class NCSNpp(nn.Module):
         def extra(block):
             if calib is not None:
                 return {"sow": _amax_sow(calib.setdefault(block.scope, {}))}
+            if self.layer is not None:
+                return {"layer": self.layer}
             return {"int8": True, "qscales": self.qscales.get(block.scope)} if self.int8 else {}
 
         def res(block, h):

@@ -1,8 +1,13 @@
-"""Model plumbing for CLD (counterpart of ``gddim_tpu/models/wrappers.py``).
+"""Model plumbing (counterpart of ``gddim_tpu/models/wrappers.py``).
 
+CLD:
 - (x, v) channel stacking "b ... d g -> b ... (g d)" in and out
   (cld_jax/models/utils.py:141-164);
 - time conditioning labels = t * 999 (cld_jax/models/utils.py:172).
+
+Blur (``wrappers.py:109-143``): the network on plain image channels with
+labels ``sde.encode_t(t)`` = 999 t, and the DCT-space eps, iDCT -> network
+-> DCT.
 """
 
 from __future__ import annotations
@@ -42,3 +47,25 @@ def make_cld_eps_fn(sde, train: bool = False):
         return unstack_channels_to_uv(out.float())
 
     return eps_apply
+
+
+def make_blur_eps_fn(sde):
+    """eps_apply(model, x, t_vec) -> pixel-space eps of the blur model
+    (inference: no autograd, no dropout); f32 whatever the model's dtype."""
+
+    def eps_apply(model, x, t_vec):
+        with torch.inference_mode():
+            out = model(x, sde.encode_t(t_vec))
+        return out.float()
+
+    return eps_apply
+
+
+def make_blur_yeps_fn(sde):
+    """yeps_apply(model, y, t_vec) -> the DCT-space eps: iDCT, network, DCT."""
+    xeps = make_blur_eps_fn(sde)
+
+    def yeps_apply(model, y, t_vec):
+        return sde.x2y(xeps(model, sde.y2x(y), t_vec))
+
+    return yeps_apply

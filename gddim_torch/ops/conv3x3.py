@@ -1,0 +1,160 @@
+"""K11: the stride-1 SAME 3x3 convolution, bf16 and int8, NHWC / HWIO.
+
+Replaces ``gddim_tpu/ops/conv3x3.py``:
+
+- ``conv3x3_pallas`` (``_conv_kernel``): nine shifted products with f32
+  sums, the output rounded to x's dtype; no bias (the layer adds it
+  afterwards in the activation dtype, ``models/layers.py``);
+- ``conv3x3_pallas_int8`` (``_conv_kernel_int8``): int8 x int8 -> int32
+  sums, dequantized as ``acc * (s_a[b] * s_w[c]) + bias`` in f32 (the scale
+  product first), then cast to ``out_dtype``;
+- ``quantize_per_sample`` and ``quantize_weight_per_channel``: the JAX
+  package's graph code around the int8 kernel, plain torch here too;
+- ``supported``: the JAX gate without its backend test.
+
+The CUDA implementation is ``csrc/conv3x3.cu`` (see its header for what
+bounds it on the H100): the bf16 form drives the implicit-GEMM conv of the
+residual-block kernels with no prologue and no epilogue terms; the int8 form
+is its own kernel that reads int8 A straight from memory and keeps one int32
+accumulator set, so its sums are exact whatever the split of K. On a CPU
+tensor each wrapper runs its plain version; on a CUDA tensor it launches the
+kernel or raises (bf16 activations only). Neither has a backward.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from gddim_torch import _build
+from gddim_torch.ops.resblock import (
+    _div,
+    _on_cpu,
+    _operand,
+    conv3x3_int8_exact,
+    conv3x3_nhwc,
+    quantize_weight,
+    require_no_grad,
+)
+
+
+def supported(x_shape, w_shape, stride: int = 1, dilation: int = 1) -> bool:
+    """Shapes K11 takes: stride 1, dilation 1, a 3x3 kernel, Cin and Cout
+    multiples of 128 (``conv3x3.py:260-270``)."""
+    return (stride == 1 and dilation == 1 and tuple(w_shape[:2]) == (3, 3)
+            and x_shape[-1] % 128 == 0 and w_shape[-1] % 128 == 0)
+
+
+# --------------------------------------------------------------------------
+# Plain versions and the quantizers
+# --------------------------------------------------------------------------
+
+
+def conv3x3_reference(x, w):
+    """Plain version of K11: the conv of x by w's values in f32 (products of
+    bf16 values are exact in f32), rounded once to x's dtype."""
+    return conv3x3_nhwc(x.float(), w.float()).to(x.dtype)
+
+
+def conv3x3_int8_reference(x8, w8, w_scale, act_scale, bias=None, out_dtype=torch.bfloat16):
+    """Plain version of K11's int8 form. The int32 sum can exceed 2^24
+    (127^2 * 9 * 512), so it is taken exactly in float64 and rounded once to
+    f32, as the int32 -> f32 conversion rounds it."""
+    b, cout = x8.shape[0], w8.shape[-1]
+    acc = conv3x3_int8_exact(x8, w8.reshape(3, 3, -1, cout))
+    scale = (torch.as_tensor(act_scale, dtype=torch.float32, device=acc.device).reshape(-1, 1)
+             .expand(b, 1) * torch.as_tensor(w_scale, dtype=torch.float32,
+                                             device=acc.device).reshape(1, -1))
+    out = acc * scale[:, None, None, :]
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(out_dtype)
+
+
+def quantize_per_sample(x):
+    """(q int8, scale (B,) f32) with x[b] ~= q[b] * scale[b]: scale =
+    max(max|x[b]|, 1e-12) / 127, q = clip(round(x / scale), -127, 127) in f32
+    (``conv3x3.py:158-171``)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=tuple(range(1, x.dim())))
+    scale = _div(amax.clamp_min(1e-12), 127.0)
+    q = torch.clamp(torch.round(xf / scale.reshape((-1,) + (1,) * (x.dim() - 1))), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def quantize_weight_per_channel(w):
+    """(3, 3, Cin, Cout) weights -> (int8 weights, (Cout,) f32 scales)
+    (``conv3x3.py:174-179``): the per-output-channel quantizer of the int8
+    block kernels, the same formula."""
+    return quantize_weight(w)
+
+
+# --------------------------------------------------------------------------
+# CUDA path
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace(entry: str, b: int, h: int, w: int, cin: int, n: int) -> int:
+    return _build.workspace_bytes(entry, b, h, w, cin, n)
+
+
+def _check(what, x, w_shape):
+    b, h, w, cin = x.shape
+    if not supported(x.shape, w_shape) or tuple(w_shape[-2:]) != (cin, w_shape[-1]):
+        raise ValueError(f"{what}: unsupported shapes x {tuple(x.shape)}, w {tuple(w_shape)}")
+    return b, h, w, cin, w_shape[-1]
+
+
+def conv3x3_pallas(x, w):
+    """K11: (B, H, W, Cin) x (3, 3, Cin, Cout) -> (B, H, W, Cout) in x's dtype."""
+    if _on_cpu(x, "conv3x3_pallas"):
+        return conv3x3_reference(x, w)
+    require_no_grad("conv3x3_pallas", x, w)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"conv3x3_pallas: the kernel takes bf16 activations, got {x.dtype}")
+    b, h, ww, cin, n = _check("conv3x3_pallas", x, w.shape)
+    xs = _operand(x, "x", torch.bfloat16)
+    ws = _operand(w, "w", torch.bfloat16, (3, 3, cin, n))
+    work = torch.empty(_workspace("gddim_conv3x3", b, h, ww, cin, n), device=x.device,
+                       dtype=torch.uint8)
+    out = torch.empty((b, h, ww, n), device=x.device, dtype=torch.bfloat16)
+    _build.launch("gddim_conv3x3", x.device, xs.data_ptr(), ws.data_ptr(), b, h, ww, cin, n,
+                  work.data_ptr(), out.data_ptr())
+    conv3x3_pallas.launches += 1
+    return out
+
+
+def conv3x3_pallas_int8(x8, w8, w_scale, act_scale, bias=None, out_dtype=torch.bfloat16):
+    """K11's int8 form. x8 (B, H, W, Cin) int8; w8 (3, 3, Cin, Cout) or
+    (9, Cin, Cout) int8; w_scale () or (Cout,) and act_scale () or (B,) f32;
+    an optional f32 bias fused into the dequantization."""
+    if _on_cpu(x8, "conv3x3_pallas_int8"):
+        return conv3x3_int8_reference(x8, w8, w_scale, act_scale, bias, out_dtype)
+    require_no_grad("conv3x3_pallas_int8", bias,
+                    *(t for t in (w_scale, act_scale) if isinstance(t, torch.Tensor)))
+    if out_dtype != torch.bfloat16:
+        raise ValueError(f"conv3x3_pallas_int8: the kernel writes bf16, asked for {out_dtype}")
+    b, h, ww, cin = x8.shape
+    n = w8.shape[-1]
+    _check("conv3x3_pallas_int8", x8, (3, 3, cin, n) if w8.shape[0] == 9 else w8.shape)
+    f32 = torch.float32
+    xs = _operand(x8, "x8", torch.int8, (b, h, ww, cin))
+    ws = _operand(w8.reshape(3, 3, -1, n), "w8", torch.int8, (3, 3, cin, n))
+    sw = _operand(torch.as_tensor(w_scale, dtype=f32, device=x8.device).expand(n), "w_scale", f32)
+    sa = _operand(torch.as_tensor(act_scale, dtype=f32, device=x8.device).expand(b), "act_scale",
+                  f32)
+    bs = _operand(bias, "bias", f32, (n,))
+    work = torch.empty(_workspace("gddim_conv3x3_int8", b, h, ww, cin, n), device=x8.device,
+                       dtype=torch.uint8)
+    out = torch.empty((b, h, ww, n), device=x8.device, dtype=torch.bfloat16)
+    _build.launch("gddim_conv3x3_int8", x8.device, xs.data_ptr(), ws.data_ptr(), sw.data_ptr(),
+                  sa.data_ptr(), _build.ptr(bs), b, h, ww, cin, n, work.data_ptr(),
+                  out.data_ptr())
+    conv3x3_pallas_int8.launches += 1
+    return out
+
+
+conv3x3_pallas.launches = 0  # kernel launches on CUDA tensors (one gddim_conv3x3 each)
+conv3x3_pallas_int8.launches = 0  # one gddim_conv3x3_int8 each

@@ -92,6 +92,15 @@ def test_port_imports_no_jax(tmp_path):
         eps = make_cld_eps_fn(CLD.from_config(cfg))(
             seeded_model(cfg, 0), torch.zeros(1, 16, 16, 3, 2), torch.full((1,), 0.5))
         assert eps.shape == (1, 16, 16, 3, 2)
+        import gddim_torch.models.calibrate, gddim_torch.ops.conv3x3, gddim_torch.samplers.blur
+        from gddim_torch.math.blur import BlurSDE
+        from gddim_torch.models.wrappers import make_blur_yeps_fn
+        cfg = get_config("blur/ddpm_deep_cifar10")
+        cfg.model.nf, cfg.model.ch_mult, cfg.model.num_res_blocks = 128, (1, 2), 1
+        cfg.data.image_size, cfg.model.dtype, cfg.model.conv_impl = 16, "float32", "int8"
+        eps = make_blur_yeps_fn(BlurSDE.from_config(cfg))(
+            seeded_model(cfg, 0), torch.zeros(1, 16, 16, 3), torch.full((1,), 0.5))
+        assert eps.shape == (1, 16, 16, 3)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "ml_collections",
                                             "gddim_tpu"))
