@@ -21,13 +21,20 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      (bf16, against its f32 plain version, with F.conv2d's time), K11-int8
      (bit-identical to its exact plain version) and K12 (scales, and int8
      values at most one step apart), and K1 without SiLU at the attention
-     shapes beside F.group_norm's time;
+     shapes beside F.group_norm's time; then K9 (bf16, and int8 with static
+     and per-sample scales) at the 6 transition shapes against its plain
+     versions with the TPU kernel's rounding points, K10's forward and its 11
+     gradients (f32) at the training attention shapes, and K2-K5 once each on
+     f32 activations (f32 out);
   4. eps: one full-width eps evaluation (B=4, t=0.5, seeded weights), kernel
      path in bf16 against the all-plain path in f32, then the layer-wise paths
      ('pallas' and 'int8') against the same f32 path, with the launch counts
      of each evaluation;
   5. sample: CLD deis-2 NFE=50 sampling through gddim_torch.cli's sampling
-     function (B=16, seeded weights): finite samples, launch counts, wall time;
+     function (B=16, seeded weights) with the transitions through K4
+     (transition_impl 'tail'): finite samples, launch counts, wall time;
+     then the same with 'full' (K9), its samples against the K4 path's (the
+     int8 and blur phases repeat their 'fused_int8' run so too);
   6. int8: the int8 path (conv_impl 'fused_int8'): static scales calibrated on
      the card (gddim_torch.cli.calibrate_int8), one full-width eps evaluation
      (B=4, t=0.5) with static scales against the bf16 kernel path and the f32
@@ -44,16 +51,23 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
   8. train: the full-width model in f32 (seeded weights) at the config's
      training batch (128): one loss + backward on the kernel path against the
      all-plain path with the same t, z and dropout masks (loss, gradient
-     norm, worst per-tensor error); then training.n_jitted_steps Adam steps through
-     gddim_torch.cli's train function: finite loss and parameters, launch
-     counts per step; img/s and peak memory of both paths for information.
+     norm, worst per-tensor error), with training.fused_attn off and on (K10);
+     then training.n_jitted_steps Adam steps through gddim_torch.cli's train
+     function with each setting: finite loss and parameters, launch counts
+     per step; img/s and peak memory of the kernel path (K10 off and on) and
+     of the plain path for information.
 Then one line {"kernels": [...]}, one line with the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 
 ``--phases profile`` (not in the default run) traces one eval of the CLD bf16
-and int8 kernel paths, then of the blur 'fused_int8' and layer-wise 'int8'
-paths, at ``--batch`` with torch.profiler and prints the wall, the device time
-and the kernels that take it.
+and int8 kernel paths, then of the same with transition_impl 'tail' and
+'full', then of the blur 'fused_int8' and layer-wise 'int8' paths, at
+``--batch`` with torch.profiler and prints the wall, the device time and the
+kernels that take it. ``--phases ab`` (not in the default run) times CLD
+NFE=50 sampling with the transitions through K4 and through K9, bf16 and
+int8 static, at B=16 and B=64, five rounds of tail, full, full, tail, with
+each cell's medians and pairs won: the A/B behind
+``model.transition_impl``'s default.
 """
 
 from __future__ import annotations
@@ -142,6 +156,24 @@ SAMPLE_INT8_BOUND = {"corr": 0.97, "mean_dx": 0.015, "max_dx": 1.0}
 # K12_FLIP_SHARE of the int8 values one step apart (a value on a half step
 # flips on a last-bit difference of the f32 GroupNorm).
 KERNEL_BOUND.update({"K11": 1e-2, "K11-int8": 0.0, "K12": 1e-2})
+# K9 against its plain versions with the TPU kernel's rounding points (bf16,
+# and int8 with exact sums): the K4 path's bf16 h1 and output roundings, and
+# an int8 value on a half step flipping, as K2-K5's; measured 3.2e-3 to
+# 4.5e-3 (bf16) and 1.7e-3 to 3.9e-3 (int8) at the 6 shapes on an H100.
+# K10's forward is K5 on f32 activations against the f32 plain composition,
+# measured 9.8e-4 and 2.5e-3; its gradients are the plain composition's VJP
+# on the same inputs, the same sums (measured 0)
+KERNEL_BOUND.update({"K9": 1e-2, "K9-int8": 1e-2, "K10": 1e-2})
+K10_GRAD_BOUND = 1e-5
+# The K2-K5 wrappers on f32 activations write f32 (bf16 MMA operands) against
+# the f32 plain composition: measured 7.5e-4 to 1.26e-3 on an H100, about 3x
+F32_ACT_BOUND = 4e-3
+# NFE=50 samples through K9 against the K4 path's of the same seed (uint8
+# images / 255): bf16 roundings moved within each transition. Measured on an
+# H100: CLD bf16 corr 0.99914, mean|dx| 0.00044; the int8 runs, where a moved
+# rounding flips int8 values that compound over the trajectory, CLD 0.99147 /
+# 0.00424 and blur 0.98376 / 0.00812; held to the int8 samples' gate
+SAMPLE_K9_BOUND = {"corr": 0.97, "mean_dx": 0.015}
 K12_SCALE_BOUND = 1e-5
 K12_FLIP_SHARE = 1e-3
 # The layer-wise paths of the whole network against the f32 plain path
@@ -160,6 +192,10 @@ PER_EVAL_PALLAS = {"K1": 163, "K11": 152, "K8": 10}
 PER_EVAL_LAYER_INT8 = {"K1": 17, "K12": 146, "K11-int8": 152, "K8": 10}
 # ... of its int8 path: the same blocks through the int8 modes
 PER_EVAL_INT8 = {"K1": 7, "K2-int8": 34, "K3-int8": 36, "K4-int8": 6, "K5-int8": 10}
+# ... with model.transition_impl 'full': the 6 transitions through K9 (K1 only
+# in the head)
+PER_EVAL_FULL = {"K1": 1, "K2": 34, "K3": 36, "K9": 6, "K5": 10}
+PER_EVAL_INT8_FULL = {"K1": 1, "K2-int8": 34, "K3-int8": 36, "K9-int8": 6, "K5-int8": 10}
 # H100 SXM peaks (NVIDIA's data sheet, dense): operations per second by type,
 # and device memory bytes per second
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -168,6 +204,8 @@ HBM = 3.35e12
 # 10 attention blocks and norm_out; K6 forward and K7 backward in the 34
 # stride-1 and 36 concatenated up-path blocks; K8 in the 10 attention blocks
 PER_STEP = {"K1": 23, "K6": 70, "K7": 70, "K8": 10}
+# ... with training.fused_attn: the 10 attention blocks through K10
+PER_STEP_K10 = {"K1": 13, "K6": 70, "K7": 70, "K10": 10}
 
 KERNELS = {
     "K1": dict(name="group_norm_silu", route="triton", source="gddim_torch/ops/groupnorm.py",
@@ -205,6 +243,14 @@ KERNELS = {
     "K12": dict(name="group_norm_silu_quant", route="triton",
                 source="gddim_torch/ops/groupnorm.py",
                 replaces="gddim_tpu/ops/groupnorm.py:140"),
+    "K9": dict(name="fused_resblock_transition", route="cuda",
+               source="gddim_torch/csrc/transition.cu",
+               replaces="gddim_tpu/ops/resblock.py:1480"),
+    "K9-int8": dict(name="fused_resblock_transition_int8", route="cuda",
+                    source="gddim_torch/csrc/transition.cu",
+                    replaces="gddim_tpu/ops/resblock.py:1480"),
+    "K10": dict(name="fused_attnblock_train", route="cuda", source="gddim_torch/csrc/attnblock.cu",
+                replaces="gddim_tpu/ops/attnblock.py:295"),
 }
 # main-path shapes of cld/accr_dcifar10 (H, channels in, channels out)
 SHAPES = {
@@ -233,6 +279,11 @@ SHAPES = {
             (8, 256), (8, 512), (4, 256), (4, 512)],
     # K1 without SiLU: the attention GroupNorms (layer-wise and training paths)
     "K1_attn": [(16, 256), (4, 256)],
+    # K9: (H_in, C, Cout, up) of the 6 transitions, 3 down then 3 up
+    "K9": [(32, 128, 128, False), (16, 256, 256, False), (8, 256, 256, False),
+           (4, 256, 256, True), (8, 256, 256, True), (16, 256, 256, True)],
+    # K10: (H, C) of the training path's attention, f32
+    "K10": [(16, 256), (4, 256)],
 }
 GRADS = ["dx", "dtemb", "dgn1s", "dgn1b", "dw1", "db1", "dgn2s", "dgn2b", "dw2", "db2", "dwsk",
          "dbsk"]
@@ -505,6 +556,111 @@ def phase_kernels(results: dict, B: int = 4):
                       lambda out, k=kernel, a=args: _ops_of(k, B, a, out), plain_reps=5, B=B)
 
 
+def transition_ops(kernel: str, B: int, h_in: int, c: int, cout: int, up: bool) -> dict:
+    """K9: the two 3x3 convs and the 1x1 skip at the output resolution,
+    2*B*h*w*(9*(C*Cout + Cout^2) + C*Cout), and the f32 temb row."""
+    m = B * (2 * h_in if up else h_in // 2) ** 2
+    return {"int8" if kernel.endswith("int8") else "bf16": 2 * m * 9 * (c * cout + cout * cout),
+            "bf16_skip": 2 * m * c * cout, "f32": 2 * B * TEMB * cout}
+
+
+def phase_transition_kernels(results: dict, B: int = 4):
+    """K9 (bf16) and its int8 mode (static and per-sample scales) at the 6
+    transition shapes, against the plain versions with the TPU kernel's
+    rounding points; plain ms of the bf16 composition in bf16."""
+    from gddim_torch.ops import resblock as rb
+
+    inp = Inputs(4)
+    qw = lambda *shape: rb.quantize_weight(inp.w(*shape))  # noqa: E731
+    for h, c, cout, up in SHAPES["K9"]:
+        kw = dict(up=up, num_groups1=min(c // 4, 32), num_groups2=min(cout // 4, 32))
+        label = f"{'up' if up else 'down'} {h}x{h} {c}->{cout}"
+        args = (inp.act(B, h, h, c), inp.act(B, TEMB), inp.w(TEMB, cout).float(), inp.vec(cout),
+                inp.vec(c, 1.0), inp.vec(c), inp.w(3, 3, c, cout), inp.vec(cout),
+                inp.vec(cout, 1.0), inp.vec(cout), inp.w(3, 3, cout, cout), inp.vec(cout),
+                inp.w(c, cout), inp.vec(cout))
+        _check_kernel(results, "K9", label, lambda a=args, k=kw: rb.fused_resblock_transition(*a, **k),
+                      lambda a=args, k=kw: rb.resblock_transition_bf16_reference(*_f32(a), **k),
+                      args, transition_ops("K9", B, h, c, cout, up),
+                      lambda a=args, k=kw: rb.resblock_transition_reference(*a, **k), B=B)
+    for static in (True, False):
+        scales = torch.stack(rb.act_scales_from_amax(INT8_AMAX["res"])).cuda() if static else None
+        for h, c, cout, up in SHAPES["K9"]:
+            kw = dict(up=up, num_groups1=min(c // 4, 32), num_groups2=min(cout // 4, 32))
+            label = f"{'static' if static else 'dynamic'} {'up' if up else 'down'} {h}x{h} {c}->{cout}"
+            args = (inp.act(B, h, h, c), inp.act(B, TEMB), inp.w(TEMB, cout).float(),
+                    inp.vec(cout), inp.vec(c, 1.0), inp.vec(c), qw(3, 3, c, cout), inp.vec(cout),
+                    inp.vec(cout, 1.0), inp.vec(cout), qw(3, 3, cout, cout), inp.vec(cout),
+                    inp.w(c, cout), inp.vec(cout), scales)
+            # the int8 plain version sums exactly in float64: no yardstick of speed
+            _check_kernel(results, "K9-int8", label,
+                          lambda a=args, k=kw: rb.fused_resblock_transition_int8(*a, **k),
+                          lambda a=args, k=kw: rb.resblock_transition_int8_reference(*_f32(a), **k),
+                          args, transition_ops("K9-int8", B, h, c, cout, up), plain_reps=5, B=B)
+
+
+def phase_attn_train_kernels(results: dict, B: int = 4):
+    """K10 at the training path's attention shapes, f32: the forward against
+    the f32 plain composition, the 11 gradients against autograd of the plain
+    composition; ms of the forward, bound that of K5's forward."""
+    from gddim_torch.ops import attnblock
+
+    inp = Inputs(5)
+    act = lambda *shape: torch.randn(shape, generator=inp.g, device="cuda")  # noqa: E731
+    kw = dict(num_groups=32, skip_rescale=True)
+    for h, c in SHAPES["K10"]:
+        label = f"f32 {h}x{h}x{c}"
+        args = [act(B, h, h, c), inp.vec(c, 1.0), inp.vec(c)]
+        for _ in range(4):
+            args += [act(c, c) / c ** 0.5, inp.vec(c)]
+        g = act(B, h, h, c)
+        leaves = lambda: [a.detach().clone().requires_grad_(True) for a in args]  # noqa: E731
+        ka, pa = leaves(), leaves()
+        out = attnblock.fused_attnblock_train(*ka, **kw)
+        ref = attnblock.attnblock_reference(*pa, **kw)
+        out.backward(g)
+        ref.backward(g)
+        torch.cuda.synchronize()
+        if out.dtype != torch.float32 or out.shape != ref.shape:
+            raise AssertionError(f"K10 {label}: got {out.dtype} {tuple(out.shape)}")
+        err, rel = (out - ref).abs().max().item(), _rel(out, ref)
+        largest = max(a.grad.abs().max().item() for a in pa)
+        # the key bias's exact gradient is zero: on the largest gradient's scale
+        grel = max((a.grad - b.grad).abs().max().item()
+                   / (LEAF_FLOOR * largest if i == 6 else b.grad.abs().max().item())
+                   for i, (a, b) in enumerate(zip(ka, pa)))
+        with torch.no_grad():
+            ms = time_ms(lambda: attnblock.fused_attnblock_train(*args, **kw))
+            plain_ms = time_ms(lambda: attnblock.attnblock_reference(*args, **kw))
+        bd = bound(nbytes(args, out), attn_ops("K5", B, h * h, c))
+        print(f"kernel K10 fused_attnblock_train [{label}] B={B}: forward max|err|={err:.3e} "
+              f"rel={rel:.3e} (bound {KERNEL_BOUND['K10']:.0e}); gradients rel={grel:.3e} "
+              f"(bound {K10_GRAD_BOUND:.0e}) ms={ms:.4f} plain_f32_ms={plain_ms:.4f} "
+              f"bound_ms={bd[0]:.4f}", flush=True)
+        _record(results, "K10", label, err, rel, ms, plain_ms, bd, grad_rel=grel)
+        if not (np.isfinite(rel) and rel <= KERNEL_BOUND["K10"] and np.isfinite(grel)
+                and grel <= K10_GRAD_BOUND):
+            raise AssertionError(f"K10 {label}: forward {rel:.3e}, gradients {grel:.3e} over bounds")
+
+
+def phase_f32_activations(B: int = 4):
+    """K2-K5 (bf16 modes) on f32 activations at one shape each: f32 out,
+    within F32_ACT_BOUND of the f32 plain composition."""
+    for kernel, label, fused, plain, args, kw in kernel_cases(B):
+        if kernel == "K1" or label not in ("16x16 256->256", "16x16 256+256->256", "16x16x256"):
+            continue
+        f32 = _f32(args)
+        out = counters()[kernel](*f32, **kw)
+        torch.cuda.synchronize()
+        ref = plain_bf16(kernel)(*f32, **kw)
+        rel = _rel(out, ref)
+        print(f"kernel {kernel} {KERNELS[kernel]['name']} [f32 activations {label}] B={B}: "
+              f"out {out.dtype}, "
+              f"rel={rel:.3e} (bound {F32_ACT_BOUND:.0e})", flush=True)
+        if out.dtype != torch.float32 or not np.isfinite(rel) or rel > F32_ACT_BOUND:
+            raise AssertionError(f"{kernel} on f32 activations: {out.dtype}, rel {rel:.3e}")
+
+
 def train_block_inputs(inp: Inputs, B: int, h: int, cin: int, cout: int, keep: float = 0.9):
     """f32 operands of one training block (not rounded to bf16, so the
     kernels' bf16 operand rounding shows), a seeded dropout mask and a
@@ -704,7 +860,10 @@ def counters():
             "K2-int8": resblock.fused_resblock_int8, "K3-int8": resblock.fused_resblock_pair_int8,
             "K4-int8": resblock.fused_resblock_tail_int8,
             "K5-int8": attnblock.fused_attnblock_int8, "K11": conv3x3.conv3x3_pallas,
-            "K11-int8": conv3x3.conv3x3_pallas_int8, "K12": groupnorm.group_norm_silu_quant}
+            "K11-int8": conv3x3.conv3x3_pallas_int8, "K12": groupnorm.group_norm_silu_quant,
+            "K9": resblock.fused_resblock_transition,
+            "K9-int8": resblock.fused_resblock_transition_int8,
+            "K10": attnblock.fused_attnblock_train}
 
 
 def reset_counts():
@@ -773,7 +932,9 @@ def phase_eps(config):
     return model
 
 
-def phase_sample(config, model, batch: int, card: str):
+def _run_samples(config, model, batch: int, per_eval: dict):
+    """One warm run (seed 7), then the counted NFE run from seed 8 through the
+    CLI's sampling function: (samples, v, wall seconds, launch counts)."""
     from gddim_torch.cli import sample_data
 
     nfe = int(config.sampling.nfe)
@@ -785,23 +946,68 @@ def phase_sample(config, model, batch: int, card: str):
         (path,) = sample_data(config, model, Path(tmp), batch, rounds=1, seed=8, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = launches_of(PER_EVAL)
+        counts = launches_of(per_eval)
         with np.load(path) as f:
-            samples, v, nfe_rec = f["samples"], f["v"], int(f["nfe"])
-    expected = {k: n * nfe for k, n in PER_EVAL.items()}
-    print(f"sample deis-2 NFE={nfe_rec} B={batch}: wall {wall:.3f} s, "
-          f"{batch / wall:.2f} img/s [{card}] (information only); launches {counts}", flush=True)
-    if samples.shape != (batch, 32, 32, 3) or not np.isfinite(v).all() or nfe_rec != nfe:
+            samples, v, nfe_rec = f["samples"], f.get("v"), int(f["nfe"])
+    if samples.shape != (batch, 32, 32, 3) or nfe_rec != nfe or (v is not None
+                                                                 and not np.isfinite(v).all()):
         raise AssertionError(f"bad samples {samples.shape} nfe={nfe_rec}")
+    expected = {k: n * nfe for k, n in per_eval.items()}
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != {expected}")
+    return samples, wall, counts
+
+
+def _compare_samples(ref, samples, bounds: dict, what: str):
+    """Pixel correlation, mean and max |dx| of uint8 samples against ref's:
+    (their line, whether they are within ``bounds``)."""
+    a, b = ref.astype(np.float64) / 255.0, samples.astype(np.float64) / 255.0
+    corr = float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+    mean_dx, max_dx = float(np.abs(a - b).mean()), float(np.abs(a - b).max())
+    ok = (corr >= bounds["corr"] and mean_dx <= bounds["mean_dx"]
+          and max_dx <= bounds.get("max_dx", 1.0))
+    return (f"against {what}: pixel corr {corr:.5f} (bound >= {bounds['corr']}), mean|dx| "
+            f"{mean_dx:.5f} (bound {bounds['mean_dx']}), max|dx| {max_dx:.4f}, mean "
+            f"{b.mean():.4f} (theirs {a.mean():.4f})"), ok
+
+
+def _sample_line(label, config, batch, wall, card, counts, cmp=None):
+    """Print one NFE run's line; raise when its comparison ``cmp`` (from
+    _compare_samples) is out of bounds."""
+    text, ok = cmp or ("", True)
+    print(f"sample {label} NFE={config.sampling.nfe} B={batch}: wall {wall:.3f} s, "
+          f"{batch / wall:.2f} img/s [{card}] (information only); launches {counts}"
+          + (f"; {text}" if text else ""), flush=True)
+    if not ok:
+        raise AssertionError(f"sample {label}: {text} over bounds")
+
+
+def run_k9(config, model, batch: int, card: str, per_eval: dict, ref, label: str):
+    """The same NFE=50 run with model.transition_impl 'full' (K9) against the
+    K4 path's samples ``ref`` of the same seed; returns the launch counts."""
+    model.transition = "full"
+    try:
+        samples, wall, counts = _run_samples(config, model, batch, per_eval)
+    finally:
+        model.transition = "tail"
+    _sample_line(f"{label} transition_impl=full", config, batch, wall, card, counts,
+                 _compare_samples(ref, samples, SAMPLE_K9_BOUND,
+                                  "the K4 path's samples of the same seed"))
+    return counts
+
+
+def phase_sample(config, model, batch: int, card: str):
+    samples, wall, counts = _run_samples(config, model, batch, PER_EVAL)
+    _sample_line("deis-2", config, batch, wall, card, counts)
+    k9 = run_k9(config, model, batch, card, PER_EVAL_FULL, samples, "deis-2")
+    counts.update({k: n for k, n in k9.items() if k not in counts})
     return counts, samples
 
 
 def phase_int8(config, samples_bf16, batch: int, card: str):
     """The int8 path as a user runs it (conv_impl fused_int8, scales calibrated
     on the card), against the bf16 kernel path and the f32 plain path."""
-    from gddim_torch.cli import build_model, calibrate_int8, sample_data
+    from gddim_torch.cli import build_model, calibrate_int8
     from gddim_torch.math.cld import CLD
     from gddim_torch.models.wrappers import make_cld_eps_fn
 
@@ -839,43 +1045,21 @@ def phase_int8(config, samples_bf16, batch: int, card: str):
     if counts != PER_EVAL_INT8:
         raise AssertionError(f"int8 launch counts {counts} != {PER_EVAL_INT8}")
 
-    nfe = int(config.sampling.nfe)
-    with tempfile.TemporaryDirectory() as tmp:
-        sample_data(config, model, Path(tmp), batch, rounds=1, seed=7, device="cuda")  # warm
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        (path,) = sample_data(config, model, Path(tmp), batch, rounds=1, seed=8, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = launches_of(PER_EVAL_INT8)
-        with np.load(path) as f:
-            samples, v, nfe_rec = f["samples"], f["v"], int(f["nfe"])
-    a, b = samples_bf16.astype(np.float64) / 255.0, samples.astype(np.float64) / 255.0
-    corr = float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
-    mean_dx, max_dx = float(np.abs(a - b).mean()), float(np.abs(a - b).max())
-    print(f"sample int8 static deis-2 NFE={nfe_rec} B={batch}: wall {wall:.3f} s, "
-          f"{batch / wall:.2f} img/s [{card}] (information only); launches {counts}; against the "
-          f"bf16 samples of the same seed: pixel corr {corr:.5f} (bound >= "
-          f"{SAMPLE_INT8_BOUND['corr']}), mean|dx| {mean_dx:.5f} (bound "
-          f"{SAMPLE_INT8_BOUND['mean_dx']}), max|dx| {max_dx:.4f} (bound "
-          f"{SAMPLE_INT8_BOUND['max_dx']}), mean {b.mean():.4f} (bf16 {a.mean():.4f})",
-          flush=True)
-    if samples.shape != (batch, 32, 32, 3) or not np.isfinite(v).all() or nfe_rec != nfe:
-        raise AssertionError(f"bad int8 samples {samples.shape} nfe={nfe_rec}")
-    expected = {k: n * nfe for k, n in PER_EVAL_INT8.items()}
-    if counts != expected:
-        raise AssertionError(f"int8 launch counts {counts} != {expected}")
-    if not (corr >= SAMPLE_INT8_BOUND["corr"] and mean_dx <= SAMPLE_INT8_BOUND["mean_dx"]
-            and max_dx <= SAMPLE_INT8_BOUND["max_dx"]):
-        raise AssertionError(f"int8 samples: corr {corr:.5f}, mean|dx| {mean_dx:.5f}, "
-                             f"max|dx| {max_dx:.4f} over bounds")
+    samples, wall, counts = _run_samples(config, model, batch, PER_EVAL_INT8)
+    _sample_line("int8 static deis-2", config, batch, wall, card, counts,
+                 _compare_samples(samples_bf16, samples, SAMPLE_INT8_BOUND,
+                                  "the bf16 samples of the same seed"))
+    k9 = run_k9(config, model, batch, card, PER_EVAL_INT8_FULL, samples, "int8 static deis-2")
+    counts.update({k: n for k, n in k9.items() if k not in counts})
     return counts
 
 
-# blur NFE=50 runs of the blur phase, in order: (conv_impl, launches per eval)
-BLUR_PATHS = [("fused", PER_EVAL), ("int8", PER_EVAL_LAYER_INT8), ("fused_int8", PER_EVAL_INT8),
-              ("pallas", PER_EVAL_PALLAS)]
+# blur NFE=50 runs of the blur phase, in order: (conv_impl, launches per eval,
+# transition_impl); the last one, K9's int8 mode, is held against the
+# 'fused_int8' (K4) samples, every other against the 'fused' ones
+BLUR_PATHS = [("fused", PER_EVAL, "tail"), ("int8", PER_EVAL_LAYER_INT8, "tail"),
+              ("fused_int8", PER_EVAL_INT8, "tail"), ("pallas", PER_EVAL_PALLAS, "tail"),
+              ("fused_int8", PER_EVAL_INT8_FULL, "full")]
 
 
 def phase_blur(batch: int, card: str):
@@ -886,10 +1070,11 @@ def phase_blur(batch: int, card: str):
     from gddim_torch.cli import build_model, calibrate_int8, sample_data
     from gddim_torch.configs import get_config
 
-    launches, ref = {}, None
-    for impl, per_eval in BLUR_PATHS:
+    launches, runs = {}, {}
+    for impl, per_eval, transition in BLUR_PATHS:
         config = get_config("blur/ddpm_deep_cifar10")
         config.model.conv_impl = impl
+        config.model.transition_impl = transition
         nfe = int(config.sampling.nfe)
         model = build_model(config, "cuda", None, seed=0)
         note = ""
@@ -914,21 +1099,20 @@ def phase_blur(batch: int, card: str):
                 samples, nfe_rec = f["samples"], int(f["nfe"])
         hook.remove()
         all_finite = len(finite) == nfe and bool(torch.stack(finite).all())
-        x = samples.astype(np.float64) / 255.0
-        line = (f"sample blur order-0 NFE={nfe_rec} B={batch} conv_impl={impl}: wall {wall:.3f} s, "
-                f"{batch / wall:.2f} img/s [{card}] (information only){note}; launches {counts}; "
-                f"every eval finite: {all_finite}")
+        line = (f"sample blur order-0 NFE={nfe_rec} B={batch} conv_impl={impl} "
+                f"transition_impl={transition}: wall {wall:.3f} s, {batch / wall:.2f} img/s "
+                f"[{card}] (information only){note}; launches {counts}; every eval finite: "
+                f"{all_finite}")
         bad = []
-        if ref is None:
-            ref = x
-        else:
-            corr = float(np.corrcoef(ref.ravel(), x.ravel())[0, 1])
-            mean_dx = float(np.abs(ref - x).mean())
-            line += (f"; against the 'fused' samples of the same seed: pixel corr {corr:.5f} "
-                     f"(bound >= {SAMPLE_INT8_BOUND['corr']}), mean|dx| {mean_dx:.5f} (bound "
-                     f"{SAMPLE_INT8_BOUND['mean_dx']}), mean {x.mean():.4f} (fused {ref.mean():.4f})")
-            if not (corr >= SAMPLE_INT8_BOUND["corr"] and mean_dx <= SAMPLE_INT8_BOUND["mean_dx"]):
-                bad.append(f"corr {corr:.5f}, mean|dx| {mean_dx:.5f} over bounds")
+        # K9's run against the K4 path's samples, every other against 'fused'
+        ref = "fused_int8" if transition == "full" else "fused"
+        if ref in runs:
+            text, ok = _compare_samples(runs[ref], samples, SAMPLE_K9_BOUND if transition ==
+                                        "full" else SAMPLE_INT8_BOUND,
+                                        f"the '{ref}' samples of the same seed")
+            line += "; " + text
+            if not ok:
+                bad.append(f"{text} over bounds")
         print(line, flush=True)
         expected = {k: n * nfe for k, n in per_eval.items()}
         if samples.shape != (batch, 32, 32, 3) or nfe_rec != nfe or not all_finite:
@@ -938,6 +1122,7 @@ def phase_blur(batch: int, card: str):
         if bad:
             raise AssertionError(f"blur {impl}: " + "; ".join(bad))
         launches.update({k: n for k, n in counts.items() if k not in launches})
+        runs.setdefault(impl, samples)
         del model
     return launches
 
@@ -994,6 +1179,12 @@ def phase_profile(config, batch: int, card: str, evals: int = 5):
     for name, int8 in (("bf16", False), ("int8", True), ("int8", True), ("bf16", False)):
         model.int8 = int8
         _profile(name, lambda: eps_apply(model, u, t), batch, card, evals)
+    for int8 in (False, True):  # the transitions through K4 and through K9
+        model.int8 = int8
+        for transition in ("tail", "full", "full", "tail"):
+            model.transition = transition
+            _profile(f"{'int8' if int8 else 'bf16'} transition_impl={transition}",
+                     lambda: eps_apply(model, u, t), batch, card, evals)
     del model
 
     config = get_config("blur/ddpm_deep_cifar10")
@@ -1006,6 +1197,49 @@ def phase_profile(config, batch: int, card: str, evals: int = 5):
         model.layer = layer
         _profile(f"blur {'layer-wise int8' if layer else 'fused_int8'}",
                  lambda: yeps(model, y, t), batch, card, evals)
+
+
+def phase_ab(config, card: str, batches=(16, 64), rounds: int = 5):
+    """K9's A/B: CLD deis-2 NFE=50 img/s through the CLI's sampling function
+    with transition_impl 'tail' and 'full', bf16 ('fused') and int8 static
+    ('fused_int8'), at each batch, ``rounds`` times in the order tail, full,
+    full, tail (two pairs a round), each setting warmed first by an NFE=2
+    run; then per cell the medians, the pairs 'full' won and the spread of
+    the 'tail' runs (the distance between their quartiles)."""
+    from gddim_torch.cli import build_model, calibrate_int8, sample_data
+
+    for impl in ("fused", "fused_int8"):
+        cfg = copy.deepcopy(config)
+        cfg.model.conv_impl = impl
+        warm = copy.deepcopy(cfg)
+        warm.sampling.nfe = 2
+        model = build_model(cfg, "cuda", None, seed=0)
+        if impl == "fused_int8":
+            calibrate_int8(cfg, model, seed=0)
+        for batch in batches:
+            rates = {"tail": [], "full": []}
+            with tempfile.TemporaryDirectory() as tmp:
+                for transition in ("tail", "full"):
+                    model.transition = transition
+                    sample_data(warm, model, Path(tmp), batch, 1, seed=7, device="cuda")
+                for _ in range(rounds):
+                    for transition in ("tail", "full", "full", "tail"):
+                        model.transition = transition
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        sample_data(cfg, model, Path(tmp), batch, 1, seed=8, device="cuda")
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t0
+                        rates[transition].append(batch / wall)
+                        print(f"ab CLD {impl} deis-2 NFE={cfg.sampling.nfe} B={batch} "
+                              f"transition_impl={transition}: {batch / wall:.2f} img/s, wall "
+                              f"{wall:.3f} s [{card}]", flush=True)
+            tail, full = (np.array(rates[k]) for k in ("tail", "full"))
+            q1, q3 = np.percentile(tail, [25, 75])
+            print(f"ab CLD {impl} B={batch}: median img/s tail {np.median(tail):.2f}, full "
+                  f"{np.median(full):.2f}; full won {int((full > tail).sum())} of {len(tail)} "
+                  f"pairs; tail quartile spread {q3 - q1:.2f} [{card}]", flush=True)
+        del model
 
 
 def _loss_and_grads(model, loss_fn, images, t, z, seed):
@@ -1032,31 +1266,9 @@ def _timed_steps(state, train_step, batches):
     return loss, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
 
 
-def phase_train(card: str):
-    from gddim_torch.cli import train
-    from gddim_torch.configs import train_config
-    from gddim_torch.data.synthetic import SyntheticStream, get_data_scaler
-    from gddim_torch.math.cld import CLD
-    from gddim_torch.models.init import seeded_model
-    from gddim_torch.train.losses import make_cld_loss_fn
-    from gddim_torch.train.step import make_train_step
-
-    config = train_config("cld/accr_dcifar10")
-    n_steps, batch = int(config.training.n_jitted_steps), int(config.training.batch_size)
-    model = seeded_model(config, seed=0, device="cuda").train()
-    sde = CLD.from_config(config)
-    loss_fn = make_cld_loss_fn(sde, train=True)
-    stream = SyntheticStream(config, batch, n_steps, seed=11)
-    batches = torch.from_numpy(get_data_scaler(config)(next(stream))).to("cuda")
-    g = torch.Generator(device="cuda").manual_seed(5)
-    t = 1e-5 + (sde.T - 1e-5) * torch.rand((batch,), generator=g, device="cuda")
-    z = torch.randn((batch, 32, 32, 3, 2), generator=g, device="cuda")
-
-    # one loss + backward, kernel path vs all-plain path, same t, z and masks
-    loss_k, grads_k = _loss_and_grads(model, loss_fn, batches[0], t, z, seed=9)
-    model.fused = False
-    loss_p, grads_p = _loss_and_grads(model, loss_fn, batches[0], t, z, seed=9)
-    model.fused = True
+def _check_train_step(loss_k, grads_k, loss_p, grads_p, label: str) -> None:
+    """One loss + backward of a kernel path against the all-plain path on the
+    same t, z and masks: loss, gradient norm, each tensor on its own scale."""
     norm = lambda gs: torch.linalg.vector_norm(torch.stack([v.norm() for v in gs.values()]))  # noqa: E731
     norm_k, norm_p = norm(grads_k).item(), norm(grads_p).item()
     top = {n: v.abs().max().item() for n, v in grads_p.items()}
@@ -1071,7 +1283,7 @@ def phase_train(card: str):
             l2[n] = (d.norm() / grads_p[n].norm()).item()
     errs = dict(loss=abs(loss_k.item() - loss_p.item()) / abs(loss_p.item()),
                 grad_norm=abs(norm_k - norm_p) / norm_p, key_bias=key_err)
-    print(f"train B={batch}: loss kernel {loss_k.item():.6f} plain {loss_p.item():.6f} "
+    print(f"train {label}: loss kernel {loss_k.item():.6f} plain {loss_p.item():.6f} "
           f"rel={errs['loss']:.3e} (bound {TRAIN_BOUND['loss']:.0e}); grad norm kernel "
           f"{norm_k:.5f} plain {norm_p:.5f} rel={errs['grad_norm']:.3e} "
           f"(bound {TRAIN_BOUND['grad_norm']:.0e}); {len(grads_p)} gradient tensors", flush=True)
@@ -1090,10 +1302,13 @@ def phase_train(card: str):
               flush=True)
     bad = {k: v for k, v in errs.items() if not np.isfinite(v) or v > TRAIN_BOUND[k]}
     if bad:
-        raise AssertionError(f"train step: kernel path vs plain path over bounds: {bad}")
-    del grads_k, grads_p
+        raise AssertionError(f"train step ({label}): kernel path vs plain path over bounds: {bad}")
 
-    # the main path: n_jitted_steps Adam steps through the CLI's train function
+
+def _train_main_path(config, model, n_steps: int, batch: int, per_step: dict, label: str):
+    """n_steps Adam steps through the CLI's train function, counted from 0."""
+    from gddim_torch.cli import train
+
     with tempfile.TemporaryDirectory() as tmp:
         reset_counts()
         torch.cuda.synchronize()
@@ -1101,28 +1316,81 @@ def phase_train(card: str):
         state = train(config, model, Path(tmp), n_steps, batch, seed=3, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {k: read_counts()[k] for k in PER_STEP}
+        counts = launches_of(per_step)
     finite = all(torch.isfinite(p).all().item() for p in model.parameters())
-    print(f"train {n_steps} Adam steps B={batch} through gddim_torch.cli.train: {wall:.3f} s "
-          f"with data and checkpoint writes; launches {counts}; params finite: {finite}",
-          flush=True)
-    expected = {k: n * n_steps for k, n in PER_STEP.items()}
+    print(f"train {n_steps} Adam steps B={batch} through gddim_torch.cli.train ({label}): "
+          f"{wall:.3f} s with data and checkpoint writes; launches {counts}; params finite: "
+          f"{finite}", flush=True)
+    expected = {k: n * n_steps for k, n in per_step.items()}
     if counts != expected:
-        raise AssertionError(f"train launch counts {counts} != {expected}")
+        raise AssertionError(f"train launch counts ({label}) {counts} != {expected}")
     if not finite or state.step != n_steps:
-        raise AssertionError("train: non-finite parameters or missing steps")
+        raise AssertionError(f"train ({label}): non-finite parameters or missing steps")
+    return state, counts
 
-    # throughput and peak memory of both paths, for information
+
+def phase_train(card: str):
+    from gddim_torch.configs import train_config
+    from gddim_torch.data.synthetic import SyntheticStream, get_data_scaler
+    from gddim_torch.math.cld import CLD
+    from gddim_torch.models.init import seeded_model
+    from gddim_torch.train.losses import make_cld_loss_fn
+    from gddim_torch.train.step import make_train_step
+
+    config = train_config("cld/accr_dcifar10")
+    n_steps, batch = int(config.training.n_jitted_steps), int(config.training.batch_size)
+    model = seeded_model(config, seed=0, device="cuda").train()
+    sde = CLD.from_config(config)
+    loss_fn = make_cld_loss_fn(sde, train=True)
+    stream = SyntheticStream(config, batch, n_steps, seed=11)
+    batches = torch.from_numpy(get_data_scaler(config)(next(stream))).to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    t = 1e-5 + (sde.T - 1e-5) * torch.rand((batch,), generator=g, device="cuda")
+    z = torch.randn((batch, 32, 32, 3, 2), generator=g, device="cuda")
+
+    # one loss + backward, the kernel path (K10 off, then on) vs the all-plain
+    # path, same t, z and masks
+    model.fused = False
+    loss_p, grads_p = _loss_and_grads(model, loss_fn, batches[0], t, z, seed=9)
+    model.fused = True
+    for fused_attn in (False, True):
+        model.fused_attn = fused_attn
+        loss_k, grads_k = _loss_and_grads(model, loss_fn, batches[0], t, z, seed=9)
+        _check_train_step(loss_k, grads_k, loss_p, grads_p,
+                          f"B={batch} training.fused_attn={fused_attn}")
+        del grads_k
+    del grads_p
+
+    # the main path: n_jitted_steps Adam steps through the CLI's train function,
+    # with the config's setting, then with training.fused_attn on
+    model.fused_attn = bool(config.training.fused_attn)
+    state, counts = _train_main_path(config, model, n_steps, batch,
+                                     PER_STEP_K10 if model.fused_attn else PER_STEP,
+                                     f"training.fused_attn={model.fused_attn}")
+    k10 = copy.deepcopy(config)
+    k10.training.fused_attn = not model.fused_attn
+    model.fused_attn = k10.training.fused_attn
+    # only the counts: a second optimizer state left alive would add its
+    # Adam moments and EMA copy to the peaks measured below
+    other = _train_main_path(k10, model, n_steps, batch,
+                             PER_STEP_K10 if model.fused_attn else PER_STEP,
+                             f"training.fused_attn={model.fused_attn}")[1]
+    counts.update({k: n for k, n in other.items() if k not in counts})
+
+    # throughput and peak memory: the kernel path with K10 off and on, and the
+    # plain path, for information
     train_step = make_train_step(loss_fn)
-    for fused in (True, False, False, True):
-        model.fused = fused
+    runs = [("kernel", True, False), ("kernel, K10", True, True), ("plain", False, False),
+            ("plain", False, False), ("kernel, K10", True, True), ("kernel", True, False)]
+    for name, fused, fused_attn in runs:
+        model.fused, model.fused_attn = fused, fused_attn
         loss, sec, peak = _timed_steps(state, train_step, batches)
         if not np.isfinite(loss):
-            raise AssertionError(f"train: non-finite loss {loss} (fused={fused})")
-        print(f"train {'kernel' if fused else 'plain'} path: {n_steps} steps B={batch} "
-              f"{sec:.3f} s, {n_steps * batch / sec:.2f} img/s, loss {loss:.5f}, peak "
-              f"{peak:.2f} GiB [{card}] (information only)", flush=True)
-    model.fused = True
+            raise AssertionError(f"train: non-finite loss {loss} ({name})")
+        print(f"train {name} path: {n_steps} steps B={batch} {sec:.3f} s, "
+              f"{n_steps * batch / sec:.2f} img/s, loss {loss:.5f}, peak {peak:.2f} GiB [{card}] "
+              f"(information only)", flush=True)
+    model.fused, model.fused_attn = True, bool(config.training.fused_attn)
     return counts
 
 
@@ -1158,7 +1426,13 @@ def main(argv=None):
         phase_kernels(results)
         phase_train_kernels(results)
         phase_layer_kernels(results)
+        phase_transition_kernels(results)
+        phase_attn_train_kernels(results)
+        phase_f32_activations()
     config = get_config("cld/accr_dcifar10")
+    # the transitions through K1, the FIR passes and K4: the path each phase's
+    # K9 run (run_k9) is held against
+    config.model.transition_impl = "tail"
     model = phase_eps(config) if "eps" in phases else None
     # each path's launches, counted from 0 just before it runs: the bf16
     # sampling path, then the int8 one and the training one for their kernels
@@ -1180,6 +1454,8 @@ def main(argv=None):
         counts.update({k: n for k, n in blur_counts.items() if k not in counts})
     if "profile" in phases:
         phase_profile(config, args.batch, card)
+    if "ab" in phases:
+        phase_ab(config, card)
     if "train" in phases:
         train_counts = phase_train(card)
         counts.update({k: n for k, n in train_counts.items() if k not in counts})

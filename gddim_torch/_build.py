@@ -35,15 +35,35 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes. The *_workspace entries return a byte
 # count (long long); every other entry returns cudaError_t as int.
 _SIGNATURES = {
-    # gddim_resblock_workspace(B, H, W, Cin, N, splits)
-    "gddim_resblock_workspace": [_I, _I, _I, _I, _I, _I],
+    # gddim_resblock_workspace(B, H, W, Cin, N, splits, act_f32)
+    "gddim_resblock_workspace": [_I, _I, _I, _I, _I, _I, _I],
     # gddim_resblock(x0, x1, c0, c1, temb, dense_w, dense_b, temb_k, gn1_g, gn1_b,
     #   groups1, w1, b1, gn2_g, gn2_b, groups2, w2, b2, s0, s1, cs0, cs1, ws, bs,
-    #   B, H, W, N, eps, out_scale, work, splits1, kper1, splits2, kper2, out, stream)
+    #   B, H, W, N, eps, out_scale, work, splits1, kper1, splits2, kper2, out, act_f32, stream)
     "gddim_resblock": [
         _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
         _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
-        _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
+        _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P, _I, _P,
+    ],
+    # gddim_resblock_transition_workspace(B, H_out, W_out, C, N, splits, act_f32)
+    "gddim_resblock_transition_workspace": [_I, _I, _I, _I, _I, _I, _I],
+    # gddim_resblock_transition(x, c, temb, dense_w, dense_b, temb_k, gn1_g, gn1_b, groups1,
+    #   w1, b1, gn2_g, gn2_b, groups2, w2, b2, ws, bs, B, H_in, W_in, up, kh0..kh3, kw0..kw3,
+    #   N, eps, out_scale, work, splits1, kper1, splits2, kper2, out, act_f32, stream)
+    "gddim_resblock_transition": [
+        _P, _I, _P, _P, _P, _I, _P, _P, _I,
+        _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
+        _I, _F, _F, _P, _I, _I, _I, _I, _P, _I, _P,
+    ],
+    # gddim_resblock_transition_int8_workspace(B, H_out, W_out, C, N, splits)
+    "gddim_resblock_transition_int8_workspace": [_I, _I, _I, _I, _I, _I],
+    # gddim_resblock_transition_int8(x, c, temb, dense_w, dense_b, temb_k, gn1_g, gn1_b, groups1,
+    #   w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, ws, bs, act_scales, B, H_in, W_in, up,
+    #   kh0..kh3, kw0..kw3, N, eps, out_scale, work, splits1, kper1, splits2, kper2, out, stream)
+    "gddim_resblock_transition_int8": [
+        _P, _I, _P, _P, _P, _I, _P, _P, _I,
+        _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
     ],
     # gddim_resblock_int8_workspace(B, H, W, Cin, N, splits)
     "gddim_resblock_int8_workspace": [_I, _I, _I, _I, _I, _I],
@@ -80,9 +100,9 @@ _SIGNATURES = {
     # gddim_attnblock_workspace(B, S, C, splits)
     "gddim_attnblock_workspace": [_I, _I, _I, _I],
     # gddim_attnblock(x, gn_g, gn_b, groups, wqkv, bqkv, wo, bo, B, S, C, eps,
-    #   out_scale, work, splits1, kper1, splits2, kper2, out, stream)
+    #   out_scale, work, splits1, kper1, splits2, kper2, out, act_f32, stream)
     "gddim_attnblock": [
-        _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
+        _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P, _I, _P,
     ],
     # gddim_attnblock_int8_workspace(B, S, C, splits)
     "gddim_attnblock_int8_workspace": [_I, _I, _I, _I],

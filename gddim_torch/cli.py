@@ -28,7 +28,10 @@ per ``train_step`` call, from the config's own initialisation drawn from
 checkpoints.
 
 ``--set key=value`` overrides a config field (``--set model.nf=32``), for a
-small model on the CPU. Needs a CUDA device unless ``--device cpu`` is given.
+small model on the CPU; ``--set model.transition_impl=full`` runs the
+up/down blocks of 'fused' and 'fused_int8' sampling through K9, and
+``--set training.fused_attn=true`` the training step's attention through K10.
+Needs a CUDA device unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -181,6 +184,10 @@ def _override(config, item: str):
         value = ast.literal_eval(raw)
     except (ValueError, SyntaxError):
         value = raw
+    if isinstance(getattr(node, field), bool) and isinstance(value, str):
+        if value.lower() not in ("true", "false"):
+            raise SystemExit(f"--set {item}: {key} takes true or false")
+        value = value.lower() == "true"
     setattr(node, field, value)
 
 

@@ -39,6 +39,10 @@ class TrainingConfig:
     batch_size: int = 128
     n_jitted_steps: int = 5  # steps per train_step call (its batches' leading axis)
     reduce_mean: bool = True
+    # the attention blocks of a training step through K10 (K5's forward on
+    # the f32 activations, the plain composition's VJP; the JAX package's
+    # GDDIM_FUSED_ATTN_TRAIN=1) instead of K1, the NIN projections and K8
+    fused_attn: bool = False
 
 
 @dataclasses.dataclass
@@ -92,6 +96,12 @@ class ModelConfig:
     # 3x3 conv kernels, bf16) | 'int8' (layer-wise, int8 convs fed by
     # GroupNorm+SiLU+quantize) | 'plain' (torch composition; the JAX 'xla')
     conv_impl: str = "fused"
+    # the up/down transition blocks under 'fused' and 'fused_int8': 'full'
+    # (the whole block in one C call, K9; the JAX package's
+    # GDDIM_TRANSITION_IMPL=full, off there) or 'tail' (K1, the FIR resample
+    # of h and of x in PyTorch, then K4). 'full' by the H100 A/B of
+    # chip_smoke.py --phases ab: faster at B=16 and 64, bf16 and int8 (PERF.md)
+    transition_impl: str = "full"
 
 
 @dataclasses.dataclass
@@ -129,6 +139,7 @@ def blur_config() -> Config:
 _CONFIGS = {"cld/accr_dcifar10": Config, "blur/ddpm_deep_cifar10": blur_config}
 
 CONV_IMPLS = ("fused", "fused_int8", "pallas", "int8", "plain")
+TRANSITION_IMPLS = ("tail", "full")
 
 
 def get_config(name: str) -> Config:

@@ -9,6 +9,12 @@
 //   attention_kernel (this file)     a = softmax(q k^T / sqrt(C)) v per sample
 //   conv_gemm_launch (resblock.cu)   out = (x + a @ Wo + bo) / sqrt(2) in the epilogue
 //
+// x and out are bf16, or f32 (act_f32; K10, the training forward, runs K5 on
+// f32 activations): the GN statistics and the residual x + o then read x in
+// f32 and out is f32, while h = GN(x), q/k/v, p and a are rounded to bf16 for
+// the products, as the TPU kernel does with mm_dtype bf16. The int8 mode
+// takes bf16 x (the wrapper refuses others).
+//
 // This kernel: one block per (sample, 16-query tile), 4 warps. S <= 256 keys
 // and C <= 256 channels, so the 16 x S score rows sit in shared memory: the
 // (S, S) score matrix never touches device memory. q k^T and p v run on the
@@ -199,22 +205,23 @@ long long gddim_attnblock_workspace(int batch, int s, int c, int splits) {
 
 // The whole attention block: GN stats, [q|k|v] = GN(x) @ wqkv + bqkv (one
 // N = 3C GEMM), the attention core, out = (x + a @ wo + bo) * out_scale.
-// Scratch comes from `work`, gddim_attnblock_workspace bytes.
+// x and out bf16, or f32 with act_f32. Scratch comes from `work`,
+// gddim_attnblock_workspace bytes.
 int gddim_attnblock(const void* x, const void* gn_g, const void* gn_b, int groups,
                     const void* wqkv, const void* bqkv, const void* wo, const void* bo, int batch,
                     int s, int c, float eps, float out_scale, void* work, int splits1, int kper1,
-                    int splits2, int kper2, void* out, void* stream) {
+                    int splits2, int kper2, void* out, int act_f32, void* stream) {
   if (s % QT != 0 || s > MAX_S || c % 16 != 0 || c > MAX_C) return (int)cudaErrorInvalidValue;
   const Work wk = carve((char*)work, batch, (long)batch * s, c,
                         splits1 > splits2 ? splits1 : splits2);
   cudaStream_t st = (cudaStream_t)stream;
   int err = gn_affine_launch(x, nullptr, c, 0, batch, s, groups, (const float*)gn_g,
-                             (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, false, st);
+                             (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, act_f32, st);
   if (!err) {
     // the projections are 1x1 convs over M = B*S pixels (H = S, W = 1)
-    err = conv_gemm_launch(conv_args(x, c, wk.sc, wk.sh, 0, 1, wqkv, batch, s, 1, 3 * c, bqkv,
-                                     1.0f, wk.qkv, wk.partial, splits1, kper1),
-                           false, st);
+    err = conv_gemm_launch_as(conv_args(x, c, wk.sc, wk.sh, 0, 1, wqkv, batch, s, 1, 3 * c, bqkv,
+                                        1.0f, wk.qkv, wk.partial, splits1, kper1),
+                              act_f32, false, st);
   }
   if (err) return err;
   attention_kernel<__nv_bfloat16><<<dim3(s / QT, batch), ATT_THREADS, 0, st>>>(
@@ -224,7 +231,7 @@ int gddim_attnblock(const void* x, const void* gn_g, const void* gn_b, int group
     ConvArgs p = conv_args(wk.a, c, nullptr, nullptr, 0, 1, wo, batch, s, 1, c, bo, out_scale,
                            out, wk.partial, splits2, kper2);
     p.resid = x;
-    err = conv_gemm_launch(p, false, st);
+    err = conv_gemm_launch_as(p, false, act_f32, st);
   }
   return err;
 }

@@ -93,6 +93,10 @@ __device__ inline float block_sum256(float v, float* red) {
 // bf16 activations (A, skip, resid and out alike). Returns cudaError_t.
 int conv_gemm_launch(const ConvArgs& p, bool f32, cudaStream_t stream);
 
+// The same with A (and the skip segment) f32 or bf16 (a_f32), and the
+// identity residual and out f32 or bf16 (out_f32), independently.
+int conv_gemm_launch_as(const ConvArgs& p, bool a_f32, bool out_f32, cudaStream_t stream);
+
 // (splits, K per split) that keep a small-M GEMM's grid filling the card.
 void conv_split_plan(long m, int n, int k, int* splits, int* kper);
 
@@ -113,6 +117,19 @@ struct Int8Args {
 // f32, else bf16. The skip input and the identity residual are bf16.
 int conv_gemm_s8_launch(const ConvArgs& p, const Int8Args& q, bool a_f32, bool out_f32,
                         cudaStream_t stream);
+
+// The int8 block (gddim_resblock_int8's arguments, in order) with conv1's
+// input x0 f32 (x_f32, no x1) or bf16, and, when amax1 is non-null, the
+// per-sample amax of conv1's input already made (dynamic scales only).
+int resblock_int8_run(const void* x0, const void* x1, int c0, int c1, bool x_f32,
+                      const float* amax1, const void* temb, const void* dense_w,
+                      const void* dense_b, int temb_k, const void* gn1_g, const void* gn1_b,
+                      int groups1, const void* w1q, const void* w1s, const void* b1,
+                      const void* gn2_g, const void* gn2_b, int groups2, const void* w2q,
+                      const void* w2s, const void* b2, const void* s0, const void* s1, int cs0,
+                      int cs1, const void* ws, const void* bs, const void* act_scales, int batch,
+                      int h, int w_, int n, float eps, float out_scale, void* work, int splits1,
+                      int kper1, int splits2, int kper2, void* out, cudaStream_t st);
 
 // amax[b] = max |f(x)| over sample b of the logical concat (xa, xb), f the
 // per-(sample, channel) affine (scale, shift; none when null) and SiLU when

@@ -25,10 +25,12 @@
 //                     bias, b_skip, the temb row and an identity residual,
 //                     then scales (1/sqrt(2)).
 //
-// Activations are a template parameter: bf16 for inference (K2-K4), f32 for
-// training (K6), where x is read in f32 for GN1's statistics, the skip and
-// the identity residual, h1 stays f32 between the convs, and the output is
-// f32; only the MMA operands are bf16, as on the TPU with mm_dtype bf16.
+// Activations are a template parameter: bf16 (inference, K2-K4) or f32
+// (training, K6; and K2-K4 on f32 activations, which write f32 as the TPU
+// kernels write x's dtype), where x is read in f32 for GN1's statistics, the
+// skip and the identity residual, h1 stays f32 between the convs, and the
+// output is f32; only the MMA operands are bf16, as on the TPU with mm_dtype
+// bf16. The int8 modes take bf16 activations (the wrappers refuse others).
 //
 // A block is one C call, gddim_resblock (K2-K4) or gddim_resblock_train
 // (K6), which makes 4-5 launches: temb_proj (K2-K4 only), stats(x), conv1,
@@ -352,7 +354,7 @@ __device__ __forceinline__ void store_stage(const ConvArgs& p, const Stage<T>& s
 }
 
 // bias, b_skip, temb row and residual for 8 consecutive output channels,
-// then the scale; stores T
+// then the scale; the residual and the output are T
 template <typename T>
 __device__ __forceinline__ void epilogue8(const ConvArgs& p, int m, int n, float r[8]) {
   const int b = m / (p.H * p.W);
@@ -378,8 +380,9 @@ __device__ __forceinline__ void epilogue8(const ConvArgs& p, int m, int n, float
 // grid (ceil(M/BM), N/BN, splits), THREADS threads: 4 warps in 2x2, 32x32
 // each. Split z accumulates K slices [z*kper, (z+1)*kper). The shared tiles
 // are double-buffered: the next slice's global loads are in flight in
-// registers during the MMAs, then land in the other buffer.
-template <typename T>
+// registers during the MMAs, then land in the other buffer. TA: the type of
+// A and of the skip segment; TO: the type of the identity residual and out.
+template <typename TA, typename TO>
 __global__ void __launch_bounds__(THREADS) conv_gemm_kernel(const ConvArgs p) {
   __shared__ __align__(128) bf16 As[2][BM][LDA];
   __shared__ __align__(128) bf16 Bs[2][BK][LDB];
@@ -400,7 +403,7 @@ __global__ void __launch_bounds__(THREADS) conv_gemm_kernel(const ConvArgs p) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
-  Stage<T> st;
+  Stage<TA> st;
   load_stage(p, m0, n0, kbeg, kconv, st);
   store_stage(p, st, As[0], Bs[0]);
   __syncthreads();
@@ -448,7 +451,7 @@ __global__ void __launch_bounds__(THREADS) conv_gemm_kernel(const ConvArgs p) {
       dst[0] = make_float4(r[0], r[1], r[2], r[3]);
       dst[1] = make_float4(r[4], r[5], r[6], r[7]);
     } else {
-      epilogue8<T>(p, m, n0 + col, r);
+      epilogue8<TO>(p, m, n0 + col, r);
     }
   }
 }
@@ -472,14 +475,14 @@ __global__ void __launch_bounds__(256) splitk_epilogue_kernel(const ConvArgs p) 
   epilogue8<T>(p, (int)m, n, r);
 }
 
-template <typename T>
+template <typename TA, typename TO>
 int conv_gemm_run(const ConvArgs& p, cudaStream_t stream) {
   const long m = (long)p.B * p.H * p.W;
   dim3 grid((unsigned)((m + BM - 1) / BM), p.N / BN, p.splits);
-  conv_gemm_kernel<T><<<grid, THREADS, 0, stream>>>(p);
+  conv_gemm_kernel<TA, TO><<<grid, THREADS, 0, stream>>>(p);
   if (p.splits > 1) {
     const long vecs = m * p.N / 8;
-    splitk_epilogue_kernel<T><<<(unsigned)((vecs + 255) / 256), 256, 0, stream>>>(p);
+    splitk_epilogue_kernel<TO><<<(unsigned)((vecs + 255) / 256), 256, 0, stream>>>(p);
   }
   return (int)cudaGetLastError();
 }
@@ -878,7 +881,7 @@ int resblock_run(const void* x0, const void* x1, int c0, int c1, const void* tem
     p.a1 = x1;
     p.ca1 = c1;
     p.temb = trow;
-    err = conv_gemm_run<T>(p, stream);
+    err = conv_gemm_run<T, T>(p, stream);
   }
   if (!err)
     err = gn_affine_launch(wk.h1, nullptr, n, 0, batch, hw, groups2, (const float*)gn2_g,
@@ -895,7 +898,7 @@ int resblock_run(const void* x0, const void* x1, int c0, int c1, const void* tem
     p.ws = (const bf16*)ws;
     p.bias2 = (const float*)bs;
     p.resid = s0 ? nullptr : x0;
-    err = conv_gemm_run<T>(p, stream);
+    err = conv_gemm_run<T, T>(p, stream);
   }
   return err;
 }
@@ -903,7 +906,12 @@ int resblock_run(const void* x0, const void* x1, int c0, int c1, const void* tem
 }  // namespace
 
 int conv_gemm_launch(const ConvArgs& p, bool f32, cudaStream_t stream) {
-  return f32 ? conv_gemm_run<float>(p, stream) : conv_gemm_run<bf16>(p, stream);
+  return conv_gemm_launch_as(p, f32, f32, stream);
+}
+
+int conv_gemm_launch_as(const ConvArgs& p, bool a_f32, bool out_f32, cudaStream_t stream) {
+  if (a_f32) return out_f32 ? conv_gemm_run<float, float>(p, stream) : conv_gemm_run<float, bf16>(p, stream);
+  return out_f32 ? conv_gemm_run<bf16, float>(p, stream) : conv_gemm_run<bf16, bf16>(p, stream);
 }
 
 void conv_split_plan(long m, int n, int k, int* splits, int* kper) {
@@ -937,7 +945,7 @@ int conv_gemm_s8_launch(const ConvArgs& p, const Int8Args& q, bool a_f32, bool o
   if (!a_f32 && out_f32) return conv_gemm_s8_run<bf16, float>(p, q, stream);
   if (a_f32 && !out_f32) return conv_gemm_s8_run<float, bf16>(p, q, stream);
   if (!a_f32 && !out_f32) return conv_gemm_s8_run<bf16, bf16>(p, q, stream);
-  return (int)cudaErrorInvalidValue;
+  return conv_gemm_s8_run<float, float>(p, q, stream);
 }
 
 int amax_launch(const void* xa, const void* xb, int ca, int cb, int batch, int hw,
@@ -959,49 +967,38 @@ int amax_launch(const void* xa, const void* xb, int ca, int cb, int batch, int h
   return (int)cudaGetLastError();
 }
 
-extern "C" {
-
-long long gddim_resblock_int8_workspace(int batch, int h, int w, int cin, int n, int splits) {
-  return (long long)carve_s8(nullptr, batch, (long)batch * h * w, cin, n, splits).bytes;
-}
-
-// The int8 mode of K2 / K3 / K4 (arguments as gddim_resblock, with the
-// convs' int8 weights w1q/w2q (HWIO) and their per-output-channel scales
-// w1s/w2s). act_scales: the static scales [s1, s2] (a device array), or
-// null for per-sample scales; x1 non-null (the pair) quantizes conv1's input
-// as a * (127 / amax). The skip (ws, bs) is bf16.
-int gddim_resblock_int8(const void* x0, const void* x1, int c0, int c1, const void* temb,
-                        const void* dense_w, const void* dense_b, int temb_k, const void* gn1_g,
-                        const void* gn1_b, int groups1, const void* w1q, const void* w1s,
-                        const void* b1, const void* gn2_g, const void* gn2_b, int groups2,
-                        const void* w2q, const void* w2s, const void* b2, const void* s0,
-                        const void* s1, int cs0, int cs1, const void* ws, const void* bs,
-                        const void* act_scales, int batch, int h, int w_, int n, float eps,
-                        float out_scale, void* work, int splits1, int kper1, int splits2,
-                        int kper2, void* out, void* stream) {
+int resblock_int8_run(const void* x0, const void* x1, int c0, int c1, bool x_f32,
+                      const float* amax1, const void* temb, const void* dense_w,
+                      const void* dense_b, int temb_k, const void* gn1_g, const void* gn1_b,
+                      int groups1, const void* w1q, const void* w1s, const void* b1,
+                      const void* gn2_g, const void* gn2_b, int groups2, const void* w2q,
+                      const void* w2s, const void* b2, const void* s0, const void* s1, int cs0,
+                      int cs1, const void* ws, const void* bs, const void* act_scales, int batch,
+                      int h, int w_, int n, float eps, float out_scale, void* work, int splits1,
+                      int kper1, int splits2, int kper2, void* out, cudaStream_t st) {
   const int hw = h * w_;
   const WorkS8 wk = carve_s8((char*)work, batch, (long)batch * hw, c0 + c1, n,
                              splits1 > splits2 ? splits1 : splits2);
   const bool gn1 = groups1 > 0;
   const float* qs = (const float*)act_scales;
-  cudaStream_t st = (cudaStream_t)stream;
   temb_proj_kernel<<<dim3((n + 31) / 32, batch), dim3(32, TEMB_ROWS), 0, st>>>(
       (const float*)temb, (const float*)dense_w, (const float*)dense_b, wk.temb, temb_k, n);
   int err = (int)cudaGetLastError();
   if (!err && gn1)
     err = gn_affine_launch(x0, x1, c0, c1, batch, hw, groups1, (const float*)gn1_g,
-                           (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr, false, st);
-  if (!err && qs == nullptr)
+                           (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr, x_f32, st);
+  if (!err && qs == nullptr && amax1 == nullptr)
     err = amax_launch(x0, x1, c0, c1, batch, hw, gn1 ? wk.sc1 : nullptr, gn1 ? wk.sh1 : nullptr,
-                      gn1 ? 1 : 0, wk.amax, false, st);
+                      gn1 ? 1 : 0, wk.amax, x_f32, st);
   if (!err) {  // h1 = conv1(q(a1)) * (w1s * s1) + b1 + temb, f32
     ConvArgs p = conv_args(x0, c0, gn1 ? wk.sc1 : nullptr, gn1 ? wk.sh1 : nullptr, gn1 ? 1 : 0, 9,
                            nullptr, batch, h, w_, n, b1, 1.0f, wk.h1, wk.partial, splits1, kper1);
     p.a1 = x1;
     p.ca1 = c1;
     p.temb = wk.temb;
-    const Int8Args q = {(const int8_t*)w1q, (const float*)w1s, qs, wk.amax, x1 != nullptr};
-    err = conv_gemm_s8_launch(p, q, false, true, st);
+    const Int8Args q = {(const int8_t*)w1q, (const float*)w1s, qs, amax1 ? amax1 : wk.amax,
+                        x1 != nullptr};
+    err = conv_gemm_s8_launch(p, q, x_f32, true, st);
   }
   if (!err)
     err = gn_affine_launch(wk.h1, nullptr, n, 0, batch, hw, groups2, (const float*)gn2_g,
@@ -1025,13 +1022,42 @@ int gddim_resblock_int8(const void* x0, const void* x1, int c0, int c1, const vo
   return err;
 }
 
-long long gddim_resblock_workspace(int batch, int h, int w, int cin, int n, int splits) {
-  return (long long)carve(nullptr, batch, (long)batch * h * w, cin, n, splits, sizeof(bf16)).bytes;
+extern "C" {
+
+long long gddim_resblock_int8_workspace(int batch, int h, int w, int cin, int n, int splits) {
+  return (long long)carve_s8(nullptr, batch, (long)batch * h * w, cin, n, splits).bytes;
+}
+
+// The int8 mode of K2 / K3 / K4 (arguments as gddim_resblock, with the
+// convs' int8 weights w1q/w2q (HWIO) and their per-output-channel scales
+// w1s/w2s). act_scales: the static scales [s1, s2] (a device array), or
+// null for per-sample scales; x1 non-null (the pair) quantizes conv1's input
+// as a * (127 / amax). The skip (ws, bs) is bf16.
+int gddim_resblock_int8(const void* x0, const void* x1, int c0, int c1, const void* temb,
+                        const void* dense_w, const void* dense_b, int temb_k, const void* gn1_g,
+                        const void* gn1_b, int groups1, const void* w1q, const void* w1s,
+                        const void* b1, const void* gn2_g, const void* gn2_b, int groups2,
+                        const void* w2q, const void* w2s, const void* b2, const void* s0,
+                        const void* s1, int cs0, int cs1, const void* ws, const void* bs,
+                        const void* act_scales, int batch, int h, int w_, int n, float eps,
+                        float out_scale, void* work, int splits1, int kper1, int splits2,
+                        int kper2, void* out, void* stream) {
+  return resblock_int8_run(x0, x1, c0, c1, false, nullptr, temb, dense_w, dense_b, temb_k, gn1_g,
+                           gn1_b, groups1, w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, s0,
+                           s1, cs0, cs1, ws, bs, act_scales, batch, h, w_, n, eps, out_scale, work,
+                           splits1, kper1, splits2, kper2, out, (cudaStream_t)stream);
+}
+
+long long gddim_resblock_workspace(int batch, int h, int w, int cin, int n, int splits,
+                                   int act_f32) {
+  return (long long)carve(nullptr, batch, (long)batch * h * w, cin, n, splits,
+                          act_f32 ? sizeof(float) : sizeof(bf16)).bytes;
 }
 
 // K2 (x0, identity or 1x1 skip on x0), K3 (x0 and x1 as the logical concat)
-// or K4 (groups1 = 0: no GN1 on the conv1 input; the skip reads s0), bf16
-// activations. Scratch comes from `work`, gddim_resblock_workspace bytes.
+// or K4 (groups1 = 0: no GN1 on the conv1 input; the skip reads s0), with
+// bf16 activations, or f32 (act_f32: x, h1 and out f32, MMA operands bf16).
+// Scratch comes from `work`, gddim_resblock_workspace bytes.
 int gddim_resblock(const void* x0, const void* x1, int c0, int c1, const void* temb,
                    const void* dense_w, const void* dense_b, int temb_k, const void* gn1_g,
                    const void* gn1_b, int groups1, const void* w1, const void* b1,
@@ -1039,11 +1065,12 @@ int gddim_resblock(const void* x0, const void* x1, int c0, int c1, const void* t
                    const void* b2, const void* s0, const void* s1, int cs0, int cs1,
                    const void* ws, const void* bs, int batch, int h, int w_, int n, float eps,
                    float out_scale, void* work, int splits1, int kper1, int splits2, int kper2,
-                   void* out, void* stream) {
-  return resblock_run<bf16>(x0, x1, c0, c1, nullptr, temb, dense_w, dense_b, temb_k, gn1_g, gn1_b,
-                            groups1, w1, b1, gn2_g, gn2_b, groups2, w2, b2, s0, s1, cs0, cs1, ws,
-                            bs, nullptr, 1.0f, batch, h, w_, n, eps, out_scale, work, splits1,
-                            kper1, splits2, kper2, out, (cudaStream_t)stream);
+                   void* out, int act_f32, void* stream) {
+  auto run = act_f32 ? &resblock_run<float> : &resblock_run<bf16>;
+  return run(x0, x1, c0, c1, nullptr, temb, dense_w, dense_b, temb_k, gn1_g, gn1_b, groups1, w1,
+             b1, gn2_g, gn2_b, groups2, w2, b2, s0, s1, cs0, cs1, ws, bs, nullptr, 1.0f, batch, h,
+             w_, n, eps, out_scale, work, splits1, kper1, splits2, kper2, out,
+             (cudaStream_t)stream);
 }
 
 long long gddim_resblock_train_workspace(int batch, int h, int w, int cin, int n, int splits) {

@@ -1,0 +1,333 @@
+// The whole up/down transition block (K9) for Hopper (sm_90a).
+//
+// Replaces gddim_tpu/ops/resblock.py:fused_resblock_transition
+// (_resblock_transition_kernel, with _fir_up_2d / _fir_down_2d): one BigGAN
+// block that changes the resolution by 2,
+//
+//   a1   = silu(GN1(x))                    at the input resolution, f32 stats
+//   h    = resample(bf16(a1))              factor-2 polyphase FIR (or naive)
+//   xr   = resample(bf16(x))
+//   h1   = conv3x3(q(h), W1) + b1 + temb   q: bf16, or int8 (per sample / static)
+//   out  = (conv3x3(q(silu(GN2(h1))), W2) + b2 + xr @ Wskip + bskip) / sqrt(2)
+//
+// out-of-border taps of the resample are zero AFTER the activation (the TPU
+// kernel fills a zero-bordered scratch with the activation, rounded to the
+// scratch dtype, bf16, and resamples that). Each C call runs:
+//
+//   gn_affine_launch (resblock.cu)   GN1 statistics of x -> per-(sample,
+//                                    channel) affine
+//   transition_resample_kernel       per output pixel and 8 channels: the
+//                                    2x2 (up) or 4x4 (down) input taps, GN1
+//                                    affine + SiLU on each, rounded to bf16,
+//                                    summed in f32 with the phase
+//                                    coefficients (H first, then W, as the
+//                                    TPU kernel); writes h (bf16, or f32 for
+//                                    the int8 mode, which quantizes it
+//                                    unrounded, with the per-sample amax by
+//                                    atomicMax on the float bits) and xr
+//                                    (the raw x resampled, rounded to bf16)
+//   the K4 path of resblock.cu       conv1 with GN1 off, GN2, conv2 with xr as
+//                                    the 1x1 skip's K segment (bf16 or int8)
+//
+// What bounds it on the H100: the two 3x3 convs, as in K4 (tensor-core bound
+// at 16x16 and 32x32, weight bytes and latency at 4x4 and 8x8). The resample
+// is a gather that reads each input vector 4 times (through L1/L2) and
+// writes h and xr once: bytes, a few us a call. The design replaces K1, two
+// PyTorch FIR passes (five to seven launches each) and K4 with one C call
+// of 6-9 launches; folding the resample into conv1's A-operand gather, so
+// that h never reaches device memory, is later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "conv.cuh"
+
+extern "C" long long gddim_resblock_workspace(int batch, int h, int w, int cin, int n, int splits,
+                                              int act_f32);
+extern "C" long long gddim_resblock_int8_workspace(int batch, int h, int w, int cin, int n,
+                                                   int splits);
+extern "C" int gddim_resblock(const void* x0, const void* x1, int c0, int c1, const void* temb,
+                              const void* dense_w, const void* dense_b, int temb_k,
+                              const void* gn1_g, const void* gn1_b, int groups1, const void* w1,
+                              const void* b1, const void* gn2_g, const void* gn2_b, int groups2,
+                              const void* w2, const void* b2, const void* s0, const void* s1,
+                              int cs0, int cs1, const void* ws, const void* bs, int batch, int h,
+                              int w_, int n, float eps, float out_scale, void* work, int splits1,
+                              int kper1, int splits2, int kper2, void* out, int act_f32,
+                              void* stream);
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int RS_THREADS = 256;
+
+// The 4-tap phase coefficients (transition_kerns in ops/resblock.py): up,
+// out[2j] = k[0] x[j-1] + k[2] x[j], out[2j+1] = k[1] x[j] + k[3] x[j+1];
+// down, out[o] = sum_a k[a] x[2o+a-1]; per axis, H carrying the up gain.
+struct Taps {
+  float h[4], w[4];
+};
+
+__device__ __forceinline__ float silu(float v) { return v / (1.0f + __expf(-v)); }
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ void load8(const bf16* s, float f[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(s);
+  const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) f[j] = __bfloat162float(e[j]);
+}
+__device__ __forceinline__ void load8(const float* s, float f[8]) {
+  const float4 a = reinterpret_cast<const float4*>(s)[0], b = reinterpret_cast<const float4*>(s)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+__device__ __forceinline__ void store8(bf16* d, const float f[8]) {
+  uint4 v;
+  bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(f[j]);
+  *reinterpret_cast<uint4*>(d) = v;
+}
+__device__ __forceinline__ void store8(float* d, const float f[8]) {
+  reinterpret_cast<float4*>(d)[0] = make_float4(f[0], f[1], f[2], f[3]);
+  reinterpret_cast<float4*>(d)[1] = make_float4(f[4], f[5], f[6], f[7]);
+}
+
+// The taps of output index o along one axis of input length n: their input
+// indices and coefficients; an index outside [0, n) is a zero tap.
+__device__ __forceinline__ int axis_taps(int o, int up, const float k[4], int idx[4], float c[4]) {
+  if (up) {
+    const int j = o >> 1;
+    if (o & 1) {
+      idx[0] = j; c[0] = k[1];
+      idx[1] = j + 1; c[1] = k[3];
+    } else {
+      idx[0] = j - 1; c[0] = k[0];
+      idx[1] = j; c[1] = k[2];
+    }
+    return 2;
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    idx[a] = 2 * o + a - 1;
+    c[a] = k[a];
+  }
+  return 4;
+}
+
+// grid (ceil(Ho*Wo*C/8 / RS_THREADS), B), RS_THREADS threads: one thread per
+// output pixel and 8 consecutive channels. TX: x's type (and xr's); TH: h's.
+// round_h: h rounded to bf16 (the bf16 mode, whose conv reads h as bf16);
+// else (int8 mode) h stays f32 and, when amax is non-null, its per-sample
+// amax is folded into amax[b] (zeroed before the launch).
+template <typename TX, typename TH>
+__global__ void __launch_bounds__(RS_THREADS)
+transition_resample_kernel(const TX* __restrict__ x, const float* __restrict__ scale,
+                           const float* __restrict__ shift, int hin, int win, int c, int up,
+                           Taps k, int round_h, TH* __restrict__ h_out, TX* __restrict__ x_out,
+                           float* __restrict__ amax) {
+  __shared__ float red[RS_THREADS / 32];
+  const int b = blockIdx.y;
+  const int ho = up ? 2 * hin : hin / 2, wo = up ? 2 * win : win / 2;
+  const int cv = c / 8;
+  const long v = (long)blockIdx.x * RS_THREADS + threadIdx.x;
+  float mx = 0.f;
+  if (v < (long)ho * wo * cv) {
+    const int c0 = (int)(v % cv) * 8;
+    const int pix = (int)(v / cv);
+    const int yo = pix / wo, xo = pix - (pix / wo) * wo;
+    int ys[4], xs[4];
+    float ky[4], kx[4];
+    const int nt = axis_taps(yo, up, k.h, ys, ky);
+    axis_taps(xo, up, k.w, xs, kx);
+    float sc[8], sh[8];
+    load8(scale + (long)b * c + c0, sc);
+    load8(shift + (long)b * c + c0, sh);
+    float acc_h[8], acc_x[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc_h[j] = acc_x[j] = 0.f;
+    for (int tx = 0; tx < nt; ++tx) {  // W outer: each column combined along H first
+      const int xi = xs[tx];
+      if (xi < 0 || xi >= win) continue;
+      float col_h[8], col_x[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) col_h[j] = col_x[j] = 0.f;
+      for (int ty = 0; ty < nt; ++ty) {
+        const int yi = ys[ty];
+        if (yi < 0 || yi >= hin) continue;
+        float f[8];
+        load8(x + (((long)b * hin + yi) * win + xi) * c + c0, f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float a = round_bf16(silu(f[j] * sc[j] + sh[j]));
+          col_h[j] += ky[ty] * a;
+          col_x[j] += ky[ty] * round_bf16(f[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc_h[j] += kx[tx] * col_h[j];
+        acc_x[j] += kx[tx] * col_x[j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (round_h) acc_h[j] = round_bf16(acc_h[j]);
+      acc_x[j] = round_bf16(acc_x[j]);
+      mx = fmaxf(mx, fabsf(acc_h[j]));
+    }
+    const long o = (((long)b * ho + yo) * wo + xo) * c + c0;
+    store8(h_out + o, acc_h);
+    store8(x_out + o, acc_x);
+  }
+  if (amax == nullptr) return;  // uniform over the grid
+  for (int s = 16; s > 0; s >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, s));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 1; w < RS_THREADS / 32; ++w) mx = fmaxf(mx, red[w]);
+    // non-negative floats order as their bit patterns do
+    atomicMax(reinterpret_cast<int*>(amax + b), __float_as_int(mx));
+  }
+}
+
+template <typename TX, typename TH>
+int resample_launch(const void* x, const float* sc, const float* sh, int batch, int hin, int win,
+                    int c, int up, const Taps& k, int round_h, void* h_out, void* x_out,
+                    float* amax, cudaStream_t st) {
+  const long ho = up ? 2L * hin : hin / 2, wo = up ? 2L * win : win / 2;
+  const long vecs = ho * wo * (c / 8);
+  const dim3 grid((unsigned)((vecs + RS_THREADS - 1) / RS_THREADS), batch);
+  transition_resample_kernel<TX, TH><<<grid, RS_THREADS, 0, st>>>(
+      (const TX*)x, sc, sh, hin, win, c, up, k, round_h, (TH*)h_out, (TX*)x_out, amax);
+  return (int)cudaGetLastError();
+}
+
+// Scratch of one call before the block's own (null base: sizes only).
+struct Work {
+  void* h;     // (B, Ho, Wo, C) resampled activation
+  void* xr;    // (B, Ho, Wo, C) resampled x
+  float* sc1;  // (B, C) GN1 affine
+  float* sh1;
+  float* amax;  // (B,) int8 per-sample mode: amax of h
+  char* rest;   // the K4 path's workspace
+  size_t bytes;
+};
+
+Work carve(char* base, int batch, int ho, int wo, int c, size_t h_bytes, size_t x_bytes) {
+  Work w;
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base ? base + off : nullptr;
+    off += align256(bytes);
+    return p;
+  };
+  const size_t m = (size_t)batch * ho * wo * c;
+  w.h = take(h_bytes * m);
+  w.xr = take(x_bytes * m);
+  w.sc1 = (float*)take(sizeof(float) * batch * c);
+  w.sh1 = (float*)take(sizeof(float) * batch * c);
+  w.amax = (float*)take(sizeof(float) * batch);
+  w.rest = base ? base + off : nullptr;
+  w.bytes = off;
+  return w;
+}
+
+int out_size(int n, int up) { return up ? 2 * n : n / 2; }
+
+}  // namespace
+
+extern "C" {
+
+// h, w: the OUTPUT resolution (the block's convs run there)
+long long gddim_resblock_transition_workspace(int batch, int h, int w, int c, int n, int splits,
+                                              int act_f32) {
+  const size_t act = act_f32 ? sizeof(float) : sizeof(bf16);
+  return (long long)(carve(nullptr, batch, h, w, c, act, act).bytes +
+                     gddim_resblock_workspace(batch, h, w, c, n, splits, act_f32));
+}
+
+// K9, bf16 mode: x (B, H_in, W_in, C) bf16, or f32 with act_f32 (then h and
+// xr are kept in f32 holding bf16 values, and out is f32). (kh, kw): the
+// phase coefficients. splits/kper: conv1's and conv2's split-K at the output
+// resolution. Scratch: gddim_resblock_transition_workspace bytes.
+int gddim_resblock_transition(const void* x, int c, const void* temb, const void* dense_w,
+                              const void* dense_b, int temb_k, const void* gn1_g,
+                              const void* gn1_b, int groups1, const void* w1, const void* b1,
+                              const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
+                              const void* b2, const void* ws, const void* bs, int batch, int h_in,
+                              int w_in, int up, float kh0, float kh1, float kh2, float kh3,
+                              float kw0, float kw1, float kw2, float kw3, int n, float eps,
+                              float out_scale, void* work, int splits1, int kper1, int splits2,
+                              int kper2, void* out, int act_f32, void* stream) {
+  if (c % 8 || h_in % 2 || w_in % 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int ho = out_size(h_in, up), wo = out_size(w_in, up);
+  const size_t act = act_f32 ? sizeof(float) : sizeof(bf16);
+  const Work wk = carve((char*)work, batch, ho, wo, c, act, act);
+  const Taps k = {{kh0, kh1, kh2, kh3}, {kw0, kw1, kw2, kw3}};
+  int err = gn_affine_launch(x, nullptr, c, 0, batch, h_in * w_in, groups1, (const float*)gn1_g,
+                             (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr,
+                             act_f32 != 0, st);
+  if (!err)
+    err = act_f32 ? resample_launch<float, float>(x, wk.sc1, wk.sh1, batch, h_in, w_in, c, up, k,
+                                                  1, wk.h, wk.xr, nullptr, st)
+                  : resample_launch<bf16, bf16>(x, wk.sc1, wk.sh1, batch, h_in, w_in, c, up, k, 1,
+                                                wk.h, wk.xr, nullptr, st);
+  if (err) return err;
+  // the K4 path: GN1 off (groups1 = 0) on h, xr the 1x1 skip's input
+  return gddim_resblock(wk.h, nullptr, c, 0, temb, dense_w, dense_b, temb_k, nullptr, nullptr, 0,
+                        w1, b1, gn2_g, gn2_b, groups2, w2, b2, wk.xr, nullptr, c, 0, ws, bs,
+                        batch, ho, wo, n, eps, out_scale, wk.rest, splits1, kper1, splits2, kper2,
+                        out, act_f32, stream);
+}
+
+long long gddim_resblock_transition_int8_workspace(int batch, int h, int w, int c, int n,
+                                                   int splits) {
+  return (long long)(carve(nullptr, batch, h, w, c, sizeof(float), sizeof(bf16)).bytes +
+                     gddim_resblock_int8_workspace(batch, h, w, c, n, splits));
+}
+
+// K9, int8 mode: x bf16; conv weights int8 with per-output-channel scales;
+// act_scales the static [s1, s2] (a device array), or null for per-sample
+// scales. h stays f32 (quantized unrounded in conv1's prologue); the skip
+// runs bf16 on xr. Scratch: gddim_resblock_transition_int8_workspace bytes.
+int gddim_resblock_transition_int8(const void* x, int c, const void* temb, const void* dense_w,
+                                   const void* dense_b, int temb_k, const void* gn1_g,
+                                   const void* gn1_b, int groups1, const void* w1q,
+                                   const void* w1s, const void* b1, const void* gn2_g,
+                                   const void* gn2_b, int groups2, const void* w2q,
+                                   const void* w2s, const void* b2, const void* ws, const void* bs,
+                                   const void* act_scales, int batch, int h_in, int w_in, int up,
+                                   float kh0, float kh1, float kh2, float kh3, float kw0,
+                                   float kw1, float kw2, float kw3, int n, float eps,
+                                   float out_scale, void* work, int splits1, int kper1,
+                                   int splits2, int kper2, void* out, void* stream) {
+  if (c % 8 || h_in % 2 || w_in % 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int ho = out_size(h_in, up), wo = out_size(w_in, up);
+  const Work wk = carve((char*)work, batch, ho, wo, c, sizeof(float), sizeof(bf16));
+  const Taps k = {{kh0, kh1, kh2, kh3}, {kw0, kw1, kw2, kw3}};
+  const bool dynamic = act_scales == nullptr;
+  int err = gn_affine_launch(x, nullptr, c, 0, batch, h_in * w_in, groups1, (const float*)gn1_g,
+                             (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr, false,
+                             st);
+  if (!err && dynamic) err = (int)cudaMemsetAsync(wk.amax, 0, sizeof(float) * batch, st);
+  if (!err)
+    err = resample_launch<bf16, float>(x, wk.sc1, wk.sh1, batch, h_in, w_in, c, up, k, 0, wk.h,
+                                       wk.xr, dynamic ? wk.amax : nullptr, st);
+  if (err) return err;
+  return resblock_int8_run(wk.h, nullptr, c, 0, true, dynamic ? wk.amax : nullptr, temb, dense_w,
+                           dense_b, temb_k, nullptr, nullptr, 0, w1q, w1s, b1, gn2_g, gn2_b,
+                           groups2, w2q, w2s, b2, wk.xr, nullptr, c, 0, ws, bs, act_scales, batch,
+                           ho, wo, n, eps, out_scale, wk.rest, splits1, kper1, splits2, kper2, out,
+                           st);
+}
+
+}  // extern "C"

@@ -16,7 +16,10 @@ runs the plain composition on any device.
   1x1 skip; attention as K1 GroupNorm (no SiLU), the NIN projections and K8;
 
 - inference (``train=False``): K2-K4 for the residual blocks (with K1 for a
-  transition's GN1) and K5 for attention; no gradients. ``int8=True`` takes
+  transition's GN1) and K5 for attention; no gradients. With
+  ``transition='full'`` an up/down block is one K9 call instead of K1, two
+  FIR passes and K4 (gddim_tpu/models/blocks.py:461-502, behind
+  GDDIM_TRANSITION_IMPL=full there). ``int8=True`` takes
   their int8 modes (``conv_impl='fused_int8'``, gddim_tpu/models/blocks.py:
   75-105,341-403,467-537): weights quantized once per block from their
   values rounded to the activation dtype (bench.py's bf16 pre-cast), and
@@ -28,8 +31,10 @@ runs the plain composition on any device.
 - training (``train=True``, gddim_tpu/models/blocks.py:107-147,405-459,
   545-584): stride-1 residual blocks (up-path pairs concatenated) through
   K6/K7, transitions as the plain composition with K1 for GN1 and GN2, and
-  attention as K1 GroupNorm, the NIN projections and K8. Dropout masks are
-  drawn in the block, outside any kernel, from the caller's generator.
+  attention as K1 GroupNorm, the NIN projections and K8, or with
+  ``fused_attn`` as K10 (blocks.py:107-133, GDDIM_FUSED_ATTN_TRAIN=1 there).
+  Dropout masks are drawn in the block, outside any kernel, from the
+  caller's generator.
 """
 
 from __future__ import annotations
@@ -109,12 +114,15 @@ class ResnetBlockBigGANpp(nn.Module):
 
     def forward(self, x, temb, fused: bool = False, train: bool = False,
                 generator: torch.Generator | None = None, int8: bool = False,
-                qscales: dict | None = None, sow=None, layer: str | None = None):
+                qscales: dict | None = None, sow=None, layer: str | None = None,
+                transition: str = "tail"):
         """x: (B, H, W, C), or the up path's (h, skip) pair. train: dropout
         masks from ``generator``, and the differentiable kernels. int8 (with
         fused): the int8 kernels, static scales from this block's ``qscales``
         amaxes. layer (with fused): the layer-wise path, 'pallas' or 'int8'.
-        sow: calibration (the plain composition)."""
+        transition='full' (with fused, an up/down block): the whole block
+        through K9 where ``transition_supported`` takes it, else K1, the FIR
+        resample and K4. sow: calibration (the plain composition)."""
         if train:
             return self._forward_train(x, temb, fused, generator)
         if fused and layer is not None:
@@ -140,6 +148,12 @@ class ResnetBlockBigGANpp(nn.Module):
         if not fused and sow is not None:
             kw["sow"] = sow
         mode = 0 if int8 else 1 if fused else 2
+        out_ch = self.conv1.weight.shape[-1]
+        if (fused and transition == "full" and (self.up or self.down)
+                and rb.transition_supported(x.shape, out_ch, self.up, True, self.fir_kernel)):
+            op = rb.fused_resblock_transition_int8 if int8 else rb.fused_resblock_transition
+            return op(x, temb, *tail, self.norm1.weight, self.norm1.bias, *mid, up=self.up,
+                      fir_kernel=self.fir_kernel, num_groups1=self.norm1.num_groups, **kw)
         if self.up or self.down:
             h = self.norm1(x, act=True, fused=fused)
             res = resample.upsample_2d if self.up else resample.downsample_2d
@@ -234,18 +248,24 @@ class AttnBlockpp(nn.Module):
         self._kw8 = _KernelWeights()
 
     def forward(self, x, fused: bool = False, train: bool = False, int8: bool = False,
-                qscales: dict | None = None, sow=None, layer: str | None = None):
+                qscales: dict | None = None, sow=None, layer: str | None = None,
+                fused_attn: bool = False):
         """int8 (with fused): K5's int8 mode, static scales from this block's
         ``qscales`` amaxes. layer (with fused): the layer-wise path, K1, the
-        NIN projections and K8, as in training. sow: calibration (the plain
-        composition)."""
+        NIN projections and K8, as in training. fused_attn (with train and
+        fused): K10 where the kernels take the shape. sow: calibration (the
+        plain composition)."""
+        kw = dict(num_groups=num_groups_for(x.shape[-1]), eps=self.norm.eps,
+                  skip_rescale=self.skip_rescale)
+        if train and fused and fused_attn and attn_ops.supported(x.shape):
+            return attn_ops.fused_attnblock_train(
+                x, self.norm.weight, self.norm.bias, self.q.weight, self.q.bias, self.k.weight,
+                self.k.bias, self.v.weight, self.v.bias, self.out.weight, self.out.bias, **kw)
         if train or (fused and layer is not None):
             h = self.norm(x, act=False, fused=fused)
             h = self_attention_2d(self.q(h), self.k(h), self.v(h), fused=fused)
             out = x + self.out(h)
             return out * attn_ops._INV_SQRT2 if self.skip_rescale else out
-        kw = dict(num_groups=num_groups_for(x.shape[-1]), eps=self.norm.eps,
-                  skip_rescale=self.skip_rescale)
         if fused and int8:
             wqkv, bqkv, wo, scales = self._int8_weights(x.dtype, qscales)
             return attn_ops.fused_attnblock_int8(x, self.norm.weight, self.norm.bias, wqkv, bqkv,

@@ -9,9 +9,11 @@ activations in ``config.model.dtype``; ``config.model.conv_impl`` picks, for
 every block, the whole-block kernels ('fused'), their int8 modes
 ('fused_int8'), the layer-wise kernels ('pallas': GroupNorm and 3x3 conv
 kernels in bf16; 'int8': int8 3x3 convs fed by GroupNorm+SiLU+quantize) or
-the plain torch composition ('plain'). The stem, head and pyramid convs stay
-plain in every mode: their channel counts are outside what the 3x3 conv
-kernel takes, as in the JAX package. With ``train=True`` the blocks take their
+the plain torch composition ('plain'); ``config.model.transition_impl='full'``
+runs the whole-block paths' six up/down blocks through K9, and
+``config.training.fused_attn`` the training path's attention through K10.
+The stem, head and pyramid convs stay plain in every mode: their channel
+counts are outside what the 3x3 conv kernel takes, as in the JAX package. With ``train=True`` the blocks take their
 training paths (dropout, K1/K6/K7/K8), and the dropout masks are drawn in
 the order the blocks run from the caller's generator.
 
@@ -33,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gddim_torch.configs import CONV_IMPLS
+from gddim_torch.configs import CONV_IMPLS, TRANSITION_IMPLS
 from gddim_torch.models.blocks import AttnBlockpp, Downsample, ResnetBlockBigGANpp
 from gddim_torch.models.layers import Conv, Dense, GaussianFourierProjection, GroupNorm
 
@@ -72,9 +74,14 @@ class NCSNpp(nn.Module):
         _require(bool(m.skip_rescale), "skip_rescale=False")
         if m.conv_impl not in CONV_IMPLS:
             raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {m.conv_impl!r}")
+        if m.transition_impl not in TRANSITION_IMPLS:
+            raise ValueError(f"transition_impl must be one of {TRANSITION_IMPLS}, "
+                             f"got {m.transition_impl!r}")
         self.fused = m.conv_impl != "plain"  # kernels (False: the plain composition)
         self.int8 = m.conv_impl == "fused_int8"  # the whole-block kernels' int8 modes
         self.layer = m.conv_impl if m.conv_impl in ("pallas", "int8") else None  # layer-wise
+        self.transition = m.transition_impl  # 'full': K9 for the whole-block paths' transitions
+        self.fused_attn = bool(config.training.fused_attn)  # training attention through K10
         self.qscales: dict = {}
         self.dtype = _DTYPES[str(m.dtype).lower()]
         self.centered = bool(config.data.centered)
@@ -158,10 +165,11 @@ class NCSNpp(nn.Module):
             return {"int8": True, "qscales": self.qscales.get(block.scope)} if self.int8 else {}
 
         def res(block, h):
-            return block(h, temb, fused, train, generator, **extra(block))
+            return block(h, temb, fused, train, generator, transition=self.transition,
+                         **extra(block))
 
         def att(block, h):
-            return block(h, fused, train, **extra(block))
+            return block(h, fused, train, fused_attn=self.fused_attn, **extra(block))
 
         temb = self.fourier(torch.log(time_cond.float()))
         temb = self.temb0(temb.to(self.dtype))

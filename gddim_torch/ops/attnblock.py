@@ -36,6 +36,7 @@ from gddim_torch.ops.attention import attention_xla
 from gddim_torch.ops.groupnorm import group_norm_silu_reference
 from gddim_torch.ops.resblock import (
     _operand,
+    activation_dtype,
     check_act_scales,
     group_norm_tpu,
     int8_matmul_exact,
@@ -113,29 +114,32 @@ def _plan(entry: str, b: int, s: int, c: int):
     return s1, k1, s2, k2, _build.workspace_bytes(entry, b, s, c, max(s1, s2))
 
 
+def supported(x_shape) -> bool:
+    """The shapes the kernels take: S = H*W a multiple of 16 up to 256 (the
+    attention core keeps a tile's scores in shared memory), C a multiple of
+    64 up to 256."""
+    _, h, w, c = x_shape
+    s = h * w
+    return s % 16 == 0 and s <= 256 and c % 64 == 0 and c <= 256
+
+
 def _check(x, what):
     """(B, S, C) of a CUDA input the kernels take."""
     b, h, w, c = x.shape
-    s = h * w
-    if s % 16 or s > 256 or c > 256 or c % 64:
+    if not supported(x.shape):
         raise ValueError(f"{what}: unsupported shape {tuple(x.shape)}")
-    return b, s, c
+    return b, h * w, c
 
 
-def fused_attnblock(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo, *,
-                    num_groups: int, eps: float = 1e-6, skip_rescale: bool = False):
-    """K5. x: (B, H, W, C); NIN weights (C, C) with (C,) biases."""
-    if x.device.type == "cpu":
-        return attnblock_reference(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo,
-                                   num_groups=num_groups, eps=eps, skip_rescale=skip_rescale)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_attnblock: unsupported device {x.device}")
-    require_no_grad("fused_attnblock", x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo)
+def _attnblock_cuda(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo, *, num_groups, eps,
+                    skip_rescale):
+    """K5 through gddim_attnblock: x bf16 or f32, out in x's dtype."""
     b, s, c = _check(x, "fused_attnblock")
+    act = activation_dtype(x, "fused_attnblock", int8=False)
     bf16, f32 = torch.bfloat16, torch.float32
     # operands stay referenced until the launch: a cast's temporary must not be freed
     ops = [
-        _operand(x, "attnblock input", bf16), _operand(gn_scale, "gn scale", f32, (c,)),
+        _operand(x, "attnblock input", act), _operand(gn_scale, "gn scale", f32, (c,)),
         _operand(gn_bias, "gn bias", f32, (c,)),
         _operand(torch.cat([wq, wk, wv], 1), "wqkv", bf16, (c, 3 * c)),
         _operand(torch.cat([bq, bk, bv]), "bqkv", f32, (3 * c,)),
@@ -144,12 +148,26 @@ def fused_attnblock(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo, *,
     x_, gs, gb, wqkv, bqkv, wo_, bo_ = map(_build.ptr, ops)
     s1, k1, s2, k2, nbytes = _plan("gddim_attnblock", b, s, c)
     work = torch.empty(nbytes, device=x.device, dtype=torch.uint8)
-    out = torch.empty(x.shape, device=x.device, dtype=bf16)
+    out = torch.empty(x.shape, device=x.device, dtype=act)
     _build.launch(
         "gddim_attnblock", x.device, x_, gs, gb, num_groups, wqkv, bqkv, wo_, bo_,
         b, s, c, eps, _INV_SQRT2 if skip_rescale else 1.0, work.data_ptr(),
-        s1, k1, s2, k2, out.data_ptr(),
+        s1, k1, s2, k2, out.data_ptr(), int(act == f32),
     )
+    return out
+
+
+def fused_attnblock(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo, *,
+                    num_groups: int, eps: float = 1e-6, skip_rescale: bool = False):
+    """K5. x: (B, H, W, C) bf16 or f32, out in x's dtype; NIN weights (C, C)
+    with (C,) biases."""
+    kw = dict(num_groups=num_groups, eps=eps, skip_rescale=skip_rescale)
+    if x.device.type == "cpu":
+        return attnblock_reference(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_attnblock: unsupported device {x.device}")
+    require_no_grad("fused_attnblock", x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo)
+    out = _attnblock_cuda(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo, **kw)
     fused_attnblock.launches += 1
     return out
 
@@ -165,7 +183,8 @@ def fused_attnblock_int8(x, gn_scale, gn_bias, wqkv, bqkv, wo, bo, act_scales=No
     require_no_grad("fused_attnblock_int8", x, gn_scale, gn_bias, *wqkv, bqkv, *wo, bo)
     check_act_scales(act_scales)
     b, s, c = _check(x, "fused_attnblock_int8")
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16 = activation_dtype(x, "fused_attnblock_int8", int8=True)
+    f32 = torch.float32
     # operands stay referenced until the launch: a cast's temporary must not be freed
     ops = [
         _operand(x, "attnblock input", bf16), _operand(gn_scale, "gn scale", f32, (c,)),
@@ -188,5 +207,46 @@ def fused_attnblock_int8(x, gn_scale, gn_bias, wqkv, bqkv, wo, bo, act_scales=No
     return out
 
 
+class _AttnblockTrain(torch.autograd.Function):
+    """K10: K5's forward (the plain version on a CPU tensor); backward by
+    autograd of the plain composition recomputed from the saved inputs
+    (``make_fused_attnblock_train``'s custom_vjp), so the gradients are the
+    unfused path's and only the forward value carries K5's bf16 rounding."""
+
+    @staticmethod
+    def forward(ctx, cfg, *args):
+        ctx.save_for_backward(*args)
+        ctx.cfg = cfg
+        if args[0].device.type == "cpu":
+            return attnblock_reference(*args, **cfg)
+        out = _attnblock_cuda(*args, **cfg)
+        fused_attnblock_train.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_(need) for t, need in
+                    zip(saved, ctx.needs_input_grad[1:])]
+            out = attnblock_reference(*args, **ctx.cfg)
+            wanted = [a for a in args if a.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, g))
+        return (None, *(next(got) if a.requires_grad else None for a in args))
+
+
+def fused_attnblock_train(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo, *,
+                          num_groups: int, eps: float = 1e-6, skip_rescale: bool = False):
+    """K10: one differentiable attention block of a training step
+    (``make_fused_attnblock_train``): K5 on the f32 activations in the
+    forward, the VJP of ``attnblock_reference`` in the backward; the plain
+    version both ways on a CPU tensor."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_attnblock_train: unsupported device {x.device}")
+    cfg = dict(num_groups=num_groups, eps=eps, skip_rescale=skip_rescale)
+    return _AttnblockTrain.apply(cfg, x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo)
+
+
 fused_attnblock.launches = 0  # block launches on CUDA tensors (one gddim_attnblock each)
 fused_attnblock_int8.launches = 0  # one gddim_attnblock_int8 each
+fused_attnblock_train.launches = 0  # K10 forwards (one gddim_attnblock each)

@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -221,8 +222,11 @@ def conv3x3_int8_exact(q, wq):
 
 
 def _int8_block(a1, x_skip, temb_proj, w1, b1, gn2_scale, gn2_bias, w2, b2, w_skip, b_skip,
-                act_scales, num_groups2, eps, skip_rescale, out_dtype, pair: bool):
-    """conv1 .. out of the int8 block from a1 (f32, the conv1 input)."""
+                act_scales, num_groups2, eps, skip_rescale, out_dtype, pair: bool,
+                fold2: bool | None = None):
+    """conv1 .. out of the int8 block from a1 (f32, the conv1 input). fold2:
+    GN2's affine folded (default: with static scales, as K2-K4's vectorized
+    bodies; K9 never folds)."""
     (w1q, w1s), (w2q, w2s) = w1, w2
     static = act_scales is not None
     if static:
@@ -232,7 +236,8 @@ def _int8_block(a1, x_skip, temb_proj, w1, b1, gn2_scale, gn2_bias, w2, b2, w_sk
         q1, sb = quant_dynamic(a1, inv_mul=pair)
         dq1 = sb * w1s
     h = conv3x3_int8_exact(q1, w1q) * dq1 + b1.float() + temb_proj[:, None, None, :]
-    a2 = group_norm_tpu(h, gn2_scale, gn2_bias, num_groups2, eps, True, fold=static)
+    a2 = group_norm_tpu(h, gn2_scale, gn2_bias, num_groups2, eps, True,
+                        fold=static if fold2 is None else fold2)
     if static:
         q2, dq2 = quant_static(a2, s2), w2s * s2
     else:
@@ -286,6 +291,123 @@ def resblock_tail_int8_reference(h, x_skip, temb, dense_w, dense_b, w1, b1, gn2_
                        eps, skip_rescale, h.dtype, pair=False)
 
 
+# --------------------------------------------------------------------------
+# K9: the whole up/down transition block (gddim_tpu/ops/resblock.py:1235-1301,
+# 1304-1420, 1458-1614)
+# --------------------------------------------------------------------------
+
+
+def transition_kerns(up: bool, fir: bool, fir_kernel=(1, 3, 3, 1)) -> tuple:
+    """(kern_h, kern_w): the 4 phase coefficients per axis of the factor-2
+    resample (``_transition_kerns``): the FIR taps normalized and flipped,
+    the H axis carrying the up gain 4; naive up (0, 1, 1, 0) and naive down,
+    the 2x2 mean, (0, .5, .5, 0)."""
+    if fir:
+        k1d = np.asarray(fir_kernel, np.float64)
+        k1d = (k1d / k1d.sum())[::-1]
+        if k1d.shape[0] != 4:
+            raise ValueError("the transition resample takes a 4-tap FIR kernel")
+        kw = tuple(float(v) for v in k1d)
+        return (tuple(4.0 * v for v in kw) if up else kw), kw
+    if up:
+        return (0.0, 1.0, 1.0, 0.0), (0.0, 1.0, 1.0, 0.0)
+    return (0.0, 0.5, 0.5, 0.0), (0.0, 0.5, 0.5, 0.0)
+
+
+def resample_transition(a, kerns, up: bool):
+    """Factor-2 polyphase resample of NHWC ``a`` in f32 with zero borders
+    (``_fir_up_2d`` / ``_fir_down_2d``): up, out[2j] = k0 a[j-1] + k2 a[j] and
+    out[2j+1] = k1 a[j] + k3 a[j+1]; down, out[o] = sum_t k_t a[2o+t-1]; H
+    first, then W, with the coefficients of ``transition_kerns``."""
+    a = a.float()
+    for dim, k in ((1, kerns[0]), (2, kerns[1])):
+        n = a.shape[dim]
+        p = F.pad(a, (0, 0, 1, 1) if dim == 2 else (0, 0, 0, 0, 1, 1))  # zero borders
+        if up:  # p.narrow(dim, t, n)[j] = a[j + t - 1]
+            t = [p.narrow(dim, i, n) for i in range(3)]
+            even, odd = k[0] * t[0] + k[2] * t[1], k[1] * t[1] + k[3] * t[2]
+            a = torch.stack([even, odd], dim + 1).flatten(dim, dim + 1)
+        else:  # p[..., t : t + n - 1 : 2, ...][o] = a[2o + t - 1]
+            t = [p[(slice(None),) * dim + (slice(i, i + n - 1, 2),)] for i in range(4)]
+            a = k[0] * t[0] + k[1] * t[1] + k[2] * t[2] + k[3] * t[3]
+    return a
+
+
+def transition_supported(x_shape, cout: int, up: bool, fir: bool, fir_kernel=(1, 3, 3, 1)) -> bool:
+    """The shapes K9 takes (``transition_supported`` without its backend and
+    environment tests): channels in whole GEMM tiles (Cin a multiple of the
+    K slice, Cout of the N tile), even H and W, a 4-tap FIR kernel."""
+    _, h, w, c = x_shape
+    return ((not fir or len(fir_kernel) == 4) and c % _BK == 0 and cout % _BN == 0
+            and h % 2 == 0 and w % 2 == 0)
+
+
+def _bf16r(t):
+    """t rounded to bf16, in f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def resblock_transition_reference(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1,
+                                  gn2_scale, gn2_bias, w2, b2, w_skip, b_skip, *, up: bool,
+                                  fir: bool = True, fir_kernel=(1, 3, 3, 1), num_groups1: int,
+                                  num_groups2: int, eps: float = 1e-6, skip_rescale: bool = True):
+    """Plain version of K9 (``resblock_transition_reference``, resblock.py:1592):
+    the unfused composition in x's dtype, GN1+SiLU, the resample of the
+    activation and of x, then K4's plain tail. w_skip (C, Cout) required."""
+    kerns = transition_kerns(up, fir, fir_kernel)
+    h = group_norm_silu_reference(x, gn1_scale, gn1_bias, num_groups1, eps)
+    h = resample_transition(h, kerns, up).to(x.dtype)
+    xr = resample_transition(x, kerns, up).to(x.dtype)
+    return resblock_tail_reference(h, xr, temb, dense_w, dense_b, w1, b1, gn2_scale, gn2_bias, w2,
+                                   b2, w_skip, b_skip, num_groups2=num_groups2, eps=eps,
+                                   skip_rescale=skip_rescale)
+
+
+def resblock_transition_bf16_reference(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1,
+                                       gn2_scale, gn2_bias, w2, b2, w_skip, b_skip, *, up: bool,
+                                       fir: bool = True, fir_kernel=(1, 3, 3, 1),
+                                       num_groups1: int, num_groups2: int, eps: float = 1e-6,
+                                       skip_rescale: bool = True):
+    """K9's bf16 mode with the TPU kernel's rounding points
+    (``_resblock_transition_kernel``, mm_dtype bf16), in f32 otherwise: GN
+    statistics E[x^2] - mean^2; silu(GN1(x)) and x rounded to bf16 (the
+    resample scratch); the resampled h and x rounded to bf16 (conv1's and the
+    skip's operands); bf16 weights with f32 sums; h1 f32; silu(GN2(h1))
+    rounded to bf16; out in x's dtype."""
+    kerns = transition_kerns(up, fir, fir_kernel)
+    a1 = _bf16r(group_norm_tpu(x.float(), gn1_scale, gn1_bias, num_groups1, eps, True, False))
+    h = _bf16r(resample_transition(a1, kerns, up))
+    xr = _bf16r(resample_transition(_bf16r(x.float()), kerns, up))
+    h1 = conv3x3_nhwc(h, _bf16r(w1.float()), b1.float())
+    h1 = h1 + temb_projection(temb, dense_w, dense_b)[:, None, None, :]
+    a2 = _bf16r(group_norm_tpu(h1, gn2_scale, gn2_bias, num_groups2, eps, True, False))
+    out = conv3x3_nhwc(a2, _bf16r(w2.float()), b2.float()) + xr @ _bf16r(w_skip.float())
+    out = out if b_skip is None else out + b_skip.float()
+    return (out * _INV_SQRT2 if skip_rescale else out).to(x.dtype)
+
+
+def resblock_transition_int8_reference(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1,
+                                       gn2_scale, gn2_bias, w2, b2, w_skip, b_skip,
+                                       act_scales=None, *, up: bool, fir: bool = True,
+                                       fir_kernel=(1, 3, 3, 1), num_groups1: int,
+                                       num_groups2: int, eps: float = 1e-6,
+                                       skip_rescale: bool = True):
+    """Plain version of K9's int8 mode (``_resblock_transition_kernel``,
+    mm_dtype int8): silu(GN1(x)) rounded to bf16 and resampled in f32, then
+    quantized unrounded, with the static s1 or per sample (a / s_b); GN2 never
+    folded; int8 sums exact (float64); the skip bf16 on the resampled x
+    rounded to bf16. w1, w2: (int8 HWIO, scale) pairs; act_scales None or
+    [s1, s2]."""
+    check_act_scales(act_scales)
+    kerns = transition_kerns(up, fir, fir_kernel)
+    a1 = _bf16r(group_norm_tpu(x.float(), gn1_scale, gn1_bias, num_groups1, eps, True, False))
+    h = resample_transition(a1, kerns, up)
+    xr = resample_transition(_bf16r(x.float()), kerns, up)
+    return _int8_block(h, xr, temb_projection(temb, dense_w, dense_b), w1, b1, gn2_scale,
+                       gn2_bias, w2, b2, w_skip, b_skip, act_scales, num_groups2, eps,
+                       skip_rescale, x.dtype, pair=False, fold2=False)
+
+
 def resblock_train_reference(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias,
                              w2, b2, w_skip, b_skip, mask, *, keep_prob: float,
                              num_groups1: int, num_groups2: int, eps: float = 1e-6,
@@ -325,12 +447,14 @@ def split_k(m: int, n: int, k: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(entry: str, b: int, h: int, w: int, cin: int, cskip: int, n: int):
+def _plan(entry: str, b: int, h: int, w: int, cin: int, cskip: int, n: int, *extra):
     """(splits1, kper1, splits2, kper2, workspace bytes) of one block shape
-    through ``entry`` (gddim_resblock, gddim_resblock_int8 or gddim_resblock_train)."""
+    (the convs' resolution h x w) through ``entry`` (gddim_resblock,
+    gddim_resblock_int8, gddim_resblock_train or the two transition entries);
+    ``extra``: the workspace function's arguments after the splits."""
     s1, k1 = split_k(b * h * w, n, 9 * cin)
     s2, k2 = split_k(b * h * w, n, 9 * n + cskip)
-    return s1, k1, s2, k2, _build.workspace_bytes(entry, b, h, w, cin, n, max(s1, s2))
+    return s1, k1, s2, k2, _build.workspace_bytes(entry, b, h, w, cin, n, max(s1, s2), *extra)
 
 
 def require_no_grad(what: str, *tensors) -> None:
@@ -352,20 +476,32 @@ def _operand(t, what, dtype, shape=None):
     return t
 
 
+def activation_dtype(x, what: str, int8: bool):
+    """x's dtype where the CUDA kernels take it: bf16 or f32 (the bf16 modes,
+    which write x's dtype), bf16 only (the int8 modes); raises otherwise."""
+    ok = (torch.bfloat16,) if int8 else (torch.bfloat16, torch.float32)
+    if x.dtype not in ok:
+        raise ValueError(f"{what}: takes {' or '.join(map(str, ok))} activations on CUDA, "
+                         f"got {x.dtype}")
+    return x.dtype
+
+
 def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias, w2, b2,
                 skip_parts, w_skip, b_skip, *, num_groups2, eps, skip_rescale, int8=False,
                 act_scales=None):
     """One block through gddim_resblock, or gddim_resblock_int8 when int8
     (w1, w2 then (int8 weights, scale) pairs; act_scales None or [s1, s2]).
     gn1: (scale, bias, groups), or None (K4); skip_parts None: identity
-    residual parts[0]."""
+    residual parts[0]. The activations and the output take parts[0]'s
+    dtype (bf16 or f32; bf16 only when int8)."""
     convs = [*w1, *w2] if int8 else [w1, w2]
     require_no_grad("resblock kernel", *parts, temb, dense_w, dense_b, *(gn1 or ())[:2], *convs,
                     b1, gn2_scale, gn2_bias, b2, *(skip_parts or ()), w_skip, b_skip)
     bf16, f32 = torch.bfloat16, torch.float32
+    act = activation_dtype(parts[0], "resblock int8 kernel" if int8 else "resblock kernel", int8)
     b, h, w, _ = parts[0].shape
-    xs = [_operand(p, "resblock input", bf16, (b, h, w, p.shape[-1])) for p in parts] + [None]
-    ss = [_operand(p, "skip input", bf16, (b, h, w, p.shape[-1]))
+    xs = [_operand(p, "resblock input", act, (b, h, w, p.shape[-1])) for p in parts] + [None]
+    ss = [_operand(p, "skip input", act, (b, h, w, p.shape[-1]))
           for p in skip_parts or ()] + [None, None]
     c0, c1 = (p.shape[-1] if p is not None else 0 for p in xs[:2])
     cs0, cs1 = (p.shape[-1] if p is not None else 0 for p in ss[:2])
@@ -375,7 +511,8 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
     if skip_parts is None and cin != n:
         raise ValueError("resblock: identity skip needs Cin == Cout")
     entry = "gddim_resblock_int8" if int8 else "gddim_resblock"
-    s1, k1, s2, k2, nbytes = _plan(entry, b, h, w, cin, cs0 + cs1, n)
+    act_f32 = () if int8 else (int(act == f32),)  # the bf16 entry's activation flag
+    s1, k1, s2, k2, nbytes = _plan(entry, b, h, w, cin, cs0 + cs1, n, *act_f32)
     temb = _operand(temb, "temb", f32)
     gn1 = gn1 or (None, None, 0)
     skip = skip_parts is not None
@@ -406,9 +543,9 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
         args.append(op(act_scales, "act scales", f32, (2,)))
     dev = xs[0].device
     work = torch.empty(nbytes, device=dev, dtype=torch.uint8)
-    out = torch.empty((b, h, w, n), device=dev, dtype=bf16)
+    out = torch.empty((b, h, w, n), device=dev, dtype=act)
     _build.launch(entry, dev, *args, b, h, w, n, eps, _INV_SQRT2 if skip_rescale else 1.0,
-                  work.data_ptr(), s1, k1, s2, k2, out.data_ptr())
+                  work.data_ptr(), s1, k1, s2, k2, out.data_ptr(), *act_f32)
     return out
 
 
@@ -518,6 +655,97 @@ def fused_resblock_tail_int8(h, x_skip, temb, dense_w, dense_b, w1, b1, gn2_scal
     return out
 
 
+def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale,
+                     gn2_bias, w2, b2, w_skip, b_skip, act_scales, *, up, fir, fir_kernel,
+                     num_groups1, num_groups2, eps, skip_rescale, int8):
+    """K9 through gddim_resblock_transition, or gddim_resblock_transition_int8
+    (w1, w2 then (int8 weights, scale) pairs; act_scales None or [s1, s2])."""
+    convs = [*w1, *w2] if int8 else [w1, w2]
+    require_no_grad("resblock transition kernel", x, temb, dense_w, dense_b, gn1_scale, gn1_bias,
+                    *convs, b1, gn2_scale, gn2_bias, b2, w_skip, b_skip)
+    what = "fused_resblock_transition" + ("_int8" if int8 else "")
+    if int8:
+        check_act_scales(act_scales)
+    bf16, f32 = torch.bfloat16, torch.float32
+    act = activation_dtype(x, what, int8)
+    b, hin, win, cin = x.shape
+    n = (w1[0] if int8 else w1).shape[-1]
+    if w_skip is None or not transition_supported(x.shape, n, up, fir, fir_kernel):
+        raise ValueError(f"{what}: unsupported block {tuple(x.shape)} -> {n} (the 1x1 skip is "
+                         "required; channels in whole GEMM tiles, even H and W)")
+    ho, wo = (2 * hin, 2 * win) if up else (hin // 2, win // 2)
+    kh, kw = transition_kerns(up, fir, fir_kernel)
+    act_f32 = () if int8 else (int(act == f32),)
+    entry = "gddim_resblock_transition" + ("_int8" if int8 else "")
+    s1, k1, s2, k2, nbytes = _plan(entry, b, ho, wo, cin, cin, n, *act_f32)
+    temb = _operand(temb, "temb", f32)
+    keep = []  # operands stay referenced until the launch: a cast's temporary must not be freed
+
+    def op(t, what_, dtype, shape=None):
+        keep.append(_operand(t, what_, dtype, shape))
+        return _build.ptr(keep[-1])
+
+    def conv(wt, what_, shape):  # bf16 weights, or int8 weights and their scales
+        if not int8:
+            return [op(wt, what_, bf16, shape)]
+        return [op(wt[0], what_, torch.int8, shape), op(wt[1], f"{what_} scales", f32, shape[-1:])]
+
+    args = [
+        op(x, "x", act, (b, hin, win, cin)), cin, _build.ptr(temb),
+        op(dense_w, "temb dense", f32, (temb.shape[-1], n)), op(dense_b, "temb bias", f32, (n,)),
+        temb.shape[-1], op(gn1_scale, "gn1 scale", f32, (cin,)),
+        op(gn1_bias, "gn1 bias", f32, (cin,)), num_groups1, *conv(w1, "conv1", (3, 3, cin, n)),
+        op(b1, "b1", f32, (n,)), op(gn2_scale, "gn2 scale", f32, (n,)),
+        op(gn2_bias, "gn2 bias", f32, (n,)), num_groups2, *conv(w2, "conv2", (3, 3, n, n)),
+        op(b2, "b2", f32, (n,)), op(w_skip, "skip", bf16, (cin, n)),
+        op(b_skip, "b_skip", f32, (n,)),
+    ]
+    if int8:
+        args.append(op(act_scales, "act scales", f32, (2,)))
+    work = torch.empty(nbytes, device=x.device, dtype=torch.uint8)
+    out = torch.empty((b, ho, wo, n), device=x.device, dtype=act)
+    _build.launch(entry, x.device, *args, b, hin, win, int(up), *kh, *kw, n, eps,
+                  _INV_SQRT2 if skip_rescale else 1.0, work.data_ptr(), s1, k1, s2, k2,
+                  out.data_ptr(), *act_f32)
+    return out
+
+
+def fused_resblock_transition(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale,
+                              gn2_bias, w2, b2, w_skip, b_skip, *, up: bool, fir: bool = True,
+                              fir_kernel=(1, 3, 3, 1), num_groups1: int, num_groups2: int,
+                              eps: float = 1e-6, skip_rescale: bool = True):
+    """K9: one up (``up``) or down transition block on x before the resample;
+    w_skip (C, Cout) required. Writes x's dtype (bf16 or f32). A shape that
+    ``transition_supported`` refuses raises on CUDA."""
+    kw = dict(up=up, fir=fir, fir_kernel=fir_kernel, num_groups1=num_groups1,
+              num_groups2=num_groups2, eps=eps, skip_rescale=skip_rescale)
+    args = (x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, w2, b2,
+            w_skip, b_skip)
+    if _on_cpu(x, "fused_resblock_transition"):
+        return resblock_transition_reference(*args, **kw)
+    out = _transition_cuda(*args, None, int8=False, **kw)
+    fused_resblock_transition.launches += 1
+    return out
+
+
+def fused_resblock_transition_int8(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1,
+                                   gn2_scale, gn2_bias, w2, b2, w_skip, b_skip, act_scales=None,
+                                   *, up: bool, fir: bool = True, fir_kernel=(1, 3, 3, 1),
+                                   num_groups1: int, num_groups2: int, eps: float = 1e-6,
+                                   skip_rescale: bool = True):
+    """K9's int8 mode (see resblock_transition_int8_reference for the
+    arguments); bf16 x on CUDA. A static skip scale (sx) is refused."""
+    kw = dict(up=up, fir=fir, fir_kernel=fir_kernel, num_groups1=num_groups1,
+              num_groups2=num_groups2, eps=eps, skip_rescale=skip_rescale)
+    args = (x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, w2, b2,
+            w_skip, b_skip, act_scales)
+    if _on_cpu(x, "fused_resblock_transition_int8"):
+        return resblock_transition_int8_reference(*args, **kw)
+    out = _transition_cuda(*args, int8=True, **kw)
+    fused_resblock_transition_int8.launches += 1
+    return out
+
+
 def _resblock_train_cuda(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, w2,
                          b2, w_skip, b_skip, mask, *, keep_prob, num_groups1, num_groups2, eps,
                          skip_rescale):
@@ -598,3 +826,5 @@ fused_resblock_int8.launches = 0  # one gddim_resblock_int8 each
 fused_resblock_pair_int8.launches = 0
 fused_resblock_tail_int8.launches = 0
 fused_resblock_train.launches = 0  # one gddim_resblock_train each
+fused_resblock_transition.launches = 0  # one gddim_resblock_transition each
+fused_resblock_transition_int8.launches = 0  # one gddim_resblock_transition_int8 each

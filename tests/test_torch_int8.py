@@ -282,6 +282,9 @@ def small(cfg):
     cfg.data.image_size = 16
     cfg.model.dtype = "float32"
     cfg.model.conv_impl = "fused_int8"
+    # the transitions through K4's int8 mode, as the JAX network runs them
+    # off the TPU; K9's int8 network is held in tests/test_torch_transition.py
+    cfg.model.transition_impl = "tail"
     return cfg
 
 

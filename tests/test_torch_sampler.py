@@ -101,6 +101,14 @@ def test_port_imports_no_jax(tmp_path):
         eps = make_blur_yeps_fn(BlurSDE.from_config(cfg))(
             seeded_model(cfg, 0), torch.zeros(1, 16, 16, 3), torch.full((1,), 0.5))
         assert eps.shape == (1, 16, 16, 3)
+        from gddim_torch.ops.attnblock import fused_attnblock_train
+        from gddim_torch.ops.resblock import fused_resblock_transition
+        cfg = get_config("cld/accr_dcifar10")
+        cfg.model.nf, cfg.model.ch_mult, cfg.model.num_res_blocks = 64, (1, 2), 1
+        cfg.data.image_size, cfg.model.dtype, cfg.model.transition_impl = 16, "float32", "full"
+        eps = make_cld_eps_fn(CLD.from_config(cfg))(
+            seeded_model(cfg, 0), torch.zeros(1, 16, 16, 3, 2), torch.full((1,), 0.5))
+        assert eps.shape == (1, 16, 16, 3, 2)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "ml_collections",
                                             "gddim_tpu"))
