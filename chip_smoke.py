@@ -21,7 +21,11 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      (bf16, against its f32 plain version, with F.conv2d's time), K11-int8
      (bit-identical to its exact plain version) and K12 (scales, and int8
      values at most one step apart), and K1 without SiLU at the attention
-     shapes beside F.group_norm's time; then K9 (bf16, and int8 with static
+     shapes beside F.group_norm's time; K11 bf16 again at B=16 and B=64
+     (each shape beside F.conv2d, won or lost); K8 in f32 at the training
+     batch (B=128) and in bf16 (against its plain version on the same bf16
+     inputs) at B=16 and 64, each beside scaled_dot_product_attention in its
+     dtype; then K9 (bf16, and int8 with static
      and per-sample scales) at the 6 transition shapes against its plain
      versions with the TPU kernel's rounding points, K10's forward and its 11
      gradients (f32) at the training attention shapes, and K2-K5 once each on
@@ -61,7 +65,7 @@ limit, and last {"ok": true, "device": {...}}.
 
 ``--phases profile`` (not in the default run) traces one eval of the CLD bf16
 and int8 kernel paths, then of the same with transition_impl 'tail' and
-'full', then of the blur 'fused_int8' and layer-wise 'int8' paths, at
+'full', then of the blur 'fused_int8' and layer-wise 'int8' and 'pallas' paths, at
 ``--batch`` with torch.profiler and prints the wall, the device time and the
 kernels that take it. ``--phases ab`` (not in the default run) times CLD
 NFE=50 sampling with the transitions through K4 and through K9, bf16 and
@@ -93,8 +97,13 @@ KERNEL_BOUND = {"K1": 1e-2, "K2": 1e-2, "K3": 1e-2, "K4": 1e-2, "K5": 1e-2,
                 # K6: f32 in and out, bf16 MMA operands: measured 1.3e-3 to 3.0e-3
                 # at every training-path shape on an H100 (f32 inputs)
                 "K6": 1e-2,
-                # K8: f32 FMA throughout: measured 3.5e-7 to 1.8e-6
+                # K8 in f32: 3xTF32 on the tensor cores, f32 partial sums;
+                # the f32 FMA form it replaced measured 3.5e-7 to 1.8e-6
                 "K8": 1e-5}
+# K8 in bf16 against the plain version on the same bf16 inputs: the same
+# rounding points (normalised weights rounded to bf16, f32 sums), so a bf16
+# rounding of a weight or of the output flipping on f32 summation order
+K8_BF16_BOUND = 1e-2
 # K1 in f32 (the training path's dtype) against the plain f32 version: both
 # reduce in f32 with a two-pass variance, so only the summation order differs;
 # measured 1.6e-7 to 3.1e-7 at the 12 training-path cases on an H100
@@ -198,7 +207,7 @@ PER_EVAL_FULL = {"K1": 1, "K2": 34, "K3": 36, "K9": 6, "K5": 10}
 PER_EVAL_INT8_FULL = {"K1": 1, "K2-int8": 34, "K3-int8": 36, "K9-int8": 6, "K5-int8": 10}
 # H100 SXM peaks (NVIDIA's data sheet, dense): operations per second by type,
 # and device memory bytes per second
-PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
 HBM = 3.35e12
 # kernel launches per training step: K1 in the 6 transitions (GN1, GN2), the
 # 10 attention blocks and norm_out; K6 forward and K7 backward in the 34
@@ -269,6 +278,9 @@ SHAPES = {
            (4, 256, 256)],
     # (B, S, C): the training path's 16x16 and 4x4 attention, and one long sequence
     "K8": [(4, 256, 256), (4, 16, 256), (1, 2048, 128)],
+    # ... f32 at the training batch, and bf16 at the layer-wise sampling paths' batches
+    "K8_train": [(128, 256, 256), (128, 16, 256)],
+    "K8_bf16": [(16, 256, 256), (16, 16, 256), (64, 256, 256), (64, 16, 256)],
     # the layer-wise paths (logged from one eval of the trunk): every 3x3 conv
     # (H, Cin, Cout) of the 76 residual blocks, K11 and K11-int8 alike ...
     "K11": [(32, 128, 128), (32, 256, 128), (32, 256, 256), (32, 384, 128), (16, 128, 128),
@@ -308,6 +320,32 @@ def time_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call: ``reps`` calls captured in one CUDA graph and
+    replayed, so the host's cost of enqueueing them does not enter (it does
+    in time_ms where a call's host work outlasts its kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
+
+
+def verdict(ms: float, library_ms: float) -> str:
+    return f"{'wins' if ms <= library_ms else 'loses'}, {ms / library_ms:.2f}x"
 
 
 class Inputs:
@@ -535,7 +573,7 @@ def _check_kernel(results, kernel, label, fused, plain, args, ops, plain_timed=N
     ms = time_ms(fused)
     plain_ms = time_ms(plain_timed or plain, plain_reps)
     bd = bound(nbytes(args, out), ops(out) if callable(ops) else ops)
-    lib = "" if library_ms is None else f" library_ms={library_ms:.4f}"
+    lib = "" if library_ms is None else f" library_ms={library_ms:.4f} ({verdict(ms, library_ms)})"
     print(f"kernel {kernel} {KERNELS[kernel]['name']} [{label}] B={B}: max|err|={err:.3e} "
           f"rel={rel:.3e} (bound {KERNEL_BOUND[kernel]:.0e}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"bound_ms={bd[0]:.4f} ({'bytes' if bd[1] >= bd[2] else 'operations'}){lib}"
@@ -562,6 +600,34 @@ def transition_ops(kernel: str, B: int, h_in: int, c: int, cout: int, up: bool) 
     m = B * (2 * h_in if up else h_in // 2) ** 2
     return {"int8" if kernel.endswith("int8") else "bf16": 2 * m * 9 * (c * cout + cout * cout),
             "bf16_skip": 2 * m * c * cout, "f32": 2 * B * TEMB * cout}
+
+
+def print_sums(results: dict):
+    """K11 and K8 summed by batch (and dtype): eager and device (CUDA graph)
+    ms of the kernel and its library call, bound, and the shapes won."""
+    groups = {}
+    for kernel in ("K11", "K8"):
+        for r in results.get(kernel, {}).get("shapes", []):
+            if "graph_ms" not in r:
+                continue
+            label = r["shape"]
+            if kernel == "K11":
+                key = f"K11 {label.split()[0]}" if label.startswith("B=") else "K11 B=4"
+            else:
+                dtype, batch = label.split()[:2]
+                key = f"K8 {dtype} {batch}"
+            g = groups.setdefault(key, dict(n=0, won=0, ms=0.0, lib=0.0, dev=0.0, libdev=0.0,
+                                            bound=0.0))
+            g["n"] += 1
+            g["won"] += r["graph_ms"] <= r["library_graph_ms"]
+            for k, v in (("ms", "ms"), ("lib", "library_ms"), ("dev", "graph_ms"),
+                         ("libdev", "library_graph_ms"), ("bound", "bound_ms")):
+                g[k] += r[v]
+    for key, g in groups.items():
+        print(f"sum {key}: {g['n']} shapes, kernel {g['ms']:.4f} ms (library {g['lib']:.4f}); "
+              f"device kernel {g['dev']:.4f} ms (library {g['libdev']:.4f}, "
+              f"{verdict(g['dev'], g['libdev'])}); bound {g['bound']:.4f} ms; device time won "
+              f"at {g['won']} of {g['n']} shapes", flush=True)
 
 
 def phase_transition_kernels(results: dict, B: int = 4):
@@ -768,24 +834,47 @@ def phase_train_kernels(results: dict, B: int = 4):
     if not np.isfinite(rel) or rel > K6_RESIDUAL_BOUND:
         raise AssertionError(f"K6 residual: rel err {rel:.3e} > {K6_RESIDUAL_BOUND:.0e}")
 
-    for b, s_, c in SHAPES["K8"]:
+    for b, s_, c in SHAPES["K8"] + SHAPES["K8_train"]:
         q, k, v = (torch.randn((b, s_, c), generator=inp.g, device="cuda") for _ in range(3))
-        label = f"B={b} S={s_} C={c}"
-        fused = lambda: attention.flash_attention(q, k, v)  # noqa: E731
-        plain = lambda: attention.attention_xla(q, k, v)  # noqa: E731
-        out = fused()
-        torch.cuda.synchronize()
-        ref = plain()
-        err, rel = (out - ref).abs().max().item(), _rel(out, ref)
-        ms, plain_ms = time_ms(fused), time_ms(plain)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-        bd = bound(nbytes(q, k, v, out), {"f32": 4 * b * s_ * s_ * c})  # f32 FMA, no tensor cores
-        print(f"kernel K8 flash_attention [{label}]: max|err|={err:.3e} rel={rel:.3e} "
-              f"(bound {KERNEL_BOUND['K8']:.0e}) ms={ms:.4f} plain_f32_ms={plain_ms:.4f} "
-              f"sdpa_ms={library_ms:.4f} bound_ms={bd[0]:.4f}", flush=True)
-        _record(results, "K8", label, err, rel, ms, plain_ms, bd, library_ms=library_ms)
-        if not np.isfinite(rel) or rel > KERNEL_BOUND["K8"]:
-            raise AssertionError(f"K8 {label}: rel err {rel:.3e} > {KERNEL_BOUND['K8']:.0e}")
+        # 3xTF32: three TF32 products per f32 product
+        check_attention(results, q, k, v, {"tf32": 3 * 4 * b * s_ * s_ * c}, KERNEL_BOUND["K8"])
+    for b, s_, c in SHAPES["K8_bf16"]:
+        q, k, v = (torch.randn((b, s_, c), generator=inp.g, device="cuda").bfloat16()
+                   for _ in range(3))
+        check_attention(results, q, k, v, {"bf16": 4 * b * s_ * s_ * c}, K8_BF16_BOUND)
+
+
+def check_attention(results, q, k, v, ops: dict, tol: float):
+    """K8 on q/k/v of one dtype against the plain version on the same inputs,
+    beside scaled_dot_product_attention in that dtype."""
+    from gddim_torch.ops import attention
+
+    (b, s_, c), dt = q.shape, str(q.dtype).split(".")[-1]
+    label = f"{dt} B={b} S={s_} C={c}"
+    fused = lambda: attention.flash_attention(q, k, v)  # noqa: E731
+    plain = lambda: attention.attention_xla(q, k, v)  # noqa: E731
+    out = fused()
+    torch.cuda.synchronize()
+    ref = plain()
+    if out.dtype != q.dtype or out.shape != q.shape:
+        raise AssertionError(f"K8 {label}: got {out.dtype} {tuple(out.shape)}")
+    err, rel = (out.float() - ref.float()).abs().max().item(), _rel(out, ref)
+    ms, plain_ms = time_ms(fused), time_ms(plain)
+    # (B, 1, S, C) views: one head, so that SDPA may take its fused backends
+    sdpa = lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])  # noqa: E731
+    library_ms = time_ms(sdpa)
+    dev_ms, library_dev_ms = graph_ms(fused), graph_ms(sdpa)
+    bd = bound(nbytes(q, k, v, out), ops)
+    print(f"kernel K8 flash_attention [{label}]: max|err|={err:.3e} rel={rel:.3e} "
+          f"(bound {tol:.0e}) ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
+          f"({verdict(ms, library_ms)}) bound_ms={bd[0]:.4f} "
+          f"({'bytes' if bd[1] >= bd[2] else 'operations'}); device (CUDA graph) "
+          f"ms={dev_ms:.4f} sdpa_ms={library_dev_ms:.4f} ({verdict(dev_ms, library_dev_ms)})",
+          flush=True)
+    _record(results, "K8", label, err, rel, ms, plain_ms, bd, library_ms=library_ms,
+            graph_ms=dev_ms, library_graph_ms=library_dev_ms)
+    if not np.isfinite(rel) or rel > tol:
+        raise AssertionError(f"K8 {label}: rel err {rel:.3e} > {tol:.0e}")
 
 
 def phase_layer_kernels(results: dict, B: int = 4):
@@ -798,12 +887,7 @@ def phase_layer_kernels(results: dict, B: int = 4):
         label = f"{h}x{h} {cin}->{cout}"
         x, w = inp.act(B, h, h, cin), inp.w(3, 3, cin, cout)
         products = 2 * B * h * h * 9 * cin * cout
-        # the library yardstick: cuDNN on the same NHWC bytes (a channels_last view)
-        xc = x.permute(0, 3, 1, 2)
-        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        _check_kernel(results, "K11", label, lambda: conv3x3.conv3x3_pallas(x, w),
-                      lambda: conv3x3.conv3x3_reference(x, w), (x, w), {"bf16": products},
-                      library_ms=time_ms(lambda: F.conv2d(xc, wc, padding=1)), B=B)
+        check_conv(results, x, w, label, B)
         x8, sx = conv3x3.quantize_per_sample(x)
         w8, sw = conv3x3.quantize_weight_per_channel(w)
         args = (x8, w8, sw, sx, inp.vec(cout))
@@ -811,6 +895,11 @@ def phase_layer_kernels(results: dict, B: int = 4):
         _check_kernel(results, "K11-int8", label, lambda: conv3x3.conv3x3_pallas_int8(*args),
                       lambda: conv3x3.conv3x3_int8_reference(*args), args, {"int8": products},
                       plain_reps=5, B=B)
+    # K11 bf16 at the layer-wise sampling paths' batches too
+    for batch in (16, 64):
+        for h, cin, cout in SHAPES["K11"]:
+            check_conv(results, inp.act(batch, h, h, cin), inp.w(3, 3, cin, cout),
+                       f"B={batch} {h}x{h} {cin}->{cout}", batch)
     for h, c in SHAPES["K12"]:
         label = f"{h}x{h}x{c}"
         x, gs, gb = inp.act(B, h, h, c), inp.vec(c, 1.0), inp.vec(c)
@@ -848,6 +937,26 @@ def phase_layer_kernels(results: dict, B: int = 4):
                       lambda: groupnorm.group_norm_silu_reference(x.float(), gs, gb, **kw),
                       (x, gs, gb), {"f32": 8 * x.numel()},
                       library_ms=time_ms(lambda: F.group_norm(xc, 32, gs16, gb16, 1e-6)), B=B)
+
+
+def check_conv(results, x, w, label: str, B: int):
+    """K11 bf16 on x (B, H, W, Cin) and w (3, 3, Cin, Cout) against its f32
+    plain version, beside F.conv2d on the same NHWC bytes (cuDNN through a
+    channels_last view) and its bound."""
+    from gddim_torch.ops import conv3x3
+
+    products = 2 * x.shape[0] * x.shape[1] * x.shape[2] * x.shape[3] * 9 * w.shape[-1]
+    xc = x.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    fused = lambda: conv3x3.conv3x3_pallas(x, w)  # noqa: E731
+    library = lambda: F.conv2d(xc, wc, padding=1)  # noqa: E731
+    dev_ms, library_dev_ms = graph_ms(fused), graph_ms(library)
+    _check_kernel(results, "K11", label, fused, lambda: conv3x3.conv3x3_reference(x, w), (x, w),
+                  {"bf16": products}, library_ms=time_ms(library), B=B, graph_ms=dev_ms,
+                  library_graph_ms=library_dev_ms)
+    print(f"  K11 [{label}] device time (CUDA graph): kernel {dev_ms:.4f} ms, F.conv2d "
+          f"{library_dev_ms:.4f} ms ({verdict(dev_ms, library_dev_ms)}); "
+          f"{products / PEAK['bf16'] * 1e3 / dev_ms:.1%} of the bf16 peak", flush=True)
 
 
 def counters():
@@ -1162,8 +1271,8 @@ def _profile(name: str, run, batch: int, card: str, evals: int):
 
 def phase_profile(config, batch: int, card: str, evals: int = 5):
     """Where one eval's time goes: the CLD bf16 and int8 static kernel paths,
-    then the blur 'fused_int8' and layer-wise 'int8' paths, each pair in the
-    order a, b, b, a."""
+    then the blur 'fused_int8' and layer-wise 'int8' and 'pallas' paths, each
+    pair in the order a, b, b, a."""
     from gddim_torch.cli import build_model, calibrate_int8
     from gddim_torch.configs import get_config
     from gddim_torch.math.blur import BlurSDE
@@ -1193,9 +1302,9 @@ def phase_profile(config, batch: int, card: str, evals: int = 5):
     calibrate_int8(config, model, seed=0)
     yeps = make_blur_yeps_fn(BlurSDE.from_config(config))
     y = u[..., 0]
-    for layer in (None, "int8", "int8", None):
+    for layer in (None, "int8", "pallas", "pallas", "int8", None):
         model.layer = layer
-        _profile(f"blur {'layer-wise int8' if layer else 'fused_int8'}",
+        _profile(f"blur {'layer-wise ' + layer if layer else 'fused_int8'}",
                  lambda: yeps(model, y, t), batch, card, evals)
 
 
@@ -1429,6 +1538,7 @@ def main(argv=None):
         phase_transition_kernels(results)
         phase_attn_train_kernels(results)
         phase_f32_activations()
+        print_sums(results)
     config = get_config("cld/accr_dcifar10")
     # the transitions through K1, the FIR passes and K4: the path each phase's
     # K9 run (run_k9) is held against

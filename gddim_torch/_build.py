@@ -95,8 +95,8 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _F, _F, _P,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ],
-    # gddim_flash_attention(q, k, v, o, B, S, C, stream)
-    "gddim_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # gddim_flash_attention(q, k, v, o, B, S, C, qt, bf16, scale, stream)
+    "gddim_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # gddim_attnblock_workspace(B, S, C, splits)
     "gddim_attnblock_workspace": [_I, _I, _I, _I],
     # gddim_attnblock(x, gn_g, gn_b, groups, wqkv, bqkv, wo, bo, B, S, C, eps,
@@ -112,10 +112,9 @@ _SIGNATURES = {
         _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
     ],
-    # gddim_conv3x3_workspace(B, H, W, Cin, N)
-    "gddim_conv3x3_workspace": [_I, _I, _I, _I, _I],
-    # gddim_conv3x3(x, w, B, H, W, Cin, N, work, out, stream)
-    "gddim_conv3x3": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # gddim_conv3x3(x, w, B, H, W, Cin, N, mw, box_h, box_b, tiles_h, m_tiles, splits, kper,
+    #   work, out, stream)
+    "gddim_conv3x3": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # gddim_conv3x3_int8_workspace(B, H, W, Cin, N)
     "gddim_conv3x3_int8_workspace": [_I, _I, _I, _I, _I],
     # gddim_conv3x3_int8(x8, w8, w_scale, act_scale, bias, B, H, W, Cin, N, work, out, stream)

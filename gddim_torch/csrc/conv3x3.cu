@@ -7,11 +7,11 @@
 // (_conv_kernel_int8, s8 x s8 -> s32 sums, dequantized as
 // acc * (s_a[b] * s_w[c]) + bias in f32, out bf16).
 //
-//   gddim_conv3x3       bf16: the implicit-GEMM conv of the residual-block
-//                       kernels (conv_gemm_kernel, resblock.cu) with no GN
-//                       prologue and no epilogue terms: f32 sums of exact
-//                       bf16 products, rounded once to bf16 (split-K sums f32
-//                       partials in split order first).
+//   gddim_conv3x3       bf16: conv3x3_wgmma_kernel, an implicit GEMM
+//                       (M = B*H*W output pixels, N = Cout, K = 9*Cin) on
+//                       wgmma fed by TMA, f32 sums of exact bf16 products,
+//                       rounded once to bf16 (split-K sums f32 partials in
+//                       split order first).
 //   gddim_conv3x3_int8  conv3x3_s8_kernel: int8 A read straight from memory
 //                       (the activation arrives quantized, from K12 or
 //                       quantize_per_sample), int8 W, WMMA s8 16x16x16 into
@@ -26,17 +26,44 @@
 // against M*(Cin+Cout) activation bytes and 9*Cin*Cout weight bytes) put it
 // above the ridge, so the tensor cores bound it; at 8x8 and 4x4 M = B*H*W is a
 // few hundred rows, each weight byte feeds ~M operations, and the weights'
-// bytes and the launch bound it. This first form is right, not fast: a
-// 64x64 tile (int8: K slices of 64) double-buffered through registers, as
-// conv_gemm_kernel is, with split-K for small grids. wgmma fed by TMA is
-// later work.
+// bytes and the launch bound it.
+//
+// The bf16 design. A CTA owns a 128-pixel x 128-channel output tile and walks
+// K in 64-wide slices (one tap, 64 input channels) through a 3-stage ring of
+// shared memory (A 16 KB + B 16 KB a stage), with one full/empty mbarrier
+// pair a stage:
+// - A by TMA with no im2col and no padded copy: x is a 4-D tensor map
+//   (C, W, H, B) with the 128-byte swizzle, and the tile's 128 pixels are one
+//   box of (64 ch, W, box_h rows, box_b samples). Tap (dy, dx) is the same box
+//   at (x, y) offsets (dx-1, dy-1); the TMA unit writes zeros for the
+//   out-of-bounds elements, negative coordinates included, so SAME padding
+//   costs nothing, and rows past the batch or the image read zero and are
+//   masked in the epilogue.
+// - B by TMA from the (9*Cin, N) row-major weights as they are: two boxes of
+//   64 K rows x 64 N columns, N-major, which wgmma reads through its
+//   transpose bit.
+// - One producer warp issues the loads; two consumer warpgroups each run
+//   wgmma.mma_async m64n128k16 (bf16 in, f32 accumulate), four per slice,
+//   keeping one slice's group in flight while the next is issued, and free
+//   a stage when its group has completed.
+// - Small grids (8x8 and 4x4 at small B give 2-16 tiles against K = 2304 to
+//   4608) split K: the tile plan (box, M tiles, splits, slices per split) is
+//   a pure function of the shapes computed in ops/conv3x3.py:tile_plan, and
+//   a second kernel sums the f32 partials in split order, so the result
+//   does not depend on the run.
+// - Tile height: 128 pixels (two CTAs an SM, 99 KB each) or, where the grid
+//   still fills the card, 256 (each warpgroup two m64 blocks; 193 KB, one
+//   CTA an SM), which cuts the L2 bytes a product needs by a quarter: a
+//   128 x 128 tile with a 64-deep slice does 64 operations a byte of shared
+//   memory filled, so at the bf16 peak it would need ~15 TB/s from L2.
+// The int8 form keeps its first design: a 64x64 tile (K slices of 64),
+// double-buffered through registers, with split-K for small grids.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
-
-#include "conv.cuh"
 
 using namespace nvcuda;
 
@@ -229,26 +256,381 @@ __global__ void __launch_bounds__(256) s8_splitk_kernel(const S8Conv p) {
 
 }  // namespace
 
-extern "C" {
+// ---------------------------------------------------------------------------
+// K11 bf16: conv3x3_wgmma_kernel
+// ---------------------------------------------------------------------------
 
-long long gddim_conv3x3_workspace(int batch, int h, int w, int cin, int n) {
-  int splits, kper;
-  const long m = (long)batch * h * w;
-  conv_split_plan(m, n, 9 * cin, &splits, &kper);
-  return splits > 1 ? (long long)sizeof(float) * splits * m * n : 0;
+namespace {
+
+constexpr int WG_BN = 128;  // output channels of a tile
+constexpr int WG_BK = 64;   // K slice: 64 input channels of one tap (128 bytes of bf16)
+constexpr int WG_B_BYTES = WG_BK * WG_BN * 2;  // 16 KB: two boxes of 64 K rows x 64 N
+constexpr int WG_THREADS = 288;  // consumer warpgroups 0 and 1, then the producer warp
+constexpr int WG_CONSUMER_WARPS = 8;
+
+// The tile of MW m64 blocks per consumer warpgroup: 128 * MW output pixels.
+// MW = 1: a 3-stage ring of 32 KB stages, two CTAs an SM; MW = 2: a 4-stage
+// ring of 48 KB stages, one CTA an SM, which reads half the bytes per
+// product from L2.
+template <int MW>
+struct WgTile {
+  static constexpr int BM = 128 * MW;
+  static constexpr int STAGES = MW == 1 ? 3 : 4;
+  static constexpr int A_BYTES = BM * WG_BK * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + WG_B_BYTES;
+  // the ring, 1 KB of slack to align it to the 128-byte swizzle's 1 KB atom, barriers
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+};
+
+struct WgPlan {
+  int B, H, W, C, N;
+  int box_w, box_h, box_b;  // the A box: box_w x box_h pixels of box_b samples
+  int tiles_h;              // M tiles of one sample group along H
+  int slices, kper;         // K slices of 64 in all, and per split
+  int splits;
+  float* partial;           // (splits, M, N) f32, when splits > 1
+  __nv_bfloat16* out;       // (M, N)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// returns once the barrier's phase differs from `parity`
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets (16-byte units)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x 128 f32, the wgmma accumulator layout) += A (64 x 16, K-major) *
+// B (16 x 128, N-major: the transpose bit set)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The output pixel of row r of tile (b0, y0), or -1 past the batch or the image.
+__device__ __forceinline__ long tile_row(const WgPlan& p, int b0, int y0, int r) {
+  const int per_sample = p.box_w * p.box_h;
+  if (r >= per_sample * p.box_b) return -1;  // the box holds fewer pixels than the tile
+  const int b = b0 + r / per_sample, y = y0 + (r / p.box_w) % p.box_h;
+  if (b >= p.B || y >= p.H) return -1;
+  return ((long)b * p.H + y) * p.W + r % p.box_w;
+}
+
+// grid (M tiles, N / 128, splits), WG_THREADS threads, WgTile<MW>::SMEM
+// dynamic shared memory. Split z accumulates the K slices [z*kper,
+// min((z+1)*kper, slices)).
+template <int MW>
+__global__ void __launch_bounds__(WG_THREADS, 3 - MW)
+conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap wmap, const WgPlan p) {
+  using Tile = WgTile<MW>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t ring_u32 = smem_u32(ring);
+  const uint32_t full0 = ring_u32 + Tile::STAGES * Tile::STAGE_BYTES;  // full[s] = full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * Tile::STAGES;
+
+  const int tb = blockIdx.x / p.tiles_h, th = blockIdx.x % p.tiles_h;
+  const int b0 = tb * p.box_b, y0 = th * p.box_h;
+  const int n0 = blockIdx.y * WG_BN;
+  const int s_beg = blockIdx.z * p.kper;
+  const int n_sl = min(p.slices, s_beg + p.kper) - s_beg;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Tile::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, WG_CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == WG_CONSUMER_WARPS) {
+    // the producer: one thread keeps the ring's loads in flight
+    if (lane == 0) {
+      const uint32_t tx = (uint32_t)(p.box_w * p.box_h * p.box_b * WG_BK * 2) + WG_B_BYTES;
+      for (int i = 0; i < n_sl; ++i) {
+        const int s = i % Tile::STAGES;
+        if (i >= Tile::STAGES) mbar_wait(empty0 + 8 * s, ((i / Tile::STAGES) - 1) & 1);
+        const uint32_t full = full0 + 8 * s;
+        const uint32_t a = ring_u32 + s * Tile::STAGE_BYTES, b = a + Tile::A_BYTES;
+        mbar_expect_tx(full, tx);
+        const int k0 = (s_beg + i) * WG_BK;
+        const int tap = k0 / p.C, c0 = k0 - tap * p.C;
+        tma_load_4d(a, &xmap, full, c0, tap % 3 - 1, y0 + tap / 3 - 1, b0);
+        tma_load_2d(b, &wmap, full, n0, k0);
+        tma_load_2d(b + WG_B_BYTES / 2, &wmap, full, n0 + 64, k0);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup g owns the tile's m64 blocks g * MW + t
+  const int g = warp >> 2;
+  float acc[MW][64];
+#pragma unroll
+  for (int t = 0; t < MW; ++t)
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[t][j] = 0.f;
+  for (int i = 0; i < n_sl; ++i) {
+    const int s = i % Tile::STAGES;
+    mbar_wait(full0 + 8 * s, (i / Tile::STAGES) & 1);
+    const uint32_t a = ring_u32 + s * Tile::STAGE_BYTES + g * MW * (64 * 128);
+    const uint32_t b = ring_u32 + s * Tile::STAGE_BYTES + Tile::A_BYTES;
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk) {
+      // A: 64 rows of 128 bytes, 8-row atoms 1 KB apart; a k16 step is 32
+      // bytes into the row. B: K rows of 128 bytes (64 N), the second 64 N
+      // columns 8 KB on (the leading offset), 8-row K atoms 1 KB apart; a
+      // k16 step is 16 rows.
+      const uint64_t db = sw128_desc(b + 2048 * kk, WG_B_BYTES / 2, 1024);
+#pragma unroll
+      for (int t = 0; t < MW; ++t)
+        wgmma_m64n128k16(acc[t], sw128_desc(a + t * (64 * 128) + 32 * kk, 16, 1024), db);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    // the previous slice's group has completed: free its stage
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    if (i > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((i - 1) % Tile::STAGES));
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+
+  // Accumulator layout: register 4j + 2h + e holds row 16 (warp % 4) +
+  // lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e.
+  const int M = p.B * p.H * p.W;
+  const int row0 = 16 * (warp & 3) + (lane >> 2), col0 = 2 * (lane & 3);
+  if (p.splits > 1) {
+    // a split's f32 partial, straight from the accumulators
+#pragma unroll
+    for (int t = 0; t < MW; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long m = tile_row(p, b0, y0, 64 * (g * MW + t) + row0 + 8 * h);
+        if (m < 0) continue;
+        float* dst = p.partial + ((long)blockIdx.z * M + m) * p.N + n0 + col0;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<float2*>(dst + 8 * j) =
+              make_float2(acc[t][4 * j + 2 * h], acc[t][4 * j + 2 * h + 1]);
+      }
+    return;
+  }
+  // the bf16 tile through shared memory, so that global stores are whole
+  // 16-byte pieces of rows: once every consumer warp is past its last wgmma
+  // the ring is free (the producer has exited; barrier 1 counts the consumers)
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+  constexpr int LD = WG_BN + 8;  // staging row, padded
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(ring);
+#pragma unroll
+  for (int t = 0; t < MW; ++t)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(stage + (64 * (g * MW + t) + row0 + 8 * h) * LD +
+                                           col0 + 8 * j) =
+            __floats2bfloat162_rn(acc[t][4 * j + 2 * h], acc[t][4 * j + 2 * h + 1]);
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+  for (int x = threadIdx.x; x < Tile::BM * (WG_BN / 8); x += 256) {
+    const int r = x / (WG_BN / 8), c = 8 * (x % (WG_BN / 8));
+    const long m = tile_row(p, b0, y0, r);
+    if (m >= 0)
+      *reinterpret_cast<uint4*>(p.out + m * p.N + n0 + c) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + c);
+  }
+}
+
+// Split-K reduction: the f32 partials summed in split order, rounded once to
+// bf16. grid ceil(M*N/4 / 256), 256 threads, 4 channels each.
+__global__ void __launch_bounds__(256) wgmma_splitk_kernel(const WgPlan p) {
+  const long mn = (long)p.B * p.H * p.W * p.N;
+  const long v = ((long)blockIdx.x * 256 + threadIdx.x) * 4;
+  if (v >= mn) return;
+  float4 r = *reinterpret_cast<const float4*>(p.partial + v);
+  for (int z = 1; z < p.splits; ++z) {
+    const float4 a = *reinterpret_cast<const float4*>(p.partial + z * mn + v);
+    r.x += a.x;
+    r.y += a.y;
+    r.z += a.z;
+    r.w += a.w;
+  }
+  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(p.out + v);
+  dst[0] = __floats2bfloat162_rn(r.x, r.y);
+  dst[1] = __floats2bfloat162_rn(r.z, r.w);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                     &status);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status);
+#endif
+    if (status == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 tensor map with the 128-byte swizzle; dims innermost first, strides
+// in bytes of dims 1.. ; zeros for out-of-bounds elements
+bool bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+              const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return fn && fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+                  strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int MW>
+int launch_wgmma(dim3 grid, const CUtensorMap& xmap, const CUtensorMap& wmap, const WgPlan& p,
+                 cudaStream_t st) {
+  static bool attr = false;
+  if (!attr) {
+    const int err = (int)cudaFuncSetAttribute(
+        conv3x3_wgmma_kernel<MW>, cudaFuncAttributeMaxDynamicSharedMemorySize, WgTile<MW>::SMEM);
+    if (err) return err;
+    attr = true;
+  }
+  conv3x3_wgmma_kernel<MW><<<grid, WG_THREADS, WgTile<MW>::SMEM, st>>>(xmap, wmap, p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
 // K11 bf16: out (B, H, W, N) bf16 = conv3x3(x (B, H, W, Cin) bf16, w (3, 3,
-// Cin, N) bf16), f32 sums. Cin a multiple of 32, N of 64. Scratch from
-// `work`, gddim_conv3x3_workspace bytes.
+// Cin, N) bf16), f32 sums. Cin a multiple of 64, N of 128, W at most 256.
+// The tile plan (ops/conv3x3.py:tile_plan): tiles of 128 * mw pixels (mw 1
+// or 2), the A box (box_w = W, box_h rows, box_b samples, at most one tile),
+// tiles_h M tiles per sample group along H, m_tiles in all, K split into
+// `splits` runs of kper 64-wide slices.
+// Scratch `work`: splits * M * N f32 when splits > 1.
 int gddim_conv3x3(const void* x, const void* w, int batch, int h, int w_, int cin, int n,
+                  int mw, int box_h, int box_b, int tiles_h, int m_tiles, int splits, int kper,
                   void* work, void* out, void* stream) {
-  if (cin % CONV_BK || n % CONV_BN) return (int)cudaErrorInvalidValue;
-  int splits, kper;
-  conv_split_plan((long)batch * h * w_, n, 9 * cin, &splits, &kper);
-  const ConvArgs p = conv_args(x, cin, nullptr, nullptr, 0, 9, w, batch, h, w_, n, nullptr, 1.0f,
-                               out, (float*)work, splits, kper);
-  return conv_gemm_launch(p, false, (cudaStream_t)stream);
+  const int slices = 9 * cin / WG_BK;
+  if (cin % WG_BK || n % WG_BN || w_ > 256 || box_h < 1 || box_b < 1 || box_h > 256 ||
+      box_b > 256 || (mw != 1 && mw != 2) || w_ * box_h * box_b > 128 * mw || splits < 1 || kper < 1 ||
+      (splits - 1) * kper >= slices || splits * kper < slices)
+    return (int)cudaErrorInvalidValue;
+  WgPlan p;
+  p.B = batch;
+  p.H = h;
+  p.W = w_;
+  p.C = cin;
+  p.N = n;
+  p.box_w = w_;
+  p.box_h = box_h;
+  p.box_b = box_b;
+  p.tiles_h = tiles_h;
+  p.slices = slices;
+  p.kper = kper;
+  p.splits = splits;
+  p.partial = (float*)work;
+  p.out = (__nv_bfloat16*)out;
+
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[4] = {(cuuint64_t)cin, (cuuint64_t)w_, (cuuint64_t)h,
+                               (cuuint64_t)batch};
+  const cuuint64_t xstrides[3] = {(cuuint64_t)cin * 2, (cuuint64_t)w_ * cin * 2,
+                                  (cuuint64_t)h * w_ * cin * 2};
+  const cuuint32_t xbox[4] = {WG_BK, (cuuint32_t)w_, (cuuint32_t)box_h, (cuuint32_t)box_b};
+  const cuuint64_t wdims[2] = {(cuuint64_t)n, (cuuint64_t)9 * cin};
+  const cuuint64_t wstrides[1] = {(cuuint64_t)n * 2};
+  const cuuint32_t wbox[2] = {64, WG_BK};
+  if (!bf16_map(&xmap, x, 4, xdims, xstrides, xbox) || !bf16_map(&wmap, w, 2, wdims, wstrides, wbox))
+    return (int)cudaErrorInvalidValue;
+
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid(m_tiles, n / WG_BN, splits);
+  int err = mw == 1 ? launch_wgmma<1>(grid, xmap, wmap, p, st)
+                    : launch_wgmma<2>(grid, xmap, wmap, p, st);
+  if (!err && splits > 1) {
+    const long vecs = (long)batch * h * w_ * n / 4;
+    wgmma_splitk_kernel<<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>(p);
+    err = (int)cudaGetLastError();
+  }
+  return err;
 }
 
 long long gddim_conv3x3_int8_workspace(int batch, int h, int w, int cin, int n) {

@@ -5,11 +5,14 @@ Counterpart of ``gddim_tpu/ops/attention.py`` and ``gddim_tpu/ops/flash.py``:
 - ``attention_xla``: the plain version, softmax(q k^T / sqrt(C)) v with f32
   logits and softmax (``attention.py:21``);
 - ``flash_attention``: K8 (``flash.py:97``), the hand-written kernel
-  ``csrc/flash.cu`` (f32 FMA, online softmax over key tiles; its header says
-  what bounds it on the H100). One kernel covers the JAX package's
+  ``csrc/flash.cu`` on the tensor cores (its header says what bounds it on
+  the H100), in the input's dtype: f32 (3xTF32) or bf16 (bf16 products, f32
+  sums and softmax, the normalised weights rounded to bf16 before w v, the
+  plain version's rounding points). One kernel covers the JAX package's
   whole-sequence and k-blocked branches, and every S that is a multiple of
-  16, so the 4x4 mid-block attention (S = 16), which the JAX package sends to
-  XLA for the TPU's 128-lane gate, runs it too;
+  16 up to the length whose row of scores fits shared memory
+  (``flash_plan``), so the 4x4 mid-block attention (S = 16), which the JAX
+  package sends to XLA for the TPU's 128-lane gate, runs it too;
 - ``attention_pallas``: K8 forward with the gradient of the plain version
   recomputed from (q, k, v), as the JAX ``custom_vjp`` (``attention.py:35-54``);
 - ``self_attention_2d``: the (B, H, W, C) entry the attention block calls.
@@ -35,23 +38,68 @@ def attention_xla(q, k, v):
     return torch.einsum("bst,btc->bsc", w.float(), v.float()).to(q.dtype)
 
 
+SMEM_MAX = 232448  # shared memory a block may have on the H100 (227 KB)
+SMS = 132
+
+
+REG_SMAX = 256  # bf16 rows up to this length stay in registers (flash_reg_kernel)
+
+
+def flash_in_registers(bf16: bool, s: int) -> bool:
+    """Whether K8 keeps a row of scores in registers (bf16, S a multiple of
+    64 up to REG_SMAX) rather than in shared memory."""
+    return bf16 and s % 64 == 0 and s <= REG_SMAX
+
+
+def flash_smem(bf16: bool, s: int, c: int, qt: int) -> int:
+    """Shared memory of one K8 CTA (``csrc/flash.cu``): in registers
+    (``reg_smem``), the 64-query tile and four 32-key k/v tiles; else
+    (``fl_smem``) the q tile, two k/v tiles of 64 (bf16) or 32 (f32) keys,
+    the (qt, S) f32 scores and the row statistics. Rows are padded by 16
+    bytes."""
+    if flash_in_registers(bf16, s):
+        return (qt + 4 * 32) * (c + 8) * 2
+    size, ldt, kt = (2, c + 8, 64) if bf16 else (4, c + 4, 32)
+    return qt * ldt * size + 2 * kt * ldt * size + qt * (s + 4) * 4 + 2 * qt * 4
+
+
+def flash_plan(b: int, s: int, c: int, bf16: bool) -> int:
+    """K8's query tile: 64 where the row stays in registers; else the
+    largest of 64, 32, 16 that divides S and whose CTA fits shared memory,
+    halved while the grid leaves SMs idle. Raises for shapes the kernel
+    does not take."""
+    if s % 16 or c not in (64, 128, 256):
+        raise ValueError(f"flash_attention: unsupported shape {(b, s, c)}")
+    if flash_in_registers(bf16, s):
+        return 64
+    tiles = [qt for qt in (64, 32, 16) if s % qt == 0 and flash_smem(bf16, s, c, qt) <= SMEM_MAX]
+    if not tiles:
+        raise ValueError(f"flash_attention: unsupported shape {(b, s, c)}")
+    qt = tiles[0]
+    while b * (s // qt) < SMS and qt // 2 in tiles:
+        qt //= 2
+    return qt
+
+
 def flash_attention(q, k, v):
-    """K8: (B, S, C) f32 attention; S a multiple of 16, C in {64, 128, 256}
-    on the card."""
+    """K8: (B, S, C) attention in q's dtype (f32 or bf16 on the card); S a
+    multiple of 16, C in {64, 128, 256}."""
     if q.device.type == "cpu":
         return attention_xla(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     require_no_grad("flash_attention", q, k, v)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention: the kernel takes f32 or bf16, got {q.dtype}")
     b, s, c = q.shape
-    if s % 16 or c not in (64, 128, 256):
-        raise ValueError(f"flash_attention: unsupported shape {tuple(q.shape)}")
-    ops = [_operand(t, name, torch.float32, (b, s, c)) for t, name in ((q, "q"), (k, "k"), (v, "v"))]
-    out = torch.empty((b, s, c), device=q.device, dtype=torch.float32)
+    bf16 = q.dtype == torch.bfloat16
+    qt = flash_plan(b, s, c, bf16)
+    ops = [_operand(t, name, q.dtype, (b, s, c)) for t, name in ((q, "q"), (k, "k"), (v, "v"))]
+    out = torch.empty((b, s, c), device=q.device, dtype=q.dtype)
     _build.launch("gddim_flash_attention", q.device, *map(_build.ptr, ops), out.data_ptr(),
-                  b, s, c)
+                  b, s, c, qt, int(bf16), c ** -0.5)
     flash_attention.launches += 1
-    return out.to(q.dtype)
+    return out
 
 
 flash_attention.launches = 0  # kernel launches on CUDA tensors

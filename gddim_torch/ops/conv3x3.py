@@ -13,17 +13,19 @@ Replaces ``gddim_tpu/ops/conv3x3.py``:
 - ``supported``: the JAX gate without its backend test.
 
 The CUDA implementation is ``csrc/conv3x3.cu`` (see its header for what
-bounds it on the H100): the bf16 form drives the implicit-GEMM conv of the
-residual-block kernels with no prologue and no epilogue terms; the int8 form
-is its own kernel that reads int8 A straight from memory and keeps one int32
-accumulator set, so its sums are exact whatever the split of K. On a CPU
-tensor each wrapper runs its plain version; on a CUDA tensor it launches the
-kernel or raises (bf16 activations only). Neither has a backward.
+bounds it on the H100): the bf16 form is an implicit GEMM on ``wgmma`` whose
+A operand comes by TMA as one box of the image per tap (no im2col, SAME
+padding from the TMA unit's zero fill), laid out by ``tile_plan``; the int8
+form reads int8 A straight from memory and keeps one int32 accumulator set,
+so its sums are exact whatever the split of K. On a CPU tensor each wrapper
+runs its plain version; on a CUDA tensor it launches the kernel or raises
+(bf16 activations only). Neither has a backward.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -91,6 +93,68 @@ def quantize_weight_per_channel(w):
 
 
 # --------------------------------------------------------------------------
+# The bf16 kernel's tile plan
+# --------------------------------------------------------------------------
+
+TILE_M = 128  # output pixels of a tile (times mw)
+TILE_N = 128  # output channels of a tile
+SLICE_K = 64  # input channels of one tap per K slice
+SMS = 132  # the H100's SMs: split K only while the tiles leave half of them idle
+MIN_SPLIT_SLICES = 4  # K slices per split, at least
+
+
+class TilePlan(NamedTuple):
+    """How ``conv3x3_wgmma_kernel`` cuts one conv. A tile is mw * TILE_M
+    output pixels; the A box is box_w = W pixels x box_h rows x box_b
+    samples (at most one tile); M tile t covers samples
+    [t // tiles_h * box_b, ... + box_b) and rows [t % tiles_h * box_h, ... +
+    box_h); rows past the batch or the image are read as zero and not
+    written. K = 9 * Cin runs in ``slices`` slices of SLICE_K, ``kper`` to a
+    split, over ``splits`` splits."""
+
+    mw: int
+    box_w: int
+    box_h: int
+    box_b: int
+    tiles_h: int
+    m_tiles: int
+    n_tiles: int
+    slices: int
+    splits: int
+    kper: int
+
+
+def _box(b: int, h: int, w: int, rows: int):
+    """(box_h, box_b, tiles_h, m_tiles) of tiles of ``rows`` pixels."""
+    if h * w >= rows:  # whole rows of one sample
+        box_b, box_h = 1, min(h, rows // w)
+    else:  # whole samples
+        box_b, box_h = min(rows // (h * w), 256), h
+    tiles_h = -(-h // box_h)
+    return box_h, box_b, tiles_h, tiles_h * -(-b // box_b)
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(b: int, h: int, w: int, cin: int, n: int) -> TilePlan:
+    """The tile plan of a (b, h, w, cin) x (3, 3, cin, n) conv: a pure
+    function of the shapes. Tiles of 256 pixels where they alone make a
+    wave of at least 128 CTAs (on the H100 128 such tiles beat 256 of 128
+    pixels), else of 128 with K split while the tiles leave half the SMs
+    idle. Raises for shapes the kernel does not take."""
+    if cin % SLICE_K or n % TILE_N or not 0 < w <= TILE_M:
+        raise ValueError(f"conv3x3_pallas: no tile plan for x {(b, h, w, cin)}, Cout {n}")
+    n_tiles = n // TILE_N
+    mw = 2 if _box(b, h, w, 2 * TILE_M)[3] * n_tiles >= SMS - 4 else 1
+    box_h, box_b, tiles_h, m_tiles = _box(b, h, w, mw * TILE_M)
+    slices = 9 * cin // SLICE_K
+    want = SMS // (m_tiles * n_tiles)
+    splits = max(1, min(want, slices // MIN_SPLIT_SLICES))
+    kper = -(-slices // splits)
+    return TilePlan(mw, w, box_h, box_b, tiles_h, m_tiles, n_tiles, slices,
+                    -(-slices // kper), kper)
+
+
+# --------------------------------------------------------------------------
 # CUDA path
 # --------------------------------------------------------------------------
 
@@ -115,12 +179,14 @@ def conv3x3_pallas(x, w):
     if x.dtype != torch.bfloat16:
         raise ValueError(f"conv3x3_pallas: the kernel takes bf16 activations, got {x.dtype}")
     b, h, ww, cin, n = _check("conv3x3_pallas", x, w.shape)
+    plan = tile_plan(b, h, ww, cin, n)
     xs = _operand(x, "x", torch.bfloat16)
     ws = _operand(w, "w", torch.bfloat16, (3, 3, cin, n))
-    work = torch.empty(_workspace("gddim_conv3x3", b, h, ww, cin, n), device=x.device,
-                       dtype=torch.uint8)
+    work = torch.empty(plan.splits * b * h * ww * n if plan.splits > 1 else 0, device=x.device,
+                       dtype=torch.float32)
     out = torch.empty((b, h, ww, n), device=x.device, dtype=torch.bfloat16)
     _build.launch("gddim_conv3x3", x.device, xs.data_ptr(), ws.data_ptr(), b, h, ww, cin, n,
+                  plan.mw, plan.box_h, plan.box_b, plan.tiles_h, plan.m_tiles, plan.splits, plan.kper,
                   work.data_ptr(), out.data_ptr())
     conv3x3_pallas.launches += 1
     return out

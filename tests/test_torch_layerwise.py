@@ -286,7 +286,9 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,cin,cout", [(4, 32, 128, 128), (4, 16, 384, 256), (4, 4, 512, 256)])
+@pytest.mark.parametrize("b,h,cin,cout", [(4, 32, 128, 128), (4, 16, 384, 256), (4, 4, 512, 256),
+                                         (16, 32, 256, 256), (64, 32, 384, 128),
+                                         (64, 16, 512, 256), (64, 4, 512, 256)])
 def test_conv3x3_kernels_match_plain(cuda, b, h, cin, cout):
     """bf16: the same f32 sums in another order, then one bf16 rounding
     (about 4e-3 of max|out| at most); int8: exact sums, the same dequant."""
