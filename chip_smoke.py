@@ -8,7 +8,12 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
   2. build: nvcc builds gddim_torch/csrc/*.cu (one process per source, in
      parallel), Triton compiles K1;
   3. kernels: each of K1-K5, and the int8 modes of K2-K5 with static and
-     with per-sample scales, at every sampling-path shape and K1 (f32, with
+     with per-sample scales (those of K2-K4, and K9's below, also at B=16
+     and 64, apart from the kernels line, with their device time and share
+     of the int8 peak), then the int8 block GEMM alone at every int8 conv
+     (B=4, and B=64 apart; its sums bit for bit against the exact conv) and
+     its quantize pre-pass at every conv input,
+     at every sampling-path shape and K1 (f32, with
      and without SiLU) and K6-K8 at every training-path shape of the
      cld/accr_dcifar10 NCSN++ (B=4) against its plain version (K1-K8 in f32
      with TF32 off; the int8 modes against their int8 plain versions) on the
@@ -173,6 +178,13 @@ KERNEL_BOUND.update({"K11": 1e-2, "K11-int8": 0.0, "K12": 1e-2})
 # measured 9.8e-4 and 2.5e-3; its gradients are the plain composition's VJP
 # on the same inputs, the same sums (measured 0)
 KERNEL_BOUND.update({"K9": 1e-2, "K9-int8": 1e-2, "K10": 1e-2})
+# The int8 block GEMM alone (unit scales): its int32 sums against the exact
+# float64 conv's, bit for bit (bound 0; every sum under 2^24, where f32
+# holds it exactly). Its quantize pre-pass against the plain version: at
+# most one int8 step apart, and at most S8_FLIP_SHARE of the values (a
+# value on a half step flips on the last bit of the kernel's FMA or SiLU)
+KERNEL_BOUND.update({"S8-GEMM": 0.0, "S8-prepass": 1.0})
+S8_FLIP_SHARE = 1e-3
 K10_GRAD_BOUND = 1e-5
 # The K2-K5 wrappers on f32 activations write f32 (bf16 MMA operands) against
 # the f32 plain composition: measured 7.5e-4 to 1.26e-3 on an H100, about 3x
@@ -205,6 +217,11 @@ PER_EVAL_INT8 = {"K1": 7, "K2-int8": 34, "K3-int8": 36, "K4-int8": 6, "K5-int8":
 # in the head)
 PER_EVAL_FULL = {"K1": 1, "K2": 34, "K3": 36, "K9": 6, "K5": 10}
 PER_EVAL_INT8_FULL = {"K1": 1, "K2-int8": 34, "K3-int8": 36, "K9-int8": 6, "K5-int8": 10}
+# the int8 block GEMM and its quantize pre-pass: once per conv of the 76
+# int8 residual blocks (K2-K4 or K9 int8; K5's projections keep their GEMM),
+# counted in C where each kernel is launched (DEVICE_COUNTED)
+for _per_eval in (PER_EVAL_INT8, PER_EVAL_INT8_FULL):
+    _per_eval.update({"S8-GEMM": 152, "S8-prepass": 152})
 # H100 SXM peaks (NVIDIA's data sheet, dense): operations per second by type,
 # and device memory bytes per second
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
@@ -260,6 +277,13 @@ KERNELS = {
                     replaces="gddim_tpu/ops/resblock.py:1480"),
     "K10": dict(name="fused_attnblock_train", route="cuda", source="gddim_torch/csrc/attnblock.cu",
                 replaces="gddim_tpu/ops/attnblock.py:295"),
+    # the int8 block GEMM (both convs of K2-K4 and K9 in int8) and its
+    # quantize pre-pass: the int8 path of the K2 / K3 Pallas kernels
+    "S8-GEMM": dict(name="int8_conv_gemm", route="cuda", source="gddim_torch/csrc/conv_s8.cu",
+                    replaces="gddim_tpu/ops/resblock.py:600"),
+    "S8-prepass": dict(name="quantize_conv_input", route="cuda",
+                       source="gddim_torch/csrc/resblock.cu",
+                       replaces="gddim_tpu/ops/resblock.py:993"),
 }
 # main-path shapes of cld/accr_dcifar10 (H, channels in, channels out)
 SHAPES = {
@@ -443,15 +467,16 @@ def int8_kernel_cases(B: int):
 
     inp = Inputs(2)
     qw = lambda *shape: rb.quantize_weight(inp.w(*shape))  # noqa: E731
+    qk = lambda *shape: rb.pack_int8_weight(qw(*shape))  # noqa: E731
     for static in (True, False):
-        mode = "static" if static else "dynamic"
+        mode = ("" if B == 4 else f"B={B} ") + ("static" if static else "dynamic")
         res_s, attn_s = (torch.stack(rb.act_scales_from_amax(INT8_AMAX[k])).cuda() if static
                          else None for k in ("res", "attn"))
         for h, cin, cout in SHAPES["K2"]:
             skip = (inp.w(cin, cout), inp.vec(cout)) if cin != cout else (None, None)
             args = (inp.act(B, h, h, cin), inp.act(B, TEMB), inp.w(TEMB, cout).float(),
-                    inp.vec(cout), inp.vec(cin, 1.0), inp.vec(cin), qw(3, 3, cin, cout),
-                    inp.vec(cout), inp.vec(cout, 1.0), inp.vec(cout), qw(3, 3, cout, cout),
+                    inp.vec(cout), inp.vec(cin, 1.0), inp.vec(cin), qk(3, 3, cin, cout),
+                    inp.vec(cout), inp.vec(cout, 1.0), inp.vec(cout), qk(3, 3, cout, cout),
                     inp.vec(cout), *skip, res_s)
             kw = dict(num_groups1=min(cin // 4, 32), num_groups2=min(cout // 4, 32))
             yield ("K2-int8", f"{mode} {h}x{h} {cin}->{cout}",
@@ -461,16 +486,16 @@ def int8_kernel_cases(B: int):
             cin = c1 + c2
             args = (inp.act(B, h, h, c1), inp.act(B, h, h, c2), inp.act(B, TEMB),
                     inp.w(TEMB, cout).float(), inp.vec(cout), inp.vec(cin, 1.0), inp.vec(cin),
-                    qw(3, 3, cin, cout), inp.vec(cout), inp.vec(cout, 1.0), inp.vec(cout),
-                    qw(3, 3, cout, cout), inp.vec(cout), inp.w(cin, cout), inp.vec(cout), res_s)
+                    qk(3, 3, cin, cout), inp.vec(cout), inp.vec(cout, 1.0), inp.vec(cout),
+                    qk(3, 3, cout, cout), inp.vec(cout), inp.w(cin, cout), inp.vec(cout), res_s)
             kw = dict(num_groups1=min(cin // 4, 32), num_groups2=min(cout // 4, 32))
             yield ("K3-int8", f"{mode} {h}x{h} {c1}+{c2}->{cout}",
                    lambda a=args, k=kw: rb.fused_resblock_pair_int8(*a, **k),
                    lambda a=args, k=kw: rb.resblock_pair_int8_reference(*_f32(a), **k), args)
         for h, c, cout in SHAPES["K4"]:
             args = (inp.act(B, h, h, c), inp.act(B, h, h, c), inp.act(B, TEMB),
-                    inp.w(TEMB, cout).float(), inp.vec(cout), qw(3, 3, c, cout), inp.vec(cout),
-                    inp.vec(cout, 1.0), inp.vec(cout), qw(3, 3, cout, cout), inp.vec(cout),
+                    inp.w(TEMB, cout).float(), inp.vec(cout), qk(3, 3, c, cout), inp.vec(cout),
+                    inp.vec(cout, 1.0), inp.vec(cout), qk(3, 3, cout, cout), inp.vec(cout),
                     inp.w(c, cout), inp.vec(cout), res_s)
             kw = dict(num_groups2=min(cout // 4, 32))
             yield ("K4-int8", f"{mode} {h}x{h} {c}->{cout}",
@@ -583,15 +608,35 @@ def _check_kernel(results, kernel, label, fused, plain, args, ops, plain_timed=N
         raise AssertionError(f"{kernel} {label}: rel err {rel:.3e} > {KERNEL_BOUND[kernel]:.0e}")
 
 
-def phase_kernels(results: dict, B: int = 4):
+# batches at which the int8 blocks are also checked and timed: the sampling
+# batches of bench.py's main path; their results stay out of the kernels
+# line, whose rows are at B=4 (print_int8_sums reports them)
+INT8_BATCHES = (16, 64)
+
+
+def int8_device(ops: dict, dev_ms: float) -> dict:
+    """A case's device time (CUDA graph), its int8 products and their share
+    of the int8 peak over that time."""
+    return dict(graph_ms=dev_ms, int8_ops=ops["int8"],
+                int8_peak_share=ops["int8"] / PEAK["int8"] * 1e3 / dev_ms)
+
+
+def phase_kernels(results: dict, batch_results: dict, B: int = 4):
     for kernel, label, fused, plain, args, kw in kernel_cases(B):
         _check_kernel(results, kernel, label, fused, plain, args,
                       lambda out, k=kernel, a=args: _ops_of(k, B, a, out),
                       lambda: plain_bf16(kernel)(*args, **kw), B=B, plain_f32_ms=time_ms(plain))
-    for kernel, label, fused, plain, args in int8_kernel_cases(B):
-        # the int8 plain version sums exactly in float64: no yardstick of speed
-        _check_kernel(results, kernel, label, fused, plain, args,
-                      lambda out, k=kernel, a=args: _ops_of(k, B, a, out), plain_reps=5, B=B)
+    # the int8 modes, with their device time (K2-K4 also at INT8_BATCHES,
+    # into batch_results); the int8 plain version sums exactly in float64:
+    # no yardstick of speed
+    for batch in (B, *INT8_BATCHES):
+        for kernel, label, fused, plain, args in int8_kernel_cases(batch):
+            if batch != B and kernel == "K5-int8":
+                continue
+            out = fused()
+            ops = _ops_of(kernel, batch, args, out)
+            _check_kernel(results if batch == B else batch_results, kernel, label, fused, plain,
+                          args, ops, plain_reps=5, B=batch, **int8_device(ops, graph_ms(fused)))
 
 
 def transition_ops(kernel: str, B: int, h_in: int, c: int, cout: int, up: bool) -> dict:
@@ -600,6 +645,124 @@ def transition_ops(kernel: str, B: int, h_in: int, c: int, cout: int, up: bool) 
     m = B * (2 * h_in if up else h_in // 2) ** 2
     return {"int8" if kernel.endswith("int8") else "bf16": 2 * m * 9 * (c * cout + cout * cout),
             "bf16_skip": 2 * m * c * cout, "f32": 2 * B * TEMB * cout}
+
+
+def s8_shapes():
+    """The int8 block GEMM's convs (H, Cin, Cout), and the conv inputs its
+    pre-pass quantizes (H, channel parts, dtype, GN affine + SiLU), of every
+    K2/K3/K4/K9 int8 shape of the main path (K9's at its output resolution)."""
+    convs, sites = set(), set()
+    blocks = ([(h, (c,), n, "bf16", True) for h, c, n in SHAPES["K2"]]
+              + [(h, parts, n, "bf16", True) for h, parts, n in SHAPES["K3"]]
+              + [(h, (c,), n, "f32", False) for h, c, n in SHAPES["K4"]]
+              + [(2 * h if up else h // 2, (c,), n, "f32", False) for h, c, n, up in SHAPES["K9"]])
+    for h, parts, n, dtype, affine in blocks:
+        convs |= {(h, sum(parts), n), (h, n, n)}
+        sites |= {(h, parts, dtype, affine), (h, (n,), "f32", True)}  # conv1's, conv2's (h1)
+    return sorted(convs), sorted(sites)
+
+
+def phase_s8_kernels(results: dict, batch_results: dict, batches=(4, 64)):
+    """The int8 block GEMM alone at every int8 block conv (unit scales): its
+    int32 sums against the exact float64 conv, bit for bit; the quantize
+    pre-pass at every conv input, static and per-sample scales (the pair's
+    per-sample form a * (127 / amax)), against its plain version. The first
+    batch's results go into the kernels line, the others' into
+    batch_results."""
+    from gddim_torch.ops import conv3x3, resblock as rb
+
+    inp = Inputs(7)
+    convs, sites = s8_shapes()
+    for B in batches:
+        res = results if B == batches[0] else batch_results
+        for h, cin, n in convs:
+            label = f"B={B} {h}x{h} {cin}->{n}"
+            x8, _ = conv3x3.quantize_per_sample(inp.act(B, h, h, cin))
+            wq, _ = rb.quantize_weight(inp.w(3, 3, cin, n))
+            wk, _ = rb.pack_int8_weight((wq, None))
+            fused = lambda: rb.int8_conv_gemm(x8, wk)  # noqa: E731
+            plain = lambda: rb.conv3x3_int8_exact(x8, wq)  # noqa: E731
+            out = fused()
+            torch.cuda.synchronize()
+            ref = plain()
+            top = ref.abs().max().item()
+            exact = out.dtype == torch.float32 and torch.equal(out, ref)
+            err = (out - ref).abs().max().item()
+            ops = {"int8": 2 * B * h * h * 9 * cin * n}
+            ms, plain_ms, dev = time_ms(fused), time_ms(plain, 5), int8_device(ops, graph_ms(fused))
+            bd = bound(nbytes(x8, wk, out), ops)
+            print(f"kernel S8-GEMM int8_conv_gemm [{label}]: sums bit-identical to the exact conv: "
+                  f"{exact} (largest |sum| {top:.0f}, under 2^24: {top < 2 ** 24}) ms={ms:.4f} "
+                  f"device ms={dev['graph_ms']:.4f} plain_ms={plain_ms:.4f} bound_ms={bd[0]:.4f} "
+                  f"({'bytes' if bd[1] >= bd[2] else 'operations'}); "
+                  f"{dev['int8_peak_share']:.1%} of the int8 peak", flush=True)
+            _record(res, "S8-GEMM", label, err, err / top, ms, plain_ms, bd, **dev)
+            if not (exact and top < 2 ** 24):
+                raise AssertionError(f"S8-GEMM {label}: sums differ from the exact conv by {err}")
+        for h, parts, dtype, affine in sites:
+            for static in (True, False):
+                inv_mul = len(parts) == 2 and not static  # the pair's conv1
+                label = (f"B={B} {'static' if static else 'dynamic'} {h}x{h} "
+                         f"{'+'.join(map(str, parts))} {dtype}{' GN+SiLU' if affine else ''}")
+                xs = [inp.act(B, h, h, c) if dtype == "bf16"
+                      else 2 * torch.randn((B, h, h, c), generator=inp.g, device="cuda")
+                      for c in parts]
+                c = sum(parts)
+                sc = sh = None
+                if affine:
+                    sc = 1.0 + 0.3 * torch.randn((B, c), generator=inp.g, device="cuda")
+                    sh = 0.2 * torch.randn((B, c), generator=inp.g, device="cuda")
+                kw = dict(silu=affine, inv_mul=inv_mul)
+                if static:
+                    kw["act_scale"] = rb.act_scales_from_amax((4.0,))[0].cuda()
+                else:
+                    a = torch.cat(xs, -1).float()
+                    if affine:
+                        a = a * sc[:, None, None] + sh[:, None, None]
+                        a = a * torch.sigmoid(a)
+                    kw["amax"] = a.abs().amax(dim=(1, 2, 3))
+                x1 = xs[1] if len(xs) > 1 else None
+                fused = lambda: rb.quantize_conv_input(xs[0], x1, sc, sh, **kw)  # noqa: E731
+                plain = lambda: rb.quantize_conv_input_reference(  # noqa: E731
+                    xs[0], x1, sc, sh, **kw)
+                q = fused()
+                torch.cuda.synchronize()
+                step = (q.int() - plain().int()).abs()
+                steps, share = step.max().item(), (step > 0).float().mean().item()
+                ms, plain_ms, dev_ms = time_ms(fused), time_ms(plain), graph_ms(fused)
+                bd = bound(nbytes(xs, sc, sh, q), {"f32": 8 * q.numel()})
+                print(f"kernel S8-prepass quantize_conv_input [{label}]: int8 values one step "
+                      f"apart {share:.2e} (bound {S8_FLIP_SHARE:.0e}), largest step {steps}; "
+                      f"ms={ms:.4f} device ms={dev_ms:.4f} plain_ms={plain_ms:.4f} "
+                      f"bound_ms={bd[0]:.4f}", flush=True)
+                _record(res, "S8-prepass", label, steps, share, ms, plain_ms, bd,
+                        graph_ms=dev_ms)
+                if q.dtype != torch.int8 or steps > 1 or share > S8_FLIP_SHARE:
+                    raise AssertionError(f"S8-prepass {label}: steps {steps}, share {share:.2e}")
+
+
+def print_int8_sums(*results: dict):
+    """The int8 blocks and the bare GEMM summed by kernel, scale mode and
+    batch: eager and device ms, bound, and the int8 products' share of the
+    int8 peak over the device time."""
+    groups = {}
+    for kernel in ("K2-int8", "K3-int8", "K4-int8", "K9-int8", "S8-GEMM"):
+        for r in (r for res in results for r in res.get(kernel, {}).get("shapes", [])):
+            if "graph_ms" not in r:
+                continue
+            words = r["shape"].split()
+            batch = words[0] if words[0].startswith("B=") else "B=4"
+            mode = next((w for w in words if w in ("static", "dynamic")), "")
+            g = groups.setdefault(" ".join(w for w in (kernel, mode, batch) if w),
+                                  dict(n=0, ms=0.0, dev=0.0, bound=0.0, ops=0))
+            g["n"] += 1
+            for k, v in (("ms", "ms"), ("dev", "graph_ms"), ("bound", "bound_ms"),
+                         ("ops", "int8_ops")):
+                g[k] += r[v]
+    for key, g in groups.items():
+        print(f"sum {key}: {g['n']} shapes, eager {g['ms']:.4f} ms, device {g['dev']:.4f} ms, "
+              f"bound {g['bound']:.4f} ms, {g['ops'] / PEAK['int8'] * 1e3 / g['dev']:.1%} of the "
+              f"int8 peak", flush=True)
 
 
 def print_sums(results: dict):
@@ -630,14 +793,14 @@ def print_sums(results: dict):
               f"at {g['won']} of {g['n']} shapes", flush=True)
 
 
-def phase_transition_kernels(results: dict, B: int = 4):
+def phase_transition_kernels(results: dict, batch_results: dict, B: int = 4):
     """K9 (bf16) and its int8 mode (static and per-sample scales) at the 6
     transition shapes, against the plain versions with the TPU kernel's
-    rounding points; plain ms of the bf16 composition in bf16."""
+    rounding points; plain ms of the bf16 composition in bf16. The int8
+    mode also at INT8_BATCHES, into batch_results."""
     from gddim_torch.ops import resblock as rb
 
     inp = Inputs(4)
-    qw = lambda *shape: rb.quantize_weight(inp.w(*shape))  # noqa: E731
     for h, c, cout, up in SHAPES["K9"]:
         kw = dict(up=up, num_groups1=min(c // 4, 32), num_groups2=min(cout // 4, 32))
         label = f"{'up' if up else 'down'} {h}x{h} {c}->{cout}"
@@ -649,20 +812,36 @@ def phase_transition_kernels(results: dict, B: int = 4):
                       lambda a=args, k=kw: rb.resblock_transition_bf16_reference(*_f32(a), **k),
                       args, transition_ops("K9", B, h, c, cout, up),
                       lambda a=args, k=kw: rb.resblock_transition_reference(*a, **k), B=B)
+    for batch in (B, *INT8_BATCHES):
+        # B's cases draw on from the bf16 cases' inputs
+        cases = transition_int8_cases(batch, inp if batch == B else Inputs(6))
+        for label, fused, plain, args, ops in cases:
+            # the int8 plain version sums exactly in float64: no yardstick of speed
+            _check_kernel(results if batch == B else batch_results, "K9-int8", label, fused,
+                          plain, args, ops, plain_reps=5, B=batch,
+                          **int8_device(ops, graph_ms(fused)))
+
+
+def transition_int8_cases(B: int, inp):
+    """(label, fused fn, plain fn, kernel args, operations) of K9's int8 mode
+    at the 6 transition shapes, static and per-sample scales, drawn from
+    ``inp`` (an Inputs)."""
+    from gddim_torch.ops import resblock as rb
+
+    qk = lambda *shape: rb.pack_int8_weight(rb.quantize_weight(inp.w(*shape)))  # noqa: E731
     for static in (True, False):
         scales = torch.stack(rb.act_scales_from_amax(INT8_AMAX["res"])).cuda() if static else None
         for h, c, cout, up in SHAPES["K9"]:
             kw = dict(up=up, num_groups1=min(c // 4, 32), num_groups2=min(cout // 4, 32))
-            label = f"{'static' if static else 'dynamic'} {'up' if up else 'down'} {h}x{h} {c}->{cout}"
+            label = (("" if B == 4 else f"B={B} ") + ("static " if static else "dynamic ")
+                     + f"{'up' if up else 'down'} {h}x{h} {c}->{cout}")
             args = (inp.act(B, h, h, c), inp.act(B, TEMB), inp.w(TEMB, cout).float(),
-                    inp.vec(cout), inp.vec(c, 1.0), inp.vec(c), qw(3, 3, c, cout), inp.vec(cout),
-                    inp.vec(cout, 1.0), inp.vec(cout), qw(3, 3, cout, cout), inp.vec(cout),
+                    inp.vec(cout), inp.vec(c, 1.0), inp.vec(c), qk(3, 3, c, cout), inp.vec(cout),
+                    inp.vec(cout, 1.0), inp.vec(cout), qk(3, 3, cout, cout), inp.vec(cout),
                     inp.w(c, cout), inp.vec(cout), scales)
-            # the int8 plain version sums exactly in float64: no yardstick of speed
-            _check_kernel(results, "K9-int8", label,
-                          lambda a=args, k=kw: rb.fused_resblock_transition_int8(*a, **k),
-                          lambda a=args, k=kw: rb.resblock_transition_int8_reference(*_f32(a), **k),
-                          args, transition_ops("K9-int8", B, h, c, cout, up), plain_reps=5, B=B)
+            yield (label, lambda a=args, k=kw: rb.fused_resblock_transition_int8(*a, **k),
+                   lambda a=args, k=kw: rb.resblock_transition_int8_reference(*_f32(a), **k),
+                   args, transition_ops("K9-int8", B, h, c, cout, up))
 
 
 def phase_attn_train_kernels(results: dict, B: int = 4):
@@ -975,13 +1154,25 @@ def counters():
             "K10": attnblock.fused_attnblock_train}
 
 
+# kernels launched inside a C call (an int8 block's convs), counted in C where
+# each is launched: row -> kernel of ops/resblock.py:s8_launches
+DEVICE_COUNTED = {"S8-GEMM": "conv_s8_wgmma_kernel", "S8-prepass": "s8_prepass_kernel"}
+
+
 def reset_counts():
+    from gddim_torch.ops import resblock
+
     for fn in counters().values():
         fn.launches = 0
+    resblock.s8_launches(reset=True)
 
 
 def read_counts():
-    return {k: fn.launches for k, fn in counters().items()}
+    from gddim_torch.ops import resblock
+
+    counts = {k: fn.launches for k, fn in counters().items()}
+    s8 = resblock.s8_launches()
+    return {**counts, **{k: s8[name] for k, name in DEVICE_COUNTED.items()}}
 
 
 def eps_inputs(batch: int = 4):
@@ -1260,7 +1451,7 @@ def _profile(name: str, run, batch: int, card: str, evals: int):
     dev = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total = sum(ms for _, ms, _ in dev)
-    top = sorted(dev, key=lambda r: -r[1])[:8]
+    top = sorted(dev, key=lambda r: -r[1])[:12]
     print(f"profile {name} eval B={batch} [{card}]: wall {wall:.3f} ms (mean of {evals}); "
           f"traced eval: wall {traced:.3f} ms, host enqueue {enqueue:.3f} ms, device "
           f"{total:.3f} ms in {sum(n for *_, n in dev)} kernels, idle share "
@@ -1512,7 +1703,10 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    root = Path(__file__).resolve().parent
+    if not (root / "gddim_torch").is_dir():
+        raise SystemExit(f"chip_smoke: no gddim_torch package in {root}")
+    sys.path.insert(0, str(root))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
@@ -1530,15 +1724,18 @@ def main(argv=None):
     print(f"build: nvcc {_build.build_seconds:.1f} s, total with Triton "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    results: dict = {}
+    results: dict = {}  # the kernels line's (B=4)
+    batch_results: dict = {}  # the int8 blocks and the bare GEMM at other batches
     if "kernels" in phases:
-        phase_kernels(results)
+        phase_kernels(results, batch_results)
+        phase_s8_kernels(results, batch_results)
         phase_train_kernels(results)
         phase_layer_kernels(results)
-        phase_transition_kernels(results)
+        phase_transition_kernels(results, batch_results)
         phase_attn_train_kernels(results)
         phase_f32_activations()
         print_sums(results)
+        print_int8_sums(results, batch_results)
     config = get_config("cld/accr_dcifar10")
     # the transitions through K1, the FIR passes and K4: the path each phase's
     # K9 run (run_k9) is held against

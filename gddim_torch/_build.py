@@ -59,23 +59,33 @@ _SIGNATURES = {
     "gddim_resblock_transition_int8_workspace": [_I, _I, _I, _I, _I, _I],
     # gddim_resblock_transition_int8(x, c, temb, dense_w, dense_b, temb_k, gn1_g, gn1_b, groups1,
     #   w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, ws, bs, act_scales, B, H_in, W_in, up,
-    #   kh0..kh3, kw0..kw3, N, eps, out_scale, work, splits1, kper1, splits2, kper2, out, stream)
+    #   kh0..kh3, kw0..kw3, N, eps, out_scale, work, mw, box_h, box_b, tiles_h, m_tiles,
+    #   splits1, kper1, splits2, kper2, out, stream)
     "gddim_resblock_transition_int8": [
         _P, _I, _P, _P, _P, _I, _P, _P, _I,
         _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-        _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
+        _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _P, _I, _I, _I, _I, _I,
+        _I, _I, _I, _I, _P, _P,
     ],
     # gddim_resblock_int8_workspace(B, H, W, Cin, N, splits)
     "gddim_resblock_int8_workspace": [_I, _I, _I, _I, _I, _I],
     # gddim_resblock_int8(x0, x1, c0, c1, temb, dense_w, dense_b, temb_k, gn1_g, gn1_b,
     #   groups1, w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, s0, s1, cs0, cs1, ws, bs,
-    #   act_scales, B, H, W, N, eps, out_scale, work, splits1, kper1, splits2, kper2, out,
-    #   stream)
+    #   act_scales, B, H, W, N, eps, out_scale, work, mw, box_h, box_b, tiles_h, m_tiles,
+    #   splits1, kper1, splits2, kper2, out, stream)
     "gddim_resblock_int8": [
         _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
         _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P,
-        _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
+        _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
+    # gddim_s8_prepass(xa, xb, ca, cb, act_f32, B, HW, scale, shift, silu, qs, amax, inv_mul,
+    #   out, stream)
+    "gddim_s8_prepass": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P],
+    # gddim_conv_s8(a8, wk, wsc, qs, B, H, W, Cin, N, mw, box_h, box_b, tiles_h, m_tiles,
+    #   splits, kper, work, out, stream)
+    "gddim_conv_s8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # gddim_s8_launches(out, reset): launches of the kernels counted in C (no stream)
+    "gddim_s8_launches": [_P, _I],
     # gddim_resblock_train_workspace(B, H, W, Cin, N, splits)
     "gddim_resblock_train_workspace": [_I, _I, _I, _I, _I, _I],
     # gddim_resblock_train(x, c, temb_row, gn1_g, gn1_b, groups1, w1, b1, gn2_g, gn2_b,

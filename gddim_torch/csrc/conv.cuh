@@ -1,5 +1,6 @@
-// Shared interface of the implicit-GEMM conv and the GroupNorm statistics
-// (defined in resblock.cu), used by attnblock.cu and resblock_bwd.cu.
+// Shared interface of the implicit-GEMM convs and the GroupNorm statistics
+// (defined in resblock.cu and conv_s8.cu), used by attnblock.cu,
+// resblock_bwd.cu and transition.cu.
 //
 // Activations are bf16 (inference, K2-K5) or f32 (training, K6/K7); the
 // tensor-core operands are bf16 with f32 accumulation either way, or int8
@@ -100,7 +101,7 @@ int conv_gemm_launch_as(const ConvArgs& p, bool a_f32, bool out_f32, cudaStream_
 // (splits, K per split) that keep a small-M GEMM's grid filling the card.
 void conv_split_plan(long m, int n, int k, int* splits, int* kper);
 
-// The int8 mode of the conv GEMM (K2-K5 with mm_dtype int8): the prologue
+// The int8 mode of the conv GEMM (K5 with mm_dtype int8): the prologue
 // quantizes A to int8, W arrives int8 with one scale per output channel, the
 // products accumulate in int32 and the epilogue dequantizes them.
 struct Int8Args {
@@ -118,6 +119,52 @@ struct Int8Args {
 int conv_gemm_s8_launch(const ConvArgs& p, const Int8Args& q, bool a_f32, bool out_f32,
                         cudaStream_t stream);
 
+// The M tiling of the int8 block GEMM (conv_s8.cu), from the tile plan
+// (ops/resblock.py:s8_tile_plan): tiles of 128 * mw output pixels, each one
+// TMA box of W pixels x box_h rows x box_b samples; tiles_h tiles per sample
+// group along H, m_tiles in all.
+struct S8Tiles {
+  int mw, box_h, box_b, tiles_h, m_tiles;
+};
+
+// One conv of the int8 block GEMM (conv_s8.cu): a 3x3 SAME conv of the
+// pre-pass's int8 activation by K-major int8 weights, its int32 sums
+// dequantized in place, then an optional bf16 1x1 skip into the same f32
+// accumulators, then the epilogue:
+//   out = (conv(a, w) * (wsc[n] * s) + skip + bias + bias2 + temb[b] + resid) * out_scale
+// s = *qs (static), else max(amax[b], 1e-12) / 127 of the row's sample b.
+struct S8Gemm {
+  const int8_t* a;  // (B, H, W, cin) int8
+  const int8_t* w;  // (N, 9 * cin) int8, K-major
+  int cin;
+  const void* s0;   // skip inputs (M, cs0) and (M, cs1) bf16, or s0 null: no skip
+  const void* s1;
+  int cs0, cs1;
+  const void* ws;   // (cs0 + cs1, N) bf16
+  int B, H, W, N;
+  const float* wsc;   // (N,) weight scales
+  const float* qs;    // static activation scale (one device float), or null
+  const float* amax;  // (B,) per-sample amax when qs is null
+  const float* bias;  // (N,) or null, likewise bias2
+  const float* bias2;
+  const float* temb;   // (B, N) row added per sample, or null
+  const void* resid;   // (M, N) bf16 identity residual, or null
+  float out_scale;
+  void* out;  // (M, N) f32 (out_f32) or bf16
+  bool out_f32;
+  float* partial;  // (splits, M, N) f32 dequantized split-K partials, when splits > 1
+  int splits, kper;  // K slices (128 int8 or 64 bf16 channels) per split
+};
+
+// conv_s8_wgmma_kernel (+ conv_s8_splitk_kernel when g.splits > 1). Returns
+// cudaError_t (cudaErrorInvalidValue for a plan or shape it does not take).
+int conv_s8_launch(const S8Gemm& g, const S8Tiles& t, cudaStream_t stream);
+
+// Kernels launched inside a block's C call, counted where they are launched
+// (one each time the launch succeeds; gddim_s8_launches reads the counts).
+enum S8Counted { COUNT_CONV_S8 = 0, COUNT_S8_PREPASS = 1, S8_COUNTED = 2 };
+void count_s8_launch(S8Counted kernel);
+
 // The int8 block (gddim_resblock_int8's arguments, in order) with conv1's
 // input x0 f32 (x_f32, no x1) or bf16, and, when amax1 is non-null, the
 // per-sample amax of conv1's input already made (dynamic scales only).
@@ -128,8 +175,9 @@ int resblock_int8_run(const void* x0, const void* x1, int c0, int c1, bool x_f32
                       const void* gn2_g, const void* gn2_b, int groups2, const void* w2q,
                       const void* w2s, const void* b2, const void* s0, const void* s1, int cs0,
                       int cs1, const void* ws, const void* bs, const void* act_scales, int batch,
-                      int h, int w_, int n, float eps, float out_scale, void* work, int splits1,
-                      int kper1, int splits2, int kper2, void* out, cudaStream_t st);
+                      int h, int w_, int n, float eps, float out_scale, void* work,
+                      const S8Tiles& tiles, int splits1, int kper1, int splits2, int kper2,
+                      void* out, cudaStream_t st);
 
 // amax[b] = max |f(x)| over sample b of the logical concat (xa, xb), f the
 // per-(sample, channel) affine (scale, shift; none when null) and SiLU when

@@ -55,42 +55,43 @@
 // and of the block backward (resblock_bwd.cu), through conv.cuh.
 //
 // int8 mode (K2-K4 with mm_dtype int8, conv_impl 'fused_int8'; the entry
-// gddim_resblock_int8). Replaces the same three Pallas kernels' int8 path:
-// _resblock_kernel_v2 with static scales, _resblock_kernel and
-// _resblock_pair_kernel with per-sample (dynamic) scales.
+// gddim_resblock_int8, and K9's through transition.cu). Replaces the same
+// three Pallas kernels' int8 path: _resblock_kernel_v2 with static scales,
+// _resblock_kernel and _resblock_pair_kernel with per-sample (dynamic)
+// scales. One C call, resblock_int8_run, of 7-9 launches:
 //
-//   conv_gemm_s8_kernel  the implicit GEMM with int8 A and W tiles (WMMA s8
-//                        16x16x16, int32 sums). The prologue applies the GN
-//                        affine (+SiLU) in f32 and quantizes straight to
-//                        int8: clip(rint(a * (1/s))) with a static scale,
-//                        clip(rint(a / s_b)) with s_b = max(amax_b, 1e-12)/127
-//                        per sample (the pair's conv1: a * (127/amax_b)), as
-//                        the TPU kernels write each. W is int8 with a scale
-//                        per output channel. The epilogue dequantizes the
-//                        int32 sum by (w_scale * s) and adds bias and temb.
-//   amax_kernel          dynamic mode only: the per-sample amax of the
-//                        quantized activation, one pass before each conv;
-//                        atomicMax on the bit patterns of non-negative
-//                        floats, so the result does not depend on the order.
+//   temb_proj_kernel, gn_affine_kernel (GN1 statistics), amax_kernel
+//                        (dynamic only: the per-sample amax of a1)
+//   s8_prepass_kernel    a1 = GN1 affine (+SiLU) of the logical concat (x0,
+//                        x1) in f32, quantized once to int8 NHWC in the
+//                        workspace by quantize8: clip(rint(a * (1/s))) with a
+//                        static scale, clip(rint(a / s_b)) with s_b =
+//                        max(amax_b, 1e-12)/127 per sample (the pair's conv1:
+//                        a * (127/amax_b)), as the TPU kernels write each
+//   conv_s8_launch       conv1 (conv_s8.cu: wgmma s8 fed by TMA, K-major
+//                        int8 weights with a scale per output channel), int32
+//                        sums dequantized by (w_scale * s), + b1 + temb -> h1 f32
+//   gn_affine_kernel, amax_kernel, s8_prepass_kernel   the same for a2 =
+//                        silu(GN2(h1)), into the same int8 buffer
+//   conv_s8_launch       conv2 + the bf16 1x1 skip (or the identity residual)
+//                        + b2 + b_skip, * out_scale -> bf16 out
 //
-// h1 stays f32 between the convs (GN2's statistics and the a2 quantization
-// read it). The 1x1 skip runs bf16 (the TPU kernels' dynamic-skip form; the
-// model never passes a static skip scale): an int32 and an f32 sum cannot
-// share an accumulator, so conv2's kernel keeps two sets, int32 for the conv
-// slices and f32 for the skip slices, and adds them in the epilogue (a
-// separate skip GEMM would write and re-read an M x N f32 scratch). A split
-// of split-K dequantizes its own int32 partial and adds its f32 skip partial;
-// the reduction sums the f32 partials in split order. Dequantization is
-// linear, so the only difference from summing int32 partials is one f32
-// rounding per partial (relative 6e-8), far under the bf16 output's 4e-3.
+// (each conv adds a split-K reduction when its grid is small). h1 stays f32
+// between the convs (GN2's statistics and the a2 quantization read it). The
+// skip runs bf16 (the TPU kernels' dynamic-skip form; the model never passes
+// a static skip scale). What bounds the GEMM and what its design does about
+// it: conv_s8.cu's header. The pre-pass moves bytes (at 32x32x256, B=64 ~34
+// MB of bf16 in, ~17 MB of int8 out, mostly kept in L2 for the GEMM) and
+// replaces the prologue that conv_gemm_s8_kernel recomputes for every tap.
 //
-// What bounds it on the H100: the same as the bf16 mode, now against the
-// int8 peak (1,979 TOP/s) and 3.35 TB/s: at 32x32 and 16x16 the int8 convs
-// would be tensor-core bound, at 8x8 and 4x4 the weight bytes (halved by
-// int8) and launch latency. The design keeps the quantization inside the
-// conv prologue, so int8 adds no pass over activations in static mode; the
-// dynamic mode adds one amax read per conv. A 64x64x32 WMMA tile with a
-// register-staged double buffer is the simple first form, as in bf16.
+//   conv_gemm_s8_kernel  the first int8 GEMM, now K5's only (attnblock.cu, the
+//                        1x1 projections): WMMA s8 16x16x16 on a 64x64x32
+//                        tile, register-staged double buffer, quantize8 in
+//                        the A prologue, an int32 and an f32 (skip) set
+//   amax_kernel          dynamic mode: the per-sample amax of the quantized
+//                        activation, one pass before each conv; atomicMax on
+//                        the bit patterns of non-negative floats, so the
+//                        result does not depend on the order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -544,8 +545,44 @@ __device__ __forceinline__ void load_stage_s8(const ConvArgs& p, const int8_t* w
   st.b = *reinterpret_cast<const uint4*>(wq + (long)(k0 + (t >> 2)) * p.N + n0 + (t & 3) * 16);
 }
 
-// A through the GN affine (+SiLU) in f32, quantized to int8; zero where the
-// tap is padding (the TPU kernels pad the quantized tile with zeros).
+// The int8 values of 8 activations f of sample b: the GN affine (+SiLU)
+// in f32 first when sc is non-null, then clip(rint(a * inv_static))
+// (static), clip(rint(a * (127 / amax_b))) (inv_mul: the pair's conv1) or
+// clip(rint(a / (amax_b / 127))), amax_b = max(amax[b], 1e-12), as the TPU
+// kernels write each. The one quantizer of the int8 modes: the block
+// pre-pass (s8_prepass_kernel) and K5's GEMM prologue both call it.
+__device__ __forceinline__ uint2 quantize8(float f[8], const float* sc, const float* sh,
+                                           int silu_on, float inv_static, const Int8Args& q,
+                                           int b) {
+  if (sc != nullptr) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      f[j] = f[j] * sc[j] + sh[j];
+      if (silu_on) f[j] = silu(f[j]);
+    }
+  }
+  uint2 v;
+  int8_t* e = reinterpret_cast<int8_t*>(&v);
+  if (q.qs != nullptr) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) e[j] = quant8(f[j] * inv_static);
+  } else {
+    const float am = fmaxf(q.amax[b], 1e-12f);
+    if (q.inv_mul) {
+      const float inv = 127.0f / am;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e[j] = quant8(f[j] * inv);
+    } else {
+      const float s = am / 127.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e[j] = quant8(f[j] / s);
+    }
+  }
+  return v;
+}
+
+// A through quantize8; zero where the tap is padding (the TPU kernels pad
+// the quantized tile with zeros).
 template <typename T>
 __device__ __forceinline__ void store_stage_s8(const ConvArgs& p, const Int8Args& q,
                                                float inv_static, const StageS8<T>& st,
@@ -560,31 +597,10 @@ __device__ __forceinline__ void store_stage_s8(const ConvArgs& p, const Int8Args
     if (st.a_b[i] >= 0) {
       float f[8];
       unpack8(st.a[i], f);
-      if (p.scale != nullptr) {
-        const float* sc = p.scale + (long)st.a_b[i] * cin + st.a_c[i];
-        const float* sh = p.shift + (long)st.a_b[i] * cin + st.a_c[i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          f[j] = f[j] * sc[j] + sh[j];
-          if (p.silu) f[j] = silu(f[j]);
-        }
-      }
-      int8_t* e = reinterpret_cast<int8_t*>(&v);
-      if (q.qs != nullptr) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) e[j] = quant8(f[j] * inv_static);
-      } else {
-        const float am = fmaxf(q.amax[st.a_b[i]], 1e-12f);
-        if (q.inv_mul) {
-          const float inv = 127.0f / am;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) e[j] = quant8(f[j] * inv);
-        } else {
-          const float s = am / 127.0f;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) e[j] = quant8(f[j] / s);
-        }
-      }
+      const long base = (long)st.a_b[i] * cin + st.a_c[i];
+      v = quantize8(f, p.scale != nullptr ? p.scale + base : nullptr,
+                    p.scale != nullptr ? p.shift + base : nullptr, p.silu, inv_static, q,
+                    st.a_b[i]);
     }
     *reinterpret_cast<uint2*>(&As[col >> 4][row][col & 15]) = v;
   }
@@ -780,6 +796,53 @@ amax_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, int cb, 
   }
 }
 
+// The int8 block's quantize pre-pass: the logical concat (xa, xb) of one
+// conv's input through quantize8, written once as int8 NHWC (B, H, W, ca+cb)
+// for the GEMM's TMA loads (conv_s8.cu). Each element is quantized once,
+// where conv_gemm_s8_kernel's prologue quantizes it again for each tap.
+// grid ceil(M * (ca+cb) / 8 / 256), 256 threads, 8 channels each.
+template <typename T>
+__global__ void __launch_bounds__(256)
+s8_prepass_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, int cb, long vecs,
+                  int hw, const float* __restrict__ scale, const float* __restrict__ shift,
+                  int silu_on, const Int8Args q, int8_t* __restrict__ out) {
+  const long v = (long)blockIdx.x * 256 + threadIdx.x;
+  if (v >= vecs) return;
+  const int c_tot = ca + cb;
+  const long pix = v * 8 / c_tot;
+  const int c = (int)(v * 8 - pix * c_tot);
+  const int b = (int)(pix / hw);
+  Pack8<T> pk;
+  if (c < ca)
+    ld8(pk, xa + pix * ca + c);
+  else
+    ld8(pk, xb + pix * cb + (c - ca));
+  float f[8];
+  unpack8(pk, f);
+  const long base = (long)b * c_tot + c;
+  const float inv_static = q.qs != nullptr ? 1.0f / *q.qs : 0.0f;
+  *reinterpret_cast<uint2*>(out + pix * c_tot + c) =
+      quantize8(f, scale != nullptr ? scale + base : nullptr,
+                scale != nullptr ? shift + base : nullptr, silu_on, inv_static, q, b);
+}
+
+int s8_prepass_launch(const void* xa, const void* xb, int ca, int cb, bool f32, int batch, int hw,
+                      const float* scale, const float* shift, int silu_on, const Int8Args& q,
+                      int8_t* out, cudaStream_t st) {
+  if (ca % 8 || cb % 8) return (int)cudaErrorInvalidValue;
+  const long vecs = (long)batch * hw * (ca + cb) / 8;
+  const unsigned grid = (unsigned)((vecs + 255) / 256);
+  if (f32)
+    s8_prepass_kernel<float><<<grid, 256, 0, st>>>((const float*)xa, (const float*)xb, ca, cb,
+                                                   vecs, hw, scale, shift, silu_on, q, out);
+  else
+    s8_prepass_kernel<bf16><<<grid, 256, 0, st>>>((const bf16*)xa, (const bf16*)xb, ca, cb, vecs,
+                                                  hw, scale, shift, silu_on, q, out);
+  const int err = (int)cudaGetLastError();
+  if (!err) count_s8_launch(COUNT_S8_PREPASS);
+  return err;
+}
+
 // Scratch of one int8 block (null base: sizes only).
 struct WorkS8 {
   float* temb;     // (B, N) temb row
@@ -789,6 +852,7 @@ struct WorkS8 {
   float* sc2;      // (B, N) GN2 affine
   float* sh2;
   float* amax;     // (2, B) dynamic mode: per-sample amax of a1, a2
+  int8_t* a8;      // (M, max(Cin, N)) the pre-pass's int8 conv input, conv1's then conv2's
   float* partial;  // (splits, M, N) split-K partial sums
   size_t bytes;
 };
@@ -808,6 +872,7 @@ WorkS8 carve_s8(char* base, int batch, long m, int cin, int n, int splits) {
   w.sc2 = (float*)take(sizeof(float) * batch * n);
   w.sh2 = (float*)take(sizeof(float) * batch * n);
   w.amax = (float*)take(sizeof(float) * 2 * batch);
+  w.a8 = (int8_t*)take((size_t)m * (cin > n ? cin : n));
   w.partial = splits > 1 ? (float*)take(sizeof(float) * splits * m * n) : nullptr;
   w.bytes = off;
   return w;
@@ -974,13 +1039,16 @@ int resblock_int8_run(const void* x0, const void* x1, int c0, int c1, bool x_f32
                       const void* gn2_g, const void* gn2_b, int groups2, const void* w2q,
                       const void* w2s, const void* b2, const void* s0, const void* s1, int cs0,
                       int cs1, const void* ws, const void* bs, const void* act_scales, int batch,
-                      int h, int w_, int n, float eps, float out_scale, void* work, int splits1,
-                      int kper1, int splits2, int kper2, void* out, cudaStream_t st) {
+                      int h, int w_, int n, float eps, float out_scale, void* work,
+                      const S8Tiles& tiles, int splits1, int kper1, int splits2, int kper2,
+                      void* out, cudaStream_t st) {
   const int hw = h * w_;
-  const WorkS8 wk = carve_s8((char*)work, batch, (long)batch * hw, c0 + c1, n,
+  const int cin = c0 + c1;
+  const WorkS8 wk = carve_s8((char*)work, batch, (long)batch * hw, cin, n,
                              splits1 > splits2 ? splits1 : splits2);
   const bool gn1 = groups1 > 0;
   const float* qs = (const float*)act_scales;
+  const float* am1 = amax1 ? amax1 : wk.amax;
   temb_proj_kernel<<<dim3((n + 31) / 32, batch), dim3(32, TEMB_ROWS), 0, st>>>(
       (const float*)temb, (const float*)dense_w, (const float*)dense_b, wk.temb, temb_k, n);
   int err = (int)cudaGetLastError();
@@ -990,34 +1058,64 @@ int resblock_int8_run(const void* x0, const void* x1, int c0, int c1, bool x_f32
   if (!err && qs == nullptr && amax1 == nullptr)
     err = amax_launch(x0, x1, c0, c1, batch, hw, gn1 ? wk.sc1 : nullptr, gn1 ? wk.sh1 : nullptr,
                       gn1 ? 1 : 0, wk.amax, x_f32, st);
+  if (!err) {  // q(a1), the pair's per-sample form a * (127 / amax)
+    const Int8Args q = {nullptr, nullptr, qs, am1, x1 != nullptr};
+    err = s8_prepass_launch(x0, x1, c0, c1, x_f32, batch, hw, gn1 ? wk.sc1 : nullptr,
+                            gn1 ? wk.sh1 : nullptr, gn1 ? 1 : 0, q, wk.a8, st);
+  }
+  S8Gemm g = {};
+  g.a = wk.a8;
+  g.B = batch;
+  g.H = h;
+  g.W = w_;
+  g.N = n;
+  g.partial = wk.partial;
   if (!err) {  // h1 = conv1(q(a1)) * (w1s * s1) + b1 + temb, f32
-    ConvArgs p = conv_args(x0, c0, gn1 ? wk.sc1 : nullptr, gn1 ? wk.sh1 : nullptr, gn1 ? 1 : 0, 9,
-                           nullptr, batch, h, w_, n, b1, 1.0f, wk.h1, wk.partial, splits1, kper1);
-    p.a1 = x1;
-    p.ca1 = c1;
-    p.temb = wk.temb;
-    const Int8Args q = {(const int8_t*)w1q, (const float*)w1s, qs, amax1 ? amax1 : wk.amax,
-                        x1 != nullptr};
-    err = conv_gemm_s8_launch(p, q, x_f32, true, st);
+    g.w = (const int8_t*)w1q;
+    g.cin = cin;
+    g.wsc = (const float*)w1s;
+    g.qs = qs;
+    g.amax = am1;
+    g.bias = (const float*)b1;
+    g.temb = wk.temb;
+    g.out_scale = 1.0f;
+    g.out = wk.h1;
+    g.out_f32 = true;
+    g.splits = splits1;
+    g.kper = kper1;
+    err = conv_s8_launch(g, tiles, st);
   }
   if (!err)
     err = gn_affine_launch(wk.h1, nullptr, n, 0, batch, hw, groups2, (const float*)gn2_g,
                            (const float*)gn2_b, eps, wk.sc2, wk.sh2, nullptr, nullptr, true, st);
   if (!err && qs == nullptr)
     err = amax_launch(wk.h1, nullptr, n, 0, batch, hw, wk.sc2, wk.sh2, 1, wk.amax + batch, true, st);
+  if (!err) {  // q(a2) over conv1's int8 input, which conv1 has finished reading
+    const Int8Args q = {nullptr, nullptr, qs ? qs + 1 : nullptr, wk.amax + batch, 0};
+    err = s8_prepass_launch(wk.h1, nullptr, n, 0, true, batch, hw, wk.sc2, wk.sh2, 1, q, wk.a8,
+                            st);
+  }
   if (!err) {  // out = (conv2(q(a2)) * (w2s * s2) + skip + b2 + b_skip) * out_scale
-    ConvArgs p = conv_args(wk.h1, n, wk.sc2, wk.sh2, 1, 9, nullptr, batch, h, w_, n, b2, out_scale,
-                           out, wk.partial, splits2, kper2);
-    p.s0 = s0;
-    p.s1 = s1;
-    p.cs0 = cs0;
-    p.cs1 = cs1;
-    p.ws = (const bf16*)ws;
-    p.bias2 = (const float*)bs;
-    p.resid = s0 ? nullptr : x0;
-    const Int8Args q = {(const int8_t*)w2q, (const float*)w2s, qs ? qs + 1 : nullptr,
-                        wk.amax + batch, 0};
-    err = conv_gemm_s8_launch(p, q, true, false, st);
+    g.w = (const int8_t*)w2q;
+    g.cin = n;
+    g.s0 = s0;
+    g.s1 = s1;
+    g.cs0 = cs0;
+    g.cs1 = cs1;
+    g.ws = ws;
+    g.wsc = (const float*)w2s;
+    g.qs = qs ? qs + 1 : nullptr;
+    g.amax = wk.amax + batch;
+    g.bias = (const float*)b2;
+    g.bias2 = (const float*)bs;
+    g.temb = nullptr;
+    g.resid = s0 ? nullptr : x0;
+    g.out_scale = out_scale;
+    g.out = out;
+    g.out_f32 = false;
+    g.splits = splits2;
+    g.kper = kper2;
+    err = conv_s8_launch(g, tiles, st);
   }
   return err;
 }
@@ -1029,10 +1127,13 @@ long long gddim_resblock_int8_workspace(int batch, int h, int w, int cin, int n,
 }
 
 // The int8 mode of K2 / K3 / K4 (arguments as gddim_resblock, with the
-// convs' int8 weights w1q/w2q (HWIO) and their per-output-channel scales
-// w1s/w2s). act_scales: the static scales [s1, s2] (a device array), or
-// null for per-sample scales; x1 non-null (the pair) quantizes conv1's input
-// as a * (127 / amax). The skip (ws, bs) is bf16.
+// convs' int8 weights w1q/w2q K-major (N, 9 * Cin), as pack_int8_weight
+// makes them, and their per-output-channel scales w1s/w2s). act_scales: the
+// static scales [s1, s2] (a device array), or null for per-sample scales;
+// x1 non-null (the pair) quantizes conv1's input as a * (127 / amax). The
+// skip (ws, bs) is bf16. The tile plan (ops/resblock.py:s8_tile_plan): the
+// M tiling (mw, box_h, box_b, tiles_h, m_tiles), shared by both convs, and
+// each conv's split of K.
 int gddim_resblock_int8(const void* x0, const void* x1, int c0, int c1, const void* temb,
                         const void* dense_w, const void* dense_b, int temb_k, const void* gn1_g,
                         const void* gn1_b, int groups1, const void* w1q, const void* w1s,
@@ -1040,12 +1141,27 @@ int gddim_resblock_int8(const void* x0, const void* x1, int c0, int c1, const vo
                         const void* w2q, const void* w2s, const void* b2, const void* s0,
                         const void* s1, int cs0, int cs1, const void* ws, const void* bs,
                         const void* act_scales, int batch, int h, int w_, int n, float eps,
-                        float out_scale, void* work, int splits1, int kper1, int splits2,
-                        int kper2, void* out, void* stream) {
+                        float out_scale, void* work, int mw, int box_h, int box_b, int tiles_h,
+                        int m_tiles, int splits1, int kper1, int splits2, int kper2, void* out,
+                        void* stream) {
   return resblock_int8_run(x0, x1, c0, c1, false, nullptr, temb, dense_w, dense_b, temb_k, gn1_g,
                            gn1_b, groups1, w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, s0,
                            s1, cs0, cs1, ws, bs, act_scales, batch, h, w_, n, eps, out_scale, work,
-                           splits1, kper1, splits2, kper2, out, (cudaStream_t)stream);
+                           S8Tiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1, splits2,
+                           kper2, out, (cudaStream_t)stream);
+}
+
+// The int8 block's quantize pre-pass alone: out (B, H, W, ca+cb) int8 from
+// the logical concat (xa, xb) (f32 with act_f32, else bf16), through the
+// per-(sample, channel) affine (scale, shift; none when null) and SiLU
+// (silu, with the affine only), then quantized by the static scale *qs or
+// per sample by amax (B,) (inv_mul: a * (127 / amax)).
+int gddim_s8_prepass(const void* xa, const void* xb, int ca, int cb, int act_f32, int batch,
+                     int hw, const void* scale, const void* shift, int silu_on, const void* qs,
+                     const void* amax, int inv_mul, void* out, void* stream) {
+  const Int8Args q = {nullptr, nullptr, (const float*)qs, (const float*)amax, inv_mul};
+  return s8_prepass_launch(xa, xb, ca, cb, act_f32 != 0, batch, hw, (const float*)scale,
+                           (const float*)shift, silu_on, q, (int8_t*)out, (cudaStream_t)stream);
 }
 
 long long gddim_resblock_workspace(int batch, int h, int w, int cin, int n, int splits,

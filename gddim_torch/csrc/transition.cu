@@ -27,7 +27,8 @@
 //                                    atomicMax on the float bits) and xr
 //                                    (the raw x resampled, rounded to bf16)
 //   the K4 path of resblock.cu       conv1 with GN1 off, GN2, conv2 with xr as
-//                                    the 1x1 skip's K segment (bf16 or int8)
+//                                    the 1x1 skip's K segment (bf16; int8
+//                                    through the int8 block GEMM, conv_s8.cu)
 //
 // What bounds it on the H100: the two 3x3 convs, as in K4 (tensor-core bound
 // at 16x16 and 32x32, weight bytes and latency at 4x4 and 8x8). The resample
@@ -294,10 +295,12 @@ long long gddim_resblock_transition_int8_workspace(int batch, int h, int w, int 
                      gddim_resblock_int8_workspace(batch, h, w, c, n, splits));
 }
 
-// K9, int8 mode: x bf16; conv weights int8 with per-output-channel scales;
-// act_scales the static [s1, s2] (a device array), or null for per-sample
-// scales. h stays f32 (quantized unrounded in conv1's prologue); the skip
-// runs bf16 on xr. Scratch: gddim_resblock_transition_int8_workspace bytes.
+// K9, int8 mode: x bf16; conv weights int8 K-major (N, 9 * Cin) with
+// per-output-channel scales; act_scales the static [s1, s2] (a device array),
+// or null for per-sample scales. h stays f32 (quantized unrounded by the
+// int8 block's pre-pass); the skip runs bf16 on xr. The tile plan as
+// gddim_resblock_int8 takes it, at the output resolution. Scratch:
+// gddim_resblock_transition_int8_workspace bytes.
 int gddim_resblock_transition_int8(const void* x, int c, const void* temb, const void* dense_w,
                                    const void* dense_b, int temb_k, const void* gn1_g,
                                    const void* gn1_b, int groups1, const void* w1q,
@@ -307,8 +310,9 @@ int gddim_resblock_transition_int8(const void* x, int c, const void* temb, const
                                    const void* act_scales, int batch, int h_in, int w_in, int up,
                                    float kh0, float kh1, float kh2, float kh3, float kw0,
                                    float kw1, float kw2, float kw3, int n, float eps,
-                                   float out_scale, void* work, int splits1, int kper1,
-                                   int splits2, int kper2, void* out, void* stream) {
+                                   float out_scale, void* work, int mw, int box_h, int box_b,
+                                   int tiles_h, int m_tiles, int splits1, int kper1, int splits2,
+                                   int kper2, void* out, void* stream) {
   if (c % 8 || h_in % 2 || w_in % 2) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int ho = out_size(h_in, up), wo = out_size(w_in, up);
@@ -326,8 +330,9 @@ int gddim_resblock_transition_int8(const void* x, int c, const void* temb, const
   return resblock_int8_run(wk.h, nullptr, c, 0, true, dynamic ? wk.amax : nullptr, temb, dense_w,
                            dense_b, temb_k, nullptr, nullptr, 0, w1q, w1s, b1, gn2_g, gn2_b,
                            groups2, w2q, w2s, b2, wk.xr, nullptr, c, 0, ws, bs, act_scales, batch,
-                           ho, wo, n, eps, out_scale, wk.rest, splits1, kper1, splits2, kper2, out,
-                           st);
+                           ho, wo, n, eps, out_scale, wk.rest,
+                           S8Tiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1, splits2,
+                           kper2, out, st);
 }
 
 }  // extern "C"

@@ -81,6 +81,13 @@ def _quantized(w, dtype):
     return rb.quantize_weight(w.detach().to(dtype))
 
 
+def _kmajor(w) -> bool:
+    """Whether the residual blocks' int8 conv weights are packed K-major
+    (``pack_int8_weight``), as the int8 block GEMM reads them: on the card;
+    the plain versions take HWIO."""
+    return w.is_cuda
+
+
 # (int8 kernel, bf16 kernel, plain composition) of each residual block kind
 _RES_OPS = {
     "tail": (rb.fused_resblock_tail_int8, rb.fused_resblock_tail, rb.resblock_tail_reference),
@@ -166,14 +173,17 @@ class ResnetBlockBigGANpp(nn.Module):
         return _RES_OPS["stride1"][mode](x, temb, *tail, *gn1, *mid, **kw)
 
     def _int8_weights(self, params, dtype, qscales):
-        """(conv1 and conv2 quantized, the bf16 skip or None, the static
-        [s1, s2] or None), made once and remade when a weight or amax changes."""
+        """(conv1 and conv2 quantized, K-major on the card, the bf16 skip or
+        None, the static [s1, s2] or None), made once and remade when a
+        weight or amax changes."""
         amaxes = _site_amaxes(qscales, ("a1", "a2"))
 
         def make():
             w1, w2, *skip = params
-            return (_quantized(w1, dtype), _quantized(w2, dtype), _bf16(skip)[0] if skip else None,
-                    _static_scales(amaxes))
+            convs = [_quantized(w, dtype) for w in (w1, w2)]
+            if _kmajor(w1):
+                convs = [rb.pack_int8_weight(c) for c in convs]
+            return (*convs, _bf16(skip)[0] if skip else None, _static_scales(amaxes))
 
         return self._kw8.get(params + amaxes, make, tag=(dtype,))
 

@@ -31,6 +31,7 @@ import torch
 
 from gddim_torch import _build
 from gddim_torch.ops.resblock import (
+    SMS,
     _div,
     _on_cpu,
     _operand,
@@ -38,6 +39,7 @@ from gddim_torch.ops.resblock import (
     conv3x3_nhwc,
     quantize_weight,
     require_no_grad,
+    tile_box,
 )
 
 
@@ -99,7 +101,6 @@ def quantize_weight_per_channel(w):
 TILE_M = 128  # output pixels of a tile (times mw)
 TILE_N = 128  # output channels of a tile
 SLICE_K = 64  # input channels of one tap per K slice
-SMS = 132  # the H100's SMs: split K only while the tiles leave half of them idle
 MIN_SPLIT_SLICES = 4  # K slices per split, at least
 
 
@@ -124,16 +125,6 @@ class TilePlan(NamedTuple):
     kper: int
 
 
-def _box(b: int, h: int, w: int, rows: int):
-    """(box_h, box_b, tiles_h, m_tiles) of tiles of ``rows`` pixels."""
-    if h * w >= rows:  # whole rows of one sample
-        box_b, box_h = 1, min(h, rows // w)
-    else:  # whole samples
-        box_b, box_h = min(rows // (h * w), 256), h
-    tiles_h = -(-h // box_h)
-    return box_h, box_b, tiles_h, tiles_h * -(-b // box_b)
-
-
 @functools.lru_cache(maxsize=None)
 def tile_plan(b: int, h: int, w: int, cin: int, n: int) -> TilePlan:
     """The tile plan of a (b, h, w, cin) x (3, 3, cin, n) conv: a pure
@@ -144,8 +135,8 @@ def tile_plan(b: int, h: int, w: int, cin: int, n: int) -> TilePlan:
     if cin % SLICE_K or n % TILE_N or not 0 < w <= TILE_M:
         raise ValueError(f"conv3x3_pallas: no tile plan for x {(b, h, w, cin)}, Cout {n}")
     n_tiles = n // TILE_N
-    mw = 2 if _box(b, h, w, 2 * TILE_M)[3] * n_tiles >= SMS - 4 else 1
-    box_h, box_b, tiles_h, m_tiles = _box(b, h, w, mw * TILE_M)
+    mw = 2 if tile_box(b, h, w, 2 * TILE_M)[3] * n_tiles >= SMS - 4 else 1
+    box_h, box_b, tiles_h, m_tiles = tile_box(b, h, w, mw * TILE_M)
     slices = 9 * cin // SLICE_K
     want = SMS // (m_tiles * n_tiles)
     splits = max(1, min(want, slices // MIN_SPLIT_SLICES))

@@ -38,7 +38,13 @@ a * (127 / amax), as its TPU kernel writes it). The int32 sums are
 dequantized by (weight scale * s), h1 stays f32 between the convs, and the
 1x1 skip runs bf16 with f32 sums: the model never hands the kernels a static
 skip scale (the JAX package's ``static_skip`` opt-in), and these wrappers
-refuse one.
+refuse one. On the card each conv is a quantize pre-pass
+(``quantize_conv_input``) and the int8 block GEMM (``csrc/conv_s8.cu``,
+``int8_conv_gemm``): wgmma s8 fed by TMA, which reads the int8 weights
+K-major, (Cout, 9 * Cin), as ``pack_int8_weight`` makes them once from
+``quantize_weight``'s HWIO; the CUDA wrappers take only that layout, the
+plain versions either. Its tile plan is ``s8_tile_plan``; ``s8_launches``
+reads how often the card ran the GEMM and the pre-pass, counted in C.
 
 Weights are in the JAX package's layout: conv kernels HWIO (3, 3, Cin, Cout),
 the skip (Cin, Cout), the temb Dense (K, Cout).
@@ -47,6 +53,7 @@ the skip (Cin, Cout), the temb Dense (K, Cout).
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -157,6 +164,21 @@ def quantize_weight(w):
     return torch.clamp(torch.round(w / sc), -127, 127).to(torch.int8), sc
 
 
+def pack_int8_weight(w):
+    """(int8 HWIO (3, 3, Cin, Cout), scale) -> (int8 K-major (Cout, 9 * Cin),
+    scale): row n holds output channel n's weights in the HWIO K order
+    (tap-major, then input channel), as the int8 block GEMM's TMA reads them
+    (8-bit wgmma takes its B operand K-major only)."""
+    wq, sc = w
+    return wq.reshape(-1, wq.shape[-1]).t().contiguous(), sc
+
+
+def hwio_int8_weight(wq, cin: int):
+    """The HWIO int8 weights of ``wq`` in either layout: K-major (Cout, 9 *
+    Cin) unpacked, HWIO as it is."""
+    return wq.t().reshape(3, 3, cin, -1) if wq.dim() == 2 else wq
+
+
 def check_act_scales(act_scales):
     """act_scales must be None (dynamic) or the two static scales; the static
     int8 skip projection (a third scale, sx) is not ported."""
@@ -221,6 +243,31 @@ def conv3x3_int8_exact(q, wq):
     return conv3x3_nhwc(q.double(), wq.double()).float()
 
 
+def quantize_conv_input_reference(x0, x1=None, scale=None, shift=None, *, silu: bool = False,
+                                  act_scale=None, amax=None, inv_mul: bool = False):
+    """Plain version of the int8 block's quantize pre-pass: a = concat(x0,
+    x1) in f32; with scale and shift (B, C), a * scale[b] + shift[b], then
+    SiLU (silu); quantized with the static act_scale as clip(round(a *
+    (1/s))), else per sample by amax (B,) (max|a| of the sample when None):
+    clip(round(a / s_b)), s_b = max(amax_b, 1e-12) / 127, or with inv_mul
+    clip(round(a * (127 / max(amax_b, 1e-12)))). int8, x0's shape but C."""
+    a = (x0 if x1 is None else torch.cat([x0, x1], -1)).float()
+    bshape = (a.shape[0],) + (1,) * (a.dim() - 1)
+    if scale is not None:
+        cshape = bshape[:-1] + (-1,)
+        a = a * scale.float().reshape(cshape) + shift.float().reshape(cshape)
+        if silu:
+            a = a * torch.sigmoid(a)
+    if act_scale is not None:
+        q = quant_static(a, act_scale.float().reshape(()))
+    else:
+        am = a.abs().amax(dim=tuple(range(1, a.dim()))) if amax is None else amax.float()
+        am = am.reshape(bshape).clamp_min(1e-12)
+        q = torch.clamp(torch.round(a * (torch.full_like(am, 127.0) / am) if inv_mul
+                                    else a / _div(am, 127.0)), -127, 127)
+    return q.to(torch.int8)
+
+
 def _int8_block(a1, x_skip, temb_proj, w1, b1, gn2_scale, gn2_bias, w2, b2, w_skip, b_skip,
                 act_scales, num_groups2, eps, skip_rescale, out_dtype, pair: bool,
                 fold2: bool | None = None):
@@ -228,6 +275,7 @@ def _int8_block(a1, x_skip, temb_proj, w1, b1, gn2_scale, gn2_bias, w2, b2, w_sk
     GN2's affine folded (default: with static scales, as K2-K4's vectorized
     bodies; K9 never folds)."""
     (w1q, w1s), (w2q, w2s) = w1, w2
+    w1q, w2q = hwio_int8_weight(w1q, a1.shape[-1]), hwio_int8_weight(w2q, w1s.shape[-1])
     static = act_scales is not None
     if static:
         s1, s2 = act_scales.float()
@@ -433,6 +481,7 @@ def resblock_train_reference(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scal
 # --------------------------------------------------------------------------
 
 _BM, _BN, _BK = 64, 64, 32  # conv_gemm_kernel's tile (csrc/resblock.cu)
+SMS = 132  # the H100's streaming multiprocessors
 _TARGET_BLOCKS = 4 * 132  # four resident blocks on each of the H100's 132 SMs
 _MIN_SPLIT_SLICES = 8  # K slices per split, at least
 
@@ -455,6 +504,82 @@ def _plan(entry: str, b: int, h: int, w: int, cin: int, cskip: int, n: int, *ext
     s1, k1 = split_k(b * h * w, n, 9 * cin)
     s2, k2 = split_k(b * h * w, n, 9 * n + cskip)
     return s1, k1, s2, k2, _build.workspace_bytes(entry, b, h, w, cin, n, max(s1, s2), *extra)
+
+
+def tile_box(b: int, h: int, w: int, rows: int):
+    """(box_h, box_b, tiles_h, m_tiles) of M tiles of ``rows`` output pixels
+    cut from (b, h, w) as one TMA box each: whole rows of one sample, or
+    whole samples (the wgmma convs, K11 and the int8 block GEMM)."""
+    if h * w >= rows:  # whole rows of one sample
+        box_b, box_h = 1, min(h, rows // w)
+    else:  # whole samples
+        box_b, box_h = min(rows // (h * w), 256), h
+    tiles_h = -(-h // box_h)
+    return box_h, box_b, tiles_h, tiles_h * -(-b // box_b)
+
+
+# The int8 block GEMM's tiling (csrc/conv_s8.cu)
+S8_TILE_M = 128  # output pixels of a tile (times mw)
+S8_TILE_N = 128  # output channels of a tile
+S8_SLICE = 128  # int8 channels of one tap in a conv K slice (128 bytes)
+S8_SKIP_SLICE = 64  # bf16 channels in a skip K slice (128 bytes)
+S8_MIN_SPLIT_SLICES = 4  # K slices per split, at least
+
+
+class S8Plan(NamedTuple):
+    """How ``conv_s8_wgmma_kernel`` cuts one conv (+ skip). A tile is mw *
+    S8_TILE_M output pixels, one A box of W pixels x box_h rows x box_b
+    samples; M tile t covers samples [t // tiles_h * box_b, ... + box_b) and
+    rows [t % tiles_h * box_h, ... + box_h); the grid's N tiles are Cout /
+    S8_TILE_N. K runs in conv_slices int8 slices of S8_SLICE channels (9 *
+    Cin in tap order), then skip_slices bf16 slices of S8_SKIP_SLICE,
+    ``kper`` to a split, over ``splits`` splits. The ring's depth and shared
+    memory follow from mw in the kernel (``S8Tile``)."""
+
+    mw: int
+    box_h: int
+    box_b: int
+    tiles_h: int
+    m_tiles: int
+    conv_slices: int
+    skip_slices: int
+    splits: int
+    kper: int
+
+
+@functools.lru_cache(maxsize=None)
+def s8_tile_plan(b: int, h: int, w: int, cin: int, cskip: int, n: int) -> S8Plan:
+    """The int8 block GEMM's plan for a (b, h, w, cin) x (3, 3, cin, n) conv
+    with a cskip-channel bf16 skip: a pure function of the shapes, K11's
+    rules (``ops/conv3x3.py:tile_plan``): tiles of 256 pixels where they
+    alone make a wave of at least 128 CTAs, else of 128, with K split while
+    the tiles leave half the SMs idle. Raises for shapes the kernel does not
+    take."""
+    if cin % S8_SLICE or cskip % S8_SKIP_SLICE or n % S8_TILE_N or not 0 < w <= S8_TILE_M:
+        raise ValueError(f"int8 block GEMM: no tile plan for x {(b, h, w, cin)}, skip {cskip}, "
+                         f"Cout {n} (Cin and Cout multiples of {S8_SLICE}, the skip of "
+                         f"{S8_SKIP_SLICE}, W at most {S8_TILE_M})")
+    n_tiles = n // S8_TILE_N
+    mw = 2 if tile_box(b, h, w, 2 * S8_TILE_M)[3] * n_tiles >= SMS - 4 else 1
+    box_h, box_b, tiles_h, m_tiles = tile_box(b, h, w, mw * S8_TILE_M)
+    conv_slices, skip_slices = 9 * cin // S8_SLICE, cskip // S8_SKIP_SLICE
+    slices = conv_slices + skip_slices
+    splits = max(1, min(SMS // (m_tiles * n_tiles), slices // S8_MIN_SPLIT_SLICES))
+    kper = -(-slices // splits)
+    return S8Plan(mw, box_h, box_b, tiles_h, m_tiles, conv_slices, skip_slices,
+                  -(-slices // kper), kper)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_s8(entry: str, b: int, h: int, w: int, cin: int, cskip: int, n: int):
+    """(M tiling, (splits1, kper1, splits2, kper2), workspace bytes) of one
+    int8 block through ``entry`` (gddim_resblock_int8 or the transition's):
+    conv1 (cin -> n) and conv2 (n -> n, + the cskip-channel skip) share the
+    M tiling."""
+    p1, p2 = s8_tile_plan(b, h, w, cin, 0, n), s8_tile_plan(b, h, w, n, cskip, n)
+    tiles = (p1.mw, p1.box_h, p1.box_b, p1.tiles_h, p1.m_tiles)
+    nbytes = _build.workspace_bytes(entry, b, h, w, cin, n, max(p1.splits, p2.splits))
+    return tiles, (p1.splits, p1.kper, p2.splits, p2.kper), nbytes
 
 
 def require_no_grad(what: str, *tensors) -> None:
@@ -497,6 +622,8 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
     convs = [*w1, *w2] if int8 else [w1, w2]
     require_no_grad("resblock kernel", *parts, temb, dense_w, dense_b, *(gn1 or ())[:2], *convs,
                     b1, gn2_scale, gn2_bias, b2, *(skip_parts or ()), w_skip, b_skip)
+    if int8:
+        check_act_scales(act_scales)
     bf16, f32 = torch.bfloat16, torch.float32
     act = activation_dtype(parts[0], "resblock int8 kernel" if int8 else "resblock kernel", int8)
     b, h, w, _ = parts[0].shape
@@ -505,14 +632,20 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
           for p in skip_parts or ()] + [None, None]
     c0, c1 = (p.shape[-1] if p is not None else 0 for p in xs[:2])
     cs0, cs1 = (p.shape[-1] if p is not None else 0 for p in ss[:2])
-    cin, n = c0 + c1, (w1[0] if int8 else w1).shape[-1]
-    if any(c % 8 for c in (c0, c1, cs0, cs1)) or cin % _BK or (cs0 + cs1) % _BK or n % _BN:
+    cin, n = c0 + c1, (w1[1] if int8 else w1).shape[-1]
+    skip_unit = S8_SKIP_SLICE if int8 else 8  # each skip part in whole K slices
+    if (any(c % 8 for c in (c0, c1)) or cs0 % skip_unit or cs1 % skip_unit or cin % _BK
+            or (cs0 + cs1) % _BK or n % _BN):
         raise ValueError(f"resblock: unsupported channels {c0}+{c1} (skip {cs0}+{cs1}) -> {n}")
     if skip_parts is None and cin != n:
         raise ValueError("resblock: identity skip needs Cin == Cout")
     entry = "gddim_resblock_int8" if int8 else "gddim_resblock"
     act_f32 = () if int8 else (int(act == f32),)  # the bf16 entry's activation flag
-    s1, k1, s2, k2, nbytes = _plan(entry, b, h, w, cin, cs0 + cs1, n, *act_f32)
+    if int8:
+        tiles, splits, nbytes = _plan_s8(entry, b, h, w, cin, cs0 + cs1, n)
+        plan = (*tiles, *splits)
+    else:
+        *plan, nbytes = _plan(entry, b, h, w, cin, cs0 + cs1, n, *act_f32)
     temb = _operand(temb, "temb", f32)
     gn1 = gn1 or (None, None, 0)
     skip = skip_parts is not None
@@ -525,7 +658,8 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
     def conv(wt, what, shape):  # bf16 weights, or int8 weights and their scales
         if not int8:
             return [op(wt, what, bf16, shape)]
-        return [op(wt[0], what, torch.int8, shape), op(wt[1], f"{what} scales", f32, shape[-1:])]
+        return [op(kmajor_int8(wt[0], shape, what), what, torch.int8),
+                op(wt[1], f"{what} scales", f32, shape[-1:])]
 
     args = [
         _build.ptr(xs[0]), _build.ptr(xs[1]), c0, c1, _build.ptr(temb),
@@ -539,14 +673,25 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
         op(b_skip, "b_skip", f32, (n,)) if skip else None,
     ]
     if int8:
-        check_act_scales(act_scales)
         args.append(op(act_scales, "act scales", f32, (2,)))
     dev = xs[0].device
     work = torch.empty(nbytes, device=dev, dtype=torch.uint8)
     out = torch.empty((b, h, w, n), device=dev, dtype=act)
     _build.launch(entry, dev, *args, b, h, w, n, eps, _INV_SQRT2 if skip_rescale else 1.0,
-                  work.data_ptr(), s1, k1, s2, k2, out.data_ptr(), *act_f32)
+                  work.data_ptr(), *plan, out.data_ptr(), *act_f32)
     return out
+
+
+def kmajor_int8(wq, hwio_shape, what: str):
+    """wq, the int8 weights of a conv of HWIO shape ``hwio_shape``, checked
+    to be K-major (Cout, 9 * Cin) as the int8 block GEMM reads them; raises
+    on any other layout (HWIO included): the model packs them once
+    (``pack_int8_weight``)."""
+    kshape = (hwio_shape[-1], 9 * hwio_shape[-2])
+    if tuple(wq.shape) != kshape:
+        raise ValueError(f"{what}: the int8 block kernels take K-major int8 weights {kshape} "
+                         f"(pack_int8_weight), got {tuple(wq.shape)}")
+    return wq
 
 
 def _on_cpu(x, what):
@@ -669,7 +814,7 @@ def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2
     bf16, f32 = torch.bfloat16, torch.float32
     act = activation_dtype(x, what, int8)
     b, hin, win, cin = x.shape
-    n = (w1[0] if int8 else w1).shape[-1]
+    n = (w1[1] if int8 else w1).shape[-1]
     if w_skip is None or not transition_supported(x.shape, n, up, fir, fir_kernel):
         raise ValueError(f"{what}: unsupported block {tuple(x.shape)} -> {n} (the 1x1 skip is "
                          "required; channels in whole GEMM tiles, even H and W)")
@@ -677,7 +822,11 @@ def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2
     kh, kw = transition_kerns(up, fir, fir_kernel)
     act_f32 = () if int8 else (int(act == f32),)
     entry = "gddim_resblock_transition" + ("_int8" if int8 else "")
-    s1, k1, s2, k2, nbytes = _plan(entry, b, ho, wo, cin, cin, n, *act_f32)
+    if int8:
+        tiles, splits, nbytes = _plan_s8(entry, b, ho, wo, cin, cin, n)
+        plan = (*tiles, *splits)
+    else:
+        *plan, nbytes = _plan(entry, b, ho, wo, cin, cin, n, *act_f32)
     temb = _operand(temb, "temb", f32)
     keep = []  # operands stay referenced until the launch: a cast's temporary must not be freed
 
@@ -688,7 +837,8 @@ def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2
     def conv(wt, what_, shape):  # bf16 weights, or int8 weights and their scales
         if not int8:
             return [op(wt, what_, bf16, shape)]
-        return [op(wt[0], what_, torch.int8, shape), op(wt[1], f"{what_} scales", f32, shape[-1:])]
+        return [op(kmajor_int8(wt[0], shape, what_), what_, torch.int8),
+                op(wt[1], f"{what_} scales", f32, shape[-1:])]
 
     args = [
         op(x, "x", act, (b, hin, win, cin)), cin, _build.ptr(temb),
@@ -705,7 +855,7 @@ def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2
     work = torch.empty(nbytes, device=x.device, dtype=torch.uint8)
     out = torch.empty((b, ho, wo, n), device=x.device, dtype=act)
     _build.launch(entry, x.device, *args, b, hin, win, int(up), *kh, *kw, n, eps,
-                  _INV_SQRT2 if skip_rescale else 1.0, work.data_ptr(), s1, k1, s2, k2,
+                  _INV_SQRT2 if skip_rescale else 1.0, work.data_ptr(), *plan,
                   out.data_ptr(), *act_f32)
     return out
 
@@ -744,6 +894,72 @@ def fused_resblock_transition_int8(x, temb, dense_w, dense_b, gn1_scale, gn1_bia
     out = _transition_cuda(*args, int8=True, **kw)
     fused_resblock_transition_int8.launches += 1
     return out
+
+
+def quantize_conv_input(x0, x1=None, scale=None, shift=None, *, silu: bool = False,
+                        act_scale=None, amax=None, inv_mul: bool = False):
+    """The int8 block's quantize pre-pass alone (see
+    quantize_conv_input_reference for the arguments): (B, H, W, C0+C1) int8.
+    On CUDA x0, x1 bf16 or f32, scale and shift (B, C) f32, and either the
+    static act_scale (one f32) or the per-sample amax (B,)."""
+    if _on_cpu(x0, "quantize_conv_input"):
+        return quantize_conv_input_reference(x0, x1, scale, shift, silu=silu, act_scale=act_scale,
+                                             amax=amax, inv_mul=inv_mul)
+    require_no_grad("quantize_conv_input", x0, x1, scale, shift)
+    f32 = torch.float32
+    act = activation_dtype(x0, "quantize_conv_input", False)
+    b, h, w, c0 = x0.shape
+    c1 = 0 if x1 is None else x1.shape[-1]
+    if c0 % 8 or c1 % 8 or (act_scale is None) == (amax is None):
+        raise ValueError("quantize_conv_input: channels in multiples of 8, and act_scale or amax")
+    ops = [_operand(x0, "x0", act), _operand(x1, "x1", act, (b, h, w, c1)),
+           _operand(scale, "scale", f32, (b, c0 + c1)), _operand(shift, "shift", f32, (b, c0 + c1)),
+           _operand(act_scale, "act_scale", f32), _operand(amax, "amax", f32, (b,))]
+    if ops[4] is not None and ops[4].numel() != 1:
+        raise ValueError("quantize_conv_input: act_scale is one scale")
+    x0_, x1_, sc, sh, qs, am = map(_build.ptr, ops)
+    out = torch.empty((b, h, w, c0 + c1), device=x0.device, dtype=torch.int8)
+    _build.launch("gddim_s8_prepass", x0.device, x0_, x1_, c0, c1, int(act == f32), b, h * w, sc,
+                  sh, int(silu), qs, am, int(inv_mul), out.data_ptr())
+    return out
+
+
+def int8_conv_gemm(a8, wq):
+    """The int8 block GEMM alone on one 3x3 SAME conv with unit scales: the
+    int32 sums of (B, H, W, Cin) int8 ``a8`` by int8 weights ``wq`` as f32
+    (exact below 2^24), (B, H, W, Cout). On CUDA ``wq`` is K-major (Cout, 9
+    * Cin); the plain version (``conv3x3_int8_exact``) takes either layout."""
+    cin = a8.shape[-1]
+    if _on_cpu(a8, "int8_conv_gemm"):
+        return conv3x3_int8_exact(a8, hwio_int8_weight(wq, cin))
+    b, h, w, _ = a8.shape
+    n = wq.shape[-1] if wq.dim() == 4 else wq.shape[0]
+    wk = _operand(kmajor_int8(wq, (3, 3, cin, n), "int8_conv_gemm"), "wq", torch.int8)
+    plan = s8_tile_plan(b, h, w, cin, 0, n)
+    f32, dev = torch.float32, a8.device
+    a = _operand(a8, "a8", torch.int8, (b, h, w, cin))
+    ones = torch.ones(n, device=dev, dtype=f32)
+    work = torch.empty(plan.splits * b * h * w * n if plan.splits > 1 else 0, device=dev, dtype=f32)
+    out = torch.empty((b, h, w, n), device=dev, dtype=f32)
+    _build.launch("gddim_conv_s8", dev, a.data_ptr(), wk.data_ptr(), ones.data_ptr(),
+                  ones.data_ptr(), b, h, w, cin, n, plan.mw, plan.box_h, plan.box_b, plan.tiles_h,
+                  plan.m_tiles, plan.splits, plan.kper, work.data_ptr(), out.data_ptr())
+    return out
+
+
+# The kernels that run inside a C call (an int8 block's two convs, or the two
+# wrappers above), counted in C where each is launched, in csrc/conv.cuh's
+# S8Counted order
+S8_COUNTED = ("conv_s8_wgmma_kernel", "s8_prepass_kernel")
+
+
+def s8_launches(reset: bool = False) -> dict:
+    """{kernel: launches} of S8_COUNTED since the kernel library loaded or
+    the last reset (reset: zero them after reading). Builds or loads the
+    library; a CUDA graph's replays do not count."""
+    out = torch.zeros(len(S8_COUNTED), dtype=torch.int64)
+    _build.library().gddim_s8_launches(out.data_ptr(), int(reset))
+    return dict(zip(S8_COUNTED, out.tolist()))
 
 
 def _resblock_train_cuda(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, w2,

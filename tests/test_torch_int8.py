@@ -460,7 +460,9 @@ def test_resblock_int8_kernel_matches_plain(cuda, static, kind, h, cin, cout):
     xs = [_on(x, cuda, bf16=True) for x in xs]
     ts = _scales(static, A1, A2)
     ts = None if ts is None else ts.to(cuda)
-    ws = [t_rb.quantize_weight(_on(w, cuda)) for w in (w1, w2)]
+    # K-major, as the model hands them to the kernels on the card (the plain
+    # versions take either layout)
+    ws = [t_rb.pack_int8_weight(t_rb.quantize_weight(_on(w, cuda))) for w in (w1, w2)]
     common = [_on(a, cuda) for a in (temb, dw, db)]
     body = [ws[0], _on(b1, cuda), *[_on(a, cuda) for a in g2], ws[1], _on(b2, cuda),
             *[_on(a, cuda) for a in sk], ts]

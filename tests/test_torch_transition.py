@@ -555,7 +555,9 @@ def test_transition_int8_kernel_matches_plain(cuda, static, h, c, up):
         transition_args(Draw(41), 4, h, c, c), cuda)
     x = x.to(torch.bfloat16)
     ts = torch.stack(t_rb.act_scales_from_amax((4.0, 4.0))).to(cuda) if static else None
-    args = (temb, dw, db, g1s, g1b, _q(w1), b1, g2s, g2b, _q(w2), b2, ws, bs, ts)
+    # K-major, as the model hands them to the kernels on the card
+    w1, w2 = (t_rb.pack_int8_weight(_q(w)) for w in (w1, w2))
+    args = (temb, dw, db, g1s, g1b, w1, b1, g2s, g2b, w2, b2, ws, bs, ts)
     kw = dict(up=up, num_groups1=32, num_groups2=32)
     with torch.no_grad():
         out = t_rb.fused_resblock_transition_int8(x, *args, **kw)
