@@ -7,12 +7,17 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      power limit;
   2. build: nvcc builds gddim_torch/csrc/*.cu (one process per source, in
      parallel), Triton compiles K1;
-  3. kernels: each of K1-K5, and the int8 modes of K2-K5 with static and
-     with per-sample scales (those of K2-K4, and K9's below, also at B=16
-     and 64, apart from the kernels line, with their device time and share
-     of the int8 peak), then the int8 block GEMM alone at every int8 conv
-     (B=4, and B=64 apart; its sums bit for bit against the exact conv) and
-     its quantize pre-pass at every conv input,
+  3. kernels: each of K1-K5 (K2-K4, and K9 below, also at B=16 and 64,
+     apart from the kernels line, with their device time and share of the
+     bf16 peak), and the int8 modes of K2-K5 with static and with
+     per-sample scales (those of K2-K4, and K9's below, also at B=16 and 64,
+     with their device time and share of the int8 peak), then the int8
+     block GEMM alone at every int8 conv (B=4, and B=64 apart; its sums bit
+     for bit against the exact conv) and its quantize pre-pass at every conv
+     input, then the block GEMM's bf16 mode alone at every bf16 block conv
+     (B=4 and 64, against the f32 conv, beside F.conv2d on channels_last
+     bf16, eager and device time) and its bf16 pre-pass at every conv input
+     it makes (at most one bf16 ulp off),
      at every sampling-path shape and K1 (f32, with
      and without SiLU) and K6-K8 at every training-path shape of the
      cld/accr_dcifar10 NCSN++ (B=4) against its plain version (K1-K8 in f32
@@ -185,6 +190,13 @@ KERNEL_BOUND.update({"K9": 1e-2, "K9-int8": 1e-2, "K10": 1e-2})
 # value on a half step flips on the last bit of the kernel's FMA or SiLU)
 KERNEL_BOUND.update({"S8-GEMM": 0.0, "S8-prepass": 1.0})
 S8_FLIP_SHARE = 1e-3
+# The bf16 block GEMM alone against the f32 conv of the same bf16 values:
+# f32 sums in another order and f32 out, held to K11's gate (1e-2). Its
+# pre-pass against the plain version: at most one bf16 ulp apart, on at most
+# BF16_FLIP_SHARE of the values (a value near a rounding boundary flips on
+# the last bit of the kernel's SiLU, __expf and a division)
+KERNEL_BOUND.update({"BF16-GEMM": 1e-2, "BF16-prepass": 1.0})
+BF16_FLIP_SHARE = 1e-3
 K10_GRAD_BOUND = 1e-5
 # The K2-K5 wrappers on f32 activations write f32 (bf16 MMA operands) against
 # the f32 plain composition: measured 7.5e-4 to 1.26e-3 on an H100, about 3x
@@ -222,6 +234,11 @@ PER_EVAL_INT8_FULL = {"K1": 1, "K2-int8": 34, "K3-int8": 36, "K9-int8": 6, "K5-i
 # counted in C where each kernel is launched (DEVICE_COUNTED)
 for _per_eval in (PER_EVAL_INT8, PER_EVAL_INT8_FULL):
     _per_eval.update({"S8-GEMM": 152, "S8-prepass": 152})
+# ... and in the bf16 path its bf16 mode: once per conv of the 76 bf16 blocks
+# (K2-K4 or K9), the pre-pass before the 70 K2/K3 conv1s and all 76 conv2s
+# (K4's and K9's conv1 read h as it is)
+for _per_eval in (PER_EVAL, PER_EVAL_FULL):
+    _per_eval.update({"BF16-GEMM": 152, "BF16-prepass": 146})
 # H100 SXM peaks (NVIDIA's data sheet, dense): operations per second by type,
 # and device memory bytes per second
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
@@ -279,11 +296,20 @@ KERNELS = {
                 replaces="gddim_tpu/ops/attnblock.py:295"),
     # the int8 block GEMM (both convs of K2-K4 and K9 in int8) and its
     # quantize pre-pass: the int8 path of the K2 / K3 Pallas kernels
-    "S8-GEMM": dict(name="int8_conv_gemm", route="cuda", source="gddim_torch/csrc/conv_s8.cu",
+    "S8-GEMM": dict(name="int8_conv_gemm", route="cuda",
+                    source="gddim_torch/csrc/block_gemm.cu",
                     replaces="gddim_tpu/ops/resblock.py:600"),
     "S8-prepass": dict(name="quantize_conv_input", route="cuda",
                        source="gddim_torch/csrc/resblock.cu",
                        replaces="gddim_tpu/ops/resblock.py:993"),
+    # the block GEMM's bf16 mode (both convs of K2-K4 and K9 in bf16) and its
+    # bf16 pre-pass: the bf16 path of the K2 / K3 Pallas kernels
+    "BF16-GEMM": dict(name="bf16_conv_gemm", route="cuda",
+                      source="gddim_torch/csrc/block_gemm.cu",
+                      replaces="gddim_tpu/ops/resblock.py:600"),
+    "BF16-prepass": dict(name="bf16_conv_input", route="cuda",
+                         source="gddim_torch/csrc/resblock.cu",
+                         replaces="gddim_tpu/ops/resblock.py:993"),
 }
 # main-path shapes of cld/accr_dcifar10 (H, channels in, channels out)
 SHAPES = {
@@ -608,35 +634,52 @@ def _check_kernel(results, kernel, label, fused, plain, args, ops, plain_timed=N
         raise AssertionError(f"{kernel} {label}: rel err {rel:.3e} > {KERNEL_BOUND[kernel]:.0e}")
 
 
-# batches at which the int8 blocks are also checked and timed: the sampling
-# batches of bench.py's main path; their results stay out of the kernels
-# line, whose rows are at B=4 (print_int8_sums reports them)
-INT8_BATCHES = (16, 64)
+# batches at which the bf16 and int8 blocks are also checked and timed: the
+# sampling batches of bench.py's main path; their results stay out of the
+# kernels line, whose rows are at B=4 (print_block_sums reports them)
+BLOCK_BATCHES = (16, 64)
+# the bf16 blocks on the block GEMM: their rows get device time and the
+# bf16-peak share
+BF16_BLOCKS = ("K2", "K3", "K4")
 
 
-def int8_device(ops: dict, dev_ms: float) -> dict:
-    """A case's device time (CUDA graph), its int8 products and their share
-    of the int8 peak over that time."""
-    return dict(graph_ms=dev_ms, int8_ops=ops["int8"],
-                int8_peak_share=ops["int8"] / PEAK["int8"] * 1e3 / dev_ms)
+def device_share(ops: dict, dev_ms: float) -> dict:
+    """A case's device time (CUDA graph), its tensor-core products (int8,
+    else bf16) and their share of that type's peak over that time."""
+    kind = "int8" if "int8" in ops else "bf16"
+    return {"graph_ms": dev_ms, f"{kind}_ops": ops[kind],
+            f"{kind}_peak_share": ops[kind] / PEAK[kind] * 1e3 / dev_ms}
 
 
 def phase_kernels(results: dict, batch_results: dict, B: int = 4):
     for kernel, label, fused, plain, args, kw in kernel_cases(B):
+        extra = {}
+        if kernel in BF16_BLOCKS:
+            extra = device_share(_ops_of(kernel, B, args, fused()), graph_ms(fused))
         _check_kernel(results, kernel, label, fused, plain, args,
                       lambda out, k=kernel, a=args: _ops_of(k, B, a, out),
-                      lambda: plain_bf16(kernel)(*args, **kw), B=B, plain_f32_ms=time_ms(plain))
-    # the int8 modes, with their device time (K2-K4 also at INT8_BATCHES,
+                      lambda: plain_bf16(kernel)(*args, **kw), B=B, plain_f32_ms=time_ms(plain),
+                      **extra)
+    # the bf16 blocks also at BLOCK_BATCHES, into batch_results
+    for batch in BLOCK_BATCHES:
+        for kernel, label, fused, plain, args, kw in kernel_cases(batch):
+            if kernel not in BF16_BLOCKS:
+                continue
+            ops = _ops_of(kernel, batch, args, fused())
+            _check_kernel(batch_results, kernel, f"B={batch} {label}", fused, plain, args, ops,
+                          lambda a=args, k=kernel, w=kw: plain_bf16(k)(*a, **w), plain_reps=5,
+                          B=batch, **device_share(ops, graph_ms(fused)))
+    # the int8 modes, with their device time (K2-K4 also at BLOCK_BATCHES,
     # into batch_results); the int8 plain version sums exactly in float64:
     # no yardstick of speed
-    for batch in (B, *INT8_BATCHES):
+    for batch in (B, *BLOCK_BATCHES):
         for kernel, label, fused, plain, args in int8_kernel_cases(batch):
             if batch != B and kernel == "K5-int8":
                 continue
             out = fused()
             ops = _ops_of(kernel, batch, args, out)
             _check_kernel(results if batch == B else batch_results, kernel, label, fused, plain,
-                          args, ops, plain_reps=5, B=batch, **int8_device(ops, graph_ms(fused)))
+                          args, ops, plain_reps=5, B=batch, **device_share(ops, graph_ms(fused)))
 
 
 def transition_ops(kernel: str, B: int, h_in: int, c: int, cout: int, up: bool) -> dict:
@@ -647,10 +690,12 @@ def transition_ops(kernel: str, B: int, h_in: int, c: int, cout: int, up: bool) 
             "bf16_skip": 2 * m * c * cout, "f32": 2 * B * TEMB * cout}
 
 
-def s8_shapes():
-    """The int8 block GEMM's convs (H, Cin, Cout), and the conv inputs its
-    pre-pass quantizes (H, channel parts, dtype, GN affine + SiLU), of every
-    K2/K3/K4/K9 int8 shape of the main path (K9's at its output resolution)."""
+def block_shapes():
+    """The block GEMM's convs (H, Cin, Cout), and the conv inputs its
+    pre-pass makes (H, channel parts, dtype, GN affine + SiLU), of every
+    K2/K3/K4/K9 shape of the main path (K9's at its output resolution); in
+    the bf16 mode only those with the affine (K4's and K9's conv1 read h as
+    it is)."""
     convs, sites = set(), set()
     blocks = ([(h, (c,), n, "bf16", True) for h, c, n in SHAPES["K2"]]
               + [(h, parts, n, "bf16", True) for h, parts, n in SHAPES["K3"]]
@@ -672,7 +717,7 @@ def phase_s8_kernels(results: dict, batch_results: dict, batches=(4, 64)):
     from gddim_torch.ops import conv3x3, resblock as rb
 
     inp = Inputs(7)
-    convs, sites = s8_shapes()
+    convs, sites = block_shapes()
     for B in batches:
         res = results if B == batches[0] else batch_results
         for h, cin, n in convs:
@@ -689,7 +734,7 @@ def phase_s8_kernels(results: dict, batch_results: dict, batches=(4, 64)):
             exact = out.dtype == torch.float32 and torch.equal(out, ref)
             err = (out - ref).abs().max().item()
             ops = {"int8": 2 * B * h * h * 9 * cin * n}
-            ms, plain_ms, dev = time_ms(fused), time_ms(plain, 5), int8_device(ops, graph_ms(fused))
+            ms, plain_ms, dev = time_ms(fused), time_ms(plain, 5), device_share(ops, graph_ms(fused))
             bd = bound(nbytes(x8, wk, out), ops)
             print(f"kernel S8-GEMM int8_conv_gemm [{label}]: sums bit-identical to the exact conv: "
                   f"{exact} (largest |sum| {top:.0f}, under 2^24: {top < 2 ** 24}) ms={ms:.4f} "
@@ -741,12 +786,91 @@ def phase_s8_kernels(results: dict, batch_results: dict, batches=(4, 64)):
                     raise AssertionError(f"S8-prepass {label}: steps {steps}, share {share:.2e}")
 
 
-def print_int8_sums(*results: dict):
-    """The int8 blocks and the bare GEMM summed by kernel, scale mode and
-    batch: eager and device ms, bound, and the int8 products' share of the
-    int8 peak over the device time."""
+def bf16_steps(got, ref):
+    """|got - ref| of bf16 tensors in bf16 ulps of ref: 2^(e - 8) for |ref|
+    in [2^(e-1), 2^e)."""
+    r = ref.float()
+    e = torch.frexp(r)[1]
+    return (got.float() - r).abs() / torch.ldexp(torch.ones_like(r), e - 8)
+
+
+def phase_bf16_kernels(results: dict, batch_results: dict, batches=(4, 64)):
+    """The bf16 block GEMM alone at every bf16 block conv against the f32 conv
+    of the same bf16 values (TF32 off), beside F.conv2d on the same NHWC
+    bytes (a channels_last bf16 view), eager and device time (CUDA graph),
+    won or lost, and its share of the bf16 peak; the bf16 pre-pass at every
+    conv input it makes (the GN affine + SiLU) against its plain version.
+    The first batch's results go into the kernels line, the others' into
+    batch_results."""
+    from gddim_torch.ops import resblock as rb
+
+    inp = Inputs(8)
+    convs, sites = block_shapes()
+    for B in batches:
+        res = results if B == batches[0] else batch_results
+        for h, cin, n in convs:
+            label = f"B={B} {h}x{h} {cin}->{n}"
+            x, w = inp.act(B, h, h, cin), inp.w(3, 3, cin, n)
+            products = 2 * B * h * h * 9 * cin * n
+            xc = x.permute(0, 3, 1, 2)
+            wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            fused = lambda: rb.bf16_conv_gemm(x, w)  # noqa: E731
+            plain = lambda: rb.conv3x3_nhwc(x.float(), w.float())  # noqa: E731
+            library = lambda: F.conv2d(xc, wc, padding=1)  # noqa: E731
+            out = fused()
+            torch.cuda.synchronize()
+            ref = plain()
+            err, rel = (out - ref).abs().max().item(), _rel(out, ref)
+            ms, plain_ms, lib_ms = time_ms(fused), time_ms(plain, 5), time_ms(library)
+            dev = device_share({"bf16": products}, graph_ms(fused))
+            lib_dev = graph_ms(library)
+            bd = bound(nbytes(x, w, out), {"bf16": products})
+            print(f"kernel BF16-GEMM bf16_conv_gemm [{label}]: rel={rel:.3e} (bound "
+                  f"{KERNEL_BOUND['BF16-GEMM']:.0e}) ms={ms:.4f} device ms={dev['graph_ms']:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={bd[0]:.4f} "
+                  f"({'bytes' if bd[1] >= bd[2] else 'operations'}); F.conv2d ms={lib_ms:.4f} "
+                  f"device ms={lib_dev:.4f} (device time {verdict(dev['graph_ms'], lib_dev)}); "
+                  f"{dev['bf16_peak_share']:.1%} of the bf16 peak", flush=True)
+            _record(res, "BF16-GEMM", label, err, rel, ms, plain_ms, bd, lib_ms,
+                    library_graph_ms=lib_dev, **dev)
+            if out.dtype != torch.float32 or not np.isfinite(rel) or rel > KERNEL_BOUND["BF16-GEMM"]:
+                raise AssertionError(f"BF16-GEMM {label}: {out.dtype}, rel err {rel:.3e}")
+        for h, parts, dtype, affine in sites:
+            if not affine:  # K4's and K9's conv1: no pre-pass in the bf16 mode
+                continue
+            label = f"B={B} {h}x{h} {'+'.join(map(str, parts))} {dtype} GN+SiLU"
+            xs = [inp.act(B, h, h, c) if dtype == "bf16"
+                  else 2 * torch.randn((B, h, h, c), generator=inp.g, device="cuda")
+                  for c in parts]
+            c = sum(parts)
+            sc = 1.0 + 0.3 * torch.randn((B, c), generator=inp.g, device="cuda")
+            sh = 0.2 * torch.randn((B, c), generator=inp.g, device="cuda")
+            x1 = xs[1] if len(xs) > 1 else None
+            fused = lambda: rb.bf16_conv_input(xs[0], x1, sc, sh, silu=True)  # noqa: E731
+            plain = lambda: rb.bf16_conv_input_reference(xs[0], x1, sc, sh, silu=True)  # noqa: E731
+            a = fused()
+            torch.cuda.synchronize()
+            step = bf16_steps(a, plain())
+            steps, share = step.max().item(), (step > 0).float().mean().item()
+            ms, plain_ms, dev_ms = time_ms(fused), time_ms(plain), graph_ms(fused)
+            bd = bound(nbytes(xs, sc, sh, a), {"f32": 8 * a.numel()})
+            print(f"kernel BF16-prepass bf16_conv_input [{label}]: bf16 values one ulp apart "
+                  f"{share:.2e} (bound {BF16_FLIP_SHARE:.0e}), largest {steps:.2f} ulp; "
+                  f"ms={ms:.4f} device ms={dev_ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={bd[0]:.4f}", flush=True)
+            _record(res, "BF16-prepass", label, steps, share, ms, plain_ms, bd, graph_ms=dev_ms)
+            if a.dtype != torch.bfloat16 or steps > 1 or share > BF16_FLIP_SHARE:
+                raise AssertionError(f"BF16-prepass {label}: {steps} ulp, share {share:.2e}")
+
+
+def print_block_sums(*results: dict):
+    """The bf16 and int8 blocks and the bare GEMMs summed by kernel, scale
+    mode and batch: eager and device ms, bound, and the tensor-core
+    products' share of their type's peak over the device time."""
     groups = {}
-    for kernel in ("K2-int8", "K3-int8", "K4-int8", "K9-int8", "S8-GEMM"):
+    for kernel in ("K2", "K3", "K4", "K9", "BF16-GEMM", "K2-int8", "K3-int8", "K4-int8",
+                   "K9-int8", "S8-GEMM"):
+        kind = "int8" if kernel.endswith("int8") or kernel.startswith("S8") else "bf16"
         for r in (r for res in results for r in res.get(kernel, {}).get("shapes", [])):
             if "graph_ms" not in r:
                 continue
@@ -754,31 +878,32 @@ def print_int8_sums(*results: dict):
             batch = words[0] if words[0].startswith("B=") else "B=4"
             mode = next((w for w in words if w in ("static", "dynamic")), "")
             g = groups.setdefault(" ".join(w for w in (kernel, mode, batch) if w),
-                                  dict(n=0, ms=0.0, dev=0.0, bound=0.0, ops=0))
+                                  dict(n=0, ms=0.0, dev=0.0, bound=0.0, ops=0, kind=kind))
             g["n"] += 1
             for k, v in (("ms", "ms"), ("dev", "graph_ms"), ("bound", "bound_ms"),
-                         ("ops", "int8_ops")):
+                         ("ops", f"{kind}_ops")):
                 g[k] += r[v]
     for key, g in groups.items():
         print(f"sum {key}: {g['n']} shapes, eager {g['ms']:.4f} ms, device {g['dev']:.4f} ms, "
-              f"bound {g['bound']:.4f} ms, {g['ops'] / PEAK['int8'] * 1e3 / g['dev']:.1%} of the "
-              f"int8 peak", flush=True)
+              f"bound {g['bound']:.4f} ms, {g['ops'] / PEAK[g['kind']] * 1e3 / g['dev']:.1%} of "
+              f"the {g['kind']} peak", flush=True)
 
 
-def print_sums(results: dict):
-    """K11 and K8 summed by batch (and dtype): eager and device (CUDA graph)
-    ms of the kernel and its library call, bound, and the shapes won."""
+def print_sums(*results: dict):
+    """K11, the bf16 block GEMM and K8 summed by batch (and dtype): eager and
+    device (CUDA graph) ms of the kernel and its library call, bound, and the
+    shapes won."""
     groups = {}
-    for kernel in ("K11", "K8"):
-        for r in results.get(kernel, {}).get("shapes", []):
-            if "graph_ms" not in r:
+    for kernel in ("K11", "BF16-GEMM", "K8"):
+        for r in (r for res in results for r in res.get(kernel, {}).get("shapes", [])):
+            if "library_graph_ms" not in r:
                 continue
             label = r["shape"]
-            if kernel == "K11":
-                key = f"K11 {label.split()[0]}" if label.startswith("B=") else "K11 B=4"
-            else:
+            if kernel == "K8":
                 dtype, batch = label.split()[:2]
                 key = f"K8 {dtype} {batch}"
+            else:
+                key = f"{kernel} {label.split()[0]}" if label.startswith("B=") else f"{kernel} B=4"
             g = groups.setdefault(key, dict(n=0, won=0, ms=0.0, lib=0.0, dev=0.0, libdev=0.0,
                                             bound=0.0))
             g["n"] += 1
@@ -796,30 +921,38 @@ def print_sums(results: dict):
 def phase_transition_kernels(results: dict, batch_results: dict, B: int = 4):
     """K9 (bf16) and its int8 mode (static and per-sample scales) at the 6
     transition shapes, against the plain versions with the TPU kernel's
-    rounding points; plain ms of the bf16 composition in bf16. The int8
-    mode also at INT8_BATCHES, into batch_results."""
+    rounding points; plain ms of the bf16 composition in bf16. Both modes
+    also at BLOCK_BATCHES, into batch_results, with their device time."""
     from gddim_torch.ops import resblock as rb
 
+    def bf16_cases(batch, inp):
+        for h, c, cout, up in SHAPES["K9"]:
+            kw = dict(up=up, num_groups1=min(c // 4, 32), num_groups2=min(cout // 4, 32))
+            label = (f"B={batch} " if batch != B else "") + f"{'up' if up else 'down'} {h}x{h} {c}->{cout}"
+            args = (inp.act(batch, h, h, c), inp.act(batch, TEMB), inp.w(TEMB, cout).float(),
+                    inp.vec(cout), inp.vec(c, 1.0), inp.vec(c), inp.w(3, 3, c, cout),
+                    inp.vec(cout), inp.vec(cout, 1.0), inp.vec(cout), inp.w(3, 3, cout, cout),
+                    inp.vec(cout), inp.w(c, cout), inp.vec(cout))
+            yield (label, lambda a=args, k=kw: rb.fused_resblock_transition(*a, **k),
+                   lambda a=args, k=kw: rb.resblock_transition_bf16_reference(*_f32(a), **k),
+                   lambda a=args, k=kw: rb.resblock_transition_reference(*a, **k), args,
+                   transition_ops("K9", batch, h, c, cout, up))
+
     inp = Inputs(4)
-    for h, c, cout, up in SHAPES["K9"]:
-        kw = dict(up=up, num_groups1=min(c // 4, 32), num_groups2=min(cout // 4, 32))
-        label = f"{'up' if up else 'down'} {h}x{h} {c}->{cout}"
-        args = (inp.act(B, h, h, c), inp.act(B, TEMB), inp.w(TEMB, cout).float(), inp.vec(cout),
-                inp.vec(c, 1.0), inp.vec(c), inp.w(3, 3, c, cout), inp.vec(cout),
-                inp.vec(cout, 1.0), inp.vec(cout), inp.w(3, 3, cout, cout), inp.vec(cout),
-                inp.w(c, cout), inp.vec(cout))
-        _check_kernel(results, "K9", label, lambda a=args, k=kw: rb.fused_resblock_transition(*a, **k),
-                      lambda a=args, k=kw: rb.resblock_transition_bf16_reference(*_f32(a), **k),
-                      args, transition_ops("K9", B, h, c, cout, up),
-                      lambda a=args, k=kw: rb.resblock_transition_reference(*a, **k), B=B)
-    for batch in (B, *INT8_BATCHES):
-        # B's cases draw on from the bf16 cases' inputs
+    for batch in (B, *BLOCK_BATCHES):
+        # B's cases come first from inp; the int8 ones at B draw on from it
+        for label, fused, plain, plain_timed, args, ops in bf16_cases(
+                batch, inp if batch == B else Inputs(5)):
+            _check_kernel(results if batch == B else batch_results, "K9", label, fused, plain,
+                          args, ops, plain_timed, plain_reps=20 if batch == B else 5, B=batch,
+                          **device_share(ops, graph_ms(fused)))
+    for batch in (B, *BLOCK_BATCHES):
         cases = transition_int8_cases(batch, inp if batch == B else Inputs(6))
         for label, fused, plain, args, ops in cases:
             # the int8 plain version sums exactly in float64: no yardstick of speed
             _check_kernel(results if batch == B else batch_results, "K9-int8", label, fused,
                           plain, args, ops, plain_reps=5, B=batch,
-                          **int8_device(ops, graph_ms(fused)))
+                          **device_share(ops, graph_ms(fused)))
 
 
 def transition_int8_cases(B: int, inp):
@@ -1154,9 +1287,10 @@ def counters():
             "K10": attnblock.fused_attnblock_train}
 
 
-# kernels launched inside a C call (an int8 block's convs), counted in C where
-# each is launched: row -> kernel of ops/resblock.py:s8_launches
-DEVICE_COUNTED = {"S8-GEMM": "conv_s8_wgmma_kernel", "S8-prepass": "s8_prepass_kernel"}
+# kernels launched inside a C call (a block's convs), counted in C where each
+# is launched: row -> kernel of ops/resblock.py:block_launches
+DEVICE_COUNTED = {"S8-GEMM": "block_gemm_kernel<int8>", "S8-prepass": "prepass_kernel<int8>",
+                  "BF16-GEMM": "block_gemm_kernel<bf16>", "BF16-prepass": "prepass_kernel<bf16>"}
 
 
 def reset_counts():
@@ -1164,15 +1298,15 @@ def reset_counts():
 
     for fn in counters().values():
         fn.launches = 0
-    resblock.s8_launches(reset=True)
+    resblock.block_launches(reset=True)
 
 
 def read_counts():
     from gddim_torch.ops import resblock
 
     counts = {k: fn.launches for k, fn in counters().items()}
-    s8 = resblock.s8_launches()
-    return {**counts, **{k: s8[name] for k, name in DEVICE_COUNTED.items()}}
+    device = resblock.block_launches()
+    return {**counts, **{k: device[name] for k, name in DEVICE_COUNTED.items()}}
 
 
 def eps_inputs(batch: int = 4):
@@ -1729,13 +1863,14 @@ def main(argv=None):
     if "kernels" in phases:
         phase_kernels(results, batch_results)
         phase_s8_kernels(results, batch_results)
+        phase_bf16_kernels(results, batch_results)
         phase_train_kernels(results)
         phase_layer_kernels(results)
         phase_transition_kernels(results, batch_results)
         phase_attn_train_kernels(results)
         phase_f32_activations()
-        print_sums(results)
-        print_int8_sums(results, batch_results)
+        print_sums(results, batch_results)
+        print_block_sums(results, batch_results)
     config = get_config("cld/accr_dcifar10")
     # the transitions through K1, the FIR passes and K4: the path each phase's
     # K9 run (run_k9) is held against

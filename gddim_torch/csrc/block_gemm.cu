@@ -1,0 +1,563 @@
+// The block GEMM for Hopper (sm_90a): both 3x3 convs, and conv2's bf16 1x1
+// skip, of the bf16 and int8 modes of K2, K3, K4 and K9 (conv_impl 'fused'
+// on bf16 activations, and 'fused_int8').
+//
+// Replaces the conv part of gddim_tpu/ops/resblock.py's kernels
+// (_resblock_kernel_v2 and _resblock_kernel for K2 and K4,
+// _resblock_pair_kernel(_v2) for K3, _resblock_transition_kernel for K9):
+// _conv9's nine shifted products on the zero-padded activation tile, with
+// mm_dtype bf16 (f32 sums) or int8 (s32 sums, dequantized as acc * (w_scale
+// * s)), and the bf16 skip product with f32 sums. The block around it (temb
+// row, GroupNorm statistics, amax, and the pre-pass that writes each conv's
+// input once, in resblock.cu) stays one C call, resblock_gemm_run.
+//
+// block_gemm_kernel<TA> is an implicit GEMM, M = B*H*W output pixels, N =
+// Cout, K = 9 * Cin channels of TA (bf16 or int8), then Cskip bf16 channels.
+// A K slice is 128 bytes a pixel: 64 bf16 or 128 int8 channels of one tap,
+// or 64 bf16 skip channels.
+// - A by TMA with no im2col and no padded copy: the pre-pass's activation
+//   is a 4-D tensor map (C, W, H, B) with the 128-byte swizzle; a conv
+//   slice is one box of (the slice's channels, W, box_h rows, box_b
+//   samples) at (x, y) offsets (dx-1, dy-1). The TMA unit writes zeros out
+//   of bounds, and the activation (GN affine, SiLU, quantization) was
+//   applied before, so the zeros are the activation's, as the TPU kernels
+//   pad a1 (hpad_ref): SAME padding costs nothing.
+// - B by TMA. bf16: the HWIO weights (9 * Cin, N) as they are, two N-major
+//   boxes of 64 K rows x 64 N a slice, read through wgmma's transpose bit
+//   (as K11, and the skip weights in both modes). int8: 8-bit wgmma takes
+//   both operands K-major and has no transpose bit, so the model packs the
+//   quantized HWIO weights once (ops/resblock.py:pack_int8_weight), (N, 9 *
+//   Cin); one 128 x 128 box a slice.
+// - One producer warp keeps a 3-stage (128-pixel tiles, two CTAs an SM) or
+//   4-stage (256-pixel tiles) ring of full/empty mbarriers fed; two consumer
+//   warpgroups run wgmma.mma_async m64n128k16 f32.bf16.bf16 (bf16) or
+//   m64n128k32 s32.s8.s8 (int8), four a slice.
+// - One accumulator set. int8: the s32 and f32 wgmma accumulators share
+//   their register layout, so after the last conv slice each consumer
+//   converts its sums in place to f32 * (w_scale[n] * s), s the static scale
+//   or the row's own sample's amax / 127 (a tile at 8x8 or 4x4 spans several
+//   samples). The skip slices (64 bf16 channels of s0 or s1 by a 2-D TMA box
+//   over the tile's pixels, which are consecutive rows of M) then run as
+//   bf16 products into the same f32 registers; in the bf16 mode they follow
+//   the conv slices in one loop.
+// - The epilogue (bias + b_skip, the temb row, the identity residual,
+//   out_scale; f32 h1 or bf16 out) runs from the registers.
+// - Small grids split K as K11 does: each split writes its f32 partial
+//   (dequantized in the int8 mode; conv and skip), and block_splitk_kernel
+//   sums them in split order, so the result does not depend on the run. The
+//   tile plan (tile height, box, splits) is a pure function of the shapes,
+//   computed in Python (ops/resblock.py:bf16_tile_plan, s8_tile_plan); the
+//   ring's depth and shared memory follow from the tile height here (Tile).
+//
+// What bounds it on the H100: at 32x32 and 16x16 from B=16 the products
+// (2*M*9*Cin*N operations at 989 TFLOP/s bf16 or 1,979 TOP/s int8) and the
+// bytes the conv must move (A, mostly from L2 after the pre-pass, and
+// conv1's f32 h1 at 4 bytes an output) come within a factor of 2-4 of each
+// other: at B=64 32x32 128->128 conv1 needs 19.5 us of bf16 operations and
+// 15.0 us of bytes (the bf16 A once and f32 h1). At 8x8 and 4x4 M is a few hundred rows, each weight
+// byte feeds ~M operations, and the weights' bytes, the split's second
+// launch and the launch latency bound it. The design answers the
+// operations with wgmma at the type's rate behind a TMA ring (no register
+// staging, no prologue in the loop: the pre-pass applies the activation
+// once where the old conv_gemm_kernel recomputed it for each of 9 taps),
+// and the bytes with one accumulator set written once from registers.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "conv.cuh"
+#include "hopper.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TILE_N = 128;  // output channels of a tile
+// bytes of a slice row: 64 bf16 or 128 int8 channels of a tap, or 64 bf16
+// skip channels
+constexpr int ROW = 128;
+constexpr int B_BYTES = TILE_N * ROW;  // 16 KB: the weights of a slice
+constexpr int THREADS = 288;  // consumer warpgroups 0 and 1, then the producer warp
+constexpr int CONSUMER_WARPS = 8;
+
+// The tile of MW m64 blocks per consumer warpgroup: 128 * MW output pixels.
+template <int MW>
+struct Tile {
+  static constexpr int BM = 128 * MW;
+  static constexpr int STAGES = MW == 1 ? 3 : 4;
+  static constexpr int A_BYTES = BM * ROW;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  // the ring, 1 KB of slack to align it to the 128-byte swizzle's 1 KB atom, barriers
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+};
+
+// the H100's 227 KB of shared memory a block; two 128-pixel CTAs share an SM
+static_assert(Tile<2>::SMEM <= 227 * 1024, "the 256-pixel ring exceeds shared memory");
+static_assert(2 * (Tile<1>::SMEM + 1024) <= 228 * 1024, "two 128-pixel CTAs do not fit an SM");
+
+long long launch_counts[N_COUNTED];
+
+struct Plan {
+  int B, H, W, N, cin;
+  int box_h, box_b, tiles_h;  // the A box: W x box_h pixels of box_b samples
+  int conv_slices;  // 9 * cin * sizeof(TA) / 128
+  int skip0_slices;  // cs0 / 64: the skip slices that read s0, then those of s1
+  int slices, kper, splits;
+  const float* wsc;
+  const float* qs;
+  const float* amax;
+  const float* bias;
+  const float* bias2;
+  const float* temb;
+  const bf16* resid;
+  float out_scale;
+  void* out;
+  float* partial;
+};
+
+// The output pixel of row r of tile (b0, y0), or -1 past the batch or the image.
+__device__ __forceinline__ int tile_row(const Plan& p, int b0, int y0, int r) {
+  const int per_sample = p.W * p.box_h;
+  if (r >= per_sample * p.box_b) return -1;  // the box holds fewer pixels than the tile
+  const int b = b0 + r / per_sample, y = y0 + (r / p.W) % p.box_h;
+  if (b >= p.B || y >= p.H) return -1;
+  return (b * p.H + y) * p.W + r % p.W;
+}
+
+__device__ __forceinline__ void store2(float* d, float a, float b) {
+  *reinterpret_cast<float2*>(d) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* d, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(d) = __floats2bfloat162_rn(a, b);
+}
+
+// The temb row and the residual for output channels n, n+1 of pixel m
+// (whose bias + b_skip r0, r1 hold already), then the scale
+template <typename TO>
+__device__ __forceinline__ void epilogue2(const Plan& p, long m, int n, float r0, float r1) {
+  if (p.temb) {
+    const float* tr = p.temb + (m / (p.H * p.W)) * p.N + n;
+    r0 += tr[0];
+    r1 += tr[1];
+  }
+  if (p.resid) {
+    const float2 v =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.resid + m * p.N + n));
+    r0 += v.x;
+    r1 += v.y;
+  }
+  store2((TO*)p.out + m * p.N + n, r0 * p.out_scale, r1 * p.out_scale);
+}
+
+// bias + b_skip of output channels n, n+1 (each null or (N,))
+__device__ __forceinline__ float2 bias2(const Plan& p, int n) {
+  float2 c = make_float2(0.f, 0.f);
+  if (p.bias) c = make_float2(p.bias[n], p.bias[n + 1]);
+  if (p.bias2) c = make_float2(c.x + p.bias2[n], c.y + p.bias2[n + 1]);
+  return c;
+}
+
+// The (64 K x 128 N) bf16 weights of a slice, K rows from k0 of an N-major
+// (K, N) map, as two 64 x 64 boxes: the second 64 N columns B_BYTES / 2 on.
+__device__ __forceinline__ void load_nmajor(uint32_t b, const CUtensorMap* map, uint32_t full,
+                                            int n0, int k0) {
+  tma_load_2d(b, map, full, n0, k0);
+  tma_load_2d(b + B_BYTES / 2, map, full, n0 + 64, k0);
+}
+
+// grid (m_tiles, N / 128, splits), THREADS threads, Tile<MW>::SMEM dynamic
+// shared memory. Split z runs the slices [z*kper, min((z+1)*kper, slices)):
+// first those of the conv (TA), then those of the skip (bf16).
+template <typename TA, int MW, typename TO>
+__global__ void __launch_bounds__(THREADS, 3 - MW)
+block_gemm_kernel(const __grid_constant__ CUtensorMap amap,
+                  const __grid_constant__ CUtensorMap wmap,
+                  const __grid_constant__ CUtensorMap s0map,
+                  const __grid_constant__ CUtensorMap s1map,
+                  const __grid_constant__ CUtensorMap wsmap, const Plan p) {
+  constexpr bool kInt8 = std::is_same<TA, int8_t>::value;
+  constexpr int SLICE_K = ROW / sizeof(TA);  // conv channels of a slice
+  using T = Tile<MW>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t ring_u32 = smem_u32(ring);
+  const uint32_t full0 = ring_u32 + T::STAGES * T::STAGE_BYTES;  // full[s] = full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * T::STAGES;
+
+  const int tb = blockIdx.x / p.tiles_h, th = blockIdx.x % p.tiles_h;
+  const int b0 = tb * p.box_b, y0 = th * p.box_h;
+  const int m0 = (b0 * p.H + y0) * p.W;  // the tile's rows are the pixels m0, m0 + 1, ...
+  const int n0 = blockIdx.y * TILE_N;
+  const int s_beg = blockIdx.z * p.kper;
+  const int n_sl = min(p.slices, s_beg + p.kper) - s_beg;
+  const int n_conv = max(0, min(n_sl, p.conv_slices - s_beg));  // then n_sl - n_conv skip slices
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {
+    // the producer: one thread keeps the ring's loads in flight
+    if (lane == 0) {
+      const uint32_t a_tx = (uint32_t)(p.W * p.box_h * p.box_b * ROW);
+      for (int i = 0; i < n_sl; ++i) {
+        const int s = i % T::STAGES;
+        if (i >= T::STAGES) mbar_wait(empty0 + 8 * s, ((i / T::STAGES) - 1) & 1);
+        const uint32_t full = full0 + 8 * s;
+        const uint32_t a = ring_u32 + s * T::STAGE_BYTES, b = a + T::A_BYTES;
+        if (i < n_conv) {
+          mbar_expect_tx(full, a_tx + B_BYTES);
+          const int k0 = (s_beg + i) * SLICE_K;
+          const int tap = k0 / p.cin, c0 = k0 - tap * p.cin;
+          tma_load_4d(a, &amap, full, c0, tap % 3 - 1, y0 + tap / 3 - 1, b0);
+          if constexpr (kInt8)
+            tma_load_2d(b, &wmap, full, k0, n0);
+          else
+            load_nmajor(b, &wmap, full, n0, k0);
+        } else {
+          // 64 skip channels: the tile's rows of s0 or s1, and their weights
+          mbar_expect_tx(full, T::A_BYTES + B_BYTES);
+          const int j = s_beg + i - p.conv_slices;
+          if (j < p.skip0_slices)
+            tma_load_2d(a, &s0map, full, 64 * j, m0);
+          else
+            tma_load_2d(a, &s1map, full, 64 * (j - p.skip0_slices), m0);
+          load_nmajor(b, &wsmap, full, n0, 64 * j);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup g owns the tile's m64 blocks g * MW + t, in
+  // one set of accumulators (int8: s32 sums, then in place f32)
+  const int g = warp >> 2;
+  uint32_t acc[MW][64];
+#pragma unroll
+  for (int t = 0; t < MW; ++t)
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[t][j] = 0u;  // 0 and 0.0f alike
+
+  int i = 0;  // the slice; int8 conv slices first, then the bf16 ones
+  if constexpr (kInt8) {
+    for (; i < n_conv; ++i) {
+      const int s = i % T::STAGES;
+      mbar_wait(full0 + 8 * s, (i / T::STAGES) & 1);
+      const uint32_t a = ring_u32 + s * T::STAGE_BYTES + g * MW * (64 * ROW);
+      const uint32_t b = ring_u32 + s * T::STAGE_BYTES + T::A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < ROW / 32; ++kk) {
+        // A and B alike: rows of 128 bytes, 8-row atoms 1 KB apart; a k32
+        // step is 32 bytes into the row
+        const uint64_t db = sw128_desc(b + 32 * kk, 16, 1024);
+#pragma unroll
+        for (int t = 0; t < MW; ++t)
+          wgmma_s8_m64n128k32(acc[t], sw128_desc(a + t * (64 * ROW) + 32 * kk, 16, 1024), db);
+      }
+      wgmma_commit();
+      // the previous slice's group has completed: free its stage
+      wgmma_wait<1>();
+      if (i > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((i - 1) % T::STAGES));
+    }
+    wgmma_wait<0>();
+    if (n_conv > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((n_conv - 1) % T::STAGES));
+  }
+
+  // Accumulator layout: register 4j + 2h + e holds row 16 (warp % 4) +
+  // lane / 4 + 8 h of its m64 block, column 8 j + 2 (lane % 4) + e.
+  const int hw = p.H * p.W;
+  const int row0 = 16 * (warp & 3) + (lane >> 2), col0 = 2 * (lane & 3);
+  int rows[MW][2];
+#pragma unroll
+  for (int t = 0; t < MW; ++t)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) rows[t][h] = tile_row(p, b0, y0, 64 * (g * MW + t) + row0 + 8 * h);
+
+  if constexpr (kInt8) {
+    // the int32 sums to f32 in place, times (w_scale[n] * s) of the row's
+    // scale; column-outer, so that a weight scale is loaded once for the
+    // thread's 2 MW rows
+    float srow[MW][2];
+#pragma unroll
+    for (int t = 0; t < MW; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = rows[t][h];
+        srow[t][h] = p.qs != nullptr ? *p.qs : m < 0 ? 0.f : fmaxf(p.amax[m / hw], 1e-12f) / 127.0f;
+      }
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float w = p.wsc[n0 + col0 + 8 * j + e];
+#pragma unroll
+        for (int t = 0; t < MW; ++t)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t& r = acc[t][4 * j + 2 * h + e];
+            r = __float_as_uint(__int2float_rn((int)r) * (w * srow[t][h]));
+          }
+      }
+  }
+
+  // the bf16 slices (the conv's in the bf16 mode, then the skip's), f32
+  // products into the same accumulators
+  const int i_bf16 = i;
+  for (; i < n_sl; ++i) {
+    const int s = i % T::STAGES;
+    mbar_wait(full0 + 8 * s, (i / T::STAGES) & 1);
+    const uint32_t a = ring_u32 + s * T::STAGE_BYTES + g * MW * (64 * ROW);
+    const uint32_t b = ring_u32 + s * T::STAGE_BYTES + T::A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // A: rows of 128 bytes, 8-row atoms 1 KB apart, a k16 step 32 bytes
+      // into the row. B: K rows of 128 bytes (64 N), the second 64 N
+      // columns 8 KB on (the leading offset), 8-row K atoms 1 KB apart; a
+      // k16 step is 16 rows
+      const uint64_t db = sw128_desc(b + 2048 * kk, B_BYTES / 2, 1024);
+#pragma unroll
+      for (int t = 0; t < MW; ++t)
+        wgmma_m64n128k16_b32(acc[t], sw128_desc(a + t * (64 * ROW) + 32 * kk, 16, 1024), db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (i > i_bf16 && lane == 0) mbar_arrive(empty0 + 8 * ((i - 1) % T::STAGES));
+  }
+  wgmma_wait<0>();
+
+  const int M = p.B * hw;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int n = n0 + col0 + 8 * j;
+    const float2 cb = p.splits == 1 ? bias2(p, n) : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int t = 0; t < MW; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = rows[t][h];
+        if (m < 0) continue;
+        const float r0 = __uint_as_float(acc[t][4 * j + 2 * h]);
+        const float r1 = __uint_as_float(acc[t][4 * j + 2 * h + 1]);
+        if (p.splits > 1)  // a split's f32 partial, straight from the accumulators
+          store2(p.partial + ((long)blockIdx.z * M + m) * p.N + n, r0, r1);
+        else
+          epilogue2<TO>(p, m, n, r0 + cb.x, r1 + cb.y);
+      }
+  }
+}
+
+// Split-K reduction: the f32 partials summed in split order, then the
+// epilogue. grid ceil(M*N/2 / 256), 256 threads, 2 channels each.
+template <typename TO>
+__global__ void __launch_bounds__(256) block_splitk_kernel(const Plan p) {
+  const long mn = (long)p.B * p.H * p.W * p.N;
+  const long v = ((long)blockIdx.x * 256 + threadIdx.x) * 2;
+  if (v >= mn) return;
+  float2 r = *reinterpret_cast<const float2*>(p.partial + v);
+  for (int z = 1; z < p.splits; ++z) {
+    const float2 a = *reinterpret_cast<const float2*>(p.partial + z * mn + v);
+    r.x += a.x;
+    r.y += a.y;
+  }
+  const int n = (int)(v % p.N);
+  const float2 cb = bias2(p, n);
+  epilogue2<TO>(p, v / p.N, n, r.x + cb.x, r.y + cb.y);
+}
+
+template <typename TA, int MW, typename TO>
+int launch(dim3 grid, const CUtensorMap* maps, const Plan& p, cudaStream_t st) {
+  static bool attr = false;
+  if (!attr) {
+    const int err = (int)cudaFuncSetAttribute(block_gemm_kernel<TA, MW, TO>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              Tile<MW>::SMEM);
+    if (err) return err;
+    attr = true;
+  }
+  block_gemm_kernel<TA, MW, TO><<<grid, THREADS, Tile<MW>::SMEM, st>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], p);
+  int err = (int)cudaGetLastError();
+  if (!err) count_launch(std::is_same<TA, int8_t>::value ? COUNT_GEMM_S8 : COUNT_GEMM_BF16);
+  if (!err && p.splits > 1) {
+    const long vecs = (long)p.B * p.H * p.W * p.N / 2;
+    block_splitk_kernel<TO><<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>(p);
+    err = (int)cudaGetLastError();
+  }
+  return err;
+}
+
+template <typename TA>
+int launch_mw(int mw, bool out_f32, dim3 grid, const CUtensorMap* maps, const Plan& p,
+              cudaStream_t st) {
+  if (mw == 1)
+    return out_f32 ? launch<TA, 1, float>(grid, maps, p, st) : launch<TA, 1, bf16>(grid, maps, p, st);
+  return out_f32 ? launch<TA, 2, float>(grid, maps, p, st) : launch<TA, 2, bf16>(grid, maps, p, st);
+}
+
+}  // namespace
+
+void count_launch(Counted kernel) { ++launch_counts[kernel]; }
+
+int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
+  const int slice_k = g.int8 ? ROW : ROW / 2;  // conv channels of a slice
+  const int cskip = g.s0 ? g.cs0 + g.cs1 : 0;
+  const int conv_slices = 9 * g.cin / slice_k;
+  const int slices = conv_slices + cskip / 64;
+  const int bm = 128 * t.mw;
+  if (g.cin % slice_k || g.N % TILE_N ||
+      (g.s0 && (g.cs0 % 64 || g.cs1 % 64 || g.ws == nullptr)) || g.W > 256 || t.box_h < 1 ||
+      t.box_b < 1 || t.box_h > 256 || t.box_b > 256 || (t.mw != 1 && t.mw != 2) ||
+      g.W * t.box_h * t.box_b > bm || g.splits < 1 || g.kper < 1 ||
+      (g.splits - 1) * g.kper >= slices || g.splits * g.kper < slices ||
+      (g.splits > 1 && g.partial == nullptr) ||
+      (g.int8 && (g.wsc == nullptr || (g.qs == nullptr && g.amax == nullptr))))
+    return (int)cudaErrorInvalidValue;
+  const long m = (long)g.B * g.H * g.W;
+  Plan p;
+  p.B = g.B;
+  p.H = g.H;
+  p.W = g.W;
+  p.N = g.N;
+  p.cin = g.cin;
+  p.box_h = t.box_h;
+  p.box_b = t.box_b;
+  p.tiles_h = t.tiles_h;
+  p.conv_slices = conv_slices;
+  p.skip0_slices = g.s0 ? g.cs0 / 64 : 0;
+  p.slices = slices;
+  p.kper = g.kper;
+  p.splits = g.splits;
+  p.wsc = g.wsc;
+  p.qs = g.qs;
+  p.amax = g.amax;
+  p.bias = g.bias;
+  p.bias2 = g.bias2;
+  p.temb = g.temb;
+  p.resid = (const bf16*)g.resid;
+  p.out_scale = g.out_scale;
+  p.out = g.out;
+  p.partial = g.partial;
+
+  // maps: A, W, skip s0, skip s1, skip weights (unused ones stay zero)
+  CUtensorMap maps[5] = {};
+  const cuuint64_t es = g.int8 ? 1 : 2;  // bytes of a conv operand
+  const cuuint64_t adims[4] = {(cuuint64_t)g.cin, (cuuint64_t)g.W, (cuuint64_t)g.H,
+                               (cuuint64_t)g.B};
+  const cuuint64_t astrides[3] = {g.cin * es, g.W * g.cin * es, g.H * g.W * g.cin * es};
+  const cuuint32_t abox[4] = {(cuuint32_t)slice_k, (cuuint32_t)g.W, (cuuint32_t)t.box_h,
+                              (cuuint32_t)t.box_b};
+  const cuuint32_t nbox[2] = {64, 64};  // an N-major bf16 weight box
+  bool ok;
+  if (g.int8) {
+    const cuuint64_t wdims[2] = {(cuuint64_t)9 * g.cin, (cuuint64_t)g.N};
+    const cuuint64_t wstrides[1] = {(cuuint64_t)9 * g.cin};
+    const cuuint32_t wbox[2] = {ROW, TILE_N};
+    ok = sw128_map(&maps[0], CU_TENSOR_MAP_DATA_TYPE_UINT8, g.a, 4, adims, astrides, abox) &&
+         sw128_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_UINT8, g.w, 2, wdims, wstrides, wbox);
+  } else {
+    const cuuint64_t wdims[2] = {(cuuint64_t)g.N, (cuuint64_t)9 * g.cin};
+    const cuuint64_t wstrides[1] = {(cuuint64_t)g.N * 2};
+    ok = bf16_map(&maps[0], g.a, 4, adims, astrides, abox) &&
+         bf16_map(&maps[1], g.w, 2, wdims, wstrides, nbox);
+  }
+  if (ok && g.s0) {
+    const cuuint32_t sbox[2] = {64, (cuuint32_t)bm};
+    const cuuint64_t s0dims[2] = {(cuuint64_t)g.cs0, (cuuint64_t)m};
+    const cuuint64_t s0strides[1] = {(cuuint64_t)g.cs0 * 2};
+    ok = bf16_map(&maps[2], g.s0, 2, s0dims, s0strides, sbox);
+    if (ok && g.cs1 > 0) {
+      const cuuint64_t s1dims[2] = {(cuuint64_t)g.cs1, (cuuint64_t)m};
+      const cuuint64_t s1strides[1] = {(cuuint64_t)g.cs1 * 2};
+      ok = bf16_map(&maps[3], g.s1, 2, s1dims, s1strides, sbox);
+    }
+    const cuuint64_t wsdims[2] = {(cuuint64_t)g.N, (cuuint64_t)cskip};
+    const cuuint64_t wsstrides[1] = {(cuuint64_t)g.N * 2};
+    ok = ok && bf16_map(&maps[4], g.ws, 2, wsdims, wsstrides, nbox);
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+
+  const dim3 grid(t.m_tiles, g.N / TILE_N, g.splits);
+  return g.int8 ? launch_mw<int8_t>(t.mw, g.out_f32, grid, maps, p, st)
+                : launch_mw<bf16>(t.mw, g.out_f32, grid, maps, p, st);
+}
+
+extern "C" {
+
+// The bare int8 conv of the block GEMM: out (B, H, W, N) f32 = conv3x3(a8,
+// w) * (wsc[n] * *qs), a8 (B, H, W, Cin) int8, wk (N, 9 * Cin) int8 K-major,
+// wsc (N,) and qs () f32 on the device; the tile plan as gddim_resblock_int8
+// takes it. With wsc and qs ones, out holds the int32 sums (exact in f32 up
+// to 2^24). Scratch `work`: splits * M * N f32 when splits > 1.
+int gddim_conv_s8(const void* a8, const void* wk, const void* wsc, const void* qs, int batch,
+                  int h, int w, int cin, int n, int mw, int box_h, int box_b, int tiles_h,
+                  int m_tiles, int splits, int kper, void* work, void* out, void* stream) {
+  BlockGemm g = {};
+  g.int8 = true;
+  g.a = a8;
+  g.w = wk;
+  g.cin = cin;
+  g.B = batch;
+  g.H = h;
+  g.W = w;
+  g.N = n;
+  g.wsc = (const float*)wsc;
+  g.qs = (const float*)qs;
+  g.out_scale = 1.0f;
+  g.out = out;
+  g.out_f32 = true;
+  g.partial = (float*)work;
+  g.splits = splits;
+  g.kper = kper;
+  return block_gemm_launch(g, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},
+                           (cudaStream_t)stream);
+}
+
+// The bare bf16 conv of the block GEMM: out (B, H, W, N) f32 = conv3x3(a, w),
+// a (B, H, W, Cin) bf16, w (3, 3, Cin, N) bf16 HWIO, f32 sums; the tile plan
+// as gddim_resblock takes it (ops/resblock.py:bf16_tile_plan). Scratch
+// `work`: splits * M * N f32 when splits > 1.
+int gddim_conv_bf16(const void* a, const void* w, int batch, int h, int w_, int cin, int n,
+                    int mw, int box_h, int box_b, int tiles_h, int m_tiles, int splits, int kper,
+                    void* work, void* out, void* stream) {
+  BlockGemm g = {};
+  g.a = a;
+  g.w = w;
+  g.cin = cin;
+  g.B = batch;
+  g.H = h;
+  g.W = w_;
+  g.N = n;
+  g.out_scale = 1.0f;
+  g.out = out;
+  g.out_f32 = true;
+  g.partial = (float*)work;
+  g.splits = splits;
+  g.kper = kper;
+  return block_gemm_launch(g, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},
+                           (cudaStream_t)stream);
+}
+
+// Launches of the kernels counted in C (conv.cuh's Counted order: the int8
+// GEMM, the int8 pre-pass, the bf16 GEMM, the bf16 pre-pass) into out
+// (N_COUNTED long long); with reset, zeroed after reading.
+int gddim_block_launches(long long* out, int reset) {
+  for (int k = 0; k < N_COUNTED; ++k) {
+    out[k] = launch_counts[k];
+    if (reset) launch_counts[k] = 0;
+  }
+  return 0;
+}
+
+}  // extern "C"

@@ -1,10 +1,13 @@
 // Shared interface of the implicit-GEMM convs and the GroupNorm statistics
-// (defined in resblock.cu and conv_s8.cu), used by attnblock.cu,
+// (defined in resblock.cu and block_gemm.cu), used by attnblock.cu,
 // resblock_bwd.cu and transition.cu.
 //
-// Activations are bf16 (inference, K2-K5) or f32 (training, K6/K7); the
-// tensor-core operands are bf16 with f32 accumulation either way, or int8
-// with int32 accumulation in the int8 mode of K2-K5.
+// Activations are bf16 (inference, K2-K5) or f32 (training, K6/K7, and
+// K2-K5 on f32 activations); the tensor-core operands are bf16 with f32
+// accumulation either way, or int8 with int32 accumulation in the int8 mode
+// of K2-K5. conv_gemm_kernel (resblock.cu) serves f32 activations, K5's
+// projections and K7; the block GEMM (block_gemm.cu) the 3x3 convs of the
+// bf16 and int8 blocks (K2-K4, K9).
 
 #pragma once
 
@@ -119,32 +122,33 @@ struct Int8Args {
 int conv_gemm_s8_launch(const ConvArgs& p, const Int8Args& q, bool a_f32, bool out_f32,
                         cudaStream_t stream);
 
-// The M tiling of the int8 block GEMM (conv_s8.cu), from the tile plan
-// (ops/resblock.py:s8_tile_plan): tiles of 128 * mw output pixels, each one
-// TMA box of W pixels x box_h rows x box_b samples; tiles_h tiles per sample
-// group along H, m_tiles in all.
-struct S8Tiles {
+// The M tiling of the block GEMM (block_gemm.cu), from the tile plan
+// (ops/resblock.py:bf16_tile_plan, s8_tile_plan): tiles of 128 * mw output
+// pixels, each one TMA box of W pixels x box_h rows x box_b samples;
+// tiles_h tiles per sample group along H, m_tiles in all.
+struct GemmTiles {
   int mw, box_h, box_b, tiles_h, m_tiles;
 };
 
-// One conv of the int8 block GEMM (conv_s8.cu): a 3x3 SAME conv of the
-// pre-pass's int8 activation by K-major int8 weights, its int32 sums
-// dequantized in place, then an optional bf16 1x1 skip into the same f32
-// accumulators, then the epilogue:
-//   out = (conv(a, w) * (wsc[n] * s) + skip + bias + bias2 + temb[b] + resid) * out_scale
+// One conv of the block GEMM (block_gemm.cu): a 3x3 SAME conv of the
+// pre-pass's activation, bf16 by HWIO bf16 weights (f32 sums), or int8 by
+// K-major int8 weights (int32 sums dequantized in place), then an optional
+// bf16 1x1 skip into the same f32 accumulators, then the epilogue:
+//   out = (conv(a, w) [* (wsc[n] * s)] + skip + bias + bias2 + temb[b] + resid) * out_scale
 // s = *qs (static), else max(amax[b], 1e-12) / 127 of the row's sample b.
-struct S8Gemm {
-  const int8_t* a;  // (B, H, W, cin) int8
-  const int8_t* w;  // (N, 9 * cin) int8, K-major
+struct BlockGemm {
+  bool int8;        // the int8 mode, else bf16
+  const void* a;    // (B, H, W, cin) bf16 or int8
+  const void* w;    // bf16: (9 * cin, N) HWIO flattened; int8: (N, 9 * cin), K-major
   int cin;
   const void* s0;   // skip inputs (M, cs0) and (M, cs1) bf16, or s0 null: no skip
   const void* s1;
   int cs0, cs1;
   const void* ws;   // (cs0 + cs1, N) bf16
   int B, H, W, N;
-  const float* wsc;   // (N,) weight scales
-  const float* qs;    // static activation scale (one device float), or null
-  const float* amax;  // (B,) per-sample amax when qs is null
+  const float* wsc;   // int8: (N,) weight scales
+  const float* qs;    // int8: static activation scale (one device float), or null
+  const float* amax;  // int8: (B,) per-sample amax when qs is null
   const float* bias;  // (N,) or null, likewise bias2
   const float* bias2;
   const float* temb;   // (B, N) row added per sample, or null
@@ -152,31 +156,42 @@ struct S8Gemm {
   float out_scale;
   void* out;  // (M, N) f32 (out_f32) or bf16
   bool out_f32;
-  float* partial;  // (splits, M, N) f32 dequantized split-K partials, when splits > 1
-  int splits, kper;  // K slices (128 int8 or 64 bf16 channels) per split
+  float* partial;  // (splits, M, N) f32 (dequantized) split-K partials, when splits > 1
+  int splits, kper;  // K slices (128 bytes a pixel) per split
 };
 
-// conv_s8_wgmma_kernel (+ conv_s8_splitk_kernel when g.splits > 1). Returns
-// cudaError_t (cudaErrorInvalidValue for a plan or shape it does not take).
-int conv_s8_launch(const S8Gemm& g, const S8Tiles& t, cudaStream_t stream);
+// block_gemm_kernel (+ block_splitk_kernel when g.splits > 1). Returns
+// cudaError_t (cudaErrorInvalidValue for a plan or shape it does not take,
+// or a tensor map that does not encode).
+int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t stream);
 
 // Kernels launched inside a block's C call, counted where they are launched
-// (one each time the launch succeeds; gddim_s8_launches reads the counts).
-enum S8Counted { COUNT_CONV_S8 = 0, COUNT_S8_PREPASS = 1, S8_COUNTED = 2 };
-void count_s8_launch(S8Counted kernel);
+// (one each time the launch succeeds; gddim_block_launches reads the counts):
+// the block GEMM and the pre-pass, int8 and bf16.
+enum Counted {
+  COUNT_GEMM_S8 = 0,
+  COUNT_PREPASS_S8 = 1,
+  COUNT_GEMM_BF16 = 2,
+  COUNT_PREPASS_BF16 = 3,
+  N_COUNTED = 4
+};
+void count_launch(Counted kernel);
 
-// The int8 block (gddim_resblock_int8's arguments, in order) with conv1's
-// input x0 f32 (x_f32, no x1) or bf16, and, when amax1 is non-null, the
-// per-sample amax of conv1's input already made (dynamic scales only).
-int resblock_int8_run(const void* x0, const void* x1, int c0, int c1, bool x_f32,
+// One residual block on the block GEMM (gddim_resblock's and
+// gddim_resblock_int8's arguments, in order), int8 or bf16: conv1's input
+// x0 f32 (x_f32, no x1; int8 only) or bf16, and, when amax1 is non-null,
+// the per-sample amax of conv1's input already made (int8 dynamic scales
+// only). The bf16 mode takes no w1s, w2s, act_scales; with groups1 = 0 its
+// conv1 reads x0 as it is (K4 and K9: h holds silu(GN1(x)) already).
+int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1, bool x_f32,
                       const float* amax1, const void* temb, const void* dense_w,
                       const void* dense_b, int temb_k, const void* gn1_g, const void* gn1_b,
-                      int groups1, const void* w1q, const void* w1s, const void* b1,
-                      const void* gn2_g, const void* gn2_b, int groups2, const void* w2q,
+                      int groups1, const void* w1, const void* w1s, const void* b1,
+                      const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
                       const void* w2s, const void* b2, const void* s0, const void* s1, int cs0,
                       int cs1, const void* ws, const void* bs, const void* act_scales, int batch,
                       int h, int w_, int n, float eps, float out_scale, void* work,
-                      const S8Tiles& tiles, int splits1, int kper1, int splits2, int kper2,
+                      const GemmTiles& tiles, int splits1, int kper1, int splits2, int kper2,
                       void* out, cudaStream_t st);
 
 // amax[b] = max |f(x)| over sample b of the logical concat (xa, xb), f the

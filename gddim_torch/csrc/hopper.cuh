@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels (conv3x3.cu,
-// conv_s8.cu): mbarriers, TMA tile loads, wgmma shared-memory descriptors
+// block_gemm.cu): mbarriers, TMA tile loads, wgmma shared-memory descriptors
 // and products, and the tensor-map encoder.
 
 #pragma once
@@ -100,8 +100,8 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(1));
 }
 
-// The int8 block GEMM keeps one accumulator set of 32-bit registers
-// (.b32, which PTX lets stand for s32 and f32 operands alike): s32 sums,
+// The block GEMM keeps one accumulator set of 32-bit registers (.b32, which
+// PTX lets stand for s32 and f32 operands alike): in the int8 mode s32 sums,
 // converted in place to f32, then more f32 products into the same registers.
 //
 // d (64 x 128 s32, the wgmma accumulator layout) += A (64 x 32 s8) *

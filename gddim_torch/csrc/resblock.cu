@@ -1,11 +1,12 @@
 // Fused residual-block kernels for Hopper (sm_90a), bf16 tensor-core
-// operands with f32 accumulation.
+// operands with f32 accumulation (int8 with int32 in the int8 modes).
 //
 // Replaces gddim_tpu/ops/resblock.py: fused_resblock (K2, _resblock_kernel_v2),
 // fused_resblock_pair (K3, _resblock_pair_kernel_v2), fused_resblock_tail
 // (K4, _resblock_kernel_v2 with GN1 off), and the training forward of
 // make_fused_resblock_train (K6: fused_resblock with f32 activations and the
-// dropout mask). One implementation serves all four:
+// dropout mask). A block is one C call of a few launches, its scratch carved
+// from one workspace buffer:
 //
 //   gn_affine_kernel  per-(sample, group) mean and rstd in f32 (two-pass
 //                     variance), folded with the GN scale/bias into a
@@ -15,74 +16,64 @@
 //   temb_proj_kernel  silu(temb) @ W_dense + b_dense, the per-sample row the
 //                     first conv's epilogue adds (K2-K4; K6 takes the row
 //                     precomputed, so autograd reaches the Dense layer).
-//   conv_gemm_kernel  implicit-GEMM NHWC conv (3x3 SAME or 1x1): M = B*H*W
-//                     pixels, N = Cout, K = taps*Cin (+ Cskip). The A tile is
-//                     loaded through an optional GN-affine(+SiLU)(x dropout
-//                     mask / keep) prologue, from one pointer or two (the
-//                     pair's logical concat), and rounded to bf16 there.
-//                     An optional second K segment runs the block's 1x1 skip
-//                     projection into the same accumulator. The epilogue adds
-//                     bias, b_skip, the temb row and an identity residual,
-//                     then scales (1/sqrt(2)).
+//   prepass_kernel    a conv's input through the GN affine + SiLU, written
+//                     once NHWC in the workspace as the block GEMM's operand:
+//                     bf16 (a1.astype(mm_dtype), the TPU kernels' rounding
+//                     point) or int8 (quantize8).
+//   block_gemm_launch the block GEMM (block_gemm.cu): wgmma fed by TMA, the
+//                     1x1 skip in the same accumulators, the epilogue (bias,
+//                     b_skip, temb row, identity residual, 1/sqrt(2)) from
+//                     registers.
+//   conv_gemm_kernel  implicit-GEMM NHWC conv (3x3 SAME or 1x1) on a 64x64x32
+//                     WMMA tile, register-staged double buffer: the A tile
+//                     through an optional GN-affine(+SiLU)(x dropout mask /
+//                     keep) prologue from one pointer or two, rounded to bf16
+//                     there, an optional skip K segment, the same epilogue.
 //
-// Activations are a template parameter: bf16 (inference, K2-K4) or f32
-// (training, K6; and K2-K4 on f32 activations, which write f32 as the TPU
-// kernels write x's dtype), where x is read in f32 for GN1's statistics, the
-// skip and the identity residual, h1 stays f32 between the convs, and the
-// output is f32; only the MMA operands are bf16, as on the TPU with mm_dtype
-// bf16. The int8 modes take bf16 activations (the wrappers refuse others).
-//
-// A block is one C call, gddim_resblock (K2-K4) or gddim_resblock_train
-// (K6), which makes 4-5 launches: temb_proj (K2-K4 only), stats(x), conv1,
-// stats(h1), conv2+skip (plus a split-K reduction after a conv whose grid is
-// small), with its scratch carved from one workspace buffer.
-//
-// What bounds it on the H100: the two convs are tensor-core bound at 32x32
-// and 16x16 (2*M*9*Cin*Cout FLOPs against M*(Cin+Cout) bytes of activations
-// and 9*Cin*Cout of weights). At 8x8 and 4x4 they are memory- and latency-
-// bound: M = B*H*W is a few hundred rows, so each weight byte read feeds
-// only ~M FLOPs (under the card's ~295 FLOP/byte ridge at small batch) and
-// a 64x64 tile grid has 16-64 blocks. The design keeps the GN+SiLU, dropout,
-// skip, bias, temb and residual work inside the conv's prologue and
-// epilogue, so the only extra passes over activations are the two small
-// statistics reads. The GEMM is a 64x64x32 WMMA tile with double-buffered
-// shared tiles fed from registers (the next K slice's loads are in flight
-// during the current slice's MMAs); small grids split K across blocks (the
-// wrapper picks the split) and a second kernel sums the partial tiles and
-// runs the epilogue. TMA, wgmma and a deeper pipeline are later work.
-//
-// conv_gemm_kernel is also the GEMM of the attention block (attnblock.cu)
-// and of the block backward (resblock_bwd.cu), through conv.cuh.
+// bf16 mode (K2-K4 on bf16 activations, conv_impl 'fused'; the entry
+// gddim_resblock, and K9's through transition.cu), resblock_gemm_run, 6-8
+// launches: temb_proj, stats(x), the bf16 pre-pass (a1 = silu(GN1(x)) of the
+// logical concat; K4 and K9 have no GN1 and conv1 reads h as it is), conv1
+// -> h1 f32 (+ b1 + temb), stats(h1) in f32, the pre-pass (a2 =
+// silu(GN2(h1))), conv2 + the 1x1 skip (or the identity residual) -> bf16
+// out, plus a split-K reduction after a conv whose grid is small. h1 stays
+// f32 between the convs, as the TPU kernel keeps acc3 in f32 and rounds only
+// at the MMA operands; the pre-pass's zeros-out-of-bounds are the
+// activation's, as the TPU kernel pads a1 (hpad_ref).
 //
 // int8 mode (K2-K4 with mm_dtype int8, conv_impl 'fused_int8'; the entry
 // gddim_resblock_int8, and K9's through transition.cu). Replaces the same
 // three Pallas kernels' int8 path: _resblock_kernel_v2 with static scales,
 // _resblock_kernel and _resblock_pair_kernel with per-sample (dynamic)
-// scales. One C call, resblock_int8_run, of 7-9 launches:
+// scales. The same runner, 7-9 launches: as the bf16 mode, with amax_kernel
+// (dynamic only: the per-sample amax of a1, then of a2) before each
+// pre-pass, which quantizes by quantize8: clip(rint(a * (1/s))) with a
+// static scale, clip(rint(a / s_b)) with s_b = max(amax_b, 1e-12)/127 per
+// sample (the pair's conv1: a * (127/amax_b)), as the TPU kernels write
+// each; K4/K9's conv1 quantizes h too. The GEMM dequantizes its int32 sums
+// by (w_scale * s). The skip runs bf16 (the TPU kernels' dynamic-skip form;
+// the model never passes a static skip scale).
 //
-//   temb_proj_kernel, gn_affine_kernel (GN1 statistics), amax_kernel
-//                        (dynamic only: the per-sample amax of a1)
-//   s8_prepass_kernel    a1 = GN1 affine (+SiLU) of the logical concat (x0,
-//                        x1) in f32, quantized once to int8 NHWC in the
-//                        workspace by quantize8: clip(rint(a * (1/s))) with a
-//                        static scale, clip(rint(a / s_b)) with s_b =
-//                        max(amax_b, 1e-12)/127 per sample (the pair's conv1:
-//                        a * (127/amax_b)), as the TPU kernels write each
-//   conv_s8_launch       conv1 (conv_s8.cu: wgmma s8 fed by TMA, K-major
-//                        int8 weights with a scale per output channel), int32
-//                        sums dequantized by (w_scale * s), + b1 + temb -> h1 f32
-//   gn_affine_kernel, amax_kernel, s8_prepass_kernel   the same for a2 =
-//                        silu(GN2(h1)), into the same int8 buffer
-//   conv_s8_launch       conv2 + the bf16 1x1 skip (or the identity residual)
-//                        + b2 + b_skip, * out_scale -> bf16 out
+// f32 activations (K2-K4 on f32 x, which write f32 as the TPU kernels write
+// x's dtype: gddim_resblock_f32; and K6: gddim_resblock_train),
+// resblock_run, 4-5 launches on conv_gemm_kernel: temb_proj (K2-K4 only),
+// stats(x), conv1 with the GN1 prologue, stats(h1), conv2 with the GN2
+// (+dropout) prologue and the skip segment; x is read in f32 for GN1's
+// statistics, the skip and the identity residual, h1 and out are f32, and
+// only the MMA operands are bf16, as on the TPU with mm_dtype bf16.
 //
-// (each conv adds a split-K reduction when its grid is small). h1 stays f32
-// between the convs (GN2's statistics and the a2 quantization read it). The
-// skip runs bf16 (the TPU kernels' dynamic-skip form; the model never passes
-// a static skip scale). What bounds the GEMM and what its design does about
-// it: conv_s8.cu's header. The pre-pass moves bytes (at 32x32x256, B=64 ~34
-// MB of bf16 in, ~17 MB of int8 out, mostly kept in L2 for the GEMM) and
-// replaces the prologue that conv_gemm_s8_kernel recomputes for every tap.
+// What bounds it on the H100: the two convs, tensor-core bound at 32x32 and
+// 16x16 (2*M*9*Cin*Cout operations against M*(Cin+Cout) activation bytes
+// and 9*Cin*Cout of weights), memory- and latency-bound at 8x8 and 4x4 (M
+// = B*H*W a few hundred rows, each weight byte feeding ~M operations).
+// Around them, the GN statistics, the pre-passes (bytes: at 32x32x256, B=64
+// ~34 MB of bf16 in, ~17 MB of int8 or ~34 MB of bf16 out, mostly kept in
+// L2 for the GEMM) and the temb rows. The block GEMM answers the convs
+// (block_gemm.cu's header); conv_gemm_kernel (~4% of the bf16 peak on
+// these shapes) stays for what the block GEMM does not take: f32
+// activations, K6's dropout mask, and through conv.cuh K5's 1x1 projections
+// (attnblock.cu) and K7's dgrads (resblock_bwd.cu); a 2-D A box would put
+// the projections on the block GEMM.
 //
 //   conv_gemm_s8_kernel  the first int8 GEMM, now K5's only (attnblock.cu, the
 //                        1x1 projections): WMMA s8 16x16x16 on a 64x64x32
@@ -550,7 +541,7 @@ __device__ __forceinline__ void load_stage_s8(const ConvArgs& p, const int8_t* w
 // (static), clip(rint(a * (127 / amax_b))) (inv_mul: the pair's conv1) or
 // clip(rint(a / (amax_b / 127))), amax_b = max(amax[b], 1e-12), as the TPU
 // kernels write each. The one quantizer of the int8 modes: the block
-// pre-pass (s8_prepass_kernel) and K5's GEMM prologue both call it.
+// pre-pass (prepass_kernel) and K5's GEMM prologue both call it.
 __device__ __forceinline__ uint2 quantize8(float f[8], const float* sc, const float* sh,
                                            int silu_on, float inv_static, const Int8Args& q,
                                            int b) {
@@ -796,16 +787,18 @@ amax_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, int cb, 
   }
 }
 
-// The int8 block's quantize pre-pass: the logical concat (xa, xb) of one
-// conv's input through quantize8, written once as int8 NHWC (B, H, W, ca+cb)
-// for the GEMM's TMA loads (conv_s8.cu). Each element is quantized once,
-// where conv_gemm_s8_kernel's prologue quantizes it again for each tap.
-// grid ceil(M * (ca+cb) / 8 / 256), 256 threads, 8 channels each.
-template <typename T>
+// The block GEMM's pre-pass: the logical concat (xa, xb) of one conv's
+// input through the GN affine (+SiLU), written once NHWC (B, H, W, ca+cb)
+// for the GEMM's TMA loads (block_gemm.cu), as TQ: int8 by quantize8 (the
+// int8 modes), or bf16 (the bf16 modes; a1.astype(mm_dtype) of the TPU
+// kernels). Each element is made once, where conv_gemm_kernel's prologue
+// makes it again for each tap. grid ceil(M * (ca+cb) / 8 / 256), 256
+// threads, 8 channels each.
+template <typename T, typename TQ>
 __global__ void __launch_bounds__(256)
-s8_prepass_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, int cb, long vecs,
-                  int hw, const float* __restrict__ scale, const float* __restrict__ shift,
-                  int silu_on, const Int8Args q, int8_t* __restrict__ out) {
+prepass_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, int cb, long vecs,
+               int hw, const float* __restrict__ scale, const float* __restrict__ shift,
+               int silu_on, const Int8Args q, TQ* __restrict__ out) {
   const long v = (long)blockIdx.x * 256 + threadIdx.x;
   if (v >= vecs) return;
   const int c_tot = ca + cb;
@@ -820,45 +813,76 @@ s8_prepass_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, in
   float f[8];
   unpack8(pk, f);
   const long base = (long)b * c_tot + c;
-  const float inv_static = q.qs != nullptr ? 1.0f / *q.qs : 0.0f;
-  *reinterpret_cast<uint2*>(out + pix * c_tot + c) =
-      quantize8(f, scale != nullptr ? scale + base : nullptr,
-                scale != nullptr ? shift + base : nullptr, silu_on, inv_static, q, b);
+  const float* sc = scale != nullptr ? scale + base : nullptr;
+  const float* sh = scale != nullptr ? shift + base : nullptr;
+  if constexpr (std::is_same<TQ, int8_t>::value) {
+    const float inv_static = q.qs != nullptr ? 1.0f / *q.qs : 0.0f;
+    *reinterpret_cast<uint2*>(out + pix * c_tot + c) = quantize8(f, sc, sh, silu_on, inv_static,
+                                                                 q, b);
+  } else {
+    // the affine as the TPU kernels' x * a + b, without a fused multiply-add:
+    // a bf16 value keeps 8 bits of its own magnitude, so near zero, where
+    // x * a and b cancel, an FMA's unrounded product would move it by ulps
+    if (sc != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        f[j] = __fadd_rn(__fmul_rn(f[j], sc[j]), sh[j]);
+        if (silu_on) f[j] = silu(f[j]);
+      }
+    }
+    st8(out + pix * c_tot + c, f);
+  }
 }
 
-int s8_prepass_launch(const void* xa, const void* xb, int ca, int cb, bool f32, int batch, int hw,
-                      const float* scale, const float* shift, int silu_on, const Int8Args& q,
-                      int8_t* out, cudaStream_t st) {
-  if (ca % 8 || cb % 8) return (int)cudaErrorInvalidValue;
+template <typename TQ>
+int prepass_run(const void* xa, const void* xb, int ca, int cb, bool f32, int batch, int hw,
+                const float* scale, const float* shift, int silu_on, const Int8Args& q, TQ* out,
+                cudaStream_t st) {
   const long vecs = (long)batch * hw * (ca + cb) / 8;
   const unsigned grid = (unsigned)((vecs + 255) / 256);
   if (f32)
-    s8_prepass_kernel<float><<<grid, 256, 0, st>>>((const float*)xa, (const float*)xb, ca, cb,
-                                                   vecs, hw, scale, shift, silu_on, q, out);
+    prepass_kernel<float, TQ><<<grid, 256, 0, st>>>((const float*)xa, (const float*)xb, ca, cb,
+                                                    vecs, hw, scale, shift, silu_on, q, out);
   else
-    s8_prepass_kernel<bf16><<<grid, 256, 0, st>>>((const bf16*)xa, (const bf16*)xb, ca, cb, vecs,
-                                                  hw, scale, shift, silu_on, q, out);
-  const int err = (int)cudaGetLastError();
-  if (!err) count_s8_launch(COUNT_S8_PREPASS);
+    prepass_kernel<bf16, TQ><<<grid, 256, 0, st>>>((const bf16*)xa, (const bf16*)xb, ca, cb,
+                                                   vecs, hw, scale, shift, silu_on, q, out);
+  return (int)cudaGetLastError();
+}
+
+// The pre-pass of one conv input: int8 through quantize8's scales q when
+// q is non-null, else bf16. Counted where it launches.
+int prepass_launch(const void* xa, const void* xb, int ca, int cb, bool f32, int batch, int hw,
+                   const float* scale, const float* shift, int silu_on, const Int8Args* q,
+                   void* out, cudaStream_t st) {
+  if (ca % 8 || cb % 8) return (int)cudaErrorInvalidValue;
+  const int err = q != nullptr ? prepass_run(xa, xb, ca, cb, f32, batch, hw, scale, shift,
+                                             silu_on, *q, (int8_t*)out, st)
+                               : prepass_run(xa, xb, ca, cb, f32, batch, hw, scale, shift,
+                                             silu_on, Int8Args{}, (bf16*)out, st);
+  if (!err) count_launch(q != nullptr ? COUNT_PREPASS_S8 : COUNT_PREPASS_BF16);
   return err;
 }
 
-// Scratch of one int8 block (null base: sizes only).
-struct WorkS8 {
+// Scratch of one block on the block GEMM (null base: sizes only); act_bytes
+// the pre-pass's output type, 1 (int8) or 2 (bf16). Of
+//   4 B N + 8 B Cin + 4 M N + 8 B N + 8 B + act_bytes M max(Cin, N)
+//   (+ 4 splits M N when a conv splits K) bytes, each buffer on 256 bytes.
+struct WorkGemm {
   float* temb;     // (B, N) temb row
   float* sc1;      // (B, Cin) GN1 affine
   float* sh1;
   float* h1;       // (M, N) conv1 output, f32
   float* sc2;      // (B, N) GN2 affine
   float* sh2;
-  float* amax;     // (2, B) dynamic mode: per-sample amax of a1, a2
-  int8_t* a8;      // (M, max(Cin, N)) the pre-pass's int8 conv input, conv1's then conv2's
+  float* amax;     // (2, B) int8 dynamic mode: per-sample amax of a1, a2
+  void* a;         // (M, max(Cin, N)) the pre-pass's conv input, conv1's then conv2's
   float* partial;  // (splits, M, N) split-K partial sums
   size_t bytes;
 };
 
-WorkS8 carve_s8(char* base, int batch, long m, int cin, int n, int splits) {
-  WorkS8 w;
+WorkGemm carve_gemm(char* base, int batch, long m, int cin, int n, int splits,
+                    size_t act_bytes) {
+  WorkGemm w;
   size_t off = 0;
   auto take = [&](size_t bytes) {
     char* p = base ? base + off : nullptr;
@@ -872,25 +896,25 @@ WorkS8 carve_s8(char* base, int batch, long m, int cin, int n, int splits) {
   w.sc2 = (float*)take(sizeof(float) * batch * n);
   w.sh2 = (float*)take(sizeof(float) * batch * n);
   w.amax = (float*)take(sizeof(float) * 2 * batch);
-  w.a8 = (int8_t*)take((size_t)m * (cin > n ? cin : n));
+  w.a = take(act_bytes * m * (cin > n ? cin : n));
   w.partial = splits > 1 ? (float*)take(sizeof(float) * splits * m * n) : nullptr;
   w.bytes = off;
   return w;
 }
 
-// Scratch of one block, carved from one workspace buffer (null base: sizes only).
+// Scratch of one f32 block on conv_gemm_kernel (null base: sizes only).
 struct Work {
   float* temb;  // (B, N) temb row
   float* sc1;   // (B, Cin) GN1 affine
   float* sh1;
-  void* h1;     // (M, N) conv1 output, activation type
+  float* h1;    // (M, N) conv1 output
   float* sc2;   // (B, N) GN2 affine
   float* sh2;
   float* partial;  // (splits, M, N) split-K partial sums
   size_t bytes;
 };
 
-Work carve(char* base, int batch, long m, int cin, int n, int splits, size_t act_bytes) {
+Work carve(char* base, int batch, long m, int cin, int n, int splits) {
   Work w;
   size_t off = 0;
   auto take = [&](size_t bytes) {
@@ -901,7 +925,7 @@ Work carve(char* base, int batch, long m, int cin, int n, int splits, size_t act
   w.temb = (float*)take(sizeof(float) * batch * n);
   w.sc1 = (float*)take(sizeof(float) * batch * cin);
   w.sh1 = (float*)take(sizeof(float) * batch * cin);
-  w.h1 = take(act_bytes * m * n);
+  w.h1 = (float*)take(sizeof(float) * m * n);
   w.sc2 = (float*)take(sizeof(float) * batch * n);
   w.sh2 = (float*)take(sizeof(float) * batch * n);
   w.partial = splits > 1 ? (float*)take(sizeof(float) * splits * m * n) : nullptr;
@@ -909,12 +933,11 @@ Work carve(char* base, int batch, long m, int cin, int n, int splits, size_t act
   return w;
 }
 
-// One residual block in activation type T. temb_row non-null: the (B, N)
-// temb projection precomputed (K6); else temb_proj_kernel makes it from
-// (temb, dense_w, dense_b). groups1 = 0: no GN1 on the conv1 input (K4).
-// s0 == null selects the identity residual x0. mask non-null: dropout after
-// GN2+SiLU (K6).
-template <typename T>
+// One residual block on f32 activations through conv_gemm_kernel (K2-K4 on
+// f32 activations, K6). temb_row non-null: the (B, N) temb projection
+// precomputed (K6); else temb_proj_kernel makes it from (temb, dense_w,
+// dense_b). groups1 = 0: no GN1 on the conv1 input (K4). s0 == null selects
+// the identity residual x0. mask non-null: dropout after GN2+SiLU (K6).
 int resblock_run(const void* x0, const void* x1, int c0, int c1, const void* temb_row,
                  const void* temb, const void* dense_w, const void* dense_b, int temb_k,
                  const void* gn1_g, const void* gn1_b, int groups1, const void* w1, const void* b1,
@@ -923,11 +946,10 @@ int resblock_run(const void* x0, const void* x1, int c0, int c1, const void* tem
                  const void* mask, float inv_keep, int batch, int h, int w_, int n, float eps,
                  float out_scale, void* work, int splits1, int kper1, int splits2, int kper2,
                  void* out, cudaStream_t stream) {
-  constexpr bool f32 = std::is_same<T, float>::value;
   const int cin = c0 + c1;
   const int hw = h * w_;
   const Work wk = carve((char*)work, batch, (long)batch * hw, cin, n,
-                        splits1 > splits2 ? splits1 : splits2, sizeof(T));
+                        splits1 > splits2 ? splits1 : splits2);
   const bool gn1 = groups1 > 0;
   int err = 0;
   const float* trow = (const float*)temb_row;
@@ -939,18 +961,18 @@ int resblock_run(const void* x0, const void* x1, int c0, int c1, const void* tem
   }
   if (!err && gn1)
     err = gn_affine_launch(x0, x1, c0, c1, batch, hw, groups1, (const float*)gn1_g,
-                           (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr, f32, stream);
+                           (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr, true, stream);
   if (!err) {
     ConvArgs p = conv_args(x0, c0, gn1 ? wk.sc1 : nullptr, gn1 ? wk.sh1 : nullptr, gn1 ? 1 : 0, 9,
                            w1, batch, h, w_, n, b1, 1.0f, wk.h1, wk.partial, splits1, kper1);
     p.a1 = x1;
     p.ca1 = c1;
     p.temb = trow;
-    err = conv_gemm_run<T, T>(p, stream);
+    err = conv_gemm_run<float, float>(p, stream);
   }
   if (!err)
     err = gn_affine_launch(wk.h1, nullptr, n, 0, batch, hw, groups2, (const float*)gn2_g,
-                           (const float*)gn2_b, eps, wk.sc2, wk.sh2, nullptr, nullptr, f32, stream);
+                           (const float*)gn2_b, eps, wk.sc2, wk.sh2, nullptr, nullptr, true, stream);
   if (!err) {
     ConvArgs p = conv_args(wk.h1, n, wk.sc2, wk.sh2, 1, 9, w2, batch, h, w_, n, b2, out_scale,
                            out, wk.partial, splits2, kper2);
@@ -963,7 +985,7 @@ int resblock_run(const void* x0, const void* x1, int c0, int c1, const void* tem
     p.ws = (const bf16*)ws;
     p.bias2 = (const float*)bs;
     p.resid = s0 ? nullptr : x0;
-    err = conv_gemm_run<T, T>(p, stream);
+    err = conv_gemm_run<float, float>(p, stream);
   }
   return err;
 }
@@ -1032,21 +1054,23 @@ int amax_launch(const void* xa, const void* xb, int ca, int cb, int batch, int h
   return (int)cudaGetLastError();
 }
 
-int resblock_int8_run(const void* x0, const void* x1, int c0, int c1, bool x_f32,
+int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1, bool x_f32,
                       const float* amax1, const void* temb, const void* dense_w,
                       const void* dense_b, int temb_k, const void* gn1_g, const void* gn1_b,
-                      int groups1, const void* w1q, const void* w1s, const void* b1,
-                      const void* gn2_g, const void* gn2_b, int groups2, const void* w2q,
+                      int groups1, const void* w1, const void* w1s, const void* b1,
+                      const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
                       const void* w2s, const void* b2, const void* s0, const void* s1, int cs0,
                       int cs1, const void* ws, const void* bs, const void* act_scales, int batch,
                       int h, int w_, int n, float eps, float out_scale, void* work,
-                      const S8Tiles& tiles, int splits1, int kper1, int splits2, int kper2,
+                      const GemmTiles& tiles, int splits1, int kper1, int splits2, int kper2,
                       void* out, cudaStream_t st) {
   const int hw = h * w_;
   const int cin = c0 + c1;
-  const WorkS8 wk = carve_s8((char*)work, batch, (long)batch * hw, cin, n,
-                             splits1 > splits2 ? splits1 : splits2);
   const bool gn1 = groups1 > 0;
+  // the bf16 mode: bf16 x, and conv1 reads x0 as it is without GN1
+  if (!int8 && (x_f32 || (!gn1 && x1 != nullptr))) return (int)cudaErrorInvalidValue;
+  const WorkGemm wk = carve_gemm((char*)work, batch, (long)batch * hw, cin, n,
+                                 splits1 > splits2 ? splits1 : splits2, int8 ? 1 : 2);
   const float* qs = (const float*)act_scales;
   const float* am1 = amax1 ? amax1 : wk.amax;
   temb_proj_kernel<<<dim3((n + 31) / 32, batch), dim3(32, TEMB_ROWS), 0, st>>>(
@@ -1055,23 +1079,26 @@ int resblock_int8_run(const void* x0, const void* x1, int c0, int c1, bool x_f32
   if (!err && gn1)
     err = gn_affine_launch(x0, x1, c0, c1, batch, hw, groups1, (const float*)gn1_g,
                            (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr, x_f32, st);
-  if (!err && qs == nullptr && amax1 == nullptr)
+  if (!err && int8 && qs == nullptr && amax1 == nullptr)
     err = amax_launch(x0, x1, c0, c1, batch, hw, gn1 ? wk.sc1 : nullptr, gn1 ? wk.sh1 : nullptr,
                       gn1 ? 1 : 0, wk.amax, x_f32, st);
-  if (!err) {  // q(a1), the pair's per-sample form a * (127 / amax)
+  const void* a1 = x0;  // bf16 without GN1 (K4, K9): h is conv1's operand as it is
+  if (!err && (int8 || gn1)) {  // a1 = silu(GN1(x)) in bf16, or q(a1) (the pair's a * (127 / amax))
     const Int8Args q = {nullptr, nullptr, qs, am1, x1 != nullptr};
-    err = s8_prepass_launch(x0, x1, c0, c1, x_f32, batch, hw, gn1 ? wk.sc1 : nullptr,
-                            gn1 ? wk.sh1 : nullptr, gn1 ? 1 : 0, q, wk.a8, st);
+    err = prepass_launch(x0, x1, c0, c1, x_f32, batch, hw, gn1 ? wk.sc1 : nullptr,
+                         gn1 ? wk.sh1 : nullptr, gn1 ? 1 : 0, int8 ? &q : nullptr, wk.a, st);
+    a1 = wk.a;
   }
-  S8Gemm g = {};
-  g.a = wk.a8;
+  BlockGemm g = {};
+  g.int8 = int8;
   g.B = batch;
   g.H = h;
   g.W = w_;
   g.N = n;
   g.partial = wk.partial;
-  if (!err) {  // h1 = conv1(q(a1)) * (w1s * s1) + b1 + temb, f32
-    g.w = (const int8_t*)w1q;
+  if (!err) {  // h1 = conv1(a1) [* (w1s * s1)] + b1 + temb, f32
+    g.a = a1;
+    g.w = w1;
     g.cin = cin;
     g.wsc = (const float*)w1s;
     g.qs = qs;
@@ -1083,20 +1110,21 @@ int resblock_int8_run(const void* x0, const void* x1, int c0, int c1, bool x_f32
     g.out_f32 = true;
     g.splits = splits1;
     g.kper = kper1;
-    err = conv_s8_launch(g, tiles, st);
+    err = block_gemm_launch(g, tiles, st);
   }
   if (!err)
     err = gn_affine_launch(wk.h1, nullptr, n, 0, batch, hw, groups2, (const float*)gn2_g,
                            (const float*)gn2_b, eps, wk.sc2, wk.sh2, nullptr, nullptr, true, st);
-  if (!err && qs == nullptr)
+  if (!err && int8 && qs == nullptr)
     err = amax_launch(wk.h1, nullptr, n, 0, batch, hw, wk.sc2, wk.sh2, 1, wk.amax + batch, true, st);
-  if (!err) {  // q(a2) over conv1's int8 input, which conv1 has finished reading
+  if (!err) {  // a2 = silu(GN2(h1)) in bf16, or q(a2), over conv1's input, which conv1 has read
     const Int8Args q = {nullptr, nullptr, qs ? qs + 1 : nullptr, wk.amax + batch, 0};
-    err = s8_prepass_launch(wk.h1, nullptr, n, 0, true, batch, hw, wk.sc2, wk.sh2, 1, q, wk.a8,
-                            st);
+    err = prepass_launch(wk.h1, nullptr, n, 0, true, batch, hw, wk.sc2, wk.sh2, 1,
+                         int8 ? &q : nullptr, wk.a, st);
   }
-  if (!err) {  // out = (conv2(q(a2)) * (w2s * s2) + skip + b2 + b_skip) * out_scale
-    g.w = (const int8_t*)w2q;
+  if (!err) {  // out = (conv2(a2) [* (w2s * s2)] + skip + b2 + b_skip) * out_scale
+    g.a = wk.a;
+    g.w = w2;
     g.cin = n;
     g.s0 = s0;
     g.s1 = s1;
@@ -1115,7 +1143,7 @@ int resblock_int8_run(const void* x0, const void* x1, int c0, int c1, bool x_f32
     g.out_f32 = false;
     g.splits = splits2;
     g.kper = kper2;
-    err = conv_s8_launch(g, tiles, st);
+    err = block_gemm_launch(g, tiles, st);
   }
   return err;
 }
@@ -1123,7 +1151,7 @@ int resblock_int8_run(const void* x0, const void* x1, int c0, int c1, bool x_f32
 extern "C" {
 
 long long gddim_resblock_int8_workspace(int batch, int h, int w, int cin, int n, int splits) {
-  return (long long)carve_s8(nullptr, batch, (long)batch * h * w, cin, n, splits).bytes;
+  return (long long)carve_gemm(nullptr, batch, (long)batch * h * w, cin, n, splits, 1).bytes;
 }
 
 // The int8 mode of K2 / K3 / K4 (arguments as gddim_resblock, with the
@@ -1144,11 +1172,11 @@ int gddim_resblock_int8(const void* x0, const void* x1, int c0, int c1, const vo
                         float out_scale, void* work, int mw, int box_h, int box_b, int tiles_h,
                         int m_tiles, int splits1, int kper1, int splits2, int kper2, void* out,
                         void* stream) {
-  return resblock_int8_run(x0, x1, c0, c1, false, nullptr, temb, dense_w, dense_b, temb_k, gn1_g,
-                           gn1_b, groups1, w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, s0,
-                           s1, cs0, cs1, ws, bs, act_scales, batch, h, w_, n, eps, out_scale, work,
-                           S8Tiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1, splits2,
-                           kper2, out, (cudaStream_t)stream);
+  return resblock_gemm_run(true, x0, x1, c0, c1, false, nullptr, temb, dense_w, dense_b, temb_k,
+                           gn1_g, gn1_b, groups1, w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s,
+                           b2, s0, s1, cs0, cs1, ws, bs, act_scales, batch, h, w_, n, eps,
+                           out_scale, work, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},
+                           splits1, kper1, splits2, kper2, out, (cudaStream_t)stream);
 }
 
 // The int8 block's quantize pre-pass alone: out (B, H, W, ca+cb) int8 from
@@ -1160,37 +1188,70 @@ int gddim_s8_prepass(const void* xa, const void* xb, int ca, int cb, int act_f32
                      int hw, const void* scale, const void* shift, int silu_on, const void* qs,
                      const void* amax, int inv_mul, void* out, void* stream) {
   const Int8Args q = {nullptr, nullptr, (const float*)qs, (const float*)amax, inv_mul};
-  return s8_prepass_launch(xa, xb, ca, cb, act_f32 != 0, batch, hw, (const float*)scale,
-                           (const float*)shift, silu_on, q, (int8_t*)out, (cudaStream_t)stream);
+  return prepass_launch(xa, xb, ca, cb, act_f32 != 0, batch, hw, (const float*)scale,
+                        (const float*)shift, silu_on, &q, out, (cudaStream_t)stream);
 }
 
-long long gddim_resblock_workspace(int batch, int h, int w, int cin, int n, int splits,
-                                   int act_f32) {
-  return (long long)carve(nullptr, batch, (long)batch * h * w, cin, n, splits,
-                          act_f32 ? sizeof(float) : sizeof(bf16)).bytes;
+// The bf16 block's pre-pass alone: out (B, H, W, ca+cb) bf16 = the logical
+// concat (xa, xb) (f32 with act_f32, else bf16) through the per-(sample,
+// channel) affine (scale, shift; none when null) and SiLU (silu, with the
+// affine only), in f32, rounded once.
+int gddim_bf16_prepass(const void* xa, const void* xb, int ca, int cb, int act_f32, int batch,
+                       int hw, const void* scale, const void* shift, int silu_on, void* out,
+                       void* stream) {
+  return prepass_launch(xa, xb, ca, cb, act_f32 != 0, batch, hw, (const float*)scale,
+                        (const float*)shift, silu_on, nullptr, out, (cudaStream_t)stream);
+}
+
+long long gddim_resblock_workspace(int batch, int h, int w, int cin, int n, int splits) {
+  return (long long)carve_gemm(nullptr, batch, (long)batch * h * w, cin, n, splits, 2).bytes;
 }
 
 // K2 (x0, identity or 1x1 skip on x0), K3 (x0 and x1 as the logical concat)
-// or K4 (groups1 = 0: no GN1 on the conv1 input; the skip reads s0), with
-// bf16 activations, or f32 (act_f32: x, h1 and out f32, MMA operands bf16).
-// Scratch comes from `work`, gddim_resblock_workspace bytes.
+// or K4 (groups1 = 0: no GN1 on the conv1 input; the skip reads s0) on bf16
+// activations, through the bf16 pre-pass and the block GEMM: h1 f32, the
+// conv operands bf16, out bf16. The tile plan (ops/resblock.py:
+// bf16_tile_plan) as gddim_resblock_int8 takes it. Scratch comes from
+// `work`, gddim_resblock_workspace bytes.
 int gddim_resblock(const void* x0, const void* x1, int c0, int c1, const void* temb,
                    const void* dense_w, const void* dense_b, int temb_k, const void* gn1_g,
                    const void* gn1_b, int groups1, const void* w1, const void* b1,
                    const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
                    const void* b2, const void* s0, const void* s1, int cs0, int cs1,
                    const void* ws, const void* bs, int batch, int h, int w_, int n, float eps,
-                   float out_scale, void* work, int splits1, int kper1, int splits2, int kper2,
-                   void* out, int act_f32, void* stream) {
-  auto run = act_f32 ? &resblock_run<float> : &resblock_run<bf16>;
-  return run(x0, x1, c0, c1, nullptr, temb, dense_w, dense_b, temb_k, gn1_g, gn1_b, groups1, w1,
-             b1, gn2_g, gn2_b, groups2, w2, b2, s0, s1, cs0, cs1, ws, bs, nullptr, 1.0f, batch, h,
-             w_, n, eps, out_scale, work, splits1, kper1, splits2, kper2, out,
-             (cudaStream_t)stream);
+                   float out_scale, void* work, int mw, int box_h, int box_b, int tiles_h,
+                   int m_tiles, int splits1, int kper1, int splits2, int kper2, void* out,
+                   void* stream) {
+  return resblock_gemm_run(false, x0, x1, c0, c1, false, nullptr, temb, dense_w, dense_b, temb_k,
+                           gn1_g, gn1_b, groups1, w1, nullptr, b1, gn2_g, gn2_b, groups2, w2,
+                           nullptr, b2, s0, s1, cs0, cs1, ws, bs, nullptr, batch, h, w_, n, eps,
+                           out_scale, work, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},
+                           splits1, kper1, splits2, kper2, out, (cudaStream_t)stream);
+}
+
+long long gddim_resblock_f32_workspace(int batch, int h, int w, int cin, int n, int splits) {
+  return (long long)carve(nullptr, batch, (long)batch * h * w, cin, n, splits).bytes;
+}
+
+// K2 / K3 / K4 as gddim_resblock on f32 activations (x, h1 and out f32, MMA
+// operands bf16) through conv_gemm_kernel; splits/kper: each conv's split of
+// K in channels (ops/resblock.py:split_k). Scratch: gddim_resblock_f32_workspace.
+int gddim_resblock_f32(const void* x0, const void* x1, int c0, int c1, const void* temb,
+                       const void* dense_w, const void* dense_b, int temb_k, const void* gn1_g,
+                       const void* gn1_b, int groups1, const void* w1, const void* b1,
+                       const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
+                       const void* b2, const void* s0, const void* s1, int cs0, int cs1,
+                       const void* ws, const void* bs, int batch, int h, int w_, int n,
+                       float eps, float out_scale, void* work, int splits1, int kper1,
+                       int splits2, int kper2, void* out, void* stream) {
+  return resblock_run(x0, x1, c0, c1, nullptr, temb, dense_w, dense_b, temb_k, gn1_g, gn1_b,
+                      groups1, w1, b1, gn2_g, gn2_b, groups2, w2, b2, s0, s1, cs0, cs1, ws, bs,
+                      nullptr, 1.0f, batch, h, w_, n, eps, out_scale, work, splits1, kper1,
+                      splits2, kper2, out, (cudaStream_t)stream);
 }
 
 long long gddim_resblock_train_workspace(int batch, int h, int w, int cin, int n, int splits) {
-  return (long long)carve(nullptr, batch, (long)batch * h * w, cin, n, splits, sizeof(float)).bytes;
+  return gddim_resblock_f32_workspace(batch, h, w, cin, n, splits);
 }
 
 // K6: the training forward of one stride-1 block, f32 activations. temb_row
@@ -1203,11 +1264,10 @@ int gddim_resblock_train(const void* x, int c, const void* temb_row, const void*
                          float inv_keep, int batch, int h, int w_, int n, float eps,
                          float out_scale, void* work, int splits1, int kper1, int splits2,
                          int kper2, void* out, void* stream) {
-  return resblock_run<float>(x, nullptr, c, 0, temb_row, nullptr, nullptr, nullptr, 0, gn1_g,
-                             gn1_b, groups1, w1, b1, gn2_g, gn2_b, groups2, w2, b2,
-                             ws ? x : nullptr, nullptr, ws ? c : 0, 0, ws, bs, mask, inv_keep,
-                             batch, h, w_, n, eps, out_scale, work, splits1, kper1, splits2,
-                             kper2, out, (cudaStream_t)stream);
+  return resblock_run(x, nullptr, c, 0, temb_row, nullptr, nullptr, nullptr, 0, gn1_g, gn1_b,
+                      groups1, w1, b1, gn2_g, gn2_b, groups2, w2, b2, ws ? x : nullptr, nullptr,
+                      ws ? c : 0, 0, ws, bs, mask, inv_keep, batch, h, w_, n, eps, out_scale,
+                      work, splits1, kper1, splits2, kper2, out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -27,36 +27,43 @@
 //                                    atomicMax on the float bits) and xr
 //                                    (the raw x resampled, rounded to bf16)
 //   the K4 path of resblock.cu       conv1 with GN1 off, GN2, conv2 with xr as
-//                                    the 1x1 skip's K segment (bf16; int8
-//                                    through the int8 block GEMM, conv_s8.cu)
+//                                    the 1x1 skip's K segment: bf16 and int8
+//                                    through the block GEMM (block_gemm.cu;
+//                                    bf16 conv1 reads h as it is, int8
+//                                    quantizes it in the pre-pass), f32 x
+//                                    through conv_gemm_kernel
 //
 // What bounds it on the H100: the two 3x3 convs, as in K4 (tensor-core bound
 // at 16x16 and 32x32, weight bytes and latency at 4x4 and 8x8). The resample
 // is a gather that reads each input vector 4 times (through L1/L2) and
 // writes h and xr once: bytes, a few us a call. The design replaces K1, two
 // PyTorch FIR passes (five to seven launches each) and K4 with one C call
-// of 6-9 launches; folding the resample into conv1's A-operand gather, so
+// of 5-9 launches; folding the resample into conv1's A-operand gather, so
 // that h never reaches device memory, is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "conv.cuh"
 
-extern "C" long long gddim_resblock_workspace(int batch, int h, int w, int cin, int n, int splits,
-                                              int act_f32);
+extern "C" long long gddim_resblock_workspace(int batch, int h, int w, int cin, int n,
+                                              int splits);
+extern "C" long long gddim_resblock_f32_workspace(int batch, int h, int w, int cin, int n,
+                                                  int splits);
 extern "C" long long gddim_resblock_int8_workspace(int batch, int h, int w, int cin, int n,
                                                    int splits);
-extern "C" int gddim_resblock(const void* x0, const void* x1, int c0, int c1, const void* temb,
-                              const void* dense_w, const void* dense_b, int temb_k,
-                              const void* gn1_g, const void* gn1_b, int groups1, const void* w1,
-                              const void* b1, const void* gn2_g, const void* gn2_b, int groups2,
-                              const void* w2, const void* b2, const void* s0, const void* s1,
-                              int cs0, int cs1, const void* ws, const void* bs, int batch, int h,
-                              int w_, int n, float eps, float out_scale, void* work, int splits1,
-                              int kper1, int splits2, int kper2, void* out, int act_f32,
-                              void* stream);
+extern "C" int gddim_resblock_f32(const void* x0, const void* x1, int c0, int c1,
+                                  const void* temb, const void* dense_w, const void* dense_b,
+                                  int temb_k, const void* gn1_g, const void* gn1_b, int groups1,
+                                  const void* w1, const void* b1, const void* gn2_g,
+                                  const void* gn2_b, int groups2, const void* w2, const void* b2,
+                                  const void* s0, const void* s1, int cs0, int cs1,
+                                  const void* ws, const void* bs, int batch, int h, int w_, int n,
+                                  float eps, float out_scale, void* work, int splits1, int kper1,
+                                  int splits2, int kper2, void* out, void* stream);
 
 namespace {
 
@@ -242,22 +249,37 @@ Work carve(char* base, int batch, int ho, int wo, int c, size_t h_bytes, size_t 
 
 int out_size(int n, int up) { return up ? 2 * n : n / 2; }
 
+// GN1 statistics of x and the resample into h and xr (the first two
+// launches of every mode), TX x's type, TH h's; see transition_resample_kernel.
+template <typename TX, typename TH>
+int gn1_resample(const void* x, int c, const void* gn1_g, const void* gn1_b, int groups1,
+                 int batch, int h_in, int w_in, int up, const Taps& k, float eps, int round_h,
+                 const Work& wk, float* amax, cudaStream_t st) {
+  int err = gn_affine_launch(x, nullptr, c, 0, batch, h_in * w_in, groups1, (const float*)gn1_g,
+                             (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr,
+                             std::is_same<TX, float>::value, st);
+  if (!err && amax) err = (int)cudaMemsetAsync(amax, 0, sizeof(float) * batch, st);
+  if (!err)
+    err = resample_launch<TX, TH>(x, wk.sc1, wk.sh1, batch, h_in, w_in, c, up, k, round_h, wk.h,
+                                  wk.xr, amax, st);
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
 
 // h, w: the OUTPUT resolution (the block's convs run there)
-long long gddim_resblock_transition_workspace(int batch, int h, int w, int c, int n, int splits,
-                                              int act_f32) {
-  const size_t act = act_f32 ? sizeof(float) : sizeof(bf16);
-  return (long long)(carve(nullptr, batch, h, w, c, act, act).bytes +
-                     gddim_resblock_workspace(batch, h, w, c, n, splits, act_f32));
+long long gddim_resblock_transition_workspace(int batch, int h, int w, int c, int n, int splits) {
+  return (long long)(carve(nullptr, batch, h, w, c, sizeof(bf16), sizeof(bf16)).bytes +
+                     gddim_resblock_workspace(batch, h, w, c, n, splits));
 }
 
-// K9, bf16 mode: x (B, H_in, W_in, C) bf16, or f32 with act_f32 (then h and
-// xr are kept in f32 holding bf16 values, and out is f32). (kh, kw): the
-// phase coefficients. splits/kper: conv1's and conv2's split-K at the output
-// resolution. Scratch: gddim_resblock_transition_workspace bytes.
+// K9, bf16 mode: x (B, H_in, W_in, C) bf16. (kh, kw): the phase
+// coefficients. h (bf16) is conv1's operand as it is (the bf16 block's
+// path with GN1 off: no pre-pass for conv1), xr the skip's. The tile plan
+// (ops/resblock.py:bf16_tile_plan) as gddim_resblock takes it, at the
+// output resolution. Scratch: gddim_resblock_transition_workspace bytes.
 int gddim_resblock_transition(const void* x, int c, const void* temb, const void* dense_w,
                               const void* dense_b, int temb_k, const void* gn1_g,
                               const void* gn1_b, int groups1, const void* w1, const void* b1,
@@ -265,28 +287,58 @@ int gddim_resblock_transition(const void* x, int c, const void* temb, const void
                               const void* b2, const void* ws, const void* bs, int batch, int h_in,
                               int w_in, int up, float kh0, float kh1, float kh2, float kh3,
                               float kw0, float kw1, float kw2, float kw3, int n, float eps,
-                              float out_scale, void* work, int splits1, int kper1, int splits2,
-                              int kper2, void* out, int act_f32, void* stream) {
+                              float out_scale, void* work, int mw, int box_h, int box_b,
+                              int tiles_h, int m_tiles, int splits1, int kper1, int splits2,
+                              int kper2, void* out, void* stream) {
   if (c % 8 || h_in % 2 || w_in % 2) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int ho = out_size(h_in, up), wo = out_size(w_in, up);
-  const size_t act = act_f32 ? sizeof(float) : sizeof(bf16);
-  const Work wk = carve((char*)work, batch, ho, wo, c, act, act);
+  const Work wk = carve((char*)work, batch, ho, wo, c, sizeof(bf16), sizeof(bf16));
   const Taps k = {{kh0, kh1, kh2, kh3}, {kw0, kw1, kw2, kw3}};
-  int err = gn_affine_launch(x, nullptr, c, 0, batch, h_in * w_in, groups1, (const float*)gn1_g,
-                             (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr,
-                             act_f32 != 0, st);
-  if (!err)
-    err = act_f32 ? resample_launch<float, float>(x, wk.sc1, wk.sh1, batch, h_in, w_in, c, up, k,
-                                                  1, wk.h, wk.xr, nullptr, st)
-                  : resample_launch<bf16, bf16>(x, wk.sc1, wk.sh1, batch, h_in, w_in, c, up, k, 1,
-                                                wk.h, wk.xr, nullptr, st);
+  const int err = gn1_resample<bf16, bf16>(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up, k,
+                                           eps, 1, wk, nullptr, st);
+  if (err) return err;
+  return resblock_gemm_run(false, wk.h, nullptr, c, 0, false, nullptr, temb, dense_w, dense_b,
+                           temb_k, nullptr, nullptr, 0, w1, nullptr, b1, gn2_g, gn2_b, groups2,
+                           w2, nullptr, b2, wk.xr, nullptr, c, 0, ws, bs, nullptr, batch, ho, wo,
+                           n, eps, out_scale, wk.rest,
+                           GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1,
+                           splits2, kper2, out, st);
+}
+
+long long gddim_resblock_transition_f32_workspace(int batch, int h, int w, int c, int n,
+                                                  int splits) {
+  return (long long)(carve(nullptr, batch, h, w, c, sizeof(float), sizeof(float)).bytes +
+                     gddim_resblock_f32_workspace(batch, h, w, c, n, splits));
+}
+
+// K9 on f32 x: h and xr are kept in f32 holding bf16 values, and out is
+// f32, through the f32 block (conv_gemm_kernel); splits/kper: conv1's and
+// conv2's split-K at the output resolution (ops/resblock.py:split_k).
+// Scratch: gddim_resblock_transition_f32_workspace bytes.
+int gddim_resblock_transition_f32(const void* x, int c, const void* temb, const void* dense_w,
+                                  const void* dense_b, int temb_k, const void* gn1_g,
+                                  const void* gn1_b, int groups1, const void* w1, const void* b1,
+                                  const void* gn2_g, const void* gn2_b, int groups2,
+                                  const void* w2, const void* b2, const void* ws, const void* bs,
+                                  int batch, int h_in, int w_in, int up, float kh0, float kh1,
+                                  float kh2, float kh3, float kw0, float kw1, float kw2,
+                                  float kw3, int n, float eps, float out_scale, void* work,
+                                  int splits1, int kper1, int splits2, int kper2, void* out,
+                                  void* stream) {
+  if (c % 8 || h_in % 2 || w_in % 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int ho = out_size(h_in, up), wo = out_size(w_in, up);
+  const Work wk = carve((char*)work, batch, ho, wo, c, sizeof(float), sizeof(float));
+  const Taps k = {{kh0, kh1, kh2, kh3}, {kw0, kw1, kw2, kw3}};
+  const int err = gn1_resample<float, float>(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up,
+                                             k, eps, 1, wk, nullptr, st);
   if (err) return err;
   // the K4 path: GN1 off (groups1 = 0) on h, xr the 1x1 skip's input
-  return gddim_resblock(wk.h, nullptr, c, 0, temb, dense_w, dense_b, temb_k, nullptr, nullptr, 0,
-                        w1, b1, gn2_g, gn2_b, groups2, w2, b2, wk.xr, nullptr, c, 0, ws, bs,
-                        batch, ho, wo, n, eps, out_scale, wk.rest, splits1, kper1, splits2, kper2,
-                        out, act_f32, stream);
+  return gddim_resblock_f32(wk.h, nullptr, c, 0, temb, dense_w, dense_b, temb_k, nullptr, nullptr,
+                            0, w1, b1, gn2_g, gn2_b, groups2, w2, b2, wk.xr, nullptr, c, 0, ws,
+                            bs, batch, ho, wo, n, eps, out_scale, wk.rest, splits1, kper1,
+                            splits2, kper2, out, stream);
 }
 
 long long gddim_resblock_transition_int8_workspace(int batch, int h, int w, int c, int n,
@@ -319,20 +371,15 @@ int gddim_resblock_transition_int8(const void* x, int c, const void* temb, const
   const Work wk = carve((char*)work, batch, ho, wo, c, sizeof(float), sizeof(bf16));
   const Taps k = {{kh0, kh1, kh2, kh3}, {kw0, kw1, kw2, kw3}};
   const bool dynamic = act_scales == nullptr;
-  int err = gn_affine_launch(x, nullptr, c, 0, batch, h_in * w_in, groups1, (const float*)gn1_g,
-                             (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr, false,
-                             st);
-  if (!err && dynamic) err = (int)cudaMemsetAsync(wk.amax, 0, sizeof(float) * batch, st);
-  if (!err)
-    err = resample_launch<bf16, float>(x, wk.sc1, wk.sh1, batch, h_in, w_in, c, up, k, 0, wk.h,
-                                       wk.xr, dynamic ? wk.amax : nullptr, st);
+  const int err = gn1_resample<bf16, float>(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up, k,
+                                            eps, 0, wk, dynamic ? wk.amax : nullptr, st);
   if (err) return err;
-  return resblock_int8_run(wk.h, nullptr, c, 0, true, dynamic ? wk.amax : nullptr, temb, dense_w,
-                           dense_b, temb_k, nullptr, nullptr, 0, w1q, w1s, b1, gn2_g, gn2_b,
-                           groups2, w2q, w2s, b2, wk.xr, nullptr, c, 0, ws, bs, act_scales, batch,
-                           ho, wo, n, eps, out_scale, wk.rest,
-                           S8Tiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1, splits2,
-                           kper2, out, st);
+  return resblock_gemm_run(true, wk.h, nullptr, c, 0, true, dynamic ? wk.amax : nullptr, temb,
+                           dense_w, dense_b, temb_k, nullptr, nullptr, 0, w1q, w1s, b1, gn2_g,
+                           gn2_b, groups2, w2q, w2s, b2, wk.xr, nullptr, c, 0, ws, bs,
+                           act_scales, batch, ho, wo, n, eps, out_scale, wk.rest,
+                           GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1,
+                           splits2, kper2, out, st);
 }
 
 }  // extern "C"

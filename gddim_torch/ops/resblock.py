@@ -21,10 +21,18 @@ computation:
     out = (skip(x) + h) * 1/sqrt(2)           skip: identity or 1x1 conv + b_skip
 
 The CUDA implementation is ``csrc/resblock.cu`` (see its header for what
-bounds it on the H100 and how the design answers): four or five launches per
-block, all hand-written. On a CPU tensor each wrapper runs its plain version;
-on a CUDA tensor it launches the kernels or raises. K2-K4 have no gradient:
-on CUDA tensors they raise when autograd would need one.
+bounds it on the H100 and how the design answers), one C call of a few
+hand-written launches per block. On bf16 activations each conv is a bf16
+pre-pass (``bf16_conv_input``: a = bf16(silu(GN(x))), written once) and the
+block GEMM (``csrc/block_gemm.cu``, ``bf16_conv_gemm``: wgmma fed by TMA,
+the HWIO weights read through the transpose bit, the 1x1 skip in the same
+accumulators), with h1 in f32 between the convs, as the TPU kernel keeps it
+(``resblock_bf16_reference`` and its pair/tail forms are the plain versions
+with the TPU kernel's rounding points); its tile plan is ``bf16_tile_plan``.
+On f32 activations (and in K6) the convs run ``conv_gemm_kernel``, with the
+GN affine in the A operand's prologue. On a CPU tensor each wrapper runs its
+plain version; on a CUDA tensor it launches the kernels or raises. K2-K4
+have no gradient: on CUDA tensors they raise when autograd would need one.
 
 The int8 mode of K2-K4 (``mm_dtype=jnp.int8``, what ``conv_impl='fused_int8'``
 runs): ``fused_resblock_int8``, ``fused_resblock_pair_int8`` and
@@ -39,12 +47,13 @@ dequantized by (weight scale * s), h1 stays f32 between the convs, and the
 1x1 skip runs bf16 with f32 sums: the model never hands the kernels a static
 skip scale (the JAX package's ``static_skip`` opt-in), and these wrappers
 refuse one. On the card each conv is a quantize pre-pass
-(``quantize_conv_input``) and the int8 block GEMM (``csrc/conv_s8.cu``,
-``int8_conv_gemm``): wgmma s8 fed by TMA, which reads the int8 weights
+(``quantize_conv_input``) and the block GEMM in its int8 mode
+(``int8_conv_gemm``): wgmma s8 fed by TMA, which reads the int8 weights
 K-major, (Cout, 9 * Cin), as ``pack_int8_weight`` makes them once from
 ``quantize_weight``'s HWIO; the CUDA wrappers take only that layout, the
-plain versions either. Its tile plan is ``s8_tile_plan``; ``s8_launches``
-reads how often the card ran the GEMM and the pre-pass, counted in C.
+plain versions either. Its tile plan is ``s8_tile_plan``. ``block_launches``
+reads how often the card ran the block GEMM and the pre-pass, each mode
+apart, counted in C where they launch.
 
 Weights are in the JAX package's layout: conv kernels HWIO (3, 3, Cin, Cout),
 the skip (Cin, Cout), the temb Dense (K, Cout).
@@ -243,6 +252,25 @@ def conv3x3_int8_exact(q, wq):
     return conv3x3_nhwc(q.double(), wq.double()).float()
 
 
+def _conv_input(x0, x1, scale, shift, silu: bool):
+    """A conv input of the block pre-pass in f32: concat(x0, x1), with scale
+    and shift (B, C) a * scale[b] + shift[b], then SiLU (silu)."""
+    a = (x0 if x1 is None else torch.cat([x0, x1], -1)).float()
+    if scale is not None:
+        cshape = (a.shape[0],) + (1,) * (a.dim() - 2) + (-1,)
+        a = a * scale.float().reshape(cshape) + shift.float().reshape(cshape)
+        if silu:
+            a = a * torch.sigmoid(a)
+    return a
+
+
+def bf16_conv_input_reference(x0, x1=None, scale=None, shift=None, *, silu: bool = False):
+    """Plain version of the bf16 block's pre-pass: the activation of
+    ``_conv_input`` rounded once to bf16 (the TPU kernels'
+    ``a1.astype(mm_dtype)``), x0's shape but C."""
+    return _conv_input(x0, x1, scale, shift, silu).to(torch.bfloat16)
+
+
 def quantize_conv_input_reference(x0, x1=None, scale=None, shift=None, *, silu: bool = False,
                                   act_scale=None, amax=None, inv_mul: bool = False):
     """Plain version of the int8 block's quantize pre-pass: a = concat(x0,
@@ -251,13 +279,8 @@ def quantize_conv_input_reference(x0, x1=None, scale=None, shift=None, *, silu: 
     (1/s))), else per sample by amax (B,) (max|a| of the sample when None):
     clip(round(a / s_b)), s_b = max(amax_b, 1e-12) / 127, or with inv_mul
     clip(round(a * (127 / max(amax_b, 1e-12)))). int8, x0's shape but C."""
-    a = (x0 if x1 is None else torch.cat([x0, x1], -1)).float()
+    a = _conv_input(x0, x1, scale, shift, silu)
     bshape = (a.shape[0],) + (1,) * (a.dim() - 1)
-    if scale is not None:
-        cshape = bshape[:-1] + (-1,)
-        a = a * scale.float().reshape(cshape) + shift.float().reshape(cshape)
-        if silu:
-            a = a * torch.sigmoid(a)
     if act_scale is not None:
         q = quant_static(a, act_scale.float().reshape(()))
     else:
@@ -340,6 +363,65 @@ def resblock_tail_int8_reference(h, x_skip, temb, dense_w, dense_b, w1, b1, gn2_
 
 
 # --------------------------------------------------------------------------
+# The bf16 mode with the TPU kernels' rounding points (mm_dtype bf16:
+# gddim_tpu/ops/resblock.py:345-430, 880-960)
+# --------------------------------------------------------------------------
+
+
+def _bf16r(t):
+    """t rounded to bf16, in f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _bf16_block(a1, x_skip, temb_proj, w1, b1, gn2_scale, gn2_bias, w2, b2, w_skip, b_skip,
+                num_groups2, eps, skip_rescale, out_dtype, fold2: bool):
+    """conv1 .. out of the bf16 block from a1 (f32 holding bf16 values, the
+    conv1 operand): bf16 weights with f32 sums, h1 = conv1 + b1 + temb in
+    f32, a2 = silu(GN2(h1)) (one-pass statistics; fold2: the folded affine)
+    rounded to bf16, the skip bf16 x_skip @ bf16 w_skip with f32 sums (or
+    x_skip itself), out in out_dtype."""
+    h1 = conv3x3_nhwc(a1, _bf16r(w1.float()), b1.float()) + temb_proj[:, None, None, :]
+    a2 = _bf16r(group_norm_tpu(h1, gn2_scale, gn2_bias, num_groups2, eps, True, fold2))
+    out = conv3x3_nhwc(a2, _bf16r(w2.float()), b2.float())
+    if w_skip is None:
+        out = out + x_skip.float()
+    else:
+        out = out + _bf16r(x_skip.float()) @ _bf16r(w_skip.float())
+        out = out if b_skip is None else out + b_skip.float()
+    return (out * _INV_SQRT2 if skip_rescale else out).to(out_dtype)
+
+
+def resblock_bf16_reference(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale,
+                            gn2_bias, w2, b2, w_skip=None, b_skip=None, *, num_groups1: int,
+                            num_groups2: int, eps: float = 1e-6, skip_rescale: bool = True):
+    """K2's bf16 mode with the TPU kernel's rounding points
+    (``_resblock_kernel_v2``, mm_dtype bf16), in f32 otherwise: GN
+    statistics E[x^2] - mean^2 and the folded affine; a1 = silu(GN1(x))
+    rounded to bf16 (the conv's operand); h1 f32; a2 = silu(GN2(h1)) rounded
+    to bf16; out in x's dtype."""
+    a1 = _bf16r(group_norm_tpu(x.float(), gn1_scale, gn1_bias, num_groups1, eps, True, True))
+    return _bf16_block(a1, x, temb_projection(temb, dense_w, dense_b), w1, b1, gn2_scale,
+                       gn2_bias, w2, b2, w_skip, b_skip, num_groups2, eps, skip_rescale, x.dtype,
+                       True)
+
+
+def resblock_pair_bf16_reference(xa, xb, *args, **kwargs):
+    """K3's bf16 mode with the TPU kernel's rounding points
+    (``_resblock_pair_kernel_v2``): K2's on concat(xa, xb)."""
+    return resblock_bf16_reference(torch.cat([xa, xb], -1), *args, **kwargs)
+
+
+def resblock_tail_bf16_reference(h, x_skip, temb, dense_w, dense_b, w1, b1, gn2_scale, gn2_bias,
+                                 w2, b2, w_skip, b_skip, *, num_groups2: int, eps: float = 1e-6,
+                                 skip_rescale: bool = True):
+    """K4's bf16 mode with the TPU kernel's rounding points: h (silu(GN1(x))
+    resampled) rounded to bf16 as conv1's operand, then K2's."""
+    return _bf16_block(_bf16r(h.float()), x_skip, temb_projection(temb, dense_w, dense_b), w1, b1,
+                       gn2_scale, gn2_bias, w2, b2, w_skip, b_skip, num_groups2, eps,
+                       skip_rescale, h.dtype, True)
+
+
+# --------------------------------------------------------------------------
 # K9: the whole up/down transition block (gddim_tpu/ops/resblock.py:1235-1301,
 # 1304-1420, 1458-1614)
 # --------------------------------------------------------------------------
@@ -390,11 +472,6 @@ def transition_supported(x_shape, cout: int, up: bool, fir: bool, fir_kernel=(1,
             and h % 2 == 0 and w % 2 == 0)
 
 
-def _bf16r(t):
-    """t rounded to bf16, in f32."""
-    return t.to(torch.bfloat16).float()
-
-
 def resblock_transition_reference(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1,
                                   gn2_scale, gn2_bias, w2, b2, w_skip, b_skip, *, up: bool,
                                   fir: bool = True, fir_kernel=(1, 3, 3, 1), num_groups1: int,
@@ -426,12 +503,9 @@ def resblock_transition_bf16_reference(x, temb, dense_w, dense_b, gn1_scale, gn1
     a1 = _bf16r(group_norm_tpu(x.float(), gn1_scale, gn1_bias, num_groups1, eps, True, False))
     h = _bf16r(resample_transition(a1, kerns, up))
     xr = _bf16r(resample_transition(_bf16r(x.float()), kerns, up))
-    h1 = conv3x3_nhwc(h, _bf16r(w1.float()), b1.float())
-    h1 = h1 + temb_projection(temb, dense_w, dense_b)[:, None, None, :]
-    a2 = _bf16r(group_norm_tpu(h1, gn2_scale, gn2_bias, num_groups2, eps, True, False))
-    out = conv3x3_nhwc(a2, _bf16r(w2.float()), b2.float()) + xr @ _bf16r(w_skip.float())
-    out = out if b_skip is None else out + b_skip.float()
-    return (out * _INV_SQRT2 if skip_rescale else out).to(x.dtype)
+    return _bf16_block(h, xr, temb_projection(temb, dense_w, dense_b), w1, b1, gn2_scale,
+                       gn2_bias, w2, b2, w_skip, b_skip, num_groups2, eps, skip_rescale, x.dtype,
+                       False)
 
 
 def resblock_transition_int8_reference(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1,
@@ -487,7 +561,9 @@ _MIN_SPLIT_SLICES = 8  # K slices per split, at least
 
 
 def split_k(m: int, n: int, k: int) -> tuple[int, int]:
-    """(splits, K per split) so that a small-M GEMM still fills the card."""
+    """(splits, K channels per split) of conv_gemm_kernel (the f32 blocks,
+    K5's projections) so that a small-M GEMM still fills the card: 64x64
+    output tiles, K in slices of 32 channels, at least 8 a split."""
     blocks = -(-m // _BM) * (n // _BN)
     slices = k // _BK
     splits = max(1, min(-(-_TARGET_BLOCKS // blocks), slices // _MIN_SPLIT_SLICES))
@@ -496,20 +572,19 @@ def split_k(m: int, n: int, k: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(entry: str, b: int, h: int, w: int, cin: int, cskip: int, n: int, *extra):
-    """(splits1, kper1, splits2, kper2, workspace bytes) of one block shape
-    (the convs' resolution h x w) through ``entry`` (gddim_resblock,
-    gddim_resblock_int8, gddim_resblock_train or the two transition entries);
-    ``extra``: the workspace function's arguments after the splits."""
+def _plan(entry: str, b: int, h: int, w: int, cin: int, cskip: int, n: int):
+    """(splits1, kper1, splits2, kper2, workspace bytes) of one f32 block
+    shape (the convs' resolution h x w) on conv_gemm_kernel through ``entry``
+    (gddim_resblock_f32, gddim_resblock_train or gddim_resblock_transition_f32)."""
     s1, k1 = split_k(b * h * w, n, 9 * cin)
     s2, k2 = split_k(b * h * w, n, 9 * n + cskip)
-    return s1, k1, s2, k2, _build.workspace_bytes(entry, b, h, w, cin, n, max(s1, s2), *extra)
+    return s1, k1, s2, k2, _build.workspace_bytes(entry, b, h, w, cin, n, max(s1, s2))
 
 
 def tile_box(b: int, h: int, w: int, rows: int):
     """(box_h, box_b, tiles_h, m_tiles) of M tiles of ``rows`` output pixels
     cut from (b, h, w) as one TMA box each: whole rows of one sample, or
-    whole samples (the wgmma convs, K11 and the int8 block GEMM)."""
+    whole samples (the wgmma convs, K11 and the block GEMM)."""
     if h * w >= rows:  # whole rows of one sample
         box_b, box_h = 1, min(h, rows // w)
     else:  # whole samples
@@ -518,23 +593,25 @@ def tile_box(b: int, h: int, w: int, rows: int):
     return box_h, box_b, tiles_h, tiles_h * -(-b // box_b)
 
 
-# The int8 block GEMM's tiling (csrc/conv_s8.cu)
-S8_TILE_M = 128  # output pixels of a tile (times mw)
-S8_TILE_N = 128  # output channels of a tile
-S8_SLICE = 128  # int8 channels of one tap in a conv K slice (128 bytes)
-S8_SKIP_SLICE = 64  # bf16 channels in a skip K slice (128 bytes)
-S8_MIN_SPLIT_SLICES = 4  # K slices per split, at least
+# The block GEMM's tiling (csrc/block_gemm.cu): a K slice is 128 bytes a pixel
+GEMM_TILE_M = 128  # output pixels of a tile (times mw)
+GEMM_TILE_N = 128  # output channels of a tile
+S8_SLICE = 128  # int8 channels of one tap in a conv K slice
+BF16_SLICE = 64  # bf16 channels of one tap in a conv K slice
+GEMM_SKIP_SLICE = 64  # bf16 channels in a skip K slice
+GEMM_MIN_SPLIT_SLICES = 4  # K slices per split, at least
 
 
-class S8Plan(NamedTuple):
-    """How ``conv_s8_wgmma_kernel`` cuts one conv (+ skip). A tile is mw *
-    S8_TILE_M output pixels, one A box of W pixels x box_h rows x box_b
+class GemmPlan(NamedTuple):
+    """How ``block_gemm_kernel`` cuts one conv (+ skip). A tile is mw *
+    GEMM_TILE_M output pixels, one A box of W pixels x box_h rows x box_b
     samples; M tile t covers samples [t // tiles_h * box_b, ... + box_b) and
     rows [t % tiles_h * box_h, ... + box_h); the grid's N tiles are Cout /
-    S8_TILE_N. K runs in conv_slices int8 slices of S8_SLICE channels (9 *
-    Cin in tap order), then skip_slices bf16 slices of S8_SKIP_SLICE,
-    ``kper`` to a split, over ``splits`` splits. The ring's depth and shared
-    memory follow from mw in the kernel (``S8Tile``)."""
+    GEMM_TILE_N. K runs in conv_slices slices of S8_SLICE int8 or
+    BF16_SLICE bf16 channels (9 * Cin in tap order), then skip_slices bf16
+    slices of GEMM_SKIP_SLICE, ``kper`` to a split, over ``splits`` splits.
+    The ring's depth and shared memory follow from mw in the kernel
+    (``Tile``)."""
 
     mw: int
     box_h: int
@@ -548,35 +625,48 @@ class S8Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def s8_tile_plan(b: int, h: int, w: int, cin: int, cskip: int, n: int) -> S8Plan:
+def _gemm_tile_plan(b: int, h: int, w: int, cin: int, cskip: int, n: int,
+                    slice_: int) -> GemmPlan:
+    if cin % slice_ or cskip % GEMM_SKIP_SLICE or n % GEMM_TILE_N or not 0 < w <= GEMM_TILE_M:
+        what = "int8" if slice_ == S8_SLICE else "bf16"
+        raise ValueError(f"{what} block GEMM: no tile plan for x {(b, h, w, cin)}, skip "
+                         f"{cskip}, Cout {n} (Cin a multiple of {slice_}, the skip of "
+                         f"{GEMM_SKIP_SLICE}, Cout of {GEMM_TILE_N}, W at most {GEMM_TILE_M})")
+    n_tiles = n // GEMM_TILE_N
+    mw = 2 if tile_box(b, h, w, 2 * GEMM_TILE_M)[3] * n_tiles >= SMS - 4 else 1
+    box_h, box_b, tiles_h, m_tiles = tile_box(b, h, w, mw * GEMM_TILE_M)
+    conv_slices, skip_slices = 9 * cin // slice_, cskip // GEMM_SKIP_SLICE
+    slices = conv_slices + skip_slices
+    splits = max(1, min(SMS // (m_tiles * n_tiles), slices // GEMM_MIN_SPLIT_SLICES))
+    kper = -(-slices // splits)
+    return GemmPlan(mw, box_h, box_b, tiles_h, m_tiles, conv_slices, skip_slices,
+                    -(-slices // kper), kper)
+
+
+def s8_tile_plan(b: int, h: int, w: int, cin: int, cskip: int, n: int) -> GemmPlan:
     """The int8 block GEMM's plan for a (b, h, w, cin) x (3, 3, cin, n) conv
     with a cskip-channel bf16 skip: a pure function of the shapes, K11's
     rules (``ops/conv3x3.py:tile_plan``): tiles of 256 pixels where they
     alone make a wave of at least 128 CTAs, else of 128, with K split while
     the tiles leave half the SMs idle. Raises for shapes the kernel does not
     take."""
-    if cin % S8_SLICE or cskip % S8_SKIP_SLICE or n % S8_TILE_N or not 0 < w <= S8_TILE_M:
-        raise ValueError(f"int8 block GEMM: no tile plan for x {(b, h, w, cin)}, skip {cskip}, "
-                         f"Cout {n} (Cin and Cout multiples of {S8_SLICE}, the skip of "
-                         f"{S8_SKIP_SLICE}, W at most {S8_TILE_M})")
-    n_tiles = n // S8_TILE_N
-    mw = 2 if tile_box(b, h, w, 2 * S8_TILE_M)[3] * n_tiles >= SMS - 4 else 1
-    box_h, box_b, tiles_h, m_tiles = tile_box(b, h, w, mw * S8_TILE_M)
-    conv_slices, skip_slices = 9 * cin // S8_SLICE, cskip // S8_SKIP_SLICE
-    slices = conv_slices + skip_slices
-    splits = max(1, min(SMS // (m_tiles * n_tiles), slices // S8_MIN_SPLIT_SLICES))
-    kper = -(-slices // splits)
-    return S8Plan(mw, box_h, box_b, tiles_h, m_tiles, conv_slices, skip_slices,
-                  -(-slices // kper), kper)
+    return _gemm_tile_plan(b, h, w, cin, cskip, n, S8_SLICE)
+
+
+def bf16_tile_plan(b: int, h: int, w: int, cin: int, cskip: int, n: int) -> GemmPlan:
+    """The bf16 block GEMM's plan, by the rules of ``s8_tile_plan``, with
+    conv K slices of BF16_SLICE channels (Cin a multiple of 64)."""
+    return _gemm_tile_plan(b, h, w, cin, cskip, n, BF16_SLICE)
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_s8(entry: str, b: int, h: int, w: int, cin: int, cskip: int, n: int):
+def _plan_gemm(entry: str, b: int, h: int, w: int, cin: int, cskip: int, n: int, int8: bool):
     """(M tiling, (splits1, kper1, splits2, kper2), workspace bytes) of one
-    int8 block through ``entry`` (gddim_resblock_int8 or the transition's):
-    conv1 (cin -> n) and conv2 (n -> n, + the cskip-channel skip) share the
-    M tiling."""
-    p1, p2 = s8_tile_plan(b, h, w, cin, 0, n), s8_tile_plan(b, h, w, n, cskip, n)
+    block on the block GEMM through ``entry`` (gddim_resblock,
+    gddim_resblock_int8 or the transition's): conv1 (cin -> n) and conv2 (n
+    -> n, + the cskip-channel skip) share the M tiling."""
+    plan = s8_tile_plan if int8 else bf16_tile_plan
+    p1, p2 = plan(b, h, w, cin, 0, n), plan(b, h, w, n, cskip, n)
     tiles = (p1.mw, p1.box_h, p1.box_b, p1.tiles_h, p1.m_tiles)
     nbytes = _build.workspace_bytes(entry, b, h, w, cin, n, max(p1.splits, p2.splits))
     return tiles, (p1.splits, p1.kper, p2.splits, p2.kper), nbytes
@@ -614,11 +704,12 @@ def activation_dtype(x, what: str, int8: bool):
 def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias, w2, b2,
                 skip_parts, w_skip, b_skip, *, num_groups2, eps, skip_rescale, int8=False,
                 act_scales=None):
-    """One block through gddim_resblock, or gddim_resblock_int8 when int8
-    (w1, w2 then (int8 weights, scale) pairs; act_scales None or [s1, s2]).
-    gn1: (scale, bias, groups), or None (K4); skip_parts None: identity
-    residual parts[0]. The activations and the output take parts[0]'s
-    dtype (bf16 or f32; bf16 only when int8)."""
+    """One block through gddim_resblock (bf16 activations, the block GEMM),
+    gddim_resblock_f32 (f32 activations, conv_gemm_kernel), or
+    gddim_resblock_int8 when int8 (w1, w2 then (int8 weights, scale) pairs;
+    act_scales None or [s1, s2]). gn1: (scale, bias, groups), or None (K4);
+    skip_parts None: identity residual parts[0]. The activations and the
+    output take parts[0]'s dtype (bf16 or f32; bf16 only when int8)."""
     convs = [*w1, *w2] if int8 else [w1, w2]
     require_no_grad("resblock kernel", *parts, temb, dense_w, dense_b, *(gn1 or ())[:2], *convs,
                     b1, gn2_scale, gn2_bias, b2, *(skip_parts or ()), w_skip, b_skip)
@@ -633,19 +724,19 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
     c0, c1 = (p.shape[-1] if p is not None else 0 for p in xs[:2])
     cs0, cs1 = (p.shape[-1] if p is not None else 0 for p in ss[:2])
     cin, n = c0 + c1, (w1[1] if int8 else w1).shape[-1]
-    skip_unit = S8_SKIP_SLICE if int8 else 8  # each skip part in whole K slices
+    gemm = act == bf16  # the block GEMM (bf16 and int8); f32: conv_gemm_kernel
+    skip_unit = GEMM_SKIP_SLICE if gemm else 8  # each skip part in whole K slices
     if (any(c % 8 for c in (c0, c1)) or cs0 % skip_unit or cs1 % skip_unit or cin % _BK
             or (cs0 + cs1) % _BK or n % _BN):
         raise ValueError(f"resblock: unsupported channels {c0}+{c1} (skip {cs0}+{cs1}) -> {n}")
     if skip_parts is None and cin != n:
         raise ValueError("resblock: identity skip needs Cin == Cout")
-    entry = "gddim_resblock_int8" if int8 else "gddim_resblock"
-    act_f32 = () if int8 else (int(act == f32),)  # the bf16 entry's activation flag
-    if int8:
-        tiles, splits, nbytes = _plan_s8(entry, b, h, w, cin, cs0 + cs1, n)
+    entry = "gddim_resblock" + ("_int8" if int8 else "" if gemm else "_f32")
+    if gemm:
+        tiles, splits, nbytes = _plan_gemm(entry, b, h, w, cin, cs0 + cs1, n, int8)
         plan = (*tiles, *splits)
     else:
-        *plan, nbytes = _plan(entry, b, h, w, cin, cs0 + cs1, n, *act_f32)
+        *plan, nbytes = _plan(entry, b, h, w, cin, cs0 + cs1, n)
     temb = _operand(temb, "temb", f32)
     gn1 = gn1 or (None, None, 0)
     skip = skip_parts is not None
@@ -678,7 +769,7 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
     work = torch.empty(nbytes, device=dev, dtype=torch.uint8)
     out = torch.empty((b, h, w, n), device=dev, dtype=act)
     _build.launch(entry, dev, *args, b, h, w, n, eps, _INV_SQRT2 if skip_rescale else 1.0,
-                  work.data_ptr(), *plan, out.data_ptr(), *act_f32)
+                  work.data_ptr(), *plan, out.data_ptr())
     return out
 
 
@@ -803,8 +894,10 @@ def fused_resblock_tail_int8(h, x_skip, temb, dense_w, dense_b, w1, b1, gn2_scal
 def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale,
                      gn2_bias, w2, b2, w_skip, b_skip, act_scales, *, up, fir, fir_kernel,
                      num_groups1, num_groups2, eps, skip_rescale, int8):
-    """K9 through gddim_resblock_transition, or gddim_resblock_transition_int8
-    (w1, w2 then (int8 weights, scale) pairs; act_scales None or [s1, s2])."""
+    """K9 through gddim_resblock_transition (bf16 x, the block GEMM),
+    gddim_resblock_transition_f32 (f32 x, conv_gemm_kernel), or
+    gddim_resblock_transition_int8 (w1, w2 then (int8 weights, scale) pairs;
+    act_scales None or [s1, s2])."""
     convs = [*w1, *w2] if int8 else [w1, w2]
     require_no_grad("resblock transition kernel", x, temb, dense_w, dense_b, gn1_scale, gn1_bias,
                     *convs, b1, gn2_scale, gn2_bias, b2, w_skip, b_skip)
@@ -820,13 +913,13 @@ def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2
                          "required; channels in whole GEMM tiles, even H and W)")
     ho, wo = (2 * hin, 2 * win) if up else (hin // 2, win // 2)
     kh, kw = transition_kerns(up, fir, fir_kernel)
-    act_f32 = () if int8 else (int(act == f32),)
-    entry = "gddim_resblock_transition" + ("_int8" if int8 else "")
-    if int8:
-        tiles, splits, nbytes = _plan_s8(entry, b, ho, wo, cin, cin, n)
+    gemm = act == bf16  # the block GEMM (bf16 and int8); f32: conv_gemm_kernel
+    entry = "gddim_resblock_transition" + ("_int8" if int8 else "" if gemm else "_f32")
+    if gemm:
+        tiles, splits, nbytes = _plan_gemm(entry, b, ho, wo, cin, cin, n, int8)
         plan = (*tiles, *splits)
     else:
-        *plan, nbytes = _plan(entry, b, ho, wo, cin, cin, n, *act_f32)
+        *plan, nbytes = _plan(entry, b, ho, wo, cin, cin, n)
     temb = _operand(temb, "temb", f32)
     keep = []  # operands stay referenced until the launch: a cast's temporary must not be freed
 
@@ -855,8 +948,7 @@ def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2
     work = torch.empty(nbytes, device=x.device, dtype=torch.uint8)
     out = torch.empty((b, ho, wo, n), device=x.device, dtype=act)
     _build.launch(entry, x.device, *args, b, hin, win, int(up), *kh, *kw, n, eps,
-                  _INV_SQRT2 if skip_rescale else 1.0, work.data_ptr(), *plan,
-                  out.data_ptr(), *act_f32)
+                  _INV_SQRT2 if skip_rescale else 1.0, work.data_ptr(), *plan, out.data_ptr())
     return out
 
 
@@ -947,19 +1039,66 @@ def int8_conv_gemm(a8, wq):
     return out
 
 
-# The kernels that run inside a C call (an int8 block's two convs, or the two
+def bf16_conv_input(x0, x1=None, scale=None, shift=None, *, silu: bool = False):
+    """The bf16 block's pre-pass alone (see bf16_conv_input_reference for the
+    arguments): (B, H, W, C0+C1) bf16. On CUDA x0, x1 bf16 or f32, scale and
+    shift (B, C) f32."""
+    if _on_cpu(x0, "bf16_conv_input"):
+        return bf16_conv_input_reference(x0, x1, scale, shift, silu=silu)
+    require_no_grad("bf16_conv_input", x0, x1, scale, shift)
+    f32 = torch.float32
+    act = activation_dtype(x0, "bf16_conv_input", False)
+    b, h, w, c0 = x0.shape
+    c1 = 0 if x1 is None else x1.shape[-1]
+    if c0 % 8 or c1 % 8:
+        raise ValueError("bf16_conv_input: channels in multiples of 8")
+    ops = [_operand(x0, "x0", act), _operand(x1, "x1", act, (b, h, w, c1)),
+           _operand(scale, "scale", f32, (b, c0 + c1)), _operand(shift, "shift", f32, (b, c0 + c1))]
+    x0_, x1_, sc, sh = map(_build.ptr, ops)
+    out = torch.empty((b, h, w, c0 + c1), device=x0.device, dtype=torch.bfloat16)
+    _build.launch("gddim_bf16_prepass", x0.device, x0_, x1_, c0, c1, int(act == f32), b, h * w,
+                  sc, sh, int(silu), out.data_ptr())
+    return out
+
+
+def bf16_conv_gemm(a, w):
+    """The bf16 block GEMM alone on one 3x3 SAME conv: the f32 sums of (B, H,
+    W, Cin) bf16 ``a`` by HWIO (3, 3, Cin, Cout) bf16 ``w``, (B, H, W, Cout)
+    f32. The plain version is the f32 conv of the same values."""
+    if _on_cpu(a, "bf16_conv_gemm"):
+        return conv3x3_nhwc(a.float(), w.float())
+    require_no_grad("bf16_conv_gemm", a, w)
+    b, h, ww, cin = a.shape
+    n = w.shape[-1]
+    plan = bf16_tile_plan(b, h, ww, cin, 0, n)
+    bf16, f32, dev = torch.bfloat16, torch.float32, a.device
+    a_ = _operand(a, "a", bf16, (b, h, ww, cin))
+    w_ = _operand(w, "w", bf16, (3, 3, cin, n))
+    work = torch.empty(plan.splits * b * h * ww * n if plan.splits > 1 else 0, device=dev,
+                       dtype=f32)
+    out = torch.empty((b, h, ww, n), device=dev, dtype=f32)
+    _build.launch("gddim_conv_bf16", dev, a_.data_ptr(), w_.data_ptr(), b, h, ww, cin, n, plan.mw,
+                  plan.box_h, plan.box_b, plan.tiles_h, plan.m_tiles, plan.splits, plan.kper,
+                  work.data_ptr(), out.data_ptr())
+    return out
+
+
+# The kernels that run inside a C call (a block's two convs, or the bare
 # wrappers above), counted in C where each is launched, in csrc/conv.cuh's
-# S8Counted order
-S8_COUNTED = ("conv_s8_wgmma_kernel", "s8_prepass_kernel")
+# Counted order: the block GEMM and its pre-pass, int8 then bf16
+BLOCK_COUNTED = ("block_gemm_kernel<int8>", "prepass_kernel<int8>", "block_gemm_kernel<bf16>",
+                 "prepass_kernel<bf16>")
+S8_COUNTED = BLOCK_COUNTED[:2]
 
 
-def s8_launches(reset: bool = False) -> dict:
-    """{kernel: launches} of S8_COUNTED since the kernel library loaded or
-    the last reset (reset: zero them after reading). Builds or loads the
-    library; a CUDA graph's replays do not count."""
-    out = torch.zeros(len(S8_COUNTED), dtype=torch.int64)
-    _build.library().gddim_s8_launches(out.data_ptr(), int(reset))
-    return dict(zip(S8_COUNTED, out.tolist()))
+def block_launches(reset: bool = False, kernels=BLOCK_COUNTED) -> dict:
+    """{kernel: launches} of ``kernels`` (of BLOCK_COUNTED) since the kernel
+    library loaded or the last reset (reset: zero every count after
+    reading). Builds or loads the library; a CUDA graph's replays do not
+    count."""
+    out = torch.zeros(len(BLOCK_COUNTED), dtype=torch.int64)
+    _build.library().gddim_block_launches(out.data_ptr(), int(reset))
+    return {k: n for k, n in zip(BLOCK_COUNTED, out.tolist()) if k in kernels}
 
 
 def _resblock_train_cuda(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, w2,

@@ -1,4 +1,4 @@
-"""The int8 block GEMM of K2/K3/K4/K9's int8 modes (``csrc/conv_s8.cu``) and
+"""The int8 block GEMM of K2/K3/K4/K9's int8 modes (``csrc/block_gemm.cu``) and
 what surrounds it in Python, on the CPU:
 
 (a) ``s8_tile_plan`` at every int8 conv of the main path (cld/accr_dcifar10,
@@ -17,6 +17,7 @@ Cases marked ``cuda`` hold the kernels against their plain versions on the
 card (the GEMM's sums bit for bit) and skip without one.
 """
 
+import functools
 import types
 
 import numpy as np
@@ -76,7 +77,7 @@ def block_convs(kind):
 def tile_pixels(plan, b, h, w, t):
     """The pixels (indices into M) of M tile t's rows that lie in the image,
     as the kernel maps them (s8_row), and the number of rows past it."""
-    r = np.arange(plan.mw * t_rb.S8_TILE_M)
+    r = np.arange(plan.mw * t_rb.GEMM_TILE_M)
     per_sample = w * plan.box_h
     bb = t // plan.tiles_h * plan.box_b + r // per_sample
     y = t % plan.tiles_h * plan.box_h + (r // w) % plan.box_h
@@ -85,8 +86,8 @@ def tile_pixels(plan, b, h, w, t):
 
 
 def ring_bytes(mw):
-    """Shared memory of conv_s8_wgmma_kernel at tiles of 128 * mw pixels, as
-    csrc/conv_s8.cu lays it out (S8Tile<mw>, held to the same limits there
+    """Shared memory of block_gemm_kernel at tiles of 128 * mw pixels, as
+    csrc/block_gemm.cu lays it out (Tile<mw>, held to the same limits there
     by static_assert): 3 stages (mw 1) or 4 (mw 2), each the A box (128
     bytes a pixel) and the 128 x 128 weight box; 1 KB to align; two
     barriers a stage."""
@@ -110,11 +111,11 @@ def test_s8_tile_plan_covers_every_main_path_conv(kind, batch):
             p = tile_pixels(plan, batch, h, h, t)
             assert np.array_equal(p, p[0] + np.arange(len(p))), what
         # N: whole tiles of 128 channels (the grid's Cout / 128)
-        assert n % t_rb.S8_TILE_N == 0, what
+        assert n % t_rb.GEMM_TILE_N == 0, what
         # K: the conv in whole 128-channel slices, then the skip in 64-channel
         # ones; the splits run over them in order, none empty
         assert plan.conv_slices * t_rb.S8_SLICE == 9 * cin, what
-        assert plan.skip_slices * t_rb.S8_SKIP_SLICE == cskip, what
+        assert plan.skip_slices * t_rb.GEMM_SKIP_SLICE == cskip, what
         slices = plan.conv_slices + plan.skip_slices
         runs = [range(z * plan.kper, min((z + 1) * plan.kper, slices)) for z in range(plan.splits)]
         assert [s for run in runs for s in run] == list(range(slices)), what
@@ -507,22 +508,23 @@ def test_s8_launch_counts_count_each_launch(cuda, kind):
     bare wrapper call, twice each (conv1, conv2) an int8 block call, and
     nothing for a call on the CPU."""
     gemm, prepass = t_rb.S8_COUNTED
+    s8_launches = functools.partial(t_rb.block_launches, kernels=t_rb.S8_COUNTED)
     h, parts, cout = BLOCKS[kind][0]
     args = _block_args(np.random.default_rng(64), kind, h, parts, cout)
-    t_rb.s8_launches(reset=True)
+    s8_launches(reset=True)
     with torch.no_grad():
         _run_block(kind, args, args[3], args[4], None)  # the CPU: the plain version
-        assert t_rb.s8_launches() == {gemm: 0, prepass: 0}
+        assert s8_launches() == {gemm: 0, prepass: 0}
         x8 = torch.ones((1, 4, 4, 128), dtype=torch.int8, device=cuda)
         t_rb.int8_conv_gemm(x8, t_rb.pack_int8_weight(t_rb.quantize_weight(
             torch.ones((3, 3, 128, 128), device=cuda)))[0])
-        assert t_rb.s8_launches() == {gemm: 1, prepass: 0}
+        assert s8_launches() == {gemm: 1, prepass: 0}
         t_rb.quantize_conv_input(x8.bfloat16(), act_scale=torch.ones((), device=cuda))
-        assert t_rb.s8_launches() == {gemm: 1, prepass: 1}
+        assert s8_launches() == {gemm: 1, prepass: 1}
         x = args[0].to(cuda).bfloat16() if kind == "K9" else [v.to(cuda).bfloat16()
                                                               for v in args[0]]
         dev = [tuple(v.to(cuda) if v is not None else None for v in a) for a in args[1:]]
         _run_block(kind, (x, *dev), *(t_rb.pack_int8_weight(c) for c in dev[2:4]), None)
         torch.cuda.synchronize()
-    assert t_rb.s8_launches(reset=True) == {gemm: 3, prepass: 3}
-    assert t_rb.s8_launches() == {gemm: 0, prepass: 0}
+    assert s8_launches(reset=True) == {gemm: 3, prepass: 3}
+    assert s8_launches() == {gemm: 0, prepass: 0}

@@ -465,13 +465,14 @@ def test_flash_attention_kernel_matches_plain(cuda, b, s, c):
 def test_kernels_without_backward_raise_under_autograd(cuda):
     """K2 and K5 would hand autograd an output with no history: they raise."""
     d = Draw(19)
-    (x,), temb, body, sk = block_args(d, 2, 8, 64, 64, False)
+    # 128 channels: the bf16 block GEMM takes Cout in whole 128-channel tiles
+    (x,), temb, body, sk = block_args(d, 2, 8, 128, 128, False)
     args = _on([x] + list(temb) + body + sk, cuda)
     args[4].requires_grad_(True)  # the GN1 scale, as a model parameter would
     with pytest.raises(RuntimeError, match="no backward"):
-        t_rb.fused_resblock(*args, num_groups1=16, num_groups2=16)
+        t_rb.fused_resblock(*args, num_groups1=32, num_groups2=32)
     with torch.no_grad():
-        t_rb.fused_resblock(*args, num_groups1=16, num_groups2=16)
+        t_rb.fused_resblock(*args, num_groups1=32, num_groups2=32)
     a = [d.act(2, 4, 4, 64), d.vec(64, 1.0), d.vec(64)]
     for _ in range(4):
         a += [d.w(64, 64), d.vec(64)]
