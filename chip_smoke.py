@@ -39,7 +39,14 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      and per-sample scales) at the 6 transition shapes against its plain
      versions with the TPU kernel's rounding points, K10's forward and its 11
      gradients (f32) at the training attention shapes, and K2-K5 once each on
-     f32 activations (f32 out);
+     f32 activations (f32 out); then K5 (bf16, int8 static and per-sample)
+     at B=4, 16 and 64 on both attention shapes with device time, share of
+     the peak and, as its yardstick, the composition F.group_norm + matmul +
+     SDPA + matmul; the bf16 mode also against its plain version with the
+     TPU kernel's rounding points; its attention core alone (bf16, int8 and
+     f32 outputs) against its plain version beside SDPA, and its two 1x1
+     projections on the block GEMM alone beside torch.matmul (bf16) and
+     torch._int_mm (int8);
   4. eps: one full-width eps evaluation (B=4, t=0.5, seeded weights), kernel
      path in bf16 against the all-plain path in f32, then the layer-wise paths
      ('pallas' and 'int8') against the same f32 path, with the launch counts
@@ -76,8 +83,8 @@ limit, and last {"ok": true, "device": {...}}.
 ``--phases profile`` (not in the default run) traces one eval of the CLD bf16
 and int8 kernel paths, then of the same with transition_impl 'tail' and
 'full', then of the blur 'fused_int8' and layer-wise 'int8' and 'pallas' paths, at
-``--batch`` with torch.profiler and prints the wall, the device time and the
-kernels that take it. ``--phases ab`` (not in the default run) times CLD
+``--batch`` with torch.profiler and prints the wall, the device time, the
+kernels that take it and each counted kernel's launches in that eval. ``--phases ab`` (not in the default run) times CLD
 NFE=50 sampling with the transitions through K4 and through K9, bf16 and
 int8 static, at B=16 and B=64, five rounds of tail, full, full, tail, with
 each cell's medians and pairs won: the A/B behind
@@ -183,6 +190,31 @@ KERNEL_BOUND.update({"K11": 1e-2, "K11-int8": 0.0, "K12": 1e-2})
 # measured 9.8e-4 and 2.5e-3; its gradients are the plain composition's VJP
 # on the same inputs, the same sums (measured 0)
 KERNEL_BOUND.update({"K9": 1e-2, "K9-int8": 1e-2, "K10": 1e-2})
+# K5 bf16 against its plain version with the TPU kernel's rounding points
+# (attnblock_bf16_reference: h, q/k/v, p and a rounded to bf16 where the TPU
+# kernel rounds them; f32 out), on the same inputs: measured 2.1e-3 to
+# 2.4e-3 at B=4/16/64 on both shapes on an H100 (the kernel's bf16 output
+# rounding); about 3x
+K5_RP_BOUND = 7e-3
+# K5's attention core against its plain version on the same bf16 q, k, v:
+# the same rounding points, so a differs where f32 summation order flips a
+# bf16 rounding of p or a. Measured on an H100: bf16 a 8.8e-4 to 3.2e-3 of
+# max|a|; f32 a 1.1e-3, amax 7e-7; int8 a one step apart on up to 5.7e-4 of
+# the values. Held to KERNEL_BOUND, one int8 step on at most S8_FLIP_SHARE
+# of the values, and bf16 values differing on at most core_flip_share(S) of
+# them: the gate that tells the TPU kernel's rounding points apart (a core
+# that normalises late or leaves p unrounded moves max|diff| / max|a| by
+# only 6e-3 to 8e-3, but flips 29-44% of the values on a block's q, k, v:
+# tests/test_torch_attnblock.py)
+KERNEL_BOUND.update({"K5-core": 1e-2})
+
+
+def core_flip_share(s: int) -> float:
+    """The share of the core's bf16 a that may differ from its plain
+    version at S keys, about 3x the H100's: at S >= 64, 3e-3 (measured 4.1e-4
+    to 1.1e-3); at S < 64, 1e-2 (measured up to 4.2e-3 at S=16, where each
+    p is ~1/16 and one flipped p moves a by ~1/4 of its ulp, not ~1/16)."""
+    return 3e-3 if s >= 64 else 1e-2
 # The int8 block GEMM alone (unit scales): its int32 sums against the exact
 # float64 conv's, bit for bit (bound 0; every sum under 2^24, where f32
 # holds it exactly). Its quantize pre-pass against the plain version: at
@@ -230,15 +262,18 @@ PER_EVAL_INT8 = {"K1": 7, "K2-int8": 34, "K3-int8": 36, "K4-int8": 6, "K5-int8":
 PER_EVAL_FULL = {"K1": 1, "K2": 34, "K3": 36, "K9": 6, "K5": 10}
 PER_EVAL_INT8_FULL = {"K1": 1, "K2-int8": 34, "K3-int8": 36, "K9-int8": 6, "K5-int8": 10}
 # the int8 block GEMM and its quantize pre-pass: once per conv of the 76
-# int8 residual blocks (K2-K4 or K9 int8; K5's projections keep their GEMM),
-# counted in C where each kernel is launched (DEVICE_COUNTED)
+# int8 residual blocks (K2-K4 or K9 int8) and twice (q/k/v, output) in each
+# of the 10 int8 attention blocks, the pre-pass once there (h; static
+# scales: the core quantizes a), counted in C where each kernel is launched
+# (DEVICE_COUNTED); K5's attention core once an attention block
 for _per_eval in (PER_EVAL_INT8, PER_EVAL_INT8_FULL):
-    _per_eval.update({"S8-GEMM": 152, "S8-prepass": 152})
+    _per_eval.update({"S8-GEMM": 172, "S8-prepass": 162, "K5-core": 10})
 # ... and in the bf16 path its bf16 mode: once per conv of the 76 bf16 blocks
-# (K2-K4 or K9), the pre-pass before the 70 K2/K3 conv1s and all 76 conv2s
-# (K4's and K9's conv1 read h as it is)
+# (K2-K4 or K9) and twice in each attention block, the pre-pass before the 70
+# K2/K3 conv1s, all 76 conv2s and the 10 attention blocks' h (K4's and K9's
+# conv1 read h as it is)
 for _per_eval in (PER_EVAL, PER_EVAL_FULL):
-    _per_eval.update({"BF16-GEMM": 152, "BF16-prepass": 146})
+    _per_eval.update({"BF16-GEMM": 172, "BF16-prepass": 156, "K5-core": 10})
 # H100 SXM peaks (NVIDIA's data sheet, dense): operations per second by type,
 # and device memory bytes per second
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
@@ -247,8 +282,9 @@ HBM = 3.35e12
 # 10 attention blocks and norm_out; K6 forward and K7 backward in the 34
 # stride-1 and 36 concatenated up-path blocks; K8 in the 10 attention blocks
 PER_STEP = {"K1": 23, "K6": 70, "K7": 70, "K8": 10}
-# ... with training.fused_attn: the 10 attention blocks through K10
-PER_STEP_K10 = {"K1": 13, "K6": 70, "K7": 70, "K10": 10}
+# ... with training.fused_attn: the 10 attention blocks through K10 (K5's
+# attention core inside each)
+PER_STEP_K10 = {"K1": 13, "K6": 70, "K7": 70, "K10": 10, "K5-core": 10}
 
 KERNELS = {
     "K1": dict(name="group_norm_silu", route="triton", source="gddim_torch/ops/groupnorm.py",
@@ -310,6 +346,9 @@ KERNELS = {
     "BF16-prepass": dict(name="bf16_conv_input", route="cuda",
                          source="gddim_torch/csrc/resblock.cu",
                          replaces="gddim_tpu/ops/resblock.py:993"),
+    # K5's attention core (bf16 and int8 blocks and K10): wgmma fed by TMA
+    "K5-core": dict(name="attention_core", route="cuda", source="gddim_torch/csrc/attnblock.cu",
+                    replaces="gddim_tpu/ops/attnblock.py:166"),
 }
 # main-path shapes of cld/accr_dcifar10 (H, channels in, channels out)
 SHAPES = {
@@ -494,6 +533,7 @@ def int8_kernel_cases(B: int):
     inp = Inputs(2)
     qw = lambda *shape: rb.quantize_weight(inp.w(*shape))  # noqa: E731
     qk = lambda *shape: rb.pack_int8_weight(qw(*shape))  # noqa: E731
+    qp = lambda *shape: attnblock.pack_projection(qw(*shape))  # noqa: E731
     for static in (True, False):
         mode = ("" if B == 4 else f"B={B} ") + ("static" if static else "dynamic")
         res_s, attn_s = (torch.stack(rb.act_scales_from_amax(INT8_AMAX[k])).cuda() if static
@@ -528,8 +568,8 @@ def int8_kernel_cases(B: int):
                    lambda a=args, k=kw: rb.fused_resblock_tail_int8(*a, **k),
                    lambda a=args, k=kw: rb.resblock_tail_int8_reference(*_f32(a), **k), args)
         for h, c in SHAPES["K5"]:
-            args = (inp.act(B, h, h, c), inp.vec(c, 1.0), inp.vec(c), qw(c, 3 * c),
-                    inp.vec(3 * c), qw(c, c), inp.vec(c), attn_s)
+            args = (inp.act(B, h, h, c), inp.vec(c, 1.0), inp.vec(c), qp(c, 3 * c),
+                    inp.vec(3 * c), qp(c, c), inp.vec(c), attn_s)
             kw = dict(num_groups=32, skip_rescale=True)
             yield ("K5-int8", f"{mode} {h}x{h}x{c}",
                    lambda a=args, k=kw: attnblock.fused_attnblock_int8(*a, **k),
@@ -1039,6 +1079,229 @@ def phase_f32_activations(B: int = 4):
             raise AssertionError(f"{kernel} on f32 activations: {out.dtype}, rel {rel:.3e}")
 
 
+# K5 at the sampling batches; its B=4 rows are in the kernels line (the core
+# as K5-core), every other batch's in batch_results
+ATTN_BATCHES = (4, 16, 64)
+
+
+def k5_composition(x, gs, gb, wqkv, bqkv, wo, bo, *, num_groups: int, out_scale: float):
+    """K5 as a composition of PyTorch calls in x's dtype, the yardstick of
+    the block (no single call computes it): F.group_norm, one matmul for
+    [q|k|v], scaled_dot_product_attention on (B, 1, S, C) views, one matmul
+    for the output, the residual."""
+    b, h, w, c = x.shape
+    x2 = x.reshape(b, h * w, c)
+    hn = F.group_norm(x2.transpose(1, 2), num_groups, gs, gb, 1e-6).transpose(1, 2)
+    q, k, v = (hn @ wqkv + bqkv).chunk(3, -1)
+    a = F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])[:, 0]
+    return ((x2 + a @ wo + bo) * out_scale).reshape(x.shape)
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Host time to enqueue one call (the host clock around ``reps`` calls
+    with no synchronize between them; the card runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def phase_attn_kernels(results: dict, card: str):
+    """K5 at ATTN_BATCHES on its two shapes: the bf16 block through the
+    model's packed path against the f32 plain composition and against its
+    rounding-point plain version, the int8 modes (static and per-sample)
+    against their plain version, each timed (eager, device, host enqueue,
+    the share of its type's peak, bound, plain ms) beside the composition
+    yardstick (k5_composition); then the attention core alone on the block's
+    own q, k, v (bf16, int8 and f32 outputs) against its plain version beside
+    SDPA, and the two 1x1 projections on the block GEMM alone (bf16 against
+    the f32 product beside torch.matmul, int8 bit for bit against the exact
+    product beside torch._int_mm). The core's B=4 rows go into the kernels
+    line."""
+    from gddim_torch.ops import attnblock as ab, resblock as rb
+
+    inp = Inputs(9)
+    kw = dict(num_groups=32, skip_rescale=True)
+    sums = {}
+    for B in ATTN_BATCHES:
+        for h, c in SHAPES["K5"]:
+            s = h * h
+            tag = f"B={B} {h}x{h}x{c}"
+            args = (inp.act(B, h, h, c), inp.vec(c, 1.0), inp.vec(c),
+                    *[t for _ in range(4) for t in (inp.w(c, c), inp.vec(c))])
+            x, gs, gb = args[:3]
+            packed = ab.pack_attn_weights(*args[3:])
+            wb = [packed.wqkv, packed.bqkv.to(x.dtype), packed.wo, args[10].to(x.dtype)]
+            comp = lambda: k5_composition(x, gs.to(x.dtype), gb.to(x.dtype), *wb,  # noqa: E731
+                                          num_groups=32, out_scale=ab._INV_SQRT2)
+            comp_ms, comp_dev = time_ms(comp), graph_ms(comp)
+            # the bf16 block, as the model calls it
+            fused = lambda: ab.fused_attnblock_packed(x, gs, gb, packed, **kw)  # noqa: E731
+            out = fused()
+            torch.cuda.synchronize()
+            rel = _rel(out, ab.attnblock_reference(*_f32(args), **kw))
+            rel_rp = _rel(out, ab.attnblock_bf16_reference(*_f32(args), **kw))
+            print(f"kernel K5 fused_attnblock [{tag}]: rel={rel:.3e} (bound "
+                  f"{KERNEL_BOUND['K5']:.0e}), against its rounding points rel={rel_rp:.3e} "
+                  f"(bound {K5_RP_BOUND:.0e})", flush=True)
+            if not (np.isfinite(rel) and rel <= KERNEL_BOUND["K5"] and rel_rp <= K5_RP_BOUND):
+                raise AssertionError(f"K5 {tag}: rel {rel:.3e}, rounding points {rel_rp:.3e}")
+            cases = [("bf16", fused, lambda: ab.attnblock_reference(*args, **kw), args,
+                      attn_ops("K5", B, s, c))]
+            # the int8 modes, from the same x and weights
+            wqkv8 = ab.pack_projection(rb.quantize_weight(torch.cat(args[3:9:2], 1)))
+            wo8 = ab.pack_projection(rb.quantize_weight(args[9]))
+            for static in (True, False):
+                scales = (torch.stack(rb.act_scales_from_amax(INT8_AMAX["attn"])).cuda()
+                          if static else None)
+                a8 = (x, gs, gb, wqkv8, torch.cat(args[4:9:2]), wo8, args[10], scales)
+                mode = "static" if static else "dynamic"
+                fused8 = lambda a=a8: ab.fused_attnblock_int8(*a, **kw)  # noqa: E731
+                plain8 = lambda a=a8: ab.attnblock_int8_reference(*_f32(a), **kw)  # noqa: E731
+                out8 = fused8()
+                torch.cuda.synchronize()
+                rel8 = _rel(out8, plain8())
+                print(f"kernel K5-int8 fused_attnblock_int8 [{tag} {mode}]: rel={rel8:.3e} "
+                      f"(bound {KERNEL_BOUND['K5-int8']:.0e})", flush=True)
+                if not np.isfinite(rel8) or rel8 > KERNEL_BOUND["K5-int8"]:
+                    raise AssertionError(f"K5-int8 {tag}: rel err {rel8:.3e}")
+                cases.append((f"int8 {mode}", fused8, plain8, a8, attn_ops("K5-int8", B, s, c)))
+            # their times, each beside the composition
+            for mode, fn, plain_fn, a, ops in cases:
+                kind = "int8" if "int8" in ops else "bf16"
+                ms, dev, host = time_ms(fn), graph_ms(fn), host_ms(fn)
+                bd = bound(nbytes(a, out), ops)
+                print(f"time K5 {mode} [{tag}]: ms={ms:.4f} device ms={dev:.4f} "
+                      f"({ops[kind] / PEAK[kind] * 1e3 / dev:.1%} of the {kind} peak) host "
+                      f"enqueue ms={host:.4f} plain_ms={time_ms(plain_fn, 3):.4f} "
+                      f"bound_ms={bd[0]:.4f} ({'bytes' if bd[1] >= bd[2] else 'operations'}); "
+                      f"composition ms={comp_ms:.4f} device ms={comp_dev:.4f} (device time "
+                      f"{verdict(dev, comp_dev)}) [{card}]", flush=True)
+            # the core alone, on this block's q, k, v (bf16, as the projection writes them)
+            hn = F.group_norm(x.float().permute(0, 3, 1, 2), 32, gs, gb, 1e-6)
+            hn = hn.permute(0, 2, 3, 1).bfloat16().contiguous()
+            qkv = (hn.float() @ packed.wqkv.float() + packed.bqkv).bfloat16().reshape(B, s, 3 * c)
+            check_core(results if B == 4 else {}, sums, qkv, tag, B)
+            # the projections alone on the block GEMM
+            check_projections(sums, hn, packed, wqkv8, wo8, tag, B)
+    for key, g in sums.items():
+        print(f"sum {key}: {g['n']} shapes, eager {g['ms']:.4f} ms, device {g['dev']:.4f} ms, "
+              f"library {g['lib']:.4f} ms, device {g['libdev']:.4f} ms (device time "
+              f"{verdict(g['dev'], g['libdev'])}), bound {g['bound']:.4f} ms", flush=True)
+
+
+def _sum(sums, key, ms, dev, lib, libdev, bd):
+    g = sums.setdefault(key, dict(n=0, ms=0.0, dev=0.0, lib=0.0, libdev=0.0, bound=0.0))
+    g["n"] += 1
+    for k, v in (("ms", ms), ("dev", dev), ("lib", lib), ("libdev", libdev), ("bound", bd[0])):
+        g[k] += v
+
+
+def check_core(res, sums, qkv, tag: str, B: int):
+    """K5's attention core alone on qkv (B, S, 3C) bf16 against its plain
+    version (bf16 and f32 a and the amax within the bound, bf16 a differing
+    on at most core_flip_share(S) of the values, int8 a one step on at most
+    S8_FLIP_SHARE), beside SDPA on (B, 1, S, C) views."""
+    from gddim_torch.ops import attnblock as ab, resblock as rb
+
+    _, s, c3 = qkv.shape
+    c = c3 // 3
+    fused = lambda: ab.attention_core(qkv)  # noqa: E731
+    plain = lambda: ab.attention_core_reference(qkv)  # noqa: E731
+    a = fused()
+    a32, amax = ab.attention_core(qkv, mode="f32")
+    s_a = rb.act_scales_from_amax((1.0,))[0].cuda()
+    a8 = ab.attention_core(qkv, mode="int8", act_scale=s_a)
+    torch.cuda.synchronize()
+    ref = plain()
+    ref32, ref_amax = ab.attention_core_reference(qkv, mode="f32")
+    rel, share = _rel(a, ref), (a != ref).float().mean().item()
+    step8 = (a8.int() - ab.attention_core_reference(qkv, mode="int8", act_scale=s_a).int()).abs()
+    steps8, share8 = step8.max().item(), (step8 > 0).float().mean().item()
+    rel32, rel_amax = _rel(a32, ref32), _rel(amax, ref_amax)
+    q, k, v = (t[:, None] for t in qkv.chunk(3, -1))
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    ms, dev, plain_ms = time_ms(fused), graph_ms(fused), time_ms(plain)
+    lib, libdev = time_ms(sdpa), graph_ms(sdpa)
+    ops = {"bf16": 4 * B * s * s * c}
+    bd = bound(nbytes(qkv, a), ops)
+    share_pk = ops["bf16"] / PEAK["bf16"] * 1e3 / dev
+    flip_bound = core_flip_share(s)
+    print(f"kernel K5-core attention_core [{tag}]: bf16 a rel={rel:.3e} (bound "
+          f"{KERNEL_BOUND['K5-core']:.0e}), differing on {share:.2e} of the values (bound "
+          f"{flip_bound:.0e}); int8 a steps {steps8} on {share8:.2e} (bound "
+          f"{S8_FLIP_SHARE:.0e}); f32 a rel={rel32:.3e}, amax rel={rel_amax:.3e} ms={ms:.4f} "
+          f"device ms={dev:.4f} "
+          f"({share_pk:.1%} of the bf16 peak; a ring of {ab.core_plan(B, s)}) "
+          f"plain_ms={plain_ms:.4f} bound_ms={bd[0]:.4f} "
+          f"({'bytes' if bd[1] >= bd[2] else 'operations'}); SDPA ms={lib:.4f} device "
+          f"ms={libdev:.4f} (device time {verdict(dev, libdev)})", flush=True)
+    _record(res, "K5-core", tag, (a.float() - ref.float()).abs().max().item(), rel, ms,
+            plain_ms, bd, lib, graph_ms=dev, library_graph_ms=libdev, bf16_peak_share=share_pk,
+            differing=share, rel_f32=rel32, int8_flip_share=share8)
+    _sum(sums, f"K5-core B={B}", ms, dev, lib, libdev, bd)
+    bound_ = KERNEL_BOUND["K5-core"]
+    if not (rel <= bound_ and share <= flip_bound and steps8 <= 1 and share8 <= S8_FLIP_SHARE
+            and rel32 <= bound_ and rel_amax <= bound_):
+        raise AssertionError(f"K5-core {tag}: bf16 {rel:.3e} on {share:.2e}, int8 steps "
+                             f"{steps8} on {share8:.2e}, f32 {rel32:.3e}, amax {rel_amax:.3e}")
+
+
+def check_projections(sums, hn, packed, wqkv8, wo8, tag: str, B: int):
+    """K5's two 1x1 projections on the block GEMM alone: bf16 (h by [Wq|Wk|Wv]
+    and by Wo) against the f32 product beside torch.matmul in bf16, int8
+    (int8 h by the K-major int8 weights) bit for bit against the exact
+    product beside torch._int_mm."""
+    from gddim_torch.ops import conv3x3, resblock as rb
+
+    m, c = hn.shape[0] * hn.shape[1] * hn.shape[2], hn.shape[-1]
+    h8, _ = conv3x3.quantize_per_sample(hn)
+    for name, w, w8 in (("qkv", packed.wqkv, wqkv8.q), ("out", packed.wo, wo8.q)):
+        n = w.shape[-1]
+        label = f"{tag} {name} {c}->{n}"
+        fused = lambda: rb.bf16_conv_gemm(hn, w)  # noqa: E731
+        out = fused()
+        torch.cuda.synchronize()
+        ref = hn.float() @ w.float()
+        rel = _rel(out, ref)
+        a2 = hn.reshape(m, c)
+        lib = lambda: torch.matmul(a2, w)  # noqa: E731
+        ops = {"bf16": 2 * m * c * n}
+        ms, dev, lib_ms, lib_dev = time_ms(fused), graph_ms(fused), time_ms(lib), graph_ms(lib)
+        mw = rb.bf16_tile_plan(*hn.shape, 0, n, taps=1).mw
+        bd = bound(nbytes(hn, w, out), ops)
+        print(f"kernel BF16-GEMM bf16_conv_gemm [1x1 {label}]: rel={rel:.3e} (bound "
+              f"{KERNEL_BOUND['BF16-GEMM']:.0e}) ms={ms:.4f} device ms={dev:.4f} "
+              f"({ops['bf16'] / PEAK['bf16'] * 1e3 / dev:.1%} of the bf16 peak; {128 * mw}-pixel "
+              f"tiles) bound_ms={bd[0]:.4f}; "
+              f"torch.matmul ms={lib_ms:.4f} device ms={lib_dev:.4f} "
+              f"(device time {verdict(dev, lib_dev)})", flush=True)
+        _sum(sums, f"BF16-GEMM 1x1 B={B}", ms, dev, lib_ms, lib_dev, bd)
+        if out.dtype != torch.float32 or not np.isfinite(rel) or rel > KERNEL_BOUND["BF16-GEMM"]:
+            raise AssertionError(f"BF16-GEMM 1x1 {label}: rel err {rel:.3e}")
+        fused8 = lambda: rb.int8_conv_gemm(h8, w8)  # noqa: E731
+        out8 = fused8()
+        torch.cuda.synchronize()
+        exact = torch.equal(out8, rb.int8_matmul_exact(h8, w8.t()))
+        a8 = h8.reshape(m, c)
+        lib8 = lambda: torch._int_mm(a8, w8.t())  # noqa: E731
+        ops8 = {"int8": 2 * m * c * n}
+        ms8, dev8, lib8_ms, lib8_dev = time_ms(fused8), graph_ms(fused8), time_ms(lib8), graph_ms(lib8)
+        bd8 = bound(nbytes(h8, w8, out8), ops8)
+        print(f"kernel S8-GEMM int8_conv_gemm [1x1 {label}]: sums bit-identical to the exact "
+              f"product: {exact} ms={ms8:.4f} device ms={dev8:.4f} "
+              f"({ops8['int8'] / PEAK['int8'] * 1e3 / dev8:.1%} of the int8 peak) "
+              f"bound_ms={bd8[0]:.4f}; torch._int_mm ms={lib8_ms:.4f} device ms={lib8_dev:.4f} "
+              f"(device time {verdict(dev8, lib8_dev)})", flush=True)
+        _sum(sums, f"S8-GEMM 1x1 B={B}", ms8, dev8, lib8_ms, lib8_dev, bd8)
+        if not exact:
+            raise AssertionError(f"S8-GEMM 1x1 {label}: sums differ from the exact product")
+
+
 def train_block_inputs(inp: Inputs, B: int, h: int, cin: int, cout: int, keep: float = 0.9):
     """f32 operands of one training block (not rounded to bf16, so the
     kernels' bf16 operand rounding shows), a seeded dropout mask and a
@@ -1290,7 +1553,8 @@ def counters():
 # kernels launched inside a C call (a block's convs), counted in C where each
 # is launched: row -> kernel of ops/resblock.py:block_launches
 DEVICE_COUNTED = {"S8-GEMM": "block_gemm_kernel<int8>", "S8-prepass": "prepass_kernel<int8>",
-                  "BF16-GEMM": "block_gemm_kernel<bf16>", "BF16-prepass": "prepass_kernel<bf16>"}
+                  "BF16-GEMM": "block_gemm_kernel<bf16>", "BF16-prepass": "prepass_kernel<bf16>",
+                  "K5-core": "attention_wgmma_kernel"}
 
 
 def reset_counts():
@@ -1576,6 +1840,7 @@ def _profile(name: str, run, batch: int, card: str, evals: int):
         run()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / evals * 1e3
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -1589,7 +1854,8 @@ def _profile(name: str, run, batch: int, card: str, evals: int):
     print(f"profile {name} eval B={batch} [{card}]: wall {wall:.3f} ms (mean of {evals}); "
           f"traced eval: wall {traced:.3f} ms, host enqueue {enqueue:.3f} ms, device "
           f"{total:.3f} ms in {sum(n for *_, n in dev)} kernels, idle share "
-          f"{1 - total / traced:.3f}", flush=True)
+          f"{1 - total / traced:.3f}; launches {({k: n for k, n in read_counts().items() if n})}",
+          flush=True)
     for key, ms, n in top:
         print(f"  {ms:8.3f} ms {n:5d}x {key[:110]}", flush=True)
 
@@ -1869,6 +2135,7 @@ def main(argv=None):
         phase_transition_kernels(results, batch_results)
         phase_attn_train_kernels(results)
         phase_f32_activations()
+        phase_attn_kernels(results, card)
         print_sums(results, batch_results)
         print_block_sums(results, batch_results)
     config = get_config("cld/accr_dcifar10")

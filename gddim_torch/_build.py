@@ -32,6 +32,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes. The *_workspace entries return a byte
 # count (long long); every other entry returns cudaError_t as int.
 _SIGNATURES = {
@@ -103,14 +104,15 @@ _SIGNATURES = {
     # gddim_s8_prepass(xa, xb, ca, cb, act_f32, B, HW, scale, shift, silu, qs, amax, inv_mul,
     #   out, stream)
     "gddim_s8_prepass": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P],
-    # gddim_conv_s8(a8, wk, wsc, qs, B, H, W, Cin, N, mw, box_h, box_b, tiles_h, m_tiles,
-    #   splits, kper, work, out, stream)
-    "gddim_conv_s8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # gddim_conv_s8(a8, wk, wsc, qs, B, H, W, Cin, N, taps, mw, box_h, box_b, tiles_h,
+    #   m_tiles, splits, kper, work, out, stream)
+    "gddim_conv_s8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                      _P],
     # gddim_bf16_prepass(xa, xb, ca, cb, act_f32, B, HW, scale, shift, silu, out, stream)
     "gddim_bf16_prepass": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P],
-    # gddim_conv_bf16(a, w, B, H, W, Cin, N, mw, box_h, box_b, tiles_h, m_tiles, splits,
-    #   kper, work, out, stream)
-    "gddim_conv_bf16": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # gddim_conv_bf16(a, w, B, H, W, Cin, N, taps, mw, box_h, box_b, tiles_h, m_tiles,
+    #   splits, kper, work, out, stream)
+    "gddim_conv_bf16": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # gddim_block_launches(out, reset): launches of the kernels counted in C (no stream)
     "gddim_block_launches": [_P, _I],
     # gddim_resblock_train_workspace(B, H, W, Cin, N, splits)
@@ -134,20 +136,26 @@ _SIGNATURES = {
     ],
     # gddim_flash_attention(q, k, v, o, B, S, C, qt, bf16, scale, stream)
     "gddim_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # gddim_attnblock_workspace(B, S, C, splits)
-    "gddim_attnblock_workspace": [_I, _I, _I, _I],
-    # gddim_attnblock(x, gn_g, gn_b, groups, wqkv, bqkv, wo, bo, B, S, C, eps,
-    #   out_scale, work, splits1, kper1, splits2, kper2, out, act_f32, stream)
+    # gddim_attention_core(qkv, B, S, C, stages, mode, qs, amax, out, stream)
+    "gddim_attention_core": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    # gddim_attnblock(x, gn_g, gn_b, groups, wqkv, bqkv, wo, bo, B, H, W, C, eps, out_scale,
+    #   work, work_bytes, mw1, box_h1, box_b1, tiles_h1, m_tiles1, splits1, kper1, mw2,
+    #   box_h2, box_b2, tiles_h2, m_tiles2, splits2, kper2, stages, out, stream)
     "gddim_attnblock": [
-        _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P, _I, _P,
+        _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _L,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
-    # gddim_attnblock_int8_workspace(B, S, C, splits)
-    "gddim_attnblock_int8_workspace": [_I, _I, _I, _I],
-    # gddim_attnblock_int8(x, gn_g, gn_b, groups, wqkv, wqkv_s, bqkv, wo, wo_s, bo, act_scales,
-    #   B, S, C, eps, out_scale, work, splits1, kper1, splits2, kper2, out, stream)
+    # gddim_attnblock_f32(x, gn_g, gn_b, groups, wqkv, bqkv, wo, bo, B, S, C, eps, out_scale,
+    #   work, work_bytes, splits1, kper1, splits2, kper2, stages, out, stream)
+    "gddim_attnblock_f32": [
+        _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _L, _I, _I, _I, _I, _I, _P, _P,
+    ],
+    # gddim_attnblock_int8(x, gn_g, gn_b, groups, wqkv_k, wqkv_s, bqkv, wo_k, wo_s, bo,
+    #   act_scales, B, H, W, C, eps, out_scale, work, work_bytes, mw1 .. kper1, mw2 .. kper2,
+    #   stages, out, stream)
     "gddim_attnblock_int8": [
-        _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
+        _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _L,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
     # gddim_conv3x3(x, w, B, H, W, Cin, N, mw, box_h, box_b, tiles_h, m_tiles, splits, kper,
     #   work, out, stream)

@@ -1,155 +1,395 @@
-// Spatial self-attention core of the fused attention block, for Hopper (sm_90a).
+// The fused attention block (K5) for Hopper (sm_90a): its attention core,
+// and the C calls that run the whole block.
 //
-// Replaces the attention part of gddim_tpu/ops/attnblock.py:fused_attnblock
-// (K5, _attnblock_kernel). The whole block is one C call, gddim_attnblock,
-// which makes four launches, all hand-written:
-//   gn_affine_launch (resblock.cu)   GN statistics -> per-(sample, channel) affine
-//   conv_gemm_launch (resblock.cu)   [q|k|v] = GN(x) @ [Wq|Wk|Wv] + b, one N = 3C
-//                                    product with the GN affine as its prologue
-//   attention_kernel (this file)     a = softmax(q k^T / sqrt(C)) v per sample
-//   conv_gemm_launch (resblock.cu)   out = (x + a @ Wo + bo) / sqrt(2) in the epilogue
+// Replaces gddim_tpu/ops/attnblock.py:fused_attnblock (_attnblock_kernel):
+//   h = GN(x); [q|k|v] = h @ [Wq|Wk|Wv] + b; a = softmax(q k^T / sqrt(C)) v;
+//   out = (x + a @ Wo + bo) * out_scale
+// with mm_dtype bf16 (gddim_attnblock: bf16 x and out) or int8
+// (gddim_attnblock_int8: the projections int8 with static or per-sample
+// activation scales, the attention products bf16). K10, the training
+// forward, runs the block on f32 activations (gddim_attnblock_f32).
 //
-// x and out are bf16, or f32 (act_f32; K10, the training forward, runs K5 on
-// f32 activations): the GN statistics and the residual x + o then read x in
-// f32 and out is f32, while h = GN(x), q/k/v, p and a are rounded to bf16 for
-// the products, as the TPU kernel does with mm_dtype bf16. The int8 mode
-// takes bf16 x (the wrapper refuses others).
+// gddim_attnblock, five launches, all hand-written:
+//   gn_affine_launch (resblock.cu)  GN statistics -> per-(sample, channel) affine
+//   prepass_launch (resblock.cu)    h = GN(x) rounded to bf16 once (the TPU
+//                                   kernel's h_all.astype(bf16))
+//   block_gemm_launch (block_gemm.cu, taps 1)
+//                                   [q|k|v] = h @ [Wq|Wk|Wv] + b, bf16, one
+//                                   N = 3C GEMM over M = B*S pixels
+//   attention_wgmma_kernel (here)   a = softmax(q k^T / sqrt(C)) v, bf16
+//   block_gemm_launch (taps 1)      out = (a @ Wo + bo + x) * out_scale
+// gddim_attnblock_int8 quantizes h by the pre-pass (static s_h, or per
+// sample after amax_launch of GN(x)), runs both projections on the int8
+// block GEMM (K-major int8 weights, dequantized by w_scale * s in the
+// epilogue), and the core writes a as the output projection reads it:
+// static scales quantize it in the core's epilogue, clip(rint(a * (1/s_a)))
+// from the f32 sums as the TPU kernel does; per-sample scales need the
+// sample's amax of a first, so the core writes f32 a and folds its max |a|
+// into amax[b] (atomicMax of the bit patterns of non-negative floats: the
+// result does not depend on the order), then an int8 pre-pass quantizes it.
+// gddim_attnblock_f32 (f32 x, residual and out; bf16 MMA operands, as the
+// TPU kernel with mm_dtype bf16) keeps conv_gemm_kernel for the projections,
+// with the GN affine in its A prologue, and runs the same core.
 //
-// This kernel: one block per (sample, 16-query tile), 4 warps. S <= 256 keys
-// and C <= 256 channels, so the 16 x S score rows sit in shared memory: the
-// (S, S) score matrix never touches device memory. q k^T and p v run on the
-// tensor cores (bf16 WMMA, f32 accumulation); the softmax is f32, and p is
-// rounded to bf16 before p v, as the TPU kernel does.
+// The core, attention_wgmma_kernel<STAGES, MASKED, MODE>: a CTA of one
+// consumer warpgroup and one producer warp takes 64 query rows. TMA brings
+// the q tile (64 rows x C channels, 64-channel boxes with the 128-byte
+// swizzle), then K and then V of the rows' sample in slices of 64 keys
+// through a ring of full/empty mbarriers: K and V are read once per CTA, a
+// box at a time, and never sit in shared memory whole. Grids of a wave of
+// CTAs and more take a ring of 2 slices and two CTAs an SM (one CTA's
+// softmax overlaps the other's products); smaller grids a ring of 4, all of
+// a sample's K in flight at once (ops/attnblock.py:core_plan).
+// - q k^T: wgmma m64n64k16 per key slice, K the K-major B operand; the
+//   whole 64 x S f32 score row stays in the accumulator registers (S <= 256,
+//   four slices of 32 registers a thread). Each sum starts with its first
+//   product (the wgmma's scale-d off), so no other instruction writes the
+//   accumulators inside a pipeline stage, which would serialize the wgmmas.
+// - The softmax in registers in the TPU kernel's order and rounding points
+//   (attnblock.py:123-134): logits = sums * C^-1/2 in f32, minus the row
+//   max, exp, divided by the row sum, and only then rounded to bf16 -- not
+//   an online softmax with a late normalisation, which would move the
+//   rounding point. The row's values sit on the four lanes of a quad.
+// - p (bf16) goes to shared memory over the q tile, in the layout TMA would
+//   have written (128-byte swizzle), and feeds p v as the A operand from
+//   shared memory; V is the N-major B operand through the transpose bit, as
+//   the block GEMM reads HWIO weights.
+// - The epilogue writes a from the registers: bf16, int8 (static s_a), or
+//   f32 with the per-sample amax.
+// S below 64 (MASKED; the 4x4 block, S = 16): a CTA takes 64 rows of 64 / S
+// samples and its one key slice is the same 64 rows; scores across samples
+// are masked before the softmax, so each row sees its own sample's keys.
 //
-// What bounds it on the H100: at S = 256, C = 256 each block does
-// 2 * 16 * 256 * 256 * 2 FLOPs against 16 * 256 * 2 bytes of q plus k and v
-// re-read from L2; it is latency-bound at these sizes (a few hundred blocks,
-// no pipelining). At S = 16 it is pure launch latency. The design's answer
-// is to keep the scores on chip and issue the products on tensor cores;
-// overlapping the loads is later work.
-//
-// The int8 mode of K5 (mm_dtype int8: _attnblock_kernel's int8 path, static
-// or per-sample scales) is the C call gddim_attnblock_int8, four launches in
-// static mode and six in dynamic mode:
-//   gn_affine_launch, [amax_launch of GN(x)]
-//   conv_gemm_s8_launch   [q|k|v] = dequant(int8(GN(x)) @ Wqkv_int8) + b, bf16
-//   attention_kernel      as above, writing a in f32: the output projection
-//                         quantizes it unrounded, as the TPU kernel does
-//   [amax_launch of a], conv_gemm_s8_launch   out = (x + dequant(int8(a) @ Wo_int8) + bo) / sqrt(2)
-// The attention products stay bf16 on the dequantized q, k, v (bf16 in
-// device memory is where the TPU kernel rounds them too). What bounds it on
-// the H100 is what bounds the bf16 mode: the projections are int8 products
-// (1,979 TOP/s) too small to fill the card at these shapes, so launches and
-// latency dominate; a in f32 doubles the bytes between the attention core
-// and the out-projection, and the per-sample mode adds two amax passes.
+// What bounds it on the H100: at S = 256, C = 256 the core does 4 S^2 C =
+// 67 MFLOP a sample against 384 KB of q, k, v read and 128 KB of a written
+// (bf16): ~175 operations a byte, under the bf16 ridge (~295), so the
+// bytes bound it; K and V are read by each of a sample's CTAs from L2. The
+// projections are GEMMs of 768 and 256 output channels over K = 256: at
+// B=64 (M = 16384) tensor-core bound on the block GEMM. At B=4 and at S=16
+// every launch is a few microseconds of latency. The design answers the
+// bytes with one read of q, k, v per CTA and a written once, and the
+// operations with wgmma at the bf16 rate fed by TMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
+#include <stdint.h>
 
 #include "conv.cuh"
-
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int QT = 16;       // query rows per block
-constexpr int MAX_S = 256;
+using bf16 = __nv_bfloat16;
+
 constexpr int MAX_C = 256;
-constexpr int ATT_THREADS = 128;
+constexpr int MAX_S = 256;
+constexpr int BOX_BYTES = 64 * 128;  // a TMA box of qkv: 64 channels x 64 rows, 8 KB
+constexpr int SLICE_BYTES = (MAX_C / 64) * BOX_BYTES;  // 64 keys of K or V: 32 KB
+constexpr int QP_BYTES = 4 * BOX_BYTES;  // a warpgroup's q tile, then its p tile: 32 KB
 
-__device__ __forceinline__ void store_out(__nv_bfloat16* d, float v) { *d = __float2bfloat16(v); }
-__device__ __forceinline__ void store_out(float* d, float v) { *d = v; }
+// how the core writes a: bf16, int8 by the static s_a, or f32 with the
+// per-sample amax
+enum AMode { A_BF16 = 0, A_S8 = 1, A_F32 = 2 };
 
-// grid (S / QT, B); TO: the output type (bf16, or f32 for the int8 mode)
-template <typename TO>
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_kernel(const __nv_bfloat16* __restrict__ qkv, TO* __restrict__ out, int S, int C,
-                 float scale) {
-  __shared__ __align__(128) __nv_bfloat16 Qs[QT * (MAX_C + 8)];
-  __shared__ __align__(128) __nv_bfloat16 Ps[QT * (MAX_S + 8)];
-  __shared__ __align__(128) float SO[QT * ((MAX_S > MAX_C ? MAX_S : MAX_C) + 4)];
+constexpr int ATT_THREADS = 160;  // the consumer warpgroup, then the producer warp
 
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * QT;
+// shared memory of a CTA with a ring of STAGES slices: the q/p tile, the
+// ring, 1 KB to align to the swizzle's atom, the barriers
+template <int STAGES>
+constexpr int attn_smem() {
+  return QP_BYTES + STAGES * SLICE_BYTES + 1024 + (2 * STAGES + 1) * 8;
+}
+
+static_assert(attn_smem<4>() <= 227 * 1024, "the deep ring exceeds shared memory");
+static_assert(2 * (attn_smem<2>() + 1024) <= 228 * 1024, "two shallow-ring CTAs do not fit an SM");
+
+struct AttnArgs {
+  int M, S, C;      // rows (B * S), keys a sample, channels
+  float scale;      // C^-1/2
+  void* out;        // a, (M, C): bf16, int8 or f32 (MODE)
+  const float* qs;  // A_S8: the static s_a (one device float)
+  float* amax;      // A_F32: (B,) max |a| of each sample, zeroed before
+};
+
+__device__ __forceinline__ int8_t quant8(float v) {
+  return (int8_t)fminf(fmaxf(rintf(v), -127.0f), 127.0f);  // rintf: half to even
+}
+
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// grid ceil(M / 64), ATT_THREADS threads, attn_smem<STAGES>() bytes of
+// dynamic shared memory; two CTAs an SM with the shallow ring (STAGES 2, for
+// grids of a wave and more), one with the deep ring (STAGES 4: all of a
+// sample's K in flight at once, for small grids). MASKED: S < 64, 64 / S
+// samples a CTA. Accumulator layout (m64nN): register 4 j + 2 h + e of a
+// thread holds row 16 (warp % 4) + lane / 4 + 8 h, column 8 j + 2 (lane %
+// 4) + e.
+template <int STAGES, bool MASKED, int MODE>
+__global__ void __launch_bounds__(ATT_THREADS, 4 / STAGES)
+attention_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map, const AttnArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t qp = smem_u32(reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023)));
+  const uint32_t ring = qp + QP_BYTES;
+  const uint32_t qbar = ring + STAGES * SLICE_BYTES;
+  const uint32_t full0 = qbar + 8, empty0 = full0 + 8 * STAGES;
+
+  const int nc = p.C / 64;          // 64-channel boxes of a row
+  const int ns = MASKED ? 1 : p.S / 64;  // key slices
+  const int row0 = blockIdx.x * 64;
+  const int key0 = MASKED ? row0 : row0 / p.S * p.S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long ld = 3L * C;  // row stride of qkv
-  const __nv_bfloat16* base = qkv + (long)b * S * ld;
-  const int ldq = C + 8, ldp = S + 8, lds = S + 4, ldo = C + 4;
 
-  // q tile -> shared
-  for (int v = threadIdx.x; v < QT * C / 8; v += ATT_THREADS) {
-    const int r = v / (C / 8), c = (v % (C / 8)) * 8;
-    *reinterpret_cast<uint4*>(&Qs[r * ldq + c]) =
-        *reinterpret_cast<const uint4*>(base + (long)(q0 + r) * ld + c);
-  }
-  __syncthreads();
-
-  // scores = q k^T (k read as a column-major K^T straight from qkv)
-  for (int jt = warp; jt < S / 16; jt += ATT_THREADS / 32) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < C; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, &Qs[kk], ldq);
-      wmma::load_matrix_sync(fb, base + (long)(jt * 16) * ld + C + kk, (unsigned)ld);
-      wmma::mma_sync(acc, fa, fb, acc);
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4);
     }
-    wmma::store_matrix_sync(&SO[jt * 16], acc, lds, wmma::mem_row_major);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  // f32 softmax over each row, p -> bf16
-  for (int r = warp; r < QT; r += ATT_THREADS / 32) {
-    float mx = -3.0e38f;
-    for (int j = lane; j < S; j += 32) mx = fmaxf(mx, SO[r * lds + j] * scale);
-    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if (warp == 4) {
+    // the producer: q, then the K slices, then the V slices
+    if (lane == 0) {
+      mbar_expect_tx(qbar, nc * BOX_BYTES);
+      for (int c = 0; c < nc; ++c) tma_load_2d(qp + c * BOX_BYTES, &qkv_map, qbar, 64 * c, row0);
+      for (int i = 0; i < 2 * ns; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty0 + 8 * s, ((i / STAGES) - 1) & 1);
+        const uint32_t full = full0 + 8 * s, dst = ring + s * SLICE_BYTES;
+        mbar_expect_tx(full, nc * BOX_BYTES);
+        const int part = i < ns ? 1 : 2, j = i < ns ? i : i - ns;
+        for (int c = 0; c < nc; ++c)
+          tma_load_2d(dst + c * BOX_BYTES, &qkv_map, full, part * p.C + 64 * c, key0 + 64 * j);
+      }
+    }
+    return;
+  }
+
+  const int wrow = 16 * warp + (lane >> 2);  // the thread's first row of the CTA's 64
+  mbar_wait(qbar, 0);
+
+  // scores: key slice j in sc[j], each sum started by its first product (no
+  // zeros written between the wgmmas of a pipeline stage)
+  float sc[4][32];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j < ns) {
+      const int s = j % STAGES;
+      mbar_wait(full0 + 8 * s, (j / STAGES) & 1);
+      const uint32_t kb = ring + s * SLICE_BYTES;
+      wgmma_fence();
+      for (int c = 0; c < nc; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // q and K alike: 128-byte rows, a k16 step 32 bytes in
+          wgmma_m64n64k16<0>(sc[j], sw128_desc(qp + c * BOX_BYTES + 32 * kk, 16, 1024),
+                             sw128_desc(kb + c * BOX_BYTES + 32 * kk, 16, 1024), c | kk);
+      wgmma_commit();
+      // the previous slice's group has completed: free its stage
+      wgmma_wait<1>();
+      if (j > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((j - 1) % STAGES));
+    }
+  }
+  wgmma_wait<0>();
+  if (lane == 0) mbar_arrive(empty0 + 8 * ((ns - 1) % STAGES));
+
+  // the softmax of each of the thread's two rows, in f32
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wrow + 8 * h;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int j8 = 0; j8 < 8; ++j8)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j8 + 2 * (lane & 3) + e;
+          const bool key = j < ns && (!MASKED || col / p.S == r / p.S);
+          float& v = sc[j][4 * j8 + 2 * h + e];
+          v = key ? v * p.scale : -INFINITY;
+          mx = fmaxf(mx, v);
+        }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // MASKED: the masked keys' exp(-inf) and 0 / sum are 0, written as such
+    // to stay off expf's and the IEEE division's slow paths
     float sum = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      const float e = __expf(SO[r * lds + j] * scale - mx);
-      SO[r * lds + j] = e;
-      sum += e;
-    }
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float inv = 1.0f / sum;
-    for (int j = lane; j < S; j += 32) Ps[r * ldp + j] = __float2bfloat16(SO[r * lds + j] * inv);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        float& v = sc[j][4 * (k >> 1) + 2 * h + (k & 1)];
+        v = MASKED && v == -INFINITY ? 0.f : expf(v - mx);
+        sum += v;
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        float& v = sc[j][4 * (k >> 1) + 2 * h + (k & 1)];
+        v = MASKED && v == 0.f ? 0.f : __fdiv_rn(v, sum);
+      }
   }
-  __syncthreads();
 
-  // a = p v
-  for (int ct = warp; ct < C / 16; ct += ATT_THREADS / 32) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < S; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, &Ps[kk], ldp);
-      wmma::load_matrix_sync(fb, base + (long)kk * ld + 2 * C + ct * 16, (unsigned)ld);
-      wmma::mma_sync(acc, fa, fb, acc);
+  // p, rounded to bf16, over the q tile (every q k^T product has completed):
+  // slice j's 64 keys as 64 rows of 128 bytes, 16-byte unit u of row r at
+  // u ^ (r % 8), the 128-byte swizzle TMA writes
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j < ns) {
+#pragma unroll
+      for (int j8 = 0; j8 < 8; ++j8)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wrow + 8 * h;
+          st_shared_b32(qp + j * BOX_BYTES + r * 128 + ((j8 ^ (r & 7)) << 4) + 4 * (lane & 3),
+                        pack_bf16x2(sc[j][4 * j8 + 2 * h], sc[j][4 * j8 + 2 * h + 1]));
+        }
     }
-    wmma::store_matrix_sync(&SO[ct * 16], acc, ldo, wmma::mem_row_major);
   }
-  __syncthreads();
+  // the generic-proxy stores become visible to wgmma; the warpgroup's own barrier
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync 1, 128;" ::: "memory");
 
-  TO* dst = out + ((long)b * S + q0) * C;
-  for (int v = threadIdx.x; v < QT * C; v += ATT_THREADS) {
-    const int r = v / C, c = v % C;
-    store_out(dst + (long)r * C + c, SO[r * ldo + c]);
+  // a = p v: 64-channel blocks q of the output, V N-major through the transpose bit
+  float ao[4][32];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j < ns) {
+      const int i = ns + j, s = i % STAGES;
+      mbar_wait(full0 + 8 * s, (i / STAGES) & 1);
+      const uint32_t vb = ring + s * SLICE_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = sw128_desc(qp + j * BOX_BYTES + 32 * kk, 16, 1024);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)  // V: 64 key rows of 128 bytes a box, a k16 step 16 rows
+          if (q < nc)
+            wgmma_m64n64k16<1>(ao[q], da, sw128_desc(vb + q * BOX_BYTES + 2048 * kk, BOX_BYTES, 1024),
+                               j | kk);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (j > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((i - 1) % STAGES));
+    }
+  }
+  wgmma_wait<0>();  // the last V slice is never reloaded: no release
+
+  // the epilogue; a warp's 16 rows lie in one sample (S a multiple of 16)
+  const int m0 = row0 + wrow;
+  const float inv_s = MODE == A_S8 ? 1.0f / *p.qs : 0.f;
+  float amax = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + 8 * h;
+    if (m >= p.M) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q >= nc) continue;
+#pragma unroll
+      for (int j8 = 0; j8 < 8; ++j8) {
+        const long o = (long)m * p.C + 64 * q + 8 * j8 + 2 * (lane & 3);
+        const float a0 = ao[q][4 * j8 + 2 * h], a1 = ao[q][4 * j8 + 2 * h + 1];
+        if constexpr (MODE == A_BF16) {
+          *reinterpret_cast<__nv_bfloat162*>((bf16*)p.out + o) = __floats2bfloat162_rn(a0, a1);
+        } else if constexpr (MODE == A_S8) {
+          *reinterpret_cast<char2*>((int8_t*)p.out + o) =
+              make_char2(quant8(a0 * inv_s), quant8(a1 * inv_s));
+        } else {
+          *reinterpret_cast<float2*>((float*)p.out + o) = make_float2(a0, a1);
+          amax = fmaxf(amax, fmaxf(fabsf(a0), fabsf(a1)));
+        }
+      }
+    }
+  }
+  if constexpr (MODE == A_F32) {
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const int mw = row0 + 16 * warp;  // the warp's first row
+    if (lane == 0 && mw < p.M) atomicMax(reinterpret_cast<int*>(p.amax + mw / p.S), __float_as_int(amax));
   }
 }
 
+template <int STAGES, bool MASKED, int MODE>
+int attn_run(const CUtensorMap& map, const AttnArgs& p, cudaStream_t st) {
+  static bool attr = false;
+  if (!attr) {
+    const int err = (int)cudaFuncSetAttribute(attention_wgmma_kernel<STAGES, MASKED, MODE>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              attn_smem<STAGES>());
+    if (err) return err;
+    attr = true;
+  }
+  attention_wgmma_kernel<STAGES, MASKED, MODE>
+      <<<(unsigned)((p.M + 63) / 64), ATT_THREADS, attn_smem<STAGES>(), st>>>(map, p);
+  const int err = (int)cudaGetLastError();
+  if (!err) count_launch(COUNT_ATTN);
+  return err;
+}
+
+template <int STAGES, bool MASKED>
+int attn_mode(int mode, const CUtensorMap& map, const AttnArgs& p, cudaStream_t st) {
+  if (mode == A_S8) return attn_run<STAGES, MASKED, A_S8>(map, p, st);
+  if (mode == A_F32) return attn_run<STAGES, MASKED, A_F32>(map, p, st);
+  return attn_run<STAGES, MASKED, A_BF16>(map, p, st);
+}
+
+// The core on qkv (B * S, 3C) bf16: a (B * S, C) in `mode`'s type into out.
+// stages: the ring's depth, 2 or 4 (ops/attnblock.py:core_plan; S < 64
+// takes 4). S a multiple of 64 up to 256, or 16 or 32; C a multiple of 64
+// up to 256.
+int attn_launch(const bf16* qkv, int batch, int s, int c, int stages, int mode, const float* qs,
+                float* amax, void* out, cudaStream_t st) {
+  const bool s_ok = s >= 64 ? s % 64 == 0 && s <= MAX_S : (s == 16 || s == 32) && stages == 4;
+  if (!s_ok || c % 64 || c < 64 || c > MAX_C || (stages != 2 && stages != 4) || mode < A_BF16 ||
+      mode > A_F32 || (mode == A_S8 && qs == nullptr) || (mode == A_F32 && amax == nullptr))
+    return (int)cudaErrorInvalidValue;
+  AttnArgs p = {batch * s, s, c, 1.0f / sqrtf((float)c), out, qs, amax};
+  if (mode == A_F32) {
+    const int err = (int)cudaMemsetAsync(amax, 0, sizeof(float) * batch, st);
+    if (err) return err;
+  }
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)3 * c, (cuuint64_t)batch * s};
+  const cuuint64_t strides[1] = {(cuuint64_t)3 * c * 2};
+  const cuuint32_t box[2] = {64, 64};
+  if (!bf16_map(&map, qkv, 2, dims, strides, box)) return (int)cudaErrorInvalidValue;
+  if (s < 64) return attn_mode<4, true>(mode, map, p, st);
+  return stages == 2 ? attn_mode<2, false>(mode, map, p, st) : attn_mode<4, false>(mode, map, p, st);
+}
+
+// The block's scratch (null base: sizes only), each buffer on 256 bytes:
+//   4 B C + 4 B C + 8 B + h_bytes M C + 6 M C + a_bytes M C
+//   (+ 12 splits M C when a GEMM splits K)
+// h_bytes: an element of h = GN(x), the q/k/v GEMM's operand (2 bf16, 1
+// int8, 0 where conv_gemm_kernel's prologue makes it); a_bytes: an element
+// of a buffer of its own for a (0: a takes h's place, which the q/k/v GEMM
+// has read). ops/attnblock.py:workspace_bytes computes the same.
 struct Work {
-  float* sc;  // (B, C) GN affine
+  float* sc;       // (B, C) GN affine
   float* sh;
-  __nv_bfloat16* qkv;  // (M, 3C)
-  __nv_bfloat16* a;    // (M, C) attention output
-  float* partial;      // (splits, M, 3C) split-K partial sums
+  float* amax;     // (2, B) int8 per-sample: max |h|, max |a| of each sample
+  void* h;         // (M, C) bf16 or int8
+  bf16* qkv;       // (M, 3C)
+  void* a;         // (M, C) the core's output
+  float* partial;  // (splits, M, 3C) split-K partial sums
   size_t bytes;
 };
 
-Work carve(char* base, int batch, long m, int c, int splits) {
+Work carve(char* base, int batch, long m, int c, int h_bytes, int a_bytes, int splits) {
   Work w;
   size_t off = 0;
   auto take = [&](size_t bytes) {
@@ -159,124 +399,175 @@ Work carve(char* base, int batch, long m, int c, int splits) {
   };
   w.sc = (float*)take(sizeof(float) * batch * c);
   w.sh = (float*)take(sizeof(float) * batch * c);
-  w.qkv = (__nv_bfloat16*)take(sizeof(__nv_bfloat16) * m * 3 * c);
-  w.a = (__nv_bfloat16*)take(sizeof(__nv_bfloat16) * m * c);
+  w.amax = (float*)take(sizeof(float) * 2 * batch);
+  w.h = take((size_t)h_bytes * m * c);
+  w.qkv = (bf16*)take(sizeof(bf16) * m * 3 * c);
+  w.a = a_bytes ? take((size_t)a_bytes * m * c) : w.h;
   w.partial = splits > 1 ? (float*)take(sizeof(float) * splits * m * 3 * c) : nullptr;
   w.bytes = off;
   return w;
 }
 
-// Scratch of the int8 mode: a is f32, and the per-sample amaxes of h and a.
-struct WorkS8 {
-  float* sc;  // (B, C) GN affine
-  float* sh;
-  __nv_bfloat16* qkv;  // (M, 3C)
-  float* a;            // (M, C) attention output
-  float* amax;         // (2, B) dynamic mode
-  float* partial;      // (splits, M, 3C) split-K partial sums
-  size_t bytes;
-};
-
-WorkS8 carve_s8(char* base, int batch, long m, int c, int splits) {
-  WorkS8 w;
-  size_t off = 0;
-  auto take = [&](size_t bytes) {
-    char* p = base ? base + off : nullptr;
-    off += align256(bytes);
-    return p;
-  };
-  w.sc = (float*)take(sizeof(float) * batch * c);
-  w.sh = (float*)take(sizeof(float) * batch * c);
-  w.qkv = (__nv_bfloat16*)take(sizeof(__nv_bfloat16) * m * 3 * c);
-  w.a = (float*)take(sizeof(float) * m * c);
-  w.amax = (float*)take(sizeof(float) * 2 * batch);
-  w.partial = splits > 1 ? (float*)take(sizeof(float) * splits * m * 3 * c) : nullptr;
-  w.bytes = off;
-  return w;
+// One 1x1 projection on the block GEMM: a (B, H, W, cin) by w, bias added,
+// K split as ops/attnblock.py plans it; the caller sets the rest.
+BlockGemm projection(bool int8, const void* a, const void* w, int batch, int h, int w_, int cin,
+                     int n, const void* bias, int splits, int kper, float* partial) {
+  BlockGemm g = {};
+  g.int8 = int8;
+  g.a = a;
+  g.w = w;
+  g.cin = cin;
+  g.taps = 1;
+  g.B = batch;
+  g.H = h;
+  g.W = w_;
+  g.N = n;
+  g.bias = (const float*)bias;
+  g.out_scale = 1.0f;
+  g.splits = splits;
+  g.kper = kper;
+  g.partial = partial;
+  return g;
 }
 
 }  // namespace
 
 extern "C" {
 
-long long gddim_attnblock_workspace(int batch, int s, int c, int splits) {
-  return (long long)carve(nullptr, batch, (long)batch * s, c, splits).bytes;
+// The attention core alone: qkv (B * S, 3C) bf16 -> out (B * S, C), bf16
+// (mode 0), int8 by the static scale qs (mode 1), or f32 with each sample's
+// max |a| in amax (B,) (mode 2).
+int gddim_attention_core(const void* qkv, int batch, int s, int c, int stages, int mode,
+                         const void* qs, void* amax, void* out, void* stream) {
+  return attn_launch((const bf16*)qkv, batch, s, c, stages, mode, (const float*)qs, (float*)amax,
+                     out, (cudaStream_t)stream);
 }
 
-// The whole attention block: GN stats, [q|k|v] = GN(x) @ wqkv + bqkv (one
-// N = 3C GEMM), the attention core, out = (x + a @ wo + bo) * out_scale.
-// x and out bf16, or f32 with act_f32. Scratch comes from `work`,
-// gddim_attnblock_workspace bytes.
+// K5 on bf16 activations: x, out (B, H, W, C) bf16; wqkv (C, 3C) and wo
+// (C, C) bf16, bqkv (3C,) and bo (C,) f32. The tile plans of the q/k/v
+// GEMM (mw1 .. kper1) and the output GEMM (mw2 .. kper2), and the core's
+// ring depth, as ops/attnblock.py:block_plan makes them. Scratch `work`:
+// work_bytes (ops/attnblock.py:workspace_bytes with h_bytes 2, a_bytes 0).
 int gddim_attnblock(const void* x, const void* gn_g, const void* gn_b, int groups,
                     const void* wqkv, const void* bqkv, const void* wo, const void* bo, int batch,
-                    int s, int c, float eps, float out_scale, void* work, int splits1, int kper1,
-                    int splits2, int kper2, void* out, int act_f32, void* stream) {
-  if (s % QT != 0 || s > MAX_S || c % 16 != 0 || c > MAX_C) return (int)cudaErrorInvalidValue;
-  const Work wk = carve((char*)work, batch, (long)batch * s, c,
+                    int h, int w, int c, float eps, float out_scale, void* work,
+                    long long work_bytes, int mw1, int box_h1, int box_b1, int tiles_h1,
+                    int m_tiles1, int splits1, int kper1, int mw2, int box_h2, int box_b2,
+                    int tiles_h2, int m_tiles2, int splits2, int kper2, int stages, void* out,
+                    void* stream) {
+  const int hw = h * w;
+  const Work wk = carve((char*)work, batch, (long)batch * hw, c, 2, 0,
                         splits1 > splits2 ? splits1 : splits2);
+  if (wk.bytes > (size_t)work_bytes) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int err = gn_affine_launch(x, nullptr, c, 0, batch, s, groups, (const float*)gn_g,
-                             (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, act_f32, st);
+  int err = gn_affine_launch(x, nullptr, c, 0, batch, hw, groups, (const float*)gn_g,
+                             (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, false, st);
+  if (!err)
+    err = prepass_launch(x, nullptr, c, 0, false, batch, hw, wk.sc, wk.sh, 0, nullptr, wk.h, st);
   if (!err) {
-    // the projections are 1x1 convs over M = B*S pixels (H = S, W = 1)
-    err = conv_gemm_launch_as(conv_args(x, c, wk.sc, wk.sh, 0, 1, wqkv, batch, s, 1, 3 * c, bqkv,
-                                        1.0f, wk.qkv, wk.partial, splits1, kper1),
-                              act_f32, false, st);
+    BlockGemm g = projection(false, wk.h, wqkv, batch, h, w, c, 3 * c, bqkv, splits1, kper1,
+                             wk.partial);
+    g.out = wk.qkv;
+    err = block_gemm_launch(g, GemmTiles{mw1, box_h1, box_b1, tiles_h1, m_tiles1}, st);
   }
-  if (err) return err;
-  attention_kernel<__nv_bfloat16><<<dim3(s / QT, batch), ATT_THREADS, 0, st>>>(
-      wk.qkv, wk.a, s, c, 1.0f / sqrtf((float)c));
-  err = (int)cudaGetLastError();
+  if (!err) err = attn_launch(wk.qkv, batch, hw, c, stages, A_BF16, nullptr, nullptr, wk.a, st);
   if (!err) {
-    ConvArgs p = conv_args(wk.a, c, nullptr, nullptr, 0, 1, wo, batch, s, 1, c, bo, out_scale,
-                           out, wk.partial, splits2, kper2);
-    p.resid = x;
-    err = conv_gemm_launch_as(p, false, act_f32, st);
+    const GemmTiles t2{mw2, box_h2, box_b2, tiles_h2, m_tiles2};
+    BlockGemm g = projection(false, wk.a, wo, batch, h, w, c, c, bo, splits2, kper2, wk.partial);
+    g.resid = x;
+    g.out_scale = out_scale;
+    g.out = out;
+    err = block_gemm_launch(g, t2, st);
   }
   return err;
 }
 
-long long gddim_attnblock_int8_workspace(int batch, int s, int c, int splits) {
-  return (long long)carve_s8(nullptr, batch, (long)batch * s, c, splits).bytes;
-}
-
-// K5's int8 mode: wqkv_q (C, 3C) / wo_q (C, C) int8 with their per-output-
-// channel scales; act_scales the static [s_h, s_a] (a device array), or null
-// for per-sample scales. Scratch: gddim_attnblock_int8_workspace bytes.
-int gddim_attnblock_int8(const void* x, const void* gn_g, const void* gn_b, int groups,
-                         const void* wqkv_q, const void* wqkv_s, const void* bqkv,
-                         const void* wo_q, const void* wo_s, const void* bo,
-                         const void* act_scales, int batch, int s, int c, float eps,
-                         float out_scale, void* work, int splits1, int kper1, int splits2,
-                         int kper2, void* out, void* stream) {
-  if (s % QT != 0 || s > MAX_S || c % 16 != 0 || c > MAX_C) return (int)cudaErrorInvalidValue;
-  const WorkS8 wk = carve_s8((char*)work, batch, (long)batch * s, c,
-                             splits1 > splits2 ? splits1 : splits2);
-  const float* qs = (const float*)act_scales;
+// K5 on f32 activations (K10's forward): x, out (B, S, C) f32, the weights
+// as gddim_attnblock's; the projections on conv_gemm_kernel (splits1, kper1
+// and splits2, kper2 of ops/resblock.py:split_k). Scratch: workspace_bytes
+// with h_bytes 0, a_bytes 2.
+int gddim_attnblock_f32(const void* x, const void* gn_g, const void* gn_b, int groups,
+                        const void* wqkv, const void* bqkv, const void* wo, const void* bo,
+                        int batch, int s, int c, float eps, float out_scale, void* work,
+                        long long work_bytes, int splits1, int kper1, int splits2, int kper2,
+                        int stages, void* out, void* stream) {
+  const Work wk = carve((char*)work, batch, (long)batch * s, c, 0, 2,
+                        splits1 > splits2 ? splits1 : splits2);
+  if (wk.bytes > (size_t)work_bytes) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   int err = gn_affine_launch(x, nullptr, c, 0, batch, s, groups, (const float*)gn_g,
-                             (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, false, st);
-  if (!err && qs == nullptr)
-    err = amax_launch(x, nullptr, c, 0, batch, s, wk.sc, wk.sh, 0, wk.amax, false, st);
-  if (!err) {  // the projections are 1x1 convs over M = B*S pixels (H = S, W = 1)
-    const ConvArgs p = conv_args(x, c, wk.sc, wk.sh, 0, 1, nullptr, batch, s, 1, 3 * c, bqkv,
-                                 1.0f, wk.qkv, wk.partial, splits1, kper1);
-    const Int8Args q = {(const int8_t*)wqkv_q, (const float*)wqkv_s, qs, wk.amax, 0};
-    err = conv_gemm_s8_launch(p, q, false, false, st);
-  }
-  if (err) return err;
-  attention_kernel<float><<<dim3(s / QT, batch), ATT_THREADS, 0, st>>>(
-      wk.qkv, wk.a, s, c, 1.0f / sqrtf((float)c));
-  err = (int)cudaGetLastError();
-  if (!err && qs == nullptr)
-    err = amax_launch(wk.a, nullptr, c, 0, batch, s, nullptr, nullptr, 0, wk.amax + batch, true, st);
+                             (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, true, st);
+  if (!err)  // the projections are 1x1 convs over M = B*S pixels (H = S, W = 1)
+    err = conv_gemm_launch_as(conv_args(x, c, wk.sc, wk.sh, 0, 1, wqkv, batch, s, 1, 3 * c, bqkv,
+                                        1.0f, wk.qkv, wk.partial, splits1, kper1),
+                              true, false, st);
+  if (!err) err = attn_launch(wk.qkv, batch, s, c, stages, A_BF16, nullptr, nullptr, wk.a, st);
   if (!err) {
-    ConvArgs p = conv_args(wk.a, c, nullptr, nullptr, 0, 1, nullptr, batch, s, 1, c, bo, out_scale,
+    ConvArgs p = conv_args(wk.a, c, nullptr, nullptr, 0, 1, wo, batch, s, 1, c, bo, out_scale,
                            out, wk.partial, splits2, kper2);
     p.resid = x;
-    const Int8Args q = {(const int8_t*)wo_q, (const float*)wo_s, qs ? qs + 1 : nullptr,
-                        wk.amax + batch, 0};
-    err = conv_gemm_s8_launch(p, q, true, false, st);
+    err = conv_gemm_launch_as(p, false, true, st);
+  }
+  return err;
+}
+
+// K5's int8 mode: x, out (B, H, W, C) bf16; wqkv_k (3C, C) and wo_k (C, C)
+// int8 K-major (ops/attnblock.py:pack_projection) with their per-output-
+// channel scales; act_scales the static [s_h, s_a] (a device array), or
+// null for per-sample scales. Plans as gddim_attnblock's. Scratch:
+// workspace_bytes with h_bytes 1, a_bytes 0 (static) or 4 (per sample).
+int gddim_attnblock_int8(const void* x, const void* gn_g, const void* gn_b, int groups,
+                         const void* wqkv_k, const void* wqkv_s, const void* bqkv,
+                         const void* wo_k, const void* wo_s, const void* bo,
+                         const void* act_scales, int batch, int h, int w, int c, float eps,
+                         float out_scale, void* work, long long work_bytes, int mw1, int box_h1,
+                         int box_b1, int tiles_h1, int m_tiles1, int splits1, int kper1, int mw2,
+                         int box_h2, int box_b2, int tiles_h2, int m_tiles2, int splits2,
+                         int kper2, int stages, void* out, void* stream) {
+  const int hw = h * w;
+  const float* qs = (const float*)act_scales;
+  const Work wk = carve((char*)work, batch, (long)batch * hw, c, 1, qs ? 0 : 4,
+                        splits1 > splits2 ? splits1 : splits2);
+  if (wk.bytes > (size_t)work_bytes) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int err = gn_affine_launch(x, nullptr, c, 0, batch, hw, groups, (const float*)gn_g,
+                             (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, false, st);
+  if (!err && qs == nullptr)
+    err = amax_launch(x, nullptr, c, 0, batch, hw, wk.sc, wk.sh, 0, wk.amax, false, st);
+  if (!err) {  // h = q(GN(x)): clip(rint(h * (1/s_h))), or per sample by max |h|
+    const Int8Args q = {qs, wk.amax, 0};
+    err = prepass_launch(x, nullptr, c, 0, false, batch, hw, wk.sc, wk.sh, 0, &q, wk.h, st);
+  }
+  if (!err) {  // [q|k|v] = h8 @ Wqkv8 * (w_scale * s_h) + b, bf16
+    const GemmTiles t1{mw1, box_h1, box_b1, tiles_h1, m_tiles1};
+    BlockGemm g = projection(true, wk.h, wqkv_k, batch, h, w, c, 3 * c, bqkv, splits1, kper1,
+                             wk.partial);
+    g.wsc = (const float*)wqkv_s;
+    g.qs = qs;
+    g.amax = wk.amax;
+    g.out = wk.qkv;
+    err = block_gemm_launch(g, t1, st);
+  }
+  // a as the output GEMM reads it: int8 from the core (static), or f32 and
+  // its per-sample amax, then the quantize pre-pass into h's place
+  if (!err && qs != nullptr)
+    err = attn_launch(wk.qkv, batch, hw, c, stages, A_S8, qs + 1, nullptr, wk.h, st);
+  if (!err && qs == nullptr) {
+    err = attn_launch(wk.qkv, batch, hw, c, stages, A_F32, nullptr, wk.amax + batch, wk.a, st);
+    const Int8Args q = {nullptr, wk.amax + batch, 0};
+    if (!err)
+      err = prepass_launch(wk.a, nullptr, c, 0, true, batch, hw, nullptr, nullptr, 0, &q, wk.h, st);
+  }
+  if (!err) {  // out = (a8 @ Wo8 * (w_scale * s_a) + bo + x) * out_scale
+    const GemmTiles t2{mw2, box_h2, box_b2, tiles_h2, m_tiles2};
+    BlockGemm g = projection(true, wk.h, wo_k, batch, h, w, c, c, bo, splits2, kper2, wk.partial);
+    g.wsc = (const float*)wo_s;
+    g.qs = qs ? qs + 1 : nullptr;
+    g.amax = wk.amax + batch;
+    g.resid = x;
+    g.out_scale = out_scale;
+    g.out = out;
+    err = block_gemm_launch(g, t2, st);
   }
   return err;
 }

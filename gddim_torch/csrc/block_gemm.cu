@@ -1,6 +1,7 @@
 // The block GEMM for Hopper (sm_90a): both 3x3 convs, and conv2's bf16 1x1
 // skip, of the bf16 and int8 modes of K2, K3, K4 and K9 (conv_impl 'fused'
-// on bf16 activations, and 'fused_int8').
+// on bf16 activations, and 'fused_int8'), and K5's q/k/v and output
+// projections as 1x1 convs over M = B*H*W pixels (taps 1, attnblock.cu).
 //
 // Replaces the conv part of gddim_tpu/ops/resblock.py's kernels
 // (_resblock_kernel_v2 and _resblock_kernel for K2 and K4,
@@ -12,13 +13,14 @@
 // input once, in resblock.cu) stays one C call, resblock_gemm_run.
 //
 // block_gemm_kernel<TA> is an implicit GEMM, M = B*H*W output pixels, N =
-// Cout, K = 9 * Cin channels of TA (bf16 or int8), then Cskip bf16 channels.
+// Cout, K = taps * Cin channels of TA (bf16 or int8; taps 9 for a 3x3 conv,
+// 1 for a 1x1 projection), then Cskip bf16 channels.
 // A K slice is 128 bytes a pixel: 64 bf16 or 128 int8 channels of one tap,
 // or 64 bf16 skip channels.
 // - A by TMA with no im2col and no padded copy: the pre-pass's activation
 //   is a 4-D tensor map (C, W, H, B) with the 128-byte swizzle; a conv
 //   slice is one box of (the slice's channels, W, box_h rows, box_b
-//   samples) at (x, y) offsets (dx-1, dy-1). The TMA unit writes zeros out
+//   samples) at (x, y) offsets (dx-1, dy-1), or (0, 0) with one tap. The TMA unit writes zeros out
 //   of bounds, and the activation (GN affine, SiLU, quantization) was
 //   applied before, so the zeros are the activation's, as the TPU kernels
 //   pad a1 (hpad_ref): SAME padding costs nothing.
@@ -102,8 +104,9 @@ long long launch_counts[N_COUNTED];
 
 struct Plan {
   int B, H, W, N, cin;
+  int taps;  // 9: 3x3 SAME, 1: 1x1
   int box_h, box_b, tiles_h;  // the A box: W x box_h pixels of box_b samples
-  int conv_slices;  // 9 * cin * sizeof(TA) / 128
+  int conv_slices;  // taps * cin * sizeof(TA) / 128
   int skip0_slices;  // cs0 / 64: the skip slices that read s0, then those of s1
   int slices, kper, splits;
   const float* wsc;
@@ -219,7 +222,8 @@ block_gemm_kernel(const __grid_constant__ CUtensorMap amap,
           mbar_expect_tx(full, a_tx + B_BYTES);
           const int k0 = (s_beg + i) * SLICE_K;
           const int tap = k0 / p.cin, c0 = k0 - tap * p.cin;
-          tma_load_4d(a, &amap, full, c0, tap % 3 - 1, y0 + tap / 3 - 1, b0);
+          const int dx = p.taps == 9 ? tap % 3 - 1 : 0, dy = p.taps == 9 ? tap / 3 - 1 : 0;
+          tma_load_4d(a, &amap, full, c0, dx, y0 + dy, b0);
           if constexpr (kInt8)
             tma_load_2d(b, &wmap, full, k0, n0);
           else
@@ -413,10 +417,10 @@ void count_launch(Counted kernel) { ++launch_counts[kernel]; }
 int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
   const int slice_k = g.int8 ? ROW : ROW / 2;  // conv channels of a slice
   const int cskip = g.s0 ? g.cs0 + g.cs1 : 0;
-  const int conv_slices = 9 * g.cin / slice_k;
+  const int conv_slices = g.taps * g.cin / slice_k;
   const int slices = conv_slices + cskip / 64;
   const int bm = 128 * t.mw;
-  if (g.cin % slice_k || g.N % TILE_N ||
+  if ((g.taps != 1 && g.taps != 9) || g.cin % slice_k || g.N % TILE_N ||
       (g.s0 && (g.cs0 % 64 || g.cs1 % 64 || g.ws == nullptr)) || g.W > 256 || t.box_h < 1 ||
       t.box_b < 1 || t.box_h > 256 || t.box_b > 256 || (t.mw != 1 && t.mw != 2) ||
       g.W * t.box_h * t.box_b > bm || g.splits < 1 || g.kper < 1 ||
@@ -431,6 +435,7 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
   p.W = g.W;
   p.N = g.N;
   p.cin = g.cin;
+  p.taps = g.taps;
   p.box_h = t.box_h;
   p.box_b = t.box_b;
   p.tiles_h = t.tiles_h;
@@ -461,13 +466,13 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
   const cuuint32_t nbox[2] = {64, 64};  // an N-major bf16 weight box
   bool ok;
   if (g.int8) {
-    const cuuint64_t wdims[2] = {(cuuint64_t)9 * g.cin, (cuuint64_t)g.N};
-    const cuuint64_t wstrides[1] = {(cuuint64_t)9 * g.cin};
+    const cuuint64_t wdims[2] = {(cuuint64_t)g.taps * g.cin, (cuuint64_t)g.N};
+    const cuuint64_t wstrides[1] = {(cuuint64_t)g.taps * g.cin};
     const cuuint32_t wbox[2] = {ROW, TILE_N};
     ok = sw128_map(&maps[0], CU_TENSOR_MAP_DATA_TYPE_UINT8, g.a, 4, adims, astrides, abox) &&
          sw128_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_UINT8, g.w, 2, wdims, wstrides, wbox);
   } else {
-    const cuuint64_t wdims[2] = {(cuuint64_t)g.N, (cuuint64_t)9 * g.cin};
+    const cuuint64_t wdims[2] = {(cuuint64_t)g.N, (cuuint64_t)g.taps * g.cin};
     const cuuint64_t wstrides[1] = {(cuuint64_t)g.N * 2};
     ok = bf16_map(&maps[0], g.a, 4, adims, astrides, abox) &&
          bf16_map(&maps[1], g.w, 2, wdims, wstrides, nbox);
@@ -495,16 +500,19 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
 
 extern "C" {
 
-// The bare int8 conv of the block GEMM: out (B, H, W, N) f32 = conv3x3(a8,
-// w) * (wsc[n] * *qs), a8 (B, H, W, Cin) int8, wk (N, 9 * Cin) int8 K-major,
-// wsc (N,) and qs () f32 on the device; the tile plan as gddim_resblock_int8
-// takes it. With wsc and qs ones, out holds the int32 sums (exact in f32 up
-// to 2^24). Scratch `work`: splits * M * N f32 when splits > 1.
+// The bare int8 conv of the block GEMM: out (B, H, W, N) f32 = conv(a8, w)
+// * (wsc[n] * *qs), a 3x3 SAME conv (taps 9) or a 1x1 (taps 1), a8 (B, H, W,
+// Cin) int8, wk (N, taps * Cin) int8 K-major, wsc (N,) and qs () f32 on the
+// device; the tile plan as gddim_resblock_int8 takes it. With wsc and qs
+// ones, out holds the int32 sums (exact in f32 up to 2^24). Scratch `work`:
+// splits * M * N f32 when splits > 1.
 int gddim_conv_s8(const void* a8, const void* wk, const void* wsc, const void* qs, int batch,
-                  int h, int w, int cin, int n, int mw, int box_h, int box_b, int tiles_h,
-                  int m_tiles, int splits, int kper, void* work, void* out, void* stream) {
+                  int h, int w, int cin, int n, int taps, int mw, int box_h, int box_b,
+                  int tiles_h, int m_tiles, int splits, int kper, void* work, void* out,
+                  void* stream) {
   BlockGemm g = {};
   g.int8 = true;
+  g.taps = taps;
   g.a = a8;
   g.w = wk;
   g.cin = cin;
@@ -524,14 +532,16 @@ int gddim_conv_s8(const void* a8, const void* wk, const void* wsc, const void* q
                            (cudaStream_t)stream);
 }
 
-// The bare bf16 conv of the block GEMM: out (B, H, W, N) f32 = conv3x3(a, w),
-// a (B, H, W, Cin) bf16, w (3, 3, Cin, N) bf16 HWIO, f32 sums; the tile plan
-// as gddim_resblock takes it (ops/resblock.py:bf16_tile_plan). Scratch
-// `work`: splits * M * N f32 when splits > 1.
+// The bare bf16 conv of the block GEMM: out (B, H, W, N) f32 = conv(a, w),
+// a 3x3 SAME conv (taps 9) or a 1x1 (taps 1), a (B, H, W, Cin) bf16, w
+// (taps * Cin, N) bf16 (HWIO flattened), f32 sums; the tile plan as
+// gddim_resblock takes it (ops/resblock.py:bf16_tile_plan). Scratch `work`:
+// splits * M * N f32 when splits > 1.
 int gddim_conv_bf16(const void* a, const void* w, int batch, int h, int w_, int cin, int n,
-                    int mw, int box_h, int box_b, int tiles_h, int m_tiles, int splits, int kper,
-                    void* work, void* out, void* stream) {
+                    int taps, int mw, int box_h, int box_b, int tiles_h, int m_tiles, int splits,
+                    int kper, void* work, void* out, void* stream) {
   BlockGemm g = {};
+  g.taps = taps;
   g.a = a;
   g.w = w;
   g.cin = cin;
@@ -550,7 +560,8 @@ int gddim_conv_bf16(const void* a, const void* w, int batch, int h, int w_, int 
 }
 
 // Launches of the kernels counted in C (conv.cuh's Counted order: the int8
-// GEMM, the int8 pre-pass, the bf16 GEMM, the bf16 pre-pass) into out
+// GEMM, the int8 pre-pass, the bf16 GEMM, the bf16 pre-pass, K5's attention
+// core) into out
 // (N_COUNTED long long); with reset, zeroed after reading.
 int gddim_block_launches(long long* out, int reset) {
   for (int k = 0; k < N_COUNTED; ++k) {

@@ -5,9 +5,10 @@
 // Activations are bf16 (inference, K2-K5) or f32 (training, K6/K7, and
 // K2-K5 on f32 activations); the tensor-core operands are bf16 with f32
 // accumulation either way, or int8 with int32 accumulation in the int8 mode
-// of K2-K5. conv_gemm_kernel (resblock.cu) serves f32 activations, K5's
-// projections and K7; the block GEMM (block_gemm.cu) the 3x3 convs of the
-// bf16 and int8 blocks (K2-K4, K9).
+// of K2-K5. conv_gemm_kernel (resblock.cu) serves f32 activations (K5's
+// projections among them) and K7; the block GEMM (block_gemm.cu) the 3x3
+// convs of the bf16 and int8 blocks (K2-K4, K9) and K5's 1x1 projections on
+// bf16 activations and in int8.
 
 #pragma once
 
@@ -104,23 +105,12 @@ int conv_gemm_launch_as(const ConvArgs& p, bool a_f32, bool out_f32, cudaStream_
 // (splits, K per split) that keep a small-M GEMM's grid filling the card.
 void conv_split_plan(long m, int n, int k, int* splits, int* kper);
 
-// The int8 mode of the conv GEMM (K5 with mm_dtype int8): the prologue
-// quantizes A to int8, W arrives int8 with one scale per output channel, the
-// products accumulate in int32 and the epilogue dequantizes them.
+// The activation scales of an int8 pre-pass (quantize8, resblock.cu).
 struct Int8Args {
-  const int8_t* wq;   // (taps*Cin, N) int8, row-major (HWIO flattened)
-  const float* wsc;   // (N,) weight scales
   const float* qs;    // static mode: the activation scale s (one device float), or null
   const float* amax;  // dynamic mode: (B,) per-sample amax of the quantized activation
   int inv_mul;        // dynamic: q = a * (127 / amax) (the pair's conv1) instead of a / (amax / 127)
 };
-
-// conv_gemm_s8_kernel (+ the split-K reduction). p as for conv_gemm_launch,
-// except that p.w is unused and a bf16 skip segment (p.s0 ...) accumulates
-// in f32 beside the int32 sum. a_f32: A is f32, else bf16; out_f32: p.out is
-// f32, else bf16. The skip input and the identity residual are bf16.
-int conv_gemm_s8_launch(const ConvArgs& p, const Int8Args& q, bool a_f32, bool out_f32,
-                        cudaStream_t stream);
 
 // The M tiling of the block GEMM (block_gemm.cu), from the tile plan
 // (ops/resblock.py:bf16_tile_plan, s8_tile_plan): tiles of 128 * mw output
@@ -130,8 +120,9 @@ struct GemmTiles {
   int mw, box_h, box_b, tiles_h, m_tiles;
 };
 
-// One conv of the block GEMM (block_gemm.cu): a 3x3 SAME conv of the
-// pre-pass's activation, bf16 by HWIO bf16 weights (f32 sums), or int8 by
+// One conv of the block GEMM (block_gemm.cu): a 3x3 SAME conv (taps 9) or a
+// 1x1 (taps 1) of the pre-pass's activation, bf16 by HWIO bf16 weights (f32
+// sums), or int8 by
 // K-major int8 weights (int32 sums dequantized in place), then an optional
 // bf16 1x1 skip into the same f32 accumulators, then the epilogue:
 //   out = (conv(a, w) [* (wsc[n] * s)] + skip + bias + bias2 + temb[b] + resid) * out_scale
@@ -139,8 +130,9 @@ struct GemmTiles {
 struct BlockGemm {
   bool int8;        // the int8 mode, else bf16
   const void* a;    // (B, H, W, cin) bf16 or int8
-  const void* w;    // bf16: (9 * cin, N) HWIO flattened; int8: (N, 9 * cin), K-major
+  const void* w;    // bf16: (taps * cin, N) HWIO flattened; int8: (N, taps * cin), K-major
   int cin;
+  int taps;         // 9: 3x3 SAME, 1: 1x1
   const void* s0;   // skip inputs (M, cs0) and (M, cs1) bf16, or s0 null: no skip
   const void* s1;
   int cs0, cs1;
@@ -167,13 +159,14 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t strea
 
 // Kernels launched inside a block's C call, counted where they are launched
 // (one each time the launch succeeds; gddim_block_launches reads the counts):
-// the block GEMM and the pre-pass, int8 and bf16.
+// the block GEMM and the pre-pass, int8 and bf16, and K5's attention core.
 enum Counted {
   COUNT_GEMM_S8 = 0,
   COUNT_PREPASS_S8 = 1,
   COUNT_GEMM_BF16 = 2,
   COUNT_PREPASS_BF16 = 3,
-  N_COUNTED = 4
+  COUNT_ATTN = 4,
+  N_COUNTED = 5
 };
 void count_launch(Counted kernel);
 
@@ -193,6 +186,15 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
                       int h, int w_, int n, float eps, float out_scale, void* work,
                       const GemmTiles& tiles, int splits1, int kper1, int splits2, int kper2,
                       void* out, cudaStream_t st);
+
+// The block GEMM's pre-pass (resblock.cu): the logical concat (xa, xb) of
+// one conv's input (f32 or bf16) through the per-(sample, channel) affine
+// (scale, shift; none when null) and SiLU (silu_on), written once NHWC to
+// out as int8 by quantize8's scales q when q is non-null, else bf16.
+// Counted where it launches.
+int prepass_launch(const void* xa, const void* xb, int ca, int cb, bool f32, int batch, int hw,
+                   const float* scale, const float* shift, int silu_on, const Int8Args* q,
+                   void* out, cudaStream_t st);
 
 // amax[b] = max |f(x)| over sample b of the logical concat (xa, xb), f the
 // per-(sample, channel) affine (scale, shift; none when null) and SiLU when

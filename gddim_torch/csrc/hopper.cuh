@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels (conv3x3.cu,
-// block_gemm.cu): mbarriers, TMA tile loads, wgmma shared-memory descriptors
+// block_gemm.cu, attnblock.cu): mbarriers, TMA tile loads, wgmma shared-memory descriptors
 // and products, and the tensor-map encoder.
 
 #pragma once
@@ -150,6 +150,28 @@ __device__ __forceinline__ void wgmma_m64n128k16_b32(uint32_t (&d)[64], uint64_t
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
         "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 64 f32, the wgmma accumulator layout) = A (64 x 16, K-major) *
+// B (16 x 64) + d, or without d when accumulate is 0 (the first product of
+// a sum: the accumulators need no zeros written by other instructions, which
+// would serialize the wgmma pipeline); B K-major (TNSP_B 0) or N-major
+// (TNSP_B 1, the transpose bit)
+template <int TNSP_B>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, "
+      "%35;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TNSP_B));
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

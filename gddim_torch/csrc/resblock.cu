@@ -69,16 +69,12 @@
 // Around them, the GN statistics, the pre-passes (bytes: at 32x32x256, B=64
 // ~34 MB of bf16 in, ~17 MB of int8 or ~34 MB of bf16 out, mostly kept in
 // L2 for the GEMM) and the temb rows. The block GEMM answers the convs
-// (block_gemm.cu's header); conv_gemm_kernel (~4% of the bf16 peak on
+// (block_gemm.cu's header), and K5's 1x1 projections on bf16 activations
+// and in int8 (attnblock.cu); conv_gemm_kernel (~4% of the bf16 peak on
 // these shapes) stays for what the block GEMM does not take: f32
-// activations, K6's dropout mask, and through conv.cuh K5's 1x1 projections
-// (attnblock.cu) and K7's dgrads (resblock_bwd.cu); a 2-D A box would put
-// the projections on the block GEMM.
+// activations (K5's projections in K10 among them), K6's dropout mask, and
+// through conv.cuh K7's dgrads (resblock_bwd.cu).
 //
-//   conv_gemm_s8_kernel  the first int8 GEMM, now K5's only (attnblock.cu, the
-//                        1x1 projections): WMMA s8 16x16x16 on a 64x64x32
-//                        tile, register-staged double buffer, quantize8 in
-//                        the A prologue, an int32 and an f32 (skip) set
 //   amax_kernel          dynamic mode: the per-sample amax of the quantized
 //                        activation, one pass before each conv; atomicMax on
 //                        the bit patterns of non-negative floats, so the
@@ -480,68 +476,18 @@ int conv_gemm_run(const ConvArgs& p, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// int8 mode. The int8 tiles keep each 16-wide K half as its own array of
-// 16-byte rows, so every WMMA fragment starts 32-byte aligned and is one
-// contiguous 256-byte block.
+// int8 mode.
 
 __device__ __forceinline__ int8_t quant8(float v) {
   return (int8_t)fminf(fmaxf(rintf(v), -127.0f), 127.0f);  // rintf: half to even
-}
-
-// One thread's share of an int8 K slice: two 8-channel vectors of A (in the
-// activation type, quantized at the store) and 16 int8 weights.
-template <typename T>
-struct StageS8 {
-  Pack8<T> a[2];
-  uint4 b;
-  int a_b[2];  // sample index of the A row, -1 when the tap is padding or m >= M
-  int a_c[2];  // logical channel of the first of the 8 values
-};
-
-template <typename T>
-__device__ __forceinline__ void load_stage_s8(const ConvArgs& p, const int8_t* wq, int m0, int n0,
-                                              int k0, StageS8<T>& st) {
-  const int t = threadIdx.x;
-  const int cin = p.ca0 + p.ca1;
-  const int hw = p.H * p.W;
-  const int M = p.B * hw;
-  const int tap = k0 / cin;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = (t >> 2) + 32 * i;
-    const int col = (t & 3) * 8;
-    const int m = m0 + row;
-    zero8(st.a[i]);
-    st.a_b[i] = -1;
-    st.a_c[i] = 0;
-    if (m < M) {
-      const int b = m / hw, rem = m - b * hw;
-      int y = rem / p.W, x = rem - (rem / p.W) * p.W;
-      const int c = k0 - tap * cin + col;
-      if (p.taps == 9) {
-        y += tap / 3 - 1;
-        x += tap % 3 - 1;
-      }
-      if (y >= 0 && y < p.H && x >= 0 && x < p.W) {
-        const T* src = c < p.ca0 ? (const T*)p.a0 : (const T*)p.a1;
-        const int cstride = c < p.ca0 ? p.ca0 : p.ca1;
-        const int cl = c < p.ca0 ? c : c - p.ca0;
-        const long pix = ((long)b * p.H + y) * p.W + x;
-        ld8(st.a[i], src + pix * cstride + cl);
-        st.a_b[i] = b;
-        st.a_c[i] = c;
-      }
-    }
-  }
-  st.b = *reinterpret_cast<const uint4*>(wq + (long)(k0 + (t >> 2)) * p.N + n0 + (t & 3) * 16);
 }
 
 // The int8 values of 8 activations f of sample b: the GN affine (+SiLU)
 // in f32 first when sc is non-null, then clip(rint(a * inv_static))
 // (static), clip(rint(a * (127 / amax_b))) (inv_mul: the pair's conv1) or
 // clip(rint(a / (amax_b / 127))), amax_b = max(amax[b], 1e-12), as the TPU
-// kernels write each. The one quantizer of the int8 modes: the block
-// pre-pass (prepass_kernel) and K5's GEMM prologue both call it.
+// kernels write each. The one quantizer of the int8 modes' pre-pass
+// (prepass_kernel).
 __device__ __forceinline__ uint2 quantize8(float f[8], const float* sc, const float* sh,
                                            int silu_on, float inv_static, const Int8Args& q,
                                            int b) {
@@ -570,179 +516,6 @@ __device__ __forceinline__ uint2 quantize8(float f[8], const float* sc, const fl
     }
   }
   return v;
-}
-
-// A through quantize8; zero where the tap is padding (the TPU kernels pad
-// the quantized tile with zeros).
-template <typename T>
-__device__ __forceinline__ void store_stage_s8(const ConvArgs& p, const Int8Args& q,
-                                               float inv_static, const StageS8<T>& st,
-                                               int8_t (*As)[BM][16], int8_t (*Bs)[BK][16]) {
-  const int t = threadIdx.x;
-  const int cin = p.ca0 + p.ca1;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = (t >> 2) + 32 * i;
-    const int col = (t & 3) * 8;
-    uint2 v = make_uint2(0u, 0u);
-    if (st.a_b[i] >= 0) {
-      float f[8];
-      unpack8(st.a[i], f);
-      const long base = (long)st.a_b[i] * cin + st.a_c[i];
-      v = quantize8(f, p.scale != nullptr ? p.scale + base : nullptr,
-                    p.scale != nullptr ? p.shift + base : nullptr, p.silu, inv_static, q,
-                    st.a_b[i]);
-    }
-    *reinterpret_cast<uint2*>(&As[col >> 4][row][col & 15]) = v;
-  }
-  *reinterpret_cast<uint4*>(&Bs[t & 3][t >> 2][0]) = st.b;
-}
-
-// shared memory of conv_gemm_s8_kernel: the K loops' tiles, then (aliased)
-// the int32 and f32 sums staged for the epilogue
-constexpr int S8_A8 = 2 * (BK / 16) * BM * 16;  // int8 A tiles, double-buffered
-constexpr int S8_B8 = 2 * (BN / 16) * BK * 16;  // int8 W tiles
-constexpr int S8_A16 = 2 * BM * LDA * 2;        // bf16 skip A tiles
-constexpr int S8_B16 = 2 * BK * LDB * 2;        // bf16 skip W tiles
-constexpr int S8_LOOP = S8_A8 + S8_B8 + S8_A16 + S8_B16;
-constexpr int S8_EPI = 2 * BM * LDC * 4;
-constexpr int S8_SMEM = S8_LOOP > S8_EPI ? S8_LOOP : S8_EPI;
-
-// grid (ceil(M/BM), N/BN, splits), THREADS threads, 4 warps of 32x32 as in
-// conv_gemm_kernel. TA: the A activation type (bf16 x, or f32 h1 / attention
-// output); TO: the output type (f32 h1, or bf16). Split z runs the int8 conv
-// slices of [z*kper, (z+1)*kper), then its bf16 skip slices.
-template <typename TA, typename TO>
-__global__ void __launch_bounds__(THREADS) conv_gemm_s8_kernel(const ConvArgs p, const Int8Args q) {
-  __shared__ __align__(128) unsigned char smem[S8_SMEM];
-  auto As8 = reinterpret_cast<int8_t(*)[BK / 16][BM][16]>(smem);
-  auto Bs8 = reinterpret_cast<int8_t(*)[BN / 16][BK][16]>(smem + S8_A8);
-  auto As = reinterpret_cast<bf16(*)[BM][LDA]>(smem + S8_A8 + S8_B8);
-  auto Bs = reinterpret_cast<bf16(*)[BK][LDB]>(smem + S8_A8 + S8_B8 + S8_A16);
-  auto Ci = reinterpret_cast<int(*)[LDC]>(smem);
-  auto Cf = reinterpret_cast<float(*)[LDC]>(smem + BM * LDC * 4);
-
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int kconv = p.taps * (p.ca0 + p.ca1);
-  const int ktot = kconv + (p.s0 != nullptr ? p.cs0 + p.cs1 : 0);
-  const int kbeg = blockIdx.z * p.kper;
-  const int kend = min(ktot, kbeg + p.kper);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][2];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> accf[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(acc[i][j], 0);
-      wmma::fill_fragment(accf[i][j], 0.0f);
-    }
-
-  const int k8end = min(kend, kconv);
-  if (kbeg < k8end) {
-    const float inv_static = q.qs != nullptr ? 1.0f / *q.qs : 0.0f;
-    StageS8<TA> st;
-    load_stage_s8(p, q.wq, m0, n0, kbeg, st);
-    store_stage_s8(p, q, inv_static, st, As8[0], Bs8[0]);
-    __syncthreads();
-    int buf = 0;
-    for (int k0 = kbeg; k0 < k8end; k0 += BK, buf ^= 1) {
-      const bool more = k0 + BK < k8end;
-      if (more) load_stage_s8(p, q.wq, m0, n0, k0 + BK, st);  // in flight during the MMAs
-#pragma unroll
-      for (int kh = 0; kh < BK / 16; ++kh) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], &As8[buf][kh][wm + 16 * i][0], 16);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], &Bs8[buf][(wn >> 4) + j][16 * kh][0], 16);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      if (more) store_stage_s8(p, q, inv_static, st, As8[buf ^ 1], Bs8[buf ^ 1]);
-      __syncthreads();
-    }
-  }
-
-  const int ksbeg = max(kbeg, kconv);
-  if (ksbeg < kend) {  // the bf16 skip projection, f32 sums
-    Stage<bf16> st;
-    load_stage<bf16>(p, m0, n0, ksbeg, kconv, st);
-    store_stage<bf16>(p, st, As[0], Bs[0]);
-    __syncthreads();
-    int buf = 0;
-    for (int k0 = ksbeg; k0 < kend; k0 += BK, buf ^= 1) {
-      const bool more = k0 + BK < kend;
-      if (more) load_stage<bf16>(p, m0, n0, k0 + BK, kconv, st);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], &As[buf][wm + 16 * i][kk], LDA);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], &Bs[buf][kk][wn + 16 * j], LDB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(accf[i][j], fa[i], fb[j], accf[i][j]);
-      }
-      if (more) store_stage<bf16>(p, st, As[buf ^ 1], Bs[buf ^ 1]);
-      __syncthreads();
-    }
-  }
-
-  // both loops end on a barrier, so the tiles are free for the sums
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(&Ci[wm + 16 * i][wn + 16 * j], acc[i][j], LDC, wmma::mem_row_major);
-      wmma::store_matrix_sync(&Cf[wm + 16 * i][wn + 16 * j], accf[i][j], LDC, wmma::mem_row_major);
-    }
-  __syncthreads();
-
-  const int hw = p.H * p.W;
-  const int M = p.B * hw;
-  for (int v = threadIdx.x; v < BM * BN / 8; v += THREADS) {
-    const int row = v / (BN / 8);
-    const int col = (v % (BN / 8)) * 8;
-    const int m = m0 + row;
-    if (m >= M) continue;
-    const int n = n0 + col;
-    // the activation scale: static, or this row's sample's
-    const float s = q.qs != nullptr ? *q.qs : fmaxf(q.amax[m / hw], 1e-12f) / 127.0f;
-    float r[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) r[j] = (float)Ci[row][col + j] * (q.wsc[n + j] * s) + Cf[row][col + j];
-    if (p.splits > 1) {
-      float4* dst = reinterpret_cast<float4*>(p.partial + ((long)blockIdx.z * M + m) * p.N + n);
-      dst[0] = make_float4(r[0], r[1], r[2], r[3]);
-      dst[1] = make_float4(r[4], r[5], r[6], r[7]);
-    } else {
-      // the residual, when there is one, is bf16 and so is TO
-      epilogue8<TO>(p, m, n, r);
-    }
-  }
-}
-
-template <typename TA, typename TO>
-int conv_gemm_s8_run(const ConvArgs& p, const Int8Args& q, cudaStream_t stream) {
-  const long m = (long)p.B * p.H * p.W;
-  dim3 grid((unsigned)((m + BM - 1) / BM), p.N / BN, p.splits);
-  conv_gemm_s8_kernel<TA, TO><<<grid, THREADS, 0, stream>>>(p, q);
-  if (p.splits > 1) {
-    const long vecs = m * p.N / 8;
-    splitk_epilogue_kernel<TO><<<(unsigned)((vecs + 255) / 256), 256, 0, stream>>>(p);
-  }
-  return (int)cudaGetLastError();
 }
 
 // grid (chunks, B), THREADS_GN threads; see amax_launch
@@ -847,20 +620,6 @@ int prepass_run(const void* xa, const void* xb, int ca, int cb, bool f32, int ba
     prepass_kernel<bf16, TQ><<<grid, 256, 0, st>>>((const bf16*)xa, (const bf16*)xb, ca, cb,
                                                    vecs, hw, scale, shift, silu_on, q, out);
   return (int)cudaGetLastError();
-}
-
-// The pre-pass of one conv input: int8 through quantize8's scales q when
-// q is non-null, else bf16. Counted where it launches.
-int prepass_launch(const void* xa, const void* xb, int ca, int cb, bool f32, int batch, int hw,
-                   const float* scale, const float* shift, int silu_on, const Int8Args* q,
-                   void* out, cudaStream_t st) {
-  if (ca % 8 || cb % 8) return (int)cudaErrorInvalidValue;
-  const int err = q != nullptr ? prepass_run(xa, xb, ca, cb, f32, batch, hw, scale, shift,
-                                             silu_on, *q, (int8_t*)out, st)
-                               : prepass_run(xa, xb, ca, cb, f32, batch, hw, scale, shift,
-                                             silu_on, Int8Args{}, (bf16*)out, st);
-  if (!err) count_launch(q != nullptr ? COUNT_PREPASS_S8 : COUNT_PREPASS_BF16);
-  return err;
 }
 
 // Scratch of one block on the block GEMM (null base: sizes only); act_bytes
@@ -992,6 +751,20 @@ int resblock_run(const void* x0, const void* x1, int c0, int c1, const void* tem
 
 }  // namespace
 
+// The pre-pass of one conv input: int8 through quantize8's scales q when
+// q is non-null, else bf16. Counted where it launches.
+int prepass_launch(const void* xa, const void* xb, int ca, int cb, bool f32, int batch, int hw,
+                   const float* scale, const float* shift, int silu_on, const Int8Args* q,
+                   void* out, cudaStream_t st) {
+  if (ca % 8 || cb % 8) return (int)cudaErrorInvalidValue;
+  const int err = q != nullptr ? prepass_run(xa, xb, ca, cb, f32, batch, hw, scale, shift,
+                                             silu_on, *q, (int8_t*)out, st)
+                               : prepass_run(xa, xb, ca, cb, f32, batch, hw, scale, shift,
+                                             silu_on, Int8Args{}, (bf16*)out, st);
+  if (!err) count_launch(q != nullptr ? COUNT_PREPASS_S8 : COUNT_PREPASS_BF16);
+  return err;
+}
+
 int conv_gemm_launch(const ConvArgs& p, bool f32, cudaStream_t stream) {
   return conv_gemm_launch_as(p, f32, f32, stream);
 }
@@ -1025,14 +798,6 @@ int gn_affine_launch(const void* xa, const void* xb, int ca, int cb, int batch, 
         (const bf16*)xa, (const bf16*)xb, ca, cb, hw, groups, gamma, beta, eps, scale, shift,
         mean, rstd);
   return (int)cudaGetLastError();
-}
-
-int conv_gemm_s8_launch(const ConvArgs& p, const Int8Args& q, bool a_f32, bool out_f32,
-                        cudaStream_t stream) {
-  if (!a_f32 && out_f32) return conv_gemm_s8_run<bf16, float>(p, q, stream);
-  if (a_f32 && !out_f32) return conv_gemm_s8_run<float, bf16>(p, q, stream);
-  if (!a_f32 && !out_f32) return conv_gemm_s8_run<bf16, bf16>(p, q, stream);
-  return conv_gemm_s8_run<float, float>(p, q, stream);
 }
 
 int amax_launch(const void* xa, const void* xb, int ca, int cb, int batch, int hw,
@@ -1084,13 +849,14 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
                       gn1 ? 1 : 0, wk.amax, x_f32, st);
   const void* a1 = x0;  // bf16 without GN1 (K4, K9): h is conv1's operand as it is
   if (!err && (int8 || gn1)) {  // a1 = silu(GN1(x)) in bf16, or q(a1) (the pair's a * (127 / amax))
-    const Int8Args q = {nullptr, nullptr, qs, am1, x1 != nullptr};
+    const Int8Args q = {qs, am1, x1 != nullptr};
     err = prepass_launch(x0, x1, c0, c1, x_f32, batch, hw, gn1 ? wk.sc1 : nullptr,
                          gn1 ? wk.sh1 : nullptr, gn1 ? 1 : 0, int8 ? &q : nullptr, wk.a, st);
     a1 = wk.a;
   }
   BlockGemm g = {};
   g.int8 = int8;
+  g.taps = 9;
   g.B = batch;
   g.H = h;
   g.W = w_;
@@ -1118,7 +884,7 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
   if (!err && int8 && qs == nullptr)
     err = amax_launch(wk.h1, nullptr, n, 0, batch, hw, wk.sc2, wk.sh2, 1, wk.amax + batch, true, st);
   if (!err) {  // a2 = silu(GN2(h1)) in bf16, or q(a2), over conv1's input, which conv1 has read
-    const Int8Args q = {nullptr, nullptr, qs ? qs + 1 : nullptr, wk.amax + batch, 0};
+    const Int8Args q = {qs ? qs + 1 : nullptr, wk.amax + batch, 0};
     err = prepass_launch(wk.h1, nullptr, n, 0, true, batch, hw, wk.sc2, wk.sh2, 1,
                          int8 ? &q : nullptr, wk.a, st);
   }
@@ -1187,7 +953,7 @@ int gddim_resblock_int8(const void* x0, const void* x1, int c0, int c1, const vo
 int gddim_s8_prepass(const void* xa, const void* xb, int ca, int cb, int act_f32, int batch,
                      int hw, const void* scale, const void* shift, int silu_on, const void* qs,
                      const void* amax, int inv_mul, void* out, void* stream) {
-  const Int8Args q = {nullptr, nullptr, (const float*)qs, (const float*)amax, inv_mul};
+  const Int8Args q = {(const float*)qs, (const float*)amax, inv_mul};
   return prepass_launch(xa, xb, ca, cb, act_f32 != 0, batch, hw, (const float*)scale,
                         (const float*)shift, silu_on, &q, out, (cudaStream_t)stream);
 }

@@ -82,9 +82,10 @@ def _quantized(w, dtype):
 
 
 def _kmajor(w) -> bool:
-    """Whether the residual blocks' int8 conv weights are packed K-major
-    (``pack_int8_weight``), as the int8 block GEMM reads them: on the card;
-    the plain versions take HWIO."""
+    """Whether the int8 weights are packed K-major, as the int8 block GEMM
+    reads them (the residual blocks' convs by ``pack_int8_weight``, the
+    attention projections by ``pack_projection``): on the card; the plain
+    versions take the JAX layout too."""
     return w.is_cuda
 
 
@@ -255,6 +256,7 @@ class AttnBlockpp(nn.Module):
         self.k = NIN(c, c, generator=generator)
         self.v = NIN(c, c, generator=generator)
         self.out = NIN(c, c, init_scale=init_scale, generator=generator)
+        self._kw = _KernelWeights()
         self._kw8 = _KernelWeights()
 
     def forward(self, x, fused: bool = False, train: bool = False, int8: bool = False,
@@ -280,6 +282,9 @@ class AttnBlockpp(nn.Module):
             wqkv, bqkv, wo, scales = self._int8_weights(x.dtype, qscales)
             return attn_ops.fused_attnblock_int8(x, self.norm.weight, self.norm.bias, wqkv, bqkv,
                                                  wo, self.out.bias, scales, **kw)
+        if fused and x.is_cuda:
+            return attn_ops.fused_attnblock_packed(x, self.norm.weight, self.norm.bias,
+                                                   self._weights(), **kw)
         if not fused and sow is not None:
             kw["sow"] = sow
         op = attn_ops.fused_attnblock if fused else attn_ops.attnblock_reference
@@ -287,10 +292,20 @@ class AttnBlockpp(nn.Module):
                   self.q.weight, self.q.bias, self.k.weight, self.k.bias,
                   self.v.weight, self.v.bias, self.out.weight, self.out.bias, **kw)
 
+    def _weights(self):
+        """The block's NIN weights as K5 takes them on the card
+        (``pack_attn_weights``: bf16 [Wq|Wk|Wv] and Wo, f32 biases), made
+        once and remade when a parameter changes."""
+        params = [self.q.weight, self.q.bias, self.k.weight, self.k.bias, self.v.weight,
+                  self.v.bias, self.out.weight, self.out.bias]
+        return self._kw.get(params,
+                            lambda: attn_ops.pack_attn_weights(*(p.detach() for p in params)))
+
     def _int8_weights(self, dtype, qscales):
         """([Wq|Wk|Wv] quantized, [bq|bk|bv], Wo quantized, the static
         [s_h, s_a] or None), made once and remade when a parameter or amax
-        changes."""
+        changes; the projections packed K-major on the card
+        (``pack_projection``), as the int8 block GEMM reads them."""
         amaxes = _site_amaxes(qscales, ("h", "a"))
         params = [self.q.weight, self.k.weight, self.v.weight, self.q.bias, self.k.bias,
                   self.v.bias, self.out.weight]
@@ -298,8 +313,10 @@ class AttnBlockpp(nn.Module):
         def make():
             wqkv = torch.cat([self.q.weight, self.k.weight, self.v.weight], 1)
             bqkv = torch.cat([self.q.bias, self.k.bias, self.v.bias]).detach()
-            return (_quantized(wqkv, dtype), bqkv, _quantized(self.out.weight, dtype),
-                    _static_scales(amaxes))
+            projs = [_quantized(wqkv, dtype), _quantized(self.out.weight, dtype)]
+            if _kmajor(wqkv):
+                projs = [attn_ops.pack_projection(w) for w in projs]
+            return projs[0], bqkv, projs[1], _static_scales(amaxes)
 
         return self._kw8.get(params + amaxes, make, tag=(dtype,))
 

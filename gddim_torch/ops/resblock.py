@@ -600,6 +600,11 @@ S8_SLICE = 128  # int8 channels of one tap in a conv K slice
 BF16_SLICE = 64  # bf16 channels of one tap in a conv K slice
 GEMM_SKIP_SLICE = 64  # bf16 channels in a skip K slice
 GEMM_MIN_SPLIT_SLICES = 4  # K slices per split, at least
+# the 256-pixel tiles' ring depth (Tile<2>::STAGES in csrc/block_gemm.cu): a
+# GEMM of no more K slices (K5's 1x1 projections: 4 bf16, 2 int8) takes
+# 128-pixel tiles, two CTAs an SM, so that one's epilogue overlaps the other's
+# loads (chip_smoke.py times K5's projections at both widths)
+GEMM_WIDE_STAGES = 4
 
 
 class GemmPlan(NamedTuple):
@@ -608,7 +613,8 @@ class GemmPlan(NamedTuple):
     samples; M tile t covers samples [t // tiles_h * box_b, ... + box_b) and
     rows [t % tiles_h * box_h, ... + box_h); the grid's N tiles are Cout /
     GEMM_TILE_N. K runs in conv_slices slices of S8_SLICE int8 or
-    BF16_SLICE bf16 channels (9 * Cin in tap order), then skip_slices bf16
+    BF16_SLICE bf16 channels (taps * Cin in tap order: 9 taps for a 3x3
+    conv, 1 for a 1x1 projection), then skip_slices bf16
     slices of GEMM_SKIP_SLICE, ``kper`` to a split, over ``splits`` splits.
     The ring's depth and shared memory follow from mw in the kernel
     (``Tile``)."""
@@ -625,38 +631,44 @@ class GemmPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def _gemm_tile_plan(b: int, h: int, w: int, cin: int, cskip: int, n: int,
-                    slice_: int) -> GemmPlan:
-    if cin % slice_ or cskip % GEMM_SKIP_SLICE or n % GEMM_TILE_N or not 0 < w <= GEMM_TILE_M:
+def _gemm_tile_plan(b: int, h: int, w: int, cin: int, cskip: int, n: int, slice_: int,
+                    taps: int) -> GemmPlan:
+    if (cin % slice_ or cskip % GEMM_SKIP_SLICE or n % GEMM_TILE_N or not 0 < w <= GEMM_TILE_M
+            or taps not in (1, 9)):
         what = "int8" if slice_ == S8_SLICE else "bf16"
         raise ValueError(f"{what} block GEMM: no tile plan for x {(b, h, w, cin)}, skip "
-                         f"{cskip}, Cout {n} (Cin a multiple of {slice_}, the skip of "
-                         f"{GEMM_SKIP_SLICE}, Cout of {GEMM_TILE_N}, W at most {GEMM_TILE_M})")
+                         f"{cskip}, Cout {n}, {taps} taps (Cin a multiple of {slice_}, the skip "
+                         f"of {GEMM_SKIP_SLICE}, Cout of {GEMM_TILE_N}, W at most {GEMM_TILE_M}, "
+                         "taps 1 or 9)")
     n_tiles = n // GEMM_TILE_N
-    mw = 2 if tile_box(b, h, w, 2 * GEMM_TILE_M)[3] * n_tiles >= SMS - 4 else 1
-    box_h, box_b, tiles_h, m_tiles = tile_box(b, h, w, mw * GEMM_TILE_M)
-    conv_slices, skip_slices = 9 * cin // slice_, cskip // GEMM_SKIP_SLICE
+    conv_slices, skip_slices = taps * cin // slice_, cskip // GEMM_SKIP_SLICE
     slices = conv_slices + skip_slices
+    wide = tile_box(b, h, w, 2 * GEMM_TILE_M)[3] * n_tiles >= SMS - 4
+    mw = 2 if wide and slices > GEMM_WIDE_STAGES else 1
+    box_h, box_b, tiles_h, m_tiles = tile_box(b, h, w, mw * GEMM_TILE_M)
     splits = max(1, min(SMS // (m_tiles * n_tiles), slices // GEMM_MIN_SPLIT_SLICES))
     kper = -(-slices // splits)
     return GemmPlan(mw, box_h, box_b, tiles_h, m_tiles, conv_slices, skip_slices,
                     -(-slices // kper), kper)
 
 
-def s8_tile_plan(b: int, h: int, w: int, cin: int, cskip: int, n: int) -> GemmPlan:
+def s8_tile_plan(b: int, h: int, w: int, cin: int, cskip: int, n: int,
+                 taps: int = 9) -> GemmPlan:
     """The int8 block GEMM's plan for a (b, h, w, cin) x (3, 3, cin, n) conv
-    with a cskip-channel bf16 skip: a pure function of the shapes, K11's
-    rules (``ops/conv3x3.py:tile_plan``): tiles of 256 pixels where they
-    alone make a wave of at least 128 CTAs, else of 128, with K split while
-    the tiles leave half the SMs idle. Raises for shapes the kernel does not
-    take."""
-    return _gemm_tile_plan(b, h, w, cin, cskip, n, S8_SLICE)
+    (or, taps 1, a (cin, n) 1x1 projection) with a cskip-channel bf16 skip:
+    a pure function of the shapes, K11's rules (``ops/conv3x3.py:tile_plan``):
+    tiles of 256 pixels where they alone make a wave of at least 128 CTAs
+    and K has more slices than their ring has stages, else of 128, with K
+    split while the tiles leave half the SMs idle. Raises for shapes the
+    kernel does not take."""
+    return _gemm_tile_plan(b, h, w, cin, cskip, n, S8_SLICE, taps)
 
 
-def bf16_tile_plan(b: int, h: int, w: int, cin: int, cskip: int, n: int) -> GemmPlan:
+def bf16_tile_plan(b: int, h: int, w: int, cin: int, cskip: int, n: int,
+                   taps: int = 9) -> GemmPlan:
     """The bf16 block GEMM's plan, by the rules of ``s8_tile_plan``, with
     conv K slices of BF16_SLICE channels (Cin a multiple of 64)."""
-    return _gemm_tile_plan(b, h, w, cin, cskip, n, BF16_SLICE)
+    return _gemm_tile_plan(b, h, w, cin, cskip, n, BF16_SLICE, taps)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1017,25 +1029,32 @@ def quantize_conv_input(x0, x1=None, scale=None, shift=None, *, silu: bool = Fal
 
 
 def int8_conv_gemm(a8, wq):
-    """The int8 block GEMM alone on one 3x3 SAME conv with unit scales: the
-    int32 sums of (B, H, W, Cin) int8 ``a8`` by int8 weights ``wq`` as f32
-    (exact below 2^24), (B, H, W, Cout). On CUDA ``wq`` is K-major (Cout, 9
-    * Cin); the plain version (``conv3x3_int8_exact``) takes either layout."""
+    """The int8 block GEMM alone on one 3x3 SAME conv, or a 1x1 projection
+    (K5's), with unit scales: the int32 sums of (B, H, W, Cin) int8 ``a8``
+    by int8 weights ``wq`` as f32 (exact below 2^24), (B, H, W, Cout). On
+    CUDA ``wq`` is K-major: (Cout, 9 * Cin) for the conv, (Cout, Cin) for
+    the 1x1; the plain version takes the conv's HWIO weights too."""
     cin = a8.shape[-1]
+    taps = 1 if wq.dim() == 2 and wq.shape[1] == cin else 9
     if _on_cpu(a8, "int8_conv_gemm"):
+        if taps == 1:
+            return int8_matmul_exact(a8, wq.t())
         return conv3x3_int8_exact(a8, hwio_int8_weight(wq, cin))
     b, h, w, _ = a8.shape
     n = wq.shape[-1] if wq.dim() == 4 else wq.shape[0]
-    wk = _operand(kmajor_int8(wq, (3, 3, cin, n), "int8_conv_gemm"), "wq", torch.int8)
-    plan = s8_tile_plan(b, h, w, cin, 0, n)
+    if taps == 9:
+        wq = kmajor_int8(wq, (3, 3, cin, n), "int8_conv_gemm")
+    wk = _operand(wq, "wq", torch.int8)
+    plan = s8_tile_plan(b, h, w, cin, 0, n, taps)
     f32, dev = torch.float32, a8.device
     a = _operand(a8, "a8", torch.int8, (b, h, w, cin))
     ones = torch.ones(n, device=dev, dtype=f32)
     work = torch.empty(plan.splits * b * h * w * n if plan.splits > 1 else 0, device=dev, dtype=f32)
     out = torch.empty((b, h, w, n), device=dev, dtype=f32)
     _build.launch("gddim_conv_s8", dev, a.data_ptr(), wk.data_ptr(), ones.data_ptr(),
-                  ones.data_ptr(), b, h, w, cin, n, plan.mw, plan.box_h, plan.box_b, plan.tiles_h,
-                  plan.m_tiles, plan.splits, plan.kper, work.data_ptr(), out.data_ptr())
+                  ones.data_ptr(), b, h, w, cin, n, taps, plan.mw, plan.box_h, plan.box_b,
+                  plan.tiles_h, plan.m_tiles, plan.splits, plan.kper, work.data_ptr(),
+                  out.data_ptr())
     return out
 
 
@@ -1062,33 +1081,36 @@ def bf16_conv_input(x0, x1=None, scale=None, shift=None, *, silu: bool = False):
 
 
 def bf16_conv_gemm(a, w):
-    """The bf16 block GEMM alone on one 3x3 SAME conv: the f32 sums of (B, H,
-    W, Cin) bf16 ``a`` by HWIO (3, 3, Cin, Cout) bf16 ``w``, (B, H, W, Cout)
-    f32. The plain version is the f32 conv of the same values."""
+    """The bf16 block GEMM alone on one 3x3 SAME conv, or a 1x1 projection
+    (K5's): the f32 sums of (B, H, W, Cin) bf16 ``a`` by HWIO (3, 3, Cin,
+    Cout) or (Cin, Cout) bf16 ``w``, (B, H, W, Cout) f32. The plain version
+    is the f32 conv (or product) of the same values."""
     if _on_cpu(a, "bf16_conv_gemm"):
-        return conv3x3_nhwc(a.float(), w.float())
+        return conv3x3_nhwc(a.float(), w.float()) if w.dim() == 4 else a.float() @ w.float()
     require_no_grad("bf16_conv_gemm", a, w)
     b, h, ww, cin = a.shape
-    n = w.shape[-1]
-    plan = bf16_tile_plan(b, h, ww, cin, 0, n)
+    n, taps = w.shape[-1], 9 if w.dim() == 4 else 1
+    plan = bf16_tile_plan(b, h, ww, cin, 0, n, taps)
     bf16, f32, dev = torch.bfloat16, torch.float32, a.device
     a_ = _operand(a, "a", bf16, (b, h, ww, cin))
-    w_ = _operand(w, "w", bf16, (3, 3, cin, n))
+    w_ = _operand(w, "w", bf16, (3, 3, cin, n) if taps == 9 else (cin, n))
     work = torch.empty(plan.splits * b * h * ww * n if plan.splits > 1 else 0, device=dev,
                        dtype=f32)
     out = torch.empty((b, h, ww, n), device=dev, dtype=f32)
-    _build.launch("gddim_conv_bf16", dev, a_.data_ptr(), w_.data_ptr(), b, h, ww, cin, n, plan.mw,
-                  plan.box_h, plan.box_b, plan.tiles_h, plan.m_tiles, plan.splits, plan.kper,
-                  work.data_ptr(), out.data_ptr())
+    _build.launch("gddim_conv_bf16", dev, a_.data_ptr(), w_.data_ptr(), b, h, ww, cin, n, taps,
+                  plan.mw, plan.box_h, plan.box_b, plan.tiles_h, plan.m_tiles, plan.splits,
+                  plan.kper, work.data_ptr(), out.data_ptr())
     return out
 
 
-# The kernels that run inside a C call (a block's two convs, or the bare
-# wrappers above), counted in C where each is launched, in csrc/conv.cuh's
-# Counted order: the block GEMM and its pre-pass, int8 then bf16
+# The kernels that run inside a C call (a block's two convs, K5's
+# projections and attention core, or the bare wrappers), counted in C where
+# each is launched, in csrc/conv.cuh's Counted order: the block GEMM and its
+# pre-pass, int8 then bf16, then K5's attention core
 BLOCK_COUNTED = ("block_gemm_kernel<int8>", "prepass_kernel<int8>", "block_gemm_kernel<bf16>",
-                 "prepass_kernel<bf16>")
+                 "prepass_kernel<bf16>", "attention_wgmma_kernel")
 S8_COUNTED = BLOCK_COUNTED[:2]
+BF16_COUNTED = BLOCK_COUNTED[2:4]
 
 
 def block_launches(reset: bool = False, kernels=BLOCK_COUNTED) -> dict:

@@ -437,7 +437,7 @@ def test_bf16_launch_counts_count_each_launch(cuda, kind):
     bare wrapper call, twice each for a K2/K3 block (conv1, conv2), twice
     and once for K4/K9 (conv1 reads h as it is), nothing for a call on the
     CPU, and never as the int8 kernels."""
-    gemm, prepass = t_rb.BLOCK_COUNTED[2:]
+    gemm, prepass = t_rb.BF16_COUNTED
     h, parts, cout = BLOCKS[kind][1]
     args, kw = _card_block(kind, h, parts, cout, 2, cuda)
     t_rb.block_launches(reset=True)
@@ -453,5 +453,5 @@ def test_bf16_launch_counts_count_each_launch(cuda, kind):
         OPS[kind][0](*args, **kw)
         torch.cuda.synchronize()
     want = {gemm: 3, prepass: 2 if kind in ("K4", "K9") else 3}
-    assert t_rb.block_launches(reset=True) == {**want, **dict.fromkeys(t_rb.S8_COUNTED, 0)}
+    assert t_rb.block_launches(reset=True) == {**dict.fromkeys(t_rb.BLOCK_COUNTED, 0), **want}
     assert t_rb.block_launches() == dict.fromkeys(t_rb.BLOCK_COUNTED, 0)

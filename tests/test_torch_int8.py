@@ -492,8 +492,10 @@ def test_attnblock_int8_kernel_matches_plain(cuda, static, h):
     c = 256
     x = _on(d.act(4, h, h, c), cuda, bf16=True)
     gs, gb = _on(d.vec(c, 1.0), cuda), _on(d.vec(c), cuda)
-    wqkv = t_rb.quantize_weight(_on(d.w(c, 3 * c), cuda))
-    wo = t_rb.quantize_weight(_on(d.w(c, c), cuda))
+    # K-major, as the model hands them to the kernels on the card (the plain
+    # version takes either layout)
+    wqkv = t_attn.pack_projection(t_rb.quantize_weight(_on(d.w(c, 3 * c), cuda)))
+    wo = t_attn.pack_projection(t_rb.quantize_weight(_on(d.w(c, c), cuda)))
     bqkv, bo = _on(d.vec(3 * c), cuda), _on(d.vec(c), cuda)
     ts = _scales(static, 2.0, 1.0)
     ts = None if ts is None else ts.to(cuda)
