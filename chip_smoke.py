@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/H100 port on one CUDA card.
 
-    python3 chip_smoke.py [--phases build,kernels,eps,sample,int8,blur,train] [--batch 16]
+    python3 chip_smoke.py [--phases build,kernels,eps,gates,sample,int8,blur,train] [--batch 16]
 
 Phases (each prints one line per check; any failure raises and exits non-zero):
   1. the card: torch.cuda must be available; prints nvidia-smi's name and
@@ -46,11 +46,22 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      TPU kernel's rounding points; its attention core alone (bf16, int8 and
      f32 outputs) against its plain version beside SDPA, and its two 1x1
      projections on the block GEMM alone beside torch.matmul (bf16) and
-     torch._int_mm (int8);
+     torch._int_mm (int8); then the GroupNorm statistics kernel at every GN
+     shape (bf16 and f32 x, B=4, 16 and 64) against gn_stats_reference,
+     the same bits on repeat, beside torch.var_mean, and conv1's epilogue
+     sums (GN2's partials) at every block conv1 (bf16 and int8, B=4 and 64,
+     split-K shapes included) against gn2_partials_reference, with conv1's
+     device time with and without them;
   4. eps: one full-width eps evaluation (B=4, t=0.5, seeded weights), kernel
-     path in bf16 against the all-plain path in f32, then the layer-wise paths
-     ('pallas' and 'int8') against the same f32 path, with the launch counts
-     of each evaluation;
+     path in bf16 against the all-plain path in f32, the per-eval temb
+     product (NCSNpp.temb_rows) against each block's exact projection, then
+     the layer-wise paths ('pallas' and 'int8') against the same f32 path,
+     with the launch counts of each evaluation;
+  4b. gates: each whole-block gate against its tile plans at every block of
+     both configs at nf = 32, 64 and 128, then one full-width-depth eps
+     evaluation at nf = 32 and 64 through 'fused' and 'fused_int8' (static
+     scales calibrated on the card) against the f32 plain path, with the
+     blocks the kernels took and those that ran the plain composition;
   5. sample: CLD deis-2 NFE=50 sampling through gddim_torch.cli's sampling
      function (B=16, seeded weights) with the transitions through K4
      (transition_impl 'tail'): finite samples, launch counts, wall time;
@@ -229,6 +240,23 @@ S8_FLIP_SHARE = 1e-3
 # the last bit of the kernel's SiLU, __expf and a division)
 KERNEL_BOUND.update({"BF16-GEMM": 1e-2, "BF16-prepass": 1.0})
 BF16_FLIP_SHARE = 1e-3
+# The GroupNorm statistics kernel against gn_stats_reference (the TPU
+# kernels' E[x^2] - mean^2 from f32 per-channel sums, in another order of
+# the same f32 sums), worst of the affine, mean and rstd over the largest of
+# each: measured 1.1e-7 to 3.5e-7 at every GN shape (B=4/16/64, bf16 and f32
+# x) on an H100; and the block GEMM's epilogue sums (GN2's partials of
+# conv1's h1) against gn2_partials_reference of the same h1 under the same
+# tile plan: measured 9.8e-8 to 2.6e-7. About 3x. Both also the same bits
+# on repeat (a fixed order, no float atomics).
+KERNEL_BOUND.update({"GN-stats": 1e-6, "GN2-sums": 1e-6})
+# The per-eval temb product (one f32 addmm of the 76 blocks' Dense weights,
+# TF32 off) against each block's own projection computed exactly (float64):
+# the f32 rounding of 512-term dot products in cuBLAS's order, measured
+# 1.11e-6 at B=64 on an H100 (the per-block f32 products 2.7e-7: another
+# kernel and order; the CPU tests hold the CPU's product to 1e-6); about 3x.
+# Beside it, the per-block f32 products against the same, and the two f32
+# products against each other, for information.
+TEMB_ROWS_BOUND = 4e-6
 K10_GRAD_BOUND = 1e-5
 # The K2-K5 wrappers on f32 activations write f32 (bf16 MMA operands) against
 # the f32 plain composition: measured 7.5e-4 to 1.26e-3 on an H100, about 3x
@@ -274,6 +302,12 @@ for _per_eval in (PER_EVAL_INT8, PER_EVAL_INT8_FULL):
 # conv1 read h as it is)
 for _per_eval in (PER_EVAL, PER_EVAL_FULL):
     _per_eval.update({"BF16-GEMM": 172, "BF16-prepass": 156, "K5-core": 10})
+# the GroupNorm statistics kernel: GN1 of the 34 K2 and 36 K3 blocks and the
+# 10 attention blocks' GN (GN2 comes from conv1's epilogue; K4's conv1 reads
+# h after K1), and with transition_impl 'full' K9's 6 GN1s
+for _per_eval, _n in ((PER_EVAL, 80), (PER_EVAL_INT8, 80), (PER_EVAL_FULL, 86),
+                      (PER_EVAL_INT8_FULL, 86)):
+    _per_eval["GN-stats"] = _n
 # H100 SXM peaks (NVIDIA's data sheet, dense): operations per second by type,
 # and device memory bytes per second
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
@@ -281,10 +315,12 @@ HBM = 3.35e12
 # kernel launches per training step: K1 in the 6 transitions (GN1, GN2), the
 # 10 attention blocks and norm_out; K6 forward and K7 backward in the 34
 # stride-1 and 36 concatenated up-path blocks; K8 in the 10 attention blocks
-PER_STEP = {"K1": 23, "K6": 70, "K7": 70, "K8": 10}
+PER_STEP = {"K1": 23, "K6": 70, "K7": 70, "K8": 10,
+            # K6's GN1 and GN2 (f32 on conv_gemm_kernel), K7's recomputed GN1 and GN2
+            "GN-stats": 280}
 # ... with training.fused_attn: the 10 attention blocks through K10 (K5's
 # attention core inside each)
-PER_STEP_K10 = {"K1": 13, "K6": 70, "K7": 70, "K10": 10, "K5-core": 10}
+PER_STEP_K10 = {"K1": 13, "K6": 70, "K7": 70, "K10": 10, "K5-core": 10, "GN-stats": 290}
 
 KERNELS = {
     "K1": dict(name="group_norm_silu", route="triton", source="gddim_torch/ops/groupnorm.py",
@@ -349,6 +385,10 @@ KERNELS = {
     # K5's attention core (bf16 and int8 blocks and K10): wgmma fed by TMA
     "K5-core": dict(name="attention_core", route="cuda", source="gddim_torch/csrc/attnblock.cu",
                     replaces="gddim_tpu/ops/attnblock.py:166"),
+    # the GroupNorm statistics (GN1 of K2/K3/K9, K5's GN, the f32 paths, K7):
+    # gn_silu_tile's sums of the K2 / K3 Pallas kernels, one cluster a sample
+    "GN-stats": dict(name="gn_stats", route="cuda", source="gddim_torch/csrc/resblock.cu",
+                     replaces="gddim_tpu/ops/resblock.py:600"),
 }
 # main-path shapes of cld/accr_dcifar10 (H, channels in, channels out)
 SHAPES = {
@@ -901,6 +941,291 @@ def phase_bf16_kernels(results: dict, batch_results: dict, batches=(4, 64)):
             _record(res, "BF16-prepass", label, steps, share, ms, plain_ms, bd, graph_ms=dev_ms)
             if a.dtype != torch.bfloat16 or steps > 1 or share > BF16_FLIP_SHARE:
                 raise AssertionError(f"BF16-prepass {label}: {steps} ulp, share {share:.2e}")
+
+
+def gn_sites():
+    """(H, channel parts) of every GroupNorm the statistics kernel takes on
+    the main path: the residual blocks' GN1 (K2, K3's pairs, K9's at its
+    input resolution), K5's GN, and conv1's h1 (GN2, which the f32 paths and
+    K7 take by the kernel; the block GEMM's blocks from conv1's epilogue)."""
+    sites = {(h, (c,)) for h, c, _ in SHAPES["K2"]} | {(h, p) for h, p, _ in SHAPES["K3"]}
+    sites |= {(h, (c,)) for h, c, _, _ in SHAPES["K9"]} | {(h, (c,)) for h, c in SHAPES["K5"]}
+    sites |= {(h, (n,)) for h, _, n in SHAPES["K2"] + SHAPES["K3"] + SHAPES["K4"]}
+    sites |= {(2 * h if up else h // 2, (n,)) for h, _, n, up in SHAPES["K9"]}
+    return sorted(sites)
+
+
+def conv1_shapes():
+    """(H, Cin, Cout) of conv1 of every K2/K3/K4/K9 shape of the main path
+    (K9's at its output resolution): the convs whose epilogue takes GN2's sums."""
+    convs = {(h, c, n) for h, c, n in SHAPES["K2"] + SHAPES["K4"]}
+    convs |= {(h, sum(p), n) for h, p, n in SHAPES["K3"]}
+    convs |= {(2 * h if up else h // 2, c, n) for h, c, n, up in SHAPES["K9"]}
+    return sorted(convs)
+
+
+def phase_gn_kernels(results: dict, batch_results: dict, batches=(4, 16, 64)):
+    """The GroupNorm statistics kernel against gn_stats_reference at every GN
+    shape of the main path, bf16 and f32 inputs, at each batch, with device
+    time, bound (the bytes once) and torch.var_mean over the (B, HW, G, C/G)
+    view as the library yardstick; then conv1's epilogue sums (GN2's
+    partials) against gn2_partials_reference at every block conv1, bf16 and
+    int8, at B=4 and 64, with conv1's device time with and without them. The
+    first batch's results go into the kernels line, the others' into
+    batch_results."""
+    from gddim_torch.ops import conv3x3, resblock as rb
+
+    inp = Inputs(9)
+    for B in batches:
+        res = results if B == batches[0] else batch_results
+        for h, parts in gn_sites():
+            for dtype in (torch.bfloat16, torch.float32):
+                c = sum(parts)
+                label = (f"B={B} {h}x{h} {'+'.join(map(str, parts))} "
+                         f"{'bf16' if dtype == torch.bfloat16 else 'f32'}")
+                xs = [(inp.act(B, h, h, p).float() + inp.vec(p)).to(dtype) for p in parts]
+                x1 = xs[1] if len(xs) > 1 else None
+                gamma, beta, groups = inp.vec(c, 1.0), inp.vec(c), min(c // 4, 32)
+                xcat = torch.cat(xs, -1)
+                fused = lambda: rb.gn_stats(xs[0], x1, gamma, beta, num_groups=groups)  # noqa: E731
+                plain = lambda: rb.gn_stats_reference(xcat, groups, 1e-6, gamma, beta)  # noqa: E731
+                library = lambda: torch.var_mean(  # noqa: E731
+                    xcat.view(B, h * h, groups, c // groups), dim=(1, 3))
+                out = fused()
+                again = fused()
+                torch.cuda.synchronize()
+                ref = plain()
+                same = all(torch.equal(a, b) for a, b in zip(out, again))
+                rel = max(_rel(o, r) for o, r in zip(out, ref))
+                err = max((o - r).abs().max().item() for o, r in zip(out, ref))
+                ms, plain_ms, lib_ms = time_ms(fused), time_ms(plain), time_ms(library)
+                dev, lib_dev = graph_ms(fused), graph_ms(library)
+                bd = bound(nbytes(xs, gamma, beta, out), {"f32": 3 * xcat.numel()})
+                print(f"kernel GN-stats gn_stats [{label}]: rel={rel:.3e} (bound "
+                      f"{KERNEL_BOUND['GN-stats']:.0e}), same bits on repeat: {same}; "
+                      f"ms={ms:.4f} device ms={dev:.4f} plain_ms={plain_ms:.4f} "
+                      f"bound_ms={bd[0]:.4f} (bytes); torch.var_mean ms={lib_ms:.4f} device "
+                      f"ms={lib_dev:.4f} (device time {verdict(dev, lib_dev)})", flush=True)
+                _record(res, "GN-stats", label, err, rel, ms, plain_ms, bd, lib_ms, graph_ms=dev,
+                        library_graph_ms=lib_dev)
+                if not (same and np.isfinite(rel) and rel <= KERNEL_BOUND["GN-stats"]):
+                    raise AssertionError(f"GN-stats {label}: rel err {rel:.3e}, repeat {same}")
+        sums = [r for r in res["GN-stats"]["shapes"] if r["shape"].startswith(f"B={B} ")]
+        print(f"sum GN-stats B={B}: {len(sums)} cases, eager {sum(r['ms'] for r in sums):.4f} ms, "
+              f"device {sum(r['graph_ms'] for r in sums):.4f} ms, torch.var_mean device "
+              f"{sum(r['library_graph_ms'] for r in sums):.4f} ms, bound "
+              f"{sum(r['bound_ms'] for r in sums):.4f} ms", flush=True)
+    for B in (4, 64):
+        for int8 in (False, True):
+            mode = "int8" if int8 else "bf16"
+            total = {"with": 0.0, "without": 0.0}
+            for h, cin, n in conv1_shapes():
+                plan = (rb.s8_tile_plan if int8 else rb.bf16_tile_plan)(B, h, h, cin, 0, n)
+                if int8:
+                    x8, _ = conv3x3.quantize_per_sample(inp.act(B, h, h, cin))
+                    wk, _ = rb.pack_int8_weight(rb.quantize_weight(inp.w(3, 3, cin, n)))
+                    run = lambda s, x8=x8, wk=wk: rb.int8_conv_gemm(x8, wk, stats=s)  # noqa: E731
+                else:
+                    x, w = inp.act(B, h, h, cin), inp.w(3, 3, cin, n)
+                    run = lambda s, x=x, w=w: rb.bf16_conv_gemm(x, w, stats=s)  # noqa: E731
+                out, part = run(True)
+                out2, part2 = run(True)
+                torch.cuda.synchronize()
+                same = torch.equal(part, part2) and torch.equal(out, out2)
+                rel = _rel(part, rb.gn2_partials_reference(out, plan))
+                dev_with, dev_without = graph_ms(lambda: run(True)), graph_ms(lambda: run(False))
+                total["with"] += dev_with
+                total["without"] += dev_without
+                label = (f"{mode} B={B} {h}x{h} {cin}->{n}: tiles of {plan.box_b} sample(s) x "
+                         f"{plan.box_h} rows, {plan.splits} split(s)")
+                print(f"kernel GN2-sums conv1 epilogue [{label}]: rel={rel:.3e} (bound "
+                      f"{KERNEL_BOUND['GN2-sums']:.0e}), same bits on repeat: {same}; conv1 "
+                      f"device ms {dev_with:.4f} with the sums, {dev_without:.4f} without "
+                      f"({dev_with / dev_without - 1:+.1%})", flush=True)
+                if not (same and np.isfinite(rel) and rel <= KERNEL_BOUND["GN2-sums"]):
+                    raise AssertionError(f"GN2-sums {label}: rel err {rel:.3e}, repeat {same}")
+            print(f"sum GN2-sums {mode} B={B}: {len(conv1_shapes())} conv1s, device "
+                  f"{total['with']:.4f} ms with the sums, {total['without']:.4f} without "
+                  f"({total['with'] / total['without'] - 1:+.1%})", flush=True)
+
+
+def check_temb_rows(model, card: str, batch: int = 64):
+    """The per-eval temb product (``NCSNpp.temb_rows``) against each residual
+    block's own f32 projection, and its device time beside the per-block
+    products it replaces."""
+    from gddim_torch.ops import resblock as rb
+
+    assert not torch.backends.cuda.matmul.allow_tf32, "the temb rows are f32, TF32 off"
+    g = torch.Generator(device="cuda").manual_seed(3)
+    temb = torch.randn((batch, TEMB), generator=g, device="cuda")
+    dense = [blk.temb_dense for blk in model.res_blocks]
+    with torch.no_grad():
+        rows = model.temb_rows(temb)
+        rel = rel_f32 = rel_block = 0.0
+        for blk in model.res_blocks:
+            w, b = blk.temb_dense.weight, blk.temb_dense.bias
+            exact = F.silu(temb.double()) @ w.double() + b.double()
+            own = rb.temb_projection(temb, w, b)
+            rel = max(rel, _rel(rows[:, blk.temb_cols], exact))
+            rel_block = max(rel_block, _rel(own, exact))
+            rel_f32 = max(rel_f32, _rel(rows[:, blk.temb_cols], own))
+        per_eval = graph_ms(lambda: model.temb_rows(temb))
+        per_block = graph_ms(lambda: [rb.temb_projection(temb, d.weight, d.bias) for d in dense])
+    cols = rows.shape[1]
+    bd = bound(4 * (TEMB * cols + cols + batch * TEMB + batch * cols),
+               {"f32": 2 * batch * TEMB * cols})
+    print(f"temb rows B={batch}: one f32 product of {len(dense)} blocks' Dense ({TEMB} x {cols}) "
+          f"against each block's exact projection rel={rel:.3e} (bound {TEMB_ROWS_BOUND:.0e}; "
+          f"the per-block f32 products {rel_block:.3e}, the two f32 products apart "
+          f"{rel_f32:.3e}); device "
+          f"ms={per_eval:.4f} (torch.addmm), the {len(dense)} per-block products "
+          f"{per_block:.4f}; bound_ms={bd[0]:.4f} ({'bytes' if bd[1] >= bd[2] else 'operations'}) "
+          f"[{card}]", flush=True)
+    if not (np.isfinite(rel) and rel <= TEMB_ROWS_BOUND):
+        raise AssertionError(f"temb rows rel err {rel:.3e} > {TEMB_ROWS_BOUND:.0e}")
+
+
+def trace_blocks(config):
+    """[(kind, input shapes, Cout)] of every residual block ('stride1',
+    'pair', 'down', 'up') and attention block ('attn') of the config's
+    network at B=4, in the order the forward runs them: the forward on the
+    meta device with each block replaced by its output's shape."""
+    from gddim_torch.models import blocks
+    from gddim_torch.models.unet import NCSNpp
+
+    seen = []
+
+    def res(self, x, temb, *args, **kw):
+        pair = isinstance(x, (tuple, list))
+        shapes = tuple(tuple(t.shape) for t in (x if pair else (x,)))
+        cout = self.conv1.weight.shape[-1]
+        seen.append(("pair" if pair else "up" if self.up else "down" if self.down else "stride1",
+                     shapes, cout))
+        b, h, w, _ = shapes[0]
+        h, w = (2 * h, 2 * w) if self.up else (h // 2, w // 2) if self.down else (h, w)
+        return torch.empty((b, h, w, cout))
+
+    def attn(self, x, *args, **kw):
+        seen.append(("attn", (tuple(x.shape),), x.shape[-1]))
+        return x
+
+    forwards = blocks.ResnetBlockBigGANpp.forward, blocks.AttnBlockpp.forward
+    blocks.ResnetBlockBigGANpp.forward, blocks.AttnBlockpp.forward = res, attn
+    try:
+        with torch.device("meta"):
+            model = NCSNpp(config)
+            model.fused = False
+            size, ch = config.data.image_size, config.data.num_channels
+            model(torch.empty((4, size, size, ch * (2 if config.sde == "cld" else 1))),
+                  torch.empty((4,)))
+    finally:
+        blocks.ResnetBlockBigGANpp.forward, blocks.AttnBlockpp.forward = forwards
+    return seen
+
+
+def gate_disagreements(config) -> tuple[int, list]:
+    """Each whole-block kernel gate of the config's network (bf16 and int8)
+    against the tile plans it stands for: (gates checked, disagreements)."""
+    from gddim_torch.ops import attnblock, resblock as rb
+
+    def planned(plan, *args):
+        try:
+            plan(*args)
+            return True
+        except ValueError:
+            return False
+
+    def convs(h, w, cin, cskip, cout, int8):
+        plan = rb.s8_tile_plan if int8 else rb.bf16_tile_plan
+        return planned(plan, 4, h, w, cin, 0, cout) and planned(plan, 4, h, w, cout, cskip, cout)
+
+    n, bad = 0, []
+    for kind, shapes, cout in trace_blocks(config):
+        b, h, w, c = shapes[0]
+        for int8 in (False, True):
+            if kind == "stride1":
+                pairs = [(rb.stride1_supported(shapes[0], cout, int8),
+                          convs(h, w, c, 0 if c == cout else c, cout, int8))]
+            elif kind == "pair":
+                ca, cb = c, shapes[1][-1]
+                pairs = [(rb.pair_supported(shapes[0], cb, cout, int8),
+                          ca % rb.GEMM_SKIP_SLICE == 0 and cb % rb.GEMM_SKIP_SLICE == 0
+                          and convs(h, w, ca + cb, ca + cb, cout, int8))]
+            elif kind == "attn":
+                pairs = [(attnblock.supported(shapes[0], int8),
+                          planned(attnblock.block_plan, b, h, w, c, int8))]
+            else:
+                up = kind == "up"
+                ho, wo = (2 * h, 2 * w) if up else (h // 2, w // 2)
+                want = convs(ho, wo, c, c, cout, int8)
+                pairs = [(rb.tail_supported((b, ho, wo, c), cout, int8), want),
+                         (rb.transition_supported(shapes[0], cout, up, True, (1, 3, 3, 1), int8),
+                          want)]
+            for got, want in pairs:
+                n += 1
+                if got != want:
+                    bad.append((kind, shapes, cout, int8, got))
+    return n, bad
+
+
+def phase_gates(card: str):
+    """The whole-block kernels' gates (ROADMAP Queue 3's repair): each gate
+    against its tile plans at every block of cld/accr_dcifar10 and
+    blur/ddpm_deep_cifar10 at nf 32, 64 and 128 (the widths of the JAX
+    package's simple and debug configs); then one full-width-depth eps
+    evaluation at nf=32 and 64 (B=4, t=0.5, seeded weights, transitions
+    'full') through 'fused' and 'fused_int8' (static scales calibrated on the
+    card) against the f32 plain path, with each evaluation's launches: the
+    blocks the kernels took and those that ran the plain composition."""
+    from gddim_torch.cli import build_model, calibrate_int8
+    from gddim_torch.configs import get_config
+    from gddim_torch.math.cld import CLD
+    from gddim_torch.models.blocks import AttnBlockpp
+    from gddim_torch.models.wrappers import make_cld_eps_fn
+
+    for name in ("cld/accr_dcifar10", "blur/ddpm_deep_cifar10"):
+        for nf in (32, 64, 128):
+            config = get_config(name)
+            config.model.nf = nf
+            n, bad = gate_disagreements(config)
+            print(f"gates {name} nf={nf}: {n} gates (bf16 and int8) against the tile plans, "
+                  f"{len(bad)} disagree", flush=True)
+            if bad:
+                raise AssertionError(f"gates disagree with the tile plans: {bad[:4]}")
+    kernels = {"res": ("K2", "K3", "K4", "K9"), "attn": ("K5",)}
+    for nf in (32, 64):
+        config = get_config("cld/accr_dcifar10")
+        config.model.nf = nf
+        model = build_model(config, "cuda", None, seed=0)
+        eps_apply = make_cld_eps_fn(CLD.from_config(config))
+        u, t = eps_inputs()
+        model.fused, model.dtype = False, torch.float32
+        ref = eps_apply(model, u, t)
+        model.fused, model.dtype = True, torch.bfloat16
+        calibrate_int8(config, model, seed=0)
+        n_res = len(model.res_blocks)
+        n_attn = sum(isinstance(m, AttnBlockpp) for _, m in model.scopes)
+        for int8 in (False, True):
+            model.int8 = int8
+            reset_counts()
+            got = eps_apply(model, u, t)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in read_counts().items() if v}
+            suffix = "-int8" if int8 else ""
+            took = {kind: sum(counts.get(k + suffix, 0) for k in ks)
+                    for kind, ks in kernels.items()}
+            rel = ((got - ref).abs().max() / ref.abs().max()).item()
+            limit = EPS_INT8_BOUND["static_vs_f32"] if int8 else EPS_BOUND
+            print(f"gates eps nf={nf} B=4 t=0.5 {'fused_int8 static' if int8 else 'fused'} vs "
+                  f"the f32 plain path: rel={rel:.3e} (bound {limit:.2g}); residual blocks on "
+                  f"the kernels {took['res']} of {n_res}, plain composition "
+                  f"{n_res - took['res']}; attention on K5 {took['attn']} of {n_attn}; "
+                  f"launches {counts} [{card}]", flush=True)
+            if not (np.isfinite(rel) and rel <= limit):
+                raise AssertionError(f"nf={nf} eps rel err {rel:.3e} > {limit:.2g}")
+            if nf == 64 and took["res"] == 0:
+                raise AssertionError("nf=64: no residual block took the kernels")
+        del model
 
 
 def print_block_sums(*results: dict):
@@ -1554,7 +1879,7 @@ def counters():
 # is launched: row -> kernel of ops/resblock.py:block_launches
 DEVICE_COUNTED = {"S8-GEMM": "block_gemm_kernel<int8>", "S8-prepass": "prepass_kernel<int8>",
                   "BF16-GEMM": "block_gemm_kernel<bf16>", "BF16-prepass": "prepass_kernel<bf16>",
-                  "K5-core": "attention_wgmma_kernel"}
+                  "K5-core": "attention_wgmma_kernel", "GN-stats": "gn_stats_kernel"}
 
 
 def reset_counts():
@@ -1611,6 +1936,7 @@ def phase_eps(config):
         raise AssertionError(f"eps rel err {rel:.3e} > {EPS_BOUND:.0e}")
     if counts != PER_EVAL:
         raise AssertionError(f"launch counts {counts} != {PER_EVAL}")
+    check_temb_rows(model, card_line())
     # the layer-wise paths of the same network (conv_impl 'pallas' and 'int8')
     for impl, per_eval in (("pallas", PER_EVAL_PALLAS), ("int8", PER_EVAL_LAYER_INT8)):
         model.layer = impl
@@ -1858,6 +2184,13 @@ def _profile(name: str, run, batch: int, card: str, evals: int):
           flush=True)
     for key, ms, n in top:
         print(f"  {ms:8.3f} ms {n:5d}x {key[:110]}", flush=True)
+    for name in ("gn_stats_kernel", "gn_prepass_kernel"):
+        ms = sum(m for key, m, _ in dev if name in key)
+        print(f"  {name}: {ms:.3f} ms in {sum(n for key, _, n in dev if name in key)} launches",
+              flush=True)
+    gone = [key for key, *_ in dev if "gn_affine_kernel" in key or "temb_proj_kernel" in key]
+    if gone:
+        raise AssertionError(f"replaced kernels in the trace: {gone}")
 
 
 def phase_profile(config, batch: int, card: str, evals: int = 5):
@@ -2096,7 +2429,7 @@ def phase_train(card: str):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="smoke run of gddim_torch on one CUDA card")
-    parser.add_argument("--phases", default="build,kernels,eps,sample,int8,blur,train")
+    parser.add_argument("--phases", default="build,kernels,eps,gates,sample,int8,blur,train")
     parser.add_argument("--batch", type=int, default=16, help="sampling batch")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2136,6 +2469,7 @@ def main(argv=None):
         phase_attn_train_kernels(results)
         phase_f32_activations()
         phase_attn_kernels(results, card)
+        phase_gn_kernels(results, batch_results)
         print_sums(results, batch_results)
         print_block_sums(results, batch_results)
     config = get_config("cld/accr_dcifar10")
@@ -2143,6 +2477,8 @@ def main(argv=None):
     # K9 run (run_k9) is held against
     config.model.transition_impl = "tail"
     model = phase_eps(config) if "eps" in phases else None
+    if "gates" in phases:
+        phase_gates(card)
     # each path's launches, counted from 0 just before it runs: the bf16
     # sampling path, then the int8 one and the training one for their kernels
     counts, samples = {}, None

@@ -36,68 +36,69 @@ _L = ctypes.c_longlong
 # C entry points: name -> argtypes. The *_workspace entries return a byte
 # count (long long); every other entry returns cudaError_t as int.
 _SIGNATURES = {
-    # gddim_resblock_workspace(B, H, W, Cin, N, splits): the bf16 block
-    "gddim_resblock_workspace": [_I, _I, _I, _I, _I, _I],
-    # gddim_resblock(x0, x1, c0, c1, temb, dense_w, dense_b, temb_k, gn1_g, gn1_b,
+    # gddim_resblock_workspace(B, H, W, Cin, N, splits, parts): the bf16 block,
+    #   parts the tile plan's tiles_h (GN2's partial rows a sample)
+    "gddim_resblock_workspace": [_I, _I, _I, _I, _I, _I, _I],
+    # gddim_resblock(x0, x1, c0, c1, temb_row, temb_ld, gn1_g, gn1_b,
     #   groups1, w1, b1, gn2_g, gn2_b, groups2, w2, b2, s0, s1, cs0, cs1, ws, bs,
     #   B, H, W, N, eps, out_scale, work, mw, box_h, box_b, tiles_h, m_tiles,
     #   splits1, kper1, splits2, kper2, out, stream)
     "gddim_resblock": [
-        _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
+        _P, _P, _I, _I, _P, _I, _P, _P,
         _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
         _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
     # gddim_resblock_f32_workspace(B, H, W, Cin, N, splits)
     "gddim_resblock_f32_workspace": [_I, _I, _I, _I, _I, _I],
-    # gddim_resblock_f32(x0, x1, c0, c1, temb, dense_w, dense_b, temb_k, gn1_g, gn1_b,
+    # gddim_resblock_f32(x0, x1, c0, c1, temb_row, temb_ld, gn1_g, gn1_b,
     #   groups1, w1, b1, gn2_g, gn2_b, groups2, w2, b2, s0, s1, cs0, cs1, ws, bs,
     #   B, H, W, N, eps, out_scale, work, splits1, kper1, splits2, kper2, out, stream)
     "gddim_resblock_f32": [
-        _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
+        _P, _P, _I, _I, _P, _I, _P, _P,
         _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
         _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
     ],
-    # gddim_resblock_transition_workspace(B, H_out, W_out, C, N, splits)
-    "gddim_resblock_transition_workspace": [_I, _I, _I, _I, _I, _I],
-    # gddim_resblock_transition(x, c, temb, dense_w, dense_b, temb_k, gn1_g, gn1_b, groups1,
+    # gddim_resblock_transition_workspace(B, H_out, W_out, C, N, splits, parts)
+    "gddim_resblock_transition_workspace": [_I, _I, _I, _I, _I, _I, _I],
+    # gddim_resblock_transition(x, c, temb_row, temb_ld, gn1_g, gn1_b, groups1,
     #   w1, b1, gn2_g, gn2_b, groups2, w2, b2, ws, bs, B, H_in, W_in, up, kh0..kh3, kw0..kw3,
     #   N, eps, out_scale, work, mw, box_h, box_b, tiles_h, m_tiles, splits1, kper1, splits2,
     #   kper2, out, stream)
     "gddim_resblock_transition": [
-        _P, _I, _P, _P, _P, _I, _P, _P, _I,
+        _P, _I, _P, _I, _P, _P, _I,
         _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
         _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
     # gddim_resblock_transition_f32_workspace(B, H_out, W_out, C, N, splits)
     "gddim_resblock_transition_f32_workspace": [_I, _I, _I, _I, _I, _I],
-    # gddim_resblock_transition_f32(x, c, temb, dense_w, dense_b, temb_k, gn1_g, gn1_b,
+    # gddim_resblock_transition_f32(x, c, temb_row, temb_ld, gn1_g, gn1_b,
     #   groups1, w1, b1, gn2_g, gn2_b, groups2, w2, b2, ws, bs, B, H_in, W_in, up,
     #   kh0..kh3, kw0..kw3, N, eps, out_scale, work, splits1, kper1, splits2, kper2, out, stream)
     "gddim_resblock_transition_f32": [
-        _P, _I, _P, _P, _P, _I, _P, _P, _I,
+        _P, _I, _P, _I, _P, _P, _I,
         _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
         _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
     ],
-    # gddim_resblock_transition_int8_workspace(B, H_out, W_out, C, N, splits)
-    "gddim_resblock_transition_int8_workspace": [_I, _I, _I, _I, _I, _I],
-    # gddim_resblock_transition_int8(x, c, temb, dense_w, dense_b, temb_k, gn1_g, gn1_b, groups1,
+    # gddim_resblock_transition_int8_workspace(B, H_out, W_out, C, N, splits, parts)
+    "gddim_resblock_transition_int8_workspace": [_I, _I, _I, _I, _I, _I, _I],
+    # gddim_resblock_transition_int8(x, c, temb_row, temb_ld, gn1_g, gn1_b, groups1,
     #   w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, ws, bs, act_scales, B, H_in, W_in, up,
     #   kh0..kh3, kw0..kw3, N, eps, out_scale, work, mw, box_h, box_b, tiles_h, m_tiles,
     #   splits1, kper1, splits2, kper2, out, stream)
     "gddim_resblock_transition_int8": [
-        _P, _I, _P, _P, _P, _I, _P, _P, _I,
+        _P, _I, _P, _I, _P, _P, _I,
         _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
         _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _P, _I, _I, _I, _I, _I,
         _I, _I, _I, _I, _P, _P,
     ],
-    # gddim_resblock_int8_workspace(B, H, W, Cin, N, splits)
-    "gddim_resblock_int8_workspace": [_I, _I, _I, _I, _I, _I],
-    # gddim_resblock_int8(x0, x1, c0, c1, temb, dense_w, dense_b, temb_k, gn1_g, gn1_b,
+    # gddim_resblock_int8_workspace(B, H, W, Cin, N, splits, parts)
+    "gddim_resblock_int8_workspace": [_I, _I, _I, _I, _I, _I, _I],
+    # gddim_resblock_int8(x0, x1, c0, c1, temb_row, temb_ld, gn1_g, gn1_b,
     #   groups1, w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, s0, s1, cs0, cs1, ws, bs,
     #   act_scales, B, H, W, N, eps, out_scale, work, mw, box_h, box_b, tiles_h, m_tiles,
     #   splits1, kper1, splits2, kper2, out, stream)
     "gddim_resblock_int8": [
-        _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
+        _P, _P, _I, _I, _P, _I, _P, _P,
         _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P,
         _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
@@ -105,14 +106,18 @@ _SIGNATURES = {
     #   out, stream)
     "gddim_s8_prepass": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P],
     # gddim_conv_s8(a8, wk, wsc, qs, B, H, W, Cin, N, taps, mw, box_h, box_b, tiles_h,
-    #   m_tiles, splits, kper, work, out, stream)
+    #   m_tiles, splits, kper, work, gn_part, out, stream)
     "gddim_conv_s8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                      _P],
+                      _P, _P],
     # gddim_bf16_prepass(xa, xb, ca, cb, act_f32, B, HW, scale, shift, silu, out, stream)
     "gddim_bf16_prepass": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P],
     # gddim_conv_bf16(a, w, B, H, W, Cin, N, taps, mw, box_h, box_b, tiles_h, m_tiles,
-    #   splits, kper, work, out, stream)
-    "gddim_conv_bf16": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    #   splits, kper, work, gn_part, out, stream)
+    "gddim_conv_bf16": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                        _P],
+    # gddim_gn_stats(xa, xb, ca, cb, act_f32, B, HW, groups, gamma, beta, eps, scale, shift,
+    #   mean, rstd, stream)
+    "gddim_gn_stats": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P],
     # gddim_block_launches(out, reset): launches of the kernels counted in C (no stream)
     "gddim_block_launches": [_P, _I],
     # gddim_resblock_train_workspace(B, H, W, Cin, N, splits)

@@ -10,7 +10,7 @@
 // forward, runs the block on f32 activations (gddim_attnblock_f32).
 //
 // gddim_attnblock, five launches, all hand-written:
-//   gn_affine_launch (resblock.cu)  GN statistics -> per-(sample, channel) affine
+//   gn_stats_launch (resblock.cu)   GN statistics -> per-(sample, channel) affine
 //   prepass_launch (resblock.cu)    h = GN(x) rounded to bf16 once (the TPU
 //                                   kernel's h_all.astype(bf16))
 //   block_gemm_launch (block_gemm.cu, taps 1)
@@ -460,8 +460,8 @@ int gddim_attnblock(const void* x, const void* gn_g, const void* gn_b, int group
                         splits1 > splits2 ? splits1 : splits2);
   if (wk.bytes > (size_t)work_bytes) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int err = gn_affine_launch(x, nullptr, c, 0, batch, hw, groups, (const float*)gn_g,
-                             (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, false, st);
+  int err = gn_stats_launch(x, nullptr, c, 0, batch, hw, groups, (const float*)gn_g,
+                            (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, false, st);
   if (!err)
     err = prepass_launch(x, nullptr, c, 0, false, batch, hw, wk.sc, wk.sh, 0, nullptr, wk.h, st);
   if (!err) {
@@ -495,8 +495,8 @@ int gddim_attnblock_f32(const void* x, const void* gn_g, const void* gn_b, int g
                         splits1 > splits2 ? splits1 : splits2);
   if (wk.bytes > (size_t)work_bytes) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int err = gn_affine_launch(x, nullptr, c, 0, batch, s, groups, (const float*)gn_g,
-                             (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, true, st);
+  int err = gn_stats_launch(x, nullptr, c, 0, batch, s, groups, (const float*)gn_g,
+                            (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, true, st);
   if (!err)  // the projections are 1x1 convs over M = B*S pixels (H = S, W = 1)
     err = conv_gemm_launch_as(conv_args(x, c, wk.sc, wk.sh, 0, 1, wqkv, batch, s, 1, 3 * c, bqkv,
                                         1.0f, wk.qkv, wk.partial, splits1, kper1),
@@ -530,8 +530,8 @@ int gddim_attnblock_int8(const void* x, const void* gn_g, const void* gn_b, int 
                         splits1 > splits2 ? splits1 : splits2);
   if (wk.bytes > (size_t)work_bytes) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int err = gn_affine_launch(x, nullptr, c, 0, batch, hw, groups, (const float*)gn_g,
-                             (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, false, st);
+  int err = gn_stats_launch(x, nullptr, c, 0, batch, hw, groups, (const float*)gn_g,
+                            (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, false, st);
   if (!err && qs == nullptr)
     err = amax_launch(x, nullptr, c, 0, batch, hw, wk.sc, wk.sh, 0, wk.amax, false, st);
   if (!err) {  // h = q(GN(x)): clip(rint(h * (1/s_h))), or per sample by max |h|

@@ -8,9 +8,11 @@
 // _resblock_pair_kernel(_v2) for K3, _resblock_transition_kernel for K9):
 // _conv9's nine shifted products on the zero-padded activation tile, with
 // mm_dtype bf16 (f32 sums) or int8 (s32 sums, dequantized as acc * (w_scale
-// * s)), and the bf16 skip product with f32 sums. The block around it (temb
-// row, GroupNorm statistics, amax, and the pre-pass that writes each conv's
-// input once, in resblock.cu) stays one C call, resblock_gemm_run.
+// * s)), and the bf16 skip product with f32 sums, and conv1's share of GN2's
+// statistics (gn_silu_tile's per-channel sums of acc3, resblock.py:345-356,
+// 385-386), taken while the tile is in registers. The block around it (GN1
+// statistics, amax, and the pre-pass that writes each conv's input once and
+// folds GN2's sums, in resblock.cu) stays one C call, resblock_gemm_run.
 //
 // block_gemm_kernel<TA> is an implicit GEMM, M = B*H*W output pixels, N =
 // Cout, K = taps * Cin channels of TA (bf16 or int8; taps 9 for a 3x3 conv,
@@ -43,10 +45,16 @@
 //   bf16 products into the same f32 registers; in the bf16 mode they follow
 //   the conv slices in one loop.
 // - The epilogue (bias + b_skip, the temb row, the identity residual,
-//   out_scale; f32 h1 or bf16 out) runs from the registers.
+//   out_scale; f32 h1 or bf16 out; tile_epilogue) stages the tile's sums in
+//   the drained ring and stores from there along whole rows. With gn_part
+//   (conv1: the STATS instantiation) each thread also sums its 2 columns of
+//   each sample's rows and their squares, and the row lanes' sums meet in a
+//   fixed order in one row of GN2's partials a (tile, sample). GN2 then
+//   never reads h1 back for its statistics.
 // - Small grids split K as K11 does: each split writes its f32 partial
 //   (dequantized in the int8 mode; conv and skip), and block_splitk_kernel
-//   sums them in split order, so the result does not depend on the run. The
+//   sums them in split order, so the result does not depend on the run
+//   (block_splitk_stats_kernel for conv1: by tile, with GN2's sums). The
 //   tile plan (tile height, box, splits) is a pure function of the shapes,
 //   computed in Python (ops/resblock.py:bf16_tile_plan, s8_tile_plan); the
 //   ring's depth and shared memory follow from the tile height here (Tile).
@@ -99,6 +107,11 @@ struct Tile {
 // the H100's 227 KB of shared memory a block; two 128-pixel CTAs share an SM
 static_assert(Tile<2>::SMEM <= 227 * 1024, "the 256-pixel ring exceeds shared memory");
 static_assert(2 * (Tile<1>::SMEM + 1024) <= 228 * 1024, "two 128-pixel CTAs do not fit an SM");
+// tile_epilogue stages the tile (and its row lanes' sums) in the drained ring
+static_assert((128 * (TILE_N + 8) + 8 * TILE_N) * 4 <= Tile<1>::STAGES * Tile<1>::STAGE_BYTES,
+              "the staged 128-pixel tile exceeds the ring");
+static_assert((256 * (TILE_N + 8) + 8 * TILE_N) * 4 <= Tile<2>::STAGES * Tile<2>::STAGE_BYTES,
+              "the staged 256-pixel tile exceeds the ring");
 
 long long launch_counts[N_COUNTED];
 
@@ -119,6 +132,9 @@ struct Plan {
   float out_scale;
   void* out;
   float* partial;
+  int temb_ld;     // row b of temb at temb + b * temb_ld
+  int mw;          // tiles of 128 * mw output pixels
+  float* gn_part;  // (2, B, tiles_h, N) GN2's per-channel sums and squares, or null
 };
 
 // The output pixel of row r of tile (b0, y0), or -1 past the batch or the image.
@@ -138,11 +154,12 @@ __device__ __forceinline__ void store2(bf16* d, float a, float b) {
 }
 
 // The temb row and the residual for output channels n, n+1 of pixel m
-// (whose bias + b_skip r0, r1 hold already), then the scale
+// (whose bias + b_skip r0, r1 hold already), then the scale; returns the
+// values stored (in f32)
 template <typename TO>
-__device__ __forceinline__ void epilogue2(const Plan& p, long m, int n, float r0, float r1) {
+__device__ __forceinline__ float2 epilogue2(const Plan& p, long m, int n, float r0, float r1) {
   if (p.temb) {
-    const float* tr = p.temb + (m / (p.H * p.W)) * p.N + n;
+    const float* tr = p.temb + (m / (p.H * p.W)) * p.temb_ld + n;
     r0 += tr[0];
     r1 += tr[1];
   }
@@ -152,7 +169,18 @@ __device__ __forceinline__ void epilogue2(const Plan& p, long m, int n, float r0
     r0 += v.x;
     r1 += v.y;
   }
-  store2((TO*)p.out + m * p.N + n, r0 * p.out_scale, r1 * p.out_scale);
+  const float2 v = make_float2(r0 * p.out_scale, r1 * p.out_scale);
+  store2((TO*)p.out + m * p.N + n, v.x, v.y);
+  return v;
+}
+
+// The 256 consumer threads (warpgroups 0 and 1) at named barrier 1; the
+// producer warp has left
+__device__ __forceinline__ void consumer_sync() { asm volatile("bar.sync 1, 256;" ::: "memory"); }
+
+// The tile row of GN2's partials of sample b: the sums (which 0) or squares (1)
+__device__ __forceinline__ float* gn_row(const Plan& p, int which, int b, int th) {
+  return p.gn_part + (((long)which * p.B + b) * p.tiles_h + th) * p.N;
 }
 
 // bias + b_skip of output channels n, n+1 (each null or (N,))
@@ -161,6 +189,86 @@ __device__ __forceinline__ float2 bias2(const Plan& p, int n) {
   if (p.bias) c = make_float2(p.bias[n], p.bias[n + 1]);
   if (p.bias2) c = make_float2(c.x + p.bias2[n], c.y + p.bias2[n + 1]);
   return c;
+}
+
+// The epilogue of a tile whose K is not split: the f32 sums through
+// shared memory (the drained ring, rows of STAGE_LD floats), then each
+// thread takes 2 columns down a quarter of the tile's rows, so that the
+// stores (and the residual's loads) run along whole rows: + bias + b_skip,
+// the sample's temb row, the residual, times out_scale, as epilogue2. With
+// STATS (conv1, f32 out) each thread also sums its columns' values of each
+// sample and their squares, and the 4 row lanes' sums meet in order in the
+// tile's row of GN2's partials. Stores straight from the accumulator layout
+// (8 rows of 32 bytes a warp instruction) were slower, and GN2's sums
+// folded into that unrolled code slowed this GEMM and every other
+// instantiation of it (PERF.md §6).
+constexpr int STAGE_LD = TILE_N + 8;  // floats a staged row: 64-bit stores in 2 wavefronts
+
+template <int MW, typename TO, bool STATS>
+__device__ __forceinline__ void tile_epilogue(const Plan& p, const uint32_t (&acc)[MW][64],
+                                              unsigned char* ring, int g, int row0, int col0,
+                                              int b0, int y0, int n0) {
+  float* tile = reinterpret_cast<float*>(ring);
+  consumer_sync();  // every consumer's last wgmma has read the ring
+#pragma unroll
+  for (int t = 0; t < MW; ++t)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(tile + (64 * (g * MW + t) + row0 + 8 * h) * STAGE_LD + col0 +
+                                   8 * j) =
+            make_float2(__uint_as_float(acc[t][4 * j + 2 * h]),
+                        __uint_as_float(acc[t][4 * j + 2 * h + 1]));
+  consumer_sync();
+  float* red = tile + 128 * MW * STAGE_LD;  // [sums, squares][4 row lanes][TILE_N]
+  const int x = threadIdx.x, c = 2 * (x & 63), rl = x >> 6;
+  const int n = n0 + c;
+  const float2 cb = bias2(p, n);
+  // the tile's rows are the pixels m0 + r; those past the image or the batch
+  // are the last ones
+  const int hw = p.H * p.W, m0 = (b0 * p.H + y0) * p.W;
+  const int per = p.box_b == 1 ? 128 * MW : hw;  // tile rows a sample
+  const int valid = p.box_b == 1 ? min(p.box_h, p.H - y0) * p.W : min(p.box_b, p.B - b0) * hw;
+  const long base = (long)m0 * p.N + n;
+  for (int i = 0; i < p.box_b; ++i) {
+    float s0 = 0.f, s1 = 0.f, q0 = 0.f, q1 = 0.f;
+    const float* trow = p.temb + (long)(b0 + i) * p.temb_ld + n;
+    const float2 tr =
+        p.temb && b0 + i < p.B ? make_float2(trow[0], trow[1]) : make_float2(0.f, 0.f);
+    const int r_end = min(valid, (i + 1) * per);
+#pragma unroll 4
+    for (int r = i * per + rl; r < r_end; r += 4) {
+      const float2 a = *reinterpret_cast<const float2*>(tile + r * STAGE_LD + c);
+      float v0 = a.x + cb.x + tr.x, v1 = a.y + cb.y + tr.y;
+      if (p.resid) {
+        const float2 e = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(p.resid + base + (long)r * p.N));
+        v0 += e.x;
+        v1 += e.y;
+      }
+      v0 *= p.out_scale;
+      v1 *= p.out_scale;
+      store2((TO*)p.out + base + (long)r * p.N, v0, v1);
+      if constexpr (STATS) {
+        s0 += v0;
+        s1 += v1;
+        q0 += v0 * v0;
+        q1 += v1 * v1;
+      }
+    }
+    if constexpr (STATS) {
+      *reinterpret_cast<float2*>(red + rl * TILE_N + c) = make_float2(s0, s1);
+      *reinterpret_cast<float2*>(red + (4 + rl) * TILE_N + c) = make_float2(q0, q1);
+      consumer_sync();
+      const int col = x & (TILE_N - 1), which = x / TILE_N;
+      const float* w = red + 4 * which * TILE_N + col;
+      if (b0 + i < p.B)
+        gn_row(p, which, b0 + i, blockIdx.x % p.tiles_h)[n0 + col] =
+            ((w[0] + w[TILE_N]) + w[2 * TILE_N]) + w[3 * TILE_N];
+      consumer_sync();
+    }
+  }
 }
 
 // The (64 K x 128 N) bf16 weights of a slice, K rows from k0 of an N-major
@@ -173,8 +281,9 @@ __device__ __forceinline__ void load_nmajor(uint32_t b, const CUtensorMap* map, 
 
 // grid (m_tiles, N / 128, splits), THREADS threads, Tile<MW>::SMEM dynamic
 // shared memory. Split z runs the slices [z*kper, min((z+1)*kper, slices)):
-// first those of the conv (TA), then those of the skip (bf16).
-template <typename TA, int MW, typename TO>
+// first those of the conv (TA), then those of the skip (bf16). STATS (conv1,
+// f32 out, K not split): the epilogue also takes GN2's sums.
+template <typename TA, int MW, typename TO, bool STATS>
 __global__ void __launch_bounds__(THREADS, 3 - MW)
 block_gemm_kernel(const __grid_constant__ CUtensorMap amap,
                   const __grid_constant__ CUtensorMap wmap,
@@ -341,25 +450,24 @@ block_gemm_kernel(const __grid_constant__ CUtensorMap amap,
   }
   wgmma_wait<0>();
 
-  const int M = p.B * hw;
+  if (p.splits == 1) {
+    tile_epilogue<MW, TO, STATS>(p, acc, ring, g, row0, col0, b0, y0, n0);
+    return;
+  }
+  // a split's f32 partial, straight from the accumulators
+  const long M = (long)p.B * hw;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int n = n0 + col0 + 8 * j;
-    const float2 cb = p.splits == 1 ? bias2(p, n) : make_float2(0.f, 0.f);
+  for (int j = 0; j < 16; ++j)
 #pragma unroll
     for (int t = 0; t < MW; ++t)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = rows[t][h];
-        if (m < 0) continue;
-        const float r0 = __uint_as_float(acc[t][4 * j + 2 * h]);
-        const float r1 = __uint_as_float(acc[t][4 * j + 2 * h + 1]);
-        if (p.splits > 1)  // a split's f32 partial, straight from the accumulators
-          store2(p.partial + ((long)blockIdx.z * M + m) * p.N + n, r0, r1);
-        else
-          epilogue2<TO>(p, m, n, r0 + cb.x, r1 + cb.y);
+        if (m >= 0)
+          store2(p.partial + (blockIdx.z * M + m) * p.N + n0 + col0 + 8 * j,
+                 __uint_as_float(acc[t][4 * j + 2 * h]),
+                 __uint_as_float(acc[t][4 * j + 2 * h + 1]));
       }
-  }
 }
 
 // Split-K reduction: the f32 partials summed in split order, then the
@@ -380,23 +488,86 @@ __global__ void __launch_bounds__(256) block_splitk_kernel(const Plan p) {
   epilogue2<TO>(p, v / p.N, n, r.x + cb.x, r.y + cb.y);
 }
 
-template <typename TA, int MW, typename TO>
+// The split-K reduction of conv1 (gn_part): the same sums in split order,
+// the epilogue, and GN2's sums of one sample's rows of an M tile. grid
+// (m_tiles, N / 32, box_b), 256 threads: 8 groups of 4 columns by 32 row
+// lanes; each row's splits loaded 4 at a time (so that the loads overlap)
+// and added in order; the row lanes' sums added in lane order.
+template <typename TO>
+__global__ void __launch_bounds__(256) block_splitk_stats_kernel(const Plan p) {
+  __shared__ float red[2][32][33];
+  const long mn = (long)p.B * p.H * p.W * p.N;
+  const int tb = blockIdx.x / p.tiles_h, th = blockIdx.x % p.tiles_h, i = blockIdx.z;
+  const int b0 = tb * p.box_b, y0 = th * p.box_h;
+  if (b0 + i >= p.B) return;  // uniform over the CTA
+  const int cq = threadIdx.x & 7, lr = threadIdx.x >> 3;
+  const int c = 4 * cq, n = blockIdx.y * 32 + c;
+  const int hw = p.H * p.W, m0 = (b0 * p.H + y0) * p.W;
+  const int per = p.box_b == 1 ? 128 * p.mw : hw;  // tile rows a sample
+  const int valid = p.box_b == 1 ? min(p.box_h, p.H - y0) * p.W : (i + 1) * hw;
+  const float2 cb0 = bias2(p, n), cb1 = bias2(p, n + 2);
+  float s[4] = {0.f, 0.f, 0.f, 0.f}, q[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int r = i * per + lr; r < valid; r += 32) {
+    const long o = (long)(m0 + r) * p.N + n;
+    float4 a = *reinterpret_cast<const float4*>(p.partial + o);
+    for (int z = 1; z < p.splits; z += 4) {
+      float4 d[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (z + k < p.splits) d[k] = *reinterpret_cast<const float4*>(p.partial + (z + k) * mn + o);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (z + k < p.splits) {
+          a.x += d[k].x;
+          a.y += d[k].y;
+          a.z += d[k].z;
+          a.w += d[k].w;
+        }
+    }
+    const float2 v01 = epilogue2<TO>(p, m0 + r, n, a.x + cb0.x, a.y + cb0.y);
+    const float2 v23 = epilogue2<TO>(p, m0 + r, n + 2, a.z + cb1.x, a.w + cb1.y);
+    const float v[4] = {v01.x, v01.y, v23.x, v23.y};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      s[k] += v[k];
+      q[k] += v[k] * v[k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    red[0][lr][c + k] = s[k];
+    red[1][lr][c + k] = q[k];
+  }
+  __syncthreads();
+  if (threadIdx.x < 64) {
+    const int which = threadIdx.x >> 5, col = threadIdx.x & 31;
+    float a = 0.f;
+    for (int l = 0; l < 32; ++l) a += red[which][l][col];
+    gn_row(p, which, b0 + i, th)[blockIdx.y * 32 + col] = a;
+  }
+}
+
+template <typename TA, int MW, typename TO, bool STATS = false>
 int launch(dim3 grid, const CUtensorMap* maps, const Plan& p, cudaStream_t st) {
   static bool attr = false;
   if (!attr) {
-    const int err = (int)cudaFuncSetAttribute(block_gemm_kernel<TA, MW, TO>,
+    const int err = (int)cudaFuncSetAttribute(block_gemm_kernel<TA, MW, TO, STATS>,
                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                                               Tile<MW>::SMEM);
     if (err) return err;
     attr = true;
   }
-  block_gemm_kernel<TA, MW, TO><<<grid, THREADS, Tile<MW>::SMEM, st>>>(
+  block_gemm_kernel<TA, MW, TO, STATS><<<grid, THREADS, Tile<MW>::SMEM, st>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], p);
   int err = (int)cudaGetLastError();
   if (!err) count_launch(std::is_same<TA, int8_t>::value ? COUNT_GEMM_S8 : COUNT_GEMM_BF16);
   if (!err && p.splits > 1) {
-    const long vecs = (long)p.B * p.H * p.W * p.N / 2;
-    block_splitk_kernel<TO><<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>(p);
+    if (p.gn_part != nullptr) {
+      block_splitk_stats_kernel<TO><<<dim3(grid.x, p.N / 32, p.box_b), 256, 0, st>>>(p);
+    } else {
+      const long vecs = (long)p.B * p.H * p.W * p.N / 2;
+      block_splitk_kernel<TO><<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>(p);
+    }
     err = (int)cudaGetLastError();
   }
   return err;
@@ -405,6 +576,9 @@ int launch(dim3 grid, const CUtensorMap* maps, const Plan& p, cudaStream_t st) {
 template <typename TA>
 int launch_mw(int mw, bool out_f32, dim3 grid, const CUtensorMap* maps, const Plan& p,
               cudaStream_t st) {
+  if (p.gn_part != nullptr && p.splits == 1)  // GN2's sums in the epilogue (f32 out)
+    return mw == 1 ? launch<TA, 1, float, true>(grid, maps, p, st)
+                   : launch<TA, 2, float, true>(grid, maps, p, st);
   if (mw == 1)
     return out_f32 ? launch<TA, 1, float>(grid, maps, p, st) : launch<TA, 1, bf16>(grid, maps, p, st);
   return out_f32 ? launch<TA, 2, float>(grid, maps, p, st) : launch<TA, 2, bf16>(grid, maps, p, st);
@@ -426,7 +600,10 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
       g.W * t.box_h * t.box_b > bm || g.splits < 1 || g.kper < 1 ||
       (g.splits - 1) * g.kper >= slices || g.splits * g.kper < slices ||
       (g.splits > 1 && g.partial == nullptr) ||
-      (g.int8 && (g.wsc == nullptr || (g.qs == nullptr && g.amax == nullptr))))
+      (g.int8 && (g.wsc == nullptr || (g.qs == nullptr && g.amax == nullptr))) ||
+      // GN2's sums: f32 out with no residual (conv1), a warp's 16 rows one sample's
+      (g.gn_part != nullptr &&
+       (!g.out_f32 || g.resid != nullptr || (t.box_b > 1 && (g.H * g.W) % 16))))
     return (int)cudaErrorInvalidValue;
   const long m = (long)g.B * g.H * g.W;
   Plan p;
@@ -436,6 +613,7 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
   p.N = g.N;
   p.cin = g.cin;
   p.taps = g.taps;
+  p.mw = t.mw;
   p.box_h = t.box_h;
   p.box_b = t.box_b;
   p.tiles_h = t.tiles_h;
@@ -450,10 +628,12 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
   p.bias = g.bias;
   p.bias2 = g.bias2;
   p.temb = g.temb;
+  p.temb_ld = g.temb_ld;
   p.resid = (const bf16*)g.resid;
   p.out_scale = g.out_scale;
   p.out = g.out;
   p.partial = g.partial;
+  p.gn_part = g.gn_part;
 
   // maps: A, W, skip s0, skip s1, skip weights (unused ones stay zero)
   CUtensorMap maps[5] = {};
@@ -505,11 +685,12 @@ extern "C" {
 // Cin) int8, wk (N, taps * Cin) int8 K-major, wsc (N,) and qs () f32 on the
 // device; the tile plan as gddim_resblock_int8 takes it. With wsc and qs
 // ones, out holds the int32 sums (exact in f32 up to 2^24). Scratch `work`:
-// splits * M * N f32 when splits > 1.
+// splits * M * N f32 when splits > 1. gn_part (2, B, tiles_h, N) f32, or
+// null: the epilogue's per-channel sums and squares of out (GN2's partials).
 int gddim_conv_s8(const void* a8, const void* wk, const void* wsc, const void* qs, int batch,
                   int h, int w, int cin, int n, int taps, int mw, int box_h, int box_b,
-                  int tiles_h, int m_tiles, int splits, int kper, void* work, void* out,
-                  void* stream) {
+                  int tiles_h, int m_tiles, int splits, int kper, void* work, void* gn_part,
+                  void* out, void* stream) {
   BlockGemm g = {};
   g.int8 = true;
   g.taps = taps;
@@ -526,6 +707,7 @@ int gddim_conv_s8(const void* a8, const void* wk, const void* wsc, const void* q
   g.out = out;
   g.out_f32 = true;
   g.partial = (float*)work;
+  g.gn_part = (float*)gn_part;
   g.splits = splits;
   g.kper = kper;
   return block_gemm_launch(g, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},
@@ -536,10 +718,10 @@ int gddim_conv_s8(const void* a8, const void* wk, const void* wsc, const void* q
 // a 3x3 SAME conv (taps 9) or a 1x1 (taps 1), a (B, H, W, Cin) bf16, w
 // (taps * Cin, N) bf16 (HWIO flattened), f32 sums; the tile plan as
 // gddim_resblock takes it (ops/resblock.py:bf16_tile_plan). Scratch `work`:
-// splits * M * N f32 when splits > 1.
+// splits * M * N f32 when splits > 1; gn_part as gddim_conv_s8's.
 int gddim_conv_bf16(const void* a, const void* w, int batch, int h, int w_, int cin, int n,
                     int taps, int mw, int box_h, int box_b, int tiles_h, int m_tiles, int splits,
-                    int kper, void* work, void* out, void* stream) {
+                    int kper, void* work, void* gn_part, void* out, void* stream) {
   BlockGemm g = {};
   g.taps = taps;
   g.a = a;
@@ -553,6 +735,7 @@ int gddim_conv_bf16(const void* a, const void* w, int batch, int h, int w_, int 
   g.out = out;
   g.out_f32 = true;
   g.partial = (float*)work;
+  g.gn_part = (float*)gn_part;
   g.splits = splits;
   g.kper = kper;
   return block_gemm_launch(g, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},
@@ -561,7 +744,7 @@ int gddim_conv_bf16(const void* a, const void* w, int batch, int h, int w_, int 
 
 // Launches of the kernels counted in C (conv.cuh's Counted order: the int8
 // GEMM, the int8 pre-pass, the bf16 GEMM, the bf16 pre-pass, K5's attention
-// core) into out
+// core, the GroupNorm statistics) into out
 // (N_COUNTED long long); with reset, zeroed after reading.
 int gddim_block_launches(long long* out, int reset) {
   for (int k = 0; k < N_COUNTED; ++k) {

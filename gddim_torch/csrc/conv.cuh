@@ -38,7 +38,8 @@ struct ConvArgs {
   int B, H, W, N;
   const float* bias;   // (N,) or null
   const float* bias2;  // (N,) or null
-  const float* temb;   // (B, N) row added per sample, or null
+  const float* temb;   // (B, N) row added per sample (row b at temb + b * temb_ld), or null
+  int temb_ld;
   const void* resid;   // (M, N) identity residual, or null
   float out_scale;
   void* out;       // (M, N)
@@ -127,6 +128,11 @@ struct GemmTiles {
 // bf16 1x1 skip into the same f32 accumulators, then the epilogue:
 //   out = (conv(a, w) [* (wsc[n] * s)] + skip + bias + bias2 + temb[b] + resid) * out_scale
 // s = *qs (static), else max(amax[b], 1e-12) / 127 of the row's sample b.
+// With gn_part, the epilogue (or the split-K reduction) also writes each
+// output channel's sum and sum of squares over every (M tile, sample in the
+// tile): gn_part (2, B, tiles_h, N), [0] the sums, [1] the squares, row
+// (b, t) from tile row t of sample b (GN2's statistics of conv1's h1, folded
+// by group in a fixed order by the next pre-pass: no float atomics).
 struct BlockGemm {
   bool int8;        // the int8 mode, else bf16
   const void* a;    // (B, H, W, cin) bf16 or int8
@@ -143,11 +149,13 @@ struct BlockGemm {
   const float* amax;  // int8: (B,) per-sample amax when qs is null
   const float* bias;  // (N,) or null, likewise bias2
   const float* bias2;
-  const float* temb;   // (B, N) row added per sample, or null
+  const float* temb;   // (B, N) row added per sample (row b at temb + b * temb_ld), or null
+  int temb_ld;
   const void* resid;   // (M, N) bf16 identity residual, or null
   float out_scale;
   void* out;  // (M, N) f32 (out_f32) or bf16
   bool out_f32;
+  float* gn_part;  // (2, B, tiles_h, N) per-channel sums and squares of out, or null
   float* partial;  // (splits, M, N) f32 (dequantized) split-K partials, when splits > 1
   int splits, kper;  // K slices (128 bytes a pixel) per split
 };
@@ -159,14 +167,16 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t strea
 
 // Kernels launched inside a block's C call, counted where they are launched
 // (one each time the launch succeeds; gddim_block_launches reads the counts):
-// the block GEMM and the pre-pass, int8 and bf16, and K5's attention core.
+// the block GEMM and the pre-pass, int8 and bf16, K5's attention core and the
+// GroupNorm statistics kernel.
 enum Counted {
   COUNT_GEMM_S8 = 0,
   COUNT_PREPASS_S8 = 1,
   COUNT_GEMM_BF16 = 2,
   COUNT_PREPASS_BF16 = 3,
   COUNT_ATTN = 4,
-  N_COUNTED = 5
+  COUNT_GN_STATS = 5,
+  N_COUNTED = 6
 };
 void count_launch(Counted kernel);
 
@@ -174,11 +184,12 @@ void count_launch(Counted kernel);
 // gddim_resblock_int8's arguments, in order), int8 or bf16: conv1's input
 // x0 f32 (x_f32, no x1; int8 only) or bf16, and, when amax1 is non-null,
 // the per-sample amax of conv1's input already made (int8 dynamic scales
-// only). The bf16 mode takes no w1s, w2s, act_scales; with groups1 = 0 its
-// conv1 reads x0 as it is (K4 and K9: h holds silu(GN1(x)) already).
+// only). temb_row: the block's (B, N) f32 temb projection, row b at temb_row
+// + b * temb_ld. The bf16 mode takes no w1s, w2s, act_scales; with groups1 =
+// 0 its conv1 reads x0 as it is (K4 and K9: h holds silu(GN1(x)) already).
 int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1, bool x_f32,
-                      const float* amax1, const void* temb, const void* dense_w,
-                      const void* dense_b, int temb_k, const void* gn1_g, const void* gn1_b,
+                      const float* amax1, const void* temb_row, int temb_ld,
+                      const void* gn1_g, const void* gn1_b,
                       int groups1, const void* w1, const void* w1s, const void* b1,
                       const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
                       const void* w2s, const void* b2, const void* s0, const void* s1, int cs0,
@@ -203,9 +214,11 @@ int amax_launch(const void* xa, const void* xb, int ca, int cb, int batch, int h
                 const float* scale, const float* shift, int silu, float* amax, bool f32,
                 cudaStream_t stream);
 
-// Per-(sample, group) GroupNorm statistics of the logical concat (xa, xb),
-// folded with gamma/beta into a per-(sample, channel) affine (scale, shift);
-// mean and rstd per (sample, group) too when those pointers are non-null.
-int gn_affine_launch(const void* xa, const void* xb, int ca, int cb, int batch, int hw,
-                     int groups, const float* gamma, const float* beta, float eps, float* scale,
-                     float* shift, float* mean, float* rstd, bool f32, cudaStream_t stream);
+// Per-(sample, group) GroupNorm statistics of the logical concat (xa, xb)
+// (gn_stats_kernel, resblock.cu: one pass, E[x^2] - mean^2 from per-channel
+// f32 sums), folded with gamma/beta into a per-(sample, channel) affine
+// (scale, shift); mean and rstd per (sample, group) too when those pointers
+// are non-null. Counted where it launches.
+int gn_stats_launch(const void* xa, const void* xb, int ca, int cb, int batch, int hw,
+                    int groups, const float* gamma, const float* beta, float eps, float* scale,
+                    float* shift, float* mean, float* rstd, bool f32, cudaStream_t stream);

@@ -6,16 +6,23 @@
 // (K4, _resblock_kernel_v2 with GN1 off), and the training forward of
 // make_fused_resblock_train (K6: fused_resblock with f32 activations and the
 // dropout mask). A block is one C call of a few launches, its scratch carved
-// from one workspace buffer:
+// from one workspace buffer. The temb row (silu(temb) @ W_dense + b_dense,
+// which the first conv's epilogue adds) comes precomputed: the model makes
+// every block's row in one f32 product an eval (models/unet.py), as the
+// JAX package makes it outside its Pallas kernels.
 //
-//   gn_affine_kernel  per-(sample, group) mean and rstd in f32 (two-pass
-//                     variance), folded with the GN scale/bias into a
-//                     per-(sample, channel) affine. Reads one input or two
-//                     (xa, xb) by logical channel, so a group that straddles
-//                     the xa/xb boundary gets statistics over both.
-//   temb_proj_kernel  silu(temb) @ W_dense + b_dense, the per-sample row the
-//                     first conv's epilogue adds (K2-K4; K6 takes the row
-//                     precomputed, so autograd reaches the Dense layer).
+//   gn_stats_kernel   GroupNorm statistics as the TPU kernels take them
+//                     (gn_silu_tile, gddim_tpu/ops/resblock.py:345-356):
+//                     per-channel f32 sums and sums of squares in one pass
+//                     over x, folded by group, var = E[x^2] - mean^2, into a
+//                     per-(sample, channel) affine. A cluster of 8 CTAs a
+//                     sample, each over an eighth of its pixels with 16-byte
+//                     loads of 8 channels along the channel row; the CTAs'
+//                     sums meet through distributed shared memory, added in
+//                     rank order (no float atomics: the same result every
+//                     run). Reads one input or two (xa, xb) by logical
+//                     channel, so a group that straddles the xa/xb boundary
+//                     gets statistics over both.
 //   prepass_kernel    a conv's input through the GN affine + SiLU, written
 //                     once NHWC in the workspace as the block GEMM's operand:
 //                     bf16 (a1.astype(mm_dtype), the TPU kernels' rounding
@@ -23,7 +30,12 @@
 //   block_gemm_launch the block GEMM (block_gemm.cu): wgmma fed by TMA, the
 //                     1x1 skip in the same accumulators, the epilogue (bias,
 //                     b_skip, temb row, identity residual, 1/sqrt(2)) from
-//                     registers.
+//                     registers; for conv1 also GN2's per-channel partial
+//                     sums of h1, a row a (M tile, sample).
+//   gn_prepass_kernel GN2's pre-pass: folds conv1's partial sums (fold_affine,
+//                     a fixed order) into the affine in shared memory, then
+//                     writes silu(GN2(h1)) as prepass_kernel does; h1 is read
+//                     once, for the pre-pass only.
 //   conv_gemm_kernel  implicit-GEMM NHWC conv (3x3 SAME or 1x1) on a 64x64x32
 //                     WMMA tile, register-staged double buffer: the A tile
 //                     through an optional GN-affine(+SiLU)(x dropout mask /
@@ -31,10 +43,10 @@
 //                     there, an optional skip K segment, the same epilogue.
 //
 // bf16 mode (K2-K4 on bf16 activations, conv_impl 'fused'; the entry
-// gddim_resblock, and K9's through transition.cu), resblock_gemm_run, 6-8
-// launches: temb_proj, stats(x), the bf16 pre-pass (a1 = silu(GN1(x)) of the
-// logical concat; K4 and K9 have no GN1 and conv1 reads h as it is), conv1
-// -> h1 f32 (+ b1 + temb), stats(h1) in f32, the pre-pass (a2 =
+// gddim_resblock, and K9's through transition.cu), resblock_gemm_run, 4-7
+// launches: stats(x), the bf16 pre-pass (a1 = silu(GN1(x)) of the logical
+// concat; K4 and K9 have no GN1 and conv1 reads h as it is), conv1 -> h1 f32
+// (+ b1 + temb) with GN2's partial sums, GN2's folding pre-pass (a2 =
 // silu(GN2(h1))), conv2 + the 1x1 skip (or the identity residual) -> bf16
 // out, plus a split-K reduction after a conv whose grid is small. h1 stays
 // f32 between the convs, as the TPU kernel keeps acc3 in f32 and rounds only
@@ -45,9 +57,10 @@
 // gddim_resblock_int8, and K9's through transition.cu). Replaces the same
 // three Pallas kernels' int8 path: _resblock_kernel_v2 with static scales,
 // _resblock_kernel and _resblock_pair_kernel with per-sample (dynamic)
-// scales. The same runner, 7-9 launches: as the bf16 mode, with amax_kernel
-// (dynamic only: the per-sample amax of a1, then of a2) before each
-// pre-pass, which quantizes by quantize8: clip(rint(a * (1/s))) with a
+// scales. The same runner, 5-9 launches: as the bf16 mode, with amax_kernel
+// (dynamic only: the per-sample amax of a1, then of a2, after gn_fold_kernel
+// has folded GN2's sums into the affine) before each pre-pass, which
+// quantizes by quantize8: clip(rint(a * (1/s))) with a
 // static scale, clip(rint(a / s_b)) with s_b = max(amax_b, 1e-12)/127 per
 // sample (the pair's conv1: a * (127/amax_b)), as the TPU kernels write
 // each; K4/K9's conv1 quantizes h too. The GEMM dequantizes its int32 sums
@@ -56,8 +69,9 @@
 //
 // f32 activations (K2-K4 on f32 x, which write f32 as the TPU kernels write
 // x's dtype: gddim_resblock_f32; and K6: gddim_resblock_train),
-// resblock_run, 4-5 launches on conv_gemm_kernel: temb_proj (K2-K4 only),
-// stats(x), conv1 with the GN1 prologue, stats(h1), conv2 with the GN2
+// resblock_run, 4 launches on conv_gemm_kernel (and a split-K reduction
+// after a small grid): stats(x), conv1 with the GN1 prologue, stats(h1),
+// conv2 with the GN2
 // (+dropout) prologue and the skip segment; x is read in f32 for GN1's
 // statistics, the skip and the identity residual, h1 and out are f32, and
 // only the MMA operands are bf16, as on the TPU with mm_dtype bf16.
@@ -66,10 +80,13 @@
 // 16x16 (2*M*9*Cin*Cout operations against M*(Cin+Cout) activation bytes
 // and 9*Cin*Cout of weights), memory- and latency-bound at 8x8 and 4x4 (M
 // = B*H*W a few hundred rows, each weight byte feeding ~M operations).
-// Around them, the GN statistics, the pre-passes (bytes: at 32x32x256, B=64
-// ~34 MB of bf16 in, ~17 MB of int8 or ~34 MB of bf16 out, mostly kept in
-// L2 for the GEMM) and the temb rows. The block GEMM answers the convs
-// (block_gemm.cu's header), and K5's 1x1 projections on bf16 activations
+// Around them, the GN statistics (bytes: x read once, ~25 MB of bf16 at
+// the largest GN1, 32x32x384 at B=64, ~8 us; launch latency at the small
+// sites; GN2 costs conv1's epilogue its sums over the staged tile and no
+// read of h1) and the pre-passes (bytes: at 32x32x256, B=64 ~34 MB of bf16
+// in, ~17 MB of int8 or ~34 MB of bf16 out, mostly kept in L2 for the
+// GEMM). The block GEMM answers the convs (block_gemm.cu's header), and
+// K5's 1x1 projections on bf16 activations
 // and in int8 (attnblock.cu); conv_gemm_kernel (~4% of the bf16 peak on
 // these shapes) stays for what the block GEMM does not take: f32
 // activations (K5's projections in K10 among them), K6's dropout mask, and
@@ -80,6 +97,7 @@
 //                        the bit patterns of non-negative floats, so the
 //                        result does not depend on the order.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -90,6 +108,7 @@
 #include "conv.cuh"
 
 using namespace nvcuda;
+namespace cgr = cooperative_groups;
 
 namespace {
 
@@ -156,79 +175,169 @@ __device__ __forceinline__ void st8(float* d, const float f[8]) {
   q[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
 
-constexpr int THREADS_GN = 256;  // block_sum256 (conv.cuh)
+constexpr int THREADS_GN = 256;
+constexpr int GN_CTAS = 8;         // gn_stats_kernel's cluster: the CTAs of one sample
+constexpr int GN_MAX_GROUPS = 32;  // num_groups_for(C) = min(C / 4, 32)
+constexpr int GN_MAX_C = 2048;     // 8 channels a thread, at least one pixel lane
 
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(float v) { return v; }
-
+// grid (GN_CTAS, B), clusters of GN_CTAS along x: one cluster a sample, CTA
+// r over pixels [r hw / 8, (r + 1) hw / 8). Thread t owns the 8 channels of
+// vector t % (C / 8) at pixel lane t / (C / 8), so a warp reads whole
+// channel rows of consecutive pixels, 16 bytes a thread. Shared memory: the
+// lanes' sums and squares (2 lanes C floats), then the CTA's (2 C), which
+// the cluster's CTAs read from each other: CTA r folds groups r, r + 8, ...
+// (a warp a group: its channels' totals over the 8 CTAs in rank order, then
+// a butterfly over the warp) into the affine, mean and rstd.
 template <typename T>
-__device__ __forceinline__ float load_logical(const T* xa, const T* xb, int ca, int cb, long pix,
-                                              int c) {
-  return c < ca ? to_f(xa[pix * ca + c]) : to_f(xb[pix * cb + (c - ca)]);
-}
-
-// grid (G, B); one block per (group, sample)
-template <typename T>
-__global__ void __launch_bounds__(THREADS_GN)
-gn_affine_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, int cb, int hw,
-                 int groups, const float* __restrict__ gamma, const float* __restrict__ beta,
-                 float eps, float* __restrict__ scale, float* __restrict__ shift,
-                 float* __restrict__ mean_out, float* __restrict__ rstd_out) {
-  __shared__ float red[32];
-  const int g = blockIdx.x, b = blockIdx.y;
-  const int c_tot = ca + cb;
-  const int cg = c_tot / groups;
-  const long n = (long)hw * cg;
-  const long pix0 = (long)b * hw;
-  float s = 0.f;
-  for (long i = threadIdx.x; i < n; i += THREADS_GN) {
-    const int p = (int)(i / cg), c = g * cg + (int)(i % cg);
-    s += load_logical(xa, xb, ca, cb, pix0 + p, c);
-  }
-  const float mean = block_sum256(s, red) / (float)n;
-  float q = 0.f;
-  for (long i = threadIdx.x; i < n; i += THREADS_GN) {
-    const int p = (int)(i / cg), c = g * cg + (int)(i % cg);
-    const float d = load_logical(xa, xb, ca, cb, pix0 + p, c) - mean;
-    q += d * d;
-  }
-  const float var = block_sum256(q, red) / (float)n;
-  const float rstd = rsqrtf(var + eps);
-  for (int j = threadIdx.x; j < cg; j += THREADS_GN) {
-    const int c = g * cg + j;
-    const float a = rstd * gamma[c];
-    scale[(long)b * c_tot + c] = a;
-    shift[(long)b * c_tot + c] = beta[c] - mean * a;
-  }
-  if (mean_out != nullptr && threadIdx.x == 0) {
-    mean_out[(long)b * groups + g] = mean;
-    rstd_out[(long)b * groups + g] = rstd;
-  }
-}
-
-// grid (ceil(N/32), B), block (32, 16): 32 output columns per block, the K
-// reduction split over 16 thread rows and summed through shared memory
-constexpr int TEMB_ROWS = 16;
-
-__global__ void __launch_bounds__(32 * TEMB_ROWS)
-temb_proj_kernel(const float* __restrict__ temb, const float* __restrict__ w,
-                 const float* __restrict__ bias, float* __restrict__ out, int k, int n) {
-  __shared__ float part[TEMB_ROWS][33];
-  const int b = blockIdx.y;
-  const int col = blockIdx.x * 32 + threadIdx.x;
-  float acc = 0.f;
-  if (col < n) {
-#pragma unroll 4
-    for (int i = threadIdx.y; i < k; i += TEMB_ROWS)
-      acc += silu(temb[(long)b * k + i]) * w[(long)i * n + col];
-  }
-  part[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < n) {
-    float s = bias[col];
+__global__ void __cluster_dims__(GN_CTAS, 1, 1) __launch_bounds__(THREADS_GN)
+gn_stats_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, int cb, int hw,
+                int groups, const float* __restrict__ gamma, const float* __restrict__ beta,
+                float eps, float* __restrict__ scale, float* __restrict__ shift,
+                float* __restrict__ mean_out, float* __restrict__ rstd_out) {
+  extern __shared__ float gsm[];
+  cgr::cluster_group cluster = cgr::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.y, t = threadIdx.x;
+  const int c_tot = ca + cb, cv = c_tot / 8, lanes = THREADS_GN / cv;
+  const int lane = t / cv, v = t % cv;
+  float* ls = gsm;                      // [lanes][c_tot] sums
+  float* lq = gsm + lanes * c_tot;      // [lanes][c_tot] squares
+  float* cs = gsm + 2 * lanes * c_tot;  // [2][c_tot] the CTA's sums and squares
+  if (lane < lanes) {
+    float s[8], q[8];
 #pragma unroll
-    for (int j = 0; j < TEMB_ROWS; ++j) s += part[j][threadIdx.x];
-    out[(long)b * n + col] = s;
+    for (int j = 0; j < 8; ++j) s[j] = q[j] = 0.f;
+    const int c = 8 * v;
+    const T* base = c < ca ? xa + (long)b * hw * ca + c : xb + (long)b * hw * cb + (c - ca);
+    const long stride = c < ca ? ca : cb;
+    const int p0 = (int)((long)hw * rank / GN_CTAS), p1 = (int)((long)hw * (rank + 1) / GN_CTAS);
+#pragma unroll 4
+    for (int p = p0 + lane; p < p1; p += lanes) {
+      Pack8<T> pk;
+      ld8(pk, base + p * stride);
+      float f[8];
+      unpack8(pk, f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j] += f[j];
+        q[j] += f[j] * f[j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      ls[lane * c_tot + c + j] = s[j];
+      lq[lane * c_tot + c + j] = q[j];
+    }
+  }
+  __syncthreads();
+  for (int c = t; c < c_tot; c += THREADS_GN) {
+    float s = 0.f, q = 0.f;
+    for (int l = 0; l < lanes; ++l) {
+      s += ls[l * c_tot + c];
+      q += lq[l * c_tot + c];
+    }
+    cs[c] = s;
+    cs[c_tot + c] = q;
+  }
+  cluster.sync();
+  const int cg = c_tot / groups, warp = t >> 5, l32 = t & 31;
+  const float inv_n = 1.0f / (float)((long)hw * cg);
+  for (int g = rank + GN_CTAS * warp; g < groups; g += GN_CTAS * (THREADS_GN / 32)) {
+    float s = 0.f, q = 0.f;
+    for (int j = l32; j < cg; j += 32)
+      for (int r = 0; r < GN_CTAS; ++r) {
+        const float* peer = cluster.map_shared_rank(cs, r);
+        s += peer[g * cg + j];
+        q += peer[c_tot + g * cg + j];
+      }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      q += __shfl_xor_sync(0xffffffffu, q, o);
+    }
+    // E[x^2] - mean^2, each product rounded as the plain version's
+    const float mean = __fmul_rn(s, inv_n);
+    const float rstd =
+        rsqrtf(__fadd_rn(__fsub_rn(__fmul_rn(q, inv_n), __fmul_rn(mean, mean)), eps));
+    for (int j = l32; j < cg; j += 32) {
+      const int c = g * cg + j;
+      const float a = __fmul_rn(rstd, gamma[c]);
+      scale[(long)b * c_tot + c] = a;
+      shift[(long)b * c_tot + c] = __fsub_rn(beta[c], __fmul_rn(mean, a));
+    }
+    if (mean_out != nullptr && l32 == 0) {
+      mean_out[(long)b * groups + g] = mean;
+      rstd_out[(long)b * groups + g] = rstd;
+    }
+  }
+  cluster.sync();  // a CTA's shared memory stays until the cluster has read it
+}
+
+// GN statistics of one (B, hw, C) tensor as per-channel partial sums:
+// part (2, B, parts, C), [0] sums, [1] squares (block_gemm.cu's gn_part)
+struct GnFold {
+  const float* part;
+  int parts, groups;
+  const float* gamma;
+  const float* beta;
+  float eps;
+};
+
+// The per-channel affine of sample b from its partial sums, into sc and sh
+// (C floats of shared memory each; gs: 2 * GN_MAX_GROUPS floats): each
+// channel's partials in order, then each group's channels in order, with
+// gn_stats_kernel's arithmetic. Every thread of the CTA takes part.
+__device__ void fold_affine(const GnFold& f, int batch, int b, int c, int hw, float* sc,
+                            float* sh, float* gs) {
+  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
+    const float* ps = f.part + (long)b * f.parts * c + ch;
+    const float* pq = f.part + (long)(batch + b) * f.parts * c + ch;
+    float s = 0.f, q = 0.f;
+    for (int k = 0; k < f.parts; ++k) {
+      s += ps[(long)k * c];
+      q += pq[(long)k * c];
+    }
+    sc[ch] = s;
+    sh[ch] = q;
+  }
+  __syncthreads();
+  const int cg = c / f.groups;
+  const float inv_n = 1.0f / (float)((long)hw * cg);
+  for (int g = threadIdx.x; g < f.groups; g += blockDim.x) {
+    float s = 0.f, q = 0.f;
+    for (int j = 0; j < cg; ++j) {
+      s += sc[g * cg + j];
+      q += sh[g * cg + j];
+    }
+    const float mean = __fmul_rn(s, inv_n);
+    gs[g] = mean;
+    gs[GN_MAX_GROUPS + g] =
+        rsqrtf(__fadd_rn(__fsub_rn(__fmul_rn(q, inv_n), __fmul_rn(mean, mean)), f.eps));
+  }
+  __syncthreads();
+  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
+    const int g = ch / cg;
+    const float a = __fmul_rn(gs[GN_MAX_GROUPS + g], f.gamma[ch]);
+    sc[ch] = a;
+    sh[ch] = __fsub_rn(f.beta[ch], __fmul_rn(gs[g], a));
+  }
+  __syncthreads();
+}
+
+// Shared memory of fold_affine over C channels
+inline size_t fold_smem(int c) { return sizeof(float) * (2 * (size_t)c + 2 * GN_MAX_GROUPS); }
+
+// grid B, THREADS_GN threads: the affine of fold_affine written out (the
+// int8 per-sample mode, whose amax pass needs it before the pre-pass)
+__global__ void __launch_bounds__(THREADS_GN)
+gn_fold_kernel(const GnFold f, int batch, int c, int hw, float* __restrict__ scale,
+               float* __restrict__ shift) {
+  extern __shared__ float fsm[];
+  const int b = blockIdx.x;
+  fold_affine(f, batch, b, c, hw, fsm, fsm + c, fsm + 2 * c);
+  for (int ch = threadIdx.x; ch < c; ch += THREADS_GN) {
+    scale[(long)b * c + ch] = fsm[ch];
+    shift[(long)b * c + ch] = fsm[c + ch];
   }
 }
 
@@ -350,7 +459,7 @@ __device__ __forceinline__ void epilogue8(const ConvArgs& p, int m, int n, float
   for (int j = 0; j < 8; ++j) {
     if (p.bias) r[j] += p.bias[n + j];
     if (p.bias2) r[j] += p.bias2[n + j];
-    if (p.temb) r[j] += p.temb[(long)b * p.N + n + j];
+    if (p.temb) r[j] += p.temb[(long)b * p.temb_ld + n + j];
   }
   if (p.resid) {
     Pack8<T> rv;
@@ -560,6 +669,30 @@ amax_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, int cb, 
   }
 }
 
+// The pre-pass's conversion of 8 activations f of sample b to dst: the GN
+// affine (sc, sh; none when null) and SiLU (silu_on), then int8 by quantize8
+// (TQ int8) or bf16
+template <typename TQ>
+__device__ __forceinline__ void convert8(float f[8], const float* sc, const float* sh,
+                                         int silu_on, const Int8Args& q, int b, TQ* dst) {
+  if constexpr (std::is_same<TQ, int8_t>::value) {
+    const float inv_static = q.qs != nullptr ? 1.0f / *q.qs : 0.0f;
+    *reinterpret_cast<uint2*>(dst) = quantize8(f, sc, sh, silu_on, inv_static, q, b);
+  } else {
+    // the affine as the TPU kernels' x * a + b, without a fused multiply-add:
+    // a bf16 value keeps 8 bits of its own magnitude, so near zero, where
+    // x * a and b cancel, an FMA's unrounded product would move it by ulps
+    if (sc != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        f[j] = __fadd_rn(__fmul_rn(f[j], sc[j]), sh[j]);
+        if (silu_on) f[j] = silu(f[j]);
+      }
+    }
+    st8(dst, f);
+  }
+}
+
 // The block GEMM's pre-pass: the logical concat (xa, xb) of one conv's
 // input through the GN affine (+SiLU), written once NHWC (B, H, W, ca+cb)
 // for the GEMM's TMA loads (block_gemm.cu), as TQ: int8 by quantize8 (the
@@ -588,22 +721,29 @@ prepass_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, int c
   const long base = (long)b * c_tot + c;
   const float* sc = scale != nullptr ? scale + base : nullptr;
   const float* sh = scale != nullptr ? shift + base : nullptr;
-  if constexpr (std::is_same<TQ, int8_t>::value) {
-    const float inv_static = q.qs != nullptr ? 1.0f / *q.qs : 0.0f;
-    *reinterpret_cast<uint2*>(out + pix * c_tot + c) = quantize8(f, sc, sh, silu_on, inv_static,
-                                                                 q, b);
-  } else {
-    // the affine as the TPU kernels' x * a + b, without a fused multiply-add:
-    // a bf16 value keeps 8 bits of its own magnitude, so near zero, where
-    // x * a and b cancel, an FMA's unrounded product would move it by ulps
-    if (sc != nullptr) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        f[j] = __fadd_rn(__fmul_rn(f[j], sc[j]), sh[j]);
-        if (silu_on) f[j] = silu(f[j]);
-      }
-    }
-    st8(out + pix * c_tot + c, f);
+  convert8(f, sc, sh, silu_on, q, b, out + pix * c_tot + c);
+}
+
+// GN2's pre-pass on conv1's f32 h1 (B, hw, c): fold_affine of the GEMM's
+// partial sums into shared memory, then prepass_kernel's conversion of the
+// CTA's share of sample b. grid (chunks, B), 256 threads, fold_smem(c) bytes.
+template <typename TQ>
+__global__ void __launch_bounds__(256)
+gn_prepass_kernel(const float* __restrict__ h1, int c, int hw, const GnFold f, int batch,
+                  const Int8Args q, TQ* __restrict__ out) {
+  extern __shared__ float psm[];
+  const int b = blockIdx.y;
+  fold_affine(f, batch, b, c, hw, psm, psm + c, psm + 2 * c);
+  const long vecs = (long)hw * c / 8, per = (vecs + gridDim.x - 1) / gridDim.x;
+  const long v1 = vecs < (blockIdx.x + 1) * per ? vecs : (blockIdx.x + 1) * per;
+  const long base = (long)b * hw * c;
+  for (long v = blockIdx.x * per + threadIdx.x; v < v1; v += 256) {
+    const int ch = (int)(v * 8 % c);
+    Pack8<float> pk;
+    ld8(pk, h1 + base + v * 8);
+    float x[8];
+    unpack8(pk, x);
+    convert8(x, psm + ch, psm + c + ch, 1, q, b, out + base + v * 8);
   }
 }
 
@@ -622,24 +762,61 @@ int prepass_run(const void* xa, const void* xb, int ca, int cb, bool f32, int ba
   return (int)cudaGetLastError();
 }
 
+// GN2's pre-pass grid: at least 1024 vectors of 8 channels a CTA, about
+// four CTAs an SM in all
+int gn_prepass_chunks(int batch, int hw, int c) {
+  const long vecs = (long)hw * c / 8;
+  long chunks = 528 / batch;
+  const long most = (vecs + 1023) / 1024;
+  if (chunks > most) chunks = most;
+  return chunks < 1 ? 1 : (int)chunks;
+}
+
+// GN2's affine into a2 = silu(GN2(h1)), conv2's operand: the folding
+// pre-pass, or (int8 per sample: qs null) the fold written out, the amax of
+// a2, then the pre-pass. Counted as the pre-pass where it launches.
+int gn2_prepass_run(bool int8, const float* h1, const GnFold& f, int batch, int hw, int n,
+                    const float* qs, float* sc2, float* sh2, float* amax2, void* out,
+                    cudaStream_t st) {
+  if (f.groups > GN_MAX_GROUPS || n % f.groups || n % 8) return (int)cudaErrorInvalidValue;
+  const size_t smem = fold_smem(n);
+  if (int8 && qs == nullptr) {
+    gn_fold_kernel<<<batch, THREADS_GN, smem, st>>>(f, batch, n, hw, sc2, sh2);
+    int err = (int)cudaGetLastError();
+    if (!err) err = amax_launch(h1, nullptr, n, 0, batch, hw, sc2, sh2, 1, amax2, true, st);
+    const Int8Args q = {nullptr, amax2, 0};
+    return err ? err : prepass_launch(h1, nullptr, n, 0, true, batch, hw, sc2, sh2, 1, &q, out, st);
+  }
+  const dim3 grid(gn_prepass_chunks(batch, hw, n), batch);
+  if (int8)
+    gn_prepass_kernel<int8_t><<<grid, 256, smem, st>>>(h1, n, hw, f, batch,
+                                                       Int8Args{qs, nullptr, 0}, (int8_t*)out);
+  else
+    gn_prepass_kernel<bf16><<<grid, 256, smem, st>>>(h1, n, hw, f, batch, Int8Args{}, (bf16*)out);
+  const int err = (int)cudaGetLastError();
+  if (!err) count_launch(int8 ? COUNT_PREPASS_S8 : COUNT_PREPASS_BF16);
+  return err;
+}
+
 // Scratch of one block on the block GEMM (null base: sizes only); act_bytes
-// the pre-pass's output type, 1 (int8) or 2 (bf16). Of
-//   4 B N + 8 B Cin + 4 M N + 8 B N + 8 B + act_bytes M max(Cin, N)
+// the pre-pass's output type, 1 (int8) or 2 (bf16); parts: conv1's tiles
+// along H (GN2's partial rows a sample). Of
+//   8 B Cin + 4 M N + 8 B N + 8 B parts N + 8 B + act_bytes M max(Cin, N)
 //   (+ 4 splits M N when a conv splits K) bytes, each buffer on 256 bytes.
 struct WorkGemm {
-  float* temb;     // (B, N) temb row
   float* sc1;      // (B, Cin) GN1 affine
   float* sh1;
   float* h1;       // (M, N) conv1 output, f32
-  float* sc2;      // (B, N) GN2 affine
+  float* sc2;      // (B, N) GN2 affine (int8 dynamic mode)
   float* sh2;
+  float* gn2;      // (2, B, parts, N) GN2's partial sums and squares, from conv1
   float* amax;     // (2, B) int8 dynamic mode: per-sample amax of a1, a2
   void* a;         // (M, max(Cin, N)) the pre-pass's conv input, conv1's then conv2's
   float* partial;  // (splits, M, N) split-K partial sums
   size_t bytes;
 };
 
-WorkGemm carve_gemm(char* base, int batch, long m, int cin, int n, int splits,
+WorkGemm carve_gemm(char* base, int batch, long m, int cin, int n, int splits, int parts,
                     size_t act_bytes) {
   WorkGemm w;
   size_t off = 0;
@@ -648,12 +825,12 @@ WorkGemm carve_gemm(char* base, int batch, long m, int cin, int n, int splits,
     off += align256(bytes);
     return p;
   };
-  w.temb = (float*)take(sizeof(float) * batch * n);
   w.sc1 = (float*)take(sizeof(float) * batch * cin);
   w.sh1 = (float*)take(sizeof(float) * batch * cin);
   w.h1 = (float*)take(sizeof(float) * m * n);
   w.sc2 = (float*)take(sizeof(float) * batch * n);
   w.sh2 = (float*)take(sizeof(float) * batch * n);
+  w.gn2 = (float*)take(sizeof(float) * 2 * batch * parts * n);
   w.amax = (float*)take(sizeof(float) * 2 * batch);
   w.a = take(act_bytes * m * (cin > n ? cin : n));
   w.partial = splits > 1 ? (float*)take(sizeof(float) * splits * m * n) : nullptr;
@@ -663,7 +840,6 @@ WorkGemm carve_gemm(char* base, int batch, long m, int cin, int n, int splits,
 
 // Scratch of one f32 block on conv_gemm_kernel (null base: sizes only).
 struct Work {
-  float* temb;  // (B, N) temb row
   float* sc1;   // (B, Cin) GN1 affine
   float* sh1;
   float* h1;    // (M, N) conv1 output
@@ -681,7 +857,6 @@ Work carve(char* base, int batch, long m, int cin, int n, int splits) {
     off += align256(bytes);
     return p;
   };
-  w.temb = (float*)take(sizeof(float) * batch * n);
   w.sc1 = (float*)take(sizeof(float) * batch * cin);
   w.sh1 = (float*)take(sizeof(float) * batch * cin);
   w.h1 = (float*)take(sizeof(float) * m * n);
@@ -693,45 +868,38 @@ Work carve(char* base, int batch, long m, int cin, int n, int splits) {
 }
 
 // One residual block on f32 activations through conv_gemm_kernel (K2-K4 on
-// f32 activations, K6). temb_row non-null: the (B, N) temb projection
-// precomputed (K6); else temb_proj_kernel makes it from (temb, dense_w,
-// dense_b). groups1 = 0: no GN1 on the conv1 input (K4). s0 == null selects
-// the identity residual x0. mask non-null: dropout after GN2+SiLU (K6).
+// f32 activations, K6). temb_row: the (B, N) temb projection, row b at
+// temb_row + b * temb_ld. groups1 = 0: no GN1 on the conv1 input (K4). s0
+// == null selects the identity residual x0. mask non-null: dropout after
+// GN2+SiLU (K6).
 int resblock_run(const void* x0, const void* x1, int c0, int c1, const void* temb_row,
-                 const void* temb, const void* dense_w, const void* dense_b, int temb_k,
-                 const void* gn1_g, const void* gn1_b, int groups1, const void* w1, const void* b1,
-                 const void* gn2_g, const void* gn2_b, int groups2, const void* w2, const void* b2,
-                 const void* s0, const void* s1, int cs0, int cs1, const void* ws, const void* bs,
-                 const void* mask, float inv_keep, int batch, int h, int w_, int n, float eps,
-                 float out_scale, void* work, int splits1, int kper1, int splits2, int kper2,
-                 void* out, cudaStream_t stream) {
+                 int temb_ld, const void* gn1_g, const void* gn1_b, int groups1, const void* w1,
+                 const void* b1, const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
+                 const void* b2, const void* s0, const void* s1, int cs0, int cs1, const void* ws,
+                 const void* bs, const void* mask, float inv_keep, int batch, int h, int w_, int n,
+                 float eps, float out_scale, void* work, int splits1, int kper1, int splits2,
+                 int kper2, void* out, cudaStream_t stream) {
   const int cin = c0 + c1;
   const int hw = h * w_;
   const Work wk = carve((char*)work, batch, (long)batch * hw, cin, n,
                         splits1 > splits2 ? splits1 : splits2);
   const bool gn1 = groups1 > 0;
   int err = 0;
-  const float* trow = (const float*)temb_row;
-  if (trow == nullptr) {
-    temb_proj_kernel<<<dim3((n + 31) / 32, batch), dim3(32, TEMB_ROWS), 0, stream>>>(
-        (const float*)temb, (const float*)dense_w, (const float*)dense_b, wk.temb, temb_k, n);
-    err = (int)cudaGetLastError();
-    trow = wk.temb;
-  }
-  if (!err && gn1)
-    err = gn_affine_launch(x0, x1, c0, c1, batch, hw, groups1, (const float*)gn1_g,
-                           (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr, true, stream);
+  if (gn1)
+    err = gn_stats_launch(x0, x1, c0, c1, batch, hw, groups1, (const float*)gn1_g,
+                          (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr, true, stream);
   if (!err) {
     ConvArgs p = conv_args(x0, c0, gn1 ? wk.sc1 : nullptr, gn1 ? wk.sh1 : nullptr, gn1 ? 1 : 0, 9,
                            w1, batch, h, w_, n, b1, 1.0f, wk.h1, wk.partial, splits1, kper1);
     p.a1 = x1;
     p.ca1 = c1;
-    p.temb = trow;
+    p.temb = (const float*)temb_row;
+    p.temb_ld = temb_ld;
     err = conv_gemm_run<float, float>(p, stream);
   }
   if (!err)
-    err = gn_affine_launch(wk.h1, nullptr, n, 0, batch, hw, groups2, (const float*)gn2_g,
-                           (const float*)gn2_b, eps, wk.sc2, wk.sh2, nullptr, nullptr, true, stream);
+    err = gn_stats_launch(wk.h1, nullptr, n, 0, batch, hw, groups2, (const float*)gn2_g,
+                          (const float*)gn2_b, eps, wk.sc2, wk.sh2, nullptr, nullptr, true, stream);
   if (!err) {
     ConvArgs p = conv_args(wk.h1, n, wk.sc2, wk.sh2, 1, 9, w2, batch, h, w_, n, b2, out_scale,
                            out, wk.partial, splits2, kper2);
@@ -785,19 +953,26 @@ void conv_split_plan(long m, int n, int k, int* splits, int* kper) {
   *splits = (slices + per - 1) / per;
 }
 
-int gn_affine_launch(const void* xa, const void* xb, int ca, int cb, int batch, int hw,
-                     int groups, const float* gamma, const float* beta, float eps, float* scale,
-                     float* shift, float* mean, float* rstd, bool f32, cudaStream_t stream) {
-  dim3 grid(groups, batch);
+int gn_stats_launch(const void* xa, const void* xb, int ca, int cb, int batch, int hw,
+                    int groups, const float* gamma, const float* beta, float eps, float* scale,
+                    float* shift, float* mean, float* rstd, bool f32, cudaStream_t stream) {
+  const int c = ca + cb;
+  if (ca % 8 || cb % 8 || c < 8 || c > GN_MAX_C || groups < 1 || c % groups)
+    return (int)cudaErrorInvalidValue;
+  const int lanes = THREADS_GN / (c / 8);
+  const size_t smem = sizeof(float) * (2 * (size_t)lanes * c + 2 * c);
+  const dim3 grid(GN_CTAS, batch);
   if (f32)
-    gn_affine_kernel<float><<<grid, THREADS_GN, 0, stream>>>(
+    gn_stats_kernel<float><<<grid, THREADS_GN, smem, stream>>>(
         (const float*)xa, (const float*)xb, ca, cb, hw, groups, gamma, beta, eps, scale, shift,
         mean, rstd);
   else
-    gn_affine_kernel<bf16><<<grid, THREADS_GN, 0, stream>>>(
+    gn_stats_kernel<bf16><<<grid, THREADS_GN, smem, stream>>>(
         (const bf16*)xa, (const bf16*)xb, ca, cb, hw, groups, gamma, beta, eps, scale, shift,
         mean, rstd);
-  return (int)cudaGetLastError();
+  const int err = (int)cudaGetLastError();
+  if (!err) count_launch(COUNT_GN_STATS);
+  return err;
 }
 
 int amax_launch(const void* xa, const void* xb, int ca, int cb, int batch, int hw,
@@ -820,30 +995,28 @@ int amax_launch(const void* xa, const void* xb, int ca, int cb, int batch, int h
 }
 
 int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1, bool x_f32,
-                      const float* amax1, const void* temb, const void* dense_w,
-                      const void* dense_b, int temb_k, const void* gn1_g, const void* gn1_b,
-                      int groups1, const void* w1, const void* w1s, const void* b1,
-                      const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
-                      const void* w2s, const void* b2, const void* s0, const void* s1, int cs0,
-                      int cs1, const void* ws, const void* bs, const void* act_scales, int batch,
-                      int h, int w_, int n, float eps, float out_scale, void* work,
-                      const GemmTiles& tiles, int splits1, int kper1, int splits2, int kper2,
-                      void* out, cudaStream_t st) {
+                      const float* amax1, const void* temb_row, int temb_ld, const void* gn1_g,
+                      const void* gn1_b, int groups1, const void* w1, const void* w1s,
+                      const void* b1, const void* gn2_g, const void* gn2_b, int groups2,
+                      const void* w2, const void* w2s, const void* b2, const void* s0,
+                      const void* s1, int cs0, int cs1, const void* ws, const void* bs,
+                      const void* act_scales, int batch, int h, int w_, int n, float eps,
+                      float out_scale, void* work, const GemmTiles& tiles, int splits1, int kper1,
+                      int splits2, int kper2, void* out, cudaStream_t st) {
   const int hw = h * w_;
   const int cin = c0 + c1;
   const bool gn1 = groups1 > 0;
   // the bf16 mode: bf16 x, and conv1 reads x0 as it is without GN1
   if (!int8 && (x_f32 || (!gn1 && x1 != nullptr))) return (int)cudaErrorInvalidValue;
   const WorkGemm wk = carve_gemm((char*)work, batch, (long)batch * hw, cin, n,
-                                 splits1 > splits2 ? splits1 : splits2, int8 ? 1 : 2);
+                                 splits1 > splits2 ? splits1 : splits2, tiles.tiles_h,
+                                 int8 ? 1 : 2);
   const float* qs = (const float*)act_scales;
   const float* am1 = amax1 ? amax1 : wk.amax;
-  temb_proj_kernel<<<dim3((n + 31) / 32, batch), dim3(32, TEMB_ROWS), 0, st>>>(
-      (const float*)temb, (const float*)dense_w, (const float*)dense_b, wk.temb, temb_k, n);
-  int err = (int)cudaGetLastError();
-  if (!err && gn1)
-    err = gn_affine_launch(x0, x1, c0, c1, batch, hw, groups1, (const float*)gn1_g,
-                           (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr, x_f32, st);
+  int err = 0;
+  if (gn1)
+    err = gn_stats_launch(x0, x1, c0, c1, batch, hw, groups1, (const float*)gn1_g,
+                          (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr, x_f32, st);
   if (!err && int8 && qs == nullptr && amax1 == nullptr)
     err = amax_launch(x0, x1, c0, c1, batch, hw, gn1 ? wk.sc1 : nullptr, gn1 ? wk.sh1 : nullptr,
                       gn1 ? 1 : 0, wk.amax, x_f32, st);
@@ -862,7 +1035,7 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
   g.W = w_;
   g.N = n;
   g.partial = wk.partial;
-  if (!err) {  // h1 = conv1(a1) [* (w1s * s1)] + b1 + temb, f32
+  if (!err) {  // h1 = conv1(a1) [* (w1s * s1)] + b1 + temb, f32, and GN2's partial sums
     g.a = a1;
     g.w = w1;
     g.cin = cin;
@@ -870,23 +1043,21 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
     g.qs = qs;
     g.amax = am1;
     g.bias = (const float*)b1;
-    g.temb = wk.temb;
+    g.temb = (const float*)temb_row;
+    g.temb_ld = temb_ld;
     g.out_scale = 1.0f;
     g.out = wk.h1;
     g.out_f32 = true;
+    g.gn_part = wk.gn2;
     g.splits = splits1;
     g.kper = kper1;
     err = block_gemm_launch(g, tiles, st);
   }
-  if (!err)
-    err = gn_affine_launch(wk.h1, nullptr, n, 0, batch, hw, groups2, (const float*)gn2_g,
-                           (const float*)gn2_b, eps, wk.sc2, wk.sh2, nullptr, nullptr, true, st);
-  if (!err && int8 && qs == nullptr)
-    err = amax_launch(wk.h1, nullptr, n, 0, batch, hw, wk.sc2, wk.sh2, 1, wk.amax + batch, true, st);
   if (!err) {  // a2 = silu(GN2(h1)) in bf16, or q(a2), over conv1's input, which conv1 has read
-    const Int8Args q = {qs ? qs + 1 : nullptr, wk.amax + batch, 0};
-    err = prepass_launch(wk.h1, nullptr, n, 0, true, batch, hw, wk.sc2, wk.sh2, 1,
-                         int8 ? &q : nullptr, wk.a, st);
+    const GnFold f = {wk.gn2, tiles.tiles_h, groups2, (const float*)gn2_g, (const float*)gn2_b,
+                      eps};
+    err = gn2_prepass_run(int8, wk.h1, f, batch, hw, n, qs ? qs + 1 : nullptr, wk.sc2, wk.sh2,
+                          wk.amax + batch, wk.a, st);
   }
   if (!err) {  // out = (conv2(a2) [* (w2s * s2)] + skip + b2 + b_skip) * out_scale
     g.a = wk.a;
@@ -907,6 +1078,7 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
     g.out_scale = out_scale;
     g.out = out;
     g.out_f32 = false;
+    g.gn_part = nullptr;
     g.splits = splits2;
     g.kper = kper2;
     err = block_gemm_launch(g, tiles, st);
@@ -916,8 +1088,10 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
 
 extern "C" {
 
-long long gddim_resblock_int8_workspace(int batch, int h, int w, int cin, int n, int splits) {
-  return (long long)carve_gemm(nullptr, batch, (long)batch * h * w, cin, n, splits, 1).bytes;
+long long gddim_resblock_int8_workspace(int batch, int h, int w, int cin, int n, int splits,
+                                        int parts) {
+  return (long long)carve_gemm(nullptr, batch, (long)batch * h * w, cin, n, splits, parts, 1)
+      .bytes;
 }
 
 // The int8 mode of K2 / K3 / K4 (arguments as gddim_resblock, with the
@@ -928,21 +1102,20 @@ long long gddim_resblock_int8_workspace(int batch, int h, int w, int cin, int n,
 // skip (ws, bs) is bf16. The tile plan (ops/resblock.py:s8_tile_plan): the
 // M tiling (mw, box_h, box_b, tiles_h, m_tiles), shared by both convs, and
 // each conv's split of K.
-int gddim_resblock_int8(const void* x0, const void* x1, int c0, int c1, const void* temb,
-                        const void* dense_w, const void* dense_b, int temb_k, const void* gn1_g,
-                        const void* gn1_b, int groups1, const void* w1q, const void* w1s,
-                        const void* b1, const void* gn2_g, const void* gn2_b, int groups2,
-                        const void* w2q, const void* w2s, const void* b2, const void* s0,
-                        const void* s1, int cs0, int cs1, const void* ws, const void* bs,
-                        const void* act_scales, int batch, int h, int w_, int n, float eps,
-                        float out_scale, void* work, int mw, int box_h, int box_b, int tiles_h,
-                        int m_tiles, int splits1, int kper1, int splits2, int kper2, void* out,
-                        void* stream) {
-  return resblock_gemm_run(true, x0, x1, c0, c1, false, nullptr, temb, dense_w, dense_b, temb_k,
-                           gn1_g, gn1_b, groups1, w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s,
-                           b2, s0, s1, cs0, cs1, ws, bs, act_scales, batch, h, w_, n, eps,
-                           out_scale, work, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},
-                           splits1, kper1, splits2, kper2, out, (cudaStream_t)stream);
+int gddim_resblock_int8(const void* x0, const void* x1, int c0, int c1, const void* temb_row,
+                        int temb_ld, const void* gn1_g, const void* gn1_b, int groups1,
+                        const void* w1q, const void* w1s, const void* b1, const void* gn2_g,
+                        const void* gn2_b, int groups2, const void* w2q, const void* w2s,
+                        const void* b2, const void* s0, const void* s1, int cs0, int cs1,
+                        const void* ws, const void* bs, const void* act_scales, int batch, int h,
+                        int w_, int n, float eps, float out_scale, void* work, int mw, int box_h,
+                        int box_b, int tiles_h, int m_tiles, int splits1, int kper1, int splits2,
+                        int kper2, void* out, void* stream) {
+  return resblock_gemm_run(true, x0, x1, c0, c1, false, nullptr, temb_row, temb_ld, gn1_g, gn1_b,
+                           groups1, w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, s0, s1,
+                           cs0, cs1, ws, bs, act_scales, batch, h, w_, n, eps, out_scale, work,
+                           GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1, splits2,
+                           kper2, out, (cudaStream_t)stream);
 }
 
 // The int8 block's quantize pre-pass alone: out (B, H, W, ca+cb) int8 from
@@ -969,30 +1142,45 @@ int gddim_bf16_prepass(const void* xa, const void* xb, int ca, int cb, int act_f
                         (const float*)shift, silu_on, nullptr, out, (cudaStream_t)stream);
 }
 
-long long gddim_resblock_workspace(int batch, int h, int w, int cin, int n, int splits) {
-  return (long long)carve_gemm(nullptr, batch, (long)batch * h * w, cin, n, splits, 2).bytes;
+// The GroupNorm statistics kernel alone (gn_stats_launch): the logical
+// concat (xa, xb) (B, hw, ca+cb), f32 with act_f32, else bf16, to the
+// per-(sample, channel) affine scale, shift (B, C) and, when mean is
+// non-null, mean and rstd (B, groups), all f32.
+int gddim_gn_stats(const void* xa, const void* xb, int ca, int cb, int act_f32, int batch, int hw,
+                   int groups, const void* gamma, const void* beta, float eps, void* scale,
+                   void* shift, void* mean, void* rstd, void* stream) {
+  return gn_stats_launch(xa, xb, ca, cb, batch, hw, groups, (const float*)gamma,
+                         (const float*)beta, eps, (float*)scale, (float*)shift, (float*)mean,
+                         (float*)rstd, act_f32 != 0, (cudaStream_t)stream);
+}
+
+long long gddim_resblock_workspace(int batch, int h, int w, int cin, int n, int splits,
+                                   int parts) {
+  return (long long)carve_gemm(nullptr, batch, (long)batch * h * w, cin, n, splits, parts, 2)
+      .bytes;
 }
 
 // K2 (x0, identity or 1x1 skip on x0), K3 (x0 and x1 as the logical concat)
 // or K4 (groups1 = 0: no GN1 on the conv1 input; the skip reads s0) on bf16
 // activations, through the bf16 pre-pass and the block GEMM: h1 f32, the
-// conv operands bf16, out bf16. The tile plan (ops/resblock.py:
-// bf16_tile_plan) as gddim_resblock_int8 takes it. Scratch comes from
-// `work`, gddim_resblock_workspace bytes.
-int gddim_resblock(const void* x0, const void* x1, int c0, int c1, const void* temb,
-                   const void* dense_w, const void* dense_b, int temb_k, const void* gn1_g,
-                   const void* gn1_b, int groups1, const void* w1, const void* b1,
-                   const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
-                   const void* b2, const void* s0, const void* s1, int cs0, int cs1,
-                   const void* ws, const void* bs, int batch, int h, int w_, int n, float eps,
-                   float out_scale, void* work, int mw, int box_h, int box_b, int tiles_h,
-                   int m_tiles, int splits1, int kper1, int splits2, int kper2, void* out,
-                   void* stream) {
-  return resblock_gemm_run(false, x0, x1, c0, c1, false, nullptr, temb, dense_w, dense_b, temb_k,
-                           gn1_g, gn1_b, groups1, w1, nullptr, b1, gn2_g, gn2_b, groups2, w2,
-                           nullptr, b2, s0, s1, cs0, cs1, ws, bs, nullptr, batch, h, w_, n, eps,
-                           out_scale, work, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},
-                           splits1, kper1, splits2, kper2, out, (cudaStream_t)stream);
+// conv operands bf16, out bf16. temb_row: the block's (B, N) f32 temb
+// projection, row b at temb_row + b * temb_ld. The tile plan
+// (ops/resblock.py: bf16_tile_plan) as gddim_resblock_int8 takes it.
+// Scratch comes from `work`, gddim_resblock_workspace bytes (parts: the
+// plan's tiles_h).
+int gddim_resblock(const void* x0, const void* x1, int c0, int c1, const void* temb_row,
+                   int temb_ld, const void* gn1_g, const void* gn1_b, int groups1, const void* w1,
+                   const void* b1, const void* gn2_g, const void* gn2_b, int groups2,
+                   const void* w2, const void* b2, const void* s0, const void* s1, int cs0,
+                   int cs1, const void* ws, const void* bs, int batch, int h, int w_, int n,
+                   float eps, float out_scale, void* work, int mw, int box_h, int box_b,
+                   int tiles_h, int m_tiles, int splits1, int kper1, int splits2, int kper2,
+                   void* out, void* stream) {
+  return resblock_gemm_run(false, x0, x1, c0, c1, false, nullptr, temb_row, temb_ld, gn1_g,
+                           gn1_b, groups1, w1, nullptr, b1, gn2_g, gn2_b, groups2, w2, nullptr, b2,
+                           s0, s1, cs0, cs1, ws, bs, nullptr, batch, h, w_, n, eps, out_scale,
+                           work, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1,
+                           splits2, kper2, out, (cudaStream_t)stream);
 }
 
 long long gddim_resblock_f32_workspace(int batch, int h, int w, int cin, int n, int splits) {
@@ -1002,18 +1190,17 @@ long long gddim_resblock_f32_workspace(int batch, int h, int w, int cin, int n, 
 // K2 / K3 / K4 as gddim_resblock on f32 activations (x, h1 and out f32, MMA
 // operands bf16) through conv_gemm_kernel; splits/kper: each conv's split of
 // K in channels (ops/resblock.py:split_k). Scratch: gddim_resblock_f32_workspace.
-int gddim_resblock_f32(const void* x0, const void* x1, int c0, int c1, const void* temb,
-                       const void* dense_w, const void* dense_b, int temb_k, const void* gn1_g,
-                       const void* gn1_b, int groups1, const void* w1, const void* b1,
-                       const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
-                       const void* b2, const void* s0, const void* s1, int cs0, int cs1,
-                       const void* ws, const void* bs, int batch, int h, int w_, int n,
-                       float eps, float out_scale, void* work, int splits1, int kper1,
-                       int splits2, int kper2, void* out, void* stream) {
-  return resblock_run(x0, x1, c0, c1, nullptr, temb, dense_w, dense_b, temb_k, gn1_g, gn1_b,
-                      groups1, w1, b1, gn2_g, gn2_b, groups2, w2, b2, s0, s1, cs0, cs1, ws, bs,
-                      nullptr, 1.0f, batch, h, w_, n, eps, out_scale, work, splits1, kper1,
-                      splits2, kper2, out, (cudaStream_t)stream);
+int gddim_resblock_f32(const void* x0, const void* x1, int c0, int c1, const void* temb_row,
+                       int temb_ld, const void* gn1_g, const void* gn1_b, int groups1,
+                       const void* w1, const void* b1, const void* gn2_g, const void* gn2_b,
+                       int groups2, const void* w2, const void* b2, const void* s0,
+                       const void* s1, int cs0, int cs1, const void* ws, const void* bs,
+                       int batch, int h, int w_, int n, float eps, float out_scale, void* work,
+                       int splits1, int kper1, int splits2, int kper2, void* out, void* stream) {
+  return resblock_run(x0, x1, c0, c1, temb_row, temb_ld, gn1_g, gn1_b, groups1, w1, b1, gn2_g,
+                      gn2_b, groups2, w2, b2, s0, s1, cs0, cs1, ws, bs, nullptr, 1.0f, batch, h,
+                      w_, n, eps, out_scale, work, splits1, kper1, splits2, kper2, out,
+                      (cudaStream_t)stream);
 }
 
 long long gddim_resblock_train_workspace(int batch, int h, int w, int cin, int n, int splits) {
@@ -1030,10 +1217,10 @@ int gddim_resblock_train(const void* x, int c, const void* temb_row, const void*
                          float inv_keep, int batch, int h, int w_, int n, float eps,
                          float out_scale, void* work, int splits1, int kper1, int splits2,
                          int kper2, void* out, void* stream) {
-  return resblock_run(x, nullptr, c, 0, temb_row, nullptr, nullptr, nullptr, 0, gn1_g, gn1_b,
-                      groups1, w1, b1, gn2_g, gn2_b, groups2, w2, b2, ws ? x : nullptr, nullptr,
-                      ws ? c : 0, 0, ws, bs, mask, inv_keep, batch, h, w_, n, eps, out_scale,
-                      work, splits1, kper1, splits2, kper2, out, (cudaStream_t)stream);
+  return resblock_run(x, nullptr, c, 0, temb_row, n, gn1_g, gn1_b, groups1, w1, b1, gn2_g, gn2_b,
+                      groups2, w2, b2, ws ? x : nullptr, nullptr, ws ? c : 0, 0, ws, bs, mask,
+                      inv_keep, batch, h, w_, n, eps, out_scale, work, splits1, kper1, splits2,
+                      kper2, out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

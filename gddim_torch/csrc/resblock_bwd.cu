@@ -13,9 +13,9 @@
 // sequential grid; 132 SMs that run blocks in no order have no such carry,
 // so here the backward is a chain of launches, each a hand-written kernel:
 //
-//   1  gn_affine(x)       GN1 statistics (resblock.cu)
+//   1  gn_stats(x)        GN1 statistics (resblock.cu)
 //   2  conv_gemm          u = conv1(silu(GN1 x)) + b1 + temb_proj, f32
-//   3  gn_affine(u)       GN2 statistics
+//   3  gn_stats(u)        GN2 statistics
 //   4  conv_gemm          gd = r * conv(g, W2 flipped/transposed): dgrad of
 //                         a stride-1 SAME 3x3 conv is the same conv of the
 //                         cotangent with the taps flipped and (Cin, Cout)
@@ -483,19 +483,18 @@ int gddim_resblock_bwd(const void* x, const void* temb_row, const void* gn1_g, c
   const float r = out_scale;
 
   // 1-3: recompute GN1, u = conv1(silu(GN1 x)) + b1 + temb_proj, GN2
-  int err = gn_affine_launch(x, nullptr, cin, 0, batch, hw, groups1, (const float*)gn1_g,
-                             (const float*)gn1_b, eps, wk.sc1, wk.sh1, wk.mean1, wk.rstd1, true,
-                             st);
+  int err = gn_stats_launch(x, nullptr, cin, 0, batch, hw, groups1, (const float*)gn1_g,
+                            (const float*)gn1_b, eps, wk.sc1, wk.sh1, wk.mean1, wk.rstd1, true, st);
   if (!err) {
     ConvArgs p = conv_args(x, cin, wk.sc1, wk.sh1, 1, 9, w1, batch, h, w_, n, b1, 1.0f, wk.u,
                       wk.conv_partial, pl.s_u, pl.k_u);
     p.temb = (const float*)temb_row;
+    p.temb_ld = n;
     err = conv_gemm_launch(p, true, st);
   }
   if (!err)
-    err = gn_affine_launch(wk.u, nullptr, n, 0, batch, hw, groups2, (const float*)gn2_g,
-                           (const float*)gn2_b, eps, wk.sc2, wk.sh2, wk.mean2, wk.rstd2, true,
-                           st);
+    err = gn_stats_launch(wk.u, nullptr, n, 0, batch, hw, groups2, (const float*)gn2_g,
+                          (const float*)gn2_b, eps, wk.sc2, wk.sh2, wk.mean2, wk.rstd2, true, st);
   // 4: dL/dd = r * conv(g, W2^T flipped)
   if (!err)
     err = conv_gemm_launch(conv_args(g, n, nullptr, nullptr, 0, 9, w2t, batch, h, w_, n, nullptr, r,

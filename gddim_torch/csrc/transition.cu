@@ -14,7 +14,7 @@
 // kernel fills a zero-bordered scratch with the activation, rounded to the
 // scratch dtype, bf16, and resamples that). Each C call runs:
 //
-//   gn_affine_launch (resblock.cu)   GN1 statistics of x -> per-(sample,
+//   gn_stats_launch (resblock.cu)    GN1 statistics of x -> per-(sample,
 //                                    channel) affine
 //   transition_resample_kernel       per output pixel and 8 channels: the
 //                                    2x2 (up) or 4x4 (down) input taps, GN1
@@ -26,12 +26,14 @@
 //                                    unrounded, with the per-sample amax by
 //                                    atomicMax on the float bits) and xr
 //                                    (the raw x resampled, rounded to bf16)
-//   the K4 path of resblock.cu       conv1 with GN1 off, GN2, conv2 with xr as
-//                                    the 1x1 skip's K segment: bf16 and int8
-//                                    through the block GEMM (block_gemm.cu;
-//                                    bf16 conv1 reads h as it is, int8
-//                                    quantizes it in the pre-pass), f32 x
-//                                    through conv_gemm_kernel
+//   the K4 path of resblock.cu       conv1 with GN1 off (+ the temb row, and
+//                                    GN2's partial sums in its epilogue),
+//                                    GN2, conv2 with xr as the 1x1 skip's K
+//                                    segment: bf16 and int8 through the
+//                                    block GEMM (block_gemm.cu; bf16 conv1
+//                                    reads h as it is, int8 quantizes it in
+//                                    the pre-pass), f32 x through
+//                                    conv_gemm_kernel
 //
 // What bounds it on the H100: the two 3x3 convs, as in K4 (tensor-core bound
 // at 16x16 and 32x32, weight bytes and latency at 4x4 and 8x8). The resample
@@ -50,20 +52,20 @@
 #include "conv.cuh"
 
 extern "C" long long gddim_resblock_workspace(int batch, int h, int w, int cin, int n,
-                                              int splits);
+                                              int splits, int parts);
 extern "C" long long gddim_resblock_f32_workspace(int batch, int h, int w, int cin, int n,
                                                   int splits);
 extern "C" long long gddim_resblock_int8_workspace(int batch, int h, int w, int cin, int n,
-                                                   int splits);
+                                                   int splits, int parts);
 extern "C" int gddim_resblock_f32(const void* x0, const void* x1, int c0, int c1,
-                                  const void* temb, const void* dense_w, const void* dense_b,
-                                  int temb_k, const void* gn1_g, const void* gn1_b, int groups1,
-                                  const void* w1, const void* b1, const void* gn2_g,
-                                  const void* gn2_b, int groups2, const void* w2, const void* b2,
-                                  const void* s0, const void* s1, int cs0, int cs1,
-                                  const void* ws, const void* bs, int batch, int h, int w_, int n,
-                                  float eps, float out_scale, void* work, int splits1, int kper1,
-                                  int splits2, int kper2, void* out, void* stream);
+                                  const void* temb_row, int temb_ld, const void* gn1_g,
+                                  const void* gn1_b, int groups1, const void* w1, const void* b1,
+                                  const void* gn2_g, const void* gn2_b, int groups2,
+                                  const void* w2, const void* b2, const void* s0, const void* s1,
+                                  int cs0, int cs1, const void* ws, const void* bs, int batch,
+                                  int h, int w_, int n, float eps, float out_scale, void* work,
+                                  int splits1, int kper1, int splits2, int kper2, void* out,
+                                  void* stream);
 
 namespace {
 
@@ -255,9 +257,9 @@ template <typename TX, typename TH>
 int gn1_resample(const void* x, int c, const void* gn1_g, const void* gn1_b, int groups1,
                  int batch, int h_in, int w_in, int up, const Taps& k, float eps, int round_h,
                  const Work& wk, float* amax, cudaStream_t st) {
-  int err = gn_affine_launch(x, nullptr, c, 0, batch, h_in * w_in, groups1, (const float*)gn1_g,
-                             (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr,
-                             std::is_same<TX, float>::value, st);
+  int err = gn_stats_launch(x, nullptr, c, 0, batch, h_in * w_in, groups1, (const float*)gn1_g,
+                            (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr,
+                            std::is_same<TX, float>::value, st);
   if (!err && amax) err = (int)cudaMemsetAsync(amax, 0, sizeof(float) * batch, st);
   if (!err)
     err = resample_launch<TX, TH>(x, wk.sc1, wk.sh1, batch, h_in, w_in, c, up, k, round_h, wk.h,
@@ -269,22 +271,25 @@ int gn1_resample(const void* x, int c, const void* gn1_g, const void* gn1_b, int
 
 extern "C" {
 
-// h, w: the OUTPUT resolution (the block's convs run there)
-long long gddim_resblock_transition_workspace(int batch, int h, int w, int c, int n, int splits) {
+// h, w: the OUTPUT resolution (the block's convs run there); parts: the
+// tile plan's tiles_h there
+long long gddim_resblock_transition_workspace(int batch, int h, int w, int c, int n, int splits,
+                                              int parts) {
   return (long long)(carve(nullptr, batch, h, w, c, sizeof(bf16), sizeof(bf16)).bytes +
-                     gddim_resblock_workspace(batch, h, w, c, n, splits));
+                     gddim_resblock_workspace(batch, h, w, c, n, splits, parts));
 }
 
-// K9, bf16 mode: x (B, H_in, W_in, C) bf16. (kh, kw): the phase
+// K9, bf16 mode: x (B, H_in, W_in, C) bf16. temb_row: the block's (B, N)
+// f32 temb projection, row b at temb_row + b * temb_ld. (kh, kw): the phase
 // coefficients. h (bf16) is conv1's operand as it is (the bf16 block's
 // path with GN1 off: no pre-pass for conv1), xr the skip's. The tile plan
 // (ops/resblock.py:bf16_tile_plan) as gddim_resblock takes it, at the
 // output resolution. Scratch: gddim_resblock_transition_workspace bytes.
-int gddim_resblock_transition(const void* x, int c, const void* temb, const void* dense_w,
-                              const void* dense_b, int temb_k, const void* gn1_g,
-                              const void* gn1_b, int groups1, const void* w1, const void* b1,
-                              const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
-                              const void* b2, const void* ws, const void* bs, int batch, int h_in,
+int gddim_resblock_transition(const void* x, int c, const void* temb_row, int temb_ld,
+                              const void* gn1_g, const void* gn1_b, int groups1, const void* w1,
+                              const void* b1, const void* gn2_g, const void* gn2_b, int groups2,
+                              const void* w2, const void* b2, const void* ws, const void* bs,
+                              int batch, int h_in,
                               int w_in, int up, float kh0, float kh1, float kh2, float kh3,
                               float kw0, float kw1, float kw2, float kw3, int n, float eps,
                               float out_scale, void* work, int mw, int box_h, int box_b,
@@ -298,12 +303,11 @@ int gddim_resblock_transition(const void* x, int c, const void* temb, const void
   const int err = gn1_resample<bf16, bf16>(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up, k,
                                            eps, 1, wk, nullptr, st);
   if (err) return err;
-  return resblock_gemm_run(false, wk.h, nullptr, c, 0, false, nullptr, temb, dense_w, dense_b,
-                           temb_k, nullptr, nullptr, 0, w1, nullptr, b1, gn2_g, gn2_b, groups2,
-                           w2, nullptr, b2, wk.xr, nullptr, c, 0, ws, bs, nullptr, batch, ho, wo,
-                           n, eps, out_scale, wk.rest,
-                           GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1,
-                           splits2, kper2, out, st);
+  return resblock_gemm_run(false, wk.h, nullptr, c, 0, false, nullptr, temb_row, temb_ld,
+                           nullptr, nullptr, 0, w1, nullptr, b1, gn2_g, gn2_b, groups2, w2,
+                           nullptr, b2, wk.xr, nullptr, c, 0, ws, bs, nullptr, batch, ho, wo, n,
+                           eps, out_scale, wk.rest, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},
+                           splits1, kper1, splits2, kper2, out, st);
 }
 
 long long gddim_resblock_transition_f32_workspace(int batch, int h, int w, int c, int n,
@@ -316,9 +320,9 @@ long long gddim_resblock_transition_f32_workspace(int batch, int h, int w, int c
 // f32, through the f32 block (conv_gemm_kernel); splits/kper: conv1's and
 // conv2's split-K at the output resolution (ops/resblock.py:split_k).
 // Scratch: gddim_resblock_transition_f32_workspace bytes.
-int gddim_resblock_transition_f32(const void* x, int c, const void* temb, const void* dense_w,
-                                  const void* dense_b, int temb_k, const void* gn1_g,
-                                  const void* gn1_b, int groups1, const void* w1, const void* b1,
+int gddim_resblock_transition_f32(const void* x, int c, const void* temb_row, int temb_ld,
+                                  const void* gn1_g, const void* gn1_b, int groups1,
+                                  const void* w1, const void* b1,
                                   const void* gn2_g, const void* gn2_b, int groups2,
                                   const void* w2, const void* b2, const void* ws, const void* bs,
                                   int batch, int h_in, int w_in, int up, float kh0, float kh1,
@@ -335,16 +339,16 @@ int gddim_resblock_transition_f32(const void* x, int c, const void* temb, const 
                                              k, eps, 1, wk, nullptr, st);
   if (err) return err;
   // the K4 path: GN1 off (groups1 = 0) on h, xr the 1x1 skip's input
-  return gddim_resblock_f32(wk.h, nullptr, c, 0, temb, dense_w, dense_b, temb_k, nullptr, nullptr,
-                            0, w1, b1, gn2_g, gn2_b, groups2, w2, b2, wk.xr, nullptr, c, 0, ws,
-                            bs, batch, ho, wo, n, eps, out_scale, wk.rest, splits1, kper1,
-                            splits2, kper2, out, stream);
+  return gddim_resblock_f32(wk.h, nullptr, c, 0, temb_row, temb_ld, nullptr, nullptr, 0, w1, b1,
+                            gn2_g, gn2_b, groups2, w2, b2, wk.xr, nullptr, c, 0, ws, bs, batch, ho,
+                            wo, n, eps, out_scale, wk.rest, splits1, kper1, splits2, kper2, out,
+                            stream);
 }
 
 long long gddim_resblock_transition_int8_workspace(int batch, int h, int w, int c, int n,
-                                                   int splits) {
+                                                   int splits, int parts) {
   return (long long)(carve(nullptr, batch, h, w, c, sizeof(float), sizeof(bf16)).bytes +
-                     gddim_resblock_int8_workspace(batch, h, w, c, n, splits));
+                     gddim_resblock_int8_workspace(batch, h, w, c, n, splits, parts));
 }
 
 // K9, int8 mode: x bf16; conv weights int8 K-major (N, 9 * Cin) with
@@ -353,13 +357,13 @@ long long gddim_resblock_transition_int8_workspace(int batch, int h, int w, int 
 // int8 block's pre-pass); the skip runs bf16 on xr. The tile plan as
 // gddim_resblock_int8 takes it, at the output resolution. Scratch:
 // gddim_resblock_transition_int8_workspace bytes.
-int gddim_resblock_transition_int8(const void* x, int c, const void* temb, const void* dense_w,
-                                   const void* dense_b, int temb_k, const void* gn1_g,
-                                   const void* gn1_b, int groups1, const void* w1q,
-                                   const void* w1s, const void* b1, const void* gn2_g,
-                                   const void* gn2_b, int groups2, const void* w2q,
-                                   const void* w2s, const void* b2, const void* ws, const void* bs,
-                                   const void* act_scales, int batch, int h_in, int w_in, int up,
+int gddim_resblock_transition_int8(const void* x, int c, const void* temb_row, int temb_ld,
+                                   const void* gn1_g, const void* gn1_b, int groups1,
+                                   const void* w1q, const void* w1s, const void* b1,
+                                   const void* gn2_g, const void* gn2_b, int groups2,
+                                   const void* w2q, const void* w2s, const void* b2,
+                                   const void* ws, const void* bs, const void* act_scales,
+                                   int batch, int h_in, int w_in, int up,
                                    float kh0, float kh1, float kh2, float kh3, float kw0,
                                    float kw1, float kw2, float kw3, int n, float eps,
                                    float out_scale, void* work, int mw, int box_h, int box_b,
@@ -374,12 +378,11 @@ int gddim_resblock_transition_int8(const void* x, int c, const void* temb, const
   const int err = gn1_resample<bf16, float>(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up, k,
                                             eps, 0, wk, dynamic ? wk.amax : nullptr, st);
   if (err) return err;
-  return resblock_gemm_run(true, wk.h, nullptr, c, 0, true, dynamic ? wk.amax : nullptr, temb,
-                           dense_w, dense_b, temb_k, nullptr, nullptr, 0, w1q, w1s, b1, gn2_g,
-                           gn2_b, groups2, w2q, w2s, b2, wk.xr, nullptr, c, 0, ws, bs,
-                           act_scales, batch, ho, wo, n, eps, out_scale, wk.rest,
-                           GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1,
-                           splits2, kper2, out, st);
+  return resblock_gemm_run(true, wk.h, nullptr, c, 0, true, dynamic ? wk.amax : nullptr, temb_row,
+                           temb_ld, nullptr, nullptr, 0, w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q,
+                           w2s, b2, wk.xr, nullptr, c, 0, ws, bs, act_scales, batch, ho, wo, n,
+                           eps, out_scale, wk.rest, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},
+                           splits1, kper1, splits2, kper2, out, st);
 }
 
 }  // extern "C"

@@ -19,7 +19,14 @@ runs the plain composition on any device.
   transition's GN1) and K5 for attention; no gradients. With
   ``transition='full'`` an up/down block is one K9 call instead of K1, two
   FIR passes and K4 (gddim_tpu/models/blocks.py:461-502, behind
-  GDDIM_TRANSITION_IMPL=full there). ``int8=True`` takes
+  GDDIM_TRANSITION_IMPL=full there). Each kernel call is gated as the JAX
+  package gates it (``resblock_ops.supported``, blocks.py:242-249, 351-358,
+  505; ``attnblock_ops.supported``, blocks.py:83-87) by the port's own
+  ``ops.resblock`` / ``ops.attnblock`` ``*_supported``, which say where the
+  card's tile plans exist; any other block runs the plain composition in
+  the activation dtype. The model may hand a block its temb row (``temb_row``,
+  a column slice of one per-eval product, ``models/unet.py``) in place of
+  its Dense. ``int8=True`` takes
   their int8 modes (``conv_impl='fused_int8'``, gddim_tpu/models/blocks.py:
   75-105,341-403,467-537): weights quantized once per block from their
   values rounded to the activation dtype (bench.py's bf16 pre-cast), and
@@ -30,7 +37,8 @@ runs the plain composition on any device.
   seeing each int8 quantization site (blocks.py:27-43,135-143,562-580);
 - training (``train=True``, gddim_tpu/models/blocks.py:107-147,405-459,
   545-584): stride-1 residual blocks (up-path pairs concatenated) through
-  K6/K7, transitions as the plain composition with K1 for GN1 and GN2, and
+  K6/K7 where ``train_supported`` takes them (the plain composition
+  elsewhere), transitions as the plain composition with K1 for GN1 and GN2, and
   attention as K1 GroupNorm, the NIN projections and K8, or with
   ``fused_attn`` as K10 (blocks.py:107-133, GDDIM_FUSED_ATTN_TRAIN=1 there).
   Dropout masks are drawn in the block, outside any kernel, from the
@@ -97,6 +105,12 @@ _RES_OPS = {
 }
 
 
+def _route(kernel: bool, int8: bool) -> int:
+    """The index into _RES_OPS: the int8 or bf16 kernel, else the plain
+    composition."""
+    return (0 if int8 else 1) if kernel else 2
+
+
 class ResnetBlockBigGANpp(nn.Module):
     """BigGAN residual block with in-block FIR resampling
     (reference layerspp.py:180-227)."""
@@ -123,55 +137,78 @@ class ResnetBlockBigGANpp(nn.Module):
     def forward(self, x, temb, fused: bool = False, train: bool = False,
                 generator: torch.Generator | None = None, int8: bool = False,
                 qscales: dict | None = None, sow=None, layer: str | None = None,
-                transition: str = "tail"):
+                transition: str = "tail", temb_row=None):
         """x: (B, H, W, C), or the up path's (h, skip) pair. train: dropout
         masks from ``generator``, and the differentiable kernels. int8 (with
         fused): the int8 kernels, static scales from this block's ``qscales``
         amaxes. layer (with fused): the layer-wise path, 'pallas' or 'int8'.
         transition='full' (with fused, an up/down block): the whole block
         through K9 where ``transition_supported`` takes it, else K1, the FIR
-        resample and K4. sow: calibration (the plain composition)."""
+        resample and K4. With fused, each kernel runs where its gate takes
+        the block (``rb.stride1_supported``, ``pair_supported``,
+        ``tail_supported``), the plain composition elsewhere. temb_row: this
+        block's (B, Cout) f32 temb projection, made by the caller, in place
+        of silu(temb) through the Dense. sow: calibration (the plain
+        composition)."""
         if train:
             return self._forward_train(x, temb, fused, generator)
         if fused and layer is not None:
             return self._forward_layerwise(x, temb, layer)
-        w1, w2 = self.conv1.weight, self.conv2.weight
-        w_skip = b_skip = None
-        if self.skip is not None:
-            w_skip, b_skip = self.skip.weight[0, 0], self.skip.bias
-        first = x[0] if isinstance(x, (tuple, list)) else x
+        pair = isinstance(x, (tuple, list))
+        first = x[0] if pair else x
         int8 = fused and int8
-        params = [w1, w2] + ([w_skip] if w_skip is not None else [])
-        if int8:
-            w1, w2, w_skip, scales = self._int8_weights(params, first.dtype, qscales)
-        elif fused and first.is_cuda:
-            kw = self._kw.get(params, lambda: _bf16(params))
-            w1, w2 = kw[0], kw[1]
-            w_skip = kw[2] if w_skip is not None else None
-        tail = (self.temb_dense.weight, self.temb_dense.bias)
-        mid = (w1, self.conv1.bias, self.norm2.weight, self.norm2.bias, w2, self.conv2.bias,
-               w_skip, b_skip) + ((scales,) if int8 else ())
+        f32 = first.dtype == torch.float32
+        dense = ((temb, self.temb_dense.weight, self.temb_dense.bias) if temb_row is None
+                 else (temb_row, None, None))
         kw = dict(num_groups2=self.norm2.num_groups, eps=self.norm2.eps,
                   skip_rescale=self.skip_rescale)
         if not fused and sow is not None:
             kw["sow"] = sow
-        mode = 0 if int8 else 1 if fused else 2
         out_ch = self.conv1.weight.shape[-1]
         if (fused and transition == "full" and (self.up or self.down)
-                and rb.transition_supported(x.shape, out_ch, self.up, True, self.fir_kernel)):
+                and rb.transition_supported(x.shape, out_ch, self.up, True, self.fir_kernel,
+                                            int8, f32)):
             op = rb.fused_resblock_transition_int8 if int8 else rb.fused_resblock_transition
-            return op(x, temb, *tail, self.norm1.weight, self.norm1.bias, *mid, up=self.up,
+            return op(x, *dense, self.norm1.weight, self.norm1.bias,
+                      *self._mid(True, int8, first, qscales), up=self.up,
                       fir_kernel=self.fir_kernel, num_groups1=self.norm1.num_groups, **kw)
         if self.up or self.down:
             h = self.norm1(x, act=True, fused=fused)
             res = resample.upsample_2d if self.up else resample.downsample_2d
             h, xr = res(h, self.fir_kernel), res(x, self.fir_kernel)
-            return _RES_OPS["tail"][mode](h, xr, temb, *tail, *mid, **kw)
+            ok = fused and rb.tail_supported(h.shape, out_ch, int8, f32)
+            return _RES_OPS["tail"][_route(ok, int8)](
+                h, xr, *dense, *self._mid(ok, int8, first, qscales), **kw)
         gn1 = (self.norm1.weight, self.norm1.bias)
         kw["num_groups1"] = self.norm1.num_groups
-        if isinstance(x, (tuple, list)):
-            return _RES_OPS["pair"][mode](x[0], x[1], temb, *tail, *gn1, *mid, **kw)
-        return _RES_OPS["stride1"][mode](x, temb, *tail, *gn1, *mid, **kw)
+        if pair:
+            ok = fused and rb.pair_supported(x[0].shape, x[1].shape[-1], out_ch, int8, f32)
+            return _RES_OPS["pair"][_route(ok, int8)](
+                x[0], x[1], *dense, *gn1, *self._mid(ok, int8, first, qscales), **kw)
+        ok = fused and rb.stride1_supported(x.shape, out_ch, int8, f32)
+        return _RES_OPS["stride1"][_route(ok, int8)](
+            x, *dense, *gn1, *self._mid(ok, int8, first, qscales), **kw)
+
+    def _mid(self, kernel: bool, int8: bool, first, qscales):
+        """(conv1 weight, b1, GN2 scale, GN2 bias, conv2 weight, b2, skip
+        weight, skip bias[, static scales]) as the route takes them: the
+        kernels' (int8: quantized, K-major on the card, and the static scales;
+        bf16 on the card: cast once), or the plain composition's parameters."""
+        w1, w2 = self.conv1.weight, self.conv2.weight
+        w_skip = b_skip = None
+        if self.skip is not None:
+            w_skip, b_skip = self.skip.weight[0, 0], self.skip.bias
+        params = [w1, w2] + ([w_skip] if w_skip is not None else [])
+        scales = ()
+        if kernel and int8:
+            w1, w2, w_skip, s = self._int8_weights(params, first.dtype, qscales)
+            scales = (s,)
+        elif kernel and first.is_cuda:
+            kw = self._kw.get(params, lambda: _bf16(params))
+            w1, w2 = kw[0], kw[1]
+            w_skip = kw[2] if w_skip is not None else None
+        return (w1, self.conv1.bias, self.norm2.weight, self.norm2.bias, w2, self.conv2.bias,
+                w_skip, b_skip) + scales
 
     def _int8_weights(self, params, dtype, qscales):
         """(conv1 and conv2 quantized, K-major on the card, the bf16 skip or
@@ -226,7 +263,8 @@ class ResnetBlockBigGANpp(nn.Module):
         if self.skip is not None:
             w_skip, b_skip = self.skip.weight[0, 0], self.skip.bias
         if not (self.up or self.down):
-            op = rb.fused_resblock_train if fused else rb.resblock_train_reference
+            kernel = fused and rb.train_supported(x.shape, out_ch)
+            op = rb.fused_resblock_train if kernel else rb.resblock_train_reference
             return op(x, temb_proj, self.norm1.weight, self.norm1.bias, self.conv1.weight,
                       self.conv1.bias, self.norm2.weight, self.norm2.bias, self.conv2.weight,
                       self.conv2.bias, w_skip, b_skip, mask, keep_prob=keep,
@@ -265,11 +303,12 @@ class AttnBlockpp(nn.Module):
         """int8 (with fused): K5's int8 mode, static scales from this block's
         ``qscales`` amaxes. layer (with fused): the layer-wise path, K1, the
         NIN projections and K8, as in training. fused_attn (with train and
-        fused): K10 where the kernels take the shape. sow: calibration (the
-        plain composition)."""
+        fused): K10 where the kernels take the shape. With fused, K5 runs
+        where ``attn_ops.supported`` takes the block, the plain composition
+        elsewhere. sow: calibration (the plain composition)."""
         kw = dict(num_groups=num_groups_for(x.shape[-1]), eps=self.norm.eps,
                   skip_rescale=self.skip_rescale)
-        if train and fused and fused_attn and attn_ops.supported(x.shape):
+        if train and fused and fused_attn and attn_ops.supported(x.shape, f32=True):
             return attn_ops.fused_attnblock_train(
                 x, self.norm.weight, self.norm.bias, self.q.weight, self.q.bias, self.k.weight,
                 self.k.bias, self.v.weight, self.v.bias, self.out.weight, self.out.bias, **kw)
@@ -278,16 +317,18 @@ class AttnBlockpp(nn.Module):
             h = self_attention_2d(self.q(h), self.k(h), self.v(h), fused=fused)
             out = x + self.out(h)
             return out * attn_ops._INV_SQRT2 if self.skip_rescale else out
-        if fused and int8:
+        int8 = fused and int8
+        kernel = fused and attn_ops.supported(x.shape, int8, x.dtype == torch.float32)
+        if kernel and int8:
             wqkv, bqkv, wo, scales = self._int8_weights(x.dtype, qscales)
             return attn_ops.fused_attnblock_int8(x, self.norm.weight, self.norm.bias, wqkv, bqkv,
                                                  wo, self.out.bias, scales, **kw)
-        if fused and x.is_cuda:
+        if kernel and x.is_cuda:
             return attn_ops.fused_attnblock_packed(x, self.norm.weight, self.norm.bias,
                                                    self._weights(), **kw)
         if not fused and sow is not None:
             kw["sow"] = sow
-        op = attn_ops.fused_attnblock if fused else attn_ops.attnblock_reference
+        op = attn_ops.fused_attnblock if kernel else attn_ops.attnblock_reference
         return op(x, self.norm.weight, self.norm.bias,
                   self.q.weight, self.q.bias, self.k.weight, self.k.bias,
                   self.v.weight, self.v.bias, self.out.weight, self.out.bias, **kw)

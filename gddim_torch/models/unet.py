@@ -17,6 +17,13 @@ counts are outside what the 3x3 conv kernel takes, as in the JAX package. With `
 training paths (dropout, K1/K6/K7/K8), and the dropout masks are drawn in
 the order the blocks run from the caller's generator.
 
+On the whole-block paths ('fused', 'fused_int8') every residual block's temb
+row, silu(temb) @ W_dense + b_dense, comes from one f32 product an eval
+(``temb_rows``: the blocks' Dense weights concatenated in module order), as
+the JAX package computes each row outside its Pallas kernels
+(``gddim_tpu/models/blocks.py:252-255``); each block gets its column slice.
+The layer-wise paths, calibration and training keep each block's Dense.
+
 ``qscales`` holds the int8 calibration, in the layout of the JAX package's
 'qscales' collection: {scope name: {site: amax}} (``models/calibrate.py``,
 ``convert.qscales_from_flax``). It is a plain attribute, outside
@@ -37,7 +44,13 @@ from torch import nn
 
 from gddim_torch.configs import CONV_IMPLS, TRANSITION_IMPLS
 from gddim_torch.models.blocks import AttnBlockpp, Downsample, ResnetBlockBigGANpp
-from gddim_torch.models.layers import Conv, Dense, GaussianFourierProjection, GroupNorm
+from gddim_torch.models.layers import (
+    Conv,
+    Dense,
+    GaussianFourierProjection,
+    GroupNorm,
+    _KernelWeights,
+)
 
 _INV_SQRT2 = 0.7071067811865476
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16, "float32": torch.float32}
@@ -146,6 +159,30 @@ class NCSNpp(nn.Module):
         assert not hs_c
         self.norm_out = add("GroupNorm", GroupNorm(c))
         self.conv_out = add("Conv", Conv(c, channels, 3, init_scale=m.init_scale, generator=g))
+        # each residual block's columns of the per-eval temb product, in module order
+        self.res_blocks = [mod for _, mod in self.scopes if isinstance(mod, ResnetBlockBigGANpp)]
+        off = 0
+        for blk in self.res_blocks:
+            n = blk.temb_dense.weight.shape[1]
+            blk.temb_cols = slice(off, off + n)
+            off += n
+        self._temb_cat = _KernelWeights()
+
+    def temb_rows(self, temb):
+        """Every residual block's temb row in one f32 product:
+        silu(temb) @ W_cat + b_cat, (B, sum of Cout), with W_cat (4 nf, sum of
+        Cout) and b_cat the blocks' Dense weights and biases concatenated in
+        module order (block ``blk``'s row is the column slice
+        ``blk.temb_cols``). W_cat and b_cat are made once and remade when a
+        Dense parameter changes."""
+        dense = [blk.temb_dense for blk in self.res_blocks]
+
+        def make():
+            return (torch.cat([d.weight.detach() for d in dense], 1).float().contiguous(),
+                    torch.cat([d.bias.detach() for d in dense]).float())
+
+        w_cat, b_cat = self._temb_cat.get([t for d in dense for t in (d.weight, d.bias)], make)
+        return torch.addmm(b_cat, F.silu(temb.float()), w_cat)
 
     def forward(self, x, time_cond, train: bool = False,
                 generator: torch.Generator | None = None, calib: dict | None = None):
@@ -156,6 +193,7 @@ class NCSNpp(nn.Module):
         apply with mutable 'qscales'): every block runs its plain composition
         and folds each site's max|activation| into calib[scope][site]."""
         fused = self.fused and calib is None
+        rows = None  # the per-eval temb rows of the whole-block paths
 
         def extra(block):
             if calib is not None:
@@ -165,8 +203,9 @@ class NCSNpp(nn.Module):
             return {"int8": True, "qscales": self.qscales.get(block.scope)} if self.int8 else {}
 
         def res(block, h):
+            row = None if rows is None else rows[:, block.temb_cols]
             return block(h, temb, fused, train, generator, transition=self.transition,
-                         **extra(block))
+                         temb_row=row, **extra(block))
 
         def att(block, h):
             return block(h, fused, train, fused_attn=self.fused_attn, **extra(block))
@@ -174,6 +213,8 @@ class NCSNpp(nn.Module):
         temb = self.fourier(torch.log(time_cond.float()))
         temb = self.temb0(temb.to(self.dtype))
         temb = self.temb1(F.silu(temb))
+        if fused and not train and self.layer is None:
+            rows = self.temb_rows(temb)
         if not self.centered:
             x = 2 * x - 1.0
         x = x.to(self.dtype)

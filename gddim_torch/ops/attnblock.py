@@ -48,9 +48,12 @@ from gddim_torch import _build
 from gddim_torch.ops.attention import attention_xla
 from gddim_torch.ops.groupnorm import group_norm_silu_reference
 from gddim_torch.ops.resblock import (
+    BF16_SLICE,
+    S8_SLICE,
     SMS,
     GemmPlan,
     _bf16r,
+    _gemm_takes,
     _on_cpu,
     _operand,
     activation_dtype,
@@ -290,11 +293,21 @@ def _tiles(p: GemmPlan):
     return p.mw, p.box_h, p.box_b, p.tiles_h, p.m_tiles, p.splits, p.kper
 
 
-def supported(x_shape) -> bool:
-    """The shapes the core takes, on which the model runs K10 (training):
-    ``core_supported`` of S = H*W and C."""
+def supported(x_shape, int8: bool = False, f32: bool = False) -> bool:
+    """Whether the card runs K5 on x (B, H, W, C), the JAX package's
+    ``attnblock_ops.supported`` gate (gddim_tpu/models/blocks.py:83-87) with
+    the port's plans: in the bf16 and ``int8`` modes exactly where
+    ``block_plan`` returns (the core's S and C, and the block GEMM's tiles
+    for the (C, 3C) and (C, C) 1x1 projections: C a multiple of 128); on
+    ``f32`` activations (K10's forward, whose projections run
+    conv_gemm_kernel) where the core takes S = H*W and C."""
     _, h, w, c = x_shape
-    return core_supported(h * w, c)
+    if not core_supported(h * w, c):
+        return False
+    if f32 and not int8:
+        return True
+    slice_ = S8_SLICE if int8 else BF16_SLICE
+    return _gemm_takes(h, w, c, 0, 3 * c, slice_) and _gemm_takes(h, w, c, 0, c, slice_)
 
 
 # --------------------------------------------------------------------------
@@ -378,11 +391,11 @@ def fused_attnblock_int8(x, gn_scale, gn_bias, wqkv, bqkv, wo, bo, act_scales=No
                                         num_groups=num_groups, eps=eps, skip_rescale=skip_rescale)
     require_no_grad("fused_attnblock_int8", x, gn_scale, gn_bias, *wqkv, bqkv, *wo, bo)
     check_act_scales(act_scales)
+    bf16 = activation_dtype(x, "fused_attnblock_int8", int8=True)
     if not (isinstance(wqkv, KMajorInt8) and isinstance(wo, KMajorInt8)):
         raise ValueError("fused_attnblock_int8: the int8 block GEMM takes K-major int8 "
                          "projection weights (pack_projection)")
     b, h, w, c = x.shape
-    bf16 = activation_dtype(x, "fused_attnblock_int8", int8=True)
     f32, dev = torch.float32, x.device
     plan = block_plan(b, h, w, c, True)
     # operands stay referenced until the launch: a cast's temporary must not be freed

@@ -29,6 +29,18 @@ the HWIO weights read through the transpose bit, the 1x1 skip in the same
 accumulators), with h1 in f32 between the convs, as the TPU kernel keeps it
 (``resblock_bf16_reference`` and its pair/tail forms are the plain versions
 with the TPU kernel's rounding points); its tile plan is ``bf16_tile_plan``.
+The GroupNorm statistics are the TPU kernels' (per-channel f32 sums and
+sums of squares, folded by group, var = E[x^2] - mean^2): GN1's from one
+pass of ``gn_stats_kernel`` over x (``gn_stats``; plain version
+``gn_stats_reference``), GN2's from conv1's epilogue, which writes each
+channel's sums a (tile, sample) (``gn2_partials_reference``), folded in a
+fixed order (``gn_fold_reference``) by conv2's pre-pass. The temb row
+(silu(temb) @ Wd + bd) is the model's: it passes each block its slice of one
+per-eval product (``temb`` a (B, Cout) row with ``dense_w`` None); called
+with the Dense weights, a wrapper makes the row itself. ``stride1_supported``,
+``pair_supported``, ``tail_supported`` and ``transition_supported`` say
+which blocks the card's kernels take; the model runs the plain composition
+elsewhere, as the JAX package does.
 On f32 activations (and in K6) the convs run ``conv_gemm_kernel``, with the
 GN affine in the A operand's prologue. On a CPU tensor each wrapper runs its
 plain version; on a CUDA tensor it launches the kernels or raises. K2-K4
@@ -80,7 +92,11 @@ _INV_SQRT2 = 0.7071067811865476
 
 
 def temb_projection(temb, dense_w, dense_b):
-    """silu(temb) @ Wd + bd in f32: the per-sample row conv1 adds."""
+    """silu(temb) @ Wd + bd in f32: the per-sample row conv1 adds; with
+    dense_w None, temb is that row already (the model's slice of its per-eval
+    product of every block's rows)."""
+    if dense_w is None:
+        return temb.float()
     return F.silu(temb.float()) @ dense_w.float() + dense_b.float()
 
 
@@ -239,6 +255,48 @@ def group_norm_tpu(x, scale, bias, num_groups: int, eps: float, apply_silu: bool
     if apply_silu:
         out = out * torch.sigmoid(out)
     return out.reshape(x.shape)
+
+
+def gn_fold_reference(part, hw: int, num_groups: int, eps: float, gamma, beta):
+    """The fold of GN statistics from per-channel partial sums, as the
+    kernels fold them: part (2, B, parts, C) f32 ([0] sums, [1] squares over
+    the sample's hw pixels) -> (scale, shift) (B, C) of the affine x * scale
+    + shift, and mean, rstd (B, groups); var = E[x^2] - mean^2 with the TPU
+    kernels' 1/n (``group_norm_tpu``)."""
+    s, q = part.float().sum(2)
+    b, c = s.shape
+    cg = c // num_groups
+    inv_n = torch.tensor(1.0 / (hw * cg), dtype=torch.float32, device=s.device)
+    mean = s.reshape(b, num_groups, cg).sum(-1) * inv_n
+    rstd = torch.rsqrt(q.reshape(b, num_groups, cg).sum(-1) * inv_n - mean * mean + eps)
+    scale = rstd.repeat_interleave(cg, -1) * gamma.float()
+    return scale, beta.float() - mean.repeat_interleave(cg, -1) * scale, mean, rstd
+
+
+def gn_stats_reference(x, num_groups: int, eps: float, gamma, beta):
+    """Plain version of ``gn_stats``: the TPU kernels' GroupNorm statistics
+    (``gn_silu_tile``, gddim_tpu/ops/resblock.py:345-356) of (B, ..., C) x in
+    f32 over each whole sample: (scale, shift) (B, C), mean, rstd (B, groups)."""
+    b, c = x.shape[0], x.shape[-1]
+    xf = x.float().reshape(b, -1, c)
+    part = torch.stack([xf.sum(1), (xf * xf).sum(1)])[:, :, None]
+    return gn_fold_reference(part, xf.shape[1], num_groups, eps, gamma, beta)
+
+
+def gn2_partials_reference(h1, plan: "GemmPlan"):
+    """The partial sums conv1's epilogue writes for GN2 under ``plan`` (the
+    conv's tile plan): (2, B, tiles_h, C) f32, [0] each channel's sum and [1]
+    its sum of squares over the pixels of M tile row t of sample b (a tile of
+    box_h rows of one sample, or of box_b whole samples; rows past the image
+    or the batch are not in any tile). ``gn_fold_reference`` of them is
+    ``gn_stats_reference`` of h1."""
+    b, h, w, c = h1.shape
+    hf = h1.float()
+    part = hf.new_zeros((2, b, plan.tiles_h, c))
+    for t in range(plan.tiles_h):
+        rows = hf[:, t * plan.box_h:(t + 1) * plan.box_h].reshape(b, -1, c)
+        part[0, :, t], part[1, :, t] = rows.sum(1), (rows * rows).sum(1)
+    return part
 
 
 def int8_matmul_exact(q, wq):
@@ -463,13 +521,17 @@ def resample_transition(a, kerns, up: bool):
     return a
 
 
-def transition_supported(x_shape, cout: int, up: bool, fir: bool, fir_kernel=(1, 3, 3, 1)) -> bool:
-    """The shapes K9 takes (``transition_supported`` without its backend and
-    environment tests): channels in whole GEMM tiles (Cin a multiple of the
-    K slice, Cout of the N tile), even H and W, a 4-tap FIR kernel."""
-    _, h, w, c = x_shape
-    return ((not fir or len(fir_kernel) == 4) and c % _BK == 0 and cout % _BN == 0
-            and h % 2 == 0 and w % 2 == 0)
+def transition_supported(x_shape, cout: int, up: bool, fir: bool, fir_kernel=(1, 3, 3, 1),
+                         int8: bool = False, f32: bool = False) -> bool:
+    """The shapes K9 takes on the card (``transition_supported`` without its
+    backend and environment tests): a 4-tap FIR kernel, even H and W, and
+    the K4 path's convs at the output resolution as ``tail_supported`` takes
+    them (the block GEMM's tile plans, bf16 or ``int8``; on ``f32``
+    activations conv_gemm_kernel's tiles)."""
+    b, h, w, c = x_shape
+    ho, wo = (2 * h, 2 * w) if up else (h // 2, w // 2)
+    return ((not fir or len(fir_kernel) == 4) and h % 2 == 0 and w % 2 == 0
+            and tail_supported((b, ho, wo, c), cout, int8, f32))
 
 
 def resblock_transition_reference(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1,
@@ -555,6 +617,7 @@ def resblock_train_reference(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scal
 # --------------------------------------------------------------------------
 
 _BM, _BN, _BK = 64, 64, 32  # conv_gemm_kernel's tile (csrc/resblock.cu)
+_VEC = 8  # the pre-passes and GN statistics read 8-channel vectors
 SMS = 132  # the H100's streaming multiprocessors
 _TARGET_BLOCKS = 4 * 132  # four resident blocks on each of the H100's 132 SMs
 _MIN_SPLIT_SLICES = 8  # K slices per split, at least
@@ -605,6 +668,73 @@ GEMM_MIN_SPLIT_SLICES = 4  # K slices per split, at least
 # 128-pixel tiles, two CTAs an SM, so that one's epilogue overlaps the other's
 # loads (chip_smoke.py times K5's projections at both widths)
 GEMM_WIDE_STAGES = 4
+# GN2's sums in conv1's epilogue reduce a warp's 16 tile rows as one
+# sample's: a tile that may hold several samples (H*W <= GEMM_TILE_M) needs
+# whole samples of a multiple of 16 pixels
+GEMM_SAMPLE_ROWS = 16
+
+
+def _gemm_takes(h: int, w: int, cin: int, cskip: int, n: int, slice_: int) -> bool:
+    """Whether the block GEMM has a tile plan for a conv at (h, w) of cin
+    channels in conv K slices of ``slice_`` (S8_SLICE or BF16_SLICE), a
+    cskip-channel skip and n output channels: what ``_gemm_tile_plan``
+    refuses otherwise."""
+    return (cin % slice_ == 0 and cskip % GEMM_SKIP_SLICE == 0 and n % GEMM_TILE_N == 0
+            and 0 < w <= GEMM_TILE_M
+            and (h * w > GEMM_TILE_M or (h * w) % GEMM_SAMPLE_ROWS == 0))
+
+
+def _block_takes(x_shape, parts, skip_parts, cout: int, int8: bool, f32: bool) -> bool:
+    """Whether the card's block kernels take one residual block: conv1 of the
+    parts' logical concat at x_shape's (H, W) -> cout, conv2 cout -> cout with
+    the skip parts' 1x1 in its K (no skip parts: the identity residual). The
+    bf16 and int8 modes: both convs' tile plans (``bf16_tile_plan`` /
+    ``s8_tile_plan``), each skip part in whole skip slices; f32 activations
+    (``f32``, not int8): conv_gemm_kernel's 32-channel K slices and
+    64-channel N tiles. The pre-pass and the statistics read 8-channel
+    vectors of each part."""
+    _, h, w, _ = x_shape
+    cin, cskip = sum(parts), sum(skip_parts)
+    if any(c % _VEC for c in parts) or (not skip_parts and cin != cout):
+        return False
+    if f32 and not int8:
+        return (all(c % _VEC == 0 for c in skip_parts) and cin % _BK == 0 and cskip % _BK == 0
+                and cout % _BN == 0)
+    slice_ = S8_SLICE if int8 else BF16_SLICE
+    return (all(c % GEMM_SKIP_SLICE == 0 for c in skip_parts)
+            and _gemm_takes(h, w, cin, 0, cout, slice_)
+            and _gemm_takes(h, w, cout, cskip, cout, slice_))
+
+
+def stride1_supported(x_shape, cout: int, int8: bool, f32: bool = False) -> bool:
+    """Whether the card runs a stride-1 block (K2) on x (B, H, W, Cin) -> cout
+    (the 1x1 skip where Cin != cout) in the bf16 mode, the ``int8`` mode, or
+    on ``f32`` activations; the JAX package's ``resblock_ops.supported`` gate
+    (gddim_tpu/models/blocks.py:351-358) with the port's tile plans."""
+    c = x_shape[-1]
+    return _block_takes(x_shape, (c,), () if c == cout else (c,), cout, int8, f32)
+
+
+def pair_supported(xa_shape, cb: int, cout: int, int8: bool, f32: bool = False) -> bool:
+    """``stride1_supported`` of the up path's pair (K3): conv1 and the 1x1
+    skip on the logical concat of xa (B, H, W, Ca) and a cb-channel xb."""
+    ca = xa_shape[-1]
+    return _block_takes(xa_shape, (ca, cb), (ca, cb), cout, int8, f32)
+
+
+def tail_supported(h_shape, cout: int, int8: bool, f32: bool = False) -> bool:
+    """``stride1_supported`` of a transition's tail (K4) on the resampled h
+    (B, H, W, C), its 1x1 skip on the resampled x."""
+    c = h_shape[-1]
+    return _block_takes(h_shape, (c,), (c,), cout, int8, f32)
+
+
+def train_supported(x_shape, cout: int) -> bool:
+    """Whether K6/K7 take a stride-1 training block (f32, conv_gemm_kernel's
+    tiles): Cin in 32-channel K slices, cout in 64-channel N tiles, the
+    identity skip only where Cin == cout (``resblock_ops.supported`` at
+    gddim_tpu/models/blocks.py:423)."""
+    return x_shape[-1] % _BK == 0 and cout % _BN == 0
 
 
 class GemmPlan(NamedTuple):
@@ -633,13 +763,13 @@ class GemmPlan(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def _gemm_tile_plan(b: int, h: int, w: int, cin: int, cskip: int, n: int, slice_: int,
                     taps: int) -> GemmPlan:
-    if (cin % slice_ or cskip % GEMM_SKIP_SLICE or n % GEMM_TILE_N or not 0 < w <= GEMM_TILE_M
-            or taps not in (1, 9)):
+    if not _gemm_takes(h, w, cin, cskip, n, slice_) or taps not in (1, 9):
         what = "int8" if slice_ == S8_SLICE else "bf16"
         raise ValueError(f"{what} block GEMM: no tile plan for x {(b, h, w, cin)}, skip "
                          f"{cskip}, Cout {n}, {taps} taps (Cin a multiple of {slice_}, the skip "
                          f"of {GEMM_SKIP_SLICE}, Cout of {GEMM_TILE_N}, W at most {GEMM_TILE_M}, "
-                         "taps 1 or 9)")
+                         f"H*W above {GEMM_TILE_M} or a multiple of {GEMM_SAMPLE_ROWS}, taps 1 "
+                         "or 9)")
     n_tiles = n // GEMM_TILE_N
     conv_slices, skip_slices = taps * cin // slice_, cskip // GEMM_SKIP_SLICE
     slices = conv_slices + skip_slices
@@ -660,7 +790,7 @@ def s8_tile_plan(b: int, h: int, w: int, cin: int, cskip: int, n: int,
     tiles of 256 pixels where they alone make a wave of at least 128 CTAs
     and K has more slices than their ring has stages, else of 128, with K
     split while the tiles leave half the SMs idle. Raises for shapes the
-    kernel does not take."""
+    kernel does not take (``_gemm_takes``)."""
     return _gemm_tile_plan(b, h, w, cin, cskip, n, S8_SLICE, taps)
 
 
@@ -676,11 +806,13 @@ def _plan_gemm(entry: str, b: int, h: int, w: int, cin: int, cskip: int, n: int,
     """(M tiling, (splits1, kper1, splits2, kper2), workspace bytes) of one
     block on the block GEMM through ``entry`` (gddim_resblock,
     gddim_resblock_int8 or the transition's): conv1 (cin -> n) and conv2 (n
-    -> n, + the cskip-channel skip) share the M tiling."""
+    -> n, + the cskip-channel skip) share the M tiling; the workspace holds
+    GN2's partial sums, conv1's tiles_h rows a sample."""
     plan = s8_tile_plan if int8 else bf16_tile_plan
     p1, p2 = plan(b, h, w, cin, 0, n), plan(b, h, w, n, cskip, n)
     tiles = (p1.mw, p1.box_h, p1.box_b, p1.tiles_h, p1.m_tiles)
-    nbytes = _build.workspace_bytes(entry, b, h, w, cin, n, max(p1.splits, p2.splits))
+    nbytes = _build.workspace_bytes(entry, b, h, w, cin, n, max(p1.splits, p2.splits),
+                                    p1.tiles_h)
     return tiles, (p1.splits, p1.kper, p2.splits, p2.kper), nbytes
 
 
@@ -690,6 +822,19 @@ def require_no_grad(what: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(f"{what}: the kernel has no backward; call it under "
                            "torch.no_grad() or inference_mode, or use the training path")
+
+
+def _temb_row(temb, dense_w, dense_b, b: int, n: int):
+    """(row, ld): a block's (B, N) f32 temb projection on the card and its
+    row stride: temb itself with dense_w None (the model's column slice of
+    its per-eval product), else silu(temb) @ dense_w + dense_b."""
+    row = temb_projection(temb, dense_w, dense_b)
+    if row.stride(-1) != 1:
+        row = row.contiguous()
+    if row.device.type != "cuda" or tuple(row.shape) != (b, n):
+        raise ValueError(f"temb row: needs a CUDA tensor of shape {(b, n)}, got "
+                         f"{tuple(row.shape)} on {row.device}")
+    return row, row.stride(0)
 
 
 def _operand(t, what, dtype, shape=None):
@@ -720,8 +865,9 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
     gddim_resblock_f32 (f32 activations, conv_gemm_kernel), or
     gddim_resblock_int8 when int8 (w1, w2 then (int8 weights, scale) pairs;
     act_scales None or [s1, s2]). gn1: (scale, bias, groups), or None (K4);
-    skip_parts None: identity residual parts[0]. The activations and the
-    output take parts[0]'s dtype (bf16 or f32; bf16 only when int8)."""
+    skip_parts None: identity residual parts[0]; temb with dense_w None: the
+    (B, Cout) temb row. The activations and the output take parts[0]'s dtype
+    (bf16 or f32; bf16 only when int8)."""
     convs = [*w1, *w2] if int8 else [w1, w2]
     require_no_grad("resblock kernel", *parts, temb, dense_w, dense_b, *(gn1 or ())[:2], *convs,
                     b1, gn2_scale, gn2_bias, b2, *(skip_parts or ()), w_skip, b_skip)
@@ -738,7 +884,7 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
     cin, n = c0 + c1, (w1[1] if int8 else w1).shape[-1]
     gemm = act == bf16  # the block GEMM (bf16 and int8); f32: conv_gemm_kernel
     skip_unit = GEMM_SKIP_SLICE if gemm else 8  # each skip part in whole K slices
-    if (any(c % 8 for c in (c0, c1)) or cs0 % skip_unit or cs1 % skip_unit or cin % _BK
+    if (any(c % _VEC for c in (c0, c1)) or cs0 % skip_unit or cs1 % skip_unit or cin % _BK
             or (cs0 + cs1) % _BK or n % _BN):
         raise ValueError(f"resblock: unsupported channels {c0}+{c1} (skip {cs0}+{cs1}) -> {n}")
     if skip_parts is None and cin != n:
@@ -749,7 +895,7 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
         plan = (*tiles, *splits)
     else:
         *plan, nbytes = _plan(entry, b, h, w, cin, cs0 + cs1, n)
-    temb = _operand(temb, "temb", f32)
+    row, ld = _temb_row(temb, dense_w, dense_b, b, n)
     gn1 = gn1 or (None, None, 0)
     skip = skip_parts is not None
     keep = []  # operands stay referenced until the launch: a cast's temporary must not be freed
@@ -765,9 +911,8 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
                 op(wt[1], f"{what} scales", f32, shape[-1:])]
 
     args = [
-        _build.ptr(xs[0]), _build.ptr(xs[1]), c0, c1, _build.ptr(temb),
-        op(dense_w, "temb dense", f32, (temb.shape[-1], n)), op(dense_b, "temb bias", f32, (n,)),
-        temb.shape[-1], op(gn1[0], "gn1 scale", f32, (cin,)), op(gn1[1], "gn1 bias", f32, (cin,)),
+        _build.ptr(xs[0]), _build.ptr(xs[1]), c0, c1, row.data_ptr(), ld,
+        op(gn1[0], "gn1 scale", f32, (cin,)), op(gn1[1], "gn1 bias", f32, (cin,)),
         gn1[2], *conv(w1, "conv1", (3, 3, cin, n)), op(b1, "b1", f32, (n,)),
         op(gn2_scale, "gn2 scale", f32, (n,)), op(gn2_bias, "gn2 bias", f32, (n,)), num_groups2,
         *conv(w2, "conv2", (3, 3, n, n)), op(b2, "b2", f32, (n,)),
@@ -920,7 +1065,8 @@ def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2
     act = activation_dtype(x, what, int8)
     b, hin, win, cin = x.shape
     n = (w1[1] if int8 else w1).shape[-1]
-    if w_skip is None or not transition_supported(x.shape, n, up, fir, fir_kernel):
+    if w_skip is None or not transition_supported(x.shape, n, up, fir, fir_kernel, int8,
+                                                  act == f32):
         raise ValueError(f"{what}: unsupported block {tuple(x.shape)} -> {n} (the 1x1 skip is "
                          "required; channels in whole GEMM tiles, even H and W)")
     ho, wo = (2 * hin, 2 * win) if up else (hin // 2, win // 2)
@@ -932,7 +1078,7 @@ def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2
         plan = (*tiles, *splits)
     else:
         *plan, nbytes = _plan(entry, b, ho, wo, cin, cin, n)
-    temb = _operand(temb, "temb", f32)
+    row, ld = _temb_row(temb, dense_w, dense_b, b, n)
     keep = []  # operands stay referenced until the launch: a cast's temporary must not be freed
 
     def op(t, what_, dtype, shape=None):
@@ -946,9 +1092,8 @@ def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2
                 op(wt[1], f"{what_} scales", f32, shape[-1:])]
 
     args = [
-        op(x, "x", act, (b, hin, win, cin)), cin, _build.ptr(temb),
-        op(dense_w, "temb dense", f32, (temb.shape[-1], n)), op(dense_b, "temb bias", f32, (n,)),
-        temb.shape[-1], op(gn1_scale, "gn1 scale", f32, (cin,)),
+        op(x, "x", act, (b, hin, win, cin)), cin, row.data_ptr(), ld,
+        op(gn1_scale, "gn1 scale", f32, (cin,)),
         op(gn1_bias, "gn1 bias", f32, (cin,)), num_groups1, *conv(w1, "conv1", (3, 3, cin, n)),
         op(b1, "b1", f32, (n,)), op(gn2_scale, "gn2 scale", f32, (n,)),
         op(gn2_bias, "gn2 bias", f32, (n,)), num_groups2, *conv(w2, "conv2", (3, 3, n, n)),
@@ -1028,18 +1173,33 @@ def quantize_conv_input(x0, x1=None, scale=None, shift=None, *, silu: bool = Fal
     return out
 
 
-def int8_conv_gemm(a8, wq):
+def _with_stats(out, stats: bool, plan, cin: int, taps: int):
+    """The plain versions' out, or with ``stats`` (out, GN2's partials of out
+    under the tile plan of ``plan`` (``s8_tile_plan`` / ``bf16_tile_plan``))."""
+    if not stats:
+        return out
+    b, h, w, n = out.shape
+    return out, gn2_partials_reference(out, plan(b, h, w, cin, 0, n, taps))
+
+
+def _stats_buffer(stats: bool, plan: GemmPlan, b: int, n: int, dev):
+    return torch.empty((2, b, plan.tiles_h, n), device=dev, dtype=torch.float32) if stats else None
+
+
+def int8_conv_gemm(a8, wq, *, stats: bool = False):
     """The int8 block GEMM alone on one 3x3 SAME conv, or a 1x1 projection
     (K5's), with unit scales: the int32 sums of (B, H, W, Cin) int8 ``a8``
     by int8 weights ``wq`` as f32 (exact below 2^24), (B, H, W, Cout). On
     CUDA ``wq`` is K-major: (Cout, 9 * Cin) for the conv, (Cout, Cin) for
-    the 1x1; the plain version takes the conv's HWIO weights too."""
+    the 1x1; the plain version takes the conv's HWIO weights too. With
+    ``stats``, (out, the epilogue's GN2 partial sums of out): (2, B,
+    tiles_h, Cout) as conv1 writes them (``gn2_partials_reference``)."""
     cin = a8.shape[-1]
     taps = 1 if wq.dim() == 2 and wq.shape[1] == cin else 9
     if _on_cpu(a8, "int8_conv_gemm"):
-        if taps == 1:
-            return int8_matmul_exact(a8, wq.t())
-        return conv3x3_int8_exact(a8, hwio_int8_weight(wq, cin))
+        out = (int8_matmul_exact(a8, wq.t()) if taps == 1
+               else conv3x3_int8_exact(a8, hwio_int8_weight(wq, cin)))
+        return _with_stats(out, stats, s8_tile_plan, cin, taps)
     b, h, w, _ = a8.shape
     n = wq.shape[-1] if wq.dim() == 4 else wq.shape[0]
     if taps == 9:
@@ -1051,11 +1211,12 @@ def int8_conv_gemm(a8, wq):
     ones = torch.ones(n, device=dev, dtype=f32)
     work = torch.empty(plan.splits * b * h * w * n if plan.splits > 1 else 0, device=dev, dtype=f32)
     out = torch.empty((b, h, w, n), device=dev, dtype=f32)
+    part = _stats_buffer(stats, plan, b, n, dev)
     _build.launch("gddim_conv_s8", dev, a.data_ptr(), wk.data_ptr(), ones.data_ptr(),
                   ones.data_ptr(), b, h, w, cin, n, taps, plan.mw, plan.box_h, plan.box_b,
                   plan.tiles_h, plan.m_tiles, plan.splits, plan.kper, work.data_ptr(),
-                  out.data_ptr())
-    return out
+                  _build.ptr(part), out.data_ptr())
+    return (out, part) if stats else out
 
 
 def bf16_conv_input(x0, x1=None, scale=None, shift=None, *, silu: bool = False):
@@ -1080,13 +1241,15 @@ def bf16_conv_input(x0, x1=None, scale=None, shift=None, *, silu: bool = False):
     return out
 
 
-def bf16_conv_gemm(a, w):
+def bf16_conv_gemm(a, w, *, stats: bool = False):
     """The bf16 block GEMM alone on one 3x3 SAME conv, or a 1x1 projection
     (K5's): the f32 sums of (B, H, W, Cin) bf16 ``a`` by HWIO (3, 3, Cin,
     Cout) or (Cin, Cout) bf16 ``w``, (B, H, W, Cout) f32. The plain version
-    is the f32 conv (or product) of the same values."""
+    is the f32 conv (or product) of the same values. ``stats``: as
+    ``int8_conv_gemm``'s."""
     if _on_cpu(a, "bf16_conv_gemm"):
-        return conv3x3_nhwc(a.float(), w.float()) if w.dim() == 4 else a.float() @ w.float()
+        out = conv3x3_nhwc(a.float(), w.float()) if w.dim() == 4 else a.float() @ w.float()
+        return _with_stats(out, stats, bf16_tile_plan, a.shape[-1], 9 if w.dim() == 4 else 1)
     require_no_grad("bf16_conv_gemm", a, w)
     b, h, ww, cin = a.shape
     n, taps = w.shape[-1], 9 if w.dim() == 4 else 1
@@ -1097,18 +1260,44 @@ def bf16_conv_gemm(a, w):
     work = torch.empty(plan.splits * b * h * ww * n if plan.splits > 1 else 0, device=dev,
                        dtype=f32)
     out = torch.empty((b, h, ww, n), device=dev, dtype=f32)
+    part = _stats_buffer(stats, plan, b, n, dev)
     _build.launch("gddim_conv_bf16", dev, a_.data_ptr(), w_.data_ptr(), b, h, ww, cin, n, taps,
                   plan.mw, plan.box_h, plan.box_b, plan.tiles_h, plan.m_tiles, plan.splits,
-                  plan.kper, work.data_ptr(), out.data_ptr())
-    return out
+                  plan.kper, work.data_ptr(), _build.ptr(part), out.data_ptr())
+    return (out, part) if stats else out
+
+
+def gn_stats(x0, x1=None, gamma=None, beta=None, *, num_groups: int, eps: float = 1e-6):
+    """GroupNorm statistics of the logical concat (x0, x1) (B, H, W, C0+C1),
+    bf16 or f32, as the blocks take GN1's (``gn_stats_kernel``, one pass,
+    var = E[x^2] - mean^2; plain version ``gn_stats_reference``): (scale,
+    shift) (B, C) of the affine x * scale + shift, and mean, rstd (B,
+    groups), f32. Counted in C (``block_launches``)."""
+    if _on_cpu(x0, "gn_stats"):
+        x = x0 if x1 is None else torch.cat([x0, x1], -1)
+        return gn_stats_reference(x, num_groups, eps, gamma, beta)
+    require_no_grad("gn_stats", x0, x1, gamma, beta)
+    f32 = torch.float32
+    act = activation_dtype(x0, "gn_stats", False)
+    b, h, w, c0 = x0.shape
+    c1 = 0 if x1 is None else x1.shape[-1]
+    c, dev = c0 + c1, x0.device
+    ops = [_operand(x0, "x0", act), _operand(x1, "x1", act, (b, h, w, c1)),
+           _operand(gamma, "gamma", f32, (c,)), _operand(beta, "beta", f32, (c,))]
+    out = [torch.empty(shape, device=dev, dtype=f32)
+           for shape in ((b, c), (b, c), (b, num_groups), (b, num_groups))]
+    _build.launch("gddim_gn_stats", dev, *map(_build.ptr, ops[:2]), c0, c1, int(act == f32), b,
+                  h * w, num_groups, *map(_build.ptr, ops[2:]), eps, *(t.data_ptr() for t in out))
+    return tuple(out)
 
 
 # The kernels that run inside a C call (a block's two convs, K5's
-# projections and attention core, or the bare wrappers), counted in C where
-# each is launched, in csrc/conv.cuh's Counted order: the block GEMM and its
-# pre-pass, int8 then bf16, then K5's attention core
+# projections and attention core, the GroupNorm statistics, or the bare
+# wrappers), counted in C where each is launched, in csrc/conv.cuh's Counted
+# order: the block GEMM and its pre-pass, int8 then bf16 (GN2's folding
+# pre-pass among them), then K5's attention core and gn_stats_kernel
 BLOCK_COUNTED = ("block_gemm_kernel<int8>", "prepass_kernel<int8>", "block_gemm_kernel<bf16>",
-                 "prepass_kernel<bf16>", "attention_wgmma_kernel")
+                 "prepass_kernel<bf16>", "attention_wgmma_kernel", "gn_stats_kernel")
 S8_COUNTED = BLOCK_COUNTED[:2]
 BF16_COUNTED = BLOCK_COUNTED[2:4]
 
@@ -1132,7 +1321,7 @@ def _resblock_train_cuda(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale, g
         raise ValueError(f"fused_resblock_train: needs f32 x, got {x.dtype}")
     b, h, w, cin = x.shape
     n = w1.shape[-1]
-    if cin % _BK or n % _BN or (w_skip is None and cin != n):
+    if not train_supported(x.shape, n) or (w_skip is None and cin != n):
         raise ValueError(f"fused_resblock_train: unsupported channels {cin} -> {n}")
     drop = keep_prob < 1.0
     # operands stay referenced until the launch: a cast's temporary must not be freed

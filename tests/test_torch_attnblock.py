@@ -170,8 +170,27 @@ def test_block_plan_refuses_what_the_kernels_do_not_take(shape, int8):
                                     (32, 64, True), (48, 256, False), (512, 128, False),
                                     (256, 96, False), (256, 320, False)])
 def test_core_supported(s, c, ok):
+    """The core's shapes, which are K5's gate on f32 activations (K10's
+    forward, whose projections run conv_gemm_kernel)."""
     assert t_attn.core_supported(s, c) is ok
-    assert t_attn.supported((2, s, 1, c)) is ok
+    assert t_attn.supported((2, s, 1, c), f32=True) is ok
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("shape", [(4, 16, 16, 256), (4, 4, 4, 256), (4, 16, 16, 128),
+                                   (4, 16, 16, 64), (4, 16, 16, 192), (4, 16, 16, 384),
+                                   (4, 8, 8, 64), (4, 4, 8, 256), (4, 6, 8, 256),
+                                   (4, 32, 32, 256)])
+def test_supported_is_where_block_plan_returns(shape, int8):
+    """K5's gate in the bf16 and int8 modes says True exactly where the
+    card's plans exist (the core's S and C, the block GEMM's 128-channel
+    tiles): the model runs the plain block elsewhere."""
+    try:
+        t_attn.block_plan(*shape, int8)
+        planned = True
+    except ValueError:
+        planned = False
+    assert t_attn.supported(shape, int8) is planned
 
 
 # --------------------------------------------------------------------------
@@ -472,10 +491,11 @@ def test_attnblock_kernel_matches_rounding_point_plain(cuda, b, h):
     assert _kernel_rel(out, t_attn.attnblock_reference(args[0].float(), *args[1:], **kw)) \
         <= KERNEL_BOUND
     assert t_attn.fused_attnblock.launches == launches + 2
-    # per block: the two projections, the pre-pass and the core, counted in C
+    # per block: the two projections, the pre-pass, the core and the GN
+    # statistics, counted in C
     assert t_rb.block_launches(reset=True) == {
         **dict.fromkeys(t_rb.BLOCK_COUNTED, 0), "block_gemm_kernel<bf16>": 4,
-        "prepass_kernel<bf16>": 2, "attention_wgmma_kernel": 2}
+        "prepass_kernel<bf16>": 2, "attention_wgmma_kernel": 2, "gn_stats_kernel": 2}
 
 
 @pytest.mark.cuda
@@ -498,7 +518,8 @@ def test_attnblock_int8_kernel_counts_its_launches(cuda, static, b, h):
     assert out.dtype == torch.bfloat16 and _kernel_rel(out, ref) <= KERNEL_BOUND
     assert t_rb.block_launches(reset=True) == {
         **dict.fromkeys(t_rb.BLOCK_COUNTED, 0), "block_gemm_kernel<int8>": 2,
-        "prepass_kernel<int8>": 1 if static else 2, "attention_wgmma_kernel": 1}
+        "prepass_kernel<int8>": 1 if static else 2, "attention_wgmma_kernel": 1,
+        "gn_stats_kernel": 1}
 
 
 @pytest.mark.cuda
