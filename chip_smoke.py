@@ -51,7 +51,13 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      the same bits on repeat, beside torch.var_mean, and conv1's epilogue
      sums (GN2's partials) at every block conv1 (bf16 and int8, B=4 and 64,
      split-K shapes included) against gn2_partials_reference, with conv1's
-     device time with and without them;
+     device time with and without them; then GN1 in one launch
+     (gn_apply_kernel) at every main-path GN1 site (bf16, int8 static and
+     per sample) and at the 6 transitions (its resample variant: h bf16, f32
+     and int8), B=4, 16 and 64: the same bits as the launches it replaces
+     and on repeat, against its plain version, its device time beside theirs
+     and its bound; and the route each block's GN1 takes (one block call of
+     each main-path kind, counted);
   4. eps: one full-width eps evaluation (B=4, t=0.5, seeded weights), kernel
      path in bf16 against the all-plain path in f32, the per-eval temb
      product (NCSNpp.temb_rows) against each block's exact projection, then
@@ -95,7 +101,10 @@ limit, and last {"ok": true, "device": {...}}.
 and int8 kernel paths, then of the same with transition_impl 'tail' and
 'full', then of the blur 'fused_int8' and layer-wise 'int8' and 'pallas' paths, at
 ``--batch`` with torch.profiler and prints the wall, the device time, the
-kernels that take it and each counted kernel's launches in that eval. ``--phases ab`` (not in the default run) times CLD
+kernels that take it and each counted kernel's launches in that eval (GN1's
+gn_apply_kernel, gn_stats_kernel, the pre-passes and K9's resample apart; a
+gn_stats_kernel or transition_resample_kernel launch fails it). ``--phases
+ab`` (not in the default run) times CLD
 NFE=50 sampling with the transitions through K4 and through K9, bf16 and
 int8 static, at B=16 and B=64, five rounds of tail, full, full, tail, with
 each cell's medians and pairs won: the A/B behind
@@ -249,6 +258,23 @@ BF16_FLIP_SHARE = 1e-3
 # tile plan: measured 9.8e-8 to 2.6e-7. About 3x. Both also the same bits
 # on repeat (a fixed order, no float atomics).
 KERNEL_BOUND.update({"GN-stats": 1e-6, "GN2-sums": 1e-6})
+# GN1 in one launch (gn_apply_kernel) against the launches it replaces
+# (gn_stats_kernel, then the pre-pass, the per-sample amax pass or K9's
+# transition_resample_kernel, through the bare wrappers with ctas 0): the
+# same bits, as it sums in gn_stats_kernel's order and converts with the
+# pre-pass's and the resample's arithmetic. Against its plain versions: the
+# statistics (and the per-sample amax) within GN-stats' bound; the bf16 and
+# int8 outputs against the plain conversion from the kernel's own statistics
+# one ulp or step apart on at most BF16_FLIP_SHARE / S8_FLIP_SHARE of the
+# values, as the pre-passes (KERNEL_BOUND["GN-apply"]: the largest
+# difference, in ulps or steps); K9's q(h) likewise against the plain
+# resample; its bf16 and f32 h (and the per-sample amax) within
+# GN_RESAMPLE_BOUND of max|h|, K9's own gate (KERNEL_BOUND["K9"]): a bf16
+# activation that rounds the other way (the kernel's fused multiply-add, the
+# statistics' last bits) moves h by a tap's share of one ulp of that
+# activation, which may be several ulps of a small h.
+KERNEL_BOUND.update({"GN-apply": 1.0})
+GN_RESAMPLE_BOUND = 1e-2
 # The per-eval temb product (one f32 addmm of the 76 blocks' Dense weights,
 # TF32 off) against each block's own projection computed exactly (float64):
 # the f32 rounding of 512-term dot products in cuBLAS's order, measured
@@ -294,20 +320,25 @@ PER_EVAL_INT8_FULL = {"K1": 1, "K2-int8": 34, "K3-int8": 36, "K9-int8": 6, "K5-i
 # of the 10 int8 attention blocks, the pre-pass once there (h; static
 # scales: the core quantizes a), counted in C where each kernel is launched
 # (DEVICE_COUNTED); K5's attention core once an attention block
-for _per_eval in (PER_EVAL_INT8, PER_EVAL_INT8_FULL):
-    _per_eval.update({"S8-GEMM": 172, "S8-prepass": 162, "K5-core": 10})
+# (GN1's gn_apply_kernel makes conv1's and K5's h; GN2's folding pre-pass
+# makes every conv2's operand, K4's conv1 quantizes h; K9's static mode
+# quantizes h in its gn_apply_kernel launch, so its conv1 takes no pre-pass)
+for _per_eval, _n in ((PER_EVAL_INT8, 82), (PER_EVAL_INT8_FULL, 76)):
+    _per_eval.update({"S8-GEMM": 172, "S8-prepass": _n, "K5-core": 10})
 # ... and in the bf16 path its bf16 mode: once per conv of the 76 bf16 blocks
-# (K2-K4 or K9) and twice in each attention block, the pre-pass before the 70
-# K2/K3 conv1s, all 76 conv2s and the 10 attention blocks' h (K4's and K9's
-# conv1 read h as it is)
+# (K2-K4 or K9) and twice in each attention block, the pre-pass before the
+# 76 conv2s (GN2's folding pre-pass; K4's and K9's conv1 read h as it is)
 for _per_eval in (PER_EVAL, PER_EVAL_FULL):
-    _per_eval.update({"BF16-GEMM": 172, "BF16-prepass": 156, "K5-core": 10})
-# the GroupNorm statistics kernel: GN1 of the 34 K2 and 36 K3 blocks and the
-# 10 attention blocks' GN (GN2 comes from conv1's epilogue; K4's conv1 reads
-# h after K1), and with transition_impl 'full' K9's 6 GN1s
+    _per_eval.update({"BF16-GEMM": 172, "BF16-prepass": 76, "K5-core": 10})
+# GN1 in one launch (gn_apply_kernel): the 34 K2 and 36 K3 blocks' conv1
+# operand and the 10 attention blocks' h (in place of gn_stats_kernel and
+# the pre-pass), and with transition_impl 'full' K9's 6 GN1s and resamples
+# (in place of gn_stats_kernel and transition_resample_kernel); no
+# gn_stats_kernel launch is left on the sampling path (launches_of raises on
+# one); K4's GN1 stays K1's
 for _per_eval, _n in ((PER_EVAL, 80), (PER_EVAL_INT8, 80), (PER_EVAL_FULL, 86),
                       (PER_EVAL_INT8_FULL, 86)):
-    _per_eval["GN-stats"] = _n
+    _per_eval["GN-apply"] = _n
 # H100 SXM peaks (NVIDIA's data sheet, dense): operations per second by type,
 # and device memory bytes per second
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
@@ -385,9 +416,17 @@ KERNELS = {
     # K5's attention core (bf16 and int8 blocks and K10): wgmma fed by TMA
     "K5-core": dict(name="attention_core", route="cuda", source="gddim_torch/csrc/attnblock.cu",
                     replaces="gddim_tpu/ops/attnblock.py:166"),
-    # the GroupNorm statistics (GN1 of K2/K3/K9, K5's GN, the f32 paths, K7):
-    # gn_silu_tile's sums of the K2 / K3 Pallas kernels, one cluster a sample
+    # the GroupNorm statistics where GN1 is not one launch (the f32 paths,
+    # K6, K7, K10): gn_silu_tile's sums of the K2 / K3 Pallas kernels, one
+    # cluster a sample
     "GN-stats": dict(name="gn_stats", route="cuda", source="gddim_torch/csrc/resblock.cu",
+                     replaces="gddim_tpu/ops/resblock.py:600"),
+    # GN1 in one launch (K2/K3's conv1 operand, K5's h, K9's resample):
+    # gn_silu_tile and the activation of the K2 / K3 Pallas kernels. Its
+    # max_abs_err is each case's largest difference (err_is: bf16 ulps, int8
+    # steps, or K9's bf16 / f32 h relative to max|h| with the per-sample
+    # amax's), its max_rel_err the largest share of values that differ
+    "GN-apply": dict(name="gn_apply", route="cuda", source="gddim_torch/csrc/gn_apply.cu",
                      replaces="gddim_tpu/ops/resblock.py:600"),
 }
 # main-path shapes of cld/accr_dcifar10 (H, channels in, channels out)
@@ -1047,6 +1086,208 @@ def phase_gn_kernels(results: dict, batch_results: dict, batches=(4, 16, 64)):
             print(f"sum GN2-sums {mode} B={B}: {len(conv1_shapes())} conv1s, device "
                   f"{total['with']:.4f} ms with the sums, {total['without']:.4f} without "
                   f"({total['with'] / total['without'] - 1:+.1%})", flush=True)
+
+
+def gn1_sites():
+    """(H, channel parts, SiLU) of every GN1 of the main path that
+    gn_apply_kernel's convert variant takes: the K2 and K3 blocks' conv1
+    input (the pairs' two parts) and the attention blocks' GN (no SiLU);
+    their (H, C) are tests/test_torch_gn_stats.py:GN_SHAPES."""
+    sites = {(h, (c,), True) for h, c, _ in SHAPES["K2"]} | {(h, p, True) for h, p, _ in SHAPES["K3"]}
+    return sorted(sites | {(h, (c,), False) for h, c in SHAPES["K5"]})
+
+
+def _flips(kind: str, got, ref):
+    """(largest difference, share of values that differ) of a bf16 or int8
+    output against its plain version: bf16 ulps, int8 steps."""
+    if kind == "int8":
+        d = (got.int() - ref.int()).abs().float()
+    else:
+        d = bf16_steps(got, ref)
+    return d.max().item(), (d > 0).float().mean().item()
+
+
+def phase_gn_apply_kernels(results: dict, batch_results: dict, batches=(4, 16, 64)):
+    """GN1 in one launch (gn_apply_kernel) at every main-path GN1 site (bf16,
+    int8 static and int8 per sample; the pairs' per-sample a * (127 / amax))
+    and at the 6 transitions (the resample variant: h bf16, f32 with the
+    per-sample amax, and int8 by a static scale), at each batch: the same
+    bits as the launches it replaces and on repeat, against its plain
+    version, with eager and device time beside the replaced launches' device
+    time (the yardstick) and the bound (its bytes once); F.group_norm, one
+    call for the same function, beside K5's GN (no SiLU, bf16). The first
+    batch's results go into the kernels line, the others' into
+    batch_results."""
+    from gddim_torch.ops import resblock as rb
+
+    inp = Inputs(10)
+    for B in batches:
+        res = results if B == batches[0] else batch_results
+        for h, parts, silu in gn1_sites():
+            c = sum(parts)
+            xs = [(inp.act(B, h, h, p).float() * 1.5 + inp.vec(p)).bfloat16() for p in parts]
+            x1 = xs[1] if len(xs) > 1 else None
+            gamma, beta, groups = inp.vec(c, 1.0), inp.vec(c), min(c // 4, 32)
+            for mode in ("bf16", "static", "dynamic"):
+                int8 = mode != "bf16"
+                kw = dict(num_groups=groups, silu=silu, int8=int8,
+                          act_scale=(rb.act_scales_from_amax((4.0,))[0].cuda() if mode == "static"
+                                     else None),
+                          inv_mul=mode == "dynamic" and x1 is not None)
+                label = (f"B={B} {mode} {h}x{h} {'+'.join(map(str, parts))} "
+                         f"{'GN+SiLU' if silu else 'GN'}")
+                fused = lambda: rb.gn_apply(xs[0], x1, gamma, beta, **kw)  # noqa: E731
+                old = lambda: rb.gn_apply(xs[0], x1, gamma, beta, ctas=0, **kw)  # noqa: E731
+                plain = lambda: rb.gn_apply_reference(xs[0], x1, gamma, beta, **kw)  # noqa: E731
+                got, again, was = fused(), fused(), old()
+                torch.cuda.synchronize()
+                ref = plain()
+                bits = [(got[0], was[0]), *zip(got[1], was[1])] + (
+                    [(got[2], was[2])] if got[2] is not None else [])
+                same_old = all(torch.equal(a, b) for a, b in bits)
+                same = torch.equal(got[0], again[0]) and torch.equal(got[1][0], again[1][0])
+                srel = max(_rel(a, b) for a, b in zip(got[1], ref[1]))
+                if got[2] is not None:
+                    srel = max(srel, _rel(got[2], ref[2]))
+                # the output against the plain conversion from the kernel's own
+                # statistics (as the pre-passes are held): near a value's zero,
+                # f32 last bits of the statistics move it by many ulps of itself
+                sc, sh = got[1][:2]
+                if int8:
+                    want = rb.quantize_conv_input_reference(
+                        xs[0], x1, sc, sh, silu=silu, act_scale=kw["act_scale"], amax=got[2],
+                        inv_mul=kw["inv_mul"])
+                else:
+                    want = rb.bf16_conv_input_reference(xs[0], x1, sc, sh, silu=silu)
+                worst, share = _flips("int8" if int8 else "bf16", got[0], want)
+                ms, plain_ms, dev, old_dev = (time_ms(fused), time_ms(plain), graph_ms(fused),
+                                              graph_ms(old))
+                lib_ms = lib_dev = None
+                if not silu and not int8:  # K5's GN: one PyTorch call computes it
+                    xc = xs[0].permute(0, 3, 1, 2)
+                    library = lambda: F.group_norm(xc, groups, gamma.bfloat16(),  # noqa: E731
+                                                   beta.bfloat16(), 1e-6)
+                    lib_ms, lib_dev = time_ms(library), graph_ms(library)
+                bd = bound(nbytes(xs, gamma, beta, got[0]), {"f32": 8 * got[0].numel()})
+                lib = ("" if lib_ms is None else f"; F.group_norm ms={lib_ms:.4f} device "
+                       f"ms={lib_dev:.4f} (device time {verdict(dev, lib_dev)})")
+                print(f"kernel GN-apply gn_apply [{label}]: {rb.gn_apply_ctas(h, h, c)} CTAs a sample; the same bits "
+                      f"as the launches it replaces: {same_old}, on repeat: {same}; statistics "
+                      f"rel={srel:.3e} (bound {KERNEL_BOUND['GN-stats']:.0e}); values one "
+                      f"{'step' if int8 else 'ulp'} apart {share:.2e} (bound "
+                      f"{S8_FLIP_SHARE if int8 else BF16_FLIP_SHARE:.0e}), largest {worst:.2f}; "
+                      f"ms={ms:.4f} device ms={dev:.4f}, replaced launches device ms="
+                      f"{old_dev:.4f} ({dev / old_dev:.2f}x); plain_ms={plain_ms:.4f} "
+                      f"bound_ms={bd[0]:.4f} (bytes){lib}", flush=True)
+                _record(res, "GN-apply", label, worst, share, ms, plain_ms, bd, lib_ms,
+                        err_is="steps" if int8 else "ulps", graph_ms=dev,
+                        replaced_graph_ms=old_dev, library_graph_ms=lib_dev)
+                flip_bound = S8_FLIP_SHARE if int8 else BF16_FLIP_SHARE
+                if not (same_old and same and srel <= KERNEL_BOUND["GN-stats"]
+                        and worst <= KERNEL_BOUND["GN-apply"] and share <= flip_bound):
+                    raise AssertionError(f"GN-apply {label}: bits {same_old}/{same}, stats "
+                                         f"{srel:.3e}, {worst} apart on {share:.2e}")
+        for hin, c, _, up in SHAPES["K9"]:
+            x = (inp.act(B, hin, hin, c).float() * 1.5 + inp.vec(c)).bfloat16()
+            gamma, beta = inp.vec(c, 1.0), inp.vec(c)
+            s1 = rb.act_scales_from_amax((4.0,))[0].cuda()
+            for mode in ("bf16", "f32", "int8"):
+                kw = dict(up=up, num_groups=min(c // 4, 32), mode=mode,
+                          act_scale=s1 if mode == "int8" else None)
+                label = f"B={B} resample {mode} {'up' if up else 'down'} {hin}x{hin}x{c}"
+                fused = lambda: rb.gn_resample(x, gamma, beta, **kw)  # noqa: E731
+                if mode == "int8":  # the old route: h f32, then the int8 pre-pass
+                    def old(kw=kw):
+                        h, xr, _ = rb.gn_resample(x, gamma, beta, **{**kw, "mode": "f32",
+                                                                    "act_scale": None}, ctas=0)
+                        return rb.quantize_conv_input(h, act_scale=s1), xr, None
+                else:
+                    old = lambda: rb.gn_resample(x, gamma, beta, ctas=0, **kw)  # noqa: E731
+                plain = lambda: rb.gn_resample_reference(x, gamma, beta, **kw)  # noqa: E731
+                got, again, was = fused(), fused(), old()
+                torch.cuda.synchronize()
+                ref = plain()
+                same_old = all(torch.equal(a, b) for a, b in zip(got, was) if a is not None)
+                same = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+                xr_worst, xr_share = _flips("bf16", got[1], ref[1])
+                if mode == "int8":
+                    worst, share = _flips("int8", got[0], ref[0])
+                    ok = worst <= KERNEL_BOUND["GN-apply"] and share <= S8_FLIP_SHARE
+                else:
+                    worst = _rel(got[0], ref[0])
+                    if mode == "f32":
+                        worst = max(worst, _rel(got[2], ref[2]))
+                    share = (got[0] != ref[0].to(got[0].dtype)).float().mean().item()
+                    ok = worst <= GN_RESAMPLE_BOUND
+                ok = ok and xr_worst <= 1 and xr_share <= BF16_FLIP_SHARE
+                ms, plain_ms, dev, old_dev = (time_ms(fused), time_ms(plain), graph_ms(fused),
+                                              graph_ms(old))
+                bd = bound(nbytes(x, gamma, beta, got[0], got[1]), {"f32": 8 * x.numel()})
+                what = (f"h values one step apart {share:.2e}, largest {worst:.2f}"
+                        if mode == "int8" else f"h rel={worst:.3e} (bound "
+                        f"{GN_RESAMPLE_BOUND:.0e}), values that differ {share:.2e}")
+                print(f"kernel GN-apply gn_resample [{label}]: "
+                      f"{rb.gn_resample_ctas(hin, hin, c, up)} CTAs a sample; the same bits as "
+                      f"the launches it replaces: {same_old}, on repeat: {same}; {what}; xr one "
+                      f"ulp apart {xr_share:.2e}; ms={ms:.4f} device ms={dev:.4f}, replaced "
+                      f"launches device ms={old_dev:.4f} ({dev / old_dev:.2f}x); "
+                      f"plain_ms={plain_ms:.4f} bound_ms={bd[0]:.4f} (bytes)", flush=True)
+                _record(res, "GN-apply", label, worst, share, ms, plain_ms, bd,
+                        err_is="steps" if mode == "int8" else "h rel", graph_ms=dev,
+                        replaced_graph_ms=old_dev)
+                if not (same_old and same and ok):
+                    raise AssertionError(f"GN-apply {label}: bits {same_old}/{same}, {what}")
+        cases = [r for r in res["GN-apply"]["shapes"] if r["shape"].startswith(f"B={B} ")]
+        print(f"sum GN-apply B={B}: {len(cases)} cases, eager "
+              f"{sum(r['ms'] for r in cases):.4f} ms, device {sum(r['graph_ms'] for r in cases):.4f}"
+              f" ms, the replaced launches device "
+              f"{sum(r['replaced_graph_ms'] for r in cases):.4f} ms, bound "
+              f"{sum(r['bound_ms'] for r in cases):.4f} ms", flush=True)
+
+
+def report_gn_routes():
+    """GN1's route at each site of the main path: the route function's
+    answer (ops/resblock.py:gn_apply_ctas, gn_resample_ctas) beside the
+    launches one block call makes (B=4, every K2/K3/K5 and K9 shape, bf16
+    and int8 static and per sample): one gn_apply_kernel and no
+    gn_stats_kernel where the route is one launch."""
+    from gddim_torch.ops import resblock as rb
+
+    cases = [(k, label, fused, args) for k, label, fused, _, args, _ in kernel_cases(4)
+             if k in ("K2", "K3", "K5")]
+    cases += [(k, label, fused, args) for k, label, fused, _, args in int8_kernel_cases(4)
+              if k != "K4-int8"]
+    inp = Inputs(11)
+    cases += [("K9-int8", label, fused, args)
+              for label, fused, _, args, _ in transition_int8_cases(4, inp)]
+    for h, c, cout, up in SHAPES["K9"]:
+        args = (inp.act(4, h, h, c), inp.act(4, TEMB), inp.w(TEMB, cout).float(), inp.vec(cout),
+                inp.vec(c, 1.0), inp.vec(c), inp.w(3, 3, c, cout), inp.vec(cout),
+                inp.vec(cout, 1.0), inp.vec(cout), inp.w(3, 3, cout, cout), inp.vec(cout),
+                inp.w(c, cout), inp.vec(cout))
+        kw = dict(up=up, num_groups1=min(c // 4, 32), num_groups2=min(cout // 4, 32))
+        cases.append(("K9", f"{'up' if up else 'down'} {h}x{h} {c}->{cout}",
+                      lambda a=args, k=kw: rb.fused_resblock_transition(*a, **k), args))
+    for kernel, label, fused, args in cases:
+        x = args[0]
+        _, h, w, c = x.shape
+        if kernel.startswith("K9"):
+            up = "up" in label
+            ctas = rb.gn_resample_ctas(h, w, c, up)
+        else:
+            if kernel.startswith("K3"):
+                c += args[1].shape[-1]
+            ctas = rb.gn_apply_ctas(h, w, c)
+        rb.block_launches(reset=True)
+        fused()
+        torch.cuda.synchronize()
+        n = rb.block_launches(kernels=("gn_apply_kernel", "gn_stats_kernel"))
+        print(f"route GN1 {kernel} [{label}]: "
+              f"{f'one launch, {ctas} CTAs a sample' if ctas else 'two launches'}; the block "
+              f"launched gn_apply_kernel {n['gn_apply_kernel']}x, gn_stats_kernel "
+              f"{n['gn_stats_kernel']}x", flush=True)
+        if not ctas or n != {"gn_apply_kernel": 1, "gn_stats_kernel": 0}:
+            raise AssertionError(f"GN1 {kernel} {label}: route {ctas}, launches {n}")
 
 
 def check_temb_rows(model, card: str, batch: int = 64):
@@ -1879,7 +2120,8 @@ def counters():
 # is launched: row -> kernel of ops/resblock.py:block_launches
 DEVICE_COUNTED = {"S8-GEMM": "block_gemm_kernel<int8>", "S8-prepass": "prepass_kernel<int8>",
                   "BF16-GEMM": "block_gemm_kernel<bf16>", "BF16-prepass": "prepass_kernel<bf16>",
-                  "K5-core": "attention_wgmma_kernel", "GN-stats": "gn_stats_kernel"}
+                  "K5-core": "attention_wgmma_kernel", "GN-stats": "gn_stats_kernel",
+                  "GN-apply": "gn_apply_kernel"}
 
 
 def reset_counts():
@@ -2184,11 +2426,18 @@ def _profile(name: str, run, batch: int, card: str, evals: int):
           flush=True)
     for key, ms, n in top:
         print(f"  {ms:8.3f} ms {n:5d}x {key[:110]}", flush=True)
-    for name in ("gn_stats_kernel", "gn_prepass_kernel"):
-        ms = sum(m for key, m, _ in dev if name in key)
-        print(f"  {name}: {ms:.3f} ms in {sum(n for key, _, n in dev if name in key)} launches",
+    for name in ("gn_apply_kernel", "gn_stats_kernel", "prepass_kernel", "gn_prepass_kernel",
+                 "transition_resample_kernel"):
+        # prepass_kernel: the int8 and bf16 pre-pass, not GN2's folding one
+        hit = [(m, n) for key, m, n in dev if name in key and not (
+            name == "prepass_kernel" and "gn_prepass_kernel" in key)]
+        print(f"  {name}: {sum(m for m, _ in hit):.3f} ms in {sum(n for _, n in hit)} launches",
               flush=True)
-    gone = [key for key, *_ in dev if "gn_affine_kernel" in key or "temb_proj_kernel" in key]
+    # replaced: the per-block GN affine and temb kernels of earlier versions,
+    # and on the sampling path GN1's two launches (gn_stats_kernel,
+    # transition_resample_kernel)
+    gone = [key for key, *_ in dev if any(k in key for k in (
+        "gn_affine_kernel", "temb_proj_kernel", "gn_stats_kernel", "transition_resample_kernel"))]
     if gone:
         raise AssertionError(f"replaced kernels in the trace: {gone}")
 
@@ -2470,6 +2719,8 @@ def main(argv=None):
         phase_f32_activations()
         phase_attn_kernels(results, card)
         phase_gn_kernels(results, batch_results)
+        phase_gn_apply_kernels(results, batch_results)
+        report_gn_routes()
         print_sums(results, batch_results)
         print_block_sums(results, batch_results)
     config = get_config("cld/accr_dcifar10")

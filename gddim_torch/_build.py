@@ -33,8 +33,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
-# C entry points: name -> argtypes. The *_workspace entries return a byte
-# count (long long); every other entry returns cudaError_t as int.
+# C entry points: name -> argtypes. The *_workspace and *_smem entries
+# return a byte count (long long); every other entry returns cudaError_t as
+# int.
 _SIGNATURES = {
     # gddim_resblock_workspace(B, H, W, Cin, N, splits, parts): the bf16 block,
     #   parts the tile plan's tiles_h (GN2's partial rows a sample)
@@ -42,11 +43,11 @@ _SIGNATURES = {
     # gddim_resblock(x0, x1, c0, c1, temb_row, temb_ld, gn1_g, gn1_b,
     #   groups1, w1, b1, gn2_g, gn2_b, groups2, w2, b2, s0, s1, cs0, cs1, ws, bs,
     #   B, H, W, N, eps, out_scale, work, mw, box_h, box_b, tiles_h, m_tiles,
-    #   splits1, kper1, splits2, kper2, out, stream)
+    #   splits1, kper1, splits2, kper2, gn_ctas, out, stream)
     "gddim_resblock": [
         _P, _P, _I, _I, _P, _I, _P, _P,
         _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
-        _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+        _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
     # gddim_resblock_f32_workspace(B, H, W, Cin, N, splits)
     "gddim_resblock_f32_workspace": [_I, _I, _I, _I, _I, _I],
@@ -63,11 +64,11 @@ _SIGNATURES = {
     # gddim_resblock_transition(x, c, temb_row, temb_ld, gn1_g, gn1_b, groups1,
     #   w1, b1, gn2_g, gn2_b, groups2, w2, b2, ws, bs, B, H_in, W_in, up, kh0..kh3, kw0..kw3,
     #   N, eps, out_scale, work, mw, box_h, box_b, tiles_h, m_tiles, splits1, kper1, splits2,
-    #   kper2, out, stream)
+    #   kper2, gn_ctas, out, stream)
     "gddim_resblock_transition": [
         _P, _I, _P, _I, _P, _P, _I,
         _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
-        _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+        _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
     # gddim_resblock_transition_f32_workspace(B, H_out, W_out, C, N, splits)
     "gddim_resblock_transition_f32_workspace": [_I, _I, _I, _I, _I, _I],
@@ -84,23 +85,23 @@ _SIGNATURES = {
     # gddim_resblock_transition_int8(x, c, temb_row, temb_ld, gn1_g, gn1_b, groups1,
     #   w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, ws, bs, act_scales, B, H_in, W_in, up,
     #   kh0..kh3, kw0..kw3, N, eps, out_scale, work, mw, box_h, box_b, tiles_h, m_tiles,
-    #   splits1, kper1, splits2, kper2, out, stream)
+    #   splits1, kper1, splits2, kper2, gn_ctas, out, stream)
     "gddim_resblock_transition_int8": [
         _P, _I, _P, _I, _P, _P, _I,
         _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
         _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _P, _I, _I, _I, _I, _I,
-        _I, _I, _I, _I, _P, _P,
+        _I, _I, _I, _I, _I, _P, _P,
     ],
     # gddim_resblock_int8_workspace(B, H, W, Cin, N, splits, parts)
     "gddim_resblock_int8_workspace": [_I, _I, _I, _I, _I, _I, _I],
     # gddim_resblock_int8(x0, x1, c0, c1, temb_row, temb_ld, gn1_g, gn1_b,
     #   groups1, w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, s0, s1, cs0, cs1, ws, bs,
     #   act_scales, B, H, W, N, eps, out_scale, work, mw, box_h, box_b, tiles_h, m_tiles,
-    #   splits1, kper1, splits2, kper2, out, stream)
+    #   splits1, kper1, splits2, kper2, gn_ctas, out, stream)
     "gddim_resblock_int8": [
         _P, _P, _I, _I, _P, _I, _P, _P,
         _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P,
-        _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+        _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
     # gddim_s8_prepass(xa, xb, ca, cb, act_f32, B, HW, scale, shift, silu, qs, amax, inv_mul,
     #   out, stream)
@@ -118,6 +119,17 @@ _SIGNATURES = {
     # gddim_gn_stats(xa, xb, ca, cb, act_f32, B, HW, groups, gamma, beta, eps, scale, shift,
     #   mean, rstd, stream)
     "gddim_gn_stats": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P],
+    # gddim_gn_apply(xa, xb, ca, cb, B, HW, groups, gamma, beta, eps, silu, int8, qs, amax,
+    #   inv_mul, ctas, out, scale, shift, mean, rstd, stream)
+    "gddim_gn_apply": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _F, _I, _I, _P, _P, _I, _I, _P, _P,
+                       _P, _P, _P, _P],
+    # gddim_gn_apply_smem(C, H, W, resample, up): shared memory bytes of one
+    #   gn_apply_kernel CTA (no stream; -1 for a width it does not take)
+    "gddim_gn_apply_smem": [_I, _I, _I, _I, _I],
+    # gddim_gn_resample(x, C, B, H_in, W_in, up, kh0..kh3, kw0..kw3, groups, gamma, beta, eps,
+    #   out_type, qs, amax, ctas, h, xr, scale, shift, stream)
+    "gddim_gn_resample": [_P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P, _F,
+                          _I, _P, _P, _I, _P, _P, _P, _P, _P],
     # gddim_block_launches(out, reset): launches of the kernels counted in C (no stream)
     "gddim_block_launches": [_P, _I],
     # gddim_resblock_train_workspace(B, H, W, Cin, N, splits)
@@ -145,10 +157,10 @@ _SIGNATURES = {
     "gddim_attention_core": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # gddim_attnblock(x, gn_g, gn_b, groups, wqkv, bqkv, wo, bo, B, H, W, C, eps, out_scale,
     #   work, work_bytes, mw1, box_h1, box_b1, tiles_h1, m_tiles1, splits1, kper1, mw2,
-    #   box_h2, box_b2, tiles_h2, m_tiles2, splits2, kper2, stages, out, stream)
+    #   box_h2, box_b2, tiles_h2, m_tiles2, splits2, kper2, stages, gn_ctas, out, stream)
     "gddim_attnblock": [
         _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _L,
-        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
     # gddim_attnblock_f32(x, gn_g, gn_b, groups, wqkv, bqkv, wo, bo, B, S, C, eps, out_scale,
     #   work, work_bytes, splits1, kper1, splits2, kper2, stages, out, stream)
@@ -157,10 +169,10 @@ _SIGNATURES = {
     ],
     # gddim_attnblock_int8(x, gn_g, gn_b, groups, wqkv_k, wqkv_s, bqkv, wo_k, wo_s, bo,
     #   act_scales, B, H, W, C, eps, out_scale, work, work_bytes, mw1 .. kper1, mw2 .. kper2,
-    #   stages, out, stream)
+    #   stages, gn_ctas, out, stream)
     "gddim_attnblock_int8": [
         _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _L,
-        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
     # gddim_conv3x3(x, w, B, H, W, Cin, N, mw, box_h, box_b, tiles_h, m_tiles, splits, kper,
     #   work, out, stream)
@@ -244,7 +256,8 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_longlong if name.endswith("_workspace") else ctypes.c_int
+            fn.restype = (ctypes.c_longlong if name.endswith(("_workspace", "_smem"))
+                          else ctypes.c_int)
         _lib = lib
         return lib
 

@@ -9,17 +9,19 @@
 // activation scales, the attention products bf16). K10, the training
 // forward, runs the block on f32 activations (gddim_attnblock_f32).
 //
-// gddim_attnblock, five launches, all hand-written:
-//   gn_stats_launch (resblock.cu)   GN statistics -> per-(sample, channel) affine
-//   prepass_launch (resblock.cu)    h = GN(x) rounded to bf16 once (the TPU
-//                                   kernel's h_all.astype(bf16))
+// gddim_attnblock, four launches, all hand-written:
+//   gn_apply_launch (gn_apply.cu)   h = GN(x) rounded to bf16 once (the TPU
+//                                   kernel's h_all.astype(bf16)), its
+//                                   statistics from the same read of x (or,
+//                                   route 0: gn_stats_launch, then the
+//                                   pre-pass, resblock.cu)
 //   block_gemm_launch (block_gemm.cu, taps 1)
 //                                   [q|k|v] = h @ [Wq|Wk|Wv] + b, bf16, one
 //                                   N = 3C GEMM over M = B*S pixels
 //   attention_wgmma_kernel (here)   a = softmax(q k^T / sqrt(C)) v, bf16
 //   block_gemm_launch (taps 1)      out = (a @ Wo + bo + x) * out_scale
-// gddim_attnblock_int8 quantizes h by the pre-pass (static s_h, or per
-// sample after amax_launch of GN(x)), runs both projections on the int8
+// gddim_attnblock_int8 quantizes h in the same GN launch (static s_h, or per
+// sample by the cluster's amax of GN(x)), runs both projections on the int8
 // block GEMM (K-major int8 weights, dequantized by w_scale * s in the
 // epilogue), and the core writes a as the output projection reads it:
 // static scales quantize it in the core's epilogue, clip(rint(a * (1/s_a)))
@@ -430,6 +432,43 @@ BlockGemm projection(bool int8, const void* a, const void* w, int batch, int h, 
   return g;
 }
 
+// h = GN(x) of the bf16 x (no SiLU) into wk.h: bf16, or (int8) int8 by the
+// static scale *qs, or per sample by max |h| into wk.amax (qs null); in one
+// launch of gn_apply_kernel on gn_ctas CTAs a sample, or (gn_ctas 0) the GN
+// statistics kernel, the amax pass (per sample) and the pre-pass.
+int gn_h(const void* x, int groups, const void* gn_g, const void* gn_b, int batch, int h, int w,
+         int c, float eps, bool int8, const float* qs, const Work& wk, int gn_ctas,
+         cudaStream_t st) {
+  const int hw = h * w;
+  if (gn_ctas) {
+    GnApply a = {};
+    a.xa = x;
+    a.ca = c;
+    a.batch = batch;
+    a.h = h;
+    a.w = w;
+    a.groups = groups;
+    a.gamma = (const float*)gn_g;
+    a.beta = (const float*)gn_b;
+    a.eps = eps;
+    a.int8 = int8;
+    a.q = Int8Args{qs, nullptr, 0};
+    a.out = wk.h;
+    a.amax_out = int8 && qs == nullptr ? wk.amax : nullptr;
+    a.ctas = gn_ctas;
+    return gn_apply_launch(a, st);
+  }
+  int err = gn_stats_launch(x, nullptr, c, 0, batch, hw, groups, (const float*)gn_g,
+                            (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, false, st);
+  if (!err && int8 && qs == nullptr)
+    err = amax_launch(x, nullptr, c, 0, batch, hw, wk.sc, wk.sh, 0, wk.amax, false, st);
+  const Int8Args q = {qs, wk.amax, 0};
+  if (!err)
+    err = prepass_launch(x, nullptr, c, 0, false, batch, hw, wk.sc, wk.sh, 0, int8 ? &q : nullptr,
+                         wk.h, st);
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -453,17 +492,14 @@ int gddim_attnblock(const void* x, const void* gn_g, const void* gn_b, int group
                     int h, int w, int c, float eps, float out_scale, void* work,
                     long long work_bytes, int mw1, int box_h1, int box_b1, int tiles_h1,
                     int m_tiles1, int splits1, int kper1, int mw2, int box_h2, int box_b2,
-                    int tiles_h2, int m_tiles2, int splits2, int kper2, int stages, void* out,
-                    void* stream) {
+                    int tiles_h2, int m_tiles2, int splits2, int kper2, int stages, int gn_ctas,
+                    void* out, void* stream) {
   const int hw = h * w;
   const Work wk = carve((char*)work, batch, (long)batch * hw, c, 2, 0,
                         splits1 > splits2 ? splits1 : splits2);
   if (wk.bytes > (size_t)work_bytes) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int err = gn_stats_launch(x, nullptr, c, 0, batch, hw, groups, (const float*)gn_g,
-                            (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, false, st);
-  if (!err)
-    err = prepass_launch(x, nullptr, c, 0, false, batch, hw, wk.sc, wk.sh, 0, nullptr, wk.h, st);
+  int err = gn_h(x, groups, gn_g, gn_b, batch, h, w, c, eps, false, nullptr, wk, gn_ctas, st);
   if (!err) {
     BlockGemm g = projection(false, wk.h, wqkv, batch, h, w, c, 3 * c, bqkv, splits1, kper1,
                              wk.partial);
@@ -523,21 +559,15 @@ int gddim_attnblock_int8(const void* x, const void* gn_g, const void* gn_b, int 
                          float out_scale, void* work, long long work_bytes, int mw1, int box_h1,
                          int box_b1, int tiles_h1, int m_tiles1, int splits1, int kper1, int mw2,
                          int box_h2, int box_b2, int tiles_h2, int m_tiles2, int splits2,
-                         int kper2, int stages, void* out, void* stream) {
+                         int kper2, int stages, int gn_ctas, void* out, void* stream) {
   const int hw = h * w;
   const float* qs = (const float*)act_scales;
   const Work wk = carve((char*)work, batch, (long)batch * hw, c, 1, qs ? 0 : 4,
                         splits1 > splits2 ? splits1 : splits2);
   if (wk.bytes > (size_t)work_bytes) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int err = gn_stats_launch(x, nullptr, c, 0, batch, hw, groups, (const float*)gn_g,
-                            (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, false, st);
-  if (!err && qs == nullptr)
-    err = amax_launch(x, nullptr, c, 0, batch, hw, wk.sc, wk.sh, 0, wk.amax, false, st);
-  if (!err) {  // h = q(GN(x)): clip(rint(h * (1/s_h))), or per sample by max |h|
-    const Int8Args q = {qs, wk.amax, 0};
-    err = prepass_launch(x, nullptr, c, 0, false, batch, hw, wk.sc, wk.sh, 0, &q, wk.h, st);
-  }
+  // h = q(GN(x)): clip(rint(h * (1/s_h))), or per sample by max |h|
+  int err = gn_h(x, groups, gn_g, gn_b, batch, h, w, c, eps, true, qs, wk, gn_ctas, st);
   if (!err) {  // [q|k|v] = h8 @ Wqkv8 * (w_scale * s_h) + b, bf16
     const GemmTiles t1{mw1, box_h1, box_b1, tiles_h1, m_tiles1};
     BlockGemm g = projection(true, wk.h, wqkv_k, batch, h, w, c, 3 * c, bqkv, splits1, kper1,

@@ -744,7 +744,7 @@ int gddim_conv_bf16(const void* a, const void* w, int batch, int h, int w_, int 
 
 // Launches of the kernels counted in C (conv.cuh's Counted order: the int8
 // GEMM, the int8 pre-pass, the bf16 GEMM, the bf16 pre-pass, K5's attention
-// core, the GroupNorm statistics) into out
+// core, the GroupNorm statistics, the GN1 kernel) into out
 // (N_COUNTED long long); with reset, zeroed after reading.
 int gddim_block_launches(long long* out, int reset) {
   for (int k = 0; k < N_COUNTED; ++k) {

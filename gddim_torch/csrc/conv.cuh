@@ -167,8 +167,8 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t strea
 
 // Kernels launched inside a block's C call, counted where they are launched
 // (one each time the launch succeeds; gddim_block_launches reads the counts):
-// the block GEMM and the pre-pass, int8 and bf16, K5's attention core and the
-// GroupNorm statistics kernel.
+// the block GEMM and the pre-pass, int8 and bf16, K5's attention core, the
+// GroupNorm statistics kernel and the GN1 kernel (gn_apply.cu, both variants).
 enum Counted {
   COUNT_GEMM_S8 = 0,
   COUNT_PREPASS_S8 = 1,
@@ -176,19 +176,25 @@ enum Counted {
   COUNT_PREPASS_BF16 = 3,
   COUNT_ATTN = 4,
   COUNT_GN_STATS = 5,
-  N_COUNTED = 6
+  COUNT_GN_APPLY = 6,
+  N_COUNTED = 7
 };
 void count_launch(Counted kernel);
 
 // One residual block on the block GEMM (gddim_resblock's and
 // gddim_resblock_int8's arguments, in order), int8 or bf16: conv1's input
-// x0 f32 (x_f32, no x1; int8 only) or bf16, and, when amax1 is non-null,
-// the per-sample amax of conv1's input already made (int8 dynamic scales
-// only). temb_row: the block's (B, N) f32 temb projection, row b at temb_row
+// x0 f32 (x_f32, no x1; int8 only), bf16, or (x_q8: int8 mode, no GN1)
+// conv1's int8 operand already quantized by the static scale; and, when
+// amax1 is non-null, the per-sample amax of conv1's input already made
+// (int8 dynamic scales only). gn_ctas: GN1 through gn_apply_kernel in
+// clusters of that many CTAs a sample (its statistics, the amax and the
+// pre-pass in one launch; bf16 x only), or 0: gn_stats_kernel, amax_kernel
+// and the pre-pass. temb_row: the block's (B, N) f32 temb projection, row b at temb_row
 // + b * temb_ld. The bf16 mode takes no w1s, w2s, act_scales; with groups1 =
 // 0 its conv1 reads x0 as it is (K4 and K9: h holds silu(GN1(x)) already).
 int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1, bool x_f32,
-                      const float* amax1, const void* temb_row, int temb_ld,
+                      bool x_q8, int gn_ctas, const float* amax1, const void* temb_row,
+                      int temb_ld,
                       const void* gn1_g, const void* gn1_b,
                       int groups1, const void* w1, const void* w1s, const void* b1,
                       const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
@@ -222,3 +228,55 @@ int amax_launch(const void* xa, const void* xb, int ca, int cb, int batch, int h
 int gn_stats_launch(const void* xa, const void* xb, int ca, int cb, int batch, int hw,
                     int groups, const float* gamma, const float* beta, float eps, float* scale,
                     float* shift, float* mean, float* rstd, bool f32, cudaStream_t stream);
+
+// The phase coefficients of K9's factor-2 resample (transition_kerns in
+// ops/resblock.py), per axis, H carrying the up gain: see axis_taps (act.cuh).
+struct Taps {
+  float h[4], w[4];
+};
+
+// One launch of gn_apply_kernel (gn_apply.cu): GroupNorm statistics of one
+// sample a cluster of `ctas` CTAs, and their consumer from the sample held
+// in shared memory. bf16 x only (f32 activations keep gn_stats_kernel).
+//   convert (resample 0): the logical concat (xa, xb) (B, h*w, ca+cb)
+//     through the affine (+SiLU), written NHWC to out as the pre-pass writes
+//     it: bf16 (q null) or int8 by quantize8's scales q (static qs, or per
+//     sample: the kernel takes the amax of the activated sample itself, in
+//     the cluster, and writes it to amax_out);
+//   resample (resample 1, xb null, h x w the input): K9's silu(GN1(x))
+//     rounded to bf16 once, resampled by the taps k (up or down) into out
+//     (out_type 0 bf16, 1 f32 with its per-sample amax into amax_out when
+//     non-null, 2 int8 by the static scale q.qs), and bf16(x) resampled
+//     into xr.
+// scale, shift (B, C) and mean, rstd (B, groups): the affine and the
+// statistics, written when non-null.
+struct GnApply {
+  const void* xa;
+  const void* xb;
+  int ca, cb;
+  int batch, h, w;
+  int groups;
+  const float* gamma;
+  const float* beta;
+  float eps;
+  int silu;
+  int int8;       // convert: int8 out by q, else bf16
+  Int8Args q;
+  int resample;   // 0 convert, 1 resample
+  int up;
+  int out_type;   // resample: 0 bf16, 1 f32, 2 int8
+  Taps k;
+  void* out;
+  void* xr;
+  float* amax_out;
+  float* scale;
+  float* shift;
+  float* mean;
+  float* rstd;
+  int ctas;       // 8 (GN_APPLY_CTAS); the C entries take 0 for the two launches
+};
+
+// gn_apply_kernel on a.ctas CTAs a sample; cudaErrorInvalidValue for a
+// shape or cluster it does not take (see ops/resblock.py:gn_apply_ctas,
+// gn_resample_ctas). Counted where it launches.
+int gn_apply_launch(const GnApply& a, cudaStream_t stream);

@@ -11,6 +11,10 @@
 // every block's row in one f32 product an eval (models/unet.py), as the
 // JAX package makes it outside its Pallas kernels.
 //
+//   gn_apply_kernel   (gn_apply.cu) GN1 on bf16 activations in one launch:
+//                     the statistics below and conv1's operand a1 (K5's h)
+//                     from the sample held in shared memory, one cluster a
+//                     sample that reads x once; the pre-pass's arithmetic.
 //   gn_stats_kernel   GroupNorm statistics as the TPU kernels take them
 //                     (gn_silu_tile, gddim_tpu/ops/resblock.py:345-356):
 //                     per-channel f32 sums and sums of squares in one pass
@@ -22,7 +26,8 @@
 //                     rank order (no float atomics: the same result every
 //                     run). Reads one input or two (xa, xb) by logical
 //                     channel, so a group that straddles the xa/xb boundary
-//                     gets statistics over both.
+//                     gets statistics over both. GN1 where it is not one
+//                     launch (f32 activations, K6, K7; the bare route 0).
 //   prepass_kernel    a conv's input through the GN affine + SiLU, written
 //                     once NHWC in the workspace as the block GEMM's operand:
 //                     bf16 (a1.astype(mm_dtype), the TPU kernels' rounding
@@ -43,9 +48,11 @@
 //                     there, an optional skip K segment, the same epilogue.
 //
 // bf16 mode (K2-K4 on bf16 activations, conv_impl 'fused'; the entry
-// gddim_resblock, and K9's through transition.cu), resblock_gemm_run, 4-7
-// launches: stats(x), the bf16 pre-pass (a1 = silu(GN1(x)) of the logical
-// concat; K4 and K9 have no GN1 and conv1 reads h as it is), conv1 -> h1 f32
+// gddim_resblock, and K9's through transition.cu), resblock_gemm_run, 3-6
+// launches: GN1 (gn_apply_kernel: a1 = silu(GN1(x)) of the logical concat,
+// its statistics from the same read of x; the route ops/resblock.py:
+// gn_apply_ctas; route 0, gn_stats_kernel then the bf16 pre-pass; K4 and K9
+// have no GN1 and conv1 reads h as it is), conv1 -> h1 f32
 // (+ b1 + temb) with GN2's partial sums, GN2's folding pre-pass (a2 =
 // silu(GN2(h1))), conv2 + the 1x1 skip (or the identity residual) -> bf16
 // out, plus a split-K reduction after a conv whose grid is small. h1 stays
@@ -57,13 +64,15 @@
 // gddim_resblock_int8, and K9's through transition.cu). Replaces the same
 // three Pallas kernels' int8 path: _resblock_kernel_v2 with static scales,
 // _resblock_kernel and _resblock_pair_kernel with per-sample (dynamic)
-// scales. The same runner, 5-9 launches: as the bf16 mode, with amax_kernel
-// (dynamic only: the per-sample amax of a1, then of a2, after gn_fold_kernel
-// has folded GN2's sums into the affine) before each pre-pass, which
-// quantizes by quantize8: clip(rint(a * (1/s))) with a
+// scales. The same runner, 3-7 launches: as the bf16 mode; GN1's
+// gn_apply_kernel writes q(a1) (in the per-sample mode after its own
+// cluster-wide amax of a1), and conv2's pre-pass is GN2's folding pre-pass
+// (per sample: gn_fold_kernel, amax_kernel of a2, then the pre-pass);
+// every int8 operand by quantize8: clip(rint(a * (1/s))) with a
 // static scale, clip(rint(a / s_b)) with s_b = max(amax_b, 1e-12)/127 per
 // sample (the pair's conv1: a * (127/amax_b)), as the TPU kernels write
-// each; K4/K9's conv1 quantizes h too. The GEMM dequantizes its int32 sums
+// each; K4's conv1 quantizes h in a pre-pass too, K9's with a static scale
+// in its gn_apply_kernel launch (x_q8). The GEMM dequantizes its int32 sums
 // by (w_scale * s). The skip runs bf16 (the TPU kernels' dynamic-skip form;
 // the model never passes a static skip scale).
 //
@@ -80,20 +89,21 @@
 // 16x16 (2*M*9*Cin*Cout operations against M*(Cin+Cout) activation bytes
 // and 9*Cin*Cout of weights), memory- and latency-bound at 8x8 and 4x4 (M
 // = B*H*W a few hundred rows, each weight byte feeding ~M operations).
-// Around them, the GN statistics (bytes: x read once, ~25 MB of bf16 at
-// the largest GN1, 32x32x384 at B=64, ~8 us; launch latency at the small
-// sites; GN2 costs conv1's epilogue its sums over the staged tile and no
-// read of h1) and the pre-passes (bytes: at 32x32x256, B=64 ~34 MB of bf16
-// in, ~17 MB of int8 or ~34 MB of bf16 out, mostly kept in L2 for the
-// GEMM). The block GEMM answers the convs (block_gemm.cu's header), and
-// K5's 1x1 projections on bf16 activations
-// and in int8 (attnblock.cu); conv_gemm_kernel (~4% of the bf16 peak on
+// Around them, GN1 (bytes: x read once and a1 written once, ~50 + 50 MB of
+// bf16 at the largest site, 32x32x384 at B=64, ~30 us; launch and cluster
+// latency at the small sites; GN2 costs conv1's epilogue its sums over the
+// staged tile and no read of h1) and GN2's pre-pass (bytes: at 32x32x256,
+// B=64 ~34 MB of bf16 in, ~17 MB of int8 or ~34 MB of bf16 out, mostly kept
+// in L2 for the GEMM). The block GEMM answers the convs (block_gemm.cu's
+// header), and K5's 1x1 projections on bf16 activations and in int8
+// (attnblock.cu); conv_gemm_kernel (~4% of the bf16 peak on
 // these shapes) stays for what the block GEMM does not take: f32
 // activations (K5's projections in K10 among them), K6's dropout mask, and
 // through conv.cuh K7's dgrads (resblock_bwd.cu).
 //
 //   amax_kernel          dynamic mode: the per-sample amax of the quantized
-//                        activation, one pass before each conv; atomicMax on
+//                        activation, one pass before conv2 (and before conv1
+//                        on GN1's route 0); atomicMax on
 //                        the bit patterns of non-negative floats, so the
 //                        result does not depend on the order.
 
@@ -105,6 +115,7 @@
 
 #include <type_traits>
 
+#include "act.cuh"
 #include "conv.cuh"
 
 using namespace nvcuda;
@@ -121,59 +132,6 @@ constexpr int LDB = BN + 8;
 constexpr int LDC = BN + 4;  // f32 elements
 constexpr int TARGET_BLOCKS = 4 * 132;  // four resident blocks on each of 132 SMs
 constexpr int MIN_SPLIT_SLICES = 8;     // K slices per split, at least
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float silu(float v) { return v / (1.0f + __expf(-v)); }
-
-// ---------------------------------------------------------------------------
-// Eight consecutive activations of type T, loaded as 16-byte vectors and
-// converted to f32 only when used (so the loads stay in flight meanwhile).
-template <typename T> struct Pack8;
-template <> struct Pack8<bf16> { uint4 v; };
-template <> struct Pack8<float> { uint4 v[2]; };
-
-__device__ __forceinline__ void ld8(Pack8<bf16>& p, const bf16* s) {
-  p.v = *reinterpret_cast<const uint4*>(s);
-}
-__device__ __forceinline__ void ld8(Pack8<float>& p, const float* s) {
-  const uint4* q = reinterpret_cast<const uint4*>(s);
-  p.v[0] = q[0];
-  p.v[1] = q[1];
-}
-__device__ __forceinline__ void zero8(Pack8<bf16>& p) { p.v = make_uint4(0, 0, 0, 0); }
-__device__ __forceinline__ void zero8(Pack8<float>& p) { p.v[0] = p.v[1] = make_uint4(0, 0, 0, 0); }
-__device__ __forceinline__ void unpack8(const Pack8<bf16>& p, float f[8]) {
-  const bf16* e = reinterpret_cast<const bf16*>(&p.v);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) f[j] = __bfloat162float(e[j]);
-}
-__device__ __forceinline__ void unpack8(const Pack8<float>& p, float f[8]) {
-  const float* e = reinterpret_cast<const float*>(p.v);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) f[j] = e[j];
-}
-__device__ __forceinline__ uint4 bf16x8(const float f[8]) {
-  uint4 v;
-  bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(f[j]);
-  return v;
-}
-__device__ __forceinline__ uint4 bf16x8(const Pack8<bf16>& p) { return p.v; }
-__device__ __forceinline__ uint4 bf16x8(const Pack8<float>& p) {
-  float f[8];
-  unpack8(p, f);
-  return bf16x8(f);
-}
-__device__ __forceinline__ void st8(bf16* d, const float f[8]) {
-  *reinterpret_cast<uint4*>(d) = bf16x8(f);
-}
-__device__ __forceinline__ void st8(float* d, const float f[8]) {
-  float4* q = reinterpret_cast<float4*>(d);
-  q[0] = make_float4(f[0], f[1], f[2], f[3]);
-  q[1] = make_float4(f[4], f[5], f[6], f[7]);
-}
 
 constexpr int THREADS_GN = 256;
 constexpr int GN_CTAS = 8;         // gn_stats_kernel's cluster: the CTAs of one sample
@@ -434,7 +392,7 @@ __device__ __forceinline__ void store_stage(const ConvArgs& p, const Stage<T>& s
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         f[j] = f[j] * sc[j] + sh[j];
-        if (p.silu) f[j] = silu(f[j]);
+        if (p.silu) f[j] = silu_ieee(f[j]);
         if constexpr (kMaskable<T>) {
           if (p.mask) f[j] *= (float)mk[j] * p.inv_keep;
         }
@@ -587,46 +545,6 @@ int conv_gemm_run(const ConvArgs& p, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 // int8 mode.
 
-__device__ __forceinline__ int8_t quant8(float v) {
-  return (int8_t)fminf(fmaxf(rintf(v), -127.0f), 127.0f);  // rintf: half to even
-}
-
-// The int8 values of 8 activations f of sample b: the GN affine (+SiLU)
-// in f32 first when sc is non-null, then clip(rint(a * inv_static))
-// (static), clip(rint(a * (127 / amax_b))) (inv_mul: the pair's conv1) or
-// clip(rint(a / (amax_b / 127))), amax_b = max(amax[b], 1e-12), as the TPU
-// kernels write each. The one quantizer of the int8 modes' pre-pass
-// (prepass_kernel).
-__device__ __forceinline__ uint2 quantize8(float f[8], const float* sc, const float* sh,
-                                           int silu_on, float inv_static, const Int8Args& q,
-                                           int b) {
-  if (sc != nullptr) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      f[j] = f[j] * sc[j] + sh[j];
-      if (silu_on) f[j] = silu(f[j]);
-    }
-  }
-  uint2 v;
-  int8_t* e = reinterpret_cast<int8_t*>(&v);
-  if (q.qs != nullptr) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) e[j] = quant8(f[j] * inv_static);
-  } else {
-    const float am = fmaxf(q.amax[b], 1e-12f);
-    if (q.inv_mul) {
-      const float inv = 127.0f / am;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = quant8(f[j] * inv);
-    } else {
-      const float s = am / 127.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = quant8(f[j] / s);
-    }
-  }
-  return v;
-}
-
 // grid (chunks, B), THREADS_GN threads; see amax_launch
 template <typename T>
 __global__ void __launch_bounds__(THREADS_GN)
@@ -649,13 +567,8 @@ amax_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, int cb, 
       ld8(pk, xb + pix * cb + (c - ca));
     float f[8];
     unpack8(pk, f);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float y = f[j];
-      if (scale != nullptr) y = y * scale[(long)b * c_tot + c + j] + shift[(long)b * c_tot + c + j];
-      if (silu_on) y = silu(y);
-      mx = fmaxf(mx, fabsf(y));
-    }
+    const long o = (long)b * c_tot + c;
+    mx = amax8(f, scale ? scale + o : nullptr, scale ? shift + o : nullptr, silu_on, mx);
   }
   for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
@@ -666,30 +579,6 @@ amax_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, int cb, 
     // non-negative floats order as their bit patterns do, so the max is the
     // same whatever order the blocks arrive in
     atomicMax(reinterpret_cast<int*>(amax + b), __float_as_int(mx));
-  }
-}
-
-// The pre-pass's conversion of 8 activations f of sample b to dst: the GN
-// affine (sc, sh; none when null) and SiLU (silu_on), then int8 by quantize8
-// (TQ int8) or bf16
-template <typename TQ>
-__device__ __forceinline__ void convert8(float f[8], const float* sc, const float* sh,
-                                         int silu_on, const Int8Args& q, int b, TQ* dst) {
-  if constexpr (std::is_same<TQ, int8_t>::value) {
-    const float inv_static = q.qs != nullptr ? 1.0f / *q.qs : 0.0f;
-    *reinterpret_cast<uint2*>(dst) = quantize8(f, sc, sh, silu_on, inv_static, q, b);
-  } else {
-    // the affine as the TPU kernels' x * a + b, without a fused multiply-add:
-    // a bf16 value keeps 8 bits of its own magnitude, so near zero, where
-    // x * a and b cancel, an FMA's unrounded product would move it by ulps
-    if (sc != nullptr) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        f[j] = __fadd_rn(__fmul_rn(f[j], sc[j]), sh[j]);
-        if (silu_on) f[j] = silu(f[j]);
-      }
-    }
-    st8(dst, f);
   }
 }
 
@@ -995,7 +884,8 @@ int amax_launch(const void* xa, const void* xb, int ca, int cb, int batch, int h
 }
 
 int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1, bool x_f32,
-                      const float* amax1, const void* temb_row, int temb_ld, const void* gn1_g,
+                      bool x_q8, int gn_ctas, const float* amax1, const void* temb_row,
+                      int temb_ld, const void* gn1_g,
                       const void* gn1_b, int groups1, const void* w1, const void* w1s,
                       const void* b1, const void* gn2_g, const void* gn2_b, int groups2,
                       const void* w2, const void* w2s, const void* b2, const void* s0,
@@ -1006,26 +896,56 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
   const int hw = h * w_;
   const int cin = c0 + c1;
   const bool gn1 = groups1 > 0;
-  // the bf16 mode: bf16 x, and conv1 reads x0 as it is without GN1
-  if (!int8 && (x_f32 || (!gn1 && x1 != nullptr))) return (int)cudaErrorInvalidValue;
+  // the bf16 mode: bf16 x, and conv1 reads x0 as it is without GN1; x_q8:
+  // the int8 mode's static scale, no GN1; gn_ctas: bf16 x with GN1
+  if ((!int8 && (x_f32 || (!gn1 && x1 != nullptr))) ||
+      (x_q8 && (!int8 || gn1 || x_f32 || act_scales == nullptr)) ||
+      (gn_ctas && (!gn1 || x_f32)))
+    return (int)cudaErrorInvalidValue;
   const WorkGemm wk = carve_gemm((char*)work, batch, (long)batch * hw, cin, n,
                                  splits1 > splits2 ? splits1 : splits2, tiles.tiles_h,
                                  int8 ? 1 : 2);
   const float* qs = (const float*)act_scales;
   const float* am1 = amax1 ? amax1 : wk.amax;
   int err = 0;
-  if (gn1)
-    err = gn_stats_launch(x0, x1, c0, c1, batch, hw, groups1, (const float*)gn1_g,
-                          (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr, x_f32, st);
-  if (!err && int8 && qs == nullptr && amax1 == nullptr)
-    err = amax_launch(x0, x1, c0, c1, batch, hw, gn1 ? wk.sc1 : nullptr, gn1 ? wk.sh1 : nullptr,
-                      gn1 ? 1 : 0, wk.amax, x_f32, st);
-  const void* a1 = x0;  // bf16 without GN1 (K4, K9): h is conv1's operand as it is
-  if (!err && (int8 || gn1)) {  // a1 = silu(GN1(x)) in bf16, or q(a1) (the pair's a * (127 / amax))
-    const Int8Args q = {qs, am1, x1 != nullptr};
-    err = prepass_launch(x0, x1, c0, c1, x_f32, batch, hw, gn1 ? wk.sc1 : nullptr,
-                         gn1 ? wk.sh1 : nullptr, gn1 ? 1 : 0, int8 ? &q : nullptr, wk.a, st);
+  // conv1's operand: x0 as it is (bf16 without GN1: K4's and K9's h; K9's
+  // q(h) with x_q8), else a1 = silu(GN1(x)) in bf16, or q(a1) (the pair's
+  // a * (127 / amax)), made once into the workspace
+  const void* a1 = x0;
+  if (gn_ctas) {  // GN1's statistics (and the per-sample amax) and a1 in one launch
+    GnApply g1 = {};
+    g1.xa = x0;
+    g1.xb = x1;
+    g1.ca = c0;
+    g1.cb = c1;
+    g1.batch = batch;
+    g1.h = h;
+    g1.w = w_;
+    g1.groups = groups1;
+    g1.gamma = (const float*)gn1_g;
+    g1.beta = (const float*)gn1_b;
+    g1.eps = eps;
+    g1.silu = 1;
+    g1.int8 = int8;
+    g1.q = Int8Args{qs, nullptr, x1 != nullptr};
+    g1.out = wk.a;
+    g1.amax_out = int8 && qs == nullptr ? wk.amax : nullptr;
+    g1.ctas = gn_ctas;
+    err = gn_apply_launch(g1, st);
     a1 = wk.a;
+  } else {
+    if (gn1)
+      err = gn_stats_launch(x0, x1, c0, c1, batch, hw, groups1, (const float*)gn1_g,
+                            (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr, x_f32, st);
+    if (!err && int8 && qs == nullptr && amax1 == nullptr)
+      err = amax_launch(x0, x1, c0, c1, batch, hw, gn1 ? wk.sc1 : nullptr,
+                        gn1 ? wk.sh1 : nullptr, gn1 ? 1 : 0, wk.amax, x_f32, st);
+    if (!err && (int8 || gn1) && !x_q8) {
+      const Int8Args q = {qs, am1, x1 != nullptr};
+      err = prepass_launch(x0, x1, c0, c1, x_f32, batch, hw, gn1 ? wk.sc1 : nullptr,
+                           gn1 ? wk.sh1 : nullptr, gn1 ? 1 : 0, int8 ? &q : nullptr, wk.a, st);
+      a1 = wk.a;
+    }
   }
   BlockGemm g = {};
   g.int8 = int8;
@@ -1110,12 +1030,12 @@ int gddim_resblock_int8(const void* x0, const void* x1, int c0, int c1, const vo
                         const void* ws, const void* bs, const void* act_scales, int batch, int h,
                         int w_, int n, float eps, float out_scale, void* work, int mw, int box_h,
                         int box_b, int tiles_h, int m_tiles, int splits1, int kper1, int splits2,
-                        int kper2, void* out, void* stream) {
-  return resblock_gemm_run(true, x0, x1, c0, c1, false, nullptr, temb_row, temb_ld, gn1_g, gn1_b,
-                           groups1, w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, s0, s1,
-                           cs0, cs1, ws, bs, act_scales, batch, h, w_, n, eps, out_scale, work,
-                           GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1, splits2,
-                           kper2, out, (cudaStream_t)stream);
+                        int kper2, int gn_ctas, void* out, void* stream) {
+  return resblock_gemm_run(true, x0, x1, c0, c1, false, false, gn_ctas, nullptr, temb_row,
+                           temb_ld, gn1_g, gn1_b, groups1, w1q, w1s, b1, gn2_g, gn2_b, groups2,
+                           w2q, w2s, b2, s0, s1, cs0, cs1, ws, bs, act_scales, batch, h, w_, n,
+                           eps, out_scale, work, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},
+                           splits1, kper1, splits2, kper2, out, (cudaStream_t)stream);
 }
 
 // The int8 block's quantize pre-pass alone: out (B, H, W, ca+cb) int8 from
@@ -1175,12 +1095,12 @@ int gddim_resblock(const void* x0, const void* x1, int c0, int c1, const void* t
                    int cs1, const void* ws, const void* bs, int batch, int h, int w_, int n,
                    float eps, float out_scale, void* work, int mw, int box_h, int box_b,
                    int tiles_h, int m_tiles, int splits1, int kper1, int splits2, int kper2,
-                   void* out, void* stream) {
-  return resblock_gemm_run(false, x0, x1, c0, c1, false, nullptr, temb_row, temb_ld, gn1_g,
-                           gn1_b, groups1, w1, nullptr, b1, gn2_g, gn2_b, groups2, w2, nullptr, b2,
-                           s0, s1, cs0, cs1, ws, bs, nullptr, batch, h, w_, n, eps, out_scale,
-                           work, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1,
-                           splits2, kper2, out, (cudaStream_t)stream);
+                   int gn_ctas, void* out, void* stream) {
+  return resblock_gemm_run(false, x0, x1, c0, c1, false, false, gn_ctas, nullptr, temb_row,
+                           temb_ld, gn1_g, gn1_b, groups1, w1, nullptr, b1, gn2_g, gn2_b, groups2,
+                           w2, nullptr, b2, s0, s1, cs0, cs1, ws, bs, nullptr, batch, h, w_, n,
+                           eps, out_scale, work, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},
+                           splits1, kper1, splits2, kper2, out, (cudaStream_t)stream);
 }
 
 long long gddim_resblock_f32_workspace(int batch, int h, int w, int cin, int n, int splits) {

@@ -14,6 +14,16 @@
 // kernel fills a zero-bordered scratch with the activation, rounded to the
 // scratch dtype, bf16, and resamples that). Each C call runs:
 //
+//   gn_apply_kernel (gn_apply.cu,    bf16 x: GN1's statistics and the
+//   its resample variant)            resample in one launch, one cluster a
+//                                    sample that reads x once: silu(GN1(x))
+//                                    rounded to bf16 once per value in shared
+//                                    memory, then the sums below; h bf16, f32
+//                                    with the per-sample amax (a cluster
+//                                    max), or with a static scale q(h) int8,
+//                                    so that conv1 needs no pre-pass
+//                                    (ops/resblock.py:gn_resample_ctas)
+//   or, f32 x (and route 0):
 //   gn_stats_launch (resblock.cu)    GN1 statistics of x -> per-(sample,
 //                                    channel) affine
 //   transition_resample_kernel       per output pixel and 8 channels: the
@@ -32,16 +42,17 @@
 //                                    segment: bf16 and int8 through the
 //                                    block GEMM (block_gemm.cu; bf16 conv1
 //                                    reads h as it is, int8 quantizes it in
-//                                    the pre-pass), f32 x through
-//                                    conv_gemm_kernel
+//                                    the pre-pass, or reads q(h) as it is),
+//                                    f32 x through conv_gemm_kernel
 //
 // What bounds it on the H100: the two 3x3 convs, as in K4 (tensor-core bound
 // at 16x16 and 32x32, weight bytes and latency at 4x4 and 8x8). The resample
-// is a gather that reads each input vector 4 times (through L1/L2) and
-// writes h and xr once: bytes, a few us a call. The design replaces K1, two
-// PyTorch FIR passes (five to seven launches each) and K4 with one C call
-// of 5-9 launches; folding the resample into conv1's A-operand gather, so
-// that h never reaches device memory, is later work.
+// is bytes (x read once, h and xr written once), a few us a call; its
+// one-launch variant reads each input value once from device memory and
+// activates it once. The design replaces K1, two PyTorch FIR passes (five
+// to seven launches each) and K4 with one C call of 4-8 launches; folding
+// the resample into conv1's A-operand gather, so that h never reaches
+// device memory, is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,6 +60,7 @@
 
 #include <type_traits>
 
+#include "act.cuh"
 #include "conv.cuh"
 
 extern "C" long long gddim_resblock_workspace(int batch, int h, int w, int cin, int n,
@@ -69,21 +81,7 @@ extern "C" int gddim_resblock_f32(const void* x0, const void* x1, int c0, int c1
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int RS_THREADS = 256;
-
-// The 4-tap phase coefficients (transition_kerns in ops/resblock.py): up,
-// out[2j] = k[0] x[j-1] + k[2] x[j], out[2j+1] = k[1] x[j] + k[3] x[j+1];
-// down, out[o] = sum_a k[a] x[2o+a-1]; per axis, H carrying the up gain.
-struct Taps {
-  float h[4], w[4];
-};
-
-__device__ __forceinline__ float silu(float v) { return v / (1.0f + __expf(-v)); }
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 __device__ __forceinline__ void load8(const bf16* s, float f[8]) {
   const uint4 v = *reinterpret_cast<const uint4*>(s);
@@ -106,28 +104,6 @@ __device__ __forceinline__ void store8(bf16* d, const float f[8]) {
 __device__ __forceinline__ void store8(float* d, const float f[8]) {
   reinterpret_cast<float4*>(d)[0] = make_float4(f[0], f[1], f[2], f[3]);
   reinterpret_cast<float4*>(d)[1] = make_float4(f[4], f[5], f[6], f[7]);
-}
-
-// The taps of output index o along one axis of input length n: their input
-// indices and coefficients; an index outside [0, n) is a zero tap.
-__device__ __forceinline__ int axis_taps(int o, int up, const float k[4], int idx[4], float c[4]) {
-  if (up) {
-    const int j = o >> 1;
-    if (o & 1) {
-      idx[0] = j; c[0] = k[1];
-      idx[1] = j + 1; c[1] = k[3];
-    } else {
-      idx[0] = j - 1; c[0] = k[0];
-      idx[1] = j; c[1] = k[2];
-    }
-    return 2;
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    idx[a] = 2 * o + a - 1;
-    c[a] = k[a];
-  }
-  return 4;
 }
 
 // grid (ceil(Ho*Wo*C/8 / RS_THREADS), B), RS_THREADS threads: one thread per
@@ -251,8 +227,41 @@ Work carve(char* base, int batch, int ho, int wo, int c, size_t h_bytes, size_t 
 
 int out_size(int n, int up) { return up ? 2 * n : n / 2; }
 
-// GN1 statistics of x and the resample into h and xr (the first two
-// launches of every mode), TX x's type, TH h's; see transition_resample_kernel.
+// GN1 of x and the resample into h and xr, the first launch of every mode:
+// gn_apply_kernel's resample variant on gn_ctas CTAs a sample (bf16 x; h
+// bf16 (out_type 0), f32 with its per-sample amax into amax when non-null
+// (1), or int8 by the static scale *qs (2)).
+int gn1_resample_fused(const void* x, int c, const void* gn1_g, const void* gn1_b, int groups1,
+                       int batch, int h_in, int w_in, int up, const Taps& k, float eps,
+                       int out_type, const float* qs, const Work& wk, float* amax, int gn_ctas,
+                       cudaStream_t st, float* scale = nullptr, float* shift = nullptr) {
+  GnApply a = {};
+  a.xa = x;
+  a.ca = c;
+  a.batch = batch;
+  a.h = h_in;
+  a.w = w_in;
+  a.groups = groups1;
+  a.gamma = (const float*)gn1_g;
+  a.beta = (const float*)gn1_b;
+  a.eps = eps;
+  a.silu = 1;
+  a.q = Int8Args{qs, nullptr, 0};
+  a.resample = 1;
+  a.up = up;
+  a.out_type = out_type;
+  a.k = k;
+  a.out = wk.h;
+  a.xr = wk.xr;
+  a.amax_out = amax;
+  a.scale = scale;
+  a.shift = shift;
+  a.ctas = gn_ctas;
+  return gn_apply_launch(a, st);
+}
+
+// The same in two launches (f32 x, or gn_ctas 0): GN1 statistics of x, then
+// the resample, TX x's type, TH h's; see transition_resample_kernel.
 template <typename TX, typename TH>
 int gn1_resample(const void* x, int c, const void* gn1_g, const void* gn1_b, int groups1,
                  int batch, int h_in, int w_in, int up, const Taps& k, float eps, int round_h,
@@ -270,6 +279,40 @@ int gn1_resample(const void* x, int c, const void* gn1_g, const void* gn1_b, int
 }  // namespace
 
 extern "C" {
+
+// K9's first pass alone: x (B, h_in, w_in, c) bf16 -> h (B, Ho, Wo, c)
+// (out_type 0 bf16, 1 f32 with its per-sample amax into amax (B,) when
+// non-null, 2 int8 by the static scale *qs) and xr (B, Ho, Wo, c) bf16;
+// (kh, kw) the phase coefficients; GN1's affine into scale, shift (B, c)
+// when non-null. ctas: gn_apply_kernel's resample variant on that many
+// CTAs a sample, or 0: the two launches it replaces (gn_stats_kernel, then
+// transition_resample_kernel; out_type 0 or 1, scale and shift required),
+// the yardstick.
+int gddim_gn_resample(const void* x, int c, int batch, int h_in, int w_in, int up, float kh0,
+                      float kh1, float kh2, float kh3, float kw0, float kw1, float kw2, float kw3,
+                      int groups, const void* gamma, const void* beta, float eps, int out_type,
+                      const void* qs, void* amax, int ctas, void* h_out, void* xr_out,
+                      void* scale, void* shift, void* stream) {
+  if (c % 8 || h_in % 2 || w_in % 2 || out_type < 0 || out_type > 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  Work wk = {};
+  wk.h = h_out;
+  wk.xr = xr_out;
+  wk.sc1 = (float*)scale;
+  wk.sh1 = (float*)shift;
+  const Taps k = {{kh0, kh1, kh2, kh3}, {kw0, kw1, kw2, kw3}};
+  if (ctas)
+    return gn1_resample_fused(x, c, gamma, beta, groups, batch, h_in, w_in, up, k, eps, out_type,
+                              (const float*)qs, wk, (float*)amax, ctas, st, (float*)scale,
+                              (float*)shift);
+  if (out_type == 2 || scale == nullptr || shift == nullptr) return (int)cudaErrorInvalidValue;
+  return out_type == 0
+             ? gn1_resample<bf16, bf16>(x, c, gamma, beta, groups, batch, h_in, w_in, up, k, eps,
+                                        1, wk, nullptr, st)
+             : gn1_resample<bf16, float>(x, c, gamma, beta, groups, batch, h_in, w_in, up, k, eps,
+                                         0, wk, (float*)amax, st);
+}
 
 // h, w: the OUTPUT resolution (the block's convs run there); parts: the
 // tile plan's tiles_h there
@@ -294,20 +337,24 @@ int gddim_resblock_transition(const void* x, int c, const void* temb_row, int te
                               float kw0, float kw1, float kw2, float kw3, int n, float eps,
                               float out_scale, void* work, int mw, int box_h, int box_b,
                               int tiles_h, int m_tiles, int splits1, int kper1, int splits2,
-                              int kper2, void* out, void* stream) {
+                              int kper2, int gn_ctas, void* out, void* stream) {
   if (c % 8 || h_in % 2 || w_in % 2) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int ho = out_size(h_in, up), wo = out_size(w_in, up);
   const Work wk = carve((char*)work, batch, ho, wo, c, sizeof(bf16), sizeof(bf16));
   const Taps k = {{kh0, kh1, kh2, kh3}, {kw0, kw1, kw2, kw3}};
-  const int err = gn1_resample<bf16, bf16>(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up, k,
-                                           eps, 1, wk, nullptr, st);
+  const int err =
+      gn_ctas ? gn1_resample_fused(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up, k, eps, 0,
+                                   nullptr, wk, nullptr, gn_ctas, st)
+              : gn1_resample<bf16, bf16>(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up, k,
+                                         eps, 1, wk, nullptr, st);
   if (err) return err;
-  return resblock_gemm_run(false, wk.h, nullptr, c, 0, false, nullptr, temb_row, temb_ld,
-                           nullptr, nullptr, 0, w1, nullptr, b1, gn2_g, gn2_b, groups2, w2,
-                           nullptr, b2, wk.xr, nullptr, c, 0, ws, bs, nullptr, batch, ho, wo, n,
-                           eps, out_scale, wk.rest, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},
-                           splits1, kper1, splits2, kper2, out, st);
+  return resblock_gemm_run(false, wk.h, nullptr, c, 0, false, false, 0, nullptr, temb_row,
+                           temb_ld, nullptr, nullptr, 0, w1, nullptr, b1, gn2_g, gn2_b, groups2,
+                           w2, nullptr, b2, wk.xr, nullptr, c, 0, ws, bs, nullptr, batch, ho, wo,
+                           n, eps, out_scale, wk.rest,
+                           GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1, splits2,
+                           kper2, out, st);
 }
 
 long long gddim_resblock_transition_f32_workspace(int batch, int h, int w, int c, int n,
@@ -368,21 +415,29 @@ int gddim_resblock_transition_int8(const void* x, int c, const void* temb_row, i
                                    float kw1, float kw2, float kw3, int n, float eps,
                                    float out_scale, void* work, int mw, int box_h, int box_b,
                                    int tiles_h, int m_tiles, int splits1, int kper1, int splits2,
-                                   int kper2, void* out, void* stream) {
+                                   int kper2, int gn_ctas, void* out, void* stream) {
   if (c % 8 || h_in % 2 || w_in % 2) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int ho = out_size(h_in, up), wo = out_size(w_in, up);
   const Work wk = carve((char*)work, batch, ho, wo, c, sizeof(float), sizeof(bf16));
   const Taps k = {{kh0, kh1, kh2, kh3}, {kw0, kw1, kw2, kw3}};
-  const bool dynamic = act_scales == nullptr;
-  const int err = gn1_resample<bf16, float>(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up, k,
-                                            eps, 0, wk, dynamic ? wk.amax : nullptr, st);
+  const float* qs = (const float*)act_scales;
+  const bool dynamic = qs == nullptr;
+  // the one-launch route writes q(h) itself with a static scale: conv1 then
+  // needs no pre-pass; else h f32 (and its per-sample amax) for the pre-pass
+  const bool q8 = gn_ctas && !dynamic;
+  const int err =
+      gn_ctas ? gn1_resample_fused(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up, k, eps,
+                                   q8 ? 2 : 1, qs, wk, dynamic ? wk.amax : nullptr, gn_ctas, st)
+              : gn1_resample<bf16, float>(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up, k,
+                                          eps, 0, wk, dynamic ? wk.amax : nullptr, st);
   if (err) return err;
-  return resblock_gemm_run(true, wk.h, nullptr, c, 0, true, dynamic ? wk.amax : nullptr, temb_row,
-                           temb_ld, nullptr, nullptr, 0, w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q,
-                           w2s, b2, wk.xr, nullptr, c, 0, ws, bs, act_scales, batch, ho, wo, n,
-                           eps, out_scale, wk.rest, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},
-                           splits1, kper1, splits2, kper2, out, st);
+  return resblock_gemm_run(true, wk.h, nullptr, c, 0, !q8, q8, 0, dynamic ? wk.amax : nullptr,
+                           temb_row, temb_ld, nullptr, nullptr, 0, w1q, w1s, b1, gn2_g, gn2_b,
+                           groups2, w2q, w2s, b2, wk.xr, nullptr, c, 0, ws, bs, act_scales, batch,
+                           ho, wo, n, eps, out_scale, wk.rest,
+                           GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1, splits2,
+                           kper2, out, st);
 }
 
 }  // extern "C"

@@ -59,6 +59,7 @@ from gddim_torch.ops.resblock import (
     activation_dtype,
     bf16_tile_plan,
     check_act_scales,
+    gn_apply_ctas,
     group_norm_tpu,
     int8_matmul_exact,
     quant_dynamic,
@@ -340,7 +341,7 @@ def _attnblock_cuda(x, gn_scale, gn_bias, weights: AttnWeights, *, num_groups, e
         work = torch.empty(nbytes, device=dev, dtype=torch.uint8)
         _build.launch("gddim_attnblock", dev, *ptrs[:3], num_groups, *ptrs[3:], b, h, w, c, eps,
                       out_scale, work.data_ptr(), nbytes, *_tiles(plan.qkv), *_tiles(plan.out),
-                      plan.stages, out.data_ptr())
+                      plan.stages, gn_apply_ctas(h, w, c), out.data_ptr())
         return out
     if not core_supported(s, c):
         raise ValueError(f"fused_attnblock: unsupported shape {tuple(x.shape)}")
@@ -415,7 +416,7 @@ def fused_attnblock_int8(x, gn_scale, gn_bias, wqkv, bqkv, wo, bo, act_scales=No
     _build.launch(
         "gddim_attnblock_int8", dev, *ptrs[:3], num_groups, *ptrs[3:], b, h, w, c, eps,
         _INV_SQRT2 if skip_rescale else 1.0, work.data_ptr(), nbytes, *_tiles(plan.qkv),
-        *_tiles(plan.out), plan.stages, out.data_ptr(),
+        *_tiles(plan.out), plan.stages, gn_apply_ctas(h, w, c), out.data_ptr(),
     )
     fused_attnblock_int8.launches += 1
     return out

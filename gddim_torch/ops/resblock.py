@@ -30,9 +30,13 @@ accumulators), with h1 in f32 between the convs, as the TPU kernel keeps it
 (``resblock_bf16_reference`` and its pair/tail forms are the plain versions
 with the TPU kernel's rounding points); its tile plan is ``bf16_tile_plan``.
 The GroupNorm statistics are the TPU kernels' (per-channel f32 sums and
-sums of squares, folded by group, var = E[x^2] - mean^2): GN1's from one
-pass of ``gn_stats_kernel`` over x (``gn_stats``; plain version
-``gn_stats_reference``), GN2's from conv1's epilogue, which writes each
+sums of squares, folded by group, var = E[x^2] - mean^2): GN1's on bf16
+activations with conv1's operand in one launch of ``gn_apply_kernel``
+(``csrc/gn_apply.cu``: a cluster of CTAs holds each sample and reads it
+once; ``gn_apply``, its route ``gn_apply_ctas``, plain version
+``gn_apply_reference``; K9's GN1 and resample likewise, ``gn_resample``),
+on f32 activations from ``gn_stats_kernel`` (``gn_stats``; plain version
+``gn_stats_reference``); GN2's from conv1's epilogue, which writes each
 channel's sums a (tile, sample) (``gn2_partials_reference``), folded in a
 fixed order (``gn_fold_reference``) by conv2's pre-pass. The temb row
 (silu(temb) @ Wd + bd) is the model's: it passes each block its slice of one
@@ -737,6 +741,74 @@ def train_supported(x_shape, cout: int) -> bool:
     return x_shape[-1] % _BK == 0 and cout % _BN == 0
 
 
+# GN1 in one launch (csrc/gn_apply.cu, ``gn_apply_kernel``): a cluster of
+# GN_APPLY_CTAS CTAs a sample, where an eighth of the sample fits a CTA's
+# shared memory (every GN1 site of both configs does)
+GN_APPLY_CTAS = 8
+GN_APPLY_THREADS = 256  # a CTA: gn_stats_kernel's lanes
+GN_APPLY_MAX_C = 2048
+SMEM_BYTES = 227 * 1024  # shared memory a block can use on the H100
+
+
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def gn_apply_smem(c: int, pixels: int, resample: bool = False) -> int:
+    """Shared memory of one ``gn_apply_kernel`` CTA holding ``pixels`` of c
+    bf16 channels (``csrc/gn_apply.cu:ga_layout``): the share, in the
+    resample variant its activation beside it, the channel sums and
+    squares, gamma and beta, the pixel lanes' partial sums (then the
+    affine), 256 bytes of maxima."""
+    lanes = GN_APPLY_THREADS // (c // _VEC)
+    raw = _align128(2 * pixels * c)
+    return (raw * (2 if resample else 1) + 2 * _align128(8 * c) + _align128(4 * max(lanes, 2) * c)
+            + 256)
+
+
+def _resample_rows(hin: int, win: int, up: bool, ctas: int) -> int:
+    """The most input rows a CTA of the resample variant holds
+    (``csrc/gn_apply.cu:rs_rows``): those of its share of the statistics
+    (the pixels [r hw / ctas, (r + 1) hw / ctas)) and those its output rows
+    read, one halo row on each side."""
+    hw, units = hin * win, hin if up else hin // 2
+    most = 0
+    for r in range(ctas):
+        p0, p1 = hw * r // ctas, hw * (r + 1) // ctas
+        lo, hi = p0 // win, -(-p1 // win)
+        u0, u1 = units * r // ctas, units * (r + 1) // ctas
+        if u1 > u0:
+            nlo, nhi = (u0 - 1, u1 + 1) if up else (2 * u0 - 1, 2 * u1 + 1)
+            lo, hi = min(lo, max(nlo, 0)), max(hi, min(nhi, hin))
+        most = max(most, hi - lo)
+    return most
+
+
+def gn_apply_ctas(h: int, w: int, c: int, f32: bool = False) -> int:
+    """The route of a GN1 site of an (h, w, c) sample (the logical concat's c
+    channels): the cluster size of ``gn_apply_kernel`` (the statistics and
+    the conv input, or K5's h, in one launch), or 0 for the two-launch route
+    (``gn_stats_kernel``, then the pre-pass): f32 activations, a width the
+    statistics do not take, or an eighth of the sample too large for a
+    CTA's shared memory. A pure function of the shape, as the kernels'
+    gates are."""
+    if f32 or c % _VEC or not _VEC <= c <= GN_APPLY_MAX_C:
+        return 0
+    fits = gn_apply_smem(c, -(-(h * w) // GN_APPLY_CTAS)) <= SMEM_BYTES
+    return GN_APPLY_CTAS if fits else 0
+
+
+def gn_resample_ctas(hin: int, win: int, c: int, up: bool, f32: bool = False) -> int:
+    """The route of K9's GN1 on an (hin, win, c) input: the cluster size of
+    ``gn_apply_kernel``'s resample variant (8), or 0 for the two launches
+    (``gn_stats_kernel``, then ``transition_resample_kernel``): f32
+    activations, or rows too wide for shared memory."""
+    if f32 or c % _VEC or not _VEC <= c <= GN_APPLY_MAX_C or hin % 2 or win % 2:
+        return 0
+    rows = _resample_rows(hin, win, up, GN_APPLY_CTAS)
+    return GN_APPLY_CTAS if gn_apply_smem(c, rows * win, True) <= SMEM_BYTES else 0
+
+
 class GemmPlan(NamedTuple):
     """How ``block_gemm_kernel`` cuts one conv (+ skip). A tile is mw *
     GEMM_TILE_M output pixels, one A box of W pixels x box_h rows x box_b
@@ -892,7 +964,7 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
     entry = "gddim_resblock" + ("_int8" if int8 else "" if gemm else "_f32")
     if gemm:
         tiles, splits, nbytes = _plan_gemm(entry, b, h, w, cin, cs0 + cs1, n, int8)
-        plan = (*tiles, *splits)
+        plan = [*tiles, *splits]
     else:
         *plan, nbytes = _plan(entry, b, h, w, cin, cs0 + cs1, n)
     row, ld = _temb_row(temb, dense_w, dense_b, b, n)
@@ -922,6 +994,8 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
     ]
     if int8:
         args.append(op(act_scales, "act scales", f32, (2,)))
+    if gemm:  # GN1's route: one launch, or the statistics then the pre-pass
+        plan.append(gn_apply_ctas(h, w, cin) if gn1[2] else 0)
     dev = xs[0].device
     work = torch.empty(nbytes, device=dev, dtype=torch.uint8)
     out = torch.empty((b, h, w, n), device=dev, dtype=act)
@@ -1075,7 +1149,7 @@ def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2
     entry = "gddim_resblock_transition" + ("_int8" if int8 else "" if gemm else "_f32")
     if gemm:
         tiles, splits, nbytes = _plan_gemm(entry, b, ho, wo, cin, cin, n, int8)
-        plan = (*tiles, *splits)
+        plan = (*tiles, *splits, gn_resample_ctas(hin, win, cin, up))
     else:
         *plan, nbytes = _plan(entry, b, ho, wo, cin, cin, n)
     row, ld = _temb_row(temb, dense_w, dense_b, b, n)
@@ -1291,13 +1365,144 @@ def gn_stats(x0, x1=None, gamma=None, beta=None, *, num_groups: int, eps: float 
     return tuple(out)
 
 
+def gn_apply_reference(x0, x1=None, gamma=None, beta=None, *, num_groups: int,
+                       eps: float = 1e-6, silu: bool = True, int8: bool = False,
+                       act_scale=None, inv_mul: bool = False):
+    """Plain version of ``gn_apply``: the two launches it replaces,
+    ``gn_stats_reference`` of the logical concat (x0, x1), then the conv
+    input as the pre-pass makes it from that affine (+SiLU): bf16
+    (``bf16_conv_input_reference``), or with ``int8`` int8
+    (``quantize_conv_input_reference``) by the static act_scale or per
+    sample (act_scale None; inv_mul: a * (127 / amax)). Returns (a,
+    (scale, shift, mean, rstd), amax): amax the per-sample (B,) max|a| in
+    the per-sample int8 mode, else None."""
+    x = x0 if x1 is None else torch.cat([x0, x1], -1)
+    stats = gn_stats_reference(x, num_groups, eps, gamma, beta)
+    sc, sh = stats[:2]
+    if not int8:
+        return bf16_conv_input_reference(x0, x1, sc, sh, silu=silu), stats, None
+    amax = None
+    if act_scale is None:
+        a = _conv_input(x0, x1, sc, sh, silu)
+        amax = a.abs().amax(dim=tuple(range(1, a.dim())))
+    q = quantize_conv_input_reference(x0, x1, sc, sh, silu=silu, act_scale=act_scale, amax=amax,
+                                      inv_mul=inv_mul)
+    return q, stats, amax
+
+
+def gn_apply(x0, x1=None, gamma=None, beta=None, *, num_groups: int, eps: float = 1e-6,
+             silu: bool = True, int8: bool = False, act_scale=None, inv_mul: bool = False,
+             ctas: int | None = None):
+    """GN1 in one launch alone (``gn_apply_kernel``, csrc/gn_apply.cu; see
+    gn_apply_reference for the arguments and the result): bf16 x0, x1 (B, H,
+    W, C0+C1) on a cluster of ``ctas`` CTAs a sample (default
+    ``gn_apply_ctas``), which reads the sample once for its statistics and
+    its conv input; ctas 0 runs the launches it replaces
+    (``gn_stats_kernel``, the per-sample amax pass, the pre-pass). Counted
+    in C (``block_launches``)."""
+    kw = dict(num_groups=num_groups, eps=eps, silu=silu, int8=int8, act_scale=act_scale,
+              inv_mul=inv_mul)
+    if _on_cpu(x0, "gn_apply"):
+        return gn_apply_reference(x0, x1, gamma, beta, **kw)
+    require_no_grad("gn_apply", x0, x1, gamma, beta)
+    bf16, f32, dev = torch.bfloat16, torch.float32, x0.device
+    if x0.dtype != bf16 or (x1 is not None and x1.dtype != bf16):
+        raise ValueError("gn_apply: takes bf16 activations (f32 ones take gn_stats and the "
+                         "pre-pass)")
+    b, h, w, c0 = x0.shape
+    c1 = 0 if x1 is None else x1.shape[-1]
+    c = c0 + c1
+    ctas = gn_apply_ctas(h, w, c) if ctas is None else ctas
+    if ctas not in (0, GN_APPLY_CTAS) or c0 % _VEC or c1 % _VEC:
+        raise ValueError(f"gn_apply: no route of {ctas} CTAs for {(b, h, w, c0, c1)}")
+    ops = [_operand(x0, "x0", bf16), _operand(x1, "x1", bf16, (b, h, w, c1)),
+           _operand(gamma, "gamma", f32, (c,)), _operand(beta, "beta", f32, (c,)),
+           _operand(act_scale, "act_scale", f32)]
+    if ops[4] is not None and ops[4].numel() != 1:
+        raise ValueError("gn_apply: act_scale is one scale")
+    out = torch.empty((b, h, w, c), device=dev, dtype=torch.int8 if int8 else bf16)
+    stats = tuple(torch.empty(shape, device=dev, dtype=f32)
+                  for shape in ((b, c), (b, c), (b, num_groups), (b, num_groups)))
+    amax = torch.empty(b, device=dev, dtype=f32) if int8 and act_scale is None else None
+    x0_, x1_, gamma_, beta_, qs = map(_build.ptr, ops)
+    _build.launch("gddim_gn_apply", dev, x0_, x1_, c0, c1, b, h * w, num_groups, gamma_, beta_, eps,
+                  int(silu), int(int8), qs, _build.ptr(amax), int(inv_mul), ctas, out.data_ptr(),
+                  *(t.data_ptr() for t in stats))
+    return out, stats, amax
+
+
+GN_RESAMPLE_MODES = ("bf16", "f32", "int8")  # h's type: K9 bf16, int8 per sample, int8 static
+
+
+def gn_resample_reference(x, gamma, beta, *, up: bool, fir: bool = True, fir_kernel=(1, 3, 3, 1),
+                          num_groups: int, eps: float = 1e-6, mode: str = "bf16", act_scale=None):
+    """Plain version of ``gn_resample``: K9's first pass as its two launches
+    make it, ``gn_stats_reference``'s affine, a = silu(x * scale + shift)
+    rounded to bf16 (the TPU kernel's zero-bordered scratch), resampled
+    (``resample_transition``) into h: bf16 ('bf16'), f32 ('f32'), or int8
+    by the static act_scale ('int8', the int8 pre-pass's quantizer); and xr =
+    bf16(resample(bf16(x))). Returns (h, xr, amax), amax the per-sample
+    (B,) max|h| in 'f32', else None."""
+    kerns = transition_kerns(up, fir, fir_kernel)
+    sc, sh = gn_stats_reference(x, num_groups, eps, gamma, beta)[:2]
+    h = resample_transition(_bf16r(_conv_input(x, None, sc, sh, True)), kerns, up)
+    xr = resample_transition(_bf16r(x.float()), kerns, up).to(torch.bfloat16)
+    if mode == "bf16":
+        return h.to(torch.bfloat16), xr, None
+    if mode == "f32":
+        return h, xr, h.abs().amax(dim=(1, 2, 3))
+    return quant_static(h, act_scale.float().reshape(())).to(torch.int8), xr, None
+
+
+def gn_resample(x, gamma, beta, *, up: bool, fir: bool = True, fir_kernel=(1, 3, 3, 1),
+                num_groups: int, eps: float = 1e-6, mode: str = "bf16", act_scale=None,
+                ctas: int | None = None):
+    """K9's GN1 and resample in one launch alone (``gn_apply_kernel``'s
+    resample variant; see gn_resample_reference for the arguments and the
+    result): bf16 x (B, H, W, C) on ``ctas`` CTAs a sample (default
+    ``gn_resample_ctas``); ctas 0 runs the two launches it replaces
+    (``gn_stats_kernel``, ``transition_resample_kernel``; 'bf16' and 'f32').
+    Counted in C (``block_launches``)."""
+    kw = dict(up=up, fir=fir, fir_kernel=fir_kernel, num_groups=num_groups, eps=eps, mode=mode,
+              act_scale=act_scale)
+    if mode not in GN_RESAMPLE_MODES or (mode == "int8") != (act_scale is not None):
+        raise ValueError(f"gn_resample: mode one of {GN_RESAMPLE_MODES}, act_scale with 'int8'")
+    if _on_cpu(x, "gn_resample"):
+        return gn_resample_reference(x, gamma, beta, **kw)
+    require_no_grad("gn_resample", x, gamma, beta)
+    bf16, f32, dev = torch.bfloat16, torch.float32, x.device
+    b, hin, win, c = x.shape
+    if x.dtype != bf16:
+        raise ValueError("gn_resample: takes bf16 x (f32 x: the f32 block's two launches)")
+    ctas = gn_resample_ctas(hin, win, c, up) if ctas is None else ctas
+    if ctas not in (0, GN_APPLY_CTAS) or (fir and len(fir_kernel) != 4) or (
+            ctas == 0 and mode == "int8"):
+        raise ValueError(f"gn_resample: no route of {ctas} CTAs for {tuple(x.shape)} {mode}")
+    ho, wo = (2 * hin, 2 * win) if up else (hin // 2, win // 2)
+    kh, kwt = transition_kerns(up, fir, fir_kernel)
+    ops = [_operand(x, "x", bf16), _operand(gamma, "gamma", f32, (c,)),
+           _operand(beta, "beta", f32, (c,)), _operand(act_scale, "act_scale", f32)]
+    htype = {"bf16": bf16, "f32": f32, "int8": torch.int8}[mode]
+    h = torch.empty((b, ho, wo, c), device=dev, dtype=htype)
+    xr = torch.empty((b, ho, wo, c), device=dev, dtype=bf16)
+    amax = torch.empty(b, device=dev, dtype=f32) if mode == "f32" else None
+    affine = [torch.empty((b, c), device=dev, dtype=f32) for _ in range(2)]
+    _build.launch("gddim_gn_resample", dev, ops[0].data_ptr(), c, b, hin, win, int(up), *kh, *kwt,
+                  num_groups, *map(_build.ptr, ops[1:3]), eps, GN_RESAMPLE_MODES.index(mode),
+                  _build.ptr(ops[3]), _build.ptr(amax), ctas, h.data_ptr(), xr.data_ptr(),
+                  *(t.data_ptr() for t in affine))
+    return h, xr, amax
+
+
 # The kernels that run inside a C call (a block's two convs, K5's
-# projections and attention core, the GroupNorm statistics, or the bare
+# projections and attention core, the GroupNorm statistics, GN1, or the bare
 # wrappers), counted in C where each is launched, in csrc/conv.cuh's Counted
 # order: the block GEMM and its pre-pass, int8 then bf16 (GN2's folding
-# pre-pass among them), then K5's attention core and gn_stats_kernel
+# pre-pass among them), then K5's attention core, gn_stats_kernel and
+# gn_apply_kernel (both variants: K2/K3/K5's GN1 and K9's resample)
 BLOCK_COUNTED = ("block_gemm_kernel<int8>", "prepass_kernel<int8>", "block_gemm_kernel<bf16>",
-                 "prepass_kernel<bf16>", "attention_wgmma_kernel", "gn_stats_kernel")
+                 "prepass_kernel<bf16>", "attention_wgmma_kernel", "gn_stats_kernel",
+                 "gn_apply_kernel")
 S8_COUNTED = BLOCK_COUNTED[:2]
 BF16_COUNTED = BLOCK_COUNTED[2:4]
 

@@ -434,9 +434,9 @@ def test_bf16_blocks_refuse_shapes_the_gemm_does_not_take(cuda):
 @pytest.mark.parametrize("kind", sorted(BLOCKS))
 def test_bf16_launch_counts_count_each_launch(cuda, kind):
     """The bf16 GEMM and pre-pass are counted in C where they launch: once a
-    bare wrapper call, twice each for a K2/K3 block (conv1, conv2), twice
-    and once for K4/K9 (conv1 reads h as it is), nothing for a call on the
-    CPU, and never as the int8 kernels."""
+    bare wrapper call, twice and once a block (conv1, conv2; conv1's operand
+    comes from GN1's one launch, or K4's h as it is), nothing for a call on
+    the CPU, and never as the int8 kernels."""
     gemm, prepass = t_rb.BF16_COUNTED
     h, parts, cout = BLOCKS[kind][1]
     args, kw = _card_block(kind, h, parts, cout, 2, cuda)
@@ -452,8 +452,7 @@ def test_bf16_launch_counts_count_each_launch(cuda, kind):
         assert t_rb.block_launches(kernels=(gemm, prepass)) == {gemm: 1, prepass: 1}
         OPS[kind][0](*args, **kw)
         torch.cuda.synchronize()
-    # and the GN statistics kernel once a block with GN1 (K4's h comes with it)
-    want = {gemm: 3, prepass: 2 if kind in ("K4", "K9") else 3,
-            "gn_stats_kernel": 0 if kind == "K4" else 1}
+    # and GN1's one-launch kernel once a block with GN1 (K4's h comes with it)
+    want = {gemm: 3, prepass: 2, "gn_apply_kernel": 0 if kind == "K4" else 1}
     assert t_rb.block_launches(reset=True) == {**dict.fromkeys(t_rb.BLOCK_COUNTED, 0), **want}
     assert t_rb.block_launches() == dict.fromkeys(t_rb.BLOCK_COUNTED, 0)
