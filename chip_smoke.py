@@ -149,6 +149,11 @@ K1_F32_BOUND = 1e-6
 # so x must reach the residual unrounded (a bf16 x would be off by ~2e-3);
 # measured 0 (the kernel rounds as the plain version does) on an H100
 K6_RESIDUAL_BOUND = 1e-6
+# The training GEMMs alone (K6/K7's convs and dgrads on the block GEMM, K7's
+# weight gradients on wgrad_kernel) against their plain versions on the same
+# bf16 operands: f32 sums in another order only, of up to 131072 products (a
+# wgrad at B=128 32x32: 1.5e-5 measured on an H100)
+TRAIN_GEMM_BOUND = 1e-4
 # K7, per gradient, against autograd of the plain f32 block. The gradients
 # that pass through bf16 tensor-core operands measured 1.4e-3 to 5.2e-3 on an
 # H100; db2 and db_skip are f32 sums of the cotangent only (2.7e-7 at most).
@@ -345,13 +350,30 @@ PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
 HBM = 3.35e12
 # kernel launches per training step: K1 in the 6 transitions (GN1, GN2), the
 # 10 attention blocks and norm_out; K6 forward and K7 backward in the 34
-# stride-1 and 36 concatenated up-path blocks; K8 in the 10 attention blocks
-PER_STEP = {"K1": 23, "K6": 70, "K7": 70, "K8": 10,
-            # K6's GN1 and GN2 (f32 on conv_gemm_kernel), K7's recomputed GN1 and GN2
-            "GN-stats": 280}
+# stride-1 and 36 concatenated up-path blocks (37 of the 70 with a 1x1
+# skip); K8 in the 10 attention blocks
+TRAIN_BLOCKS, SKIP_BLOCKS = 70, 37
+PER_STEP = {"K1": 23, "K6": TRAIN_BLOCKS, "K7": TRAIN_BLOCKS, "K8": 10,
+            # GN1's statistics of x in K6 and in K7's recompute (GN2's come
+            # from conv1's epilogue in both)
+            "GN-stats": 2 * TRAIN_BLOCKS,
+            # the block GEMM: K6's two convs; K7's conv1, two dgrads and the
+            # skip's dgrad
+            "train-GEMM": 5 * TRAIN_BLOCKS + SKIP_BLOCKS,
+            # the bf16 pre-passes: K6's a1 (and bf16 x) and d; K7's a1, d and
+            # bf16(r * g)
+            "BF16-prepass": 5 * TRAIN_BLOCKS,
+            # K7's dW2, dW1 and dW_skip
+            "wgrad": 2 * TRAIN_BLOCKS + SKIP_BLOCKS,
+            # conv_gemm_kernel serves neither K6 nor K7 any more (the WMMA
+            # wgrad kernel is gone)
+            "conv-GEMM": 0}
 # ... with training.fused_attn: the 10 attention blocks through K10 (K5's
-# attention core inside each)
-PER_STEP_K10 = {"K1": 13, "K6": 70, "K7": 70, "K10": 10, "K5-core": 10, "GN-stats": 290}
+# attention core inside each; its GN statistics; its f32 projections on
+# conv_gemm_kernel)
+PER_STEP_K10 = {**PER_STEP, "K1": 13, "K10": 10, "K5-core": 10,
+                "GN-stats": 2 * TRAIN_BLOCKS + 10, "conv-GEMM": 20}
+del PER_STEP_K10["K8"]
 
 KERNELS = {
     "K1": dict(name="group_norm_silu", route="triton", source="gddim_torch/ops/groupnorm.py",
@@ -421,6 +443,15 @@ KERNELS = {
     # cluster a sample
     "GN-stats": dict(name="gn_stats", route="cuda", source="gddim_torch/csrc/resblock.cu",
                      replaces="gddim_tpu/ops/resblock.py:600"),
+    # the training path's GEMMs: K6's two convs, K7's recomputed conv1, its
+    # two 3x3 dgrads (the forward's weights read K-major, tap-reversed) and
+    # the 1x1 skip's dgrad on the block GEMM (counted apart from the sampling
+    # path's); K7's three weight gradients on wgrad_kernel
+    "train-GEMM": dict(name="bf16_dgrad_gemm", route="cuda",
+                       source="gddim_torch/csrc/block_gemm.cu",
+                       replaces="gddim_tpu/ops/resblock_bwd.py:353"),
+    "wgrad": dict(name="wgrad", route="cuda", source="gddim_torch/csrc/resblock_bwd.cu",
+                  replaces="gddim_tpu/ops/resblock_bwd.py:353"),
     # GN1 in one launch (K2/K3's conv1 operand, K5's h, K9's resample):
     # gn_silu_tile and the activation of the K2 / K3 Pallas kernels. Its
     # max_abs_err is each case's largest difference (err_is: bf16 ulps, int8
@@ -1883,9 +1914,10 @@ def train_block_inputs(inp: Inputs, B: int, h: int, cin: int, cout: int, keep: f
     return args, mask, act(B, h, h, cout)
 
 
-def phase_train_kernels(results: dict, B: int = 4):
+def phase_train_kernels(results: dict, batch_results: dict, B: int = 4):
     """K1 in f32 at every training-path GroupNorm shape, K6 and K7 at every
-    training-path block shape, K8 at its shapes."""
+    training-path block shape, their GEMMs alone (``check_train_gemms``),
+    K8 at its shapes."""
     from gddim_torch.ops import attention, groupnorm, resblock, resblock_bwd
 
     inp = Inputs(1)
@@ -1974,6 +2006,7 @@ def phase_train_kernels(results: dict, B: int = 4):
     results["K6"]["shapes"].append(dict(shape="16x16 256->256, conv2 weight 0", rel=rel))
     if not np.isfinite(rel) or rel > K6_RESIDUAL_BOUND:
         raise AssertionError(f"K6 residual: rel err {rel:.3e} > {K6_RESIDUAL_BOUND:.0e}")
+    check_train_gemms(results, batch_results)
 
     for b, s_, c in SHAPES["K8"] + SHAPES["K8_train"]:
         q, k, v = (torch.randn((b, s_, c), generator=inp.g, device="cuda") for _ in range(3))
@@ -1983,6 +2016,280 @@ def phase_train_kernels(results: dict, B: int = 4):
         q, k, v = (torch.randn((b, s_, c), generator=inp.g, device="cuda").bfloat16()
                    for _ in range(3))
         check_attention(results, q, k, v, {"bf16": 4 * b * s_ * s_ * c}, K8_BF16_BOUND)
+
+
+def train_gemm_cases(inp: Inputs, B: int, h: int, cin: int, cout: int):
+    """(row, label, kernel fn, plain fn, library fn, operands, bf16 products)
+    of the GEMMs of one training block shape: on the block GEMM K6's conv1
+    and conv2 (K7's conv1 is conv1), K7's two dgrads and the skip's 1x1
+    dgrad (the forward's weights read as they are); on wgrad_kernel dW2, dW1
+    and dW_skip. Library: one PyTorch call in bf16 channels_last, F.conv2d
+    (a dgrad: the conv with the flipped, transposed weights) and
+    torch.nn.grad.conv2d_weight."""
+    from gddim_torch.ops import resblock, resblock_bwd
+
+    a1, d, g = inp.act(B, h, h, cin), inp.act(B, h, h, cout), inp.act(B, h, h, cout)
+    w1, w2 = inp.w(3, 3, cin, cout), inp.w(3, 3, cout, cout)
+    cl = torch.channels_last
+    nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731  (channels_last views)
+    oihw = lambda w: w.permute(3, 2, 0, 1).contiguous(memory_format=cl)  # noqa: E731
+    dgrad_w = lambda w: oihw(w.flip(0, 1).transpose(2, 3))  # noqa: E731
+    m = B * h * h
+    cases = [
+        ("train-GEMM", f"conv1 {cin}->{cout}", lambda: resblock.bf16_conv_gemm(a1, w1),
+         lambda: resblock.conv3x3_nhwc(a1.float(), w1.float()),
+         (lambda x=nchw(a1), w=oihw(w1): F.conv2d(x, w, padding=1)), (a1, w1),
+         2 * m * 9 * cin * cout),
+        ("train-GEMM", f"conv2 {cout}->{cout}", lambda: resblock.bf16_conv_gemm(d, w2),
+         lambda: resblock.conv3x3_nhwc(d.float(), w2.float()),
+         (lambda x=nchw(d), w=oihw(w2): F.conv2d(x, w, padding=1)), (d, w2),
+         2 * m * 9 * cout * cout),
+        ("train-GEMM", f"dgrad2 {cout}->{cout}", lambda: resblock_bwd.bf16_dgrad_gemm(g, w2),
+         lambda: resblock_bwd.dgrad_reference(g, w2),
+         (lambda x=nchw(g), w=dgrad_w(w2): F.conv2d(x, w, padding=1)), (g, w2),
+         2 * m * 9 * cout * cout),
+        ("train-GEMM", f"dgrad1 {cout}->{cin}", lambda: resblock_bwd.bf16_dgrad_gemm(g, w1),
+         lambda: resblock_bwd.dgrad_reference(g, w1),
+         (lambda x=nchw(g), w=dgrad_w(w1): F.conv2d(x, w, padding=1)), (g, w1),
+         2 * m * 9 * cin * cout),
+        ("wgrad", f"dW2 {cout}x{cout}", lambda: resblock_bwd.wgrad(d, g),
+         lambda: resblock_bwd.wgrad_reference(d, g),
+         (lambda x=nchw(d), y=nchw(g): torch.nn.grad.conv2d_weight(x, (cout, cout, 3, 3), y,
+                                                                  padding=1)),
+         (d, g), 2 * m * 9 * cout * cout),
+        ("wgrad", f"dW1 {cin}x{cout}", lambda: resblock_bwd.wgrad(a1, g),
+         lambda: resblock_bwd.wgrad_reference(a1, g),
+         (lambda x=nchw(a1), y=nchw(g): torch.nn.grad.conv2d_weight(x, (cout, cin, 3, 3), y,
+                                                                   padding=1)),
+         (a1, g), 2 * m * 9 * cin * cout),
+    ]
+    if cin != cout:
+        ws = inp.w(cin, cout)
+        cases += [
+            ("train-GEMM", f"skip dgrad {cout}->{cin}", lambda: resblock_bwd.bf16_dgrad_gemm(g, ws),
+             lambda: resblock_bwd.dgrad_reference(g, ws),
+             (lambda x=nchw(g), w=ws[:, :, None, None].contiguous(memory_format=cl):
+              F.conv2d(x, w)), (g, ws), 2 * m * cin * cout),
+            ("wgrad", f"dW_skip {cin}x{cout}", lambda: resblock_bwd.wgrad(a1, g, 1),
+             lambda: resblock_bwd.wgrad_reference(a1, g, 1),
+             (lambda x=nchw(a1), y=nchw(g): torch.nn.grad.conv2d_weight(x, (cout, cin, 1, 1), y)),
+             (a1, g), 2 * m * cin * cout),
+        ]
+    return cases
+
+
+def check_train_gemms(results: dict, batch_results: dict, batches=(4, 128)):
+    """K6/K7's GEMMs alone (``train_gemm_cases``) at every training block
+    shape against their plain versions on the same bf16 operands
+    (TRAIN_GEMM_BOUND), with eager and device (CUDA graph) time, the share
+    of the bf16 peak and the library call's time; B=4 in the kernels line,
+    B=128 (the training batch) in the sums."""
+    for B in batches:
+        inp = Inputs(7)
+        sums = {}
+        for h, cin, cout in SHAPES["K6"]:
+            for row, label, fused, plain, library, ops_in, prods in train_gemm_cases(
+                    inp, B, h, cin, cout):
+                out = fused()
+                torch.cuda.synchronize()
+                ref = plain()
+                if out.dtype != torch.float32 or out.shape != ref.shape:
+                    raise AssertionError(f"{row} {label}: got {out.dtype} {tuple(out.shape)}")
+                err, rel = (out - ref).abs().max().item(), _rel(out, ref)
+                ms, plain_ms = time_ms(fused), time_ms(plain, 20 if B == 4 else 3)
+                lib_ms = time_ms(library)
+                dev, lib_dev = graph_ms(fused), graph_ms(library)
+                bd = bound(nbytes(ops_in, out), {"bf16": prods})
+                share = prods / PEAK["bf16"] * 1e3 / dev
+                tag = f"{h}x{h} {label}"
+                print(f"kernel {row} {KERNELS[row]['name']} [{tag}] B={B}: max|err|={err:.3e} "
+                      f"rel={rel:.3e} (bound {TRAIN_GEMM_BOUND:.0e}) ms={ms:.4f} "
+                      f"plain_f32_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bd[0]:.4f} "
+                      f"({'bytes' if bd[1] >= bd[2] else 'operations'}); device {dev:.4f} ms "
+                      f"({share:.1%} of the bf16 peak), library {lib_dev:.4f} "
+                      f"({verdict(dev, lib_dev)})", flush=True)
+                _record(results if B == 4 else batch_results, row, tag, err, rel, ms, plain_ms,
+                        bd, lib_ms, graph_ms=dev, library_graph_ms=lib_dev, bf16_peak_share=share)
+                s = sums.setdefault(row, [0.0, 0.0, 0.0])
+                s[0], s[1], s[2] = s[0] + dev, s[1] + lib_dev, s[2] + prods
+                if not np.isfinite(rel) or rel > TRAIN_GEMM_BOUND:
+                    raise AssertionError(f"{row} {tag} B={B}: rel err {rel:.3e} > "
+                                         f"{TRAIN_GEMM_BOUND:.0e}")
+        for row, (dev, lib_dev, prods) in sums.items():
+            print(f"sum {row} B={B}: device {dev:.4f} ms ({prods / PEAK['bf16'] * 1e3 / dev:.1%} "
+                  f"of the bf16 peak), library {lib_dev:.4f} ms ({verdict(dev, lib_dev)}) "
+                  f"[{card_line()}]", flush=True)
+
+
+def time_train_blocks(card: str, batches=(4, 16, 64, 128)):
+    """K6 and K7 device ms a call (CUDA graph of 20 calls) at every training
+    block shape and batch, and their share of the bf16 peak; only the
+    wrappers both trees have, so a parent's checkout runs it too."""
+    from gddim_torch.ops import resblock, resblock_bwd
+
+    inp = Inputs(1)
+    for B in batches:
+        tot = {"K6": [0.0, 0], "K7": [0.0, 0]}
+        for h, cin, cout in SHAPES["K6"]:
+            args, mask, g = train_block_inputs(inp, B, h, cin, cout)
+            kw = dict(keep_prob=0.9, num_groups1=min(cin // 4, 32),
+                      num_groups2=min(cout // 4, 32))
+            runs = {"K6": lambda: resblock.fused_resblock_train(*args, mask, **kw),
+                    "K7": lambda: resblock_bwd.fused_resblock_train_grads(*args, mask, g, **kw)}
+            line = []
+            for k, fn in runs.items():
+                dev = graph_ms(fn)
+                prods = block_ops(k, B, h, cin, cout, cin != cout)["bf16"]
+                tot[k][0] += dev
+                tot[k][1] += prods
+                line.append(f"{k} {dev:.4f} ms ({prods / PEAK['bf16'] * 1e3 / dev:.1%})")
+            print(f"time train blocks [{h}x{h} {cin}->{cout}] B={B}: device " + ", ".join(line),
+                  flush=True)
+            del args, mask, g
+        print(f"sum train blocks B={B}: device " + ", ".join(
+            f"{k} {ms:.4f} ms ({p / PEAK['bf16'] * 1e3 / ms:.1%} of the bf16 peak)"
+            for k, (ms, p) in tot.items()) + f" [{card}]", flush=True)
+
+
+# kernels of K6 and K7 by name in a trace (both trees' names)
+TRAIN_BLOCK_KERNELS = ("block_gemm_kernel", "block_splitk", "wgrad_kernel", "rowsum_kernel",
+                       "prepass_kernel", "gn_prepass_kernel", "round_kernel", "gn_bwd_kernel",
+                       "gn_stats_kernel", "conv_gemm_kernel", "splitk_epilogue_kernel")
+
+
+def profile_train_step(card: str, train_step, state, images, label: str,
+                       conv_gemm_gone: bool = False):
+    """One traced training step (loss, backward, Adam): host enqueue, device
+    time, idle share, the kernels that take the time, and K6/K7's share
+    (TRAIN_BLOCK_KERNELS); with conv_gemm_gone, fails if conv_gemm_kernel or
+    the WMMA wgrad (its WgradArgs) is in the trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    train_step(state, images)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, images)
+        enqueue = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) * 1e3
+    dev = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
+           for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(ms for _, ms, _ in dev)
+    print(f"profile train step B={images.shape[1]} ({label}) [{card}]: wall {traced:.3f} ms, "
+          f"host enqueue {enqueue:.3f} ms, device {total:.3f} ms in {sum(n for *_, n in dev)} "
+          f"kernels, idle share {1 - total / traced:.3f}", flush=True)
+    for key, ms, n in sorted(dev, key=lambda r: -r[1])[:15]:
+        print(f"  {ms:9.3f} ms {n:6d}x {key[:110]}", flush=True)
+    blocks = 0.0
+    for name in TRAIN_BLOCK_KERNELS:
+        hit = [(m, n) for key, m, n in dev if name in key and not (
+            name == "prepass_kernel" and "gn_prepass_kernel" in key)]
+        blocks += sum(m for m, _ in hit)
+        print(f"  {name}: {sum(m for m, _ in hit):.3f} ms in {sum(n for _, n in hit)} launches",
+              flush=True)
+    print(f"  K6 + K7 kernels: {blocks:.3f} ms of {total:.3f}", flush=True)
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU), key=lambda r: -r[1])[:10]
+    print("  host, by self CPU time (traced): " + "; ".join(
+        f"{key[:40]} {ms:.1f} ms {n}x" for key, ms, n in host), flush=True)
+    gone = [key for key, *_ in dev if "conv_gemm_kernel" in key or "WgradArgs" in key]
+    if conv_gemm_gone and gone:
+        raise AssertionError(f"train step ({label}): replaced kernels in the trace: {gone}")
+    return total
+
+
+def phase_train_time(card: str):
+    """K6 and K7 device ms at every training shape and B=4/16/64/128, then one
+    traced B=128 step (fused_attn off) and 5 timed steps: img/s, peak memory.
+    Uses only what the parent trees have too."""
+    from gddim_torch.configs import train_config
+    from gddim_torch.data.synthetic import SyntheticStream, get_data_scaler
+    from gddim_torch.math.cld import CLD
+    from gddim_torch.models.init import seeded_model
+    from gddim_torch.train.losses import make_cld_loss_fn
+    from gddim_torch.train.state import create_train_state
+    from gddim_torch.train.step import make_train_step
+
+    time_train_blocks(card)
+    config = train_config("cld/accr_dcifar10")
+    n_steps, batch = int(config.training.n_jitted_steps), int(config.training.batch_size)
+    model = seeded_model(config, seed=0, device="cuda").train()
+    model.fused_attn = False
+    loss_fn = make_cld_loss_fn(CLD.from_config(config), train=True)
+    stream = SyntheticStream(config, batch, n_steps, seed=11)
+    batches = torch.from_numpy(get_data_scaler(config)(next(stream))).to("cuda")
+    state = create_train_state(config, model, torch.Generator(device="cuda").manual_seed(3))
+    train_step = make_train_step(loss_fn)
+    profile_train_step(card, train_step, state, batches[:1], "kernel path")
+    for _ in range(2):
+        loss, sec, peak = _timed_steps(state, train_step, batches)
+        print(f"train_time kernel path: {n_steps} steps B={batch} {sec:.3f} s, "
+              f"{n_steps * batch / sec:.2f} img/s, loss {loss:.5f}, peak {peak:.2f} GiB [{card}]",
+              flush=True)
+
+
+# The loss-curve A/B of K7 (train_ab): the kernel path's and the plain
+# path's per-step losses over TRAIN_AB_STEPS Adam steps from the same weights,
+# data, t, z and dropout masks, compared as means over windows of
+# TRAIN_AB_WINDOW steps. On an H100 (B=128) the window means parted by at
+# most 1.7e-4 (single steps 1.9e-4) while the loss fell from 1.37 to 1.04;
+# the bound leaves about 6x
+TRAIN_AB_STEPS = 200
+TRAIN_AB_WINDOW = 20
+TRAIN_AB_BOUND = 1e-3
+
+
+def phase_train_ab(card: str, steps: int = TRAIN_AB_STEPS):
+    """Two training runs of ``steps`` Adam steps at the config's batch on the
+    synthetic stream, the kernel path (K6/K7, the config's attention) and
+    conv_impl 'plain' (model.fused off), the same seeds; fails if a window
+    mean of the loss differs by more than TRAIN_AB_BOUND of the plain one."""
+    from gddim_torch.configs import train_config
+    from gddim_torch.data.synthetic import SyntheticStream, get_data_scaler
+    from gddim_torch.math.cld import CLD
+    from gddim_torch.models.init import seeded_model
+    from gddim_torch.train.losses import make_cld_loss_fn
+    from gddim_torch.train.state import create_train_state
+    from gddim_torch.train.step import make_train_step
+
+    config = train_config("cld/accr_dcifar10")
+    n_jit, batch = int(config.training.n_jitted_steps), int(config.training.batch_size)
+    scaler = get_data_scaler(config)
+    curves = {}
+    for name, fused in (("kernel", True), ("plain", False)):
+        model = seeded_model(config, seed=0, device="cuda").train()
+        model.fused = fused
+        loss_fn = make_cld_loss_fn(CLD.from_config(config), train=True,
+                                   reduce_mean=config.training.reduce_mean)
+        stream = SyntheticStream(config, batch, n_jit, seed=11)
+        state = create_train_state(config, model, torch.Generator(device="cuda").manual_seed(3))
+        train_step = make_train_step(loss_fn)
+        losses = []
+        t0 = time.perf_counter()
+        while len(losses) < steps:
+            for images in torch.from_numpy(scaler(next(stream))).to("cuda")[:, None]:
+                if len(losses) < steps:
+                    losses.append(float(train_step(state, images)["loss"]))
+        wall = time.perf_counter() - t0
+        curves[name] = np.asarray(losses)
+        print(f"train_ab {name} path: {steps} steps B={batch} {wall:.1f} s, loss first "
+              f"{losses[0]:.5f} last {losses[-1]:.5f}, mean of the last {TRAIN_AB_WINDOW} "
+              f"{np.mean(losses[-TRAIN_AB_WINDOW:]):.5f} [{card}]", flush=True)
+        del model, state, train_step
+        torch.cuda.empty_cache()
+    k, p = (curves[n].reshape(-1, TRAIN_AB_WINDOW).mean(1) for n in ("kernel", "plain"))
+    part = np.abs(k - p) / np.abs(p)
+    step = np.abs(curves["kernel"] - curves["plain"]) / np.abs(curves["plain"])
+    print(f"train_ab: window means (kernel / plain) "
+          + ", ".join(f"{a:.5f}/{b:.5f}" for a, b in zip(k, p)), flush=True)
+    print(f"train_ab: windows of {TRAIN_AB_WINDOW} steps part by at most {part.max():.3e} "
+          f"(bound {TRAIN_AB_BOUND:.0e}; window {int(part.argmax())}); single steps by at most "
+          f"{step.max():.3e}, median {np.median(step):.3e}", flush=True)
+    if not np.isfinite(part).all() or part.max() > TRAIN_AB_BOUND:
+        raise AssertionError(f"train_ab: the loss curves part by {part.max():.3e} > "
+                             f"{TRAIN_AB_BOUND:.0e}")
 
 
 def check_attention(results, q, k, v, ops: dict, tol: float):
@@ -2121,7 +2428,8 @@ def counters():
 DEVICE_COUNTED = {"S8-GEMM": "block_gemm_kernel<int8>", "S8-prepass": "prepass_kernel<int8>",
                   "BF16-GEMM": "block_gemm_kernel<bf16>", "BF16-prepass": "prepass_kernel<bf16>",
                   "K5-core": "attention_wgmma_kernel", "GN-stats": "gn_stats_kernel",
-                  "GN-apply": "gn_apply_kernel"}
+                  "GN-apply": "gn_apply_kernel", "train-GEMM": "block_gemm_kernel<bf16, train>",
+                  "wgrad": "wgrad_kernel", "conv-GEMM": "conv_gemm_kernel"}
 
 
 def reset_counts():
@@ -2137,7 +2445,8 @@ def read_counts():
 
     counts = {k: fn.launches for k, fn in counters().items()}
     device = resblock.block_launches()
-    return {**counts, **{k: device[name] for k, name in DEVICE_COUNTED.items()}}
+    # a parent's checkout may count fewer kernels in C (phase train_time)
+    return {**counts, **{k: device.get(name, 0) for k, name in DEVICE_COUNTED.items()}}
 
 
 def eps_inputs(batch: int = 4):
@@ -2659,9 +2968,13 @@ def phase_train(card: str):
                              f"training.fused_attn={model.fused_attn}")[1]
     counts.update({k: n for k, n in other.items() if k not in counts})
 
+    # where one step's time goes (K10 off): no conv_gemm_kernel, no WMMA wgrad
+    train_step = make_train_step(loss_fn)
+    model.fused, model.fused_attn = True, False
+    profile_train_step(card, train_step, state, batches[:1], "kernel path, K10 off",
+                       conv_gemm_gone=True)
     # throughput and peak memory: the kernel path with K10 off and on, and the
     # plain path, for information
-    train_step = make_train_step(loss_fn)
     runs = [("kernel", True, False), ("kernel, K10", True, True), ("plain", False, False),
             ("plain", False, False), ("kernel, K10", True, True), ("kernel", True, False)]
     for name, fused, fused_attn in runs:
@@ -2678,6 +2991,9 @@ def phase_train(card: str):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="smoke run of gddim_torch on one CUDA card")
+    # opt-in phases: profile, ab, train_time (K6/K7 device time and a traced
+    # B=128 step; a parent's checkout runs it too), train_gemms (the training
+    # GEMMs alone, as the kernels phase runs them), train_ab (the loss curves)
     parser.add_argument("--phases", default="build,kernels,eps,gates,sample,int8,blur,train")
     parser.add_argument("--batch", type=int, default=16, help="sampling batch")
     args = parser.parse_args(argv)
@@ -2712,7 +3028,7 @@ def main(argv=None):
         phase_kernels(results, batch_results)
         phase_s8_kernels(results, batch_results)
         phase_bf16_kernels(results, batch_results)
-        phase_train_kernels(results)
+        phase_train_kernels(results, batch_results)
         phase_layer_kernels(results)
         phase_transition_kernels(results, batch_results)
         phase_attn_train_kernels(results)
@@ -2755,6 +3071,12 @@ def main(argv=None):
     if "train" in phases:
         train_counts = phase_train(card)
         counts.update({k: n for k, n in train_counts.items() if k not in counts})
+    if "train_gemms" in phases and "kernels" not in phases:
+        check_train_gemms({}, {})
+    if "train_time" in phases:
+        phase_train_time(card)
+    if "train_ab" in phases:
+        phase_train_ab(card)
     if phases >= {"kernels", "sample", "int8", "blur", "train"}:
         missing = [k for k in KERNELS if counts.get(k, 0) == 0]
         if missing:

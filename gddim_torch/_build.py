@@ -116,6 +116,9 @@ _SIGNATURES = {
     #   splits, kper, work, gn_part, out, stream)
     "gddim_conv_bf16": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                         _P],
+    # gddim_dgrad_bf16(g, w, B, H, W, Cin, N, taps, mw, box_h, box_b, tiles_h, m_tiles,
+    #   splits, kper, work, out, stream)
+    "gddim_dgrad_bf16": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # gddim_gn_stats(xa, xb, ca, cb, act_f32, B, HW, groups, gamma, beta, eps, scale, shift,
     #   mean, rstd, stream)
     "gddim_gn_stats": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P],
@@ -132,25 +135,28 @@ _SIGNATURES = {
                           _I, _P, _P, _I, _P, _P, _P, _P, _P],
     # gddim_block_launches(out, reset): launches of the kernels counted in C (no stream)
     "gddim_block_launches": [_P, _I],
-    # gddim_resblock_train_workspace(B, H, W, Cin, N, splits)
-    "gddim_resblock_train_workspace": [_I, _I, _I, _I, _I, _I],
+    # gddim_resblock_train_workspace(B, H, W, Cin, N, splits, parts, skip)
+    "gddim_resblock_train_workspace": [_I, _I, _I, _I, _I, _I, _I, _I],
     # gddim_resblock_train(x, c, temb_row, gn1_g, gn1_b, groups1, w1, b1, gn2_g, gn2_b,
     #   groups2, w2, b2, ws, bs, mask, inv_keep, B, H, W, N, eps, out_scale, work,
-    #   splits1, kper1, splits2, kper2, out, stream)
+    #   mw, box_h, box_b, tiles_h, m_tiles, splits1, kper1, splits2, kper2, out, stream)
     "gddim_resblock_train": [
         _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _F,
-        _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
+        _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
-    # gddim_resblock_bwd_workspace(B, H, W, Cin, N, groups1, groups2)
-    "gddim_resblock_bwd_workspace": [_I, _I, _I, _I, _I, _I, _I],
-    # gddim_resblock_bwd(x, temb_row, gn1_g, gn1_b, groups1, w1, w1t, b1, gn2_g, gn2_b,
-    #   groups2, w2t, wst, mask, inv_keep, g, B, H, W, Cin, N, eps, out_scale, work,
+    # gddim_resblock_bwd_workspace(B, H, W, Cin, N, groups1, groups2, skip, plan): plan the
+    #   host address of train_bwd_plan's ints
+    "gddim_resblock_bwd_workspace": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # gddim_resblock_bwd(x, temb_row, gn1_g, gn1_b, groups1, w1, b1, gn2_g, gn2_b, groups2,
+    #   w2, ws, mask, inv_keep, g, B, H, W, Cin, N, eps, out_scale, plan, work,
     #   dx, dtemb, dgn1s, dgn1b, dw1, db1, dgn2s, dgn2b, dw2, db2, dws, dbs, stream)
     "gddim_resblock_bwd": [
-        _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _F, _P,
-        _I, _I, _I, _I, _I, _F, _F, _P,
+        _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _F, _P,
+        _I, _I, _I, _I, _I, _F, _F, _P, _P,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ],
+    # gddim_wgrad(a, g, B, H, W, C, N, taps, mw, box_h, box_b, splits, per, work, dw, stream)
+    "gddim_wgrad": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # gddim_flash_attention(q, k, v, o, B, S, C, qt, bf16, scale, stream)
     "gddim_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # gddim_attention_core(qkv, B, S, C, stages, mode, qs, amax, out, stream)

@@ -1,7 +1,10 @@
 // The block GEMM for Hopper (sm_90a): both 3x3 convs, and conv2's bf16 1x1
 // skip, of the bf16 and int8 modes of K2, K3, K4 and K9 (conv_impl 'fused'
 // on bf16 activations, and 'fused_int8'), and K5's q/k/v and output
-// projections as 1x1 convs over M = B*H*W pixels (taps 1, attnblock.cu).
+// projections as 1x1 convs over M = B*H*W pixels (taps 1, attnblock.cu);
+// and the training blocks' GEMMs over M: K6's two convs (resblock.cu), K7's
+// recomputed conv1, its two 3x3 dgrads and its 1x1 skip dgrad
+// (resblock_bwd.cu).
 //
 // Replaces the conv part of gddim_tpu/ops/resblock.py's kernels
 // (_resblock_kernel_v2 and _resblock_kernel for K2 and K4,
@@ -31,7 +34,12 @@
 //   (as K11, and the skip weights in both modes). int8: 8-bit wgmma takes
 //   both operands K-major and has no transpose bit, so the model packs the
 //   quantized HWIO weights once (ops/resblock.py:pack_int8_weight), (N, 9 *
-//   Cin); one 128 x 128 box a slice.
+//   Cin); one 128 x 128 box a slice. A dgrad (KMAJ: K7's, _dgrad9 of
+//   gddim_tpu/ops/resblock_bwd.py:96) is the 3x3 SAME conv of the cotangent
+//   with the taps flipped and (Cin, Cout) swapped: for tap t it reads the
+//   forward weights W[8 - t] as they are stored, whose (Cin, Cout) plane is
+//   (N, K), K-major, one 128 x 128-byte box a slice read with the transpose
+//   bit off (the skip dgrad: W_skip (N, K) likewise), so no repacked copy.
 // - One producer warp keeps a 3-stage (128-pixel tiles, two CTAs an SM) or
 //   4-stage (256-pixel tiles) ring of full/empty mbarriers fed; two consumer
 //   warpgroups run wgmma.mma_async m64n128k16 f32.bf16.bf16 (bf16) or
@@ -44,8 +52,9 @@
 //   over the tile's pixels, which are consecutive rows of M) then run as
 //   bf16 products into the same f32 registers; in the bf16 mode they follow
 //   the conv slices in one loop.
-// - The epilogue (bias + b_skip, the temb row, the identity residual,
-//   out_scale; f32 h1 or bf16 out; tile_epilogue) stages the tile's sums in
+// - The epilogue (bias + b_skip, the temb row, the identity residual of the
+//   output's type, out_scale; f32 h1 or bf16 out, f32 out and residual in
+//   K6's conv2; tile_epilogue) stages the tile's sums in
 //   the drained ring and stores from there along whole rows. With gn_part
 //   (conv1: the STATS instantiation) each thread also sums its 2 columns of
 //   each sample's rows and their squares, and the row lanes' sums meet in a
@@ -128,13 +137,15 @@ struct Plan {
   const float* bias;
   const float* bias2;
   const float* temb;
-  const bf16* resid;
+  const void* resid;  // of the output's type (TO)
   float out_scale;
   void* out;
   float* partial;
   int temb_ld;     // row b of temb at temb + b * temb_ld
   int mw;          // tiles of 128 * mw output pixels
   float* gn_part;  // (2, B, tiles_h, N) GN2's per-channel sums and squares, or null
+  bool kmajor;     // the bf16 weights K-major and tap-reversed (a dgrad)
+  bool train;      // counted as a training block's GEMM
 };
 
 // The output pixel of row r of tile (b0, y0), or -1 past the batch or the image.
@@ -152,6 +163,12 @@ __device__ __forceinline__ void store2(float* d, float a, float b) {
 __device__ __forceinline__ void store2(bf16* d, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(d) = __floats2bfloat162_rn(a, b);
 }
+__device__ __forceinline__ float2 load2(const float* s) {
+  return *reinterpret_cast<const float2*>(s);
+}
+__device__ __forceinline__ float2 load2(const bf16* s) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(s));
+}
 
 // The temb row and the residual for output channels n, n+1 of pixel m
 // (whose bias + b_skip r0, r1 hold already), then the scale; returns the
@@ -164,8 +181,7 @@ __device__ __forceinline__ float2 epilogue2(const Plan& p, long m, int n, float 
     r1 += tr[1];
   }
   if (p.resid) {
-    const float2 v =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.resid + m * p.N + n));
+    const float2 v = load2((const TO*)p.resid + m * p.N + n);
     r0 += v.x;
     r1 += v.y;
   }
@@ -242,8 +258,7 @@ __device__ __forceinline__ void tile_epilogue(const Plan& p, const uint32_t (&ac
       const float2 a = *reinterpret_cast<const float2*>(tile + r * STAGE_LD + c);
       float v0 = a.x + cb.x + tr.x, v1 = a.y + cb.y + tr.y;
       if (p.resid) {
-        const float2 e = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(p.resid + base + (long)r * p.N));
+        const float2 e = load2((const TO*)p.resid + base + (long)r * p.N);
         v0 += e.x;
         v1 += e.y;
       }
@@ -282,8 +297,9 @@ __device__ __forceinline__ void load_nmajor(uint32_t b, const CUtensorMap* map, 
 // grid (m_tiles, N / 128, splits), THREADS threads, Tile<MW>::SMEM dynamic
 // shared memory. Split z runs the slices [z*kper, min((z+1)*kper, slices)):
 // first those of the conv (TA), then those of the skip (bf16). STATS (conv1,
-// f32 out, K not split): the epilogue also takes GN2's sums.
-template <typename TA, int MW, typename TO, bool STATS>
+// f32 out, K not split): the epilogue also takes GN2's sums. KMAJ (bf16, no
+// skip): a dgrad, the weights K-major and tap-reversed.
+template <typename TA, int MW, typename TO, bool STATS, bool KMAJ = false>
 __global__ void __launch_bounds__(THREADS, 3 - MW)
 block_gemm_kernel(const __grid_constant__ CUtensorMap amap,
                   const __grid_constant__ CUtensorMap wmap,
@@ -335,6 +351,8 @@ block_gemm_kernel(const __grid_constant__ CUtensorMap amap,
           tma_load_4d(a, &amap, full, c0, dx, y0 + dy, b0);
           if constexpr (kInt8)
             tma_load_2d(b, &wmap, full, k0, n0);
+          else if constexpr (KMAJ)  // W[8 - tap]'s (N, K) plane: rows (tap, n), K along the row
+            tma_load_2d(b, &wmap, full, c0, (p.taps == 9 ? 8 - tap : 0) * p.N + n0);
           else
             load_nmajor(b, &wmap, full, n0, k0);
         } else {
@@ -438,11 +456,13 @@ block_gemm_kernel(const __grid_constant__ CUtensorMap amap,
       // A: rows of 128 bytes, 8-row atoms 1 KB apart, a k16 step 32 bytes
       // into the row. B: K rows of 128 bytes (64 N), the second 64 N
       // columns 8 KB on (the leading offset), 8-row K atoms 1 KB apart; a
-      // k16 step is 16 rows
-      const uint64_t db = sw128_desc(b + 2048 * kk, B_BYTES / 2, 1024);
+      // k16 step is 16 rows. KMAJ: B as A, N rows of 128 bytes (64 K)
+      const uint64_t db = KMAJ ? sw128_desc(b + 32 * kk, 16, 1024)
+                               : sw128_desc(b + 2048 * kk, B_BYTES / 2, 1024);
 #pragma unroll
       for (int t = 0; t < MW; ++t)
-        wgmma_m64n128k16_b32(acc[t], sw128_desc(a + t * (64 * ROW) + 32 * kk, 16, 1024), db);
+        wgmma_m64n128k16_b32<0, KMAJ ? 0 : 1>(
+            acc[t], sw128_desc(a + t * (64 * ROW) + 32 * kk, 16, 1024), db);
     }
     wgmma_commit();
     wgmma_wait<1>();
@@ -547,20 +567,23 @@ __global__ void __launch_bounds__(256) block_splitk_stats_kernel(const Plan p) {
   }
 }
 
-template <typename TA, int MW, typename TO, bool STATS = false>
+template <typename TA, int MW, typename TO, bool STATS = false, bool KMAJ = false>
 int launch(dim3 grid, const CUtensorMap* maps, const Plan& p, cudaStream_t st) {
   static bool attr = false;
   if (!attr) {
-    const int err = (int)cudaFuncSetAttribute(block_gemm_kernel<TA, MW, TO, STATS>,
+    const int err = (int)cudaFuncSetAttribute(block_gemm_kernel<TA, MW, TO, STATS, KMAJ>,
                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                                               Tile<MW>::SMEM);
     if (err) return err;
     attr = true;
   }
-  block_gemm_kernel<TA, MW, TO, STATS><<<grid, THREADS, Tile<MW>::SMEM, st>>>(
+  block_gemm_kernel<TA, MW, TO, STATS, KMAJ><<<grid, THREADS, Tile<MW>::SMEM, st>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], p);
   int err = (int)cudaGetLastError();
-  if (!err) count_launch(std::is_same<TA, int8_t>::value ? COUNT_GEMM_S8 : COUNT_GEMM_BF16);
+  if (!err)
+    count_launch(std::is_same<TA, int8_t>::value ? COUNT_GEMM_S8
+                 : p.train                       ? COUNT_GEMM_TRAIN
+                                                 : COUNT_GEMM_BF16);
   if (!err && p.splits > 1) {
     if (p.gn_part != nullptr) {
       block_splitk_stats_kernel<TO><<<dim3(grid.x, p.N / 32, p.box_b), 256, 0, st>>>(p);
@@ -576,6 +599,11 @@ int launch(dim3 grid, const CUtensorMap* maps, const Plan& p, cudaStream_t st) {
 template <typename TA>
 int launch_mw(int mw, bool out_f32, dim3 grid, const CUtensorMap* maps, const Plan& p,
               cudaStream_t st) {
+  if constexpr (std::is_same<TA, bf16>::value) {
+    if (p.kmajor)  // a dgrad: f32 out, no skip, no statistics
+      return mw == 1 ? launch<bf16, 1, float, false, true>(grid, maps, p, st)
+                     : launch<bf16, 2, float, false, true>(grid, maps, p, st);
+  }
   if (p.gn_part != nullptr && p.splits == 1)  // GN2's sums in the epilogue (f32 out)
     return mw == 1 ? launch<TA, 1, float, true>(grid, maps, p, st)
                    : launch<TA, 2, float, true>(grid, maps, p, st);
@@ -601,6 +629,8 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
       (g.splits - 1) * g.kper >= slices || g.splits * g.kper < slices ||
       (g.splits > 1 && g.partial == nullptr) ||
       (g.int8 && (g.wsc == nullptr || (g.qs == nullptr && g.amax == nullptr))) ||
+      // a dgrad: bf16, f32 out, no skip, no statistics
+      (g.w_kmajor && (g.int8 || !g.out_f32 || g.s0 || g.gn_part != nullptr)) ||
       // GN2's sums: f32 out with no residual (conv1), a warp's 16 rows one sample's
       (g.gn_part != nullptr &&
        (!g.out_f32 || g.resid != nullptr || (t.box_b > 1 && (g.H * g.W) % 16))))
@@ -634,6 +664,8 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
   p.out = g.out;
   p.partial = g.partial;
   p.gn_part = g.gn_part;
+  p.kmajor = g.w_kmajor;
+  p.train = g.train || g.w_kmajor;
 
   // maps: A, W, skip s0, skip s1, skip weights (unused ones stay zero)
   CUtensorMap maps[5] = {};
@@ -651,6 +683,12 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
     const cuuint32_t wbox[2] = {ROW, TILE_N};
     ok = sw128_map(&maps[0], CU_TENSOR_MAP_DATA_TYPE_UINT8, g.a, 4, adims, astrides, abox) &&
          sw128_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_UINT8, g.w, 2, wdims, wstrides, wbox);
+  } else if (g.w_kmajor) {  // rows (tap, n) of cin channels: the forward's (N, K) planes
+    const cuuint64_t wdims[2] = {(cuuint64_t)g.cin, (cuuint64_t)g.taps * g.N};
+    const cuuint64_t wstrides[1] = {(cuuint64_t)g.cin * 2};
+    const cuuint32_t kbox[2] = {64, TILE_N};
+    ok = bf16_map(&maps[0], g.a, 4, adims, astrides, abox) &&
+         bf16_map(&maps[1], g.w, 2, wdims, wstrides, kbox);
   } else {
     const cuuint64_t wdims[2] = {(cuuint64_t)g.N, (cuuint64_t)g.taps * g.cin};
     const cuuint64_t wstrides[1] = {(cuuint64_t)g.N * 2};
@@ -742,9 +780,39 @@ int gddim_conv_bf16(const void* a, const void* w, int batch, int h, int w_, int 
                            (cudaStream_t)stream);
 }
 
+// The bare dgrad of the block GEMM (K7's): out (B, H, W, N) f32 = the 3x3
+// SAME conv of g (B, H, W, Cin) bf16 with the taps flipped and (Cin, Cout)
+// swapped, read from the forward's HWIO weights w (3, 3, N, Cin) bf16 as they
+// are (taps 9), or g @ w^T for a 1x1 w (N, Cin) (taps 1); f32 sums. The tile
+// plan as gddim_conv_bf16 takes it (bf16_tile_plan of the dgrad: Cin in,
+// N out); scratch `work`: splits * M * N f32 when splits > 1.
+int gddim_dgrad_bf16(const void* g_, const void* w, int batch, int h, int w_, int cin, int n,
+                     int taps, int mw, int box_h, int box_b, int tiles_h, int m_tiles, int splits,
+                     int kper, void* work, void* out, void* stream) {
+  BlockGemm g = {};
+  g.taps = taps;
+  g.a = g_;
+  g.w = w;
+  g.w_kmajor = true;
+  g.cin = cin;
+  g.B = batch;
+  g.H = h;
+  g.W = w_;
+  g.N = n;
+  g.out_scale = 1.0f;
+  g.out = out;
+  g.out_f32 = true;
+  g.partial = (float*)work;
+  g.splits = splits;
+  g.kper = kper;
+  return block_gemm_launch(g, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},
+                           (cudaStream_t)stream);
+}
+
 // Launches of the kernels counted in C (conv.cuh's Counted order: the int8
 // GEMM, the int8 pre-pass, the bf16 GEMM, the bf16 pre-pass, K5's attention
-// core, the GroupNorm statistics, the GN1 kernel) into out
+// core, the GroupNorm statistics, the GN1 kernel, the wgrad kernel,
+// conv_gemm_kernel, the training blocks' block GEMM) into out
 // (N_COUNTED long long); with reset, zeroed after reading.
 int gddim_block_launches(long long* out, int reset) {
   for (int k = 0; k < N_COUNTED; ++k) {

@@ -5,10 +5,11 @@
 // Activations are bf16 (inference, K2-K5) or f32 (training, K6/K7, and
 // K2-K5 on f32 activations); the tensor-core operands are bf16 with f32
 // accumulation either way, or int8 with int32 accumulation in the int8 mode
-// of K2-K5. conv_gemm_kernel (resblock.cu) serves f32 activations (K5's
-// projections among them) and K7; the block GEMM (block_gemm.cu) the 3x3
-// convs of the bf16 and int8 blocks (K2-K4, K9) and K5's 1x1 projections on
-// bf16 activations and in int8.
+// of K2-K5. conv_gemm_kernel (resblock.cu) serves K2-K5/K9 on f32
+// activations and K10's f32 projections; the block GEMM (block_gemm.cu) the
+// 3x3 convs of the bf16 and int8 blocks (K2-K4, K9), K5's 1x1 projections on
+// bf16 activations and in int8, and the training blocks' convs and dgrads
+// (K6, K7), whose weight gradients run on wgrad_kernel (resblock_bwd.cu).
 
 #pragma once
 
@@ -27,8 +28,6 @@ struct ConvArgs {
   const float* scale;  // (B, ca0+ca1) GN affine applied to A, or null: no prologue
   const float* shift;
   int silu;
-  const int8_t* mask;  // (M, ca0) dropout mask applied after the prologue, or null
-  float inv_keep;
   int taps;  // 9: 3x3 SAME, 1: 1x1
   const __nv_bfloat16* w;  // (taps*Cin, N) row-major (HWIO flattened)
   const void* s0;  // skip segment input(s), or null
@@ -125,7 +124,8 @@ struct GemmTiles {
 // 1x1 (taps 1) of the pre-pass's activation, bf16 by HWIO bf16 weights (f32
 // sums), or int8 by
 // K-major int8 weights (int32 sums dequantized in place), then an optional
-// bf16 1x1 skip into the same f32 accumulators, then the epilogue:
+// bf16 1x1 skip into the same f32 accumulators, then the epilogue (w_kmajor:
+// a dgrad, bf16 weights read K-major and tap-reversed, f32 out, no skip):
 //   out = (conv(a, w) [* (wsc[n] * s)] + skip + bias + bias2 + temb[b] + resid) * out_scale
 // s = *qs (static), else max(amax[b], 1e-12) / 127 of the row's sample b.
 // With gn_part, the epilogue (or the split-K reduction) also writes each
@@ -136,7 +136,9 @@ struct GemmTiles {
 struct BlockGemm {
   bool int8;        // the int8 mode, else bf16
   const void* a;    // (B, H, W, cin) bf16 or int8
-  const void* w;    // bf16: (taps * cin, N) HWIO flattened; int8: (N, taps * cin), K-major
+  const void* w;    // bf16: (taps * cin, N) HWIO flattened; int8: (N, taps * cin), K-major;
+                    // w_kmajor: (taps * N, cin), the forward HWIO weights of the dgrad
+  bool w_kmajor;
   int cin;
   int taps;         // 9: 3x3 SAME, 1: 1x1
   const void* s0;   // skip inputs (M, cs0) and (M, cs1) bf16, or s0 null: no skip
@@ -151,13 +153,14 @@ struct BlockGemm {
   const float* bias2;
   const float* temb;   // (B, N) row added per sample (row b at temb + b * temb_ld), or null
   int temb_ld;
-  const void* resid;   // (M, N) bf16 identity residual, or null
+  const void* resid;   // (M, N) identity residual of out's type (bf16, or f32), or null
   float out_scale;
   void* out;  // (M, N) f32 (out_f32) or bf16
   bool out_f32;
   float* gn_part;  // (2, B, tiles_h, N) per-channel sums and squares of out, or null
   float* partial;  // (splits, M, N) f32 (dequantized) split-K partials, when splits > 1
   int splits, kper;  // K slices (128 bytes a pixel) per split
+  bool train;        // a training block's GEMM (counted as COUNT_GEMM_TRAIN, as dgrads are)
 };
 
 // block_gemm_kernel (+ block_splitk_kernel when g.splits > 1). Returns
@@ -167,8 +170,12 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t strea
 
 // Kernels launched inside a block's C call, counted where they are launched
 // (one each time the launch succeeds; gddim_block_launches reads the counts):
-// the block GEMM and the pre-pass, int8 and bf16, K5's attention core, the
-// GroupNorm statistics kernel and the GN1 kernel (gn_apply.cu, both variants).
+// the block GEMM and the pre-pass, int8 and bf16 (the bf16 pre-passes: the
+// block pre-pass, GN2's folding pre-pass, K7's rounding of the cotangent),
+// K5's attention core, the GroupNorm statistics kernel, the GN1 kernel
+// (gn_apply.cu, both variants), K7's weight-gradient kernel,
+// conv_gemm_kernel (resblock.cu), and the block GEMM's launches in the
+// training blocks (K6, K7) apart from the bf16 ones of the sampling path.
 enum Counted {
   COUNT_GEMM_S8 = 0,
   COUNT_PREPASS_S8 = 1,
@@ -177,7 +184,10 @@ enum Counted {
   COUNT_ATTN = 4,
   COUNT_GN_STATS = 5,
   COUNT_GN_APPLY = 6,
-  N_COUNTED = 7
+  COUNT_WGRAD = 7,
+  COUNT_CONV_GEMM = 8,
+  COUNT_GEMM_TRAIN = 9,
+  N_COUNTED = 10
 };
 void count_launch(Counted kernel);
 
@@ -212,6 +222,23 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
 int prepass_launch(const void* xa, const void* xb, int ca, int cb, bool f32, int batch, int hw,
                    const float* scale, const float* shift, int silu_on, const Int8Args* q,
                    void* out, cudaStream_t st);
+
+// The training blocks' pre-pass (resblock.cu): a = bf16(silu(x * scale +
+// shift)) of f32 x (B, hw, c), K6's and K7's a1, and with raw non-null
+// bf16(x) beside it (the 1x1 skip's operand). Counted as the bf16 pre-pass.
+int train_prepass_launch(const float* x, int c, int batch, int hw, const float* scale,
+                         const float* shift, void* a, void* raw, cudaStream_t st);
+
+// GN2 of a training block from conv1's partial sums (gn_part of its tile
+// plan, `parts` rows a sample), the folding pre-pass: d = bf16(silu(GN2(u))
+// * mask / keep) (mask (B, hw, n) int8, or null), and with scale non-null
+// the affine (B, n) and mean, rstd (B, groups) written out (K7's GN2
+// backward). Counted as the bf16 pre-pass.
+int gn2_train_prepass_launch(const float* u, const float* part, int parts, int groups,
+                             const float* gamma, const float* beta, float eps,
+                             const int8_t* mask, float inv_keep, int batch, int hw, int n,
+                             float* scale, float* shift, float* mean, float* rstd, void* d,
+                             cudaStream_t st);
 
 // amax[b] = max |f(x)| over sample b of the logical concat (xa, xb), f the
 // per-(sample, channel) affine (scale, shift; none when null) and SiLU when

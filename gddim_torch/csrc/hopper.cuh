@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels (conv3x3.cu,
-// block_gemm.cu, attnblock.cu): mbarriers, TMA tile loads, wgmma shared-memory descriptors
+// block_gemm.cu, attnblock.cu, wgrad.cu): mbarriers, TMA tile loads, wgmma shared-memory descriptors
 // and products, and the tensor-map encoder.
 
 #pragma once
@@ -128,8 +128,11 @@ __device__ __forceinline__ void wgmma_s8_m64n128k32(uint32_t (&d)[64], uint64_t 
       : "l"(da), "l"(db), "r"(1));
 }
 
-// d (64 x 128 f32 as .b32 registers) += A (64 x 16, K-major) * B (16 x 128,
-// N-major: the transpose bit set)
+// d (64 x 128 f32 as .b32 registers) += A (64 x 16) * B (16 x 128): A
+// K-major (TNSP_A 0) or M-major (TNSP_A 1, the wgrad's activations), B
+// N-major (TNSP_B 1, the transpose bit: HWIO weights, the wgrad's
+// cotangent) or K-major (TNSP_B 0: the dgrads' weights as stored)
+template <int TNSP_A = 0, int TNSP_B = 1>
 __device__ __forceinline__ void wgmma_m64n128k16_b32(uint32_t (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
@@ -137,7 +140,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_b32(uint32_t (&d)[64], uint64_t
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}"
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
         "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
         "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
@@ -149,7 +152,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_b32(uint32_t (&d)[64], uint64_t
         "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
         "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TNSP_A), "n"(TNSP_B));
 }
 
 // d (64 x 64 f32, the wgmma accumulator layout) = A (64 x 16, K-major) *

@@ -4,12 +4,13 @@
 // Replaces gddim_tpu/ops/resblock.py: fused_resblock (K2, _resblock_kernel_v2),
 // fused_resblock_pair (K3, _resblock_pair_kernel_v2), fused_resblock_tail
 // (K4, _resblock_kernel_v2 with GN1 off), and the training forward of
-// make_fused_resblock_train (K6: fused_resblock with f32 activations and the
-// dropout mask). A block is one C call of a few launches, its scratch carved
-// from one workspace buffer. The temb row (silu(temb) @ W_dense + b_dense,
-// which the first conv's epilogue adds) comes precomputed: the model makes
-// every block's row in one f32 product an eval (models/unet.py), as the
-// JAX package makes it outside its Pallas kernels.
+// make_fused_resblock_train (K6: fused_resblock with f32 x and out and the
+// dropout mask, on the block GEMM). A block is one C call of a few
+// launches, its scratch carved from one workspace buffer. The temb row
+// (silu(temb) @ W_dense + b_dense, which the first conv's epilogue adds)
+// comes precomputed: the model makes every block's row in one f32 product
+// an eval (models/unet.py), as the JAX package makes it outside its Pallas
+// kernels.
 //
 //   gn_apply_kernel   (gn_apply.cu) GN1 on bf16 activations in one launch:
 //                     the statistics below and conv1's operand a1 (K5's h)
@@ -39,13 +40,15 @@
 //                     sums of h1, a row a (M tile, sample).
 //   gn_prepass_kernel GN2's pre-pass: folds conv1's partial sums (fold_affine,
 //                     a fixed order) into the affine in shared memory, then
-//                     writes silu(GN2(h1)) as prepass_kernel does; h1 is read
-//                     once, for the pre-pass only.
+//                     writes silu(GN2(h1)) as prepass_kernel does (the
+//                     training blocks: times the dropout mask / keep, and
+//                     the fold written out for K7); h1 is read once, for the
+//                     pre-pass only.
 //   conv_gemm_kernel  implicit-GEMM NHWC conv (3x3 SAME or 1x1) on a 64x64x32
 //                     WMMA tile, register-staged double buffer: the A tile
-//                     through an optional GN-affine(+SiLU)(x dropout mask /
-//                     keep) prologue from one pointer or two, rounded to bf16
-//                     there, an optional skip K segment, the same epilogue.
+//                     through an optional GN-affine(+SiLU) prologue from one
+//                     pointer or two, rounded to bf16 there, an optional
+//                     skip K segment, the same epilogue.
 //
 // bf16 mode (K2-K4 on bf16 activations, conv_impl 'fused'; the entry
 // gddim_resblock, and K9's through transition.cu), resblock_gemm_run, 3-6
@@ -77,13 +80,17 @@
 // the model never passes a static skip scale).
 //
 // f32 activations (K2-K4 on f32 x, which write f32 as the TPU kernels write
-// x's dtype: gddim_resblock_f32; and K6: gddim_resblock_train),
-// resblock_run, 4 launches on conv_gemm_kernel (and a split-K reduction
-// after a small grid): stats(x), conv1 with the GN1 prologue, stats(h1),
-// conv2 with the GN2
-// (+dropout) prologue and the skip segment; x is read in f32 for GN1's
-// statistics, the skip and the identity residual, h1 and out are f32, and
-// only the MMA operands are bf16, as on the TPU with mm_dtype bf16.
+// x's dtype: gddim_resblock_f32), resblock_run, 4 launches on
+// conv_gemm_kernel (and a split-K reduction after a small grid): stats(x),
+// conv1 with the GN1 prologue, stats(h1), conv2 with the GN2 prologue and
+// the skip segment; x is read in f32 for GN1's statistics, the skip and the
+// identity residual, h1 and out are f32, and only the MMA operands are bf16,
+// as on the TPU with mm_dtype bf16.
+//
+// K6 (gddim_resblock_train), resblock_train_run: the bf16 mode's chain on
+// f32 x and out: gn_stats_kernel(x), the pre-pass (a1, and bf16 x for the
+// 1x1 skip), conv1 with GN2's sums, GN2's folding pre-pass with the dropout
+// mask, conv2 + skip, or + the f32 identity residual x.
 //
 // What bounds it on the H100: the two convs, tensor-core bound at 32x32 and
 // 16x16 (2*M*9*Cin*Cout operations against M*(Cin+Cout) activation bytes
@@ -96,10 +103,10 @@
 // B=64 ~34 MB of bf16 in, ~17 MB of int8 or ~34 MB of bf16 out, mostly kept
 // in L2 for the GEMM). The block GEMM answers the convs (block_gemm.cu's
 // header), and K5's 1x1 projections on bf16 activations and in int8
-// (attnblock.cu); conv_gemm_kernel (~4% of the bf16 peak on
-// these shapes) stays for what the block GEMM does not take: f32
-// activations (K5's projections in K10 among them), K6's dropout mask, and
-// through conv.cuh K7's dgrads (resblock_bwd.cu).
+// (attnblock.cu), and K6's convs and K7's convs and dgrads;
+// conv_gemm_kernel (~4% of the bf16 peak on these shapes) stays for what
+// the block GEMM does not take: K2-K5/K9 on f32 activations and K10's f32
+// projections.
 //
 //   amax_kernel          dynamic mode: the per-sample amax of the quantized
 //                        activation, one pass before conv2 (and before conv1
@@ -300,16 +307,10 @@ gn_fold_kernel(const GnFold f, int batch, int c, int hw, float* __restrict__ sca
 }
 
 // ---------------------------------------------------------------------------
-// Only the f32 (training) instantiation reads a dropout mask: the bf16 one
-// compiles without the mask loads and multiplies.
-template <typename T>
-constexpr bool kMaskable = std::is_same<T, float>::value;
-
 // One thread's share of a K slice: two 8-channel vectors of A and two of B.
 template <typename T>
 struct Stage {
   Pack8<T> a[2];
-  uint2 m[2];     // dropout mask bytes of the 8 A values
   uint4 b[2];
   int a_b[2];     // sample index of the A row, -1 when the tap is padding or m >= M
   int a_c[2];     // logical channel of the first of the 8 values
@@ -349,9 +350,6 @@ __device__ __forceinline__ void load_stage(const ConvArgs& p, int m0, int n0, in
           const int cl = c < p.ca0 ? c : c - p.ca0;
           const long pix = ((long)b * p.H + y) * p.W + x;
           ld8(st.a[i], src + pix * cstride + cl);
-          if constexpr (kMaskable<T>) {
-            if (p.mask) st.m[i] = *reinterpret_cast<const uint2*>(p.mask + pix * cin + c);
-          }
           st.a_b[i] = b;
           st.a_c[i] = c;
         }
@@ -388,14 +386,10 @@ __device__ __forceinline__ void store_stage(const ConvArgs& p, const Stage<T>& s
       unpack8(st.a[i], f);
       const float* sc = p.scale + (long)st.a_b[i] * cin + st.a_c[i];
       const float* sh = p.shift + (long)st.a_b[i] * cin + st.a_c[i];
-      const int8_t* mk = reinterpret_cast<const int8_t*>(&st.m[i]);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         f[j] = f[j] * sc[j] + sh[j];
         if (p.silu) f[j] = silu_ieee(f[j]);
-        if constexpr (kMaskable<T>) {
-          if (p.mask) f[j] *= (float)mk[j] * p.inv_keep;
-        }
       }
       v = bf16x8(f);
     } else {
@@ -535,6 +529,7 @@ int conv_gemm_run(const ConvArgs& p, cudaStream_t stream) {
   const long m = (long)p.B * p.H * p.W;
   dim3 grid((unsigned)((m + BM - 1) / BM), p.N / BN, p.splits);
   conv_gemm_kernel<TA, TO><<<grid, THREADS, 0, stream>>>(p);
+  if (cudaPeekAtLastError() == cudaSuccess) count_launch(COUNT_CONV_GEMM);
   if (p.splits > 1) {
     const long vecs = m * p.N / 8;
     splitk_epilogue_kernel<TO><<<(unsigned)((vecs + 255) / 256), 256, 0, stream>>>(p);
@@ -587,13 +582,14 @@ amax_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, int cb, 
 // for the GEMM's TMA loads (block_gemm.cu), as TQ: int8 by quantize8 (the
 // int8 modes), or bf16 (the bf16 modes; a1.astype(mm_dtype) of the TPU
 // kernels). Each element is made once, where conv_gemm_kernel's prologue
-// makes it again for each tap. grid ceil(M * (ca+cb) / 8 / 256), 256
-// threads, 8 channels each.
+// makes it again for each tap. With raw non-null (the training blocks), also
+// bf16(x) itself, the 1x1 skip's operand, from the same read. grid
+// ceil(M * (ca+cb) / 8 / 256), 256 threads, 8 channels each.
 template <typename T, typename TQ>
 __global__ void __launch_bounds__(256)
 prepass_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, int cb, long vecs,
                int hw, const float* __restrict__ scale, const float* __restrict__ shift,
-               int silu_on, const Int8Args q, TQ* __restrict__ out) {
+               int silu_on, const Int8Args q, TQ* __restrict__ out, bf16* __restrict__ raw) {
   const long v = (long)blockIdx.x * 256 + threadIdx.x;
   if (v >= vecs) return;
   const int c_tot = ca + cb;
@@ -605,6 +601,7 @@ prepass_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, int c
     ld8(pk, xa + pix * ca + c);
   else
     ld8(pk, xb + pix * cb + (c - ca));
+  if (raw != nullptr) *reinterpret_cast<uint4*>(raw + pix * c_tot + c) = bf16x8(pk);
   float f[8];
   unpack8(pk, f);
   const long base = (long)b * c_tot + c;
@@ -613,16 +610,44 @@ prepass_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, int c
   convert8(f, sc, sh, silu_on, q, b, out + pix * c_tot + c);
 }
 
+// A training block's GN2 beside its folding pre-pass: the dropout mask
+// (null: none) and 1/keep, and where scale is non-null the affine and the
+// statistics written out for K7's GN2 backward.
+struct GnTrain {
+  const int8_t* mask;
+  float inv_keep;
+  float* scale;  // (B, C)
+  float* shift;
+  float* mean;   // (B, groups)
+  float* rstd;
+};
+
 // GN2's pre-pass on conv1's f32 h1 (B, hw, c): fold_affine of the GEMM's
 // partial sums into shared memory, then prepass_kernel's conversion of the
-// CTA's share of sample b. grid (chunks, B), 256 threads, fold_smem(c) bytes.
-template <typename TQ>
+// CTA's share of sample b. TRAIN (K6, K7; bf16): d = bf16(silu(GN2(h1)) *
+// mask / keep), as the TPU kernel drops a2 before rounding it, and CTA 0 of
+// each sample writes the fold out when t.scale is set. grid (chunks, B), 256
+// threads, fold_smem(c) bytes.
+template <typename TQ, bool TRAIN = false>
 __global__ void __launch_bounds__(256)
 gn_prepass_kernel(const float* __restrict__ h1, int c, int hw, const GnFold f, int batch,
-                  const Int8Args q, TQ* __restrict__ out) {
+                  const Int8Args q, TQ* __restrict__ out, const GnTrain t) {
   extern __shared__ float psm[];
   const int b = blockIdx.y;
-  fold_affine(f, batch, b, c, hw, psm, psm + c, psm + 2 * c);
+  float* gs = psm + 2 * c;
+  fold_affine(f, batch, b, c, hw, psm, psm + c, gs);
+  if constexpr (TRAIN) {
+    if (blockIdx.x == 0 && t.scale != nullptr) {
+      for (int ch = threadIdx.x; ch < c; ch += 256) {
+        t.scale[(long)b * c + ch] = psm[ch];
+        t.shift[(long)b * c + ch] = psm[c + ch];
+      }
+      for (int g = threadIdx.x; g < f.groups; g += 256) {
+        t.mean[b * f.groups + g] = gs[g];
+        t.rstd[b * f.groups + g] = gs[GN_MAX_GROUPS + g];
+      }
+    }
+  }
   const long vecs = (long)hw * c / 8, per = (vecs + gridDim.x - 1) / gridDim.x;
   const long v1 = vecs < (blockIdx.x + 1) * per ? vecs : (blockIdx.x + 1) * per;
   const long base = (long)b * hw * c;
@@ -632,7 +657,20 @@ gn_prepass_kernel(const float* __restrict__ h1, int c, int hw, const GnFold f, i
     ld8(pk, h1 + base + v * 8);
     float x[8];
     unpack8(pk, x);
-    convert8(x, psm + ch, psm + c + ch, 1, q, b, out + base + v * 8);
+    if constexpr (TRAIN) {
+      // convert8's bf16 arithmetic, then the mask before the rounding
+      uint2 mk = {};
+      if (t.mask != nullptr) mk = *reinterpret_cast<const uint2*>(t.mask + base + v * 8);
+      const int8_t* m8 = reinterpret_cast<const int8_t*>(&mk);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        x[j] = silu(__fadd_rn(__fmul_rn(x[j], psm[ch + j]), psm[c + ch + j]));
+        if (t.mask != nullptr) x[j] *= (float)m8[j] * t.inv_keep;
+      }
+      st8((bf16*)(out + base + v * 8), x);
+    } else {
+      convert8(x, psm + ch, psm + c + ch, 1, q, b, out + base + v * 8);
+    }
   }
 }
 
@@ -644,10 +682,12 @@ int prepass_run(const void* xa, const void* xb, int ca, int cb, bool f32, int ba
   const unsigned grid = (unsigned)((vecs + 255) / 256);
   if (f32)
     prepass_kernel<float, TQ><<<grid, 256, 0, st>>>((const float*)xa, (const float*)xb, ca, cb,
-                                                    vecs, hw, scale, shift, silu_on, q, out);
+                                                    vecs, hw, scale, shift, silu_on, q, out,
+                                                    nullptr);
   else
     prepass_kernel<bf16, TQ><<<grid, 256, 0, st>>>((const bf16*)xa, (const bf16*)xb, ca, cb,
-                                                   vecs, hw, scale, shift, silu_on, q, out);
+                                                   vecs, hw, scale, shift, silu_on, q, out,
+                                                   nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -679,9 +719,11 @@ int gn2_prepass_run(bool int8, const float* h1, const GnFold& f, int batch, int 
   const dim3 grid(gn_prepass_chunks(batch, hw, n), batch);
   if (int8)
     gn_prepass_kernel<int8_t><<<grid, 256, smem, st>>>(h1, n, hw, f, batch,
-                                                       Int8Args{qs, nullptr, 0}, (int8_t*)out);
+                                                       Int8Args{qs, nullptr, 0}, (int8_t*)out,
+                                                       GnTrain{});
   else
-    gn_prepass_kernel<bf16><<<grid, 256, smem, st>>>(h1, n, hw, f, batch, Int8Args{}, (bf16*)out);
+    gn_prepass_kernel<bf16><<<grid, 256, smem, st>>>(h1, n, hw, f, batch, Int8Args{}, (bf16*)out,
+                                                     GnTrain{});
   const int err = (int)cudaGetLastError();
   if (!err) count_launch(int8 ? COUNT_PREPASS_S8 : COUNT_PREPASS_BF16);
   return err;
@@ -757,17 +799,16 @@ Work carve(char* base, int batch, long m, int cin, int n, int splits) {
 }
 
 // One residual block on f32 activations through conv_gemm_kernel (K2-K4 on
-// f32 activations, K6). temb_row: the (B, N) temb projection, row b at
+// f32 activations). temb_row: the (B, N) temb projection, row b at
 // temb_row + b * temb_ld. groups1 = 0: no GN1 on the conv1 input (K4). s0
-// == null selects the identity residual x0. mask non-null: dropout after
-// GN2+SiLU (K6).
+// == null selects the identity residual x0.
 int resblock_run(const void* x0, const void* x1, int c0, int c1, const void* temb_row,
                  int temb_ld, const void* gn1_g, const void* gn1_b, int groups1, const void* w1,
                  const void* b1, const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
                  const void* b2, const void* s0, const void* s1, int cs0, int cs1, const void* ws,
-                 const void* bs, const void* mask, float inv_keep, int batch, int h, int w_, int n,
-                 float eps, float out_scale, void* work, int splits1, int kper1, int splits2,
-                 int kper2, void* out, cudaStream_t stream) {
+                 const void* bs, int batch, int h, int w_, int n, float eps, float out_scale,
+                 void* work, int splits1, int kper1, int splits2, int kper2, void* out,
+                 cudaStream_t stream) {
   const int cin = c0 + c1;
   const int hw = h * w_;
   const Work wk = carve((char*)work, batch, (long)batch * hw, cin, n,
@@ -792,8 +833,6 @@ int resblock_run(const void* x0, const void* x1, int c0, int c1, const void* tem
   if (!err) {
     ConvArgs p = conv_args(wk.h1, n, wk.sc2, wk.sh2, 1, 9, w2, batch, h, w_, n, b2, out_scale,
                            out, wk.partial, splits2, kper2);
-    p.mask = (const int8_t*)mask;
-    p.inv_keep = inv_keep;
     p.s0 = s0;
     p.s1 = s1;
     p.cs0 = cs0;
@@ -802,6 +841,112 @@ int resblock_run(const void* x0, const void* x1, int c0, int c1, const void* tem
     p.bias2 = (const float*)bs;
     p.resid = s0 ? nullptr : x0;
     err = conv_gemm_run<float, float>(p, stream);
+  }
+  return err;
+}
+
+// Scratch of one training block (K6) on the block GEMM (null base: sizes
+// only). Of
+//   8 B Cin + 4 M N + 8 B parts N + 2 M max(Cin, N) (+ 2 M Cin with a 1x1
+//   skip) (+ 4 splits M N when a conv splits K) bytes, each on 256 bytes.
+struct WorkTrain {
+  float* sc1;      // (B, Cin) GN1 affine
+  float* sh1;
+  float* h1;       // (M, N) conv1 output, f32
+  float* gn2;      // (2, B, parts, N) GN2's partial sums and squares, from conv1
+  void* a;         // (M, max(Cin, N)) bf16: a1, then d
+  void* xb;        // (M, Cin) bf16 x, the 1x1 skip's operand
+  float* partial;  // (splits, M, N) split-K partial sums
+  size_t bytes;
+};
+
+WorkTrain carve_train(char* base, int batch, long m, int cin, int n, int splits, int parts,
+                      bool skip) {
+  WorkTrain w;
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base ? base + off : nullptr;
+    off += align256(bytes);
+    return p;
+  };
+  w.sc1 = (float*)take(sizeof(float) * batch * cin);
+  w.sh1 = (float*)take(sizeof(float) * batch * cin);
+  w.h1 = (float*)take(sizeof(float) * m * n);
+  w.gn2 = (float*)take(sizeof(float) * 2 * batch * parts * n);
+  w.a = take(2 * m * (cin > n ? cin : n));
+  w.xb = skip ? take(2 * m * cin) : nullptr;
+  w.partial = splits > 1 ? (float*)take(sizeof(float) * splits * m * n) : nullptr;
+  w.bytes = off;
+  return w;
+}
+
+// K6 (make_fused_resblock_train's forward, _resblock_kernel_v2 with the
+// dropout mask): 5 launches (and a split-K reduction after a conv whose grid
+// is small). gn_stats_kernel on f32 x; the pre-pass writes a1 =
+// bf16(silu(GN1 x)) and, with a 1x1 skip, bf16(x); conv1 (STATS) writes h1
+// = conv1(a1) + b1 + temb in f32 and GN2's partial sums; GN2's folding
+// pre-pass writes d = bf16(silu(GN2 h1) * mask / keep) over a1; conv2 with
+// the skip slices (bf16 x by bf16 W_skip) or the f32 identity residual x
+// writes f32 out = (conv2(d) + skip + b2 + b_skip) * out_scale. The TPU
+// kernel's rounding points: bf16 a1, d and skip x; f32 h1, x and out.
+int resblock_train_run(const float* x, int cin, const void* temb_row, const void* gn1_g,
+                       const void* gn1_b, int groups1, const void* w1, const void* b1,
+                       const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
+                       const void* b2, const void* ws, const void* bs, const int8_t* mask,
+                       float inv_keep, int batch, int h, int w_, int n, float eps,
+                       float out_scale, void* work, const GemmTiles& tiles, int splits1,
+                       int kper1, int splits2, int kper2, float* out, cudaStream_t st) {
+  const int hw = h * w_;
+  const bool skip = ws != nullptr;
+  const WorkTrain wk = carve_train((char*)work, batch, (long)batch * hw, cin, n,
+                                   splits1 > splits2 ? splits1 : splits2, tiles.tiles_h, skip);
+  int err = gn_stats_launch(x, nullptr, cin, 0, batch, hw, groups1, (const float*)gn1_g,
+                            (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr, true, st);
+  if (!err) err = train_prepass_launch(x, cin, batch, hw, wk.sc1, wk.sh1, wk.a, wk.xb, st);
+  BlockGemm g = {};
+  g.taps = 9;
+  g.B = batch;
+  g.H = h;
+  g.W = w_;
+  g.N = n;
+  g.partial = wk.partial;
+  g.out_f32 = true;
+  g.train = true;
+  if (!err) {  // h1 = conv1(a1) + b1 + temb, f32, and GN2's partial sums
+    g.a = wk.a;
+    g.w = w1;
+    g.cin = cin;
+    g.bias = (const float*)b1;
+    g.temb = (const float*)temb_row;
+    g.temb_ld = n;
+    g.out_scale = 1.0f;
+    g.out = wk.h1;
+    g.gn_part = wk.gn2;
+    g.splits = splits1;
+    g.kper = kper1;
+    err = block_gemm_launch(g, tiles, st);
+  }
+  if (!err)  // d = bf16(silu(GN2(h1)) * mask / keep), over a1, which conv1 has read
+    err = gn2_train_prepass_launch(wk.h1, wk.gn2, tiles.tiles_h, groups2, (const float*)gn2_g,
+                                   (const float*)gn2_b, eps, mask, inv_keep, batch, hw, n,
+                                   nullptr, nullptr, nullptr, nullptr, wk.a, st);
+  if (!err) {  // out = (conv2(d) + skip + b2 + b_skip) * out_scale, f32
+    g.a = wk.a;
+    g.w = w2;
+    g.cin = n;
+    g.s0 = wk.xb;
+    g.cs0 = skip ? cin : 0;
+    g.ws = ws;
+    g.bias = (const float*)b2;
+    g.bias2 = (const float*)bs;
+    g.temb = nullptr;
+    g.resid = skip ? nullptr : x;
+    g.out_scale = out_scale;
+    g.out = out;
+    g.gn_part = nullptr;
+    g.splits = splits2;
+    g.kper = kper2;
+    err = block_gemm_launch(g, tiles, st);
   }
   return err;
 }
@@ -819,6 +964,32 @@ int prepass_launch(const void* xa, const void* xb, int ca, int cb, bool f32, int
                                : prepass_run(xa, xb, ca, cb, f32, batch, hw, scale, shift,
                                              silu_on, Int8Args{}, (bf16*)out, st);
   if (!err) count_launch(q != nullptr ? COUNT_PREPASS_S8 : COUNT_PREPASS_BF16);
+  return err;
+}
+
+int train_prepass_launch(const float* x, int c, int batch, int hw, const float* scale,
+                         const float* shift, void* a, void* raw, cudaStream_t st) {
+  if (c % 8) return (int)cudaErrorInvalidValue;
+  const long vecs = (long)batch * hw * c / 8;
+  prepass_kernel<float, bf16><<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>(
+      x, nullptr, c, 0, vecs, hw, scale, shift, 1, Int8Args{}, (bf16*)a, (bf16*)raw);
+  const int err = (int)cudaGetLastError();
+  if (!err) count_launch(COUNT_PREPASS_BF16);
+  return err;
+}
+
+int gn2_train_prepass_launch(const float* u, const float* part, int parts, int groups,
+                             const float* gamma, const float* beta, float eps,
+                             const int8_t* mask, float inv_keep, int batch, int hw, int n,
+                             float* scale, float* shift, float* mean, float* rstd, void* d,
+                             cudaStream_t st) {
+  if (groups > GN_MAX_GROUPS || n % groups || n % 8) return (int)cudaErrorInvalidValue;
+  const GnFold f = {part, parts, groups, gamma, beta, eps};
+  const GnTrain t = {mask, inv_keep, scale, shift, mean, rstd};
+  gn_prepass_kernel<bf16, true><<<dim3(gn_prepass_chunks(batch, hw, n), batch), 256,
+                                  fold_smem(n), st>>>(u, n, hw, f, batch, Int8Args{}, (bf16*)d, t);
+  const int err = (int)cudaGetLastError();
+  if (!err) count_launch(COUNT_PREPASS_BF16);
   return err;
 }
 
@@ -1118,29 +1289,35 @@ int gddim_resblock_f32(const void* x0, const void* x1, int c0, int c1, const voi
                        int batch, int h, int w_, int n, float eps, float out_scale, void* work,
                        int splits1, int kper1, int splits2, int kper2, void* out, void* stream) {
   return resblock_run(x0, x1, c0, c1, temb_row, temb_ld, gn1_g, gn1_b, groups1, w1, b1, gn2_g,
-                      gn2_b, groups2, w2, b2, s0, s1, cs0, cs1, ws, bs, nullptr, 1.0f, batch, h,
-                      w_, n, eps, out_scale, work, splits1, kper1, splits2, kper2, out,
-                      (cudaStream_t)stream);
+                      gn2_b, groups2, w2, b2, s0, s1, cs0, cs1, ws, bs, batch, h, w_, n, eps,
+                      out_scale, work, splits1, kper1, splits2, kper2, out, (cudaStream_t)stream);
 }
 
-long long gddim_resblock_train_workspace(int batch, int h, int w, int cin, int n, int splits) {
-  return gddim_resblock_f32_workspace(batch, h, w, cin, n, splits);
+long long gddim_resblock_train_workspace(int batch, int h, int w, int cin, int n, int splits,
+                                         int parts, int skip) {
+  return (long long)carve_train(nullptr, batch, (long)batch * h * w, cin, n, splits, parts,
+                                skip != 0).bytes;
 }
 
-// K6: the training forward of one stride-1 block, f32 activations. temb_row
-// (B, N) f32 is the precomputed temb projection; ws == null: identity skip;
-// mask (B, H, W, N) int8 or null (no dropout).
+// K6: the training forward of one stride-1 block, f32 x and out, on the
+// block GEMM (resblock_train_run). temb_row (B, N) f32 is the precomputed
+// temb projection; ws == null: identity skip; mask (B, H, W, N) int8 or null
+// (no dropout). The tile plan (ops/resblock.py:bf16_tile_plan, shared M
+// tiling, each conv's split of K) as gddim_resblock takes it. Scratch:
+// gddim_resblock_train_workspace bytes (parts: the plan's tiles_h).
 int gddim_resblock_train(const void* x, int c, const void* temb_row, const void* gn1_g,
                          const void* gn1_b, int groups1, const void* w1, const void* b1,
                          const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
                          const void* b2, const void* ws, const void* bs, const void* mask,
                          float inv_keep, int batch, int h, int w_, int n, float eps,
-                         float out_scale, void* work, int splits1, int kper1, int splits2,
-                         int kper2, void* out, void* stream) {
-  return resblock_run(x, nullptr, c, 0, temb_row, n, gn1_g, gn1_b, groups1, w1, b1, gn2_g, gn2_b,
-                      groups2, w2, b2, ws ? x : nullptr, nullptr, ws ? c : 0, 0, ws, bs, mask,
-                      inv_keep, batch, h, w_, n, eps, out_scale, work, splits1, kper1, splits2,
-                      kper2, out, (cudaStream_t)stream);
+                         float out_scale, void* work, int mw, int box_h, int box_b, int tiles_h,
+                         int m_tiles, int splits1, int kper1, int splits2, int kper2, void* out,
+                         void* stream) {
+  return resblock_train_run((const float*)x, c, temb_row, gn1_g, gn1_b, groups1, w1, b1, gn2_g,
+                            gn2_b, groups2, w2, b2, ws, bs, (const int8_t*)mask, inv_keep, batch,
+                            h, w_, n, eps, out_scale, work,
+                            GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1,
+                            splits2, kper2, (float*)out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -11,33 +11,41 @@
 // forward saves no interior activation. The TPU kernel runs one VMEM pass
 // per batch tile with the weight-gradient accumulators carried across a
 // sequential grid; 132 SMs that run blocks in no order have no such carry,
-// so here the backward is a chain of launches, each a hand-written kernel:
+// so here the backward is a chain of launches, each a hand-written kernel.
+// Every GEMM operand is a bf16 tensor that the TPU kernel rounds itself
+// (a1mm, gmm, d, gumm, the skip's x: resblock_bwd.py:171-248), so each is
+// written once by the pass that makes it and streamed by TMA:
 //
-//   1  gn_stats(x)        GN1 statistics (resblock.cu)
-//   2  conv_gemm          u = conv1(silu(GN1 x)) + b1 + temb_proj, f32
-//   3  gn_stats(u)        GN2 statistics
-//   4  conv_gemm          gd = r * conv(g, W2 flipped/transposed): dgrad of
-//                         a stride-1 SAME 3x3 conv is the same conv of the
-//                         cotangent with the taps flipped and (Cin, Cout)
-//                         swapped (the wrapper repacks the weights)
-//   5  gn_bwd_kernel      dropout + SiLU + GN2 backward -> gu = dL/du, in
-//                         place over gd; dtemb_proj = sum over pixels of gu;
-//                         per-sample partials of dGN2 s/b and of sum(g)
-//   6  conv_gemm          ga1 = conv(gu, W1 flipped/transposed)
-//   7  conv_gemm          (1x1 skip only) dx = r * g @ W_skip^T. The skip's
-//                         dgrad cannot share step 6's accumulator: ga1 still
-//                         goes through the GN1 backward, the skip term not.
-//   8  gn_bwd_kernel      SiLU + GN1 backward of ga1, plus the skip term
-//                         (step 7's dx, or r * g for the identity) -> dx;
-//                         per-sample partials of dGN1 s/b
-//   9  wgrad_kernel x3    dW2 = r * sum_pixels shift_t(d)^T g, dW1 =
-//                         sum shift_t(a1)^T gu, dW_skip = r * sum x^T g: the
-//                         one new GEMM shape, reducing over M = B*H*W with a
-//                         (taps*Cin, Cout) output. d and a1 are recomputed in
-//                         the loader (GN affine, SiLU, mask) from u and x.
-//                         M is split across blocks into partial sums, which
-//   10 rowsum_kernel      sums in split order, as it sums the per-sample
-//                         partials into dGN s/b, db1, db2 and db_skip.
+//   1  gn_stats(x)          GN1 statistics (resblock.cu)
+//   2  pre-pass             a1 = bf16(silu(GN1 x)); bf16(x) for the 1x1 skip
+//   3  block GEMM (STATS)   u = conv1(a1) + b1 + temb_proj, f32, and GN2's
+//                           per-channel partial sums from its epilogue
+//   4  GN2 pre-pass         d = bf16(silu(GN2 u) * mask / keep), and GN2's
+//                           affine, mean and rstd for step 7
+//   5  round_kernel         gmm = bf16(r * g), as the TPU kernel scales g
+//                           before its rounding
+//   6  block GEMM (dgrad)   gd = conv(gmm, W2 flipped/transposed): the dgrad
+//                           of a stride-1 SAME 3x3 conv is the same conv of
+//                           the cotangent with the taps flipped and (Cin,
+//                           Cout) swapped, W2[8 - t] read as stored (K-major)
+//   7  gn_bwd_kernel        dropout + SiLU + GN2 backward -> gumm =
+//                           bf16(dL/du); dtemb_proj = sum over pixels of gu;
+//                           per-sample partials of dGN2 s/b and of sum(g)
+//   8  block GEMM (dgrad)   ga1 = conv(gumm, W1 flipped/transposed)
+//   9  block GEMM (dgrad)   (1x1 skip only) dx = gmm @ W_skip^T. The skip's
+//                           dgrad cannot share step 8's accumulator: ga1
+//                           still goes through the GN1 backward, the skip
+//                           term not.
+//   10 gn_bwd_kernel        SiLU + GN1 backward of ga1, plus the skip term
+//                           (step 9's dx, or r * g for the identity) -> dx;
+//                           per-sample partials of dGN1 s/b
+//   11 wgrad_kernel x3      dW2 = sum_pixels shift_t(d)^T gmm, dW1 = sum
+//                           shift_t(a1)^T gumm, dW_skip = sum x^T gmm: the
+//                           one new GEMM shape, reducing over M = B*H*W with
+//                           a (taps*Cin, Cout) output; pixel splits write f32
+//                           partials, which
+//   12 rowsum_kernel        sums in split order, as it sums the per-sample
+//                           partials into dGN s/b, db1, db2 and db_skip.
 //
 // No float atomics anywhere: every sum runs in a fixed order, so two runs on
 // the same inputs give the same bits.
@@ -45,36 +53,25 @@
 // What bounds it on the H100: the five GEMMs (recomputed conv1, two dgrads,
 // two 3x3 wgrads) are 5/2 of the forward's tensor-core work and dominate at
 // 32x32 and 16x16; the GN-backward passes read each activation twice (L2
-// serves the second read at these sizes). The design keeps every elementwise
-// step of the chain (GN affine, SiLU, dropout, their derivatives) inside a
-// GEMM prologue or a GN-backward pass, so the activations written to device
-// memory are u, gu, ga1 and dx only. The GEMMs use conv_gemm_kernel's
-// 64x64x32 WMMA tile; the wgrad kernel is the same tile transposed (A is
-// read m-major and fed to the tensor cores column-major).
+// serves the second read at these sizes). The convs and dgrads run on the
+// block GEMM (block_gemm.cu), the wgrads on wgrad_kernel below: both wgmma
+// fed by a TMA ring, the activation arithmetic done once in the passes that
+// round each operand, where conv_gemm_kernel and the WMMA wgrad they replace
+// recomputed GN, SiLU and the mask for every tap.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <initializer_list>
+#include <algorithm>
 
+#include "act.cuh"
 #include "conv.cuh"
-
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int THREADS_BWD = 256;  // block_sum256 (conv.cuh)
-constexpr int WG_BM = 64;  // wgrad output tile: rows (taps*Cin) x cols (Cout)
-constexpr int WG_BN = 64;
-constexpr int WG_BK = 32;  // pixels per slice of the M reduction
-constexpr int WG_THREADS = 128;
-constexpr int WG_LD = 64 + 8;  // bf16 elements; rows stay 32-byte aligned for WMMA
-constexpr int TARGET_BLOCKS = 4 * 132;
-constexpr int MIN_SPLIT_SLICES = 8;
 
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.0f / (1.0f + __expf(-v)); }
 
@@ -84,12 +81,13 @@ __device__ __forceinline__ float sigmoidf_(float v) { return 1.0f / (1.0f + __ex
 // For each element of the group: y = v*sc + sh, s = sigmoid(y),
 // dy = dpre [* mask/keep] * s*(1 + y*(1 - s)), yhat = (v - mean)*rstd,
 // dyh = dy*gamma. Pass 1 sums dyh and dyh*yhat over the group, and per
-// channel dy*yhat (dGN scale) and dy (dGN bias); pass 2 writes
-// out = rstd*(dyh - mean(dyh) - yhat*mean(dyh*yhat)) [+ add_scale*add], and
-// per channel sums out (dtemb_proj, when chan_out is set). Each thread owns
-// one channel of the group and a stride of pixels, so the per-channel sums
-// are register sums reduced across pixel rows through shared memory, in a
-// fixed order.
+// channel dy*yhat (dGN scale) and dy (dGN bias); pass 2 makes
+// o = rstd*(dyh - mean(dyh) - yhat*mean(dyh*yhat)) [+ add_scale*add],
+// writes it to out (f32) and or out_bf16 (rounded once: K7's gumm), and per
+// channel sums it (dtemb_proj, when chan_out is set). Each thread owns one
+// channel of the group and a stride of pixels, so the per-channel sums are
+// register sums reduced across pixel rows through shared memory, in a fixed
+// order.
 struct GnBwdArgs {
   const float* dpre;  // (M, C) gradient w.r.t. the GN+SiLU(+dropout) output
   const int8_t* mask; // (M, C) or null
@@ -103,11 +101,12 @@ struct GnBwdArgs {
   const float* add;   // (M, C) added to the output, or null
   float add_scale;
   const float* extra;  // (M, C) summed per (sample, channel) into part_extra, or null
-  float* out;         // (M, C); may alias dpre or add
+  float* out;         // (M, C) f32, or null; may alias dpre or add
+  bf16* out_bf16;     // (M, C) bf16, or null
   float* part_s;      // (B, C) sum over pixels of dy*yhat
   float* part_b;      // (B, C) sum over pixels of dy
   float* part_extra;  // (B, C)
-  float* chan_out;    // (B, C) sum over pixels of out, or null
+  float* chan_out;    // (B, C) sum over pixels of the output, or null
   int HW, C, G;
 };
 
@@ -177,7 +176,8 @@ __global__ void __launch_bounds__(THREADS_BWD) gn_bwd_kernel(const GnBwdArgs p) 
       const float dy = dy_at(off, yhat);
       float o = rstd * (dy * gam - m1 - yhat * m2);
       if (p.add) o += p.add_scale * p.add[off];
-      p.out[off] = o;
+      if (p.out) p.out[off] = o;
+      if (p.out_bf16) p.out_bf16[off] = __float2bfloat16(o);
       po += o;
     }
   }
@@ -199,255 +199,352 @@ int rowsum(const float* in, int rows, long n, float scale, float* out, cudaStrea
   return (int)cudaGetLastError();
 }
 
+// gmm = bf16(r * g), 8 values a thread (step 5). grid ceil(vecs / 256), 256 threads.
+__global__ void __launch_bounds__(256)
+round_kernel(const float* __restrict__ g, long vecs, float r, bf16* __restrict__ out) {
+  const long v = (long)blockIdx.x * 256 + threadIdx.x;
+  if (v >= vecs) return;
+  Pack8<float> pk;
+  ld8(pk, g + v * 8);
+  float f[8];
+  unpack8(pk, f);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) f[j] *= r;
+  st8(out + v * 8, f);
+}
+
 // ---------------------------------------------------------------------------
-// Weight gradient of a stride-1 SAME conv (taps 9) or a 1x1 conv (taps 1):
-//   partial[z, t*C + c, n] = sum over pixels m of split z of
-//                            act(v)[shift_t(m), c] * g[m, n]
-// act: the GN affine (+SiLU) (x dropout mask / keep) of v, 0 where the tap
-// falls in the padding. grid (taps*C/64, N/64, splits), 128 threads: 4 warps
-// in 2x2, 32x32 output each, double-buffered like conv_gemm_kernel.
-struct WgradArgs {
-  const float* v;  // (M, C)
-  int C, taps;
-  const float* scale;  // (B, C) or null: act(v) = v
-  const float* shift;
-  int silu;
-  const int8_t* mask;  // (M, C) or null
-  float inv_keep;
-  const float* g;  // (M, N)
-  int N;
-  int B, H, W;
-  float* partial;  // (splits, taps*C, N)
-  int mper;        // pixels per split, a multiple of WG_BK
+// The weight gradient of a stride-1 SAME 3x3 conv (taps 9) or a 1x1 (taps 1),
+// _wgrad9 of gddim_tpu/ops/resblock_bwd.py:72 (and the skip's x^T g):
+//
+//   dW[t * C + c, n] = sum over pixels m of shift_t(A)[m, c] * G[m, n]
+//
+// A (B, H, W, C) and G (M, N) bf16, f32 sums. An implicit GEMM with the
+// pixels as its K: the CTA's output is 2 MW m64 blocks of dW rows (64
+// channels of one tap each, consecutive in (t, c)) by 128 columns of N, and
+// its K runs over WG_PIX-pixel slices. A slice's A is, for each m64 block,
+// one 4-D TMA box of the NHWC activation (64 channels, W, box_h rows, box_b
+// samples: WG_PIX pixels) at (x, y) offsets (dx - 1, dy - 1), the TMA unit's
+// zeros the SAME padding, as the block GEMM reads its conv operand; wgmma
+// takes it M-major (the channels along the 128-byte row) through the
+// transpose bit of A. G is two 2-D boxes of the slice's WG_PIX consecutive
+// pixel rows (64 columns each), N-major through the transpose bit of B, and
+// serves the CTA's 2 MW blocks, whichever taps they hold. One producer warp
+// keeps a 3-stage (MW 1, two CTAs an SM) or 4-stage ring of full/empty
+// mbarriers fed; two consumer warpgroups run m64n128k16 f32.bf16.bf16 on MW
+// blocks each. Pixel splits (grid z) write f32 partials straight from the
+// accumulators, and rowsum_kernel sums them in split order (no atomics).
+// The plan (MW, the box, splits, slices a split) is a pure function of the
+// shapes, computed in Python (ops/resblock.py:wgrad_plan).
+//
+// What bounds it on the H100: the products (2 * M * taps * C * N operations
+// at 989 TFLOP/s) against A and G read once (2 M (C + N) bytes): at 32x32
+// and 16x16 the operations; at 8x8 and 4x4 (M a few thousand pixels at B =
+// 128, a few hundred at B = 4) the partials' bytes and the launches. A CTA
+// reads its blocks' A and G from L2 for every tap it holds, so L2's rate
+// bounds a CTA with few blocks: MW 2 (256 dW rows a CTA) reads 48 KB a slice
+// for 4 MB of products.
+constexpr int WG_PIX = 64;      // pixels of a K slice
+constexpr int WG_ROW = 128;     // bytes of a slice row: 64 bf16 channels
+constexpr int WG_BOX = WG_PIX * WG_ROW;  // 8 KB: an m64 block's A, or half of G
+constexpr int WG_THREADS = 288;  // consumer warpgroups 0 and 1, then the producer warp
+constexpr int WG_CONSUMER_WARPS = 8;
+
+template <int MW>
+struct WgTile {
+  static constexpr int STAGES = MW == 1 ? 3 : 4;
+  static constexpr int A_BYTES = 2 * MW * WG_BOX;
+  static constexpr int STAGE_BYTES = A_BYTES + 2 * WG_BOX;
+  // the ring, 1 KB of slack to align it to the 128-byte swizzle's 1 KB atom, barriers
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 };
 
-struct WgStage {
-  uint4 a[2][2];  // 8 f32 values of v
-  uint2 m[2];
-  uint4 b[2][2];  // 8 f32 values of g
-  int a_b[2];     // sample of the row, -1: zero (padding or m >= M)
+static_assert(WgTile<2>::SMEM <= 227 * 1024, "the MW 2 wgrad ring exceeds shared memory");
+static_assert(2 * (WgTile<1>::SMEM + 1024) <= 228 * 1024, "two MW 1 wgrad CTAs do not fit an SM");
+
+struct WgPlan {
+  int C, taps, N, B, H, W;
+  int slices, per;  // WG_PIX-pixel slices in all, and a split's
+  float* out;       // (splits, taps * C, N) f32: the partials, or dW when not split
 };
 
-__device__ __forceinline__ void wg_load(const WgradArgs& p, int k0, int n0, int mb, int mend,
-                                        WgStage& st) {
-  const int t = threadIdx.x;
-  const int hw = p.H * p.W;
-  const int tap = k0 / p.C;
-  const int c0 = k0 - tap * p.C;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = (t >> 3) + 16 * i;  // pixel within the slice
-    const int col = (t & 7) * 8;        // 8 of the 64 columns
-    const int m = mb + row;
-    st.a[i][0] = st.a[i][1] = make_uint4(0, 0, 0, 0);
-    st.b[i][0] = st.b[i][1] = make_uint4(0, 0, 0, 0);
-    st.a_b[i] = -1;
-    if (m < mend) {
-      const int b = m / hw, rem = m - b * hw;
-      int y = rem / p.W, x = rem - (rem / p.W) * p.W;
-      if (p.taps == 9) {
-        y += tap / 3 - 1;
-        x += tap % 3 - 1;
-      }
-      if (y >= 0 && y < p.H && x >= 0 && x < p.W) {
-        const long off = (((long)b * p.H + y) * p.W + x) * p.C + c0 + col;
-        const uint4* src = reinterpret_cast<const uint4*>(p.v + off);
-        st.a[i][0] = src[0];
-        st.a[i][1] = src[1];
-        if (p.mask) st.m[i] = *reinterpret_cast<const uint2*>(p.mask + off);
-        st.a_b[i] = b;
-      }
-      const uint4* gsrc = reinterpret_cast<const uint4*>(p.g + (long)m * p.N + n0 + col);
-      st.b[i][0] = gsrc[0];
-      st.b[i][1] = gsrc[1];
+// grid (taps * C / 64 / (2 MW), N / 128, splits), WG_THREADS threads,
+// WgTile<MW>::SMEM dynamic shared memory. Split z sums the slices
+// [z * per, min((z + 1) * per, slices)).
+template <int MW>
+__global__ void __launch_bounds__(WG_THREADS, 3 - MW)
+wgrad_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap gmap,
+             const WgPlan p) {
+  using T = WgTile<MW>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t ring_u32 = smem_u32(ring);
+  const uint32_t full0 = ring_u32 + T::STAGES * T::STAGE_BYTES;  // full[s] = full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * T::STAGES;
+
+  const int j0 = blockIdx.x * 2 * MW;  // the CTA's first m64 block of dW rows
+  const int n0 = blockIdx.y * 128;
+  const int s_beg = blockIdx.z * p.per;
+  const int n_sl = min(p.slices, s_beg + p.per) - s_beg;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, WG_CONSUMER_WARPS);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-}
-
-__device__ __forceinline__ void wg_store(const WgradArgs& p, int k0, const WgStage& st,
-                                         bf16 (*As)[WG_LD], bf16 (*Bs)[WG_LD]) {
-  const int t = threadIdx.x;
-  const int tap = k0 / p.C;
-  const int c0 = k0 - tap * p.C;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = (t >> 3) + 16 * i;
-    const int col = (t & 7) * 8;
-    const float* f = reinterpret_cast<const float*>(st.a[i]);
-    uint4 va;
-    bf16* ea = reinterpret_cast<bf16*>(&va);
-    if (st.a_b[i] >= 0 && p.scale) {
-      const float* sc = p.scale + (long)st.a_b[i] * p.C + c0 + col;
-      const float* sh = p.shift + (long)st.a_b[i] * p.C + c0 + col;
-      const int8_t* mk = reinterpret_cast<const int8_t*>(&st.m[i]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float v = f[j] * sc[j] + sh[j];
-        if (p.silu) v = v * sigmoidf_(v);
-        if (p.mask) v *= (float)mk[j] * p.inv_keep;
-        ea[j] = __float2bfloat16(v);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) ea[j] = __float2bfloat16(f[j]);
-    }
-    *reinterpret_cast<uint4*>(&As[row][col]) = va;
-    const float* gf = reinterpret_cast<const float*>(st.b[i]);
-    uint4 vb;
-    bf16* eb = reinterpret_cast<bf16*>(&vb);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) eb[j] = __float2bfloat16(gf[j]);
-    *reinterpret_cast<uint4*>(&Bs[row][col]) = vb;
-  }
-}
-
-__global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(const WgradArgs p) {
-  // A slice stored m-major (As[pixel][k]); the tensor cores read it column-major
-  __shared__ __align__(128) bf16 As[2][WG_BK][WG_LD];
-  __shared__ __align__(128) bf16 Bs[2][WG_BK][WG_LD];
-  const int k0 = blockIdx.x * WG_BM;
-  const int n0 = blockIdx.y * WG_BN;
-  const int M = p.B * p.H * p.W;
-  const int mbeg = blockIdx.z * p.mper;
-  const int mend = min(M, mbeg + p.mper);
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  WgStage st;
-  wg_load(p, k0, n0, mbeg, mend, st);
-  wg_store(p, k0, st, As[0], Bs[0]);
   __syncthreads();
-  int buf = 0;
-  for (int mb = mbeg; mb < mend; mb += WG_BK, buf ^= 1) {
-    const bool more = mb + WG_BK < mend;
-    if (more) wg_load(p, k0, n0, mb + WG_BK, mend, st);
+
+  if (warp == WG_CONSUMER_WARPS) {
+    // the producer: one thread keeps the ring's loads in flight
+    if (lane == 0) {
+      const int hw = p.H * p.W;
+      for (int i = 0; i < n_sl; ++i) {
+        const int s = i % T::STAGES;
+        if (i >= T::STAGES) mbar_wait(empty0 + 8 * s, ((i / T::STAGES) - 1) & 1);
+        const uint32_t full = full0 + 8 * s;
+        const uint32_t a = ring_u32 + s * T::STAGE_BYTES, gb = a + T::A_BYTES;
+        mbar_expect_tx(full, T::STAGE_BYTES);
+        // the slice's pixels: whole rows of one sample (H*W a multiple of
+        // WG_PIX), or whole samples (WG_PIX a multiple of H*W: y0 = 0)
+        const int m0 = (s_beg + i) * WG_PIX;
+        const int b0 = m0 / hw, y0 = (m0 - b0 * hw) / p.W;
 #pragma unroll
-    for (int kk = 0; kk < WG_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], &As[buf][kk][wm + 16 * i], WG_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], &Bs[buf][kk][wn + 16 * j], WG_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+        for (int k = 0; k < 2 * MW; ++k) {
+          const int row = 64 * (j0 + k);
+          const int tap = row / p.C, c0 = row - tap * p.C;
+          const int dx = p.taps == 9 ? tap % 3 - 1 : 0, dy = p.taps == 9 ? tap / 3 - 1 : 0;
+          tma_load_4d(a + k * WG_BOX, &amap, full, c0, dx, y0 + dy, b0);
+        }
+        tma_load_2d(gb, &gmap, full, n0, m0);
+        tma_load_2d(gb + WG_BOX, &gmap, full, n0 + 64, m0);
+      }
     }
-    if (more) wg_store(p, k0, st, As[buf ^ 1], Bs[buf ^ 1]);
-    __syncthreads();
+    return;
   }
 
+  // the consumers: warpgroup g owns the CTA's m64 blocks g * MW + t
+  const int g = warp >> 2;
+  uint32_t acc[MW][64];
+#pragma unroll
+  for (int t = 0; t < MW; ++t)
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[t][j] = 0u;
+
+  for (int i = 0; i < n_sl; ++i) {
+    const int s = i % T::STAGES;
+    mbar_wait(full0 + 8 * s, (i / T::STAGES) & 1);
+    const uint32_t a = ring_u32 + s * T::STAGE_BYTES + g * MW * WG_BOX;
+    const uint32_t gb = ring_u32 + s * T::STAGE_BYTES + T::A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WG_PIX / 16; ++kk) {
+      // A and G alike: pixel rows of 128 bytes (64 channels of A, 64
+      // columns of G), 8-row atoms 1 KB apart, a k16 step 16 rows; G's
+      // second 64 columns WG_BOX on (the leading offset)
+      const uint64_t dg = sw128_desc(gb + 2048 * kk, WG_BOX, 1024);
+#pragma unroll
+      for (int t = 0; t < MW; ++t)
+        wgmma_m64n128k16_b32<1, 1>(acc[t], sw128_desc(a + t * WG_BOX + 2048 * kk, WG_BOX, 1024),
+                                   dg);
+    }
+    wgmma_commit();
+    // the previous slice's group has completed: free its stage
+    wgmma_wait<1>();
+    if (i > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((i - 1) % T::STAGES));
+  }
+  wgmma_wait<0>();
+
+  // Accumulator layout: register 4j + 2h + e holds row 16 (warp % 4) +
+  // lane / 4 + 8 h of its m64 block, column 8 j + 2 (lane % 4) + e; a warp
+  // instruction stores 8 rows of 32 bytes
   const long K = (long)p.taps * p.C;
-  float* dst = p.partial + ((long)blockIdx.z * K + k0) * p.N + n0;
+  float* dst = p.out + (long)blockIdx.z * K * p.N;
+  const int row0 = 16 * (warp & 3) + (lane >> 2), col = n0 + 2 * (lane & 3);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int t = 0; t < MW; ++t)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(dst + (long)(wm + 16 * i) * p.N + wn + 16 * j, acc[i][j], p.N,
-                              wmma::mem_row_major);
+    for (int h = 0; h < 2; ++h) {
+      float* d = dst + (64L * (j0 + g * MW + t) + row0 + 8 * h) * p.N + col;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<float2*>(d + 8 * j) =
+            make_float2(__uint_as_float(acc[t][4 * j + 2 * h]),
+                        __uint_as_float(acc[t][4 * j + 2 * h + 1]));
+    }
 }
 
-void wgrad_plan(long m, int k, int n, int* splits, int* mper) {
-  const long tiles = (long)(k / WG_BM) * (n / WG_BN);
-  const long slices = (m + WG_BK - 1) / WG_BK;
-  long s = (TARGET_BLOCKS + tiles - 1) / tiles;
-  if (s > slices / MIN_SPLIT_SLICES) s = slices / MIN_SPLIT_SLICES;
-  if (s < 1) s = 1;
-  const long per = (slices + s - 1) / s;
-  *mper = (int)(per * WG_BK);
-  *splits = (int)((slices + per - 1) / per);
+// The wgrad plan of ops/resblock.py:wgrad_plan: MW, the A box (W x box_h
+// rows x box_b samples: WG_PIX pixels), the pixel splits and slices a split.
+struct WgTiles {
+  int mw, box_h, box_b, splits, per;
+};
+
+template <int MW>
+int wgrad_run(const CUtensorMap* maps, dim3 grid, const WgPlan& p, cudaStream_t st) {
+  static bool attr = false;
+  if (!attr) {
+    const int err = (int)cudaFuncSetAttribute(
+        wgrad_kernel<MW>, cudaFuncAttributeMaxDynamicSharedMemorySize, WgTile<MW>::SMEM);
+    if (err) return err;
+    attr = true;
+  }
+  wgrad_kernel<MW><<<grid, WG_THREADS, WgTile<MW>::SMEM, st>>>(maps[0], maps[1], p);
+  return (int)cudaGetLastError();
 }
 
-// dW (taps*C, N) = scale * sum over pixels of act(v)^T g
-int wgrad(WgradArgs p, float scale, float* partial, float* dw, cudaStream_t st) {
-  const long m = (long)p.B * p.H * p.W;
-  const int k = p.taps * p.C;
-  int splits;
-  wgrad_plan(m, k, p.N, &splits, &p.mper);
-  p.partial = partial;
-  wgrad_kernel<<<dim3(k / WG_BM, p.N / WG_BN, splits), WG_THREADS, 0, st>>>(p);
-  int err = (int)cudaGetLastError();
-  if (!err) err = rowsum(partial, splits, (long)k * p.N, scale, dw, st);
+// dW (taps * C, N) f32 = sum over pixels of shift_t(a)^T g: a (B, H, W, C)
+// and g (B * H * W, N) bf16; partial: splits * taps * C * N f32 when the
+// plan splits the pixels. Counted where it launches; cudaErrorInvalidValue
+// for a plan or shape it does not take.
+int wgrad_launch(const void* a, const void* g, int C, int taps, int N, int batch, int h, int w,
+                 const WgTiles& t, float* partial, float* dw, cudaStream_t st) {
+  const long m = (long)batch * h * w;
+  const int blocks = taps * C / 64;
+  const long slices = (m + WG_PIX - 1) / WG_PIX;
+  if ((taps != 1 && taps != 9) || C % 64 || N % 128 || (t.mw != 1 && t.mw != 2) ||
+      blocks % (2 * t.mw) || w * t.box_h * t.box_b != WG_PIX || t.box_h > 256 || t.box_b > 256 ||
+      (t.box_b > 1 && t.box_h != h) || (t.box_b == 1 && (h * w) % WG_PIX) || t.splits < 1 ||
+      t.per < 1 || (long)(t.splits - 1) * t.per >= slices || (long)t.splits * t.per < slices ||
+      (t.splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[2] = {};
+  const cuuint64_t adims[4] = {(cuuint64_t)C, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)batch};
+  const cuuint64_t astrides[3] = {(cuuint64_t)C * 2, (cuuint64_t)w * C * 2,
+                                  (cuuint64_t)h * w * C * 2};
+  const cuuint32_t abox[4] = {64, (cuuint32_t)w, (cuuint32_t)t.box_h, (cuuint32_t)t.box_b};
+  const cuuint64_t gdims[2] = {(cuuint64_t)N, (cuuint64_t)m};
+  const cuuint64_t gstrides[1] = {(cuuint64_t)N * 2};
+  const cuuint32_t gbox[2] = {64, WG_PIX};
+  if (!bf16_map(&maps[0], a, 4, adims, astrides, abox) ||
+      !bf16_map(&maps[1], g, 2, gdims, gstrides, gbox))
+    return (int)cudaErrorInvalidValue;
+  WgPlan p;
+  p.C = C;
+  p.taps = taps;
+  p.N = N;
+  p.B = batch;
+  p.H = h;
+  p.W = w;
+  p.slices = (int)slices;
+  p.per = t.per;
+  p.out = t.splits > 1 ? partial : dw;
+  const dim3 grid(blocks / (2 * t.mw), N / 128, t.splits);
+  int err = t.mw == 1 ? wgrad_run<1>(maps, grid, p, st) : wgrad_run<2>(maps, grid, p, st);
+  if (err) return err;
+  count_launch(COUNT_WGRAD);
+  if (t.splits > 1) err = rowsum(partial, t.splits, (long)taps * C * N, 1.0f, dw, st);
   return err;
 }
 
-// The plan of one block shape: conv splits per GEMM and the scratch layout.
-struct Plan {
-  int s_u, k_u;    // conv1 recompute: M x N x 9*Cin
-  int s_d2, k_d2;  // dgrad2: M x N x 9*N
-  int s_d1, k_d1;  // dgrad1: M x Cin x 9*N
-  int s_sk, k_sk;  // skip dgrad: M x Cin x N
-  int conv_splits;
-  int wg_splits;   // the largest of the three wgrads'
+// ---------------------------------------------------------------------------
+// K7. The plan of one block shape, from Python (ops/resblock_bwd.py:
+// train_bwd_plan): four block-GEMM plans (mw, box_h, box_b, tiles_h,
+// m_tiles, splits, kper each: conv1's recompute Cin -> N, the dgrads N -> N
+// and N -> Cin, the skip's 1x1 N -> Cin, zeros without a skip), then three
+// wgrad plans (mw, box_h, box_b, splits, per each: dW2, dW1, dW_skip).
+constexpr int PLAN_GEMM = 7;
+constexpr int PLAN_WG = 5;
+constexpr int PLAN_INTS = 4 * PLAN_GEMM + 3 * PLAN_WG;
+
+struct GemmStep {
+  GemmTiles t;
+  int splits, kper;
 };
 
-Plan make_plan(int batch, int h, int w, int cin, int n) {
-  Plan pl;
-  const long m = (long)batch * h * w;
-  conv_split_plan(m, n, 9 * cin, &pl.s_u, &pl.k_u);
-  conv_split_plan(m, n, 9 * n, &pl.s_d2, &pl.k_d2);
-  conv_split_plan(m, cin, 9 * n, &pl.s_d1, &pl.k_d1);
-  conv_split_plan(m, cin, n, &pl.s_sk, &pl.k_sk);
-  pl.conv_splits = pl.s_u;
-  for (int s : {pl.s_d2, pl.s_d1, pl.s_sk}) pl.conv_splits = s > pl.conv_splits ? s : pl.conv_splits;
-  pl.wg_splits = 1;
-  int mper;
-  for (int k : {9 * n, 9 * cin, cin}) {
-    int s;
-    wgrad_plan(m, k, n, &s, &mper);
-    pl.wg_splits = s > pl.wg_splits ? s : pl.wg_splits;
-  }
-  return pl;
+GemmStep gemm_step(const int* plan, int i) {
+  const int* q = plan + PLAN_GEMM * i;
+  return GemmStep{GemmTiles{q[0], q[1], q[2], q[3], q[4]}, q[5], q[6]};
+}
+
+WgTiles wg_step(const int* plan, int i) {
+  const int* q = plan + 4 * PLAN_GEMM + PLAN_WG * i;
+  return WgTiles{q[0], q[1], q[2], q[3], q[4]};
 }
 
 struct Work {
   float *sc1, *sh1, *mean1, *rstd1, *sc2, *sh2, *mean2, *rstd2;
-  float* u;     // (M, N) conv1 output
-  float* gu;    // (M, N) dL/dd, then dL/du in place
-  float* ga1;   // (M, Cin) dL/da1
+  float* u;     // (M, N) conv1 output, f32
+  float* gn2;   // (2, B, parts, N) GN2's partial sums and squares, from conv1
+  bf16* a1;     // (M, Cin) the bf16 operands
+  bf16* xb;     // (M, Cin), with a 1x1 skip
+  bf16* d;      // (M, N)
+  bf16* gmm;    // (M, N)
+  bf16* gumm;   // (M, N)
+  float* gd;    // (M, max(N, Cin)) dL/dd, then dL/da1 over it
   float *p_gn2s, *p_gn2b, *p_g, *p_gn1s, *p_gn1b;  // per-sample partials
   float* conv_partial;  // (conv splits, M, max(N, Cin))
-  float* wg_partial;    // (wgrad splits, 9*max(N, Cin), N)
+  float* wg_partial;    // (wgrad splits, taps * max(N, Cin), N)
   size_t bytes;
 };
 
-Work carve(char* base, int batch, int h, int w, int cin, int n, int g1, int g2, const Plan& pl) {
+Work carve(char* base, int batch, int h, int w, int cin, int n, int g1, int g2, bool skip,
+           const int* plan) {
   Work wk;
   size_t off = 0;
-  auto take = [&](size_t count) {
-    float* p = base ? (float*)(base + off) : nullptr;
-    off += align256(sizeof(float) * count);
+  auto take = [&](size_t bytes) {
+    char* p = base ? base + off : nullptr;
+    off += align256(bytes);
     return p;
   };
+  auto f32 = [&](size_t count) { return (float*)take(sizeof(float) * count); };
+  auto b16 = [&](size_t count) { return (bf16*)take(sizeof(bf16) * count); };
   const long m = (long)batch * h * w;
   const int cmax = cin > n ? cin : n;
-  wk.sc1 = take((size_t)batch * cin);
-  wk.sh1 = take((size_t)batch * cin);
-  wk.mean1 = take((size_t)batch * g1);
-  wk.rstd1 = take((size_t)batch * g1);
-  wk.sc2 = take((size_t)batch * n);
-  wk.sh2 = take((size_t)batch * n);
-  wk.mean2 = take((size_t)batch * g2);
-  wk.rstd2 = take((size_t)batch * g2);
-  wk.u = take((size_t)m * n);
-  wk.gu = take((size_t)m * n);
-  wk.ga1 = take((size_t)m * cin);
-  wk.p_gn2s = take((size_t)batch * n);
-  wk.p_gn2b = take((size_t)batch * n);
-  wk.p_g = take((size_t)batch * n);
-  wk.p_gn1s = take((size_t)batch * cin);
-  wk.p_gn1b = take((size_t)batch * cin);
-  wk.conv_partial = pl.conv_splits > 1 ? take((size_t)pl.conv_splits * m * cmax) : nullptr;
-  wk.wg_partial = take((size_t)pl.wg_splits * 9 * cmax * n);
+  wk.sc1 = f32((size_t)batch * cin);
+  wk.sh1 = f32((size_t)batch * cin);
+  wk.mean1 = f32((size_t)batch * g1);
+  wk.rstd1 = f32((size_t)batch * g1);
+  wk.sc2 = f32((size_t)batch * n);
+  wk.sh2 = f32((size_t)batch * n);
+  wk.mean2 = f32((size_t)batch * g2);
+  wk.rstd2 = f32((size_t)batch * g2);
+  wk.u = f32((size_t)m * n);
+  wk.gn2 = f32((size_t)2 * batch * gemm_step(plan, 0).t.tiles_h * n);
+  wk.a1 = b16((size_t)m * cin);
+  wk.xb = skip ? b16((size_t)m * cin) : nullptr;
+  wk.d = b16((size_t)m * n);
+  wk.gmm = b16((size_t)m * n);
+  wk.gumm = b16((size_t)m * n);
+  wk.gd = f32((size_t)m * cmax);
+  wk.p_gn2s = f32((size_t)batch * n);
+  wk.p_gn2b = f32((size_t)batch * n);
+  wk.p_g = f32((size_t)batch * n);
+  wk.p_gn1s = f32((size_t)batch * cin);
+  wk.p_gn1b = f32((size_t)batch * cin);
+  int cs = 1, ws = 1;  // the most splits of the GEMMs and of the wgrads
+  for (int i = 0; i < (skip ? 4 : 3); ++i) cs = std::max(cs, gemm_step(plan, i).splits);
+  for (int i = 0; i < (skip ? 3 : 2); ++i) ws = std::max(ws, wg_step(plan, i).splits);
+  wk.conv_partial = cs > 1 ? f32((size_t)cs * m * cmax) : nullptr;
+  wk.wg_partial = ws > 1 ? f32((size_t)ws * 9 * cmax * n) : nullptr;
   wk.bytes = off;
   return wk;
+}
+
+// One GEMM of the chain on the block GEMM: a 3x3 (taps 9) or 1x1 of the
+// bf16 operand a (cin channels) into f32 out (n channels); kmajor: a dgrad
+int gemm(const void* a, const void* w, int cin, int n, int taps, bool kmajor, int batch, int h,
+         int w_, const GemmStep& s, float* partial, float* out, cudaStream_t st) {
+  BlockGemm g = {};
+  g.a = a;
+  g.w = w;
+  g.w_kmajor = kmajor;
+  g.cin = cin;
+  g.taps = taps;
+  g.B = batch;
+  g.H = h;
+  g.W = w_;
+  g.N = n;
+  g.out_scale = 1.0f;
+  g.out = out;
+  g.out_f32 = true;
+  g.partial = partial;
+  g.splits = s.splits;
+  g.kper = s.kper;
+  return block_gemm_launch(g, s.t, st);
 }
 
 }  // namespace
@@ -455,55 +552,81 @@ Work carve(char* base, int batch, int h, int w, int cin, int n, int g1, int g2, 
 extern "C" {
 
 long long gddim_resblock_bwd_workspace(int batch, int h, int w, int cin, int n, int groups1,
-                                       int groups2) {
-  return (long long)carve(nullptr, batch, h, w, cin, n, groups1, groups2,
-                          make_plan(batch, h, w, cin, n)).bytes;
+                                       int groups2, int skip, const int* plan) {
+  return (long long)carve(nullptr, batch, h, w, cin, n, groups1, groups2, skip != 0, plan).bytes;
 }
 
 // K7: the 12 gradients of one training block (f32 in and out).
 //   x (B,H,W,Cin), temb_row (B,N), g = dL/dout (B,H,W,N), mask (B,H,W,N) int8 or null;
-//   w1 (9*Cin, N) bf16 in the forward (HWIO) layout; w1t (9*N, Cin) and w2t (9*N, N) bf16
-//   in the dgrad layout (taps flipped, Cin/Cout swapped); wst (N, Cin) bf16 = W_skip^T, or
-//   null for the identity skip. out_scale r = 1/sqrt(2) (skip_rescale) or 1.
+//   w1 (3,3,Cin,N), w2 (3,3,N,N) and ws (Cin,N) (null: the identity skip), bf16 in the
+//   forward (HWIO) layout, which the dgrads read as it is. out_scale r = 1/sqrt(2)
+//   (skip_rescale) or 1. plan: PLAN_INTS ints in host memory (train_bwd_plan).
 // Outputs (f32): dx (B,H,W,Cin), dtemb (B,N), dgn1s/dgn1b (Cin), dw1 (9*Cin, N), db1,
-//   dgn2s, dgn2b (N), dw2 (9*N, N), db2 (N), and with wst dws (Cin, N) and dbs (N).
+//   dgn2s, dgn2b (N), dw2 (9*N, N), db2 (N), and with ws dws (Cin, N) and dbs (N).
 int gddim_resblock_bwd(const void* x, const void* temb_row, const void* gn1_g, const void* gn1_b,
-                       int groups1, const void* w1, const void* w1t, const void* b1,
-                       const void* gn2_g, const void* gn2_b, int groups2, const void* w2t,
-                       const void* wst, const void* mask, float inv_keep, const void* g,
-                       int batch, int h, int w_, int cin, int n, float eps, float out_scale,
-                       void* work, void* dx, void* dtemb, void* dgn1s, void* dgn1b, void* dw1,
-                       void* db1, void* dgn2s, void* dgn2b, void* dw2, void* db2, void* dws,
-                       void* dbs, void* stream) {
+                       int groups1, const void* w1, const void* b1, const void* gn2_g,
+                       const void* gn2_b, int groups2, const void* w2, const void* ws,
+                       const void* mask, float inv_keep, const void* g, int batch, int h, int w_,
+                       int cin, int n, float eps, float out_scale, const int* plan, void* work,
+                       void* dx, void* dtemb, void* dgn1s, void* dgn1b, void* dw1, void* db1,
+                       void* dgn2s, void* dgn2b, void* dw2, void* db2, void* dws, void* dbs,
+                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int hw = h * w_;
-  const Plan pl = make_plan(batch, h, w_, cin, n);
-  const Work wk = carve((char*)work, batch, h, w_, cin, n, groups1, groups2, pl);
+  const bool skip = ws != nullptr;
+  const Work wk = carve((char*)work, batch, h, w_, cin, n, groups1, groups2, skip, plan);
   const float* gf = (const float*)g;
   const float r = out_scale;
+  const GemmStep s_u = gemm_step(plan, 0), s_d2 = gemm_step(plan, 1), s_d1 = gemm_step(plan, 2),
+                 s_sk = gemm_step(plan, 3);
 
-  // 1-3: recompute GN1, u = conv1(silu(GN1 x)) + b1 + temb_proj, GN2
+  // 1-2: GN1, a1 = bf16(silu(GN1 x)) and bf16(x)
   int err = gn_stats_launch(x, nullptr, cin, 0, batch, hw, groups1, (const float*)gn1_g,
                             (const float*)gn1_b, eps, wk.sc1, wk.sh1, wk.mean1, wk.rstd1, true, st);
+  if (!err)
+    err = train_prepass_launch((const float*)x, cin, batch, hw, wk.sc1, wk.sh1, wk.a1, wk.xb, st);
+  // 3: u = conv1(a1) + b1 + temb_proj, f32, and GN2's partial sums
   if (!err) {
-    ConvArgs p = conv_args(x, cin, wk.sc1, wk.sh1, 1, 9, w1, batch, h, w_, n, b1, 1.0f, wk.u,
-                      wk.conv_partial, pl.s_u, pl.k_u);
-    p.temb = (const float*)temb_row;
-    p.temb_ld = n;
-    err = conv_gemm_launch(p, true, st);
+    BlockGemm c = {};
+    c.a = wk.a1;
+    c.w = w1;
+    c.cin = cin;
+    c.taps = 9;
+    c.B = batch;
+    c.H = h;
+    c.W = w_;
+    c.N = n;
+    c.bias = (const float*)b1;
+    c.temb = (const float*)temb_row;
+    c.temb_ld = n;
+    c.out_scale = 1.0f;
+    c.out = wk.u;
+    c.out_f32 = true;
+    c.gn_part = wk.gn2;
+    c.partial = wk.conv_partial;
+    c.splits = s_u.splits;
+    c.kper = s_u.kper;
+    c.train = true;
+    err = block_gemm_launch(c, s_u.t, st);
   }
+  // 4: d = bf16(silu(GN2 u) * mask / keep), and GN2's affine and statistics
   if (!err)
-    err = gn_stats_launch(wk.u, nullptr, n, 0, batch, hw, groups2, (const float*)gn2_g,
-                          (const float*)gn2_b, eps, wk.sc2, wk.sh2, wk.mean2, wk.rstd2, true, st);
-  // 4: dL/dd = r * conv(g, W2^T flipped)
-  if (!err)
-    err = conv_gemm_launch(conv_args(g, n, nullptr, nullptr, 0, 9, w2t, batch, h, w_, n, nullptr, r,
-                                wk.gu, wk.conv_partial, pl.s_d2, pl.k_d2),
-                           true, st);
-  // 5: dropout + SiLU + GN2 backward -> gu (in place), dtemb, partials
+    err = gn2_train_prepass_launch(wk.u, wk.gn2, s_u.t.tiles_h, groups2, (const float*)gn2_g,
+                                   (const float*)gn2_b, eps, (const int8_t*)mask, inv_keep, batch,
+                                   hw, n, wk.sc2, wk.sh2, wk.mean2, wk.rstd2, wk.d, st);
+  // 5: gmm = bf16(r * g)
+  if (!err) {
+    const long vecs = (long)batch * hw * n / 8;
+    round_kernel<<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>(gf, vecs, r, wk.gmm);
+    err = (int)cudaGetLastError();
+    if (!err) count_launch(COUNT_PREPASS_BF16);
+  }
+  // 6: dL/dd = conv(gmm, W2 flipped/transposed)
+  if (!err) err = gemm(wk.gmm, w2, n, n, 9, true, batch, h, w_, s_d2, wk.conv_partial, wk.gd, st);
+  // 7: dropout + SiLU + GN2 backward -> gumm, dtemb, partials
   if (!err) {
     GnBwdArgs a = {};
-    a.dpre = wk.gu;
+    a.dpre = wk.gd;
     a.mask = (const int8_t*)mask;
     a.inv_keep = inv_keep;
     a.v = wk.u;
@@ -513,7 +636,7 @@ int gddim_resblock_bwd(const void* x, const void* temb_row, const void* gn1_g, c
     a.rstd = wk.rstd2;
     a.gamma = (const float*)gn2_g;
     a.extra = gf;
-    a.out = wk.gu;
+    a.out_bf16 = wk.gumm;
     a.part_s = wk.p_gn2s;
     a.part_b = wk.p_gn2b;
     a.part_extra = wk.p_g;
@@ -524,28 +647,24 @@ int gddim_resblock_bwd(const void* x, const void* temb_row, const void* gn1_g, c
     gn_bwd_kernel<<<dim3(groups2, batch), THREADS_BWD, 0, st>>>(a);
     err = (int)cudaGetLastError();
   }
-  // 6: dL/da1 = conv(gu, W1^T flipped)
+  // 8: dL/da1 = conv(gumm, W1 flipped/transposed), over dL/dd
   if (!err)
-    err = conv_gemm_launch(conv_args(wk.gu, n, nullptr, nullptr, 0, 9, w1t, batch, h, w_, cin,
-                                nullptr, 1.0f, wk.ga1, wk.conv_partial, pl.s_d1, pl.k_d1),
-                           true, st);
-  // 7: the 1x1 skip's dgrad straight into dx
-  if (!err && wst)
-    err = conv_gemm_launch(conv_args(g, n, nullptr, nullptr, 0, 1, wst, batch, h, w_, cin, nullptr, r,
-                                dx, wk.conv_partial, pl.s_sk, pl.k_sk),
-                           true, st);
-  // 8: SiLU + GN1 backward, plus the skip term -> dx
+    err = gemm(wk.gumm, w1, n, cin, 9, true, batch, h, w_, s_d1, wk.conv_partial, wk.gd, st);
+  // 9: the 1x1 skip's dgrad straight into dx
+  if (!err && skip)
+    err = gemm(wk.gmm, ws, n, cin, 1, true, batch, h, w_, s_sk, wk.conv_partial, (float*)dx, st);
+  // 10: SiLU + GN1 backward, plus the skip term -> dx
   if (!err) {
     GnBwdArgs a = {};
-    a.dpre = wk.ga1;
+    a.dpre = wk.gd;
     a.v = (const float*)x;
     a.sc = wk.sc1;
     a.sh = wk.sh1;
     a.mean = wk.mean1;
     a.rstd = wk.rstd1;
     a.gamma = (const float*)gn1_g;
-    a.add = wst ? (const float*)dx : gf;
-    a.add_scale = wst ? 1.0f : r;
+    a.add = skip ? (const float*)dx : gf;
+    a.add_scale = skip ? 1.0f : r;
     a.out = (float*)dx;
     a.part_s = wk.p_gn1s;
     a.part_b = wk.p_gn1b;
@@ -555,53 +674,36 @@ int gddim_resblock_bwd(const void* x, const void* temb_row, const void* gn1_g, c
     gn_bwd_kernel<<<dim3(groups1, batch), THREADS_BWD, 0, st>>>(a);
     err = (int)cudaGetLastError();
   }
-  // 9: weight gradients
-  WgradArgs wa = {};
-  wa.B = batch;
-  wa.H = h;
-  wa.W = w_;
-  wa.N = n;
-  if (!err) {  // dW2 = r * sum shift_t(d)^T g, d = silu(GN2 u) * mask / keep
-    WgradArgs p = wa;
-    p.v = wk.u;
-    p.C = n;
-    p.taps = 9;
-    p.scale = wk.sc2;
-    p.shift = wk.sh2;
-    p.silu = 1;
-    p.mask = (const int8_t*)mask;
-    p.inv_keep = inv_keep;
-    p.g = gf;
-    err = wgrad(p, r, wk.wg_partial, (float*)dw2, st);
-  }
-  if (!err) {  // dW1 = sum shift_t(a1)^T gu, a1 = silu(GN1 x)
-    WgradArgs p = wa;
-    p.v = (const float*)x;
-    p.C = cin;
-    p.taps = 9;
-    p.scale = wk.sc1;
-    p.shift = wk.sh1;
-    p.silu = 1;
-    p.g = wk.gu;
-    err = wgrad(p, 1.0f, wk.wg_partial, (float*)dw1, st);
-  }
-  if (!err && wst) {  // dW_skip = r * sum x^T g
-    WgradArgs p = wa;
-    p.v = (const float*)x;
-    p.C = cin;
-    p.taps = 1;
-    p.g = gf;
-    err = wgrad(p, r, wk.wg_partial, (float*)dws, st);
-  }
-  // 10: per-sample partials -> parameter gradients
+  // 11: weight gradients
+  if (!err)  // dW2 = sum shift_t(d)^T gmm
+    err = wgrad_launch(wk.d, wk.gmm, n, 9, n, batch, h, w_, wg_step(plan, 0), wk.wg_partial,
+                       (float*)dw2, st);
+  if (!err)  // dW1 = sum shift_t(a1)^T gumm
+    err = wgrad_launch(wk.a1, wk.gumm, cin, 9, n, batch, h, w_, wg_step(plan, 1), wk.wg_partial,
+                       (float*)dw1, st);
+  if (!err && skip)  // dW_skip = sum x^T gmm
+    err = wgrad_launch(wk.xb, wk.gmm, cin, 1, n, batch, h, w_, wg_step(plan, 2), wk.wg_partial,
+                       (float*)dws, st);
+  // 12: per-sample partials -> parameter gradients
   if (!err) err = rowsum(wk.p_gn2s, batch, n, 1.0f, (float*)dgn2s, st);
   if (!err) err = rowsum(wk.p_gn2b, batch, n, 1.0f, (float*)dgn2b, st);
   if (!err) err = rowsum((const float*)dtemb, batch, n, 1.0f, (float*)db1, st);
   if (!err) err = rowsum(wk.p_g, batch, n, r, (float*)db2, st);
-  if (!err && wst) err = rowsum(wk.p_g, batch, n, r, (float*)dbs, st);
+  if (!err && skip) err = rowsum(wk.p_g, batch, n, r, (float*)dbs, st);
   if (!err) err = rowsum(wk.p_gn1s, batch, cin, 1.0f, (float*)dgn1s, st);
   if (!err) err = rowsum(wk.p_gn1b, batch, cin, 1.0f, (float*)dgn1b, st);
   return err;
+}
+
+// The wgrad kernel alone: dw (taps * C, N) f32 = sum over pixels of
+// shift_t(a)^T g, a (B, H, W, C) and g (B, H, W, N) bf16; the plan of
+// ops/resblock.py:wgrad_plan; scratch `work`: splits * taps * C * N f32
+// when splits > 1.
+int gddim_wgrad(const void* a, const void* g, int batch, int h, int w, int c, int n, int taps,
+                int mw, int box_h, int box_b, int splits, int per, void* work, void* dw,
+                void* stream) {
+  return wgrad_launch(a, g, c, taps, n, batch, h, w, WgTiles{mw, box_h, box_b, splits, per},
+                      (float*)work, (float*)dw, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -45,7 +45,12 @@ with the Dense weights, a wrapper makes the row itself. ``stride1_supported``,
 ``pair_supported``, ``tail_supported`` and ``transition_supported`` say
 which blocks the card's kernels take; the model runs the plain composition
 elsewhere, as the JAX package does.
-On f32 activations (and in K6) the convs run ``conv_gemm_kernel``, with the
+K6 runs the bf16 block's chain on f32 x and out (``gn_stats`` of x, the
+pre-pass writing a1 and, for the 1x1 skip, bf16 x, conv1 with GN2's sums,
+GN2's folding pre-pass with the dropout mask, conv2 + skip or the f32
+identity residual; plain version ``resblock_train_bf16_reference``), its
+tile plan ``bf16_tile_plan``; ``train_supported`` says which training blocks
+K6 and K7 take. On f32 activations K2-K4 run ``conv_gemm_kernel``, with the
 GN affine in the A operand's prologue. On a CPU tensor each wrapper runs its
 plain version; on a CUDA tensor it launches the kernels or raises. K2-K4
 have no gradient: on CUDA tensors they raise when autograd would need one.
@@ -596,6 +601,34 @@ def resblock_transition_int8_reference(x, temb, dense_w, dense_b, gn1_scale, gn1
                        skip_rescale, x.dtype, pair=False, fold2=False)
 
 
+def resblock_train_bf16_reference(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale,
+                                  gn2_bias, w2, b2, w_skip, b_skip, mask, *, keep_prob: float,
+                                  num_groups1: int, num_groups2: int, eps: float = 1e-6,
+                                  skip_rescale: bool = True):
+    """K6 with the card's rounding points, those of the TPU kernel with
+    mm_dtype bf16 (``_resblock_kernel_v2`` with the dropout mask): a1 =
+    bf16(silu(GN1 x)); h1 = conv1(a1, bf16 W1) + b1 + temb_proj in f32; d =
+    bf16(silu(GN2 h1) * mask / keep_prob); out = (conv2(d, bf16 W2) + b2 +
+    skip) * r in f32, the skip bf16 x @ bf16 W_skip + b_skip with f32 sums,
+    or x itself in f32. GroupNorm statistics as the kernels take them
+    (``gn_stats_reference``). Arguments as ``resblock_train_reference``'s."""
+    x = x.float()
+    sc1, sh1 = gn_stats_reference(x, num_groups1, eps, gn1_scale, gn1_bias)[:2]
+    a1 = _bf16r(_conv_input(x, None, sc1, sh1, True))
+    h1 = (conv3x3_nhwc(a1, _bf16r(w1.float()), b1.float())
+          + temb_proj.float()[:, None, None, :])
+    sc2, sh2 = gn_stats_reference(h1, num_groups2, eps, gn2_scale, gn2_bias)[:2]
+    a2 = _conv_input(h1, None, sc2, sh2, True)
+    if keep_prob < 1.0:
+        a2 = a2 * (mask.float() * (1.0 / keep_prob))
+    out = conv3x3_nhwc(_bf16r(a2), _bf16r(w2.float()), b2.float())
+    if w_skip is None:
+        out = out + x
+    else:
+        out = out + _bf16r(x) @ _bf16r(w_skip.float()) + b_skip.float()
+    return out * _INV_SQRT2 if skip_rescale else out
+
+
 def resblock_train_reference(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias,
                              w2, b2, w_skip, b_skip, mask, *, keep_prob: float,
                              num_groups1: int, num_groups2: int, eps: float = 1e-6,
@@ -642,7 +675,7 @@ def split_k(m: int, n: int, k: int) -> tuple[int, int]:
 def _plan(entry: str, b: int, h: int, w: int, cin: int, cskip: int, n: int):
     """(splits1, kper1, splits2, kper2, workspace bytes) of one f32 block
     shape (the convs' resolution h x w) on conv_gemm_kernel through ``entry``
-    (gddim_resblock_f32, gddim_resblock_train or gddim_resblock_transition_f32)."""
+    (gddim_resblock_f32 or gddim_resblock_transition_f32)."""
     s1, k1 = split_k(b * h * w, n, 9 * cin)
     s2, k2 = split_k(b * h * w, n, 9 * n + cskip)
     return s1, k1, s2, k2, _build.workspace_bytes(entry, b, h, w, cin, n, max(s1, s2))
@@ -734,11 +767,17 @@ def tail_supported(h_shape, cout: int, int8: bool, f32: bool = False) -> bool:
 
 
 def train_supported(x_shape, cout: int) -> bool:
-    """Whether K6/K7 take a stride-1 training block (f32, conv_gemm_kernel's
-    tiles): Cin in 32-channel K slices, cout in 64-channel N tiles, the
-    identity skip only where Cin == cout (``resblock_ops.supported`` at
-    gddim_tpu/models/blocks.py:423)."""
-    return x_shape[-1] % _BK == 0 and cout % _BN == 0
+    """Whether K6/K7 take a stride-1 training block x (B, H, W, Cin) -> cout
+    (``resblock_ops.supported`` at gddim_tpu/models/blocks.py:423, with the
+    port's plans): every GEMM of the two has a block-GEMM tile plan (conv1
+    Cin -> cout, conv2 cout -> cout with a Cin-channel 1x1 skip, the dgrads
+    cout -> cout and cout -> Cin, the skip's 1x1 dgrad cout -> Cin) and both
+    3x3 wgrads a ``wgrad_plan``."""
+    _, h, w, cin = x_shape
+    return (_gemm_takes(h, w, cin, 0, cout, BF16_SLICE)
+            and _gemm_takes(h, w, cout, cin, cout, BF16_SLICE)
+            and _gemm_takes(h, w, cout, 0, cin, BF16_SLICE)
+            and _wgrad_takes(h, w, cin, 9, cout) and _wgrad_takes(h, w, cout, 9, cout))
 
 
 # GN1 in one launch (csrc/gn_apply.cu, ``gn_apply_kernel``): a cluster of
@@ -852,6 +891,63 @@ def _gemm_tile_plan(b: int, h: int, w: int, cin: int, cskip: int, n: int, slice_
     kper = -(-slices // splits)
     return GemmPlan(mw, box_h, box_b, tiles_h, m_tiles, conv_slices, skip_slices,
                     -(-slices // kper), kper)
+
+
+# K7's weight gradients (wgrad_kernel, csrc/resblock_bwd.cu): a K slice is
+# WGRAD_PIX pixels, one TMA box of whole rows of a sample or whole samples; a
+# CTA holds 2 * mw m64 blocks of dW rows (64 channels of one tap each) by
+# GEMM_TILE_N columns
+WGRAD_PIX = 64
+WGRAD_MIN_SPLIT_SLICES = 4  # pixel slices a split, at least
+
+
+class WgradPlan(NamedTuple):
+    """How ``wgrad_kernel`` cuts one weight gradient: CTAs of 2 * mw m64
+    blocks of dW rows (mw 2: a 4-stage ring, one CTA an SM; mw 1: 3 stages,
+    two), an A box of W pixels x box_h rows x box_b samples (WGRAD_PIX
+    pixels), and the pixel slices in ``splits`` splits of ``per``."""
+
+    mw: int
+    box_h: int
+    box_b: int
+    splits: int
+    per: int
+
+
+def _wgrad_takes(h: int, w: int, c: int, taps: int, n: int) -> bool:
+    """Whether ``wgrad_kernel`` has a plan for the (taps * c, n) weight
+    gradient at (h, w): channels in 64-channel blocks, an even number of
+    them (a CTA's two warpgroups), n in GEMM_TILE_N columns, WGRAD_PIX
+    pixels whole rows of a sample or whole samples."""
+    hw = h * w
+    return (c % 64 == 0 and (taps * c) % 128 == 0 and n % GEMM_TILE_N == 0 and taps in (1, 9)
+            and 0 < w and WGRAD_PIX % w == 0 and (hw % WGRAD_PIX == 0 or WGRAD_PIX % hw == 0))
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(b: int, h: int, w: int, c: int, taps: int, n: int) -> WgradPlan:
+    """The wgrad kernel's plan for dW (taps * c, n) over a (b, h, w, c)
+    activation: a pure function of the shapes. 256 dW rows a CTA (mw 2)
+    where they divide taps * c, else 128 (mw 1, two CTAs an SM); the pixels
+    split while the CTAs leave the card's resident slots idle, at least
+    WGRAD_MIN_SPLIT_SLICES slices a split, the CTAs within one wave of
+    resident slots. Raises for shapes the kernel does not take
+    (``_wgrad_takes``)."""
+    if not _wgrad_takes(h, w, c, taps, n):
+        raise ValueError(f"wgrad: no plan for a {(b, h, w, c)} activation, {taps} taps, N {n} "
+                         f"(C a multiple of 64, taps * C of 128, N of {GEMM_TILE_N}, W dividing "
+                         f"{WGRAD_PIX}, H*W a multiple or a divisor of {WGRAD_PIX}, taps 1 or 9)")
+    blocks = taps * c // 64
+    mw = 2 if blocks % 4 == 0 else 1
+    box_h, box_b = tile_box(b, h, w, WGRAD_PIX)[:2]
+    ctas = blocks // (2 * mw) * (n // GEMM_TILE_N)
+    slices = -(-(b * h * w) // WGRAD_PIX)
+    resident = SMS * (3 - mw)
+    # one wave: a split more than the slots hold would leave most SMs idle
+    # while a second wave of a few CTAs runs
+    splits = max(1, min(resident // ctas, slices // WGRAD_MIN_SPLIT_SLICES))
+    per = -(-slices // splits)
+    return WgradPlan(mw, box_h, box_b, -(-slices // per), per)
 
 
 def s8_tile_plan(b: int, h: int, w: int, cin: int, cskip: int, n: int,
@@ -1495,14 +1591,18 @@ def gn_resample(x, gamma, beta, *, up: bool, fir: bool = True, fir_kernel=(1, 3,
 
 
 # The kernels that run inside a C call (a block's two convs, K5's
-# projections and attention core, the GroupNorm statistics, GN1, or the bare
-# wrappers), counted in C where each is launched, in csrc/conv.cuh's Counted
-# order: the block GEMM and its pre-pass, int8 then bf16 (GN2's folding
-# pre-pass among them), then K5's attention core, gn_stats_kernel and
-# gn_apply_kernel (both variants: K2/K3/K5's GN1 and K9's resample)
+# projections and attention core, the GroupNorm statistics, GN1, K7's
+# weight gradients, or the bare wrappers), counted in C where each is
+# launched, in csrc/conv.cuh's Counted order: the block GEMM and its
+# pre-pass, int8 then bf16 (the bf16 pre-passes: GN2's folding pre-pass and
+# K7's rounding of the cotangent among them), then K5's attention core,
+# gn_stats_kernel, gn_apply_kernel (both variants: K2/K3/K5's GN1 and K9's
+# resample), K7's wgrad_kernel, conv_gemm_kernel (f32 activations, K10) and
+# the block GEMM in the training blocks (K6's convs, K7's conv1 and dgrads)
 BLOCK_COUNTED = ("block_gemm_kernel<int8>", "prepass_kernel<int8>", "block_gemm_kernel<bf16>",
                  "prepass_kernel<bf16>", "attention_wgmma_kernel", "gn_stats_kernel",
-                 "gn_apply_kernel")
+                 "gn_apply_kernel", "wgrad_kernel", "conv_gemm_kernel",
+                 "block_gemm_kernel<bf16, train>")
 S8_COUNTED = BLOCK_COUNTED[:2]
 BF16_COUNTED = BLOCK_COUNTED[2:4]
 
@@ -1517,17 +1617,29 @@ def block_launches(reset: bool = False, kernels=BLOCK_COUNTED) -> dict:
     return {k: n for k, n in zip(BLOCK_COUNTED, out.tolist()) if k in kernels}
 
 
+@functools.lru_cache(maxsize=None)
+def _plan_train(b: int, h: int, w: int, cin: int, cskip: int, n: int):
+    """(M tiling, (splits1, kper1, splits2, kper2), workspace bytes) of K6 on
+    the block GEMM: conv1 (cin -> n) and conv2 (n -> n, + the cskip-channel
+    1x1 skip) share conv1's M tiling, as ``_plan_gemm``'s blocks do."""
+    p1, p2 = bf16_tile_plan(b, h, w, cin, 0, n), bf16_tile_plan(b, h, w, n, cskip, n)
+    tiles = (p1.mw, p1.box_h, p1.box_b, p1.tiles_h, p1.m_tiles)
+    nbytes = _build.workspace_bytes("gddim_resblock_train", b, h, w, cin, n,
+                                    max(p1.splits, p2.splits), p1.tiles_h, int(cskip > 0))
+    return tiles, (p1.splits, p1.kper, p2.splits, p2.kper), nbytes
+
+
 def _resblock_train_cuda(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, w2,
                          b2, w_skip, b_skip, mask, *, keep_prob, num_groups1, num_groups2, eps,
                          skip_rescale):
-    """K6 through gddim_resblock_train: f32 x and out, bf16 MMA operands."""
+    """K6 through gddim_resblock_train: f32 x and out, the block GEMM."""
     bf16, f32 = torch.bfloat16, torch.float32
     if x.dtype != f32:
         raise ValueError(f"fused_resblock_train: needs f32 x, got {x.dtype}")
     b, h, w, cin = x.shape
     n = w1.shape[-1]
     if not train_supported(x.shape, n) or (w_skip is None and cin != n):
-        raise ValueError(f"fused_resblock_train: unsupported channels {cin} -> {n}")
+        raise ValueError(f"fused_resblock_train: unsupported block {tuple(x.shape)} -> {n}")
     drop = keep_prob < 1.0
     # operands stay referenced until the launch: a cast's temporary must not be freed
     ops = [
@@ -1540,14 +1652,13 @@ def _resblock_train_cuda(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale, g
         _operand(mask, "mask", torch.int8, (b, h, w, n)) if drop else None,
     ]
     x_, t_, g1s, g1b, w1_, b1_, g2s, g2b, w2_, b2_, ws_, bs_, m_ = map(_build.ptr, ops)
-    s1, k1, s2, k2, nbytes = _plan("gddim_resblock_train", b, h, w, cin,
-                                   0 if w_skip is None else cin, n)
+    tiles, splits, nbytes = _plan_train(b, h, w, cin, 0 if w_skip is None else cin, n)
     work = torch.empty(nbytes, device=x.device, dtype=torch.uint8)
     out = torch.empty((b, h, w, n), device=x.device, dtype=f32)
     _build.launch(
         "gddim_resblock_train", x.device, x_, cin, t_, g1s, g1b, num_groups1, w1_, b1_, g2s, g2b,
         num_groups2, w2_, b2_, ws_, bs_, m_, 1.0 / keep_prob if drop else 1.0, b, h, w, n, eps,
-        _INV_SQRT2 if skip_rescale else 1.0, work.data_ptr(), s1, k1, s2, k2, out.data_ptr(),
+        _INV_SQRT2 if skip_rescale else 1.0, work.data_ptr(), *tiles, *splits, out.data_ptr(),
     )
     fused_resblock_train.launches += 1
     return out

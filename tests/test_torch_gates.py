@@ -149,10 +149,13 @@ def test_gates_at_the_main_path_and_the_small_widths(traced):
 
 
 @pytest.mark.parametrize("shape,cout,ok", [
-    ((4, 32, 32, 32), 32, False), ((4, 32, 32, 32), 64, True), ((4, 16, 16, 64), 64, True),
-    ((4, 8, 8, 48), 64, False), ((4, 8, 8, 128), 96, False)])
+    ((4, 32, 32, 32), 32, False), ((4, 32, 32, 32), 64, False), ((4, 16, 16, 64), 64, False),
+    ((4, 8, 8, 48), 64, False), ((4, 8, 8, 128), 96, False), ((4, 32, 32, 128), 128, True),
+    ((4, 16, 16, 384), 256, True), ((4, 4, 4, 512), 256, True)])
 def test_train_gate_follows_the_k6_tiles(shape, cout, ok):
-    """K6/K7 take Cin in 32-channel K slices and Cout in 64-channel N tiles."""
+    """K6/K7 take a block where every GEMM has a block-GEMM plan and both
+    3x3 wgrads a wgrad plan: Cin and Cout in 128-channel tiles (the dgrads
+    write Cin), so nf=32 and 64 run the plain composition."""
     assert t_rb.train_supported(shape, cout) is ok
 
 
