@@ -280,6 +280,20 @@ KERNEL_BOUND.update({"GN-stats": 1e-6, "GN2-sums": 1e-6})
 # activation, which may be several ulps of a small h.
 KERNEL_BOUND.update({"GN-apply": 1.0})
 GN_RESAMPLE_BOUND = 1e-2
+# K7's GroupNorm(+SiLU) backward alone (gn_bwd_kernel) against its plain
+# version on the same f32 inputs: f32 sums in another order, so dL/dv, the
+# per-sample partials, g's sums and dtemb within KERNEL_BOUND["GN-bwd"] of
+# their largest values; GN2's gumm (bf16) differing on at most
+# BF16_FLIP_SHARE of its values, each by one ulp or within the same bound
+# of max|o| (gumm_flips); the same bits on repeat
+KERNEL_BOUND.update({"GN-bwd": 1e-5})
+# GN2's folding pre-pass (gn_prepass_kernel): its fold (gn_fold_kernel's,
+# the same arithmetic; in training the fold it writes out, the same bits)
+# within GN-stats' bound of the plain fold, and its output against the
+# plain conversion from that fold one ulp or step apart on at most
+# BF16_FLIP_SHARE / S8_FLIP_SHARE of the values, as the pre-passes; the
+# same bits on repeat
+KERNEL_BOUND.update({"GN2-prepass": 1.0})
 # The per-eval temb product (one f32 addmm of the 76 blocks' Dense weights,
 # TF32 off) against each block's own projection computed exactly (float64):
 # the f32 rounding of 512-term dot products in cuBLAS's order, measured
@@ -335,6 +349,10 @@ for _per_eval, _n in ((PER_EVAL_INT8, 82), (PER_EVAL_INT8_FULL, 76)):
 # 76 conv2s (GN2's folding pre-pass; K4's and K9's conv1 read h as it is)
 for _per_eval in (PER_EVAL, PER_EVAL_FULL):
     _per_eval.update({"BF16-GEMM": 172, "BF16-prepass": 76, "K5-core": 10})
+# GN2's folding pre-pass, counted apart too: the 76 blocks' conv2 operand
+# in every block path (bf16, int8 static)
+for _per_eval in (PER_EVAL, PER_EVAL_FULL, PER_EVAL_INT8, PER_EVAL_INT8_FULL):
+    _per_eval["GN2-prepass"] = 76
 # GN1 in one launch (gn_apply_kernel): the 34 K2 and 36 K3 blocks' conv1
 # operand and the 10 attention blocks' h (in place of gn_stats_kernel and
 # the pre-pass), and with transition_impl 'full' K9's 6 GN1s and resamples
@@ -367,7 +385,10 @@ PER_STEP = {"K1": 23, "K6": TRAIN_BLOCKS, "K7": TRAIN_BLOCKS, "K8": 10,
             "wgrad": 2 * TRAIN_BLOCKS + SKIP_BLOCKS,
             # conv_gemm_kernel serves neither K6 nor K7 any more (the WMMA
             # wgrad kernel is gone)
-            "conv-GEMM": 0}
+            "conv-GEMM": 0,
+            # K7's GN2 and GN1 backwards; GN2's folding pre-pass in K6 and in
+            # K7's recompute (d with the dropout mask)
+            "GN-bwd": 2 * TRAIN_BLOCKS, "GN2-prepass": 2 * TRAIN_BLOCKS}
 # ... with training.fused_attn: the 10 attention blocks through K10 (K5's
 # attention core inside each; its GN statistics; its f32 projections on
 # conv_gemm_kernel)
@@ -459,6 +480,15 @@ KERNELS = {
     # amax's), its max_rel_err the largest share of values that differ
     "GN-apply": dict(name="gn_apply", route="cuda", source="gddim_torch/csrc/gn_apply.cu",
                      replaces="gddim_tpu/ops/resblock.py:600"),
+    # K7's GroupNorm(+SiLU) backwards (GN2's with the dropout mask, GN1's):
+    # _resblock_bwd_kernel's (resblock_bwd.py:209-222, :233-242), one
+    # cluster a sample
+    "GN-bwd": dict(name="gn_silu_bwd", route="cuda", source="gddim_torch/csrc/resblock_bwd.cu",
+                   replaces="gddim_tpu/ops/resblock_bwd.py:353"),
+    # GN2's folding pre-pass (conv2's operand in every block; K6/K7's d):
+    # gn_silu_tile of conv1's acc3 in the K2 / K3 Pallas kernels
+    "GN2-prepass": dict(name="gn2_prepass", route="cuda", source="gddim_torch/csrc/resblock.cu",
+                        replaces="gddim_tpu/ops/resblock.py:600"),
 }
 # main-path shapes of cld/accr_dcifar10 (H, channels in, channels out)
 SHAPES = {
@@ -1276,6 +1306,82 @@ def phase_gn_apply_kernels(results: dict, batch_results: dict, batches=(4, 16, 6
               f"{sum(r['bound_ms'] for r in cases):.4f} ms", flush=True)
 
 
+def phase_gn2_prepass_kernels(results: dict, batch_results: dict, batches=(4, 16, 64)):
+    """GN2's folding pre-pass (gn_prepass_kernel) alone at every block conv1
+    of the main path (its GN2 partial rows under conv1's tile plan), bf16
+    and int8 (static), at each batch; and its training form (d with the
+    dropout mask, the fold written out for K7) at the training shapes, B=4
+    and 128: its fold (gn_fold_kernel's, the same arithmetic, run alone)
+    against the plain fold, its output against the plain conversion from
+    that fold (one ulp or step apart on at most BF16_FLIP_SHARE /
+    S8_FLIP_SHARE of the values), the same bits on repeat, with device time
+    beside the fold alone's and the bound (h1 read once, the operand written
+    once). Library: none (no one PyTorch call folds partial sums). The
+    first batch's results go into the kernels line, the others' into
+    batch_results."""
+    from gddim_torch.ops import resblock as rb
+
+    inp = Inputs(13)
+    s1 = rb.act_scales_from_amax((4.0,))[0].cuda()
+    cases = [(B, mode, h, cin, n) for B in batches for mode in ("bf16", "int8")
+             for h, cin, n in conv1_shapes()]
+    cases += [(B, "train", h, cin, n) for B in (4, 128) for h, cin, n in SHAPES["K6"]]
+    sums = {}
+    for B, mode, h, cin, n in cases:
+        res = results if B == batches[0] and mode != "train" else batch_results
+        h1 = torch.randn((B, h, h, n), generator=inp.g, device="cuda") * 1.5 + 0.3
+        plan = (rb.s8_tile_plan if mode == "int8" else rb.bf16_tile_plan)(B, h, h, cin, 0, n)
+        part = rb.gn2_partials_reference(h1, plan)
+        gamma, beta = inp.vec(n, 1.0), inp.vec(n)
+        mask = ((torch.rand((B, h, h, n), generator=inp.g, device="cuda") < 0.9).to(torch.int8)
+                if mode == "train" else None)
+        kw = dict(num_groups=min(n // 4, 32), mode=mode, act_scale=s1 if mode == "int8" else None,
+                  mask=mask, keep_prob=0.9)
+        fused = lambda kw=kw: rb.gn2_prepass(h1, part, gamma, beta, **kw)  # noqa: E731
+        fold = lambda kw=kw: rb.gn2_prepass(h1, part, gamma, beta, fold_only=True,  # noqa: E731
+                                            **{**kw, "mode": "bf16", "act_scale": None,
+                                               "mask": None})
+        plain = lambda kw=kw: rb.gn2_prepass_reference(h1, part, gamma, beta, **kw)  # noqa: E731
+        got, again, folded = fused(), fused(), fold()
+        torch.cuda.synchronize()
+        ref = plain()
+        same = torch.equal(got[0], again[0])
+        int8 = mode == "int8"
+        # the fold against the plain fold (and, training, the one it writes
+        # out: the same bits), then the output against the plain conversion
+        # from that fold, as the pre-passes are held: near a value's zero,
+        # f32 last bits of the affine move it by many ulps of itself
+        frel = max(_rel(a, b) for a, b in zip(folded[1][:2], ref[1][:2]))
+        if got[1] is not None:
+            same = same and all(torch.equal(a, b) for a, b in zip(got[1][:2], folded[1][:2]))
+        want = rb.gn2_convert_reference(h1, *folded[1][:2], mode=mode, act_scale=kw["act_scale"],
+                                        mask=mask, keep_prob=0.9)
+        worst, share = _flips("int8" if int8 else "bf16", got[0], want)
+        ms, plain_ms = time_ms(fused), time_ms(plain, 20 if B < 128 else 3)
+        dev, fold_dev = graph_ms(fused), graph_ms(fold)
+        bd = bound(nbytes(h1, part, gamma, beta, mask, got[0]), {"f32": 8 * h1.numel()})
+        label = f"B={B} {mode} {h}x{h} {cin}->{n}, {plan.tiles_h} partial row(s)"
+        print(f"kernel GN2-prepass gn2_prepass [{label}]: the same bits on repeat (and as the "
+              f"fold alone): {same}; fold rel={frel:.3e} (bound {KERNEL_BOUND['GN-stats']:.0e}); "
+              f"values one {'step' if int8 else 'ulp'} apart {share:.2e}, largest {worst:.2f}; "
+              f"ms={ms:.4f} device ms={dev:.4f}, the fold alone {fold_dev:.4f}; "
+              f"plain_ms={plain_ms:.4f} bound_ms={bd[0]:.4f} (bytes; {bd[0] / dev:.1%} of it)",
+              flush=True)
+        _record(res, "GN2-prepass", label, worst, share, ms, plain_ms, bd,
+                err_is="steps" if int8 else "ulps", graph_ms=dev, fold_graph_ms=fold_dev)
+        t = sums.setdefault((mode, B), [0.0, 0.0, 0.0, 0])
+        for i, x in enumerate((dev, fold_dev, bd[0], 1)):
+            t[i] += x
+        flip_bound = S8_FLIP_SHARE if int8 else BF16_FLIP_SHARE
+        if not (same and worst <= KERNEL_BOUND["GN2-prepass"] and share <= flip_bound
+                and frel <= KERNEL_BOUND["GN-stats"]):
+            raise AssertionError(f"GN2-prepass {label}: repeat {same}, fold {frel:.3e}, "
+                                 f"{worst} apart on {share:.2e}")
+    for (mode, B), (dev, fold_dev, bd, k) in sums.items():
+        print(f"sum GN2-prepass {mode} B={B}: {k} sites, device {dev:.4f} ms, the fold alone "
+              f"{fold_dev:.4f} ms, bound {bd:.4f} ms [{card_line()}]", flush=True)
+
+
 def report_gn_routes():
     """GN1's route at each site of the main path: the route function's
     answer (ops/resblock.py:gn_apply_ctas, gn_resample_ctas) beside the
@@ -2007,6 +2113,7 @@ def phase_train_kernels(results: dict, batch_results: dict, B: int = 4):
     if not np.isfinite(rel) or rel > K6_RESIDUAL_BOUND:
         raise AssertionError(f"K6 residual: rel err {rel:.3e} > {K6_RESIDUAL_BOUND:.0e}")
     check_train_gemms(results, batch_results)
+    check_gn_bwd(results, batch_results)
 
     for b, s_, c in SHAPES["K8"] + SHAPES["K8_train"]:
         q, k, v = (torch.randn((b, s_, c), generator=inp.g, device="cuda") for _ in range(3))
@@ -2121,6 +2228,135 @@ def check_train_gemms(results: dict, batch_results: dict, batches=(4, 128)):
                   f"[{card_line()}]", flush=True)
 
 
+def gn_bwd_composition(dpre, v, stats, gamma, groups: int, mask, keep: float):
+    """K7's GN backward as PyTorch calls on NCHW tensors, the yardstick of
+    gn_silu_bwd (never used by the port): the SiLU (and dropout) backward
+    elementwise, then aten.native_group_norm_backward."""
+    sc, sh, mean, rstd = stats
+    b, c, h, w = v.shape
+    y = v * sc[:, :, None, None] + sh[:, :, None, None]
+    s = torch.sigmoid(y)
+    d = dpre if mask is None else dpre * (mask * (1.0 / keep))
+    dy = d * (s * (1.0 + y * (1.0 - s)))
+    return torch.ops.aten.native_group_norm_backward(dy, v, mean, rstd, gamma, b, c, h * w,
+                                                     groups, [True, True, True])
+
+
+def gumm_flips(got, ref, floor: float):
+    """(largest difference in bf16 ulps of ref among the values that differ
+    by more than ``floor``, share of values that differ at all): GN2's bf16
+    gumm against the plain version's. Where o = rstd * (dy * gamma - m1 -
+    yhat * m2) cancels to near zero, f32 last bits of the group means move
+    it by several ulps of itself; ``floor`` (GN_BWD_BOUND of max|o|) is the
+    f32 outputs' own bound."""
+    diff = (got.float() - ref.float()).abs()
+    big = diff > floor
+    steps = bf16_steps(got, ref)
+    return (steps[big].max().item() if big.any() else 0.0), (diff > 0).float().mean().item()
+
+
+def check_gn_bwd(results: dict, batch_results: dict, batches=(4, 128)):
+    """K7's GroupNorm(+SiLU) backward alone (gn_bwd_kernel) at every training
+    block shape: GN2's form on Cout (the dropout mask, g's sums, dtemb,
+    gumm in bf16) and GN1's on Cin (plus the skip's dx, or r * g for the
+    identity skip), against its plain version on the same f32 inputs, the
+    same bits on repeat, with device time (CUDA graph), its bound (every
+    input read once, every output written once), the share of the bound and
+    the composition's device time (gn_bwd_composition); B=4 in the kernels
+    line, B=128 (the training batch) in the sums. At the 32x32 GN1 sites of
+    256 and 384 channels, also the other plan: a 16-CTA cluster that holds
+    the whole sample."""
+    from gddim_torch.ops import resblock, resblock_bwd
+
+    r = 2 ** -0.5
+    for B in batches:
+        res = results if B == batches[0] else batch_results
+        inp = Inputs(12)
+        tot = {"dev": 0.0, "bound": 0.0, "lib": 0.0}
+        for h, cin, cout in SHAPES["K6"]:
+            for c, gn2 in ((cout, True), (cin, False)):
+                g = inp.g
+                act = lambda: torch.randn((B, h, h, c), generator=g, device="cuda")  # noqa: E731
+                groups = min(c // 4, 32)
+                v, dpre, other = act() + 0.2, act(), act()
+                gamma, beta = inp.vec(c, 1.0), inp.vec(c)
+                stats = resblock.gn_stats_reference(v, groups, 1e-6, gamma, beta)
+                mask = (torch.rand((B, h, h, c), generator=g, device="cuda") < 0.9).to(torch.int8)
+                if gn2:
+                    kw = dict(mask=mask, keep_prob=0.9, extra=other, out_bf16=True)
+                    form = f"GN2 {c}, mask, g's sums, dtemb"
+                else:
+                    kw = dict(add=other, add_scale=1.0 if cin != cout else r)
+                    form = f"GN1 {c}, + {'the skip dx' if cin != cout else 'r * g'}"
+                fused = lambda kw=kw, plan=None: resblock_bwd.gn_silu_bwd(  # noqa: E731
+                    dpre, v, *stats, gamma, num_groups=groups, plan=plan, **kw)
+                plain = lambda kw=kw: resblock_bwd.gn_silu_bwd_reference(  # noqa: E731
+                    dpre, v, *stats, gamma, num_groups=groups, **kw)
+                nchw = [t.permute(0, 3, 1, 2).contiguous() for t in (dpre, v, mask)]
+                library = lambda gn2=gn2, nchw=nchw: gn_bwd_composition(  # noqa: E731
+                    nchw[0], nchw[1], stats, gamma, groups, nchw[2] if gn2 else None, 0.9)
+                got, again = fused(), fused()
+                torch.cuda.synchronize()
+                want = plain()
+                same = all(a is None or torch.equal(a, b2) for a, b2 in zip(got, again))
+                rel, err, worst, share = 0.0, 0.0, 0.0, 0.0
+                for name, a, w in zip(resblock_bwd.GnBwd._fields, got, want):
+                    if w is None:
+                        continue
+                    if name == "out" and gn2:
+                        worst, share = gumm_flips(a, w, KERNEL_BOUND["GN-bwd"]
+                                                  * w.float().abs().max().item())
+                    else:
+                        rel = max(rel, _rel(a, w))
+                        err = max(err, (a.float() - w.float()).abs().max().item())
+                ms, plain_ms = time_ms(fused), time_ms(plain, 20 if B == 4 else 3)
+                dev, lib_dev = graph_ms(fused), graph_ms(library)
+                bd = bound(nbytes(dpre, v, stats, gamma, mask if gn2 else None, other, got),
+                           {"f32": 20 * v.numel()})
+                plan = resblock.gn_bwd_plan(B, h, h, c)
+                label = f"B={B} {h}x{h} {form}"
+                print(f"kernel GN-bwd gn_silu_bwd [{label}]: {plan.ctas} CTAs a sample, "
+                      f"{plan.held} of {plan.share} pixels held, {plan.smem} B; rel={rel:.3e} "
+                      f"(bound {KERNEL_BOUND['GN-bwd']:.0e})"
+                      + (f", gumm values that differ {share:.2e} (bound {BF16_FLIP_SHARE:.0e}), "
+                         f"those beyond {KERNEL_BOUND['GN-bwd']:.0e} of max|o| at most "
+                         f"{worst:.2f} ulps (bound 1)" if gn2 else "")
+                      + f"; same bits on repeat: {same}; ms={ms:.4f} device ms={dev:.4f} "
+                      f"plain_ms={plain_ms:.4f} bound_ms={bd[0]:.4f} (bytes; "
+                      f"{bd[0] / dev:.1%} of it); composition device ms={lib_dev:.4f} "
+                      f"({verdict(dev, lib_dev)})", flush=True)
+                _record(res, "GN-bwd", label, err, rel, ms, plain_ms, bd, time_ms(library),
+                        graph_ms=dev, library_graph_ms=lib_dev, bound_share=bd[0] / dev,
+                        gumm_flips=share if gn2 else None)
+                tot["dev"] += dev
+                tot["bound"] += bd[0]
+                tot["lib"] += lib_dev
+                if not (same and np.isfinite(rel) and rel <= KERNEL_BOUND["GN-bwd"]
+                        and worst <= 1 and share <= BF16_FLIP_SHARE):
+                    raise AssertionError(f"GN-bwd {label}: rel {rel:.3e}, gumm {worst} ulps on "
+                                         f"{share:.2e}, repeat {same}")
+                if h == 32 and c in (256, 384) and not gn2:
+                    # the other way to take the largest samples: a 16-CTA
+                    # (non-portable) cluster that holds the whole sample
+                    alt = resblock.gn_bwd_plan(B, h, h, c, ctas=16, held=64)
+                    out_alt = fused(plan=alt)
+                    torch.cuda.synchronize()
+                    ok = all(a is None or _rel(a, w) <= KERNEL_BOUND["GN-bwd"]
+                             for a, w in zip(out_alt, want))
+                    alt_dev = graph_ms(lambda: fused(plan=alt))
+                    print(f"  GN-bwd other plan [{label}]: {alt.ctas} CTAs holding the whole "
+                          f"sample ({alt.smem} B a CTA): device ms={alt_dev:.4f} against "
+                          f"{dev:.4f} ({plan.ctas} CTAs, {plan.held} of {plan.share} pixels "
+                          f"held, the rest read again); within bound: {ok}", flush=True)
+                    if not ok:
+                        raise AssertionError(f"GN-bwd {label}: the 16-CTA plan disagrees")
+                del v, dpre, other, mask, got, again, want, nchw
+        print(f"sum GN-bwd B={B}: {2 * len(SHAPES['K6'])} cases, device {tot['dev']:.4f} ms, "
+              f"bound {tot['bound']:.4f} ms ({tot['bound'] / tot['dev']:.1%} of it), "
+              f"composition device {tot['lib']:.4f} ms ({verdict(tot['dev'], tot['lib'])}) "
+              f"[{card_line()}]", flush=True)
+
+
 def time_train_blocks(card: str, batches=(4, 16, 64, 128)):
     """K6 and K7 device ms a call (CUDA graph of 20 calls) at every training
     block shape and batch, and their share of the bf16 peak; only the
@@ -2176,10 +2412,11 @@ def profile_train_step(card: str, train_step, state, images, label: str,
         traced = (time.perf_counter() - t0) * 1e3
     dev = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    total = sum(ms for _, ms, _ in dev)
+    total, busy = sum(ms for _, ms, _ in dev), busy_ms(prof)
     print(f"profile train step B={images.shape[1]} ({label}) [{card}]: wall {traced:.3f} ms, "
           f"host enqueue {enqueue:.3f} ms, device {total:.3f} ms in {sum(n for *_, n in dev)} "
-          f"kernels, idle share {1 - total / traced:.3f}", flush=True)
+          f"kernels (busy {busy:.3f} ms, their union), idle share {1 - busy / traced:.3f}",
+          flush=True)
     for key, ms, n in sorted(dev, key=lambda r: -r[1])[:15]:
         print(f"  {ms:9.3f} ms {n:6d}x {key[:110]}", flush=True)
     blocks = 0.0
@@ -2198,6 +2435,136 @@ def profile_train_step(card: str, train_step, state, images, label: str,
     if conv_gemm_gone and gone:
         raise AssertionError(f"train step ({label}): replaced kernels in the trace: {gone}")
     return total
+
+
+def phase_eval_span(card: str, batch: int = 64):
+    """The CLD eval at ``batch`` with transition_impl 'full' (bench.py's
+    path), bf16 then int8 static (calibrated on the card), in the order a,
+    b, b, a, each traced twice: kernels, device time as their sum and as the
+    union of their intervals (busy_ms), and GN2's pre-pass and the block
+    GEMM's totals. Uses only what a parent's checkout has too (copy this
+    file there to run it on the parent)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gddim_torch.cli import build_model, calibrate_int8
+    from gddim_torch.configs import get_config
+    from gddim_torch.math.cld import CLD
+    from gddim_torch.models.wrappers import make_cld_eps_fn
+
+    config = get_config("cld/accr_dcifar10")
+    config.model.transition_impl = "full"
+    config.model.conv_impl = "fused_int8"
+    model = build_model(config, "cuda", None, seed=0)
+    calibrate_int8(config, model, seed=0)
+    eps_apply = make_cld_eps_fn(CLD.from_config(config))
+    u, t = eps_inputs(batch)
+    for name, int8 in (("bf16", False), ("int8", True), ("int8", True), ("bf16", False)):
+        model.int8 = int8
+        for _ in range(3):
+            eps_apply(model, u, t)
+        torch.cuda.synchronize()
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                eps_apply(model, u, t)
+                torch.cuda.synchronize()
+            dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+            pre = [(m, n) for k, m, n in dev if "gn_prepass_kernel" in k]
+            print(f"span {name} B={batch} full [{card}]: kernels {sum(n for *_, n in dev)}, sum "
+                  f"{sum(m for _, m, _ in dev):.3f} ms, union {busy_ms(prof):.3f} ms; "
+                  f"gn_prepass_kernel {sum(m for m, _ in pre):.3f} ms in {sum(n for _, n in pre)};"
+                  f" block_gemm_kernel {sum(m for k, m, _ in dev if 'block_gemm_kernel' in k):.3f}"
+                  f" ms", flush=True)
+    del model
+
+
+def phase_bits(save: str, ref: str | None):
+    """What GN2's pre-pass makes, through the blocks that consume it, on
+    seeded inputs: one eps evaluation at B=4 and 64 (transition_impl 'full',
+    bf16 and int8 static: all 76 GN2 pre-passes of an eval, every site and
+    both sampling modes) and K6's forward at every training shape (B=4; the
+    pre-pass's training form), saved to ``save``; with ``ref`` (the file of
+    another tree, e.g. the parent's), each tensor bit for bit against it.
+    Uses only what a parent's checkout has too."""
+    from gddim_torch.cli import build_model, calibrate_int8
+    from gddim_torch.configs import get_config
+    from gddim_torch.math.cld import CLD
+    from gddim_torch.models.wrappers import make_cld_eps_fn
+    from gddim_torch.ops import resblock
+
+    config = get_config("cld/accr_dcifar10")
+    config.model.transition_impl = "full"
+    config.model.conv_impl = "fused_int8"
+    model = build_model(config, "cuda", None, seed=0)
+    calibrate_int8(config, model, seed=0)
+    eps_apply = make_cld_eps_fn(CLD.from_config(config))
+    out = {}
+    for batch in (4, 64):
+        u, t = eps_inputs(batch)
+        for name, int8 in (("bf16", False), ("int8", True)):
+            model.int8 = int8
+            out[f"eps {name} B={batch}"] = eps_apply(model, u, t)
+    del model
+    inp = Inputs(21)
+    for h, cin, cout in SHAPES["K6"]:
+        args, mask, _ = train_block_inputs(inp, 4, h, cin, cout)
+        kw = dict(keep_prob=0.9, num_groups1=min(cin // 4, 32), num_groups2=min(cout // 4, 32))
+        out[f"K6 {h}x{h} {cin}->{cout}"] = resblock.fused_resblock_train(*args, mask, **kw)
+    torch.cuda.synchronize()
+    torch.save({k: v.cpu() for k, v in out.items()}, save)
+    print(f"bits: {len(out)} tensors saved to {save}", flush=True)
+    if ref:
+        want = torch.load(ref)
+        differ = [k for k, v in out.items() if not torch.equal(v.cpu(), want[k])]
+        print(f"bits: the same bits as {ref}: {len(out) - len(differ)} of {len(out)}; "
+              f"differ: {differ}", flush=True)
+        if differ:
+            raise AssertionError(f"bits differ from {ref}: {differ}")
+
+
+def phase_gn_bwd_plans(card: str, batch: int = 128):
+    """K7's GN backward at every GN site of the training shapes, each form,
+    under every cluster size and a few held counts (the whole share where it
+    fits, and what 113, 74 and 54 KB hold): device ms against the bound, the
+    plan gn_bwd_plan picks marked *."""
+    from gddim_torch.ops import resblock as rb, resblock_bwd as rbw
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    seen = set()
+    for h, cin, cout in SHAPES["K6"]:
+        for c, gn2 in ((cout, True), (cin, False)):
+            if (h, c, gn2) in seen:
+                continue
+            seen.add((h, c, gn2))
+            v, dpre, other = (torch.randn((batch, h, h, c), generator=g, device="cuda")
+                              for _ in range(3))
+            groups = min(c // 4, 32)
+            gamma, beta = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+            stats = rb.gn_stats_reference(v, groups, 1e-6, gamma, beta)
+            mask = (torch.rand((batch, h, h, c), generator=g, device="cuda") < 0.9).to(torch.int8)
+            kw = (dict(mask=mask, keep_prob=0.9, extra=other, out_bf16=True) if gn2
+                  else dict(add=other, add_scale=1.0))
+            hw, default = h * h, rb.gn_bwd_plan(batch, h, h, c)
+            bd = 1e3 * (nbytes(dpre, v, other, mask if gn2 else None)
+                        + v.numel() * (2 if gn2 else 4)) / HBM
+            line = []
+            for ctas in rb.GN_BWD_CLUSTERS:
+                if ctas > hw or c % ctas:
+                    continue
+                share, most = -(-hw // ctas), rb._gn_bwd_most_held(c)
+                helds = {min(share, most)} | {min(share, k) for k in (
+                    rb._gn_bwd_most_held(c, cap) for cap in (113 * 1024, 74 * 1024, 54 * 1024))
+                    if k > 0}
+                for held in sorted(helds):
+                    plan = rb.gn_bwd_plan(batch, h, h, c, ctas=ctas, held=held)
+                    ms = graph_ms(lambda plan=plan: rbw.gn_silu_bwd(
+                        dpre, v, *stats, gamma, num_groups=groups, plan=plan, **kw))
+                    line.append(f"{ctas}/{held}{'*' if plan == default else ''} "
+                                f"{plan.smem // 1024}K {ms:.4f} ({bd / ms:.0%})")
+            print(f"plans GN{'2' if gn2 else '1'} {h}x{h}x{c} B={batch} bound {bd:.4f} ms "
+                  f"[{card}]: " + "; ".join(line), flush=True)
+            del v, dpre, other, mask
 
 
 def phase_train_time(card: str):
@@ -2429,7 +2796,8 @@ DEVICE_COUNTED = {"S8-GEMM": "block_gemm_kernel<int8>", "S8-prepass": "prepass_k
                   "BF16-GEMM": "block_gemm_kernel<bf16>", "BF16-prepass": "prepass_kernel<bf16>",
                   "K5-core": "attention_wgmma_kernel", "GN-stats": "gn_stats_kernel",
                   "GN-apply": "gn_apply_kernel", "train-GEMM": "block_gemm_kernel<bf16, train>",
-                  "wgrad": "wgrad_kernel", "conv-GEMM": "conv_gemm_kernel"}
+                  "wgrad": "wgrad_kernel", "conv-GEMM": "conv_gemm_kernel",
+                  "GN-bwd": "gn_bwd_kernel", "GN2-prepass": "gn_prepass_kernel"}
 
 
 def reset_counts():
@@ -2702,6 +3070,26 @@ def phase_blur(batch: int, card: str):
     return launches
 
 
+def busy_ms(prof) -> float:
+    """Device busy time of a torch.profiler trace: the union of its kernels'
+    intervals. A programmatic dependent launch (GN2's pre-pass after conv1,
+    conv2 after the pre-pass) starts before the kernel before it ends and
+    waits, so the kernels' own times, summed, count that overlap twice."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
 def _profile(name: str, run, batch: int, card: str, evals: int):
     """Wall of ``run()`` (host clock to a synchronize, mean of ``evals``), and
     one traced run under torch.profiler: host enqueue, device time, idle
@@ -2728,11 +3116,12 @@ def _profile(name: str, run, batch: int, card: str, evals: int):
            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total = sum(ms for _, ms, _ in dev)
     top = sorted(dev, key=lambda r: -r[1])[:12]
+    busy = busy_ms(prof)
     print(f"profile {name} eval B={batch} [{card}]: wall {wall:.3f} ms (mean of {evals}); "
           f"traced eval: wall {traced:.3f} ms, host enqueue {enqueue:.3f} ms, device "
-          f"{total:.3f} ms in {sum(n for *_, n in dev)} kernels, idle share "
-          f"{1 - total / traced:.3f}; launches {({k: n for k, n in read_counts().items() if n})}",
-          flush=True)
+          f"{total:.3f} ms in {sum(n for *_, n in dev)} kernels (busy {busy:.3f} ms, their "
+          f"union), idle share {1 - busy / traced:.3f}; launches "
+          f"{({k: n for k, n in read_counts().items() if n})}", flush=True)
     for key, ms, n in top:
         print(f"  {ms:8.3f} ms {n:5d}x {key[:110]}", flush=True)
     for name in ("gn_apply_kernel", "gn_stats_kernel", "prepass_kernel", "gn_prepass_kernel",
@@ -2993,9 +3382,16 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="smoke run of gddim_torch on one CUDA card")
     # opt-in phases: profile, ab, train_time (K6/K7 device time and a traced
     # B=128 step; a parent's checkout runs it too), train_gemms (the training
-    # GEMMs alone, as the kernels phase runs them), train_ab (the loss curves)
+    # GEMMs alone, as the kernels phase runs them), gn_bwd and gn2_prepass
+    # (K7's GN backward and GN2's pre-pass alone, likewise), gn_bwd_plans
+    # (the GN backward under every cluster plan), eval_span (the B=64 eval's
+    # device time and GN2's pre-pass; a parent's checkout runs it too), bits
+    # (outputs behind GN2's pre-pass, saved and held against another tree's),
+    # train_ab (the loss curves)
     parser.add_argument("--phases", default="build,kernels,eps,gates,sample,int8,blur,train")
     parser.add_argument("--batch", type=int, default=16, help="sampling batch")
+    parser.add_argument("--bits", default=None, help="phase bits: the file to save to")
+    parser.add_argument("--bits-ref", default=None, help="phase bits: another tree's file")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -3036,6 +3432,7 @@ def main(argv=None):
         phase_attn_kernels(results, card)
         phase_gn_kernels(results, batch_results)
         phase_gn_apply_kernels(results, batch_results)
+        phase_gn2_prepass_kernels(results, batch_results)
         report_gn_routes()
         print_sums(results, batch_results)
         print_block_sums(results, batch_results)
@@ -3073,6 +3470,16 @@ def main(argv=None):
         counts.update({k: n for k, n in train_counts.items() if k not in counts})
     if "train_gemms" in phases and "kernels" not in phases:
         check_train_gemms({}, {})
+    if "gn_bwd" in phases and "kernels" not in phases:
+        check_gn_bwd({}, {})
+    if "gn_bwd_plans" in phases:
+        phase_gn_bwd_plans(card)
+    if "eval_span" in phases:
+        phase_eval_span(card)
+    if "bits" in phases:
+        phase_bits(args.bits or "bits.pt", args.bits_ref)
+    if "gn2_prepass" in phases and "kernels" not in phases:
+        phase_gn2_prepass_kernels({}, {})
     if "train_time" in phases:
         phase_train_time(card)
     if "train_ab" in phases:

@@ -155,6 +155,15 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _F, _F, _P, _P,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ],
+    # gddim_gn_bwd(dpre, mask, inv_keep, v, sc, sh, mean, rstd, gamma, add, add_scale, extra,
+    #   out, out_bf16, part_s, part_b, part_extra, chan_out, B, HW, C, groups, ctas, share,
+    #   held, smem, stream)
+    "gddim_gn_bwd": [_P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # gddim_gn2_prepass(h1, part, parts, groups, gamma, beta, eps, mode, qs, mask, inv_keep,
+    #   B, HW, N, fold_only, out, scale, shift, mean, rstd, stream)
+    "gddim_gn2_prepass": [_P, _P, _I, _I, _P, _P, _F, _I, _P, _P, _F, _I, _I, _I, _I, _P, _P, _P,
+                          _P, _P, _P],
     # gddim_wgrad(a, g, B, H, W, C, N, taps, mw, box_h, box_b, splits, per, work, dw, stream)
     "gddim_wgrad": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # gddim_flash_attention(q, k, v, o, B, S, C, qt, bf16, scale, stream)

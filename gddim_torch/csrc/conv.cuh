@@ -174,8 +174,10 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t strea
 // block pre-pass, GN2's folding pre-pass, K7's rounding of the cotangent),
 // K5's attention core, the GroupNorm statistics kernel, the GN1 kernel
 // (gn_apply.cu, both variants), K7's weight-gradient kernel,
-// conv_gemm_kernel (resblock.cu), and the block GEMM's launches in the
-// training blocks (K6, K7) apart from the bf16 ones of the sampling path.
+// conv_gemm_kernel (resblock.cu), the block GEMM's launches in the
+// training blocks (K6, K7) apart from the bf16 ones of the sampling path,
+// K7's GroupNorm backward (resblock_bwd.cu), and GN2's folding pre-pass
+// (gn_prepass_kernel, every mode; counted as its mode's pre-pass too).
 enum Counted {
   COUNT_GEMM_S8 = 0,
   COUNT_PREPASS_S8 = 1,
@@ -187,7 +189,9 @@ enum Counted {
   COUNT_WGRAD = 7,
   COUNT_CONV_GEMM = 8,
   COUNT_GEMM_TRAIN = 9,
-  N_COUNTED = 10
+  COUNT_GN_BWD = 10,
+  COUNT_GN2_PREPASS = 11,
+  N_COUNTED = 12
 };
 void count_launch(Counted kernel);
 

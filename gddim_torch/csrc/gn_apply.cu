@@ -137,36 +137,6 @@ __host__ __device__ inline RsRows rs_rows(int hin, int win, int up, int ctas, in
   return g;
 }
 
-// one 16-byte asynchronous copy from device memory into shared memory
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-// wait until at most `pending` (0..3) of this thread's commit groups are in flight
-__device__ __forceinline__ void cp_async_wait_chunk(int pending) {
-  switch (pending) {
-    case 3: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
-  }
-}
-
-// the cluster barrier in two halves: arrive (this thread's earlier memory
-// operations released to the cluster), and wait for every thread's arrival
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
-}
-
 // max of v over the CTA's threads, into *out (red: GA_THREADS / 32 floats);
 // thread 0 writes
 __device__ __forceinline__ void block_max(float v, float* red, float* out) {

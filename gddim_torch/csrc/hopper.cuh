@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels (conv3x3.cu,
-// block_gemm.cu, attnblock.cu, wgrad.cu): mbarriers, TMA tile loads, wgmma shared-memory descriptors
-// and products, and the tensor-map encoder.
+// block_gemm.cu, attnblock.cu, resblock_bwd.cu) and the cluster passes
+// (gn_apply.cu, resblock_bwd.cu): mbarriers, TMA tile loads, wgmma
+// shared-memory descriptors and products, the tensor-map encoder, 16-byte
+// asynchronous copies and the cluster barrier's two halves.
 
 #pragma once
 
@@ -177,6 +179,35 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
       : "l"(da), "l"(db), "r"(accumulate), "n"(TNSP_B));
 }
 
+// one 16-byte asynchronous copy from device memory into shared memory
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// wait until at most `pending` (0..3) of this thread's commit groups are in flight
+__device__ __forceinline__ void cp_async_wait_chunk(int pending) {
+  switch (pending) {
+    case 3: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+  }
+}
+
+// the cluster barrier in two halves: arrive (this thread's earlier memory
+// operations released to the cluster), and wait for every thread's arrival
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,

@@ -628,6 +628,16 @@ struct GnTrain {
 // mask / keep), as the TPU kernel drops a2 before rounding it, and CTA 0 of
 // each sample writes the fold out when t.scale is set. grid (chunks, B), 256
 // threads, fold_smem(c) bytes.
+//
+// What bounds it on the H100: bytes at 32x32 and 16x16 (h1 f32 read, the
+// operand written; h1 mostly in L2, written by conv1 just before), the
+// launch and the fold (dependent loads and three barriers, ~3 us) at 8x8 and
+// 4x4. The loop divides nowhere: the thread's channel vector advances by
+// 256 vectors a step (a 64-bit remainder a vector is a software division
+// per 8 values), and the int8 scale's inverse is taken once a thread; the
+// thread's first vector of h1 is loaded before the fold, so that its
+// latency overlaps the fold's. Each element's arithmetic is convert8's and
+// quantize8's.
 template <typename TQ, bool TRAIN = false>
 __global__ void __launch_bounds__(256)
 gn_prepass_kernel(const float* __restrict__ h1, int c, int hw, const GnFold f, int batch,
@@ -635,6 +645,12 @@ gn_prepass_kernel(const float* __restrict__ h1, int c, int hw, const GnFold f, i
   extern __shared__ float psm[];
   const int b = blockIdx.y;
   float* gs = psm + 2 * c;
+  const long vecs = (long)hw * c / 8, per = (vecs + gridDim.x - 1) / gridDim.x;
+  const long v1 = vecs < (blockIdx.x + 1) * per ? vecs : (blockIdx.x + 1) * per;
+  const long base = (long)b * hw * c;
+  long v = blockIdx.x * per + threadIdx.x;
+  Pack8<float> pk;
+  if (v < v1) ld8(pk, h1 + base + v * 8);  // in flight over the fold
   fold_affine(f, batch, b, c, hw, psm, psm + c, gs);
   if constexpr (TRAIN) {
     if (blockIdx.x == 0 && t.scale != nullptr) {
@@ -648,13 +664,14 @@ gn_prepass_kernel(const float* __restrict__ h1, int c, int hw, const GnFold f, i
       }
     }
   }
-  const long vecs = (long)hw * c / 8, per = (vecs + gridDim.x - 1) / gridDim.x;
-  const long v1 = vecs < (blockIdx.x + 1) * per ? vecs : (blockIdx.x + 1) * per;
-  const long base = (long)b * hw * c;
-  for (long v = blockIdx.x * per + threadIdx.x; v < v1; v += 256) {
-    const int ch = (int)(v * 8 % c);
-    Pack8<float> pk;
-    ld8(pk, h1 + base + v * 8);
+  const int cv = c / 8, step = 256 % cv;
+  int cvec = (int)(v % cv);  // the channel vector of v, advanced by `step` a vector
+  const float inv_static = (!TRAIN && q.qs != nullptr) ? 1.0f / *q.qs : 0.0f;
+  for (bool first = true; v < v1; v += 256, first = false) {
+    const int ch = 8 * cvec;
+    cvec += step;
+    if (cvec >= cv) cvec -= cv;
+    if (!first) ld8(pk, h1 + base + v * 8);
     float x[8];
     unpack8(pk, x);
     if constexpr (TRAIN) {
@@ -668,6 +685,9 @@ gn_prepass_kernel(const float* __restrict__ h1, int c, int hw, const GnFold f, i
         if (t.mask != nullptr) x[j] *= (float)m8[j] * t.inv_keep;
       }
       st8((bf16*)(out + base + v * 8), x);
+    } else if constexpr (std::is_same<TQ, int8_t>::value) {
+      *reinterpret_cast<uint2*>(out + base + v * 8) =
+          quantize8(x, psm + ch, psm + c + ch, 1, inv_static, q, b);
     } else {
       convert8(x, psm + ch, psm + c + ch, 1, q, b, out + base + v * 8);
     }
@@ -725,7 +745,10 @@ int gn2_prepass_run(bool int8, const float* h1, const GnFold& f, int batch, int 
     gn_prepass_kernel<bf16><<<grid, 256, smem, st>>>(h1, n, hw, f, batch, Int8Args{}, (bf16*)out,
                                                      GnTrain{});
   const int err = (int)cudaGetLastError();
-  if (!err) count_launch(int8 ? COUNT_PREPASS_S8 : COUNT_PREPASS_BF16);
+  if (!err) {
+    count_launch(int8 ? COUNT_PREPASS_S8 : COUNT_PREPASS_BF16);
+    count_launch(COUNT_GN2_PREPASS);
+  }
   return err;
 }
 
@@ -989,7 +1012,10 @@ int gn2_train_prepass_launch(const float* u, const float* part, int parts, int g
   gn_prepass_kernel<bf16, true><<<dim3(gn_prepass_chunks(batch, hw, n), batch), 256,
                                   fold_smem(n), st>>>(u, n, hw, f, batch, Int8Args{}, (bf16*)d, t);
   const int err = (int)cudaGetLastError();
-  if (!err) count_launch(COUNT_PREPASS_BF16);
+  if (!err) {
+    count_launch(COUNT_PREPASS_BF16);
+    count_launch(COUNT_GN2_PREPASS);
+  }
   return err;
 }
 
@@ -1249,6 +1275,37 @@ long long gddim_resblock_workspace(int batch, int h, int w, int cin, int n, int 
                                    int parts) {
   return (long long)carve_gemm(nullptr, batch, (long)batch * h * w, cin, n, splits, parts, 2)
       .bytes;
+}
+
+// GN2's folding pre-pass alone (gn_prepass_kernel, as the blocks launch it):
+// f32 h1 (B, hw, n) and conv1's partial sums part (2, B, parts, n) -> out
+// (B, hw, n): mode 0 bf16, 1 int8 by the static scale *qs, 2 the training
+// blocks' d (bf16, times mask / keep when mask is set) with the fold written
+// to scale, shift (B, n) and mean, rstd (B, groups) when scale is set. With
+// fold_only, the fold alone (gn_fold_kernel, one CTA a sample) into scale,
+// shift: out untouched.
+int gddim_gn2_prepass(const void* h1, const void* part, int parts, int groups, const void* gamma,
+                      const void* beta, float eps, int mode, const void* qs, const void* mask,
+                      float inv_keep, int batch, int hw, int n, int fold_only, void* out,
+                      void* scale, void* shift, void* mean, void* rstd, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (groups < 1 || groups > GN_MAX_GROUPS || n % groups || n % 8 || mode < 0 || mode > 2 ||
+      (mode == 1) != (qs != nullptr) || (mode != 2 && mask) ||
+      (fold_only && (scale == nullptr || shift == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const GnFold f = {(const float*)part, parts, groups, (const float*)gamma, (const float*)beta, eps};
+  const float* x = (const float*)h1;
+  if (fold_only) {
+    gn_fold_kernel<<<batch, THREADS_GN, fold_smem(n), st>>>(f, batch, n, hw, (float*)scale,
+                                                           (float*)shift);
+    return (int)cudaGetLastError();
+  }
+  if (mode < 2) return gn2_prepass_run(mode == 1, x, f, batch, hw, n, (const float*)qs, nullptr,
+                                       nullptr, nullptr, out, st);
+  return gn2_train_prepass_launch(x, (const float*)part, parts, groups, (const float*)gamma,
+                                  (const float*)beta, eps, (const int8_t*)mask, inv_keep, batch,
+                                  hw, n, (float*)scale, (float*)shift, (float*)mean, (float*)rstd,
+                                  out, st);
 }
 
 // K2 (x0, identity or 1x1 skip on x0), K3 (x0 and x1 as the logical concat)

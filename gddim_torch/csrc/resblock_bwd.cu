@@ -28,15 +28,17 @@
 //                           of a stride-1 SAME 3x3 conv is the same conv of
 //                           the cotangent with the taps flipped and (Cin,
 //                           Cout) swapped, W2[8 - t] read as stored (K-major)
-//   7  gn_bwd_kernel        dropout + SiLU + GN2 backward -> gumm =
+//   7  gn_bwd_kernel<true>  dropout + SiLU + GN2 backward -> gumm =
 //                           bf16(dL/du); dtemb_proj = sum over pixels of gu;
-//                           per-sample partials of dGN2 s/b and of sum(g)
+//                           per-sample partials of dGN2 s/b and of sum(g):
+//                           a cluster a sample holds (dL/dd, u) in shared
+//                           memory, one read of each input
 //   8  block GEMM (dgrad)   ga1 = conv(gumm, W1 flipped/transposed)
 //   9  block GEMM (dgrad)   (1x1 skip only) dx = gmm @ W_skip^T. The skip's
 //                           dgrad cannot share step 8's accumulator: ga1
 //                           still goes through the GN1 backward, the skip
 //                           term not.
-//   10 gn_bwd_kernel        SiLU + GN1 backward of ga1, plus the skip term
+//   10 gn_bwd_kernel<false> SiLU + GN1 backward of ga1, plus the skip term
 //                           (step 9's dx, or r * g for the identity) -> dx;
 //                           per-sample partials of dGN1 s/b
 //   11 wgrad_kernel x3      dW2 = sum_pixels shift_t(d)^T gmm, dW1 = sum
@@ -52,13 +54,14 @@
 //
 // What bounds it on the H100: the five GEMMs (recomputed conv1, two dgrads,
 // two 3x3 wgrads) are 5/2 of the forward's tensor-core work and dominate at
-// 32x32 and 16x16; the GN-backward passes read each activation twice (L2
-// serves the second read at these sizes). The convs and dgrads run on the
+// 32x32 and 16x16; the GN-backward passes are bytes (each input read once,
+// the sample held in a cluster's shared memory). The convs and dgrads run on the
 // block GEMM (block_gemm.cu), the wgrads on wgrad_kernel below: both wgmma
 // fed by a TMA ring, the activation arithmetic done once in the passes that
 // round each operand, where conv_gemm_kernel and the WMMA wgrad they replace
 // recomputed GN, SiLU and the mask for every tap.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,119 +72,423 @@
 #include "conv.cuh"
 #include "hopper.cuh"
 
+namespace cgr = cooperative_groups;
+
 namespace {
 
-constexpr int THREADS_BWD = 256;  // block_sum256 (conv.cuh)
-
-__device__ __forceinline__ float sigmoidf_(float v) { return 1.0f / (1.0f + __expf(-v)); }
-
 // ---------------------------------------------------------------------------
-// GroupNorm(+SiLU) backward of one (group, sample). grid (G, B), 256 threads.
+// GroupNorm(+SiLU) backward of one sample, steps 7 and 10 of K7: the
+// backward of _resblock_bwd_kernel's GN2+SiLU with the dropout mask
+// (gddim_tpu/ops/resblock_bwd.py:209-222) and GN1+SiLU (:233-242).
 //
-// For each element of the group: y = v*sc + sh, s = sigmoid(y),
-// dy = dpre [* mask/keep] * s*(1 + y*(1 - s)), yhat = (v - mean)*rstd,
-// dyh = dy*gamma. Pass 1 sums dyh and dyh*yhat over the group, and per
-// channel dy*yhat (dGN scale) and dy (dGN bias); pass 2 makes
-// o = rstd*(dyh - mean(dyh) - yhat*mean(dyh*yhat)) [+ add_scale*add],
-// writes it to out (f32) and or out_bf16 (rounded once: K7's gumm), and per
-// channel sums it (dtemb_proj, when chan_out is set). Each thread owns one
-// channel of the group and a stride of pixels, so the per-channel sums are
-// register sums reduced across pixel rows through shared memory, in a fixed
-// order.
+// For each element: y = v*sc + sh, s = sigmoid(y), dy = dpre [* mask/keep] *
+// s*(1 + y*(1 - s)), yhat = (v - mean)*rstd. Per channel: dGN scale = sum
+// dy*yhat, dGN bias = sum dy (and GN2's sum of the cotangent g, for db2 and
+// db_skip). Per group: m1 = mean of dy*gamma, m2 = mean of dy*gamma*yhat,
+// which are sum_c gamma_c * (channel sums) / n. Then o = rstd*(dy*gamma - m1
+// - yhat*m2) [+ add_scale*add], written f32 (GN1's dx) or bf16 (GN2's gumm,
+// rounded once), and GN2 sums o per channel (dtemb_proj).
+//
+// What bounds it on the H100: bytes. Each input read once and each output
+// written once is 15 B an element for GN2 (dpre, u f32, the mask, g, gumm
+// bf16) and 16 for GN1 (dpre, x, add, dx f32): at B = 128 over the 70
+// blocks of cld/accr_dcifar10, 18.8 GB, ~5.6 ms at 3.35 TB/s. The design:
+// gn_bwd_kernel<GN2>, grid (ctas, B), one cluster of `ctas` CTAs a sample
+// (1-16, a pure function of the shape: ops/resblock.py:gn_bwd_plan):
+//   1. CTA r brings dpre and v of the first `held` of its pixels [r hw /
+//      ctas, (r + 1) hw / ctas) into shared memory by 16-byte asynchronous
+//      copies, all in flight at once in up to four commit groups, and reads
+//      the rest from device memory in both passes. The plan holds what two
+//      CTAs an SM hold, in one wave of CTAs: at B = 128 the SMs' shared
+//      memory holds a quarter of a 32x32 layer's (dpre, v) at once, and
+//      holding samples whole (16-CTA clusters, more waves) measured slower
+//      than reading the rest again (cluster scheduling, each CTA's fixed
+//      barriers).
+//   2. Pass 1, a commit group at a time as it lands: thread (lane, v) takes
+//      the 8 channels of vector v along the channel row (16-byte accesses)
+//      of pixels lane, lane + lanes, ...; the mask and g come straight from
+//      device memory, two pixels' loads in flight a thread; dy replaces dpre
+//      in shared memory. The lanes' per-channel sums meet in lane order.
+//   3. The CTAs' sums meet through distributed shared memory in rank order;
+//      every CTA folds every channel and group itself (the same bits in
+//      each: no float atomics, and two runs give the same bits).
+//   4. Pass 2 reads dy and v from shared memory (the add term from device
+//      memory) and writes o; GN2's sums of o meet as in 3, each CTA
+//      totalling a slice of the channels.
+constexpr int GB_THREADS = 256;
+constexpr int GB_CHUNKS = 4;               // commit groups of a CTA's copies, at most
+constexpr int GB_CHUNK_BYTES = 16 * 1024;  // ... one a 16 KB of the share
+constexpr int GB_U = 2;                    // pixel vectors a thread loads ahead
+constexpr int GB_PEERS = 8;                // peers' sums in flight a thread
+constexpr int GB_MAX_CTAS = 16;
+constexpr int GB_MAX_GROUPS = 32;
+constexpr int GB_SMEM = 227 * 1024;
+
+__host__ __device__ inline long gb_align(long n) { return (n + 127) & ~127L; }
+
+// Shared memory of one CTA holding `held` pixels of c channels (ops/
+// resblock.py:gn_bwd_smem mirrors it): dpre (then dy) and v of the held
+// pixels, f32; the CTA's per-channel sums (dy*yhat, dy, g, o: 4 c floats,
+// read by the peers); the lanes' buffer (their sums, then the cluster's
+// per-channel totals); the groups' m1 and m2.
+struct GbLayout {
+  long v, cs, red, grp, total;
+};
+__host__ __device__ inline GbLayout gb_layout(int c, long held) {
+  const int lanes = GB_THREADS / (c / 8);
+  GbLayout l;
+  l.v = gb_align(4 * held * c);
+  l.cs = l.v + gb_align(4 * held * c);
+  l.red = l.cs + gb_align(16L * c);
+  l.grp = l.red + gb_align(4L * (lanes > 2 ? lanes : 2) * c);
+  l.total = l.grp + gb_align(8L * GB_MAX_GROUPS);
+  return l;
+}
+
 struct GnBwdArgs {
-  const float* dpre;  // (M, C) gradient w.r.t. the GN+SiLU(+dropout) output
-  const int8_t* mask; // (M, C) or null
+  const float* dpre;   // (B, HW, C) gradient w.r.t. the GN+SiLU(+dropout) output
+  const int8_t* mask;  // (B, HW, C) or null (GN2)
   float inv_keep;
-  const float* v;     // (M, C) GN input
-  const float* sc;    // (B, C) forward affine: y = v*sc + sh
+  const float* v;      // (B, HW, C) the GN input
+  const float* sc;     // (B, C) forward affine: y = v*sc + sh
   const float* sh;
-  const float* mean;  // (B, G)
+  const float* mean;   // (B, G)
   const float* rstd;
   const float* gamma;  // (C,)
-  const float* add;   // (M, C) added to the output, or null
+  const float* add;    // (B, HW, C) added to o times add_scale, or null (GN1)
   float add_scale;
-  const float* extra;  // (M, C) summed per (sample, channel) into part_extra, or null
-  float* out;         // (M, C) f32, or null; may alias dpre or add
-  bf16* out_bf16;     // (M, C) bf16, or null
-  float* part_s;      // (B, C) sum over pixels of dy*yhat
-  float* part_b;      // (B, C) sum over pixels of dy
-  float* part_extra;  // (B, C)
-  float* chan_out;    // (B, C) sum over pixels of the output, or null
+  const float* extra;  // (B, HW, C) summed per (sample, channel) into part_extra (GN2)
+  float* out;          // (B, HW, C) f32 o (GN1); may alias add
+  bf16* out_bf16;      // (B, HW, C) bf16 o (GN2)
+  float* part_s;       // (B, C) sum over pixels of dy*yhat
+  float* part_b;       // (B, C) sum over pixels of dy
+  float* part_extra;   // (B, C) sum of extra (GN2)
+  float* chan_out;     // (B, C) sum over pixels of o (GN2)
   int HW, C, G;
 };
 
-// sum of v over the pixel rows of each channel; thread j < cg writes channel j's
-__device__ void channel_sum(float v, float* buf, int cg, int rows, float* dst) {
-  __syncthreads();
-  buf[threadIdx.x] = v;
-  __syncthreads();
-  if ((int)threadIdx.x < cg) {
-    float s = 0.f;
-    for (int r = 0; r < rows; ++r) s += buf[r * cg + threadIdx.x];
-    *dst = s;
+// The cluster plan (ops/resblock.py:GnBwdPlan): CTAs a sample, the largest
+// share's pixels, the pixels a CTA holds, shared memory bytes.
+struct GbPlan {
+  int ctas, share, held, smem;
+};
+
+__device__ __forceinline__ void ld8f(float f[8], const float* s) {
+  const float4 a = reinterpret_cast<const float4*>(s)[0];
+  const float4 b = reinterpret_cast<const float4*>(s)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+// dy over d in place, d = dpre already times the mask / keep
+__device__ __forceinline__ void gb_dy(float d[8], const float v[8], const float sc[8],
+                                      const float sh[8]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float y = v[j] * sc[j] + sh[j];
+    const float s = __fdividef(1.0f, 1.0f + __expf(-y));
+    d[j] *= s * (1.0f + y * (1.0f - s));
   }
 }
 
-__global__ void __launch_bounds__(THREADS_BWD) gn_bwd_kernel(const GnBwdArgs p) {
-  __shared__ float red[32];
-  __shared__ float buf[THREADS_BWD];
-  const int g = blockIdx.x, b = blockIdx.y;
-  const int cg = p.C / p.G;
-  const int rows = THREADS_BWD / cg;  // pixel rows handled in parallel
-  const int cl = threadIdx.x % cg;
-  const int r0 = threadIdx.x / cg;
-  const bool active = r0 < rows;
-  const int c = g * cg + cl;
-  const long bc = (long)b * p.C + c;
-  const float sc = p.sc[bc], sh = p.sh[bc], gam = p.gamma[c];
-  const float mean = p.mean[b * p.G + g], rstd = p.rstd[b * p.G + g];
-  const long base = (long)b * p.HW * p.C + c;
+// grid (ctas, B), GB_THREADS threads, gb_layout(C, held).total bytes,
+// clusters of ctas along x
+template <bool GN2>
+__global__ void __launch_bounds__(GB_THREADS, 2)
+gn_bwd_kernel(const GnBwdArgs p, const int held) {
+  extern __shared__ __align__(128) unsigned char gsm[];
+  cgr::cluster_group cluster = cgr::this_cluster();
+  const int rank = (int)cluster.block_rank(), ctas = (int)gridDim.x;
+  const int b = blockIdx.y, t = threadIdx.x;
+  const int C = p.C, cv = C / 8, lanes = GB_THREADS / cv, hw = p.HW;
+  const int p0 = (int)((long)hw * rank / ctas), p1 = (int)((long)hw * (rank + 1) / ctas);
+  const int n = p1 - p0, nh = n < held ? n : held;
+  const GbLayout L = gb_layout(C, held);
+  float* D = reinterpret_cast<float*>(gsm);  // [held][C] dpre, then dy
+  float* V = reinterpret_cast<float*>(gsm + L.v);
+  float* cs = reinterpret_cast<float*>(gsm + L.cs);  // [4][C] this CTA's sums
+  float* red = reinterpret_cast<float*>(gsm + L.red);
+  float* grp = reinterpret_cast<float*>(gsm + L.grp);  // [2][G] m1, m2
+  const long base = ((long)b * hw + p0) * C;  // the CTA's first element
 
-  auto dy_at = [&](long off, float& yhat) {
-    const float v = p.v[off];
-    const float y = v * sc + sh;
-    const float s = sigmoidf_(y);
-    float d = p.dpre[off];
-    if (p.mask) d *= (float)p.mask[off] * p.inv_keep;
-    yhat = (v - mean) * rstd;
-    return d * (s * (1.0f + y * (1.0f - s)));
+  // 1. the held pixels' dpre and v, every copy in flight at once
+  const long nb = 8L * nh * C / GB_CHUNK_BYTES;
+  const int nch = nb < 1 ? 1 : nb > GB_CHUNKS ? GB_CHUNKS : (int)nb;
+  for (int k = 0; k < nch; ++k) {
+    const long e0 = (long)nh * k / nch * C, units = ((long)nh * (k + 1) / nch * C - e0) / 4;
+    for (long i = t; i < 2 * units; i += GB_THREADS) {
+      if (i < units)
+        cp_async16(D + e0 + 4 * i, p.dpre + base + e0 + 4 * i);
+      else
+        cp_async16(V + e0 + 4 * (i - units), p.v + base + e0 + 4 * (i - units));
+    }
+    cp_async_commit();
+  }
+  const int lane = t / cv, c8 = 8 * (t % cv);
+  const bool on = lane < lanes;
+  float sc[8], sh[8], gam[8], mu[8], rs[8];
+  if (on) {
+    ld8f(sc, p.sc + (long)b * C + c8);
+    ld8f(sh, p.sh + (long)b * C + c8);
+    ld8f(gam, p.gamma + c8);
+    const int cg = C / p.G;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mu[j] = p.mean[b * p.G + (c8 + j) / cg];
+      rs[j] = p.rstd[b * p.G + (c8 + j) / cg];
+    }
+  }
+
+  // 2. pass 1, a commit group at a time as it lands; then the pixels not
+  // held, from device memory
+  float ps[8], pb[8], pe[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) ps[j] = pb[j] = pe[j] = 0.f;
+  int pl = lane;
+  for (int k = 0; k <= nch; ++k) {
+    const bool held_part = k < nch;
+    if (held_part) {
+      cp_async_wait_chunk(nch - 1 - k);  // groups 0..k of this thread's copies
+      __syncthreads();                   // ... and of every thread's
+    }
+    const int end = held_part ? (int)((long)nh * (k + 1) / nch) : n;
+    while (on && pl < end) {
+      const int cnt = min(GB_U, (end - pl + lanes - 1) / lanes);
+      float d[GB_U][8], v[GB_U][8], e[GB_U][8];
+      uint2 mk[GB_U];
+#pragma unroll
+      for (int u = 0; u < GB_U; ++u) {
+        if (u >= cnt) continue;
+        const long o = (long)(pl + u * lanes) * C + c8;
+        if (held_part) {
+          ld8f(d[u], D + o);
+          ld8f(v[u], V + o);
+        } else {
+          ld8f(d[u], p.dpre + base + o);
+          ld8f(v[u], p.v + base + o);
+        }
+        if (GN2) {
+          ld8f(e[u], p.extra + base + o);
+          mk[u] = p.mask ? *reinterpret_cast<const uint2*>(p.mask + base + o) : uint2{};
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < GB_U; ++u) {
+        if (u >= cnt) continue;
+        if (GN2 && p.mask) {
+          const int8_t* m8 = reinterpret_cast<const int8_t*>(&mk[u]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) d[u][j] *= (float)m8[j] * p.inv_keep;
+        }
+        gb_dy(d[u], v[u], sc, sh);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float yhat = (v[u][j] - mu[j]) * rs[j];
+          ps[j] += d[u][j] * yhat;
+          pb[j] += d[u][j];
+          if (GN2) pe[j] += e[u][j];
+        }
+        if (held_part) st8(D + (long)(pl + u * lanes) * C + c8, d[u]);
+      }
+      pl += cnt * lanes;
+    }
+  }
+  // the lanes' per-channel sums in lane order: dy*yhat, dy (and g) into cs
+  auto lane_sum = [&](const float* val, float* dst) {
+    if (on) st8(red + lane * C + c8, val);
+    __syncthreads();
+    for (int c = t; c < C; c += GB_THREADS) {
+      float s = 0.f;
+      for (int l = 0; l < lanes; ++l) s += red[l * C + c];
+      dst[c] = s;
+    }
+    __syncthreads();
   };
+  lane_sum(ps, cs);
+  lane_sum(pb, cs + C);
+  if (GN2) lane_sum(pe, cs + 2 * C);
+  cluster_arrive();
+  cluster_wait();
 
-  float s1 = 0.f, s2 = 0.f, ps = 0.f, pb = 0.f, pe = 0.f;
-  if (active) {
-    for (int px = r0; px < p.HW; px += rows) {
-      const long off = base + (long)px * p.C;
-      float yhat;
-      const float dy = dy_at(off, yhat);
-      const float dyh = dy * gam;
-      s1 += dyh;
-      s2 += dyh * yhat;
-      ps += dy * yhat;
-      pb += dy;
-      if (p.extra) pe += p.extra[off];
+  // 3. the cluster's totals per channel, peers in rank order, then m1, m2
+  for (int c = t; c < C; c += GB_THREADS) {
+    float ts = 0.f, tb = 0.f, te = 0.f;
+    for (int r0 = 0; r0 < ctas; r0 += GB_PEERS) {
+      float qs[GB_PEERS], qb[GB_PEERS], qe[GB_PEERS];
+#pragma unroll
+      for (int r = 0; r < GB_PEERS; ++r) {
+        if (r0 + r >= ctas) continue;
+        const float* peer = cluster.map_shared_rank(cs, r0 + r);
+        qs[r] = peer[c];
+        qb[r] = peer[C + c];
+        if (GN2) qe[r] = peer[2 * C + c];
+      }
+#pragma unroll
+      for (int r = 0; r < GB_PEERS; ++r) {
+        if (r0 + r >= ctas) continue;
+        ts += qs[r];
+        tb += qb[r];
+        if (GN2) te += qe[r];
+      }
+    }
+    red[c] = ts;
+    red[C + c] = tb;
+    if (rank == 0) {
+      p.part_s[(long)b * C + c] = ts;
+      p.part_b[(long)b * C + c] = tb;
+      if (GN2) p.part_extra[(long)b * C + c] = te;
     }
   }
-  const float inv_n = 1.0f / ((float)p.HW * cg);
-  const float m1 = block_sum256(s1, red) * inv_n;
-  const float m2 = block_sum256(s2, red) * inv_n;
-  channel_sum(ps, buf, cg, rows, p.part_s + bc);
-  channel_sum(pb, buf, cg, rows, p.part_b + bc);
-  if (p.extra) channel_sum(pe, buf, cg, rows, p.part_extra + bc);
+  __syncthreads();
+  const int cg = C / p.G;
+  const float inv_n = 1.0f / ((float)hw * cg);
+  for (int g = t; g < p.G; g += GB_THREADS) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int j = 0; j < cg; ++j) {
+      const int c = g * cg + j;
+      s1 += p.gamma[c] * red[C + c];
+      s2 += p.gamma[c] * red[c];
+    }
+    grp[g] = s1 * inv_n;
+    grp[p.G + g] = s2 * inv_n;
+  }
+  if (!GN2) cluster_arrive_relaxed();  // done with the peers' sums; waited for before exiting
+  __syncthreads();
 
-  float po = 0.f;
-  if (active) {
-    for (int px = r0; px < p.HW; px += rows) {
-      const long off = base + (long)px * p.C;
-      float yhat;
-      const float dy = dy_at(off, yhat);
-      float o = rstd * (dy * gam - m1 - yhat * m2);
-      if (p.add) o += p.add_scale * p.add[off];
-      if (p.out) p.out[off] = o;
-      if (p.out_bf16) p.out_bf16[off] = __float2bfloat16(o);
-      po += o;
+  // 4. pass 2: o from the held dy and v, then from the pixels not held
+  float m1[8], m2[8], po[8];
+  if (on) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      m1[j] = grp[(c8 + j) / cg];
+      m2[j] = grp[p.G + (c8 + j) / cg];
+      po[j] = 0.f;
     }
   }
-  if (p.chan_out) channel_sum(po, buf, cg, rows, p.chan_out + bc);
+  pl = lane;
+  for (int seg = 0; seg < 2; ++seg) {
+    const bool held_part = seg == 0;
+    const int end = held_part ? nh : n;
+    while (on && pl < end) {
+      const int cnt = min(GB_U, (end - pl + lanes - 1) / lanes);
+      float d[GB_U][8], v[GB_U][8], a[GB_U][8];
+      uint2 mk[GB_U];
+#pragma unroll
+      for (int u = 0; u < GB_U; ++u) {
+        if (u >= cnt) continue;
+        const long o = (long)(pl + u * lanes) * C + c8;
+        if (held_part) {
+          ld8f(d[u], D + o);
+          ld8f(v[u], V + o);
+        } else {
+          ld8f(d[u], p.dpre + base + o);
+          ld8f(v[u], p.v + base + o);
+          if (GN2) mk[u] = p.mask ? *reinterpret_cast<const uint2*>(p.mask + base + o) : uint2{};
+        }
+        if (!GN2 && p.add) ld8f(a[u], p.add + base + o);
+      }
+#pragma unroll
+      for (int u = 0; u < GB_U; ++u) {
+        if (u >= cnt) continue;
+        if (!held_part) {
+          if (GN2 && p.mask) {
+            const int8_t* m8 = reinterpret_cast<const int8_t*>(&mk[u]);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) d[u][j] *= (float)m8[j] * p.inv_keep;
+          }
+          gb_dy(d[u], v[u], sc, sh);
+        }
+        float o8[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float yhat = (v[u][j] - mu[j]) * rs[j];
+          o8[j] = rs[j] * (d[u][j] * gam[j] - m1[j] - yhat * m2[j]);
+          if (!GN2 && p.add) o8[j] += p.add_scale * a[u][j];
+          po[j] += o8[j];
+        }
+        const long o = base + (long)(pl + u * lanes) * C + c8;
+        if (GN2)
+          st8(p.out_bf16 + o, o8);
+        else
+          st8(p.out + o, o8);
+      }
+      pl += cnt * lanes;
+    }
+  }
+  if (GN2) {
+    // the sums of o per channel: lanes, then the cluster in rank order, CTA
+    // r totalling channels [r C / ctas, (r + 1) C / ctas)
+    lane_sum(po, cs + 3 * C);
+    cluster_arrive();
+    cluster_wait();
+    const int per = C / ctas;
+    for (int c = rank * per + t; c < (rank + 1) * per; c += GB_THREADS) {
+      float tot = 0.f;
+      for (int r0 = 0; r0 < ctas; r0 += GB_PEERS) {
+        float q[GB_PEERS];
+#pragma unroll
+        for (int r = 0; r < GB_PEERS; ++r)
+          if (r0 + r < ctas) q[r] = cluster.map_shared_rank(cs, r0 + r)[3 * C + c];
+#pragma unroll
+        for (int r = 0; r < GB_PEERS; ++r)
+          if (r0 + r < ctas) tot += q[r];
+      }
+      p.chan_out[(long)b * C + c] = tot;
+    }
+    cluster_arrive_relaxed();
+  }
+  cluster_wait();  // the peers are done with this CTA's shared memory
+}
+
+template <bool GN2>
+int gb_run(const GnBwdArgs& a, const GbPlan& plan, int batch, cudaStream_t st) {
+  static bool attr = false;
+  if (!attr) {
+    int err = (int)cudaFuncSetAttribute(gn_bwd_kernel<GN2>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, GB_SMEM);
+    if (!err)
+      err = (int)cudaFuncSetAttribute(gn_bwd_kernel<GN2>,
+                                      cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err) return err;
+    attr = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)plan.ctas, (unsigned)batch);
+  cfg.blockDim = dim3(GB_THREADS);
+  cfg.dynamicSmemBytes = (size_t)plan.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = (unsigned)plan.ctas;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  int err = (int)cudaLaunchKernelEx(&cfg, gn_bwd_kernel<GN2>, a, plan.held);
+  if (!err) err = (int)cudaGetLastError();
+  return err;
+}
+
+// One GroupNorm(+SiLU) backward: GN2's form (out_bf16, extra and chan_out
+// set; mask optional; no add) or GN1's (out and add set). Counted where it
+// launches; cudaErrorInvalidValue for a plan or shape it does not take.
+int gn_bwd_launch(const GnBwdArgs& a, const GbPlan& plan, int batch, cudaStream_t st) {
+  const bool gn2 = a.out_bf16 != nullptr;
+  const int c = a.C;
+  const bool ok =
+      batch > 0 && a.HW > 0 && c % 8 == 0 && c >= 8 && c / 8 <= GB_THREADS && a.G > 0 &&
+      a.G <= GB_MAX_GROUPS && c % a.G == 0 && plan.ctas >= 1 && plan.ctas <= GB_MAX_CTAS &&
+      (plan.ctas & (plan.ctas - 1)) == 0 && plan.ctas <= a.HW && c % plan.ctas == 0 &&
+      plan.share == (a.HW + plan.ctas - 1) / plan.ctas &&
+      plan.held > 0 && plan.held <= plan.share && plan.smem == gb_layout(c, plan.held).total &&
+      plan.smem <= GB_SMEM && a.dpre && a.v && a.sc && a.sh && a.mean && a.rstd && a.gamma &&
+      a.part_s && a.part_b &&
+      (gn2 ? (a.extra && a.part_extra && a.chan_out && !a.out && !a.add)
+           : (a.out && !a.mask && !a.extra && !a.chan_out));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const int err = gn2 ? gb_run<true>(a, plan, batch, st) : gb_run<false>(a, plan, batch, st);
+  if (!err) count_launch(COUNT_GN_BWD);
+  return err;
 }
 
 // out[i] = scale * sum_r in[r*n + i], rows summed in order. 256 threads.
@@ -444,11 +751,14 @@ int wgrad_launch(const void* a, const void* g, int C, int taps, int N, int batch
 // K7. The plan of one block shape, from Python (ops/resblock_bwd.py:
 // train_bwd_plan): four block-GEMM plans (mw, box_h, box_b, tiles_h,
 // m_tiles, splits, kper each: conv1's recompute Cin -> N, the dgrads N -> N
-// and N -> Cin, the skip's 1x1 N -> Cin, zeros without a skip), then three
-// wgrad plans (mw, box_h, box_b, splits, per each: dW2, dW1, dW_skip).
+// and N -> Cin, the skip's 1x1 N -> Cin, zeros without a skip), three
+// wgrad plans (mw, box_h, box_b, splits, per each: dW2, dW1, dW_skip), then
+// the GN backwards' cluster plans (ctas, share, held, smem: GN2's on N
+// channels, GN1's on Cin; ops/resblock.py:gn_bwd_plan).
 constexpr int PLAN_GEMM = 7;
 constexpr int PLAN_WG = 5;
-constexpr int PLAN_INTS = 4 * PLAN_GEMM + 3 * PLAN_WG;
+constexpr int PLAN_GB = 4;
+constexpr int PLAN_INTS = 4 * PLAN_GEMM + 3 * PLAN_WG + 2 * PLAN_GB;
 
 struct GemmStep {
   GemmTiles t;
@@ -463,6 +773,11 @@ GemmStep gemm_step(const int* plan, int i) {
 WgTiles wg_step(const int* plan, int i) {
   const int* q = plan + 4 * PLAN_GEMM + PLAN_WG * i;
   return WgTiles{q[0], q[1], q[2], q[3], q[4]};
+}
+
+GbPlan gb_step(const int* plan, int i) {
+  const int* q = plan + 4 * PLAN_GEMM + 3 * PLAN_WG + PLAN_GB * i;
+  return GbPlan{q[0], q[1], q[2], q[3]};
 }
 
 struct Work {
@@ -644,8 +959,7 @@ int gddim_resblock_bwd(const void* x, const void* temb_row, const void* gn1_g, c
     a.HW = hw;
     a.C = n;
     a.G = groups2;
-    gn_bwd_kernel<<<dim3(groups2, batch), THREADS_BWD, 0, st>>>(a);
-    err = (int)cudaGetLastError();
+    err = gn_bwd_launch(a, gb_step(plan, 0), batch, st);
   }
   // 8: dL/da1 = conv(gumm, W1 flipped/transposed), over dL/dd
   if (!err)
@@ -671,8 +985,7 @@ int gddim_resblock_bwd(const void* x, const void* temb_row, const void* gn1_g, c
     a.HW = hw;
     a.C = cin;
     a.G = groups1;
-    gn_bwd_kernel<<<dim3(groups1, batch), THREADS_BWD, 0, st>>>(a);
-    err = (int)cudaGetLastError();
+    err = gn_bwd_launch(a, gb_step(plan, 1), batch, st);
   }
   // 11: weight gradients
   if (!err)  // dW2 = sum shift_t(d)^T gmm
@@ -693,6 +1006,42 @@ int gddim_resblock_bwd(const void* x, const void* temb_row, const void* gn1_g, c
   if (!err) err = rowsum(wk.p_gn1s, batch, cin, 1.0f, (float*)dgn1s, st);
   if (!err) err = rowsum(wk.p_gn1b, batch, cin, 1.0f, (float*)dgn1b, st);
   return err;
+}
+
+// K7's GroupNorm(+SiLU) backward alone (gn_bwd_kernel): GN2's form when
+// out_bf16 is set (mask optional, extra, part_extra and chan_out set), GN1's
+// when out is (add optional, may alias out); (B, hw, c) f32 dpre and v, the
+// forward's affine sc, sh (B, c) and mean, rstd (B, groups); the cluster
+// plan of ops/resblock.py:gn_bwd_plan (ctas, share, held, smem).
+int gddim_gn_bwd(const void* dpre, const void* mask, float inv_keep, const void* v,
+                 const void* sc, const void* sh, const void* mean, const void* rstd,
+                 const void* gamma, const void* add, float add_scale, const void* extra, void* out,
+                 void* out_bf16, void* part_s, void* part_b, void* part_extra, void* chan_out,
+                 int batch, int hw, int c, int groups, int ctas, int share, int held, int smem,
+                 void* stream) {
+  GnBwdArgs a = {};
+  a.dpre = (const float*)dpre;
+  a.mask = (const int8_t*)mask;
+  a.inv_keep = inv_keep;
+  a.v = (const float*)v;
+  a.sc = (const float*)sc;
+  a.sh = (const float*)sh;
+  a.mean = (const float*)mean;
+  a.rstd = (const float*)rstd;
+  a.gamma = (const float*)gamma;
+  a.add = (const float*)add;
+  a.add_scale = add_scale;
+  a.extra = (const float*)extra;
+  a.out = (float*)out;
+  a.out_bf16 = (bf16*)out_bf16;
+  a.part_s = (float*)part_s;
+  a.part_b = (float*)part_b;
+  a.part_extra = (float*)part_extra;
+  a.chan_out = (float*)chan_out;
+  a.HW = hw;
+  a.C = c;
+  a.G = groups;
+  return gn_bwd_launch(a, GbPlan{ctas, share, held, smem}, batch, (cudaStream_t)stream);
 }
 
 // The wgrad kernel alone: dw (taps * C, N) f32 = sum over pixels of

@@ -950,6 +950,74 @@ def wgrad_plan(b: int, h: int, w: int, c: int, taps: int, n: int) -> WgradPlan:
     return WgradPlan(mw, box_h, box_b, -(-slices // per), per)
 
 
+# K7's GroupNorm(+SiLU) backward (csrc/resblock_bwd.cu, ``gn_bwd_kernel``):
+# a cluster of 1-16 CTAs a sample holds dpre and v (f32) of its pixels in
+# shared memory for the backward's two passes
+GN_BWD_THREADS = 256
+GN_BWD_CLUSTERS = (1, 2, 4, 8, 16)
+GN_BWD_PAIR_BYTES = 113 * 1024  # shared memory of a CTA where two share an SM
+GN_BWD_MAX_GROUPS = 32
+GN_BWD_MIN_SHARE = 8  # pixels a CTA, at least, where the sample has them
+
+
+class GnBwdPlan(NamedTuple):
+    """How ``gn_bwd_kernel`` covers one (h, w, c) sample: a cluster of
+    ``ctas`` CTAs, CTA r over the pixels [r hw / ctas, (r + 1) hw / ctas)
+    (``share`` at most), each holding the first ``held`` of its pixels in
+    ``smem`` bytes of shared memory and reading the rest from device memory
+    in both passes."""
+
+    ctas: int
+    share: int
+    held: int
+    smem: int
+
+
+def gn_bwd_smem(c: int, held: int) -> int:
+    """Shared memory of one ``gn_bwd_kernel`` CTA holding ``held`` pixels of
+    c channels (``csrc/resblock_bwd.cu:gb_layout``): dpre (then dy) and v in
+    f32, the CTA's four per-channel sums, the pixel lanes' buffer, the
+    groups' two means (GN_BWD_MAX_GROUPS at most)."""
+    lanes = GN_BWD_THREADS // (c // _VEC)
+    return (2 * _align128(4 * held * c) + _align128(16 * c) + _align128(4 * max(lanes, 2) * c)
+            + _align128(8 * GN_BWD_MAX_GROUPS))
+
+
+def _gn_bwd_most_held(c: int, budget: int = SMEM_BYTES) -> int:
+    """The most pixels a CTA holds within ``budget`` bytes of shared memory."""
+    return max(0, ((budget - gn_bwd_smem(c, 0)) // 2 // 128 * 128) // (4 * c))
+
+
+@functools.lru_cache(maxsize=None)
+def gn_bwd_plan(b: int, h: int, w: int, c: int, ctas: int | None = None,
+                held: int | None = None) -> GnBwdPlan:
+    """The GN backward's cluster plan for a (b, h, w, c) tensor: a pure
+    function of the shapes. The smallest cluster that gives the batch a CTA
+    for each SM, of GN_BWD_MIN_SHARE pixels a CTA at least (one wave at two
+    CTAs an SM: larger clusters and more waves measured slower on the H100,
+    chip_smoke.py's gn_bwd_plans phase), each CTA holding what
+    GN_BWD_PAIR_BYTES hold of its share and reading the rest from device
+    memory in both passes. ``ctas`` (and ``held``) pin another plan, to
+    measure it. Raises for shapes the kernel does not take."""
+    hw = h * w
+    if c % _VEC or not _VEC <= c <= _VEC * GN_BWD_THREADS:
+        raise ValueError(f"gn_bwd: no plan for {c} channels (a multiple of {_VEC}, at most "
+                         f"{_VEC * GN_BWD_THREADS})")
+    takes = [k for k in GN_BWD_CLUSTERS if k <= hw and c % k == 0]
+    if ctas is None:
+        fit = [k for k in takes if k * GN_BWD_MIN_SHARE <= hw] or takes[:1]
+        ctas = next((k for k in fit if b * k >= SMS), fit[-1])
+    if ctas not in takes:
+        raise ValueError(f"gn_bwd: no cluster of {ctas} CTAs for {hw} pixels of {c} channels")
+    share = -(-hw // ctas)
+    most = _gn_bwd_most_held(c)
+    if held is None:
+        held = min(share, max(1, _gn_bwd_most_held(c, GN_BWD_PAIR_BYTES)))
+    if not 0 < held <= min(share, most):
+        raise ValueError(f"gn_bwd: {held} pixels held of a {share}-pixel share ({most} fit)")
+    return GnBwdPlan(ctas, share, held, gn_bwd_smem(c, held))
+
+
 def s8_tile_plan(b: int, h: int, w: int, cin: int, cskip: int, n: int,
                  taps: int = 9) -> GemmPlan:
     """The int8 block GEMM's plan for a (b, h, w, cin) x (3, 3, cin, n) conv
@@ -1527,6 +1595,72 @@ def gn_apply(x0, x1=None, gamma=None, beta=None, *, num_groups: int, eps: float 
     return out, stats, amax
 
 
+GN2_PREPASS_MODES = ("bf16", "int8", "train")  # the blocks' bf16 and int8 static, K6/K7's d
+
+
+def gn2_prepass_reference(h1, part, gamma, beta, *, num_groups: int, eps: float = 1e-6,
+                          mode: str = "bf16", act_scale=None, mask=None, keep_prob: float = 1.0):
+    """Plain version of ``gn2_prepass``: conv2's operand from conv1's f32 h1
+    (B, H, W, N) and its partial sums part (2, B, parts, N): the fold
+    (``gn_fold_reference``), a2 = silu(h1 * scale + shift) in f32, then bf16
+    ('bf16'), int8 by the static act_scale ('int8'), or times mask /
+    keep_prob then bf16 ('train', K6/K7's d). Returns (out, (scale, shift,
+    mean, rstd))."""
+    stats = gn_fold_reference(part, h1.shape[1] * h1.shape[2], num_groups, eps, gamma, beta)
+    return gn2_convert_reference(h1, *stats[:2], mode=mode, act_scale=act_scale, mask=mask,
+                                 keep_prob=keep_prob), stats
+
+
+def gn2_convert_reference(h1, scale, shift, *, mode: str = "bf16", act_scale=None, mask=None,
+                          keep_prob: float = 1.0):
+    """The conversion of gn2_prepass_reference from a given affine (B, N)."""
+    a = _conv_input(h1, None, scale, shift, True)
+    if mode == "int8":
+        return quant_static(a, act_scale.float().reshape(())).to(torch.int8)
+    if mode == "train" and mask is not None:
+        a = a * (mask.float() * (1.0 / keep_prob))
+    return a.to(torch.bfloat16)
+
+
+def gn2_prepass(h1, part, gamma, beta, *, num_groups: int, eps: float = 1e-6, mode: str = "bf16",
+                act_scale=None, mask=None, keep_prob: float = 1.0, fold_only: bool = False):
+    """GN2's folding pre-pass alone (``gn_prepass_kernel``, see
+    gn2_prepass_reference): f32 h1 and conv1's partial sums on the card, as
+    the blocks launch it; with fold_only, the fold alone (``gn_fold_kernel``,
+    one CTA a sample; out None). Returns (out, (scale, shift, mean, rstd)):
+    the statistics in mode 'train' (K7 reads them), (scale, shift, None,
+    None) with fold_only, else None. Counted in C (``block_launches``), as
+    the blocks count it."""
+    kw = dict(num_groups=num_groups, eps=eps, mode=mode, act_scale=act_scale, mask=mask,
+              keep_prob=keep_prob)
+    if _on_cpu(h1, "gn2_prepass"):
+        out, stats = gn2_prepass_reference(h1, part, gamma, beta, **kw)
+        return (None, (*stats[:2], None, None)) if fold_only else (out, stats)
+    require_no_grad("gn2_prepass", h1, part)
+    b, h, w, n = h1.shape
+    if mode not in GN2_PREPASS_MODES or (mode == "int8") != (act_scale is not None) or \
+            (mode != "train" and mask is not None):
+        raise ValueError(f"gn2_prepass: mode {mode!r}, a static scale for 'int8' only and a "
+                         "mask for 'train' only")
+    f32, dev = torch.float32, h1.device
+    ops = [_operand(h1, "h1", f32, (b, h, w, n)), _operand(part, "part", f32),
+           _operand(gamma, "gamma", f32, (n,)), _operand(beta, "beta", f32, (n,)),
+           _operand(act_scale, "act_scale", f32), _operand(mask, "mask", torch.int8, (b, h, w, n))]
+    if ops[1].dim() != 4 or tuple(ops[1].shape[:2]) != (2, b) or ops[1].shape[3] != n:
+        raise ValueError(f"gn2_prepass: part (2, B, parts, N), got {tuple(ops[1].shape)}")
+    out = None if fold_only else torch.empty(
+        (b, h, w, n), device=dev, dtype=torch.int8 if mode == "int8" else torch.bfloat16)
+    shapes = ((b, n), (b, n), (b, num_groups), (b, num_groups))
+    stats = (tuple(torch.empty(shape, device=dev, dtype=f32) for shape in shapes[:2]) + (None,) * 2
+             if fold_only else tuple(torch.empty(shape, device=dev, dtype=f32) for shape in shapes)
+             if mode == "train" else (None,) * 4)
+    h1_, part_, g_, b_, qs, m_ = map(_build.ptr, ops)
+    _build.launch("gddim_gn2_prepass", dev, h1_, part_, ops[1].shape[2], num_groups, g_, b_, eps,
+                  GN2_PREPASS_MODES.index(mode), qs, m_, 1.0 / keep_prob, b, h * w, n,
+                  int(fold_only), _build.ptr(out), *map(_build.ptr, stats))
+    return out, (None if stats[0] is None else stats)
+
+
 GN_RESAMPLE_MODES = ("bf16", "f32", "int8")  # h's type: K9 bf16, int8 per sample, int8 static
 
 
@@ -1597,12 +1731,14 @@ def gn_resample(x, gamma, beta, *, up: bool, fir: bool = True, fir_kernel=(1, 3,
 # pre-pass, int8 then bf16 (the bf16 pre-passes: GN2's folding pre-pass and
 # K7's rounding of the cotangent among them), then K5's attention core,
 # gn_stats_kernel, gn_apply_kernel (both variants: K2/K3/K5's GN1 and K9's
-# resample), K7's wgrad_kernel, conv_gemm_kernel (f32 activations, K10) and
-# the block GEMM in the training blocks (K6's convs, K7's conv1 and dgrads)
+# resample), K7's wgrad_kernel, conv_gemm_kernel (f32 activations, K10),
+# the block GEMM in the training blocks (K6's convs, K7's conv1 and dgrads),
+# K7's GroupNorm backward (gn_bwd_kernel, two a block) and GN2's folding
+# pre-pass (gn_prepass_kernel, every mode; also counted as its mode's pre-pass)
 BLOCK_COUNTED = ("block_gemm_kernel<int8>", "prepass_kernel<int8>", "block_gemm_kernel<bf16>",
                  "prepass_kernel<bf16>", "attention_wgmma_kernel", "gn_stats_kernel",
                  "gn_apply_kernel", "wgrad_kernel", "conv_gemm_kernel",
-                 "block_gemm_kernel<bf16, train>")
+                 "block_gemm_kernel<bf16, train>", "gn_bwd_kernel", "gn_prepass_kernel")
 S8_COUNTED = BLOCK_COUNTED[:2]
 BF16_COUNTED = BLOCK_COUNTED[2:4]
 

@@ -22,14 +22,16 @@ kernels or raises.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from gddim_torch import _build
 from gddim_torch.ops.resblock import (
-    _INV_SQRT2, _bf16r, _conv_input, _on_cpu, _operand, bf16_tile_plan, conv3x3_nhwc,
-    gn_stats_reference, require_no_grad, resblock_train_reference, train_supported, wgrad_plan)
+    _INV_SQRT2, GN_BWD_MAX_GROUPS, GnBwdPlan, _bf16r, _conv_input, _on_cpu, _operand,
+    bf16_tile_plan, conv3x3_nhwc, gn_bwd_plan, gn_stats_reference, require_no_grad,
+    resblock_train_reference, train_supported, wgrad_plan)
 
 
 def resblock_train_grads_reference(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale,
@@ -114,25 +116,90 @@ def bf16_dgrad_gemm(g, w):
     return out
 
 
-def _gn_silu_bwd(dpre, dmask, v, sc, sh, mean, rstd, gamma, groups: int):
-    """The GroupNorm(+SiLU) backward of gn_bwd_kernel: (dL/dv, dGN scale,
-    dGN bias) from dpre = dL/d(silu(y) [* dmask]), y = v * sc + sh, with the
-    forward's affine and statistics."""
+class GnBwd(NamedTuple):
+    """What the GroupNorm(+SiLU) backward makes of one tensor: ``out`` (B,
+    H, W, C) dL/dv [+ add_scale * add], f32, or bf16 (GN2's gumm);
+    per-sample (B, C) sums over the pixels of dy * yhat (``part_s``, dGN
+    scale's), of dy (``part_b``, dGN bias's), of ``extra`` (``part_extra``)
+    and of the f32 out (``chan_sum``), None where not asked for."""
+
+    out: torch.Tensor
+    part_s: torch.Tensor
+    part_b: torch.Tensor
+    part_extra: torch.Tensor | None
+    chan_sum: torch.Tensor | None
+
+
+def gn_silu_bwd_reference(dpre, v, sc, sh, mean, rstd, gamma, *, num_groups: int, mask=None,
+                          keep_prob: float = 1.0, add=None, add_scale: float = 1.0, extra=None,
+                          out_bf16: bool = False):
+    """Plain version of ``gn_silu_bwd``: the GroupNorm(+SiLU) backward of
+    ``_resblock_bwd_kernel`` (gddim_tpu/ops/resblock_bwd.py:209-222 with
+    the dropout mask, :233-242), from dpre = dL/d(silu(y) [* mask /
+    keep_prob]), y = v * sc + sh, the forward's affine (B, C) and mean, rstd
+    (B, groups), in f32. GN2's form: out_bf16 (out rounded once to bf16),
+    extra summed, chan_sum; GN1's: add_scale * add added to out."""
     b, c = v.shape[0], v.shape[-1]
-    cg = c // groups
-    rows = lambda t: t.reshape(b, 1, 1, c)  # noqa: E731
+    cg = c // num_groups
+    rows = lambda t: t.float().reshape(b, 1, 1, c)  # noqa: E731
+    v, d = v.float(), dpre.float()
     y = v * rows(sc) + rows(sh)
     s = torch.sigmoid(y)
-    d = dpre if dmask is None else dpre * dmask
+    if mask is not None:
+        d = d * (mask.float() * (1.0 / keep_prob))
     dy = d * (s * (1.0 + y * (1.0 - s)))
-    yhat = (v - rows(mean.repeat_interleave(cg, 1))) * rows(rstd.repeat_interleave(cg, 1))
+    rstd_c = rows(rstd.repeat_interleave(cg, 1))
+    yhat = (v - rows(mean.repeat_interleave(cg, 1))) * rstd_c
     dyh = dy * gamma.float()
 
     def gmean(t):  # each channel's group mean over the sample
-        return rows(t.reshape(b, -1, groups, cg).mean((1, 3)).repeat_interleave(cg, 1))
+        return rows(t.reshape(b, -1, num_groups, cg).mean((1, 3)).repeat_interleave(cg, 1))
 
-    out = rows(rstd.repeat_interleave(cg, 1)) * (dyh - gmean(dyh) - yhat * gmean(dyh * yhat))
-    return out, (dy * yhat).sum((0, 1, 2)), dy.sum((0, 1, 2))
+    out = rstd_c * (dyh - gmean(dyh) - yhat * gmean(dyh * yhat))
+    if add is not None:
+        out = out + add_scale * add.float()
+    per = lambda t: t.sum((1, 2))  # noqa: E731
+    return GnBwd(out.to(torch.bfloat16) if out_bf16 else out, per(dy * yhat), per(dy),
+                 None if extra is None else per(extra.float()), per(out) if out_bf16 else None)
+
+
+def gn_silu_bwd(dpre, v, sc, sh, mean, rstd, gamma, *, num_groups: int, mask=None,
+                keep_prob: float = 1.0, add=None, add_scale: float = 1.0, extra=None,
+                out_bf16: bool = False, plan: GnBwdPlan | None = None) -> GnBwd:
+    """K7's GroupNorm(+SiLU) backward alone on ``gn_bwd_kernel`` (see
+    gn_silu_bwd_reference): GN2's form (out_bf16 with extra, mask optional)
+    or GN1's (f32 out, add optional). f32 (B, H, W, C) dpre, v, add, extra,
+    int8 mask; the cluster plan ``gn_bwd_plan`` unless ``plan`` pins
+    another. Counted in C (``block_launches``)."""
+    kw = dict(num_groups=num_groups, mask=mask, keep_prob=keep_prob, add=add,
+              add_scale=add_scale, extra=extra, out_bf16=out_bf16)
+    if _on_cpu(dpre, "gn_silu_bwd"):
+        return gn_silu_bwd_reference(dpre, v, sc, sh, mean, rstd, gamma, **kw)
+    require_no_grad("gn_silu_bwd", dpre, v, add, extra)
+    if out_bf16 != (extra is not None) or (out_bf16 and add is not None) or \
+            (not out_bf16 and mask is not None):
+        raise ValueError("gn_silu_bwd: GN2's form takes extra (and a mask), GN1's an add")
+    b, h, w, c = dpre.shape
+    if not 0 < num_groups <= GN_BWD_MAX_GROUPS or c % num_groups:
+        raise ValueError(f"gn_silu_bwd: {num_groups} groups of {c} channels (at most "
+                         f"{GN_BWD_MAX_GROUPS} groups)")
+    plan = gn_bwd_plan(b, h, w, c) if plan is None else plan
+    f32, dev, act = torch.float32, dpre.device, (b, h, w, c)
+    ops = [_operand(dpre, "dpre", f32, act), _operand(mask, "mask", torch.int8, act),
+           _operand(v, "v", f32, act), _operand(sc, "scale", f32, (b, c)),
+           _operand(sh, "shift", f32, (b, c)), _operand(mean, "mean", f32, (b, num_groups)),
+           _operand(rstd, "rstd", f32, (b, num_groups)), _operand(gamma, "gamma", f32, (c,)),
+           _operand(add, "add", f32, act), _operand(extra, "extra", f32, act)]
+    out = torch.empty(act, device=dev, dtype=torch.bfloat16 if out_bf16 else f32)
+    part_s, part_b = (torch.empty((b, c), device=dev, dtype=f32) for _ in range(2))
+    part_e, chan = ((torch.empty((b, c), device=dev, dtype=f32) for _ in range(2)) if out_bf16
+                    else (None, None))
+    d_, m_, v_, sc_, sh_, mu_, rs_, g_, a_, e_ = map(_build.ptr, ops)
+    _build.launch("gddim_gn_bwd", dev, d_, m_, 1.0 / keep_prob, v_, sc_, sh_, mu_, rs_, g_, a_,
+                  float(add_scale), e_, None if out_bf16 else out.data_ptr(),
+                  out.data_ptr() if out_bf16 else None, part_s.data_ptr(), part_b.data_ptr(),
+                  _build.ptr(part_e), _build.ptr(chan), b, h * w, c, num_groups, *plan)
+    return GnBwd(out, part_s, part_b, part_e, chan)
 
 
 def resblock_train_grads_bf16_reference(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale,
@@ -152,29 +219,32 @@ def resblock_train_grads_bf16_reference(x, temb_proj, gn1_scale, gn1_bias, w1, b
     a1 = _bf16r(_conv_input(x, None, sc1, sh1, True))
     u = conv3x3_nhwc(a1, _bf16r(w1.float()), b1.float()) + temb_proj.float()[:, None, None, :]
     sc2, sh2, mean2, rstd2 = gn_stats_reference(u, num_groups2, eps, gn2_scale, gn2_bias)
-    dmask = mask.float() * (1.0 / keep_prob) if keep_prob < 1.0 else None
     d = _conv_input(u, None, sc2, sh2, True)
-    d = _bf16r(d if dmask is None else d * dmask)
+    d = _bf16r(d if keep_prob == 1.0 else d * (mask.float() * (1.0 / keep_prob)))
     gmm = _bf16r(g * r)
-    gu, dgn2s, dgn2b = _gn_silu_bwd(dgrad_reference(gmm, _bf16r(w2.float())), dmask, u, sc2, sh2,
-                                    mean2, rstd2, gn2_scale, num_groups2)
-    gumm = _bf16r(gu)
+    gn2 = gn_silu_bwd_reference(dgrad_reference(gmm, _bf16r(w2.float())), u, sc2, sh2, mean2,
+                                rstd2, gn2_scale, num_groups=num_groups2,
+                                mask=mask if keep_prob < 1.0 else None, keep_prob=keep_prob,
+                                extra=g, out_bf16=True)
+    gumm = gn2.out.float()
     ga1 = dgrad_reference(gumm, _bf16r(w1.float()))
-    dx, dgn1s, dgn1b = _gn_silu_bwd(ga1, None, x, sc1, sh1, mean1, rstd1, gn1_scale, num_groups1)
     cin, n = x.shape[-1], g.shape[-1]
     dws = dbs = None
     if w_skip is None:
-        dx = dx + r * g
+        add, add_scale = g, r
     else:
-        dx = dx + dgrad_reference(gmm, _bf16r(w_skip.float()))
-        dws, dbs = wgrad_reference(_bf16r(x), gmm, 1), r * g.sum((0, 1, 2))
-    dtemb = gu.sum((1, 2))
-    return (dx, dtemb, dgn1s, dgn1b, wgrad_reference(a1, gumm).reshape(3, 3, cin, n),
-            dtemb.sum(0), dgn2s, dgn2b, wgrad_reference(d, gmm).reshape(3, 3, n, n),
-            r * g.sum((0, 1, 2)), dws, dbs)
+        add, add_scale = dgrad_reference(gmm, _bf16r(w_skip.float())), 1.0
+        dws, dbs = wgrad_reference(_bf16r(x), gmm, 1), r * gn2.part_extra.sum(0)
+    gn1 = gn_silu_bwd_reference(ga1, x, sc1, sh1, mean1, rstd1, gn1_scale,
+                                num_groups=num_groups1, add=add, add_scale=add_scale)
+    dtemb = gn2.chan_sum
+    return (gn1.out, dtemb, gn1.part_s.sum(0), gn1.part_b.sum(0),
+            wgrad_reference(a1, gumm).reshape(3, 3, cin, n), dtemb.sum(0), gn2.part_s.sum(0),
+            gn2.part_b.sum(0), wgrad_reference(d, gmm).reshape(3, 3, n, n),
+            r * gn2.part_extra.sum(0), dws, dbs)
 
 
-PLAN_INTS = 4 * 7 + 3 * 5  # csrc/resblock_bwd.cu: PLAN_INTS
+PLAN_INTS = 4 * 7 + 3 * 5 + 2 * 4  # csrc/resblock_bwd.cu: PLAN_INTS
 
 
 @functools.lru_cache(maxsize=None)
@@ -183,7 +253,8 @@ def train_bwd_plan(b: int, h: int, w: int, cin: int, n: int, skip: bool) -> tupl
     the block-GEMM plans (``bf16_tile_plan``: mw, box_h, box_b, tiles_h,
     m_tiles, splits, kper) of the recomputed conv1 (cin -> n), the dgrads (n
     -> n, n -> cin) and the skip's 1x1 dgrad (n -> cin; zeros without a
-    skip), then the ``wgrad_plan``s of dW2, dW1 and dW_skip (zeros without)."""
+    skip), the ``wgrad_plan``s of dW2, dW1 and dW_skip (zeros without), then
+    the ``gn_bwd_plan``s of GN2's backward (n channels) and GN1's (cin)."""
     gemms = [bf16_tile_plan(b, h, w, cin, 0, n), bf16_tile_plan(b, h, w, n, 0, n),
              bf16_tile_plan(b, h, w, n, 0, cin),
              bf16_tile_plan(b, h, w, n, 0, cin, 1) if skip else None]
@@ -194,6 +265,8 @@ def train_bwd_plan(b: int, h: int, w: int, cin: int, n: int, skip: bool) -> tupl
         out += [p.mw, p.box_h, p.box_b, p.tiles_h, p.m_tiles, p.splits, p.kper] if p else [0] * 7
     for p in wgrads:
         out += list(p) if p else [0] * 5
+    for c in (n, cin):
+        out += list(gn_bwd_plan(b, h, w, c))
     assert len(out) == PLAN_INTS
     return tuple(out)
 

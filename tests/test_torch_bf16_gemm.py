@@ -452,7 +452,9 @@ def test_bf16_launch_counts_count_each_launch(cuda, kind):
         assert t_rb.block_launches(kernels=(gemm, prepass)) == {gemm: 1, prepass: 1}
         OPS[kind][0](*args, **kw)
         torch.cuda.synchronize()
-    # and GN1's one-launch kernel once a block with GN1 (K4's h comes with it)
-    want = {gemm: 3, prepass: 2, "gn_apply_kernel": 0 if kind == "K4" else 1}
+    # and GN1's one-launch kernel once a block with GN1 (K4's h comes with it);
+    # the block's pre-pass is GN2's folding one, counted apart too
+    want = {gemm: 3, prepass: 2, "gn_apply_kernel": 0 if kind == "K4" else 1,
+            "gn_prepass_kernel": 1}
     assert t_rb.block_launches(reset=True) == {**dict.fromkeys(t_rb.BLOCK_COUNTED, 0), **want}
     assert t_rb.block_launches() == dict.fromkeys(t_rb.BLOCK_COUNTED, 0)
