@@ -29,8 +29,11 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      its output is the f32 residual (x + b2)/sqrt(2) to f32 rounding; then the
      layer-wise kernels at every shape of the trunk's layer-wise paths: K11
      (bf16, against its f32 plain version, with F.conv2d's time), K11-int8
-     (bit-identical to its exact plain version) and K12 (scales, and int8
-     values at most one step apart), and K1 without SiLU at the attention
+     on the int8 block GEMM (bit-identical to its exact plain version, also
+     with sums past 2^24 and a scalar scale; device time and int8-peak
+     share beside the bare int8 GEMM's) and K12 (bf16 and f32 x: scales, int8
+     values at most one step apart, its route's launches; device time and
+     share of its bound), both at B=4, 16 and 64, and K1 without SiLU at the attention
      shapes beside F.group_norm's time; K11 bf16 again at B=16 and B=64
      (each shape beside F.conv2d, won or lost); K8 in f32 at the training
      batch (B=128) and in bf16 (against its plain version on the same bf16
@@ -97,6 +100,9 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
 Then one line {"kernels": [...]}, one line with the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 
+``--phases blur_span`` (not in the default run) traces the blur layer-wise
+'int8' eval at B=64 and 16, twice each: kernels, device time (sum and
+union), K11 int8's and K12's totals; a parent's checkout runs it too.
 ``--phases profile`` (not in the default run) traces one eval of the CLD bf16
 and int8 kernel paths, then of the same with transition_impl 'tail' and
 'full', then of the blur 'fused_int8' and layer-wise 'int8' and 'pallas' paths, at
@@ -327,7 +333,10 @@ PER_EVAL = {"K1": 7, "K2": 34, "K3": 36, "K4": 6, "K5": 10}
 # ('pallas') every other GN; K12 in the 70 stride-1 and pair blocks' GN1 and
 # all 76 GN2s; K11 in the 76 blocks' two convs; K8 in the 10 attention blocks
 PER_EVAL_PALLAS = {"K1": 163, "K11": 152, "K8": 10}
-PER_EVAL_LAYER_INT8 = {"K1": 17, "K12": 146, "K11-int8": 152, "K8": 10}
+PER_EVAL_LAYER_INT8 = {"K1": 17, "K12": 146, "K11-int8": 152, "K8": 10,
+                       # counted in C: K11 int8's block GEMM launches, and K12 as
+                       # one gn_apply_kernel launch at each of its 146 sites
+                       "S8-GEMM": 152, "GN-apply": 146}
 # ... of its int8 path: the same blocks through the int8 modes
 PER_EVAL_INT8 = {"K1": 7, "K2-int8": 34, "K3-int8": 36, "K4-int8": 6, "K5-int8": 10}
 # ... with model.transition_impl 'full': the 6 transitions through K9 (K1 only
@@ -426,11 +435,13 @@ KERNELS = {
                     replaces="gddim_tpu/ops/attnblock.py:166"),
     "K11": dict(name="conv3x3_pallas", route="cuda", source="gddim_torch/csrc/conv3x3.cu",
                 replaces="gddim_tpu/ops/conv3x3.py:87"),
+    # K11 int8 on the int8 block GEMM (int32 split-K partials)
     "K11-int8": dict(name="conv3x3_pallas_int8", route="cuda",
-                     source="gddim_torch/csrc/conv3x3.cu",
+                     source="gddim_torch/csrc/block_gemm.cu",
                      replaces="gddim_tpu/ops/conv3x3.py:206"),
-    "K12": dict(name="group_norm_silu_quant", route="triton",
-                source="gddim_torch/ops/groupnorm.py",
+    # K12: gn_apply_kernel's per-sample int8 mode with the unfolded affine
+    "K12": dict(name="group_norm_silu_quant", route="cuda",
+                source="gddim_torch/csrc/gn_apply.cu",
                 replaces="gddim_tpu/ops/groupnorm.py:140"),
     "K9": dict(name="fused_resblock_transition", route="cuda",
                source="gddim_torch/csrc/transition.cu",
@@ -2479,19 +2490,116 @@ def phase_eval_span(card: str, batch: int = 64):
     del model
 
 
+# The blur layer-wise int8 path's K11 int8 and K12 by kernel name, in a
+# parent's trace and in this tree's: K11 int8 on conv3x3_s8_kernel (+ its
+# split sums) before, on the int8 block GEMM (+ block_splitk_s32_kernel)
+# after; K12 as two Triton launches before, gn_apply_kernel after
+BLUR_SPAN_KERNELS = {"K11-int8": ("conv3x3_s8_kernel", "s8_splitk_kernel", "block_gemm_kernel",
+                                  "block_splitk"),
+                     "K12": ("gn_silu_amax_kernel", "gn_silu_quant_kernel", "gn_apply_kernel")}
+
+
+def phase_blur_span(card: str, batches=(64, 16)):
+    """One blur/ddpm_deep_cifar10 eval through the layer-wise 'int8' path
+    (conv_impl 'int8': K12 into K11 int8 in every residual block) at each
+    batch, traced twice: its kernels, device time as their sum and as the
+    union of their intervals, and K11 int8's and K12's totals; then both
+    kernels alone (time_layer_kernels). Uses only what a parent's checkout
+    has too (copy this file there to run it on the parent)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gddim_torch.cli import build_model
+    from gddim_torch.configs import get_config
+    from gddim_torch.math.blur import BlurSDE
+    from gddim_torch.models.wrappers import make_blur_yeps_fn
+
+    config = get_config("blur/ddpm_deep_cifar10")
+    config.model.conv_impl = "int8"
+    model = build_model(config, "cuda", None, seed=0)
+    yeps = make_blur_yeps_fn(BlurSDE.from_config(config))
+    for batch in batches:
+        u, t = eps_inputs(batch)
+        y = u[..., 0]
+        for _ in range(3):
+            yeps(model, y, t)
+        torch.cuda.synchronize()
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                yeps(model, y, t)
+                torch.cuda.synchronize()
+            dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+            parts = []
+            for name, keys in BLUR_SPAN_KERNELS.items():
+                hit = [(k, m, n) for k, m, n in dev if any(p in k for p in keys)]
+                parts.append(f"{name} {sum(m for _, m, _ in hit):.3f} ms in "
+                             f"{sum(n for *_, n in hit)} ("
+                             + ", ".join(f"{k[:40]} {n}x" for k, _, n in hit) + ")")
+            print(f"span blur int8 B={batch} [{card}]: kernels {sum(n for *_, n in dev)}, sum "
+                  f"{sum(m for _, m, _ in dev):.3f} ms, union {busy_ms(prof):.3f} ms; "
+                  + "; ".join(parts), flush=True)
+    del model
+    time_layer_kernels(card)
+
+
+def time_layer_kernels(card: str, batches=(4, 16, 64)):
+    """K11 int8 at its 13 shapes (beside the bare int8 block GEMM on the same
+    operands) and K12 at its 11 sites (bf16 and f32 x) alone, device ms (CUDA
+    graph) at each batch, with the int8 peak's or the bytes bound's share,
+    through the op-level calls a parent's checkout has too, on the same
+    seeded inputs in either tree. No check: the kernels phase holds both
+    kernels to their plain versions."""
+    import inspect
+
+    from gddim_torch.ops import conv3x3, groupnorm, resblock as rb
+
+    packed = "w_kmajor" in inspect.signature(conv3x3.conv3x3_pallas_int8).parameters
+    for batch in batches:
+        inp = Inputs(13)
+        k11, bare, ops, rows = 0.0, 0.0, 0, []
+        for h, cin, cout in SHAPES["K11"]:
+            x8, sx = conv3x3.quantize_per_sample(inp.act(batch, h, h, cin))
+            w8, sw = conv3x3.quantize_weight_per_channel(inp.w(3, 3, cin, cout))
+            bias, wk = inp.vec(cout), rb.pack_int8_weight((w8, sw))[0]
+            kw = dict(w_kmajor=wk) if packed else {}
+            ms = graph_ms(lambda: conv3x3.conv3x3_pallas_int8(x8, w8, sw, sx, bias, **kw))
+            k11, bare = k11 + ms, bare + graph_ms(lambda: rb.int8_conv_gemm(x8, wk))
+            ops += 2 * batch * h * h * 9 * cin * cout
+            rows.append(f"{h}x{h} {cin}->{cout} {ms:.4f}")
+        print(f"alone K11-int8 B={batch} [{card}]: 13 shapes device {k11:.4f} ms "
+              f"({ops / PEAK['int8'] * 1e3 / k11:.1%} of the int8 peak), the bare int8 GEMM "
+              f"{bare:.4f} ms; " + ", ".join(rows), flush=True)
+        for dtype in (torch.bfloat16, torch.float32):
+            k12, bd, rows = 0.0, 0.0, []
+            for h, c in SHAPES["K12"]:
+                x = inp.act(batch, h, h, c).to(dtype)
+                gs, gb = inp.vec(c, 1.0), inp.vec(c)
+                ms = graph_ms(lambda: groupnorm.group_norm_silu_quant(x, gs, gb, 32))
+                k12 += ms
+                bd += 1e3 * (nbytes(x, gs, gb) + x.numel() + 4 * batch) / HBM
+                rows.append(f"{h}x{h}x{c} {ms:.4f}")
+            print(f"alone K12 {str(dtype).split('.')[-1]} B={batch} [{card}]: 11 sites device "
+                  f"{k12:.4f} ms, bytes bound {bd:.4f} ms ({bd / k12:.1%}); " + ", ".join(rows),
+                  flush=True)
+
+
 def phase_bits(save: str, ref: str | None):
-    """What GN2's pre-pass makes, through the blocks that consume it, on
-    seeded inputs: one eps evaluation at B=4 and 64 (transition_impl 'full',
-    bf16 and int8 static: all 76 GN2 pre-passes of an eval, every site and
-    both sampling modes) and K6's forward at every training shape (B=4; the
-    pre-pass's training form), saved to ``save``; with ``ref`` (the file of
+    """What GN2's pre-pass and the per-sample int8 quantizer make, through
+    the blocks that consume them, on seeded inputs: one eps evaluation at
+    B=4 and 64 (transition_impl 'full', bf16, int8 static and int8 per
+    sample: all 76 GN2 pre-passes of an eval, every site and every sampling
+    mode), K6's forward at every training shape (B=4; the pre-pass's
+    training form), the blur layer-wise 'int8' eval at B=4 and 64, and K12
+    at its 11 sites (B=4), saved to ``save``; with ``ref`` (the file of
     another tree, e.g. the parent's), each tensor bit for bit against it.
     Uses only what a parent's checkout has too."""
     from gddim_torch.cli import build_model, calibrate_int8
     from gddim_torch.configs import get_config
+    from gddim_torch.math.blur import BlurSDE
     from gddim_torch.math.cld import CLD
-    from gddim_torch.models.wrappers import make_cld_eps_fn
-    from gddim_torch.ops import resblock
+    from gddim_torch.models.wrappers import make_blur_yeps_fn, make_cld_eps_fn
+    from gddim_torch.ops import groupnorm, resblock
 
     config = get_config("cld/accr_dcifar10")
     config.model.transition_impl = "full"
@@ -2505,12 +2613,27 @@ def phase_bits(save: str, ref: str | None):
         for name, int8 in (("bf16", False), ("int8", True)):
             model.int8 = int8
             out[f"eps {name} B={batch}"] = eps_apply(model, u, t)
+        qscales, model.qscales = model.qscales, {}
+        out[f"eps int8 per-sample B={batch}"] = eps_apply(model, u, t)
+        model.qscales = qscales
     del model
     inp = Inputs(21)
     for h, cin, cout in SHAPES["K6"]:
         args, mask, _ = train_block_inputs(inp, 4, h, cin, cout)
         kw = dict(keep_prob=0.9, num_groups1=min(cin // 4, 32), num_groups2=min(cout // 4, 32))
         out[f"K6 {h}x{h} {cin}->{cout}"] = resblock.fused_resblock_train(*args, mask, **kw)
+    config = get_config("blur/ddpm_deep_cifar10")
+    config.model.conv_impl = "int8"
+    model = build_model(config, "cuda", None, seed=0)
+    yeps = make_blur_yeps_fn(BlurSDE.from_config(config))
+    for batch in (4, 64):
+        u, t = eps_inputs(batch)
+        out[f"blur int8 B={batch}"] = yeps(model, u[..., 0], t)
+    del model
+    for h, c in SHAPES["K12"]:
+        q, qs = groupnorm.group_norm_silu_quant(inp.act(4, h, h, c), inp.vec(c, 1.0),
+                                                inp.vec(c), 32)
+        out[f"K12 {h}x{h}x{c} q"], out[f"K12 {h}x{h}x{c} qs"] = q, qs
     torch.cuda.synchronize()
     torch.save({k: v.cpu() for k, v in out.items()}, save)
     print(f"bits: {len(out)} tensors saved to {save}", flush=True)
@@ -2692,57 +2815,36 @@ def check_attention(results, q, k, v, ops: dict, tol: float):
         raise AssertionError(f"K8 {label}: rel err {rel:.3e} > {tol:.0e}")
 
 
-def phase_layer_kernels(results: dict, B: int = 4):
+def phase_layer_kernels(results: dict, batch_results: dict, B: int = 4,
+                        batches=(4, 16, 64)):
     """K11 (bf16 and int8) and K12 at every shape of the layer-wise paths,
-    and K1 without SiLU at the attention shapes beside F.group_norm."""
+    and K1 without SiLU at the attention shapes beside F.group_norm; K11
+    int8 and K12 at each of ``batches`` (B's rows in the kernels line, the
+    others in batch_results) with device time."""
     from gddim_torch.ops import conv3x3, groupnorm
 
     inp = Inputs(3)
     for h, cin, cout in SHAPES["K11"]:
-        label = f"{h}x{h} {cin}->{cout}"
-        x, w = inp.act(B, h, h, cin), inp.w(3, 3, cin, cout)
-        products = 2 * B * h * h * 9 * cin * cout
-        check_conv(results, x, w, label, B)
-        x8, sx = conv3x3.quantize_per_sample(x)
-        w8, sw = conv3x3.quantize_weight_per_channel(w)
-        args = (x8, w8, sw, sx, inp.vec(cout))
-        # the plain version sums exactly in float64: no yardstick of speed
-        _check_kernel(results, "K11-int8", label, lambda: conv3x3.conv3x3_pallas_int8(*args),
-                      lambda: conv3x3.conv3x3_int8_reference(*args), args, {"int8": products},
-                      plain_reps=5, B=B)
+        check_conv(results, inp.act(B, h, h, cin), inp.w(3, 3, cin, cout),
+                   f"{h}x{h} {cin}->{cout}", B)
     # K11 bf16 at the layer-wise sampling paths' batches too
     for batch in (16, 64):
         for h, cin, cout in SHAPES["K11"]:
             check_conv(results, inp.act(batch, h, h, cin), inp.w(3, 3, cin, cout),
                        f"B={batch} {h}x{h} {cin}->{cout}", batch)
-    for h, c in SHAPES["K12"]:
-        label = f"{h}x{h}x{c}"
-        x, gs, gb = inp.act(B, h, h, c), inp.vec(c, 1.0), inp.vec(c)
-        fused = lambda: groupnorm.group_norm_silu_quant(x, gs, gb, 32)  # noqa: E731
-        plain = lambda: groupnorm.group_norm_silu_quant_reference(x, gs, gb, 32)  # noqa: E731
-        (q, qs), (q_ref, qs_ref) = fused(), plain()
-        torch.cuda.synchronize()
-        if q.dtype != torch.int8 or q.shape != x.shape or qs.shape != (B,):
-            raise AssertionError(f"K12 {label}: got {q.dtype} {tuple(q.shape)}, {tuple(qs.shape)}")
-        deq, deq_ref = (a.float() * b[:, None, None, None] for a, b in ((q, qs), (q_ref, qs_ref)))
-        err = (deq - deq_ref).abs().max().item()
-        rel = err / deq_ref.abs().max().item()
-        scale_rel = ((qs - qs_ref).abs() / qs_ref).max().item()
-        step = (q.int() - q_ref.int()).abs()
-        steps, share = step.max().item(), (step > 0).float().mean().item()
-        ms, plain_ms = time_ms(fused), time_ms(plain)
-        bd = bound(nbytes(x, gs, gb, q, qs), {"f32": 12 * x.numel()})
-        print(f"kernel K12 group_norm_silu_quant [{label}] B={B}: dequantized max|err|={err:.3e} "
-              f"rel={rel:.3e} (bound {KERNEL_BOUND['K12']:.0e}), scales rel={scale_rel:.3e} "
-              f"(bound {K12_SCALE_BOUND:.0e}), int8 values one step apart: {share:.2e} (bound "
-              f"{K12_FLIP_SHARE:.0e}), largest step {steps}; ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bd[0]:.4f}", flush=True)
-        _record(results, "K12", label, err, rel, ms, plain_ms, bd, scale_rel=scale_rel,
-                flip_share=share)
-        if not (np.isfinite(rel) and rel <= KERNEL_BOUND["K12"] and scale_rel <= K12_SCALE_BOUND
-                and steps <= 1 and share <= K12_FLIP_SHARE):
-            raise AssertionError(f"K12 {label}: rel {rel:.3e}, scales {scale_rel:.3e}, "
-                                 f"steps {steps}, share {share:.2e} over bounds")
+    for batch in batches:
+        res = results if batch == B else batch_results
+        for h, cin, cout in SHAPES["K11"]:
+            check_conv_int8(res, inp, batch, h, cin, cout)
+        for h, c in SHAPES["K12"]:
+            for dtype in (torch.bfloat16, torch.float32):
+                check_k12(res, inp, batch, h, c, dtype)
+    # sums past 2^24 (the exact int32 split-K; f32 partials would round
+    # them) with a scalar activation scale: the split 4x4 512->256 and the
+    # unsplit 32x32 384->128
+    for h, cin, cout in ((4, 512, 256), (32, 384, 128)):
+        check_conv_int8(batch_results, inp, B, h, cin, cout, large=True)
+    print_layer_sums(results, batch_results)
     for h, c in SHAPES["K1_attn"]:
         label = f"{h}x{h}x{c} no silu"
         x, gs, gb = inp.act(B, h, h, c), inp.vec(c, 1.0), inp.vec(c)
@@ -2752,6 +2854,131 @@ def phase_layer_kernels(results: dict, B: int = 4):
                       lambda: groupnorm.group_norm_silu_reference(x.float(), gs, gb, **kw),
                       (x, gs, gb), {"f32": 8 * x.numel()},
                       library_ms=time_ms(lambda: F.group_norm(xc, 32, gs16, gb16, 1e-6)), B=B)
+
+
+def check_conv_int8(res, inp, B: int, h: int, cin: int, cout: int, large: bool = False):
+    """K11 int8 on the int8 block GEMM at one shape, bit-identical to its exact
+    plain version (float64 sums rounded once to f32, the dequantization's
+    f32 operations), with its device time and int8-peak share beside the
+    bare int8 GEMM's on the same operands. large: every sum past 2^24
+    (positive operands near 127) and a scalar activation scale."""
+    from gddim_torch.ops import conv3x3, resblock as rb
+
+    label = f"B={B} {h}x{h} {cin}->{cout}" + (" sums>2^24 scalar scale" if large else "")
+    if large:
+        x8 = torch.randint(100, 128, (B, h, h, cin), generator=inp.g, device="cuda",
+                           dtype=torch.int8)
+        w8 = torch.randint(100, 128, (3, 3, cin, cout), generator=inp.g, device="cuda",
+                           dtype=torch.int8)
+        sw = 1e-4 * (1.0 + torch.rand((cout,), generator=inp.g, device="cuda"))
+        sx = torch.tensor(3.7e-3, device="cuda")
+    else:
+        x8, sx = conv3x3.quantize_per_sample(inp.act(B, h, h, cin))
+        w8, sw = conv3x3.quantize_weight_per_channel(inp.w(3, 3, cin, cout))
+    bias = inp.vec(cout)
+    wk = rb.pack_int8_weight((w8, sw))[0]
+    plan = rb.s8_tile_plan(B, h, h, cin, 0, cout)
+    fused = lambda: conv3x3.conv3x3_pallas_int8(x8, w8, sw, sx, bias, w_kmajor=wk)  # noqa: E731
+    plain = lambda: conv3x3.conv3x3_int8_reference(x8, w8, sw, sx, bias)  # noqa: E731
+    rb.block_launches(reset=True)
+    out = fused()
+    torch.cuda.synchronize()
+    gemms = rb.block_launches(kernels=("block_gemm_kernel<int8>",))["block_gemm_kernel<int8>"]
+    ref = plain()
+    top = conv3x3.conv3x3_int8_exact(x8, w8).abs().max().item() if large else None
+    exact = out.dtype == torch.bfloat16 and torch.equal(out, ref)
+    err = (out.float() - ref.float()).abs().max().item()
+    ops = {"int8": 2 * B * h * h * 9 * cin * cout}
+    ms, plain_ms = time_ms(fused), time_ms(plain, 5 if B == 4 else 1)
+    dev = device_share(ops, graph_ms(fused))
+    bare = graph_ms(lambda: rb.int8_conv_gemm(x8, wk))
+    bd = bound(nbytes(x8, wk, sw, sx, bias, out), ops)
+    print(f"kernel K11-int8 conv3x3_pallas_int8 [{label}]: bit-identical to its exact plain "
+          f"version: {exact} (max|err| {err:.3e}; bound {KERNEL_BOUND['K11-int8']:.0e})"
+          + (f", largest |sum| {top:.0f} (2^24 = {2 ** 24})" if large else "")
+          + f"; {plan.splits} splits, {gemms} block_gemm_kernel<int8> launch; ms={ms:.4f} "
+          f"device ms={dev['graph_ms']:.4f} ({dev['int8_peak_share']:.1%} of the int8 peak), "
+          f"bare int8 GEMM device ms={bare:.4f}; plain_ms={plain_ms:.4f} bound_ms={bd[0]:.4f}",
+          flush=True)
+    _record(res, "K11-int8", label, err, err / ref.float().abs().max().item(), ms, plain_ms, bd,
+            bare_graph_ms=bare, **dev)
+    if not exact or err > KERNEL_BOUND["K11-int8"] or gemms != 1 or (large and top < 2 ** 24):
+        raise AssertionError(f"K11-int8 {label}: max|err| {err:.3e}, {gemms} GEMM launches, "
+                             f"largest sum {top}")
+
+
+def check_k12(res, inp, B: int, h: int, c: int, dtype):
+    """K12 at one site against its plain version (scales within
+    K12_SCALE_BOUND, int8 values at most one step apart on at most
+    K12_FLIP_SHARE of them), its route (one gn_apply_kernel launch where
+    gn_apply_ctas says so, else the GN statistics and the int8 pre-pass),
+    device time and share of its bytes bound."""
+    from gddim_torch.ops import groupnorm, resblock as rb
+
+    dt = "f32" if dtype == torch.float32 else "bf16"
+    label = f"B={B} {h}x{h}x{c} {dt}"
+    x = inp.act(B, h, h, c).to(dtype) if dtype == torch.bfloat16 else \
+        torch.randn((B, h, h, c), generator=inp.g, device="cuda")
+    gs, gb = inp.vec(c, 1.0), inp.vec(c)
+    fused = lambda: groupnorm.group_norm_silu_quant(x, gs, gb, 32)  # noqa: E731
+    plain = lambda: groupnorm.group_norm_silu_quant_reference(x, gs, gb, 32)  # noqa: E731
+    rb.block_launches(reset=True)
+    q, qs = fused()
+    torch.cuda.synchronize()
+    routes = rb.block_launches(kernels=("gn_apply_kernel", "gn_stats_kernel",
+                                        "prepass_kernel<int8>"))
+    ctas = rb.gn_apply_ctas(h, h, c, dtype == torch.float32)
+    want = ({"gn_apply_kernel": 1, "gn_stats_kernel": 0, "prepass_kernel<int8>": 0} if ctas
+            else {"gn_apply_kernel": 0, "gn_stats_kernel": 1, "prepass_kernel<int8>": 1})
+    q_ref, qs_ref = plain()
+    if q.dtype != torch.int8 or q.shape != x.shape or qs.shape != (B,):
+        raise AssertionError(f"K12 {label}: got {q.dtype} {tuple(q.shape)}, {tuple(qs.shape)}")
+    deq, deq_ref = (a.float() * b[:, None, None, None] for a, b in ((q, qs), (q_ref, qs_ref)))
+    err = (deq - deq_ref).abs().max().item()
+    rel = err / deq_ref.abs().max().item()
+    scale_rel = ((qs - qs_ref).abs() / qs_ref).max().item()
+    step = (q.int() - q_ref.int()).abs()
+    steps, share = step.max().item(), (step > 0).float().mean().item()
+    ms, plain_ms, dev_ms = time_ms(fused), time_ms(plain), graph_ms(fused)
+    bd = bound(nbytes(x, gs, gb, q, qs), {"f32": 12 * x.numel()})
+    print(f"kernel K12 group_norm_silu_quant [{label}]: dequantized max|err|={err:.3e} "
+          f"rel={rel:.3e} (bound {KERNEL_BOUND['K12']:.0e}), scales rel={scale_rel:.3e} "
+          f"(bound {K12_SCALE_BOUND:.0e}), int8 values one step apart: {share:.2e} (bound "
+          f"{K12_FLIP_SHARE:.0e}), largest step {steps}; route {ctas} CTAs a sample, launches "
+          f"{routes}; ms={ms:.4f} device ms={dev_ms:.4f} ({bd[0] / dev_ms:.1%} of its bound) "
+          f"plain_ms={plain_ms:.4f} bound_ms={bd[0]:.4f}", flush=True)
+    _record(res, "K12", label, err, rel, ms, plain_ms, bd, scale_rel=scale_rel,
+            flip_share=share, graph_ms=dev_ms)
+    if not (np.isfinite(rel) and rel <= KERNEL_BOUND["K12"] and scale_rel <= K12_SCALE_BOUND
+            and steps <= 1 and share <= K12_FLIP_SHARE and routes == want):
+        raise AssertionError(f"K12 {label}: rel {rel:.3e}, scales {scale_rel:.3e}, "
+                             f"steps {steps}, share {share:.2e} over bounds; launches {routes}, "
+                             f"expected {want}")
+
+
+def print_layer_sums(*results: dict):
+    """K11 int8 (beside the bare int8 GEMM) and K12 (by dtype) summed by
+    batch: eager and device ms, bound, and the int8 peak's or the bound's
+    share of the device time."""
+    groups = {}
+    for kernel in ("K11-int8", "K12"):
+        for r in (r for res in results for r in res.get(kernel, {}).get("shapes", [])):
+            words = r["shape"].split()
+            if "sums>2^24" in words:
+                continue
+            key = " ".join([kernel, words[0]] + ([words[-1]] if kernel == "K12" else []))
+            g = groups.setdefault(key, dict(n=0, ms=0.0, dev=0.0, bare=0.0, bound=0.0, ops=0))
+            g["n"] += 1
+            for k, v in (("ms", "ms"), ("dev", "graph_ms"), ("bound", "bound_ms")):
+                g[k] += r[v]
+            g["bare"] += r.get("bare_graph_ms", 0.0)
+            g["ops"] += r.get("int8_ops", 0)
+    for key, g in groups.items():
+        share = (f"{g['ops'] / PEAK['int8'] * 1e3 / g['dev']:.1%} of the int8 peak; bare int8 "
+                 f"GEMM device {g['bare']:.4f} ms" if key.startswith("K11")
+                 else f"{g['bound'] / g['dev']:.1%} of its bound")
+        print(f"sum {key}: {g['n']} shapes, eager {g['ms']:.4f} ms, device {g['dev']:.4f} ms, "
+              f"bound {g['bound']:.4f} ms, {share}", flush=True)
 
 
 def check_conv(results, x, w, label: str, B: int):
@@ -3387,7 +3614,8 @@ def main(argv=None):
     # (the GN backward under every cluster plan), eval_span (the B=64 eval's
     # device time and GN2's pre-pass; a parent's checkout runs it too), bits
     # (outputs behind GN2's pre-pass, saved and held against another tree's),
-    # train_ab (the loss curves)
+    # train_ab (the loss curves), blur_span (the blur layer-wise int8 eval's
+    # device time, K11 int8's and K12's; a parent's checkout runs it too)
     parser.add_argument("--phases", default="build,kernels,eps,gates,sample,int8,blur,train")
     parser.add_argument("--batch", type=int, default=16, help="sampling batch")
     parser.add_argument("--bits", default=None, help="phase bits: the file to save to")
@@ -3425,7 +3653,7 @@ def main(argv=None):
         phase_s8_kernels(results, batch_results)
         phase_bf16_kernels(results, batch_results)
         phase_train_kernels(results, batch_results)
-        phase_layer_kernels(results)
+        phase_layer_kernels(results, batch_results)
         phase_transition_kernels(results, batch_results)
         phase_attn_train_kernels(results)
         phase_f32_activations()
@@ -3476,6 +3704,8 @@ def main(argv=None):
         phase_gn_bwd_plans(card)
     if "eval_span" in phases:
         phase_eval_span(card)
+    if "blur_span" in phases:
+        phase_blur_span(card)
     if "bits" in phases:
         phase_bits(args.bits or "bits.pt", args.bits_ref)
     if "gn2_prepass" in phases and "kernels" not in phases:

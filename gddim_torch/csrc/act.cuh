@@ -90,6 +90,29 @@ __device__ __forceinline__ int8_t quant8(float v) {
   return (int8_t)fminf(fmaxf(rintf(v), -127.0f), 127.0f);  // rintf: half to even
 }
 
+// clip(rint(f / s)) of 8 activations, s = max(amax, 1e-12) / 127 of their
+// sample, with the IEEE division's result, computed mostly without it: t =
+// f * (1 / s) is within 2^-23 |f / s| <= 1.6e-5 of f / s (|f| <= amax), so
+// rint(t) is rint(f / s) unless t lies within 1e-4 of a half step, where
+// the 8 values are divided after all. IEEE division a value put each of the
+// 8 in a branch of its own (its slow-path test), one after another.
+__device__ __forceinline__ void div_quant8(const float f[8], float s, int8_t e[8]) {
+  const float inv = 1.0f / s;
+  float t[8];
+  bool near = false;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    t[j] = f[j] * inv;
+    near |= fabsf(t[j] - rintf(t[j])) > 0.4999f;
+  }
+  if (near) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = f[j] / s;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) e[j] = quant8(t[j]);
+}
+
 // The int8 values of 8 activations f of sample b: the GN affine (+SiLU)
 // in f32 first when sc is non-null, then clip(rint(a * inv_static))
 // (static), clip(rint(a * (127 / amax_b))) (inv_mul: the pair's conv1) or
@@ -117,9 +140,7 @@ __device__ __forceinline__ uint2 quantize8(float f[8], const float* sc, const fl
 #pragma unroll
       for (int j = 0; j < 8; ++j) e[j] = quant8(f[j] * inv);
     } else {
-      const float s = am / 127.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = quant8(f[j] / s);
+      div_quant8(f, am / 127.0f, e);
     }
   }
   return v;

@@ -2,9 +2,11 @@
 // skip, of the bf16 and int8 modes of K2, K3, K4 and K9 (conv_impl 'fused'
 // on bf16 activations, and 'fused_int8'), and K5's q/k/v and output
 // projections as 1x1 convs over M = B*H*W pixels (taps 1, attnblock.cu);
-// and the training blocks' GEMMs over M: K6's two convs (resblock.cu), K7's
+// the training blocks' GEMMs over M: K6's two convs (resblock.cu), K7's
 // recomputed conv1, its two 3x3 dgrads and its 1x1 skip dgrad
-// (resblock_bwd.cu).
+// (resblock_bwd.cu); and K11's int8 form (gddim_conv3x3_int8 below, conv_impl
+// 'int8': gddim_tpu/ops/conv3x3.py:conv3x3_pallas_int8, whose int32 sums over
+// all nine taps are converted once, so its split K adds int32 partials).
 //
 // Replaces the conv part of gddim_tpu/ops/resblock.py's kernels
 // (_resblock_kernel_v2 and _resblock_kernel for K2 and K4,
@@ -63,7 +65,8 @@
 // - Small grids split K as K11 does: each split writes its f32 partial
 //   (dequantized in the int8 mode; conv and skip), and block_splitk_kernel
 //   sums them in split order, so the result does not depend on the run
-//   (block_splitk_stats_kernel for conv1: by tile, with GN2's sums). The
+//   (block_splitk_stats_kernel for conv1: by tile, with GN2's sums; K11
+//   int8 (S32): raw int32 partials, block_splitk_s32_kernel). The
 //   tile plan (tile height, box, splits) is a pure function of the shapes,
 //   computed in Python (ops/resblock.py:bf16_tile_plan, s8_tile_plan); the
 //   ring's depth and shared memory follow from the tile height here (Tile).
@@ -134,6 +137,7 @@ struct Plan {
   const float* wsc;
   const float* qs;
   const float* amax;
+  const float* asc;  // K11 int8: the (B,) activation scales themselves
   const float* bias;
   const float* bias2;
   const float* temb;
@@ -298,8 +302,10 @@ __device__ __forceinline__ void load_nmajor(uint32_t b, const CUtensorMap* map, 
 // shared memory. Split z runs the slices [z*kper, min((z+1)*kper, slices)):
 // first those of the conv (TA), then those of the skip (bf16). STATS (conv1,
 // f32 out, K not split): the epilogue also takes GN2's sums. KMAJ (bf16, no
-// skip): a dgrad, the weights K-major and tap-reversed.
-template <typename TA, int MW, typename TO, bool STATS, bool KMAJ = false>
+// skip): a dgrad, the weights K-major and tap-reversed. S32 (int8, no skip,
+// K split: K11 int8): a split stores its raw int32 sums, which
+// block_splitk_s32_kernel adds in int32 before it dequantizes them once.
+template <typename TA, int MW, typename TO, bool STATS, bool KMAJ = false, bool S32 = false>
 __global__ void __launch_bounds__(THREADS, 3 - MW)
 block_gemm_kernel(const __grid_constant__ CUtensorMap amap,
                   const __grid_constant__ CUtensorMap wmap,
@@ -415,6 +421,26 @@ block_gemm_kernel(const __grid_constant__ CUtensorMap amap,
 #pragma unroll
     for (int h = 0; h < 2; ++h) rows[t][h] = tile_row(p, b0, y0, 64 * (g * MW + t) + row0 + 8 * h);
 
+  if constexpr (S32) {
+    // this split's int32 sums as they are (the accumulators before the
+    // in-place conversion): a sum of int32 partials is the whole K's sum,
+    // whatever the split, where f32 partials round past 2^24
+    int* part = reinterpret_cast<int*>(p.partial);
+    const long M = (long)p.B * hw;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int t = 0; t < MW; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = rows[t][h];
+          if (m >= 0)
+            *reinterpret_cast<int2*>(part + (blockIdx.z * M + m) * p.N + n0 + col0 + 8 * j) =
+                make_int2((int)acc[t][4 * j + 2 * h], (int)acc[t][4 * j + 2 * h + 1]);
+        }
+    return;
+  }
+
   if constexpr (kInt8) {
     // the int32 sums to f32 in place, times (w_scale[n] * s) of the row's
     // scale; column-outer, so that a weight scale is loaded once for the
@@ -425,7 +451,10 @@ block_gemm_kernel(const __grid_constant__ CUtensorMap amap,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = rows[t][h];
-        srow[t][h] = p.qs != nullptr ? *p.qs : m < 0 ? 0.f : fmaxf(p.amax[m / hw], 1e-12f) / 127.0f;
+        srow[t][h] = p.qs != nullptr ? *p.qs
+                     : m < 0          ? 0.f
+                     : p.asc != nullptr ? p.asc[m / hw]
+                                        : fmaxf(p.amax[m / hw], 1e-12f) / 127.0f;
       }
 #pragma unroll
     for (int j = 0; j < 16; ++j)
@@ -567,17 +596,42 @@ __global__ void __launch_bounds__(256) block_splitk_stats_kernel(const Plan p) {
   }
 }
 
-template <typename TA, int MW, typename TO, bool STATS = false, bool KMAJ = false>
+// K11 int8's split-K reduction: the int32 partials added in int32 (exact,
+// in any order), then the unsplit tile's arithmetic: the sum converted to
+// f32 once, times (wsc[n] * asc[b]), plus the bias, rounded once to bf16,
+// each operation rounded on its own as the plain version's. grid
+// ceil(M*N/2 / 256), 256 threads, 2 channels each.
+__global__ void __launch_bounds__(256) block_splitk_s32_kernel(const Plan p) {
+  const long mn = (long)p.B * p.H * p.W * p.N;
+  const long v = ((long)blockIdx.x * 256 + threadIdx.x) * 2;
+  if (v >= mn) return;
+  const int* part = reinterpret_cast<const int*>(p.partial);
+  int2 r = *reinterpret_cast<const int2*>(part + v);
+  for (int z = 1; z < p.splits; ++z) {
+    const int2 a = *reinterpret_cast<const int2*>(part + z * mn + v);
+    r.x += a.x;
+    r.y += a.y;
+  }
+  const int n = (int)(v % p.N);
+  const float s = p.asc[v / p.N / (p.H * p.W)];
+  const float2 cb = bias2(p, n);
+  store2((bf16*)p.out + v,
+         __fadd_rn(__fmul_rn(__int2float_rn(r.x), __fmul_rn(p.wsc[n], s)), cb.x),
+         __fadd_rn(__fmul_rn(__int2float_rn(r.y), __fmul_rn(p.wsc[n + 1], s)), cb.y));
+}
+
+template <typename TA, int MW, typename TO, bool STATS = false, bool KMAJ = false,
+          bool S32 = false>
 int launch(dim3 grid, const CUtensorMap* maps, const Plan& p, cudaStream_t st) {
   static bool attr = false;
   if (!attr) {
-    const int err = (int)cudaFuncSetAttribute(block_gemm_kernel<TA, MW, TO, STATS, KMAJ>,
+    const int err = (int)cudaFuncSetAttribute(block_gemm_kernel<TA, MW, TO, STATS, KMAJ, S32>,
                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                                               Tile<MW>::SMEM);
     if (err) return err;
     attr = true;
   }
-  block_gemm_kernel<TA, MW, TO, STATS, KMAJ><<<grid, THREADS, Tile<MW>::SMEM, st>>>(
+  block_gemm_kernel<TA, MW, TO, STATS, KMAJ, S32><<<grid, THREADS, Tile<MW>::SMEM, st>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], p);
   int err = (int)cudaGetLastError();
   if (!err)
@@ -585,7 +639,10 @@ int launch(dim3 grid, const CUtensorMap* maps, const Plan& p, cudaStream_t st) {
                  : p.train                       ? COUNT_GEMM_TRAIN
                                                  : COUNT_GEMM_BF16);
   if (!err && p.splits > 1) {
-    if (p.gn_part != nullptr) {
+    if constexpr (S32) {
+      const long vecs = (long)p.B * p.H * p.W * p.N / 2;
+      block_splitk_s32_kernel<<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>(p);
+    } else if (p.gn_part != nullptr) {
       block_splitk_stats_kernel<TO><<<dim3(grid.x, p.N / 32, p.box_b), 256, 0, st>>>(p);
     } else {
       const long vecs = (long)p.B * p.H * p.W * p.N / 2;
@@ -603,6 +660,11 @@ int launch_mw(int mw, bool out_f32, dim3 grid, const CUtensorMap* maps, const Pl
     if (p.kmajor)  // a dgrad: f32 out, no skip, no statistics
       return mw == 1 ? launch<bf16, 1, float, false, true>(grid, maps, p, st)
                      : launch<bf16, 2, float, false, true>(grid, maps, p, st);
+  } else {
+    // K11 int8 with K split (bf16 out, 128-pixel tiles: a plan of 256-pixel
+    // tiles fills the card unsplit): the int32 partials
+    if (p.asc != nullptr && p.splits > 1)
+      return launch<int8_t, 1, bf16, false, false, true>(grid, maps, p, st);
   }
   if (p.gn_part != nullptr && p.splits == 1)  // GN2's sums in the epilogue (f32 out)
     return mw == 1 ? launch<TA, 1, float, true>(grid, maps, p, st)
@@ -628,7 +690,10 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
       g.W * t.box_h * t.box_b > bm || g.splits < 1 || g.kper < 1 ||
       (g.splits - 1) * g.kper >= slices || g.splits * g.kper < slices ||
       (g.splits > 1 && g.partial == nullptr) ||
-      (g.int8 && (g.wsc == nullptr || (g.qs == nullptr && g.amax == nullptr))) ||
+      (g.int8 && (g.wsc == nullptr || (g.qs == nullptr && g.amax == nullptr && g.asc == nullptr))) ||
+      // K11 int8's scales: int8, bf16 out, no skip, residual, temb or statistics
+      (g.asc != nullptr && (!g.int8 || g.qs != nullptr || g.out_f32 || g.s0 || g.resid ||
+                            g.temb || g.gn_part != nullptr || (g.splits > 1 && t.mw != 1))) ||
       // a dgrad: bf16, f32 out, no skip, no statistics
       (g.w_kmajor && (g.int8 || !g.out_f32 || g.s0 || g.gn_part != nullptr)) ||
       // GN2's sums: f32 out with no residual (conv1), a warp's 16 rows one sample's
@@ -655,6 +720,7 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
   p.wsc = g.wsc;
   p.qs = g.qs;
   p.amax = g.amax;
+  p.asc = g.asc;
   p.bias = g.bias;
   p.bias2 = g.bias2;
   p.temb = g.temb;
@@ -746,6 +812,39 @@ int gddim_conv_s8(const void* a8, const void* wk, const void* wsc, const void* q
   g.out_f32 = true;
   g.partial = (float*)work;
   g.gn_part = (float*)gn_part;
+  g.splits = splits;
+  g.kper = kper;
+  return block_gemm_launch(g, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},
+                           (cudaStream_t)stream);
+}
+
+// K11 int8 on the block GEMM: out (B, H, W, N) bf16 = conv3x3(x8, wk) *
+// (wsc[n] * asc[b]) + bias[n] (bias may be null), the int32 sums of all 9
+// taps converted to f32 once, each operation rounded as the plain version's
+// (ops/conv3x3.py:conv3x3_int8_reference). x8 (B, H, W, Cin) int8, wk (N, 9
+// * Cin) int8 K-major (ops/resblock.py:pack_int8_weight), wsc (N,) and asc
+// (B,) f32; the tile plan of ops/resblock.py:s8_tile_plan(B, H, W, Cin, 0,
+// N). Scratch `work`: splits * M * N int32 when splits > 1 (mw 1).
+int gddim_conv3x3_int8(const void* x8, const void* wk, const void* wsc, const void* asc,
+                       const void* bias, int batch, int h, int w, int cin, int n, int mw,
+                       int box_h, int box_b, int tiles_h, int m_tiles, int splits, int kper,
+                       void* work, void* out, void* stream) {
+  BlockGemm g = {};
+  g.int8 = true;
+  g.taps = 9;
+  g.a = x8;
+  g.w = wk;
+  g.cin = cin;
+  g.B = batch;
+  g.H = h;
+  g.W = w;
+  g.N = n;
+  g.wsc = (const float*)wsc;
+  g.asc = (const float*)asc;
+  g.bias = (const float*)bias;
+  g.out_scale = 1.0f;
+  g.out = out;
+  g.partial = (float*)work;
   g.splits = splits;
   g.kper = kper;
   return block_gemm_launch(g, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},

@@ -127,7 +127,8 @@ struct GemmTiles {
 // bf16 1x1 skip into the same f32 accumulators, then the epilogue (w_kmajor:
 // a dgrad, bf16 weights read K-major and tap-reversed, f32 out, no skip):
 //   out = (conv(a, w) [* (wsc[n] * s)] + skip + bias + bias2 + temb[b] + resid) * out_scale
-// s = *qs (static), else max(amax[b], 1e-12) / 127 of the row's sample b.
+// s = *qs (static), asc[b] (K11 int8: the given per-sample scale), else
+// max(amax[b], 1e-12) / 127 of the row's sample b.
 // With gn_part, the epilogue (or the split-K reduction) also writes each
 // output channel's sum and sum of squares over every (M tile, sample in the
 // tile): gn_part (2, B, tiles_h, N), [0] the sums, [1] the squares, row
@@ -149,6 +150,8 @@ struct BlockGemm {
   const float* wsc;   // int8: (N,) weight scales
   const float* qs;    // int8: static activation scale (one device float), or null
   const float* amax;  // int8: (B,) per-sample amax when qs is null
+  const float* asc;   // int8: (B,) per-sample scales (K11 int8: bf16 out, no skip; K split
+                      // into int32 partials), or null
   const float* bias;  // (N,) or null, likewise bias2
   const float* bias2;
   const float* temb;   // (B, N) row added per sample (row b at temb + b * temb_ld), or null
@@ -273,7 +276,10 @@ struct Taps {
 //     through the affine (+SiLU), written NHWC to out as the pre-pass writes
 //     it: bf16 (q null) or int8 by quantize8's scales q (static qs, or per
 //     sample: the kernel takes the amax of the activated sample itself, in
-//     the cluster, and writes it to amax_out);
+//     the cluster, and writes it to amax_out and its scale max(amax, 1e-12)
+//     / 127 to qs_out, each where non-null); with unfold (K12, per-sample
+//     int8), the affine unfolded as the TPU kernel's group_norm_silu_quant
+//     computes it, ((x - mean) * rstd) * gamma + beta;
 //   resample (resample 1, xb null, h x w the input): K9's silu(GN1(x))
 //     rounded to bf16 once, resampled by the taps k (up or down) into out
 //     (out_type 0 bf16, 1 f32 with its per-sample amax into amax_out when
@@ -300,6 +306,8 @@ struct GnApply {
   void* out;
   void* xr;
   float* amax_out;
+  float* qs_out;
+  int unfold;
   float* scale;
   float* shift;
   float* mean;

@@ -40,6 +40,14 @@
 //      with the per-sample amax as a cluster max; or, with a static scale,
 //      int8 by the quantizer of the int8 pre-pass, which K9 then skips) and
 //      xr = resample(bf16(x)) in bf16.
+//   K12 (gddim_tpu/ops/groupnorm.py:group_norm_silu_quant, conv_impl
+//      'int8': GN + SiLU + per-sample int8 in front of K11's int8 conv) is
+//      the per-sample int8 convert with the TPU kernel's arithmetic
+//      (UNFOLD): ((x - mean) * rstd) * gamma + beta, each operation rounded,
+//      and the sample's scale max(amax, 1e-12) / 127 written by rank 0
+//      beside q: one read of x, where (group, sample) programs without a
+//      cluster must meet through device memory for the amax and read x
+//      again (in Triton, which has no clusters, three times).
 // A CTA's shared memory stays until the cluster has read it: each CTA
 // arrives on the cluster barrier once its reads of its peers are done and
 // waits on it before it exits, so phase 3 overlaps the barrier.
@@ -137,6 +145,18 @@ __host__ __device__ inline RsRows rs_rows(int hin, int win, int up, int ctas, in
   return g;
 }
 
+// K12's GroupNorm affine of 8 activations, unfolded as the TPU kernel's
+// (gddim_tpu/ops/groupnorm.py:100-103): ((x - mean) * rstd) * gamma + beta,
+// each operation rounded (no fused multiply-add), then SiLU when silu_on
+__device__ __forceinline__ void unfolded8(float f[8], const float mu[8], const float rs[8],
+                                          const float* gamma, const float* beta, int silu_on) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float y = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f[j], mu[j]), rs[j]), gamma[j]), beta[j]);
+    f[j] = silu_on ? silu(y) : y;
+  }
+}
+
 // max of v over the CTA's threads, into *out (red: GA_THREADS / 32 floats);
 // thread 0 writes
 __device__ __forceinline__ void block_max(float v, float* red, float* out) {
@@ -152,8 +172,9 @@ __device__ __forceinline__ void block_max(float v, float* red, float* out) {
 
 // grid (a.ctas, B), GA_THREADS threads, ga_layout(C, a.px, RESAMPLE).total
 // bytes of shared memory, clusters of a.ctas along x. TQ: convert's output
-// (bf16, int8_t), or the resample's h (bf16, float, int8_t).
-template <typename TQ, bool RESAMPLE>
+// (bf16, int8_t), or the resample's h (bf16, float, int8_t). UNFOLD: K12
+// (int8 per sample; the affine unfolded).
+template <typename TQ, bool RESAMPLE, bool UNFOLD = false>
 __global__ void __launch_bounds__(GA_THREADS, RESAMPLE ? GA_MIN_CTAS_RS : GA_MIN_CTAS)
 gn_apply_kernel(const GnApply a, const int px) {
   extern __shared__ __align__(128) unsigned char gsm[];
@@ -297,8 +318,8 @@ gn_apply_kernel(const GnApply a, const int px) {
       const int c = g * cg + j;
       const float m = __fmul_rn(rstd, gam[c]);
       const float d = __fsub_rn(bet[c], __fmul_rn(mean, m));
-      sc[c] = m;
-      sh[c] = d;
+      sc[c] = UNFOLD ? mean : m;  // UNFOLD: the group's mean and rstd a channel
+      sh[c] = UNFOLD ? rstd : d;
       if (rank == 0 && a.scale != nullptr) {
         a.scale[(long)b * c_tot + c] = m;
         a.shift[(long)b * c_tot + c] = d;
@@ -336,7 +357,12 @@ gn_apply_kernel(const GnApply a, const int px) {
         ld8(pk, base + pl * stride);
         float f[8];
         unpack8(pk, f);
-        mx = amax8(f, m, d, a.silu, mx);
+        if constexpr (UNFOLD) {
+          unfolded8(f, m, d, gam + c8, bet + c8, a.silu);
+          mx = amax8(f, nullptr, nullptr, 0, mx);
+        } else {
+          mx = amax8(f, m, d, a.silu, mx);
+        }
       }
       block_max(mx, red, smax);
       cluster_wait();
@@ -346,7 +372,8 @@ gn_apply_kernel(const GnApply a, const int px) {
         float am = 0.f;
         for (int r = 0; r < ctas; ++r) am = fmaxf(am, *cluster.map_shared_rank(smax, r));
         *sam = am;
-        if (rank == 0) a.amax_out[b] = am;
+        if (rank == 0 && a.amax_out != nullptr) a.amax_out[b] = am;
+        if (rank == 0 && a.qs_out != nullptr) a.qs_out[b] = fmaxf(am, 1e-12f) / 127.0f;
       }
       __syncthreads();
       cluster_arrive();  // done with the peers' amaxes
@@ -369,7 +396,10 @@ gn_apply_kernel(const GnApply a, const int px) {
       for (int u = 0; u < GA_UNROLL; ++u) {
         if (pl + u * lanes >= n) continue;
         TQ* dst = out + (long)(pl + u * lanes) * c_tot;
-        if constexpr (std::is_same<TQ, int8_t>::value)
+        if constexpr (UNFOLD) {
+          unfolded8(f[u], m, d, gam + c8, bet + c8, a.silu);
+          *reinterpret_cast<uint2*>(dst) = quantize8(f[u], nullptr, nullptr, 0, 0.f, qa, qb);
+        } else if constexpr (std::is_same<TQ, int8_t>::value)
           *reinterpret_cast<uint2*>(dst) = quantize8(f[u], m, d, a.silu, inv_static, qa, qb);
         else
           convert8(f[u], m, d, a.silu, qa, qb, dst);
@@ -490,11 +520,11 @@ long ga_share(int h, int w, bool resample, int up) {
   return px;
 }
 
-template <typename TQ, bool RESAMPLE>
+template <typename TQ, bool RESAMPLE, bool UNFOLD = false>
 int ga_run(const GnApply& a, int px, size_t smem, cudaStream_t st) {
   static bool attr = false;
   if (!attr) {
-    const int err = (int)cudaFuncSetAttribute(gn_apply_kernel<TQ, RESAMPLE>,
+    const int err = (int)cudaFuncSetAttribute(gn_apply_kernel<TQ, RESAMPLE, UNFOLD>,
                                               cudaFuncAttributeMaxDynamicSharedMemorySize, GA_SMEM);
     if (err) return err;
     attr = true;
@@ -511,9 +541,16 @@ int ga_run(const GnApply& a, int px, size_t smem, cudaStream_t st) {
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  int err = (int)cudaLaunchKernelEx(&cfg, gn_apply_kernel<TQ, RESAMPLE>, a, px);
+  int err = (int)cudaLaunchKernelEx(&cfg, gn_apply_kernel<TQ, RESAMPLE, UNFOLD>, a, px);
   if (!err) err = (int)cudaGetLastError();
   return err;
+}
+
+// K12's scale on the route of several launches: qs[b] = max(amax[b], 1e-12)
+// / 127, as the cluster's rank 0 writes it. One thread a sample.
+__global__ void k12_scale_kernel(const float* __restrict__ amax, float* __restrict__ qs, int batch) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b < batch) qs[b] = fmaxf(amax[b], 1e-12f) / 127.0f;
 }
 
 }  // namespace
@@ -527,13 +564,17 @@ int gn_apply_launch(const GnApply& a, cudaStream_t st) {
       ((uintptr_t)a.xa % 16 == 0) && ((uintptr_t)a.xb % 16 == 0) && (a.cb == 0) == (a.xb == nullptr) &&
       (rs ? (a.cb == 0 && a.h % 2 == 0 && a.w % 2 == 0 && a.out_type >= 0 && a.out_type <= 2 &&
              (a.out_type != 2 || a.q.qs != nullptr) && a.xr != nullptr)
-          : (!a.int8 || a.q.qs != nullptr || a.amax_out != nullptr));
+          : (!a.int8 || a.q.qs != nullptr || a.amax_out != nullptr || a.qs_out != nullptr)) &&
+      // K12: int8 per sample, its scales out
+      (!a.unfold || (!rs && a.int8 && a.q.qs == nullptr && !a.q.inv_mul && a.qs_out != nullptr));
   if (!ok) return (int)cudaErrorInvalidValue;
   const long px = ga_share(a.h, a.w, rs, a.up);
   const long smem = ga_layout(c, px, rs).total;
   if (smem > GA_SMEM) return (int)cudaErrorInvalidValue;
   int err;
-  if (!rs)
+  if (a.unfold)
+    err = ga_run<int8_t, false, true>(a, (int)px, smem, st);
+  else if (!rs)
     err = a.int8 ? ga_run<int8_t, false>(a, (int)px, smem, st) : ga_run<bf16, false>(a, (int)px, smem, st);
   else if (a.out_type == 0)
     err = ga_run<bf16, true>(a, (int)px, smem, st);
@@ -604,6 +645,57 @@ int gddim_gn_apply(const void* xa, const void* xb, int ca, int cb, int batch, in
   a.shift = (float*)shift;
   a.mean = (float*)mean;
   a.rstd = (float*)rstd;
+  a.ctas = ctas;
+  return gn_apply_launch(a, st);
+}
+
+// K12: GroupNorm(+SiLU when silu_on) of x (B, hw, c), bf16 or f32
+// (act_f32), quantized per sample as the TPU kernel does it: qs (B,) =
+// max(max|a|, 1e-12) / 127 and q (B, hw, c) int8 = clip(rint(a / qs)).
+// ctas 8 (ops/resblock.py:gn_apply_ctas; bf16 x): one gn_apply_kernel
+// launch, a cluster a sample, the affine unfolded as the TPU kernel's. ctas
+// 0 (f32 x, or an eighth of a sample too large for a CTA): gn_stats_kernel,
+// amax_kernel, the int8 pre-pass and k12_scale_kernel, the affine folded (x
+// * scale + shift of the same statistics); `work` (2 * B * c + B) f32 there
+// (the affine and the amax), unused on the cluster route.
+int gddim_gn_silu_quant(const void* x, int act_f32, int batch, int hw, int c, int groups,
+                        const void* gamma, const void* beta, float eps, int silu_on, int ctas,
+                        void* work, void* q, void* qs, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ctas == 0) {
+    if (work == nullptr) return (int)cudaErrorInvalidValue;
+    float* sc = (float*)work;
+    float* sh = sc + (long)batch * c;
+    float* amax = sh + (long)batch * c;
+    const bool f32 = act_f32 != 0;
+    int err = gn_stats_launch(x, nullptr, c, 0, batch, hw, groups, (const float*)gamma,
+                              (const float*)beta, eps, sc, sh, nullptr, nullptr, f32, st);
+    if (!err) err = amax_launch(x, nullptr, c, 0, batch, hw, sc, sh, silu_on, amax, f32, st);
+    const Int8Args qa = {nullptr, amax, 0};
+    if (!err) err = prepass_launch(x, nullptr, c, 0, f32, batch, hw, sc, sh, silu_on, &qa, q, st);
+    if (!err) {
+      k12_scale_kernel<<<(batch + 127) / 128, 128, 0, st>>>(amax, (float*)qs, batch);
+      err = (int)cudaGetLastError();
+    }
+    return err;
+  }
+  if (act_f32) return (int)cudaErrorInvalidValue;
+  GnApply a = {};
+  a.xa = x;
+  a.ca = c;
+  a.batch = batch;
+  a.h = hw;
+  a.w = 1;
+  a.groups = groups;
+  a.gamma = (const float*)gamma;
+  a.beta = (const float*)beta;
+  a.eps = eps;
+  a.silu = silu_on;
+  a.int8 = 1;
+  a.q = Int8Args{nullptr, nullptr, 0};
+  a.out = q;
+  a.qs_out = (float*)qs;
+  a.unfold = 1;
   a.ctas = ctas;
   return gn_apply_launch(a, st);
 }

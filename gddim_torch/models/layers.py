@@ -25,7 +25,7 @@ from gddim_torch.ops.groupnorm import (
     group_norm_silu_quant,
     group_norm_silu_reference,
 )
-from gddim_torch.ops.resblock import conv3x3_nhwc
+from gddim_torch.ops.resblock import conv3x3_nhwc, pack_int8_weight
 
 
 class _KernelWeights:
@@ -90,8 +90,9 @@ class Conv(nn.Module):
     K11's int8 form on the incoming ``QuantizedActivation`` (or on
     ``quantize_per_sample(x)``) with the weight quantized per output channel
     from its value in the activation dtype, the bias fused in f32
-    (``layers.py:87-148``). The cast or quantized weight is made once and
-    kept until the parameter changes."""
+    (``layers.py:87-148``). The cast or quantized weight (int8: with its
+    K-major packing, which the card's int8 GEMM reads) is made once and kept
+    until the parameter changes."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, init_scale: float = 1.0,
                  generator=None):
@@ -105,11 +106,11 @@ class Conv(nn.Module):
         shape, dtype = (q_in.shape, q_in.dtype) if q_in is not None else (x.shape, x.dtype)
         qualifies = impl in ("pallas", "int8") and c3.supported(shape, self.weight.shape)
         if qualifies and impl == "int8":
-            w8, sw = self._kw.get([self.weight], lambda: c3.quantize_weight_per_channel(
-                self.weight.detach().to(dtype)), tag=("int8", dtype))
+            w8, sw, wk = self._kw.get([self.weight], lambda: self._int8_weight(dtype),
+                                      tag=("int8", dtype))
             x8, sx = (q_in.q, q_in.scale) if q_in is not None else c3.quantize_per_sample(x)
             return c3.conv3x3_pallas_int8(x8, w8, sw, sx, bias=self.bias.detach(),
-                                          out_dtype=dtype)
+                                          out_dtype=dtype, w_kmajor=wk)
         if q_in is not None:  # a quantized input but no int8 conv for this shape
             x = q_in.dequant()
         if qualifies:
@@ -120,6 +121,12 @@ class Conv(nn.Module):
             return torch.einsum("bhwc,cd->bhwd", x, self.weight[0, 0].to(x.dtype)) + \
                 self.bias.to(x.dtype)
         return conv3x3_nhwc(x, self.weight, self.bias)
+
+    def _int8_weight(self, dtype):
+        """(int8 HWIO weights, their scales, the same weights K-major) of the
+        weight in ``dtype``."""
+        w8, sw = c3.quantize_weight_per_channel(self.weight.detach().to(dtype))
+        return w8, sw, pack_int8_weight((w8, sw))[0]
 
 
 class Dense(nn.Module):

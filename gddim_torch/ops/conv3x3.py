@@ -12,14 +12,17 @@ Replaces ``gddim_tpu/ops/conv3x3.py``:
   package's graph code around the int8 kernel, plain torch here too;
 - ``supported``: the JAX gate without its backend test.
 
-The CUDA implementation is ``csrc/conv3x3.cu`` (see its header for what
-bounds it on the H100): the bf16 form is an implicit GEMM on ``wgmma`` whose
-A operand comes by TMA as one box of the image per tap (no im2col, SAME
-padding from the TMA unit's zero fill), laid out by ``tile_plan``; the int8
-form reads int8 A straight from memory and keeps one int32 accumulator set,
-so its sums are exact whatever the split of K. On a CPU tensor each wrapper
-runs its plain version; on a CUDA tensor it launches the kernel or raises
-(bf16 activations only). Neither has a backward.
+The bf16 form is ``csrc/conv3x3.cu`` (see its header for what bounds it on
+the H100): an implicit GEMM on ``wgmma`` whose A operand comes by TMA as one
+box of the image per tap (no im2col, SAME padding from the TMA unit's zero
+fill), laid out by ``tile_plan``. The int8 form runs on the int8 block GEMM
+(``csrc/block_gemm.cu:gddim_conv3x3_int8``, ``block_gemm_kernel<int8>``:
+wgmma s32.s8.s8 fed by TMA, the weights K-major) under ``s8_tile_plan``;
+where K is split, each split stores its int32 sums and the reduction adds
+them in int32, so the sum is exact whatever the split and is converted to
+f32 once, as the TPU kernel's. On a CPU tensor each wrapper runs its plain
+version; on a CUDA tensor it launches the kernel or raises (bf16
+activations only; shapes without a tile plan). Neither has a backward.
 """
 
 from __future__ import annotations
@@ -37,8 +40,11 @@ from gddim_torch.ops.resblock import (
     _operand,
     conv3x3_int8_exact,
     conv3x3_nhwc,
+    kmajor_int8,
+    pack_int8_weight,
     quantize_weight,
     require_no_grad,
+    s8_tile_plan,
     tile_box,
 )
 
@@ -150,11 +156,6 @@ def tile_plan(b: int, h: int, w: int, cin: int, n: int) -> TilePlan:
 # --------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _workspace(entry: str, b: int, h: int, w: int, cin: int, n: int) -> int:
-    return _build.workspace_bytes(entry, b, h, w, cin, n)
-
-
 def _check(what, x, w_shape):
     b, h, w, cin = x.shape
     if not supported(x.shape, w_shape) or tuple(w_shape[-2:]) != (cin, w_shape[-1]):
@@ -183,10 +184,14 @@ def conv3x3_pallas(x, w):
     return out
 
 
-def conv3x3_pallas_int8(x8, w8, w_scale, act_scale, bias=None, out_dtype=torch.bfloat16):
+def conv3x3_pallas_int8(x8, w8, w_scale, act_scale, bias=None, out_dtype=torch.bfloat16, *,
+                        w_kmajor=None):
     """K11's int8 form. x8 (B, H, W, Cin) int8; w8 (3, 3, Cin, Cout) or
     (9, Cin, Cout) int8; w_scale () or (Cout,) and act_scale () or (B,) f32;
-    an optional f32 bias fused into the dequantization."""
+    an optional f32 bias fused into the dequantization. On the card the int8
+    block GEMM reads the weights K-major, (Cout, 9 * Cin): ``w_kmajor``, w8
+    packed once by the caller (``pack_int8_weight``; ``models/layers.py:Conv``
+    keeps it), or else w8 packed here for this call."""
     if _on_cpu(x8, "conv3x3_pallas_int8"):
         return conv3x3_int8_reference(x8, w8, w_scale, act_scale, bias, out_dtype)
     require_no_grad("conv3x3_pallas_int8", bias,
@@ -196,22 +201,27 @@ def conv3x3_pallas_int8(x8, w8, w_scale, act_scale, bias=None, out_dtype=torch.b
     b, h, ww, cin = x8.shape
     n = w8.shape[-1]
     _check("conv3x3_pallas_int8", x8, (3, 3, cin, n) if w8.shape[0] == 9 else w8.shape)
-    f32 = torch.float32
+    plan = s8_tile_plan(b, h, ww, cin, 0, n)
+    if w_kmajor is None:
+        w_kmajor = pack_int8_weight((w8.reshape(-1, n), None))[0]
+    f32, dev = torch.float32, x8.device
     xs = _operand(x8, "x8", torch.int8, (b, h, ww, cin))
-    ws = _operand(w8.reshape(3, 3, -1, n), "w8", torch.int8, (3, 3, cin, n))
-    sw = _operand(torch.as_tensor(w_scale, dtype=f32, device=x8.device).expand(n), "w_scale", f32)
-    sa = _operand(torch.as_tensor(act_scale, dtype=f32, device=x8.device).expand(b), "act_scale",
-                  f32)
+    wk = _operand(kmajor_int8(w_kmajor, (3, 3, cin, n), "conv3x3_pallas_int8"), "w_kmajor",
+                  torch.int8)
+    sw = _operand(torch.as_tensor(w_scale, dtype=f32, device=dev).expand(n), "w_scale", f32)
+    sa = _operand(torch.as_tensor(act_scale, dtype=f32, device=dev).expand(b), "act_scale", f32)
     bs = _operand(bias, "bias", f32, (n,))
-    work = torch.empty(_workspace("gddim_conv3x3_int8", b, h, ww, cin, n), device=x8.device,
-                       dtype=torch.uint8)
-    out = torch.empty((b, h, ww, n), device=x8.device, dtype=torch.bfloat16)
-    _build.launch("gddim_conv3x3_int8", x8.device, xs.data_ptr(), ws.data_ptr(), sw.data_ptr(),
-                  sa.data_ptr(), _build.ptr(bs), b, h, ww, cin, n, work.data_ptr(),
-                  out.data_ptr())
+    # the splits' int32 partial sums
+    work = torch.empty(plan.splits * b * h * ww * n if plan.splits > 1 else 0, device=dev,
+                       dtype=torch.int32)
+    out = torch.empty((b, h, ww, n), device=dev, dtype=torch.bfloat16)
+    _build.launch("gddim_conv3x3_int8", dev, xs.data_ptr(), wk.data_ptr(), sw.data_ptr(),
+                  sa.data_ptr(), _build.ptr(bs), b, h, ww, cin, n, plan.mw, plan.box_h,
+                  plan.box_b, plan.tiles_h, plan.m_tiles, plan.splits, plan.kper,
+                  work.data_ptr(), out.data_ptr())
     conv3x3_pallas_int8.launches += 1
     return out
 
 
 conv3x3_pallas.launches = 0  # kernel launches on CUDA tensors (one gddim_conv3x3 each)
-conv3x3_pallas_int8.launches = 0  # one gddim_conv3x3_int8 each
+conv3x3_pallas_int8.launches = 0  # one gddim_conv3x3_int8 each (a block GEMM launch)

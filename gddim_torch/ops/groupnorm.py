@@ -26,25 +26,30 @@ qs = max(max|out| over the sample, 1e-12) / 127, q = clip(rint(out / qs),
 (q int8, qs (B,) f32), which the int8 3x3 conv (K11, ``ops/conv3x3.py``)
 takes as they are. Inference only: no backward.
 
-What bounds K12 on the H100: memory and the per-element arithmetic (the
-sigmoid and the IEEE division, twice); there is no tensor-core work. The
-per-sample amax spans all groups, so K12 is two Triton launches, each with
-one program per (group, sample) as K1: the first takes its group's one-pass
-statistics and the amax of its activated values and writes (mean, rstd,
-amax); the second takes the sample's scale from the 32 group amaxes (a max,
-so every program of the sample computes the same scale, whatever order the
-programs ran in: deterministic, no atomics), recomputes its group's
-activated values and writes them as int8. x is read three times (the
-second and third from L2 at these sizes) and q written once. One program
-per sample, in one launch, was the first form: it keeps only B of the
-card's 132 SMs busy, each with the arithmetic of a whole sample, and
-measured 5x to 26x slower at 32x32, B=4 (``PERF.md``); the second
-launch costs its host time instead.
+What bounds K12 on the H100: bytes (x read once, q written once). The
+kernel reaches ~11% of that bound at B=64 (``PERF.md``): each element's
+unfolded affine and SiLU run twice (for the amax, then for q) on two CTAs
+an SM at 32x32, and at the 4x4 and 8x8 sites a launch and three cluster
+barriers take ~10 us. The per-sample amax
+spans the whole sample, which a single CTA reads slowly and a grid of
+(group, sample) programs must meet across. K12 is the per-sample int8 mode
+of GN1's one-launch kernel (``csrc/gn_apply.cu``, ``gddim_gn_silu_quant``):
+a cluster of 8 CTAs a sample holds it in shared memory after one read, its
+statistics and its amax meet in distributed shared memory, and the kernel
+writes q and qs; its affine is the TPU kernel's, unfolded. Where a sample
+does not fit the cluster, or x is f32 (``ops/resblock.py:gn_apply_ctas``),
+it is the GroupNorm statistics kernel, the per-sample amax, the int8
+pre-pass and a scale kernel, which apply the folded affine x * a + b of the
+same statistics. It is CUDA because Triton has no clusters: (group,
+sample) programs must meet through device memory for the amax and read x
+again, and one program a sample leaves most SMs idle.
 """
 
 from __future__ import annotations
 
 import torch
+
+from gddim_torch import _build
 
 
 def group_norm_silu_reference(x, scale, bias, num_groups: int, eps: float = 1e-6,
@@ -198,153 +203,35 @@ def group_norm_silu_quant_reference(x, scale, bias, num_groups: int, eps: float 
     return q.to(torch.int8), qs.reshape(-1)
 
 
-_quant_kernel = None
-
-
-def _triton_quant_kernel():
-    global _quant_kernel
-    if _quant_kernel is None:
-        import triton
-        import triton.language as tl
-
-        # IEEE division and square root (Triton's own may be approximate) and
-        # round half to even, as jnp.round and torch.round
-        @triton.jit
-        def _div_rn(a, b):
-            return tl.inline_asm_elementwise("div.rn.f32 $0, $1, $2;", "=f,f,f", [a, b],
-                                             dtype=tl.float32, is_pure=True, pack=1)
-
-        @triton.jit
-        def _sqrt_rn(a):
-            return tl.inline_asm_elementwise("sqrt.rn.f32 $0, $1;", "=f,f", [a],
-                                             dtype=tl.float32, is_pure=True, pack=1)
-
-        @triton.jit
-        def _rint(a):
-            return tl.inline_asm_elementwise("cvt.rni.f32.f32 $0, $1;", "=f,f", [a],
-                                             dtype=tl.float32, is_pure=True, pack=1)
-
-        # Both kernels: one program per (group, sample), its group's channels
-        # (padded to a power of two) over all pixels, as K1.
-        @triton.jit
-        def gn_silu_amax_kernel(x_ptr, scale_ptr, bias_ptr, st_ptr, HW, C, CG, inv_n, eps,
-                                APPLY_SILU: tl.constexpr, BLOCK_P: tl.constexpr,
-                                BLOCK_CG: tl.constexpr):
-            g = tl.program_id(0)
-            b = tl.program_id(1)
-            G = tl.num_programs(0)
-            cols = g * CG + tl.arange(0, BLOCK_CG)
-            cmask = tl.arange(0, BLOCK_CG) < CG
-            base = x_ptr + b.to(tl.int64) * HW * C
-            # one-pass statistics: sums of x and x^2, per tile element through
-            # the loop, reduced once after it
-            s1 = tl.zeros((BLOCK_P, BLOCK_CG), dtype=tl.float32)
-            s2 = tl.zeros((BLOCK_P, BLOCK_CG), dtype=tl.float32)
-            for p0 in range(0, HW, BLOCK_P):
-                rows = p0 + tl.arange(0, BLOCK_P)
-                m = (rows[:, None] < HW) & cmask[None, :]
-                v = tl.load(base + rows[:, None] * C + cols[None, :], mask=m,
-                            other=0.0).to(tl.float32)
-                s1 += v
-                s2 += v * v
-            mean = tl.sum(tl.sum(s1, axis=1), axis=0) * inv_n
-            var = tl.zeros((BLOCK_CG,), dtype=tl.float32) + (
-                tl.sum(tl.sum(s2, axis=1), axis=0) * inv_n - mean * mean)
-            rstd = _div_rn(tl.full((BLOCK_CG,), 1.0, tl.float32), _sqrt_rn(var + eps))
-            gamma = tl.load(scale_ptr + cols, mask=cmask, other=0.0)
-            beta = tl.load(bias_ptr + cols, mask=cmask, other=0.0)
-            # the group's amax of the activated values
-            mx = tl.zeros((BLOCK_P, BLOCK_CG), dtype=tl.float32)
-            for p0 in range(0, HW, BLOCK_P):
-                rows = p0 + tl.arange(0, BLOCK_P)
-                m = (rows[:, None] < HW) & cmask[None, :]
-                v = tl.load(base + rows[:, None] * C + cols[None, :], mask=m,
-                            other=0.0).to(tl.float32)
-                y = (v - mean) * rstd[None, :] * gamma[None, :] + beta[None, :]
-                if APPLY_SILU:
-                    y = y * tl.sigmoid(y)
-                mx = tl.maximum(mx, tl.where(m, tl.abs(y), 0.0))
-            st = st_ptr + (b * G + g) * 3
-            tl.store(st, mean)
-            tl.store(st + 1, tl.max(rstd, axis=0))
-            tl.store(st + 2, tl.max(tl.max(mx, axis=1), axis=0))
-
-        @triton.jit
-        def gn_silu_quant_kernel(x_ptr, scale_ptr, bias_ptr, st_ptr, q_ptr, s_ptr, HW, C, CG,
-                                 APPLY_SILU: tl.constexpr, G: tl.constexpr,
-                                 BLOCK_P: tl.constexpr, BLOCK_CG: tl.constexpr):
-            g = tl.program_id(0)
-            b = tl.program_id(1)
-            cols = g * CG + tl.arange(0, BLOCK_CG)
-            cmask = tl.arange(0, BLOCK_CG) < CG
-            base = b.to(tl.int64) * HW * C
-            # the sample's scale from its groups' amaxes: every program of the
-            # sample computes it from the same values, so they agree
-            amax = tl.max(tl.load(st_ptr + (b * G + tl.arange(0, G)) * 3 + 2), axis=0)
-            qs = _div_rn(tl.maximum(tl.zeros((BLOCK_CG,), dtype=tl.float32) + amax, 1e-12),
-                         tl.full((BLOCK_CG,), 127.0, tl.float32))
-            mean = tl.load(st_ptr + (b * G + g) * 3)
-            rstd = tl.load(st_ptr + (b * G + g) * 3 + 1)
-            gamma = tl.load(scale_ptr + cols, mask=cmask, other=0.0)
-            beta = tl.load(bias_ptr + cols, mask=cmask, other=0.0)
-            qs2 = tl.zeros((BLOCK_P, BLOCK_CG), dtype=tl.float32) + qs[None, :]
-            for p0 in range(0, HW, BLOCK_P):
-                rows = p0 + tl.arange(0, BLOCK_P)
-                m = (rows[:, None] < HW) & cmask[None, :]
-                offs = base + rows[:, None] * C + cols[None, :]
-                v = tl.load(x_ptr + offs, mask=m, other=0.0).to(tl.float32)
-                y = (v - mean) * rstd * gamma[None, :] + beta[None, :]
-                if APPLY_SILU:
-                    y = y * tl.sigmoid(y)
-                q = _rint(_div_rn(y, qs2))
-                q = tl.minimum(tl.maximum(q, -127.0), 127.0)
-                tl.store(q_ptr + offs, q.to(tl.int8), mask=m)
-            if g == 0:
-                tl.store(s_ptr + b, tl.max(qs, axis=0))
-
-        _quant_kernel = (gn_silu_amax_kernel, gn_silu_quant_kernel)
-    return _quant_kernel
-
-
 def group_norm_silu_quant(x, scale, bias, num_groups: int = 32, eps: float = 1e-6,
                           apply_silu: bool = True):
     """K12: GroupNorm(+SiLU) of (B, H, W, C) returning (q int8 (B, H, W, C),
-    qs (B,) f32), value ~= q * qs[b]. The two Triton launches on CUDA tensors
-    (32 or any power-of-two number of groups; one count in ``launches``), the
-    plain version on CPU tensors."""
-    if x.device.type == "cpu":
-        return group_norm_silu_quant_reference(x, scale, bias, num_groups, eps, apply_silu)
-    if x.device.type != "cuda":
-        raise ValueError(f"group_norm_silu_quant: unsupported device {x.device}")
-    from gddim_torch.ops.resblock import require_no_grad
+    qs (B,) f32), value ~= q * qs[b]. On CUDA tensors (x bf16 or f32, C a
+    multiple of 8 and of the groups) one ``gddim_gn_silu_quant`` call on the
+    route of ``gn_apply_ctas`` (one count in ``launches``), on CPU tensors
+    the plain version."""
+    from gddim_torch.ops.resblock import _on_cpu, _operand, gn_apply_ctas, require_no_grad
 
+    if _on_cpu(x, "group_norm_silu_quant"):
+        return group_norm_silu_quant_reference(x, scale, bias, num_groups, eps, apply_silu)
     require_no_grad("group_norm_silu_quant", x, scale, bias)
     b, h, w, c = x.shape
-    if (c % num_groups or num_groups & (num_groups - 1)
-            or x.dtype not in (torch.bfloat16, torch.float16, torch.float32)):
+    if c % num_groups or c % 8 or x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"group_norm_silu_quant: unsupported input {tuple(x.shape)} {x.dtype} "
                          f"with {num_groups} groups")
-    x = x.contiguous()
-    scale = scale.float().contiguous()
-    bias = bias.float().contiguous()
-    q = torch.empty((b, h, w, c), device=x.device, dtype=torch.int8)
-    qs = torch.empty((b,), device=x.device, dtype=torch.float32)
-    stats = torch.empty((b, num_groups, 3), device=x.device, dtype=torch.float32)
-    cg = c // num_groups
-    hw = h * w
-    block_cg = _next_pow2(cg)
-    block_p = max(16, min(_next_pow2(hw), 4096 // block_cg))
-    amax_kernel, quant_kernel = _triton_quant_kernel()
-    amax_kernel[(num_groups, b)](
-        x, scale, bias, stats, hw, c, cg, 1.0 / (hw * cg), eps,
-        APPLY_SILU=apply_silu, BLOCK_P=block_p, BLOCK_CG=block_cg, num_warps=4,
-    )
-    quant_kernel[(num_groups, b)](
-        x, scale, bias, stats, q, qs, hw, c, cg,
-        APPLY_SILU=apply_silu, G=num_groups, BLOCK_P=block_p, BLOCK_CG=block_cg, num_warps=4,
-    )
+    f32, dev = torch.float32, x.device
+    ctas = gn_apply_ctas(h, w, c, x.dtype == f32)
+    xs = _operand(x, "x", x.dtype)
+    gamma, beta = _operand(scale, "scale", f32, (c,)), _operand(bias, "bias", f32, (c,))
+    q = torch.empty((b, h, w, c), device=dev, dtype=torch.int8)
+    qs = torch.empty((b,), device=dev, dtype=f32)
+    # the route of several launches: the affine (B, C) twice and the amax (B,)
+    work = None if ctas else torch.empty(2 * b * c + b, device=dev, dtype=f32)
+    _build.launch("gddim_gn_silu_quant", dev, xs.data_ptr(), int(x.dtype == f32), b, h * w, c,
+                  num_groups, gamma.data_ptr(), beta.data_ptr(), eps, int(apply_silu), ctas,
+                  _build.ptr(work), q.data_ptr(), qs.data_ptr())
     group_norm_silu_quant.launches += 1
     return q, qs
 
 
-group_norm_silu_quant.launches = 0  # kernel launches on CUDA tensors
+group_norm_silu_quant.launches = 0  # calls on CUDA tensors (one gddim_gn_silu_quant each)
