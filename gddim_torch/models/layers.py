@@ -104,7 +104,8 @@ class Conv(nn.Module):
     def forward(self, x, impl: str = "plain"):
         q_in = x if isinstance(x, QuantizedActivation) else None
         shape, dtype = (q_in.shape, q_in.dtype) if q_in is not None else (x.shape, x.dtype)
-        qualifies = impl in ("pallas", "int8") and c3.supported(shape, self.weight.shape)
+        qualifies = impl in ("pallas", "int8") and c3.supported(shape, self.weight.shape,
+                                                                int8=impl == "int8")
         if qualifies and impl == "int8":
             w8, sw, wk = self._kw.get([self.weight], lambda: self._int8_weight(dtype),
                                       tag=("int8", dtype))
@@ -200,6 +201,8 @@ def norm_act(norm: GroupNorm, x, fused: bool = True, quantize_out: bool = False)
 
 def int8_conv_fusion_ok(x_shape, out_ch: int, impl: str) -> bool:
     """True when a norm_act -> 3x3 conv pair runs the int8 pipeline (K12 into
-    K11's int8 form): impl 'int8' and a shape K11 takes (``layers.py:337-343``)."""
-    return impl == "int8" and c3.supported(x_shape, (3, 3, x_shape[-1], out_ch))
+    K11's int8 form): impl 'int8' and a shape K11's int8 form takes
+    (``layers.py:337-343``), so that K12 never quantizes for a conv that
+    then runs plain."""
+    return impl == "int8" and c3.supported(x_shape, (3, 3, x_shape[-1], out_ch), int8=True)
 

@@ -34,7 +34,9 @@ import torch
 
 from gddim_torch import _build
 from gddim_torch.ops.resblock import (
+    S8_SLICE,
     SMS,
+    _gemm_takes,
     _div,
     _on_cpu,
     _operand,
@@ -49,11 +51,21 @@ from gddim_torch.ops.resblock import (
 )
 
 
-def supported(x_shape, w_shape, stride: int = 1, dilation: int = 1) -> bool:
-    """Shapes K11 takes: stride 1, dilation 1, a 3x3 kernel, Cin and Cout
-    multiples of 128 (``conv3x3.py:260-270``)."""
-    return (stride == 1 and dilation == 1 and tuple(w_shape[:2]) == (3, 3)
-            and x_shape[-1] % 128 == 0 and w_shape[-1] % 128 == 0)
+def supported(x_shape, w_shape, stride: int = 1, dilation: int = 1, int8: bool = False) -> bool:
+    """Shapes K11 takes on x (B, H, W, Cin): the JAX gate's (stride 1,
+    dilation 1, a 3x3 kernel, Cin and Cout multiples of 128;
+    ``conv3x3.py:260-270``), and a tile plan of the form that runs, as
+    ``ops/resblock.py:stride1_supported`` gates the blocks: the bf16 form's
+    ``tile_plan``, or (``int8``) the int8 block GEMM's ``s8_tile_plan``.
+    Elsewhere the model runs the plain conv, as the reference runs XLA's."""
+    _, h, w, cin = x_shape
+    n = w_shape[-1]
+    if not (stride == 1 and dilation == 1 and tuple(w_shape[:2]) == (3, 3)
+            and cin % 128 == 0 and n % 128 == 0):
+        return False
+    if int8:
+        return _gemm_takes(h, w, cin, 0, n, S8_SLICE)
+    return cin % SLICE_K == 0 and n % TILE_N == 0 and 0 < w <= TILE_M
 
 
 # --------------------------------------------------------------------------

@@ -7,7 +7,9 @@ against the JAX package, on the CPU:
 (c) the quantizers around them, bit for bit;
 (d) one BigGAN block of each kind (stride-1, pair, down and up transition)
     and the attention block through the port's layer-wise composition
-    against the JAX block with ``CONV3X3_IMPL`` set to the same mode.
+    against the JAX block with ``CONV3X3_IMPL`` set to the same mode;
+(e) K11's gate: the tile plans of the form that runs, and a block at
+    shapes outside them running the plain conv, as the reference runs XLA's.
 
 ``conv3x3.supported`` answers False off a TPU, so the cases that need the
 JAX package's kernels patch it (the shape gate without the backend test), as
@@ -23,6 +25,7 @@ import torch
 
 from gddim_torch import convert
 from gddim_torch.models import blocks as t_blocks
+from gddim_torch.models import layers as t_layers
 from gddim_torch.models.layers import QuantizedActivation
 from gddim_torch.ops import conv3x3 as t_c3
 from gddim_torch.ops import groupnorm as t_gn
@@ -270,6 +273,73 @@ def test_attn_block_layerwise_matches_jax(jx, jax_impl, impl):
     with torch.inference_mode():
         got = tblk(torch.from_numpy(x), fused=True, layer=impl)
     assert rel_err(got, want) <= 1e-5
+
+
+# --------------------------------------------------------------------------
+# (e) K11's gate: the plans of the form that runs
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("x_shape,bf16,int8", [
+    ((4, 32, 32, 128), True, True), ((4, 4, 4, 512), True, True),
+    ((2, 2, 2, 128), True, False),  # 4 pixels a sample: no int8 tile of whole samples
+    ((2, 2, 4, 128), True, False),  # 8 pixels: not a multiple of 16
+    ((1, 2, 256, 128), False, False),  # W above a tile's 128 pixels
+    ((1, 4, 128, 128), True, True), ((4, 8, 8, 192), False, False),  # the JAX gate's Cin
+])
+def test_k11_gate_is_the_plans(x_shape, bf16, int8):
+    """``conv3x3.supported`` says yes exactly where the form's tile plan
+    returns (``tile_plan``, ``s8_tile_plan``) within the JAX gate."""
+    from gddim_torch.ops import resblock as t_rb
+
+    w_shape = (3, 3, x_shape[-1], 128)
+    for want, int8_, plan in ((bf16, False, lambda: t_c3.tile_plan(*x_shape, 128)),
+                              (int8, True, lambda: t_rb.s8_tile_plan(*x_shape, 0, 128))):
+        assert t_c3.supported(x_shape, w_shape, int8=int8_) == want
+        if want:
+            plan()
+        elif x_shape[-1] % 128 == 0:
+            with pytest.raises(ValueError):
+                plan()
+
+
+@pytest.mark.parametrize("impl", ["int8", "pallas"])
+@pytest.mark.parametrize("b,h,w", [(2, 2, 2), (1, 2, 256)], ids=["2x2", "W256"])
+def test_layers_outside_k11_plans_run_plain(jx, monkeypatch, impl, b, h, w):
+    """A stride-1 block at a 2x2 map and at W=256 through the layer-wise
+    paths: K11 and K12 run only where the form's plan takes the conv (at 2x2
+    the bf16 form has a plan of whole samples, the int8 form none; at W=256
+    neither has), the plain conv elsewhere, and the output is the JAX
+    block's, whose conv runs XLA there."""
+    calls = []
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return call
+
+    for mod, name in ((t_c3, "conv3x3_pallas"), (t_c3, "conv3x3_pallas_int8"),
+                      (t_layers, "group_norm_silu_quant")):
+        monkeypatch.setattr(mod, name, counted(name, getattr(mod, name)))
+    rng = np.random.default_rng(50)
+    x = rng.standard_normal((b, h, w, 128)).astype(np.float32)
+    temb = rng.standard_normal((b, 32)).astype(np.float32)
+    jblk = jx.blocks.ResnetBlockBigGANpp(act=jx.nn.swish, out_ch=128, fir=True, fir_kernel=FIR,
+                                         skip_rescale=True, init_scale=0.0, dropout=0.0,
+                                         dtype=jx.jnp.float32)
+    monkeypatch.setattr(jx.layers, "CONV3X3_IMPL", "xla")
+    shapes = jx.jax.eval_shape(lambda: jblk.init(jx.jax.random.PRNGKey(0), jx.jnp.asarray(x),
+                                                 jx.jnp.asarray(temb), False))
+    params = _random_like(jx.flax.core.unfreeze(shapes["params"]), 51)
+    want = np.asarray(jblk.apply({"params": params}, jx.jnp.asarray(x), jx.jnp.asarray(temb),
+                                 False))
+    tblk = t_blocks.ResnetBlockBigGANpp(128, 128, 32, fir_kernel=FIR)
+    tblk.load_state_dict(convert.flax_to_state_dict(tblk, params))
+    with torch.inference_mode():
+        got = tblk(torch.from_numpy(x), torch.from_numpy(temb), fused=True, layer=impl)
+    assert calls == (["conv3x3_pallas"] * 2 if (impl, w) == ("pallas", 2) else [])
+    assert got.shape == want.shape and rel_err(got, want) <= 1e-5
 
 
 # --------------------------------------------------------------------------
