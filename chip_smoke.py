@@ -1,12 +1,12 @@
 """Smoke run of the PyTorch/H100 port on one CUDA card.
 
-    python3 chip_smoke.py [--phases build,kernels,eps,gates,sample,int8,blur,train] [--batch 16]
+    python3 chip_smoke.py [--phases build,kernels,eps,gates,sample,int8,blur,f32,train] [--batch 16]
 
 Phases (each prints one line per check; any failure raises and exits non-zero):
   1. the card: torch.cuda must be available; prints nvidia-smi's name and
      power limit;
   2. build: nvcc builds gddim_torch/csrc/*.cu (one process per source, in
-     parallel), Triton compiles K1;
+     parallel), then K1's first launch;
   3. kernels: each of K1-K5 (K2-K4, and K9 below, also at B=16 and 64,
      apart from the kernels line, with their device time and share of the
      bf16 peak), and the int8 modes of K2-K5 with static and with
@@ -41,8 +41,11 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      dtype; then K9 (bf16, and int8 with static
      and per-sample scales) at the 6 transition shapes against its plain
      versions with the TPU kernel's rounding points, K10's forward and its 11
-     gradients (f32) at the training attention shapes, and K2-K5 once each on
-     f32 activations (f32 out); then K5 (bf16, int8 static and per-sample)
+     gradients (f32) at the training attention shapes, and K2/K3/K4/K5/K9 on
+     f32 activations (f32 out) at every main-path shape against the f32
+     plain composition and against their plain versions with the TPU
+     kernels' rounding points, the same bits on repeat, every block's convs
+     on the block GEMM; then K5 (bf16, int8 static and per-sample)
      at B=4, 16 and 64 on both attention shapes with device time, share of
      the peak and, as its yardstick, the composition F.group_norm + matmul +
      SDPA + matmul; the bf16 mode also against its plain version with the
@@ -89,6 +92,13 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      the card) and 'pallas' (layer-wise: K1, K11, K8): finite samples, launch
      counts, wall time, and each other run's pixel correlation and mean|dx|
      against the 'fused' samples;
+  7b. f32: the f32 path (model.dtype float32, conv_impl 'fused', the
+     transitions 'full'): one full-width eps evaluation (B=4, t=0.5)
+     against the f32 plain path with its launch counts (every block on the
+     block GEMM's routes), CLD deis-2 NFE=50 sampling at --batch through
+     gddim_torch.cli's sampling function (finite samples, launch counts,
+     wall time), one traced eval at B=64 (kernels, device time as their sum
+     and their union);
   8. train: the full-width model in f32 (seeded weights) at the config's
      training batch (128): one loss + backward on the kernel path against the
      all-plain path with the same t, z and dropout masks (loss, gradient
@@ -101,8 +111,14 @@ Then one line {"kernels": [...]}, one line with the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 
 ``--phases blur_span`` (not in the default run) traces the blur layer-wise
-'int8' eval at B=64 and 16, twice each: kernels, device time (sum and
-union), K11 int8's and K12's totals; a parent's checkout runs it too.
+'int8' and 'pallas' evals at B=64 and 16, twice each: kernels, device time
+(sum and union), K11 int8's, K12's, K11's and K1's totals; ``--phases
+f32_time`` times K2/K3/K4/K5/K9 on f32 activations at every shape at
+B=4/16/64 beside F.conv2d, ``--phases f32_span`` traces the f32 B=64 eval
+twice, ``--phases k1_time`` times K1 at its sites (bf16, f32, with and
+without SiLU) at B=4/16/64 beside F.group_norm (``--k1-save`` /
+``--k1-ref`` hold two trees' outputs against each other); a parent's
+checkout runs each of these too.
 ``--phases profile`` (not in the default run) traces one eval of the CLD bf16
 and int8 kernel paths, then of the same with transition_impl 'tail' and
 'full', then of the blur 'fused_int8' and layer-wise 'int8' and 'pallas' paths, at
@@ -312,6 +328,16 @@ K10_GRAD_BOUND = 1e-5
 # The K2-K5 wrappers on f32 activations write f32 (bf16 MMA operands) against
 # the f32 plain composition: measured 7.5e-4 to 1.26e-3 on an H100, about 3x
 F32_ACT_BOUND = 4e-3
+# ... against their plain versions with the TPU kernels' rounding points
+# (bf16 MMA operands, f32 elsewhere): the same roundings, f32 sums in another
+# order, which flip a bf16 rounding of an operand now and then; measured
+# 6.5e-7 to 7.5e-4 at every main-path shape on an H100 (on the block GEMM;
+# 7.5e-4 K5 at 4x4), about 2.7x
+F32_TPU_BOUND = 2e-3
+# The whole network on f32 activations (model.dtype float32, 'fused') against
+# the f32 plain path: measured 3.6e-3 on an H100 (B=4, t=0.5, seeded
+# weights), about 2.7x
+EPS_F32_BOUND = 1e-2
 # NFE=50 samples through K9 against the K4 path's of the same seed (uint8
 # images / 255): bf16 roundings moved within each transition. Measured on an
 # H100: CLD bf16 corr 0.99914, mean|dx| 0.00044; the int8 runs, where a moved
@@ -343,6 +369,13 @@ PER_EVAL_INT8 = {"K1": 7, "K2-int8": 34, "K3-int8": 36, "K4-int8": 6, "K5-int8":
 # in the head)
 PER_EVAL_FULL = {"K1": 1, "K2": 34, "K3": 36, "K9": 6, "K5": 10}
 PER_EVAL_INT8_FULL = {"K1": 1, "K2-int8": 34, "K3-int8": 36, "K9-int8": 6, "K5-int8": 10}
+# ... on f32 activations (model.dtype float32, 'fused', transitions 'full'):
+# the bf16 modes on f32 x, every conv and projection on the block GEMM (172);
+# GN1's statistics by gn_stats_kernel (the 34 K2, 36 K3, 6 K9 and 10 K5
+# GroupNorms) and its bf16 pre-pass (70 conv1 operands, 10 K5 h), GN2's
+# folding pre-pass (76; a bf16 pre-pass too); no gn_apply_kernel
+PER_EVAL_F32 = {"K1": 1, "K2": 34, "K3": 36, "K9": 6, "K5": 10, "BF16-GEMM": 172,
+                "BF16-prepass": 156, "K5-core": 10, "GN-stats": 86, "GN2-prepass": 76}
 # the int8 block GEMM and its quantize pre-pass: once per conv of the 76
 # int8 residual blocks (K2-K4 or K9 int8) and twice (q/k/v, output) in each
 # of the 10 int8 attention blocks, the pre-pass once there (h; static
@@ -392,21 +425,19 @@ PER_STEP = {"K1": 23, "K6": TRAIN_BLOCKS, "K7": TRAIN_BLOCKS, "K8": 10,
             "BF16-prepass": 5 * TRAIN_BLOCKS,
             # K7's dW2, dW1 and dW_skip
             "wgrad": 2 * TRAIN_BLOCKS + SKIP_BLOCKS,
-            # conv_gemm_kernel serves neither K6 nor K7 any more (the WMMA
-            # wgrad kernel is gone)
-            "conv-GEMM": 0,
             # K7's GN2 and GN1 backwards; GN2's folding pre-pass in K6 and in
             # K7's recompute (d with the dropout mask)
             "GN-bwd": 2 * TRAIN_BLOCKS, "GN2-prepass": 2 * TRAIN_BLOCKS}
-# ... with training.fused_attn: the 10 attention blocks through K10 (K5's
-# attention core inside each; its GN statistics; its f32 projections on
-# conv_gemm_kernel)
+# ... with training.fused_attn: the 10 attention blocks through K10 (K5 on
+# f32 x: its GN statistics and bf16 pre-pass, the attention core, the two
+# projections on the block GEMM)
 PER_STEP_K10 = {**PER_STEP, "K1": 13, "K10": 10, "K5-core": 10,
-                "GN-stats": 2 * TRAIN_BLOCKS + 10, "conv-GEMM": 20}
+                "GN-stats": 2 * TRAIN_BLOCKS + 10, "BF16-GEMM": 20,
+                "BF16-prepass": 5 * TRAIN_BLOCKS + 10}
 del PER_STEP_K10["K8"]
 
 KERNELS = {
-    "K1": dict(name="group_norm_silu", route="triton", source="gddim_torch/ops/groupnorm.py",
+    "K1": dict(name="group_norm_silu", route="cuda", source="gddim_torch/csrc/groupnorm.cu",
                replaces="gddim_tpu/ops/groupnorm.py:162"),
     "K2": dict(name="fused_resblock", route="cuda", source="gddim_torch/csrc/resblock.cu",
                replaces="gddim_tpu/ops/resblock.py:600"),
@@ -1775,22 +1806,307 @@ def phase_attn_train_kernels(results: dict, B: int = 4):
             raise AssertionError(f"K10 {label}: forward {rel:.3e}, gradients {grel:.3e} over bounds")
 
 
+def f32_block_cases(B: int, inp):
+    """(kernel, label, fused fn, f32 plain fn, rounding-point plain fn, kernel
+    args, operations, convs) of K2/K3/K4/K5/K9 on f32 activations at every
+    main-path shape: the bf16 modes' wrappers on f32 x (f32 out), the f32
+    plain composition, and the plain version with the TPU kernels' rounding
+    points (bf16 MMA operands, f32 elsewhere); convs: the block's (H, Cin,
+    Cout, taps) products, the F.conv2d yardstick's. Uses only what a parent's
+    checkout has too."""
+    from gddim_torch.ops import attnblock, resblock as rb
+
+    act = lambda *shape: torch.randn(shape, generator=inp.g, device="cuda")  # noqa: E731
+    for h, cin, cout in SHAPES["K2"]:
+        skip = (inp.w(cin, cout), inp.vec(cout)) if cin != cout else (None, None)
+        args = (act(B, h, h, cin), act(B, TEMB), inp.w(TEMB, cout).float(), inp.vec(cout),
+                inp.vec(cin, 1.0), inp.vec(cin), inp.w(3, 3, cin, cout), inp.vec(cout),
+                inp.vec(cout, 1.0), inp.vec(cout), inp.w(3, 3, cout, cout), inp.vec(cout), *skip)
+        kw = dict(num_groups1=min(cin // 4, 32), num_groups2=min(cout // 4, 32))
+        convs = [(h, cin, cout, 9), (h, cout, cout, 9)] + ([(h, cin, cout, 1)] if skip[0] is not None
+                                                           else [])
+        yield ("K2", f"{h}x{h} {cin}->{cout}", lambda a=args, k=kw: rb.fused_resblock(*a, **k),
+               lambda a=args, k=kw: rb.resblock_reference(*_f32(a), **k),
+               lambda a=args, k=kw: rb.resblock_bf16_reference(*_f32(a), **k), args,
+               block_ops("K2", B, h, cin, cout, skip[0] is not None), convs)
+    for h, (c1, c2), cout in SHAPES["K3"]:
+        cin = c1 + c2
+        args = (act(B, h, h, c1), act(B, h, h, c2), act(B, TEMB), inp.w(TEMB, cout).float(),
+                inp.vec(cout), inp.vec(cin, 1.0), inp.vec(cin), inp.w(3, 3, cin, cout),
+                inp.vec(cout), inp.vec(cout, 1.0), inp.vec(cout), inp.w(3, 3, cout, cout),
+                inp.vec(cout), inp.w(cin, cout), inp.vec(cout))
+        kw = dict(num_groups1=min(cin // 4, 32), num_groups2=min(cout // 4, 32))
+        yield ("K3", f"{h}x{h} {c1}+{c2}->{cout}",
+               lambda a=args, k=kw: rb.fused_resblock_pair(*a, **k),
+               lambda a=args, k=kw: rb.resblock_pair_reference(*_f32(a), **k),
+               lambda a=args, k=kw: rb.resblock_pair_bf16_reference(*_f32(a), **k), args,
+               block_ops("K3", B, h, cin, cout, True),
+               [(h, cin, cout, 9), (h, cout, cout, 9), (h, cin, cout, 1)])
+    for h, c, cout in SHAPES["K4"]:
+        args = (act(B, h, h, c), act(B, h, h, c), act(B, TEMB), inp.w(TEMB, cout).float(),
+                inp.vec(cout), inp.w(3, 3, c, cout), inp.vec(cout), inp.vec(cout, 1.0),
+                inp.vec(cout), inp.w(3, 3, cout, cout), inp.vec(cout), inp.w(c, cout),
+                inp.vec(cout))
+        kw = dict(num_groups2=min(cout // 4, 32))
+        yield ("K4", f"{h}x{h} {c}->{cout}", lambda a=args, k=kw: rb.fused_resblock_tail(*a, **k),
+               lambda a=args, k=kw: rb.resblock_tail_reference(*_f32(a), **k),
+               lambda a=args, k=kw: rb.resblock_tail_bf16_reference(*_f32(a), **k), args,
+               block_ops("K4", B, h, c, cout, True),
+               [(h, c, cout, 9), (h, cout, cout, 9), (h, c, cout, 1)])
+    for h, c, cout, up in SHAPES["K9"]:
+        kw = dict(up=up, num_groups1=min(c // 4, 32), num_groups2=min(cout // 4, 32))
+        args = (act(B, h, h, c), act(B, TEMB), inp.w(TEMB, cout).float(), inp.vec(cout),
+                inp.vec(c, 1.0), inp.vec(c), inp.w(3, 3, c, cout), inp.vec(cout),
+                inp.vec(cout, 1.0), inp.vec(cout), inp.w(3, 3, cout, cout), inp.vec(cout),
+                inp.w(c, cout), inp.vec(cout))
+        ho = 2 * h if up else h // 2
+        yield ("K9", f"{'up' if up else 'down'} {h}x{h} {c}->{cout}",
+               lambda a=args, k=kw: rb.fused_resblock_transition(*a, **k),
+               lambda a=args, k=kw: rb.resblock_transition_reference(*_f32(a), **k),
+               lambda a=args, k=kw: rb.resblock_transition_bf16_reference(*_f32(a), **k), args,
+               transition_ops("K9", B, h, c, cout, up),
+               [(ho, c, cout, 9), (ho, cout, cout, 9), (ho, c, cout, 1)])
+    for h, c in SHAPES["K5"]:
+        args = (act(B, h, h, c), inp.vec(c, 1.0), inp.vec(c),
+                *[t for _ in range(4) for t in (inp.w(c, c), inp.vec(c))])
+        kw = dict(num_groups=32, skip_rescale=True)
+        yield ("K5", f"{h}x{h}x{c}", lambda a=args, k=kw: attnblock.fused_attnblock(*a, **k),
+               lambda a=args, k=kw: attnblock.attnblock_reference(*_f32(a), **k),
+               lambda a=args, k=kw: attnblock.attnblock_bf16_reference(*_f32(a), **k), args,
+               attn_ops("K5", B, h * h, c), [(h, c, 3 * c, 1), (h, c, c, 1)])
+
+
 def phase_f32_activations(B: int = 4):
-    """K2-K5 (bf16 modes) on f32 activations at one shape each: f32 out,
-    within F32_ACT_BOUND of the f32 plain composition."""
-    for kernel, label, fused, plain, args, kw in kernel_cases(B):
-        if kernel == "K1" or label not in ("16x16 256->256", "16x16 256+256->256", "16x16x256"):
-            continue
-        f32 = _f32(args)
-        out = counters()[kernel](*f32, **kw)
+    """K2/K3/K4/K5/K9 (the bf16 modes) on f32 activations at every main-path
+    shape: f32 out, within F32_ACT_BOUND of the f32 plain composition and
+    F32_TPU_BOUND of the plain version with the TPU kernels' rounding points,
+    the same bits on repeat; the launches of one call of each kind (every
+    block on the block GEMM, GN1 through gn_stats_kernel and the pre-pass)."""
+    from gddim_torch.ops import resblock as rb
+
+    worst = {}
+    for kernel, label, fused, plain, tpu, args, _, _ in f32_block_cases(B, Inputs(14)):
+        rb.block_launches(reset=True)
+        out = fused()
         torch.cuda.synchronize()
-        ref = plain_bf16(kernel)(*f32, **kw)
-        rel = _rel(out, ref)
+        launched = {k: n for k, n in rb.block_launches(reset=True).items() if n}
+        again = fused()
+        ref, ref_tpu = plain(), tpu()
+        rel, rel_tpu = _rel(out, ref), _rel(out, ref_tpu)
+        same = torch.equal(out, again)
+        worst[kernel] = max(worst.get(kernel, 0.0), rel_tpu)
         print(f"kernel {kernel} {KERNELS[kernel]['name']} [f32 activations {label}] B={B}: "
-              f"out {out.dtype}, "
-              f"rel={rel:.3e} (bound {F32_ACT_BOUND:.0e})", flush=True)
-        if out.dtype != torch.float32 or not np.isfinite(rel) or rel > F32_ACT_BOUND:
-            raise AssertionError(f"{kernel} on f32 activations: {out.dtype}, rel {rel:.3e}")
+              f"out {out.dtype}, rel={rel:.3e} against the f32 plain composition (bound "
+              f"{F32_ACT_BOUND:.0e}), rel={rel_tpu:.3e} against its rounding points (bound "
+              f"{F32_TPU_BOUND:.0e}); the same bits on repeat: {same}; launches {launched}",
+              flush=True)
+        if (out.dtype != torch.float32 or not np.isfinite(rel) or rel > F32_ACT_BOUND
+                or not np.isfinite(rel_tpu) or rel_tpu > F32_TPU_BOUND or not same):
+            raise AssertionError(f"{kernel} {label} on f32 activations: {out.dtype}, rel {rel:.3e}, "
+                                 f"{rel_tpu:.3e}, same bits {same}")
+        if launched.get("block_gemm_kernel<bf16>", 0) != 2 or "gn_apply_kernel" in launched:
+            raise AssertionError(f"{kernel} {label} on f32: launches {launched}")
+    print("kernel f32 activations: worst rel against the rounding points "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()), flush=True)
+
+
+def conv2d_ms(convs, B: int, inp) -> float:
+    """Device ms of F.conv2d (bf16, channels_last, SAME) for each (H, Cin,
+    Cout, taps) of ``convs`` at batch B, summed: a block's library yardstick."""
+    total = 0.0
+    for h, cin, cout, taps in convs:
+        x = inp.act(B, h, h, cin).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        k = 3 if taps == 9 else 1
+        w = inp.w(cout, cin, k, k, fan_in=k * k * cin).contiguous(memory_format=torch.channels_last)
+        total += graph_ms(lambda x=x, w=w, p=k // 2: F.conv2d(x, w, padding=p))
+    return total
+
+
+def phase_f32_time(card: str, batches=(4, 16, 64)):
+    """K2/K3/K4/K5/K9 on f32 activations at every main-path shape and each
+    batch: device ms (CUDA graph of 20 calls) and the share of the bf16 peak
+    its tensor-core products make of it, beside F.conv2d (bf16,
+    channels_last) on the same convs, the library yardstick; per kind and
+    in all. No check: the kernels phase holds them to their plain versions.
+    Uses only what a parent's checkout has too (copy this file there to run
+    it on the parent)."""
+    for B in batches:
+        sums = {}
+        inp, lib_inp = Inputs(15), Inputs(16)
+        for kernel, label, fused, _, _, args, ops, convs in f32_block_cases(B, inp):
+            dev = graph_ms(fused)
+            lib = conv2d_ms(convs, B, lib_inp)
+            tc = ops.get("bf16", 0) + ops.get("bf16_skip", 0)
+            s = sums.setdefault(kernel, [0.0, 0.0, 0, 0])
+            s[0], s[1], s[2], s[3] = s[0] + dev, s[1] + lib, s[2] + tc, s[3] + 1
+            print(f"f32 {kernel} [{label}] B={B}: device {dev:.4f} ms "
+                  f"({tc / PEAK['bf16'] * 1e3 / dev:.1%} of the bf16 peak), F.conv2d "
+                  f"{lib:.4f} ms ({verdict(dev, lib)}) [{card}]", flush=True)
+        for kernel, (dev, lib, tc, n) in sums.items():
+            print(f"sum f32 {kernel} B={B} ({n} shapes): device {dev:.4f} ms "
+                  f"({tc / PEAK['bf16'] * 1e3 / dev:.1%} of the bf16 peak), F.conv2d {lib:.4f} ms"
+                  f" ({verdict(dev, lib)}) [{card}]", flush=True)
+        dev, lib, tc = (sum(v[i] for v in sums.values()) for i in range(3))
+        print(f"sum f32 blocks B={B}: device {dev:.4f} ms ({tc / PEAK['bf16'] * 1e3 / dev:.1%} of "
+              f"the bf16 peak), F.conv2d {lib:.4f} ms ({verdict(dev, lib)}) [{card}]", flush=True)
+
+
+def trace_f32_eval(card: str, batch: int = 64, traces: int = 2):
+    """One CLD eval with model.dtype float32 and conv_impl 'fused' (the
+    transitions 'full') at ``batch``, traced ``traces`` times: kernels,
+    device time as their sum and as the union of their intervals
+    (busy_ms), the block GEMMs' and conv_gemm_kernel's totals. Uses only
+    what a parent's checkout has too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gddim_torch.configs import get_config
+    from gddim_torch.math.cld import CLD
+    from gddim_torch.models.init import seeded_model
+    from gddim_torch.models.wrappers import make_cld_eps_fn
+
+    config = get_config("cld/accr_dcifar10")
+    config.model.dtype = "float32"
+    config.model.transition_impl = "full"
+    model = seeded_model(config, seed=0, device="cuda")
+    eps_apply = make_cld_eps_fn(CLD.from_config(config))
+    u, t = eps_inputs(batch)
+    for _ in range(3):
+        eps_apply(model, u, t)
+    torch.cuda.synchronize()
+    unions = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eps_apply(model, u, t)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        unions.append(busy_ms(prof))
+        part = {name: sum(m for k, m, _ in dev if name in k)
+                for name in ("block_gemm_kernel", "conv_gemm_kernel", "gn_stats_kernel",
+                             "prepass_kernel", "attention_wgmma_kernel")}
+        print(f"span f32 B={batch} full [{card}]: kernels {sum(n for *_, n in dev)}, sum "
+              f"{sum(m for _, m, _ in dev):.3f} ms, union {unions[-1]:.3f} ms, traced wall "
+              f"{wall:.3f} ms; " + ", ".join(f"{k} {v:.3f} ms" for k, v in part.items()),
+              flush=True)
+        for key, ms, n in sorted(dev, key=lambda r: -r[1])[:8]:
+            print(f"  {ms:8.3f} ms {n:5d}x {key[:110]}", flush=True)
+    del model
+    return unions
+
+
+def phase_f32(card: str, batch: int):
+    """The f32 path as the training loop's eval and sampling snapshots will
+    run it (model.dtype float32, conv_impl 'fused', the config's transitions
+    'full'): one full-width eps evaluation (B=4, t=0.5) against the f32
+    plain path with its launches (every block on the block GEMM's routes,
+    none on the plain composition), CLD deis-2 NFE=50 sampling at ``batch``
+    through the CLI's sampling function (finite samples, launches, wall),
+    and one traced eval at B=64 (trace_f32_eval)."""
+    from gddim_torch.configs import get_config
+    from gddim_torch.math.cld import CLD
+    from gddim_torch.models.init import seeded_model
+    from gddim_torch.models.wrappers import make_cld_eps_fn
+
+    config = get_config("cld/accr_dcifar10")
+    config.model.dtype = "float32"
+    config.model.conv_impl = "fused"
+    model = seeded_model(config, seed=0, device="cuda")
+    eps_apply = make_cld_eps_fn(CLD.from_config(config))
+    u, t = eps_inputs()
+    reset_counts()
+    got = eps_apply(model, u, t)
+    torch.cuda.synchronize()
+    counts = launches_of(PER_EVAL_F32)
+    model.fused = False
+    ref = eps_apply(model, u, t)
+    model.fused = True
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    print(f"f32 eps B=4 t=0.5: kernel path (f32 activations) vs plain path (f32) rel={rel:.3e} "
+          f"(bound {EPS_F32_BOUND:.0e}); launches {counts}", flush=True)
+    if got.dtype != torch.float32 or not np.isfinite(rel) or rel > EPS_F32_BOUND:
+        raise AssertionError(f"f32 eps: {got.dtype}, rel err {rel:.3e} > {EPS_F32_BOUND:.0e}")
+    if counts != PER_EVAL_F32:
+        raise AssertionError(f"f32 launch counts {counts} != {PER_EVAL_F32}")
+    samples, wall, sample_counts = _run_samples(config, model, batch, PER_EVAL_F32)
+    if not np.isfinite(samples.astype(np.float64)).all():
+        raise AssertionError("f32 samples are not finite")
+    _sample_line("deis-2 f32", config, batch, wall, card, sample_counts)
+    del model
+    trace_f32_eval(card, 64, traces=1)
+    return sample_counts
+
+
+# K1's sites by dtype and SiLU: every GroupNorm of the trunk on the
+# layer-wise paths (bf16, SiLU: K12's 11 sites, which hold K1's 4 sampling
+# sites), attention's GroupNorm (no SiLU), the training shapes (f32, both)
+K1_SITES = ([(h, c, torch.bfloat16, True) for h, c in SHAPES["K12"]]
+            + [(h, c, torch.bfloat16, False) for h, c in SHAPES["K1_attn"]]
+            + [(h, c, torch.float32, silu) for h, c in SHAPES["K1_train"] for silu in (True, False)])
+
+
+def phase_k1_time(card: str, save: str | None, ref: str | None, batches=(4, 16, 64)):
+    """K1 at each of K1_SITES and batch: device ms (CUDA graph), its bytes
+    bound's share, the cluster size it chose (where the tree plans one), its
+    error against the plain version and the same bits on repeat, beside
+    F.group_norm (NCHW view, no SiLU; with SiLU F.group_norm then F.silu);
+    per dtype and in all. With ``save`` its outputs at B=4 go to that file;
+    with ``ref`` (another tree's file, e.g. the parent's Triton outputs)
+    each is held against it (max |this - that| / max |that|, printed). Uses
+    only what a parent's checkout has too."""
+    from gddim_torch.ops import groupnorm, resblock as rb
+
+    plan = getattr(rb, "gn_silu_ctas", None)
+    outs, worst = {}, 0.0
+    want = torch.load(ref) if ref else None
+    for B in batches:
+        inp = Inputs(17)
+        sums = {}
+        for h, c, dtype, silu in K1_SITES:
+            x = torch.randn((B, h, h, c), generator=inp.g, device="cuda").to(dtype)
+            gs, gb = inp.vec(c, 1.0), inp.vec(c)
+            kw = dict(num_groups=32, eps=1e-6, apply_silu=silu)
+            fused = lambda x=x, gs=gs, gb=gb, kw=kw: groupnorm.group_norm_silu(x, gs, gb, **kw)  # noqa: E731
+            out, again = fused(), fused()
+            plain = groupnorm.group_norm_silu_reference(x.float(), gs, gb, **kw)
+            err = _rel(out, plain)
+            same = torch.equal(out, again)
+            xc, gs_, gb_ = x.permute(0, 3, 1, 2), gs.to(dtype), gb.to(dtype)
+            lib = (lambda xc=xc, gs_=gs_, gb_=gb_: F.silu(F.group_norm(xc, 32, gs_, gb_, 1e-6))) \
+                if silu else (lambda xc=xc, gs_=gs_, gb_=gb_: F.group_norm(xc, 32, gs_, gb_, 1e-6))
+            dev, lib_ms = graph_ms(fused), graph_ms(lib)
+            bd = bound(nbytes(x, gs, gb, out), {"f32": 8 * out.numel()})[0]
+            key = f"{str(dtype)[6:]} {h}x{h}x{c}{' silu' if silu else ''}"
+            k = plan(B, h, h, c, x.element_size()) if plan else None
+            vs = ""
+            if B == 4:
+                outs[key] = out.cpu()
+                if want is not None:
+                    d = _rel(out.cpu(), want[key])
+                    worst = max(worst, d)
+                    vs = f", against {ref}: rel={d:.3e}"
+            s = sums.setdefault(f"{str(dtype)[6:]}{' silu' if silu else ''}", [0.0, 0.0, 0.0, 0])
+            s[0], s[1], s[2], s[3] = s[0] + dev, s[1] + lib_ms, s[2] + bd, s[3] + 1
+            print(f"k1 [{key}] B={B}: device {dev:.4f} ms, bound {bd:.4f} ms ({bd / dev:.1%}), "
+                  f"F.group_norm{'+silu' if silu else ''} {lib_ms:.4f} ms ({verdict(dev, lib_ms)}); "
+                  f"ctas {k}; rel={err:.3e} against the plain version, the same bits on repeat: "
+                  f"{same}{vs} [{card}]", flush=True)
+            if not same or not np.isfinite(err) or err > (
+                    K1_F32_BOUND if dtype == torch.float32 else KERNEL_BOUND["K1"]):
+                raise AssertionError(f"K1 {key} B={B}: rel {err:.3e}, same bits {same}")
+        for name, (dev, lib_ms, bd, n) in sums.items():
+            print(f"sum k1 {name} B={B} ({n} sites): device {dev:.4f} ms, bound {bd:.4f} ms "
+                  f"({bd / dev:.1%}), library {lib_ms:.4f} ms ({verdict(dev, lib_ms)}) [{card}]",
+                  flush=True)
+        dev, lib_ms, bd = (sum(v[i] for v in sums.values()) for i in range(3))
+        print(f"sum k1 all B={B}: device {dev:.4f} ms, bound {bd:.4f} ms ({bd / dev:.1%}), "
+              f"library {lib_ms:.4f} ms ({verdict(dev, lib_ms)}) [{card}]", flush=True)
+    if save:
+        torch.save(outs, save)
+    if want is not None:
+        print(f"k1: worst rel against {ref}: {worst:.3e}", flush=True)
 
 
 # K5 at the sampling batches; its B=4 rows are in the kernels line (the core
@@ -2401,15 +2717,13 @@ def time_train_blocks(card: str, batches=(4, 16, 64, 128)):
 # kernels of K6 and K7 by name in a trace (both trees' names)
 TRAIN_BLOCK_KERNELS = ("block_gemm_kernel", "block_splitk", "wgrad_kernel", "rowsum_kernel",
                        "prepass_kernel", "gn_prepass_kernel", "round_kernel", "gn_bwd_kernel",
-                       "gn_stats_kernel", "conv_gemm_kernel", "splitk_epilogue_kernel")
+                       "gn_stats_kernel")
 
 
-def profile_train_step(card: str, train_step, state, images, label: str,
-                       conv_gemm_gone: bool = False):
+def profile_train_step(card: str, train_step, state, images, label: str):
     """One traced training step (loss, backward, Adam): host enqueue, device
     time, idle share, the kernels that take the time, and K6/K7's share
-    (TRAIN_BLOCK_KERNELS); with conv_gemm_gone, fails if conv_gemm_kernel or
-    the WMMA wgrad (its WgradArgs) is in the trace."""
+    (TRAIN_BLOCK_KERNELS)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2442,9 +2756,6 @@ def profile_train_step(card: str, train_step, state, images, label: str,
                    if e.device_type == DeviceType.CPU), key=lambda r: -r[1])[:10]
     print("  host, by self CPU time (traced): " + "; ".join(
         f"{key[:40]} {ms:.1f} ms {n}x" for key, ms, n in host), flush=True)
-    gone = [key for key, *_ in dev if "conv_gemm_kernel" in key or "WgradArgs" in key]
-    if conv_gemm_gone and gone:
-        raise AssertionError(f"train step ({label}): replaced kernels in the trace: {gone}")
     return total
 
 
@@ -2490,22 +2801,25 @@ def phase_eval_span(card: str, batch: int = 64):
     del model
 
 
-# The blur layer-wise int8 path's K11 int8 and K12 by kernel name, in a
-# parent's trace and in this tree's: K11 int8 on conv3x3_s8_kernel (+ its
-# split sums) before, on the int8 block GEMM (+ block_splitk_s32_kernel)
-# after; K12 as two Triton launches before, gn_apply_kernel after
+# The blur layer-wise paths' kernels by name, in a parent's trace and in this
+# tree's: K11 int8 on the int8 block GEMM (+ block_splitk_s32_kernel), K12 on
+# gn_apply_kernel, K11 bf16 on conv3x3_wgmma_kernel (+ its split sums), K1
+# (the Triton gn_silu_kernel, or csrc/groupnorm.cu's of the same name)
 BLUR_SPAN_KERNELS = {"K11-int8": ("conv3x3_s8_kernel", "s8_splitk_kernel", "block_gemm_kernel",
                                   "block_splitk"),
-                     "K12": ("gn_silu_amax_kernel", "gn_silu_quant_kernel", "gn_apply_kernel")}
+                     "K12": ("gn_silu_amax_kernel", "gn_silu_quant_kernel", "gn_apply_kernel"),
+                     "K11": ("conv3x3_wgmma_kernel", "wgmma_splitk_kernel"),
+                     "K1": ("gn_silu_kernel",)}
 
 
 def phase_blur_span(card: str, batches=(64, 16)):
     """One blur/ddpm_deep_cifar10 eval through the layer-wise 'int8' path
-    (conv_impl 'int8': K12 into K11 int8 in every residual block) at each
-    batch, traced twice: its kernels, device time as their sum and as the
-    union of their intervals, and K11 int8's and K12's totals; then both
-    kernels alone (time_layer_kernels). Uses only what a parent's checkout
-    has too (copy this file there to run it on the parent)."""
+    (conv_impl 'int8': K12 into K11 int8 in every residual block) and the
+    'pallas' path (K1 into K11 bf16) at each batch, traced twice: its
+    kernels, device time as their sum and as the union of their intervals,
+    and the totals of BLUR_SPAN_KERNELS (K11 int8, K12, K11, K1); then K11
+    int8 and K12 alone (time_layer_kernels). Uses only what a parent's
+    checkout has too (copy this file there to run it on the parent)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2518,7 +2832,8 @@ def phase_blur_span(card: str, batches=(64, 16)):
     config.model.conv_impl = "int8"
     model = build_model(config, "cuda", None, seed=0)
     yeps = make_blur_yeps_fn(BlurSDE.from_config(config))
-    for batch in batches:
+    for batch, layer in ((b, layer) for b in batches for layer in ("int8", "pallas")):
+        model.layer = layer
         u, t = eps_inputs(batch)
         y = u[..., 0]
         for _ in range(3):
@@ -2536,7 +2851,7 @@ def phase_blur_span(card: str, batches=(64, 16)):
                 parts.append(f"{name} {sum(m for _, m, _ in hit):.3f} ms in "
                              f"{sum(n for *_, n in hit)} ("
                              + ", ".join(f"{k[:40]} {n}x" for k, _, n in hit) + ")")
-            print(f"span blur int8 B={batch} [{card}]: kernels {sum(n for *_, n in dev)}, sum "
+            print(f"span blur {layer} B={batch} [{card}]: kernels {sum(n for *_, n in dev)}, sum "
                   f"{sum(m for _, m, _ in dev):.3f} ms, union {busy_ms(prof):.3f} ms; "
                   + "; ".join(parts), flush=True)
     del model
@@ -3023,7 +3338,7 @@ DEVICE_COUNTED = {"S8-GEMM": "block_gemm_kernel<int8>", "S8-prepass": "prepass_k
                   "BF16-GEMM": "block_gemm_kernel<bf16>", "BF16-prepass": "prepass_kernel<bf16>",
                   "K5-core": "attention_wgmma_kernel", "GN-stats": "gn_stats_kernel",
                   "GN-apply": "gn_apply_kernel", "train-GEMM": "block_gemm_kernel<bf16, train>",
-                  "wgrad": "wgrad_kernel", "conv-GEMM": "conv_gemm_kernel",
+                  "wgrad": "wgrad_kernel",
                   "GN-bwd": "gn_bwd_kernel", "GN2-prepass": "gn_prepass_kernel"}
 
 
@@ -3584,11 +3899,10 @@ def phase_train(card: str):
                              f"training.fused_attn={model.fused_attn}")[1]
     counts.update({k: n for k, n in other.items() if k not in counts})
 
-    # where one step's time goes (K10 off): no conv_gemm_kernel, no WMMA wgrad
+    # where one step's time goes (K10 off)
     train_step = make_train_step(loss_fn)
     model.fused, model.fused_attn = True, False
-    profile_train_step(card, train_step, state, batches[:1], "kernel path, K10 off",
-                       conv_gemm_gone=True)
+    profile_train_step(card, train_step, state, batches[:1], "kernel path, K10 off")
     # throughput and peak memory: the kernel path with K10 off and on, and the
     # plain path, for information
     runs = [("kernel", True, False), ("kernel, K10", True, True), ("plain", False, False),
@@ -3614,12 +3928,20 @@ def main(argv=None):
     # (the GN backward under every cluster plan), eval_span (the B=64 eval's
     # device time and GN2's pre-pass; a parent's checkout runs it too), bits
     # (outputs behind GN2's pre-pass, saved and held against another tree's),
-    # train_ab (the loss curves), blur_span (the blur layer-wise int8 eval's
-    # device time, K11 int8's and K12's; a parent's checkout runs it too)
-    parser.add_argument("--phases", default="build,kernels,eps,gates,sample,int8,blur,train")
+    # train_ab (the loss curves), blur_span (the blur layer-wise int8 and
+    # pallas evals' device time, K11 int8's, K12's, K11's and K1's; a
+    # parent's checkout runs it too), f32_time (K2-K5/K9 on f32 activations
+    # at every shape, B=4/16/64, beside F.conv2d) and f32_span (the traced
+    # f32 B=64 eval), k1_time (K1 at its sites, B=4/16/64, beside
+    # F.group_norm; --k1-save / --k1-ref hold two trees' outputs), each of the
+    # three on a parent's checkout too
+    parser.add_argument("--phases", default="build,kernels,eps,gates,sample,int8,blur,f32,train")
     parser.add_argument("--batch", type=int, default=16, help="sampling batch")
     parser.add_argument("--bits", default=None, help="phase bits: the file to save to")
     parser.add_argument("--bits-ref", default=None, help="phase bits: another tree's file")
+    parser.add_argument("--k1-save", default=None, help="phase k1_time: save K1's outputs here")
+    parser.add_argument("--k1-ref", default=None,
+                        help="phase k1_time: another tree's K1 outputs to hold them against")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -3643,7 +3965,7 @@ def main(argv=None):
     x = torch.zeros((1, 4, 4, 128), device="cuda", dtype=torch.bfloat16)
     groupnorm.group_norm_silu(x, torch.ones(128, device="cuda"), torch.zeros(128, device="cuda"))
     torch.cuda.synchronize()
-    print(f"build: nvcc {_build.build_seconds:.1f} s, total with Triton "
+    print(f"build: nvcc {_build.build_seconds:.1f} s, total with K1's first launch "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     results: dict = {}  # the kernels line's (B=4)
@@ -3689,6 +4011,15 @@ def main(argv=None):
     if "blur" in phases:
         blur_counts = phase_blur(args.batch, card)
         counts.update({k: n for k, n in blur_counts.items() if k not in counts})
+    if "f32" in phases:
+        f32_counts = phase_f32(card, args.batch)
+        counts.update({k: n for k, n in f32_counts.items() if k not in counts})
+    if "f32_time" in phases:
+        phase_f32_time(card)
+    if "f32_span" in phases:
+        trace_f32_eval(card, 64)
+    if "k1_time" in phases:
+        phase_k1_time(card, args.k1_save, args.k1_ref)
     if "profile" in phases:
         phase_profile(config, args.batch, card)
     if "ab" in phases:

@@ -37,48 +37,29 @@ _L = ctypes.c_longlong
 # return a byte count (long long); every other entry returns cudaError_t as
 # int.
 _SIGNATURES = {
-    # gddim_resblock_workspace(B, H, W, Cin, N, splits, parts): the bf16 block,
-    #   parts the tile plan's tiles_h (GN2's partial rows a sample)
-    "gddim_resblock_workspace": [_I, _I, _I, _I, _I, _I, _I],
-    # gddim_resblock(x0, x1, c0, c1, temb_row, temb_ld, gn1_g, gn1_b,
+    # gddim_resblock_workspace(B, H, W, Cin, N, splits, parts, xs): the bf16 block
+    #   (and K6), parts the tile plan's tiles_h (GN2's partial rows a sample), xs
+    #   the skip's channels on f32 activations (their bf16 copy), else 0
+    "gddim_resblock_workspace": [_I, _I, _I, _I, _I, _I, _I, _I],
+    # gddim_resblock(x0, x1, c0, c1, act_f32, temb_row, temb_ld, gn1_g, gn1_b,
     #   groups1, w1, b1, gn2_g, gn2_b, groups2, w2, b2, s0, s1, cs0, cs1, ws, bs,
     #   B, H, W, N, eps, out_scale, work, mw, box_h, box_b, tiles_h, m_tiles,
     #   splits1, kper1, splits2, kper2, gn_ctas, out, stream)
     "gddim_resblock": [
-        _P, _P, _I, _I, _P, _I, _P, _P,
+        _P, _P, _I, _I, _I, _P, _I, _P, _P,
         _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
         _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
-    # gddim_resblock_f32_workspace(B, H, W, Cin, N, splits)
-    "gddim_resblock_f32_workspace": [_I, _I, _I, _I, _I, _I],
-    # gddim_resblock_f32(x0, x1, c0, c1, temb_row, temb_ld, gn1_g, gn1_b,
-    #   groups1, w1, b1, gn2_g, gn2_b, groups2, w2, b2, s0, s1, cs0, cs1, ws, bs,
-    #   B, H, W, N, eps, out_scale, work, splits1, kper1, splits2, kper2, out, stream)
-    "gddim_resblock_f32": [
-        _P, _P, _I, _I, _P, _I, _P, _P,
-        _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P,
-        _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
-    ],
     # gddim_resblock_transition_workspace(B, H_out, W_out, C, N, splits, parts)
     "gddim_resblock_transition_workspace": [_I, _I, _I, _I, _I, _I, _I],
-    # gddim_resblock_transition(x, c, temb_row, temb_ld, gn1_g, gn1_b, groups1,
+    # gddim_resblock_transition(x, c, act_f32, temb_row, temb_ld, gn1_g, gn1_b, groups1,
     #   w1, b1, gn2_g, gn2_b, groups2, w2, b2, ws, bs, B, H_in, W_in, up, kh0..kh3, kw0..kw3,
     #   N, eps, out_scale, work, mw, box_h, box_b, tiles_h, m_tiles, splits1, kper1, splits2,
     #   kper2, gn_ctas, out, stream)
     "gddim_resblock_transition": [
-        _P, _I, _P, _I, _P, _P, _I,
+        _P, _I, _I, _P, _I, _P, _P, _I,
         _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
         _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-    ],
-    # gddim_resblock_transition_f32_workspace(B, H_out, W_out, C, N, splits)
-    "gddim_resblock_transition_f32_workspace": [_I, _I, _I, _I, _I, _I],
-    # gddim_resblock_transition_f32(x, c, temb_row, temb_ld, gn1_g, gn1_b,
-    #   groups1, w1, b1, gn2_g, gn2_b, groups2, w2, b2, ws, bs, B, H_in, W_in, up,
-    #   kh0..kh3, kw0..kw3, N, eps, out_scale, work, splits1, kper1, splits2, kper2, out, stream)
-    "gddim_resblock_transition_f32": [
-        _P, _I, _P, _I, _P, _P, _I,
-        _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
-        _I, _F, _F, _P, _I, _I, _I, _I, _P, _P,
     ],
     # gddim_resblock_transition_int8_workspace(B, H_out, W_out, C, N, splits, parts)
     "gddim_resblock_transition_int8_workspace": [_I, _I, _I, _I, _I, _I, _I],
@@ -135,11 +116,10 @@ _SIGNATURES = {
                           _I, _P, _P, _I, _P, _P, _P, _P, _P],
     # gddim_block_launches(out, reset): launches of the kernels counted in C (no stream)
     "gddim_block_launches": [_P, _I],
-    # gddim_resblock_train_workspace(B, H, W, Cin, N, splits, parts, skip)
-    "gddim_resblock_train_workspace": [_I, _I, _I, _I, _I, _I, _I, _I],
     # gddim_resblock_train(x, c, temb_row, gn1_g, gn1_b, groups1, w1, b1, gn2_g, gn2_b,
     #   groups2, w2, b2, ws, bs, mask, inv_keep, B, H, W, N, eps, out_scale, work,
-    #   mw, box_h, box_b, tiles_h, m_tiles, splits1, kper1, splits2, kper2, out, stream)
+    #   mw, box_h, box_b, tiles_h, m_tiles, splits1, kper1, splits2, kper2, out, stream);
+    #   scratch: gddim_resblock_workspace with xs = c where it has a 1x1 skip
     "gddim_resblock_train": [
         _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _F,
         _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
@@ -170,17 +150,12 @@ _SIGNATURES = {
     "gddim_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # gddim_attention_core(qkv, B, S, C, stages, mode, qs, amax, out, stream)
     "gddim_attention_core": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    # gddim_attnblock(x, gn_g, gn_b, groups, wqkv, bqkv, wo, bo, B, H, W, C, eps, out_scale,
-    #   work, work_bytes, mw1, box_h1, box_b1, tiles_h1, m_tiles1, splits1, kper1, mw2,
-    #   box_h2, box_b2, tiles_h2, m_tiles2, splits2, kper2, stages, gn_ctas, out, stream)
+    # gddim_attnblock(x, act_f32, gn_g, gn_b, groups, wqkv, bqkv, wo, bo, B, H, W, C, eps,
+    #   out_scale, work, work_bytes, mw1, box_h1, box_b1, tiles_h1, m_tiles1, splits1, kper1,
+    #   mw2, box_h2, box_b2, tiles_h2, m_tiles2, splits2, kper2, stages, gn_ctas, out, stream)
     "gddim_attnblock": [
-        _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _L,
+        _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _L,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-    ],
-    # gddim_attnblock_f32(x, gn_g, gn_b, groups, wqkv, bqkv, wo, bo, B, S, C, eps, out_scale,
-    #   work, work_bytes, splits1, kper1, splits2, kper2, stages, out, stream)
-    "gddim_attnblock_f32": [
-        _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _L, _I, _I, _I, _I, _I, _P, _P,
     ],
     # gddim_attnblock_int8(x, gn_g, gn_b, groups, wqkv_k, wqkv_s, bqkv, wo_k, wo_s, bo,
     #   act_scales, B, H, W, C, eps, out_scale, work, work_bytes, mw1 .. kper1, mw2 .. kper2,
@@ -199,6 +174,12 @@ _SIGNATURES = {
     # gddim_gn_silu_quant(x, act_f32, B, HW, C, groups, gamma, beta, eps, silu, ctas, work, q,
     #   qs, stream): K12
     "gddim_gn_silu_quant": [_P, _I, _I, _I, _I, _I, _P, _P, _F, _I, _I, _P, _P, _P, _P],
+    # gddim_gn_silu(x, dtype, B, HW, C, groups, gamma, beta, eps, silu, ctas, hold, out,
+    #   stream): K1, dtype 0 bf16, 1 f16, 2 f32
+    "gddim_gn_silu": [_P, _I, _I, _I, _I, _I, _P, _P, _F, _I, _I, _I, _P, _P],
+    # gddim_gn_silu_smem(C, bytes, HW, ctas, hold): shared memory bytes of one
+    #   gn_silu_kernel CTA (no stream)
+    "gddim_gn_silu_smem": [_I, _I, _I, _I, _I],
 }
 
 _lock = threading.Lock()

@@ -25,10 +25,7 @@ using bf16 = __nv_bfloat16;
 // pre-passes, in every activation mode, GN1's one-launch kernel, K9's
 // resample): IEEE division's test for its slow path put each of a vector's
 // 8 divisions in a branch of its own, so that they ran one after another.
-// silu_ieee: IEEE division, in conv_gemm_kernel's operand (f32 activations
-// of K2-K5/K9 and K10).
 __device__ __forceinline__ float silu(float v) { return __fdividef(v, 1.0f + __expf(-v)); }
-__device__ __forceinline__ float silu_ieee(float v) { return v / (1.0f + __expf(-v)); }
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));

@@ -6,20 +6,23 @@
 //   out = (x + a @ Wo + bo) * out_scale
 // with mm_dtype bf16 (gddim_attnblock: bf16 x and out) or int8
 // (gddim_attnblock_int8: the projections int8 with static or per-sample
-// activation scales, the attention products bf16). K10, the training
-// forward, runs the block on f32 activations (gddim_attnblock_f32).
+// activation scales, the attention products bf16). On f32 activations
+// (K5 on f32 x, and K10, the training forward) gddim_attnblock reads and
+// writes f32 x and out with the same bf16 operands, as the TPU kernel with
+// mm_dtype bf16.
 //
 // gddim_attnblock, four launches, all hand-written:
 //   gn_apply_launch (gn_apply.cu)   h = GN(x) rounded to bf16 once (the TPU
 //                                   kernel's h_all.astype(bf16)), its
 //                                   statistics from the same read of x (or,
-//                                   route 0: gn_stats_launch, then the
-//                                   pre-pass, resblock.cu)
+//                                   route 0 and f32 x: gn_stats_launch,
+//                                   then the pre-pass, resblock.cu)
 //   block_gemm_launch (block_gemm.cu, taps 1)
 //                                   [q|k|v] = h @ [Wq|Wk|Wv] + b, bf16, one
 //                                   N = 3C GEMM over M = B*S pixels
 //   attention_wgmma_kernel (here)   a = softmax(q k^T / sqrt(C)) v, bf16
 //   block_gemm_launch (taps 1)      out = (a @ Wo + bo + x) * out_scale
+//                                   (f32 x: f32 residual and out)
 // gddim_attnblock_int8 quantizes h in the same GN launch (static s_h, or per
 // sample by the cluster's amax of GN(x)), runs both projections on the int8
 // block GEMM (K-major int8 weights, dequantized by w_scale * s in the
@@ -29,9 +32,6 @@
 // sample's amax of a first, so the core writes f32 a and folds its max |a|
 // into amax[b] (atomicMax of the bit patterns of non-negative floats: the
 // result does not depend on the order), then an int8 pre-pass quantizes it.
-// gddim_attnblock_f32 (f32 x, residual and out; bf16 MMA operands, as the
-// TPU kernel with mm_dtype bf16) keeps conv_gemm_kernel for the projections,
-// with the GN affine in its A prologue, and runs the same core.
 //
 // The core, attention_wgmma_kernel<STAGES, MASKED, MODE>: a CTA of one
 // consumer warpgroup and one producer warp takes 64 query rows. TMA brings
@@ -377,7 +377,7 @@ int attn_launch(const bf16* qkv, int batch, int s, int c, int stages, int mode, 
 //   4 B C + 4 B C + 8 B + h_bytes M C + 6 M C + a_bytes M C
 //   (+ 12 splits M C when a GEMM splits K)
 // h_bytes: an element of h = GN(x), the q/k/v GEMM's operand (2 bf16, 1
-// int8, 0 where conv_gemm_kernel's prologue makes it); a_bytes: an element
+// int8); a_bytes: an element
 // of a buffer of its own for a (0: a takes h's place, which the q/k/v GEMM
 // has read). ops/attnblock.py:workspace_bytes computes the same.
 struct Work {
@@ -432,13 +432,15 @@ BlockGemm projection(bool int8, const void* a, const void* w, int batch, int h, 
   return g;
 }
 
-// h = GN(x) of the bf16 x (no SiLU) into wk.h: bf16, or (int8) int8 by the
-// static scale *qs, or per sample by max |h| into wk.amax (qs null); in one
-// launch of gn_apply_kernel on gn_ctas CTAs a sample, or (gn_ctas 0) the GN
-// statistics kernel, the amax pass (per sample) and the pre-pass.
-int gn_h(const void* x, int groups, const void* gn_g, const void* gn_b, int batch, int h, int w,
-         int c, float eps, bool int8, const float* qs, const Work& wk, int gn_ctas,
+// h = GN(x) of x (no SiLU; bf16, or f32 with x_f32) into wk.h: bf16, or
+// (int8) int8 by the static scale *qs, or per sample by max |h| into
+// wk.amax (qs null); in one launch of gn_apply_kernel on gn_ctas CTAs a
+// sample (bf16 x), or (gn_ctas 0) the GN statistics kernel, the amax pass
+// (per sample) and the pre-pass.
+int gn_h(const void* x, bool x_f32, int groups, const void* gn_g, const void* gn_b, int batch,
+         int h, int w, int c, float eps, bool int8, const float* qs, const Work& wk, int gn_ctas,
          cudaStream_t st) {
+  if (x_f32 && (gn_ctas || int8)) return (int)cudaErrorInvalidValue;
   const int hw = h * w;
   if (gn_ctas) {
     GnApply a = {};
@@ -459,12 +461,12 @@ int gn_h(const void* x, int groups, const void* gn_g, const void* gn_b, int batc
     return gn_apply_launch(a, st);
   }
   int err = gn_stats_launch(x, nullptr, c, 0, batch, hw, groups, (const float*)gn_g,
-                            (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, false, st);
+                            (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, x_f32, st);
   if (!err && int8 && qs == nullptr)
     err = amax_launch(x, nullptr, c, 0, batch, hw, wk.sc, wk.sh, 0, wk.amax, false, st);
   const Int8Args q = {qs, wk.amax, 0};
   if (!err)
-    err = prepass_launch(x, nullptr, c, 0, false, batch, hw, wk.sc, wk.sh, 0, int8 ? &q : nullptr,
+    err = prepass_launch(x, nullptr, c, 0, x_f32, batch, hw, wk.sc, wk.sh, 0, int8 ? &q : nullptr,
                          wk.h, st);
   return err;
 }
@@ -482,12 +484,13 @@ int gddim_attention_core(const void* qkv, int batch, int s, int c, int stages, i
                      out, (cudaStream_t)stream);
 }
 
-// K5 on bf16 activations: x, out (B, H, W, C) bf16; wqkv (C, 3C) and wo
-// (C, C) bf16, bqkv (3C,) and bo (C,) f32. The tile plans of the q/k/v
-// GEMM (mw1 .. kper1) and the output GEMM (mw2 .. kper2), and the core's
-// ring depth, as ops/attnblock.py:block_plan makes them. Scratch `work`:
-// work_bytes (ops/attnblock.py:workspace_bytes with h_bytes 2, a_bytes 0).
-int gddim_attnblock(const void* x, const void* gn_g, const void* gn_b, int groups,
+// K5 in the bf16 mode: x, out (B, H, W, C) bf16, or f32 with act_f32 (K5 on
+// f32 x, K10's forward; then gn_ctas 0); wqkv (C, 3C) and wo (C, C) bf16,
+// bqkv (3C,) and bo (C,) f32. The tile plans of the q/k/v GEMM (mw1 ..
+// kper1) and the output GEMM (mw2 .. kper2), and the core's ring depth, as
+// ops/attnblock.py:block_plan makes them. Scratch `work`: work_bytes
+// (ops/attnblock.py:workspace_bytes with h_bytes 2, a_bytes 0).
+int gddim_attnblock(const void* x, int act_f32, const void* gn_g, const void* gn_b, int groups,
                     const void* wqkv, const void* bqkv, const void* wo, const void* bo, int batch,
                     int h, int w, int c, float eps, float out_scale, void* work,
                     long long work_bytes, int mw1, int box_h1, int box_b1, int tiles_h1,
@@ -499,7 +502,8 @@ int gddim_attnblock(const void* x, const void* gn_g, const void* gn_b, int group
                         splits1 > splits2 ? splits1 : splits2);
   if (wk.bytes > (size_t)work_bytes) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int err = gn_h(x, groups, gn_g, gn_b, batch, h, w, c, eps, false, nullptr, wk, gn_ctas, st);
+  int err = gn_h(x, act_f32 != 0, groups, gn_g, gn_b, batch, h, w, c, eps, false, nullptr, wk,
+                 gn_ctas, st);
   if (!err) {
     BlockGemm g = projection(false, wk.h, wqkv, batch, h, w, c, 3 * c, bqkv, splits1, kper1,
                              wk.partial);
@@ -510,39 +514,11 @@ int gddim_attnblock(const void* x, const void* gn_g, const void* gn_b, int group
   if (!err) {
     const GemmTiles t2{mw2, box_h2, box_b2, tiles_h2, m_tiles2};
     BlockGemm g = projection(false, wk.a, wo, batch, h, w, c, c, bo, splits2, kper2, wk.partial);
-    g.resid = x;
+    g.resid = x;  // of out's type
+    g.out_f32 = act_f32 != 0;
     g.out_scale = out_scale;
     g.out = out;
     err = block_gemm_launch(g, t2, st);
-  }
-  return err;
-}
-
-// K5 on f32 activations (K10's forward): x, out (B, S, C) f32, the weights
-// as gddim_attnblock's; the projections on conv_gemm_kernel (splits1, kper1
-// and splits2, kper2 of ops/resblock.py:split_k). Scratch: workspace_bytes
-// with h_bytes 0, a_bytes 2.
-int gddim_attnblock_f32(const void* x, const void* gn_g, const void* gn_b, int groups,
-                        const void* wqkv, const void* bqkv, const void* wo, const void* bo,
-                        int batch, int s, int c, float eps, float out_scale, void* work,
-                        long long work_bytes, int splits1, int kper1, int splits2, int kper2,
-                        int stages, void* out, void* stream) {
-  const Work wk = carve((char*)work, batch, (long)batch * s, c, 0, 2,
-                        splits1 > splits2 ? splits1 : splits2);
-  if (wk.bytes > (size_t)work_bytes) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  int err = gn_stats_launch(x, nullptr, c, 0, batch, s, groups, (const float*)gn_g,
-                            (const float*)gn_b, eps, wk.sc, wk.sh, nullptr, nullptr, true, st);
-  if (!err)  // the projections are 1x1 convs over M = B*S pixels (H = S, W = 1)
-    err = conv_gemm_launch_as(conv_args(x, c, wk.sc, wk.sh, 0, 1, wqkv, batch, s, 1, 3 * c, bqkv,
-                                        1.0f, wk.qkv, wk.partial, splits1, kper1),
-                              true, false, st);
-  if (!err) err = attn_launch(wk.qkv, batch, s, c, stages, A_BF16, nullptr, nullptr, wk.a, st);
-  if (!err) {
-    ConvArgs p = conv_args(wk.a, c, nullptr, nullptr, 0, 1, wo, batch, s, 1, c, bo, out_scale,
-                           out, wk.partial, splits2, kper2);
-    p.resid = x;
-    err = conv_gemm_launch_as(p, false, true, st);
   }
   return err;
 }
@@ -567,7 +543,7 @@ int gddim_attnblock_int8(const void* x, const void* gn_g, const void* gn_b, int 
   if (wk.bytes > (size_t)work_bytes) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   // h = q(GN(x)): clip(rint(h * (1/s_h))), or per sample by max |h|
-  int err = gn_h(x, groups, gn_g, gn_b, batch, h, w, c, eps, true, qs, wk, gn_ctas, st);
+  int err = gn_h(x, false, groups, gn_g, gn_b, batch, h, w, c, eps, true, qs, wk, gn_ctas, st);
   if (!err) {  // [q|k|v] = h8 @ Wqkv8 * (w_scale * s_h) + b, bf16
     const GemmTiles t1{mw1, box_h1, box_b1, tiles_h1, m_tiles1};
     BlockGemm g = projection(true, wk.h, wqkv_k, batch, h, w, c, 3 * c, bqkv, splits1, kper1,

@@ -81,7 +81,7 @@
 // launch and the launch latency bound it. The design answers the
 // operations with wgmma at the type's rate behind a TMA ring (no register
 // staging, no prologue in the loop: the pre-pass applies the activation
-// once where the old conv_gemm_kernel recomputed it for each of 9 taps),
+// once where a prologue in the loop would recompute it for each of 9 taps),
 // and the bytes with one accumulator set written once from registers.
 
 #include <cuda_bf16.h>
@@ -910,8 +910,9 @@ int gddim_dgrad_bf16(const void* g_, const void* w, int batch, int h, int w_, in
 
 // Launches of the kernels counted in C (conv.cuh's Counted order: the int8
 // GEMM, the int8 pre-pass, the bf16 GEMM, the bf16 pre-pass, K5's attention
-// core, the GroupNorm statistics, the GN1 kernel, the wgrad kernel,
-// conv_gemm_kernel, the training blocks' block GEMM) into out
+// core, the GroupNorm statistics, the GN1 kernel, the wgrad kernel, K1's
+// kernel, the training blocks' block GEMM, the GN backward, GN2's pre-pass)
+// into out
 // (N_COUNTED long long); with reset, zeroed after reading.
 int gddim_block_launches(long long* out, int reset) {
   for (int k = 0; k < N_COUNTED; ++k) {

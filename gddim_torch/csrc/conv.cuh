@@ -1,78 +1,21 @@
-// Shared interface of the implicit-GEMM convs and the GroupNorm statistics
-// (defined in resblock.cu and block_gemm.cu), used by attnblock.cu,
-// resblock_bwd.cu and transition.cu.
+// Shared interface of the block GEMM, its pre-passes and the GroupNorm
+// statistics (defined in resblock.cu, block_gemm.cu and gn_apply.cu), used
+// by attnblock.cu, resblock_bwd.cu and transition.cu.
 //
 // Activations are bf16 (inference, K2-K5) or f32 (training, K6/K7, and
-// K2-K5 on f32 activations); the tensor-core operands are bf16 with f32
+// K2-K5/K9 on f32 activations); the tensor-core operands are bf16 with f32
 // accumulation either way, or int8 with int32 accumulation in the int8 mode
-// of K2-K5. conv_gemm_kernel (resblock.cu) serves K2-K5/K9 on f32
-// activations and K10's f32 projections; the block GEMM (block_gemm.cu) the
-// 3x3 convs of the bf16 and int8 blocks (K2-K4, K9), K5's 1x1 projections on
-// bf16 activations and in int8, and the training blocks' convs and dgrads
-// (K6, K7), whose weight gradients run on wgrad_kernel (resblock_bwd.cu).
+// of K2-K5. The block GEMM (block_gemm.cu) runs the 3x3 convs of every
+// block (K2-K4, K9; bf16, int8 and on f32 activations), K5's 1x1
+// projections (K10's forward too), and the training blocks' convs and
+// dgrads (K6, K7), whose weight gradients run on wgrad_kernel
+// (resblock_bwd.cu).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-constexpr int CONV_BM = 64;  // conv_gemm_kernel's output tile (M x N) and K slice
-constexpr int CONV_BN = 64;
-constexpr int CONV_BK = 32;
-
-struct ConvArgs {
-  const void* a0;  // A input(s), NHWC, the logical concat of (a0, a1)
-  const void* a1;
-  int ca0, ca1;
-  const float* scale;  // (B, ca0+ca1) GN affine applied to A, or null: no prologue
-  const float* shift;
-  int silu;
-  int taps;  // 9: 3x3 SAME, 1: 1x1
-  const __nv_bfloat16* w;  // (taps*Cin, N) row-major (HWIO flattened)
-  const void* s0;  // skip segment input(s), or null
-  const void* s1;
-  int cs0, cs1;
-  const __nv_bfloat16* ws;  // (cs0+cs1, N)
-  int B, H, W, N;
-  const float* bias;   // (N,) or null
-  const float* bias2;  // (N,) or null
-  const float* temb;   // (B, N) row added per sample (row b at temb + b * temb_ld), or null
-  int temb_ld;
-  const void* resid;   // (M, N) identity residual, or null
-  float out_scale;
-  void* out;       // (M, N)
-  float* partial;  // (splits, M, N) f32 split-K partial sums, when splits > 1
-  int splits;
-  int kper;  // K per split, a multiple of CONV_BK
-};
-
-// The arguments of one conv on a single A input with an optional prologue;
-// callers set the rest (pair input, mask, skip, temb, resid) on the result.
-inline ConvArgs conv_args(const void* a, int ca, const float* scale, const float* shift,
-                          int silu_on, int taps, const void* w, int batch, int h, int w_, int n,
-                          const void* bias, float out_scale, void* out, float* partial,
-                          int splits, int kper) {
-  ConvArgs p = {};
-  p.a0 = a;
-  p.ca0 = ca;
-  p.scale = scale;
-  p.shift = shift;
-  p.silu = silu_on;
-  p.taps = taps;
-  p.w = (const __nv_bfloat16*)w;
-  p.B = batch;
-  p.H = h;
-  p.W = w_;
-  p.N = n;
-  p.bias = (const float*)bias;
-  p.out_scale = out_scale;
-  p.out = out;
-  p.partial = partial;
-  p.splits = splits;
-  p.kper = kper;
-  return p;
-}
 
 // Scratch carving: every buffer starts on a 256-byte boundary.
 inline size_t align256(size_t x) { return (x + 255) & ~(size_t)255; }
@@ -93,17 +36,6 @@ __device__ inline float block_sum256(float v, float* red) {
   __syncthreads();
   return red[0];
 }
-
-// conv_gemm_kernel (+ the split-K reduction when p.splits > 1) with f32 or
-// bf16 activations (A, skip, resid and out alike). Returns cudaError_t.
-int conv_gemm_launch(const ConvArgs& p, bool f32, cudaStream_t stream);
-
-// The same with A (and the skip segment) f32 or bf16 (a_f32), and the
-// identity residual and out f32 or bf16 (out_f32), independently.
-int conv_gemm_launch_as(const ConvArgs& p, bool a_f32, bool out_f32, cudaStream_t stream);
-
-// (splits, K per split) that keep a small-M GEMM's grid filling the card.
-void conv_split_plan(long m, int n, int k, int* splits, int* kper);
 
 // The activation scales of an int8 pre-pass (quantize8, resblock.cu).
 struct Int8Args {
@@ -176,10 +108,10 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t strea
 // the block GEMM and the pre-pass, int8 and bf16 (the bf16 pre-passes: the
 // block pre-pass, GN2's folding pre-pass, K7's rounding of the cotangent),
 // K5's attention core, the GroupNorm statistics kernel, the GN1 kernel
-// (gn_apply.cu, both variants), K7's weight-gradient kernel,
-// conv_gemm_kernel (resblock.cu), the block GEMM's launches in the
-// training blocks (K6, K7) apart from the bf16 ones of the sampling path,
-// K7's GroupNorm backward (resblock_bwd.cu), and GN2's folding pre-pass
+// (gn_apply.cu, both variants), K7's weight-gradient kernel, K1's GroupNorm
+// kernel (groupnorm.cu), the block GEMM's launches in the training blocks
+// (K6, K7) apart from the bf16 ones of the sampling path, K7's GroupNorm
+// backward (resblock_bwd.cu), and GN2's folding pre-pass
 // (gn_prepass_kernel, every mode; counted as its mode's pre-pass too).
 enum Counted {
   COUNT_GEMM_S8 = 0,
@@ -190,7 +122,7 @@ enum Counted {
   COUNT_GN_STATS = 5,
   COUNT_GN_APPLY = 6,
   COUNT_WGRAD = 7,
-  COUNT_CONV_GEMM = 8,
+  COUNT_GN_SILU = 8,
   COUNT_GEMM_TRAIN = 9,
   COUNT_GN_BWD = 10,
   COUNT_GN2_PREPASS = 11,
@@ -200,26 +132,32 @@ void count_launch(Counted kernel);
 
 // One residual block on the block GEMM (gddim_resblock's and
 // gddim_resblock_int8's arguments, in order), int8 or bf16: conv1's input
-// x0 f32 (x_f32, no x1; int8 only), bf16, or (x_q8: int8 mode, no GN1)
-// conv1's int8 operand already quantized by the static scale; and, when
-// amax1 is non-null, the per-sample amax of conv1's input already made
-// (int8 dynamic scales only). gn_ctas: GN1 through gn_apply_kernel in
-// clusters of that many CTAs a sample (its statistics, the amax and the
-// pre-pass in one launch; bf16 x only), or 0: gn_stats_kernel, amax_kernel
-// and the pre-pass. temb_row: the block's (B, N) f32 temb projection, row b at temb_row
-// + b * temb_ld. The bf16 mode takes no w1s, w2s, act_scales; with groups1 =
-// 0 its conv1 reads x0 as it is (K4 and K9: h holds silu(GN1(x)) already).
+// x0 f32 (x_f32; the int8 mode: no x1; the bf16 mode: the block's
+// activations x0, x1, s0, s1 f32, with out_f32), bf16, or (x_q8: int8 mode,
+// no GN1) conv1's int8 operand already quantized by the static scale; and,
+// when amax1 is non-null, the per-sample amax of conv1's input already made
+// (int8 dynamic scales only). out_f32: out and the identity residual x0 f32
+// (the bf16 mode only). gn_ctas: GN1 through gn_apply_kernel in clusters of
+// that many CTAs a sample (its statistics, the amax and the pre-pass in one
+// launch; bf16 x only), or 0: gn_stats_kernel, amax_kernel and the
+// pre-pass. temb_row: the block's (B, N) f32 temb projection, row b at
+// temb_row + b * temb_ld. The bf16 mode takes no w1s, w2s, act_scales;
+// with groups1 = 0 its conv1 reads bf16 x0 as it is (K4 and K9: h holds
+// silu(GN1(x)) already; f32 x0 through a pre-pass). train (K6: f32
+// activations): GN2's pre-pass applies the dropout mask (or none) and
+// 1/keep, and the GEMMs count as the training blocks'. Scratch: carve_gemm
+// (gddim_resblock_workspace).
 int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1, bool x_f32,
-                      bool x_q8, int gn_ctas, const float* amax1, const void* temb_row,
-                      int temb_ld,
-                      const void* gn1_g, const void* gn1_b,
+                      bool out_f32, bool x_q8, int gn_ctas, const float* amax1,
+                      const void* temb_row, int temb_ld, const void* gn1_g, const void* gn1_b,
                       int groups1, const void* w1, const void* w1s, const void* b1,
                       const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
                       const void* w2s, const void* b2, const void* s0, const void* s1, int cs0,
                       int cs1, const void* ws, const void* bs, const void* act_scales, int batch,
                       int h, int w_, int n, float eps, float out_scale, void* work,
                       const GemmTiles& tiles, int splits1, int kper1, int splits2, int kper2,
-                      void* out, cudaStream_t st);
+                      bool train, const int8_t* mask, float inv_keep, void* out,
+                      cudaStream_t st);
 
 // The block GEMM's pre-pass (resblock.cu): the logical concat (xa, xb) of
 // one conv's input (f32 or bf16) through the per-(sample, channel) affine
@@ -230,11 +168,13 @@ int prepass_launch(const void* xa, const void* xb, int ca, int cb, bool f32, int
                    const float* scale, const float* shift, int silu_on, const Int8Args* q,
                    void* out, cudaStream_t st);
 
-// The training blocks' pre-pass (resblock.cu): a = bf16(silu(x * scale +
-// shift)) of f32 x (B, hw, c), K6's and K7's a1, and with raw non-null
-// bf16(x) beside it (the 1x1 skip's operand). Counted as the bf16 pre-pass.
-int train_prepass_launch(const float* x, int c, int batch, int hw, const float* scale,
-                         const float* shift, void* a, void* raw, cudaStream_t st);
+// The f32 blocks' pre-pass (resblock.cu): a = bf16(silu(x * scale +
+// shift)) of the logical concat (xa, xb) of f32 x (B, hw, ca+cb), a1 of the
+// blocks on f32 activations, K6's and K7's, and with raw non-null bf16(x)
+// beside it (the 1x1 skip's operand). Counted as the bf16 pre-pass.
+int f32_prepass_launch(const float* xa, const float* xb, int ca, int cb, int batch, int hw,
+                       const float* scale, const float* shift, void* a, void* raw,
+                       cudaStream_t st);
 
 // GN2 of a training block from conv1's partial sums (gn_part of its tile
 // plan, `parts` rows a sample), the folding pre-pass: d = bf16(silu(GN2(u))

@@ -44,11 +44,6 @@
 //                     training blocks: times the dropout mask / keep, and
 //                     the fold written out for K7); h1 is read once, for the
 //                     pre-pass only.
-//   conv_gemm_kernel  implicit-GEMM NHWC conv (3x3 SAME or 1x1) on a 64x64x32
-//                     WMMA tile, register-staged double buffer: the A tile
-//                     through an optional GN-affine(+SiLU) prologue from one
-//                     pointer or two, rounded to bf16 there, an optional
-//                     skip K segment, the same epilogue.
 //
 // bf16 mode (K2-K4 on bf16 activations, conv_impl 'fused'; the entry
 // gddim_resblock, and K9's through transition.cu), resblock_gemm_run, 3-6
@@ -80,17 +75,17 @@
 // the model never passes a static skip scale).
 //
 // f32 activations (K2-K4 on f32 x, which write f32 as the TPU kernels write
-// x's dtype: gddim_resblock_f32), resblock_run, 4 launches on
-// conv_gemm_kernel (and a split-K reduction after a small grid): stats(x),
-// conv1 with the GN1 prologue, stats(h1), conv2 with the GN2 prologue and
-// the skip segment; x is read in f32 for GN1's statistics, the skip and the
-// identity residual, h1 and out are f32, and only the MMA operands are bf16,
-// as on the TPU with mm_dtype bf16.
+// x's dtype: gddim_resblock with act_f32), the bf16 mode's runner and
+// launches with x, the identity residual and out in f32: GN1 takes
+// gn_stats_kernel on f32 x, then the pre-pass writes a1 in bf16 (K2/K3:
+// and bf16 x, the 1x1 skip's operand, from the same read; K4: bf16 h, and
+// bf16 x_skip in a second pre-pass), conv1 -> f32 h1 with GN2's sums, GN2's
+// folding pre-pass, conv2 + the bf16 skip slices or the f32 identity
+// residual -> f32 out. Only the MMA operands are bf16, as on the TPU with
+// mm_dtype bf16 (gddim_tpu/models/blocks.py:271-274).
 //
-// K6 (gddim_resblock_train), resblock_train_run: the bf16 mode's chain on
-// f32 x and out: gn_stats_kernel(x), the pre-pass (a1, and bf16 x for the
-// 1x1 skip), conv1 with GN2's sums, GN2's folding pre-pass with the dropout
-// mask, conv2 + skip, or + the f32 identity residual x.
+// K6 (gddim_resblock_train): the same chain with the dropout mask in GN2's
+// folding pre-pass.
 //
 // What bounds it on the H100: the two convs, tensor-core bound at 32x32 and
 // 16x16 (2*M*9*Cin*Cout operations against M*(Cin+Cout) activation bytes
@@ -103,10 +98,8 @@
 // B=64 ~34 MB of bf16 in, ~17 MB of int8 or ~34 MB of bf16 out, mostly kept
 // in L2 for the GEMM). The block GEMM answers the convs (block_gemm.cu's
 // header), and K5's 1x1 projections on bf16 activations and in int8
-// (attnblock.cu), and K6's convs and K7's convs and dgrads;
-// conv_gemm_kernel (~4% of the bf16 peak on these shapes) stays for what
-// the block GEMM does not take: K2-K5/K9 on f32 activations and K10's f32
-// projections.
+// (attnblock.cu), K6's convs and K7's convs and dgrads, and every block on
+// f32 activations (K2-K5, K9, K10's forward).
 //
 //   amax_kernel          dynamic mode: the per-sample amax of the quantized
 //                        activation, one pass before conv2 (and before conv1
@@ -117,7 +110,6 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -125,20 +117,9 @@
 #include "act.cuh"
 #include "conv.cuh"
 
-using namespace nvcuda;
 namespace cgr = cooperative_groups;
 
 namespace {
-
-constexpr int BM = CONV_BM;
-constexpr int BN = CONV_BN;
-constexpr int BK = CONV_BK;
-constexpr int THREADS = 128;
-constexpr int LDA = BK + 8;  // bf16 elements; rows stay 32-byte aligned for WMMA
-constexpr int LDB = BN + 8;
-constexpr int LDC = BN + 4;  // f32 elements
-constexpr int TARGET_BLOCKS = 4 * 132;  // four resident blocks on each of 132 SMs
-constexpr int MIN_SPLIT_SLICES = 8;     // K slices per split, at least
 
 constexpr int THREADS_GN = 256;
 constexpr int GN_CTAS = 8;         // gn_stats_kernel's cluster: the CTAs of one sample
@@ -307,237 +288,6 @@ gn_fold_kernel(const GnFold f, int batch, int c, int hw, float* __restrict__ sca
 }
 
 // ---------------------------------------------------------------------------
-// One thread's share of a K slice: two 8-channel vectors of A and two of B.
-template <typename T>
-struct Stage {
-  Pack8<T> a[2];
-  uint4 b[2];
-  int a_b[2];     // sample index of the A row, -1 when the tap is padding or m >= M
-  int a_c[2];     // logical channel of the first of the 8 values
-  bool a_aff;     // the prologue applies to this slice
-};
-
-template <typename T>
-__device__ __forceinline__ void load_stage(const ConvArgs& p, int m0, int n0, int k0, int kconv,
-                                           Stage<T>& st) {
-  const int t = threadIdx.x;
-  const int cin = p.ca0 + p.ca1;
-  const int hw = p.H * p.W;
-  const int M = p.B * hw;
-  const bool conv = k0 < kconv;
-  st.a_aff = conv && p.scale != nullptr;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = (t >> 2) + 32 * i;
-    const int col = (t & 3) * 8;
-    const int m = m0 + row;
-    zero8(st.a[i]);
-    st.a_b[i] = -1;
-    st.a_c[i] = 0;
-    if (m < M) {
-      const int b = m / hw, rem = m - b * hw;
-      int y = rem / p.W, x = rem - (rem / p.W) * p.W;
-      if (conv) {
-        const int tap = k0 / cin;
-        const int c = k0 - tap * cin + col;
-        if (p.taps == 9) {
-          y += tap / 3 - 1;
-          x += tap % 3 - 1;
-        }
-        if (y >= 0 && y < p.H && x >= 0 && x < p.W) {
-          const T* src = c < p.ca0 ? (const T*)p.a0 : (const T*)p.a1;
-          const int cstride = c < p.ca0 ? p.ca0 : p.ca1;
-          const int cl = c < p.ca0 ? c : c - p.ca0;
-          const long pix = ((long)b * p.H + y) * p.W + x;
-          ld8(st.a[i], src + pix * cstride + cl);
-          st.a_b[i] = b;
-          st.a_c[i] = c;
-        }
-      } else {
-        const int c = k0 - kconv + col;
-        const T* src = c < p.cs0 ? (const T*)p.s0 : (const T*)p.s1;
-        const int cstride = c < p.cs0 ? p.cs0 : p.cs1;
-        const int cl = c < p.cs0 ? c : c - p.cs0;
-        ld8(st.a[i], src + (long)m * cstride + cl);
-        st.a_b[i] = b;
-        st.a_c[i] = c;
-      }
-    }
-    const int krow = (t >> 3) + 16 * i;
-    const int ncol = (t & 7) * 8;
-    const bf16* wsrc =
-        conv ? p.w + (long)(k0 + krow) * p.N : p.ws + (long)(k0 - kconv + krow) * p.N;
-    st.b[i] = *reinterpret_cast<const uint4*>(wsrc + n0 + ncol);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store_stage(const ConvArgs& p, const Stage<T>& st,
-                                            bf16 (*As)[LDA], bf16 (*Bs)[LDB]) {
-  const int t = threadIdx.x;
-  const int cin = p.ca0 + p.ca1;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = (t >> 2) + 32 * i;
-    const int col = (t & 3) * 8;
-    uint4 v;
-    if (st.a_aff && st.a_b[i] >= 0) {
-      float f[8];
-      unpack8(st.a[i], f);
-      const float* sc = p.scale + (long)st.a_b[i] * cin + st.a_c[i];
-      const float* sh = p.shift + (long)st.a_b[i] * cin + st.a_c[i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        f[j] = f[j] * sc[j] + sh[j];
-        if (p.silu) f[j] = silu_ieee(f[j]);
-      }
-      v = bf16x8(f);
-    } else {
-      v = bf16x8(st.a[i]);
-    }
-    *reinterpret_cast<uint4*>(&As[row][col]) = v;
-    const int krow = (t >> 3) + 16 * i;
-    const int ncol = (t & 7) * 8;
-    *reinterpret_cast<uint4*>(&Bs[krow][ncol]) = st.b[i];
-  }
-}
-
-// bias, b_skip, temb row and residual for 8 consecutive output channels,
-// then the scale; the residual and the output are T
-template <typename T>
-__device__ __forceinline__ void epilogue8(const ConvArgs& p, int m, int n, float r[8]) {
-  const int b = m / (p.H * p.W);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (p.bias) r[j] += p.bias[n + j];
-    if (p.bias2) r[j] += p.bias2[n + j];
-    if (p.temb) r[j] += p.temb[(long)b * p.temb_ld + n + j];
-  }
-  if (p.resid) {
-    Pack8<T> rv;
-    ld8(rv, (const T*)p.resid + (long)m * p.N + n);
-    float f[8];
-    unpack8(rv, f);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) r[j] += f[j];
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) r[j] *= p.out_scale;
-  st8((T*)p.out + (long)m * p.N + n, r);
-}
-
-// grid (ceil(M/BM), N/BN, splits), THREADS threads: 4 warps in 2x2, 32x32
-// each. Split z accumulates K slices [z*kper, (z+1)*kper). The shared tiles
-// are double-buffered: the next slice's global loads are in flight in
-// registers during the MMAs, then land in the other buffer. TA: the type of
-// A and of the skip segment; TO: the type of the identity residual and out.
-template <typename TA, typename TO>
-__global__ void __launch_bounds__(THREADS) conv_gemm_kernel(const ConvArgs p) {
-  __shared__ __align__(128) bf16 As[2][BM][LDA];
-  __shared__ __align__(128) bf16 Bs[2][BK][LDB];
-  __shared__ __align__(128) float Cs[BM][LDC];
-
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int kconv = p.taps * (p.ca0 + p.ca1);
-  const int ktot = kconv + (p.s0 != nullptr ? p.cs0 + p.cs1 : 0);
-  const int kbeg = blockIdx.z * p.kper;
-  const int kend = min(ktot, kbeg + p.kper);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  Stage<TA> st;
-  load_stage(p, m0, n0, kbeg, kconv, st);
-  store_stage(p, st, As[0], Bs[0]);
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = kbeg; k0 < kend; k0 += BK, buf ^= 1) {
-    const bool more = k0 + BK < kend;
-    if (more) load_stage(p, m0, n0, k0 + BK, kconv, st);  // in flight during the MMAs
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], &As[buf][wm + 16 * i][kk], LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], &Bs[buf][kk][wn + 16 * j], LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    // the other buffer was last read before the previous iteration's barrier
-    if (more) store_stage(p, st, As[buf ^ 1], Bs[buf ^ 1]);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm + 16 * i][wn + 16 * j], acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  const int M = p.B * p.H * p.W;
-  for (int v = threadIdx.x; v < BM * BN / 8; v += THREADS) {
-    const int row = v / (BN / 8);
-    const int col = (v % (BN / 8)) * 8;
-    const int m = m0 + row;
-    if (m >= M) continue;
-    float r[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) r[j] = Cs[row][col + j];
-    if (p.splits > 1) {
-      float4* dst = reinterpret_cast<float4*>(
-          p.partial + ((long)blockIdx.z * M + m) * p.N + n0 + col);
-      dst[0] = make_float4(r[0], r[1], r[2], r[3]);
-      dst[1] = make_float4(r[4], r[5], r[6], r[7]);
-    } else {
-      epilogue8<TO>(p, m, n0 + col, r);
-    }
-  }
-}
-
-// Split-K reduction: sums the partial tiles in split order, then the usual
-// epilogue. grid ceil(M*N/8 / 256), 256 threads, 8 channels each.
-template <typename T>
-__global__ void __launch_bounds__(256) splitk_epilogue_kernel(const ConvArgs p) {
-  const long M = (long)p.B * p.H * p.W;
-  const long v = (long)blockIdx.x * 256 + threadIdx.x;
-  if (v >= M * p.N / 8) return;
-  const long m = v / (p.N / 8);
-  const int n = (int)(v % (p.N / 8)) * 8;
-  float r[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int z = 0; z < p.splits; ++z) {
-    const float4* src = reinterpret_cast<const float4*>(p.partial + ((long)z * M + m) * p.N + n);
-    const float4 a = src[0], b = src[1];
-    r[0] += a.x; r[1] += a.y; r[2] += a.z; r[3] += a.w;
-    r[4] += b.x; r[5] += b.y; r[6] += b.z; r[7] += b.w;
-  }
-  epilogue8<T>(p, (int)m, n, r);
-}
-
-template <typename TA, typename TO>
-int conv_gemm_run(const ConvArgs& p, cudaStream_t stream) {
-  const long m = (long)p.B * p.H * p.W;
-  dim3 grid((unsigned)((m + BM - 1) / BM), p.N / BN, p.splits);
-  conv_gemm_kernel<TA, TO><<<grid, THREADS, 0, stream>>>(p);
-  if (cudaPeekAtLastError() == cudaSuccess) count_launch(COUNT_CONV_GEMM);
-  if (p.splits > 1) {
-    const long vecs = m * p.N / 8;
-    splitk_epilogue_kernel<TO><<<(unsigned)((vecs + 255) / 256), 256, 0, stream>>>(p);
-  }
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // int8 mode.
 
 // grid (chunks, B), THREADS_GN threads; see amax_launch
@@ -581,9 +331,9 @@ amax_kernel(const T* __restrict__ xa, const T* __restrict__ xb, int ca, int cb, 
 // input through the GN affine (+SiLU), written once NHWC (B, H, W, ca+cb)
 // for the GEMM's TMA loads (block_gemm.cu), as TQ: int8 by quantize8 (the
 // int8 modes), or bf16 (the bf16 modes; a1.astype(mm_dtype) of the TPU
-// kernels). Each element is made once, where conv_gemm_kernel's prologue
-// makes it again for each tap. With raw non-null (the training blocks), also
-// bf16(x) itself, the 1x1 skip's operand, from the same read. grid
+// kernels). Each element is made once. With raw non-null (the blocks on f32
+// activations), also bf16(x) itself, the 1x1 skip's operand, from the same
+// read. grid
 // ceil(M * (ca+cb) / 8 / 256), 256 threads, 8 channels each.
 template <typename T, typename TQ>
 __global__ void __launch_bounds__(256)
@@ -754,9 +504,11 @@ int gn2_prepass_run(bool int8, const float* h1, const GnFold& f, int batch, int 
 
 // Scratch of one block on the block GEMM (null base: sizes only); act_bytes
 // the pre-pass's output type, 1 (int8) or 2 (bf16); parts: conv1's tiles
-// along H (GN2's partial rows a sample). Of
+// along H (GN2's partial rows a sample); xs: the skip's channels on f32
+// activations (their bf16 copy), else 0. Of
 //   8 B Cin + 4 M N + 8 B N + 8 B parts N + 8 B + act_bytes M max(Cin, N)
-//   (+ 4 splits M N when a conv splits K) bytes, each buffer on 256 bytes.
+//   + 2 M xs (+ 4 splits M N when a conv splits K) bytes, each buffer on 256
+//   bytes.
 struct WorkGemm {
   float* sc1;      // (B, Cin) GN1 affine
   float* sh1;
@@ -766,12 +518,13 @@ struct WorkGemm {
   float* gn2;      // (2, B, parts, N) GN2's partial sums and squares, from conv1
   float* amax;     // (2, B) int8 dynamic mode: per-sample amax of a1, a2
   void* a;         // (M, max(Cin, N)) the pre-pass's conv input, conv1's then conv2's
+  void* xs;        // (M, xs) bf16 skip input (f32 activations), or null
   float* partial;  // (splits, M, N) split-K partial sums
   size_t bytes;
 };
 
 WorkGemm carve_gemm(char* base, int batch, long m, int cin, int n, int splits, int parts,
-                    size_t act_bytes) {
+                    size_t act_bytes, int xs) {
   WorkGemm w;
   size_t off = 0;
   auto take = [&](size_t bytes) {
@@ -787,191 +540,10 @@ WorkGemm carve_gemm(char* base, int batch, long m, int cin, int n, int splits, i
   w.gn2 = (float*)take(sizeof(float) * 2 * batch * parts * n);
   w.amax = (float*)take(sizeof(float) * 2 * batch);
   w.a = take(act_bytes * m * (cin > n ? cin : n));
+  w.xs = xs ? take(2 * m * xs) : nullptr;
   w.partial = splits > 1 ? (float*)take(sizeof(float) * splits * m * n) : nullptr;
   w.bytes = off;
   return w;
-}
-
-// Scratch of one f32 block on conv_gemm_kernel (null base: sizes only).
-struct Work {
-  float* sc1;   // (B, Cin) GN1 affine
-  float* sh1;
-  float* h1;    // (M, N) conv1 output
-  float* sc2;   // (B, N) GN2 affine
-  float* sh2;
-  float* partial;  // (splits, M, N) split-K partial sums
-  size_t bytes;
-};
-
-Work carve(char* base, int batch, long m, int cin, int n, int splits) {
-  Work w;
-  size_t off = 0;
-  auto take = [&](size_t bytes) {
-    char* p = base ? base + off : nullptr;
-    off += align256(bytes);
-    return p;
-  };
-  w.sc1 = (float*)take(sizeof(float) * batch * cin);
-  w.sh1 = (float*)take(sizeof(float) * batch * cin);
-  w.h1 = (float*)take(sizeof(float) * m * n);
-  w.sc2 = (float*)take(sizeof(float) * batch * n);
-  w.sh2 = (float*)take(sizeof(float) * batch * n);
-  w.partial = splits > 1 ? (float*)take(sizeof(float) * splits * m * n) : nullptr;
-  w.bytes = off;
-  return w;
-}
-
-// One residual block on f32 activations through conv_gemm_kernel (K2-K4 on
-// f32 activations). temb_row: the (B, N) temb projection, row b at
-// temb_row + b * temb_ld. groups1 = 0: no GN1 on the conv1 input (K4). s0
-// == null selects the identity residual x0.
-int resblock_run(const void* x0, const void* x1, int c0, int c1, const void* temb_row,
-                 int temb_ld, const void* gn1_g, const void* gn1_b, int groups1, const void* w1,
-                 const void* b1, const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
-                 const void* b2, const void* s0, const void* s1, int cs0, int cs1, const void* ws,
-                 const void* bs, int batch, int h, int w_, int n, float eps, float out_scale,
-                 void* work, int splits1, int kper1, int splits2, int kper2, void* out,
-                 cudaStream_t stream) {
-  const int cin = c0 + c1;
-  const int hw = h * w_;
-  const Work wk = carve((char*)work, batch, (long)batch * hw, cin, n,
-                        splits1 > splits2 ? splits1 : splits2);
-  const bool gn1 = groups1 > 0;
-  int err = 0;
-  if (gn1)
-    err = gn_stats_launch(x0, x1, c0, c1, batch, hw, groups1, (const float*)gn1_g,
-                          (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr, true, stream);
-  if (!err) {
-    ConvArgs p = conv_args(x0, c0, gn1 ? wk.sc1 : nullptr, gn1 ? wk.sh1 : nullptr, gn1 ? 1 : 0, 9,
-                           w1, batch, h, w_, n, b1, 1.0f, wk.h1, wk.partial, splits1, kper1);
-    p.a1 = x1;
-    p.ca1 = c1;
-    p.temb = (const float*)temb_row;
-    p.temb_ld = temb_ld;
-    err = conv_gemm_run<float, float>(p, stream);
-  }
-  if (!err)
-    err = gn_stats_launch(wk.h1, nullptr, n, 0, batch, hw, groups2, (const float*)gn2_g,
-                          (const float*)gn2_b, eps, wk.sc2, wk.sh2, nullptr, nullptr, true, stream);
-  if (!err) {
-    ConvArgs p = conv_args(wk.h1, n, wk.sc2, wk.sh2, 1, 9, w2, batch, h, w_, n, b2, out_scale,
-                           out, wk.partial, splits2, kper2);
-    p.s0 = s0;
-    p.s1 = s1;
-    p.cs0 = cs0;
-    p.cs1 = cs1;
-    p.ws = (const bf16*)ws;
-    p.bias2 = (const float*)bs;
-    p.resid = s0 ? nullptr : x0;
-    err = conv_gemm_run<float, float>(p, stream);
-  }
-  return err;
-}
-
-// Scratch of one training block (K6) on the block GEMM (null base: sizes
-// only). Of
-//   8 B Cin + 4 M N + 8 B parts N + 2 M max(Cin, N) (+ 2 M Cin with a 1x1
-//   skip) (+ 4 splits M N when a conv splits K) bytes, each on 256 bytes.
-struct WorkTrain {
-  float* sc1;      // (B, Cin) GN1 affine
-  float* sh1;
-  float* h1;       // (M, N) conv1 output, f32
-  float* gn2;      // (2, B, parts, N) GN2's partial sums and squares, from conv1
-  void* a;         // (M, max(Cin, N)) bf16: a1, then d
-  void* xb;        // (M, Cin) bf16 x, the 1x1 skip's operand
-  float* partial;  // (splits, M, N) split-K partial sums
-  size_t bytes;
-};
-
-WorkTrain carve_train(char* base, int batch, long m, int cin, int n, int splits, int parts,
-                      bool skip) {
-  WorkTrain w;
-  size_t off = 0;
-  auto take = [&](size_t bytes) {
-    char* p = base ? base + off : nullptr;
-    off += align256(bytes);
-    return p;
-  };
-  w.sc1 = (float*)take(sizeof(float) * batch * cin);
-  w.sh1 = (float*)take(sizeof(float) * batch * cin);
-  w.h1 = (float*)take(sizeof(float) * m * n);
-  w.gn2 = (float*)take(sizeof(float) * 2 * batch * parts * n);
-  w.a = take(2 * m * (cin > n ? cin : n));
-  w.xb = skip ? take(2 * m * cin) : nullptr;
-  w.partial = splits > 1 ? (float*)take(sizeof(float) * splits * m * n) : nullptr;
-  w.bytes = off;
-  return w;
-}
-
-// K6 (make_fused_resblock_train's forward, _resblock_kernel_v2 with the
-// dropout mask): 5 launches (and a split-K reduction after a conv whose grid
-// is small). gn_stats_kernel on f32 x; the pre-pass writes a1 =
-// bf16(silu(GN1 x)) and, with a 1x1 skip, bf16(x); conv1 (STATS) writes h1
-// = conv1(a1) + b1 + temb in f32 and GN2's partial sums; GN2's folding
-// pre-pass writes d = bf16(silu(GN2 h1) * mask / keep) over a1; conv2 with
-// the skip slices (bf16 x by bf16 W_skip) or the f32 identity residual x
-// writes f32 out = (conv2(d) + skip + b2 + b_skip) * out_scale. The TPU
-// kernel's rounding points: bf16 a1, d and skip x; f32 h1, x and out.
-int resblock_train_run(const float* x, int cin, const void* temb_row, const void* gn1_g,
-                       const void* gn1_b, int groups1, const void* w1, const void* b1,
-                       const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
-                       const void* b2, const void* ws, const void* bs, const int8_t* mask,
-                       float inv_keep, int batch, int h, int w_, int n, float eps,
-                       float out_scale, void* work, const GemmTiles& tiles, int splits1,
-                       int kper1, int splits2, int kper2, float* out, cudaStream_t st) {
-  const int hw = h * w_;
-  const bool skip = ws != nullptr;
-  const WorkTrain wk = carve_train((char*)work, batch, (long)batch * hw, cin, n,
-                                   splits1 > splits2 ? splits1 : splits2, tiles.tiles_h, skip);
-  int err = gn_stats_launch(x, nullptr, cin, 0, batch, hw, groups1, (const float*)gn1_g,
-                            (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr, true, st);
-  if (!err) err = train_prepass_launch(x, cin, batch, hw, wk.sc1, wk.sh1, wk.a, wk.xb, st);
-  BlockGemm g = {};
-  g.taps = 9;
-  g.B = batch;
-  g.H = h;
-  g.W = w_;
-  g.N = n;
-  g.partial = wk.partial;
-  g.out_f32 = true;
-  g.train = true;
-  if (!err) {  // h1 = conv1(a1) + b1 + temb, f32, and GN2's partial sums
-    g.a = wk.a;
-    g.w = w1;
-    g.cin = cin;
-    g.bias = (const float*)b1;
-    g.temb = (const float*)temb_row;
-    g.temb_ld = n;
-    g.out_scale = 1.0f;
-    g.out = wk.h1;
-    g.gn_part = wk.gn2;
-    g.splits = splits1;
-    g.kper = kper1;
-    err = block_gemm_launch(g, tiles, st);
-  }
-  if (!err)  // d = bf16(silu(GN2(h1)) * mask / keep), over a1, which conv1 has read
-    err = gn2_train_prepass_launch(wk.h1, wk.gn2, tiles.tiles_h, groups2, (const float*)gn2_g,
-                                   (const float*)gn2_b, eps, mask, inv_keep, batch, hw, n,
-                                   nullptr, nullptr, nullptr, nullptr, wk.a, st);
-  if (!err) {  // out = (conv2(d) + skip + b2 + b_skip) * out_scale, f32
-    g.a = wk.a;
-    g.w = w2;
-    g.cin = n;
-    g.s0 = wk.xb;
-    g.cs0 = skip ? cin : 0;
-    g.ws = ws;
-    g.bias = (const float*)b2;
-    g.bias2 = (const float*)bs;
-    g.temb = nullptr;
-    g.resid = skip ? nullptr : x;
-    g.out_scale = out_scale;
-    g.out = out;
-    g.gn_part = nullptr;
-    g.splits = splits2;
-    g.kper = kper2;
-    err = block_gemm_launch(g, tiles, st);
-  }
-  return err;
 }
 
 }  // namespace
@@ -990,12 +562,13 @@ int prepass_launch(const void* xa, const void* xb, int ca, int cb, bool f32, int
   return err;
 }
 
-int train_prepass_launch(const float* x, int c, int batch, int hw, const float* scale,
-                         const float* shift, void* a, void* raw, cudaStream_t st) {
-  if (c % 8) return (int)cudaErrorInvalidValue;
-  const long vecs = (long)batch * hw * c / 8;
+int f32_prepass_launch(const float* xa, const float* xb, int ca, int cb, int batch, int hw,
+                       const float* scale, const float* shift, void* a, void* raw,
+                       cudaStream_t st) {
+  if (ca % 8 || cb % 8) return (int)cudaErrorInvalidValue;
+  const long vecs = (long)batch * hw * (ca + cb) / 8;
   prepass_kernel<float, bf16><<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>(
-      x, nullptr, c, 0, vecs, hw, scale, shift, 1, Int8Args{}, (bf16*)a, (bf16*)raw);
+      xa, xb, ca, cb, vecs, hw, scale, shift, 1, Int8Args{}, (bf16*)a, (bf16*)raw);
   const int err = (int)cudaGetLastError();
   if (!err) count_launch(COUNT_PREPASS_BF16);
   return err;
@@ -1017,26 +590,6 @@ int gn2_train_prepass_launch(const float* u, const float* part, int parts, int g
     count_launch(COUNT_GN2_PREPASS);
   }
   return err;
-}
-
-int conv_gemm_launch(const ConvArgs& p, bool f32, cudaStream_t stream) {
-  return conv_gemm_launch_as(p, f32, f32, stream);
-}
-
-int conv_gemm_launch_as(const ConvArgs& p, bool a_f32, bool out_f32, cudaStream_t stream) {
-  if (a_f32) return out_f32 ? conv_gemm_run<float, float>(p, stream) : conv_gemm_run<float, bf16>(p, stream);
-  return out_f32 ? conv_gemm_run<bf16, float>(p, stream) : conv_gemm_run<bf16, bf16>(p, stream);
-}
-
-void conv_split_plan(long m, int n, int k, int* splits, int* kper) {
-  const long blocks = ((m + BM - 1) / BM) * (n / BN);
-  const int slices = k / BK;
-  long s = (TARGET_BLOCKS + blocks - 1) / blocks;
-  if (s > slices / MIN_SPLIT_SLICES) s = slices / MIN_SPLIT_SLICES;
-  if (s < 1) s = 1;
-  const int per = (int)((slices + s - 1) / s);
-  *kper = per * BK;
-  *splits = (slices + per - 1) / per;
 }
 
 int gn_stats_launch(const void* xa, const void* xb, int ca, int cb, int batch, int hw,
@@ -1081,33 +634,40 @@ int amax_launch(const void* xa, const void* xb, int ca, int cb, int batch, int h
 }
 
 int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1, bool x_f32,
-                      bool x_q8, int gn_ctas, const float* amax1, const void* temb_row,
-                      int temb_ld, const void* gn1_g,
+                      bool out_f32, bool x_q8, int gn_ctas, const float* amax1,
+                      const void* temb_row, int temb_ld, const void* gn1_g,
                       const void* gn1_b, int groups1, const void* w1, const void* w1s,
                       const void* b1, const void* gn2_g, const void* gn2_b, int groups2,
                       const void* w2, const void* w2s, const void* b2, const void* s0,
                       const void* s1, int cs0, int cs1, const void* ws, const void* bs,
                       const void* act_scales, int batch, int h, int w_, int n, float eps,
                       float out_scale, void* work, const GemmTiles& tiles, int splits1, int kper1,
-                      int splits2, int kper2, void* out, cudaStream_t st) {
+                      int splits2, int kper2, bool train, const int8_t* mask, float inv_keep,
+                      void* out, cudaStream_t st) {
   const int hw = h * w_;
   const int cin = c0 + c1;
   const bool gn1 = groups1 > 0;
-  // the bf16 mode: bf16 x, and conv1 reads x0 as it is without GN1; x_q8:
-  // the int8 mode's static scale, no GN1; gn_ctas: bf16 x with GN1
-  if ((!int8 && (x_f32 || (!gn1 && x1 != nullptr))) ||
+  // f32 activations of the bf16 mode: x0, x1 and the skip parts f32, made
+  // bf16 by the pre-passes (with GN1 the skip parts are conv1's input)
+  const bool f32_act = !int8 && x_f32;
+  // the bf16 mode: conv1 reads bf16 x0 as it is without GN1 (one part);
+  // f32 x writes f32 out; x_q8: the int8 mode's static scale, no GN1;
+  // gn_ctas: bf16 x with GN1; train: f32 x (K6)
+  if ((!int8 && ((x_f32 && !out_f32) || (!gn1 && x1 != nullptr))) || (int8 && out_f32) ||
       (x_q8 && (!int8 || gn1 || x_f32 || act_scales == nullptr)) ||
-      (gn_ctas && (!gn1 || x_f32)))
+      (gn_ctas && (!gn1 || x_f32)) || (train && !f32_act) ||
+      (f32_act && gn1 && s0 != nullptr && (s0 != x0 || s1 != x1 || cs0 != c0 || cs1 != c1)))
     return (int)cudaErrorInvalidValue;
   const WorkGemm wk = carve_gemm((char*)work, batch, (long)batch * hw, cin, n,
                                  splits1 > splits2 ? splits1 : splits2, tiles.tiles_h,
-                                 int8 ? 1 : 2);
+                                 int8 ? 1 : 2, f32_act && s0 ? cs0 + cs1 : 0);
   const float* qs = (const float*)act_scales;
   const float* am1 = amax1 ? amax1 : wk.amax;
   int err = 0;
   // conv1's operand: x0 as it is (bf16 without GN1: K4's and K9's h; K9's
-  // q(h) with x_q8), else a1 = silu(GN1(x)) in bf16, or q(a1) (the pair's
-  // a * (127 / amax)), made once into the workspace
+  // q(h) with x_q8), else a1 = silu(GN1(x)) in bf16 (f32 x without GN1:
+  // bf16(h)), or q(a1) (the pair's a * (127 / amax)), made once into the
+  // workspace
   const void* a1 = x0;
   if (gn_ctas) {  // GN1's statistics (and the per-sample amax) and a1 in one launch
     GnApply g1 = {};
@@ -1137,12 +697,19 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
     if (!err && int8 && qs == nullptr && amax1 == nullptr)
       err = amax_launch(x0, x1, c0, c1, batch, hw, gn1 ? wk.sc1 : nullptr,
                         gn1 ? wk.sh1 : nullptr, gn1 ? 1 : 0, wk.amax, x_f32, st);
-    if (!err && (int8 || gn1) && !x_q8) {
+    if (!err && f32_act && gn1 && s0 != nullptr) {  // a1 and the skip's bf16 x in one read
+      err = f32_prepass_launch((const float*)x0, (const float*)x1, c0, c1, batch, hw, wk.sc1,
+                               wk.sh1, wk.a, wk.xs, st);
+      a1 = wk.a;
+    } else if (!err && (int8 || gn1 || x_f32) && !x_q8) {
       const Int8Args q = {qs, am1, x1 != nullptr};
       err = prepass_launch(x0, x1, c0, c1, x_f32, batch, hw, gn1 ? wk.sc1 : nullptr,
                            gn1 ? wk.sh1 : nullptr, gn1 ? 1 : 0, int8 ? &q : nullptr, wk.a, st);
       a1 = wk.a;
     }
+    if (!err && f32_act && !gn1 && s0 != nullptr)  // K4 on f32: the skip's bf16 x_skip
+      err = prepass_launch(s0, s1, cs0, cs1, true, batch, hw, nullptr, nullptr, 0, nullptr,
+                           wk.xs, st);
   }
   BlockGemm g = {};
   g.int8 = int8;
@@ -1152,6 +719,7 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
   g.W = w_;
   g.N = n;
   g.partial = wk.partial;
+  g.train = train;
   if (!err) {  // h1 = conv1(a1) [* (w1s * s1)] + b1 + temb, f32, and GN2's partial sums
     g.a = a1;
     g.w = w1;
@@ -1170,7 +738,13 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
     g.kper = kper1;
     err = block_gemm_launch(g, tiles, st);
   }
-  if (!err) {  // a2 = silu(GN2(h1)) in bf16, or q(a2), over conv1's input, which conv1 has read
+  // a2 = silu(GN2(h1)) in bf16 (train: times mask / keep), or q(a2), over
+  // conv1's input, which conv1 has read
+  if (!err && train)
+    err = gn2_train_prepass_launch(wk.h1, wk.gn2, tiles.tiles_h, groups2, (const float*)gn2_g,
+                                   (const float*)gn2_b, eps, mask, inv_keep, batch, hw, n,
+                                   nullptr, nullptr, nullptr, nullptr, wk.a, st);
+  else if (!err) {
     const GnFold f = {wk.gn2, tiles.tiles_h, groups2, (const float*)gn2_g, (const float*)gn2_b,
                       eps};
     err = gn2_prepass_run(int8, wk.h1, f, batch, hw, n, qs ? qs + 1 : nullptr, wk.sc2, wk.sh2,
@@ -1180,10 +754,10 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
     g.a = wk.a;
     g.w = w2;
     g.cin = n;
-    g.s0 = s0;
-    g.s1 = s1;
-    g.cs0 = cs0;
-    g.cs1 = cs1;
+    g.s0 = f32_act ? wk.xs : s0;  // f32 activations: one bf16 copy of the parts
+    g.s1 = f32_act ? nullptr : s1;
+    g.cs0 = f32_act ? cs0 + cs1 : cs0;
+    g.cs1 = f32_act ? 0 : cs1;
     g.ws = ws;
     g.wsc = (const float*)w2s;
     g.qs = qs ? qs + 1 : nullptr;
@@ -1191,10 +765,10 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
     g.bias = (const float*)b2;
     g.bias2 = (const float*)bs;
     g.temb = nullptr;
-    g.resid = s0 ? nullptr : x0;
+    g.resid = s0 ? nullptr : x0;  // of out's type
     g.out_scale = out_scale;
     g.out = out;
-    g.out_f32 = false;
+    g.out_f32 = out_f32;
     g.gn_part = nullptr;
     g.splits = splits2;
     g.kper = kper2;
@@ -1207,7 +781,7 @@ extern "C" {
 
 long long gddim_resblock_int8_workspace(int batch, int h, int w, int cin, int n, int splits,
                                         int parts) {
-  return (long long)carve_gemm(nullptr, batch, (long)batch * h * w, cin, n, splits, parts, 1)
+  return (long long)carve_gemm(nullptr, batch, (long)batch * h * w, cin, n, splits, parts, 1, 0)
       .bytes;
 }
 
@@ -1228,11 +802,12 @@ int gddim_resblock_int8(const void* x0, const void* x1, int c0, int c1, const vo
                         int w_, int n, float eps, float out_scale, void* work, int mw, int box_h,
                         int box_b, int tiles_h, int m_tiles, int splits1, int kper1, int splits2,
                         int kper2, int gn_ctas, void* out, void* stream) {
-  return resblock_gemm_run(true, x0, x1, c0, c1, false, false, gn_ctas, nullptr, temb_row,
-                           temb_ld, gn1_g, gn1_b, groups1, w1q, w1s, b1, gn2_g, gn2_b, groups2,
-                           w2q, w2s, b2, s0, s1, cs0, cs1, ws, bs, act_scales, batch, h, w_, n,
-                           eps, out_scale, work, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},
-                           splits1, kper1, splits2, kper2, out, (cudaStream_t)stream);
+  return resblock_gemm_run(true, x0, x1, c0, c1, false, false, false, gn_ctas, nullptr,
+                           temb_row, temb_ld, gn1_g, gn1_b, groups1, w1q, w1s, b1, gn2_g, gn2_b,
+                           groups2, w2q, w2s, b2, s0, s1, cs0, cs1, ws, bs, act_scales, batch, h,
+                           w_, n, eps, out_scale, work,
+                           GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1,
+                           splits2, kper2, false, nullptr, 1.0f, out, (cudaStream_t)stream);
 }
 
 // The int8 block's quantize pre-pass alone: out (B, H, W, ca+cb) int8 from
@@ -1271,9 +846,10 @@ int gddim_gn_stats(const void* xa, const void* xb, int ca, int cb, int act_f32, 
                          (float*)rstd, act_f32 != 0, (cudaStream_t)stream);
 }
 
+// xs: the skip's channels on f32 activations (the bf16 copy it reads), else 0
 long long gddim_resblock_workspace(int batch, int h, int w, int cin, int n, int splits,
-                                   int parts) {
-  return (long long)carve_gemm(nullptr, batch, (long)batch * h * w, cin, n, splits, parts, 2)
+                                   int parts, int xs) {
+  return (long long)carve_gemm(nullptr, batch, (long)batch * h * w, cin, n, splits, parts, 2, xs)
       .bytes;
 }
 
@@ -1309,59 +885,38 @@ int gddim_gn2_prepass(const void* h1, const void* part, int parts, int groups, c
 }
 
 // K2 (x0, identity or 1x1 skip on x0), K3 (x0 and x1 as the logical concat)
-// or K4 (groups1 = 0: no GN1 on the conv1 input; the skip reads s0) on bf16
-// activations, through the bf16 pre-pass and the block GEMM: h1 f32, the
-// conv operands bf16, out bf16. temb_row: the block's (B, N) f32 temb
-// projection, row b at temb_row + b * temb_ld. The tile plan
-// (ops/resblock.py: bf16_tile_plan) as gddim_resblock_int8 takes it.
-// Scratch comes from `work`, gddim_resblock_workspace bytes (parts: the
-// plan's tiles_h).
-int gddim_resblock(const void* x0, const void* x1, int c0, int c1, const void* temb_row,
-                   int temb_ld, const void* gn1_g, const void* gn1_b, int groups1, const void* w1,
-                   const void* b1, const void* gn2_g, const void* gn2_b, int groups2,
-                   const void* w2, const void* b2, const void* s0, const void* s1, int cs0,
-                   int cs1, const void* ws, const void* bs, int batch, int h, int w_, int n,
-                   float eps, float out_scale, void* work, int mw, int box_h, int box_b,
-                   int tiles_h, int m_tiles, int splits1, int kper1, int splits2, int kper2,
-                   int gn_ctas, void* out, void* stream) {
-  return resblock_gemm_run(false, x0, x1, c0, c1, false, false, gn_ctas, nullptr, temb_row,
-                           temb_ld, gn1_g, gn1_b, groups1, w1, nullptr, b1, gn2_g, gn2_b, groups2,
-                           w2, nullptr, b2, s0, s1, cs0, cs1, ws, bs, nullptr, batch, h, w_, n,
-                           eps, out_scale, work, GemmTiles{mw, box_h, box_b, tiles_h, m_tiles},
-                           splits1, kper1, splits2, kper2, out, (cudaStream_t)stream);
+// or K4 (groups1 = 0: no GN1 on the conv1 input; the skip reads s0) through
+// the bf16 pre-passes and the block GEMM: h1 f32, the conv operands bf16;
+// the activations (x0, x1, s0, s1) and out bf16, or f32 with act_f32 (then
+// the skip parts are x0, x1 where GN1 runs, and gn_ctas is 0). temb_row:
+// the block's (B, N) f32 temb projection, row b at temb_row + b * temb_ld.
+// The tile plan (ops/resblock.py: bf16_tile_plan) as gddim_resblock_int8
+// takes it. Scratch comes from `work`, gddim_resblock_workspace bytes
+// (parts: the plan's tiles_h; xs: cs0 + cs1 with act_f32).
+int gddim_resblock(const void* x0, const void* x1, int c0, int c1, int act_f32,
+                   const void* temb_row, int temb_ld, const void* gn1_g, const void* gn1_b,
+                   int groups1, const void* w1, const void* b1, const void* gn2_g,
+                   const void* gn2_b, int groups2, const void* w2, const void* b2, const void* s0,
+                   const void* s1, int cs0, int cs1, const void* ws, const void* bs, int batch,
+                   int h, int w_, int n, float eps, float out_scale, void* work, int mw,
+                   int box_h, int box_b, int tiles_h, int m_tiles, int splits1, int kper1,
+                   int splits2, int kper2, int gn_ctas, void* out, void* stream) {
+  return resblock_gemm_run(false, x0, x1, c0, c1, act_f32 != 0, act_f32 != 0, false, gn_ctas,
+                           nullptr, temb_row, temb_ld, gn1_g, gn1_b, groups1, w1, nullptr, b1,
+                           gn2_g, gn2_b, groups2, w2, nullptr, b2, s0, s1, cs0, cs1, ws, bs,
+                           nullptr, batch, h, w_, n, eps, out_scale, work,
+                           GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1,
+                           splits2, kper2, false, nullptr, 1.0f, out, (cudaStream_t)stream);
 }
 
-long long gddim_resblock_f32_workspace(int batch, int h, int w, int cin, int n, int splits) {
-  return (long long)carve(nullptr, batch, (long)batch * h * w, cin, n, splits).bytes;
-}
-
-// K2 / K3 / K4 as gddim_resblock on f32 activations (x, h1 and out f32, MMA
-// operands bf16) through conv_gemm_kernel; splits/kper: each conv's split of
-// K in channels (ops/resblock.py:split_k). Scratch: gddim_resblock_f32_workspace.
-int gddim_resblock_f32(const void* x0, const void* x1, int c0, int c1, const void* temb_row,
-                       int temb_ld, const void* gn1_g, const void* gn1_b, int groups1,
-                       const void* w1, const void* b1, const void* gn2_g, const void* gn2_b,
-                       int groups2, const void* w2, const void* b2, const void* s0,
-                       const void* s1, int cs0, int cs1, const void* ws, const void* bs,
-                       int batch, int h, int w_, int n, float eps, float out_scale, void* work,
-                       int splits1, int kper1, int splits2, int kper2, void* out, void* stream) {
-  return resblock_run(x0, x1, c0, c1, temb_row, temb_ld, gn1_g, gn1_b, groups1, w1, b1, gn2_g,
-                      gn2_b, groups2, w2, b2, s0, s1, cs0, cs1, ws, bs, batch, h, w_, n, eps,
-                      out_scale, work, splits1, kper1, splits2, kper2, out, (cudaStream_t)stream);
-}
-
-long long gddim_resblock_train_workspace(int batch, int h, int w, int cin, int n, int splits,
-                                         int parts, int skip) {
-  return (long long)carve_train(nullptr, batch, (long)batch * h * w, cin, n, splits, parts,
-                                skip != 0).bytes;
-}
-
-// K6: the training forward of one stride-1 block, f32 x and out, on the
-// block GEMM (resblock_train_run). temb_row (B, N) f32 is the precomputed
+// K6: the training forward of one stride-1 block, f32 x and out: the f32
+// block's chain (gddim_resblock with act_f32) with the dropout mask in GN2's
+// folding pre-pass (d = bf16(silu(GN2(h1)) * mask / keep)) and the GEMMs
+// counted as the training blocks'. temb_row (B, N) f32 is the precomputed
 // temb projection; ws == null: identity skip; mask (B, H, W, N) int8 or null
 // (no dropout). The tile plan (ops/resblock.py:bf16_tile_plan, shared M
 // tiling, each conv's split of K) as gddim_resblock takes it. Scratch:
-// gddim_resblock_train_workspace bytes (parts: the plan's tiles_h).
+// gddim_resblock_workspace bytes (xs: c with a 1x1 skip, else 0).
 int gddim_resblock_train(const void* x, int c, const void* temb_row, const void* gn1_g,
                          const void* gn1_b, int groups1, const void* w1, const void* b1,
                          const void* gn2_g, const void* gn2_b, int groups2, const void* w2,
@@ -1370,11 +925,14 @@ int gddim_resblock_train(const void* x, int c, const void* temb_row, const void*
                          float out_scale, void* work, int mw, int box_h, int box_b, int tiles_h,
                          int m_tiles, int splits1, int kper1, int splits2, int kper2, void* out,
                          void* stream) {
-  return resblock_train_run((const float*)x, c, temb_row, gn1_g, gn1_b, groups1, w1, b1, gn2_g,
-                            gn2_b, groups2, w2, b2, ws, bs, (const int8_t*)mask, inv_keep, batch,
-                            h, w_, n, eps, out_scale, work,
-                            GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1,
-                            splits2, kper2, (float*)out, (cudaStream_t)stream);
+  const bool skip = ws != nullptr;
+  return resblock_gemm_run(false, x, nullptr, c, 0, true, true, false, 0, nullptr, temb_row, n,
+                           gn1_g, gn1_b, groups1, w1, nullptr, b1, gn2_g, gn2_b, groups2, w2,
+                           nullptr, b2, skip ? x : nullptr, nullptr, skip ? c : 0, 0, ws, bs,
+                           nullptr, batch, h, w_, n, eps, out_scale, work,
+                           GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1,
+                           splits2, kper2, true, (const int8_t*)mask, inv_keep, out,
+                           (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -58,7 +58,7 @@
 // the sample held in a cluster's shared memory). The convs and dgrads run on the
 // block GEMM (block_gemm.cu), the wgrads on wgrad_kernel below: both wgmma
 // fed by a TMA ring, the activation arithmetic done once in the passes that
-// round each operand, where conv_gemm_kernel and the WMMA wgrad they replace
+// round each operand, where the WMMA conv and wgrad kernels they replaced
 // recomputed GN, SiLU and the mask for every tap.
 
 #include <cooperative_groups.h>
@@ -899,7 +899,8 @@ int gddim_resblock_bwd(const void* x, const void* temb_row, const void* gn1_g, c
   int err = gn_stats_launch(x, nullptr, cin, 0, batch, hw, groups1, (const float*)gn1_g,
                             (const float*)gn1_b, eps, wk.sc1, wk.sh1, wk.mean1, wk.rstd1, true, st);
   if (!err)
-    err = train_prepass_launch((const float*)x, cin, batch, hw, wk.sc1, wk.sh1, wk.a1, wk.xb, st);
+    err = f32_prepass_launch((const float*)x, nullptr, cin, 0, batch, hw, wk.sc1, wk.sh1, wk.a1,
+                             wk.xb, st);
   // 3: u = conv1(a1) + b1 + temb_proj, f32, and GN2's partial sums
   if (!err) {
     BlockGemm c = {};

@@ -35,15 +35,19 @@
 //                                    the int8 mode, which quantizes it
 //                                    unrounded, with the per-sample amax by
 //                                    atomicMax on the float bits) and xr
-//                                    (the raw x resampled, rounded to bf16)
+//                                    (the raw x resampled, rounded to bf16),
+//                                    both bf16 on f32 x too: the TPU kernel
+//                                    rounds h to its bf16 conv scratch and
+//                                    xr to bf16 before the skip's product
+//                                    (gddim_tpu/ops/resblock.py:1358-1412)
 //   the K4 path of resblock.cu       conv1 with GN1 off (+ the temb row, and
 //                                    GN2's partial sums in its epilogue),
 //                                    GN2, conv2 with xr as the 1x1 skip's K
 //                                    segment: bf16 and int8 through the
 //                                    block GEMM (block_gemm.cu; bf16 conv1
 //                                    reads h as it is, int8 quantizes it in
-//                                    the pre-pass, or reads q(h) as it is),
-//                                    f32 x through conv_gemm_kernel
+//                                    the pre-pass, or reads q(h) as it is);
+//                                    on f32 x the bf16 path writing f32 out
 //
 // What bounds it on the H100: the two 3x3 convs, as in K4 (tensor-core bound
 // at 16x16 and 32x32, weight bytes and latency at 4x4 and 8x8). The resample
@@ -64,21 +68,9 @@
 #include "conv.cuh"
 
 extern "C" long long gddim_resblock_workspace(int batch, int h, int w, int cin, int n,
-                                              int splits, int parts);
-extern "C" long long gddim_resblock_f32_workspace(int batch, int h, int w, int cin, int n,
-                                                  int splits);
+                                              int splits, int parts, int xs);
 extern "C" long long gddim_resblock_int8_workspace(int batch, int h, int w, int cin, int n,
                                                    int splits, int parts);
-extern "C" int gddim_resblock_f32(const void* x0, const void* x1, int c0, int c1,
-                                  const void* temb_row, int temb_ld, const void* gn1_g,
-                                  const void* gn1_b, int groups1, const void* w1, const void* b1,
-                                  const void* gn2_g, const void* gn2_b, int groups2,
-                                  const void* w2, const void* b2, const void* s0, const void* s1,
-                                  int cs0, int cs1, const void* ws, const void* bs, int batch,
-                                  int h, int w_, int n, float eps, float out_scale, void* work,
-                                  int splits1, int kper1, int splits2, int kper2, void* out,
-                                  void* stream);
-
 namespace {
 
 constexpr int RS_THREADS = 256;
@@ -107,7 +99,7 @@ __device__ __forceinline__ void store8(float* d, const float f[8]) {
 }
 
 // grid (ceil(Ho*Wo*C/8 / RS_THREADS), B), RS_THREADS threads: one thread per
-// output pixel and 8 consecutive channels. TX: x's type (and xr's); TH: h's.
+// output pixel and 8 consecutive channels. TX: x's type; TH: h's; xr bf16.
 // round_h: h rounded to bf16 (the bf16 mode, whose conv reads h as bf16);
 // else (int8 mode) h stays f32 and, when amax is non-null, its per-sample
 // amax is folded into amax[b] (zeroed before the launch).
@@ -115,7 +107,7 @@ template <typename TX, typename TH>
 __global__ void __launch_bounds__(RS_THREADS)
 transition_resample_kernel(const TX* __restrict__ x, const float* __restrict__ scale,
                            const float* __restrict__ shift, int hin, int win, int c, int up,
-                           Taps k, int round_h, TH* __restrict__ h_out, TX* __restrict__ x_out,
+                           Taps k, int round_h, TH* __restrict__ h_out, bf16* __restrict__ x_out,
                            float* __restrict__ amax) {
   __shared__ float red[RS_THREADS / 32];
   const int b = blockIdx.y;
@@ -191,7 +183,7 @@ int resample_launch(const void* x, const float* sc, const float* sh, int batch, 
   const long vecs = ho * wo * (c / 8);
   const dim3 grid((unsigned)((vecs + RS_THREADS - 1) / RS_THREADS), batch);
   transition_resample_kernel<TX, TH><<<grid, RS_THREADS, 0, st>>>(
-      (const TX*)x, sc, sh, hin, win, c, up, k, round_h, (TH*)h_out, (TX*)x_out, amax);
+      (const TX*)x, sc, sh, hin, win, c, up, k, round_h, (TH*)h_out, (bf16*)x_out, amax);
   return (int)cudaGetLastError();
 }
 
@@ -319,16 +311,19 @@ int gddim_gn_resample(const void* x, int c, int batch, int h_in, int w_in, int u
 long long gddim_resblock_transition_workspace(int batch, int h, int w, int c, int n, int splits,
                                               int parts) {
   return (long long)(carve(nullptr, batch, h, w, c, sizeof(bf16), sizeof(bf16)).bytes +
-                     gddim_resblock_workspace(batch, h, w, c, n, splits, parts));
+                     gddim_resblock_workspace(batch, h, w, c, n, splits, parts, 0));
 }
 
-// K9, bf16 mode: x (B, H_in, W_in, C) bf16. temb_row: the block's (B, N)
-// f32 temb projection, row b at temb_row + b * temb_ld. (kh, kw): the phase
-// coefficients. h (bf16) is conv1's operand as it is (the bf16 block's
-// path with GN1 off: no pre-pass for conv1), xr the skip's. The tile plan
-// (ops/resblock.py:bf16_tile_plan) as gddim_resblock takes it, at the
-// output resolution. Scratch: gddim_resblock_transition_workspace bytes.
-int gddim_resblock_transition(const void* x, int c, const void* temb_row, int temb_ld,
+// K9, bf16 mode: x (B, H_in, W_in, C) bf16, or f32 with act_f32 (out in
+// x's type). temb_row: the block's (B, N) f32 temb projection, row b at
+// temb_row + b * temb_ld. (kh, kw): the phase coefficients. h (bf16) is
+// conv1's operand as it is (the bf16 block's path with GN1 off: no
+// pre-pass for conv1), xr (bf16) the skip's. f32 x takes GN1's two
+// launches (gn_ctas 0). The tile plan (ops/resblock.py:bf16_tile_plan) as
+// gddim_resblock takes it, at the output resolution. Scratch:
+// gddim_resblock_transition_workspace bytes.
+int gddim_resblock_transition(const void* x, int c, int act_f32, const void* temb_row,
+                              int temb_ld,
                               const void* gn1_g, const void* gn1_b, int groups1, const void* w1,
                               const void* b1, const void* gn2_g, const void* gn2_b, int groups2,
                               const void* w2, const void* b2, const void* ws, const void* bs,
@@ -338,58 +333,25 @@ int gddim_resblock_transition(const void* x, int c, const void* temb_row, int te
                               float out_scale, void* work, int mw, int box_h, int box_b,
                               int tiles_h, int m_tiles, int splits1, int kper1, int splits2,
                               int kper2, int gn_ctas, void* out, void* stream) {
-  if (c % 8 || h_in % 2 || w_in % 2) return (int)cudaErrorInvalidValue;
+  if (c % 8 || h_in % 2 || w_in % 2 || (act_f32 && gn_ctas)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int ho = out_size(h_in, up), wo = out_size(w_in, up);
   const Work wk = carve((char*)work, batch, ho, wo, c, sizeof(bf16), sizeof(bf16));
   const Taps k = {{kh0, kh1, kh2, kh3}, {kw0, kw1, kw2, kw3}};
   const int err =
-      gn_ctas ? gn1_resample_fused(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up, k, eps, 0,
-                                   nullptr, wk, nullptr, gn_ctas, st)
-              : gn1_resample<bf16, bf16>(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up, k,
-                                         eps, 1, wk, nullptr, st);
+      gn_ctas  ? gn1_resample_fused(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up, k, eps, 0,
+                                    nullptr, wk, nullptr, gn_ctas, st)
+      : act_f32 ? gn1_resample<float, bf16>(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up,
+                                            k, eps, 1, wk, nullptr, st)
+                : gn1_resample<bf16, bf16>(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up, k,
+                                           eps, 1, wk, nullptr, st);
   if (err) return err;
-  return resblock_gemm_run(false, wk.h, nullptr, c, 0, false, false, 0, nullptr, temb_row,
-                           temb_ld, nullptr, nullptr, 0, w1, nullptr, b1, gn2_g, gn2_b, groups2,
-                           w2, nullptr, b2, wk.xr, nullptr, c, 0, ws, bs, nullptr, batch, ho, wo,
-                           n, eps, out_scale, wk.rest,
+  return resblock_gemm_run(false, wk.h, nullptr, c, 0, false, act_f32 != 0, false, 0, nullptr,
+                           temb_row, temb_ld, nullptr, nullptr, 0, w1, nullptr, b1, gn2_g, gn2_b,
+                           groups2, w2, nullptr, b2, wk.xr, nullptr, c, 0, ws, bs, nullptr, batch,
+                           ho, wo, n, eps, out_scale, wk.rest,
                            GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1, splits2,
-                           kper2, out, st);
-}
-
-long long gddim_resblock_transition_f32_workspace(int batch, int h, int w, int c, int n,
-                                                  int splits) {
-  return (long long)(carve(nullptr, batch, h, w, c, sizeof(float), sizeof(float)).bytes +
-                     gddim_resblock_f32_workspace(batch, h, w, c, n, splits));
-}
-
-// K9 on f32 x: h and xr are kept in f32 holding bf16 values, and out is
-// f32, through the f32 block (conv_gemm_kernel); splits/kper: conv1's and
-// conv2's split-K at the output resolution (ops/resblock.py:split_k).
-// Scratch: gddim_resblock_transition_f32_workspace bytes.
-int gddim_resblock_transition_f32(const void* x, int c, const void* temb_row, int temb_ld,
-                                  const void* gn1_g, const void* gn1_b, int groups1,
-                                  const void* w1, const void* b1,
-                                  const void* gn2_g, const void* gn2_b, int groups2,
-                                  const void* w2, const void* b2, const void* ws, const void* bs,
-                                  int batch, int h_in, int w_in, int up, float kh0, float kh1,
-                                  float kh2, float kh3, float kw0, float kw1, float kw2,
-                                  float kw3, int n, float eps, float out_scale, void* work,
-                                  int splits1, int kper1, int splits2, int kper2, void* out,
-                                  void* stream) {
-  if (c % 8 || h_in % 2 || w_in % 2) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int ho = out_size(h_in, up), wo = out_size(w_in, up);
-  const Work wk = carve((char*)work, batch, ho, wo, c, sizeof(float), sizeof(float));
-  const Taps k = {{kh0, kh1, kh2, kh3}, {kw0, kw1, kw2, kw3}};
-  const int err = gn1_resample<float, float>(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up,
-                                             k, eps, 1, wk, nullptr, st);
-  if (err) return err;
-  // the K4 path: GN1 off (groups1 = 0) on h, xr the 1x1 skip's input
-  return gddim_resblock_f32(wk.h, nullptr, c, 0, temb_row, temb_ld, nullptr, nullptr, 0, w1, b1,
-                            gn2_g, gn2_b, groups2, w2, b2, wk.xr, nullptr, c, 0, ws, bs, batch, ho,
-                            wo, n, eps, out_scale, wk.rest, splits1, kper1, splits2, kper2, out,
-                            stream);
+                           kper2, false, nullptr, 1.0f, out, st);
 }
 
 long long gddim_resblock_transition_int8_workspace(int batch, int h, int w, int c, int n,
@@ -432,12 +394,12 @@ int gddim_resblock_transition_int8(const void* x, int c, const void* temb_row, i
               : gn1_resample<bf16, float>(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up, k,
                                           eps, 0, wk, dynamic ? wk.amax : nullptr, st);
   if (err) return err;
-  return resblock_gemm_run(true, wk.h, nullptr, c, 0, !q8, q8, 0, dynamic ? wk.amax : nullptr,
-                           temb_row, temb_ld, nullptr, nullptr, 0, w1q, w1s, b1, gn2_g, gn2_b,
-                           groups2, w2q, w2s, b2, wk.xr, nullptr, c, 0, ws, bs, act_scales, batch,
-                           ho, wo, n, eps, out_scale, wk.rest,
+  return resblock_gemm_run(true, wk.h, nullptr, c, 0, !q8, false, q8, 0,
+                           dynamic ? wk.amax : nullptr, temb_row, temb_ld, nullptr, nullptr, 0,
+                           w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, wk.xr, nullptr, c, 0,
+                           ws, bs, act_scales, batch, ho, wo, n, eps, out_scale, wk.rest,
                            GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1, splits2,
-                           kper2, out, st);
+                           kper2, false, nullptr, 1.0f, out, st);
 }
 
 }  // extern "C"

@@ -157,7 +157,6 @@ class ResnetBlockBigGANpp(nn.Module):
         pair = isinstance(x, (tuple, list))
         first = x[0] if pair else x
         int8 = fused and int8
-        f32 = first.dtype == torch.float32
         dense = ((temb, self.temb_dense.weight, self.temb_dense.bias) if temb_row is None
                  else (temb_row, None, None))
         kw = dict(num_groups2=self.norm2.num_groups, eps=self.norm2.eps,
@@ -167,7 +166,7 @@ class ResnetBlockBigGANpp(nn.Module):
         out_ch = self.conv1.weight.shape[-1]
         if (fused and transition == "full" and (self.up or self.down)
                 and rb.transition_supported(x.shape, out_ch, self.up, True, self.fir_kernel,
-                                            int8, f32)):
+                                            int8)):
             op = rb.fused_resblock_transition_int8 if int8 else rb.fused_resblock_transition
             return op(x, *dense, self.norm1.weight, self.norm1.bias,
                       *self._mid(True, int8, first, qscales), up=self.up,
@@ -176,16 +175,16 @@ class ResnetBlockBigGANpp(nn.Module):
             h = self.norm1(x, act=True, fused=fused)
             res = resample.upsample_2d if self.up else resample.downsample_2d
             h, xr = res(h, self.fir_kernel), res(x, self.fir_kernel)
-            ok = fused and rb.tail_supported(h.shape, out_ch, int8, f32)
+            ok = fused and rb.tail_supported(h.shape, out_ch, int8)
             return _RES_OPS["tail"][_route(ok, int8)](
                 h, xr, *dense, *self._mid(ok, int8, first, qscales), **kw)
         gn1 = (self.norm1.weight, self.norm1.bias)
         kw["num_groups1"] = self.norm1.num_groups
         if pair:
-            ok = fused and rb.pair_supported(x[0].shape, x[1].shape[-1], out_ch, int8, f32)
+            ok = fused and rb.pair_supported(x[0].shape, x[1].shape[-1], out_ch, int8)
             return _RES_OPS["pair"][_route(ok, int8)](
                 x[0], x[1], *dense, *gn1, *self._mid(ok, int8, first, qscales), **kw)
-        ok = fused and rb.stride1_supported(x.shape, out_ch, int8, f32)
+        ok = fused and rb.stride1_supported(x.shape, out_ch, int8)
         return _RES_OPS["stride1"][_route(ok, int8)](
             x, *dense, *gn1, *self._mid(ok, int8, first, qscales), **kw)
 
@@ -308,7 +307,7 @@ class AttnBlockpp(nn.Module):
         elsewhere. sow: calibration (the plain composition)."""
         kw = dict(num_groups=num_groups_for(x.shape[-1]), eps=self.norm.eps,
                   skip_rescale=self.skip_rescale)
-        if train and fused and fused_attn and attn_ops.supported(x.shape, f32=True):
+        if train and fused and fused_attn and attn_ops.supported(x.shape):
             return attn_ops.fused_attnblock_train(
                 x, self.norm.weight, self.norm.bias, self.q.weight, self.q.bias, self.k.weight,
                 self.k.bias, self.v.weight, self.v.bias, self.out.weight, self.out.bias, **kw)
@@ -318,7 +317,7 @@ class AttnBlockpp(nn.Module):
             out = x + self.out(h)
             return out * attn_ops._INV_SQRT2 if self.skip_rescale else out
         int8 = fused and int8
-        kernel = fused and attn_ops.supported(x.shape, int8, x.dtype == torch.float32)
+        kernel = fused and attn_ops.supported(x.shape, int8)
         if kernel and int8:
             wqkv, bqkv, wo, scales = self._int8_weights(x.dtype, qscales)
             return attn_ops.fused_attnblock_int8(x, self.norm.weight, self.norm.bias, wqkv, bqkv,

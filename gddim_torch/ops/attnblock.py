@@ -17,8 +17,9 @@ output projection on the block GEMM with + bo, + x and 1/sqrt(2) in its
 epilogue. ``attnblock_bf16_reference`` is its plain version with the TPU
 kernel's rounding points. Their tile plans are ``block_plan``, their
 scratch ``workspace_bytes``. On f32 activations (K10's forward, K5 called
-on f32 x) the projections stay on ``conv_gemm_kernel`` and the same core
-runs between them. On a CPU tensor each wrapper runs its plain version; on
+on f32 x) the same launches read f32 x (GN statistics, then the bf16
+pre-pass) and write f32 out (the output projection's epilogue adds the f32
+residual), under the same plans. On a CPU tensor each wrapper runs its plain version; on
 a CUDA tensor it launches the kernels or raises, and, having no backward,
 raises when autograd would need one (K10, ``fused_attnblock_train``, is the
 differentiable form).
@@ -66,7 +67,6 @@ from gddim_torch.ops.resblock import (
     quant_static,
     require_no_grad,
     s8_tile_plan,
-    split_k,
 )
 
 _INV_SQRT2 = 0.7071067811865476
@@ -280,8 +280,8 @@ def _aligned(n: int) -> int:
 def workspace_bytes(b: int, s: int, c: int, h_bytes: int, a_bytes: int, splits: int) -> int:
     """Scratch of one K5 call (``csrc/attnblock.cu:carve``), each buffer on
     256 bytes: the GN affine (2 B C f32), the per-sample amaxes (2 B f32),
-    h = GN(x) (``h_bytes`` an element: 2 bf16, 1 int8, 0 on f32
-    activations), [q|k|v] (M 3C bf16), a in a buffer of its own (``a_bytes``
+    h = GN(x) (``h_bytes`` an element: 2 bf16, 1 int8), [q|k|v] (M 3C
+    bf16), a in a buffer of its own (``a_bytes``
     an element; 0: a takes h's place) and the split-K partials (splits M 3C
     f32, when a projection splits K)."""
     m = b * s
@@ -294,19 +294,16 @@ def _tiles(p: GemmPlan):
     return p.mw, p.box_h, p.box_b, p.tiles_h, p.m_tiles, p.splits, p.kper
 
 
-def supported(x_shape, int8: bool = False, f32: bool = False) -> bool:
+def supported(x_shape, int8: bool = False) -> bool:
     """Whether the card runs K5 on x (B, H, W, C), the JAX package's
     ``attnblock_ops.supported`` gate (gddim_tpu/models/blocks.py:83-87) with
-    the port's plans: in the bf16 and ``int8`` modes exactly where
-    ``block_plan`` returns (the core's S and C, and the block GEMM's tiles
-    for the (C, 3C) and (C, C) 1x1 projections: C a multiple of 128); on
-    ``f32`` activations (K10's forward, whose projections run
-    conv_gemm_kernel) where the core takes S = H*W and C."""
+    the port's plans: in the bf16 mode (bf16 or f32 activations; K10's
+    forward) and the ``int8`` mode exactly where ``block_plan`` returns (the
+    core's S and C, and the block GEMM's tiles for the (C, 3C) and (C, C) 1x1
+    projections: C a multiple of 128)."""
     _, h, w, c = x_shape
     if not core_supported(h * w, c):
         return False
-    if f32 and not int8:
-        return True
     slice_ = S8_SLICE if int8 else BF16_SLICE
     return _gemm_takes(h, w, c, 0, 3 * c, slice_) and _gemm_takes(h, w, c, 0, c, slice_)
 
@@ -318,8 +315,8 @@ def supported(x_shape, int8: bool = False, f32: bool = False) -> bool:
 
 def _attnblock_cuda(x, gn_scale, gn_bias, weights: AttnWeights, *, num_groups, eps,
                     skip_rescale):
-    """K5 through gddim_attnblock (bf16 x: the block GEMM) or
-    gddim_attnblock_f32 (f32 x: conv_gemm_kernel), out in x's dtype."""
+    """K5 through gddim_attnblock (bf16 or f32 x; the block GEMM), out in x's
+    dtype."""
     b, h, w, c = x.shape
     s = h * w
     act = activation_dtype(x, "fused_attnblock", int8=False)
@@ -333,25 +330,15 @@ def _attnblock_cuda(x, gn_scale, gn_bias, weights: AttnWeights, *, num_groups, e
         _operand(weights.bo, "bo", f32, (c,)),
     ]
     ptrs = list(map(_build.ptr, ops))
-    out_scale = _INV_SQRT2 if skip_rescale else 1.0
-    out = torch.empty(x.shape, device=dev, dtype=act)
-    if act == bf16:
-        plan = block_plan(b, h, w, c, False)
-        nbytes = workspace_bytes(b, s, c, 2, 0, max(plan.qkv.splits, plan.out.splits))
-        work = torch.empty(nbytes, device=dev, dtype=torch.uint8)
-        _build.launch("gddim_attnblock", dev, *ptrs[:3], num_groups, *ptrs[3:], b, h, w, c, eps,
-                      out_scale, work.data_ptr(), nbytes, *_tiles(plan.qkv), *_tiles(plan.out),
-                      plan.stages, gn_apply_ctas(h, w, c), out.data_ptr())
-        return out
-    if not core_supported(s, c):
-        raise ValueError(f"fused_attnblock: unsupported shape {tuple(x.shape)}")
-    s1, k1 = split_k(b * s, 3 * c, c)
-    s2, k2 = split_k(b * s, c, c)
-    nbytes = workspace_bytes(b, s, c, 0, 2, max(s1, s2))
+    f32_act = act == f32
+    plan = block_plan(b, h, w, c, False)
+    nbytes = workspace_bytes(b, s, c, 2, 0, max(plan.qkv.splits, plan.out.splits))
     work = torch.empty(nbytes, device=dev, dtype=torch.uint8)
-    _build.launch("gddim_attnblock_f32", dev, *ptrs[:3], num_groups, *ptrs[3:], b, s, c, eps,
-                  out_scale, work.data_ptr(), nbytes, s1, k1, s2, k2, core_plan(b, s),
-                  out.data_ptr())
+    out = torch.empty(x.shape, device=dev, dtype=act)
+    _build.launch("gddim_attnblock", dev, ptrs[0], int(f32_act), *ptrs[1:3], num_groups,
+                  *ptrs[3:], b, h, w, c, eps, _INV_SQRT2 if skip_rescale else 1.0,
+                  work.data_ptr(), nbytes, *_tiles(plan.qkv), *_tiles(plan.out), plan.stages,
+                  gn_apply_ctas(h, w, c, f32_act), out.data_ptr())
     return out
 
 
@@ -486,4 +473,4 @@ def fused_attnblock_train(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo, 
 
 fused_attnblock.launches = 0  # block launches on CUDA tensors (packed or not)
 fused_attnblock_int8.launches = 0  # one gddim_attnblock_int8 each
-fused_attnblock_train.launches = 0  # K10 forwards (one gddim_attnblock_f32 each)
+fused_attnblock_train.launches = 0  # K10 forwards (one gddim_attnblock each)

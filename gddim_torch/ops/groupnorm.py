@@ -2,13 +2,15 @@
 
 K1 replaces ``gddim_tpu/ops/groupnorm.py:group_norm_silu`` (``_gn_silu_kernel``).
 
-What bounds it on the H100: memory. It reads x once for the statistics,
-again to normalise (from L2 at these sizes: one sample is at most 512 KB of
-bf16) and writes the output once; there is no tensor-core work. The Triton
-kernel runs one program per (sample, group), reduces in f32 with a two-pass
-variance (E[x^2] - mean^2 cancels at 32x32 with bf16 inputs), then applies
-normalise + affine + SiLU in one elementwise pass and writes x's dtype
-(bf16 in sampling, f32 in training).
+What bounds it on the H100: bytes (x read once, the output written once;
+no tensor-core work), and at the small sites (4x4, 8x8) the launch. The
+CUDA kernel (``csrc/groupnorm.cu``, ``gn_silu_kernel``; ``gddim_gn_silu``)
+is one launch a call: a cluster of 1-16 CTAs a sample (``gn_silu_ctas`` in
+``ops/resblock.py``; one CTA at the small sites) reads the sample once into
+shared memory, sums it per group in f32, meets in distributed shared memory
+in rank order, takes the two-pass variance (E[x^2] - mean^2 cancels at
+32x32 with bf16 inputs) from shared memory, then applies normalise + affine
++ SiLU and writes x's dtype (bf16 in sampling, f32 in training; f16 too).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. Either way it is an ``autograd.Function``
@@ -40,12 +42,15 @@ writes q and qs; its affine is the TPU kernel's, unfolded. Where a sample
 does not fit the cluster, or x is f32 (``ops/resblock.py:gn_apply_ctas``),
 it is the GroupNorm statistics kernel, the per-sample amax, the int8
 pre-pass and a scale kernel, which apply the folded affine x * a + b of the
-same statistics. It is CUDA because Triton has no clusters: (group,
+same statistics. It is CUDA because Triton has no clusters (K1, the last
+Triton kernel, followed it for the same reason): (group,
 sample) programs must meet through device memory for the amax and read x
 again, and one program a sample leaves most SMs idle.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -66,82 +71,40 @@ def group_norm_silu_reference(x, scale, bias, num_groups: int, eps: float = 1e-6
     return out.to(x.dtype)
 
 
-_kernel = None
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
-def _triton_kernel():
-    global _kernel
-    if _kernel is None:
-        import triton
-        import triton.language as tl
+@functools.lru_cache(maxsize=None)
+def _plan(b: int, h: int, w: int, c: int, itemsize: int) -> tuple[int, bool]:
+    """(CTAs a sample, whether they hold it) of K1 on (b, h, w, c), from
+    ``gn_silu_ctas``; raises where even the streaming route's shared memory
+    does not fit."""
+    from gddim_torch.ops.resblock import SMEM_BYTES, gn_silu_ctas, gn_silu_holds, gn_silu_smem
 
-        @triton.jit
-        def gn_silu_kernel(x_ptr, scale_ptr, bias_ptr, out_ptr, HW, C, CG, inv_n, eps,
-                           APPLY_SILU: tl.constexpr, BLOCK_P: tl.constexpr,
-                           BLOCK_C: tl.constexpr):
-            g = tl.program_id(0)
-            b = tl.program_id(1)
-            cols = g * CG + tl.arange(0, BLOCK_C)
-            cmask = tl.arange(0, BLOCK_C) < CG
-            base = x_ptr + b.to(tl.int64) * HW * C
-            acc = tl.zeros((BLOCK_P, BLOCK_C), dtype=tl.float32)
-            for p0 in range(0, HW, BLOCK_P):
-                rows = p0 + tl.arange(0, BLOCK_P)
-                m = (rows[:, None] < HW) & cmask[None, :]
-                acc += tl.load(base + rows[:, None] * C + cols[None, :], mask=m,
-                               other=0.0).to(tl.float32)
-            mean = tl.sum(tl.sum(acc, axis=1), axis=0) * inv_n
-            acc = tl.zeros((BLOCK_P, BLOCK_C), dtype=tl.float32)
-            for p0 in range(0, HW, BLOCK_P):
-                rows = p0 + tl.arange(0, BLOCK_P)
-                m = (rows[:, None] < HW) & cmask[None, :]
-                v = tl.load(base + rows[:, None] * C + cols[None, :], mask=m,
-                            other=0.0).to(tl.float32)
-                d = tl.where(m, v - mean, 0.0)
-                acc += d * d
-            var = tl.sum(tl.sum(acc, axis=1), axis=0) * inv_n
-            rstd = 1.0 / tl.sqrt(var + eps)
-            gamma = tl.load(scale_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-            beta = tl.load(bias_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-            a = gamma * rstd
-            sh = beta - mean * a
-            obase = out_ptr + b.to(tl.int64) * HW * C
-            for p0 in range(0, HW, BLOCK_P):
-                rows = p0 + tl.arange(0, BLOCK_P)
-                m = (rows[:, None] < HW) & cmask[None, :]
-                v = tl.load(base + rows[:, None] * C + cols[None, :], mask=m,
-                            other=0.0).to(tl.float32)
-                y = v * a[None, :] + sh[None, :]
-                if APPLY_SILU:
-                    y = y * tl.sigmoid(y)
-                tl.store(obase + rows[:, None] * C + cols[None, :],
-                         y.to(out_ptr.dtype.element_ty), mask=m)
-
-        _kernel = gn_silu_kernel
-    return _kernel
-
-
-def _next_pow2(n: int) -> int:
-    return 1 << max(0, (n - 1).bit_length())
+    ctas = gn_silu_ctas(b, h, w, c, itemsize)
+    hold = gn_silu_holds(h, w, c, itemsize, ctas)
+    if gn_silu_smem(c, itemsize, -(-(h * w) // ctas), hold) > SMEM_BYTES:
+        raise ValueError(f"group_norm_silu: {c} channels do not fit the kernel's shared memory")
+    return ctas, hold
 
 
 def _group_norm_silu_kernel(x, scale, bias, num_groups: int, eps: float, apply_silu: bool):
-    """The Triton launch on CUDA tensors."""
+    """One ``gddim_gn_silu`` launch on CUDA tensors, on the plan of
+    ``gn_silu_ctas``."""
     b, h, w, c = x.shape
-    if c % num_groups or x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
-        raise ValueError(f"group_norm_silu: unsupported input {tuple(x.shape)} {x.dtype}")
+    if c % num_groups or x.dtype not in _DTYPES:
+        raise ValueError(f"group_norm_silu: unsupported input {tuple(x.shape)} {x.dtype} "
+                         f"with {num_groups} groups")
     x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel's 16-byte vectors
+        x = x.clone()
+    ctas, hold = _plan(b, h, w, c, x.element_size())
     scale = scale.float().contiguous()
     bias = bias.float().contiguous()
     out = torch.empty_like(x)
-    cg = c // num_groups
-    hw = h * w
-    block_c = _next_pow2(cg)
-    block_p = max(16, min(_next_pow2(hw), 4096 // block_c))
-    _triton_kernel()[(num_groups, b)](
-        x, scale, bias, out, hw, c, cg, 1.0 / (hw * cg), eps,
-        APPLY_SILU=apply_silu, BLOCK_P=block_p, BLOCK_C=block_c, num_warps=4,
-    )
+    _build.launch("gddim_gn_silu", x.device, x.data_ptr(), _DTYPES[x.dtype], b, h * w, c,
+                  num_groups, scale.data_ptr(), bias.data_ptr(), eps, int(apply_silu), ctas,
+                  int(hold), out.data_ptr())
     group_norm_silu.launches += 1
     return out
 
@@ -174,9 +137,10 @@ class _GroupNormSiLU(torch.autograd.Function):
 
 def group_norm_silu(x, scale, bias, num_groups: int = 32, eps: float = 1e-6,
                     apply_silu: bool = True):
-    """GroupNorm(+SiLU) over (B, H, W, C): the Triton kernel on CUDA tensors,
-    the plain version on CPU tensors; differentiable either way. When autograd
-    does not record (sampling), the ``autograd.Function`` is skipped."""
+    """GroupNorm(+SiLU) over (B, H, W, C): the CUDA kernel on CUDA tensors
+    (bf16, f16 or f32), the plain version on CPU tensors; differentiable
+    either way. When autograd does not record (sampling), the
+    ``autograd.Function`` is skipped."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"group_norm_silu: unsupported device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):

@@ -50,10 +50,13 @@ pre-pass writing a1 and, for the 1x1 skip, bf16 x, conv1 with GN2's sums,
 GN2's folding pre-pass with the dropout mask, conv2 + skip or the f32
 identity residual; plain version ``resblock_train_bf16_reference``), its
 tile plan ``bf16_tile_plan``; ``train_supported`` says which training blocks
-K6 and K7 take. On f32 activations K2-K4 run ``conv_gemm_kernel``, with the
-GN affine in the A operand's prologue. On a CPU tensor each wrapper runs its
-plain version; on a CUDA tensor it launches the kernels or raises. K2-K4
-have no gradient: on CUDA tensors they raise when autograd would need one.
+K6 and K7 take. On f32 activations K2-K4 (and K9) run the same chain as K6
+without the mask, and write f32 (x, h1, the identity residual and out f32,
+the MMA operands bf16, as the TPU kernels with mm_dtype bf16; plain
+versions ``resblock_bf16_reference`` and its forms), gated by the same
+plans. On a CPU tensor each wrapper runs its plain version; on a CUDA
+tensor it launches the kernels or raises. K2-K4 have no gradient: on CUDA
+tensors they raise when autograd would need one.
 
 The int8 mode of K2-K4 (``mm_dtype=jnp.int8``, what ``conv_impl='fused_int8'``
 runs): ``fused_resblock_int8``, ``fused_resblock_pair_int8`` and
@@ -531,16 +534,15 @@ def resample_transition(a, kerns, up: bool):
 
 
 def transition_supported(x_shape, cout: int, up: bool, fir: bool, fir_kernel=(1, 3, 3, 1),
-                         int8: bool = False, f32: bool = False) -> bool:
+                         int8: bool = False) -> bool:
     """The shapes K9 takes on the card (``transition_supported`` without its
     backend and environment tests): a 4-tap FIR kernel, even H and W, and
     the K4 path's convs at the output resolution as ``tail_supported`` takes
-    them (the block GEMM's tile plans, bf16 or ``int8``; on ``f32``
-    activations conv_gemm_kernel's tiles)."""
+    them (the block GEMM's tile plans, bf16 (bf16 or f32 x) or ``int8``)."""
     b, h, w, c = x_shape
     ho, wo = (2 * h, 2 * w) if up else (h // 2, w // 2)
     return ((not fir or len(fir_kernel) == 4) and h % 2 == 0 and w % 2 == 0
-            and tail_supported((b, ho, wo, c), cout, int8, f32))
+            and tail_supported((b, ho, wo, c), cout, int8))
 
 
 def resblock_transition_reference(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1,
@@ -653,32 +655,8 @@ def resblock_train_reference(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scal
 # CUDA path
 # --------------------------------------------------------------------------
 
-_BM, _BN, _BK = 64, 64, 32  # conv_gemm_kernel's tile (csrc/resblock.cu)
 _VEC = 8  # the pre-passes and GN statistics read 8-channel vectors
 SMS = 132  # the H100's streaming multiprocessors
-_TARGET_BLOCKS = 4 * 132  # four resident blocks on each of the H100's 132 SMs
-_MIN_SPLIT_SLICES = 8  # K slices per split, at least
-
-
-def split_k(m: int, n: int, k: int) -> tuple[int, int]:
-    """(splits, K channels per split) of conv_gemm_kernel (the f32 blocks,
-    K5's projections) so that a small-M GEMM still fills the card: 64x64
-    output tiles, K in slices of 32 channels, at least 8 a split."""
-    blocks = -(-m // _BM) * (n // _BN)
-    slices = k // _BK
-    splits = max(1, min(-(-_TARGET_BLOCKS // blocks), slices // _MIN_SPLIT_SLICES))
-    per = -(-slices // splits)
-    return -(-slices // per), per * _BK
-
-
-@functools.lru_cache(maxsize=None)
-def _plan(entry: str, b: int, h: int, w: int, cin: int, cskip: int, n: int):
-    """(splits1, kper1, splits2, kper2, workspace bytes) of one f32 block
-    shape (the convs' resolution h x w) on conv_gemm_kernel through ``entry``
-    (gddim_resblock_f32 or gddim_resblock_transition_f32)."""
-    s1, k1 = split_k(b * h * w, n, 9 * cin)
-    s2, k2 = split_k(b * h * w, n, 9 * n + cskip)
-    return s1, k1, s2, k2, _build.workspace_bytes(entry, b, h, w, cin, n, max(s1, s2))
 
 
 def tile_box(b: int, h: int, w: int, rows: int):
@@ -721,49 +699,45 @@ def _gemm_takes(h: int, w: int, cin: int, cskip: int, n: int, slice_: int) -> bo
             and (h * w > GEMM_TILE_M or (h * w) % GEMM_SAMPLE_ROWS == 0))
 
 
-def _block_takes(x_shape, parts, skip_parts, cout: int, int8: bool, f32: bool) -> bool:
+def _block_takes(x_shape, parts, skip_parts, cout: int, int8: bool) -> bool:
     """Whether the card's block kernels take one residual block: conv1 of the
     parts' logical concat at x_shape's (H, W) -> cout, conv2 cout -> cout with
-    the skip parts' 1x1 in its K (no skip parts: the identity residual). The
-    bf16 and int8 modes: both convs' tile plans (``bf16_tile_plan`` /
-    ``s8_tile_plan``), each skip part in whole skip slices; f32 activations
-    (``f32``, not int8): conv_gemm_kernel's 32-channel K slices and
-    64-channel N tiles. The pre-pass and the statistics read 8-channel
-    vectors of each part."""
+    the skip parts' 1x1 in its K (no skip parts: the identity residual):
+    both convs' tile plans (``bf16_tile_plan``, bf16 or f32 activations, or
+    ``s8_tile_plan``), each skip part in whole skip slices. The pre-pass and
+    the statistics read 8-channel vectors of each part."""
     _, h, w, _ = x_shape
     cin, cskip = sum(parts), sum(skip_parts)
     if any(c % _VEC for c in parts) or (not skip_parts and cin != cout):
         return False
-    if f32 and not int8:
-        return (all(c % _VEC == 0 for c in skip_parts) and cin % _BK == 0 and cskip % _BK == 0
-                and cout % _BN == 0)
     slice_ = S8_SLICE if int8 else BF16_SLICE
     return (all(c % GEMM_SKIP_SLICE == 0 for c in skip_parts)
             and _gemm_takes(h, w, cin, 0, cout, slice_)
             and _gemm_takes(h, w, cout, cskip, cout, slice_))
 
 
-def stride1_supported(x_shape, cout: int, int8: bool, f32: bool = False) -> bool:
+def stride1_supported(x_shape, cout: int, int8: bool) -> bool:
     """Whether the card runs a stride-1 block (K2) on x (B, H, W, Cin) -> cout
-    (the 1x1 skip where Cin != cout) in the bf16 mode, the ``int8`` mode, or
-    on ``f32`` activations; the JAX package's ``resblock_ops.supported`` gate
-    (gddim_tpu/models/blocks.py:351-358) with the port's tile plans."""
+    (the 1x1 skip where Cin != cout) in the bf16 mode (bf16 or f32
+    activations) or the ``int8`` mode; the JAX package's
+    ``resblock_ops.supported`` gate (gddim_tpu/models/blocks.py:351-358)
+    with the port's tile plans."""
     c = x_shape[-1]
-    return _block_takes(x_shape, (c,), () if c == cout else (c,), cout, int8, f32)
+    return _block_takes(x_shape, (c,), () if c == cout else (c,), cout, int8)
 
 
-def pair_supported(xa_shape, cb: int, cout: int, int8: bool, f32: bool = False) -> bool:
+def pair_supported(xa_shape, cb: int, cout: int, int8: bool) -> bool:
     """``stride1_supported`` of the up path's pair (K3): conv1 and the 1x1
     skip on the logical concat of xa (B, H, W, Ca) and a cb-channel xb."""
     ca = xa_shape[-1]
-    return _block_takes(xa_shape, (ca, cb), (ca, cb), cout, int8, f32)
+    return _block_takes(xa_shape, (ca, cb), (ca, cb), cout, int8)
 
 
-def tail_supported(h_shape, cout: int, int8: bool, f32: bool = False) -> bool:
+def tail_supported(h_shape, cout: int, int8: bool) -> bool:
     """``stride1_supported`` of a transition's tail (K4) on the resampled h
     (B, H, W, C), its 1x1 skip on the resampled x."""
     c = h_shape[-1]
-    return _block_takes(h_shape, (c,), (c,), cout, int8, f32)
+    return _block_takes(h_shape, (c,), (c,), cout, int8)
 
 
 def train_supported(x_shape, cout: int) -> bool:
@@ -846,6 +820,56 @@ def gn_resample_ctas(hin: int, win: int, c: int, up: bool, f32: bool = False) ->
         return 0
     rows = _resample_rows(hin, win, up, GN_APPLY_CTAS)
     return GN_APPLY_CTAS if gn_apply_smem(c, rows * win, True) <= SMEM_BYTES else 0
+
+
+# K1 (csrc/groupnorm.cu, ``gn_silu_kernel``): a cluster of 1-16 CTAs a
+# sample holds it in shared memory
+GN_SILU_THREADS = 256
+GN_SILU_CLUSTERS = (1, 2, 4, 8, 16)
+# bytes of the sample a CTA keeps, at least, where more CTAs a sample spread
+# a small batch over the SMs
+GN_SILU_MIN_SHARE = 16 * 1024
+
+
+def gn_silu_vec(c: int, itemsize: int) -> int:
+    """Channels of one of K1's vectors: 16 bytes (8 of bf16 or f16, 4 of
+    f32) where they divide C, else one."""
+    v = 16 // itemsize
+    return v if c % v == 0 else 1
+
+
+def gn_silu_smem(c: int, itemsize: int, share: int, hold: bool) -> int:
+    """Shared memory of one K1 CTA over ``share`` pixels of c channels
+    (``csrc/groupnorm.cu:gs_smem``): the share where held, the pixel lanes'
+    per-channel sums, the channel totals, the folded affine and four
+    per-group arrays (groups <= C), f32."""
+    cv = c // gn_silu_vec(c, itemsize)
+    lanes = GN_SILU_THREADS // cv if cv <= GN_SILU_THREADS else 1
+    return (_align128(share * c * itemsize) if hold else 0) + 4 * c * (lanes + 7)
+
+
+def gn_silu_ctas(b: int, h: int, w: int, c: int, itemsize: int) -> int:
+    """K1's cluster size on (b, h, w, c) of ``itemsize``-byte values: the
+    fewest of GN_SILU_CLUSTERS whose CTAs hold the sample in shared memory,
+    doubled while b * ctas leaves half the SMs idle and each CTA keeps
+    GN_SILU_MIN_SHARE bytes; 16 where none holds it (``gn_silu_holds``
+    then says no and the kernel reads x again). A pure function of the
+    shape and the dtype."""
+    hw = h * w
+    held = [k for k in GN_SILU_CLUSTERS
+            if gn_silu_smem(c, itemsize, -(-hw // k), True) <= SMEM_BYTES]
+    if not held:
+        return GN_SILU_CLUSTERS[-1]
+    k = held[0]
+    while (k < GN_SILU_CLUSTERS[-1] and b * k < SMS // 2
+           and hw * c * itemsize >= 2 * k * GN_SILU_MIN_SHARE):
+        k *= 2
+    return k
+
+
+def gn_silu_holds(h: int, w: int, c: int, itemsize: int, ctas: int) -> bool:
+    """Whether ``ctas`` K1 CTAs hold an (h, w, c) sample in shared memory."""
+    return gn_silu_smem(c, itemsize, -(-(h * w) // ctas), True) <= SMEM_BYTES
 
 
 class GemmPlan(NamedTuple):
@@ -1038,17 +1062,21 @@ def bf16_tile_plan(b: int, h: int, w: int, cin: int, cskip: int, n: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_gemm(entry: str, b: int, h: int, w: int, cin: int, cskip: int, n: int, int8: bool):
+def _plan_gemm(entry: str, b: int, h: int, w: int, cin: int, cskip: int, n: int, int8: bool,
+               f32: bool = False):
     """(M tiling, (splits1, kper1, splits2, kper2), workspace bytes) of one
-    block on the block GEMM through ``entry`` (gddim_resblock,
-    gddim_resblock_int8 or the transition's): conv1 (cin -> n) and conv2 (n
-    -> n, + the cskip-channel skip) share the M tiling; the workspace holds
-    GN2's partial sums, conv1's tiles_h rows a sample."""
+    block on the block GEMM through ``entry`` (gddim_resblock, which K6's
+    gddim_resblock_train shares, gddim_resblock_int8 or the transition's):
+    conv1 (cin -> n) and conv2 (n -> n, + the cskip-channel skip) share the M
+    tiling; the workspace holds GN2's partial sums, conv1's tiles_h rows a
+    sample, and on ``f32`` activations (gddim_resblock) the skip's bf16
+    copy."""
     plan = s8_tile_plan if int8 else bf16_tile_plan
     p1, p2 = plan(b, h, w, cin, 0, n), plan(b, h, w, n, cskip, n)
     tiles = (p1.mw, p1.box_h, p1.box_b, p1.tiles_h, p1.m_tiles)
+    xs = (cskip if f32 else 0,) if entry == "gddim_resblock" else ()
     nbytes = _build.workspace_bytes(entry, b, h, w, cin, n, max(p1.splits, p2.splits),
-                                    p1.tiles_h)
+                                    p1.tiles_h, *xs)
     return tiles, (p1.splits, p1.kper, p2.splits, p2.kper), nbytes
 
 
@@ -1097,9 +1125,8 @@ def activation_dtype(x, what: str, int8: bool):
 def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias, w2, b2,
                 skip_parts, w_skip, b_skip, *, num_groups2, eps, skip_rescale, int8=False,
                 act_scales=None):
-    """One block through gddim_resblock (bf16 activations, the block GEMM),
-    gddim_resblock_f32 (f32 activations, conv_gemm_kernel), or
-    gddim_resblock_int8 when int8 (w1, w2 then (int8 weights, scale) pairs;
+    """One block through gddim_resblock (bf16 or f32 activations, the block
+    GEMM), or gddim_resblock_int8 when int8 (w1, w2 then (int8 weights, scale) pairs;
     act_scales None or [s1, s2]). gn1: (scale, bias, groups), or None (K4);
     skip_parts None: identity residual parts[0]; temb with dense_w None: the
     (B, Cout) temb row. The activations and the output take parts[0]'s dtype
@@ -1118,19 +1145,14 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
     c0, c1 = (p.shape[-1] if p is not None else 0 for p in xs[:2])
     cs0, cs1 = (p.shape[-1] if p is not None else 0 for p in ss[:2])
     cin, n = c0 + c1, (w1[1] if int8 else w1).shape[-1]
-    gemm = act == bf16  # the block GEMM (bf16 and int8); f32: conv_gemm_kernel
-    skip_unit = GEMM_SKIP_SLICE if gemm else 8  # each skip part in whole K slices
-    if (any(c % _VEC for c in (c0, c1)) or cs0 % skip_unit or cs1 % skip_unit or cin % _BK
-            or (cs0 + cs1) % _BK or n % _BN):
+    if any(c % _VEC for c in (c0, c1)) or cs0 % GEMM_SKIP_SLICE or cs1 % GEMM_SKIP_SLICE:
         raise ValueError(f"resblock: unsupported channels {c0}+{c1} (skip {cs0}+{cs1}) -> {n}")
     if skip_parts is None and cin != n:
         raise ValueError("resblock: identity skip needs Cin == Cout")
-    entry = "gddim_resblock" + ("_int8" if int8 else "" if gemm else "_f32")
-    if gemm:
-        tiles, splits, nbytes = _plan_gemm(entry, b, h, w, cin, cs0 + cs1, n, int8)
-        plan = [*tiles, *splits]
-    else:
-        *plan, nbytes = _plan(entry, b, h, w, cin, cs0 + cs1, n)
+    f32_act = act == f32
+    entry = "gddim_resblock" + ("_int8" if int8 else "")
+    tiles, splits, nbytes = _plan_gemm(entry, b, h, w, cin, cs0 + cs1, n, int8, f32_act)
+    plan = [*tiles, *splits]
     row, ld = _temb_row(temb, dense_w, dense_b, b, n)
     gn1 = gn1 or (None, None, 0)
     skip = skip_parts is not None
@@ -1147,7 +1169,8 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
                 op(wt[1], f"{what} scales", f32, shape[-1:])]
 
     args = [
-        _build.ptr(xs[0]), _build.ptr(xs[1]), c0, c1, row.data_ptr(), ld,
+        _build.ptr(xs[0]), _build.ptr(xs[1]), c0, c1, *(() if int8 else (int(f32_act),)),
+        row.data_ptr(), ld,
         op(gn1[0], "gn1 scale", f32, (cin,)), op(gn1[1], "gn1 bias", f32, (cin,)),
         gn1[2], *conv(w1, "conv1", (3, 3, cin, n)), op(b1, "b1", f32, (n,)),
         op(gn2_scale, "gn2 scale", f32, (n,)), op(gn2_bias, "gn2 bias", f32, (n,)), num_groups2,
@@ -1158,8 +1181,8 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
     ]
     if int8:
         args.append(op(act_scales, "act scales", f32, (2,)))
-    if gemm:  # GN1's route: one launch, or the statistics then the pre-pass
-        plan.append(gn_apply_ctas(h, w, cin) if gn1[2] else 0)
+    # GN1's route: one launch, or the statistics then the pre-pass
+    plan.append(gn_apply_ctas(h, w, cin, f32_act) if gn1[2] else 0)
     dev = xs[0].device
     work = torch.empty(nbytes, device=dev, dtype=torch.uint8)
     out = torch.empty((b, h, w, n), device=dev, dtype=act)
@@ -1289,8 +1312,7 @@ def fused_resblock_tail_int8(h, x_skip, temb, dense_w, dense_b, w1, b1, gn2_scal
 def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale,
                      gn2_bias, w2, b2, w_skip, b_skip, act_scales, *, up, fir, fir_kernel,
                      num_groups1, num_groups2, eps, skip_rescale, int8):
-    """K9 through gddim_resblock_transition (bf16 x, the block GEMM),
-    gddim_resblock_transition_f32 (f32 x, conv_gemm_kernel), or
+    """K9 through gddim_resblock_transition (bf16 or f32 x, the block GEMM), or
     gddim_resblock_transition_int8 (w1, w2 then (int8 weights, scale) pairs;
     act_scales None or [s1, s2])."""
     convs = [*w1, *w2] if int8 else [w1, w2]
@@ -1303,19 +1325,15 @@ def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2
     act = activation_dtype(x, what, int8)
     b, hin, win, cin = x.shape
     n = (w1[1] if int8 else w1).shape[-1]
-    if w_skip is None or not transition_supported(x.shape, n, up, fir, fir_kernel, int8,
-                                                  act == f32):
+    if w_skip is None or not transition_supported(x.shape, n, up, fir, fir_kernel, int8):
         raise ValueError(f"{what}: unsupported block {tuple(x.shape)} -> {n} (the 1x1 skip is "
                          "required; channels in whole GEMM tiles, even H and W)")
     ho, wo = (2 * hin, 2 * win) if up else (hin // 2, win // 2)
     kh, kw = transition_kerns(up, fir, fir_kernel)
-    gemm = act == bf16  # the block GEMM (bf16 and int8); f32: conv_gemm_kernel
-    entry = "gddim_resblock_transition" + ("_int8" if int8 else "" if gemm else "_f32")
-    if gemm:
-        tiles, splits, nbytes = _plan_gemm(entry, b, ho, wo, cin, cin, n, int8)
-        plan = (*tiles, *splits, gn_resample_ctas(hin, win, cin, up))
-    else:
-        *plan, nbytes = _plan(entry, b, ho, wo, cin, cin, n)
+    f32_act = act == f32
+    entry = "gddim_resblock_transition" + ("_int8" if int8 else "")
+    tiles, splits, nbytes = _plan_gemm(entry, b, ho, wo, cin, cin, n, int8)
+    plan = (*tiles, *splits, gn_resample_ctas(hin, win, cin, up, f32_act))
     row, ld = _temb_row(temb, dense_w, dense_b, b, n)
     keep = []  # operands stay referenced until the launch: a cast's temporary must not be freed
 
@@ -1330,7 +1348,8 @@ def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2
                 op(wt[1], f"{what_} scales", f32, shape[-1:])]
 
     args = [
-        op(x, "x", act, (b, hin, win, cin)), cin, row.data_ptr(), ld,
+        op(x, "x", act, (b, hin, win, cin)), cin, *(() if int8 else (int(f32_act),)),
+        row.data_ptr(), ld,
         op(gn1_scale, "gn1 scale", f32, (cin,)),
         op(gn1_bias, "gn1 bias", f32, (cin,)), num_groups1, *conv(w1, "conv1", (3, 3, cin, n)),
         op(b1, "b1", f32, (n,)), op(gn2_scale, "gn2 scale", f32, (n,)),
@@ -1731,13 +1750,13 @@ def gn_resample(x, gamma, beta, *, up: bool, fir: bool = True, fir_kernel=(1, 3,
 # pre-pass, int8 then bf16 (the bf16 pre-passes: GN2's folding pre-pass and
 # K7's rounding of the cotangent among them), then K5's attention core,
 # gn_stats_kernel, gn_apply_kernel (both variants: K2/K3/K5's GN1 and K9's
-# resample), K7's wgrad_kernel, conv_gemm_kernel (f32 activations, K10),
+# resample), K7's wgrad_kernel, K1's gn_silu_kernel,
 # the block GEMM in the training blocks (K6's convs, K7's conv1 and dgrads),
 # K7's GroupNorm backward (gn_bwd_kernel, two a block) and GN2's folding
 # pre-pass (gn_prepass_kernel, every mode; also counted as its mode's pre-pass)
 BLOCK_COUNTED = ("block_gemm_kernel<int8>", "prepass_kernel<int8>", "block_gemm_kernel<bf16>",
                  "prepass_kernel<bf16>", "attention_wgmma_kernel", "gn_stats_kernel",
-                 "gn_apply_kernel", "wgrad_kernel", "conv_gemm_kernel",
+                 "gn_apply_kernel", "wgrad_kernel", "gn_silu_kernel",
                  "block_gemm_kernel<bf16, train>", "gn_bwd_kernel", "gn_prepass_kernel")
 S8_COUNTED = BLOCK_COUNTED[:2]
 BF16_COUNTED = BLOCK_COUNTED[2:4]
@@ -1753,22 +1772,11 @@ def block_launches(reset: bool = False, kernels=BLOCK_COUNTED) -> dict:
     return {k: n for k, n in zip(BLOCK_COUNTED, out.tolist()) if k in kernels}
 
 
-@functools.lru_cache(maxsize=None)
-def _plan_train(b: int, h: int, w: int, cin: int, cskip: int, n: int):
-    """(M tiling, (splits1, kper1, splits2, kper2), workspace bytes) of K6 on
-    the block GEMM: conv1 (cin -> n) and conv2 (n -> n, + the cskip-channel
-    1x1 skip) share conv1's M tiling, as ``_plan_gemm``'s blocks do."""
-    p1, p2 = bf16_tile_plan(b, h, w, cin, 0, n), bf16_tile_plan(b, h, w, n, cskip, n)
-    tiles = (p1.mw, p1.box_h, p1.box_b, p1.tiles_h, p1.m_tiles)
-    nbytes = _build.workspace_bytes("gddim_resblock_train", b, h, w, cin, n,
-                                    max(p1.splits, p2.splits), p1.tiles_h, int(cskip > 0))
-    return tiles, (p1.splits, p1.kper, p2.splits, p2.kper), nbytes
-
-
 def _resblock_train_cuda(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, w2,
                          b2, w_skip, b_skip, mask, *, keep_prob, num_groups1, num_groups2, eps,
                          skip_rescale):
-    """K6 through gddim_resblock_train: f32 x and out, the block GEMM."""
+    """K6 through gddim_resblock_train: f32 x and out, the f32 block's chain
+    (``_plan_gemm``'s plan and scratch, f32) with the dropout mask."""
     bf16, f32 = torch.bfloat16, torch.float32
     if x.dtype != f32:
         raise ValueError(f"fused_resblock_train: needs f32 x, got {x.dtype}")
@@ -1788,7 +1796,8 @@ def _resblock_train_cuda(x, temb_proj, gn1_scale, gn1_bias, w1, b1, gn2_scale, g
         _operand(mask, "mask", torch.int8, (b, h, w, n)) if drop else None,
     ]
     x_, t_, g1s, g1b, w1_, b1_, g2s, g2b, w2_, b2_, ws_, bs_, m_ = map(_build.ptr, ops)
-    tiles, splits, nbytes = _plan_train(b, h, w, cin, 0 if w_skip is None else cin, n)
+    tiles, splits, nbytes = _plan_gemm("gddim_resblock", b, h, w, cin,
+                                       0 if w_skip is None else cin, n, False, True)
     work = torch.empty(nbytes, device=x.device, dtype=torch.uint8)
     out = torch.empty((b, h, w, n), device=x.device, dtype=f32)
     _build.launch(

@@ -170,10 +170,10 @@ def test_block_plan_refuses_what_the_kernels_do_not_take(shape, int8):
                                     (32, 64, True), (48, 256, False), (512, 128, False),
                                     (256, 96, False), (256, 320, False)])
 def test_core_supported(s, c, ok):
-    """The core's shapes, which are K5's gate on f32 activations (K10's
-    forward, whose projections run conv_gemm_kernel)."""
+    """The core's shapes; K5's gate (f32 activations and K10's forward too)
+    takes those of them whose C fills the block GEMM's 128-channel tiles."""
     assert t_attn.core_supported(s, c) is ok
-    assert t_attn.supported((2, s, 1, c), f32=True) is ok
+    assert t_attn.supported((2, s, 1, c)) is (ok and c % 128 == 0)
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
@@ -207,10 +207,10 @@ def carve(b, s, c, h_bytes, a_bytes, splits):
     return {k: -(-v // 256) * 256 for k, v in sizes.items()}
 
 
-# (h_bytes, a_bytes) of each route: bf16 (a over h), f32 activations (h in
-# conv_gemm_kernel's prologue, a bf16 of its own), int8 static (a8 over h8),
-# int8 per sample (f32 a of its own, a8 over h8)
-ROUTES = {"bf16": (2, 0), "f32": (0, 2), "int8-static": (1, 0), "int8-dynamic": (1, 4)}
+# (h_bytes, a_bytes) of each route: bf16 (a over h), f32 activations (the
+# bf16 route's buffers: h and a bf16), int8 static (a8 over h8), int8 per
+# sample (f32 a of its own, a8 over h8)
+ROUTES = {"bf16": (2, 0), "f32": (2, 0), "int8-static": (1, 0), "int8-dynamic": (1, 4)}
 
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
@@ -219,11 +219,8 @@ ROUTES = {"bf16": (2, 0), "f32": (0, 2), "int8-static": (1, 0), "int8-dynamic": 
 def test_workspace_holds_every_buffer_of_the_call(h, c, batch, route):
     h_bytes, a_bytes = ROUTES[route]
     s = h * h
-    if route == "f32":
-        splits = max(t_rb.split_k(batch * s, 3 * c, c)[0], t_rb.split_k(batch * s, c, c)[0])
-    else:
-        plan = t_attn.block_plan(batch, h, h, c, route.startswith("int8"))
-        splits = max(plan.qkv.splits, plan.out.splits)
+    plan = t_attn.block_plan(batch, h, h, c, route.startswith("int8"))
+    splits = max(plan.qkv.splits, plan.out.splits)
     got = t_attn.workspace_bytes(batch, s, c, h_bytes, a_bytes, splits)
     bufs = carve(batch, s, c, h_bytes, a_bytes, splits)
     assert got == sum(bufs.values()) and got % 256 == 0

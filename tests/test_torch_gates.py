@@ -137,7 +137,7 @@ def test_gates_at_the_main_path_and_the_small_widths(traced):
     """The main path (nf=128) runs every block on the kernels; the card's
     block GEMM needs Cout a multiple of 128 (and Cin of 64 in bf16, 128 in
     int8), so at nf=64 it takes some stride-1 blocks and at nf=32 none, and
-    K5 no attention block at C=64."""
+    K5 no attention block at C=64, on f32 activations too (one gate)."""
     for width, blocks in traced.items():
         nf = width[1]
         for int8 in (False, True):
@@ -145,7 +145,7 @@ def test_gates_at_the_main_path_and_the_small_widths(traced):
                      if kind == "stride1"]
             assert all(takes) if nf == 128 else (any(takes) and not all(takes)) if nf == 64 \
                 else not any(takes), (width, int8)
-    assert not t_attn.supported((4, 16, 16, 64)) and t_attn.supported((4, 16, 16, 64), f32=True)
+    assert not t_attn.supported((4, 16, 16, 64)) and t_attn.supported((4, 16, 16, 128))
 
 
 @pytest.mark.parametrize("shape,cout,ok", [
@@ -230,9 +230,49 @@ def test_small_network_through_the_gates_matches_jax(nf, monkeypatch):
     got = make_cld_eps_fn(CLD.from_config(cfg))(model, torch.from_numpy(u), torch.from_numpy(t))
     want = np.asarray(want, np.float64)
     assert np.abs(got.numpy() - want).max() / np.abs(want).max() <= MODEL_REL
-    # f32 activations: conv_gemm_kernel's tiles (Cout a multiple of 64)
+    # f32 activations: the block GEMM's plans (Cout a multiple of 128), so the
+    # kernels take some blocks at nf=64 and none at nf=32
     assert counts["kernel"] + counts["plain"] == len(model.res_blocks)
-    assert counts["kernel"] > 0 and (counts["plain"] > 0) is (nf == 32), dict(counts)
+    assert counts["plain"] > 0 and (counts["kernel"] > 0) is (nf == 64), dict(counts)
+
+
+@pytest.mark.parametrize("nf", [32, 64, 128])
+@pytest.mark.parametrize("name", ["cld/accr_dcifar10", "blur/ddpm_deep_cifar10"])
+def test_f32_model_takes_the_kernels_where_the_plans_do(monkeypatch, name, nf):
+    """model.dtype float32 with conv_impl 'fused': every residual block and
+    attention block consults the gates of the bf16 mode (the block GEMM's
+    plans), so it takes the kernels exactly where the bf16 model does: all
+    of them at nf=128, some at nf=64 (Cout 128 levels), none at nf=32."""
+    routes = []
+
+    def spy(fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            routes.append((fn.__name__, tuple(a[0]), out))
+            return out
+        return call
+
+    for fn in ("stride1_supported", "pair_supported", "tail_supported", "transition_supported"):
+        monkeypatch.setattr(t_rb, fn, spy(getattr(t_rb, fn)))
+    monkeypatch.setattr(t_attn, "supported", spy(t_attn.supported))
+    cfg = small(get_config(name), nf)
+    cfg.model.transition_impl = "full"
+    seen = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg.model.dtype = dtype
+        model = seeded_model(cfg, 0)
+        size, channels = cfg.data.image_size, cfg.data.num_channels
+        x = torch.randn((2, size, size, channels * (2 if cfg.sde == "cld" else 1)),
+                        generator=torch.Generator().manual_seed(8))
+        routes.clear()
+        with torch.inference_mode():
+            model(x, torch.full((2,), 0.5))
+        seen[dtype] = list(routes)
+    f32 = seen["float32"]
+    assert f32 == seen["bfloat16"] and len(f32) > 0
+    took = [ok for fn, _, ok in f32 if fn != "supported"]
+    assert all(took) if nf == 128 else (any(took) and not all(took)) if nf == 64 \
+        else not any(took), f32
 
 
 # --------------------------------------------------------------------------

@@ -278,7 +278,7 @@ def glue(monkeypatch):
     monkeypatch.setattr(_build, "launch", launch)
     monkeypatch.setattr(_build, "workspace_bytes", lambda name, *a: 256)
     yield calls
-    t_rb._plan_train.cache_clear()  # they cached the stand-in workspace sizes
+    t_rb._plan_gemm.cache_clear()  # they cached the stand-in workspace sizes
     t_rbw._workspace.cache_clear()
 
 
