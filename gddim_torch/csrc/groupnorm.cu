@@ -26,7 +26,8 @@
 //      groupnorm.py:48-56) differs only in rounding, and cancels at 32x32 on
 //      bf16 inputs.
 //   4. rstd = 1 / sqrt(var + eps), the affine folded, y = x * a + (beta -
-//      mean * a) and SiLU in f32 from shared memory, stored in x's type.
+//      mean * a) and SiLU in f32 from shared memory, stored in x's type
+//      (gamma and beta loaded into shared memory while the share arrives).
 // The plan (ops/resblock.py:gn_silu_ctas) is the fewest CTAs that hold the
 // sample, more where the batch alone leaves most of the 132 SMs idle and
 // each CTA still holds 16 KB. A sample that 16 CTAs cannot hold (hold 0)
@@ -46,6 +47,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "conv.cuh"
 #include "hopper.cuh"
@@ -128,6 +131,7 @@ __device__ __forceinline__ void group_sums(const float* lane, float* chan, float
   __syncthreads();
   for (int ch = threadIdx.x; ch < c; ch += GS_THREADS) {
     float t = 0.f;
+#pragma unroll 4
     for (int l = 0; l < lanes; ++l) t += lane[(long)l * c + ch];
     chan[ch] = t;
   }
@@ -135,6 +139,7 @@ __device__ __forceinline__ void group_sums(const float* lane, float* chan, float
   const int cg = c / groups;
   for (int g = threadIdx.x; g < groups; g += GS_THREADS) {
     float t = 0.f;
+#pragma unroll 4
     for (int k = 0; k < cg; ++k) t += chan[g * cg + k];
     gsum[g] = t;
   }
@@ -176,6 +181,13 @@ __global__ void __launch_bounds__(GS_THREADS) gn_silu_kernel(const GsArgs a) {
     char* s8 = reinterpret_cast<char*>(held);
     for (long i = threadIdx.x; i < n16; i += GS_THREADS) cp_async16(s8 + 16 * i, g8 + 16 * i);
     cp_async_commit();
+  }
+  // gamma and beta, their loads in flight with the share's (stage 4 reads them)
+  for (int ch = threadIdx.x; ch < c; ch += GS_THREADS) {
+    aff[ch] = a.gamma[ch];
+    aff[c + ch] = a.beta[ch];
+  }
+  if (ASYNC && a.hold) {
     cp_async_wait_chunk(0);
     __syncthreads();
   }
@@ -254,11 +266,11 @@ __global__ void __launch_bounds__(GS_THREADS) gn_silu_kernel(const GsArgs a) {
   __syncthreads();
 
   // 4. the folded affine, then y = x * a + b (+ SiLU) in f32, stored in T
-  for (int ch = threadIdx.x; ch < c; ch += GS_THREADS) {
+  for (int ch = threadIdx.x; ch < c; ch += GS_THREADS) {  // this thread's gamma and beta
     const int g = ch / cg;
-    const float s = a.gamma[ch] * grstd[g];
+    const float s = aff[ch] * grstd[g];
     aff[ch] = s;
-    aff[c + ch] = a.beta[ch] - gmean[g] * s;
+    aff[c + ch] = aff[c + ch] - gmean[g] * s;
   }
   __syncthreads();
   for (int s = threadIdx.x; s < slots; s += GS_THREADS) {
@@ -275,7 +287,11 @@ __global__ void __launch_bounds__(GS_THREADS) gn_silu_kernel(const GsArgs a) {
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
         float f = fmaf(to_f32(v.e[e]), sc[e], sh[e]);
-        if (a.silu) f = f / (1.0f + expf(-f));
+        // SiLU: IEEE division and expf in f32 (the training path's bound);
+        // for a 16-bit output __fdividef and __expf, as the pre-passes
+        if (a.silu)
+          f = std::is_same<T, float>::value ? f / (1.0f + expf(-f))
+                                            : __fdividef(f, 1.0f + __expf(-f));
         o.e[e] = from_f32<T>(f);
       }
       *reinterpret_cast<V*>(y + (long)p * c + j * VEC) = o;

@@ -42,10 +42,9 @@ writes q and qs; its affine is the TPU kernel's, unfolded. Where a sample
 does not fit the cluster, or x is f32 (``ops/resblock.py:gn_apply_ctas``),
 it is the GroupNorm statistics kernel, the per-sample amax, the int8
 pre-pass and a scale kernel, which apply the folded affine x * a + b of the
-same statistics. It is CUDA because Triton has no clusters (K1, the last
-Triton kernel, followed it for the same reason): (group,
-sample) programs must meet through device memory for the amax and read x
-again, and one program a sample leaves most SMs idle.
+same statistics. It is CUDA, as K1 is, because Triton has no clusters:
+(group, sample) programs must meet through device memory for the amax and
+read x again, and one program a sample leaves most SMs idle.
 """
 
 from __future__ import annotations
