@@ -1140,7 +1140,10 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
     act = activation_dtype(parts[0], "resblock int8 kernel" if int8 else "resblock kernel", int8)
     b, h, w, _ = parts[0].shape
     xs = [_operand(p, "resblock input", act, (b, h, w, p.shape[-1])) for p in parts] + [None]
-    ss = [_operand(p, "skip input", act, (b, h, w, p.shape[-1]))
+    # a skip part that is an input part is the same operand (the f32 blocks'
+    # pre-pass writes the skip's bf16 copy from the input it reads)
+    same = {id(q): x for q, x in zip(parts, xs)}
+    ss = [same[id(p)] if id(p) in same else _operand(p, "skip input", act, (b, h, w, p.shape[-1]))
           for p in skip_parts or ()] + [None, None]
     c0, c1 = (p.shape[-1] if p is not None else 0 for p in xs[:2])
     cs0, cs1 = (p.shape[-1] if p is not None else 0 for p in ss[:2])

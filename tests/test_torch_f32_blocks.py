@@ -198,7 +198,8 @@ def test_f32_blocks_take_the_bf16_entries_with_act_f32(glue):
                 *((f(cin, cout), f(cout)) if skip else (None, None))]
 
     t_rb.fused_resblock(f(2, 8, 8, 128), *block(128, 128, False), **kw)
-    t_rb.fused_resblock(f(2, 8, 8, 128), *block(128, 256, True), **kw)
+    # a strided x: its one contiguous copy is conv1's input and the skip's
+    t_rb.fused_resblock(f(2, 8, 16, 128)[:, :, ::2], *block(128, 256, True), **kw)
     t_rb.fused_resblock_pair(f(2, 8, 8, 128), f(2, 8, 8, 64), *block(192, 128, True), **kw)
     b = block(128, 128, True)
     t_rb.fused_resblock_tail(f(2, 8, 8, 128), f(2, 8, 8, 128), *b[:3], *b[5:], num_groups2=32)
@@ -210,6 +211,8 @@ def test_f32_blocks_take_the_bf16_entries_with_act_f32(glue):
     assert [a[4] for _, a in calls[:4]] == [1] * 4  # act_f32
     assert calls[4][1][2] == 1 and calls[5][1][1] == 1
     assert [a[-2] for _, a in calls] == [0] * 6  # GN1: gn_stats_kernel and the pre-pass
+    # the skip parts of K2 and K3 are their input parts (s0, s1 = x0, x1)
+    assert [a[17:19] for _, a in calls[1:3]] == [a[0:2] for _, a in calls[1:3]]
     xs = [a[-1] for n, a in spaces if n == "gddim_resblock"]
     assert xs == [0, 128, 192, 128]  # the skip's channels (K2 identity: none)
     assert [n for n, _ in spaces][-1] == "gddim_resblock_transition"
