@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/H100 port on one CUDA card.
 
-    python3 chip_smoke.py [--phases build,kernels,eps,gates,sample,int8,blur,f32,train] [--batch 16]
+    python3 chip_smoke.py [--phases build,kernels,eps,gates,sample,int8,blur,samplers,blur_deis,
+                           f32,train,blur_train] [--batch 16]
 
 Phases (each prints one line per check; any failure raises and exits non-zero):
   1. the card: torch.cuda must be available; prints nvidia-smi's name and
@@ -92,7 +93,20 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      the card) and 'pallas' (layer-wise: K1, K11, K8): finite samples, launch
      counts, wall time, and each other run's pixel correlation and mean|dx|
      against the 'fused' samples;
-  7b. f32: the f32 path (model.dtype float32, conv_impl 'fused', the
+  7a. samplers: the CLD samplers beside deis (order0, order0 with is_em,
+     hybdeis, mldeis, ldeis, sdeis lambda=1 order 2, em lambda=1, sscs) at
+     NFE=50 and --batch through gddim_torch.cli.build_sampling_fn (seeded
+     weights, the transitions 'full'): each on the f32 plain path, then
+     bf16 ('fused') and int8 ('fused_int8', static scales calibrated on the
+     card) from the same generator seed (the same u0 and normals): every
+     network output finite, launches nfe x the per-eval table, img/s, and
+     the pixel correlation and mean|dx| against the plain samples; then
+     ode at B=4 (solve_ivp at the config's tolerances), plain and bf16,
+     its nfe and seconds;
+  7b. blur_deis: blur/ddpm_deep_cifar10 frequency-space deis (order 2,
+     NFE=50, --batch) on the f32 plain path, then 'fused' and 'fused_int8'
+     ('full'), with the same gates ('fused_int8' also against 'fused');
+  7c. f32: the f32 path (model.dtype float32, conv_impl 'fused', the
      transitions 'full'): one full-width eps evaluation (B=4, t=0.5)
      against the f32 plain path with its launch counts (every block on the
      block GEMM's routes), CLD deis-2 NFE=50 sampling at --batch through
@@ -106,7 +120,14 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      then training.n_jitted_steps Adam steps through gddim_torch.cli's train
      function with each setting: finite loss and parameters, launch counts
      per step; img/s and peak memory of the kernel path (K10 off and on) and
-     of the plain path for information.
+     of the plain path for information;
+  9. blur_train: blur/ddpm_deep_cifar10 in f32 at B=128, dropout 0.1: one
+     loss + backward with model.fused_train on (K6/K7) and off (the
+     stride-1 blocks' plain composition) against the all-plain path with
+     the same t, z and masks (the train phase's bounds); then
+     training.n_jitted_steps Adam steps through gddim_torch.cli's train
+     function with each setting (launch counts per step), and img/s and
+     peak memory of both.
 Then one line {"kernels": [...]}, one line with the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 
@@ -3815,6 +3836,9 @@ def _check_train_step(loss_k, grads_k, loss_p, grads_p, label: str) -> None:
     for tier, pick in (("", lambda n: top[n] >= DEEP_SHARE * largest),
                        ("deep_", lambda n: top[n] < DEEP_SHARE * largest)):
         band = [n for n in rels if pick(n)]
+        if not band:  # a narrow model may have no deep tensors
+            errs[f"worst_{tier}tensor"] = errs[f"worst_{tier}tensor_l2"] = 0.0
+            continue
         w, w2 = max(band, key=rels.get), max(band, key=l2.get)
         errs[f"worst_{tier}tensor"], errs[f"worst_{tier}tensor_l2"] = rels[w], l2[w2]
         print(f"  {len(band)} tensors with a largest gradient {'at least' if not tier else 'under'} "
@@ -3919,6 +3943,239 @@ def phase_train(card: str):
     return counts
 
 
+# The samplers phase: each CLD sampler beside deis (the sample phase's) at
+# NFE=50 through build_sampling_fn, bf16 ('fused') and int8 ('fused_int8',
+# static scales), the transitions through K9 (the config's 'full'); (label,
+# sampling overrides)
+SAMPLER_RUNS = [("order0", dict(method="order0")),
+                ("order0 is_em", dict(method="order0", is_em=True)),
+                ("hybdeis-2", dict(method="hybdeis")), ("mldeis-2", dict(method="mldeis")),
+                ("ldeis-2", dict(method="ldeis")),
+                ("sdeis-2 lambda=1", dict(method="sdeis", lambda_coef=1.0)),
+                ("em lambda=1", dict(method="em", lambda_coef=1.0)), ("sscs", dict(method="sscs"))]
+# Each kernel-path run against the f32 plain path's samples from the same u0
+# and the same normals (one generator seed on the card), at the bound the
+# int8 and blur sample gates hold (SAMPLE_INT8_BOUND); measured on an H100:
+# bf16 corr >= 0.99784, mean|dx| <= 0.00108; int8 >= 0.98144, <= 0.00928
+SAMPLER_BOUND = SAMPLE_INT8_BOUND
+# the ode sampler's batch; solve_ivp at the config's rtol and atol (1e-5):
+# nfe 333 in 6.6-8.1 s bf16 on an H100
+ODE_BATCH = 4
+# blur training with model.fused_train off: the stride-1 blocks' plain
+# composition; K1 in the transitions, attention and norm_out, K8 in attention
+PER_STEP_PLAIN_BLOCKS = {"K1": PER_STEP["K1"], "K8": PER_STEP["K8"]}
+
+
+def _uint8(x):
+    return np.clip(x.float().cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
+
+
+def _sample_run(config, model, batch: int, seed: int, per_eval: dict):
+    """One run of gddim_torch.cli.build_sampling_fn(config) from a generator
+    seeded ``seed`` on the card (so two runs of one seed draw the same u0
+    and normals): (uint8 samples, wall seconds, nfe, launch counts). Raises
+    unless every network output and the samples are finite and the launches
+    are nfe x per_eval ({} for the plain path: no kernel)."""
+    from gddim_torch.cli import build_sampling_fn
+
+    sample_fn = build_sampling_fn(config)
+    finite = []
+    hook = model.register_forward_hook(lambda m, i, out: finite.append(torch.isfinite(out).all()))
+    try:
+        generator = torch.Generator(device="cuda").manual_seed(seed)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, v, nfe = sample_fn(generator, model, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        hook.remove()
+    counts = launches_of(per_eval)
+    ok = (len(finite) == nfe and bool(torch.stack(finite).all()) and bool(torch.isfinite(x).all())
+          and (v is None or bool(torch.isfinite(v).all())))
+    if x.shape != (batch, 32, 32, 3) or not ok:
+        raise AssertionError(f"{config.sampling.method}: bad samples {tuple(x.shape)}, "
+                             f"{len(finite)} evals for nfe={nfe}, all finite: {ok}")
+    expected = {k: n * nfe for k, n in per_eval.items()}
+    if counts != expected:
+        raise AssertionError(f"{config.sampling.method}: launch counts {counts} != {expected}")
+    return _uint8(x), wall, nfe, counts
+
+
+def _plain(model):
+    """Switch the model to the all-plain f32 path; returns the undo."""
+    fused, dtype = model.fused, model.dtype
+    model.fused, model.dtype = False, torch.float32
+
+    def undo():
+        model.fused, model.dtype = fused, dtype
+
+    return undo
+
+
+def _kernel_models(config, batch: int):
+    """The config's seeded model (bf16 'fused') and its 'fused_int8' twin with
+    static scales calibrated on the card, each warmed by an NFE=2 run."""
+    from gddim_torch.cli import build_model, calibrate_int8
+
+    config8 = copy.deepcopy(config)
+    config8.model.conv_impl = "fused_int8"
+    model, model8 = (build_model(c, "cuda", None, seed=0) for c in (config, config8))
+    seconds = calibrate_int8(config8, model8, seed=0)
+    for c, m in ((config, model), (config8, model8)):
+        warm = copy.deepcopy(c)
+        warm.sampling.nfe = 2
+        _sample_run(warm, m, batch, 7, PER_EVAL_FULL if m is model else PER_EVAL_INT8_FULL)
+    return config8, model, model8, seconds
+
+
+def _sampler_line(label, tag, nfe, batch, wall, card, counts, cmp):
+    text, ok = cmp
+    print(f"{label} {tag} NFE={nfe} B={batch}: wall {wall:.3f} s, {batch / wall:.2f} img/s "
+          f"[{card}] (information only); launches {counts}; {text}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label} {tag}: {text} over bounds")
+
+
+def phase_samplers(card: str, batch: int):
+    """The CLD samplers beside deis on cld/accr_dcifar10 (seeded weights):
+    SAMPLER_RUNS at NFE=50 and ``batch``, then ode at ODE_BATCH; each on the
+    f32 plain path, then bf16 and int8 static (ode: bf16) through the
+    kernels from the same seed, held against the plain samples. Returns each
+    kernel's launches from the first run that launches it."""
+    from gddim_torch.configs import get_config
+
+    config = get_config("cld/accr_dcifar10")
+    config8, model, model8, seconds = _kernel_models(config, batch)
+    print(f"samplers: int8 static scales calibrated on the card in {seconds:.3f} s", flush=True)
+    launches = {}
+    what = "the f32 plain path's samples from the same u0 and normals"
+    for label, over in SAMPLER_RUNS:
+        cfgs = [copy.deepcopy(c) for c in (config, config8)]
+        for c in cfgs:
+            for k, v in over.items():
+                setattr(c.sampling, k, v)
+        undo = _plain(model)
+        ref, wall, nfe, _ = _sample_run(cfgs[0], model, batch, 8, {})
+        undo()
+        print(f"sampler {label} f32 plain NFE={nfe} B={batch}: wall {wall:.3f} s, "
+              f"{batch / wall:.2f} img/s [{card}] (information only)", flush=True)
+        for tag, c, m, per_eval in (("bf16", cfgs[0], model, PER_EVAL_FULL),
+                                    ("int8 static", cfgs[1], model8, PER_EVAL_INT8_FULL)):
+            samples, wall, nfe, counts = _sample_run(c, m, batch, 8, per_eval)
+            _sampler_line(f"sampler {label}", tag, nfe, batch, wall, card, counts,
+                          _compare_samples(ref, samples, SAMPLER_BOUND, what))
+            launches.update({k: n for k, n in counts.items() if k not in launches})
+    ode = copy.deepcopy(config)
+    ode.sampling.method = "ode"
+    tol = f"rtol {ode.sampling.rtol:g} atol {ode.sampling.atol:g} {ode.sampling.ode_method}"
+    undo = _plain(model)
+    ref, wall, nfe, _ = _sample_run(ode, model, ODE_BATCH, 8, {})
+    undo()
+    print(f"sampler ode ({tol}) f32 plain: nfe {nfe}, {wall:.3f} s [{card}]", flush=True)
+    samples, wall, nfe, counts = _sample_run(ode, model, ODE_BATCH, 8, PER_EVAL_FULL)
+    _sampler_line(f"sampler ode ({tol})", "bf16", nfe, ODE_BATCH, wall, card, counts,
+                  _compare_samples(ref, samples, SAMPLER_BOUND, what))
+    return launches
+
+
+def phase_blur_deis(card: str, batch: int):
+    """blur/ddpm_deep_cifar10 frequency-space deis (order 2, NFE=50, B=batch)
+    through build_sampling_fn: the f32 plain path, then 'fused' and
+    'fused_int8' (static scales calibrated on the card; the transitions
+    'full') from the same seed; every eval finite, nfe x the per-eval
+    launches, 'fused' against the plain samples and 'fused_int8' against
+    'fused' and the plain samples, as the blur phase holds its runs."""
+    from gddim_torch.configs import get_config
+
+    config = get_config("blur/ddpm_deep_cifar10")
+    config.sampling.method = "deis"
+    config8, model, model8, seconds = _kernel_models(config, batch)
+    undo = _plain(model)
+    ref, wall, nfe, _ = _sample_run(config, model, batch, 8, {})
+    undo()
+    order = config.sampling.deis_order
+    print(f"blur deis-{order} f32 plain NFE={nfe} B={batch}: wall {wall:.3f} s, "
+          f"{batch / wall:.2f} img/s [{card}] (information only)", flush=True)
+    launches, runs = {}, {}
+    for tag, c, m, per_eval in (("fused", config, model, PER_EVAL_FULL),
+                                ("fused_int8", config8, model8, PER_EVAL_INT8_FULL)):
+        samples, wall, nfe, counts = _sample_run(c, m, batch, 8, per_eval)
+        note = f"calibrated on the card in {seconds:.3f} s; " if tag == "fused_int8" else ""
+        cmp = [_compare_samples(ref, samples, SAMPLE_INT8_BOUND, "the f32 plain path's samples")]
+        if "fused" in runs:
+            cmp.append(_compare_samples(runs["fused"], samples, SAMPLE_INT8_BOUND,
+                                        "the 'fused' samples of the same seed"))
+        _sampler_line(f"blur deis-{order}", f"conv_impl={tag} transition_impl=full", nfe, batch,
+                      wall, card, counts, ("; ".join(t for t, _ in cmp),
+                                           all(ok for _, ok in cmp)))
+        if note:
+            print(f"blur deis-{order} fused_int8: {note.rstrip('; ')}", flush=True)
+        runs[tag] = samples
+        launches.update({k: n for k, n in counts.items() if k not in launches})
+    return launches
+
+
+def phase_blur_train(card: str):
+    """blur/ddpm_deep_cifar10 training in f32 at the config's batch (128),
+    dropout 0.1, seeded weights: one loss + backward with model.fused_train
+    on (K6/K7) and off (the stride-1 blocks' plain composition), each
+    against the all-plain path on the same t, z and dropout masks; then
+    training.n_jitted_steps Adam steps through gddim_torch.cli's train
+    function with each setting (launch counts per step, finite parameters),
+    and img/s and peak memory of both, in turns on, off, off, on."""
+    from gddim_torch.configs import train_config
+    from gddim_torch.data.synthetic import SyntheticStream, get_data_scaler
+    from gddim_torch.math.blur import BlurSDE
+    from gddim_torch.models.init import seeded_model
+    from gddim_torch.train.losses import make_blur_loss_fn
+    from gddim_torch.train.step import make_train_step
+
+    config = train_config("blur/ddpm_deep_cifar10")
+    n_steps, batch = int(config.training.n_jitted_steps), int(config.training.batch_size)
+    model = seeded_model(config, seed=0, device="cuda").train()
+    sde = BlurSDE.from_config(config)
+    loss_fn = make_blur_loss_fn(sde, train=True)
+    stream = SyntheticStream(config, batch, n_steps, seed=11)
+    batches = torch.from_numpy(get_data_scaler(config)(next(stream))).to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    t = sde.sample_t((batch,), g, "cuda")
+    z = torch.randn((batch, 32, 32, 3), generator=g, device="cuda")
+
+    model.fused = False
+    loss_p, grads_p = _loss_and_grads(model, loss_fn, batches[0], t, z, seed=9)
+    model.fused = True
+    for fused_train in (True, False):
+        model.fused_train = fused_train
+        loss_k, grads_k = _loss_and_grads(model, loss_fn, batches[0], t, z, seed=9)
+        _check_train_step(loss_k, grads_k, loss_p, grads_p,
+                          f"blur B={batch} model.fused_train={fused_train}")
+        del grads_k
+    del grads_p
+
+    counts, state = {}, None
+    for fused_train, per_step in ((True, PER_STEP), (False, PER_STEP_PLAIN_BLOCKS)):
+        cfg = copy.deepcopy(config)
+        cfg.model.fused_train = model.fused_train = fused_train
+        run_state, run_counts = _train_main_path(cfg, model, n_steps, batch, per_step,
+                                                 f"blur model.fused_train={fused_train}")
+        state = state or run_state  # the first one's optimizer state only
+        del run_state
+        counts.update({k: n for k, n in run_counts.items() if k not in counts})
+    train_step = make_train_step(loss_fn)
+    for fused_train in (True, False, False, True):
+        model.fused_train = fused_train
+        loss, sec, peak = _timed_steps(state, train_step, batches)
+        if not np.isfinite(loss):
+            raise AssertionError(f"blur train: non-finite loss {loss} (fused_train={fused_train})")
+        print(f"train blur model.fused_train={fused_train}: {n_steps} steps B={batch} "
+              f"{sec:.3f} s, {n_steps * batch / sec:.2f} img/s, loss {loss:.5f}, peak "
+              f"{peak:.2f} GiB [{card}] (information only)", flush=True)
+    model.fused_train = bool(config.model.fused_train)
+    return counts
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="smoke run of gddim_torch on one CUDA card")
     # opt-in phases: profile, ab, train_time (K6/K7 device time and a traced
@@ -3935,7 +4192,8 @@ def main(argv=None):
     # f32 B=64 eval), k1_time (K1 at its sites, B=4/16/64, beside
     # F.group_norm; --k1-save / --k1-ref hold two trees' outputs), each of the
     # three on a parent's checkout too
-    parser.add_argument("--phases", default="build,kernels,eps,gates,sample,int8,blur,f32,train")
+    parser.add_argument("--phases", default="build,kernels,eps,gates,sample,int8,blur,samplers,"
+                        "blur_deis,f32,train,blur_train")
     parser.add_argument("--batch", type=int, default=16, help="sampling batch")
     parser.add_argument("--bits", default=None, help="phase bits: the file to save to")
     parser.add_argument("--bits-ref", default=None, help="phase bits: another tree's file")
@@ -4011,6 +4269,12 @@ def main(argv=None):
     if "blur" in phases:
         blur_counts = phase_blur(args.batch, card)
         counts.update({k: n for k, n in blur_counts.items() if k not in counts})
+    if "samplers" in phases:
+        sampler_counts = phase_samplers(card, args.batch)
+        counts.update({k: n for k, n in sampler_counts.items() if k not in counts})
+    if "blur_deis" in phases:
+        blur_deis_counts = phase_blur_deis(card, args.batch)
+        counts.update({k: n for k, n in blur_deis_counts.items() if k not in counts})
     if "f32" in phases:
         f32_counts = phase_f32(card, args.batch)
         counts.update({k: n for k, n in f32_counts.items() if k not in counts})
@@ -4027,6 +4291,9 @@ def main(argv=None):
     if "train" in phases:
         train_counts = phase_train(card)
         counts.update({k: n for k, n in train_counts.items() if k not in counts})
+    if "blur_train" in phases:
+        blur_train_counts = phase_blur_train(card)
+        counts.update({k: n for k, n in blur_train_counts.items() if k not in counts})
     if "train_gemms" in phases and "kernels" not in phases:
         check_train_gemms({}, {})
     if "gn_bwd" in phases and "kernels" not in phases:

@@ -1,14 +1,21 @@
-"""Command line: CLD and blur sampling, CLD training with the port.
+"""Command line: CLD and blur sampling and training with the port.
 
     python -m gddim_torch.cli --config cld/accr_dcifar10 --mode sampling \\
         --batch 16 --seed 0 --out samples/ [--weights model.pt] [--rounds 1]
     python -m gddim_torch.cli --config blur/ddpm_deep_cifar10 --mode sampling \\
         --batch 16 --seed 0 --out samples/ [--set model.conv_impl=int8]
+    python -m gddim_torch.cli --config cld/accr_dcifar10 --mode sampling \\
+        --batch 16 --out samples/ --set sampling.method=sdeis
     python -m gddim_torch.cli --config cld/accr_dcifar10 --mode train \\
         --steps 10 --batch 128 --seed 0 --out run/ [--weights model.pt]
+    python -m gddim_torch.cli --config blur/ddpm_deep_cifar10 --mode train \\
+        --steps 10 --batch 128 --out run/ [--set model.fused_train=true]
 
-Sampling, by the config's family: CLD deis (``samplers/factory.py``) or blur
-order-0 in DCT space (``samplers/blur.py``). Weights are seeded
+Sampling, by the config's family and ``sampling.method``: the nine CLD
+samplers of ``samplers/factory.py:CLD_SAMPLERS`` (order0, deis, hybdeis,
+mldeis, sdeis, ldeis, ode, sscs, em; the stochastic ones draw their noise
+from the ``--seed`` generator) or blur order-0 and frequency-space deis in
+DCT space (``samplers/blur.py``). Weights are seeded
 (``models/init.py``) unless ``--weights`` names a ``state_dict`` file
 (``torch.save`` of ``convert.flax_to_state_dict``, or a ``--mode train``
 output). Each round writes ``samples_<r>.npz`` holding uint8 images and nfe
@@ -20,8 +27,10 @@ calibration, seeded by ``--seed``), as ``bench.py`` does, unless
 ``--no-static`` asks for per-sample scales; 'int8' (layer-wise, per-sample
 scales) and 'pallas' need no calibration.
 
-Training: ``--steps`` Adam steps (``train/``) on the synthetic image stream
-(``data/synthetic.py``), f32 activations, ``training.n_jitted_steps`` steps
+Training: ``--steps`` Adam steps (``train/``, the family's loss) on the
+synthetic image stream (``data/synthetic.py``), f32 activations, the
+stride-1 residual blocks through K6/K7 when ``model.fused_train`` (CLD's
+default; blur's is off), ``training.n_jitted_steps`` steps
 per ``train_step`` call, from the config's own initialisation drawn from
 ``--seed`` (or ``--weights``). Writes ``params.pt`` and ``ema.pt``, both
 ``state_dict`` files that ``--mode sampling --weights`` reads. No preemption
@@ -55,7 +64,7 @@ from gddim_torch.models.unet import NCSNpp
 from gddim_torch.models.wrappers import make_blur_yeps_fn, make_cld_eps_fn
 from gddim_torch.samplers.blur import build_blur_sampler_from_config
 from gddim_torch.samplers.factory import build_cld_sampler
-from gddim_torch.train.losses import make_cld_loss_fn
+from gddim_torch.train.losses import make_loss_fn
 from gddim_torch.train.state import create_train_state, ema_state_dict
 from gddim_torch.train.step import make_train_step
 
@@ -151,8 +160,7 @@ def train(config, model, out_dir: Path, steps: int, batch: int, seed: int, devic
     n_jitted = int(config.training.n_jitted_steps)
     stream = SyntheticStream(config, batch, n_jitted, seed)
     scaler = get_data_scaler(config)
-    loss_fn = make_cld_loss_fn(CLD.from_config(config), train=True,
-                               reduce_mean=config.training.reduce_mean)
+    loss_fn = make_loss_fn(config, train=True)
     state = create_train_state(config, model, torch.Generator(device=device).manual_seed(seed))
     train_step = make_train_step(loss_fn)
     while state.step < steps:
@@ -216,8 +224,6 @@ def main(argv=None):
     for item in args.set:
         _override(config, item)
     if args.mode == "train":
-        if config.sde != "cld":
-            raise SystemExit(f"--mode train: the {config.sde} loss is not ported (CLD only)")
         model = init_model(config, device, args.weights, args.seed)
         batch = args.batch or int(config.training.batch_size)
         train(config, model, Path(args.out), args.steps, batch, args.seed, device)

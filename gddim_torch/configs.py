@@ -20,16 +20,38 @@ import dataclasses
 
 @dataclasses.dataclass
 class SamplingConfig:
+    """The fields both families read (``samplers/factory.py``,
+    ``samplers/blur.py``)."""
+
     method: str = "deis"
     nfe: int = 50
     deis_order: int = 2
     ts_order: float = 2
     noise_removal: bool = True
+    # reproduce the reference's numerics bit for bit: CLD's non-monotone
+    # hybdeis grid and untransposed sdeis Lyapunov equation, blur's G-based
+    # eps integrand (``default_cifar10.py:46-48`` of both families)
+    reference_exact: bool = False
+
+
+@dataclasses.dataclass
+class CLDSamplingConfig(SamplingConfig):
+    """The CLD samplers' fields (``gddim_tpu/configs/cld/default_cifar10.py:
+    30-49``): method is one of ``samplers/factory.py:CLD_SAMPLERS``."""
+
+    is_em: bool = False  # order0: the Euler-discretized coefficients
+    noise_nfe_ratio: float = 0.3  # hybdeis: the share of steps in the noise region
+    img_t_ratio: float = 0.3  # hybdeis: where the image region starts, a share of T
+    atol: float = 1e-5  # ode: solve_ivp's tolerances and method
+    rtol: float = 1e-5
+    ode_method: str = "RK45"
+    lambda_coef: float = 1.0  # sdeis and em: the noise scale lambda
+    sdeis_use_order0: bool = True  # sdeis at deis_order 0: the exact order-0 update
 
 
 @dataclasses.dataclass
 class BlurSamplingConfig(SamplingConfig):
-    method: str = "order0"
+    method: str = "order0"  # or 'deis': frequency-space DEIS of deis_order
     noise_removal: bool = False  # no final denoising step
     t0: float = 1e-5  # the last time of the reverse grid (BlurSDE.sampling_eps)
 
@@ -102,6 +124,10 @@ class ModelConfig:
     # of h and of x in PyTorch, then K4). 'full' by the H100 A/B of
     # chip_smoke.py --phases ab: faster at B=16 and 64, bf16 and int8 (PERF.md)
     transition_impl: str = "full"
+    # training: the stride-1 residual blocks through K6/K7 where
+    # ``train_supported`` takes them (False: their plain composition), the
+    # JAX package's switch of the same name; the family's value
+    fused_train: bool = True
 
 
 @dataclasses.dataclass
@@ -117,6 +143,7 @@ class CLDModelConfig(ModelConfig):
 class BlurModelConfig(ModelConfig):
     sigma_blur_max: float = 10.0
     min_scale: float = 0.001
+    fused_train: bool = False  # ``gddim_tpu/configs/blur/default_cifar10.py:76``
 
 
 @dataclasses.dataclass
@@ -125,7 +152,7 @@ class Config:
     seed: int = 42
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=CLDModelConfig)
-    sampling: SamplingConfig = dataclasses.field(default_factory=SamplingConfig)
+    sampling: SamplingConfig = dataclasses.field(default_factory=CLDSamplingConfig)
     training: TrainingConfig = dataclasses.field(default_factory=TrainingConfig)
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
 

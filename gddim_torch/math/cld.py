@@ -5,7 +5,9 @@ float64 host twin (``host()``) the coefficient layer reads, the prior draw
 x ~ N(0, 1), v ~ N(0, 1/m) (cld_jax/sde_lib.py:270-274), and for training
 the closed-form transition ``psi``, ``mean`` and R(t) from the same uniform
 f32 table the JAX package interpolates (n = 32768, ``CLD.create``), with
-the full-covariance forward perturbation ``perturb_data``.
+the full-covariance forward perturbation ``perturb_data``; for the ``ode``
+sampler's drift the f32 drift ``F(t)``, diffusion ``G(t)``, ``invR`` and
+``eps2score`` (``gddim_tpu/math/cld.py:81,86,114,142``).
 """
 
 from __future__ import annotations
@@ -17,9 +19,13 @@ import math
 import torch
 
 from gddim_torch.math.cld_host import CLDParams, HostCLD
-from gddim_torch.math.linalg2 import bmm
+from gddim_torch.math.linalg2 import bmm, inv2
 
 R_TABLE_SIZE = 32768  # gddim_tpu/math/cld.py:48
+
+
+def _mat2(a00, a01, a10, a11):
+    return torch.stack([torch.stack([a00, a01], -1), torch.stack([a10, a11], -1)], -2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +72,23 @@ class CLD:
         ts, rs = self.host().r_table(n=R_TABLE_SIZE)
         return torch.from_numpy(rs), float(ts[-1])
 
+    def beta(self, t):
+        return self.params.beta_0 + self.params.beta_1 * t
+
+    def F(self, t):
+        """Drift [[0, b m_inv], [-b, -Gamma b m_inv]], (..., 2, 2) f32, on t's
+        device (a Python float: on the CPU)."""
+        b = self.beta(torch.as_tensor(t, dtype=torch.float32))
+        z = torch.zeros_like(b)
+        m_inv, gamma = self.params.m_inv, float(self.params.gamma)
+        return _mat2(z, b * m_inv, -b, -gamma * b * m_inv)
+
+    def G(self, t):
+        """Diffusion [[0, 0], [0, sqrt(2 Gamma b)]], (..., 2, 2) f32."""
+        b = self.beta(torch.as_tensor(t, dtype=torch.float32))
+        z = torch.zeros_like(b)
+        return _mat2(z, z, z, torch.sqrt(2.0 * float(self.params.gamma) * b))
+
     def beta_int(self, t):
         return self.params.beta_0 * t + 0.5 * self.params.beta_1 * t ** 2
 
@@ -91,6 +114,13 @@ class CLD:
         frac = pos - idx.to(pos.dtype)
         lo, hi = table[idx], table[idx + 1]
         return lo + frac[..., None, None] * (hi - lo)
+
+    def invR(self, t):
+        return inv2(self.R(t))
+
+    def eps2score(self, eps, ts):
+        """score = -R(t)^{-T} eps per batch element: eps (B, ..., 2), ts (B,)."""
+        return bmm(-self.invR(ts).transpose(-1, -2), eps)
 
     def mean(self, batch, ts):
         """Psi(0, t_b) applied per batch element; batch (B, ..., d, 2)."""

@@ -37,8 +37,9 @@ runs the plain composition on any device.
   seeing each int8 quantization site (blocks.py:27-43,135-143,562-580);
 - training (``train=True``, gddim_tpu/models/blocks.py:107-147,405-459,
   545-584): stride-1 residual blocks (up-path pairs concatenated) through
-  K6/K7 where ``train_supported`` takes them (the plain composition
-  elsewhere), transitions as the plain composition with K1 for GN1 and GN2, and
+  K6/K7 where ``train_supported`` takes them and ``fused_train`` is on (the
+  JAX package's ``model.fused_train``; the plain composition elsewhere),
+  transitions as the plain composition with K1 for GN1 and GN2, and
   attention as K1 GroupNorm, the NIN projections and K8, or with
   ``fused_attn`` as K10 (blocks.py:107-133, GDDIM_FUSED_ATTN_TRAIN=1 there).
   Dropout masks are drawn in the block, outside any kernel, from the
@@ -137,7 +138,7 @@ class ResnetBlockBigGANpp(nn.Module):
     def forward(self, x, temb, fused: bool = False, train: bool = False,
                 generator: torch.Generator | None = None, int8: bool = False,
                 qscales: dict | None = None, sow=None, layer: str | None = None,
-                transition: str = "tail", temb_row=None):
+                transition: str = "tail", temb_row=None, fused_train: bool = True):
         """x: (B, H, W, C), or the up path's (h, skip) pair. train: dropout
         masks from ``generator``, and the differentiable kernels. int8 (with
         fused): the int8 kernels, static scales from this block's ``qscales``
@@ -149,9 +150,10 @@ class ResnetBlockBigGANpp(nn.Module):
         ``tail_supported``), the plain composition elsewhere. temb_row: this
         block's (B, Cout) f32 temb projection, made by the caller, in place
         of silu(temb) through the Dense. sow: calibration (the plain
-        composition)."""
+        composition). fused_train=False (with train): the stride-1 block's
+        plain composition in place of K6/K7 (``model.fused_train``)."""
         if train:
-            return self._forward_train(x, temb, fused, generator)
+            return self._forward_train(x, temb, fused, generator, fused_train)
         if fused and layer is not None:
             return self._forward_layerwise(x, temb, layer)
         pair = isinstance(x, (tuple, list))
@@ -243,7 +245,7 @@ class ResnetBlockBigGANpp(nn.Module):
         out = (x if self.skip is None else self.skip(x)) + h
         return out * rb._INV_SQRT2 if self.skip_rescale else out
 
-    def _forward_train(self, x, temb, fused, generator):
+    def _forward_train(self, x, temb, fused, generator, fused_train=True):
         if isinstance(x, (tuple, list)):
             x = torch.cat(x, -1)
         b, h, w, _ = x.shape
@@ -262,7 +264,7 @@ class ResnetBlockBigGANpp(nn.Module):
         if self.skip is not None:
             w_skip, b_skip = self.skip.weight[0, 0], self.skip.bias
         if not (self.up or self.down):
-            kernel = fused and rb.train_supported(x.shape, out_ch)
+            kernel = fused and fused_train and rb.train_supported(x.shape, out_ch)
             op = rb.fused_resblock_train if kernel else rb.resblock_train_reference
             return op(x, temb_proj, self.norm1.weight, self.norm1.bias, self.conv1.weight,
                       self.conv1.bias, self.norm2.weight, self.norm2.bias, self.conv2.weight,

@@ -10,8 +10,10 @@ every block, the whole-block kernels ('fused'), their int8 modes
 ('fused_int8'), the layer-wise kernels ('pallas': GroupNorm and 3x3 conv
 kernels in bf16; 'int8': int8 3x3 convs fed by GroupNorm+SiLU+quantize) or
 the plain torch composition ('plain'); ``config.model.transition_impl='full'``
-runs the whole-block paths' six up/down blocks through K9, and
-``config.training.fused_attn`` the training path's attention through K10.
+runs the whole-block paths' six up/down blocks through K9,
+``config.training.fused_attn`` the training path's attention through K10,
+and ``config.model.fused_train`` its stride-1 residual blocks through K6/K7
+(off: their plain composition).
 The stem, head and pyramid convs stay plain in every mode: their channel
 counts are outside what the 3x3 conv kernel takes, as in the JAX package. With ``train=True`` the blocks take their
 training paths (dropout, K1/K6/K7/K8), and the dropout masks are drawn in
@@ -95,6 +97,7 @@ class NCSNpp(nn.Module):
         self.layer = m.conv_impl if m.conv_impl in ("pallas", "int8") else None  # layer-wise
         self.transition = m.transition_impl  # 'full': K9 for the whole-block paths' transitions
         self.fused_attn = bool(config.training.fused_attn)  # training attention through K10
+        self.fused_train = bool(m.fused_train)  # training stride-1 blocks through K6/K7
         self.qscales: dict = {}
         self.dtype = _DTYPES[str(m.dtype).lower()]
         self.centered = bool(config.data.centered)
@@ -205,7 +208,7 @@ class NCSNpp(nn.Module):
         def res(block, h):
             row = None if rows is None else rows[:, block.temb_cols]
             return block(h, temb, fused, train, generator, transition=self.transition,
-                         temb_row=row, **extra(block))
+                         temb_row=row, fused_train=self.fused_train, **extra(block))
 
         def att(block, h):
             return block(h, fused, train, fused_attn=self.fused_attn, **extra(block))

@@ -49,11 +49,15 @@ def make_cld_eps_fn(sde, train: bool = False):
     return eps_apply
 
 
-def make_blur_eps_fn(sde):
-    """eps_apply(model, x, t_vec) -> pixel-space eps of the blur model
-    (inference: no autograd, no dropout); f32 whatever the model's dtype."""
+def make_blur_eps_fn(sde, train: bool = False):
+    """eps_apply(model, x, t_vec, generator=None) -> pixel-space eps of the
+    blur model, f32 whatever the model's dtype. train=False: inference (no
+    autograd, no dropout); train=True: the training path, differentiable,
+    dropout masks from ``generator``."""
 
-    def eps_apply(model, x, t_vec):
+    def eps_apply(model, x, t_vec, generator=None):
+        if train:
+            return model(x, sde.encode_t(t_vec), train=True, generator=generator).float()
         with torch.inference_mode():
             out = model(x, sde.encode_t(t_vec))
         return out.float()

@@ -293,6 +293,9 @@ def test_cli_writes_blur_samples(tmp_path):
         assert set(f.files) == {"samples", "nfe"}
         assert f["samples"].shape == (2, 16, 16, 3) and f["samples"].dtype == np.uint8
         assert int(f["nfe"]) == 2
-    with pytest.raises(SystemExit):
-        main(["--config", "blur/ddpm_deep_cifar10", "--mode", "train", "--device", "cpu",
-              "--out", str(tmp_path / "run")])
+    # blur training is ported too: the train mode writes the weights
+    main(["--config", "blur/ddpm_deep_cifar10", "--mode", "train", "--device", "cpu",
+          "--steps", "1", "--batch", "2", "--out", str(tmp_path / "run"), "--set",
+          "model.nf=32", "--set", "model.ch_mult=(1,2)", "--set", "model.num_res_blocks=1",
+          "--set", "data.image_size=16"])
+    assert (tmp_path / "run" / "params.pt").exists() and (tmp_path / "run" / "ema.pt").exists()

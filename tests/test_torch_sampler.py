@@ -109,6 +109,25 @@ def test_port_imports_no_jax(tmp_path):
         eps = make_cld_eps_fn(CLD.from_config(cfg))(
             seeded_model(cfg, 0), torch.zeros(1, 16, 16, 3, 2), torch.full((1,), 0.5))
         assert eps.shape == (1, 16, 16, 3, 2)
+        # the sampler family, blur DEIS and blur training
+        import gddim_torch.math.deis_scalar, gddim_torch.math.variants
+        from gddim_torch.samplers import coefs, engine, factory
+        from gddim_torch.samplers.blur import blur_deis_stacks
+        from gddim_torch.train.losses import make_blur_loss_fn
+        host = CLD().host()
+        for bundle in (coefs.em_bundle(host, 4, 1.0), coefs.sscs_bundle(host, 4),
+                       coefs.ldeis_bundle(host, 4, 1)):
+            run = engine.sscs_sample if isinstance(bundle, coefs.SSCSBundle) else engine.ab_sample
+            u = run(lambda u, t: u, torch.zeros(1, 2, 2), bundle, torch.Generator())
+            assert torch.isfinite(u).all()
+        assert len(factory.CLD_SAMPLERS) == 9
+        assert blur_deis_stacks(BlurSDE(img_dim=8), 2, 1, 2.0)[2].shape == (2, 2, 8, 8, 1)
+        cfg = get_config("blur/ddpm_deep_cifar10")
+        cfg.model.nf, cfg.model.ch_mult, cfg.model.num_res_blocks = 32, (1, 2), 1
+        cfg.data.image_size, cfg.model.dtype = 16, "float32"
+        loss = make_blur_loss_fn(BlurSDE(img_dim=16), train=True)(seeded_model(cfg, 0).train(),
+                                                  torch.zeros(2, 16, 16, 3), torch.Generator())
+        loss.backward()
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "ml_collections",
                                             "gddim_tpu"))
