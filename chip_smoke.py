@@ -100,7 +100,8 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      bf16 ('fused') and int8 ('fused_int8', static scales calibrated on the
      card) from the same generator seed (the same u0 and normals): every
      network output finite, launches nfe x the per-eval table, img/s, and
-     the pixel correlation and mean|dx| against the plain samples; then
+     the pixel correlation and mean|dx| against the plain samples (bf16 at
+     SAMPLER_BF16_BOUND, int8 at SAMPLE_INT8_BOUND); then
      ode at B=4 (solve_ivp at the config's tolerances), plain and bf16,
      its nfe and seconds;
   7b. blur_deis: blur/ddpm_deep_cifar10 frequency-space deis (order 2,
@@ -123,7 +124,8 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      of the plain path for information;
   9. blur_train: blur/ddpm_deep_cifar10 in f32 at B=128, dropout 0.1: one
      loss + backward with model.fused_train on (K6/K7) and off (the
-     stride-1 blocks' plain composition) against the all-plain path with
+     stride-1 blocks' unfused layers, K1 for their GroupNorms) against the
+     all-plain path with
      the same t, z and masks (the train phase's bounds); then
      training.n_jitted_steps Adam steps through gddim_torch.cli's train
      function with each setting (launch counts per step), and img/s and
@@ -3953,17 +3955,20 @@ SAMPLER_RUNS = [("order0", dict(method="order0")),
                 ("ldeis-2", dict(method="ldeis")),
                 ("sdeis-2 lambda=1", dict(method="sdeis", lambda_coef=1.0)),
                 ("em lambda=1", dict(method="em", lambda_coef=1.0)), ("sscs", dict(method="sscs"))]
-# Each kernel-path run against the f32 plain path's samples from the same u0
-# and the same normals (one generator seed on the card), at the bound the
-# int8 and blur sample gates hold (SAMPLE_INT8_BOUND); measured on an H100:
-# bf16 corr >= 0.99784, mean|dx| <= 0.00108; int8 >= 0.98144, <= 0.00928
-SAMPLER_BOUND = SAMPLE_INT8_BOUND
+# Each kernel-path run (and blur deis's) against the f32 plain path's
+# samples from the same u0 and the same normals (one generator seed on the
+# card); measured on an H100: bf16 corr >= 0.99784, mean|dx| <= 0.00108
+# (the worst of the CLD methods, ode and blur deis), so bf16 is held at
+# about 3x (1 - corr <= 0.006, mean|dx| <= 0.003); int8 static >= 0.98144,
+# <= 0.00928, held at the int8 and blur sample gates (SAMPLE_INT8_BOUND)
+SAMPLER_BF16_BOUND = {"corr": 0.994, "mean_dx": 0.003, "max_dx": 1.0}
 # the ode sampler's batch; solve_ivp at the config's rtol and atol (1e-5):
 # nfe 333 in 6.6-8.1 s bf16 on an H100
 ODE_BATCH = 4
-# blur training with model.fused_train off: the stride-1 blocks' plain
-# composition; K1 in the transitions, attention and norm_out, K8 in attention
-PER_STEP_PLAIN_BLOCKS = {"K1": PER_STEP["K1"], "K8": PER_STEP["K8"]}
+# blur training with model.fused_train off: the stride-1 and pair blocks'
+# unfused layers, K1 for their GN1 and GN2 beside K1 in the transitions,
+# attention and norm_out; K8 in attention
+PER_STEP_UNFUSED_BLOCKS = {"K1": PER_STEP["K1"] + 2 * TRAIN_BLOCKS, "K8": PER_STEP["K8"]}
 
 
 def _uint8(x):
@@ -4061,11 +4066,12 @@ def phase_samplers(card: str, batch: int):
         undo()
         print(f"sampler {label} f32 plain NFE={nfe} B={batch}: wall {wall:.3f} s, "
               f"{batch / wall:.2f} img/s [{card}] (information only)", flush=True)
-        for tag, c, m, per_eval in (("bf16", cfgs[0], model, PER_EVAL_FULL),
-                                    ("int8 static", cfgs[1], model8, PER_EVAL_INT8_FULL)):
+        for tag, c, m, per_eval, bound in (
+                ("bf16", cfgs[0], model, PER_EVAL_FULL, SAMPLER_BF16_BOUND),
+                ("int8 static", cfgs[1], model8, PER_EVAL_INT8_FULL, SAMPLE_INT8_BOUND)):
             samples, wall, nfe, counts = _sample_run(c, m, batch, 8, per_eval)
             _sampler_line(f"sampler {label}", tag, nfe, batch, wall, card, counts,
-                          _compare_samples(ref, samples, SAMPLER_BOUND, what))
+                          _compare_samples(ref, samples, bound, what))
             launches.update({k: n for k, n in counts.items() if k not in launches})
     ode = copy.deepcopy(config)
     ode.sampling.method = "ode"
@@ -4076,7 +4082,7 @@ def phase_samplers(card: str, batch: int):
     print(f"sampler ode ({tol}) f32 plain: nfe {nfe}, {wall:.3f} s [{card}]", flush=True)
     samples, wall, nfe, counts = _sample_run(ode, model, ODE_BATCH, 8, PER_EVAL_FULL)
     _sampler_line(f"sampler ode ({tol})", "bf16", nfe, ODE_BATCH, wall, card, counts,
-                  _compare_samples(ref, samples, SAMPLER_BOUND, what))
+                  _compare_samples(ref, samples, SAMPLER_BF16_BOUND, what))
     return launches
 
 
@@ -4085,8 +4091,9 @@ def phase_blur_deis(card: str, batch: int):
     through build_sampling_fn: the f32 plain path, then 'fused' and
     'fused_int8' (static scales calibrated on the card; the transitions
     'full') from the same seed; every eval finite, nfe x the per-eval
-    launches, 'fused' against the plain samples and 'fused_int8' against
-    'fused' and the plain samples, as the blur phase holds its runs."""
+    launches, 'fused' against the plain samples (SAMPLER_BF16_BOUND) and
+    'fused_int8' against 'fused' and the plain samples (SAMPLE_INT8_BOUND,
+    as the blur phase holds its int8 runs)."""
     from gddim_torch.configs import get_config
 
     config = get_config("blur/ddpm_deep_cifar10")
@@ -4103,7 +4110,8 @@ def phase_blur_deis(card: str, batch: int):
                                 ("fused_int8", config8, model8, PER_EVAL_INT8_FULL)):
         samples, wall, nfe, counts = _sample_run(c, m, batch, 8, per_eval)
         note = f"calibrated on the card in {seconds:.3f} s; " if tag == "fused_int8" else ""
-        cmp = [_compare_samples(ref, samples, SAMPLE_INT8_BOUND, "the f32 plain path's samples")]
+        bound = SAMPLE_INT8_BOUND if tag == "fused_int8" else SAMPLER_BF16_BOUND
+        cmp = [_compare_samples(ref, samples, bound, "the f32 plain path's samples")]
         if "fused" in runs:
             cmp.append(_compare_samples(runs["fused"], samples, SAMPLE_INT8_BOUND,
                                         "the 'fused' samples of the same seed"))
@@ -4120,7 +4128,8 @@ def phase_blur_deis(card: str, batch: int):
 def phase_blur_train(card: str):
     """blur/ddpm_deep_cifar10 training in f32 at the config's batch (128),
     dropout 0.1, seeded weights: one loss + backward with model.fused_train
-    on (K6/K7) and off (the stride-1 blocks' plain composition), each
+    on (K6/K7) and off (the stride-1 blocks' unfused layers, K1 for their
+    GroupNorms), each
     against the all-plain path on the same t, z and dropout masks; then
     training.n_jitted_steps Adam steps through gddim_torch.cli's train
     function with each setting (launch counts per step, finite parameters),
@@ -4155,7 +4164,7 @@ def phase_blur_train(card: str):
     del grads_p
 
     counts, state = {}, None
-    for fused_train, per_step in ((True, PER_STEP), (False, PER_STEP_PLAIN_BLOCKS)):
+    for fused_train, per_step in ((True, PER_STEP), (False, PER_STEP_UNFUSED_BLOCKS)):
         cfg = copy.deepcopy(config)
         cfg.model.fused_train = model.fused_train = fused_train
         run_state, run_counts = _train_main_path(cfg, model, n_steps, batch, per_step,

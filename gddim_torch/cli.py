@@ -30,7 +30,8 @@ scales) and 'pallas' need no calibration.
 Training: ``--steps`` Adam steps (``train/``, the family's loss) on the
 synthetic image stream (``data/synthetic.py``), f32 activations, the
 stride-1 residual blocks through K6/K7 when ``model.fused_train`` (CLD's
-default; blur's is off), ``training.n_jitted_steps`` steps
+default; blur's is off: their unfused layers, K1 for the GroupNorms),
+``training.n_jitted_steps`` steps
 per ``train_step`` call, from the config's own initialisation drawn from
 ``--seed`` (or ``--weights``). Writes ``params.pt`` and ``ema.pt``, both
 ``state_dict`` files that ``--mode sampling --weights`` reads. No preemption

@@ -11,8 +11,7 @@ computed with the left-endpoint quadrature of the 2x2 engine
 (``gddim_torch/math/deis.py``), vectorized over frequencies, in numpy
 float64. Psi (and, with ``reference_exact``, the reference's integrand) are
 evaluated in float32, as the JAX package evaluates them (``jnp`` without
-x64): here by ``BlurSDE`` on CPU float32 tensors. Its dissipation rates
-likewise enter the schedule-derived integrand rounded to float32.
+x64): here by ``BlurSDE`` on CPU float32 tensors.
 """
 
 from __future__ import annotations
@@ -33,35 +32,20 @@ def _schedule_eps_integrand(sde, taus: np.ndarray) -> np.ndarray:
     """Exact per-frequency eps integrand E(tau) = s'(tau) - (m'/m)(tau) s(tau).
 
     Derived from the forward marginals y_t = m(t) y_0 + s(t) eps themselves
-    (m = y_mean_coef per frequency, s = y_std_coef): with this E,
-    int psi(tau,t') E(tau) dtau == s(t') - psi(t,t') s(t) holds exactly, i.e.
-    order-0 DEIS reduces to the DDIM update. The reference's
-    G/eps_integrand (blur_jax/sde_lib.py:58-77) drops the frequency-damping
-    drift D'/D term, so E comes from the schedule (``reference_exact`` takes
-    the reference's). Derivatives via float64 central differences.
+    (m = ``sde.y_mean_coef`` per frequency, s = ``sde.y_std_coef``, both in
+    float64): with this E, int psi(tau,t') E(tau) dtau == s(t') - psi(t,t')
+    s(t) holds exactly, i.e. order-0 DEIS reduces to the DDIM update. The
+    reference's G/eps_integrand (blur_jax/sde_lib.py:58-77) drops the
+    frequency-damping drift D'/D term, so E comes from the schedule
+    (``reference_exact`` takes the reference's). Derivatives via float64
+    central differences.
     """
-    labda = sde.labda().astype(np.float32).astype(np.float64)[0]  # (H, W, 1)
     taus = np.asarray(taus, dtype=np.float64)
-
-    def alpha(t):
-        return np.cos((t + 0.004) / 1.008 * np.pi / 2) ** 2
-
-    def d_freq(t):  # (n, H, W, 1)
-        sigma_blur = sde.sigma_blur_max * np.sin(t * np.pi / 2) ** 2
-        diss = (sigma_blur**2 / 2)[:, None, None, None]
-        return np.exp(-diss * labda[None]) * (1 - sde.min_scale) + sde.min_scale
-
-    def m_fn(t):
-        return np.sqrt(alpha(t))[:, None, None, None] * d_freq(t)
-
-    def s_fn(t):
-        return np.sqrt(1 - alpha(t))
-
     h = 1e-7  # float64 central differences
-    m = m_fn(taus)
-    dm = (m_fn(taus + h) - m_fn(taus - h)) / (2 * h)
-    s = s_fn(taus)
-    ds = (s_fn(taus + h) - s_fn(taus - h)) / (2 * h)
+    m = sde.y_mean_coef(taus)
+    dm = (sde.y_mean_coef(taus + h) - sde.y_mean_coef(taus - h)) / (2 * h)
+    s = sde.y_std_coef(taus)
+    ds = (sde.y_std_coef(taus + h) - sde.y_std_coef(taus - h)) / (2 * h)
     return ds[:, None, None, None] - dm / m * s[:, None, None, None]
 
 

@@ -38,8 +38,8 @@ runs the plain composition on any device.
 - training (``train=True``, gddim_tpu/models/blocks.py:107-147,405-459,
   545-584): stride-1 residual blocks (up-path pairs concatenated) through
   K6/K7 where ``train_supported`` takes them and ``fused_train`` is on (the
-  JAX package's ``model.fused_train``; the plain composition elsewhere),
-  transitions as the plain composition with K1 for GN1 and GN2, and
+  JAX package's ``model.fused_train``), elsewhere, as the transitions, the
+  unfused layers with K1 for GN1 and GN2, and
   attention as K1 GroupNorm, the NIN projections and K8, or with
   ``fused_attn`` as K10 (blocks.py:107-133, GDDIM_FUSED_ATTN_TRAIN=1 there).
   Dropout masks are drawn in the block, outside any kernel, from the
@@ -151,7 +151,8 @@ class ResnetBlockBigGANpp(nn.Module):
         block's (B, Cout) f32 temb projection, made by the caller, in place
         of silu(temb) through the Dense. sow: calibration (the plain
         composition). fused_train=False (with train): the stride-1 block's
-        plain composition in place of K6/K7 (``model.fused_train``)."""
+        unfused layers (K1 for its GroupNorms with fused) in place of K6/K7
+        (``model.fused_train``)."""
         if train:
             return self._forward_train(x, temb, fused, generator, fused_train)
         if fused and layer is not None:
@@ -263,23 +264,26 @@ class ResnetBlockBigGANpp(nn.Module):
         w_skip = b_skip = None
         if self.skip is not None:
             w_skip, b_skip = self.skip.weight[0, 0], self.skip.bias
-        if not (self.up or self.down):
-            kernel = fused and fused_train and rb.train_supported(x.shape, out_ch)
-            op = rb.fused_resblock_train if kernel else rb.resblock_train_reference
-            return op(x, temb_proj, self.norm1.weight, self.norm1.bias, self.conv1.weight,
-                      self.conv1.bias, self.norm2.weight, self.norm2.bias, self.conv2.weight,
-                      self.conv2.bias, w_skip, b_skip, mask, keep_prob=keep,
-                      num_groups1=self.norm1.num_groups, num_groups2=self.norm2.num_groups,
-                      eps=self.norm2.eps, skip_rescale=self.skip_rescale)
+        resampled = self.up or self.down
+        if not resampled and fused and fused_train and rb.train_supported(x.shape, out_ch):
+            return rb.fused_resblock_train(
+                x, temb_proj, self.norm1.weight, self.norm1.bias, self.conv1.weight,
+                self.conv1.bias, self.norm2.weight, self.norm2.bias, self.conv2.weight,
+                self.conv2.bias, w_skip, b_skip, mask, keep_prob=keep,
+                num_groups1=self.norm1.num_groups, num_groups2=self.norm2.num_groups,
+                eps=self.norm2.eps, skip_rescale=self.skip_rescale)
+        # the unfused layers (gddim_tpu/models/blocks.py:545-584): K1 for GN1
+        # and GN2 with fused, the FIR resample in a transition
         hh = self.norm1(x, act=True, fused=fused)
-        res = resample.upsample_2d if self.up else resample.downsample_2d
-        hh, x = res(hh, self.fir_kernel), res(x, self.fir_kernel)
+        if resampled:
+            res = resample.upsample_2d if self.up else resample.downsample_2d
+            hh, x = res(hh, self.fir_kernel), res(x, self.fir_kernel)
         hh = self.conv1(hh) + temb_proj.to(hh.dtype)[:, None, None, :]
         hh = self.norm2(hh, act=True, fused=fused)
         if mask is not None:
             hh = hh * (mask.to(hh.dtype) * (1.0 / keep))
         hh = self.conv2(hh)
-        out = self.skip(x) + hh
+        out = (x if self.skip is None else self.skip(x)) + hh
         return out * rb._INV_SQRT2 if self.skip_rescale else out
 
 

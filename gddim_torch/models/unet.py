@@ -13,7 +13,7 @@ the plain torch composition ('plain'); ``config.model.transition_impl='full'``
 runs the whole-block paths' six up/down blocks through K9,
 ``config.training.fused_attn`` the training path's attention through K10,
 and ``config.model.fused_train`` its stride-1 residual blocks through K6/K7
-(off: their plain composition).
+(off: their unfused layers, K1 for the GroupNorms).
 The stem, head and pyramid convs stay plain in every mode: their channel
 counts are outside what the 3x3 conv kernel takes, as in the JAX package. With ``train=True`` the blocks take their
 training paths (dropout, K1/K6/K7/K8), and the dropout masks are drawn in

@@ -37,7 +37,7 @@ SDE_REL = 1e-7
 PSI_F64_REL = 3e-6
 # The AB stacks: float64 quadratures of the same f32 psi (and, with
 # reference_exact, f32 integrand) maps, so they differ by the f32 maps'
-# last-bit differences; measured up to 1.2e-7 (x and eps) here. Evaluating
+# last-bit differences; measured up to 1.4e-7 (x and eps) here. Evaluating
 # psi in float64 instead leaves 6.4e-7 (measured), which this bound does
 # not admit.
 STACK_REL = 4e-7

@@ -14,6 +14,7 @@ import torch
 from gddim_torch import cli, convert
 from gddim_torch.configs import get_config, train_config
 from gddim_torch.math.blur import BlurSDE
+from gddim_torch.models import layers as t_layers
 from gddim_torch.models.init import seeded_model, seeded_params
 from gddim_torch.ops import resblock as rb
 from gddim_torch.train.losses import make_blur_loss_fn, make_loss_fn
@@ -117,12 +118,33 @@ def test_sample_t_range_and_generator():
     assert jt.min() >= 1e-5 and jt.max() < 1.0 and abs(jt.mean() - 0.5) < 0.02
 
 
-def test_blur_loss_and_gradients_match_jax():
-    """make_blur_loss_fn on the small network with the JAX loss's own t and
-    z draws, against jax.value_and_grad of the JAX package's
-    make_blur_loss_fn: the loss and the gradient of every parameter."""
-    cfg = small(train_config("blur/ddpm_deep_cifar10"))
-    jcfg = small(jax_get_config("blur/ddpm_deep_cifar10"))
+def _recording_dropout(masks):
+    """A flax method interceptor that runs each nn.Dropout as flax does
+    (its own make_rng, bernoulli(keep), select(mask, x / keep, 0)) and
+    appends the mask it drew to ``masks``."""
+
+    def interceptor(next_fun, args, kwargs, context):
+        mod = context.module
+        if (not isinstance(mod, flax.linen.Dropout) or context.method_name != "__call__"
+                or mod.rate == 0.0):
+            return next_fun(*args, **kwargs)
+        (x,) = args
+        assert kwargs == {"deterministic": False}
+        keep = 1.0 - mod.rate
+        mask = jax.random.bernoulli(mod.make_rng(mod.rng_collection), keep, x.shape)
+        masks.append(mask)
+        return jax.lax.select(mask, x / keep, jnp.zeros_like(x))
+
+    return interceptor
+
+
+def _blur_loss_against_jax(monkeypatch, dropout):
+    """make_blur_loss_fn on the small network at ``dropout`` with the JAX
+    loss's own t, z and dropout masks, against jax.value_and_grad of the
+    JAX package's make_blur_loss_fn: the loss and the gradient of every
+    parameter, each held at MODEL_REL. Returns the masks fed in."""
+    cfg = small(train_config("blur/ddpm_deep_cifar10"), dropout=dropout)
+    jcfg = small(jax_get_config("blur/ddpm_deep_cifar10"), dropout=dropout)
     tree = seeded_params(cfg, 0)
     images = np.random.default_rng(81).uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
     key = jax.random.PRNGKey(4)
@@ -130,15 +152,30 @@ def test_blur_loss_and_gradients_match_jax():
                                   train=True)
 
     def loss_j(params):
-        return jloss(key, params, {}, {"image": jnp.asarray(images)})[0]
+        masks = []
+        with flax.linen.intercept_methods(_recording_dropout(masks)):
+            loss = jloss(key, params, {}, {"image": jnp.asarray(images)})[0]
+        return loss, masks
 
-    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_j))(jax.tree.map(jnp.asarray, tree))
+    (want_loss, masks), want_grads = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(
+        jax.tree.map(jnp.asarray, tree))
     t, z = _jax_draws(key, images.shape)
 
+    # the port draws each block's mask with torch.bernoulli, in the order the
+    # blocks run: hand it the JAX masks in that order instead
+    queue = [np.array(m) for m in masks]
+
+    def jax_mask(probs, generator=None):
+        m = queue.pop(0)
+        assert m.shape == tuple(probs.shape)
+        return torch.from_numpy(m).to(probs.dtype)
+
+    monkeypatch.setattr(torch, "bernoulli", jax_mask)
     model = seeded_model(cfg, 0).train()
     loss = make_blur_loss_fn(BlurSDE.from_config(cfg), train=True)(
         model, torch.from_numpy(images), torch.Generator().manual_seed(0),
         t=torch.from_numpy(t), z=torch.from_numpy(z))
+    assert not queue  # one JAX mask for each of the port's dropout sites
     loss.backward()
     assert rel_err(loss.detach(), want_loss) <= MODEL_REL
     got = convert.grads_to_flax(model)
@@ -151,23 +188,42 @@ def test_blur_loss_and_gradients_match_jax():
         name = jax.tree_util.keystr(path)
         key_bias = name.startswith("['AttnBlockpp") and name.endswith("['NIN_1']['b']")
         assert rel_err(node, w, LEAF_FLOOR * largest if key_bias else 0.0) <= MODEL_REL, name
+    return masks
+
+
+def test_blur_loss_and_gradients_match_jax(monkeypatch):
+    """The blur loss and every gradient against the JAX package's, without
+    dropout (the small config's)."""
+    assert _blur_loss_against_jax(monkeypatch, 0.0) == []
+
+
+def test_blur_loss_and_gradients_match_jax_with_dropout(monkeypatch):
+    """The same at dropout 0.1, the port fed the JAX network's own dropout
+    masks (one per residual block; about a tenth of them zeros)."""
+    masks = _blur_loss_against_jax(monkeypatch, 0.1)
+    assert len(masks) == len(seeded_model(small(train_config("blur/ddpm_deep_cifar10")),
+                                          0).res_blocks)
+    drop = 1.0 - np.mean([np.asarray(m).mean() for m in masks])
+    assert 0.05 < drop < 0.15
 
 
 def test_fused_train_defaults_and_switch(monkeypatch):
     """model.fused_train: JAX's default per family (CLD on, blur off), and
     on the network at nf=128 (where train_supported takes the stride-1
-    blocks) it sends them through K6/K7's wrapper or their plain
-    composition, with the same loss and gradients (plain versions here)."""
+    blocks) it sends them through K6/K7's wrapper or their unfused layers
+    with K1's wrapper for the GroupNorms, with the same loss and gradients
+    (plain versions here)."""
     assert get_config("cld/accr_dcifar10").model.fused_train is True
     assert get_config("blur/ddpm_deep_cifar10").model.fused_train is False
     assert jax_get_config("blur/ddpm_deep_cifar10").model.fused_train is False
     cfg = small(train_config("blur/ddpm_deep_cifar10"), nf=128, dropout=0.1)
     model = seeded_model(cfg, 0).train()
     assert model.fused and not model.fused_train
-    calls = []
-    wrapper = rb.fused_resblock_train
+    calls, k1 = [], []
+    wrapper, gn = rb.fused_resblock_train, t_layers.group_norm_silu
     monkeypatch.setattr(rb, "fused_resblock_train",
                         lambda *a, **k: calls.append(1) or wrapper(*a, **k))
+    monkeypatch.setattr(t_layers, "group_norm_silu", lambda *a, **k: k1.append(1) or gn(*a, **k))
     images = np.random.default_rng(82).uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
     t, z = _jax_draws(jax.random.PRNGKey(5), images.shape)
     loss_fn = make_loss_fn(cfg, train=True)
@@ -175,13 +231,17 @@ def test_fused_train_defaults_and_switch(monkeypatch):
     for switch in (False, True):
         model.fused_train = switch
         calls.clear()
+        k1.clear()
         model.zero_grad(set_to_none=True)
         loss = loss_fn(model, torch.from_numpy(images), torch.Generator().manual_seed(6),
                        t=torch.from_numpy(t), z=torch.from_numpy(z))
         loss.backward()
         runs[switch] = (loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()
-                                      if p.grad is not None}, len(calls))
+                                      if p.grad is not None}, len(calls), len(k1))
     assert runs[False][2] == 0 and runs[True][2] > 0
+    # off: the unfused layers run K1 (its wrapper) for GN1 and GN2 of each
+    # block that K6/K7 take when on, as the JAX package's unfused layers do
+    assert runs[False][3] == runs[True][3] + 2 * runs[True][2]
     assert rel_err(runs[True][0], runs[False][0]) <= SWITCH_REL
     largest = max(g.abs().max().item() for g in runs[False][1].values())
     for name, want in runs[False][1].items():
