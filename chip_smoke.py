@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/H100 port on one CUDA card.
 
     python3 chip_smoke.py [--phases build,kernels,eps,gates,sample,int8,blur,samplers,blur_deis,
-                           f32,train,blur_train] [--batch 16]
+                           f32,train,blur_train,run_lib] [--batch 16]
 
 Phases (each prints one line per check; any failure raises and exits non-zero):
   1. the card: torch.cuda must be available; prints nvidia-smi's name and
@@ -75,7 +75,7 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      evaluation at nf = 32 and 64 through 'fused' and 'fused_int8' (static
      scales calibrated on the card) against the f32 plain path, with the
      blocks the kernels took and those that ran the plain composition;
-  5. sample: CLD deis-2 NFE=50 sampling through gddim_torch.cli's sampling
+  5. sample: CLD deis-2 NFE=50 sampling through gddim_torch.run_lib's sampling
      function (B=16, seeded weights) with the transitions through K4
      (transition_impl 'tail'): finite samples, launch counts, wall time;
      then the same with 'full' (K9), its samples against the K4 path's (the
@@ -88,7 +88,7 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      bf16 run: finite samples, launch counts, wall time, and the pixel
      correlation and max|dx| of the int8 samples against the bf16 ones;
   7. blur: blur/ddpm_deep_cifar10 order-0 NFE=50 sampling at B=16 through
-     gddim_torch.cli's sampling function, one seed, conv_impl 'fused', then
+     gddim_torch.run_lib's sampling loop, one seed, conv_impl 'fused', then
      'int8' (layer-wise: K12, K11-int8, K1, K8), 'fused_int8' (calibrated on
      the card) and 'pallas' (layer-wise: K1, K11, K8): finite samples, launch
      counts, wall time, and each other run's pixel correlation and mean|dx|
@@ -111,25 +111,37 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      transitions 'full'): one full-width eps evaluation (B=4, t=0.5)
      against the f32 plain path with its launch counts (every block on the
      block GEMM's routes), CLD deis-2 NFE=50 sampling at --batch through
-     gddim_torch.cli's sampling function (finite samples, launch counts,
+     gddim_torch.run_lib's sampling loop (finite samples, launch counts,
      wall time), one traced eval at B=64 (kernels, device time as their sum
      and their union);
   8. train: the full-width model in f32 (seeded weights) at the config's
      training batch (128): one loss + backward on the kernel path against the
      all-plain path with the same t, z and dropout masks (loss, gradient
      norm, worst per-tensor error), with training.fused_attn off and on (K10);
-     then training.n_jitted_steps Adam steps through gddim_torch.cli's train
-     function with each setting: finite loss and parameters, launch counts
-     per step; img/s and peak memory of the kernel path (K10 off and on) and
+     then training.n_jitted_steps Adam steps through gddim_torch.run_lib's
+     train loop (the CLI's train mode) with each setting: finite loss and
+     parameters, launch counts per step; img/s and peak memory of the
+     kernel path (K10 off and on) and
      of the plain path for information;
   9. blur_train: blur/ddpm_deep_cifar10 in f32 at B=128, dropout 0.1: one
      loss + backward with model.fused_train on (K6/K7) and off (the
      stride-1 blocks' unfused layers, K1 for their GroupNorms) against the
      all-plain path with
      the same t, z and masks (the train phase's bounds); then
-     training.n_jitted_steps Adam steps through gddim_torch.cli's train
-     function with each setting (launch counts per step), and img/s and
-     peak memory of both.
+     training.n_jitted_steps Adam steps through gddim_torch.run_lib's train
+     loop with each setting (launch counts per step), and img/s and peak
+     memory of both;
+ 10. run_lib: the run harness through gddim_torch.cli at full width
+     (cld/accr_dcifar10) on a seeded CIFAR-10 fixture in its pickle layout:
+     --mode train 20 steps at B=128 (evals, snapshots, preemption
+     checkpoints and NFE=50 sample grids every 10 steps), resumed to 30 from
+     its meta checkpoint (every tensor and the generator bit for bit),
+     --mode sampling from snapshot 2 and again (nothing rewritten),
+     fid_stats and fid (proxy extractor: finite fid, IS, KID), --mode eval of
+     snapshots 1-2 and again (read back from eval_meta.json), a full-width
+     legacy export restored bit for bit whose samples equal the snapshot's,
+     and InceptionV3 at B=64; each run's launches held to the per-step and
+     per-eval tables; the loop's img/s, the save and restore seconds.
 Then one line {"kernels": [...]}, one line with the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 
@@ -2026,7 +2038,7 @@ def phase_f32(card: str, batch: int):
     'full'): one full-width eps evaluation (B=4, t=0.5) against the f32
     plain path with its launches (every block on the block GEMM's routes,
     none on the plain composition), CLD deis-2 NFE=50 sampling at ``batch``
-    through the CLI's sampling function (finite samples, launches, wall),
+    through run_lib's sampling loop (finite samples, launches, wall),
     and one traced eval at B=64 (trace_f32_eval)."""
     from gddim_torch.configs import get_config
     from gddim_torch.math.cld import CLD
@@ -3028,12 +3040,26 @@ def phase_gn_bwd_plans(card: str, batch: int = 128):
             del v, dpre, other, mask
 
 
+def synthetic_stream(config, seed: int = 11):
+    """Endless scaled batches of the synthetic corpus on the card, shaped
+    (n_jitted_steps, batch, 32, 32, C): the training iterator of
+    get_dataset with no data_dir, drawn from ``seed``."""
+    from gddim_torch.data.pipelines import get_data_scaler, get_dataset
+
+    config = copy.deepcopy(config)
+    config.seed, config.data.data_dir = seed, ""
+    train_iter, _ = get_dataset(config, additional_dim=int(config.training.n_jitted_steps),
+                                prefetch=False)
+    scaler = get_data_scaler(config)
+    for batch in train_iter:
+        yield torch.from_numpy(scaler(batch["image"])).to("cuda")
+
+
 def phase_train_time(card: str):
     """K6 and K7 device ms at every training shape and B=4/16/64/128, then one
     traced B=128 step (fused_attn off) and 5 timed steps: img/s, peak memory.
-    Uses only what the parent trees have too."""
+    Uses only what a parent tree with data/pipelines.py has too."""
     from gddim_torch.configs import train_config
-    from gddim_torch.data.synthetic import SyntheticStream, get_data_scaler
     from gddim_torch.math.cld import CLD
     from gddim_torch.models.init import seeded_model
     from gddim_torch.train.losses import make_cld_loss_fn
@@ -3046,8 +3072,7 @@ def phase_train_time(card: str):
     model = seeded_model(config, seed=0, device="cuda").train()
     model.fused_attn = False
     loss_fn = make_cld_loss_fn(CLD.from_config(config), train=True)
-    stream = SyntheticStream(config, batch, n_steps, seed=11)
-    batches = torch.from_numpy(get_data_scaler(config)(next(stream))).to("cuda")
+    batches = next(synthetic_stream(config))
     state = create_train_state(config, model, torch.Generator(device="cuda").manual_seed(3))
     train_step = make_train_step(loss_fn)
     profile_train_step(card, train_step, state, batches[:1], "kernel path")
@@ -3075,7 +3100,6 @@ def phase_train_ab(card: str, steps: int = TRAIN_AB_STEPS):
     conv_impl 'plain' (model.fused off), the same seeds; fails if a window
     mean of the loss differs by more than TRAIN_AB_BOUND of the plain one."""
     from gddim_torch.configs import train_config
-    from gddim_torch.data.synthetic import SyntheticStream, get_data_scaler
     from gddim_torch.math.cld import CLD
     from gddim_torch.models.init import seeded_model
     from gddim_torch.train.losses import make_cld_loss_fn
@@ -3083,21 +3107,20 @@ def phase_train_ab(card: str, steps: int = TRAIN_AB_STEPS):
     from gddim_torch.train.step import make_train_step
 
     config = train_config("cld/accr_dcifar10")
-    n_jit, batch = int(config.training.n_jitted_steps), int(config.training.batch_size)
-    scaler = get_data_scaler(config)
+    batch = int(config.training.batch_size)
     curves = {}
     for name, fused in (("kernel", True), ("plain", False)):
         model = seeded_model(config, seed=0, device="cuda").train()
         model.fused = fused
         loss_fn = make_cld_loss_fn(CLD.from_config(config), train=True,
                                    reduce_mean=config.training.reduce_mean)
-        stream = SyntheticStream(config, batch, n_jit, seed=11)
+        stream = synthetic_stream(config)
         state = create_train_state(config, model, torch.Generator(device="cuda").manual_seed(3))
         train_step = make_train_step(loss_fn)
         losses = []
         t0 = time.perf_counter()
         while len(losses) < steps:
-            for images in torch.from_numpy(scaler(next(stream))).to("cuda")[:, None]:
+            for images in next(stream)[:, None]:
                 if len(losses) < steps:
                     losses.append(float(train_step(state, images)["loss"]))
         wall = time.perf_counter() - t0
@@ -3440,18 +3463,26 @@ def phase_eps(config):
     return model
 
 
+def sample_round(config, model, folder, batch: int, seed: int) -> Path:
+    """One round of ``batch`` samples through run_lib's sampling loop (as the
+    CLI's sampling mode writes them), written anew; its samples_0.npz."""
+    from gddim_torch import run_lib
+
+    (path,) = run_lib.sampling_from_fn(config, run_lib.build_sampling_fn(config), model,
+                                       folder, batch, batch, seed=seed, is_continue=False)
+    return path
+
+
 def _run_samples(config, model, batch: int, per_eval: dict):
     """One warm run (seed 7), then the counted NFE run from seed 8 through the
     CLI's sampling function: (samples, v, wall seconds, launch counts)."""
-    from gddim_torch.cli import sample_data
-
     nfe = int(config.sampling.nfe)
     with tempfile.TemporaryDirectory() as tmp:
-        sample_data(config, model, Path(tmp), batch, rounds=1, seed=7, device="cuda")  # warm
+        sample_round(config, model, tmp, batch, seed=7)  # warm
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        (path,) = sample_data(config, model, Path(tmp), batch, rounds=1, seed=8, device="cuda")
+        path = sample_round(config, model, tmp, batch, seed=8)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launches_of(per_eval)
@@ -3575,7 +3606,7 @@ def phase_blur(batch: int, card: str):
     sampling function, one path after another from the same seed; each path
     warmed by an NFE=2 run first. Returns each kernel's launches from the
     first path that runs it."""
-    from gddim_torch.cli import build_model, calibrate_int8, sample_data
+    from gddim_torch.cli import build_model, calibrate_int8
     from gddim_torch.configs import get_config
 
     launches, runs = {}, {}
@@ -3594,12 +3625,12 @@ def phase_blur(batch: int, card: str):
         finite = []  # every network output of the run is finite
         hook = model.register_forward_hook(lambda m, i, out: finite.append(torch.isfinite(out).all()))
         with tempfile.TemporaryDirectory() as tmp:
-            sample_data(warm, model, Path(tmp), batch, rounds=1, seed=7, device="cuda")
+            sample_round(warm, model, tmp, batch, seed=7)
             finite.clear()
             reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            (path,) = sample_data(config, model, Path(tmp), batch, rounds=1, seed=8, device="cuda")
+            path = sample_round(config, model, tmp, batch, seed=8)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = launches_of(per_eval)
@@ -3745,13 +3776,13 @@ def phase_profile(config, batch: int, card: str, evals: int = 5):
 
 
 def phase_ab(config, card: str, batches=(16, 64), rounds: int = 5):
-    """K9's A/B: CLD deis-2 NFE=50 img/s through the CLI's sampling function
+    """K9's A/B: CLD deis-2 NFE=50 img/s through run_lib's sampling loop
     with transition_impl 'tail' and 'full', bf16 ('fused') and int8 static
     ('fused_int8'), at each batch, ``rounds`` times in the order tail, full,
     full, tail (two pairs a round), each setting warmed first by an NFE=2
     run; then per cell the medians, the pairs 'full' won and the spread of
     the 'tail' runs (the distance between their quartiles)."""
-    from gddim_torch.cli import build_model, calibrate_int8, sample_data
+    from gddim_torch.cli import build_model, calibrate_int8
 
     for impl in ("fused", "fused_int8"):
         cfg = copy.deepcopy(config)
@@ -3766,13 +3797,13 @@ def phase_ab(config, card: str, batches=(16, 64), rounds: int = 5):
             with tempfile.TemporaryDirectory() as tmp:
                 for transition in ("tail", "full"):
                     model.transition = transition
-                    sample_data(warm, model, Path(tmp), batch, 1, seed=7, device="cuda")
+                    sample_round(warm, model, tmp, batch, seed=7)
                 for _ in range(rounds):
                     for transition in ("tail", "full", "full", "tail"):
                         model.transition = transition
                         torch.cuda.synchronize()
                         t0 = time.perf_counter()
-                        sample_data(cfg, model, Path(tmp), batch, 1, seed=8, device="cuda")
+                        sample_round(cfg, model, tmp, batch, seed=8)
                         torch.cuda.synchronize()
                         wall = time.perf_counter() - t0
                         rates[transition].append(batch / wall)
@@ -3854,20 +3885,24 @@ def _check_train_step(loss_k, grads_k, loss_p, grads_p, label: str) -> None:
 
 
 def _train_main_path(config, model, n_steps: int, batch: int, per_step: dict, label: str):
-    """n_steps Adam steps through the CLI's train function, counted from 0."""
-    from gddim_torch.cli import train
+    """n_steps Adam steps of ``model`` through run_lib.train (the CLI's train
+    mode) on the synthetic corpus, counted from 0."""
+    from gddim_torch import run_lib
 
+    config = copy.deepcopy(config)
+    config.seed, config.training.n_iters, config.training.batch_size = 3, n_steps, batch
     with tempfile.TemporaryDirectory() as tmp:
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state = train(config, model, Path(tmp), n_steps, batch, seed=3, device="cuda")
+        state = run_lib.train(config, tmp, "cuda", model=model)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launches_of(per_step)
     finite = all(torch.isfinite(p).all().item() for p in model.parameters())
-    print(f"train {n_steps} Adam steps B={batch} through gddim_torch.cli.train ({label}): "
-          f"{wall:.3f} s with data and checkpoint writes; launches {counts}; params finite: "
+    print(f"train {n_steps} Adam steps B={batch} through gddim_torch.run_lib.train ({label}): "
+          f"{wall:.3f} s with data and the meta checkpoint's write; launches {counts}; "
+          f"params finite: "
           f"{finite}", flush=True)
     expected = {k: n * n_steps for k, n in per_step.items()}
     if counts != expected:
@@ -3879,7 +3914,6 @@ def _train_main_path(config, model, n_steps: int, batch: int, per_step: dict, la
 
 def phase_train(card: str):
     from gddim_torch.configs import train_config
-    from gddim_torch.data.synthetic import SyntheticStream, get_data_scaler
     from gddim_torch.math.cld import CLD
     from gddim_torch.models.init import seeded_model
     from gddim_torch.train.losses import make_cld_loss_fn
@@ -3890,8 +3924,7 @@ def phase_train(card: str):
     model = seeded_model(config, seed=0, device="cuda").train()
     sde = CLD.from_config(config)
     loss_fn = make_cld_loss_fn(sde, train=True)
-    stream = SyntheticStream(config, batch, n_steps, seed=11)
-    batches = torch.from_numpy(get_data_scaler(config)(next(stream))).to("cuda")
+    batches = next(synthetic_stream(config))
     g = torch.Generator(device="cuda").manual_seed(5)
     t = 1e-5 + (sde.T - 1e-5) * torch.rand((batch,), generator=g, device="cuda")
     z = torch.randn((batch, 32, 32, 3, 2), generator=g, device="cuda")
@@ -4131,11 +4164,10 @@ def phase_blur_train(card: str):
     on (K6/K7) and off (the stride-1 blocks' unfused layers, K1 for their
     GroupNorms), each
     against the all-plain path on the same t, z and dropout masks; then
-    training.n_jitted_steps Adam steps through gddim_torch.cli's train
-    function with each setting (launch counts per step, finite parameters),
+    training.n_jitted_steps Adam steps through gddim_torch.run_lib's train
+    loop with each setting (launch counts per step, finite parameters),
     and img/s and peak memory of both, in turns on, off, off, on."""
     from gddim_torch.configs import train_config
-    from gddim_torch.data.synthetic import SyntheticStream, get_data_scaler
     from gddim_torch.math.blur import BlurSDE
     from gddim_torch.models.init import seeded_model
     from gddim_torch.train.losses import make_blur_loss_fn
@@ -4146,8 +4178,7 @@ def phase_blur_train(card: str):
     model = seeded_model(config, seed=0, device="cuda").train()
     sde = BlurSDE.from_config(config)
     loss_fn = make_blur_loss_fn(sde, train=True)
-    stream = SyntheticStream(config, batch, n_steps, seed=11)
-    batches = torch.from_numpy(get_data_scaler(config)(next(stream))).to("cuda")
+    batches = next(synthetic_stream(config))
     g = torch.Generator(device="cuda").manual_seed(5)
     t = sde.sample_t((batch,), g, "cuda")
     z = torch.randn((batch, 32, 32, 3), generator=g, device="cuda")
@@ -4185,6 +4216,291 @@ def phase_blur_train(card: str):
     return counts
 
 
+# The run_lib phase: the run harness at full width on a seeded CIFAR-10
+# fixture in its pickle layout (5 train batches and a test batch of
+# RUN_LIB_IMAGES images each), through gddim_torch.cli as a user calls it.
+# The test split holds n_jitted_steps x B = 640 images at least: the
+# training loop's first get_dataset call makes an eval iterator of that
+# batch, as the JAX loop's does
+RUN_LIB_IMAGES = 768
+RUN_LIB_EVAL_BATCHES = 4  # eval.max_eval_batches of the eval mode
+RUN_LIB_BATCH, RUN_LIB_SAMPLE_BATCH, RUN_LIB_NFE = 128, 16, 50
+
+
+def write_cifar_fixture(root: Path, n: int = RUN_LIB_IMAGES, seed: int = 0) -> Path:
+    """CIFAR-10's python layout: data_batch_1..5 and test_batch, each a pickled
+    {b'data': (n, 3072) uint8 rows (CHW), b'labels': [...]}, seeded."""
+    import pickle
+
+    rng = np.random.default_rng(seed)
+    d = root / "cifar-10-batches-py"
+    d.mkdir(parents=True)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        with open(d / name, "wb") as f:
+            pickle.dump({b"data": rng.integers(0, 256, (n, 3072), dtype=np.uint8),
+                         b"labels": rng.integers(0, 10, n).tolist()}, f, protocol=2)
+    return root
+
+
+def _cpu_clone(sd: dict) -> dict:
+    return {k: {n: t.detach().cpu().clone() for n, t in v.items()} if isinstance(v, dict)
+            else v.detach().cpu().clone() if torch.is_tensor(v) else v for k, v in sd.items()}
+
+
+def _state_diffs(a: dict, b: dict) -> list:
+    """The entries of two TrainState.state_dict()s that are not bit-equal."""
+    bad = [k for k in set(a) ^ set(b)]
+    for k in set(a) & set(b):
+        if isinstance(a[k], dict):
+            bad += [f"{k}.{n}" for n in set(a[k]) | set(b[k])
+                    if n not in a[k] or n not in b[k] or not torch.equal(a[k][n], b[k][n])]
+        elif torch.is_tensor(a[k]):
+            bad += [] if torch.equal(a[k], b[k]) else [k]
+        elif a[k] != b[k]:
+            bad.append(k)
+    return sorted(bad)
+
+
+def _sum_counts(*parts) -> dict:
+    """{kernel: n * per} summed over (n, per-call table) parts."""
+    out: dict = {}
+    for n, per in parts:
+        for k, v in per.items():
+            out[k] = out.get(k, 0) + n * v
+    return out
+
+
+def _files(folder: Path) -> dict:
+    return {p.name: (p.stat().st_mtime_ns, p.read_bytes()) for p in sorted(folder.iterdir())}
+
+
+def phase_run_lib(card: str):
+    """The run harness on the card at full width (cld/accr_dcifar10, f32
+    training and eval, bf16 sampling), in a temporary directory, through the CLI:
+    train 20 steps (B=128, n_jitted_steps 5; log 5, eval, snapshots and
+    preemption checkpoints 10, samples 10 at B=16 NFE=50), resume to 30
+    (restored bit for bit), sampling from snapshot 2 (2 rounds of 16) and
+    again (nothing rewritten), fid_stats and fid (proxy extractor), eval of
+    snapshots 1-2 and again (read back from eval_meta.json), a full-width
+    legacy export restored bit for bit that samples the snapshot's bits, and
+    InceptionV3 (fid2015, seeded weights) at B=64. Launches counted per run
+    and held to the per-step and per-eval tables. Returns the counts."""
+    from gddim_torch import cli, run_lib
+    from gddim_torch.checkpoints import legacy
+    from gddim_torch.checkpoints.manager import CheckpointManager
+    from gddim_torch.configs import get_config
+    from gddim_torch.evals import features, inception
+
+    events: list = []  # (what, seconds, bytes)
+    seen: dict = {}
+
+    class Timed(CheckpointManager):
+        """The loop's manager, timed; the last meta save's and the restored
+        state kept on the host for the bit check."""
+
+        def save_meta(self, step, state):
+            t0 = time.perf_counter()
+            path = super().save_meta(step, state)
+            event("save_meta", step, t0, path)
+            if step == seen.get("keep_step"):
+                seen["saved"] = _cpu_clone(state.state_dict())
+            return path
+
+        def save_snapshot(self, snapshot_id, state):
+            t0 = time.perf_counter()
+            path = super().save_snapshot(snapshot_id, state)
+            event("save_snapshot", snapshot_id, t0, path)
+            return path
+
+        def restore_latest_meta(self, template):
+            t0 = time.perf_counter()
+            state, step = super().restore_latest_meta(template)
+            if step:
+                event("restore_meta", step, t0)
+                seen["restored"], seen["restored_step"] = _cpu_clone(state.state_dict()), step
+            return state, step
+
+        def restore_snapshot(self, snapshot_id, template):
+            t0 = time.perf_counter()
+            state = super().restore_snapshot(snapshot_id, template)
+            event("restore_snapshot", snapshot_id, t0)
+            return state
+
+    def event(what: str, n: int, t0: float, path=None):
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        size = path.stat().st_size if path else 0
+        events.append((what, sec))
+        print(f"run_lib {what} {n}: {sec:.3f} s" + (f", {size / 2**30:.3f} GiB" if path else "")
+              + f" [{card}]", flush=True)
+
+    def expect(label: str, parts) -> dict:
+        """The launches of the run just made against the tables' sum."""
+        want = _sum_counts(*parts)
+        got = launches_of(want)
+        print(f"run_lib {label}: launches {got}", flush=True)
+        if got != want:
+            raise AssertionError(f"run_lib {label}: launch counts {got} != {want}")
+        reset_counts()
+        return got
+
+    def cli_run(*argv):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main(["--device", "cuda", *argv])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    counts: dict = {}
+    real_manager = run_lib.CheckpointManager
+    run_lib.CheckpointManager = Timed
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            data = write_cifar_fixture(tmp / "cifar10")
+            work, stats = tmp / "run", tmp / "stats.npz"
+            sb, nfe = RUN_LIB_SAMPLE_BATCH, RUN_LIB_NFE
+            common = ["--set", f"data.data_dir={data}", "--set", f"eval.stats_path={stats}",
+                      "--set", f"eval.batch_size={sb}", "--set", f"eval.num_samples={2 * sb}",
+                      "--set", f"sampling.nfe={nfe}"]
+            train = ["--mode", "train", "--workdir", str(work), "--batch", str(RUN_LIB_BATCH),
+                     "--set",
+                     "training.n_jitted_steps=5", "--set", "training.log_freq=5", "--set",
+                     "training.eval_freq=10", "--set", "training.snapshot_freq=10", "--set",
+                     "training.snapshot_freq_for_preemption=10", "--set",
+                     "training.snapshot_freq_for_sampling=10", "--set",
+                     f"training.snapshot_sampling_batch={sb}", *common]
+            # 1. train 20 steps: 4 calls, evals and samples (f32) at 10 and 20
+            reset_counts()
+            seen["keep_step"] = 20
+            wall = cli_run(*train, "--steps", "20")
+            seen["keep_step"] = None
+            counts.update(expect("train 20 steps", [(20, PER_STEP), (2 + 2 * nfe, PER_EVAL_F32)]))
+            records = [json.loads(x) for x in (work / "metrics.jsonl").read_text().splitlines()]
+            ips = [round(r["train/imgs_per_sec"], 2) for r in records if "train/imgs_per_sec" in r]
+            saved = seen.pop("saved")
+            snaps = CheckpointManager(work).snapshot_steps()
+            samples_dirs = sorted(p.name for p in (work / "samples").iterdir())
+            print(f"run_lib train 20 steps B={RUN_LIB_BATCH}: {wall:.2f} s with 2 evals, 2 sample "
+                  f"grids, 5 checkpoint saves (and 2 host copies of the state for the resume "
+                  f"check); loop img/s at steps 5/10/15/20 {ips} [{card}]; "
+                  f"snapshots {snaps}, {samples_dirs}", flush=True)
+            if snaps != [1, 2] or samples_dirs != ["iter_10", "iter_20"] or len(ips) != 4:
+                raise AssertionError(f"run_lib train: files {snaps} {samples_dirs}, logs {ips}")
+            # 2. resume to 30: restored from the meta checkpoint of step 20
+            n_records = len(records)
+            wall = cli_run(*train, "--steps", "30")
+            counts.update(expect("resume to 30", [(10, PER_STEP), (1 + nfe, PER_EVAL_F32)]))
+            diffs = _state_diffs(saved, seen.pop("restored"))
+            del saved
+            later = [json.loads(x) for x in (work / "metrics.jsonl").read_text().splitlines()]
+            resumed = [r["step"] for r in later[n_records:] if "train/score_loss" in r]
+            print(f"run_lib resume to 30: from meta step {seen['restored_step']}, logged steps "
+                  f"{resumed}, {wall:.2f} s; tensors or generator not bit-equal to the saved "
+                  f"state: {diffs or 'none'}", flush=True)
+            if diffs or seen["restored_step"] != 20 or resumed != [25, 30]:
+                raise AssertionError(f"run_lib resume: {diffs} {seen['restored_step']} {resumed}")
+            # 3. sampling from snapshot 2: 2 rounds of 16 (bf16 'fused'); again: nothing
+            res = tmp / "samples_ckpt2"
+            sample = ["--mode", "sampling", "--workdir", str(work), "--ckpt", "2",
+                      "--result_folder", str(res), *common]
+            wall = cli_run(*sample)
+            counts.update(expect("sampling --ckpt 2", [(2 * nfe, PER_EVAL_FULL)]))
+            before = _files(res)
+            wall2 = cli_run(*sample)
+            expect("sampling --ckpt 2 again", [])
+            print(f"run_lib sampling --ckpt 2: {sorted(before)} in {wall:.2f} s (restore, 2 x "
+                  f"NFE={nfe} B={sb}); again {wall2:.2f} s, files unchanged: "
+                  f"{_files(res) == before}", flush=True)
+            if sorted(before) != ["samples_0.npz", "samples_1.npz"] or _files(res) != before:
+                raise AssertionError(f"run_lib sampling: {sorted(before)}")
+            # 4. scores with the proxy extractor
+            wall = cli_run("--mode", "fid_stats", "--workdir", str(work), *common)
+            wall2 = cli_run("--mode", "fid", "--workdir", str(work), "--result_folder", str(res),
+                            *common)
+            with np.load(res / "report.npz") as z:
+                report = {k: z[k].item() for k in z.files}
+            print(f"run_lib fid_stats {wall:.2f} s, fid {wall2:.2f} s: {report}", flush=True)
+            if not all(np.isfinite(report[k]) for k in ("fid_proxy", "IS_proxy", "kid_proxy")):
+                raise AssertionError(f"run_lib fid: {report}")
+            # 5. eval of snapshots 1-2 under the training config (f32 loss and
+            # samples, as the loop's); again: read back
+            evaluate = ["--mode", "eval", "--workdir", str(work), "--set", "eval.begin_ckpt=1",
+                        "--set", "eval.end_ckpt=2", "--set", "eval.enable_sampling=True",
+                        "--set", f"eval.max_eval_batches={RUN_LIB_EVAL_BATCHES}", *common,
+                        "--set", f"eval.num_samples={sb}"]
+            wall = cli_run(*evaluate)
+            counts.update(expect("eval snapshots 1-2", [
+                (2 * (RUN_LIB_EVAL_BATCHES + nfe), PER_EVAL_F32)]))
+            meta = (work / "eval" / "eval_meta.json").read_text()
+            real_restore = run_lib.restore_state
+
+            def refuse(*a, **k):
+                raise AssertionError("eval restored a checkpoint eval_meta.json holds")
+
+            run_lib.restore_state = refuse
+            try:
+                wall2 = cli_run(*evaluate)
+            finally:
+                run_lib.restore_state = real_restore
+            expect("eval again", [])
+            same = (work / "eval" / "eval_meta.json").read_text() == meta
+            print(f"run_lib eval: {wall:.2f} s, {json.loads(meta)}; again {wall2:.2f} s, "
+                  f"eval_meta.json unchanged: {same}", flush=True)
+            if not same or sorted(json.loads(meta)) != ["1", "2"]:
+                raise AssertionError("run_lib eval: eval_meta.json changed or incomplete")
+            # 6. the legacy layout at full width: export snapshot 2, restore the file
+            config = get_config("cld/accr_dcifar10")
+            config.eval.num_samples = config.eval.batch_size = sb
+            config.sampling.nfe = nfe
+            _, state = run_lib.restore_state(config, 2, work, "cuda")
+            t0 = time.perf_counter()
+            path = legacy.export_legacy_checkpoint(tmp / "checkpoint_legacy", state)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _, state2 = run_lib.restore_state(config, path, device="cuda")
+            torch.cuda.synchronize()
+            read_s = time.perf_counter() - t0
+            sd, sd2 = state.state_dict(), state2.state_dict()
+            diffs = [k for k in ("params", "ema", "mu", "nu")
+                     for n in sd[k] if not torch.equal(sd[k][n], sd2[k][n])]
+            diffs += [k for k in ("step", "count") if sd[k] != sd2[k]]
+            del state, state2, sd, sd2
+            reset_counts()
+            (legacy_round,) = run_lib.sample_data(config, str(path), tmp / "legacy_samples",
+                                                  device="cuda")
+            counts.update(expect("sampling from the legacy file", [(nfe, PER_EVAL_FULL)]))
+            with np.load(legacy_round) as a, np.load(res / "samples_0.npz") as b:
+                same = {k: bool(np.array_equal(a[k], b[k])) for k in b.files}
+            print(f"run_lib legacy: {path.stat().st_size / 2**30:.3f} GiB written in "
+                  f"{write_s:.2f} s, read into a state in {read_s:.2f} s [{card}]; not bit-equal: "
+                  f"{diffs or 'none'}"
+                  f"; its samples against snapshot 2's (seed {config.seed}): {same}", flush=True)
+            if diffs or not all(same.values()):
+                raise AssertionError(f"run_lib legacy: {diffs} {same}")
+    finally:
+        run_lib.CheckpointManager = real_manager
+    for what in ("save_meta", "save_snapshot", "restore_meta", "restore_snapshot"):
+        sec = [s for w, s in events if w == what]
+        print(f"run_lib {what}: {len(sec)} in {sum(sec):.2f} s, {min(sec):.3f}-{max(sec):.3f} s "
+              f"each [{card}]", flush=True)
+    # InceptionV3 (fid2015) on seeded weights at B=64
+    net = inception.InceptionV3(inception.random_state_dict(np.random.default_rng(0), 1008),
+                                "fid2015").to("cuda").eval()
+    extractor = features.FeatureExtractor("inception_fid2015", net, 2048, 1008)
+    imgs = np.random.default_rng(1).integers(0, 256, (64, 32, 32, 3), dtype=np.uint8)
+    features.run_features(extractor, imgs, batch_size=64)  # warm
+    t0 = time.perf_counter()
+    pools, logits = features.run_features(extractor, imgs, batch_size=64)
+    sec = time.perf_counter() - t0
+    finite = bool(np.isfinite(pools).all() and np.isfinite(logits).all())
+    print(f"run_lib InceptionV3 fid2015 B=64: {sec * 1e3:.1f} ms with the host copies, pool_3 "
+          f"{pools.shape}, logits {logits.shape}, finite {finite} [{card}]", flush=True)
+    if not finite or pools.shape != (64, 2048) or logits.shape != (64, 1008):
+        raise AssertionError("run_lib InceptionV3: bad features")
+    return counts
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="smoke run of gddim_torch on one CUDA card")
     # opt-in phases: profile, ab, train_time (K6/K7 device time and a traced
@@ -4202,7 +4518,7 @@ def main(argv=None):
     # F.group_norm; --k1-save / --k1-ref hold two trees' outputs), each of the
     # three on a parent's checkout too
     parser.add_argument("--phases", default="build,kernels,eps,gates,sample,int8,blur,samplers,"
-                        "blur_deis,f32,train,blur_train")
+                        "blur_deis,f32,train,blur_train,run_lib")
     parser.add_argument("--batch", type=int, default=16, help="sampling batch")
     parser.add_argument("--bits", default=None, help="phase bits: the file to save to")
     parser.add_argument("--bits-ref", default=None, help="phase bits: another tree's file")
@@ -4303,6 +4619,9 @@ def main(argv=None):
     if "blur_train" in phases:
         blur_train_counts = phase_blur_train(card)
         counts.update({k: n for k, n in blur_train_counts.items() if k not in counts})
+    if "run_lib" in phases:
+        run_lib_counts = phase_run_lib(card)
+        counts.update({k: n for k, n in run_lib_counts.items() if k not in counts})
     if "train_gemms" in phases and "kernels" not in phases:
         check_train_gemms({}, {})
     if "gn_bwd" in phases and "kernels" not in phases:

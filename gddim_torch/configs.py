@@ -9,7 +9,9 @@ ch_mult (1,2,2,2), 8 BigGAN blocks per level, FIR resampling, attention at
 through the fused kernels with the deis order-2, NFE=50 sampler of the repo's
 benchmark. ``blur/ddpm_deep_cifar10`` is the same network on 3 channels for
 blurring diffusion, set up the same way with the order-0 NFE=50 sampler in
-DCT space. ``train_config`` gives a model for training: f32 activations
+DCT space. The run loop's, data's and eval's fields have the JAX configs'
+values (``cld/default_cifar10.py:8-71`` with ``accr_dcifar10.py``'s, the
+same in both families). ``train_config`` gives a model for training: f32 activations
 (``default_cifar10.py:95``), as the JAX package trains it.
 """
 
@@ -61,6 +63,19 @@ class TrainingConfig:
     batch_size: int = 128
     n_jitted_steps: int = 5  # steps per train_step call (its batches' leading axis)
     reduce_mean: bool = True
+    # the run loop (``run_lib.train``): a step acts when cur % freq < n_jitted_steps
+    n_iters: int = 1000001
+    log_freq: int = 100
+    eval_freq: int = 2000
+    snapshot_freq: int = 50000  # numbered snapshots, kept all
+    snapshot_freq_for_preemption: int = 50000  # the meta checkpoint, kept 1
+    snapshot_sampling: bool = True
+    snapshot_sampling_batch: int = 100
+    snapshot_freq_for_sampling: int = 10000
+    ema_update_freq: int = 10**9  # params <- EMA with a fresh optimizer
+    # a torch.profiler trace of profile_steps steps from profile_start (-1: off)
+    profile_start: int = -1
+    profile_steps: int = 5
     # the attention blocks of a training step through K10 (K5's forward on
     # the f32 activations, the plain composition's VJP; the JAX package's
     # GDDIM_FUSED_ATTN_TRAIN=1) instead of K1, the NIN projections and K8
@@ -85,6 +100,35 @@ class DataConfig:
     centered: bool = True
     num_channels: int = 3
     random_flip: bool = True
+    data_dir: str = ""  # the local corpus; none (or synthetic): the synthetic corpus
+    synthetic: bool = False
+    uniform_dequantization: bool = False
+    is_partial: bool = False  # train on the first 1/1000 of the corpus
+
+
+@dataclasses.dataclass
+class EvalConfig:
+    """``run_lib.evaluate``, ``sample_data`` and ``check_fid``."""
+
+    begin_ckpt: int = 9
+    end_ckpt: int = 26
+    batch_size: int = 1024
+    enable_loss: bool = True
+    enable_sampling: bool = False
+    num_samples: int = 50000
+    inception_weights: str = ""  # a local .npz of InceptionV3; none: the proxy extractor
+    stats_path: str = ""  # the dataset's activation statistics (.npz)
+    max_eval_batches: int = 0  # > 0: cut the eval loss's pass over the split
+
+
+@dataclasses.dataclass
+class MeshConfig:
+    """One process and one card: the JAX package's sharding axes are refused
+    above 1."""
+
+    data_axis: int = -1
+    fsdp_axis: int = 1
+    tp_axis: int = 1
 
 
 @dataclasses.dataclass
@@ -155,6 +199,9 @@ class Config:
     sampling: SamplingConfig = dataclasses.field(default_factory=CLDSamplingConfig)
     training: TrainingConfig = dataclasses.field(default_factory=TrainingConfig)
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    log_wandb: bool = False
 
 
 def blur_config() -> Config:

@@ -42,6 +42,34 @@ class TrainState:
     count: int = 0  # optimizer updates since the optimizer was (re)made
     step: int = 0
 
+    _SCALARS = ("count", "step", "lr", "warmup", "beta1", "eps", "grad_clip", "ema_rate")
+
+    def state_dict(self) -> dict:
+        """Everything a resumed run needs, as tensors (on their devices) and
+        Python numbers, which ``torch.load(weights_only=True)`` reads: the
+        model's state_dict, the EMA, Adam's moments, the counters, the
+        hyperparameters and the generator's state (a uint8 tensor)."""
+        out = {"params": self.model.state_dict(), "ema": dict(self.ema), "mu": dict(self.mu),
+               "nu": dict(self.nu), "generator": self.generator.get_state()}
+        out.update({k: getattr(self, k) for k in self._SCALARS})
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """Copy a ``state_dict()`` into this state in place, bit for bit; the
+        tensors keep their devices. Every key must match."""
+        self.model.load_state_dict(sd["params"])
+        for name in ("ema", "mu", "nu"):
+            mine, theirs = getattr(self, name), sd[name]
+            if set(mine) != set(theirs):
+                raise KeyError(f"TrainState.{name}: keys differ from the checkpoint's: "
+                               f"{sorted(set(mine) ^ set(theirs))[:5]}")
+            for k, t in mine.items():
+                t.copy_(theirs[k])
+        for k in self._SCALARS:
+            setattr(self, k, type(getattr(self, k))(sd[k]))
+        self.generator.set_state(sd["generator"].cpu())
+
 
 def trainable(model: nn.Module) -> dict[str, nn.Parameter]:
     return {n: p for n, p in model.named_parameters() if p.requires_grad}

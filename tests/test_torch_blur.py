@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from gddim_torch import convert
-from gddim_torch.cli import sample_data
+from gddim_torch.run_lib import build_sampling_fn, sampling_from_fn
 from gddim_torch.configs import get_config
 from gddim_torch.math import dct as t_dct
 from gddim_torch.math.blur import BlurSDE
@@ -287,8 +287,8 @@ def test_cli_writes_blur_samples(tmp_path):
 
     cfg = small(get_config("blur/ddpm_deep_cifar10"), nf=32)
     cfg.sampling.nfe = 2
-    (path,) = sample_data(cfg, seeded_model(cfg, 2), tmp_path / "out", batch=2, rounds=1, seed=3,
-                          device=torch.device("cpu"))
+    (path,) = sampling_from_fn(cfg, build_sampling_fn(cfg), seeded_model(cfg, 2),
+                               tmp_path / "out", 2, 2, seed=3)
     with np.load(path) as f:
         assert set(f.files) == {"samples", "nfe"}
         assert f["samples"].shape == (2, 16, 16, 3) and f["samples"].dtype == np.uint8

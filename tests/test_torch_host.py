@@ -61,8 +61,9 @@ def test_deis_bundle_matches_jax_bit_for_bit(fresh_caches):
 
 # fields of the port's config that the JAX package's config has not: the
 # whole-transition kernel's setting (GDDIM_TRANSITION_IMPL, an environment
-# variable there)
-PORT_ONLY_FIELDS = {("model", "transition_impl")}
+# variable there), and data.is_partial, which only the JAX blur configs
+# set (its pipeline reads it with a default of False, the port's value)
+PORT_ONLY_FIELDS = {("model", "transition_impl"), ("data", "is_partial")}
 
 
 def test_config_fields_match_jax_with_bench_overrides():

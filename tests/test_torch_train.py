@@ -11,7 +11,7 @@ import torch
 
 from gddim_torch import cli, convert
 from gddim_torch.configs import train_config
-from gddim_torch.data import synthetic
+from gddim_torch.data import pipelines as t_pipelines
 from gddim_torch.math.cld import CLD
 from gddim_torch.models.init import seeded_model, seeded_params
 from gddim_torch.train import state as t_state
@@ -78,17 +78,20 @@ def test_cld_forward_process_matches_jax():
 
 
 def test_synthetic_stream_matches_jax():
+    """The training batches of the synthetic corpus (``get_dataset`` with no
+    data_dir, the scan axis) equal the JAX package's batches of its own."""
     cfg, jcfg = train_config("cld/accr_dcifar10"), jax_get_config("cld/accr_dcifar10")
-    np.testing.assert_array_equal(synthetic.synthetic_images(cfg, 64, seed=3),
+    np.testing.assert_array_equal(t_pipelines._synthetic_images(cfg, 64, seed=3),
                                   pipelines._synthetic_images(jcfg, 64, seed=3))
-    stream = synthetic.SyntheticStream(cfg, batch=4, n_jitted=2, seed=5)
-    ds = pipelines.ArrayDataset(synthetic.synthetic_images(cfg, 2048, seed=5), (2, 4), seed=5,
+    cfg.seed, cfg.training.batch_size = 5, 4
+    stream, _ = t_pipelines.get_dataset(cfg, additional_dim=2, prefetch=False)
+    ds = pipelines.ArrayDataset(pipelines._synthetic_images(jcfg, 2048, seed=5), (2, 4), seed=5,
                                 random_flip=True, prefetch=False)
     for _ in range(3):
-        got = next(stream)
+        got = next(stream)["image"]
         assert got.shape == (2, 4, 32, 32, 3)
         np.testing.assert_array_equal(got, next(ds)["image"])
-    scale = synthetic.get_data_scaler(cfg)
+    scale = t_pipelines.get_data_scaler(cfg)
     np.testing.assert_array_equal(scale(np.ones(2)), pipelines.get_data_scaler(jcfg)(np.ones(2)))
 
 
