@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/H100 port on one CUDA card.
 
     python3 chip_smoke.py [--phases build,kernels,eps,gates,sample,int8,blur,samplers,blur_deis,
-                           f32,train,blur_train,run_lib] [--batch 16]
+                           configs,f32,train,blur_train,run_lib] [--batch 16]
 
 Phases (each prints one line per check; any failure raises and exits non-zero):
   1. the card: torch.cuda must be available; prints nvidia-smi's name and
@@ -107,7 +107,25 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
   7b. blur_deis: blur/ddpm_deep_cifar10 frequency-space deis (order 2,
      NFE=50, --batch) on the f32 plain path, then 'fused' and 'fused_int8'
      ('full'), with the same gates ('fused_int8' also against 'fused');
-  7c. f32: the f32 path (model.dtype float32, conv_impl 'fused', the
+  7c. configs: the JAX package's other network configs at full width
+     (seeded weights): one eps eval (B=4, t=0.5) of each of
+     cld/{deep,ndeep,ddpmpp,simple,calib}_cifar10, cld/ddpmpp_celeba and
+     blur/{ddpmpp,simple,debug}_cifar10 through 'fused' bf16 against the f32
+     plain path (EPS_BOUND), 'fused_int8' static for cld/ddpmpp_celeba and
+     cld/ndeep_cifar10 and 'pallas' for blur/debug_cifar10 too; K9 with the
+     naive coefficients (bf16, int8 static) alone at the CelebA
+     transitions against its plain versions, with device time; the slice,
+     cld/ddpmpp_celeba (64x64) deis-2 NFE=50 at --batch: f32 plain, 'fused'
+     ('full': K9 naive) and 'fused_int8' static from the same u0, launches
+     nfe x PER_EVAL_CELEBA / PER_EVAL_CELEBA_INT8 (GN1's two-launch route at
+     the 64x64 pairs), img/s, the samples against the plain ones
+     (SAMPLER_BF16_BOUND, SAMPLE_INT8_BOUND), and one 'tail' eval;
+     cld/ndeep_cifar10 (the mixed score) deis-2 NFE=50, bf16 against plain;
+     cld/ddpmpp_celeba f32 B=32: one loss + backward against the all-plain
+     path (the train phase's bounds), launches, peak memory; the CelebA
+     trunk with DDPM blocks and both pyramids, one eps eval (K2 with the
+     NIN skip);
+  7d. f32: the f32 path (model.dtype float32, conv_impl 'fused', the
      transitions 'full'): one full-width eps evaluation (B=4, t=0.5)
      against the f32 plain path with its launch counts (every block on the
      block GEMM's routes), CLD deis-2 NFE=50 sampling at --batch through
@@ -156,11 +174,13 @@ without SiLU) at B=4/16/64 beside F.group_norm (``--k1-save`` /
 checkout runs each of these too.
 ``--phases profile`` (not in the default run) traces one eval of the CLD bf16
 and int8 kernel paths, then of the same with transition_impl 'tail' and
-'full', then of the blur 'fused_int8' and layer-wise 'int8' and 'pallas' paths, at
+'full', then of the blur 'fused_int8' and layer-wise 'int8' and 'pallas' paths,
+then of cld/ddpmpp_celeba's bf16 and int8 paths (64x64), at
 ``--batch`` with torch.profiler and prints the wall, the device time, the
 kernels that take it and each counted kernel's launches in that eval (GN1's
 gn_apply_kernel, gn_stats_kernel, the pre-passes and K9's resample apart; a
-gn_stats_kernel or transition_resample_kernel launch fails it). ``--phases
+gn_stats_kernel or transition_resample_kernel launch fails it, apart from
+CelebA's two-launch sites). ``--phases
 ab`` (not in the default run) times CLD
 NFE=50 sampling with the transitions through K4 and through K9, bf16 and
 int8 static, at B=16 and B=64, five rounds of tail, full, full, tail, with
@@ -3686,10 +3706,11 @@ def busy_ms(prof) -> float:
     return total / 1e3
 
 
-def _profile(name: str, run, batch: int, card: str, evals: int):
+def _profile(name: str, run, batch: int, card: str, evals: int, two_launch: bool = False):
     """Wall of ``run()`` (host clock to a synchronize, mean of ``evals``), and
     one traced run under torch.profiler: host enqueue, device time, idle
-    share and the kernels that take the time."""
+    share and the kernels that take the time. two_launch: GN1's two-launch
+    routes belong to this network (cld/ddpmpp_celeba's 64x64 sites)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3730,16 +3751,18 @@ def _profile(name: str, run, batch: int, card: str, evals: int):
     # replaced: the per-block GN affine and temb kernels of earlier versions,
     # and on the sampling path GN1's two launches (gn_stats_kernel,
     # transition_resample_kernel)
-    gone = [key for key, *_ in dev if any(k in key for k in (
-        "gn_affine_kernel", "temb_proj_kernel", "gn_stats_kernel", "transition_resample_kernel"))]
+    gone = ("gn_affine_kernel", "temb_proj_kernel") + (
+        () if two_launch else ("gn_stats_kernel", "transition_resample_kernel"))
+    gone = [key for key, *_ in dev if any(k in key for k in gone)]
     if gone:
         raise AssertionError(f"replaced kernels in the trace: {gone}")
 
 
 def phase_profile(config, batch: int, card: str, evals: int = 5):
     """Where one eval's time goes: the CLD bf16 and int8 static kernel paths,
-    then the blur 'fused_int8' and layer-wise 'int8' and 'pallas' paths, each
-    pair in the order a, b, b, a."""
+    then the blur 'fused_int8' and layer-wise 'int8' and 'pallas' paths, then
+    cld/ddpmpp_celeba's bf16 and int8 static paths (64x64), each pair in the
+    order a, b, b, a."""
     from gddim_torch.cli import build_model, calibrate_int8
     from gddim_torch.configs import get_config
     from gddim_torch.math.blur import BlurSDE
@@ -3773,6 +3796,20 @@ def phase_profile(config, batch: int, card: str, evals: int = 5):
         model.layer = layer
         _profile(f"blur {'layer-wise ' + layer if layer else 'fused_int8'}",
                  lambda: yeps(model, y, t), batch, card, evals)
+    del model
+
+    config = get_config("cld/ddpmpp_celeba")
+    config.model.conv_impl = "fused_int8"
+    model = build_model(config, "cuda", None, seed=0)
+    calibrate_int8(config, model, seed=0)
+    eps_apply = make_cld_eps_fn(CLD.from_config(config))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    size = config.data.image_size
+    u = torch.randn((batch, size, size, 3, 2), generator=g, device="cuda")
+    for int8 in (False, True, True, False):
+        model.int8 = int8
+        _profile(f"cld/ddpmpp_celeba {'int8' if int8 else 'bf16'}", lambda: eps_apply(model, u, t),
+                 batch, card, evals, two_launch=True)
 
 
 def phase_ab(config, card: str, batches=(16, 64), rounds: int = 5):
@@ -4032,7 +4069,8 @@ def _sample_run(config, model, batch: int, seed: int, per_eval: dict):
     counts = launches_of(per_eval)
     ok = (len(finite) == nfe and bool(torch.stack(finite).all()) and bool(torch.isfinite(x).all())
           and (v is None or bool(torch.isfinite(v).all())))
-    if x.shape != (batch, 32, 32, 3) or not ok:
+    size, ch = config.data.image_size, config.data.num_channels
+    if x.shape != (batch, size, size, ch) or not ok:
         raise AssertionError(f"{config.sampling.method}: bad samples {tuple(x.shape)}, "
                              f"{len(finite)} evals for nfe={nfe}, all finite: {ok}")
     expected = {k: n * nfe for k, n in per_eval.items()}
@@ -4052,19 +4090,22 @@ def _plain(model):
     return undo
 
 
-def _kernel_models(config, batch: int):
+def _kernel_models(config, batch: int, tables=None):
     """The config's seeded model (bf16 'fused') and its 'fused_int8' twin with
-    static scales calibrated on the card, each warmed by an NFE=2 run."""
+    static scales calibrated on the card, each warmed by an NFE=2 run
+    (launches held to ``tables``, the bf16 and int8 per-eval tables; the
+    trunk's 'full' ones by default)."""
     from gddim_torch.cli import build_model, calibrate_int8
 
     config8 = copy.deepcopy(config)
     config8.model.conv_impl = "fused_int8"
     model, model8 = (build_model(c, "cuda", None, seed=0) for c in (config, config8))
     seconds = calibrate_int8(config8, model8, seed=0)
-    for c, m in ((config, model), (config8, model8)):
+    for c, m, per_eval in zip((config, config8), (model, model8),
+                              tables or (PER_EVAL_FULL, PER_EVAL_INT8_FULL)):
         warm = copy.deepcopy(c)
         warm.sampling.nfe = 2
-        _sample_run(warm, m, batch, 7, PER_EVAL_FULL if m is model else PER_EVAL_INT8_FULL)
+        _sample_run(warm, m, batch, 7, per_eval)
     return config8, model, model8, seconds
 
 
@@ -4157,6 +4198,279 @@ def phase_blur_deis(card: str, batch: int):
         launches.update({k: n for k, n in counts.items() if k not in launches})
     return launches
 
+
+# The configs phase: the JAX package's other network configs at full width
+# (seeded weights), cld/ddpmpp_celeba (64x64, DDPM++: positional embedding,
+# naive resampling, no input pyramid) the slice. (a) one eps eval (B=4,
+# t=0.5) of each through 'fused' bf16 against the f32 plain path; ``extra``
+# another path held the same way
+CONFIG_EVALS = {"cld/deep_cifar10": (), "cld/ndeep_cifar10": ("fused_int8",),
+                "cld/ddpmpp_cifar10": (), "cld/ddpmpp_celeba": ("fused_int8",),
+                "cld/simple_cifar10": (), "cld/calib_cifar10": (), "blur/ddpmpp_cifar10": (),
+                "blur/simple_cifar10": (), "blur/debug_cifar10": ("pallas",)}
+CONFIG_EXTRA_BOUND = {"fused_int8": EPS_INT8_BOUND["static_vs_f32"],
+                      "pallas": EPS_LAYER_BOUND["pallas_vs_f32"]}
+# kernel launches per eps evaluation of cld/ddpmpp_celeba ('full'): 18
+# stride-1 blocks (K2), 20 pairs (K3), 6 transitions (K9, naive
+# coefficients), 6 attention blocks (K5), norm_out (K1); the block GEMM
+# twice a block and twice an attention block; GN2's folding pre-pass in the
+# 44 blocks. GN1 in one launch (gn_apply_kernel) at the 18 stride-1 sites,
+# 15 pairs, 5 transitions and the 6 attention GNs; the five 64x64 pairs
+# (256-384 channels, an eighth of a sample past a CTA's shared memory:
+# gn_apply_ctas 0) take gn_stats_kernel and the pre-pass, and the 64x64 down
+# transition gn_stats_kernel and transition_resample_kernel (not counted)
+PER_EVAL_CELEBA = {"K1": 1, "K2": 18, "K3": 20, "K9": 6, "K5": 6, "BF16-GEMM": 100,
+                   "BF16-prepass": 44 + 5, "K5-core": 6, "GN2-prepass": 44, "GN-apply": 44,
+                   "GN-stats": 6}
+# ... its int8 path (static scales): the same, int8; the 64x64 down
+# transition's h comes f32 from its resample and takes the quantize pre-pass
+PER_EVAL_CELEBA_INT8 = {"K1": 1, "K2-int8": 18, "K3-int8": 20, "K9-int8": 6, "K5-int8": 6,
+                        "S8-GEMM": 100, "S8-prepass": 44 + 5 + 1, "K5-core": 6,
+                        "GN2-prepass": 44, "GN-apply": 44, "GN-stats": 6}
+# ... with transition_impl 'tail': K1 in the 6 transitions' GN1, the naive
+# resample in PyTorch, K4 (its conv1 reads h as it is)
+PER_EVAL_CELEBA_TAIL = {"K1": 7, "K2": 18, "K3": 20, "K4": 6, "K5": 6, "BF16-GEMM": 100,
+                        "BF16-prepass": 44 + 5, "K5-core": 6, "GN2-prepass": 44,
+                        "GN-apply": 39, "GN-stats": 5}
+# ... of its trunk with DDPM blocks and both pyramids (resblock_type 'ddpm',
+# progressive 'output_skip', progressive_input 'input_skip'): the 38
+# stride-1 and (concatenated) pair blocks through K2, the NIN as the 1x1
+# skip where the width changes; the Up/Down modules, Combine and the
+# pyramid convs plain; K1 in the output pyramid's 4 GroupNorms
+PER_EVAL_CELEBA_DDPM = {"K1": 4, "K2": 38, "K5": 6, "BF16-GEMM": 88, "BF16-prepass": 38 + 5,
+                        "K5-core": 6, "GN2-prepass": 38, "GN-apply": 39, "GN-stats": 5}
+# the CelebA training step's batch (f32, 64x64)
+CELEBA_TRAIN_BATCH = 32
+SAME_U0 = "the f32 plain path's samples from the same u0"
+# K9 with the naive coefficients at cld/ddpmpp_celeba's 6 transitions
+# (H_in, C, Cout, up)
+CELEBA_K9 = [(64, 128, 128, False), (32, 256, 256, False), (16, 256, 256, False),
+             (8, 256, 256, True), (16, 256, 256, True), (32, 256, 256, True)]
+
+
+def _net_inputs(config, batch: int = 4, seed: int = 1):
+    """The network's input (B, S, S, C; CLD: the stacked (x, v)) and its
+    labels at t = 0.5, seeded on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    size, ch = config.data.image_size, config.data.num_channels * (2 if config.sde == "cld" else 1)
+    x = torch.randn((batch, size, size, ch), generator=g, device="cuda")
+    return x, torch.full((batch,), 0.5 * 999.0, device="cuda")
+
+
+def _net_eps(model, x, labels, per_eval=None):
+    """One network evaluation (inference) and its launches: exactly
+    ``per_eval``'s where given (launches_of), else every kernel that ran."""
+    reset_counts()
+    with torch.inference_mode():
+        out = model(x, labels).float()
+    torch.cuda.synchronize()
+    counts = launches_of(per_eval) if per_eval else {k: v for k, v in read_counts().items() if v}
+    if per_eval and counts != per_eval:
+        raise AssertionError(f"launch counts {counts} != {per_eval}")
+    return out, counts
+
+
+def _eps_line(label, got, ref, bound, counts, card):
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    print(f"configs eps {label} vs the f32 plain path: rel={rel:.3e} (bound {bound:.2g}); "
+          f"launches {counts} [{card}]", flush=True)
+    if not (np.isfinite(rel) and rel <= bound):
+        raise AssertionError(f"configs eps {label}: rel err {rel:.3e} > {bound:.2g}")
+
+
+def config_eps(name: str, card: str, extra=(), per_eval=None, **model_fields):
+    """(a) The config's seeded network at full width (B=4, t=0.5): the
+    'fused' bf16 eval, then each of ``extra`` ('fused_int8' with static
+    scales calibrated on the card, 'pallas'), against the f32 plain path."""
+    from gddim_torch.cli import build_model, calibrate_int8
+    from gddim_torch.configs import get_config
+
+    config = get_config(name)
+    for k, v in model_fields.items():
+        setattr(config.model, k, v)
+    model = build_model(config, "cuda", None, seed=0)
+    x, labels = _net_inputs(config)
+    undo = _plain(model)
+    ref, _ = _net_eps(model, x, labels, {})
+    undo()
+    tag = name + "".join(f" {k}={v}" for k, v in model_fields.items())
+    got, counts = _net_eps(model, x, labels, per_eval)
+    if not any(k in counts for k in ("K2", "K3")) and config.model.nf >= 128:
+        raise AssertionError(f"{tag}: no residual block took the kernels: {counts}")
+    _eps_line(f"{tag} fused bf16", got, ref, EPS_BOUND, counts, card)
+    for impl in extra:
+        if impl == "fused_int8":
+            calibrate_int8(config, model, seed=0)
+            model.int8 = True
+        else:
+            model.layer = impl
+        got, counts = _net_eps(model, x, labels,
+                               PER_EVAL_CELEBA_INT8 if name == "cld/ddpmpp_celeba" else None)
+        _eps_line(f"{tag} {impl}{' static' if impl == 'fused_int8' else ''}", got, ref,
+                  CONFIG_EXTRA_BOUND[impl], counts, card)
+        model.int8, model.layer = False, None
+    return model, x, labels, ref
+
+
+def k9_naive_cases(B: int, inp):
+    """K9 with the naive coefficients (fir=False) at CELEBA_K9, bf16 and
+    int8 static: (label, fused fn, plain fn with the TPU kernel's rounding
+    points, kernel args, operations)."""
+    from gddim_torch.ops import resblock as rb
+
+    qk = lambda *shape: rb.pack_int8_weight(rb.quantize_weight(inp.w(*shape)))  # noqa: E731
+    scales = torch.stack(rb.act_scales_from_amax(INT8_AMAX["res"])).cuda()
+    for int8 in (False, True):
+        for h, c, cout, up in CELEBA_K9:
+            kw = dict(up=up, fir=False, num_groups1=min(c // 4, 32), num_groups2=min(cout // 4, 32))
+            w = qk if int8 else inp.w
+            args = (inp.act(B, h, h, c), inp.act(B, TEMB), inp.w(TEMB, cout).float(),
+                    inp.vec(cout), inp.vec(c, 1.0), inp.vec(c), w(3, 3, c, cout), inp.vec(cout),
+                    inp.vec(cout, 1.0), inp.vec(cout), w(3, 3, cout, cout), inp.vec(cout),
+                    inp.w(c, cout), inp.vec(cout)) + ((scales,) if int8 else ())
+            fused = rb.fused_resblock_transition_int8 if int8 else rb.fused_resblock_transition
+            plain = (rb.resblock_transition_int8_reference if int8
+                     else rb.resblock_transition_bf16_reference)
+            kernel = "K9-int8" if int8 else "K9"
+            yield (kernel, f"naive {'static ' if int8 else ''}{'up' if up else 'down'} {h}x{h} "
+                   f"{c}->{cout}", lambda a=args, k=kw, f=fused: f(*a, **k),
+                   lambda a=args, k=kw, p=plain: p(*_f32(a), **k), args,
+                   transition_ops(kernel, B, h, c, cout, up))
+
+
+def configs_k9_naive(card: str):
+    """K9's naive coefficients alone at the CelebA transitions (B=4, bf16 and
+    int8 static) against their plain versions, with device time."""
+    naive: dict = {}
+    for kernel, label, fused, plain, args, ops in k9_naive_cases(4, Inputs(21)):
+        _check_kernel(naive, kernel, label, fused, plain, args, ops, plain_reps=5,
+                      **device_share(ops, graph_ms(fused)))
+    for kernel, r in naive.items():
+        print(f"sum K9-naive {kernel} B=4 ({len(r['shapes'])} shapes): ms={r['ms']:.4f} "
+              f"device ms={sum(c['graph_ms'] for c in r['shapes']):.4f} plain_ms="
+              f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} max rel={r['max_rel_err']:.3e} "
+              f"[{card}]", flush=True)
+
+
+def configs_slice(card: str, batch: int) -> dict:
+    """(b) cld/ddpmpp_celeba: its eps ('fused', 'fused_int8' static, 'tail'),
+    then deis-2 NFE=50 at ``batch``: the f32 plain path, 'fused' and
+    'fused_int8' static from the same seed. Returns the launches."""
+    from gddim_torch.configs import get_config
+
+    launches = {}
+    model, x, labels, ref = config_eps("cld/ddpmpp_celeba", card, ("fused_int8",),
+                                       PER_EVAL_CELEBA)
+    model.transition = "tail"
+    got, counts = _net_eps(model, x, labels, PER_EVAL_CELEBA_TAIL)
+    _eps_line("cld/ddpmpp_celeba fused bf16 transition_impl=tail", got, ref, EPS_BOUND, counts,
+              card)
+    launches.update(counts)
+    del model
+    config = get_config("cld/ddpmpp_celeba")
+    config8, model, model8, seconds = _kernel_models(config, batch, (PER_EVAL_CELEBA,
+                                                                     PER_EVAL_CELEBA_INT8))
+    print(f"configs cld/ddpmpp_celeba: int8 static scales calibrated on the card in "
+          f"{seconds:.3f} s", flush=True)
+    undo = _plain(model)
+    ref, wall, nfe, _ = _sample_run(config, model, batch, 8, {})
+    undo()
+    size = config.data.image_size
+    print(f"configs cld/ddpmpp_celeba deis-2 f32 plain NFE={nfe} B={batch} {size}x{size}: wall "
+          f"{wall:.3f} s, {batch / wall:.2f} img/s [{card}] (information only)", flush=True)
+    for tag, c, m, per_eval, bound in (
+            ("bf16", config, model, PER_EVAL_CELEBA, SAMPLER_BF16_BOUND),
+            ("int8 static", config8, model8, PER_EVAL_CELEBA_INT8, SAMPLE_INT8_BOUND)):
+        samples, wall, nfe, counts = _sample_run(c, m, batch, 8, per_eval)
+        _sampler_line(f"configs cld/ddpmpp_celeba deis-2 {size}x{size}", tag, nfe, batch, wall,
+                      card, counts, _compare_samples(ref, samples, bound, SAME_U0))
+        launches.update({k: n for k, n in counts.items() if k not in launches})
+    return launches
+
+
+def configs_mixed(card: str, batch: int) -> dict:
+    """(c) cld/ndeep_cifar10 (the mixed score) deis-2 NFE=50 at ``batch``:
+    bf16 against the f32 plain path from the same seed."""
+    from gddim_torch.configs import get_config
+    from gddim_torch.models.init import seeded_model
+
+    config = get_config("cld/ndeep_cifar10")
+    model = seeded_model(config, seed=0, device="cuda")
+    undo = _plain(model)
+    ref, wall, nfe, _ = _sample_run(config, model, batch, 8, {})
+    undo()
+    print(f"configs cld/ndeep_cifar10 (mixed score) deis-2 f32 plain NFE={nfe} B={batch}: "
+          f"wall {wall:.3f} s [{card}]", flush=True)
+    samples, wall, nfe, counts = _sample_run(config, model, batch, 8, PER_EVAL_FULL)
+    _sampler_line("configs cld/ndeep_cifar10 (mixed score) deis-2", "bf16", nfe, batch, wall,
+                  card, counts, _compare_samples(ref, samples, SAMPLER_BF16_BOUND, SAME_U0))
+    return counts
+
+
+def configs_train(card: str) -> dict:
+    """(d) cld/ddpmpp_celeba in f32 at CELEBA_TRAIN_BATCH: one loss +
+    backward on the kernel path against the all-plain path on the same t, z
+    and dropout masks; K6/K7 in every stride-1 and pair block their gate
+    takes; wall and peak memory."""
+    from gddim_torch.configs import train_config
+    from gddim_torch.math.cld import CLD
+    from gddim_torch.models.init import seeded_model
+    from gddim_torch.ops import resblock as rb
+    from gddim_torch.train.losses import make_cld_loss_fn
+
+    config = train_config("cld/ddpmpp_celeba")
+    b, size = CELEBA_TRAIN_BATCH, config.data.image_size
+    model = seeded_model(config, seed=0, device="cuda").train()
+    sde = CLD.from_config(config)
+    loss_fn = make_cld_loss_fn(sde, train=True)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    images = 2 * torch.rand((b, size, size, 3), generator=g, device="cuda") - 1
+    t = 1e-5 + (sde.T - 1e-5) * torch.rand((b,), generator=g, device="cuda")
+    z = torch.randn((b, size, size, 3, 2), generator=g, device="cuda")
+    model.fused = False
+    loss_p, grads_p = _loss_and_grads(model, loss_fn, images, t, z, seed=9)
+    model.fused = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss_k, grads_k = _loss_and_grads(model, loss_fn, images, t, z, seed=9)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = {k: v for k, v in read_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    blocks = [(kind, shapes, cout) for kind, shapes, cout in trace_blocks(config)
+              if kind in ("stride1", "pair")]
+    took = sum(rb.train_supported(shapes[0][:3] + (sum(s[-1] for s in shapes),), cout)
+               for _, shapes, cout in blocks)
+    print(f"configs cld/ddpmpp_celeba train f32 B={b} {size}x{size} one loss + backward: "
+          f"{sec:.3f} s, peak {peak:.2f} GiB [{card}]; launches {counts}; K6/K7 in {took} of "
+          f"{len(blocks)} stride-1 and pair blocks", flush=True)
+    if not took or counts.get("K6") != took or counts.get("K7") != took:
+        raise AssertionError(f"CelebA train: K6/K7 launches {counts} for {took} blocks")
+    _check_train_step(loss_k, grads_k, loss_p, grads_p, f"cld/ddpmpp_celeba B={b}")
+    return counts
+
+
+def phase_configs(card: str, batch: int):
+    """The JAX package's other configs on the card: (a) each network's eps
+    (CONFIG_EVALS) and K9's naive coefficients alone (configs_k9_naive);
+    (b) the slice (configs_slice); (c) the mixed score (configs_mixed); (d)
+    CelebA training (configs_train); (e) the CelebA trunk with DDPM blocks
+    and both pyramids, one eps eval (K2 with the NIN skip). Returns each
+    kernel's launches from the first run that launches it."""
+    t0 = time.perf_counter()
+    for name, extra in CONFIG_EVALS.items():
+        if name != "cld/ddpmpp_celeba":  # the slice's own
+            config_eps(name, card, extra)
+    configs_k9_naive(card)
+    launches = configs_slice(card, batch)
+    for counts in (configs_mixed(card, batch), configs_train(card)):
+        launches.update({k: n for k, n in counts.items() if k not in launches})
+    config_eps("cld/ddpmpp_celeba", card, (), PER_EVAL_CELEBA_DDPM, resblock_type="ddpm",
+               progressive="output_skip", progressive_input="input_skip")
+    print(f"configs phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
 
 def phase_blur_train(card: str):
     """blur/ddpm_deep_cifar10 training in f32 at the config's batch (128),
@@ -4518,7 +4832,7 @@ def main(argv=None):
     # F.group_norm; --k1-save / --k1-ref hold two trees' outputs), each of the
     # three on a parent's checkout too
     parser.add_argument("--phases", default="build,kernels,eps,gates,sample,int8,blur,samplers,"
-                        "blur_deis,f32,train,blur_train,run_lib")
+                        "blur_deis,configs,f32,train,blur_train,run_lib")
     parser.add_argument("--batch", type=int, default=16, help="sampling batch")
     parser.add_argument("--bits", default=None, help="phase bits: the file to save to")
     parser.add_argument("--bits-ref", default=None, help="phase bits: another tree's file")
@@ -4600,6 +4914,9 @@ def main(argv=None):
     if "blur_deis" in phases:
         blur_deis_counts = phase_blur_deis(card, args.batch)
         counts.update({k: n for k, n in blur_deis_counts.items() if k not in counts})
+    if "configs" in phases:
+        config_counts = phase_configs(card, args.batch)
+        counts.update({k: n for k, n in config_counts.items() if k not in counts})
     if "f32" in phases:
         f32_counts = phase_f32(card, args.batch)
         counts.update({k: n for k, n in f32_counts.items() if k not in counts})

@@ -1,18 +1,26 @@
 """Configs as plain dataclasses.
 
-Holds the fields of ``gddim_tpu/configs/cld/default_cifar10.py``,
-``cld/accr_dcifar10.py``, ``blur/default_cifar10.py`` and
-``blur/ddpm_deep_cifar10.py`` that the sampling and training paths read, with
-the same values. ``cld/accr_dcifar10`` is the 107.6M-parameter NCSN++ (nf=128,
-ch_mult (1,2,2,2), 8 BigGAN blocks per level, FIR resampling, attention at
-16x16, progressive_input='residual', dropout 0.1), set up for bf16 sampling
-through the fused kernels with the deis order-2, NFE=50 sampler of the repo's
-benchmark. ``blur/ddpm_deep_cifar10`` is the same network on 3 channels for
-blurring diffusion, set up the same way with the order-0 NFE=50 sampler in
-DCT space. The run loop's, data's and eval's fields have the JAX configs'
-values (``cld/default_cifar10.py:8-71`` with ``accr_dcifar10.py``'s, the
-same in both families). ``train_config`` gives a model for training: f32 activations
-(``default_cifar10.py:95``), as the JAX package trains it.
+Holds the fields of the JAX package's configs (``gddim_tpu/configs/``) that
+the sampling and training paths read, with the same values, for every
+config that builds a network: ``cld/accr_dcifar10`` (the 107.6M-parameter
+NCSN++: nf=128, ch_mult (1,2,2,2), 8 BigGAN blocks per level, FIR
+resampling, attention at 16x16, progressive_input='residual', dropout 0.1),
+``cld/deep_cifar10`` (uncentered data), ``cld/ndeep_cifar10`` (its mixed
+score), ``cld/ddpmpp_cifar10`` and ``cld/ddpmpp_celeba`` (4 blocks a level,
+positional time embedding, naive resampling, no input pyramid; CelebA at
+64x64), ``cld/simple_cifar10`` (nf=32), ``cld/calib_cifar10`` (nf=128, 3
+levels), and for blurring diffusion ``blur/ddpm_deep_cifar10`` (the accr
+trunk on 3 channels), ``blur/ddpmpp_cifar10``, ``blur/simple_cifar10`` and
+``blur/debug_cifar10`` (nf=64, naive resampling). ``cld/default_cifar10``
+and ``blur/default_cifar10`` set no network (no ``model.name`` or ``nf``)
+and are not registered; ``cld/points`` (an MLP on point sets) is not ported.
+
+Every model, data, training and EMA field takes the JAX file's value. The
+port's own sampling and execution defaults stand apart
+(``EXECUTION_DEFAULTS``): bf16 activations through the whole-block kernels
+('fused'), and CLD sampling by deis order 2 at NFE=50, the repo's
+benchmark's sampler. ``train_config`` gives a model for training: f32
+activations (``default_cifar10.py:95``), as the JAX package trains it.
 """
 
 from __future__ import annotations
@@ -138,6 +146,11 @@ class ModelConfig:
 
     name: str = "ncsnpp"
     scale_by_sigma: bool = False
+    # the SMLD noise levels scale_by_sigma divides by (positional embedding:
+    # sigmas[int(label)], ``gddim_tpu/models/unet.py:38-46``)
+    sigma_min: float = 0.01
+    sigma_max: float = 50.0
+    num_scales: int = 1000
     nonlinearity: str = "swish"
     nf: int = 128
     ch_mult: tuple = (1, 2, 2, 2)
@@ -147,9 +160,13 @@ class ModelConfig:
     fir: bool = True
     fir_kernel: tuple = (1, 3, 3, 1)
     skip_rescale: bool = True
+    resamp_with_conv: bool = True
     resblock_type: str = "biggan"
     progressive: str = "none"
     progressive_input: str = "residual"
+    progressive_combine: str = "sum"
+    attention_type: str = "ddpm"
+    conv_size: int = 3
     init_scale: float = 0.0
     embedding_type: str = "fourier"
     fourier_scale: float = 16
@@ -210,18 +227,97 @@ def blur_config() -> Config:
     return Config(sde="blur", model=BlurModelConfig(), sampling=BlurSamplingConfig())
 
 
-_CONFIGS = {"cld/accr_dcifar10": Config, "blur/ddpm_deep_cifar10": blur_config}
+def _set(config: Config, **fields) -> Config:
+    """Set ``section__field=value`` overrides on config, as the JAX config
+    files do; returns config."""
+    for key, value in fields.items():
+        section, field = key.split("__")
+        node = getattr(config, section)
+        if not hasattr(node, field):
+            raise AttributeError(f"no config field {section}.{field}")
+        setattr(node, field, value)
+    return config
+
+
+def _deep() -> Config:  # cld/deep_cifar10.py
+    return _set(Config(), data__centered=False)
+
+
+def _ndeep() -> Config:  # cld/ndeep_cifar10.py
+    return _set(_deep(), model__mixed_score=True)
+
+
+# the DDPM++ variant of the trunk (cld/ddpmpp_cifar10.py, the network fields
+# of cld/ddpmpp_celeba.py)
+_DDPMPP = dict(model__num_res_blocks=4, model__embedding_type="positional", model__fir=False,
+               model__progressive_input="none")
+
+
+def _ddpmpp_celeba() -> Config:
+    """cld/ddpmpp_celeba.py: on cld/default_cifar10, not accr."""
+    return _set(Config(), **_DDPMPP, training__n_iters=1300001, training__log_freq=100,
+                training__eval_freq=2000, training__snapshot_freq=50000,
+                training__snapshot_freq_for_preemption=10000,
+                training__snapshot_sampling_batch=100, training__snapshot_freq_for_sampling=5000,
+                training__ema_update_freq=5000, data__dataset="CELEBA", data__image_size=64,
+                data__centered=True, model__ema_rate=0.999)
+
+
+# the smoke-test sizes of cld/simple_cifar10.py and blur/simple_cifar10.py
+_SIMPLE = dict(model__nf=32, model__num_res_blocks=1, model__ch_mult=(1, 2),
+               model__attn_resolutions=(16,), training__batch_size=16,
+               training__n_jitted_steps=1, data__synthetic=True)
+
+
+def _calib() -> Config:  # cld/calib_cifar10.py
+    return _set(Config(), model__nf=128, model__num_res_blocks=2, model__ch_mult=(1, 2, 2),
+                model__attn_resolutions=(16,), training__batch_size=64,
+                training__n_jitted_steps=4, training__n_iters=2001, training__log_freq=100,
+                training__eval_freq=1000, training__snapshot_freq=1000,
+                training__snapshot_freq_for_preemption=1000,
+                training__snapshot_freq_for_sampling=10**9, data__synthetic=True)
+
+
+def _blur_debug() -> Config:  # blur/debug_cifar10.py
+    return _set(blur_config(), training__eval_freq=500, training__n_jitted_steps=100,
+                training__snapshot_freq_for_sampling=1000, training__batch_size=32,
+                training__snapshot_freq=10000, training__snapshot_freq_for_preemption=5000,
+                data__is_partial=True, data__random_flip=False, model__ema_rate=0.5,
+                model__nf=64, model__num_res_blocks=4, model__fir=False,
+                model__progressive_input="none")
+
+
+_CONFIGS = {
+    "cld/accr_dcifar10": Config,
+    "cld/deep_cifar10": _deep,
+    "cld/ndeep_cifar10": _ndeep,
+    "cld/ddpmpp_cifar10": lambda: _set(Config(), **_DDPMPP),
+    "cld/ddpmpp_celeba": _ddpmpp_celeba,
+    "cld/simple_cifar10": lambda: _set(Config(), **_SIMPLE),
+    "cld/calib_cifar10": _calib,
+    "blur/ddpm_deep_cifar10": blur_config,
+    "blur/ddpmpp_cifar10": lambda: _set(blur_config(), model__num_res_blocks=4),
+    "blur/simple_cifar10": lambda: _set(blur_config(), **_SIMPLE),
+    "blur/debug_cifar10": _blur_debug,
+}
+# the port's own defaults where they differ from the JAX files': bf16
+# activations through the whole-block kernels, and CLD deis order 2 at NFE=50
+EXECUTION_DEFAULTS = ("model.dtype", "model.conv_impl", "sampling.nfe", "sampling.deis_order")
 
 CONV_IMPLS = ("fused", "fused_int8", "pallas", "int8", "plain")
 TRANSITION_IMPLS = ("tail", "full")
 
 
 def get_config(name: str) -> Config:
-    """A fresh config by name ('cld/accr_dcifar10', 'blur/ddpm_deep_cifar10')."""
+    """A fresh config by name ('cld/accr_dcifar10', ...: ``available_configs``)."""
     try:
         return _CONFIGS[name]()
     except KeyError:
         raise ValueError(f"unknown config {name!r}; known: {sorted(_CONFIGS)}") from None
+
+
+def available_configs() -> tuple:
+    return tuple(sorted(_CONFIGS))
 
 
 def train_config(name: str) -> Config:

@@ -1,9 +1,13 @@
 """flax param tree <-> the port's ``state_dict``.
 
 The flax tree is nested dicts of arrays keyed by the scope names
-``gddim_tpu`` produces: ``ResnetBlockBigGANpp_0..75``, ``AttnBlockpp_0..9``,
-``Downsample_0..2/Conv2d_0``, ``Conv_0/1``, ``Dense_0/1``,
-``GaussianFourierProjection_0``, ``GroupNorm_0``. Flax numbers scopes in
+``gddim_tpu`` produces: for ``cld/accr_dcifar10`` ``ResnetBlockBigGANpp_0..75``,
+``AttnBlockpp_0..9``, ``Downsample_0..2/Conv2d_0``, ``Conv_0/1``,
+``Dense_0/1``, ``GaussianFourierProjection_0``, ``GroupNorm_0``; other
+option sets add ``ResnetBlockDDPMpp_k`` (``NIN_0`` or ``Conv_2`` as its
+skip), ``Upsample_k`` / ``Downsample_k`` (``Conv_0`` or ``Conv2d_0``, none
+without a conv), ``Combine_k/Conv_0`` and the output pyramid's top-level
+``GroupNorm_k`` / ``Conv_k``. Flax numbers scopes in
 creation order; ``NCSNpp.scopes`` records that order as the port builds the
 U-Net, so each scope is looked up by its own name and index (never by a
 string sort, under which ``_70`` comes before ``_8``). Layouts are shared:
@@ -30,16 +34,14 @@ _LEAVES = {
     layers.GaussianFourierProjection: {"W": "weight"},
     resample.Conv2d: {"weight": "weight", "bias": "bias"},
 }
-# block type -> {flax sub-scope: torch attribute}
+# block type -> {flax sub-scope: torch attribute}; the residual blocks,
+# Upsample and Downsample carry their own (``subscopes``: the skip's and the
+# resample conv's scope names depend on the block's options)
 _SUBSCOPES = {
-    blocks.ResnetBlockBigGANpp: {
-        "GroupNorm_0": "norm1", "Conv_0": "conv1", "Dense_0": "temb_dense",
-        "GroupNorm_1": "norm2", "Conv_1": "conv2", "Conv_2": "skip",
-    },
     blocks.AttnBlockpp: {
         "GroupNorm_0": "norm", "NIN_0": "q", "NIN_1": "k", "NIN_2": "v", "NIN_3": "out",
     },
-    blocks.Downsample: {"Conv2d_0": "conv"},
+    layers.Combine: {"Conv_0": "conv"},
 }
 _SCOPE = re.compile(r"^(.*)_(\d+)$")
 
@@ -54,7 +56,9 @@ def scope_key(name: str):
 
 def module_pairs(mod, prefix: str = ""):
     """[(flax path, torch key)] for one layer or block, relative to its scope."""
-    subs = _SUBSCOPES.get(type(mod))
+    subs = getattr(mod, "subscopes", None)
+    if subs is None:
+        subs = _SUBSCOPES.get(type(mod))
     children = [((), "", mod)] if subs is None else [
         ((sub,), f"{attr}.", getattr(mod, attr)) for sub, attr in subs.items()
         if getattr(mod, attr) is not None
@@ -81,10 +85,13 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def check_scope_numbering(params: dict) -> None:
-    """Each scope class of the tree's top level must be numbered 0..n-1."""
+def check_scope_numbering(params: dict, empty=()) -> None:
+    """Each scope class of the tree's top level must be numbered 0..n-1,
+    counting the scopes named in ``empty``: those that hold no parameter
+    (an Upsample or Downsample without a conv), which flax numbers but
+    leaves out of the tree."""
     by_cls = collections.defaultdict(list)
-    for name in params:
+    for name in set(params) | set(empty):
         cls, idx = scope_key(name)
         by_cls[cls].append(idx)
     for cls, idxs in by_cls.items():
@@ -97,7 +104,8 @@ def flax_to_state_dict(model, params: dict) -> dict:
     keys. Every flax leaf and every torch parameter is mapped exactly once.
     ``model`` is an NCSNpp, or one layer or block with its own subtree."""
     if hasattr(model, "scopes"):
-        check_scope_numbering(params)
+        check_scope_numbering(params, [name for name, mod in model.scopes
+                                       if not module_pairs(mod)])
         pairs = param_pairs(model)
     else:
         pairs = module_pairs(model)
@@ -120,7 +128,8 @@ def flax_to_state_dict(model, params: dict) -> dict:
 
 
 # int8 quantization sites each block kind records (gddim_tpu/models/blocks.py)
-QSCALE_SITES = {blocks.ResnetBlockBigGANpp: {"a1", "a2", "x"}, blocks.AttnBlockpp: {"h", "a"}}
+QSCALE_SITES = {blocks.ResnetBlockBigGANpp: {"a1", "a2", "x"},
+                blocks.ResnetBlockDDPMpp: {"a1", "a2", "x"}, blocks.AttnBlockpp: {"h", "a"}}
 
 
 def qscales_from_flax(model, tree: dict) -> dict:

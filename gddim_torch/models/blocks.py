@@ -10,15 +10,16 @@ runs the plain composition on any device.
   gddim_tpu/models/blocks.py:135-147,405-406,539-584): the residual block
   layer by layer, the (h, skip) pair concatenated first; GN+SiLU through K1
   ('pallas', and a transition's GN1 either way) or K12 ('int8': the int8
-  tensor and per-sample scale the conv takes), FIR resampling, each 3x3 conv
+  tensor and per-sample scale the conv takes), the resample, each 3x3 conv
   through K11 in bf16 or int8 (a transition's conv1 on
   ``quantize_per_sample`` of the resampled h), the temb Dense, the plain
   1x1 skip; attention as K1 GroupNorm (no SiLU), the NIN projections and K8;
 
 - inference (``train=False``): K2-K4 for the residual blocks (with K1 for a
   transition's GN1) and K5 for attention; no gradients. With
-  ``transition='full'`` an up/down block is one K9 call instead of K1, two
-  FIR passes and K4 (gddim_tpu/models/blocks.py:461-502, behind
+  ``transition='full'`` an up/down block is one K9 call (FIR or naive
+  coefficients) instead of K1, two resample passes and K4
+  (gddim_tpu/models/blocks.py:461-502, behind
   GDDIM_TRANSITION_IMPL=full there). Each kernel call is gated as the JAX
   package gates it (``resblock_ops.supported``, blocks.py:242-249, 351-358,
   505; ``attnblock_ops.supported``, blocks.py:83-87) by the port's own
@@ -44,6 +45,13 @@ runs the plain composition on any device.
   ``fused_attn`` as K10 (blocks.py:107-133, GDDIM_FUSED_ATTN_TRAIN=1 there).
   Dropout masks are drawn in the block, outside any kernel, from the
   caller's generator.
+
+A block with another activation than swish, or without a temb, runs its
+unfused layers on every path (K1 for its GroupNorms with fused), as the
+JAX package gates its kernels. ``ResnetBlockDDPMpp`` (no resampling; a NIN
+or 3x3 conv skip) takes K2 at inference, its unfused layers elsewhere;
+``Upsample`` / ``Downsample`` are the DDPM trunk's and the pyramids'
+resamplers, plain.
 """
 
 from __future__ import annotations
@@ -113,27 +121,61 @@ def _route(kernel: bool, int8: bool) -> int:
 
 
 class ResnetBlockBigGANpp(nn.Module):
-    """BigGAN residual block with in-block FIR resampling
-    (reference layerspp.py:180-227)."""
+    """BigGAN residual block with in-block resampling, FIR or (``fir=False``)
+    naive (reference layerspp.py:180-227). ``temb_dim`` None: an
+    unconditional block (no Dense); ``act``: the nonlinearity (``F.silu``,
+    swish, is the one the kernels fuse: with another, or without a temb,
+    every route runs the unfused layers, as the JAX package gates its
+    kernels on ``act is nn.swish`` and a temb, blocks.py:355-356, 473)."""
 
-    def __init__(self, cin: int, out_ch: int | None, temb_dim: int, up: bool = False,
+    conv_shortcut = False  # the DDPM block's 3x3 skip (its site "x" is not calibrated)
+    # flax sub-scope -> attribute (convert.py); a block kind may differ
+    subscopes = {"GroupNorm_0": "norm1", "Conv_0": "conv1", "Dense_0": "temb_dense",
+                 "GroupNorm_1": "norm2", "Conv_1": "conv2", "Conv_2": "skip"}
+
+    def __init__(self, cin: int, out_ch: int | None, temb_dim: int | None, up: bool = False,
                  down: bool = False, fir_kernel=(1, 3, 3, 1), skip_rescale: bool = True,
-                 init_scale: float = 0.0, dropout: float = 0.0, generator=None):
+                 init_scale: float = 0.0, dropout: float = 0.0, generator=None,
+                 fir: bool = True, act=F.silu):
         super().__init__()
         out_ch = out_ch or cin
         self.up, self.down = up, down
         self.dropout = dropout
+        self.fir = fir
         self.fir_kernel = tuple(fir_kernel)
         self.skip_rescale = skip_rescale
+        self.act = act
         self.norm1 = GroupNorm(cin)
         self.conv1 = Conv(cin, out_ch, 3, generator=generator)
-        self.temb_dense = Dense(temb_dim, out_ch, generator=generator)
+        self.temb_dense = Dense(temb_dim, out_ch, generator=generator) if temb_dim else None
         self.norm2 = GroupNorm(out_ch)
         self.conv2 = Conv(out_ch, out_ch, 3, init_scale=init_scale, generator=generator)
-        self.skip = (Conv(cin, out_ch, 1, generator=generator)
-                     if cin != out_ch or up or down else None)
+        self.skip = self._make_skip(cin, out_ch, generator)
         self._kw = _KernelWeights()
         self._kw8 = _KernelWeights()
+
+    def _make_skip(self, cin, out_ch, generator):
+        """The skip projection: a 1x1 conv where the width or the resolution
+        changes."""
+        if cin != out_ch or self.up or self.down:
+            return Conv(cin, out_ch, 1, generator=generator)
+        return None
+
+    def _skip_params(self):
+        """(the skip's (Cin, Cout) weight, its bias), or (None, None)."""
+        if self.skip is None:
+            return None, None
+        return self.skip.weight[0, 0], self.skip.bias
+
+    def _kernels_ok(self, temb) -> bool:
+        """Whether the block may take the whole-block kernels at all."""
+        return self.act is F.silu and temb is not None and self.temb_dense is not None
+
+    def _resample(self, t):
+        """The block's factor-2 resample: FIR, or nearest up / the 2x2 mean down."""
+        if self.fir:
+            return (resample.upsample_2d if self.up else resample.downsample_2d)(t, self.fir_kernel)
+        return (resample.naive_upsample_2d if self.up else resample.naive_downsample_2d)(t)
 
     def forward(self, x, temb, fused: bool = False, train: bool = False,
                 generator: torch.Generator | None = None, int8: bool = False,
@@ -144,19 +186,21 @@ class ResnetBlockBigGANpp(nn.Module):
         fused): the int8 kernels, static scales from this block's ``qscales``
         amaxes. layer (with fused): the layer-wise path, 'pallas' or 'int8'.
         transition='full' (with fused, an up/down block): the whole block
-        through K9 where ``transition_supported`` takes it, else K1, the FIR
+        through K9 where ``transition_supported`` takes it, else K1, the
         resample and K4. With fused, each kernel runs where its gate takes
         the block (``rb.stride1_supported``, ``pair_supported``,
         ``tail_supported``), the plain composition elsewhere. temb_row: this
         block's (B, Cout) f32 temb projection, made by the caller, in place
-        of silu(temb) through the Dense. sow: calibration (the plain
+        of act(temb) through the Dense. sow: calibration (the plain
         composition). fused_train=False (with train): the stride-1 block's
         unfused layers (K1 for its GroupNorms with fused) in place of K6/K7
         (``model.fused_train``)."""
         if train:
             return self._forward_train(x, temb, fused, generator, fused_train)
         if fused and layer is not None:
-            return self._forward_layerwise(x, temb, layer)
+            return self._forward_layers(x, temb, impl=layer)
+        if not self._kernels_ok(temb):
+            return self._forward_layers(x, temb, fused=fused, sow=sow)
         pair = isinstance(x, (tuple, list))
         first = x[0] if pair else x
         int8 = fused and int8
@@ -168,16 +212,15 @@ class ResnetBlockBigGANpp(nn.Module):
             kw["sow"] = sow
         out_ch = self.conv1.weight.shape[-1]
         if (fused and transition == "full" and (self.up or self.down)
-                and rb.transition_supported(x.shape, out_ch, self.up, True, self.fir_kernel,
+                and rb.transition_supported(x.shape, out_ch, self.up, self.fir, self.fir_kernel,
                                             int8)):
             op = rb.fused_resblock_transition_int8 if int8 else rb.fused_resblock_transition
             return op(x, *dense, self.norm1.weight, self.norm1.bias,
-                      *self._mid(True, int8, first, qscales), up=self.up,
+                      *self._mid(True, int8, first, qscales), up=self.up, fir=self.fir,
                       fir_kernel=self.fir_kernel, num_groups1=self.norm1.num_groups, **kw)
         if self.up or self.down:
             h = self.norm1(x, act=True, fused=fused)
-            res = resample.upsample_2d if self.up else resample.downsample_2d
-            h, xr = res(h, self.fir_kernel), res(x, self.fir_kernel)
+            h, xr = self._resample(h), self._resample(x)
             ok = fused and rb.tail_supported(h.shape, out_ch, int8)
             return _RES_OPS["tail"][_route(ok, int8)](
                 h, xr, *dense, *self._mid(ok, int8, first, qscales), **kw)
@@ -197,9 +240,7 @@ class ResnetBlockBigGANpp(nn.Module):
         kernels' (int8: quantized, K-major on the card, and the static scales;
         bf16 on the card: cast once), or the plain composition's parameters."""
         w1, w2 = self.conv1.weight, self.conv2.weight
-        w_skip = b_skip = None
-        if self.skip is not None:
-            w_skip, b_skip = self.skip.weight[0, 0], self.skip.bias
+        w_skip, b_skip = self._skip_params()
         params = [w1, w2] + ([w_skip] if w_skip is not None else [])
         scales = ()
         if kernel and int8:
@@ -227,24 +268,54 @@ class ResnetBlockBigGANpp(nn.Module):
 
         return self._kw8.get(params + amaxes, make, tag=(dtype,))
 
-    def _forward_layerwise(self, x, temb, impl):
-        """The block layer by layer (inference), the 3x3 convs through K11
-        ('pallas': bf16; 'int8': int8, fed by K12 where GN+SiLU feeds them)."""
+    def _skip(self, x, impl: str):
+        return self.skip(x)
+
+    def _forward_layers(self, x, temb, fused: bool = True, impl: str = "plain", mask=None,
+                        keep: float = 1.0, sow=None):
+        """The block layer by layer (gddim_tpu/models/blocks.py:539-584): the
+        pair concatenated; GN1 and GN2 with the activation (K1 with fused,
+        else plain; ``impl`` 'int8' with swish: K12 where an int8 3x3 conv
+        follows directly), the resample, the 3x3 convs through K11 where
+        ``impl`` ('pallas' bf16, 'int8') takes them, the temb Dense, the
+        dropout ``mask`` (training), the skip projection. sow(site, t) sees
+        the int8 quantization sites as the plain composition's."""
         if isinstance(x, (tuple, list)):
             x = torch.cat(x, -1)
         out_ch = self.conv1.weight.shape[-1]
         resampled = self.up or self.down
-        fuse1 = not resampled and int8_conv_fusion_ok(x.shape, out_ch, impl)
-        h = norm_act(self.norm1, x, quantize_out=fuse1)
+        swish = self.act is F.silu
+        fuse1 = swish and not resampled and int8_conv_fusion_ok(x.shape, out_ch, impl)
+        h = norm_act(self.norm1, x, fused, fuse1, self.act)
         if resampled:
-            res = resample.upsample_2d if self.up else resample.downsample_2d
-            h, x = res(h, self.fir_kernel), res(x, self.fir_kernel)
+            h, x = self._resample(h), self._resample(x)
+        if sow is not None:
+            sow("a1", h)
         h = self.conv1(h, impl)
-        h = h + self.temb_dense(F.silu(temb))[:, None, None, :].to(h.dtype)
-        h = norm_act(self.norm2, h, quantize_out=int8_conv_fusion_ok(h.shape, out_ch, impl))
+        if self.temb_dense is not None:
+            h = h + self.temb_dense(self.act(temb))[:, None, None, :].to(h.dtype)
+        fuse2 = swish and int8_conv_fusion_ok(h.shape, out_ch, impl)
+        h = norm_act(self.norm2, h, fused, fuse2, self.act)
+        if sow is not None:
+            sow("a2", h)
+        if mask is not None:
+            h = h * (mask.to(h.dtype) * (1.0 / keep))
         h = self.conv2(h, impl)
-        out = (x if self.skip is None else self.skip(x)) + h
+        if self.skip is not None:
+            if sow is not None and not self.conv_shortcut:
+                sow("x", x)
+            x = self._skip(x, impl)
+        out = x + h
         return out * rb._INV_SQRT2 if self.skip_rescale else out
+
+    def _dropout_mask(self, shape, generator):
+        """(the (B, H, W, Cout) int8 keep mask drawn from ``generator``, or
+        None without dropout; the keep probability)."""
+        keep = 1.0 - self.dropout
+        if keep >= 1.0:
+            return None, keep
+        probs = torch.full(shape, keep, device=self.conv1.weight.device)
+        return torch.bernoulli(probs, generator=generator).to(torch.int8), keep
 
     def _forward_train(self, x, temb, fused, generator, fused_train=True):
         if isinstance(x, (tuple, list)):
@@ -255,17 +326,12 @@ class ResnetBlockBigGANpp(nn.Module):
         elif self.down:
             h, w = h // 2, w // 2
         out_ch = self.conv1.weight.shape[-1]
-        keep = 1.0 - self.dropout
-        mask = None
-        if keep < 1.0:
-            probs = torch.full((b, h, w, out_ch), keep, device=x.device)
-            mask = torch.bernoulli(probs, generator=generator).to(torch.int8)
-        temb_proj = rb.temb_projection(temb, self.temb_dense.weight, self.temb_dense.bias)
-        w_skip = b_skip = None
-        if self.skip is not None:
-            w_skip, b_skip = self.skip.weight[0, 0], self.skip.bias
+        mask, keep = self._dropout_mask((b, h, w, out_ch), generator)
         resampled = self.up or self.down
-        if not resampled and fused and fused_train and rb.train_supported(x.shape, out_ch):
+        if (not resampled and fused and fused_train and self._kernels_ok(temb)
+                and rb.train_supported(x.shape, out_ch)):
+            temb_proj = rb.temb_projection(temb, self.temb_dense.weight, self.temb_dense.bias)
+            w_skip, b_skip = self._skip_params()
             return rb.fused_resblock_train(
                 x, temb_proj, self.norm1.weight, self.norm1.bias, self.conv1.weight,
                 self.conv1.bias, self.norm2.weight, self.norm2.bias, self.conv2.weight,
@@ -273,18 +339,65 @@ class ResnetBlockBigGANpp(nn.Module):
                 num_groups1=self.norm1.num_groups, num_groups2=self.norm2.num_groups,
                 eps=self.norm2.eps, skip_rescale=self.skip_rescale)
         # the unfused layers (gddim_tpu/models/blocks.py:545-584): K1 for GN1
-        # and GN2 with fused, the FIR resample in a transition
-        hh = self.norm1(x, act=True, fused=fused)
-        if resampled:
-            res = resample.upsample_2d if self.up else resample.downsample_2d
-            hh, x = res(hh, self.fir_kernel), res(x, self.fir_kernel)
-        hh = self.conv1(hh) + temb_proj.to(hh.dtype)[:, None, None, :]
-        hh = self.norm2(hh, act=True, fused=fused)
-        if mask is not None:
-            hh = hh * (mask.to(hh.dtype) * (1.0 / keep))
-        hh = self.conv2(hh)
-        out = (x if self.skip is None else self.skip(x)) + hh
-        return out * rb._INV_SQRT2 if self.skip_rescale else out
+        # and GN2 with fused, the resample in a transition
+        return self._forward_layers(x, temb, fused, mask=mask, keep=keep)
+
+
+class ResnetBlockDDPMpp(ResnetBlockBigGANpp):
+    """DDPM residual block (reference layerspp.py:146-177,
+    gddim_tpu/models/blocks.py:219-309): no resampling; where the width
+    changes the skip is a NIN (``NIN_0``) or, with ``conv_shortcut``, a 3x3
+    conv (``Conv_2``); the up path's pair is concatenated first (this block
+    has no pair kernel). Inference takes K2 (its int8 mode with
+    'fused_int8') with the NIN as the 1x1 skip where ``stride1_supported``
+    takes the block, as the JAX package runs ``fused_resblock``; a 3x3
+    conv shortcut keeps the unfused layers. Training runs the unfused
+    layers (K1 for the GroupNorms with fused): the JAX block has no
+    training kernel."""
+
+    def __init__(self, cin: int, out_ch: int | None, temb_dim: int | None,
+                 conv_shortcut: bool = False, skip_rescale: bool = False,
+                 init_scale: float = 0.0, dropout: float = 0.1, generator=None, act=F.silu):
+        self.conv_shortcut = conv_shortcut
+        super().__init__(cin, out_ch, temb_dim, skip_rescale=skip_rescale,
+                         init_scale=init_scale, dropout=dropout, generator=generator, act=act)
+        self.subscopes = {**ResnetBlockBigGANpp.subscopes,
+                          "Conv_2" if conv_shortcut else "NIN_0": "skip"}
+        if not conv_shortcut:
+            del self.subscopes["Conv_2"]
+
+    def _make_skip(self, cin, out_ch, generator):
+        if cin == out_ch:
+            return None
+        if self.conv_shortcut:
+            return Conv(cin, out_ch, 3, generator=generator)
+        return NIN(cin, out_ch, generator=generator)
+
+    def _skip_params(self):
+        if self.skip is None:
+            return None, None
+        return self.skip.weight, self.skip.bias
+
+    def _kernels_ok(self, temb) -> bool:
+        return super()._kernels_ok(temb) and not (self.skip is not None and self.conv_shortcut)
+
+    def _skip(self, x, impl: str):
+        return self.skip(x, impl) if self.conv_shortcut else self.skip(x)
+
+    def forward(self, x, temb, fused: bool = False, train: bool = False,
+                generator: torch.Generator | None = None, int8: bool = False,
+                qscales: dict | None = None, sow=None, layer: str | None = None,
+                transition: str = "tail", temb_row=None, fused_train: bool = True):
+        """As ``ResnetBlockBigGANpp.forward``; ``transition`` and
+        ``fused_train`` have no block to act on."""
+        if isinstance(x, (tuple, list)):
+            x = torch.cat(x, -1)
+        if train:
+            b, h, w, _ = x.shape
+            mask, keep = self._dropout_mask((b, h, w, self.conv1.weight.shape[-1]), generator)
+            return self._forward_layers(x, temb, fused, mask=mask, keep=keep)
+        return super().forward(x, temb, fused, False, generator, int8, qscales, sow, layer,
+                               transition, temb_row, fused_train)
 
 
 class AttnBlockpp(nn.Module):
@@ -367,13 +480,52 @@ class AttnBlockpp(nn.Module):
         return self._kw8.get(params + amaxes, make, tag=(dtype,))
 
 
-class Downsample(nn.Module):
-    """FIR downsample with conv (the progressive_input='residual' pyramid;
-    reference layerspp.py:115-143)."""
+class Upsample(nn.Module):
+    """Factor-2 upsample (reference layerspp.py:86-112): nearest (``fir``
+    False) then, ``with_conv``, a 3x3 conv (``Conv_0``); or FIR, with the
+    conv fused (``Conv2d_0``, ``upsample_conv_2d``)."""
 
-    def __init__(self, cin: int, out_ch: int, fir_kernel=(1, 3, 3, 1), generator=None):
+    def __init__(self, cin: int, out_ch: int | None = None, with_conv: bool = False,
+                 fir: bool = False, fir_kernel=(1, 3, 3, 1), generator=None):
         super().__init__()
-        self.conv = resample.Conv2d(cin, out_ch, 3, fir_kernel, generator=generator)
+        out_ch = out_ch or cin
+        self.fir, self.fir_kernel = fir, tuple(fir_kernel)
+        self.conv = None
+        self.subscopes = {}
+        if with_conv:
+            self.conv = (resample.Conv2d(cin, out_ch, 3, fir_kernel, generator, up=True) if fir
+                         else Conv(cin, out_ch, 3, generator=generator))
+            self.subscopes = {"Conv2d_0" if fir else "Conv_0": "conv"}
+
+    def forward(self, x, impl: str = "plain"):
+        """impl: the nearest path's conv through K11 ('pallas', 'int8') where
+        it takes the shape."""
+        if self.fir:
+            return resample.upsample_2d(x, self.fir_kernel) if self.conv is None else self.conv(x)
+        y = resample.naive_upsample_2d(x)
+        return y if self.conv is None else self.conv(y, impl)
+
+
+class Downsample(nn.Module):
+    """Factor-2 downsample (reference layerspp.py:115-143): without ``fir``,
+    a stride-2 3x3 conv (``Conv_0``, XLA's SAME padding) or the SAME 2x2
+    average pool; with it, the FIR-composed strided conv (``Conv2d_0``)
+    or the FIR downsample."""
+
+    def __init__(self, cin: int, out_ch: int | None = None, fir_kernel=(1, 3, 3, 1),
+                 generator=None, with_conv: bool = True, fir: bool = True):
+        super().__init__()
+        out_ch = out_ch or cin
+        self.fir, self.fir_kernel = fir, tuple(fir_kernel)
+        self.conv = None
+        self.subscopes = {}
+        if with_conv:
+            self.conv = (resample.Conv2d(cin, out_ch, 3, fir_kernel, generator) if fir
+                         else Conv(cin, out_ch, 3, generator=generator, stride=2))
+            self.subscopes = {"Conv2d_0" if fir else "Conv_0": "conv"}
 
     def forward(self, x):
-        return self.conv(x)
+        if self.conv is not None:
+            return self.conv(x)
+        return (resample.downsample_2d(x, self.fir_kernel) if self.fir
+                else resample.avg_pool_same(x))

@@ -23,7 +23,11 @@ import numpy as np
 import torch
 
 from gddim_torch.math.linalg2 import sbmm
-from gddim_torch.models.wrappers import stack_uv_to_channels, unstack_channels_to_uv
+from gddim_torch.models.wrappers import (
+    mixed_score_term,
+    stack_uv_to_channels,
+    unstack_channels_to_uv,
+)
 from gddim_torch.samplers import coefs
 from gddim_torch.samplers.blur import blur_order0_stacks
 
@@ -33,11 +37,10 @@ def calibrate_cld_qscales(config, model, sde, batch: int = 8, nfe: int = 12,
                           u0: torch.Tensor | None = None) -> dict:
     """Per-site amaxes along an order-0 (exact-ODE) CLD trajectory of ``nfe``
     steps from u0, or from a prior draw of ``batch`` samples from
-    ``generator`` (``calibrate.py:34-80``). The model runs its plain
+    ``generator`` (``calibrate.py:34-80``), the mixed score's analytic term
+    added to eps as the sampler adds it. The model runs its plain
     composition in its own activation dtype. Returns {scope: {site: 0-d f32
     tensor}} on the model's device."""
-    if sde.mixed_score:
-        raise NotImplementedError("mixed_score is not ported")
     bundle = coefs.order0_bundle(sde.host(), nfe, denoising=False, is_em=False)
     stack = bundle.stack.astype(np.float32)  # (N, 2, 2, 2): [Psi | eps coef]
     ts = bundle.rev_ts[:-1].astype(np.float32)
@@ -49,8 +52,11 @@ def calibrate_cld_qscales(config, model, sde, batch: int = 8, nfe: int = 12,
     qscales: dict = {}
     with torch.no_grad():
         for coef, t in zip(stack, ts):
-            labels = torch.full((u.shape[0],), float(t), device=device) * 999.0
-            eps = unstack_channels_to_uv(model(stack_uv_to_channels(u), labels, calib=qscales).float())
+            tv = torch.full((u.shape[0],), float(t), device=device)
+            eps = unstack_channels_to_uv(model(stack_uv_to_channels(u), tv * 999.0,
+                                               calib=qscales).float())
+            if sde.mixed_score:
+                eps = eps + mixed_score_term(sde, u, tv)
             u = sbmm(coef[0], u) + sbmm(coef[1], eps)
     return qscales
 

@@ -9,6 +9,9 @@ The layer-wise inference paths (``conv_impl`` 'pallas' and 'int8',
 runs a qualifying 3x3 conv through K11 (``ops/conv3x3.py``), bf16 or int8,
 and ``GroupNorm(quantize_out=True)`` emits a ``QuantizedActivation``
 through K12, which the int8 conv takes without another quantize pass.
+``get_act``, ``get_timestep_embedding`` and ``Combine`` are the JAX
+package's (``layers.py:218-258``); a stride-2 ``Conv`` pads as XLA's
+"SAME" does.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gddim_torch.ops import conv3x3 as c3
@@ -81,8 +85,29 @@ def default_init(scale: float = 1.0):
     return init
 
 
+def same_pads(n: int, k: int, stride: int) -> tuple:
+    """XLA's "SAME" padding (before, after) of one axis of n pixels under a
+    k-tap window at ``stride``: ceil(n / stride) outputs, the total padding
+    split with its odd pixel after (stride 2, k 3: (0, 1) on an even n,
+    (1, 1) on an odd one)."""
+    out = -(-n // stride)
+    total = max((out - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv_strided_nhwc(x, w, b, stride: int):
+    """A k x k conv at ``stride`` with XLA's "SAME" padding, NHWC input, HWIO
+    kernel, in x's dtype (``conv3x3(..., stride=2)``, layers.py:131-136)."""
+    k = w.shape[0]
+    (t, bo), (le, r) = (same_pads(n, k, stride) for n in x.shape[1:3])
+    y = F.pad(x.permute(0, 3, 1, 2), (le, r, t, bo))
+    y = F.conv2d(y, w.to(x.dtype).permute(3, 2, 0, 1), stride=stride)
+    return y.permute(0, 2, 3, 1) + b.to(x.dtype)
+
+
 class Conv(nn.Module):
-    """k x k stride-1 SAME conv (k in {1, 3}); weight (k, k, Cin, Cout).
+    """k x k SAME conv (k in {1, 3}); weight (k, k, Cin, Cout); stride 1, or
+    2 (a 3x3, padded as XLA pads, always plain).
 
     ``impl`` (inference only): 'plain', or the layer-wise paths for a 3x3
     conv that ``conv3x3.supported`` takes: 'pallas' runs K11 on the weight
@@ -95,13 +120,16 @@ class Conv(nn.Module):
     until the parameter changes."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, init_scale: float = 1.0,
-                 generator=None):
+                 generator=None, stride: int = 1):
         super().__init__()
         self.weight = nn.Parameter(default_init(init_scale)((kernel, kernel, cin, cout), generator))
         self.bias = nn.Parameter(torch.zeros(cout))
+        self.stride = stride
         self._kw = _KernelWeights()
 
     def forward(self, x, impl: str = "plain"):
+        if self.stride != 1:
+            return conv_strided_nhwc(x, self.weight, self.bias, self.stride)
         q_in = x if isinstance(x, QuantizedActivation) else None
         shape, dtype = (q_in.shape, q_in.dtype) if q_in is not None else (x.shape, x.dtype)
         qualifies = impl in ("pallas", "int8") and c3.supported(shape, self.weight.shape,
@@ -167,6 +195,46 @@ class GaussianFourierProjection(nn.Module):
         return torch.cat([torch.sin(x_proj), torch.cos(x_proj)], -1)
 
 
+def get_timestep_embedding(timesteps, embedding_dim: int, max_positions: int = 10000):
+    """Sinusoidal positional embedding of float timesteps (B,), f32,
+    [sin | cos], zero-padded by one column at an odd width (layers.py:218-229)."""
+    assert timesteps.dim() == 1
+    half = embedding_dim // 2
+    scale = math.log(max_positions) / (half - 1)
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=timesteps.device) * -scale)
+    emb = timesteps.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], 1)
+    return F.pad(emb, (0, 1)) if embedding_dim % 2 else emb
+
+
+ACTS = {"elu": F.elu, "relu": F.relu, "lrelu": lambda x: F.leaky_relu(x, 0.2), "swish": F.silu}
+
+
+def get_act(name: str):
+    """The activation of ``model.nonlinearity`` (layers.py:231-242); swish is
+    ``F.silu``, the one the kernels fuse."""
+    try:
+        return ACTS[name.lower()]
+    except KeyError:
+        raise NotImplementedError(f"activation {name} unknown") from None
+
+
+class Combine(nn.Module):
+    """Combine an input-pyramid level with h: a 1x1 conv of x to h's width,
+    then concatenated ('cat') or added ('sum') (layers.py:245-258)."""
+
+    def __init__(self, cin: int, cout: int, method: str = "cat", generator=None):
+        super().__init__()
+        if method not in ("cat", "sum"):
+            raise ValueError(f"combine method {method} not recognized")
+        self.method = method
+        self.conv = Conv(cin, cout, 1, generator=generator)
+
+    def forward(self, x, y):
+        h = self.conv(x)
+        return torch.cat([h, y], -1) if self.method == "cat" else h + y
+
+
 def num_groups_for(c: int) -> int:
     return min(c // 4, 32)
 
@@ -192,11 +260,14 @@ class GroupNorm(nn.Module):
         return op(x, self.weight, self.bias, self.num_groups, self.eps, act)
 
 
-def norm_act(norm: GroupNorm, x, fused: bool = True, quantize_out: bool = False):
+def norm_act(norm: GroupNorm, x, fused: bool = True, quantize_out: bool = False, act=F.silu):
     """GroupNorm followed by SiLU, one kernel (K1), or with quantize_out K12's
     ``QuantizedActivation`` for an int8 conv that follows directly
-    (``layers.py:310-324``)."""
-    return norm(x, act=True, fused=fused, quantize_out=quantize_out)
+    (``layers.py:310-324``); another activation follows the GroupNorm on
+    its own, unquantized."""
+    if act is F.silu:
+        return norm(x, act=True, fused=fused, quantize_out=quantize_out)
+    return act(norm(x, act=False, fused=fused))
 
 
 def int8_conv_fusion_ok(x_shape, out_ch: int, impl: str) -> bool:

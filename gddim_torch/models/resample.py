@@ -1,8 +1,12 @@
-"""FIR up/down-sampling, NHWC (counterpart of ``gddim_tpu/models/resample.py``).
+"""FIR and naive up/down-sampling, NHWC (counterpart of
+``gddim_tpu/models/resample.py``).
 
-The upfirdn pipeline (zero-insert, pad, separable FIR, decimate) and the
-FIR-composed strided conv of ``conv_downsample_2d``, in plain torch: the JAX
-package computes these with XLA convolutions outside any Pallas kernel.
+The upfirdn pipeline (zero-insert, pad, separable FIR, decimate), the
+FIR-composed convs of ``upsample_conv_2d`` (zero-insert, then one conv) and
+``conv_downsample_2d`` (one strided conv), the naive resamplers (nearest up,
+the mean of each 2x2 down) and XLA's "SAME" average pool, in plain torch:
+the JAX package computes these with XLA operations outside any Pallas
+kernel.
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gddim_torch.models.layers import default_init
+from gddim_torch.models.layers import default_init, same_pads
 
 
 def _fir_taps(k) -> np.ndarray:
@@ -67,6 +71,30 @@ def downsample_2d(x, k=(1, 3, 3, 1), factor: int = 2, gain: float = 1.0):
     return _sep_fir(x, k1d, up=1, down=factor, pad0=(p + 1) // 2, pad1=p // 2, gain=gain)
 
 
+def _composed(w, k1d: np.ndarray, gain: float):
+    """The conv kernel w (HWIO) composed with the 2-D FIR taps, f32."""
+    s = torch.as_tensor(_compose_shift_tensor(w.shape[0], k1d) * gain, device=w.device)
+    return torch.einsum("deio,dexy->xyio", w.float(), s)
+
+
+def upsample_conv_2d(x, w, k=(1, 3, 3, 1), factor: int = 2, gain: float = 1.0):
+    """Zero-insert upsample + conv + FIR as one conv of the input dilated by
+    ``factor`` with the FIR-composed kernel (reference :89-165).
+    w: (kh, kw, Cin, Cout)."""
+    kh, kw, in_c, _ = w.shape
+    assert kh == kw and x.shape[-1] == in_c
+    k1d = _fir_taps(k)
+    p = (k1d.shape[0] - factor) - (kw - 1)
+    pad0, pad1 = (p + 1) // 2 + factor - 1, p // 2 + 1
+    kern = _composed(w, k1d, gain * factor ** 2).to(x.dtype)
+    b, h, wd, c = x.shape
+    y = x.new_zeros((b, c, (h - 1) * factor + 1, (wd - 1) * factor + 1))
+    y[:, :, ::factor, ::factor] = x.permute(0, 3, 1, 2)
+    lo, hi = kh - 1 + pad0, kh - 1 + pad1
+    y = F.conv2d(F.pad(y, (lo, hi, lo, hi)), kern.permute(3, 2, 0, 1))
+    return y.permute(0, 2, 3, 1)
+
+
 def conv_downsample_2d(x, w, k=(1, 3, 3, 1), factor: int = 2, gain: float = 1.0):
     """FIR + conv + decimate as one strided conv with the FIR-composed kernel.
     w: (kh, kw, Cin, Cout)."""
@@ -75,24 +103,45 @@ def conv_downsample_2d(x, w, k=(1, 3, 3, 1), factor: int = 2, gain: float = 1.0)
     k1d = _fir_taps(k)
     p = (k1d.shape[0] - factor) + (kw - 1)
     pad0, pad1 = (p + 1) // 2, p // 2
-    s = torch.as_tensor(_compose_shift_tensor(kw, k1d) * gain, device=w.device)
-    kern = torch.einsum("deio,dexy->xyio", w.float(), s).to(x.dtype)
+    kern = _composed(w, k1d, gain).to(x.dtype)
     y = F.pad(x.permute(0, 3, 1, 2), (pad0, pad1, pad0, pad1))
     y = F.conv2d(y, kern.permute(3, 2, 0, 1), stride=factor)
     return y.permute(0, 2, 3, 1)
 
 
+def naive_upsample_2d(x, factor: int = 2):
+    """Nearest upsample: each pixel repeated factor x factor times."""
+    return x.repeat_interleave(factor, 1).repeat_interleave(factor, 2)
+
+
+def naive_downsample_2d(x, factor: int = 2):
+    """The mean of each factor x factor block."""
+    n, h, w, c = x.shape
+    return x.reshape(n, h // factor, factor, w // factor, factor, c).mean((2, 4))
+
+
+def avg_pool_same(x, window: int = 2):
+    """flax's ``nn.avg_pool`` at stride ``window`` with "SAME" padding: zero
+    padding as XLA places it, counted in each window's mean."""
+    (t, b), (le, r) = (same_pads(n, window, window) for n in x.shape[1:3])
+    y = F.pad(x.permute(0, 3, 1, 2), (le, r, t, b))
+    return F.avg_pool2d(y, window, window).permute(0, 2, 3, 1)
+
+
 class Conv2d(nn.Module):
-    """Conv with fused FIR downsampling (reference up_or_down_sampling.py:40-73);
-    weight (k, k, Cin, Cout) as the JAX 'weight'."""
+    """Conv with fused FIR up- or downsampling (reference
+    up_or_down_sampling.py:40-73); weight (k, k, Cin, Cout) as the JAX
+    'weight'."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, resample_kernel=(1, 3, 3, 1),
-                 generator=None):
+                 generator=None, up: bool = False):
         super().__init__()
+        self.up = up
         self.resample_kernel = tuple(resample_kernel)
         self.weight = nn.Parameter(default_init()((kernel, kernel, cin, cout), generator))
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x):
-        y = conv_downsample_2d(x, self.weight, k=self.resample_kernel)
+        op = upsample_conv_2d if self.up else conv_downsample_2d
+        y = op(x, self.weight, k=self.resample_kernel)
         return y + self.bias.to(y.dtype)

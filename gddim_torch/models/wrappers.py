@@ -3,7 +3,11 @@
 CLD:
 - (x, v) channel stacking "b ... d g -> b ... (g d)" in and out
   (cld_jax/models/utils.py:141-164);
-- time conditioning labels = t * 999 (cld_jax/models/utils.py:172).
+- time conditioning labels = t * 999 (cld_jax/models/utils.py:172);
+- the mixed score (``model.mixed_score``, ``wrappers.py:86-89``): the
+  network's eps plus the analytic term invR(t) @ [0, v], in f32 whatever
+  the model's activation dtype (R(t) is small near t = 0, so invR reaches
+  ~1e3 there).
 
 Blur (``wrappers.py:109-143``): the network on plain image channels with
 labels ``sde.encode_t(t)`` = 999 t, and the DCT-space eps, iDCT -> network
@@ -13,6 +17,8 @@ labels ``sde.encode_t(t)`` = 999 t, and the DCT-space eps, iDCT -> network
 from __future__ import annotations
 
 import torch
+
+from gddim_torch.math.linalg2 import bmm
 
 
 def stack_uv_to_channels(u: torch.Tensor) -> torch.Tensor:
@@ -27,16 +33,22 @@ def unstack_channels_to_uv(h: torch.Tensor) -> torch.Tensor:
     return h.reshape(h.shape[:-1] + (2, d)).movedim(-2, -1)
 
 
+def mixed_score_term(sde, u, t_vec):
+    """invR(t) @ [0, v] per batch element, f32 (``wrappers.py:86-89``): u
+    (B, ..., d, 2) with its x half zeroed."""
+    v_only = torch.stack([torch.zeros_like(u[..., 1]), u[..., 1]], -1).float()
+    return bmm(sde.invR(t_vec.float()), v_only)
+
+
 def make_cld_eps_fn(sde, train: bool = False):
     """eps_apply(model, u, t_vec, generator=None) -> eps for the CLD score model.
 
     u: (B, ..., d, 2) f32; t_vec: (B,). eps comes back f32, whatever the
-    model's activation dtype. train=False: inference (no autograd, no
-    dropout); train=True: the model's training path, differentiable, with
-    dropout masks drawn from ``generator``.
+    model's activation dtype; with ``sde.mixed_score`` it carries the
+    analytic term ``mixed_score_term``. train=False: inference (no autograd,
+    no dropout); train=True: the model's training path, differentiable,
+    with dropout masks drawn from ``generator``.
     """
-    if sde.mixed_score:
-        raise NotImplementedError("mixed_score is not ported")
 
     def eps_apply(model, u, t_vec, generator=None):
         if train:
@@ -44,7 +56,10 @@ def make_cld_eps_fn(sde, train: bool = False):
         else:
             with torch.inference_mode():
                 out = model(stack_uv_to_channels(u), t_vec * 999.0)
-        return unstack_channels_to_uv(out.float())
+        eps = unstack_channels_to_uv(out.float())
+        if sde.mixed_score:
+            eps = eps + mixed_score_term(sde, u, t_vec)
+        return eps
 
     return eps_apply
 
