@@ -128,7 +128,6 @@ class ResnetBlockBigGANpp(nn.Module):
     every route runs the unfused layers, as the JAX package gates its
     kernels on ``act is nn.swish`` and a temb, blocks.py:355-356, 473)."""
 
-    conv_shortcut = False  # the DDPM block's 3x3 skip (its site "x" is not calibrated)
     # flax sub-scope -> attribute (convert.py); a block kind may differ
     subscopes = {"GroupNorm_0": "norm1", "Conv_0": "conv1", "Dense_0": "temb_dense",
                  "GroupNorm_1": "norm2", "Conv_1": "conv2", "Conv_2": "skip"}
@@ -268,7 +267,10 @@ class ResnetBlockBigGANpp(nn.Module):
 
         return self._kw8.get(params + amaxes, make, tag=(dtype,))
 
-    def _skip(self, x, impl: str):
+    def _skip(self, x, impl: str, sow=None):
+        """The 1x1 skip projection; sow sees its input (the int8 site "x")."""
+        if sow is not None:
+            sow("x", x)
         return self.skip(x)
 
     def _forward_layers(self, x, temb, fused: bool = True, impl: str = "plain", mask=None,
@@ -302,9 +304,7 @@ class ResnetBlockBigGANpp(nn.Module):
             h = h * (mask.to(h.dtype) * (1.0 / keep))
         h = self.conv2(h, impl)
         if self.skip is not None:
-            if sow is not None and not self.conv_shortcut:
-                sow("x", x)
-            x = self._skip(x, impl)
+            x = self._skip(x, impl, sow)
         out = x + h
         return out * rb._INV_SQRT2 if self.skip_rescale else out
 
@@ -361,10 +361,9 @@ class ResnetBlockDDPMpp(ResnetBlockBigGANpp):
         self.conv_shortcut = conv_shortcut
         super().__init__(cin, out_ch, temb_dim, skip_rescale=skip_rescale,
                          init_scale=init_scale, dropout=dropout, generator=generator, act=act)
-        self.subscopes = {**ResnetBlockBigGANpp.subscopes,
+        self.subscopes = {"GroupNorm_0": "norm1", "Conv_0": "conv1", "Dense_0": "temb_dense",
+                          "GroupNorm_1": "norm2", "Conv_1": "conv2",
                           "Conv_2" if conv_shortcut else "NIN_0": "skip"}
-        if not conv_shortcut:
-            del self.subscopes["Conv_2"]
 
     def _make_skip(self, cin, out_ch, generator):
         if cin == out_ch:
@@ -381,8 +380,10 @@ class ResnetBlockDDPMpp(ResnetBlockBigGANpp):
     def _kernels_ok(self, temb) -> bool:
         return super()._kernels_ok(temb) and not (self.skip is not None and self.conv_shortcut)
 
-    def _skip(self, x, impl: str):
-        return self.skip(x, impl) if self.conv_shortcut else self.skip(x)
+    def _skip(self, x, impl: str, sow=None):
+        if self.conv_shortcut:  # a 3x3 conv: its input is no int8 site
+            return self.skip(x, impl)
+        return super()._skip(x, impl, sow)
 
     def forward(self, x, temb, fused: bool = False, train: bool = False,
                 generator: torch.Generator | None = None, int8: bool = False,
