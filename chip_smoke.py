@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/H100 port on one CUDA card.
 
     python3 chip_smoke.py [--phases build,kernels,eps,gates,sample,int8,blur,samplers,blur_deis,
-                           configs,f32,train,blur_train,run_lib] [--batch 16]
+                           configs,f32,train,blur_train,run_lib,layer_f32,train_layer,remat,
+                           adamw,points,classifier] [--batch 16]
 
 Phases (each prints one line per check; any failure raises and exits non-zero):
   1. the card: torch.cuda must be available; prints nvidia-smi's name and
@@ -159,7 +160,35 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      snapshots 1-2 and again (read back from eval_meta.json), a full-width
      legacy export restored bit for bit whose samples equal the snapshot's,
      and InceptionV3 at B=64; each run's launches held to the per-step and
-     per-eval tables; the loop's img/s, the save and restore seconds.
+     per-eval tables; the loop's img/s, the save and restore seconds;
+ 11. layer_f32: the layer-wise paths on f32 activations: K11 through the
+     cast pre-pass with its f32 store, and K11 int8 storing f32, alone at the
+     13 main-path shapes and B=4/16/64 (K11 against its rounding-point plain
+     version and the f32 conv, K11 int8 bit for bit; device time beside
+     F.conv2d f32 channels_last with TF32 allowed, bound), then one
+     full-width eps evaluation of cld/accr_dcifar10 and of
+     blur/ddpm_deep_cifar10 under 'pallas' and 'int8' at model.dtype float32
+     against the f32 plain path (EPS_LAYER_BOUND), launches held to
+     PER_EVAL_PALLAS_F32 / PER_EVAL_LAYER_INT8_F32;
+ 12. train_layer: a B=128 f32 training step of cld/accr_dcifar10 under
+     'pallas' (K11's autograd.Function) with model.fused_train on and off,
+     against the all-plain path on the same draws and masks (TRAIN_BOUND),
+     launches held to PER_STEP_PALLAS / PER_STEP_PALLAS_UNFUSED; img/s and
+     peak memory beside the 'fused' step's;
+ 13. remat: one B=128 loss + backward in each model.remat mode, fused_train
+     on and off, gradients equal to remat off's (REMAT_BOUND); each mode's
+     step ms and peak memory (information only);
+ 14. adamw: 20 AdamW steps of cld/calib_cifar10's parameters on the card
+     against the CPU from the same gradients (ADAMW_BOUND);
+ 15. points: cld/points through run_lib.train on the card (1,500 steps at
+     B=512, as tests/test_e2e_points.py runs it), sscs NFE=100 samples held
+     to that test's statistics, deis-2 NFE=20 card against CPU, the
+     point-set PNG read back;
+ 16. classifier: WRN-28-10 at full width, B=64 f32: logits on the card
+     against the CPU (CLASSIFIER_BOUND); in f64, three draws of B=8,
+     logits and the guidance gradient card against CPU
+     (CLASSIFIER_F64_BOUND); the f32 gradient's error against the f64 one,
+     the card's and the CPU's (information only); ms a call.
 Then one line {"kernels": [...]}, one line with the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 
@@ -4959,6 +4988,550 @@ def phase_run_lib(card: str):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The layer-wise paths on f32 activations and in training, remat, AdamW, the
+# point set and the classifier
+# ---------------------------------------------------------------------------
+
+# K11 on f32 activations (model.dtype float32): the cast pre-pass's bf16 x,
+# bf16 weights, the f32 sums stored as f32. Against its plain version with
+# those roundings (conv3x3_bf16_reference): the same exact bf16 products,
+# summed in f32 in another order over at most 9 * 512 products, nothing
+# rounded after; against the f32 conv of x unrounded: the operands' bf16
+# rounding, held to K11's bf16 gate
+K11_F32_BOUND = {"rounding_points": 1e-4, "vs_f32": 1e-2}
+# an eval on f32 activations through the layer-wise paths: 'pallas' takes
+# the cast pre-pass before each of its 152 K11 launches; 'int8' takes K12's
+# f32 route at its 146 sites (GN statistics, the amax, the int8 pre-pass:
+# no gn_apply_kernel), K11 int8 storing f32
+PER_EVAL_PALLAS_F32 = {**PER_EVAL_PALLAS, "BF16-prepass": 152}
+PER_EVAL_LAYER_INT8_F32 = {"K1": 17, "K12": 146, "K11-int8": 152, "K8": 10, "S8-GEMM": 152,
+                           "GN-stats": 146, "S8-prepass": 146}
+LAYER_F32_CONFIGS = ("cld/accr_dcifar10", "blur/ddpm_deep_cifar10")
+# a training step of cld/accr_dcifar10 under conv_impl 'pallas' (f32): with
+# model.fused_train K6/K7 take the 70 stride-1 blocks and K11 (its
+# autograd.Function, the cast pre-pass before each launch) the 6
+# transitions' two convs; without it K11 runs in all 76 blocks' convs and K1
+# in every GroupNorm
+PER_STEP_PALLAS = {**PER_STEP, "K11": 12, "BF16-prepass": PER_STEP["BF16-prepass"] + 12}
+PER_STEP_PALLAS_UNFUSED = {"K1": PER_STEP["K1"] + 2 * TRAIN_BLOCKS, "K8": PER_STEP["K8"],
+                           "K11": 152, "BF16-prepass": 152}
+# remat recomputes the same operations (cuDNN held deterministic for the
+# phase): gradients within f32 rounding of the remat-off step's
+REMAT_BOUND = 1e-6
+# AdamW on the card against the same update on the CPU from the same
+# gradients: the same f32 operations, elementwise
+ADAMW_BOUND = 1e-6
+ADAMW_STEPS = 20
+# the point-set run of tests/test_e2e_points.py: 60 calls of 25 steps at
+# B=512, lr 1e-3, warmup 100, EMA 0.95, three layers; then its statistical
+# checks on 2,048 sscs NFE=100 samples
+POINTS_CALLS, POINTS_JITTED = 60, 25
+POINTS_STATS = {"mean": 0.25, "std": 0.25, "median_radius": 0.3, "radius_q95_over_q999": 0.5}
+# deis-2 NFE=20 of the trained MLP, the card against the CPU from one u0:
+# f32 in both, 20 steps
+POINTS_DEIS_BOUND = 1e-4
+# the classifier (WRN-28-10, f32, TF32 off for the comparison) on the card
+# against the CPU: the logits through 28 layers (f32 sums in another order)
+CLASSIFIER_BOUND = 1e-3
+# ... its guidance gradient in f32 carries the rounding of 28 relu layers
+# whose gates flip on last-bit differences: the JAX package's own f32
+# gradient of this network parts from its f64 one by 2.8e-2 of max|g|
+# (5.0e-3 in L2) on the CPU, and the card's f32 from the CPU's by 1.7e-2.
+# So the gradient is held card against CPU in f64 (logits and gradient),
+# where the same rounding is far below the gates' flips; each draw's f32
+# errors against the f64 gradient, the card's and the CPU's, are printed
+CLASSIFIER_F64_BOUND = 1e-9
+CLASSIFIER_F64_DRAWS = 3
+
+
+def check_conv_f32(inp, B: int, h: int, cin: int, cout: int, card: str) -> dict:
+    """K11 on f32 x at one shape: against its rounding-point plain version
+    and the f32 conv, one cast pre-pass and one K11 launch, device time (CUDA
+    graph) beside F.conv2d on f32 channels_last with TF32 allowed (cuDNN's
+    own choice for f32), the plain version's time and the bound (the bf16
+    tensor-core operations against the f32 bytes: x and out f32, w bf16)."""
+    from gddim_torch.ops import conv3x3, resblock as rb
+
+    label = f"B={B} {h}x{h} {cin}->{cout}"
+    x = torch.randn((B, h, h, cin), generator=inp.g, device="cuda")
+    w = inp.w(3, 3, cin, cout)
+    fused = lambda: conv3x3.conv3x3_pallas(x, w)  # noqa: E731
+    rb.block_launches(reset=True)
+    conv3x3.conv3x3_pallas.launches = 0
+    out = fused()
+    torch.cuda.synchronize()
+    pre = rb.block_launches(kernels=("prepass_kernel<bf16>",))["prepass_kernel<bf16>"]
+    k11 = conv3x3.conv3x3_pallas.launches
+    ref_rp, ref_f32 = conv3x3.conv3x3_bf16_reference(x, w), conv3x3.conv3x3_reference(x, w)
+    rel_rp, rel_f32 = _rel(out, ref_rp), _rel(out, ref_f32)
+    xc = x.permute(0, 3, 1, 2)
+    wc = w.float().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    torch.backends.cudnn.allow_tf32 = True
+    library = lambda: F.conv2d(xc, wc, padding=1)  # noqa: E731
+    lib_dev = graph_ms(library)
+    torch.backends.cudnn.allow_tf32 = False
+    dev, ms = graph_ms(fused), time_ms(fused, 5)
+    plain_ms = time_ms(lambda: conv3x3.conv3x3_bf16_reference(x, w), 1)
+    ops = 2 * B * h * h * 9 * cin * cout
+    bd = bound(nbytes(x, w, out), {"bf16": ops})
+    print(f"layer_f32 K11 f32 [{label}]: out {out.dtype}, rel vs its rounding-point plain "
+          f"version {rel_rp:.3e} (bound {K11_F32_BOUND['rounding_points']:.0e}), vs the f32 conv "
+          f"{rel_f32:.3e} (bound {K11_F32_BOUND['vs_f32']:.0e}); launches: pre-pass {pre}, K11 "
+          f"{k11}; device ms={dev:.4f} (F.conv2d f32 channels_last, TF32 allowed, {lib_dev:.4f}: "
+          f"{verdict(dev, lib_dev)}) ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bd[0]:.4f} "
+          f"({'bytes' if bd[1] >= bd[2] else 'operations'}) [{card}]", flush=True)
+    if not (out.dtype == torch.float32 and rel_rp <= K11_F32_BOUND["rounding_points"]
+            and rel_f32 <= K11_F32_BOUND["vs_f32"] and pre == 1 and k11 == 1):
+        raise AssertionError(f"K11 f32 {label}: {out.dtype}, rel {rel_rp:.3e} / {rel_f32:.3e}, "
+                             f"launches {pre} pre-pass, {k11} K11")
+    return dict(dev=dev, lib=lib_dev, plain=plain_ms, bound=bd[0], ops=ops, ms=ms)
+
+
+def check_conv_int8_f32(inp, B: int, h: int, cin: int, cout: int) -> dict:
+    """K11 int8 with the f32 store at one shape, bit for bit its exact plain
+    version's f32 values; device time and bound."""
+    from gddim_torch.ops import conv3x3, resblock as rb
+
+    label = f"B={B} {h}x{h} {cin}->{cout}"
+    x8, sx = conv3x3.quantize_per_sample(torch.randn((B, h, h, cin), generator=inp.g,
+                                                     device="cuda"))
+    w8, sw = conv3x3.quantize_weight_per_channel(inp.w(3, 3, cin, cout).float())
+    bias, wk = inp.vec(cout), rb.pack_int8_weight((w8, sw))[0]
+    f32 = torch.float32
+    fused = lambda: conv3x3.conv3x3_pallas_int8(x8, w8, sw, sx, bias, f32, w_kmajor=wk)  # noqa: E731
+    plain = lambda: conv3x3.conv3x3_int8_reference(x8, w8, sw, sx, bias, f32)  # noqa: E731
+    out = fused()
+    torch.cuda.synchronize()
+    ref = plain()
+    exact = out.dtype == f32 and torch.equal(out, ref)
+    err = (out - ref).abs().max().item()
+    dev, ms = graph_ms(fused), time_ms(fused, 5)
+    plain_ms = time_ms(plain, 1)
+    ops = 2 * B * h * h * 9 * cin * cout
+    bd = bound(nbytes(x8, wk, sw, sx, bias, out), {"int8": ops})
+    print(f"layer_f32 K11-int8 f32 store [{label}]: bit for bit its exact plain version: {exact} "
+          f"(max|err| {err:.3e}; {rb.s8_tile_plan(B, h, h, cin, 0, cout).splits} splits); device "
+          f"ms={dev:.4f} ({ops / PEAK['int8'] * 1e3 / dev:.1%} of the int8 peak) ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bd[0]:.4f}", flush=True)
+    if not exact:
+        raise AssertionError(f"K11-int8 f32 store {label}: max|err| {err:.3e}, {out.dtype}")
+    return dict(dev=dev, lib=0.0, plain=plain_ms, bound=bd[0], ops=ops, ms=ms)
+
+
+def _eps_case(config, batch: int = 4):
+    """(eps_apply, its input, t) of one eps evaluation of the config's family."""
+    from gddim_torch.math.blur import BlurSDE
+    from gddim_torch.math.cld import CLD
+    from gddim_torch.models.wrappers import make_blur_eps_fn, make_cld_eps_fn
+
+    u, t = eps_inputs(batch)
+    if config.sde == "cld":
+        return make_cld_eps_fn(CLD.from_config(config)), u, t
+    return make_blur_eps_fn(BlurSDE.from_config(config)), u[..., 0], t
+
+
+def phase_layer_f32(card: str, batches=(4, 16, 64)):
+    """The layer-wise paths on f32 activations: K11 (through the cast
+    pre-pass, f32 store) and K11 int8 (f32 store) alone at the 13 main-path
+    shapes and B=4/16/64, then one full-width eps evaluation of each of
+    LAYER_F32_CONFIGS under 'pallas' and 'int8' at model.dtype float32
+    against the f32 plain path (EPS_LAYER_BOUND), launches held to
+    PER_EVAL_PALLAS_F32 / PER_EVAL_LAYER_INT8_F32. Returns the eval counts."""
+    from gddim_torch.configs import get_config
+    from gddim_torch.models.init import seeded_model
+
+    inp = Inputs(21)
+    for batch in batches:
+        for key, check in (("K11 f32", check_conv_f32), ("K11-int8 f32 store",
+                                                         check_conv_int8_f32)):
+            rows = [check(inp, batch, h, cin, cout, card) if check is check_conv_f32
+                    else check(inp, batch, h, cin, cout) for h, cin, cout in SHAPES["K11"]]
+            tot = {k: sum(r[k] for r in rows) for k in rows[0]}
+            lib = (f", F.conv2d f32 channels_last TF32 allowed device {tot['lib']:.4f} ms "
+                   f"({verdict(tot['dev'], tot['lib'])})" if tot["lib"] else "")
+            kind = "int8" if "int8" in key else "bf16"
+            print(f"sum {key} B={batch}: 13 shapes, device {tot['dev']:.4f} ms, eager "
+                  f"{tot['ms']:.4f} ms, plain {tot['plain']:.4f} ms, bound {tot['bound']:.4f} ms "
+                  f"({tot['bound'] / tot['dev']:.1%} of it; {tot['ops'] / PEAK[kind] * 1e3 / tot['dev']:.1%} "
+                  f"of the {kind} peak){lib} [{card}]", flush=True)
+    counts = {}
+    for name in LAYER_F32_CONFIGS:
+        config = get_config(name)
+        config.model.dtype = "float32"
+        model = seeded_model(config, seed=0, device="cuda")
+        eps_apply, x, t = _eps_case(config)
+        model.fused = False
+        ref = eps_apply(model, x, t)
+        model.fused = True
+        for impl, per_eval in (("pallas", PER_EVAL_PALLAS_F32), ("int8", PER_EVAL_LAYER_INT8_F32)):
+            model.layer = impl
+            reset_counts()
+            got = eps_apply(model, x, t)
+            torch.cuda.synchronize()
+            got_counts = launches_of(per_eval)
+            key = f"{impl}_vs_f32"
+            rel = _rel(got, ref)
+            print(f"layer_f32 eps {name} B=4 t=0.5: '{impl}' on f32 activations vs the f32 plain "
+                  f"path rel={rel:.3e} (bound {EPS_LAYER_BOUND[key]:.0e}); out {got.dtype}; "
+                  f"launches {got_counts} [{card}]", flush=True)
+            if not np.isfinite(rel) or rel > EPS_LAYER_BOUND[key] or got_counts != per_eval:
+                raise AssertionError(f"layer_f32 {name} '{impl}': rel {rel:.3e}, launches "
+                                     f"{got_counts} != {per_eval}")
+            counts.update({k: n for k, n in got_counts.items() if k not in counts})
+        del model
+    return counts
+
+
+def _train_inputs(config, batch: int, seed: int = 5):
+    """A batch of the synthetic corpus and seeded t, z on the card."""
+    from gddim_torch.math.cld import CLD
+
+    sde = CLD.from_config(config)
+    images = next(synthetic_stream(config))[0][:batch]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t = 1e-5 + (sde.T - 1e-5) * torch.rand((batch,), generator=g, device="cuda")
+    z = torch.randn(images.shape + (2,), generator=g, device="cuda")
+    return sde, images, t, z
+
+
+def phase_train_layer(card: str):
+    """A cld/accr_dcifar10 training step at B=128, f32, conv_impl 'pallas'
+    (K11's autograd.Function), with model.fused_train on (K6/K7 in the
+    stride-1 blocks, K11 in the transitions) and off (K11 in every block):
+    loss and gradients against the all-plain path on the same t, z and
+    masks (the train phase's TRAIN_BOUND), launches held to PER_STEP_PALLAS /
+    PER_STEP_PALLAS_UNFUSED; img/s and peak memory beside the 'fused' step's.
+    Returns the counts."""
+    from gddim_torch.configs import train_config
+    from gddim_torch.models.init import seeded_model
+    from gddim_torch.train.losses import make_cld_loss_fn
+    from gddim_torch.train.state import create_train_state
+    from gddim_torch.train.step import make_train_step
+
+    config = train_config("cld/accr_dcifar10")
+    config.model.conv_impl = "pallas"
+    batch = int(config.training.batch_size)
+    model = seeded_model(config, seed=0, device="cuda").train()
+    sde, images, t, z = _train_inputs(config, batch)
+    loss_fn = make_cld_loss_fn(sde, train=True)
+    model.fused = False
+    loss_p, grads_p = _loss_and_grads(model, loss_fn, images, t, z, seed=9)
+    model.fused = True
+    counts = {}
+    for fused_train, per_step in ((True, PER_STEP_PALLAS), (False, PER_STEP_PALLAS_UNFUSED)):
+        model.fused_train = fused_train
+        reset_counts()
+        loss_k, grads_k = _loss_and_grads(model, loss_fn, images, t, z, seed=9)
+        torch.cuda.synchronize()
+        got = launches_of(per_step)
+        _check_train_step(loss_k, grads_k, loss_p, grads_p,
+                          f"B={batch} conv_impl='pallas' model.fused_train={fused_train}")
+        print(f"  launches {got}", flush=True)
+        if got != per_step:
+            raise AssertionError(f"train_layer launches {got} != {per_step}")
+        counts.update({k: n for k, n in got.items() if k not in counts})
+        del grads_k
+    del grads_p
+    state = create_train_state(config, model, torch.Generator(device="cuda").manual_seed(3))
+    train_step = make_train_step(loss_fn)
+    steps = next(synthetic_stream(config))
+    runs = [("fused", None, True), ("pallas", "pallas", True), ("pallas", "pallas", False),
+            ("pallas", "pallas", False), ("pallas", "pallas", True), ("fused", None, True)]
+    for name, layer, fused_train in runs:
+        model.layer, model.fused_train = layer, fused_train
+        loss, sec, peak = _timed_steps(state, train_step, steps)
+        if not np.isfinite(loss):
+            raise AssertionError(f"train_layer: non-finite loss {loss} ({name})")
+        print(f"train_layer conv_impl='{name}' model.fused_train={fused_train}: "
+              f"{len(steps)} steps B={batch} {sec:.3f} s, {len(steps) * batch / sec:.2f} img/s, "
+              f"peak {peak:.2f} GiB [{card}] (information only)", flush=True)
+    return counts
+
+
+def phase_remat(card: str):
+    """One loss + backward of cld/accr_dcifar10 at B=128, f32, conv_impl
+    'pallas', dropout 0.1, in each model.remat mode, with model.fused_train
+    on and off: every gradient within REMAT_BOUND of the remat-off step's
+    (cuDNN deterministic for the phase), the same state_dict keys; each
+    mode's step ms and peak memory printed (not gated)."""
+    from gddim_torch.configs import train_config
+    from gddim_torch.models.init import seeded_model
+    from gddim_torch.train.losses import make_cld_loss_fn
+
+    config = train_config("cld/accr_dcifar10")
+    config.model.conv_impl = "pallas"
+    batch = int(config.training.batch_size)
+    model = seeded_model(config, seed=0, device="cuda").train()
+    keys = list(model.state_dict())
+    sde, images, t, z = _train_inputs(config, batch)
+    loss_fn = make_cld_loss_fn(sde, train=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for fused_train in (True, False):
+            model.fused_train = fused_train
+            _loss_and_grads(model, loss_fn, images, t, z, seed=9)  # warm up this route
+            base = None
+            for mode in (False, True, "convs", "convs_lean"):
+                model.remat = mode
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                loss, grads = _loss_and_grads(model, loss_fn, images, t, z, seed=9)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                if base is None:
+                    base, worst = (loss, grads), (0.0, "")
+                else:
+                    largest = max(g.abs().max().item() for g in base[1].values())
+                    worst = max(((grads[n] - g).abs().max().item() / max(
+                        g.abs().max().item(), LEAF_FLOOR * largest if n.endswith(".k.bias")
+                        else 0.0, 1e-30), n) for n, g in base[1].items())
+                print(f"remat model.fused_train={fused_train} model.remat={mode!r}: loss "
+                      f"{loss.item():.6f}, worst gradient vs remat off {worst[0]:.3e} {worst[1]} "
+                      f"(bound {REMAT_BOUND:.0e}); loss + backward {ms:.1f} ms, peak {peak:.2f} "
+                      f"GiB B={batch} [{card}]", flush=True)
+                if (worst[0] > REMAT_BOUND or not np.isfinite(worst[0])
+                        or loss.item() != base[0].item() or list(model.state_dict()) != keys):
+                    raise AssertionError(f"remat {mode!r} (fused_train {fused_train}): gradients "
+                                         f"{worst}, loss {loss.item()} vs {base[0].item()}")
+                del grads
+            del base
+    finally:
+        torch.backends.cudnn.deterministic = False
+        model.remat = False
+
+
+def phase_adamw(card: str):
+    """ADAMW_STEPS AdamW updates (weight_decay 1e-2, lr 1e-3 with a 10-step
+    warmup, grad_clip 1) of cld/calib_cifar10's 293 parameter tensors on
+    the card, against the same updates on the CPU from the same seeded
+    gradients (some clipped, some not): parameters, moments and EMA within
+    ADAMW_BOUND."""
+    from gddim_torch.configs import train_config
+    from gddim_torch.models.init import seeded_model
+    from gddim_torch.train.state import apply_gradients, create_train_state, trainable
+
+    config = train_config("cld/calib_cifar10")
+    config.optim.weight_decay, config.optim.lr, config.optim.warmup = 1e-2, 1e-3, 10
+    states = {}
+    for dev in ("cuda", "cpu"):
+        states[dev] = create_train_state(config, seeded_model(config, 0, dev).train(),
+                                         torch.Generator(device=dev))
+    g = torch.Generator().manual_seed(8)
+    names = list(trainable(states["cpu"].model))
+    t0, card_s = time.perf_counter(), 0.0
+    for step in range(ADAMW_STEPS):
+        scale = 1e-4 if step % 3 == 2 else 1e-2  # every third step under the clip norm
+        grads = {n: scale * torch.randn(p.shape, generator=g)
+                 for n, p in trainable(states["cpu"].model).items()}
+        apply_gradients(states["cpu"], grads)
+        cuda_grads = {n: v.cuda() for n, v in grads.items()}
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        info = apply_gradients(states["cuda"], cuda_grads)
+        torch.cuda.synchronize()
+        card_s += time.perf_counter() - c0
+    worst = (0.0, "")
+    for part in ("model", "mu", "nu", "ema"):
+        a = trainable(states["cuda"].model) if part == "model" else getattr(states["cuda"], part)
+        b = trainable(states["cpu"].model) if part == "model" else getattr(states["cpu"], part)
+        for n in names:
+            want = b[n].detach()
+            rel = (a[n].detach().cpu() - want).abs().max().item() / max(
+                want.abs().max().item(), 1e-30)
+            worst = max(worst, (rel, f"{part} {n}"))
+    moved = max((trainable(states["cpu"].model)[n].detach() - states["cpu"].ema[n]).abs().max()
+                .item() for n in names)
+    print(f"adamw {ADAMW_STEPS} steps weight_decay 1e-2, {len(names)} tensors "
+          f"({sum(p.numel() for p in trainable(states['cpu'].model).values()) / 1e6:.1f}M "
+          f"values): the card against the CPU worst rel {worst[0]:.3e} ({worst[1]}; bound "
+          f"{ADAMW_BOUND:.0e}); last grad norm {float(info['grad_norm']):.4f}, lr "
+          f"{info['lr']:.2e}; {1e3 * card_s / ADAMW_STEPS:.2f} ms a step on the card, "
+          f"{time.perf_counter() - t0:.1f} s with the CPU's [{card}]", flush=True)
+    if worst[0] > ADAMW_BOUND or not np.isfinite(worst[0]) or moved == 0:
+        raise AssertionError(f"adamw: card vs CPU {worst}")
+
+
+def _read_png_gray(path: Path) -> np.ndarray:
+    """A grayscale PNG written by utils/images.py (8-bit, filter 0 rows)."""
+    import struct
+    import zlib
+
+    data = path.read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            size = struct.unpack(">II", body[:8])
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a row filter other than 0")
+    return rows[:, 1:]
+
+
+def phase_points(card: str):
+    """cld/points on the card: POINTS_CALLS x POINTS_JITTED training steps at
+    B=512 through gddim_torch.run_lib.train (the CLI's train mode; no kernel
+    runs: the MLP is four small products), the loss falling as
+    tests/test_e2e_points.py asks; 2,048 sscs NFE=100 samples from the EMA
+    weights held to that test's statistics (POINTS_STATS); deis-2 NFE=20 from
+    the same weights and u0 on the card against the CPU (POINTS_DEIS_BOUND);
+    the point-set PNG written and read back."""
+    import json as _json
+
+    from gddim_torch import run_lib
+    from gddim_torch.configs import get_config
+    from gddim_torch.data.pipelines import get_dataset
+    from gddim_torch.utils.images import rasterize_pointset
+
+    config = get_config("cld/points")
+    config.model.num_layers, config.training.n_jitted_steps = 3, POINTS_JITTED
+    config.training.n_iters = POINTS_CALLS * POINTS_JITTED
+    config.training.log_freq = POINTS_JITTED  # every call's loss
+    config.optim.warmup, config.optim.lr, config.model.ema_rate = 100, 1e-3, 0.95
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = run_lib.train(config, tmp, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches_of({})  # no kernel of the port on this path
+        records = [_json.loads(line) for line in Path(tmp, "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train/score_loss"] for r in records if "train/score_loss" in r]
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-5:]))
+    print(f"points cld/points {config.training.n_iters} steps B=512 through run_lib.train: "
+          f"{wall:.2f} s ({config.training.n_iters / wall:.0f} steps/s with the data), loss "
+          f"{first:.4f} (first 3 calls) -> {last:.4f} (last 5; bound < 0.7x) [{card}]", flush=True)
+    if len(losses) != POINTS_CALLS or not last < 0.7 * first or state.step != config.training.n_iters:
+        raise AssertionError(f"points: {len(losses)} logged calls, loss {first} -> {last}")
+    model = run_lib.use_ema(state)
+    train_iter, _ = get_dataset(config, additional_dim=POINTS_JITTED, prefetch=False)
+    data = next(train_iter)["image"].reshape(-1, 2)
+    sscs = copy.deepcopy(config)
+    sscs.sampling.method, sscs.sampling.nfe = "sscs", 100
+    gen = run_lib.stream_generator("cuda", config.seed, run_lib.STREAM_SAMPLES, 0)
+    t0 = time.perf_counter()
+    x, _, nfe = run_lib.build_sampling_fn(sscs)(gen, model, 2048)
+    torch.cuda.synchronize()
+    x = x.float().cpu().numpy()
+    r, r_data = (np.linalg.norm(a - a.mean(0), axis=1) for a in (x, data))
+    stats = {"mean": np.abs(x.mean(0) - data.mean(0)).max(),
+             "std": np.abs(x.std(0) - data.std(0)).max(),
+             "median_radius": abs(np.median(r) - np.median(r_data)),
+             "radius_q95_over_q999": np.quantile(r, 0.95) - np.quantile(r_data, 0.999)}
+    print(f"points sscs NFE={nfe} 2048 samples: {time.perf_counter() - t0:.2f} s; finite "
+          f"{np.isfinite(x).all()}; " + ", ".join(f"{k} {v:.4f} (bound {POINTS_STATS[k]})"
+                                                  for k, v in stats.items()), flush=True)
+    if nfe != 100 or not np.isfinite(x).all() or any(v >= POINTS_STATS[k] for k, v in stats.items()):
+        raise AssertionError(f"points sscs: nfe {nfe}, stats {stats}")
+    cpu_model = copy.deepcopy(model).cpu()
+    u0 = torch.randn((2048, 2, 2), generator=torch.Generator().manual_seed(4))
+    deis = run_lib.build_sampling_fn(config)
+    xc, vc, nfe = deis(None, model, u0=u0.cuda())
+    xh, vh, _ = deis(None, cpu_model, u0=u0)
+    rel = max(_rel(xc.cpu(), xh), _rel(vc.cpu(), vh))
+    print(f"points deis-{config.sampling.deis_order} NFE={nfe} 2048 samples: the card against the "
+          f"CPU from one u0 rel={rel:.3e} (bound {POINTS_DEIS_BOUND:.0e})", flush=True)
+    if nfe != 20 or not rel <= POINTS_DEIS_BOUND:
+        raise AssertionError(f"points deis card vs CPU: rel {rel:.3e}, nfe {nfe}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "points.png"
+        run_lib.save_samples_figure(x, path)
+        img = _read_png_gray(path)
+    want = (rasterize_pointset(x) * 255).astype(np.uint8)
+    same = img.shape == (260, 260) and np.array_equal(img[2:-2, 2:-2], want)
+    print(f"points save_pointset: {img.shape} PNG read back equal to the raster: {same}, "
+          f"{int((want > 0).sum())} lit pixels", flush=True)
+    if not same:
+        raise AssertionError("points: the PNG read back differs from its raster")
+
+
+def _classifier_run(model, x, sigma, labels, dtype, timed: bool = False):
+    """(logits, guidance gradient) of ``model`` on its device in ``dtype``
+    (and the ms of each call, timed on the card), launches held to none."""
+    from gddim_torch.models import wideresnet as wrn
+
+    dev = next(model.parameters()).device
+    logit_fn = wrn.get_logit_fn(model)
+    grad_fn = wrn.get_classifier_grad_fn(logit_fn)
+    args = [a.to(dev, dtype) for a in (x, sigma)]
+    lab = labels.to(dev)
+    reset_counts()
+    with torch.no_grad():
+        logits = logit_fn(*args)
+    grad = grad_fn(*args, lab)
+    ms = None
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        launches_of({})  # the classifier runs no kernel of the port
+        if timed:
+            with torch.no_grad():
+                ms = (time_ms(lambda: logit_fn(*args), 10), time_ms(lambda: grad_fn(*args, lab), 10))
+    return logits.double().cpu(), grad.double().cpu(), ms
+
+
+def phase_classifier(card: str, batch: int = 64, f64_batch: int = 8):
+    """WRN-28-10 at full width (38.9M parameters, seeded weights), 32x32:
+    at B=64 in f32 (TF32 off on the card) the logits on the card against
+    the CPU within CLASSIFIER_BOUND; in f64, CLASSIFIER_F64_DRAWS draws of
+    B=8, the card against the CPU, logits and the guidance gradient, within
+    CLASSIFIER_F64_BOUND; for each draw the f32 gradient's error against
+    the f64 one, the card's and the CPU's (information only); ms a call on
+    the card in f32. It runs no kernel."""
+    from gddim_torch.models import wideresnet as wrn
+
+    t0 = time.perf_counter()
+    classifier, _ = wrn.create_classifier(torch.Generator().manual_seed(0), batch, device="cuda")
+    cpu = copy.deepcopy(classifier).cpu()
+    card64, cpu64 = copy.deepcopy(classifier).double(), copy.deepcopy(cpu).double()
+
+    def draw(seed, n):
+        g = torch.Generator().manual_seed(seed)
+        x = torch.rand((n, 32, 32, 3), generator=g)
+        sigma = torch.exp(np.log(0.01) + (np.log(50.0) - np.log(0.01)) * torch.rand(n, generator=g))
+        return x, sigma, torch.randint(0, 10, (n,), generator=g)
+
+    f32, f64 = torch.float32, torch.float64
+    inputs = draw(1, batch)
+    l_card, g_card, ms = _classifier_run(classifier, *inputs, f32, timed=True)
+    t1 = time.perf_counter()
+    l_cpu, g_cpu, _ = _classifier_run(cpu, *inputs, f32)
+    t2 = time.perf_counter()
+    logit_rel = _rel(l_card, l_cpu)
+    rel64, ratios = 0.0, []
+    for seed in range(2, 2 + CLASSIFIER_F64_DRAWS):
+        small = draw(seed, f64_batch)
+        l64_card, g64_card, _ = _classifier_run(card64, *small, f64)
+        l64_cpu, g64_cpu, _ = _classifier_run(cpu64, *small, f64)
+        rel64 = max(rel64, *(((a - b).abs().max() / b.abs().max()).item()  # _rel rounds to f32
+                             for a, b in ((l64_card, l64_cpu), (g64_card, g64_cpu))))
+        err_card = _rel(_classifier_run(classifier, *small, f32)[1], g64_card)
+        err_cpu = _rel(_classifier_run(cpu, *small, f32)[1], g64_card)
+        ratios.append(f"seed {seed} card {err_card:.3e} CPU {err_cpu:.3e} "
+                      f"({err_card / err_cpu:.2f}x)")
+    t3 = time.perf_counter()
+    print(f"classifier WRN-28-10 32x32 f32 (TF32 off) B={batch}: logits, the card against the "
+          f"CPU rel={logit_rel:.3e} (bound {CLASSIFIER_BOUND:.0e}), the guidance gradients "
+          f"rel={_rel(g_card, g_cpu):.3e}; f64 {CLASSIFIER_F64_DRAWS} draws of B={f64_batch}: "
+          f"the card against the CPU, logits and gradient, worst rel={rel64:.3e} (bound "
+          f"{CLASSIFIER_F64_BOUND:.0e}); the f32 gradient against the f64 one (information "
+          f"only): {'; '.join(ratios)}; logits {ms[0]:.2f} ms, logits + gradient {ms[1]:.2f} ms "
+          f"a call in f32 [{card}]; phase {t1 - t0:.1f} s card f32, {t2 - t1:.1f} s CPU f32, "
+          f"{t3 - t2:.1f} s the draws", flush=True)
+    if not (logit_rel <= CLASSIFIER_BOUND and rel64 <= CLASSIFIER_F64_BOUND):
+        raise AssertionError(f"classifier: logits {logit_rel:.3e}, f64 {rel64:.3e}")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="smoke run of gddim_torch on one CUDA card")
     # opt-in phases: profile, ab, train_time (K6/K7 device time and a traced
@@ -4976,7 +5549,8 @@ def main(argv=None):
     # F.group_norm; --k1-save / --k1-ref hold two trees' outputs), each of the
     # three on a parent's checkout too
     parser.add_argument("--phases", default="build,kernels,eps,gates,sample,int8,blur,samplers,"
-                        "blur_deis,configs,f32,train,blur_train,run_lib")
+                        "blur_deis,configs,f32,train,blur_train,run_lib,layer_f32,train_layer,"
+                        "remat,adamw,points,classifier")
     parser.add_argument("--batch", type=int, default=16, help="sampling batch")
     parser.add_argument("--bits", default=None, help="phase bits: the file to save to")
     parser.add_argument("--bits-ref", default=None, help="phase bits: another tree's file")
@@ -5083,6 +5657,20 @@ def main(argv=None):
     if "run_lib" in phases:
         run_lib_counts = phase_run_lib(card)
         counts.update({k: n for k, n in run_lib_counts.items() if k not in counts})
+    if "layer_f32" in phases:
+        layer_f32_counts = phase_layer_f32(card)
+        counts.update({k: n for k, n in layer_f32_counts.items() if k not in counts})
+    if "train_layer" in phases:
+        train_layer_counts = phase_train_layer(card)
+        counts.update({k: n for k, n in train_layer_counts.items() if k not in counts})
+    if "remat" in phases:
+        phase_remat(card)
+    if "adamw" in phases:
+        phase_adamw(card)
+    if "points" in phases:
+        phase_points(card)
+    if "classifier" in phases:
+        phase_classifier(card)
     if "train_gemms" in phases and "kernels" not in phases:
         check_train_gemms({}, {})
     if "gn_bwd" in phases and "kernels" not in phases:

@@ -165,12 +165,13 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
     # gddim_conv3x3(x, w, B, H, W, Cin, N, mw, box_h, box_b, tiles_h, m_tiles, splits, kper,
-    #   work, out, stream)
-    "gddim_conv3x3": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    #   out_f32, work, out, stream)
+    "gddim_conv3x3": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # gddim_conv3x3_int8(x8, wk, w_scale, act_scale, bias, B, H, W, Cin, N, mw, box_h, box_b,
-    #   tiles_h, m_tiles, splits, kper, work, out, stream): K11 int8 on the int8 block GEMM
+    #   tiles_h, m_tiles, splits, kper, out_f32, work, out, stream): K11 int8 on the int8
+    #   block GEMM
     "gddim_conv3x3_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _P, _P, _P],
+                           _I, _P, _P, _P],
     # gddim_gn_silu_quant(x, act_f32, B, HW, C, groups, gamma, beta, eps, silu, ctas, work, q,
     #   qs, stream): K12
     "gddim_gn_silu_quant": [_P, _I, _I, _I, _I, _I, _P, _P, _F, _I, _I, _P, _P, _P, _P],

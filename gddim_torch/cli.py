@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import dataclasses
 import logging
 import sys
 from pathlib import Path
@@ -98,7 +99,8 @@ def _override(config, item: str):
         value = ast.literal_eval(raw)
     except (ValueError, SyntaxError):
         value = raw
-    if isinstance(getattr(node, field), bool) and isinstance(value, str):
+    types = {f.name: f.type for f in dataclasses.fields(node)}
+    if types.get(field) in (bool, "bool") and isinstance(value, str):
         if value.lower() not in ("true", "false"):
             raise SystemExit(f"--set {item}: {key} takes true or false")
         value = value.lower() == "true"

@@ -11,9 +11,11 @@ positional time embedding, naive resampling, no input pyramid; CelebA at
 64x64), ``cld/simple_cifar10`` (nf=32), ``cld/calib_cifar10`` (nf=128, 3
 levels), and for blurring diffusion ``blur/ddpm_deep_cifar10`` (the accr
 trunk on 3 channels), ``blur/ddpmpp_cifar10``, ``blur/simple_cifar10`` and
-``blur/debug_cifar10`` (nf=64, naive resampling). ``cld/default_cifar10``
-and ``blur/default_cifar10`` set no network (no ``model.name`` or ``nf``)
-and are not registered; ``cld/points`` (an MLP on point sets) is not ported.
+``blur/debug_cifar10`` (nf=64, naive resampling), and ``cld/points`` (the
+point-set MLP ``ps_fmlp`` on the Olympic rings, in f32; it keeps its file's
+sampling, deis order 2 at NFE=20). ``cld/default_cifar10`` and
+``blur/default_cifar10`` set no network (no ``model.name`` or ``nf``) and
+are not registered.
 
 Every model, data, training and EMA field takes the JAX file's value. The
 port's own sampling and execution defaults stand apart
@@ -176,8 +178,10 @@ class ModelConfig:
     dtype: str = "bfloat16"  # activations; parameters stay float32
     # 'fused' (the whole-block kernels) | 'fused_int8' (their int8 modes, as
     # bench.py ships the JAX package) | 'pallas' (layer-wise: GroupNorm and
-    # 3x3 conv kernels, bf16) | 'int8' (layer-wise, int8 convs fed by
-    # GroupNorm+SiLU+quantize) | 'plain' (torch composition; the JAX 'xla')
+    # 3x3 conv kernels on the activation dtype, bf16 or f32; in training K11
+    # with its backward) | 'int8' (layer-wise, int8 convs fed by
+    # GroupNorm+SiLU+quantize, out in the activation dtype; trained plain)
+    # | 'plain' (torch composition; the JAX 'xla')
     conv_impl: str = "fused"
     # the up/down transition blocks under 'fused' and 'fused_int8': 'full'
     # (the whole block in one C call, K9; the JAX package's
@@ -189,6 +193,11 @@ class ModelConfig:
     # ``train_supported`` takes them (False: their plain composition), the
     # JAX package's switch of the same name; the family's value
     fused_train: bool = True
+    # training: recompute the residual blocks' unfused layers in the
+    # backward (``gddim_tpu/models/unet.py:160-209``): False | True (the
+    # whole block) | 'convs' (keep the 3x3 conv outputs and the post-dropout
+    # activation) | 'convs_lean' (keep the conv outputs only)
+    remat: bool | str = False
 
 
 @dataclasses.dataclass
@@ -198,6 +207,18 @@ class CLDModelConfig(ModelConfig):
     beta_1: float = 0.0
     vv_gamma: float = 0.04
     mixed_score: bool = False
+
+
+@dataclasses.dataclass
+class PointsModelConfig(CLDModelConfig):
+    """``cld/points``: the point-set MLP's fields beside the CLD ones."""
+
+    num_layers: int = 4  # ps_fmlp's Dense + swish layers
+
+
+@dataclasses.dataclass
+class PointsDataConfig(DataConfig):
+    dim: int = 2  # the points' dimension
 
 
 @dataclasses.dataclass
@@ -278,6 +299,22 @@ def _calib() -> Config:  # cld/calib_cifar10.py
                 training__snapshot_freq_for_sampling=10**9, data__synthetic=True)
 
 
+def _points() -> Config:
+    """cld/points.py: the point-set MLP on the Olympic rings (on
+    cld/default_cifar10, whose training and sampling fields this sets where
+    they differ from accr's). ps_fmlp computes in f32 whatever model.dtype
+    says (the JAX module sets no dtype); its sampling is the file's own,
+    deis order 2 at NFE=20."""
+    config = Config(data=PointsDataConfig(), model=PointsModelConfig())
+    return _set(config, training__batch_size=512, training__n_iters=20001,
+                training__n_jitted_steps=10, training__snapshot_freq_for_sampling=5000,
+                training__eval_freq=1000, training__log_freq=500, data__dataset="ps_olympic",
+                data__dim=2, data__centered=True, model__name="ps_fmlp", model__nf=128,
+                model__num_layers=4, model__fourier_scale=16, model__ema_rate=0.999,
+                model__nonlinearity="swish", model__scale_by_sigma=False,
+                sampling__method="deis", sampling__nfe=20, sampling__deis_order=2)
+
+
 def _blur_debug() -> Config:  # blur/debug_cifar10.py
     return _set(blur_config(), training__eval_freq=500, training__n_jitted_steps=100,
                 training__snapshot_freq_for_sampling=1000, training__batch_size=32,
@@ -295,6 +332,7 @@ _CONFIGS = {
     "cld/ddpmpp_celeba": _ddpmpp_celeba,
     "cld/simple_cifar10": lambda: _set(Config(), **_SIMPLE),
     "cld/calib_cifar10": _calib,
+    "cld/points": _points,
     "blur/ddpm_deep_cifar10": blur_config,
     "blur/ddpmpp_cifar10": lambda: _set(blur_config(), model__num_res_blocks=4),
     "blur/simple_cifar10": lambda: _set(blur_config(), **_SIMPLE),
@@ -305,6 +343,7 @@ _CONFIGS = {
 EXECUTION_DEFAULTS = ("model.dtype", "model.conv_impl", "sampling.nfe", "sampling.deis_order")
 
 CONV_IMPLS = ("fused", "fused_int8", "pallas", "int8", "plain")
+REMATS = (False, True, "convs", "convs_lean")
 TRANSITION_IMPLS = ("tail", "full")
 
 

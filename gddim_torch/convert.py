@@ -13,6 +13,13 @@ U-Net, so each scope is looked up by its own name and index (never by a
 string sort, under which ``_70`` comes before ``_8``). Layouts are shared:
 nothing is transposed. ``qscales_from_flax`` carries the JAX package's int8
 calibration ('qscales' collection) over the same way.
+
+The other registered models keep ``scopes`` too: ``ps_fmlp``
+(``GaussianFourierProjection_0``, ``Dense_0..num_layers``) and the
+WideResNet classifier (``GaussianFourierProjection_0``, ``Dense_0..2``,
+``init_conv``, ``WideResnetGroup_0..2/WideResnetBlock_k/{init_bn, conv1,
+Dense_0, bn_2, conv2}``, ``pre-pool-bn``); ``check_scope_numbering``
+checks the numbering at every level.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ _SUBSCOPES = {
     layers.Combine: {"Conv_0": "conv"},
 }
 _SCOPE = re.compile(r"^(.*)_(\d+)$")
+# the names flax gives a module it numbers: its class name (CamelCase) and a count
+_AUTO = re.compile(r"^[A-Z][A-Za-z0-9]*_\d+$")
 
 
 def scope_key(name: str):
@@ -55,17 +64,17 @@ def scope_key(name: str):
 
 
 def module_pairs(mod, prefix: str = ""):
-    """[(flax path, torch key)] for one layer or block, relative to its scope."""
+    """[(flax path, torch key)] for one layer or block, relative to its
+    scope; a block's ``subscopes`` may hold blocks of their own."""
     subs = getattr(mod, "subscopes", None)
     if subs is None:
         subs = _SUBSCOPES.get(type(mod))
-    children = [((), "", mod)] if subs is None else [
-        ((sub,), f"{attr}.", getattr(mod, attr)) for sub, attr in subs.items()
-        if getattr(mod, attr) is not None
-    ]
-    return [(path + (leaf,), f"{prefix}{pre}{attr}")
-            for path, pre, child in children
-            for leaf, attr in _LEAVES[type(child)].items()]
+    if subs is None:
+        leaves = _LEAVES.get(type(mod)) or mod.flax_leaves
+        return [((leaf,), f"{prefix}{attr}") for leaf, attr in leaves.items()]
+    return [((sub,) + path, key)
+            for sub, attr in subs.items() if getattr(mod, attr) is not None
+            for path, key in module_pairs(getattr(mod, attr), f"{prefix}{attr}.")]
 
 
 def param_pairs(model):
@@ -86,17 +95,23 @@ def _flatten(tree, prefix=()):
 
 
 def check_scope_numbering(params: dict, empty=()) -> None:
-    """Each scope class of the tree's top level must be numbered 0..n-1,
-    counting the scopes named in ``empty``: those that hold no parameter
-    (an Upsample or Downsample without a conv), which flax numbers but
-    leaves out of the tree."""
+    """Each scope class of the tree must be numbered 0..n-1 at every level,
+    counting the top level's scopes named in ``empty``: those that hold no
+    parameter (an Upsample or Downsample without a conv), which flax numbers
+    but leaves out of the tree. Scopes named explicitly (the classifier's
+    ``init_conv`` and ``bn_2``, a leaf's ``kernel``: not a class name and a
+    count) are not numbered."""
     by_cls = collections.defaultdict(list)
     for name in set(params) | set(empty):
-        cls, idx = scope_key(name)
-        by_cls[cls].append(idx)
+        if _AUTO.match(name) is not None:
+            cls, idx = scope_key(name)
+            by_cls[cls].append(idx)
     for cls, idxs in by_cls.items():
         if sorted(idxs) != list(range(len(idxs))):
             raise ValueError(f"scopes of {cls} are not numbered 0..{len(idxs) - 1}")
+    for sub in params.values():
+        if isinstance(sub, dict):
+            check_scope_numbering(sub)
 
 
 def flax_to_state_dict(model, params: dict) -> dict:

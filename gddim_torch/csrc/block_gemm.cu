@@ -598,9 +598,10 @@ __global__ void __launch_bounds__(256) block_splitk_stats_kernel(const Plan p) {
 
 // K11 int8's split-K reduction: the int32 partials added in int32 (exact,
 // in any order), then the unsplit tile's arithmetic: the sum converted to
-// f32 once, times (wsc[n] * asc[b]), plus the bias, rounded once to bf16,
-// each operation rounded on its own as the plain version's. grid
-// ceil(M*N/2 / 256), 256 threads, 2 channels each.
+// f32 once, times (wsc[n] * asc[b]), plus the bias, rounded once to bf16 or
+// stored as f32 (TO), each operation rounded on its own as the plain
+// version's. grid ceil(M*N/2 / 256), 256 threads, 2 channels each.
+template <typename TO>
 __global__ void __launch_bounds__(256) block_splitk_s32_kernel(const Plan p) {
   const long mn = (long)p.B * p.H * p.W * p.N;
   const long v = ((long)blockIdx.x * 256 + threadIdx.x) * 2;
@@ -615,7 +616,7 @@ __global__ void __launch_bounds__(256) block_splitk_s32_kernel(const Plan p) {
   const int n = (int)(v % p.N);
   const float s = p.asc[v / p.N / (p.H * p.W)];
   const float2 cb = bias2(p, n);
-  store2((bf16*)p.out + v,
+  store2((TO*)p.out + v,
          __fadd_rn(__fmul_rn(__int2float_rn(r.x), __fmul_rn(p.wsc[n], s)), cb.x),
          __fadd_rn(__fmul_rn(__int2float_rn(r.y), __fmul_rn(p.wsc[n + 1], s)), cb.y));
 }
@@ -641,7 +642,7 @@ int launch(dim3 grid, const CUtensorMap* maps, const Plan& p, cudaStream_t st) {
   if (!err && p.splits > 1) {
     if constexpr (S32) {
       const long vecs = (long)p.B * p.H * p.W * p.N / 2;
-      block_splitk_s32_kernel<<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>(p);
+      block_splitk_s32_kernel<TO><<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>(p);
     } else if (p.gn_part != nullptr) {
       block_splitk_stats_kernel<TO><<<dim3(grid.x, p.N / 32, p.box_b), 256, 0, st>>>(p);
     } else {
@@ -661,10 +662,11 @@ int launch_mw(int mw, bool out_f32, dim3 grid, const CUtensorMap* maps, const Pl
       return mw == 1 ? launch<bf16, 1, float, false, true>(grid, maps, p, st)
                      : launch<bf16, 2, float, false, true>(grid, maps, p, st);
   } else {
-    // K11 int8 with K split (bf16 out, 128-pixel tiles: a plan of 256-pixel
-    // tiles fills the card unsplit): the int32 partials
+    // K11 int8 with K split (bf16 or f32 out, 128-pixel tiles: a plan of
+    // 256-pixel tiles fills the card unsplit): the int32 partials
     if (p.asc != nullptr && p.splits > 1)
-      return launch<int8_t, 1, bf16, false, false, true>(grid, maps, p, st);
+      return out_f32 ? launch<int8_t, 1, float, false, false, true>(grid, maps, p, st)
+                     : launch<int8_t, 1, bf16, false, false, true>(grid, maps, p, st);
   }
   if (p.gn_part != nullptr && p.splits == 1)  // GN2's sums in the epilogue (f32 out)
     return mw == 1 ? launch<TA, 1, float, true>(grid, maps, p, st)
@@ -691,8 +693,8 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
       (g.splits - 1) * g.kper >= slices || g.splits * g.kper < slices ||
       (g.splits > 1 && g.partial == nullptr) ||
       (g.int8 && (g.wsc == nullptr || (g.qs == nullptr && g.amax == nullptr && g.asc == nullptr))) ||
-      // K11 int8's scales: int8, bf16 out, no skip, residual, temb or statistics
-      (g.asc != nullptr && (!g.int8 || g.qs != nullptr || g.out_f32 || g.s0 || g.resid ||
+      // K11 int8's scales: int8, no skip, residual, temb or statistics
+      (g.asc != nullptr && (!g.int8 || g.qs != nullptr || g.s0 || g.resid ||
                             g.temb || g.gn_part != nullptr || (g.splits > 1 && t.mw != 1))) ||
       // a dgrad: bf16, f32 out, no skip, no statistics
       (g.w_kmajor && (g.int8 || !g.out_f32 || g.s0 || g.gn_part != nullptr)) ||
@@ -818,9 +820,10 @@ int gddim_conv_s8(const void* a8, const void* wk, const void* wsc, const void* q
                            (cudaStream_t)stream);
 }
 
-// K11 int8 on the block GEMM: out (B, H, W, N) bf16 = conv3x3(x8, wk) *
-// (wsc[n] * asc[b]) + bias[n] (bias may be null), the int32 sums of all 9
-// taps converted to f32 once, each operation rounded as the plain version's
+// K11 int8 on the block GEMM: out (B, H, W, N) = conv3x3(x8, wk) * (wsc[n] *
+// asc[b]) + bias[n] (bias may be null), bf16 or, with out_f32, f32 (stored
+// as computed: the f32 model's layer-wise int8 path), the int32 sums of all
+// 9 taps converted to f32 once, each operation rounded as the plain version's
 // (ops/conv3x3.py:conv3x3_int8_reference). x8 (B, H, W, Cin) int8, wk (N, 9
 // * Cin) int8 K-major (ops/resblock.py:pack_int8_weight), wsc (N,) and asc
 // (B,) f32; the tile plan of ops/resblock.py:s8_tile_plan(B, H, W, Cin, 0,
@@ -828,7 +831,7 @@ int gddim_conv_s8(const void* a8, const void* wk, const void* wsc, const void* q
 int gddim_conv3x3_int8(const void* x8, const void* wk, const void* wsc, const void* asc,
                        const void* bias, int batch, int h, int w, int cin, int n, int mw,
                        int box_h, int box_b, int tiles_h, int m_tiles, int splits, int kper,
-                       void* work, void* out, void* stream) {
+                       int out_f32, void* work, void* out, void* stream) {
   BlockGemm g = {};
   g.int8 = true;
   g.taps = 9;
@@ -844,6 +847,7 @@ int gddim_conv3x3_int8(const void* x8, const void* wk, const void* wsc, const vo
   g.bias = (const float*)bias;
   g.out_scale = 1.0f;
   g.out = out;
+  g.out_f32 = out_f32 != 0;
   g.partial = (float*)work;
   g.splits = splits;
   g.kper = kper;

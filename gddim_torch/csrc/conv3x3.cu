@@ -1,6 +1,6 @@
-// K11: the stride-1 SAME 3x3 convolution of the layer-wise inference path
-// conv_impl 'pallas', NHWC bf16 activations, HWIO weights, for Hopper
-// (sm_90a).
+// K11: the stride-1 SAME 3x3 convolution of the layer-wise path conv_impl
+// 'pallas' (sampling and, as the forward of its autograd.Function, training),
+// NHWC bf16 operands, HWIO weights, for Hopper (sm_90a).
 //
 // Replaces gddim_tpu/ops/conv3x3.py:conv3x3_pallas (_conv_kernel, nine
 // shifted matmuls with f32 sums, out in x's dtype). K11's int8 form
@@ -9,9 +9,13 @@
 //
 //   gddim_conv3x3       conv3x3_wgmma_kernel, an implicit GEMM (M = B*H*W
 //                       output pixels, N = Cout, K = 9*Cin) on wgmma fed by
-//                       TMA, f32 sums of exact bf16 products, rounded once
-//                       to bf16 (split-K sums f32 partials in split order
-//                       first).
+//                       TMA, f32 sums of exact bf16 products, stored in the
+//                       activations' type (split-K sums f32 partials in
+//                       split order first): rounded once to bf16, or (on
+//                       f32 activations, whose bf16 operand the block
+//                       GEMM's pre-pass writes, ops/conv3x3.py) stored as
+//                       the f32 sums themselves, as the TPU kernel's output
+//                       is x's dtype.
 //
 // What bounds it on the H100: at 32x32 and 16x16 the products (2*M*9*Cin*Cout
 // against M*(Cin+Cout) activation bytes and 9*Cin*Cout weight bytes) put it
@@ -87,8 +91,16 @@ struct WgPlan {
   int slices, kper;         // K slices of 64 in all, and per split
   int splits;
   float* partial;           // (splits, M, N) f32, when splits > 1
-  __nv_bfloat16* out;       // (M, N)
+  void* out;                // (M, N) of the output's type (TO)
 };
+
+// Two output values, rounded to bf16 or stored as they are
+__device__ __forceinline__ void put2(__nv_bfloat16* d, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(d) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void put2(float* d, float a, float b) {
+  *reinterpret_cast<float2*>(d) = make_float2(a, b);
+}
 
 // The output pixel of row r of tile (b0, y0), or -1 past the batch or the image.
 __device__ __forceinline__ long tile_row(const WgPlan& p, int b0, int y0, int r) {
@@ -101,8 +113,8 @@ __device__ __forceinline__ long tile_row(const WgPlan& p, int b0, int y0, int r)
 
 // grid (M tiles, N / 128, splits), WG_THREADS threads, WgTile<MW>::SMEM
 // dynamic shared memory. Split z accumulates the K slices [z*kper,
-// min((z+1)*kper, slices)).
-template <int MW>
+// min((z+1)*kper, slices)). TO: the output's type, bf16 or float.
+template <int MW, typename TO>
 __global__ void __launch_bounds__(WG_THREADS, 3 - MW)
 conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                      const __grid_constant__ CUtensorMap wmap, const WgPlan p) {
@@ -201,33 +213,39 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       }
     return;
   }
-  // the bf16 tile through shared memory, so that global stores are whole
-  // 16-byte pieces of rows: once every consumer warp is past its last wgmma
-  // the ring is free (the producer has exited; barrier 1 counts the consumers)
+  // the tile in the output's type through shared memory, so that global
+  // stores are whole 16-byte pieces of rows: once every consumer warp is past
+  // its last wgmma the ring is free (the producer has exited; barrier 1
+  // counts the consumers). A staged row is padded by 16 bytes.
   asm volatile("bar.sync 1, 256;" ::: "memory");
-  constexpr int LD = WG_BN + 8;  // staging row, padded
-  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(ring);
+  constexpr int VEC = 16 / sizeof(TO);  // output values of a 16-byte piece
+  constexpr int LD = WG_BN + VEC;       // staging row
+  static_assert(Tile::BM * LD * sizeof(TO) <= Tile::STAGES * Tile::STAGE_BYTES,
+                "the staged tile exceeds the ring");
+  TO* stage = reinterpret_cast<TO*>(ring);
 #pragma unroll
   for (int t = 0; t < MW; ++t)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int j = 0; j < 16; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(stage + (64 * (g * MW + t) + row0 + 8 * h) * LD +
-                                           col0 + 8 * j) =
-            __floats2bfloat162_rn(acc[t][4 * j + 2 * h], acc[t][4 * j + 2 * h + 1]);
+        put2(stage + (64 * (g * MW + t) + row0 + 8 * h) * LD + col0 + 8 * j,
+             acc[t][4 * j + 2 * h], acc[t][4 * j + 2 * h + 1]);
   asm volatile("bar.sync 1, 256;" ::: "memory");
-  for (int x = threadIdx.x; x < Tile::BM * (WG_BN / 8); x += 256) {
-    const int r = x / (WG_BN / 8), c = 8 * (x % (WG_BN / 8));
+  TO* out = reinterpret_cast<TO*>(p.out);
+  for (int x = threadIdx.x; x < Tile::BM * (WG_BN / VEC); x += 256) {
+    const int r = x / (WG_BN / VEC), c = VEC * (x % (WG_BN / VEC));
     const long m = tile_row(p, b0, y0, r);
     if (m >= 0)
-      *reinterpret_cast<uint4*>(p.out + m * p.N + n0 + c) =
+      *reinterpret_cast<uint4*>(out + m * p.N + n0 + c) =
           *reinterpret_cast<const uint4*>(stage + r * LD + c);
   }
 }
 
 // Split-K reduction: the f32 partials summed in split order, rounded once to
-// bf16. grid ceil(M*N/4 / 256), 256 threads, 4 channels each.
+// bf16 or stored as f32 (TO). grid ceil(M*N/4 / 256), 256 threads, 4
+// channels each.
+template <typename TO>
 __global__ void __launch_bounds__(256) wgmma_splitk_kernel(const WgPlan p) {
   const long mn = (long)p.B * p.H * p.W * p.N;
   const long v = ((long)blockIdx.x * 256 + threadIdx.x) * 4;
@@ -240,31 +258,39 @@ __global__ void __launch_bounds__(256) wgmma_splitk_kernel(const WgPlan p) {
     r.z += a.z;
     r.w += a.w;
   }
-  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(p.out + v);
-  dst[0] = __floats2bfloat162_rn(r.x, r.y);
-  dst[1] = __floats2bfloat162_rn(r.z, r.w);
+  TO* dst = reinterpret_cast<TO*>(p.out) + v;
+  put2(dst, r.x, r.y);
+  put2(dst + 2, r.z, r.w);
 }
 
-template <int MW>
+template <int MW, typename TO>
 int launch_wgmma(dim3 grid, const CUtensorMap& xmap, const CUtensorMap& wmap, const WgPlan& p,
                  cudaStream_t st) {
   static bool attr = false;
   if (!attr) {
-    const int err = (int)cudaFuncSetAttribute(
-        conv3x3_wgmma_kernel<MW>, cudaFuncAttributeMaxDynamicSharedMemorySize, WgTile<MW>::SMEM);
+    const int err = (int)cudaFuncSetAttribute(conv3x3_wgmma_kernel<MW, TO>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              WgTile<MW>::SMEM);
     if (err) return err;
     attr = true;
   }
-  conv3x3_wgmma_kernel<MW><<<grid, WG_THREADS, WgTile<MW>::SMEM, st>>>(xmap, wmap, p);
-  return (int)cudaGetLastError();
+  conv3x3_wgmma_kernel<MW, TO><<<grid, WG_THREADS, WgTile<MW>::SMEM, st>>>(xmap, wmap, p);
+  int err = (int)cudaGetLastError();
+  if (!err && p.splits > 1) {
+    const long vecs = (long)p.B * p.H * p.W * p.N / 4;
+    wgmma_splitk_kernel<TO><<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>(p);
+    err = (int)cudaGetLastError();
+  }
+  return err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// K11 bf16: out (B, H, W, N) bf16 = conv3x3(x (B, H, W, Cin) bf16, w (3, 3,
-// Cin, N) bf16), f32 sums. Cin a multiple of 64, N of 128, W at most 256.
+// K11: out (B, H, W, N) = conv3x3(x (B, H, W, Cin) bf16, w (3, 3, Cin, N)
+// bf16), f32 sums, out bf16 or, with out_f32, f32. Cin a multiple of 64, N
+// of 128, W at most 256.
 // The tile plan (ops/conv3x3.py:tile_plan): tiles of 128 * mw pixels (mw 1
 // or 2), the A box (box_w = W, box_h rows, box_b samples, at most one tile),
 // tiles_h M tiles per sample group along H, m_tiles in all, K split into
@@ -272,7 +298,7 @@ extern "C" {
 // Scratch `work`: splits * M * N f32 when splits > 1.
 int gddim_conv3x3(const void* x, const void* w, int batch, int h, int w_, int cin, int n,
                   int mw, int box_h, int box_b, int tiles_h, int m_tiles, int splits, int kper,
-                  void* work, void* out, void* stream) {
+                  int out_f32, void* work, void* out, void* stream) {
   const int slices = 9 * cin / WG_BK;
   if (cin % WG_BK || n % WG_BN || w_ > 256 || box_h < 1 || box_b < 1 || box_h > 256 ||
       box_b > 256 || (mw != 1 && mw != 2) || w_ * box_h * box_b > 128 * mw || splits < 1 || kper < 1 ||
@@ -292,7 +318,7 @@ int gddim_conv3x3(const void* x, const void* w, int batch, int h, int w_, int ci
   p.kper = kper;
   p.splits = splits;
   p.partial = (float*)work;
-  p.out = (__nv_bfloat16*)out;
+  p.out = out;
 
   CUtensorMap xmap, wmap;
   const cuuint64_t xdims[4] = {(cuuint64_t)cin, (cuuint64_t)w_, (cuuint64_t)h,
@@ -308,14 +334,11 @@ int gddim_conv3x3(const void* x, const void* w, int batch, int h, int w_, int ci
 
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid(m_tiles, n / WG_BN, splits);
-  int err = mw == 1 ? launch_wgmma<1>(grid, xmap, wmap, p, st)
-                    : launch_wgmma<2>(grid, xmap, wmap, p, st);
-  if (!err && splits > 1) {
-    const long vecs = (long)batch * h * w_ * n / 4;
-    wgmma_splitk_kernel<<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>(p);
-    err = (int)cudaGetLastError();
-  }
-  return err;
+  if (out_f32)
+    return mw == 1 ? launch_wgmma<1, float>(grid, xmap, wmap, p, st)
+                   : launch_wgmma<2, float>(grid, xmap, wmap, p, st);
+  return mw == 1 ? launch_wgmma<1, __nv_bfloat16>(grid, xmap, wmap, p, st)
+                 : launch_wgmma<2, __nv_bfloat16>(grid, xmap, wmap, p, st);
 }
 
 }  // extern "C"

@@ -13,9 +13,11 @@ iterators repeat. One process: the corpus is not sharded.
 Corpora: CIFAR-10 as the ``cifar-10-batches-py`` pickles or
 ``cifar10_{train,test}.npz``, other ``<name>_<split>.npz`` / ``<name>.npz``
 files at the configured size, or the synthetic corpus (``data.synthetic``,
-or no ``data.data_dir``). Not ported: the crops and resizes (PIL), image
-folders, TFRecord corpora (FFHQ, CelebA-HQ) and the points dataset; they
-raise.
+or no ``data.data_dir``), and the point sets (``ps_*``: the Olympic rings,
+12,800 points at noise 0.01, standardised per dimension; the JAX package
+draws them from an unseeded generator, the port from ``config.seed``). Not
+ported: the crops and resizes (PIL), image folders and TFRecord corpora
+(FFHQ, CelebA-HQ); they raise.
 """
 
 from __future__ import annotations
@@ -47,11 +49,25 @@ def get_data_inverse_scaler(config):
     return lambda x: x
 
 
+POINTSET_SIZE = 128 * 100  # points of the point-set corpus (pipelines.py:556)
+
+
 def get_data_shape(config):
-    """The samplers' per-sample shape (H, W, C)."""
+    """The samplers' per-sample shape: (H, W, C), or (dim,) for a point set."""
     if "ps" in config.data.dataset.lower():
-        raise NotImplementedError("the points dataset is not ported")
+        return (config.data.dim,)
     return (config.data.image_size, config.data.image_size, config.data.num_channels)
+
+
+def pointset_corpus(rng: np.random.Generator) -> np.ndarray:
+    """The point-set corpus (``gddim_tpu/data/pipelines.py:553-567``): the
+    Olympic rings drawn from ``rng`` at noise 0.01, standardised per
+    dimension, f32."""
+    from gddim_torch.data.pointset import olympic_generate_sample
+
+    raw = olympic_generate_sample(POINTSET_SIZE, noise=0.01, rng=rng)
+    raw = (raw - raw.mean(0, keepdims=True)) / raw.std(0, keepdims=True)
+    return raw.astype(np.float32)
 
 
 def _to_unit(images: np.ndarray) -> np.ndarray:
@@ -312,7 +328,13 @@ def get_dataset(config, additional_dim=None, uniform_dequantization=False, evalu
     num_epochs = 1 if evaluation else None
     name = config.data.dataset.lower()
     if "ps" in name:
-        raise NotImplementedError("the points dataset is not ported")
+        # the JAX package draws the corpus unseeded; the port from config.seed
+        raw = pointset_corpus(np.random.default_rng(config.seed))
+        train = ArrayDataset(raw, batch_dims, seed=config.seed, evaluation=evaluation,
+                             num_epochs=num_epochs, prefetch=prefetch)
+        eval_ds = ArrayDataset(raw, batch_dims, seed=config.seed + 1, evaluation=True,
+                               num_epochs=num_epochs, prefetch=prefetch)
+        return train, eval_ds
 
     if config.data.synthetic or not config.data.data_dir:
         n = SYNTHETIC_SIZE if not config.data.is_partial else 512

@@ -40,11 +40,22 @@ runs the plain composition on any device.
   545-584): stride-1 residual blocks (up-path pairs concatenated) through
   K6/K7 where ``train_supported`` takes them and ``fused_train`` is on (the
   JAX package's ``model.fused_train``), elsewhere, as the transitions, the
-  unfused layers with K1 for GN1 and GN2, and
+  unfused layers with K1 for GN1 and GN2 and, with ``layer='pallas'``, the
+  3x3 convs through K11's autograd.Function where its gate takes them
+  (conv1 and conv2 of those BigGAN blocks and of every DDPM block, and a
+  DDPM block's 3x3 conv shortcut: the JAX package's ``conv3x3`` calls,
+  which its ``CONV3X3_IMPL`` sends to ``conv3x3_pallas`` in training too;
+  'int8' trains them plain, the JAX "training-safe fallback"), and
   attention as K1 GroupNorm, the NIN projections and K8, or with
-  ``fused_attn`` as K10 (blocks.py:107-133, GDDIM_FUSED_ATTN_TRAIN=1 there).
-  Dropout masks are drawn in the block, outside any kernel, from the
-  caller's generator.
+  ``fused_attn`` as K10 (blocks.py:107-133, GDDIM_FUSED_ATTN_TRAIN=1 there;
+  its projections are NINs, never K11). Dropout masks are drawn in the
+  block, outside any kernel, from the caller's generator. ``remat``
+  (``model.remat``, gddim_tpu/models/unet.py:160-209) recomputes the unfused
+  layers' activations in the backward: True the whole block
+  (``torch.utils.checkpoint``), 'convs' / 'convs_lean' all but the 3x3
+  conv outputs (``_RematConv``); the K6/K7 blocks save only x and the mask
+  already and take no remat, as the JAX config notes (the fused block
+  replaces remat, default_cifar10.py:99-105).
 
 A block with another activation than swish, or without a temb, runs its
 unfused layers on every path (K1 for its GroupNorms with fused), as the
@@ -59,6 +70,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gddim_torch.models import resample
 from gddim_torch.models.layers import (
@@ -74,6 +86,7 @@ from gddim_torch.models.layers import (
 from gddim_torch.ops import attnblock as attn_ops
 from gddim_torch.ops import resblock as rb
 from gddim_torch.ops.attention import self_attention_2d
+from gddim_torch.ops.conv3x3 import conv3x3_vjp
 
 
 def _bf16(params):
@@ -104,6 +117,53 @@ def _kmajor(w) -> bool:
     attention projections by ``pack_projection``): on the card; the plain
     versions take the JAX layout too."""
     return w.is_cuda
+
+
+class _RematConv(torch.autograd.Function):
+    """y = conv(chain(*acts)) + b for the selective remat modes: the forward
+    keeps the chain's inputs and the conv output y (the caller holds it), not
+    the chain's activations; ``keep`` also keeps the conv's input (the
+    post-dropout activation of 'convs'), which the weight gradient then
+    reads in place of the recomputed one. The backward recomputes the chain
+    from its inputs, takes the conv's VJP (``conv3x3_vjp``, the conv not run
+    again) and the chain's by autograd. ``params``: the parameters the chain
+    reads, passed as inputs so that their gradients come back here."""
+
+    @staticmethod
+    def forward(ctx, chain, conv_fn, keep, n_acts, *tensors):
+        acts = tensors[:n_acts]
+        a = chain(*acts)
+        y = conv_fn(a)
+        ctx.chain, ctx.n_acts, ctx.keep = chain, n_acts, keep
+        ctx.save_for_backward(*tensors, *((a,) if keep else ()))
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        saved = ctx.saved_tensors
+        n, tensors = ctx.n_acts, saved[:len(saved) - int(ctx.keep)]
+        acts, rest = tensors[:n], tensors[n:]
+        params, w, b = rest[:-2], rest[-2], rest[-1]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(t.requires_grad) for t in acts]
+            a = ctx.chain(*ins)
+        da, dw = conv3x3_vjp(saved[-1] if ctx.keep else a.detach(), w, gy)
+        wrt = [t for t in ins + list(params) if t.requires_grad]
+        got = iter(torch.autograd.grad(a, wrt, da.to(a.dtype), allow_unused=True) if wrt else ())
+        grads = [next(got) if t.requires_grad else None for t in ins + list(params)]
+        db = gy.sum_to_size(b.shape)
+        return (None, None, None, None, *grads, dw.to(w.dtype), db.to(b.dtype))
+
+
+def remat_conv(conv: Conv, impl: str, chain, acts, params, keep: bool = False):
+    """conv(chain(*acts), impl) through ``_RematConv`` (a 3x3 conv of
+    stride 1): the chain recomputed in the backward, the conv output kept."""
+
+    def conv_fn(a):
+        return conv(a, impl)
+
+    return _RematConv.apply(chain, conv_fn, keep, len(acts), *acts, *params, conv.weight,
+                            conv.bias)
 
 
 # (int8 kernel, bf16 kernel, plain composition) of each residual block kind
@@ -179,11 +239,14 @@ class ResnetBlockBigGANpp(nn.Module):
     def forward(self, x, temb, fused: bool = False, train: bool = False,
                 generator: torch.Generator | None = None, int8: bool = False,
                 qscales: dict | None = None, sow=None, layer: str | None = None,
-                transition: str = "tail", temb_row=None, fused_train: bool = True):
+                transition: str = "tail", temb_row=None, fused_train: bool = True,
+                remat: bool | str = False):
         """x: (B, H, W, C), or the up path's (h, skip) pair. train: dropout
         masks from ``generator``, and the differentiable kernels. int8 (with
         fused): the int8 kernels, static scales from this block's ``qscales``
-        amaxes. layer (with fused): the layer-wise path, 'pallas' or 'int8'.
+        amaxes. layer (with fused): the layer-wise path, 'pallas' or 'int8'
+        (in training: K11's autograd.Function for 'pallas', the plain convs
+        for 'int8'). remat (with train): the unfused layers' remat mode.
         transition='full' (with fused, an up/down block): the whole block
         through K9 where ``transition_supported`` takes it, else K1, the
         resample and K4. With fused, each kernel runs where its gate takes
@@ -195,7 +258,7 @@ class ResnetBlockBigGANpp(nn.Module):
         unfused layers (K1 for its GroupNorms with fused) in place of K6/K7
         (``model.fused_train``)."""
         if train:
-            return self._forward_train(x, temb, fused, generator, fused_train)
+            return self._forward_train(x, temb, fused, generator, fused_train, layer, remat)
         if fused and layer is not None:
             return self._forward_layers(x, temb, impl=layer)
         if not self._kernels_ok(temb):
@@ -274,39 +337,77 @@ class ResnetBlockBigGANpp(nn.Module):
         return self.skip(x)
 
     def _forward_layers(self, x, temb, fused: bool = True, impl: str = "plain", mask=None,
-                        keep: float = 1.0, sow=None):
+                        keep: float = 1.0, sow=None, remat=None):
         """The block layer by layer (gddim_tpu/models/blocks.py:539-584): the
         pair concatenated; GN1 and GN2 with the activation (K1 with fused,
         else plain; ``impl`` 'int8' with swish: K12 where an int8 3x3 conv
         follows directly), the resample, the 3x3 convs through K11 where
-        ``impl`` ('pallas' bf16, 'int8') takes them, the temb Dense, the
-        dropout ``mask`` (training), the skip projection. sow(site, t) sees
-        the int8 quantization sites as the plain composition's."""
+        ``impl`` ('pallas' bf16 or f32, 'int8') takes them, the temb Dense,
+        the dropout ``mask`` (training), the skip projection. sow(site, t)
+        sees the int8 quantization sites as the plain composition's.
+        remat ('convs' or 'convs_lean', training): each 3x3 conv with the
+        chain before it through ``_RematConv``, which keeps the conv outputs
+        and ('convs') the post-dropout activation."""
         if isinstance(x, (tuple, list)):
             x = torch.cat(x, -1)
         out_ch = self.conv1.weight.shape[-1]
         resampled = self.up or self.down
         swish = self.act is F.silu
         fuse1 = swish and not resampled and int8_conv_fusion_ok(x.shape, out_ch, impl)
-        h = norm_act(self.norm1, x, fused, fuse1, self.act)
+
+        def chain1(x_):  # x -> conv1's input
+            h_ = norm_act(self.norm1, x_, fused, fuse1, self.act)
+            h_ = self._resample(h_) if resampled else h_
+            if sow is not None:
+                sow("a1", h_)
+            return h_
+
+        def chain2(h_, *temb_):  # conv1's output -> conv2's input
+            if self.temb_dense is not None:
+                h_ = h_ + self.temb_dense(self.act(temb_[0]))[:, None, None, :].to(h_.dtype)
+            fuse2 = swish and int8_conv_fusion_ok(h_.shape, out_ch, impl)
+            h_ = norm_act(self.norm2, h_, fused, fuse2, self.act)
+            if sow is not None:
+                sow("a2", h_)
+            if mask is not None:
+                h_ = h_ * (mask.to(h_.dtype) * (1.0 / keep))
+            return h_
+
+        temb_in = () if self.temb_dense is None else (temb,)
+        if remat is None:
+            h = self.conv1(chain1(x), impl)
+            h = self.conv2(chain2(h, *temb_in), impl)
+        else:
+            p2 = [*self.norm2.parameters()] + (
+                [*self.temb_dense.parameters()] if self.temb_dense is not None else [])
+            h = remat_conv(self.conv1, impl, chain1, [x], [*self.norm1.parameters()])
+            h = remat_conv(self.conv2, impl, chain2, [h, *temb_in], p2, keep=remat == "convs")
         if resampled:
-            h, x = self._resample(h), self._resample(x)
-        if sow is not None:
-            sow("a1", h)
-        h = self.conv1(h, impl)
-        if self.temb_dense is not None:
-            h = h + self.temb_dense(self.act(temb))[:, None, None, :].to(h.dtype)
-        fuse2 = swish and int8_conv_fusion_ok(h.shape, out_ch, impl)
-        h = norm_act(self.norm2, h, fused, fuse2, self.act)
-        if sow is not None:
-            sow("a2", h)
-        if mask is not None:
-            h = h * (mask.to(h.dtype) * (1.0 / keep))
-        h = self.conv2(h, impl)
+            x = self._resample(x)
         if self.skip is not None:
             x = self._skip(x, impl, sow)
         out = x + h
         return out * rb._INV_SQRT2 if self.skip_rescale else out
+
+    def _train_layers(self, x, temb, fused, layer, mask, keep, remat):
+        """The unfused layers in training: ``layer`` 'pallas' sends the 3x3
+        convs through K11's autograd.Function; any other setting, 'int8'
+        included, trains them plain (JAX's ``allow_quantized=not train``).
+        ``Conv.forward`` alone cannot decide that here: with 'int8' the
+        K12 fusion would quantize GN's output, and under the selective
+        remat the conv runs inside ``_RematConv.forward``, where autograd
+        does not record. ``remat`` True recomputes the whole
+        block in the backward (non-reentrant ``checkpoint``: the mask is an
+        input, drawn before, so the recompute applies the same one), 'convs'
+        and 'convs_lean' all but the conv outputs."""
+        impl = "pallas" if fused and layer == "pallas" else "plain"
+        if remat is True:
+            def run(x_, temb_, mask_):
+                return self._forward_layers(x_, temb_, fused, impl, mask=mask_, keep=keep)
+
+            return checkpoint(run, x, temb, mask, use_reentrant=False)
+        return self._forward_layers(x, temb, fused, impl, mask=mask, keep=keep,
+                                    remat=remat or None)
 
     def _dropout_mask(self, shape, generator):
         """(the (B, H, W, Cout) int8 keep mask drawn from ``generator``, or
@@ -317,7 +418,8 @@ class ResnetBlockBigGANpp(nn.Module):
         probs = torch.full(shape, keep, device=self.conv1.weight.device)
         return torch.bernoulli(probs, generator=generator).to(torch.int8), keep
 
-    def _forward_train(self, x, temb, fused, generator, fused_train=True):
+    def _forward_train(self, x, temb, fused, generator, fused_train=True, layer=None,
+                       remat=False):
         if isinstance(x, (tuple, list)):
             x = torch.cat(x, -1)
         b, h, w, _ = x.shape
@@ -339,8 +441,8 @@ class ResnetBlockBigGANpp(nn.Module):
                 num_groups1=self.norm1.num_groups, num_groups2=self.norm2.num_groups,
                 eps=self.norm2.eps, skip_rescale=self.skip_rescale)
         # the unfused layers (gddim_tpu/models/blocks.py:545-584): K1 for GN1
-        # and GN2 with fused, the resample in a transition
-        return self._forward_layers(x, temb, fused, mask=mask, keep=keep)
+        # and GN2 with fused, the resample in a transition, K11 with 'pallas'
+        return self._train_layers(x, temb, fused, layer, mask, keep, remat)
 
 
 class ResnetBlockDDPMpp(ResnetBlockBigGANpp):
@@ -388,7 +490,8 @@ class ResnetBlockDDPMpp(ResnetBlockBigGANpp):
     def forward(self, x, temb, fused: bool = False, train: bool = False,
                 generator: torch.Generator | None = None, int8: bool = False,
                 qscales: dict | None = None, sow=None, layer: str | None = None,
-                transition: str = "tail", temb_row=None, fused_train: bool = True):
+                transition: str = "tail", temb_row=None, fused_train: bool = True,
+                remat: bool | str = False):
         """As ``ResnetBlockBigGANpp.forward``; ``transition`` and
         ``fused_train`` have no block to act on."""
         if isinstance(x, (tuple, list)):
@@ -396,7 +499,7 @@ class ResnetBlockDDPMpp(ResnetBlockBigGANpp):
         if train:
             b, h, w, _ = x.shape
             mask, keep = self._dropout_mask((b, h, w, self.conv1.weight.shape[-1]), generator)
-            return self._forward_layers(x, temb, fused, mask=mask, keep=keep)
+            return self._train_layers(x, temb, fused, layer, mask, keep, remat)
         return super().forward(x, temb, fused, False, generator, int8, qscales, sow, layer,
                                transition, temb_row, fused_train)
 
@@ -500,7 +603,7 @@ class Upsample(nn.Module):
 
     def forward(self, x, impl: str = "plain"):
         """impl: the nearest path's conv through K11 ('pallas', 'int8') where
-        it takes the shape."""
+        it takes the shape (in training 'pallas' only: ``Conv``)."""
         if self.fir:
             return resample.upsample_2d(x, self.fir_kernel) if self.conv is None else self.conv(x)
         y = resample.naive_upsample_2d(x)

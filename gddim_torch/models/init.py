@@ -1,4 +1,5 @@
-"""Seeded weights that exercise every branch of the network.
+"""Seeded weights that exercise every branch of the network (the
+configured model, ``model.name`` in the registry).
 
 The configs' own init (``init_scale=0``) draws each block's second conv and
 each attention block's output projection at scale 1e-10, so those branches
@@ -20,10 +21,10 @@ def seeded_params(config, seed: int) -> dict:
     """Flax-layout param tree: weights ~ N(0, 1/fan_in), GroupNorm scales
     1 + 0.1 N, biases 0.1 N; the Fourier frequencies N(0, fourier_scale^2)."""
     from gddim_torch.convert import param_pairs
-    from gddim_torch.models.unet import NCSNpp
+    from gddim_torch.models.registry import get_model
 
     with torch.device("meta"):
-        model = NCSNpp(config)
+        model = get_model(config.model.name)(config)
     shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     rng = np.random.default_rng(seed)
     tree: dict = {}
@@ -47,12 +48,12 @@ def seeded_params(config, seed: int) -> dict:
 
 
 def seeded_model(config, seed: int, device="cpu"):
-    """An NCSNpp on ``device`` holding ``seeded_params(config, seed)``."""
+    """The configured model on ``device`` holding ``seeded_params(config, seed)``."""
     from gddim_torch.convert import flax_to_state_dict
-    from gddim_torch.models.unet import NCSNpp
+    from gddim_torch.models.registry import get_model
 
     with torch.device("meta"):
-        model = NCSNpp(config)
+        model = get_model(config.model.name)(config)
     sd = flax_to_state_dict(model, seeded_params(config, seed))
     model = model.to_empty(device=device)
     model.load_state_dict(sd)

@@ -4,11 +4,12 @@ Parameters keep the JAX package's layouts, so converted weights load as
 they are: conv kernels HWIO, Dense and NIN kernels (in, out). Activations are
 NHWC. Parameters stay float32; a layer computes in its input's dtype.
 
-The layer-wise inference paths (``conv_impl`` 'pallas' and 'int8',
+The layer-wise paths (``conv_impl`` 'pallas' and 'int8',
 ``layers.py:42-149,261-343``) pass their choice to each call: ``Conv``
-runs a qualifying 3x3 conv through K11 (``ops/conv3x3.py``), bf16 or int8,
-and ``GroupNorm(quantize_out=True)`` emits a ``QuantizedActivation``
-through K12, which the int8 conv takes without another quantize pass.
+runs a qualifying 3x3 conv through K11 (``ops/conv3x3.py``) on bf16 or f32
+activations, in its int8 form at inference, and
+``GroupNorm(quantize_out=True)`` emits a ``QuantizedActivation`` through
+K12, which the int8 conv takes without another quantize pass.
 ``get_act``, ``get_timestep_embedding`` and ``Combine`` are the JAX
 package's (``layers.py:218-258``); a stride-2 ``Conv`` pads as XLA's
 "SAME" does.
@@ -85,6 +86,20 @@ def default_init(scale: float = 1.0):
     return init
 
 
+def lecun_normal():
+    """flax's default Dense kernel init: a normal truncated at 2 standard
+    deviations, scaled to variance 1 / fan_in."""
+
+    def init(shape, generator=None):
+        std = math.sqrt(1.0 / shape[-2]) / 0.87962566103423978
+        lo = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0
+        hi = 1.0 - lo
+        u = lo + (hi - lo) * torch.rand(shape, generator=generator, dtype=torch.float32)
+        return std * math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
+
+    return init
+
+
 def same_pads(n: int, k: int, stride: int) -> tuple:
     """XLA's "SAME" padding (before, after) of one axis of n pixels under a
     k-tap window at ``stride``: ceil(n / stride) outputs, the total padding
@@ -109,15 +124,22 @@ class Conv(nn.Module):
     """k x k SAME conv (k in {1, 3}); weight (k, k, Cin, Cout); stride 1, or
     2 (a 3x3, padded as XLA pads, always plain).
 
-    ``impl`` (inference only): 'plain', or the layer-wise paths for a 3x3
-    conv that ``conv3x3.supported`` takes: 'pallas' runs K11 on the weight
-    in the activation dtype and adds the bias in that dtype; 'int8' runs
-    K11's int8 form on the incoming ``QuantizedActivation`` (or on
+    ``impl``: 'plain', or the layer-wise paths for a 3x3 conv that
+    ``conv3x3.supported`` takes: 'pallas' runs K11 on the weight in the
+    activation dtype (bf16 or f32) and adds the bias in that dtype; 'int8'
+    runs K11's int8 form on the incoming ``QuantizedActivation`` (or on
     ``quantize_per_sample(x)``) with the weight quantized per output channel
-    from its value in the activation dtype, the bias fused in f32
-    (``layers.py:87-148``). The cast or quantized weight (int8: with its
-    K-major packing, which the card's int8 GEMM reads) is made once and kept
-    until the parameter changes."""
+    from its value in the activation dtype, the bias fused in f32, out in
+    the activation dtype (``layers.py:87-148``). At inference the cast or
+    quantized weight (int8: with its K-major packing, which the card's int8
+    GEMM reads) is made once and kept until the parameter changes.
+
+    Training (autograd records: x or the weight requires grad): 'pallas'
+    runs K11's ``autograd.Function`` on the weight cast in the graph, so
+    the weight and x get gradients (the backward is the plain f32 conv's
+    VJP, the JAX ``custom_vjp``'s); 'int8' runs the plain conv, the JAX
+    package's "training-safe fallback" (``layers.py:91-92``: int8 rounding
+    has no gradient)."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, init_scale: float = 1.0,
                  generator=None, stride: int = 1):
@@ -132,6 +154,10 @@ class Conv(nn.Module):
             return conv_strided_nhwc(x, self.weight, self.bias, self.stride)
         q_in = x if isinstance(x, QuantizedActivation) else None
         shape, dtype = (q_in.shape, q_in.dtype) if q_in is not None else (x.shape, x.dtype)
+        recording = q_in is None and torch.is_grad_enabled() and (
+            x.requires_grad or self.weight.requires_grad)
+        if recording and impl == "int8":
+            impl = "plain"  # the training-safe fallback
         qualifies = impl in ("pallas", "int8") and c3.supported(shape, self.weight.shape,
                                                                 int8=impl == "int8")
         if qualifies and impl == "int8":
@@ -142,6 +168,8 @@ class Conv(nn.Module):
                                           out_dtype=dtype, w_kmajor=wk)
         if q_in is not None:  # a quantized input but no int8 conv for this shape
             x = q_in.dequant()
+        if qualifies and recording:
+            return c3.conv3x3_pallas(x, self.weight.to(dtype)) + self.bias.to(dtype)
         if qualifies:
             w = self._kw.get([self.weight], lambda: self.weight.detach().to(dtype).contiguous(),
                              tag=("pallas", dtype))
@@ -161,9 +189,9 @@ class Conv(nn.Module):
 class Dense(nn.Module):
     """y = x @ W + b with W (in, out), computed in x's dtype."""
 
-    def __init__(self, cin: int, cout: int, generator=None):
+    def __init__(self, cin: int, cout: int, generator=None, init=None):
         super().__init__()
-        self.weight = nn.Parameter(default_init()((cin, cout), generator))
+        self.weight = nn.Parameter((init or default_init())((cin, cout), generator))
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x):

@@ -23,8 +23,15 @@ package gates them. The stem, head, pyramid and Up/Down convs stay plain in
 every mode, apart from what the JAX package sends through its 3x3 conv
 kernel there (the DDPM Upsample's conv and the residual output pyramid's
 conv, layer-wise). With ``train=True`` the blocks take their
-training paths (dropout, K1/K6/K7/K8), and the dropout masks are drawn in
-the order the blocks run from the caller's generator.
+training paths (dropout, K1/K6/K7/K8, and K11's autograd.Function under
+'pallas' for every 3x3 conv its gate takes outside K6/K7: the blocks' convs,
+a DDPM block's conv shortcut, the DDPM Upsample's conv and the residual
+output pyramid's conv; 'int8' trains its convs plain, as the JAX package
+does), and the dropout masks are drawn in the order the blocks run from the
+caller's generator. ``config.model.remat`` (False, True, 'convs',
+'convs_lean'; ``gddim_tpu/models/unet.py:160-209``) recomputes the residual
+blocks' unfused layers in the backward (``models/blocks.py``); the
+parameters, and so the ``state_dict`` keys, are the same in every mode.
 
 On the whole-block paths ('fused', 'fused_int8') every residual block's temb
 row, silu(temb) @ W_dense + b_dense, comes from one f32 product an eval
@@ -54,7 +61,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gddim_torch.configs import CONV_IMPLS, TRANSITION_IMPLS
+from gddim_torch.configs import CONV_IMPLS, REMATS, TRANSITION_IMPLS
 from gddim_torch.models.blocks import (
     AttnBlockpp,
     Downsample,
@@ -73,6 +80,7 @@ from gddim_torch.models.layers import (
     get_timestep_embedding,
     norm_act,
 )
+from gddim_torch.models.registry import register_model
 
 _INV_SQRT2 = 0.7071067811865476
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16, "float32": torch.float32}
@@ -95,6 +103,7 @@ def _amax_sow(sites: dict):
     return sow
 
 
+@register_model(name="ncsnpp")
 class NCSNpp(nn.Module):
     def __init__(self, config, generator: torch.Generator | None = None):
         super().__init__()
@@ -112,12 +121,15 @@ class NCSNpp(nn.Module):
         if m.transition_impl not in TRANSITION_IMPLS:
             raise ValueError(f"transition_impl must be one of {TRANSITION_IMPLS}, "
                              f"got {m.transition_impl!r}")
+        if not isinstance(m.remat, (bool, str)) or m.remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}, got {m.remat!r}")
         self.fused = m.conv_impl != "plain"  # kernels (False: the plain composition)
         self.int8 = m.conv_impl == "fused_int8"  # the whole-block kernels' int8 modes
         self.layer = m.conv_impl if m.conv_impl in ("pallas", "int8") else None  # layer-wise
         self.transition = m.transition_impl  # 'full': K9 for the whole-block paths' transitions
         self.fused_attn = bool(config.training.fused_attn)  # training attention through K10
         self.fused_train = bool(m.fused_train)  # training stride-1 blocks through K6/K7
+        self.remat = m.remat  # the residual blocks' recompute in training
         self.qscales: dict = {}
         self.dtype = _DTYPES[str(m.dtype).lower()]
         self.centered = bool(config.data.centered)
@@ -289,7 +301,7 @@ class NCSNpp(nn.Module):
             if calib is not None:
                 return {"sow": _amax_sow(calib.setdefault(block.scope, {}))}
             if self.layer is not None:
-                return {"layer": self.layer}
+                return {"layer": impl}
             return {"int8": True, "qscales": self.qscales.get(block.scope)} if self.int8 else {}
 
         def res(block, h):
@@ -297,7 +309,8 @@ class NCSNpp(nn.Module):
                 return block(h) if isinstance(block, Downsample) else block(h, impl)
             row = None if rows is None else rows[:, block.temb_cols]
             return block(h, temb, fused, train, generator, transition=self.transition,
-                         temb_row=row, fused_train=self.fused_train, **extra(block))
+                         temb_row=row, fused_train=self.fused_train, remat=self.remat,
+                         **extra(block))
 
         def att(block, h):
             return block(h, fused, train, fused_attn=self.fused_attn, **extra(block))

@@ -3,8 +3,11 @@
 Replaces ``gddim_tpu/ops/conv3x3.py``:
 
 - ``conv3x3_pallas`` (``_conv_kernel``): nine shifted products with f32
-  sums, the output rounded to x's dtype; no bias (the layer adds it
-  afterwards in the activation dtype, ``models/layers.py``);
+  sums, the output in x's dtype (bf16 or f32); no bias (the layer adds it
+  afterwards in the activation dtype, ``models/layers.py``). Differentiable
+  as the JAX ``custom_vjp`` is (``conv3x3.py:86-132``): the kernel forward,
+  and a backward that is the plain f32 conv's VJP from the saved x and w
+  (``conv3x3_vjp``; the JAX ``_bwd`` is XLA's VJP of ``conv3x3_xla``);
 - ``conv3x3_pallas_int8`` (``_conv_kernel_int8``): int8 x int8 -> int32
   sums, dequantized as ``acc * (s_a[b] * s_w[c]) + bias`` in f32 (the scale
   product first), then cast to ``out_dtype``;
@@ -15,14 +18,20 @@ Replaces ``gddim_tpu/ops/conv3x3.py``:
 The bf16 form is ``csrc/conv3x3.cu`` (see its header for what bounds it on
 the H100): an implicit GEMM on ``wgmma`` whose A operand comes by TMA as one
 box of the image per tap (no im2col, SAME padding from the TMA unit's zero
-fill), laid out by ``tile_plan``. The int8 form runs on the int8 block GEMM
+fill), laid out by ``tile_plan``. On f32 x its bf16 operand comes from the
+block GEMM's cast pre-pass (``ops/resblock.py:bf16_conv_input``, one read of
+x), the weights are rounded to bf16, and the epilogue stores the f32 sums
+(``conv3x3_bf16_reference`` holds those rounding points), as the whole-block
+kernels take f32 activations on bf16 operands. The int8 form runs on the int8 block GEMM
 (``csrc/block_gemm.cu:gddim_conv3x3_int8``, ``block_gemm_kernel<int8>``:
 wgmma s32.s8.s8 fed by TMA, the weights K-major) under ``s8_tile_plan``;
 where K is split, each split stores its int32 sums and the reduction adds
 them in int32, so the sum is exact whatever the split and is converted to
-f32 once, as the TPU kernel's. On a CPU tensor each wrapper runs its plain
-version; on a CUDA tensor it launches the kernel or raises (bf16
-activations only; shapes without a tile plan). Neither has a backward.
+f32 once, as the TPU kernel's, and stored in ``out_dtype`` (bf16, or f32
+for the f32 model). On a CPU tensor each wrapper runs its plain version; on
+a CUDA tensor it launches the kernel or raises (bf16 or f32 activations;
+shapes without a tile plan). The int8 form has no backward: the model
+trains its 'int8' convs plain, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from gddim_torch.ops.resblock import (
     S8_SLICE,
     SMS,
     _gemm_takes,
+    _bf16r,
     _div,
     _on_cpu,
     _operand,
@@ -46,6 +56,7 @@ from gddim_torch.ops.resblock import (
     pack_int8_weight,
     quantize_weight,
     require_no_grad,
+    bf16_conv_input,
     s8_tile_plan,
     tile_box,
 )
@@ -77,6 +88,13 @@ def conv3x3_reference(x, w):
     """Plain version of K11: the conv of x by w's values in f32 (products of
     bf16 values are exact in f32), rounded once to x's dtype."""
     return conv3x3_nhwc(x.float(), w.float()).to(x.dtype)
+
+
+def conv3x3_bf16_reference(x, w):
+    """Plain version of K11 with the card's rounding points: x and w rounded
+    to bf16 (the kernel's operands), f32 sums, out in x's dtype. On bf16 x
+    and w it is ``conv3x3_reference``."""
+    return conv3x3_nhwc(_bf16r(x.float()), _bf16r(w.float())).to(x.dtype)
 
 
 def conv3x3_int8_reference(x8, w8, w_scale, act_scale, bias=None, out_dtype=torch.bfloat16):
@@ -175,32 +193,79 @@ def _check(what, x, w_shape):
     return b, h, w, cin, w_shape[-1]
 
 
-def conv3x3_pallas(x, w):
-    """K11: (B, H, W, Cin) x (3, 3, Cin, Cout) -> (B, H, W, Cout) in x's dtype."""
-    if _on_cpu(x, "conv3x3_pallas"):
-        return conv3x3_reference(x, w)
+def _conv3x3_kernel(x, w):
+    """K11 on the card: x bf16 as it is, or f32 through the cast pre-pass
+    (one ``gddim_bf16_prepass`` launch); w rounded to bf16; out in x's dtype."""
     require_no_grad("conv3x3_pallas", x, w)
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"conv3x3_pallas: the kernel takes bf16 activations, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"conv3x3_pallas: the kernel takes bf16 or f32 activations, "
+                         f"got {x.dtype}")
     b, h, ww, cin, n = _check("conv3x3_pallas", x, w.shape)
     plan = tile_plan(b, h, ww, cin, n)
-    xs = _operand(x, "x", torch.bfloat16)
+    f32 = x.dtype == torch.float32
+    xs = bf16_conv_input(x) if f32 else _operand(x, "x", torch.bfloat16)
     ws = _operand(w, "w", torch.bfloat16, (3, 3, cin, n))
     work = torch.empty(plan.splits * b * h * ww * n if plan.splits > 1 else 0, device=x.device,
                        dtype=torch.float32)
-    out = torch.empty((b, h, ww, n), device=x.device, dtype=torch.bfloat16)
+    out = torch.empty((b, h, ww, n), device=x.device, dtype=x.dtype)
     _build.launch("gddim_conv3x3", x.device, xs.data_ptr(), ws.data_ptr(), b, h, ww, cin, n,
                   plan.mw, plan.box_h, plan.box_b, plan.tiles_h, plan.m_tiles, plan.splits, plan.kper,
-                  work.data_ptr(), out.data_ptr())
+                  int(f32), work.data_ptr(), out.data_ptr())
     conv3x3_pallas.launches += 1
     return out
+
+
+def _forward(x, w):
+    if _on_cpu(x, "conv3x3_pallas"):
+        return conv3x3_reference(x, w)
+    return _conv3x3_kernel(x, w)
+
+
+def conv3x3_vjp(x, w, g):
+    """(d x, d w) of the stride-1 SAME 3x3 conv y = conv(x, w) for the
+    cotangent g: x and g NHWC, w HWIO, in f32. The conv's own backward
+    (``aten.convolution_backward``) on the views autograd of
+    ``conv3x3_nhwc`` hands it, so the gradients are the ones that path
+    gives; the forward is not run again."""
+    x_, w_, g_ = (t.float() for t in (x, w, g))
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        g_.permute(0, 3, 1, 2), x_.permute(0, 3, 1, 2), w_.permute(3, 2, 0, 1), None, [1, 1],
+        [1, 1], [1, 1], False, [0, 0], 1, [True, True, False])
+    return dx.permute(0, 2, 3, 1), dw.permute(2, 3, 1, 0)
+
+
+class _Conv3x3Pallas(torch.autograd.Function):
+    """K11 forward (its plain version on the CPU); backward the plain f32
+    conv's VJP from the saved (x, w) (``conv3x3_vjp``), the JAX
+    ``custom_vjp``'s ``_bwd``; the gradients come back in x's and w's dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _forward(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = conv3x3_vjp(x, w, g)
+        return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def conv3x3_pallas(x, w):
+    """K11: (B, H, W, Cin) x (3, 3, Cin, Cout) -> (B, H, W, Cout) in x's dtype,
+    differentiable in x and w. When autograd does not record (sampling), the
+    ``autograd.Function`` is skipped."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Conv3x3Pallas.apply(x, w)
+    return _forward(x, w)
 
 
 def conv3x3_pallas_int8(x8, w8, w_scale, act_scale, bias=None, out_dtype=torch.bfloat16, *,
                         w_kmajor=None):
     """K11's int8 form. x8 (B, H, W, Cin) int8; w8 (3, 3, Cin, Cout) or
     (9, Cin, Cout) int8; w_scale () or (Cout,) and act_scale () or (B,) f32;
-    an optional f32 bias fused into the dequantization. On the card the int8
+    an optional f32 bias fused into the dequantization; out in ``out_dtype``,
+    bf16 or f32 (the f32 sums stored as they are). On the card the int8
     block GEMM reads the weights K-major, (Cout, 9 * Cin): ``w_kmajor``, w8
     packed once by the caller (``pack_int8_weight``; ``models/layers.py:Conv``
     keeps it), or else w8 packed here for this call."""
@@ -208,8 +273,9 @@ def conv3x3_pallas_int8(x8, w8, w_scale, act_scale, bias=None, out_dtype=torch.b
         return conv3x3_int8_reference(x8, w8, w_scale, act_scale, bias, out_dtype)
     require_no_grad("conv3x3_pallas_int8", bias,
                     *(t for t in (w_scale, act_scale) if isinstance(t, torch.Tensor)))
-    if out_dtype != torch.bfloat16:
-        raise ValueError(f"conv3x3_pallas_int8: the kernel writes bf16, asked for {out_dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"conv3x3_pallas_int8: the kernel writes bf16 or f32, asked for "
+                         f"{out_dtype}")
     b, h, ww, cin = x8.shape
     n = w8.shape[-1]
     _check("conv3x3_pallas_int8", x8, (3, 3, cin, n) if w8.shape[0] == 9 else w8.shape)
@@ -226,11 +292,11 @@ def conv3x3_pallas_int8(x8, w8, w_scale, act_scale, bias=None, out_dtype=torch.b
     # the splits' int32 partial sums
     work = torch.empty(plan.splits * b * h * ww * n if plan.splits > 1 else 0, device=dev,
                        dtype=torch.int32)
-    out = torch.empty((b, h, ww, n), device=dev, dtype=torch.bfloat16)
+    out = torch.empty((b, h, ww, n), device=dev, dtype=out_dtype)
     _build.launch("gddim_conv3x3_int8", dev, xs.data_ptr(), wk.data_ptr(), sw.data_ptr(),
                   sa.data_ptr(), _build.ptr(bs), b, h, ww, cin, n, plan.mw, plan.box_h,
                   plan.box_b, plan.tiles_h, plan.m_tiles, plan.splits, plan.kper,
-                  work.data_ptr(), out.data_ptr())
+                  int(out_dtype == torch.float32), work.data_ptr(), out.data_ptr())
     conv3x3_pallas_int8.launches += 1
     return out
 

@@ -45,14 +45,14 @@ from gddim_torch.evals.fid import (
 from gddim_torch.math.blur import BlurSDE
 from gddim_torch.math.cld import CLD
 from gddim_torch.models.calibrate import calibrate_blur_qscales, calibrate_cld_qscales
-from gddim_torch.models.unet import NCSNpp
+from gddim_torch.models.registry import get_model
 from gddim_torch.models.wrappers import make_blur_yeps_fn, make_cld_eps_fn
 from gddim_torch.samplers.blur import build_blur_sampler_from_config
 from gddim_torch.samplers.factory import build_cld_sampler
 from gddim_torch.train.losses import make_loss_fn
 from gddim_torch.train.state import create_train_state, swap_params_from_ema, trainable
 from gddim_torch.train.step import make_eval_step, make_train_step
-from gddim_torch.utils.images import save_image
+from gddim_torch.utils.images import save_image, save_pointset
 from gddim_torch.utils.logging import MetricsLogger
 
 logger = logging.getLogger("gddim_torch")
@@ -119,21 +119,32 @@ def check_single_card(config) -> None:
 
 
 def init_model(config, device, weights: str | None = None):
-    """The model to train: the config's own initialisation drawn on the CPU
-    from config.seed (any device gets the same weights), or a state_dict file."""
+    """The model to train (``model.name`` in the registry: 'ncsnpp' or
+    'ps_fmlp'): the config's own initialisation drawn on the CPU from
+    config.seed (any device gets the same weights), or a state_dict file."""
     if weights is not None:
         model = empty_model(config, device)
         model.load_state_dict(torch.load(weights, map_location=device, weights_only=True))
         return model
-    return NCSNpp(config, generator=torch.Generator().manual_seed(int(config.seed))).to(device)
+    generator = torch.Generator().manual_seed(int(config.seed))
+    return get_model(config.model.name)(config, generator=generator).to(device)
 
 
 def empty_model(config, device):
-    """The configured NCSNpp on ``device`` with uninitialised parameters (to
+    """The configured model on ``device`` with uninitialised parameters (to
     be loaded); draws nothing from any generator."""
     with torch.device("meta"):
-        model = NCSNpp(config)
+        model = get_model(config.model.name)(config)
     return model.to_empty(device=device)
+
+
+def save_samples_figure(x: np.ndarray, path) -> None:
+    """A sample grid of images (the first 64), or the point set's figure
+    (``save_pointset``), as the JAX loop writes them (``run_lib.py:326-330``)."""
+    if x.ndim == 4:
+        save_image(x[:64], path)
+    else:
+        save_pointset(x, path)
 
 
 @contextlib.contextmanager
@@ -282,7 +293,7 @@ def _loop(config, workdir: Path, device, state, mgr, metrics, train_iter, eval_i
             with ema_weights(state) as ema_model:
                 x = sampling_fn(loop_gen, ema_model, int(tc.snapshot_sampling_batch))[0]
             path = workdir / "samples" / f"iter_{cur}" / "sample.png"
-            save_image(x[:64].float().cpu().numpy(), path)
+            save_samples_figure(x.float().cpu().numpy(), path)
             metrics.log_image("samples", path, cur)
 
     mgr.save_meta(n_iters, state)
@@ -327,7 +338,10 @@ def sampling_from_fn(config, sampling_fn, model, result_folder, num_samples: int
                      batch_size: int, seed: int = 0, is_continue: bool = True) -> list[Path]:
     """Write ceil(num_samples / batch_size) rounds of samples as
     ``samples_<r>.npz`` (uint8 images, nfe, CLD's v); with ``is_continue`` a
-    round already on disk is skipped. Returns every round's path."""
+    round already on disk is skipped. Returns every round's path. Point sets
+    (x of shape (B, dim)) also keep their f32 values (``points``) and the
+    figure ``samples_<r>.png`` (``save_pointset``): the uint8 values, which
+    the JAX package writes for them too, clip the points to [0, 1]."""
     result_folder = Path(result_folder)
     result_folder.mkdir(parents=True, exist_ok=True)
     device = next(model.parameters()).device
@@ -347,6 +361,9 @@ def sampling_from_fn(config, sampling_fn, model, result_folder, num_samples: int
             logger.warning("round %d: %d non-finite sample values before uint8 cast",
                            r + 1, int((~np.isfinite(x)).sum()))
         extra = {} if v is None else {"v": v.float().cpu().numpy()}
+        if x.ndim == 2:
+            extra["points"] = x
+            save_samples_figure(x, result_folder / f"samples_{r}.png")
         x8 = np.clip(x * 255.0, 0, 255).astype(np.uint8)
         _save_npz(out_path, samples=x8, nfe=nfe, **extra)
         logger.info("round %d/%d: %d samples in %.1fs (nfe=%s)", r + 1, n_rounds, batch_size,

@@ -4,8 +4,15 @@ The JAX package's optax chain, with its semantics kept exactly:
 
 - ``clip_by_global_norm(grad_clip)``: gradients scale by grad_clip / norm
   only when norm >= grad_clip (no epsilon, unlike
-  ``torch.nn.utils.clip_grad_norm_``);
-- ``adam(b1, b2, eps)``: bias-corrected moments with the update count;
+  ``torch.nn.utils.clip_grad_norm_``); the norm accumulated in f64 and
+  rounded to f32, so the CPU and the card agree;
+- ``adam(b1, b2, eps)``: bias-corrected moments with the update count
+  (the corrections 1 - b**count taken in f32, as optax takes them);
+  with ``optim.weight_decay > 0`` ``adamw`` (``state.py:51-57``): the
+  decoupled decay ``weight_decay * p`` added to the Adam direction of every
+  parameter (optax's ``mask`` is None) before the learning rate scales it,
+  so the decay follows the same warmup schedule:
+  ``p -= lr_t * (m_hat / (sqrt(v_hat) + eps) + weight_decay * p)``;
 - the learning rate ``lr * min(count / warmup, 1)`` is read at the count
   *before* the update, so the first update uses lr = 0;
 - an EMA of the parameters at ``ema_rate`` after each update.
@@ -39,10 +46,12 @@ class TrainState:
     eps: float
     grad_clip: float
     ema_rate: float
+    weight_decay: float = 0.0  # > 0: adamw
     count: int = 0  # optimizer updates since the optimizer was (re)made
     step: int = 0
 
-    _SCALARS = ("count", "step", "lr", "warmup", "beta1", "eps", "grad_clip", "ema_rate")
+    _SCALARS = ("count", "step", "lr", "warmup", "beta1", "eps", "grad_clip", "ema_rate",
+                "weight_decay")
 
     def state_dict(self) -> dict:
         """Everything a resumed run needs, as tensors (on their devices) and
@@ -67,7 +76,9 @@ class TrainState:
             for k, t in mine.items():
                 t.copy_(theirs[k])
         for k in self._SCALARS:
-            setattr(self, k, type(getattr(self, k))(sd[k]))
+            # weight_decay: absent from the checkpoints of before adamw (0 there)
+            setattr(self, k, type(getattr(self, k))(sd.get(k, 0.0) if k == "weight_decay"
+                                                    else sd[k]))
         self.generator.set_state(sd["generator"].cpu())
 
 
@@ -83,15 +94,13 @@ def create_train_state(config, model: nn.Module, generator: torch.Generator) -> 
     optim = config.optim
     if optim.optimizer != "Adam":
         raise NotImplementedError(f"optimizer {optim.optimizer} is not ported")
-    if float(optim.weight_decay) > 0:
-        raise NotImplementedError("weight_decay > 0 (adamw) is not ported")
     params = trainable(model)
     return TrainState(
         model=model, ema={n: p.detach().clone() for n, p in params.items()},
         mu=_zeros(params), nu=_zeros(params), generator=generator, lr=float(optim.lr),
         warmup=float(optim.warmup), beta1=float(optim.beta1),
         eps=float(optim.eps), grad_clip=float(optim.grad_clip),
-        ema_rate=float(config.model.ema_rate))
+        ema_rate=float(config.model.ema_rate), weight_decay=float(optim.weight_decay))
 
 
 def learning_rate(state: TrainState) -> float:
@@ -101,11 +110,19 @@ def learning_rate(state: TrainState) -> float:
     return state.lr
 
 
+def _bias_correction(beta: float, count: int) -> float:
+    """1 - beta ** count in f32, as optax computes it: the f32 power moves
+    1 - 0.999 by about 1e-5 of itself from the exact value, and the
+    reference's steps carry that."""
+    f32 = torch.float32
+    return float(1.0 - torch.tensor(beta, dtype=f32) ** torch.tensor(float(count), dtype=f32))
+
+
 @torch.no_grad()
 def apply_gradients(state: TrainState, grads: dict[str, torch.Tensor]) -> dict:
-    """Clip, one Adam update of the model's parameters and the EMA, in place.
-    grads: keyed like ``trainable(model)``. Returns the global norm (before
-    clipping) and the learning rate used."""
+    """Clip, one Adam (weight_decay > 0: AdamW) update of the model's
+    parameters and the EMA, in place. grads: keyed like ``trainable(model)``.
+    Returns the global norm (before clipping) and the learning rate used."""
     params = trainable(state.model)
     names = list(params)
     p = [params[n] for n in names]
@@ -113,7 +130,10 @@ def apply_gradients(state: TrainState, grads: dict[str, torch.Tensor]) -> dict:
     mu = [state.mu[n] for n in names]
     nu = [state.nu[n] for n in names]
     ema = [state.ema[n] for n in names]
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+    # summed in f64: an f32 sum over a tensor of a million values strays by
+    # ~1e-5 on the CPU (its reduction order), not on the card
+    norm = torch.linalg.vector_norm(
+        torch.stack(torch._foreach_norm(g, 2, dtype=torch.float64))).float()
     if state.grad_clip >= 0:
         scale = torch.where(norm < state.grad_clip, torch.ones_like(norm),
                             state.grad_clip / norm)
@@ -124,11 +144,16 @@ def apply_gradients(state: TrainState, grads: dict[str, torch.Tensor]) -> dict:
     torch._foreach_add_(mu, g, alpha=1.0 - state.beta1)
     torch._foreach_mul_(nu, BETA2)
     torch._foreach_addcmul_(nu, g, g, value=1.0 - BETA2)
-    bc1 = 1.0 - state.beta1 ** state.count
-    bc2 = 1.0 - BETA2 ** state.count
+    bc1 = _bias_correction(state.beta1, state.count)
+    bc2 = _bias_correction(BETA2, state.count)
     denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
     torch._foreach_add_(denom, state.eps)
-    torch._foreach_addcdiv_(p, torch._foreach_div(mu, bc1), denom, value=-lr)
+    if state.weight_decay > 0:  # optax.adamw: the decay joins the direction lr scales
+        step = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+        torch._foreach_add_(step, p, alpha=state.weight_decay)
+        torch._foreach_add_(p, step, alpha=-lr)
+    else:
+        torch._foreach_addcdiv_(p, torch._foreach_div(mu, bc1), denom, value=-lr)
     torch._foreach_mul_(ema, state.ema_rate)
     torch._foreach_add_(ema, p, alpha=1.0 - state.ema_rate)
     return {"grad_norm": norm, "lr": lr}

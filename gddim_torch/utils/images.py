@@ -1,4 +1,5 @@
-"""Sample grids as PNG files (counterpart of ``gddim_tpu/utils/images.py``).
+"""Sample grids and point-set figures as PNG files (counterpart of
+``gddim_tpu/utils/images.py``).
 
 The PNG is written here with zlib and struct: 8-bit grayscale or RGB, one
 IDAT chunk, every row with filter 0.
@@ -63,3 +64,24 @@ def save_image(images: np.ndarray, path: str | Path, nrow: int = 8):
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_bytes(encode_png((grid * 255).astype(np.uint8)))
+
+
+POINTSET_PIXELS = 256  # pixels a side of the point-set figure
+
+
+def rasterize_pointset(points: np.ndarray, size: int = POINTSET_PIXELS) -> np.ndarray:
+    """(N, 2) points -> a (size, size) f32 image, 1 where a point falls:
+    the box of the points widened by 0.5 on each side, y up
+    (``gddim_tpu/utils/images.py:46-54``)."""
+    pts = np.asarray(points)
+    img = np.zeros((size, size), dtype=np.float32)
+    lo, hi = pts.min(axis=0) - 0.5, pts.max(axis=0) + 0.5
+    xy = ((pts - lo) / (hi - lo + 1e-9) * (size - 1)).astype(int)
+    img[size - 1 - xy[:, 1], xy[:, 0]] = 1.0
+    return img
+
+
+def save_pointset(points: np.ndarray, path: str | Path):
+    """Write a 2-D point set as a grayscale PNG: the 256x256 figure as a
+    one-image grid (260x260 with the grid's padding)."""
+    save_image(rasterize_pointset(points)[None, :, :, None], path, nrow=1)

@@ -94,7 +94,8 @@ def test_dct_matches_jax(jx, n):
 # fields of the port's config that the JAX package's config has not: the
 # whole-transition kernel's setting (GDDIM_TRANSITION_IMPL, an environment
 # variable there)
-PORT_ONLY_FIELDS = {("model", "transition_impl")}
+# model.remat: the JAX network reads it with a default (unet.py:165), no config sets it
+PORT_ONLY_FIELDS = {("model", "transition_impl"), ("model", "remat")}
 
 
 def test_blur_config_matches_jax(jx):

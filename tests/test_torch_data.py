@@ -160,9 +160,9 @@ def test_preprocessing_matches_jax_and_unported_paths_raise(tmp_path):
     cfg.data.dataset = "ffhq"
     with pytest.raises(NotImplementedError, match="TFRecord"):
         tp.get_dataset(cfg)
-    cfg.data.dataset = "olympic_ps"
-    with pytest.raises(NotImplementedError, match="points"):
-        tp.get_dataset(cfg)
+    cfg.data.dataset = "olympic_ps"  # ported: the point set (tests/test_torch_points.py)
+    train, _ = tp.get_dataset(cfg, prefetch=False)
+    assert next(train)["image"].shape == (cfg.training.batch_size, 2)
 
 
 def test_prefetch_thread_starts_lazily_and_passes_errors():

@@ -63,7 +63,8 @@ def test_deis_bundle_matches_jax_bit_for_bit(fresh_caches):
 # whole-transition kernel's setting (GDDIM_TRANSITION_IMPL, an environment
 # variable there), and data.is_partial, which only the JAX blur configs
 # set (its pipeline reads it with a default of False, the port's value)
-PORT_ONLY_FIELDS = {("model", "transition_impl"), ("data", "is_partial")}
+# model.remat: the JAX network reads it with a default (unet.py:165), no config sets it
+PORT_ONLY_FIELDS = {("model", "transition_impl"), ("data", "is_partial"), ("model", "remat")}
 
 
 def test_config_fields_match_jax_with_bench_overrides():

@@ -178,6 +178,30 @@ def test_port_imports_no_jax(tmp_path):
             run_lib.sample_data(cfg, str(path), tmp + "/s", device="cpu")
             assert np.isfinite(run_lib.check_fid(cfg, tmp + "/s", "cpu")["fid_proxy"])
         inception.InceptionV3(inception.random_state_dict(), "fid2015")
+        # the point set, the registry, the classifier, remat and AdamW
+        from gddim_torch.data import pointset
+        from gddim_torch.models import mlp, registry, wideresnet
+        assert registry.available_models() == ("ncsnpp", "ps_fmlp",
+                                                "wideresnet_noise_conditional")
+        cfg = get_config("cld/points")
+        cfg.sampling.nfe = 3
+        x = run_lib.build_sampling_fn(cfg)(torch.Generator(), seeded_model(cfg, 0), 8)[0]
+        assert x.shape == (8, 2) and pointset.olympic_generate_sample(10).shape == (10, 2)
+        wrn = wideresnet.WideResnet(1, 1, 10)
+        grad = wideresnet.get_classifier_grad_fn(wideresnet.get_logit_fn(wrn))(
+            torch.rand(2, 8, 8, 3), torch.ones(2), torch.tensor([1, 2]))
+        assert grad.shape == (2, 8, 8, 3)
+        cfg = train_config("cld/accr_dcifar10")
+        cfg.model.nf, cfg.model.ch_mult, cfg.model.num_res_blocks = 128, (1, 2), 1
+        cfg.model.attn_resolutions, cfg.data.image_size = (8,), 8
+        cfg.model.conv_impl, cfg.model.remat, cfg.model.fused_train = "pallas", "convs", False
+        cfg.optim.weight_decay = 1e-2
+        from gddim_torch.train.losses import make_cld_loss_fn
+        from gddim_torch.train.state import create_train_state
+        from gddim_torch.train.step import make_train_step
+        state = create_train_state(cfg, seeded_model(cfg, 0).train(), torch.Generator())
+        make_train_step(make_cld_loss_fn(CLD.from_config(cfg), train=True))(
+            state, torch.zeros(1, 2, 8, 8, 3))
         bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not bad, bad
         print("ok")
