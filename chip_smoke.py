@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--phases build,kernels,eps,gates,sample,int8,blur,samplers,blur_deis,
                            configs,f32,train,blur_train,run_lib,layer_f32,train_layer,remat,
-                           adamw,points,classifier] [--batch 16]
+                           adamw,points,classifier,ref,corpora,compat,legacy] [--batch 16]
 
 Phases (each prints one line per check; any failure raises and exits non-zero):
   1. the card: torch.cuda must be available; prints nvidia-smi's name and
@@ -189,6 +189,29 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      logits and the guidance gradient card against CPU
      (CLASSIFIER_F64_BOUND); the f32 gradient's error against the f64 one,
      the card's and the CPU's (information only); ms a call.
+ 17. ref: bench.py's ref mode on the port (conv_impl 'plain', f32,
+     model.attention_impl 'einsum5d', resample.FIR_IMPL 'channel_batch',
+     dct.DCT_IMPL 'fft', TF32 off; the switches restored in a finally) for
+     cld/accr_dcifar10 (deis-2) and blur/ddpm_deep_cifar10 (order0) at full
+     width and depth: one eps eval at B=16 (blur: the DCT-space eps, through
+     the FFT DCT) against the f32 plain path with the default switches
+     (EPS_F32_BOUND), no kernel launched; NFE=50 at B=16, img/s for
+     information; one network eval at B=64 in a CUDA graph, device ms;
+ 18. corpora: a CelebA-shaped corpus stored at 218x178 (celeba_{train,
+     validation}.npz) and an FFHQ-shaped TFRecord (64x64, the port's
+     writer), made from a seed; the preprocessing s per 1,000 images on the
+     card's host; cld/ddpmpp_celeba --mode train through gddim_torch.cli on
+     each (B=32, CORPUS_STEPS steps): loop img/s, K6/K7 launches held to
+     CORPUS_STEPS x the blocks they take, and the first batch the loop put
+     on the card against the host pipeline's, bit for bit;
+ 19. compat: compat.get_eps_fn / get_score_fn of cld/accr_dcifar10 at full
+     width, f32 ('fused'), B=4, loading the seeded flax tree: the same bits
+     as make_cld_eps_fn / make_cld_score_fn called directly, and within
+     EPS_F32_BOUND of the same closures on the CPU; get_ddpm_params and the
+     flattened-numpy and aug_batch helpers on the card, bit for bit;
+ 20. legacy: the NCSNv1/v2 zoo (22 blocks and norms, random parameters) at
+     tests/test_models.py's shapes, card against CPU, f32 with TF32 off,
+     within LEGACY_BOUND.
 Then one line {"kernels": [...]}, one line with the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 
@@ -4581,6 +4604,18 @@ def configs_mixed(card: str, batch: int) -> dict:
     return counts
 
 
+def train_blocks_taken(config) -> tuple[int, int]:
+    """(how many of the config's stride-1 and pair blocks K6/K7 take, how
+    many there are): ``train_supported`` at each block's shapes."""
+    from gddim_torch.ops import resblock as rb
+
+    blocks = [(kind, shapes, cout) for kind, shapes, cout in trace_blocks(config)
+              if kind in ("stride1", "pair")]
+    took = sum(rb.train_supported(shapes[0][:3] + (sum(s[-1] for s in shapes),), cout)
+               for _, shapes, cout in blocks)
+    return took, len(blocks)
+
+
 def configs_train(card: str) -> dict:
     """(d) cld/ddpmpp_celeba in f32 at CELEBA_TRAIN_BATCH: one loss +
     backward on the kernel path against the all-plain path on the same t, z
@@ -4589,7 +4624,6 @@ def configs_train(card: str) -> dict:
     from gddim_torch.configs import train_config
     from gddim_torch.math.cld import CLD
     from gddim_torch.models.init import seeded_model
-    from gddim_torch.ops import resblock as rb
     from gddim_torch.train.losses import make_cld_loss_fn
 
     config = train_config("cld/ddpmpp_celeba")
@@ -4613,13 +4647,10 @@ def configs_train(card: str) -> dict:
     sec = time.perf_counter() - t0
     counts = {k: v for k, v in read_counts().items() if v}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    blocks = [(kind, shapes, cout) for kind, shapes, cout in trace_blocks(config)
-              if kind in ("stride1", "pair")]
-    took = sum(rb.train_supported(shapes[0][:3] + (sum(s[-1] for s in shapes),), cout)
-               for _, shapes, cout in blocks)
+    took, n_blocks = train_blocks_taken(config)
     print(f"configs cld/ddpmpp_celeba train f32 B={b} {size}x{size} one loss + backward: "
           f"{sec:.3f} s, peak {peak:.2f} GiB [{card}]; launches {counts}; K6/K7 in {took} of "
-          f"{len(blocks)} stride-1 and pair blocks", flush=True)
+          f"{n_blocks} stride-1 and pair blocks", flush=True)
     if not took or counts.get("K6") != took or counts.get("K7") != took:
         raise AssertionError(f"CelebA train: K6/K7 launches {counts} for {took} blocks")
     _check_train_step(loss_k, grads_k, loss_p, grads_p, f"cld/ddpmpp_celeba B={b}")
@@ -5532,6 +5563,347 @@ def phase_classifier(card: str, batch: int = 64, f64_batch: int = 8):
         raise AssertionError(f"classifier: logits {logit_rel:.3e}, f64 {rel64:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# the reference-style path, the corpora, the reference-API shims, the zoo
+# ---------------------------------------------------------------------------
+
+# bench.py's ref mode on the port: the configs, their samplers and batches
+REF_FAMILIES = (("cld/accr_dcifar10", "deis-2"), ("blur/ddpm_deep_cifar10", "order0"))
+REF_BATCH = 16
+REF_GRAPH_BATCH = 64
+
+
+def _ref_switches(on: bool):
+    """The module switches of the reference-style path (True) or their
+    defaults (False): resample.FIR_IMPL and dct.DCT_IMPL."""
+    from gddim_torch.math import dct
+    from gddim_torch.models import resample
+
+    resample.FIR_IMPL = "channel_batch" if on else "separable"
+    dct.DCT_IMPL = "fft" if on else "matmul"
+
+
+def phase_ref(card: str, batch: int = REF_BATCH):
+    """bench.py's ``ref`` configuration on the port, for both families at
+    full width and depth with seeded weights: conv_impl 'plain', f32,
+    model.attention_impl 'einsum5d', resample.FIR_IMPL 'channel_batch',
+    dct.DCT_IMPL 'fft', TF32 off. One eps eval at ``batch`` (CLD: eps; blur:
+    the DCT-space eps, through the FFT DCT) against the f32 plain path with
+    the default switches (EPS_F32_BOUND) with no kernel launched, one NFE=50
+    sample run (img/s, information only) and one network eval at B=64 in a
+    CUDA graph (device ms). The switches are restored in a finally."""
+    from gddim_torch.configs import get_config
+    from gddim_torch.math.blur import BlurSDE
+    from gddim_torch.math.cld import CLD
+    from gddim_torch.models.init import seeded_model
+    from gddim_torch.models.wrappers import make_blur_yeps_fn, make_cld_eps_fn
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("ref: TF32 must be off")
+    t0 = time.perf_counter()
+    try:
+        for name, sampler in REF_FAMILIES:
+            _ref_switches(False)
+            config = get_config(name)
+            config.model.conv_impl, config.model.dtype = "plain", "float32"
+            model = seeded_model(config, seed=0, device="cuda")
+            cld = config.sde == "cld"
+            eps_apply = (make_cld_eps_fn(CLD.from_config(config)) if cld
+                         else make_blur_yeps_fn(BlurSDE.from_config(config)))
+            g = torch.Generator(device="cuda").manual_seed(3)
+            size, ch = config.data.image_size, config.data.num_channels
+            u = torch.randn((batch, size, size, ch) + ((2,) if cld else ()), generator=g,
+                            device="cuda")
+            t = torch.full((batch,), 0.5, device="cuda")
+            ref = eps_apply(model, u, t)  # the f32 plain path, default switches
+            _ref_switches(True)
+            config.model.attention_impl = model.attention_impl = "einsum5d"
+            reset_counts()
+            got = eps_apply(model, u, t)
+            torch.cuda.synchronize()
+            counts = {k: n for k, n in read_counts().items() if n}
+            rel = ((got - ref).abs().max() / ref.abs().max()).item()
+            print(f"ref {name} eps B={batch} t=0.5: reference-style path vs the f32 plain path "
+                  f"rel={rel:.3e} (bound {EPS_F32_BOUND:.0e}); launches {counts or 'none'}",
+                  flush=True)
+            if counts or not np.isfinite(rel) or rel > EPS_F32_BOUND:
+                raise AssertionError(f"ref {name}: rel err {rel:.3e}, launches {counts}")
+            _, wall, nfe, _ = _sample_run(config, model, batch, 8, {})
+            print(f"ref {name} {sampler} NFE={nfe} B={batch}: wall {wall:.3f} s, "
+                  f"{batch / wall:.2f} img/s [{card}] (information only)", flush=True)
+            x, labels = _net_inputs(config, REF_GRAPH_BATCH)
+            with torch.inference_mode():
+                ms = graph_ms(lambda: model(x, labels), reps=3)
+            print(f"ref {name} one network eval B={REF_GRAPH_BATCH}: {ms:.3f} ms of device "
+                  f"time (CUDA graph) [{card}]", flush=True)
+            del model, x, ref, got
+    finally:
+        _ref_switches(False)
+    print(f"ref phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+CORPUS_CELEBA = (512, 192)  # CelebA-shaped train / validation images, 218x178x3 (the
+# validation split holds a call's batch of n_jitted_steps x B = 160)
+CORPUS_FFHQ = 256  # FFHQ-shaped records, 64x64x3
+CORPUS_BATCH = 32  # the CelebA loss + backward's batch (configs_train)
+CORPUS_STEPS = 10  # two calls of n_jitted_steps 5
+
+
+def phase_corpora(card: str):
+    """cld/ddpmpp_celeba trained through the CLI (``--mode train``, f32, B=32,
+    CORPUS_STEPS steps, logs every 5, no evals, snapshots or samples) from a
+    CelebA-shaped corpus stored at 218x178 (celeba_{train,validation}.npz:
+    crop 140, bilinear to 64) and from an FFHQ-shaped TFRecord written by
+    the port's writer (data.dataset FFHQ, data.tfrecords_path), both made
+    from a seed: the preprocessing s per 1,000 images on the card's host,
+    the loop's img/s, K6/K7 launches (CORPUS_STEPS x the blocks they take),
+    and the first batch the loop put on the card against the one the same
+    pipeline gives on the host, bit for bit."""
+    from gddim_torch import cli, run_lib
+    from gddim_torch.data import pipelines as tp
+
+    t0 = time.perf_counter()
+    first: list = []
+    real_step = run_lib.make_train_step
+
+    def capturing(loss_fn):
+        step = real_step(loss_fn)
+
+        def train_step(state, batch):
+            if not first:
+                first.append(batch.detach().cpu().clone())
+            return step(state, batch)
+
+        return train_step
+
+    run_lib.make_train_step = capturing
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            rng = np.random.default_rng(0)
+            celeba = tmp / "celeba"
+            celeba.mkdir()
+            for split, n in zip(("train", "validation"), CORPUS_CELEBA):
+                np.savez(celeba / f"celeba_{split}.npz",
+                         images=rng.integers(0, 256, (n, 218, 178, 3), dtype=np.uint8))
+            ffhq = tmp / "ffhq" / "ffhq-r06.tfrecords"
+            ffhq.parent.mkdir()
+            tp.write_tfrecord_images(ffhq, rng.integers(0, 256, (CORPUS_FFHQ, 64, 64, 3),
+                                                        dtype=np.uint8))
+            with np.load(celeba / "celeba_train.npz") as z:
+                images = z["images"]
+            t1 = time.perf_counter()
+            tp.preprocess_corpus("celeba", images, 64)
+            celeba_s = (time.perf_counter() - t1) * 1000 / len(images)
+            t1 = time.perf_counter()
+            tp.preprocess_corpus("ffhq", tp.load_tfrecord_images(ffhq), 64)
+            ffhq_s = (time.perf_counter() - t1) * 1000 / CORPUS_FFHQ
+            print(f"corpora preprocessing on the card's host: CelebA 218x178 -> crop 140 -> "
+                  f"64x64 {celeba_s:.3f} s per 1,000 images; FFHQ 64x64 TFRecord read "
+                  f"{ffhq_s:.3f} s per 1,000 images", flush=True)
+            runs = (("CelebA 218x178 npz", ["--set", f"data.data_dir={celeba}"]),
+                    ("FFHQ 64x64 TFRecord", ["--set", "data.dataset=FFHQ", "--set",
+                                             f"data.tfrecords_path={ffhq}", "--set",
+                                             f"data.data_dir={ffhq.parent}"]))
+            counts: dict = {}
+            for i, (label, data) in enumerate(runs):
+                work = tmp / f"run{i}"
+                never = str(10**9)
+                argv = ["--config", "cld/ddpmpp_celeba", "--mode", "train", "--workdir",
+                        str(work), "--batch", str(CORPUS_BATCH), "--steps", str(CORPUS_STEPS),
+                        "--set", "training.n_jitted_steps=5", "--set", "training.log_freq=5",
+                        "--set", f"training.eval_freq={never}", "--set",
+                        f"training.snapshot_freq={never}", "--set",
+                        f"training.snapshot_freq_for_preemption={never}", "--set",
+                        "training.snapshot_sampling=false", *data]
+                config = cli.make_config(cli.parse_args(argv))
+                train_iter, _ = tp.get_dataset(config, additional_dim=5, prefetch=False,
+                                               uniform_dequantization=config.data.
+                                               uniform_dequantization)
+                want = tp.get_data_scaler(config)(next(train_iter)["image"])
+                took, n_blocks = train_blocks_taken(config)
+                first.clear()
+                reset_counts()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                cli.main(["--device", "cuda", *argv])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                got = {k: n for k, n in read_counts().items() if n}
+                records = [json.loads(x) for x in (work / "metrics.jsonl").read_text().splitlines()]
+                ips = [round(r["train/imgs_per_sec"], 2) for r in records
+                       if "train/imgs_per_sec" in r]
+                same = (len(first) == 1 and first[0].dtype == torch.float32
+                        and tuple(first[0].shape) == want.shape
+                        and np.array_equal(first[0].numpy(), want))
+                print(f"corpora {label}: cld/ddpmpp_celeba --mode train {CORPUS_STEPS} steps "
+                      f"B={CORPUS_BATCH} (cut from the config's 128) f32: {wall:.2f} s; loop img/s "
+                      f"at steps 5/10 {ips} [{card}]; K6 {got.get('K6', 0)}, K7 "
+                      f"{got.get('K7', 0)} ({CORPUS_STEPS} x {took} of {n_blocks} blocks); "
+                      f"first batch {tuple(want.shape)} on the card == the host pipeline's: "
+                      f"{same}", flush=True)
+                if not same or len(ips) != 2 or not all(np.isfinite(ips)):
+                    raise AssertionError(f"corpora {label}: batch equal {same}, logs {ips}")
+                if not took or got.get("K6") != CORPUS_STEPS * took or \
+                        got.get("K7") != CORPUS_STEPS * took:
+                    raise AssertionError(f"corpora {label}: K6/K7 launches {got}, {took} blocks")
+                counts.update({k: n for k, n in got.items() if k not in counts})
+    finally:
+        run_lib.make_train_step = real_step
+    print(f"corpora phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+COMPAT_BATCH = 4
+
+
+def phase_compat(card: str):
+    """The reference-API shims on the card: compat.get_eps_fn and
+    get_score_fn of cld/accr_dcifar10 at full width, f32 ('fused': the f32
+    block kernels), B=4, the seeded flax tree loaded through ``params``:
+    the same bits as make_cld_eps_fn / make_cld_score_fn called directly,
+    and within EPS_F32_BOUND of the same closures on the CPU (the plain
+    versions); get_ddpm_params carried to the card and back bit for bit
+    against the host's arrays; from_flattened_numpy / aug_batch on the
+    card."""
+    from gddim_torch import compat
+    from gddim_torch.configs import get_config
+    from gddim_torch.models.init import seeded_params
+    from gddim_torch.models.wrappers import make_cld_eps_fn, make_cld_score_fn
+
+    t0 = time.perf_counter()
+    config = get_config("cld/accr_dcifar10")
+    config.model.dtype = "float32"
+    tree = seeded_params(config, 0)
+    sde = compat.from_config(config)
+    u, _ = eps_inputs(COMPAT_BATCH)
+    t = torch.linspace(0.1, 0.9, COMPAT_BATCH, device="cuda")
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model, _, _ = compat.init_model(1, config, device=device)  # its draw is replaced
+        uu, tt = u.to(device), t.to(device)
+        eps_fn = compat.get_eps_fn(sde, model, tree, {})
+        score_fn = compat.get_score_fn(sde, model, None, {})
+        reset_counts()
+        eps, score = eps_fn(uu, tt), score_fn(uu, tt)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = {k: n for k, n in read_counts().items() if n}
+            direct = (make_cld_eps_fn(sde)(model, uu, tt), make_cld_score_fn(sde)(model, uu, tt))
+            same = torch.equal(eps, direct[0]) and torch.equal(score, direct[1])
+            print(f"compat cld/accr_dcifar10 f32 B={COMPAT_BATCH}: get_eps_fn / get_score_fn "
+                  f"== make_cld_eps_fn / make_cld_score_fn called directly: {same}; launches "
+                  f"{counts}", flush=True)
+            if not same or not counts:
+                raise AssertionError(f"compat: closures differ from the wrappers ({same}) or "
+                                     f"no kernel ran ({counts})")
+        outs[device] = (eps.cpu(), score.cpu())
+        del model
+    for i, what in enumerate(("eps", "score")):
+        got, ref = outs["cuda"][i], outs["cpu"][i]
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        print(f"compat {what}: card vs CPU rel={rel:.3e} (bound {EPS_F32_BOUND:.0e}) [{card}]",
+              flush=True)
+        if not np.isfinite(rel) or rel > EPS_F32_BOUND:
+            raise AssertionError(f"compat {what}: card vs CPU rel err {rel:.3e}")
+    params = compat.get_ddpm_params(config)
+    back = {k: torch.as_tensor(np.asarray(v), device="cuda").cpu().numpy()
+            for k, v in params.items()}
+    moved = compat.from_flattened_numpy(compat.to_flattened_numpy(u), tuple(u.shape),
+                                        device="cuda")
+    aug = compat.aug_batch(u[..., 0])
+    ok = (all(np.array_equal(back[k], params[k]) for k in params) and torch.equal(moved, u)
+          and torch.equal(aug[..., 0], u[..., 0]) and not aug[..., 1].any())
+    print(f"compat get_ddpm_params, flattened numpy and aug_batch on the card == the host's: "
+          f"{ok}; compat phase {time.perf_counter() - t0:.1f} s", flush=True)
+    if not ok:
+        raise AssertionError("compat: helpers differ on the card")
+
+
+LEGACY_BOUND = 1e-5  # max|card - CPU| / max|CPU|, f32 with TF32 off
+
+
+def _randomize(module, seed: int):
+    """Every parameter N(0, 1/fan_in) (norm scales 1 + 0.1 N), so no
+    zero-initialised projection hides a path."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            z = torch.randn(p.shape, generator=g)
+            if name.endswith(("scale", "gamma", "alpha")) or "GroupNorm" in name:
+                p.copy_(1.0 + 0.1 * z)
+            else:
+                p.copy_(z / max(int(np.prod(p.shape[:-1])), 1) ** 0.5)
+    return module
+
+
+def phase_legacy(card: str):
+    """The NCSNv1/v2 zoo on the card: each block and norm at the shapes
+    tests/test_models.py builds them (B=2, 16x16x32; MSF / Refine inputs
+    8x8x64 and 16x16x32), random parameters, on CUDA against the same module
+    on the CPU, f32 with TF32 off, within LEGACY_BOUND of max|out|."""
+    import functools
+
+    import torch.nn.functional as F
+
+    from gddim_torch.models import legacy_blocks as lb
+    from gddim_torch.models import normalization as nz
+
+    norm = functools.partial(nz.ConditionalInstanceNorm2dPlus, num_classes=10)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 16, 16, 32), generator=g)
+    xs = [torch.randn((2, 8, 8, 64), generator=g), x]
+    x8 = [torch.randn((2, 8, 8, 64), generator=g)]
+    small = torch.randn((2, 8, 8, 16), generator=g)
+    temb = torch.randn((2, 128), generator=g)
+    y = torch.tensor([1, 7])
+    cases = [
+        ("CRPBlock", lb.CRPBlock(32, 2), (x,)),
+        ("RCUBlock", lb.RCUBlock(32, 2, 2), (x,)),
+        ("MSFBlock bilinear", lb.MSFBlock([64, 32], 32, (16, 16)), (xs,)),
+        ("MSFBlock nearest", lb.MSFBlock([64, 32], 32, (16, 16), "nearest_neighbor"), (xs,)),
+        ("RefineBlock", lb.RefineBlock([64, 32], 32, (16, 16)), (xs,)),
+        ("RefineBlock start", lb.RefineBlock([64], 64, (8, 8), start=True), (x8,)),
+        ("CondCRPBlock", lb.CondCRPBlock(32, 2, norm), (x, y)),
+        ("CondRCUBlock", lb.CondRCUBlock(32, 2, 2, norm), (x, y)),
+        ("CondMSFBlock", lb.CondMSFBlock([64, 32], 32, (16, 16), norm), (xs, y)),
+        ("CondRefineBlock end", lb.CondRefineBlock([64, 32], 32, (16, 16), norm, end=True),
+         (xs, y)),
+        ("CondRefineBlock start", lb.CondRefineBlock([64], 64, (8, 8), norm, start=True),
+         (x8, y)),
+        ("LegacyAttnBlock", lb.LegacyAttnBlock(32), (x,)),
+        ("LegacyUpsample conv", lb.LegacyUpsample(16, True), (small,)),
+        ("LegacyDownsample conv", lb.LegacyDownsample(16, True), (small,)),
+        ("LegacyDownsample pool", lb.LegacyDownsample(16), (small,)),
+        ("LegacyResnetBlockDDPM", lb.LegacyResnetBlockDDPM(32, F.relu, 64, temb_dim=128),
+         (x, temb)),
+        ("LegacyResnetBlockDDPM conv_shortcut",
+         lb.LegacyResnetBlockDDPM(32, F.silu, 64, conv_shortcut=True, temb_dim=128), (x, temb)),
+        ("VarianceNorm2d", nz.VarianceNorm2d(16, bias=True), (small,)),
+        ("InstanceNorm2d", nz.InstanceNorm2d(16), (small,)),
+        ("InstanceNorm2dPlus", nz.InstanceNorm2dPlus(16), (small,)),
+        ("ConditionalInstanceNorm2dPlus", nz.ConditionalInstanceNorm2dPlus(16), (small, y)),
+        ("GroupNorm", nz.GroupNorm(64), (x8[0],)),
+    ]
+
+    def on(args, device):
+        return tuple([a.to(device) for a in v] if isinstance(v, list) else v.to(device)
+                     for v in args)
+
+    worst = 0.0
+    for i, (label, module, args) in enumerate(cases):
+        module = _randomize(module, i)
+        with torch.no_grad():
+            ref = module(*args)
+            got = copy.deepcopy(module).cuda()(*on(args, "cuda")).cpu()
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        worst = max(worst, rel)
+        if got.shape != ref.shape or not np.isfinite(rel) or rel > LEGACY_BOUND:
+            raise AssertionError(f"legacy {label}: {tuple(got.shape)}, rel err {rel:.3e}")
+    print(f"legacy: {len(cases)} zoo blocks and norms, card vs CPU f32: worst rel "
+          f"{worst:.3e} (bound {LEGACY_BOUND:.0e}) [{card}]", flush=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="smoke run of gddim_torch on one CUDA card")
     # opt-in phases: profile, ab, train_time (K6/K7 device time and a traced
@@ -5550,7 +5922,7 @@ def main(argv=None):
     # three on a parent's checkout too
     parser.add_argument("--phases", default="build,kernels,eps,gates,sample,int8,blur,samplers,"
                         "blur_deis,configs,f32,train,blur_train,run_lib,layer_f32,train_layer,"
-                        "remat,adamw,points,classifier")
+                        "remat,adamw,points,classifier,ref,corpora,compat,legacy")
     parser.add_argument("--batch", type=int, default=16, help="sampling batch")
     parser.add_argument("--bits", default=None, help="phase bits: the file to save to")
     parser.add_argument("--bits-ref", default=None, help="phase bits: another tree's file")
@@ -5671,6 +6043,15 @@ def main(argv=None):
         phase_points(card)
     if "classifier" in phases:
         phase_classifier(card)
+    if "ref" in phases:
+        phase_ref(card)
+    if "corpora" in phases:
+        corpora_counts = phase_corpora(card)
+        counts.update({k: n for k, n in corpora_counts.items() if k not in counts})
+    if "compat" in phases:
+        phase_compat(card)
+    if "legacy" in phases:
+        phase_legacy(card)
     if "train_gemms" in phases and "kernels" not in phases:
         check_train_gemms({}, {})
     if "gn_bwd" in phases and "kernels" not in phases:

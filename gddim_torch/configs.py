@@ -114,6 +114,7 @@ class DataConfig:
     synthetic: bool = False
     uniform_dequantization: bool = False
     is_partial: bool = False  # train on the first 1/1000 of the corpus
+    tfrecords_path: str = ""  # FFHQ / CelebA-HQ: the TFRecord file of the corpus
 
 
 @dataclasses.dataclass
@@ -168,6 +169,7 @@ class ModelConfig:
     progressive_input: str = "residual"
     progressive_combine: str = "sum"
     attention_type: str = "ddpm"
+    normalization: str = "GroupNorm"  # models/normalization.py:get_normalization
     conv_size: int = 3
     init_scale: float = 0.0
     embedding_type: str = "fourier"
@@ -198,6 +200,14 @@ class ModelConfig:
     # whole block) | 'convs' (keep the 3x3 conv outputs and the post-dropout
     # activation) | 'convs_lean' (keep the conv outputs only)
     remat: bool | str = False
+    # the attention core wherever an attention block runs its layers (the
+    # plain path, the layer-wise paths, training; never K5 or K10):
+    # ATTENTION_IMPLS, the JAX package's values (``unet.py:92``)
+    attention_impl: str = "auto"
+    # the original DDPM schedule's ends (``compat.get_ddpm_params``;
+    # ``gddim_tpu/configs/cld/default_cifar10.py:77-78``)
+    beta_min: float = 0.1
+    beta_max: float = 20.0
 
 
 @dataclasses.dataclass
@@ -345,6 +355,10 @@ EXECUTION_DEFAULTS = ("model.dtype", "model.conv_impl", "sampling.nfe", "samplin
 CONV_IMPLS = ("fused", "fused_int8", "pallas", "int8", "plain")
 REMATS = (False, True, "convs", "convs_lean")
 TRANSITION_IMPLS = ("tail", "full")
+# model.attention_impl: 'auto' (K8 on the kernel paths, else the plain
+# version), 'xla' (the plain version), 'pallas' (K8), 'einsum5d' (the
+# reference-shaped attention: the x1 baseline's)
+ATTENTION_IMPLS = ("auto", "xla", "pallas", "einsum5d")
 
 
 def get_config(name: str) -> Config:

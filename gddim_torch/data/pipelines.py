@@ -1,30 +1,41 @@
 """Input pipelines on local data (counterpart of ``gddim_tpu/data/pipelines.py``).
 
 numpy only. From the same corpus and seed they give the JAX package's
-batches bit for bit: the same corpus loaders, the same shuffling without
-replacement (one permutation an epoch, the remainder dropped), then the
-flips, then the uniform dequantization noise, drawn from one
-``np.random.default_rng`` in that order, and the same held-out split rule.
-Batches are ``{'image': float32 [0, 1]}`` shaped ``(n_jitted_steps, B, H, W,
-C)`` with ``additional_dim``, else ``(B, H, W, C)``. ``evaluation=True``
-makes both iterators one epoch long, ending in StopIteration; training
-iterators repeat. One process: the corpus is not sharded.
+batches bit for bit: the same corpus loaders and preprocessing, the same
+shuffling without replacement (one permutation an epoch, the remainder
+dropped), then the flips, then the uniform dequantization noise, drawn from
+one ``np.random.default_rng`` in that order, and the same held-out split
+rule. Batches are ``{'image': float32 [0, 1]}`` shaped ``(n_jitted_steps,
+B, H, W, C)`` with ``additional_dim``, else ``(B, H, W, C)``.
+``evaluation=True`` makes both iterators one epoch long, ending in
+StopIteration; training iterators repeat. One process: the corpus is not
+sharded.
 
 Corpora: CIFAR-10 as the ``cifar-10-batches-py`` pickles or
 ``cifar10_{train,test}.npz``, other ``<name>_<split>.npz`` / ``<name>.npz``
-files at the configured size, or the synthetic corpus (``data.synthetic``,
-or no ``data.data_dir``), and the point sets (``ps_*``: the Olympic rings,
-12,800 points at noise 0.01, standardised per dimension; the JAX package
-draws them from an unseeded generator, the port from ``config.seed``). Not
-ported: the crops and resizes (PIL), image folders and TFRecord corpora
-(FFHQ, CelebA-HQ); they raise.
+files under ``data.data_dir``, FFHQ and CelebA-HQ from the TFRecord file
+``data.tfrecords_path`` (raw CHW uint8 ``tf.train.Example`` records, read
+and written by the dependency-free codec below; one corpus for both
+splits), the synthetic corpus (``data.synthetic``, or no
+``data.data_dir``), and the point sets (``ps_*``: the Olympic rings, 12,800
+points at noise 0.01, standardised per dimension; the JAX package draws
+them from an unseeded generator, the port from ``config.seed``).
+
+``preprocess_corpus`` dispatches as the JAX package does (CIFAR-10 / SVHN
+bilinear, CelebA central crop 140 then bilinear, LSUN at 128 resize-small
+then crop, other LSUN sizes square crop, bicubic and uint8 rounding, FFHQ /
+CelebA-HQ as stored). Its antialiased resize is PIL's ``Image.resize`` on
+mode-"F" planes written in numpy (``pil_resize``), so that the port needs
+no PIL. Image folders (PNG / JPEG) need PIL to decode and are refused.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import pickle
 import queue
+import struct
 import threading
 from pathlib import Path
 
@@ -33,6 +44,7 @@ import numpy as np
 logger = logging.getLogger("gddim_torch")
 
 SYNTHETIC_SIZE = 2048  # images in the synthetic training corpus
+IMAGE_SUFFIXES = (".png", ".jpg", ".jpeg", ".webp")  # an image folder's files (refused)
 
 
 def get_data_scaler(config):
@@ -74,20 +86,287 @@ def _to_unit(images: np.ndarray) -> np.ndarray:
     return images.astype(np.float32) / (255.0 if images.dtype == np.uint8 else 1.0)
 
 
+# ---------------------------------------------------------------------------
+# resizes and crops (``gddim_tpu/data/pipelines.py:74-162``)
+# ---------------------------------------------------------------------------
+
+
+def _bilinear(x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+def _bicubic(x: np.ndarray, a: float = -0.5) -> np.ndarray:
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+# method -> (filter, its support), PIL's (libImaging/Resample.c)
+_FILTERS = {"bilinear": (_bilinear, 1.0), "bicubic": (_bicubic, 2.0)}
+
+
+def resample_coeffs(in_size: int, out_size: int, method: str):
+    """PIL's ``precompute_coeffs`` for a whole axis: (taps (out, K) int,
+    weights (out, K) f64). Output pixel i reads the input pixels
+    xmin .. xmin + n - 1 with xmin = max(int(center - support + 0.5), 0),
+    center = (i + 0.5) * scale, the support the filter's times
+    max(in / out, 1), each weighted filter((j + xmin - center + 0.5) /
+    filterscale) and the weights normalised to sum 1 (summed in order);
+    the unused trailing taps carry weight 0."""
+    filt, support = _FILTERS[method]
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support *= filterscale
+    ss = 1.0 / filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    taps = np.zeros((out_size, ksize), np.int64)
+    weights = np.zeros((out_size, ksize), np.float64)
+    for i in range(out_size):
+        center = (i + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        n = min(int(center + support + 0.5), in_size) - xmin
+        w = filt((np.arange(n) + xmin - center + 0.5) * ss)
+        total = 0.0
+        for v in w:
+            total += v
+        if total != 0.0:
+            w = w / total
+        taps[i, :n], taps[i, n:] = np.arange(xmin, xmin + n), xmin
+        weights[i, :n] = w
+    return taps, weights
+
+
+def _resample_axis(x: np.ndarray, axis: int, out_size: int, method: str) -> np.ndarray:
+    """One pass of PIL's separable resample along ``axis`` of f32 ``x``:
+    each output the f64 sum, tap by tap in order, of f32 inputs times f64
+    weights, stored f32."""
+    taps, weights = resample_coeffs(x.shape[axis], out_size, method)
+    xm = np.ascontiguousarray(np.moveaxis(x, axis, 0))  # a tap gathers whole rows
+    acc = np.zeros((out_size,) + xm.shape[1:], np.float64)
+    for j in range(taps.shape[1]):
+        acc += xm[taps[:, j]] * weights[:, j].reshape((out_size,) + (1,) * (xm.ndim - 1))
+    return np.moveaxis(acc.astype(np.float32), 0, axis)
+
+
+RESIZE_CHUNK = 64  # images resampled together
+
+
+def pil_resize(images: np.ndarray, h: int, w: int, method: str) -> np.ndarray:
+    """(N, H, W, C) -> (N, h, w, C) f32: what PIL's ``Image.resize((w, h),
+    BILINEAR or BICUBIC)`` gives on each image's mode-"F" planes (the JAX
+    package's ``_pil_resize``; antialiased like ``tf.image.resize``), for
+    every image and channel at once: the horizontal pass, stored f32, then
+    the vertical; an axis whose size stays is not resampled."""
+    images = images.astype(np.float32, copy=False)
+    out = np.empty((len(images), h, w, images.shape[-1]), np.float32)
+    for s in range(0, len(images), RESIZE_CHUNK):
+        y = images[s: s + RESIZE_CHUNK]
+        if w != y.shape[2]:
+            y = _resample_axis(y, 2, w, method)
+        if h != y.shape[1]:
+            y = _resample_axis(y, 1, h, method)
+        out[s: s + RESIZE_CHUNK] = y
+    return out
+
+
+def _central_crop(images: np.ndarray, size: int) -> np.ndarray:
+    """Centre crop to (size, size) (reference central_crop)."""
+    h, w = images.shape[1], images.shape[2]
+    top, left = (h - size) // 2, (w - size) // 2
+    return images[:, top: top + size, left: left + size]
+
+
+def _crop_resize(images: np.ndarray, resolution: int) -> np.ndarray:
+    """Square centre crop to min(h, w), bicubic resize, rounded and clipped
+    to uint8 (reference crop_resize)."""
+    crop = min(images.shape[1], images.shape[2])
+    out = pil_resize(_central_crop(images, crop).astype(np.float32), resolution, resolution,
+                     "bicubic")
+    return np.clip(np.round(out), 0, 255).astype(np.uint8)
+
+
+def _resize_small(images: np.ndarray, resolution: int) -> np.ndarray:
+    """Bilinear shrink of the short side to ``resolution`` (reference
+    resize_small); f32 on the input's scale."""
+    h, w = images.shape[1], images.shape[2]
+    ratio = resolution / min(h, w)
+    return pil_resize(images.astype(np.float32), int(round(h * ratio)), int(round(w * ratio)),
+                      "bilinear")
+
+
 def preprocess_corpus(name: str, images: np.ndarray, size: int) -> np.ndarray:
-    """Float32 images in [0, 1]: the JAX package's preprocessing of a corpus
-    stored at the configured size (clipped for CIFAR-10, SVHN, CelebA and
-    LSUN, as there). The resizes and crops are not ported and raise."""
+    """Float32 images in [0, 1] at ``size``, dispatched by the corpus name
+    as the JAX package dispatches (``pipelines.py:107-162``, after the
+    reference's datasets.py:107-154)."""
     name = name.lower().split("_")[0].split("/")[0]
-    if images.shape[1] != size or images.shape[2] != size:
-        raise NotImplementedError(
-            f"resizing a {images.shape[1]}x{images.shape[2]} {name} corpus to {size} is not ported")
-    if name == "lsun" and size != 128:
-        raise NotImplementedError("the LSUN crop + bicubic resize pipeline is not ported")
-    imgs = _to_unit(images)
-    if name in ("cifar10", "svhn", "celeba", "lsun"):
+    if name in ("cifar10", "svhn"):
+        imgs = _to_unit(images)
+        if imgs.shape[1] != size or imgs.shape[2] != size:
+            imgs = pil_resize(imgs, size, size, "bilinear")
         return np.clip(imgs, 0.0, 1.0)
+    if name == "celeba":
+        h_in, w_in = images.shape[1], images.shape[2]
+        if h_in == size and w_in == size:  # stored at the target size
+            return np.clip(_to_unit(images), 0.0, 1.0)
+        if h_in < 140 or w_in < 140:
+            raise ValueError(
+                f"celeba corpus images are {h_in}x{w_in}; the reference "
+                "pipeline center-crops 140x140 (datasets.py:131-136)")
+        imgs = _to_unit(_central_crop(images, 140))
+        if imgs.shape[1] != size:
+            imgs = np.clip(pil_resize(imgs, size, size, "bilinear"), 0.0, 1.0)
+        return imgs
+    if name == "lsun":
+        if size == 128:  # the short side first, then the crop
+            imgs = _central_crop(_resize_small(images, size), size)
+            return np.clip(imgs / (255.0 if images.dtype == np.uint8 else 1.0), 0.0, 1.0)
+        # square crop, bicubic, uint8 rounding before the /255
+        return _crop_resize(images, size).astype(np.float32) / 255.0
+    if name in ("ffhq", "celebahq"):  # the records hold the stored size
+        return _to_unit(images)
+    imgs = _to_unit(images)
+    if imgs.shape[1] != size or imgs.shape[2] != size:
+        imgs = np.clip(pil_resize(imgs, size, size, "bilinear"), 0.0, 1.0)
     return imgs
+
+
+# ---------------------------------------------------------------------------
+# TFRecord / tf.train.Example codec (``pipelines.py:177-302``)
+# ---------------------------------------------------------------------------
+#
+# FFHQ and CelebA-HQ ship as TFRecords of tf.train.Example protos with the
+# features {'shape': int64[3], 'data': bytes} holding raw CHW uint8 pixels.
+# A TFRecord frame is [len: u64le][crc(len): u32][payload][crc(payload): u32];
+# an Example is nested length-delimited protobuf messages.
+
+
+def iter_tfrecords(path: str | Path):
+    """The raw record payloads of a TFRecord file (CRCs skipped)."""
+    with open(path, "rb") as f:
+        while True:
+            header = f.read(12)
+            if len(header) < 12:
+                return
+            (length,) = struct.unpack("<Q", header[:8])
+            payload = f.read(length)
+            f.read(4)  # the payload's crc
+            yield payload
+
+
+def _read_varint(buf: bytes, pos: int) -> tuple[int, int]:
+    result = shift = 0
+    while True:
+        b = buf[pos]
+        pos += 1
+        result |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return result, pos
+        shift += 7
+
+
+def _iter_proto_fields(buf: bytes):
+    """(field number, wire type, value) over a protobuf message body."""
+    pos = 0
+    while pos < len(buf):
+        tag, pos = _read_varint(buf, pos)
+        field, wire = tag >> 3, tag & 7
+        if wire == 0:  # varint
+            val, pos = _read_varint(buf, pos)
+        elif wire == 2:  # length-delimited
+            ln, pos = _read_varint(buf, pos)
+            val = buf[pos: pos + ln]
+            pos += ln
+        elif wire == 5:  # 32-bit
+            val = buf[pos: pos + 4]
+            pos += 4
+        elif wire == 1:  # 64-bit
+            val = buf[pos: pos + 8]
+            pos += 8
+        else:
+            raise ValueError(f"unsupported wire type {wire}")
+        yield field, wire, val
+
+
+def parse_example(payload: bytes) -> dict:
+    """A tf.train.Example as {name: bytes | list[int]} (its BytesList and
+    Int64List features, packed or not)."""
+    out = {}
+    for f_ex, _, features_buf in _iter_proto_fields(payload):
+        if f_ex != 1:  # Example.features
+            continue
+        for f_fs, _, entry in _iter_proto_fields(features_buf):
+            if f_fs != 1:  # a Features.feature map entry
+                continue
+            key, feature = None, b""
+            for f_kv, _, v in _iter_proto_fields(entry):
+                if f_kv == 1:
+                    key = v.decode()
+                elif f_kv == 2:
+                    feature = v
+            for f_kind, _, kind_buf in _iter_proto_fields(feature):
+                if f_kind == 1:  # BytesList
+                    for f_b, _, b in _iter_proto_fields(kind_buf):
+                        if f_b == 1:
+                            out[key] = b
+                elif f_kind == 3:  # Int64List
+                    vals = []
+                    for _, wire, v in _iter_proto_fields(kind_buf):
+                        if wire == 0:
+                            vals.append(v)
+                        elif wire == 2:  # packed
+                            p = 0
+                            while p < len(v):
+                                x, p = _read_varint(v, p)
+                                vals.append(x)
+                    out[key] = vals
+    return out
+
+
+def load_tfrecord_images(path: str | Path, limit: int | None = None) -> np.ndarray:
+    """The FFHQ / CelebA-HQ records as NHWC uint8: each record's raw CHW
+    bytes reshaped to its 'shape' and transposed (reference
+    datasets.py:166-172)."""
+    images = []
+    for payload in iter_tfrecords(path):
+        ex = parse_example(payload)
+        shape = [int(s) for s in ex["shape"]]
+        images.append(np.frombuffer(ex["data"], dtype=np.uint8).reshape(shape).transpose(1, 2, 0))
+        if limit is not None and len(images) >= limit:
+            break
+    if not images:
+        raise ValueError(f"no records in {path}")
+    return np.stack(images)
+
+
+def _varint(n: int) -> bytes:
+    out = b""
+    while True:
+        b7 = n & 0x7F
+        n >>= 7
+        out += bytes([b7 | (0x80 if n else 0)])
+        if not n:
+            return out
+
+
+def _ld(field: int, payload: bytes) -> bytes:
+    """A length-delimited protobuf field."""
+    return _varint((field << 3) | 2) + _varint(len(payload)) + payload
+
+
+def write_tfrecord_images(path: str | Path, images: np.ndarray):
+    """NHWC uint8 images in the reference's TFRecord layout, the JAX
+    package's bytes: a packed int64 'shape' (C, H, W) and the raw CHW
+    'data', CRC fields zeroed (the readers skip them)."""
+    with open(path, "wb") as f:
+        for img in images:
+            chw = np.ascontiguousarray(img.transpose(2, 0, 1))
+            feat_shape = _ld(3, _ld(1, b"".join(_varint(s) for s in chw.shape)))
+            feat_data = _ld(1, _ld(1, chw.tobytes()))
+            payload = (_ld(1, _ld(1, _ld(1, b"shape") + _ld(2, feat_shape)))
+                       + _ld(1, _ld(1, _ld(1, b"data") + _ld(2, feat_data))))
+            f.write(struct.pack("<Q", len(payload)) + b"\0" * 4)
+            f.write(payload + b"\0" * 4)
 
 
 def _load_cifar10_dir(data_dir: str, train: bool) -> np.ndarray:
@@ -122,8 +401,11 @@ def _find_corpus(config, train: bool) -> np.ndarray | None:
             return _load_cifar10_dir(config.data.data_dir, train)
         except FileNotFoundError:
             return None
-    if name in ("ffhq", "celebahq"):
-        raise NotImplementedError(f"the {name} TFRecord corpus is not ported")
+    if name in ("ffhq", "celebahq"):  # one TFRecord file, both splits
+        rec = str(config.data.tfrecords_path or "")
+        if rec and Path(rec).exists():
+            return load_tfrecord_images(rec)
+        return None
     split_names = (
         ["train"] if train else
         (["validation", "val", "test"] if name.split("_")[0] in ("celeba", "lsun")
@@ -139,9 +421,10 @@ def _find_corpus(config, train: bool) -> np.ndarray | None:
         if npz.exists():
             with np.load(npz) as z:
                 return z["images"]
-        if d.is_dir() and any(p.suffix.lower() in (".png", ".jpg", ".jpeg", ".webp")
-                              for p in d.rglob("*")):
-            raise NotImplementedError("image-folder corpora (PIL) are not ported")
+        if d.is_dir() and any(p.suffix.lower() in IMAGE_SUFFIXES for p in d.rglob("*")):
+            raise NotImplementedError(
+                f"{d} is an image folder: decoding PNG / JPEG needs PIL, which the port does "
+                "not use; store the images as <name>_train.npz ('images', uint8 NHWC) instead")
     return None
 
 
@@ -346,8 +629,9 @@ def get_dataset(config, additional_dim=None, uniform_dequantization=False, evalu
         train_images = _find_corpus(config, train=True)
         if train_images is None:
             raise FileNotFoundError(f"no data for {name} under {config.data.data_dir}")
-        eval_images = _find_corpus(config, train=False)
-        if eval_images is None:
+        if name in ("ffhq", "celebahq"):  # the same records for both splits
+            eval_images = train_images
+        elif (eval_images := _find_corpus(config, train=False)) is None:
             train_images, eval_images = _split(train_images, name, flat)
         shared = eval_images is train_images
         size = config.data.image_size

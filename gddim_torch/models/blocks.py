@@ -521,13 +521,16 @@ class AttnBlockpp(nn.Module):
 
     def forward(self, x, fused: bool = False, train: bool = False, int8: bool = False,
                 qscales: dict | None = None, sow=None, layer: str | None = None,
-                fused_attn: bool = False):
+                fused_attn: bool = False, attention_impl: str = "auto"):
         """int8 (with fused): K5's int8 mode, static scales from this block's
         ``qscales`` amaxes. layer (with fused): the layer-wise path, K1, the
         NIN projections and K8, as in training. fused_attn (with train and
         fused): K10 where the kernels take the shape. With fused, K5 runs
         where ``attn_ops.supported`` takes the block, the plain composition
-        elsewhere. sow: calibration (the plain composition)."""
+        elsewhere. sow: calibration (the plain composition).
+        attention_impl (``model.attention_impl``): the attention core
+        wherever the block runs its layers, not K5 or K10 (``self_attention_2d``:
+        'auto' is K8 on the kernel paths, the plain version on the plain one)."""
         kw = dict(num_groups=num_groups_for(x.shape[-1]), eps=self.norm.eps,
                   skip_rescale=self.skip_rescale)
         if train and fused and fused_attn and attn_ops.supported(x.shape):
@@ -536,7 +539,8 @@ class AttnBlockpp(nn.Module):
                 self.k.bias, self.v.weight, self.v.bias, self.out.weight, self.out.bias, **kw)
         if train or (fused and layer is not None):
             h = self.norm(x, act=False, fused=fused)
-            h = self_attention_2d(self.q(h), self.k(h), self.v(h), fused=fused)
+            h = self_attention_2d(self.q(h), self.k(h), self.v(h), impl=attention_impl,
+                                  fused=fused)
             out = x + self.out(h)
             return out * attn_ops._INV_SQRT2 if self.skip_rescale else out
         int8 = fused and int8
@@ -550,6 +554,8 @@ class AttnBlockpp(nn.Module):
                                                    self._weights(), **kw)
         if not fused and sow is not None:
             kw["sow"] = sow
+        if not kernel:
+            kw["attention_impl"] = attention_impl
         op = attn_ops.fused_attnblock if kernel else attn_ops.attnblock_reference
         return op(x, self.norm.weight, self.norm.bias,
                   self.q.weight, self.q.bias, self.k.weight, self.k.bias,

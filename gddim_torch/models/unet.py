@@ -17,7 +17,10 @@ the plain torch composition ('plain'); ``config.model.transition_impl='full'``
 runs the whole-block paths' up/down blocks through K9 (FIR or naive
 coefficients), ``config.training.fused_attn`` the training path's attention
 through K10, and ``config.model.fused_train`` its stride-1 BigGAN blocks
-through K6/K7 (off: their unfused layers, K1 for the GroupNorms). A block
+through K6/K7 (off: their unfused layers, K1 for the GroupNorms).
+``config.model.attention_impl`` ('auto', 'xla', 'pallas', 'einsum5d'; the
+JAX package's ``unet.py:92,127``) picks the attention core wherever an
+attention block runs its layers (never K5 or K10). A block
 takes a kernel only with the swish activation and a temb, as the JAX
 package gates them. The stem, head, pyramid and Up/Down convs stay plain in
 every mode, apart from what the JAX package sends through its 3x3 conv
@@ -61,7 +64,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gddim_torch.configs import CONV_IMPLS, REMATS, TRANSITION_IMPLS
+from gddim_torch.configs import ATTENTION_IMPLS, CONV_IMPLS, REMATS, TRANSITION_IMPLS
 from gddim_torch.models.blocks import (
     AttnBlockpp,
     Downsample,
@@ -128,6 +131,10 @@ class NCSNpp(nn.Module):
         self.layer = m.conv_impl if m.conv_impl in ("pallas", "int8") else None  # layer-wise
         self.transition = m.transition_impl  # 'full': K9 for the whole-block paths' transitions
         self.fused_attn = bool(config.training.fused_attn)  # training attention through K10
+        if m.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, "
+                             f"got {m.attention_impl!r}")
+        self.attention_impl = m.attention_impl  # the attention core where a block runs its layers
         self.fused_train = bool(m.fused_train)  # training stride-1 blocks through K6/K7
         self.remat = m.remat  # the residual blocks' recompute in training
         self.qscales: dict = {}
@@ -313,7 +320,8 @@ class NCSNpp(nn.Module):
                          **extra(block))
 
         def att(block, h):
-            return block(h, fused, train, fused_attn=self.fused_attn, **extra(block))
+            return block(h, fused, train, fused_attn=self.fused_attn,
+                         attention_impl=self.attention_impl, **extra(block))
 
         def head(modules, h, conv_impl="plain"):  # norm_act, then a 3x3 conv
             norm, conv = next(modules), next(modules)

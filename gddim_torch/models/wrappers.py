@@ -7,7 +7,8 @@ CLD:
 - the mixed score (``model.mixed_score``, ``wrappers.py:86-89``): the
   network's eps plus the analytic term invR(t) @ [0, v], in f32 whatever
   the model's activation dtype (R(t) is small near t = 0, so invR reaches
-  ~1e3 there).
+  ~1e3 there);
+- the score, eps2score(eps) (cld_jax/models/utils.py:184-211).
 
 Blur (``wrappers.py:109-143``): the network on plain image channels with
 labels ``sde.encode_t(t)`` = 999 t, and the DCT-space eps, iDCT -> network
@@ -62,6 +63,17 @@ def make_cld_eps_fn(sde, train: bool = False):
         return eps
 
     return eps_apply
+
+
+def make_cld_score_fn(sde, train: bool = False):
+    """score_apply(model, u, t_vec, generator=None) -> the CLD score:
+    make_cld_eps_fn's eps, then ``sde.eps2score`` (``wrappers.py:97-107``)."""
+    eps_apply = make_cld_eps_fn(sde, train=train)
+
+    def score_apply(model, u, t_vec, generator=None):
+        return sde.eps2score(eps_apply(model, u, t_vec, generator), t_vec)
+
+    return score_apply
 
 
 def make_blur_eps_fn(sde, train: bool = False):

@@ -15,7 +15,12 @@ Counterpart of ``gddim_tpu/ops/attention.py`` and ``gddim_tpu/ops/flash.py``:
   package sends to XLA for the TPU's 128-lane gate, runs it too;
 - ``attention_pallas``: K8 forward with the gradient of the plain version
   recomputed from (q, k, v), as the JAX ``custom_vjp`` (``attention.py:35-54``);
-- ``self_attention_2d``: the (B, H, W, C) entry the attention block calls.
+- ``attention_einsum5d``: the reference-shaped attention
+  (``attention.py:67-75``), ``bhwc,bHWc->bhwHW`` logits in q's dtype, the
+  (B, H, W, H, W) scores materialised; the x1 baseline's attention
+  (``model.attention_impl='einsum5d'``, ``bench.py``'s ``ref`` mode);
+- ``self_attention_2d``: the (B, H, W, C) entry the attention block calls,
+  by ``impl`` (``ATTENTION_IMPLS``, the JAX values).
 
 On a CPU tensor ``flash_attention`` runs the plain version; on a CUDA tensor
 it launches the kernel or raises.
@@ -26,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from gddim_torch import _build
+from gddim_torch.configs import ATTENTION_IMPLS
 from gddim_torch.ops.resblock import _operand, require_no_grad
 
 
@@ -126,10 +132,28 @@ def attention_pallas(q, k, v):
     return _AttentionPallas.apply(q, k, v)
 
 
-def self_attention_2d(q, k, v, fused: bool = True):
-    """Attention over spatial tokens; q, k, v (B, H, W, C). fused: K8
-    (attention_pallas), else the plain version."""
+def attention_einsum5d(q, k, v):
+    """Reference-shaped attention on (B, H, W, C): the bhwc,bHWc->bhwHW
+    logits scaled by C^-1/2, softmax over the flattened HW, then
+    bhwHW,bHWc->bhwc, all in q's dtype (``attention.py:67-75``)."""
+    b, h, w, c = q.shape
+    logits = torch.einsum("bhwc,bHWc->bhwHW", q, k) * (int(c) ** (-0.5))
+    weights = torch.softmax(logits.reshape(b, h, w, h * w), dim=-1).reshape(b, h, w, h, w)
+    return torch.einsum("bhwHW,bHWc->bhwc", weights, v)
+
+
+def self_attention_2d(q, k, v, impl: str = "auto", fused: bool = True):
+    """Attention over spatial tokens; q, k, v (B, H, W, C). impl (one of
+    ATTENTION_IMPLS): 'auto' is K8 (attention_pallas) when ``fused``, else
+    the plain version; 'xla' the plain version; 'pallas' K8;
+    'einsum5d' attention_einsum5d."""
+    if impl not in ATTENTION_IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}; one of {ATTENTION_IMPLS}")
+    if impl == "einsum5d":
+        return attention_einsum5d(q, k, v)
+    if impl == "auto":
+        impl = "pallas" if fused else "xla"
     b, h, w, c = q.shape
     qf, kf, vf = (t.reshape(b, h * w, c) for t in (q, k, v))
-    out = attention_pallas(qf, kf, vf) if fused else attention_xla(qf, kf, vf)
+    out = attention_pallas(qf, kf, vf) if impl == "pallas" else attention_xla(qf, kf, vf)
     return out.reshape(b, h, w, c)

@@ -46,7 +46,7 @@ from typing import NamedTuple
 import torch
 
 from gddim_torch import _build
-from gddim_torch.ops.attention import attention_xla
+from gddim_torch.ops.attention import attention_xla, self_attention_2d
 from gddim_torch.ops.groupnorm import group_norm_silu_reference
 from gddim_torch.ops.resblock import (
     BF16_SLICE,
@@ -127,11 +127,13 @@ def unpack_projection(w):
 
 def attnblock_reference(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo, *,
                         num_groups: int, eps: float = 1e-6, skip_rescale: bool = False,
-                        sow=None):
+                        sow=None, attention_impl: str = "xla"):
     """Plain version: the unfused composition (gddim_tpu/ops/attnblock.py:257).
     sow(site, tensor), if given, sees the int8 quantization sites "h" (the
     q/k/v input) and "a" (the output projection's input), as the JAX
-    package's calibration records them (``gddim_tpu/models/blocks.py:135-143``)."""
+    package's calibration records them (``gddim_tpu/models/blocks.py:135-143``).
+    attention_impl: the attention core, as ``self_attention_2d`` takes it
+    ('auto' and 'xla': the plain version)."""
     b, h, w, c = x.shape
     hn = group_norm_silu_reference(x, gn_scale, gn_bias, num_groups, eps, apply_silu=False)
     if sow is not None:
@@ -141,7 +143,8 @@ def attnblock_reference(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, bo, *,
     q = flat @ wq.to(dt) + bq.to(dt)
     k = flat @ wk.to(dt) + bk.to(dt)
     v = flat @ wv.to(dt) + bv.to(dt)
-    a = attention_xla(q, k, v)
+    a = self_attention_2d(*(t.reshape(b, h, w, c) for t in (q, k, v)), impl=attention_impl,
+                          fused=False).reshape(b, h * w, c)
     if sow is not None:
         sow("a", a)
     o = a @ wo.to(dt) + bo.to(dt)

@@ -95,7 +95,9 @@ def test_dct_matches_jax(jx, n):
 # whole-transition kernel's setting (GDDIM_TRANSITION_IMPL, an environment
 # variable there)
 # model.remat: the JAX network reads it with a default (unet.py:165), no config sets it
-PORT_ONLY_FIELDS = {("model", "transition_impl"), ("model", "remat")}
+# fields no JAX config sets (the JAX package reads remat and tfrecords_path
+# with a default; the transition kernel's setting is an environment variable)
+PORT_ONLY_FIELDS = {("model", "transition_impl"), ("model", "remat"), ("data", "tfrecords_path")}
 
 
 def test_blur_config_matches_jax(jx):

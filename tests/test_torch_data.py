@@ -146,19 +146,33 @@ def test_scalers_and_shape_match_jax():
 
 
 def test_preprocessing_matches_jax_and_unported_paths_raise(tmp_path):
+    """Preprocessing at the stored size, a resize, a corpus stored at
+    another size and an FFHQ TFRecord all as the JAX package gives them,
+    bit for bit; the one refusal left is the image folder (PIL)."""
     rng = np.random.default_rng(3)
     imgs = rng.integers(0, 256, (4, 16, 16, 3), dtype=np.uint8)
     floats = rng.uniform(-0.5, 1.5, (4, 16, 16, 3)).astype(np.float32)
     for name, arr in (("cifar10", imgs), ("svhn", floats), ("celeba", imgs), ("mydata", floats)):
         np.testing.assert_array_equal(tp.preprocess_corpus(name, arr, 16),
                                       jp.preprocess_corpus(name, arr, 16))
-    with pytest.raises(NotImplementedError, match="resizing"):
-        tp.preprocess_corpus("cifar10", imgs, 32)
-    cfg, _ = configs(write_cifar_npz(tmp_path / "c", size=16), size=32)
-    with pytest.raises(NotImplementedError):
+    # a resize (the JAX package's runs PIL; the port's is its numpy twin)
+    np.testing.assert_array_equal(tp.preprocess_corpus("cifar10", imgs, 32),
+                                  jp.preprocess_corpus("cifar10", imgs, 32))
+    cfg, jcfg = configs(write_cifar_npz(tmp_path / "c", size=16), size=32)
+    assert_same_stream(tp.get_dataset(cfg, prefetch=False)[0], jp.get_dataset(jcfg)[0], 2)
+    # an FFHQ TFRecord (data.tfrecords_path) written by the JAX writer
+    jp.write_tfrecord_images(tmp_path / "ffhq.tfrecords",
+                             rng.integers(0, 256, (20, 32, 32, 3), dtype=np.uint8))
+    for c in (cfg, jcfg):
+        c.data.dataset, c.data.tfrecords_path = "FFHQ", str(tmp_path / "ffhq.tfrecords")
+    assert_same_stream(tp.get_dataset(cfg, prefetch=False)[0], jp.get_dataset(jcfg)[0], 2)
+    cfg.data.tfrecords_path = str(tmp_path / "missing.tfrecords")
+    with pytest.raises(FileNotFoundError):
         tp.get_dataset(cfg)
-    cfg.data.dataset = "ffhq"
-    with pytest.raises(NotImplementedError, match="TFRecord"):
+    (tmp_path / "folder").mkdir()
+    (tmp_path / "folder" / "0.png").write_bytes(b"")
+    cfg.data.dataset, cfg.data.data_dir = "myimages", str(tmp_path / "folder")
+    with pytest.raises(NotImplementedError, match="PIL"):
         tp.get_dataset(cfg)
     cfg.data.dataset = "olympic_ps"  # ported: the point set (tests/test_torch_points.py)
     train, _ = tp.get_dataset(cfg, prefetch=False)

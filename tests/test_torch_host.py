@@ -64,7 +64,9 @@ def test_deis_bundle_matches_jax_bit_for_bit(fresh_caches):
 # variable there), and data.is_partial, which only the JAX blur configs
 # set (its pipeline reads it with a default of False, the port's value)
 # model.remat: the JAX network reads it with a default (unet.py:165), no config sets it
-PORT_ONLY_FIELDS = {("model", "transition_impl"), ("data", "is_partial"), ("model", "remat")}
+# data.tfrecords_path: the JAX pipeline reads it with a default of '' (pipelines.py:351)
+PORT_ONLY_FIELDS = {("model", "transition_impl"), ("data", "is_partial"), ("model", "remat"),
+                    ("data", "tfrecords_path")}
 
 
 def test_config_fields_match_jax_with_bench_overrides():
