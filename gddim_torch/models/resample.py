@@ -64,16 +64,23 @@ def _zero_insert(y, up: int):
     return z
 
 
+def _upsample_pad(x, up: int, pad0: int, pad1: int):
+    """NHWC x as NCHW, zero-inserted by ``up`` with the trailing (up - 1)
+    zeros of the reference's reshape-upsample kept, then padded (pad0,
+    pad1) along H and W: the input of upfirdn's filter."""
+    y = x.permute(0, 3, 1, 2)
+    if up > 1:
+        y = F.pad(_zero_insert(y, up), (0, up - 1, 0, up - 1))
+    return F.pad(y, (pad0, pad1, pad0, pad1))
+
+
 def _channel_batch_fir(x, k1d: np.ndarray, up: int, down: int, pad0: int, pad1: int,
                        gain: float):
     """The reference's upfirdn (``resample.py:63-81``): zero-insert, pad,
     the channels folded into the batch, one single-channel conv with the
     flipped 2-D kernel, then the decimation ``[::down]``; NHWC."""
-    n, h, w, c = x.shape
-    y = x.permute(0, 3, 1, 2)
-    if up > 1:  # the reshape-upsample's trailing (up - 1) zeros kept
-        y = F.pad(_zero_insert(y, up), (0, up - 1, 0, up - 1))
-    y = F.pad(y, (pad0, pad1, pad0, pad1))
+    n, c = x.shape[0], x.shape[-1]
+    y = _upsample_pad(x, up, pad0, pad1)
     k2d = device_constant(np.outer(k1d, k1d) * gain, x.dtype, x.device)
     y = F.conv2d(y.reshape(n * c, 1, y.shape[2], y.shape[3]), k2d.flip(0, 1)[None, None])
     y = y.reshape(n, c, y.shape[2], y.shape[3]).permute(0, 2, 3, 1)
@@ -87,13 +94,8 @@ def _sep_fir(x, k1d: np.ndarray, up: int, down: int, pad0: int, pad1: int, gain:
         raise ValueError(f"FIR_IMPL must be one of {FIR_IMPLS}, got {FIR_IMPL!r}")
     if FIR_IMPL == "channel_batch":
         return _channel_batch_fir(x, k1d, up, down, pad0, pad1, gain)
-    b, h, w, c = x.shape
-    y = x.permute(0, 3, 1, 2)
-    if up > 1:  # zero-insert; the trailing (up-1) zeros fold into the right pad
-        z = y.new_zeros((b, c, h * up, w * up))
-        z[:, :, ::up, ::up] = y
-        y = z
-    y = F.pad(y, (pad0, pad1, pad0, pad1))
+    c = x.shape[-1]
+    y = _upsample_pad(x, up, pad0, pad1)
     taps = device_constant(k1d[::-1], y.dtype, y.device)
     kh = taps.shape[0]
     kern_h = (taps * gain).reshape(1, 1, kh, 1).expand(c, 1, kh, 1)
