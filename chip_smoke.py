@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py [--phases build,kernels,eps,gates,sample,int8,blur,samplers,blur_deis,
                            configs,f32,train,blur_train,run_lib,layer_f32,train_layer,remat,
-                           adamw,points,classifier,ref,corpora,compat,legacy] [--batch 16]
+                           adamw,points,classifier,ref,corpora,compat,legacy,parallel,scripts]
+                          [--batch 16]
 
 Phases (each prints one line per check; any failure raises and exits non-zero):
   1. the card: torch.cuda must be available; prints nvidia-smi's name and
@@ -211,7 +212,25 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      flattened-numpy and aug_batch helpers on the card, bit for bit;
  20. legacy: the NCSNv1/v2 zoo (22 blocks and norms, random parameters) at
      tests/test_models.py's shapes, card against CPU, f32 with TF32 off,
-     within LEGACY_BOUND.
+     within LEGACY_BOUND;
+ 21. parallel (gddim_torch/parallel over torch.distributed, in
+     subprocesses: this script with --worker): (a) cld/accr_dcifar10 at full
+     width, B=128, PAR_STEPS steps: the non-distributed loop through the
+     CLI, then in an NCCL group of one data parallel through the CLI's
+     GDDIM_* variables (each step's loss and gradient norm, and the final
+     checkpoint, bit for bit; K6/K7 launches), FSDP2 and channel TP on the
+     plain path through run_lib.train (each step within the training-step
+     gates); (b) two gloo ranks sharing cuda:0 (NCCL refuses a GPU twice):
+     data parallel, FSDP and TP at global B=64 against one process, the
+     step gates; (c) --mode sampling, NFE=50, 4 rounds of 16 dealt out over
+     the two ranks, bit for bit against one process's rounds; seconds and
+     img/s of each;
+ 22. scripts: cld/accr_dcifar10 trained SCRIPTS_STEPS steps through the CLI
+     (synthetic corpus), then gddim_torch.scripts.sweep at NFE 10/20/50 x
+     deis order 0-3 (SCRIPTS_SAMPLES samples a pair, proxy FID) and
+     gddim_torch.scripts.check_int8_fidelity at NFE=50 B=64, each int8
+     variant within SAMPLE_INT8_BOUND of bf16; every FID printed is the
+     proxy's on weights that are not CIFAR-10's.
 Then one line {"kernels": [...]}, one line with the card's name and power
 limit, and last {"ok": true, "device": {...}}.
 
@@ -5904,6 +5923,390 @@ def phase_legacy(card: str):
           f"{worst:.3e} (bound {LEGACY_BOUND:.0e}) [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Parallelism over torch.distributed, and the user scripts
+# ---------------------------------------------------------------------------
+
+PAR_CONFIG = "cld/accr_dcifar10"
+PAR_BATCH, PAR_STEPS = 128, 2  # each world-size-1 run: B=128, one optimizer step a call
+PAR2_BATCH, PAR2_STEPS = 64, 2  # each 2-rank run on one card: global B=64, 32 a rank
+PAR_ROUNDS, PAR_SAMPLE_BATCH, PAR_NFE = 4, 16, 50  # the round-sharded sampling
+PAR_TIMEOUT = 600  # seconds a worker group may take
+# Two ranks on one card take gloo (NCCL refuses a GPU twice), which stages
+# CUDA tensors through the host. A probe on the H100 machine (torch
+# 2.11.0+cu128, two processes on cuda:0) found gloo taking every collective
+# the layouts use on CUDA tensors: all_reduce (f32 and f64), broadcast,
+# all_gather, all_gather_into_tensor, reduce_scatter_tensor, barrier, and
+# FSDP2's fully_shard on a 1-D and a 2-D (HSDP) mesh. So each 2-rank layout
+# runs; one it refused would stand in PAR2_NOT_STARTED with its reason and
+# not be started. Layout: the route of its train step.
+PAR2_LAYOUTS = {"data": "fused", "fsdp": "fused", "tp": "plain"}
+PAR2_NOT_STARTED: dict = {}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _par_argv(workdir, conv_impl=None, batch: int = PAR_BATCH, steps: int = PAR_STEPS,
+              weights=None) -> list:
+    """The CLI's training arguments of the parallel and scripts phases' runs
+    (``weights``: the state_dict to start from)."""
+    argv = ["--config", PAR_CONFIG, "--mode", "train", "--workdir", str(workdir), "--device",
+            "cuda", "--steps", str(steps), "--batch", str(batch)]
+    argv += ["--weights", str(weights)] if weights else []
+    for kv in ("training.n_jitted_steps=1", "training.log_freq=1", f"training.eval_freq={10**6}",
+               f"training.snapshot_freq={10**6}", f"training.snapshot_freq_for_preemption={10**6}",
+               "training.snapshot_sampling=False"):
+        argv += ["--set", kv]
+    return argv + (["--set", f"model.conv_impl={conv_impl}"] if conv_impl else [])
+
+
+def _record_steps(run_lib) -> list:
+    """Patch ``run_lib.make_train_step`` so that each call's (loss, gradient
+    norm) is kept in the returned list."""
+    infos: list = []
+    real = run_lib.make_train_step
+
+    def make(loss_fn):
+        step = real(loss_fn)
+
+        def recorded(state, batches):
+            info = step(state, batches)
+            infos.append((float(info["loss"]), float(info["grad_norm"])))
+            return info
+
+        return recorded
+
+    run_lib.make_train_step = make
+    return infos
+
+
+def _step_gates(label: str, got: list, ref: list, card: str) -> None:
+    """Each step's loss and gradient norm against the reference run's, to
+    the training-step gates (TRAIN_BOUND's loss and grad_norm)."""
+    loss = max(abs(g[0] - r[0]) / abs(r[0]) for g, r in zip(got, ref))
+    norm = max(abs(g[1] - r[1]) / abs(r[1]) for g, r in zip(got, ref))
+    print(f"parallel {label}: {len(got)} steps, losses {[round(g[0], 6) for g in got]}, worst "
+          f"rel loss {loss:.3e} (bound {TRAIN_BOUND['loss']:.0e}), grad norm {norm:.3e} (bound "
+          f"{TRAIN_BOUND['grad_norm']:.0e}) [{card}]", flush=True)
+    if len(got) != len(ref) or not (loss <= TRAIN_BOUND["loss"]
+                                     and norm <= TRAIN_BOUND["grad_norm"]):
+        raise AssertionError(f"parallel {label}: steps {got} against {ref}")
+
+
+def _loop_ips(workdir: Path) -> list:
+    records = [json.loads(x) for x in (workdir / "metrics.jsonl").read_text().splitlines()]
+    return [round(r["train/imgs_per_sec"], 2) for r in records if "train/imgs_per_sec" in r]
+
+
+def _seeded_weights(path: Path) -> Path:
+    """The seeded weights (every branch drawn at full scale, as the train
+    and sample phases' gates were set on) as a state_dict file: the config's
+    own init draws the second convs and the output conv at scale 1e-10, so
+    its loss is E[z^2] to f32 precision whatever path computes it, and a few
+    steps at the warmup's learning rate leave it there."""
+    from gddim_torch.configs import train_config
+    from gddim_torch.models.init import seeded_model
+
+    torch.save(seeded_model(train_config(PAR_CONFIG), 0).state_dict(), path)
+    return path
+
+
+def worker_par1(out: Path, ports: list) -> None:
+    """(a) world size 1 under NCCL, from the seeded weights: the
+    non-distributed loop, then in a process group of one data parallel
+    through the CLI (loss, parameters, moments, EMA and generator bit for
+    bit; its launches), FSDP2 and channel TP on the plain path through the
+    harness (the step gates).
+    With torch's deterministic algorithms (CUBLAS_WORKSPACE_CONFIG set by
+    the parent): the loop's plain parts otherwise take library kernels
+    whose sums vary run to run, and two runs of one tree differ."""
+    import os
+    import warnings
+
+    from gddim_torch import cli, run_lib
+    from gddim_torch.parallel import multihost
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    warnings.simplefilter("always")
+    caught = warnings.catch_warnings(record=True)
+    seen = caught.__enter__()
+    card = card_line()
+    infos = _record_steps(run_lib)
+    weights = out / "seeded.pt"
+    runs = {}
+    for name in ("ref", "data"):
+        infos.clear()
+        if name == "data":  # the CLI joins the group from the environment
+            os.environ.update(GDDIM_NUM_PROCESSES="1", GDDIM_PROCESS_ID="0",
+                              GDDIM_COORDINATOR=f"localhost:{ports[0]}")
+            reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main(_par_argv(out / name, weights=weights))
+        torch.cuda.synchronize()
+        runs[name] = (list(infos), time.perf_counter() - t0)
+    for k in ("GDDIM_NUM_PROCESSES", "GDDIM_PROCESS_ID", "GDDIM_COORDINATOR"):
+        del os.environ[k]
+    config = cli.make_config(cli.parse_args(_par_argv(out / "data")))
+    want = _sum_counts((PAR_STEPS, PER_STEP_K10 if config.training.fused_attn else PER_STEP))
+    got = launches_of(want)
+    meta = [torch.load(out / n / "checkpoints-meta" / f"checkpoint_{PAR_STEPS}.pt",
+                       map_location="cpu", weights_only=True) for n in ("ref", "data")]
+    diffs = _state_diffs(*meta)
+    del meta
+    nondet = sorted({str(w.message)[:160] for w in seen if "deterministic" in str(w.message)})
+    print(f"parallel world 1: ops torch flags as without a deterministic form: {nondet or 'none'}",
+          flush=True)
+    print(f"parallel world 1 nccl, data parallel through the CLI: {PAR_STEPS} steps B={PAR_BATCH} "
+          f"in {runs['data'][1]:.2f} s (the non-distributed loop {runs['ref'][1]:.2f} s; both "
+          f"with the model's init and the final checkpoint), loop img/s {_loop_ips(out / 'data')} "
+          f"(non-distributed {_loop_ips(out / 'ref')}); losses and grad norms equal: "
+          f"{runs['data'][0] == runs['ref'][0]}; checkpoint entries not bit-equal: "
+          f"{diffs or 'none'}; K6 {got['K6']}, K7 {got['K7']} launches [{card}]", flush=True)
+    if runs["data"][0] != runs["ref"][0] or diffs or got != want:
+        raise AssertionError(f"parallel data: {runs}; not bit-equal: {diffs[:10]} and "
+                             f"{len(diffs) - 10} more; launches {got} against {want}")
+    multihost.initialize_distributed(f"localhost:{ports[1]}", 1, 0)
+    try:
+        for layout, conv_impl in (("fsdp", None), ("tp", "plain")):
+            infos.clear()
+            config = cli.make_config(cli.parse_args(_par_argv(out / layout, conv_impl)))
+            model = run_lib.init_model(config, "cuda", str(weights))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_lib.train(config, out / layout, "cuda", model=model, layout=layout)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            _step_gates(f"world 1 nccl, {layout} (conv_impl {config.model.conv_impl}) through "
+                        f"the harness, {sec:.2f} s, loop img/s {_loop_ips(out / layout)}",
+                        list(infos), runs["ref"][0], card)
+    finally:
+        multihost.shutdown()
+    print("parallel world 1: OK", flush=True)
+
+
+def _par2_steps(layout: str | None, conv_impl: str, weights: Path) -> dict:
+    """PAR2_STEPS train steps from ``weights`` at the global batch
+    PAR2_BATCH: one process (``layout`` None), or this rank's rows under a
+    2-rank ``layout``. Returns each step's (loss, grad norm) and seconds."""
+    from gddim_torch import cli, run_lib
+    from gddim_torch.parallel.mesh import place_model
+    from gddim_torch.train.losses import make_loss_fn
+    from gddim_torch.train.state import create_train_state
+    from gddim_torch.train.step import make_train_step
+
+    config = cli.make_config(cli.parse_args(_par_argv("unused", conv_impl, PAR2_BATCH)))
+    model, placement = run_lib.init_model(config, "cuda", str(weights)), None
+    if layout is not None:
+        n = {"data": (1, 1), "fsdp": (2, 1), "tp": (1, 2)}[layout]
+        model, placement = place_model(model, *n, device_type="cuda")
+    state = create_train_state(config, model, run_lib.stream_generator(
+        "cuda", config.seed, run_lib.STREAM_TRAIN), placement)
+    rng = np.random.default_rng(17)
+    batches = torch.from_numpy((rng.standard_normal((PAR2_STEPS, PAR2_BATCH, 32, 32, 3)) * 0.5)
+                               .astype(np.float32)).cuda()
+    if placement is not None:
+        batches = placement.shard_batch(batches, dim=1)
+    step = make_train_step(make_loss_fn(config, train=True))
+    infos, seconds = [], []
+    for i in range(PAR2_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = step(state, batches[i:i + 1])
+        infos.append((float(info["loss"]), float(info["grad_norm"])))
+        seconds.append(time.perf_counter() - t0)
+    return {"steps": infos, "seconds": seconds}
+
+
+def worker_par2(rank: int, out: Path, port: int) -> None:
+    """(b) one of two gloo ranks on cuda:0: each started layout's steps."""
+    from gddim_torch.parallel import multihost
+
+    multihost.initialize_distributed(f"localhost:{port}", 2, rank, backend="gloo")
+    try:
+        results = {layout: _par2_steps(layout, conv, out / "seeded.pt")
+                   for layout, conv in PAR2_LAYOUTS.items() if layout not in PAR2_NOT_STARTED}
+    finally:
+        multihost.shutdown()
+    if rank == 0:
+        (out / "par2.json").write_text(json.dumps(results))
+    print(f"parallel rank {rank}: OK", flush=True)
+
+
+def _run_procs(cmds: list, envs: list, label: str) -> list:
+    """Run the commands together, each with its environment; every one must
+    exit 0. Returns their outputs; kills what is left on the way out."""
+    procs = [subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd, env in zip(cmds, envs)]
+    try:
+        outs = [p.communicate(timeout=PAR_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for i, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel {label}: process {i} exited {p.returncode}:\n"
+                                 f"{text[-6000:]}")
+    return outs
+
+
+def phase_parallel(card: str):
+    """Parallelism on the card (PAR_CONFIG at full width, in subprocesses,
+    so that no process group outlives the phase): (a) world size 1 under
+    NCCL (``worker_par1``); (b) two gloo ranks sharing cuda:0, each layout
+    of PAR2_LAYOUTS held against one process at the same global batch to
+    the step gates; (c) ``--mode sampling`` (seeded weights, NFE=50, 4
+    rounds of 16) dealt out over the two gloo ranks, bit for bit against
+    one process's rounds."""
+    import os
+
+    from gddim_torch import cli
+
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items() if not k.startswith("GDDIM_")}
+    env["PYTHONPATH"] = str(root) + os.pathsep + env.get("PYTHONPATH", "")
+    me = [sys.executable, str(Path(__file__).resolve())]
+    det = {**env, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}  # cuBLAS's deterministic workspace
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        weights = _seeded_weights(tmp / "seeded.pt")
+        # (a)
+        t0 = time.perf_counter()
+        (text,) = _run_procs([[*me, "--worker", "par1", "--out", str(tmp), "--ports",
+                               f"{_free_port()},{_free_port()}"]], [det], "world 1")
+        print("".join(f"  {x}\n" for x in text.splitlines() if x.startswith("parallel")), end="")
+        print(f"parallel (a) world 1 under NCCL: {time.perf_counter() - t0:.1f} s", flush=True)
+        # (b)
+        print(f"parallel (b) two gloo ranks on cuda:0, torch {torch.__version__}: layouts "
+              f"started {[k for k in PAR2_LAYOUTS if k not in PAR2_NOT_STARTED]}; not started: "
+              f"{PAR2_NOT_STARTED or 'none (gloo takes every collective they use on CUDA '}"
+              f"{'' if PAR2_NOT_STARTED else 'tensors here)'}", flush=True)
+        t0 = time.perf_counter()
+        port = _free_port()
+        _run_procs([[*me, "--worker", "par2", "--rank", str(r), "--out", str(tmp), "--ports",
+                     str(port)] for r in range(2)], [env, env], "2 ranks")
+        wall = time.perf_counter() - t0
+        got = json.loads((tmp / "par2.json").read_text())
+        refs = {conv: _par2_steps(None, conv, weights) for conv in set(PAR2_LAYOUTS.values())}
+        for layout, res in got.items():
+            ref = refs[PAR2_LAYOUTS[layout]]
+            _step_gates(f"2 gloo ranks on cuda:0, {layout} (conv_impl {PAR2_LAYOUTS[layout]}), "
+                        f"{PAR2_STEPS} steps at global B={PAR2_BATCH}: step seconds "
+                        f"{[round(x, 3) for x in res['seconds']]}, the last "
+                        f"{PAR2_BATCH / res['seconds'][-1]:.2f} img/s (one process "
+                        f"{[round(x, 3) for x in ref['seconds']]}, "
+                        f"{PAR2_BATCH / ref['seconds'][-1]:.2f} img/s)", res["steps"], ref["steps"],
+                        card)
+        del refs
+        print(f"parallel (b): {wall:.1f} s for both ranks, start to end", flush=True)
+        # (c)
+        sample = ["--config", PAR_CONFIG, "--mode", "sampling", "--device", "cuda", "--workdir",
+                  str(tmp / "sampling"), "--batch", str(PAR_SAMPLE_BATCH), "--rounds",
+                  str(PAR_ROUNDS), "--set", f"sampling.nfe={PAR_NFE}"]
+        port = _free_port()
+        t0 = time.perf_counter()
+        _run_procs([[sys.executable, "-m", "gddim_torch.cli", *sample, "--result_folder",
+                     str(tmp / "sharded")] for _ in range(2)],
+                   [{**env, "GDDIM_NUM_PROCESSES": "2", "GDDIM_PROCESS_ID": str(r),
+                     "GDDIM_COORDINATOR": f"localhost:{port}", "GDDIM_DIST_BACKEND": "gloo"}
+                    for r in range(2)], "sampling")
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main([*sample, "--result_folder", str(tmp / "one")])
+        torch.cuda.synchronize()
+        one = time.perf_counter() - t0
+        names = sorted(p.name for p in (tmp / "one").glob("samples_*.npz"))
+        same = {}
+        for name in names:
+            with np.load(tmp / "sharded" / name) as a, np.load(tmp / "one" / name) as b:
+                same[name] = sorted(a.files) == sorted(b.files) and all(
+                    np.array_equal(a[k], b[k]) for k in b.files)
+        n = PAR_ROUNDS * PAR_SAMPLE_BATCH
+        print(f"parallel (c) sampling NFE={PAR_NFE}, {PAR_ROUNDS} rounds of {PAR_SAMPLE_BATCH} "
+              f"over 2 gloo ranks on cuda:0: {wall:.2f} s start to end ({n / wall:.2f} img/s with "
+              f"both processes' start-up); one process in this one {one:.2f} s ({n / one:.2f} "
+              f"img/s); rounds bit for bit: {same} [{card}]", flush=True)
+        if len(same) != PAR_ROUNDS or not all(same.values()):
+            raise AssertionError(f"parallel sampling: {same}")
+
+
+SCRIPTS_STEPS, SCRIPTS_NFES, SCRIPTS_ORDERS = 3, (10, 20, 50), (0, 1, 2, 3)
+SCRIPTS_SAMPLES, SCRIPTS_BATCH = 32, 32  # the sweep's samples a pair, at one round
+FIDELITY_NFE, FIDELITY_BATCH = 50, 64  # check_int8_fidelity's, one round
+NOT_CIFAR = "not CIFAR-10 weights; proxy FID"
+
+
+def phase_scripts(card: str):
+    """The user scripts on the card: PAR_CONFIG trained SCRIPTS_STEPS steps
+    at B=128 from the synthetic corpus through the CLI, starting from the
+    seeded weights (snapshot 1), then
+    ``gddim_torch.scripts.sweep`` over NFE x deis order (12 records) and
+    ``gddim_torch.scripts.check_int8_fidelity`` at NFE=50, each int8
+    variant held to the int8 sample gate (SAMPLE_INT8_BOUND)."""
+    from gddim_torch import cli
+    from gddim_torch.scripts import check_int8_fidelity, sweep
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        run = tmp / "run"
+        argv = _par_argv(run, steps=SCRIPTS_STEPS, weights=_seeded_weights(tmp / "seeded.pt"))
+        argv += ["--set", f"training.snapshot_freq={SCRIPTS_STEPS}"]  # the later --set wins
+        t0 = time.perf_counter()
+        cli.main(argv)
+        print(f"scripts: {SCRIPTS_STEPS} training steps B={PAR_BATCH} ({PAR_CONFIG}, synthetic "
+              f"corpus) in {time.perf_counter() - t0:.2f} s, loop img/s {_loop_ips(run)} [{card}]",
+              flush=True)
+        t0 = time.perf_counter()
+        records = sweep.main(["--config", PAR_CONFIG, "--ckpt", "1", "--workdir", str(run),
+                              "--out", str(tmp / "sweep"), "--nfes", *map(str, SCRIPTS_NFES),
+                              "--orders", *map(str, SCRIPTS_ORDERS), "--num_samples",
+                              str(SCRIPTS_SAMPLES), "--batch_size", str(SCRIPTS_BATCH),
+                              "--device", "cuda"])
+        sec = time.perf_counter() - t0
+        for rec in records:
+            print(f"scripts sweep nfe={rec['nfe']} order={rec['order']}: fid_proxy "
+                  f"{rec['fid_proxy']:.4f}, IS_proxy {rec['IS_proxy']:.4f}, n {rec['n']} "
+                  f"({NOT_CIFAR}; extractor {rec['extractor']})", flush=True)
+        print(f"scripts sweep: {len(records)} records in {sec:.2f} s ({SCRIPTS_SAMPLES} samples "
+              f"a pair at B={SCRIPTS_BATCH}, scores included) [{card}]", flush=True)
+        want = len(SCRIPTS_NFES) * len(SCRIPTS_ORDERS)
+        if len(records) != want or not all(np.isfinite(r["fid_proxy"]) for r in records):
+            raise AssertionError(f"scripts sweep: {records}")
+        t0 = time.perf_counter()
+        res = check_int8_fidelity.main(["--config", PAR_CONFIG, "--workdir", str(run), "--ckpt",
+                                        "1", "--device", "cuda", "--nfe", str(FIDELITY_NFE),
+                                        "--batch", str(FIDELITY_BATCH), "--rounds", "1"])
+        sec = time.perf_counter() - t0
+        bad = []
+        for name in ("int8_dynamic", "int8_static"):
+            r = res[name]
+            u8 = r["images"]  # as _compare_samples reads samples: uint8 / 255
+            ok = u8["corr"] >= SAMPLE_INT8_BOUND["corr"] and \
+                u8["mean_abs_dx"] <= SAMPLE_INT8_BOUND["mean_dx"]
+            print(f"scripts int8 fidelity {name} (NFE={FIDELITY_NFE} B={FIDELITY_BATCH}), "
+                  f"the images (uint8 / 255): corr {u8['corr']:.5f} (bound >= "
+                  f"{SAMPLE_INT8_BOUND['corr']}), mean |dx| {u8['mean_abs_dx']:.5f} (bound "
+                  f"{SAMPLE_INT8_BOUND['mean_dx']}), max |dx| {u8['max_abs_dx']:.4f}; the raw "
+                  f"samples: corr {r['corr']:.5f}, mean {r['mean']:.4f}; proxy-FID "
+                  f"{r['proxy-FID']:.4f}, delta from bf16 {r['proxy-FID_delta']:+.4f} "
+                  f"({NOT_CIFAR}) [{card}]", flush=True)
+            bad += [] if ok else [name]
+        print(f"scripts int8 fidelity: {sec:.2f} s (three variants, static calibration "
+              f"included); bf16 proxy-FID {res['bf16_fused']['proxy-FID']:.4f} ({NOT_CIFAR})",
+              flush=True)
+        if bad:
+            raise AssertionError(f"scripts int8 fidelity: {bad} outside the sample gate")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="smoke run of gddim_torch on one CUDA card")
     # opt-in phases: profile, ab, train_time (K6/K7 device time and a traced
@@ -5922,13 +6325,18 @@ def main(argv=None):
     # three on a parent's checkout too
     parser.add_argument("--phases", default="build,kernels,eps,gates,sample,int8,blur,samplers,"
                         "blur_deis,configs,f32,train,blur_train,run_lib,layer_f32,train_layer,"
-                        "remat,adamw,points,classifier,ref,corpora,compat,legacy")
+                        "remat,adamw,points,classifier,ref,corpora,compat,legacy,parallel,scripts")
     parser.add_argument("--batch", type=int, default=16, help="sampling batch")
     parser.add_argument("--bits", default=None, help="phase bits: the file to save to")
     parser.add_argument("--bits-ref", default=None, help="phase bits: another tree's file")
     parser.add_argument("--k1-save", default=None, help="phase k1_time: save K1's outputs here")
     parser.add_argument("--k1-ref", default=None,
                         help="phase k1_time: another tree's K1 outputs to hold them against")
+    # the parallel phase's subprocesses: this script with --worker
+    parser.add_argument("--worker", choices=("par1", "par2"), default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--out", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--ports", default="", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -5940,6 +6348,13 @@ def main(argv=None):
     sys.path.insert(0, str(root))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.worker is not None:
+        ports = [int(x) for x in args.ports.split(",") if x]
+        if args.worker == "par1":
+            worker_par1(Path(args.out), ports)
+        else:
+            worker_par2(args.rank, Path(args.out), ports[0])
+        return
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
@@ -6052,6 +6467,10 @@ def main(argv=None):
         phase_compat(card)
     if "legacy" in phases:
         phase_legacy(card)
+    if "parallel" in phases:
+        phase_parallel(card)
+    if "scripts" in phases:
+        phase_scripts(card)
     if "train_gemms" in phases and "kernels" not in phases:
         check_train_gemms({}, {})
     if "gn_bwd" in phases and "kernels" not in phases:

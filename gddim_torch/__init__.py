@@ -11,7 +11,10 @@ the reference-API shims (``compat.py``) and the NCSNv1/v2 layer zoo
 kernel of the JAX package is a hand-written CUDA C++ kernel for sm_90a
 (``csrc/``), built by nvcc at first use (``_build.py``); each has a plain
 PyTorch version, which CPU tensors take. ``run_lib.py`` and ``cli.py`` are
-the run harness. The reference-style plain path (f32,
+the run harness; ``parallel/`` runs it over several processes (data
+parallel, FSDP2, channel TP, round-sharded sampling over
+``torch.distributed``); ``scripts/`` holds the NFE x order sweep and the
+int8 fidelity check. The reference-style plain path (f32,
 ``model.attention_impl='einsum5d'``, ``models.resample.FIR_IMPL=
 'channel_batch'``, ``math.dct.DCT_IMPL='fft'``) is there to measure
 against. Imports torch, numpy and scipy only; ``import gddim_torch`` is
@@ -32,10 +35,10 @@ def __getattr__(name):
         from gddim_torch.math.blur import BlurSDE
 
         return BlurSDE
-    if name == "run_lib":
+    if name in ("run_lib", "parallel"):
         import importlib
 
-        return importlib.import_module("gddim_torch.run_lib")
+        return importlib.import_module(f"gddim_torch.{name}")
     if name == "get_config":
         from gddim_torch.configs import get_config
 

@@ -8,6 +8,11 @@ A save writes a hidden temporary file in the same directory and renames it
 into place (``os.replace``), so a save cut short leaves no file that a
 restore picks up. A restore copies into the caller's state in place and
 draws nothing from torch's global generators.
+
+In a multi-process run every rank calls each save (a sharded state's
+``state_dict`` gathers whole tensors, a collective); the coordinator
+writes the file and every rank leaves through a barrier, so no rank reads
+a checkpoint before it is whole. Every rank restores from the shared file.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ import re
 from pathlib import Path
 
 import torch
+
+from gddim_torch.parallel.multihost import barrier, is_coordinator
 
 _NAME = re.compile(r"^checkpoint_(\d+)\.pt$")
 
@@ -51,7 +58,10 @@ def save_atomic(path, write_fn) -> Path:
 
 def _save_state(state, path: Path) -> Path:
     sd = state.state_dict()
-    return save_atomic(path, lambda f: torch.save(sd, f))
+    if is_coordinator():
+        save_atomic(path, lambda f: torch.save(sd, f))
+    barrier("checkpoint_saved")
+    return path
 
 
 class CheckpointManager:
@@ -63,8 +73,9 @@ class CheckpointManager:
 
     def save_meta(self, step: int, state) -> Path:
         path = _save_state(state, _path(self.meta_dir, step))
-        for old in _steps(self.meta_dir)[:-self.keep_meta]:
-            _path(self.meta_dir, old).unlink(missing_ok=True)
+        if is_coordinator():
+            for old in _steps(self.meta_dir)[:-self.keep_meta]:
+                _path(self.meta_dir, old).unlink(missing_ok=True)
         return path
 
     def save_snapshot(self, snapshot_id: int, state) -> Path:

@@ -38,6 +38,17 @@ K6/K7 when ``model.fused_train``; eval's losses and samples run the same f32
 activations. Everything runs on the CUDA card unless
 ``--device cpu`` is given. The published checkpoints, CIFAR-10, its FID
 statistics and Inception weights are not in the repository.
+
+Several processes, one a card, run one job as the JAX package's hosts do,
+from the environment, read before any device is touched:
+GDDIM_NUM_PROCESSES (the count), GDDIM_PROCESS_ID (this one's rank),
+GDDIM_COORDINATOR (host:port of rank 0's rendezvous) and GDDIM_DIST_BACKEND
+('nccl', the default on CUDA, or 'gloo', the CPU's, which also lets two
+ranks share one card). ``--device cuda`` is then this rank's card; training
+shards as config.mesh says (``--set mesh.fsdp_axis=2``, ``mesh.tp_axis``);
+sampling deals its rounds out over the ranks; only rank 0 writes logs,
+checkpoints and scores. A coordinator with one process makes a group of
+one.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ import argparse
 import ast
 import dataclasses
 import logging
+import os
 import sys
 from pathlib import Path
 
@@ -54,6 +66,7 @@ import torch
 from gddim_torch import run_lib
 from gddim_torch.configs import get_config, train_config
 from gddim_torch.models.init import seeded_model
+from gddim_torch.parallel import multihost
 from gddim_torch.run_lib import build_sampling_fn, calibrate_int8
 from gddim_torch.train.state import ema_state_dict
 
@@ -164,24 +177,43 @@ def make_config(args):
     return config
 
 
+def join_process_group(device: str) -> bool:
+    """Join the process group the GDDIM_* variables describe (a no-op
+    without them); returns whether a group was made."""
+    env = os.environ
+    if "GDDIM_NUM_PROCESSES" not in env and "GDDIM_COORDINATOR" not in env:
+        return False
+    return multihost.initialize_distributed(
+        coordinator=env.get("GDDIM_COORDINATOR"),
+        num_processes=int(env.get("GDDIM_NUM_PROCESSES", "1")),
+        process_id=int(env.get("GDDIM_PROCESS_ID", "0")),
+        backend=env.get("GDDIM_DIST_BACKEND") or None, device=device)
+
+
 def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the plain versions")
-    device = torch.device(args.device)
-    config = make_config(args)
-    workdir = Path(args.workdir or args.out or "logs/default")
-    workdir.mkdir(parents=True, exist_ok=True)
-    handler = logging.FileHandler(workdir / "stdout.txt")
-    handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s"))
-    logging.getLogger().addHandler(handler)
+    joined = join_process_group(args.device)
     try:
-        _run(args, config, workdir, device)
+        device = multihost.local_device(args.device)
+        config = make_config(args)
+        workdir = Path(args.workdir or args.out or "logs/default")
+        workdir.mkdir(parents=True, exist_ok=True)
+        handler = logging.FileHandler(workdir / "stdout.txt")
+        handler.setFormatter(logging.Formatter(
+            "%(asctime)s %(levelname)s %(name)s: %(message)s"))
+        logging.getLogger().addHandler(handler)
+        try:
+            _run(args, config, workdir, device)
+        finally:
+            logging.getLogger().removeHandler(handler)
+            handler.close()
     finally:
-        logging.getLogger().removeHandler(handler)
-        handler.close()
+        if joined:
+            multihost.shutdown()
 
 
 def _run(args, config, workdir: Path, device):
@@ -189,15 +221,19 @@ def _run(args, config, workdir: Path, device):
     if mode == "train":
         model = run_lib.init_model(config, device, args.weights)
         state = run_lib.train(config, workdir, device, model=model)
-        cpu = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
-        torch.save(cpu(state.model.state_dict()), workdir / "params.pt")
-        torch.save(cpu(ema_state_dict(state)), workdir / "ema.pt")
+        params, ema = state.model_state_dict(), ema_state_dict(state)  # whole: collectives
+        if multihost.is_coordinator():
+            torch.save({k: v.detach().cpu() for k, v in params.items()}, workdir / "params.pt")
+            torch.save({k: v.detach().cpu() for k, v in ema.items()}, workdir / "ema.pt")
+        multihost.barrier("weights_saved")
         return
     if mode == "eval":
         run_lib.evaluate(config, workdir, args.eval_folder, device)
         return
     if mode == "fid_stats":
-        run_lib.fid_stats(config, device=device)
+        if multihost.is_coordinator():
+            run_lib.fid_stats(config, device=device)
+        multihost.barrier("fid_stats_done")
         return
     folder = resolve_result_folder(config, args.result_folder or args.out,
                                    args.ckpt or args.weights or "seeded")
@@ -213,7 +249,9 @@ def _run(args, config, workdir: Path, device):
                                      int(config.eval.num_samples), int(config.eval.batch_size),
                                      seed=config.seed, is_continue=False)
     if mode in ("fid", "check"):
-        run_lib.check_fid(config, folder, device)
+        if multihost.is_coordinator():
+            run_lib.check_fid(config, folder, device)
+        multihost.barrier("fid_scored")
 
 
 if __name__ == "__main__":

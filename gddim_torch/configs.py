@@ -134,8 +134,10 @@ class EvalConfig:
 
 @dataclasses.dataclass
 class MeshConfig:
-    """One process and one card: the JAX package's sharding axes are refused
-    above 1."""
+    """The JAX package's sharding axes over a process group's ranks (one
+    card a rank): ``fsdp_axis`` ranks shard the state (FSDP2), ``tp_axis``
+    ranks the output channels (channel TP), the rest are data parallel
+    (``run_lib._place_train_state``)."""
 
     data_axis: int = -1
     fsdp_axis: int = 1

@@ -596,26 +596,44 @@ def _split(train_images, name: str, flat: int):
     return train_images, train_images
 
 
+def _process_shard(images: np.ndarray, pidx: int, nproc: int) -> np.ndarray:
+    """Each process reads a disjoint slice of the corpus, every nproc-th
+    image from its index (``gddim_tpu/data/pipelines.py:523-528``)."""
+    return images if nproc <= 1 else images[pidx::nproc]
+
+
 def get_dataset(config, additional_dim=None, uniform_dequantization=False, evaluation=False,
-                prefetch=True):
+                prefetch=True, shard: tuple[int, int] | None = None):
     """(train_iter, eval_iter) over the configured corpus.
 
     additional_dim: n_jitted_steps (a leading axis of the batches) or None.
     evaluation=True: both iterators one epoch long, at eval.batch_size.
     prefetch: each iterator makes its batches on a thread of its own
     (``ArrayDataset.close`` stops it).
+    shard: (index, count) of this process's share of the batch, by default
+    (its rank, the process count): each share reads its slice of the
+    corpus (``_process_shard``) in batches of batch_size // count, its order
+    seeded with config.seed + index, as the JAX package's per-host batches
+    (``pipelines.py:543-566``). The ranks of one model group (channel TP)
+    pass the same index.
     """
+    from gddim_torch.parallel.multihost import process_count, process_index
+
+    pidx, nproc = shard if shard is not None else (process_index(), process_count())
     batch_size = config.training.batch_size if not evaluation else config.eval.batch_size
+    if batch_size % nproc:
+        raise ValueError(f"batch of {batch_size} does not split over {nproc} processes")
+    batch_size //= nproc
     batch_dims = (additional_dim, batch_size) if additional_dim else (batch_size,)
-    flat = int(np.prod(batch_dims))
+    flat = int(np.prod(batch_dims)) * nproc  # every share must hold a batch
     num_epochs = 1 if evaluation else None
     name = config.data.dataset.lower()
     if "ps" in name:
         # the JAX package draws the corpus unseeded; the port from config.seed
-        raw = pointset_corpus(np.random.default_rng(config.seed))
-        train = ArrayDataset(raw, batch_dims, seed=config.seed, evaluation=evaluation,
+        raw = _process_shard(pointset_corpus(np.random.default_rng(config.seed)), pidx, nproc)
+        train = ArrayDataset(raw, batch_dims, seed=config.seed + pidx, evaluation=evaluation,
                              num_epochs=num_epochs, prefetch=prefetch)
-        eval_ds = ArrayDataset(raw, batch_dims, seed=config.seed + 1, evaluation=True,
+        eval_ds = ArrayDataset(raw, batch_dims, seed=config.seed + pidx + 1, evaluation=True,
                                num_epochs=num_epochs, prefetch=prefetch)
         return train, eval_ds
 
@@ -640,11 +658,12 @@ def get_dataset(config, additional_dim=None, uniform_dequantization=False, evalu
         if config.data.is_partial:
             train_images = train_images[: max(len(train_images) // 1000, 1)]
 
-    train = ArrayDataset(train_images, batch_dims, seed=config.seed,
-                         random_flip=config.data.random_flip,
+    train = ArrayDataset(_process_shard(train_images, pidx, nproc), batch_dims,
+                         seed=config.seed + pidx, random_flip=config.data.random_flip,
                          uniform_dequantization=uniform_dequantization, evaluation=evaluation,
                          num_epochs=num_epochs, prefetch=prefetch)
-    eval_ds = ArrayDataset(eval_images, batch_dims, seed=config.seed + 1,
+    eval_ds = ArrayDataset(_process_shard(eval_images, pidx, nproc), batch_dims,
+                           seed=config.seed + pidx + 1,
                            uniform_dequantization=uniform_dequantization, evaluation=True,
                            num_epochs=num_epochs, prefetch=prefetch)
     return train, eval_ds

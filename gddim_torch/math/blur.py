@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from gddim_torch.math.dct import batch_img_dct, batch_img_idct
+from gddim_torch.parallel.draws import draw_rows
 
 
 def _xp(t):
@@ -148,7 +149,7 @@ class BlurSDE:
 
     def sample_t(self, shape, generator: torch.Generator | None = None, device=None):
         """t ~ U(1e-5, T) (reference sde_lib.py:132-133)."""
-        u = torch.rand(shape, generator=generator, device=device)
+        u = draw_rows(torch.rand, shape, generator, device=device)
         return 1e-5 + (self.T - 1e-5) * u
 
     def perturb_data(self, batch: torch.Tensor, ts: torch.Tensor,
@@ -157,8 +158,8 @@ class BlurSDE:
         iDCT, then + sqrt(1 - alpha) z (reference sde_lib.py:99-110); z ~
         N(0, I) from ``generator`` unless given."""
         if z is None:
-            z = torch.randn(batch.shape, generator=generator, device=batch.device,
-                            dtype=batch.dtype)
+            z = draw_rows(torch.randn, batch.shape, generator, device=batch.device,
+                          dtype=batch.dtype)
         mean = self.y2x(self.y_mean_coef(ts) * self.x2y(batch))
         return mean + _per_sample(self.y_std_coef(ts), z), mean, z
 

@@ -20,6 +20,7 @@ import torch
 
 from gddim_torch.math.cld_host import CLDParams, HostCLD
 from gddim_torch.math.linalg2 import bmm, inv2
+from gddim_torch.parallel.draws import draw_rows
 
 R_TABLE_SIZE = 32768  # gddim_tpu/math/cld.py:48
 
@@ -131,6 +132,6 @@ class CLD:
         unless given."""
         mean = self.mean(batch, ts)
         if z is None:
-            z = torch.randn(mean.shape, generator=generator, device=mean.device,
-                            dtype=mean.dtype)
+            z = draw_rows(torch.randn, mean.shape, generator, device=mean.device,
+                          dtype=mean.dtype)
         return mean + bmm(self.R(ts), z), mean, z

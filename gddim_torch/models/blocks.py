@@ -87,6 +87,7 @@ from gddim_torch.ops import attnblock as attn_ops
 from gddim_torch.ops import resblock as rb
 from gddim_torch.ops.attention import self_attention_2d
 from gddim_torch.ops.conv3x3 import conv3x3_vjp
+from gddim_torch.parallel.draws import draw_rows
 
 
 def _bf16(params):
@@ -415,8 +416,12 @@ class ResnetBlockBigGANpp(nn.Module):
         keep = 1.0 - self.dropout
         if keep >= 1.0:
             return None, keep
-        probs = torch.full(shape, keep, device=self.conv1.weight.device)
-        return torch.bernoulli(probs, generator=generator).to(torch.int8), keep
+        device = self.conv1.bias.device
+
+        def bernoulli(rows, generator):
+            return torch.bernoulli(torch.full(rows, keep, device=device), generator=generator)
+
+        return draw_rows(bernoulli, shape, generator).to(torch.int8), keep
 
     def _forward_train(self, x, temb, fused, generator, fused_train=True, layer=None,
                        remat=False):

@@ -13,6 +13,14 @@ K12, which the int8 conv takes without another quantize pass.
 ``get_act``, ``get_timestep_embedding`` and ``Combine`` are the JAX
 package's (``layers.py:218-258``); a stride-2 ``Conv`` pads as XLA's
 "SAME" does.
+
+Channel tensor parallelism (``parallel/mesh.py:tp_shard_params``): a
+module whose weight is sharded holds this rank's slice of the output
+channels. On the plain path ``Conv``, ``Dense`` and ``NIN`` compute that
+slice and gather the slices over the model group (``_plain``), so the
+activations after them are whole and replicated, as XLA's are; every
+other reader of ``module.weight`` (the whole-block and layer-wise
+kernels) gets the whole weight, gathered.
 """
 
 from __future__ import annotations
@@ -112,12 +120,32 @@ def same_pads(n: int, k: int, stride: int) -> tuple:
 
 def conv_strided_nhwc(x, w, b, stride: int):
     """A k x k conv at ``stride`` with XLA's "SAME" padding, NHWC input, HWIO
-    kernel, in x's dtype (``conv3x3(..., stride=2)``, layers.py:131-136)."""
+    kernel, in x's dtype (``conv3x3(..., stride=2)``, layers.py:131-136);
+    ``b`` None adds no bias."""
     k = w.shape[0]
     (t, bo), (le, r) = (same_pads(n, k, stride) for n in x.shape[1:3])
     y = F.pad(x.permute(0, 3, 1, 2), (le, r, t, bo))
-    y = F.conv2d(y, w.to(x.dtype).permute(3, 2, 0, 1), stride=stride)
-    return y.permute(0, 2, 3, 1) + b.to(x.dtype)
+    y = F.conv2d(y, w.to(x.dtype).permute(3, 2, 0, 1), stride=stride).permute(0, 2, 3, 1)
+    return y if b is None else y + b.to(x.dtype)
+
+
+def _weight_shape(module) -> torch.Size:
+    """The whole weight's shape, read without gathering it."""
+    w = module._parameters["weight"]
+    tp = module.__dict__.get("_tp")
+    return w.shape if tp is None else tp.whole_shape(w.shape)
+
+
+def _plain(module, x, op):
+    """``op(x, weight) + bias`` in x's dtype; under channel TP ``op`` on this
+    rank's output channels, the slices gathered over the model group (x's
+    gradient summed over it), then the bias."""
+    tp = module.__dict__.get("_tp")
+    if tp is None:
+        y = op(x, module.weight)
+    else:
+        y = tp.gather(op(tp.enter(x), module._parameters["weight"]))
+    return y + module.bias.to(x.dtype)
 
 
 class Conv(nn.Module):
@@ -151,14 +179,15 @@ class Conv(nn.Module):
 
     def forward(self, x, impl: str = "plain"):
         if self.stride != 1:
-            return conv_strided_nhwc(x, self.weight, self.bias, self.stride)
+            return _plain(self, x, lambda x_, w: conv_strided_nhwc(x_, w, None, self.stride))
         q_in = x if isinstance(x, QuantizedActivation) else None
         shape, dtype = (q_in.shape, q_in.dtype) if q_in is not None else (x.shape, x.dtype)
         recording = q_in is None and torch.is_grad_enabled() and (
-            x.requires_grad or self.weight.requires_grad)
+            x.requires_grad or self._parameters["weight"].requires_grad)
         if recording and impl == "int8":
             impl = "plain"  # the training-safe fallback
-        qualifies = impl in ("pallas", "int8") and c3.supported(shape, self.weight.shape,
+        wshape = _weight_shape(self)
+        qualifies = impl in ("pallas", "int8") and c3.supported(shape, wshape,
                                                                 int8=impl == "int8")
         if qualifies and impl == "int8":
             w8, sw, wk = self._kw.get([self.weight], lambda: self._int8_weight(dtype),
@@ -174,10 +203,10 @@ class Conv(nn.Module):
             w = self._kw.get([self.weight], lambda: self.weight.detach().to(dtype).contiguous(),
                              tag=("pallas", dtype))
             return c3.conv3x3_pallas(x, w) + self.bias.to(dtype)
-        if self.weight.shape[0] == 1:
-            return torch.einsum("bhwc,cd->bhwd", x, self.weight[0, 0].to(x.dtype)) + \
-                self.bias.to(x.dtype)
-        return conv3x3_nhwc(x, self.weight, self.bias)
+        if wshape[0] == 1:
+            return _plain(self, x, lambda x_, w: torch.einsum("bhwc,cd->bhwd", x_,
+                                                              w[0, 0].to(x_.dtype)))
+        return _plain(self, x, conv3x3_nhwc)
 
     def _int8_weight(self, dtype):
         """(int8 HWIO weights, their scales, the same weights K-major) of the
@@ -195,7 +224,11 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x):
-        return x @ self.weight.to(x.dtype) + self.bias.to(x.dtype)
+        return _plain(self, x, _matmul)
+
+
+def _matmul(x, w):
+    return x @ w.to(x.dtype)
 
 
 class NIN(nn.Module):
@@ -207,7 +240,7 @@ class NIN(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x):
-        return x @ self.weight.to(x.dtype) + self.bias.to(x.dtype)
+        return _plain(self, x, _matmul)
 
 
 class GaussianFourierProjection(nn.Module):

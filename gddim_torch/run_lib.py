@@ -1,9 +1,16 @@
 """Run orchestration: train / evaluate / sampling / fid (counterpart of
 ``gddim_tpu/run_lib.py``).
 
-One process on one card (``device``, "cuda" unless the caller asks for the
-CPU). The JAX package's mesh is not ported: a config that shards
-(``mesh.fsdp_axis`` or ``mesh.tp_axis`` above 1) is refused.
+Each process runs on one card (``device``: "cuda" is this rank's card,
+unless the caller asks for the CPU). In a process group
+(``parallel/multihost.py``; the CLI joins one from ``GDDIM_*`` variables)
+training places the state as config.mesh says (``_place_train_state``:
+data parallel, FSDP, channel TP or FSDP x TP; ``parallel/mesh.py``), each
+rank reading its own shard of the corpus. Only the coordinator logs, writes
+metrics, checkpoints and sample grids; every rank reaches each save through
+a barrier. Sampling rounds are dealt out over the processes (round r to
+rank r % n), each on its own card with the whole EMA; the eval loss is the
+mean of the ranks' means; FID is scored on the coordinator.
 
 Random streams: each is a ``torch.Generator`` on the device seeded from
 (config.seed, stream[, round]) through numpy's SeedSequence: the training
@@ -47,10 +54,16 @@ from gddim_torch.math.cld import CLD
 from gddim_torch.models.calibrate import calibrate_blur_qscales, calibrate_cld_qscales
 from gddim_torch.models.registry import get_model
 from gddim_torch.models.wrappers import make_blur_yeps_fn, make_cld_eps_fn
+from gddim_torch.parallel import multihost
 from gddim_torch.samplers.blur import build_blur_sampler_from_config
 from gddim_torch.samplers.factory import build_cld_sampler
 from gddim_torch.train.losses import make_loss_fn
-from gddim_torch.train.state import create_train_state, swap_params_from_ema, trainable
+from gddim_torch.train.state import (
+    create_train_state,
+    ema_state_dict,
+    swap_params_from_ema,
+    trainable,
+)
 from gddim_torch.train.step import make_eval_step, make_train_step
 from gddim_torch.utils.images import save_image, save_pointset
 from gddim_torch.utils.logging import MetricsLogger
@@ -111,11 +124,36 @@ def stream_generator(device, seed: int, *key: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s & (2**63 - 1))
 
 
-def check_single_card(config) -> None:
-    mesh = config.mesh
-    if int(mesh.fsdp_axis) > 1 or int(mesh.tp_axis) > 1:
-        raise ValueError(f"mesh.fsdp_axis={mesh.fsdp_axis}, mesh.tp_axis={mesh.tp_axis}: the "
-                         "port runs one process on one card; sharding is not ported")
+def _place_train_state(config, model, layout: str | None = None):
+    """(model, placement) of a training run (``gddim_tpu/run_lib.py:93-146``):
+    outside a process group (None) the model as it is; in one, placed on the
+    ranks by config.mesh (``fsdp_axis`` and ``tp_axis`` ranks, the rest
+    'data'), or by ``layout`` ('data', 'fsdp', 'tp', 'fsdp_tp'), which
+    takes that layout even where its axes have one rank."""
+    n_fsdp = max(1, int(config.mesh.fsdp_axis or 1))
+    n_tp = max(1, int(config.mesh.tp_axis or 1))
+    if not multihost.is_distributed():
+        if layout is not None or n_fsdp * n_tp > 1:
+            raise ValueError(f"mesh.fsdp_axis={n_fsdp}, mesh.tp_axis={n_tp}, layout {layout}: "
+                             "one process does not split; run it in a process group "
+                             "(GDDIM_NUM_PROCESSES, cli.py)")
+        return model, None
+    from gddim_torch.parallel.mesh import place_model
+
+    device = next(model.parameters()).device
+    return place_model(model, n_fsdp, n_tp, layout, device_type=device.type)
+
+
+class _Silent:
+    """The metrics logger of a rank that is not the coordinator."""
+
+    def log(self, *args, **kwargs):
+        pass
+
+    log_image = log
+
+    def close(self):
+        pass
 
 
 def init_model(config, device, weights: str | None = None):
@@ -165,6 +203,27 @@ def ema_weights(state):
         swap()
 
 
+@contextlib.contextmanager
+def _ema_model(config, state, device, only_coordinator: bool = False):
+    """The EMA model to evaluate or sample with: the state's model holding
+    its EMA (``ema_weights``) or, under a sharded placement, a whole copy
+    made from the gathered EMA (a collective: every rank enters). With
+    ``only_coordinator`` the other ranks get None."""
+    if state.placement is not None and state.placement.shards_state:
+        sd = ema_state_dict(state)
+        if only_coordinator and not multihost.is_coordinator():
+            yield None
+            return
+        model = empty_model(config, device)
+        model.load_state_dict(sd)
+        yield model.eval()
+    elif only_coordinator and not multihost.is_coordinator():
+        yield None
+    else:
+        with ema_weights(state) as model:
+            yield model
+
+
 @torch.no_grad()
 def use_ema(state):
     """Copy the EMA into the model's parameters (for sampling and scoring)."""
@@ -182,37 +241,43 @@ def _acts(cur: int, freq: int, n_jitted: int) -> bool:
     return cur % freq < n_jitted
 
 
-def train(config, workdir: str, device="cuda", model=None):
+def train(config, workdir: str, device="cuda", model=None, layout: str | None = None):
     """The training loop: resume from the latest meta checkpoint, then
     ``n_jitted_steps`` optimizer steps a call up to training.n_iters, with
     logging, preemption checkpoints, the EMA swap, eval losses, numbered
     snapshots and sample grids at their frequencies; a final meta checkpoint
-    at n_iters. ``model``: a model to train (else ``init_model``). Returns
-    the TrainState."""
-    check_single_card(config)
-    device = torch.device(device)
+    at n_iters. ``model``: a model to train (else ``init_model``), alike on
+    every rank; ``layout``: ``_place_train_state``'s. Returns the
+    TrainState."""
+    device = multihost.local_device(device)
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
-    metrics = MetricsLogger(workdir, enable_wandb=bool(config.log_wandb),
-                            project=f"gddim_torch_{config.sde}", config=config)
+    metrics = (MetricsLogger(workdir, enable_wandb=bool(config.log_wandb),
+                             project=f"gddim_torch_{config.sde}", config=config)
+               if multihost.is_coordinator() else _Silent())
     try:
-        return _train(config, workdir, device, model, metrics)
+        return _train(config, workdir, device, model, metrics, layout)
     finally:
         metrics.close()
 
 
-def _train(config, workdir: Path, device, model, metrics):
+def _train(config, workdir: Path, device, model, metrics, layout=None):
     if model is None:
         model = init_model(config, device)
     logger.info("model %s: %.2fM params", config.model.name,
                 sum(p.numel() for p in model.parameters()) / 1e6)
-    state = create_train_state(config, model, stream_generator(device, config.seed, STREAM_TRAIN))
+    model, placement = _place_train_state(config, model, layout)
+    state = create_train_state(config, model, stream_generator(device, config.seed, STREAM_TRAIN),
+                               placement)
     mgr = CheckpointManager(workdir)
     state, _ = mgr.restore_latest_meta(state)
     n_jitted = int(config.training.n_jitted_steps)
     deq = bool(config.data.uniform_dequantization)
-    train_iter, _ = get_dataset(config, additional_dim=n_jitted, uniform_dequantization=deq)
-    _, eval_iter = get_dataset(config, additional_dim=None, uniform_dequantization=deq)
+    shard = placement.batch_shard() if placement is not None else None
+    train_iter, _ = get_dataset(config, additional_dim=n_jitted, uniform_dequantization=deq,
+                                shard=shard)
+    _, eval_iter = get_dataset(config, additional_dim=None, uniform_dequantization=deq,
+                               shard=shard)
     try:
         return _loop(config, workdir, device, state, mgr, metrics, train_iter, eval_iter)
     finally:
@@ -235,7 +300,8 @@ def _loop(config, workdir: Path, device, state, mgr, metrics, train_iter, eval_i
         return x.to(device, non_blocking=True)
 
     train_step = make_train_step(make_loss_fn(config, train=True))
-    eval_step = make_eval_step(make_loss_fn(config, train=False))
+    eval_loss_fn = make_loss_fn(config, train=False)
+    eval_step = make_eval_step(eval_loss_fn)
     sampling_fn = build_sampling_fn(config) if tc.snapshot_sampling else None
     loop_gen = stream_generator(device, config.seed, STREAM_LOOP)
 
@@ -283,18 +349,28 @@ def _loop(config, workdir: Path, device, state, mgr, metrics, train_iter, eval_i
             logger.info("step %d: update params from ema", cur)
 
         if _acts(cur, eval_freq, n_jitted):
-            loss = eval_step(state, put(next(eval_iter)), loop_gen)
-            metrics.log({"eval/score_loss": float(loss)}, cur)
+            images = put(next(eval_iter))
+            if state.placement is not None and state.placement.shards_state:
+                with _ema_model(config, state, device) as ema_model, torch.no_grad():
+                    loss = eval_loss_fn(ema_model, images, loop_gen)
+            else:
+                loss = eval_step(state, images, loop_gen)
+            # each rank's own eval batch: their mean
+            loss = multihost.allgather_metrics({"loss": float(loss)})["loss"]
+            metrics.log({"eval/score_loss": loss}, cur)
 
         if _acts(cur, snapshot_freq, n_jitted):
             mgr.save_snapshot(cur // snapshot_freq, state)
 
         if sampling_fn is not None and _acts(cur, sampling_freq, n_jitted):
-            with ema_weights(state) as ema_model:
-                x = sampling_fn(loop_gen, ema_model, int(tc.snapshot_sampling_batch))[0]
-            path = workdir / "samples" / f"iter_{cur}" / "sample.png"
-            save_samples_figure(x.float().cpu().numpy(), path)
-            metrics.log_image("samples", path, cur)
+            # a collective under a sharded placement; the coordinator samples
+            with _ema_model(config, state, device, only_coordinator=True) as ema_model:
+                if ema_model is not None:
+                    x = sampling_fn(loop_gen, ema_model, int(tc.snapshot_sampling_batch))[0]
+                    path = workdir / "samples" / f"iter_{cur}" / "sample.png"
+                    save_samples_figure(x.float().cpu().numpy(), path)
+                    metrics.log_image("samples", path, cur)
+            multihost.barrier("snapshot_sampled")
 
     mgr.save_meta(n_iters, state)
     return state
@@ -341,16 +417,22 @@ def sampling_from_fn(config, sampling_fn, model, result_folder, num_samples: int
     round already on disk is skipped. Returns every round's path. Point sets
     (x of shape (B, dim)) also keep their f32 values (``points``) and the
     figure ``samples_<r>.png`` (``save_pointset``): the uint8 values, which
-    the JAX package writes for them too, clip the points to [0, 1]."""
+    the JAX package writes for them too, clip the points to [0, 1].
+
+    In a process group round r belongs to rank r % n, each rank writing its
+    own files into the shared folder, and every rank leaves through a
+    barrier once all rounds exist. Round r's generator is keyed by r, so its
+    samples do not depend on the number of processes."""
     result_folder = Path(result_folder)
     result_folder.mkdir(parents=True, exist_ok=True)
     device = next(model.parameters()).device
     n_rounds = int(np.ceil(num_samples / batch_size))
+    nproc, pidx = multihost.process_count(), multihost.process_index()
     paths = []
     for r in range(n_rounds):
         out_path = result_folder / f"samples_{r}.npz"
         paths.append(out_path)
-        if is_continue and out_path.exists():
+        if r % nproc != pidx or (is_continue and out_path.exists()):
             continue
         t0 = time.time()
         x, v, nfe = sampling_fn(stream_generator(device, seed, STREAM_SAMPLES, r), model,
@@ -368,6 +450,7 @@ def sampling_from_fn(config, sampling_fn, model, result_folder, num_samples: int
         _save_npz(out_path, samples=x8, nfe=nfe, **extra)
         logger.info("round %d/%d: %d samples in %.1fs (nfe=%s)", r + 1, n_rounds, batch_size,
                     time.time() - t0, nfe)
+    multihost.barrier("sampling_rounds_done")
     return paths
 
 
@@ -379,6 +462,7 @@ def sample_data(config, ckpt, result_folder, workdir: str | None = None, device=
     n, batch = int(config.eval.num_samples), int(config.eval.batch_size)
     paths = [Path(result_folder) / f"samples_{r}.npz" for r in range(int(np.ceil(n / batch)))]
     if all(p.exists() for p in paths):
+        multihost.barrier("sampling_rounds_done")
         return paths
     model = ready_to_sample(config, restore_state(config, ckpt, workdir, device)[1], static)
     return sampling_from_fn(config, build_sampling_fn(config), model, result_folder, n, batch,
@@ -479,6 +563,7 @@ def evaluate(config, workdir: str, eval_folder: str = "eval", device="cuda") -> 
     package's evaluate run). Every checkpoint's loss sees the same batches,
     read once. eval_meta.json records each finished checkpoint, so a rerun
     computes only the rest."""
+    device = multihost.local_device(device)
     workdir = Path(workdir)
     eval_dir = workdir / eval_folder
     eval_dir.mkdir(parents=True, exist_ok=True)
@@ -506,19 +591,23 @@ def evaluate(config, workdir: str, eval_folder: str = "eval", device="cuda") -> 
         if config.eval.enable_loss:
             eval_step = make_eval_step(make_loss_fn(config, train=False))
             gen = stream_generator(device, config.seed, STREAM_EVAL)
-            entry["eval_loss"] = float(np.mean(
+            local = float(np.mean(
                 [float(eval_step(state, images.to(device), gen)) for images in batches]))
+            entry.update(multihost.allgather_metrics({"eval_loss": local}))  # each rank's shard
         if config.eval.enable_sampling:
             ready_to_sample(config, state)
             folder = eval_dir / f"ckpt_{ckpt_id}"
             sampling_from_fn(config, build_sampling_fn(config), model, folder,
                              int(config.eval.num_samples), int(config.eval.batch_size),
                              seed=int(config.seed))
-            entry.update({k: v if isinstance(v, (str, int)) else float(v)
-                          for k, v in check_fid(config, folder, device).items()})
+            if multihost.is_coordinator():
+                entry.update({k: v if isinstance(v, (str, int)) else float(v)
+                              for k, v in check_fid(config, folder, device).items()})
+            multihost.barrier("fid_scored")
         del model, state
         results[key] = done[key] = entry
-        text = json.dumps(done, indent=2).encode()
-        save_atomic(meta_path, lambda f: f.write(text))
+        if multihost.is_coordinator():
+            text = json.dumps(done, indent=2).encode()
+            save_atomic(meta_path, lambda f: f.write(text))
         logger.info("ckpt %d: %s", ckpt_id, entry)
     return results

@@ -17,6 +17,7 @@ import torch
 from gddim_torch.math.blur import BlurSDE
 from gddim_torch.math.cld import CLD
 from gddim_torch.models.wrappers import make_blur_eps_fn, make_cld_eps_fn
+from gddim_torch.parallel.draws import draw_rows
 
 T_EPS = 1e-5  # smallest training time (reference losses.py:64 t_eps)
 
@@ -36,7 +37,7 @@ def make_cld_loss_fn(sde, train: bool, reduce_mean: bool = True):
     def loss_fn(model, images, generator: torch.Generator | None = None, t=None, z=None):
         data = torch.stack([images, torch.zeros_like(images)], -1)
         if t is None:
-            u = torch.rand((data.shape[0],), generator=generator, device=data.device)
+            u = draw_rows(torch.rand, (data.shape[0],), generator, device=data.device)
             t = T_EPS + (sde.T - T_EPS) * u
         perturbed, _, z = sde.perturb_data(data, t, generator, z)
         eps = eps_apply(model, perturbed, t, generator)

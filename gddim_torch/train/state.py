@@ -21,11 +21,20 @@ The parameters live in the model (``nn.Module``); moments and EMA are dicts
 keyed like ``named_parameters()``, updated in place. The Fourier embedding's
 frequencies are not trainable (``requires_grad=False``, as ``stop_gradient``
 gives them a zero gradient in JAX), so they get neither moments nor EMA.
+
+Under a sharded ``placement`` (FSDP, channel TP: ``parallel/mesh.py``)
+each rank holds its shard of every parameter, and the moments and the EMA
+are shards of the same layout (ZeRO's point): the update is elementwise,
+so it runs on the shards. The global norm sums the squares of every shard
+once over the ranks (``Placement.global_norm``), and ``state_dict`` /
+``load_state_dict`` gather and split whole tensors, so a sharded run's
+checkpoint is the one a single process writes and reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 
 import torch
 from torch import nn
@@ -49,6 +58,7 @@ class TrainState:
     weight_decay: float = 0.0  # > 0: adamw
     count: int = 0  # optimizer updates since the optimizer was (re)made
     step: int = 0
+    placement: object = None  # parallel.mesh.Placement of a multi-rank run, else None
 
     _SCALARS = ("count", "step", "lr", "warmup", "beta1", "eps", "grad_clip", "ema_rate",
                 "weight_decay")
@@ -58,23 +68,44 @@ class TrainState:
         Python numbers, which ``torch.load(weights_only=True)`` reads: the
         model's state_dict, the EMA, Adam's moments, the counters, the
         hyperparameters and the generator's state (a uint8 tensor)."""
-        out = {"params": self.model.state_dict(), "ema": dict(self.ema), "mu": dict(self.mu),
-               "nu": dict(self.nu), "generator": self.generator.get_state()}
+        out = {"params": self.model_state_dict(), "ema": self._whole(self.ema),
+               "mu": self._whole(self.mu), "nu": self._whole(self.nu),
+               "generator": self.generator.get_state()}
         out.update({k: getattr(self, k) for k in self._SCALARS})
         return out
+
+    def _sharded(self) -> bool:
+        return self.placement is not None and self.placement.shards_state
+
+    def model_state_dict(self) -> dict:
+        """The model's state_dict, whole tensors under a sharded placement
+        (a collective: every rank calls it)."""
+        if self._sharded():
+            return self.placement.full_state_dict(self.model)
+        return self.model.state_dict()
+
+    def _whole(self, tensors: dict) -> dict:
+        if self._sharded():
+            return {k: self.placement.full(self.model, k, t) for k, t in tensors.items()}
+        return dict(tensors)
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
         """Copy a ``state_dict()`` into this state in place, bit for bit; the
-        tensors keep their devices. Every key must match."""
-        self.model.load_state_dict(sd["params"])
+        tensors keep their devices. Every key must match. Under a sharded
+        placement each rank copies its shard of the whole tensors."""
+        if self._sharded():
+            self.placement.load_state_dict(self.model, sd["params"])
+        else:
+            self.model.load_state_dict(sd["params"])
         for name in ("ema", "mu", "nu"):
             mine, theirs = getattr(self, name), sd[name]
             if set(mine) != set(theirs):
                 raise KeyError(f"TrainState.{name}: keys differ from the checkpoint's: "
                                f"{sorted(set(mine) ^ set(theirs))[:5]}")
             for k, t in mine.items():
-                t.copy_(theirs[k])
+                t.copy_(self.placement.local(self.model, k, theirs[k]) if self._sharded()
+                        else theirs[k])
         for k in self._SCALARS:
             # weight_decay: absent from the checkpoints of before adamw (0 there)
             setattr(self, k, type(getattr(self, k))(sd.get(k, 0.0) if k == "weight_decay"
@@ -86,21 +117,36 @@ def trainable(model: nn.Module) -> dict[str, nn.Parameter]:
     return {n: p for n, p in model.named_parameters() if p.requires_grad}
 
 
+def is_dtensor(t) -> bool:
+    dtensor = sys.modules.get("torch.distributed.tensor")  # none made where it is not loaded
+    return dtensor is not None and isinstance(t, dtensor.DTensor)
+
+
+def local_tensor(t):
+    """This rank's shard of an FSDP parameter (a DTensor; in-place updates
+    of it update the parameter), else ``t`` itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
 def _zeros(params):
-    return {n: torch.zeros_like(p, memory_format=torch.preserve_format) for n, p in params.items()}
+    return {n: torch.zeros_like(local_tensor(p), memory_format=torch.preserve_format)
+            for n, p in params.items()}
 
 
-def create_train_state(config, model: nn.Module, generator: torch.Generator) -> TrainState:
+def create_train_state(config, model: nn.Module, generator: torch.Generator,
+                       placement=None) -> TrainState:
+    """The state of ``model`` (already placed by ``placement``, if any)."""
     optim = config.optim
     if optim.optimizer != "Adam":
         raise NotImplementedError(f"optimizer {optim.optimizer} is not ported")
     params = trainable(model)
     return TrainState(
-        model=model, ema={n: p.detach().clone() for n, p in params.items()},
+        model=model, ema={n: local_tensor(p).detach().clone() for n, p in params.items()},
         mu=_zeros(params), nu=_zeros(params), generator=generator, lr=float(optim.lr),
         warmup=float(optim.warmup), beta1=float(optim.beta1),
         eps=float(optim.eps), grad_clip=float(optim.grad_clip),
-        ema_rate=float(config.model.ema_rate), weight_decay=float(optim.weight_decay))
+        ema_rate=float(config.model.ema_rate), weight_decay=float(optim.weight_decay),
+        placement=placement)
 
 
 def learning_rate(state: TrainState) -> float:
@@ -125,15 +171,18 @@ def apply_gradients(state: TrainState, grads: dict[str, torch.Tensor]) -> dict:
     Returns the global norm (before clipping) and the learning rate used."""
     params = trainable(state.model)
     names = list(params)
-    p = [params[n] for n in names]
-    g = [grads[n] for n in names]
+    p = [local_tensor(params[n]) for n in names]
+    g = [local_tensor(grads[n]) for n in names]
     mu = [state.mu[n] for n in names]
     nu = [state.nu[n] for n in names]
     ema = [state.ema[n] for n in names]
-    # summed in f64: an f32 sum over a tensor of a million values strays by
-    # ~1e-5 on the CPU (its reduction order), not on the card
-    norm = torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(g, 2, dtype=torch.float64))).float()
+    if state._sharded():  # each shard's squares once over the ranks
+        norm = state.placement.global_norm(names, g)
+    else:
+        # summed in f64: an f32 sum over a tensor of a million values strays
+        # by ~1e-5 on the CPU (its reduction order), not on the card
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(g, 2, dtype=torch.float64))).float()
     if state.grad_clip >= 0:
         scale = torch.where(norm < state.grad_clip, torch.ones_like(norm),
                             state.grad_clip / norm)
@@ -160,9 +209,11 @@ def apply_gradients(state: TrainState, grads: dict[str, torch.Tensor]) -> dict:
 
 
 def ema_state_dict(state: TrainState) -> dict[str, torch.Tensor]:
-    """The model's state_dict with the EMA in place of the trained parameters."""
-    sd = state.model.state_dict()
-    return {k: state.ema.get(k, v).detach() for k, v in sd.items()}
+    """The model's state_dict with the EMA in place of the trained
+    parameters (whole tensors under a sharded placement: a collective)."""
+    sd = state.model_state_dict()
+    ema = state._whole(state.ema)
+    return {k: ema.get(k, v).detach() for k, v in sd.items()}
 
 
 @torch.no_grad()
@@ -170,6 +221,6 @@ def swap_params_from_ema(state: TrainState) -> None:
     """params <- EMA with a fresh optimizer (moments and count reset), the
     reference's occasional "update from ema" (cld_jax/run_lib.py:203-209)."""
     for n, p in trainable(state.model).items():
-        p.copy_(state.ema[n])
+        local_tensor(p).copy_(state.ema[n])
     state.mu, state.nu = _zeros(state.mu), _zeros(state.nu)
     state.count = 0

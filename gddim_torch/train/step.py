@@ -4,6 +4,13 @@
 batches' leading ``n_jitted_steps`` axis, as the JAX step scans them inside
 one jit; PyTorch runs eagerly, so here it is a loop. ``eval_step`` is the
 loss on the EMA parameters.
+
+Under ``state.placement`` (a multi-rank run) ``batches`` holds this rank's
+rows of the global batch: the step draws t, z and the dropout masks of the
+global batch and keeps its rows (``Placement.rows``), averages the
+gradients over the batch's ranks where FSDP2 does not
+(``Placement.reduce_gradients``), and reports the loss's mean over the
+ranks. With no placement it is the one-process step it always was.
 """
 
 from __future__ import annotations
@@ -20,20 +27,28 @@ def make_train_step(loss_fn):
 
     def train_step(state: TrainState, batches: torch.Tensor) -> dict:
         params = trainable(state.model)
+        placement = state.placement
         losses, info = [], {}
         for images in batches:
             for p in params.values():
                 p.grad = None
-            loss = loss_fn(state.model, images, state.generator)
+            generator = (state.generator if placement is None
+                         else placement.rows(state.generator, images.shape[0]))
+            loss = loss_fn(state.model, images, generator)
             loss.backward()
             grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                      for n, p in params.items()}
+            if placement is not None:
+                placement.reduce_gradients(list(grads.values()))
             info = apply_gradients(state, grads)
             state.step += 1
             losses.append(loss.detach())
         for p in params.values():
             p.grad = None
-        return {"loss": torch.stack(losses).mean(), "grad_norm": info.get("grad_norm")}
+        loss = torch.stack(losses).mean()
+        if placement is not None:
+            loss = placement.mean(loss)
+        return {"loss": loss, "grad_norm": info.get("grad_norm")}
 
     return train_step
 

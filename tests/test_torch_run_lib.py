@@ -198,7 +198,7 @@ def test_preemption_resume_restores_every_bit(tmp_path, data_dir, monkeypatch):
 def test_sharded_configs_are_refused(tmp_path, data_dir):
     cfg = tiny(train_config("cld/accr_dcifar10"), data_dir)
     cfg.mesh.fsdp_axis = 2
-    with pytest.raises(ValueError, match="one card"):
+    with pytest.raises(ValueError, match="one process does not split"):
         run_lib.train(cfg, tmp_path, "cpu")
 
 
