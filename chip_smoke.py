@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/H100 port on one CUDA card.
 
     python3 chip_smoke.py [--phases build,kernels,eps,gates,sample,int8,blur,samplers,blur_deis,
-                           configs,f32,train,blur_train,run_lib,layer_f32,train_layer,remat,
-                           adamw,points,classifier,ref,corpora,compat,legacy,parallel,scripts]
+                           configs,long_attn,f32,train,blur_train,run_lib,layer_f32,
+                           train_layer,remat,adamw,points,classifier,ref,corpora,compat,legacy,
+                           parallel,scripts]
                           [--batch 16]
 
 Phases (each prints one line per check; any failure raises and exits non-zero):
@@ -66,7 +67,16 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      and int8), B=4, 16 and 64: the same bits as the launches it replaces
      and on repeat, against its plain version, its device time beside theirs
      and its bound; and the route each block's GN1 takes (one block call of
-     each main-path kind, counted);
+     each main-path kind, counted); then the int8 blocks' static skip
+     (act_scales [s1, s2, sx]) at every block with a 1x1 skip (K2, K3, K4,
+     K9 shapes) at B=4, 16 and 64 against their int8 plain versions, the
+     skip's int8 input and int32 sums bit for bit, device time beside the
+     dynamic-skip form's and the skip product beside torch._int_mm; and its
+     path: cld/accr_dcifar10 calibrated on the card, every int8 block with
+     a 1x1 skip fully static through its entry at B=16 (the static skip
+     GEMM's launches held to those calls; how far the fully static blocks
+     and eps part from the dynamic skip's, information only) (phase
+     static_skip, not in the default run, runs it alone);
   4. eps: one full-width eps evaluation (B=4, t=0.5, seeded weights), kernel
      path in bf16 against the all-plain path in f32, the per-eval temb
      product (NCSNpp.temb_rows) against each block's exact projection, then
@@ -127,6 +137,16 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      path (the train phase's bounds), launches, peak memory; the CelebA
      trunk with DDPM blocks and both pyramids, one eps eval (K2 with the
      NIN skip);
+  7d'. long_attn: K8's online-softmax kernel (S > 1024) at SHAPES
+     ["K8-online"] against its plain version with the TPU blocked branch's
+     rounding points (bf16 K8_BF16_BOUND, f32 K8_F32_BOUND), device time
+     beside SDPA; then cld/ddpmpp_celeba with model.attn_resolutions (16,
+     64) (5 attention blocks at S = 4096): one eps eval under 'fused',
+     'fused_int8' (static scales calibrated on the card) and 'pallas'
+     against the f32 plain path, deis-2 NFE=50 at --batch under each
+     (finite samples, launches nfe x the eval's, img/s), one f32 training
+     step at B=32 against the plain path (the step gates); the online
+     kernel's launches held to the 64x64 attention blocks in each;
   7d. f32: the f32 path (model.dtype float32, conv_impl 'fused', the
      transitions 'full'): one full-width eps evaluation (B=4, t=0.5)
      against the f32 plain path with its launch counts (every block on the
@@ -221,12 +241,12 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      checkpoint, bit for bit; K6/K7 launches), FSDP2 and channel TP on the
      plain path through run_lib.train (each step within the training-step
      gates); (b) two gloo ranks sharing cuda:0 (NCCL refuses a GPU twice):
-     data parallel, FSDP and TP at global B=64 against one process, the
-     step gates; (c) --mode sampling, NFE=50, 4 rounds of 16 dealt out over
+     data parallel, FSDP and TP at global B=32 against one process, the
+     step gates; (c) --mode sampling, NFE=50, 2 rounds of 16 dealt out over
      the two ranks, bit for bit against one process's rounds; seconds and
      img/s of each;
  22. scripts: cld/accr_dcifar10 trained SCRIPTS_STEPS steps through the CLI
-     (synthetic corpus), then gddim_torch.scripts.sweep at NFE 10/20/50 x
+     (synthetic corpus), then gddim_torch.scripts.sweep at NFE 10/20 x
      deis order 0-3 (SCRIPTS_SAMPLES samples a pair, proxy FID) and
      gddim_torch.scripts.check_int8_fidelity at NFE=50 B=64, each int8
      variant within SAMPLE_INT8_BOUND of bf16; every FID printed is the
@@ -289,6 +309,12 @@ KERNEL_BOUND = {"K1": 1e-2, "K2": 1e-2, "K3": 1e-2, "K4": 1e-2, "K5": 1e-2,
 # rounding points (normalised weights rounded to bf16, f32 sums), so a bf16
 # rounding of a weight or of the output flipping on f32 summation order
 K8_BF16_BOUND = 1e-2
+# K8's online-softmax kernel (S > 1024) in f32 against its plain version with
+# the TPU blocked branch's rounding points: 3xTF32, f32 partial sums
+K8_F32_BOUND = 1e-5
+# the int8 blocks' static skip against their int8 plain versions: as the
+# two-scale blocks (the skip's int32 sums converted once, bit for bit)
+KERNEL_BOUND.update({"S8-skip": 1e-2})
 # K1 in f32 (the training path's dtype) against the plain f32 version: both
 # reduce in f32 with a two-pass variance, so only the summation order differs;
 # measured 1.6e-7 to 3.1e-7 at the 12 training-path cases on an H100
@@ -317,9 +343,15 @@ K7_BOUND.update(db2=1e-6, dbsk=1e-6)
 # (766 of 962, down to 6e-9 of the largest) 7.64e-2 (L2 4.99e-2). About 3x.
 TRAIN_BOUND = {"loss": 5e-4, "grad_norm": 5e-3, "worst_tensor": 5e-2, "worst_tensor_l2": 4e-2,
                "worst_deep_tensor": 0.25, "worst_deep_tensor_l2": 0.15,
-               # the key biases' error against LEAF_FLOOR of the largest: measured
-               # 0.9e-8 to 1.1e-8, the noise of two computations of an exact zero
+               # the key biases' error against LEAF_FLOOR of the largest: the
+               # noise of two computations of an exact zero (KEY_BIAS_BOUND)
                "key_bias": 5e-8}
+# The key biases' bound by the network's longest attention sequence S, each
+# a constant measured at that S on an H100, not a law in S: S <= 256, 0.9e-8
+# to 1.1e-8; S = 4096 (CelebA attending at 64x64), 4.4e-7, the plain path's
+# own noise 4.1e-10 of the largest gradient. No other S is measured: a
+# network with one raises.
+KEY_BIAS_BOUND = {256: 5e-8, 4096: 8e-7}
 DEEP_SHARE = 1e-3
 # The attention key bias's exact gradient is zero (softmax ignores a constant
 # added to every logit of a row), so its tensor is rounding noise (1e-11 of
@@ -580,6 +612,16 @@ KERNELS = {
                replaces="gddim_tpu/ops/resblock_bwd.py:353"),
     "K8": dict(name="flash_attention", route="cuda", source="gddim_torch/csrc/flash.cu",
                replaces="gddim_tpu/ops/flash.py:97"),
+    # K8's k-blocked online-softmax kernel, S > 1024 (flash.cu takes S <= 1024)
+    "K8-online": dict(name="flash_attention", route="cuda",
+                      source="gddim_torch/csrc/flash_online.cu",
+                      replaces="gddim_tpu/ops/flash.py:134"),
+    # the int8 blocks' static skip projection (act_scales [s1, s2, sx]; K2, K3,
+    # K4 and K9): q(x) by the int8 pre-pass, its 1x1 on the int8 block GEMM,
+    # added as conv2's f32 residual
+    "S8-skip": dict(name="fused_resblock_int8", route="cuda",
+                    source="gddim_torch/csrc/resblock.cu",
+                    replaces="gddim_tpu/ops/resblock.py:697"),
     "K2-int8": dict(name="fused_resblock_int8", route="cuda",
                     source="gddim_torch/csrc/resblock.cu", replaces="gddim_tpu/ops/resblock.py:600"),
     "K3-int8": dict(name="fused_resblock_pair_int8", route="cuda",
@@ -673,8 +715,9 @@ SHAPES = {
     "K6": [(32, 128, 128), (32, 384, 128), (32, 256, 128), (16, 512, 256), (16, 384, 256),
            (16, 256, 256), (16, 128, 256), (8, 512, 256), (8, 256, 256), (4, 512, 256),
            (4, 256, 256)],
-    # (B, S, C): the training path's 16x16 and 4x4 attention, and one long sequence
-    "K8": [(4, 256, 256), (4, 16, 256), (1, 2048, 128)],
+    # (B, S, C): the training path's 16x16 and 4x4 attention (S > 1024 takes
+    # K8-online)
+    "K8": [(4, 256, 256), (4, 16, 256)],
     # ... f32 at the training batch, and bf16 at the layer-wise sampling paths' batches
     "K8_train": [(128, 256, 256), (128, 16, 256)],
     "K8_bf16": [(16, 256, 256), (16, 16, 256), (64, 256, 256), (64, 16, 256)],
@@ -693,6 +736,10 @@ SHAPES = {
            (4, 256, 256, True), (8, 256, 256, True), (16, 256, 256, True)],
     # K10: (H, C) of the training path's attention, f32
     "K10": [(16, 256), (4, 256)],
+    # K8's online-softmax kernel (B, S, C, dtype): 64x64 attention at the
+    # CelebA sampling batch, C = 256, S = 3072, 128x128, and f32
+    "K8-online": [(16, 4096, 128, "bf16"), (4, 4096, 256, "bf16"), (2, 3072, 128, "bf16"),
+                  (1, 16384, 128, "bf16"), (8, 4096, 128, "f32")],
 }
 GRADS = ["dx", "dtemb", "dgn1s", "dgn1b", "dw1", "db1", "dgn2s", "dgn2b", "dw2", "db2", "dwsk",
          "dbsk"]
@@ -3497,7 +3544,9 @@ DEVICE_COUNTED = {"S8-GEMM": "block_gemm_kernel<int8>", "S8-prepass": "prepass_k
                   "K5-core": "attention_wgmma_kernel", "GN-stats": "gn_stats_kernel",
                   "GN-apply": "gn_apply_kernel", "train-GEMM": "block_gemm_kernel<bf16, train>",
                   "wgrad": "wgrad_kernel",
-                  "GN-bwd": "gn_bwd_kernel", "GN2-prepass": "gn_prepass_kernel"}
+                  "GN-bwd": "gn_bwd_kernel", "GN2-prepass": "gn_prepass_kernel",
+                  "K8-online": "flash_online_kernel",
+                  "S8-skip": "block_gemm_kernel<int8, static skip>"}
 
 
 def reset_counts():
@@ -3981,9 +4030,14 @@ def _timed_steps(state, train_step, batches):
     return loss, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
 
 
-def _check_train_step(loss_k, grads_k, loss_p, grads_p, label: str) -> None:
+def _check_train_step(loss_k, grads_k, loss_p, grads_p, label: str, seq: int = 256) -> None:
     """One loss + backward of a kernel path against the all-plain path on the
-    same t, z and masks: loss, gradient norm, each tensor on its own scale."""
+    same t, z and masks: loss, gradient norm, each tensor on its own scale
+    (seq: the network's longest attention sequence, whose KEY_BIAS_BOUND the
+    key biases take)."""
+    if seq > 256 and seq not in KEY_BIAS_BOUND:
+        raise ValueError(f"train {label}: no key-bias bound measured at S={seq}")
+    bounds = dict(TRAIN_BOUND, key_bias=KEY_BIAS_BOUND[max(seq, 256)])
     norm = lambda gs: torch.linalg.vector_norm(torch.stack([v.norm() for v in gs.values()]))  # noqa: E731
     norm_k, norm_p = norm(grads_k).item(), norm(grads_p).item()
     top = {n: v.abs().max().item() for n, v in grads_p.items()}
@@ -4004,7 +4058,8 @@ def _check_train_step(loss_k, grads_k, loss_p, grads_p, label: str) -> None:
           f"(bound {TRAIN_BOUND['grad_norm']:.0e}); {len(grads_p)} gradient tensors", flush=True)
     print(f"  attention key biases (exact gradient zero): {len(keys)}, plain share of the "
           f"largest gradient up to {max(top[n] for n in keys) / largest:.2e}, error against "
-          f"{LEAF_FLOOR:.0e} of it {key_err:.3e} (bound {TRAIN_BOUND['key_bias']:.0e})", flush=True)
+          f"{LEAF_FLOOR:.0e} of it {key_err:.3e} (bound {bounds['key_bias']:.0e}, longest "
+          f"attention S={seq})", flush=True)
     for tier, pick in (("", lambda n: top[n] >= DEEP_SHARE * largest),
                        ("deep_", lambda n: top[n] < DEEP_SHARE * largest)):
         band = [n for n in rels if pick(n)]
@@ -4018,7 +4073,7 @@ def _check_train_step(loss_k, grads_k, loss_p, grads_p, label: str) -> None:
               f"worst {w} rel={rels[w]:.3e} (bound {TRAIN_BOUND[f'worst_{tier}tensor']:.2g}), "
               f"worst L2 {w2} {l2[w2]:.3e} (bound {TRAIN_BOUND[f'worst_{tier}tensor_l2']:.2g})",
               flush=True)
-    bad = {k: v for k, v in errs.items() if not np.isfinite(v) or v > TRAIN_BOUND[k]}
+    bad = {k: v for k, v in errs.items() if not np.isfinite(v) or v > bounds[k]}
     if bad:
         raise AssertionError(f"train step ({label}): kernel path vs plain path over bounds: {bad}")
 
@@ -4635,17 +4690,21 @@ def train_blocks_taken(config) -> tuple[int, int]:
     return took, len(blocks)
 
 
-def configs_train(card: str) -> dict:
-    """(d) cld/ddpmpp_celeba in f32 at CELEBA_TRAIN_BATCH: one loss +
-    backward on the kernel path against the all-plain path on the same t, z
-    and dropout masks; K6/K7 in every stride-1 and pair block their gate
-    takes; wall and peak memory."""
+def configs_train(card: str, **model_fields) -> dict:
+    """(d) cld/ddpmpp_celeba in f32 at CELEBA_TRAIN_BATCH (``model_fields``
+    set on config.model): one loss + backward on the kernel path against the
+    all-plain path on the same t, z and dropout masks; K6/K7 in every
+    stride-1 and pair block their gate takes; wall and peak memory. Returns
+    the kernel path's launches."""
     from gddim_torch.configs import train_config
     from gddim_torch.math.cld import CLD
     from gddim_torch.models.init import seeded_model
     from gddim_torch.train.losses import make_cld_loss_fn
 
     config = train_config("cld/ddpmpp_celeba")
+    for key, val in model_fields.items():
+        setattr(config.model, key, val)
+    tag = "cld/ddpmpp_celeba" + "".join(f" {k}={v}" for k, v in model_fields.items())
     b, size = CELEBA_TRAIN_BATCH, config.data.image_size
     model = seeded_model(config, seed=0, device="cuda").train()
     sde = CLD.from_config(config)
@@ -4667,12 +4726,14 @@ def configs_train(card: str) -> dict:
     counts = {k: v for k, v in read_counts().items() if v}
     peak = torch.cuda.max_memory_allocated() / 2**30
     took, n_blocks = train_blocks_taken(config)
-    print(f"configs cld/ddpmpp_celeba train f32 B={b} {size}x{size} one loss + backward: "
+    print(f"configs {tag} train f32 B={b} {size}x{size} one loss + backward: "
           f"{sec:.3f} s, peak {peak:.2f} GiB [{card}]; launches {counts}; K6/K7 in {took} of "
           f"{n_blocks} stride-1 and pair blocks", flush=True)
     if not took or counts.get("K6") != took or counts.get("K7") != took:
         raise AssertionError(f"CelebA train: K6/K7 launches {counts} for {took} blocks")
-    _check_train_step(loss_k, grads_k, loss_p, grads_p, f"cld/ddpmpp_celeba B={b}")
+    seq = max((shapes[0][1] * shapes[0][2] for kind, shapes, _ in trace_blocks(config)
+               if kind == "attn"), default=256)
+    _check_train_step(loss_k, grads_k, loss_p, grads_p, f"{tag} B={b}", seq)
     return counts
 
 
@@ -5929,8 +5990,11 @@ def phase_legacy(card: str):
 
 PAR_CONFIG = "cld/accr_dcifar10"
 PAR_BATCH, PAR_STEPS = 128, 2  # each world-size-1 run: B=128, one optimizer step a call
-PAR2_BATCH, PAR2_STEPS = 64, 2  # each 2-rank run on one card: global B=64, 32 a rank
-PAR_ROUNDS, PAR_SAMPLE_BATCH, PAR_NFE = 4, 16, 50  # the round-sharded sampling
+# each 2-rank run on one card: global B=32, 16 a rank (cut 64 -> 32 for the
+# default run's time: gloo's TP step took 15-16 s at 64)
+PAR2_BATCH, PAR2_STEPS = 32, 2
+# the round-sharded sampling (rounds cut 4 -> 2 for the default run's time, one a rank)
+PAR_ROUNDS, PAR_SAMPLE_BATCH, PAR_NFE = 2, 16, 50
 PAR_TIMEOUT = 600  # seconds a worker group may take
 # Two ranks on one card take gloo (NCCL refuses a GPU twice), which stages
 # CUDA tensors through the host. A probe on the H100 machine (torch
@@ -6239,7 +6303,9 @@ def phase_parallel(card: str):
             raise AssertionError(f"parallel sampling: {same}")
 
 
-SCRIPTS_STEPS, SCRIPTS_NFES, SCRIPTS_ORDERS = 3, (10, 20, 50), (0, 1, 2, 3)
+# the sweep's NFEs cut (10, 20, 50) -> (10, 20) for the default run's time
+# (check_int8_fidelity samples at NFE=50)
+SCRIPTS_STEPS, SCRIPTS_NFES, SCRIPTS_ORDERS = 3, (10, 20), (0, 1, 2, 3)
 SCRIPTS_SAMPLES, SCRIPTS_BATCH = 32, 32  # the sweep's samples a pair, at one round
 FIDELITY_NFE, FIDELITY_BATCH = 50, 64  # check_int8_fidelity's, one round
 NOT_CIFAR = "not CIFAR-10 weights; proxy FID"
@@ -6249,7 +6315,7 @@ def phase_scripts(card: str):
     """The user scripts on the card: PAR_CONFIG trained SCRIPTS_STEPS steps
     at B=128 from the synthetic corpus through the CLI, starting from the
     seeded weights (snapshot 1), then
-    ``gddim_torch.scripts.sweep`` over NFE x deis order (12 records) and
+    ``gddim_torch.scripts.sweep`` over NFE x deis order (8 records) and
     ``gddim_torch.scripts.check_int8_fidelity`` at NFE=50, each int8
     variant held to the int8 sample gate (SAMPLE_INT8_BOUND)."""
     from gddim_torch import cli
@@ -6307,6 +6373,378 @@ def phase_scripts(card: str):
             raise AssertionError(f"scripts int8 fidelity: {bad} outside the sample gate")
 
 
+# ---------------------------------------------------------------------------
+# The int8 blocks' static skip projection (act_scales [s1, s2, sx]), fed by
+# calibration's "x" amaxes through the ops API (the model never passes sx)
+# ---------------------------------------------------------------------------
+
+def static_skip_cases(B: int, inp):
+    """(kernel, label, static fn, dynamic-skip fn, plain fn, kernel args, the
+    skip's f32 input) of every int8 block with a 1x1 skip at the sampling
+    path's shapes (SHAPES' K2 with Cin != Cout, K3, K4, K9), seeded inputs
+    (int8_kernel_cases' draws), static scales [s1, s2, sx] from INT8_AMAX
+    and an "x" amax of 4 (the N(0, 1) inputs reach about 5: a few clip).
+    The dynamic-skip fn is the same call with the bf16 skip and [s1, s2];
+    the static fn passes its keywords on (skip_buffers)."""
+    from gddim_torch.ops import resblock as rb
+
+    qk = lambda *shape: rb.pack_int8_weight(rb.quantize_weight(inp.w(*shape)))  # noqa: E731
+    s3 = torch.stack(rb.act_scales_from_amax(INT8_AMAX["res"] + (4.0,))).cuda()
+    tag = "" if B == 4 else f"B={B} "
+
+    def case(kernel, label, fn, plain, head, cin, cout, tail, x_skip, **kw):
+        ws = inp.w(cin, cout)
+        wq = rb.pack_skip_int8(rb.quantize_weight(ws))
+        args = (*head, wq, tail, s3)
+        dyn = (*head, ws, tail, s3[:2])
+        return (kernel, f"{tag}{label}", lambda **o: fn(*args, **kw, **o),
+                lambda: fn(*dyn, **kw), lambda: plain(*_f32(args), **kw), args, x_skip.float())
+
+    for h, cin, cout in SHAPES["K2"]:
+        if cin == cout:
+            continue
+        x = inp.act(B, h, h, cin)
+        head = (x, inp.act(B, TEMB), inp.w(TEMB, cout).float(), inp.vec(cout), inp.vec(cin, 1.0),
+                inp.vec(cin), qk(3, 3, cin, cout), inp.vec(cout), inp.vec(cout, 1.0),
+                inp.vec(cout), qk(3, 3, cout, cout), inp.vec(cout))
+        yield case("K2-int8", f"{h}x{h} {cin}->{cout}", rb.fused_resblock_int8,
+                   rb.resblock_int8_reference, head, cin, cout, inp.vec(cout), x,
+                   num_groups1=min(cin // 4, 32), num_groups2=min(cout // 4, 32))
+    for h, (c1, c2), cout in SHAPES["K3"]:
+        cin = c1 + c2
+        xa, xb = inp.act(B, h, h, c1), inp.act(B, h, h, c2)
+        head = (xa, xb, inp.act(B, TEMB), inp.w(TEMB, cout).float(), inp.vec(cout),
+                inp.vec(cin, 1.0), inp.vec(cin), qk(3, 3, cin, cout), inp.vec(cout),
+                inp.vec(cout, 1.0), inp.vec(cout), qk(3, 3, cout, cout), inp.vec(cout))
+        yield case("K3-int8", f"{h}x{h} {c1}+{c2}->{cout}", rb.fused_resblock_pair_int8,
+                   rb.resblock_pair_int8_reference, head, cin, cout, inp.vec(cout),
+                   torch.cat([xa, xb], -1), num_groups1=min(cin // 4, 32),
+                   num_groups2=min(cout // 4, 32))
+    for h, c, cout in SHAPES["K4"]:
+        x_skip = inp.act(B, h, h, c)
+        head = (inp.act(B, h, h, c), x_skip, inp.act(B, TEMB), inp.w(TEMB, cout).float(),
+                inp.vec(cout), qk(3, 3, c, cout), inp.vec(cout), inp.vec(cout, 1.0),
+                inp.vec(cout), qk(3, 3, cout, cout), inp.vec(cout))
+        yield case("K4-int8", f"{h}x{h} {c}->{cout}", rb.fused_resblock_tail_int8,
+                   rb.resblock_tail_int8_reference, head, c, cout, inp.vec(cout), x_skip,
+                   num_groups2=min(cout // 4, 32))
+    for h, c, cout, up in SHAPES["K9"]:
+        x = inp.act(B, h, h, c)
+        head = (x, inp.act(B, TEMB), inp.w(TEMB, cout).float(), inp.vec(cout), inp.vec(c, 1.0),
+                inp.vec(c), qk(3, 3, c, cout), inp.vec(cout), inp.vec(cout, 1.0), inp.vec(cout),
+                qk(3, 3, cout, cout), inp.vec(cout))
+        # the skip's input: the resampled x, quantized before any rounding
+        xr = rb.resample_transition(x.float(), rb.transition_kerns(up, True), up)
+        yield case("K9-int8", f"{'up' if up else 'down'} {h}x{h} {c}->{cout}",
+                   rb.fused_resblock_transition_int8, rb.resblock_transition_int8_reference,
+                   head, c, cout, inp.vec(cout), xr, up=up, num_groups1=min(c // 4, 32),
+                   num_groups2=min(cout // 4, 32))
+
+
+def check_static_skip(res: dict, case, B: int, card: str):
+    """One static_skip_cases case: the kernel against its int8 plain version
+    (KERNEL_BOUND["S8-skip"]); the block's own static-skip buffers
+    (skip_buffers: q(x) as the block's pre-pass, or K9's first launch from
+    the unrounded resample, wrote it, and the f32 skip product + b_skip that
+    the block's skip GEMM wrote and conv2 added) bit for bit against
+    quant_static and static_skip_product (exact int32 sums) on the same f32
+    skip input; its device time beside the same call's dynamic-skip form,
+    the bound, and the skip product alone beside torch._int_mm."""
+    from gddim_torch.ops import resblock as rb
+
+    kernel, label, fused, dynamic, plain, args, x_skip = case
+    bufs = {}
+    out = fused(skip_buffers=bufs)
+    torch.cuda.synchronize()
+    ref = plain()
+    err, rel = (out.float() - ref.float()).abs().max().item(), _rel(out, ref)
+    wq, b_skip, sx = args[-3], args[-2], args[-1][2]
+    q_diff = int((bufs["xq"] != rb.quant_static(x_skip, sx).to(torch.int8)).sum().item())
+    skip_ref = rb.static_skip_product(x_skip, wq, b_skip, sx)
+    skip_diff = int((bufs["skip"] != skip_ref).sum().item())
+    cin, cout = wq[0].shape
+    # the skip product alone on the int8 block GEMM, beside torch._int_mm (int32 out)
+    q, wk = bufs["xq"].clone(), wq[0].t().contiguous()
+    q2 = q.reshape(-1, cin)
+    skip_ms = graph_ms(lambda: rb.int8_conv_gemm(q, wk))
+    library_ms = graph_ms(lambda: torch._int_mm(q2, wq[0]))
+    w1q = args[-9][0]  # conv1's int8 weights, K-major (Cout, 9 Cin)
+    b_, h, w, _ = out.shape
+    ops = {"int8": 2 * b_ * h * w * (9 * (w1q.shape[1] // 9 + cout) + cin) * cout,
+           "f32": 2 * b_ * TEMB * cout}
+    ms, plain_ms = time_ms(fused), time_ms(plain, 2)
+    dev, dev_dyn = graph_ms(fused), graph_ms(dynamic)
+    bd = bound(nbytes(args, out), ops)
+    print(f"kernel S8-skip {kernel} static skip [{label}]: max|err|={err:.3e} rel={rel:.3e} "
+          f"(bound {KERNEL_BOUND['S8-skip']:.0e}); the block's q(x): {q_diff} of {q.numel()} "
+          f"differ, its f32 skip product: {skip_diff} of {skip_ref.numel()} differ (largest "
+          f"|product| {skip_ref.abs().max().item():.4e}); ms={ms:.4f} device ms={dev:.4f} "
+          f"(dynamic skip {dev_dyn:.4f}, {dev / dev_dyn:.2f}x) plain_ms={plain_ms:.4f} "
+          f"bound_ms={bd[0]:.4f} ({'bytes' if bd[1] >= bd[2] else 'operations'}); the skip "
+          f"product alone device ms={skip_ms:.4f}, torch._int_mm {library_ms:.4f} "
+          f"({verdict(skip_ms, library_ms)}) [{card}]", flush=True)
+    _record(res, "S8-skip", label, err, rel, ms, plain_ms, bd, library_ms=library_ms,
+            graph_ms=dev, dynamic_graph_ms=dev_dyn, skip_graph_ms=skip_ms)
+    if not (np.isfinite(rel) and rel <= KERNEL_BOUND["S8-skip"] and q_diff == 0
+            and skip_diff == 0):
+        raise AssertionError(f"S8-skip {label}: rel {rel:.3e}, q(x) {q_diff} differ, skip "
+                             f"product {skip_diff} differ")
+
+
+def _skip_block_call(block, x, temb, kw: dict):
+    """One int8 block with a 1x1 skip through its ops entry, as the block's
+    forward call (x, temb and the keywords that a forward pre-hook saw)
+    routes it to a kernel: (kind, entry, head args, the static [s1, s2, sx]
+    tail, the dynamic-skip tail, keywords, the skip's f32 input, its
+    calibrated "x" amax), the weights quantized (quantize_weight,
+    pack_int8_weight; the skip's pack_skip_int8) and the scales from the
+    block's calibrated amaxes; None where no int8 kernel takes the block."""
+    from gddim_torch.ops import resblock as rb
+
+    qs, row = kw.get("qscales") or {}, kw.get("temb_row")
+    if block.skip is None or not all(k in qs for k in ("a1", "a2", "x")):
+        return None
+    dense = ((temb, block.temb_dense.weight, block.temb_dense.bias) if row is None
+             else (row, None, None))
+    q8 = lambda w: rb.pack_int8_weight(rb.quantize_weight(w))  # noqa: E731
+    mid = (q8(block.conv1.weight), block.conv1.bias, block.norm2.weight, block.norm2.bias,
+           q8(block.conv2.weight), block.conv2.bias)
+    ws, bs = block.skip.weight[0, 0], block.skip.bias
+    s3 = torch.stack(rb.act_scales_from_amax((qs["a1"], qs["a2"], qs["x"]))).to(ws.device)
+    tails = ((*mid, rb.pack_skip_int8(rb.quantize_weight(ws)), bs, s3),
+             (*mid, ws.to(torch.bfloat16), bs, s3[:2]))
+    g = dict(num_groups2=block.norm2.num_groups, eps=block.norm2.eps,
+             skip_rescale=block.skip_rescale)
+    gn1, n = (block.norm1.weight, block.norm1.bias), block.conv1.weight.shape[-1]
+    if block.up or block.down:
+        if kw.get("transition") == "full" and rb.transition_supported(
+                x.shape, n, block.up, block.fir, block.fir_kernel, True):
+            g.update(up=block.up, fir=block.fir, fir_kernel=block.fir_kernel,
+                     num_groups1=block.norm1.num_groups)
+            kerns = rb.transition_kerns(block.up, block.fir, block.fir_kernel)
+            return ("K9-int8", rb.fused_resblock_transition_int8, (x, *dense, *gn1), *tails, g,
+                    rb.resample_transition(x.float(), kerns, block.up), qs["x"])
+        h = block._resample(block.norm1(x, act=True, fused=True))
+        xr = block._resample(x)
+        if not rb.tail_supported(h.shape, n, True):
+            return None
+        return ("K4-int8", rb.fused_resblock_tail_int8, (h, xr, *dense), *tails, g, xr.float(),
+                qs["x"])
+    g["num_groups1"] = block.norm1.num_groups
+    if isinstance(x, (tuple, list)):
+        if not rb.pair_supported(x[0].shape, x[1].shape[-1], n, True):
+            return None
+        return ("K3-int8", rb.fused_resblock_pair_int8, (x[0], x[1], *dense, *gn1), *tails, g,
+                torch.cat(x, -1).float(), qs["x"])
+    if not rb.stride1_supported(x.shape, n, True):
+        return None
+    return ("K2-int8", rb.fused_resblock_int8, (x, *dense, *gn1), *tails, g, x.float(), qs["x"])
+
+
+def static_skip_path(card: str, batch: int) -> dict:
+    """The static skip's path through the ops API, fed by calibration:
+    cld/accr_dcifar10 at full width ('fused_int8', seeded weights),
+    calibrate_int8 on the card (the skip sites' "x" amaxes with the rest),
+    one eps eval at ``batch`` with the transitions 'tail' (K2, K3, K4) and
+    one 'full' (K9), whose int8 blocks with a 1x1 skip a forward pre-hook
+    traces (their inputs at the path's shapes); then each of those blocks
+    through its int8 entry, fully static ([s1, s2, sx] from its calibrated
+    amaxes: no model switch), and with the dynamic skip. The static skip
+    GEMM's launches (counted in C) held to the static calls; how far the two
+    forms part, and each skip input's max|x| against its calibrated amax
+    (information). Returns the launches."""
+    from gddim_torch.cli import build_model, calibrate_int8
+    from gddim_torch.configs import get_config
+    from gddim_torch.math.cld import CLD
+    from gddim_torch.models import blocks
+    from gddim_torch.models.wrappers import make_cld_eps_fn
+
+    config = get_config("cld/accr_dcifar10")
+    config.model.conv_impl = "fused_int8"
+    model = build_model(config, "cuda", None, seed=0)
+    seconds = calibrate_int8(config, model, seed=0)
+    sites = sum("x" in v for v in model.qscales.values())
+    print(f"static skip: {len(model.qscales)} blocks calibrated on the card in {seconds:.3f} s, "
+          f"{sites} with a skip site \"x\"", flush=True)
+    eps_apply = make_cld_eps_fn(CLD.from_config(config))
+    traced = []
+
+    def hook(block, args, kw):
+        if kw.get("int8") and block.skip is not None:
+            traced.append((block, args[0], args[1], kw))
+
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True) for m in model.modules()
+               if isinstance(m, blocks.ResnetBlockBigGANpp)]
+    u, t = eps_inputs(batch)
+    try:
+        with torch.inference_mode():
+            for transition in ("tail", "full"):
+                model.transition = transition
+                eps_apply(model, u, t)
+    finally:
+        for handle in handles:
+            handle.remove()
+    with torch.inference_mode():
+        calls = [c for c in (_skip_block_call(*tr) for tr in traced) if c is not None]
+        torch.cuda.synchronize()
+        reset_counts()
+        outs = [fn(*head, *static, **g) for _, fn, head, static, _, g, _, _ in calls]
+        torch.cuda.synchronize()
+        launched = read_counts()["S8-skip"]
+        parts = [_rel(o, fn(*head, *dyn, **g)) for o, (_, fn, head, _, dyn, g, _, _)
+                 in zip(outs, calls)]
+    by_kind = {}
+    for kind, *_ in calls:
+        by_kind[kind] = by_kind.get(kind, 0) + 1
+    print(f"static skip path B={batch}: {len(traced)} int8 block calls with a 1x1 skip traced, "
+          f"{len(calls)} through their entries with [s1, s2, sx] {by_kind}, the static skip "
+          f"GEMM launched {launched} times [{card}]", flush=True)
+    if launched != len(calls) or set(by_kind) != {"K2-int8", "K3-int8", "K4-int8", "K9-int8"}:
+        raise AssertionError(f"static skip B={batch}: {launched} launches for {by_kind}")
+    ratio = [c[6].abs().max().item() / float(c[7]) for c in calls]
+    print(f"static skip blocks B={batch}: fully static vs the dynamic skip, block outputs "
+          f"rel {min(parts):.3e} to {max(parts):.3e}; skip input max|x| / calibrated amax "
+          f"{min(ratio):.2e} to {max(ratio):.2e} (information)", flush=True)
+    return {"S8-skip": launched}
+
+
+def phase_static_skip(results: dict, batch_results: dict, card: str, batches=(4, 16, 64),
+                      path_batch: int = 16) -> dict:
+    """The int8 blocks' static skip: each block with a 1x1 skip alone at the
+    sampling path's shapes and ``batches`` (check_static_skip; B=4 into the
+    kernels line, the others into batch_results), then its path at
+    ``path_batch`` (static_skip_path). Returns the path's launches."""
+    for B in batches:
+        for case in static_skip_cases(B, Inputs(8)):
+            check_static_skip(results if B == batches[0] else batch_results, case, B, card)
+    for res, B in ((results, batches[0]), *((batch_results, b) for b in batches[1:])):
+        rows = [r for r in res.get("S8-skip", {}).get("shapes", [])
+                if (r["shape"].split()[0] == f"B={B}") == (B != batches[0])]
+        print(f"sum S8-skip B={B} ({len(rows)} blocks): device "
+              f"{sum(r['graph_ms'] for r in rows):.4f} ms static skip, "
+              f"{sum(r['dynamic_graph_ms'] for r in rows):.4f} ms dynamic skip; bound "
+              f"{sum(r['bound_ms'] for r in rows):.4f} ms; the skip products "
+              f"{sum(r['skip_graph_ms'] for r in rows):.4f} ms, torch._int_mm "
+              f"{sum(r['library_ms'] for r in rows):.4f} ms [{card}]", flush=True)
+    return static_skip_path(card, path_batch)
+
+
+# ---------------------------------------------------------------------------
+# long_attn: K8's online-softmax kernel alone, and cld/ddpmpp_celeba
+# attending at 64x64 (S = 4096, C = 128)
+# ---------------------------------------------------------------------------
+
+LONG_ATTN_FIELDS = {"attn_resolutions": (16, 64)}
+
+
+def check_online_attention(results: dict, q, k, v, tol: float, card: str):
+    """K8's online-softmax kernel on q/k/v of one dtype (launched once,
+    counted in C) against its plain version with the TPU blocked branch's
+    rounding points on the same inputs, beside scaled_dot_product_attention
+    on (B, 1, S, C) views in that dtype; device times from CUDA graphs."""
+    from gddim_torch.ops import attention, resblock as rb
+
+    (b, s_, c), dt = q.shape, str(q.dtype).split(".")[-1]
+    label = f"{dt} B={b} S={s_} C={c}"
+    fused = lambda: attention.flash_attention(q, k, v)  # noqa: E731
+    plain = lambda: attention.flash_attention_blocked_reference(q, k, v)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])  # noqa: E731
+    before = rb.block_launches()["flash_online_kernel"]
+    out = fused()
+    torch.cuda.synchronize()
+    if rb.block_launches()["flash_online_kernel"] != before + 1:
+        raise AssertionError(f"K8-online {label}: the online kernel did not launch once")
+    ref = plain()
+    if out.dtype != q.dtype or out.shape != q.shape:
+        raise AssertionError(f"K8-online {label}: got {out.dtype} {tuple(out.shape)}")
+    err, rel = (out.float() - ref.float()).abs().max().item(), _rel(out, ref)
+    ms, plain_ms, library_ms = time_ms(fused, 10), time_ms(plain, 3), time_ms(sdpa, 10)
+    dev_ms, library_dev_ms = graph_ms(fused, 10), graph_ms(sdpa, 10)
+    prod = 4 * b * s_ * s_ * c
+    # bf16 products, or 3xTF32: three TF32 products per f32 product
+    bd = bound(nbytes(q, k, v, out), {"bf16": prod} if dt == "bfloat16" else {"tf32": 3 * prod})
+    print(f"kernel K8-online flash_attention [{label}]: max|err|={err:.3e} rel={rel:.3e} "
+          f"(bound {tol:.0e}) ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
+          f"bound_ms={bd[0]:.4f} ({'bytes' if bd[1] >= bd[2] else 'operations'}); device (CUDA "
+          f"graph) ms={dev_ms:.4f} sdpa_ms={library_dev_ms:.4f} "
+          f"({verdict(dev_ms, library_dev_ms)}), {prod / dev_ms / 1e9:.1f} TFLOP/s [{card}]",
+          flush=True)
+    _record(results, "K8-online", label, err, rel, ms, plain_ms, bd, library_ms=library_ms,
+            graph_ms=dev_ms, library_graph_ms=library_dev_ms)
+    if not np.isfinite(rel) or rel > tol:
+        raise AssertionError(f"K8-online {label}: rel err {rel:.3e} > {tol:.0e}")
+
+
+def long_attn_blocks(config) -> int:
+    """The attention blocks of the config's network whose sequence (H*W)
+    takes K8's online-softmax kernel (trace_blocks)."""
+    from gddim_torch.ops import attention
+
+    return sum(1 for kind, shapes, _ in trace_blocks(config)
+               if kind == "attn" and attention.flash_online(shapes[0][1] * shapes[0][2]))
+
+
+def phase_long_attn(results: dict, card: str, batch: int) -> dict:
+    """K8's online-softmax kernel alone at SHAPES["K8-online"] (check_online_
+    attention), then cld/ddpmpp_celeba with model.attn_resolutions (16, 64)
+    at full width (seeded weights): one eps eval (B=4, t=0.5) under 'fused',
+    'fused_int8' (static scales calibrated on the card) and 'pallas' against
+    the f32 plain path (EPS_BOUND, CONFIG_EXTRA_BOUND), deis-2 NFE=50 at
+    ``batch`` under each (every output and sample finite, launches nfe x the
+    eval's, img/s), and one f32 training step at CELEBA_TRAIN_BATCH against
+    the plain path (configs_train); the online kernel's launches held to the
+    64x64 attention blocks in each. Returns the 'fused' run's launches."""
+    from gddim_torch.cli import build_model, calibrate_int8
+    from gddim_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(71)
+    for b, s_, c, dt in SHAPES["K8-online"]:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q, k, v = (torch.randn((b, s_, c), generator=g, device="cuda").to(dtype)
+                   for _ in range(3))
+        check_online_attention(results, q, k, v, K8_BF16_BOUND if dt == "bf16" else K8_F32_BOUND,
+                               card)
+        del q, k, v
+    config = get_config("cld/ddpmpp_celeba")
+    for key, val in LONG_ATTN_FIELDS.items():
+        setattr(config.model, key, val)
+    n_long = long_attn_blocks(config)
+    tag = "long_attn cld/ddpmpp_celeba attn_resolutions=(16, 64)"
+    model = build_model(config, "cuda", None, seed=0)
+    x, labels = _net_inputs(config)
+    undo = _plain(model)
+    ref, _ = _net_eps(model, x, labels, {})
+    undo()
+    seconds = calibrate_int8(config, model, seed=0)
+    print(f"{tag}: {n_long} attention blocks at S > 1024; int8 static scales calibrated on the "
+          f"card in {seconds:.3f} s", flush=True)
+    launches = {}
+    for impl in ("fused", "fused_int8", "pallas"):
+        model.int8, model.layer = impl == "fused_int8", "pallas" if impl == "pallas" else None
+        got, per_eval = _net_eps(model, x, labels)
+        _eps_line(f"{tag} {impl}", got, ref, EPS_BOUND if impl == "fused"
+                  else CONFIG_EXTRA_BOUND[impl], per_eval, card)
+        if per_eval.get("K8-online") != n_long:
+            raise AssertionError(f"{tag} {impl}: online kernel launches {per_eval} for {n_long} "
+                                 "blocks")
+        warm = copy.deepcopy(config)
+        warm.sampling.nfe = 2
+        _sample_run(warm, model, batch, 7, per_eval)
+        samples, wall, nfe, counts = _sample_run(config, model, batch, 8, per_eval)
+        print(f"{tag} {impl} deis-2 NFE={nfe} B={batch} 64x64: samples finite, wall {wall:.3f} s, "
+              f"{batch / wall:.2f} img/s; launches {counts} [{card}]", flush=True)
+        if impl == "fused":
+            launches = counts
+    model.int8, model.layer = False, None
+    del model
+    train = configs_train(card, **LONG_ATTN_FIELDS)
+    if train.get("K8-online") != n_long:
+        raise AssertionError(f"{tag} train: online kernel launches {train} for {n_long} blocks")
+    print(f"long_attn phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="smoke run of gddim_torch on one CUDA card")
     # opt-in phases: profile, ab, train_time (K6/K7 device time and a traced
@@ -6322,10 +6760,12 @@ def main(argv=None):
     # at every shape, B=4/16/64, beside F.conv2d) and f32_span (the traced
     # f32 B=64 eval), k1_time (K1 at its sites, B=4/16/64, beside
     # F.group_norm; --k1-save / --k1-ref hold two trees' outputs), each of the
-    # three on a parent's checkout too
+    # three on a parent's checkout too; static_skip (the int8 blocks' static
+    # skip path alone, as the kernels phase runs it)
     parser.add_argument("--phases", default="build,kernels,eps,gates,sample,int8,blur,samplers,"
-                        "blur_deis,configs,f32,train,blur_train,run_lib,layer_f32,train_layer,"
-                        "remat,adamw,points,classifier,ref,corpora,compat,legacy,parallel,scripts")
+                        "blur_deis,configs,long_attn,f32,train,blur_train,run_lib,layer_f32,"
+                        "train_layer,remat,adamw,points,classifier,ref,corpora,compat,legacy,"
+                        "parallel,scripts")
     parser.add_argument("--batch", type=int, default=16, help="sampling batch")
     parser.add_argument("--bits", default=None, help="phase bits: the file to save to")
     parser.add_argument("--bits-ref", default=None, help="phase bits: another tree's file")
@@ -6372,6 +6812,15 @@ def main(argv=None):
 
     results: dict = {}  # the kernels line's (B=4)
     batch_results: dict = {}  # the int8 blocks and the bare GEMM at other batches
+    skip_counts: dict = {}  # the static skip's path (kernels phase)
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {name}: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
+    lap("build")
     if "kernels" in phases:
         phase_kernels(results, batch_results)
         phase_s8_kernels(results, batch_results)
@@ -6379,6 +6828,7 @@ def main(argv=None):
         phase_train_kernels(results, batch_results)
         phase_layer_kernels(results, batch_results)
         phase_transition_kernels(results, batch_results)
+        skip_counts = phase_static_skip(results, batch_results, card)
         phase_attn_train_kernels(results)
         phase_f32_activations()
         phase_attn_kernels(results, card)
@@ -6388,108 +6838,155 @@ def main(argv=None):
         report_gn_routes()
         print_sums(results, batch_results)
         print_block_sums(results, batch_results)
+        lap("kernels")
     config = get_config("cld/accr_dcifar10")
     # the transitions through K1, the FIR passes and K4: the path each phase's
     # K9 run (run_k9) is held against
     config.model.transition_impl = "tail"
     model = phase_eps(config) if "eps" in phases else None
+    lap("eps")
     if "gates" in phases:
         phase_gates(card)
+        lap("gates")
     # each path's launches, counted from 0 just before it runs: the bf16
     # sampling path, then the int8 one and the training one for their kernels
-    counts, samples = {}, None
+    counts, samples = dict(skip_counts), None
     if "sample" in phases:
         if model is None:
             from gddim_torch.models.init import seeded_model
 
             model = seeded_model(config, seed=0, device="cuda")
-        counts, samples = phase_sample(config, model, args.batch, card)
+        sample_counts, samples = phase_sample(config, model, args.batch, card)
+        counts.update(sample_counts)
+        lap("sample")
     del model
     if "int8" in phases:
         if samples is None:
             raise SystemExit("chip_smoke: the int8 phase compares with the sample phase's output")
         int8_counts = phase_int8(config, samples, args.batch, card)
         counts.update({k: n for k, n in int8_counts.items() if k not in counts})
+        lap("int8")
     if "blur" in phases:
         blur_counts = phase_blur(args.batch, card)
         counts.update({k: n for k, n in blur_counts.items() if k not in counts})
+        lap("blur")
     if "samplers" in phases:
         sampler_counts = phase_samplers(card, args.batch)
         counts.update({k: n for k, n in sampler_counts.items() if k not in counts})
+        lap("samplers")
     if "blur_deis" in phases:
         blur_deis_counts = phase_blur_deis(card, args.batch)
         counts.update({k: n for k, n in blur_deis_counts.items() if k not in counts})
+        lap("blur_deis")
     if "configs" in phases:
         config_counts = phase_configs(card, args.batch)
         counts.update({k: n for k, n in config_counts.items() if k not in counts})
+        lap("configs")
+    if "long_attn" in phases:
+        long_counts = phase_long_attn(results, card, args.batch)
+        counts.update({k: n for k, n in long_counts.items() if k not in counts})
+        lap("long_attn")
     if "f32" in phases:
         f32_counts = phase_f32(card, args.batch)
         counts.update({k: n for k, n in f32_counts.items() if k not in counts})
+        lap("f32")
     if "f32_time" in phases:
         phase_f32_time(card)
+        lap("f32_time")
     if "f32_span" in phases:
         trace_f32_eval(card, 64)
+        lap("f32_span")
     if "k1_time" in phases:
         phase_k1_time(card, args.k1_save, args.k1_ref)
+        lap("k1_time")
     if "profile" in phases:
         phase_profile(config, args.batch, card)
+        lap("profile")
     if "ab" in phases:
         phase_ab(config, card)
+        lap("ab")
     if "train" in phases:
         train_counts = phase_train(card)
         counts.update({k: n for k, n in train_counts.items() if k not in counts})
+        lap("train")
     if "blur_train" in phases:
         blur_train_counts = phase_blur_train(card)
         counts.update({k: n for k, n in blur_train_counts.items() if k not in counts})
+        lap("blur_train")
     if "run_lib" in phases:
         run_lib_counts = phase_run_lib(card)
         counts.update({k: n for k, n in run_lib_counts.items() if k not in counts})
+        lap("run_lib")
     if "layer_f32" in phases:
         layer_f32_counts = phase_layer_f32(card)
         counts.update({k: n for k, n in layer_f32_counts.items() if k not in counts})
+        lap("layer_f32")
     if "train_layer" in phases:
         train_layer_counts = phase_train_layer(card)
         counts.update({k: n for k, n in train_layer_counts.items() if k not in counts})
+        lap("train_layer")
     if "remat" in phases:
         phase_remat(card)
+        lap("remat")
     if "adamw" in phases:
         phase_adamw(card)
+        lap("adamw")
     if "points" in phases:
         phase_points(card)
+        lap("points")
     if "classifier" in phases:
         phase_classifier(card)
+        lap("classifier")
     if "ref" in phases:
         phase_ref(card)
+        lap("ref")
     if "corpora" in phases:
         corpora_counts = phase_corpora(card)
         counts.update({k: n for k, n in corpora_counts.items() if k not in counts})
+        lap("corpora")
     if "compat" in phases:
         phase_compat(card)
+        lap("compat")
     if "legacy" in phases:
         phase_legacy(card)
+        lap("legacy")
     if "parallel" in phases:
         phase_parallel(card)
+        lap("parallel")
     if "scripts" in phases:
         phase_scripts(card)
+        lap("scripts")
     if "train_gemms" in phases and "kernels" not in phases:
         check_train_gemms({}, {})
+        lap("train_gemms")
+    if "static_skip" in phases and "kernels" not in phases:
+        phase_static_skip({}, {}, card)
+        lap("static_skip")
     if "gn_bwd" in phases and "kernels" not in phases:
         check_gn_bwd({}, {})
+        lap("gn_bwd")
     if "gn_bwd_plans" in phases:
         phase_gn_bwd_plans(card)
+        lap("gn_bwd_plans")
     if "eval_span" in phases:
         phase_eval_span(card)
+        lap("eval_span")
     if "blur_span" in phases:
         phase_blur_span(card)
+        lap("blur_span")
     if "bits" in phases:
         phase_bits(args.bits or "bits.pt", args.bits_ref)
+        lap("bits")
     if "gn2_prepass" in phases and "kernels" not in phases:
         phase_gn2_prepass_kernels({}, {})
+        lap("gn2_prepass")
     if "train_time" in phases:
         phase_train_time(card)
+        lap("train_time")
     if "train_ab" in phases:
         phase_train_ab(card)
-    if phases >= {"kernels", "sample", "int8", "blur", "train"}:
+        lap("train_ab")
+    if phases >= {"kernels", "sample", "int8", "blur", "train", "long_attn"}:
         missing = [k for k in KERNELS if counts.get(k, 0) == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the main path: {missing}")

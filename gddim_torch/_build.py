@@ -61,28 +61,35 @@ _SIGNATURES = {
         _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
         _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
-    # gddim_resblock_transition_int8_workspace(B, H_out, W_out, C, N, splits, parts)
-    "gddim_resblock_transition_int8_workspace": [_I, _I, _I, _I, _I, _I, _I],
+    # gddim_resblock_transition_int8_workspace(B, H_out, W_out, C, N, splits, parts, sx)
+    "gddim_resblock_transition_int8_workspace": [_I, _I, _I, _I, _I, _I, _I, _I],
+    # gddim_resblock_transition_int8_skip_offsets(B, H_out, W_out, C, N, splits, parts, offs)
+    "gddim_resblock_transition_int8_skip_offsets": [_I, _I, _I, _I, _I, _I, _I, _P],
     # gddim_resblock_transition_int8(x, c, temb_row, temb_ld, gn1_g, gn1_b, groups1,
-    #   w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, ws, bs, act_scales, B, H_in, W_in, up,
-    #   kh0..kh3, kw0..kw3, N, eps, out_scale, work, mw, box_h, box_b, tiles_h, m_tiles,
-    #   splits1, kper1, splits2, kper2, gn_ctas, out, stream)
+    #   w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, ws, bs, wss, skip_plan, act_scales,
+    #   B, H_in, W_in, up, kh0..kh3, kw0..kw3, N, eps, out_scale, work, mw, box_h, box_b,
+    #   tiles_h, m_tiles, splits1, kper1, splits2, kper2, gn_ctas, out, stream); wss and
+    #   skip_plan (a host int32 array) non-null: the static int8 skip
     "gddim_resblock_transition_int8": [
         _P, _I, _P, _I, _P, _P, _I,
-        _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
         _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _P, _I, _I, _I, _I, _I,
         _I, _I, _I, _I, _I, _P, _P,
     ],
-    # gddim_resblock_int8_workspace(B, H, W, Cin, N, splits, parts)
-    "gddim_resblock_int8_workspace": [_I, _I, _I, _I, _I, _I, _I],
+    # gddim_resblock_int8_workspace(B, H, W, Cin, N, splits, parts, sx)
+    "gddim_resblock_int8_workspace": [_I, _I, _I, _I, _I, _I, _I, _I],
+    # gddim_resblock_int8_skip_offsets(B, H, W, Cin, N, splits, parts, sx, offs): the static
+    #   skip's q(x) and product in the workspace (offs: 2 int64 written)
+    "gddim_resblock_int8_skip_offsets": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
     # gddim_resblock_int8(x0, x1, c0, c1, temb_row, temb_ld, gn1_g, gn1_b,
     #   groups1, w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, s0, s1, cs0, cs1, ws, bs,
-    #   act_scales, B, H, W, N, eps, out_scale, work, mw, box_h, box_b, tiles_h, m_tiles,
-    #   splits1, kper1, splits2, kper2, gn_ctas, out, stream)
+    #   wss, skip_plan, act_scales, B, H, W, N, eps, out_scale, work, mw, box_h, box_b,
+    #   tiles_h, m_tiles, splits1, kper1, splits2, kper2, gn_ctas, out, stream); wss and
+    #   skip_plan (a host int32 array) non-null: the static int8 skip
     "gddim_resblock_int8": [
         _P, _P, _I, _I, _P, _I, _P, _P,
         _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P,
-        _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+        _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
     # gddim_s8_prepass(xa, xb, ca, cb, act_f32, B, HW, scale, shift, silu, qs, amax, inv_mul,
     #   out, stream)
@@ -148,6 +155,8 @@ _SIGNATURES = {
     "gddim_wgrad": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # gddim_flash_attention(q, k, v, o, B, S, C, qt, bf16, scale, stream)
     "gddim_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # gddim_flash_online(q, k, v, o, B, S, C, bf16, scale, stream): K8 for S > 1024
+    "gddim_flash_online": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # gddim_attention_core(qkv, B, S, C, stages, mode, qs, amax, out, stream)
     "gddim_attention_core": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # gddim_attnblock(x, act_f32, gn_g, gn_b, groups, wqkv, bqkv, wo, bo, B, H, W, C, eps,
@@ -274,6 +283,16 @@ def launch(name: str, device: torch.device, *args) -> None:
 def workspace_bytes(name: str, *args) -> int:
     """Scratch bytes a block entry needs (``<name>_workspace``)."""
     return int(getattr(library(), f"{name}_workspace")(*args))
+
+
+def skip_offsets(name: str, *args) -> tuple:
+    """The byte offsets of the static skip's int8 input and f32 product in an
+    int8 block entry's workspace (``<name>_skip_offsets``)."""
+    offs = (_L * 2)()
+    err = getattr(library(), f"{name}_skip_offsets")(*args, ctypes.addressof(offs))
+    if err != 0:
+        raise RuntimeError(f"{name}_skip_offsets: error {err}")
+    return int(offs[0]), int(offs[1])
 
 
 def ptr(t) -> int | None:

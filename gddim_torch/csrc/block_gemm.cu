@@ -56,7 +56,8 @@
 //   the conv slices in one loop.
 // - The epilogue (bias + b_skip, the temb row, the identity residual of the
 //   output's type, out_scale; f32 h1 or bf16 out, f32 out and residual in
-//   K6's conv2; tile_epilogue) stages the tile's sums in
+//   K6's conv2; the int8 blocks' static skip: conv2's bf16 out with the
+//   skip's f32 product as the residual, RF32; tile_epilogue) stages the tile's sums in
 //   the drained ring and stores from there along whole rows. With gn_part
 //   (conv1: the STATS instantiation) each thread also sums its 2 columns of
 //   each sample's rows and their squares, and the row lanes' sums meet in a
@@ -141,7 +142,8 @@ struct Plan {
   const float* bias;
   const float* bias2;
   const float* temb;
-  const void* resid;  // of the output's type (TO)
+  const void* resid;  // of the output's type (TO), or f32 with resid_f32
+  bool resid_f32;     // an f32 residual under a bf16 output (the int8 blocks' static skip)
   float out_scale;
   void* out;
   float* partial;
@@ -174,10 +176,10 @@ __device__ __forceinline__ float2 load2(const bf16* s) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(s));
 }
 
-// The temb row and the residual for output channels n, n+1 of pixel m
-// (whose bias + b_skip r0, r1 hold already), then the scale; returns the
-// values stored (in f32)
-template <typename TO>
+// The temb row and the residual (of type TR) for output channels n, n+1 of
+// pixel m (whose bias + b_skip r0, r1 hold already), then the scale;
+// returns the values stored (in f32)
+template <typename TO, typename TR = TO>
 __device__ __forceinline__ float2 epilogue2(const Plan& p, long m, int n, float r0, float r1) {
   if (p.temb) {
     const float* tr = p.temb + (m / (p.H * p.W)) * p.temb_ld + n;
@@ -185,7 +187,7 @@ __device__ __forceinline__ float2 epilogue2(const Plan& p, long m, int n, float 
     r1 += tr[1];
   }
   if (p.resid) {
-    const float2 v = load2((const TO*)p.resid + m * p.N + n);
+    const float2 v = load2((const TR*)p.resid + m * p.N + n);
     r0 += v.x;
     r1 += v.y;
   }
@@ -215,7 +217,8 @@ __device__ __forceinline__ float2 bias2(const Plan& p, int n) {
 // shared memory (the drained ring, rows of STAGE_LD floats), then each
 // thread takes 2 columns down a quarter of the tile's rows, so that the
 // stores (and the residual's loads) run along whole rows: + bias + b_skip,
-// the sample's temb row, the residual, times out_scale, as epilogue2. With
+// the sample's temb row, the residual (of type TR), times out_scale, as
+// epilogue2. With
 // STATS (conv1, f32 out) each thread also sums its columns' values of each
 // sample and their squares, and the 4 row lanes' sums meet in order in the
 // tile's row of GN2's partials. Stores straight from the accumulator layout
@@ -224,7 +227,7 @@ __device__ __forceinline__ float2 bias2(const Plan& p, int n) {
 // instantiation of it (PERF.md §6).
 constexpr int STAGE_LD = TILE_N + 8;  // floats a staged row: 64-bit stores in 2 wavefronts
 
-template <int MW, typename TO, bool STATS>
+template <int MW, typename TO, bool STATS, typename TR = TO>
 __device__ __forceinline__ void tile_epilogue(const Plan& p, const uint32_t (&acc)[MW][64],
                                               unsigned char* ring, int g, int row0, int col0,
                                               int b0, int y0, int n0) {
@@ -262,7 +265,7 @@ __device__ __forceinline__ void tile_epilogue(const Plan& p, const uint32_t (&ac
       const float2 a = *reinterpret_cast<const float2*>(tile + r * STAGE_LD + c);
       float v0 = a.x + cb.x + tr.x, v1 = a.y + cb.y + tr.y;
       if (p.resid) {
-        const float2 e = load2((const TO*)p.resid + base + (long)r * p.N);
+        const float2 e = load2((const TR*)p.resid + base + (long)r * p.N);
         v0 += e.x;
         v1 += e.y;
       }
@@ -305,7 +308,9 @@ __device__ __forceinline__ void load_nmajor(uint32_t b, const CUtensorMap* map, 
 // skip): a dgrad, the weights K-major and tap-reversed. S32 (int8, no skip,
 // K split: K11 int8): a split stores its raw int32 sums, which
 // block_splitk_s32_kernel adds in int32 before it dequantizes them once.
-template <typename TA, int MW, typename TO, bool STATS, bool KMAJ = false, bool S32 = false>
+// RF32 (int8, bf16 out): the residual is f32 (the static skip's product).
+template <typename TA, int MW, typename TO, bool STATS, bool KMAJ = false, bool S32 = false,
+          bool RF32 = false>
 __global__ void __launch_bounds__(THREADS, 3 - MW)
 block_gemm_kernel(const __grid_constant__ CUtensorMap amap,
                   const __grid_constant__ CUtensorMap wmap,
@@ -500,7 +505,8 @@ block_gemm_kernel(const __grid_constant__ CUtensorMap amap,
   wgmma_wait<0>();
 
   if (p.splits == 1) {
-    tile_epilogue<MW, TO, STATS>(p, acc, ring, g, row0, col0, b0, y0, n0);
+    tile_epilogue<MW, TO, STATS, std::conditional_t<RF32, float, TO>>(p, acc, ring, g, row0,
+                                                                       col0, b0, y0, n0);
     return;
   }
   // a split's f32 partial, straight from the accumulators
@@ -520,8 +526,9 @@ block_gemm_kernel(const __grid_constant__ CUtensorMap amap,
 }
 
 // Split-K reduction: the f32 partials summed in split order, then the
-// epilogue. grid ceil(M*N/2 / 256), 256 threads, 2 channels each.
-template <typename TO>
+// epilogue (TR: the residual's type). grid ceil(M*N/2 / 256), 256 threads,
+// 2 channels each.
+template <typename TO, typename TR = TO>
 __global__ void __launch_bounds__(256) block_splitk_kernel(const Plan p) {
   const long mn = (long)p.B * p.H * p.W * p.N;
   const long v = ((long)blockIdx.x * 256 + threadIdx.x) * 2;
@@ -534,7 +541,7 @@ __global__ void __launch_bounds__(256) block_splitk_kernel(const Plan p) {
   }
   const int n = (int)(v % p.N);
   const float2 cb = bias2(p, n);
-  epilogue2<TO>(p, v / p.N, n, r.x + cb.x, r.y + cb.y);
+  epilogue2<TO, TR>(p, v / p.N, n, r.x + cb.x, r.y + cb.y);
 }
 
 // The split-K reduction of conv1 (gn_part): the same sums in split order,
@@ -622,17 +629,17 @@ __global__ void __launch_bounds__(256) block_splitk_s32_kernel(const Plan p) {
 }
 
 template <typename TA, int MW, typename TO, bool STATS = false, bool KMAJ = false,
-          bool S32 = false>
+          bool S32 = false, bool RF32 = false>
 int launch(dim3 grid, const CUtensorMap* maps, const Plan& p, cudaStream_t st) {
   static bool attr = false;
   if (!attr) {
-    const int err = (int)cudaFuncSetAttribute(block_gemm_kernel<TA, MW, TO, STATS, KMAJ, S32>,
-                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                              Tile<MW>::SMEM);
+    const int err = (int)cudaFuncSetAttribute(
+        block_gemm_kernel<TA, MW, TO, STATS, KMAJ, S32, RF32>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<MW>::SMEM);
     if (err) return err;
     attr = true;
   }
-  block_gemm_kernel<TA, MW, TO, STATS, KMAJ, S32><<<grid, THREADS, Tile<MW>::SMEM, st>>>(
+  block_gemm_kernel<TA, MW, TO, STATS, KMAJ, S32, RF32><<<grid, THREADS, Tile<MW>::SMEM, st>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], p);
   int err = (int)cudaGetLastError();
   if (!err)
@@ -647,7 +654,8 @@ int launch(dim3 grid, const CUtensorMap* maps, const Plan& p, cudaStream_t st) {
       block_splitk_stats_kernel<TO><<<dim3(grid.x, p.N / 32, p.box_b), 256, 0, st>>>(p);
     } else {
       const long vecs = (long)p.B * p.H * p.W * p.N / 2;
-      block_splitk_kernel<TO><<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>(p);
+      block_splitk_kernel<TO, std::conditional_t<RF32, float, TO>>
+          <<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>(p);
     }
     err = (int)cudaGetLastError();
   }
@@ -667,6 +675,10 @@ int launch_mw(int mw, bool out_f32, dim3 grid, const CUtensorMap* maps, const Pl
     if (p.asc != nullptr && p.splits > 1)
       return out_f32 ? launch<int8_t, 1, float, false, false, true>(grid, maps, p, st)
                      : launch<int8_t, 1, bf16, false, false, true>(grid, maps, p, st);
+    // the static skip's conv2: bf16 out, the skip product as an f32 residual
+    if (p.resid_f32)
+      return mw == 1 ? launch<int8_t, 1, bf16, false, false, false, true>(grid, maps, p, st)
+                     : launch<int8_t, 2, bf16, false, false, false, true>(grid, maps, p, st);
   }
   if (p.gn_part != nullptr && p.splits == 1)  // GN2's sums in the epilogue (f32 out)
     return mw == 1 ? launch<TA, 1, float, true>(grid, maps, p, st)
@@ -696,6 +708,9 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
       // K11 int8's scales: int8, no skip, residual, temb or statistics
       (g.asc != nullptr && (!g.int8 || g.qs != nullptr || g.s0 || g.resid ||
                             g.temb || g.gn_part != nullptr || (g.splits > 1 && t.mw != 1))) ||
+      // an f32 residual under bf16 out: int8, no statistics or K11 scales
+      (g.resid_f32 && (!g.int8 || g.resid == nullptr || g.out_f32 || g.gn_part != nullptr ||
+                       g.asc != nullptr)) ||
       // a dgrad: bf16, f32 out, no skip, no statistics
       (g.w_kmajor && (g.int8 || !g.out_f32 || g.s0 || g.gn_part != nullptr)) ||
       // GN2's sums: f32 out with no residual (conv1), a warp's 16 rows one sample's
@@ -727,7 +742,8 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
   p.bias2 = g.bias2;
   p.temb = g.temb;
   p.temb_ld = g.temb_ld;
-  p.resid = (const bf16*)g.resid;
+  p.resid = g.resid;
+  p.resid_f32 = g.resid_f32;
   p.out_scale = g.out_scale;
   p.out = g.out;
   p.partial = g.partial;
@@ -915,8 +931,8 @@ int gddim_dgrad_bf16(const void* g_, const void* w, int batch, int h, int w_, in
 // Launches of the kernels counted in C (conv.cuh's Counted order: the int8
 // GEMM, the int8 pre-pass, the bf16 GEMM, the bf16 pre-pass, K5's attention
 // core, the GroupNorm statistics, the GN1 kernel, the wgrad kernel, K1's
-// kernel, the training blocks' block GEMM, the GN backward, GN2's pre-pass)
-// into out
+// kernel, the training blocks' block GEMM, the GN backward, GN2's pre-pass,
+// K8's online-softmax kernel, the static skip's int8 GEMM) into out
 // (N_COUNTED long long); with reset, zeroed after reading.
 int gddim_block_launches(long long* out, int reset) {
   for (int k = 0; k < N_COUNTED; ++k) {

@@ -89,6 +89,7 @@ struct BlockGemm {
   const float* temb;   // (B, N) row added per sample (row b at temb + b * temb_ld), or null
   int temb_ld;
   const void* resid;   // (M, N) identity residual of out's type (bf16, or f32), or null
+  bool resid_f32;      // resid is f32 under a bf16 out (int8: the static skip's product)
   float out_scale;
   void* out;  // (M, N) f32 (out_f32) or bf16
   bool out_f32;
@@ -111,8 +112,10 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t strea
 // (gn_apply.cu, both variants), K7's weight-gradient kernel, K1's GroupNorm
 // kernel (groupnorm.cu), the block GEMM's launches in the training blocks
 // (K6, K7) apart from the bf16 ones of the sampling path, K7's GroupNorm
-// backward (resblock_bwd.cu), and GN2's folding pre-pass
-// (gn_prepass_kernel, every mode; counted as its mode's pre-pass too).
+// backward (resblock_bwd.cu), GN2's folding pre-pass (gn_prepass_kernel,
+// every mode; counted as its mode's pre-pass too), K8's online-softmax
+// kernel (flash_online.cu), and the int8 blocks' static skip GEMM (counted
+// as the int8 GEMM too).
 enum Counted {
   COUNT_GEMM_S8 = 0,
   COUNT_PREPASS_S8 = 1,
@@ -126,9 +129,23 @@ enum Counted {
   COUNT_GEMM_TRAIN = 9,
   COUNT_GN_BWD = 10,
   COUNT_GN2_PREPASS = 11,
-  N_COUNTED = 12
+  COUNT_FLASH_ONLINE = 12,
+  COUNT_STATIC_SKIP = 13,
+  N_COUNTED = 14
 };
 void count_launch(Counted kernel);
+
+// The int8 blocks' static skip projection (act_scales [s1, s2, sx], the
+// TPU kernels' static_skip): the skip input (s0, s1) quantized by sx, or
+// (q8) s0 quantized already (K9's resampled x), its 1x1 by the int8 skip
+// weights ws (K-major (N, cs0 + cs1)) on the int8 block GEMM into an f32
+// buffer, f32(int32 sums) * (wss[n] * sx) + b_skip, under its own M tiling
+// (s8_tile_plan at taps 1, K unsplit); conv2 adds it as an f32 residual.
+struct StaticSkip {
+  const float* wss;  // (N,) the skip weights' scales; null: no static skip
+  bool q8;
+  GemmTiles tiles;
+};
 
 // One residual block on the block GEMM (gddim_resblock's and
 // gddim_resblock_int8's arguments, in order), int8 or bf16: conv1's input
@@ -145,8 +162,9 @@ void count_launch(Counted kernel);
 // with groups1 = 0 its conv1 reads bf16 x0 as it is (K4 and K9: h holds
 // silu(GN1(x)) already; f32 x0 through a pre-pass). train (K6: f32
 // activations): GN2's pre-pass applies the dropout mask (or none) and
-// 1/keep, and the GEMMs count as the training blocks'. Scratch: carve_gemm
-// (gddim_resblock_workspace).
+// 1/keep, and the GEMMs count as the training blocks'. sk: the int8 mode's
+// static skip (below). Scratch: carve_gemm (gddim_resblock_workspace,
+// gddim_resblock_int8_workspace).
 int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1, bool x_f32,
                       bool out_f32, bool x_q8, int gn_ctas, const float* amax1,
                       const void* temb_row, int temb_ld, const void* gn1_g, const void* gn1_b,
@@ -157,7 +175,7 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
                       int h, int w_, int n, float eps, float out_scale, void* work,
                       const GemmTiles& tiles, int splits1, int kper1, int splits2, int kper2,
                       bool train, const int8_t* mask, float inv_keep, void* out,
-                      cudaStream_t st);
+                      cudaStream_t st, const StaticSkip& sk = StaticSkip{});
 
 // The block GEMM's pre-pass (resblock.cu): the logical concat (xa, xb) of
 // one conv's input (f32 or bf16) through the per-(sample, channel) affine
@@ -244,7 +262,8 @@ struct GnApply {
   int out_type;   // resample: 0 bf16, 1 f32, 2 int8
   Taps k;
   void* out;
-  void* xr;
+  void* xr;          // resample: the resampled x, bf16, or int8 by *qsx when qsx is set
+  const float* qsx;  // resample: the static skip scale sx, or null
   float* amax_out;
   float* qs_out;
   int unfold;

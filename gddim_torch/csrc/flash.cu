@@ -2,21 +2,23 @@
 // over (B, S, C), f32 or bf16, with the (S, S) scores never written to
 // device memory.
 //
-// Replaces gddim_tpu/ops/flash.py:flash_attention (K8): its whole-sequence
-// kernel (_attn_kernel_single, S <= 1024) and its k-blocked online-softmax
-// kernel (_attn_kernel_blocked) are the two kernels here, which keep a
-// query's whole row of scores on chip for every S they take (up to 2048 at
-// C = 256): in registers (flash_reg_kernel, bf16, S a multiple of 64 up to
-// 256) or in shared memory (flash_kernel, the rest). The training path
-// calls K8 on f32 q/k/v (S = 256 and 16, C = 256), the layer-wise sampling
-// paths on bf16 q/k/v.
+// Replaces the whole-sequence kernel of gddim_tpu/ops/flash.py:
+// flash_attention (K8), _attn_kernel_single, which the TPU wrapper takes for
+// S <= 1024. The two kernels here keep a query's whole row of scores on chip
+// for every S they take (S <= 1024, ops/attention.py:flash_plan): in
+// registers (flash_reg_kernel, bf16, S a multiple of 64 up to 256) or in
+// shared memory (flash_kernel, the rest). The k-blocked online-softmax
+// kernel that the TPU wrapper takes for S > 1024 (_attn_kernel_blocked) is
+// flash_online.cu's. The training path calls K8 on f32 q/k/v (S = 256 and
+// 16, C = 256), the layer-wise sampling paths on bf16 q/k/v.
 //
 // Rounding points, both modes as the plain version (ops/attention.py:
 // attention_xla) and the TPU kernel's whole-sequence branch: s = (q . k) *
 // C^-0.5 with f32 sums, f32 softmax statistics, the weights w = exp(s - m) / l
 // normalised first and then (bf16 mode) rounded to bf16 before w . v, f32
-// sums, the output rounded once to its type. (The TPU kernel's blocked
-// branch, S > 1024, rounds the unnormalised weights and divides at the end.)
+// sums, the output rounded once to its type. (flash_online.cu follows the
+// blocked branch's instead: the unnormalised weights rounded, one division
+// at the end.)
 // flash_reg_kernel takes exp as __expf and the division as a product with
 // the row's rounded reciprocal: a few f32 ulps before the bf16 rounding.
 //
@@ -57,6 +59,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
 constexpr int FL_THREADS = 256;
@@ -82,85 +86,6 @@ struct Mode<true> {
 __host__ __device__ constexpr int fl_smem(bool bf16, int c, int qt, int s) {
   const int sz = bf16 ? 2 : 4, ldt = c + (bf16 ? 8 : 4), kt = bf16 ? 64 : 32;
   return qt * ldt * sz + 2 * kt * ldt * sz + qt * (s + 4) * 4 + 2 * qt * 4;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zeros when `valid` is false
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both tf32
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 3xTF32: d += a * b with a, b as (hi, lo) pairs, the small terms first
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
-                                           const uint32_t (&bl)[2]) {
-  mma_tf32(d, al, bh);
-  mma_tf32(d, ah, bl);
-  mma_tf32(d, ah, bh);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // grid (S / QT, B), FL_THREADS threads, fl_smem(BF16, C, QT, S) bytes.

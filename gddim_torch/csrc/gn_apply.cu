@@ -39,7 +39,8 @@
 //      transition_resample_kernel's order and rounding points: h (bf16; f32
 //      with the per-sample amax as a cluster max; or, with a static scale,
 //      int8 by the quantizer of the int8 pre-pass, which K9 then skips) and
-//      xr = resample(bf16(x)) in bf16.
+//      xr = resample(bf16(x)) in bf16 (or, K9's static skip, int8 by sx
+//      from the unrounded sums).
 //   K12 (gddim_tpu/ops/groupnorm.py:group_norm_silu_quant, conv_impl
 //      'int8': GN + SiLU + per-sample int8 in front of K11's int8 conv) is
 //      the per-sample int8 convert with the TPU kernel's arithmetic
@@ -431,6 +432,7 @@ gn_apply_kernel(const GnApply a, const int px) {
     const int ho = up ? 2 * a.h : a.h / 2, wo = up ? 2 * w : w / 2;
     const long nout = (long)(rows.o1 - rows.o0) * wo * cv;
     const float inv_static = a.out_type == 2 ? 1.0f / *a.q.qs : 0.f;
+    const float inv_sx = a.qsx != nullptr ? 1.0f / *a.qsx : 0.f;
     for (long i = t; i < nout; i += GA_THREADS) {
       const int c0 = (int)(i % cv) * 8;
       const long pix = i / cv;
@@ -474,7 +476,6 @@ gn_apply_kernel(const GnApply a, const int px) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         if (std::is_same<TQ, bf16>::value) acc_h[j] = round_bf16(acc_h[j]);
-        acc_x[j] = round_bf16(acc_x[j]);
         mx = fmaxf(mx, fabsf(acc_h[j]));
       }
       if constexpr (std::is_same<TQ, int8_t>::value) {
@@ -486,7 +487,17 @@ gn_apply_kernel(const GnApply a, const int px) {
       } else {
         st8((TQ*)a.out + o, acc_h);
       }
-      st8((bf16*)a.xr + o, acc_x);
+      if (a.qsx != nullptr) {  // the static skip's q(xr), from the unrounded sums
+        uint2 qv;
+        int8_t* e8 = reinterpret_cast<int8_t*>(&qv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) e8[j] = quant8(acc_x[j] * inv_sx);
+        *reinterpret_cast<uint2*>((int8_t*)a.xr + o) = qv;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc_x[j] = round_bf16(acc_x[j]);
+        st8((bf16*)a.xr + o, acc_x);
+      }
     }
     if (std::is_same<TQ, float>::value && a.amax_out != nullptr) {
       // the per-sample amax of h, a cluster max, for the int8 pre-pass
@@ -564,7 +575,8 @@ int gn_apply_launch(const GnApply& a, cudaStream_t st) {
       ((uintptr_t)a.xa % 16 == 0) && ((uintptr_t)a.xb % 16 == 0) && (a.cb == 0) == (a.xb == nullptr) &&
       (rs ? (a.cb == 0 && a.h % 2 == 0 && a.w % 2 == 0 && a.out_type >= 0 && a.out_type <= 2 &&
              (a.out_type != 2 || a.q.qs != nullptr) && a.xr != nullptr)
-          : (!a.int8 || a.q.qs != nullptr || a.amax_out != nullptr || a.qs_out != nullptr)) &&
+          : (a.qsx == nullptr &&
+             (!a.int8 || a.q.qs != nullptr || a.amax_out != nullptr || a.qs_out != nullptr))) &&
       // K12: int8 per sample, its scales out
       (!a.unfold || (!rs && a.int8 && a.q.qs == nullptr && !a.q.inv_mul && a.qs_out != nullptr));
   if (!ok) return (int)cudaErrorInvalidValue;

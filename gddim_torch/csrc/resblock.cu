@@ -71,8 +71,18 @@
 // sample (the pair's conv1: a * (127/amax_b)), as the TPU kernels write
 // each; K4's conv1 quantizes h in a pre-pass too, K9's with a static scale
 // in its gn_apply_kernel launch (x_q8). The GEMM dequantizes its int32 sums
-// by (w_scale * s). The skip runs bf16 (the TPU kernels' dynamic-skip form;
-// the model never passes a static skip scale).
+// by (w_scale * s). The 1x1 skip runs bf16 (the TPU kernels' dynamic-skip
+// form; the model never passes a static skip scale), or, with act_scales
+// [s1, s2, sx] (the ops API fed by calibration's "x" amaxes; StaticSkip in
+// conv.cuh), as the TPU kernels' static skip (resblock.py:283-290, 408-415,
+// 830-833, 957, 1404): two launches first, the int8 pre-pass writing
+// q(x) = clip(rint(x * (1/sx))) of the skip input as stored (K3: both
+// halves; K9's gn_apply_kernel writes q(xr) itself), then its 1x1 on the
+// int8 block GEMM (taps 1, K unsplit) into an f32 buffer,
+// f32(int32 sum) * (w_skip_scale * sx) + b_skip; conv2 runs without skip
+// slices and adds that buffer as an f32 residual under its bf16 out
+// (block_gemm.cu's RF32), before the 1/sqrt(2). Folding the skip into
+// conv2's GEMM as a second int32 accumulator set is later work.
 //
 // f32 activations (K2-K4 on f32 x, which write f32 as the TPU kernels write
 // x's dtype: gddim_resblock with act_f32), the bf16 mode's runner and
@@ -505,10 +515,11 @@ int gn2_prepass_run(bool int8, const float* h1, const GnFold& f, int batch, int 
 // Scratch of one block on the block GEMM (null base: sizes only); act_bytes
 // the pre-pass's output type, 1 (int8) or 2 (bf16); parts: conv1's tiles
 // along H (GN2's partial rows a sample); xs: the skip's channels on f32
-// activations (their bf16 copy), else 0. Of
+// activations (their bf16 copy), else 0; sx: the skip's channels with the
+// int8 static skip (its int8 input and f32 product), else 0. Of
 //   8 B Cin + 4 M N + 8 B N + 8 B parts N + 8 B + act_bytes M max(Cin, N)
-//   + 2 M xs (+ 4 splits M N when a conv splits K) bytes, each buffer on 256
-//   bytes.
+//   + 2 M xs + (M sx + 4 M N when sx) (+ 4 splits M N when a conv splits K)
+//   bytes, each buffer on 256 bytes.
 struct WorkGemm {
   float* sc1;      // (B, Cin) GN1 affine
   float* sh1;
@@ -519,12 +530,15 @@ struct WorkGemm {
   float* amax;     // (2, B) int8 dynamic mode: per-sample amax of a1, a2
   void* a;         // (M, max(Cin, N)) the pre-pass's conv input, conv1's then conv2's
   void* xs;        // (M, xs) bf16 skip input (f32 activations), or null
+  int8_t* xq;      // (M, sx) the static skip's int8 input, or null
+  float* skip;     // (M, N) the static skip's product + b_skip, f32, or null
   float* partial;  // (splits, M, N) split-K partial sums
+  size_t xq_off, skip_off;  // the byte offsets of xq and skip
   size_t bytes;
 };
 
 WorkGemm carve_gemm(char* base, int batch, long m, int cin, int n, int splits, int parts,
-                    size_t act_bytes, int xs) {
+                    size_t act_bytes, int xs, int sx = 0) {
   WorkGemm w;
   size_t off = 0;
   auto take = [&](size_t bytes) {
@@ -541,6 +555,10 @@ WorkGemm carve_gemm(char* base, int batch, long m, int cin, int n, int splits, i
   w.amax = (float*)take(sizeof(float) * 2 * batch);
   w.a = take(act_bytes * m * (cin > n ? cin : n));
   w.xs = xs ? take(2 * m * xs) : nullptr;
+  w.xq_off = off;
+  w.xq = sx ? (int8_t*)take(m * sx) : nullptr;
+  w.skip_off = off;
+  w.skip = sx ? (float*)take(sizeof(float) * m * n) : nullptr;
   w.partial = splits > 1 ? (float*)take(sizeof(float) * splits * m * n) : nullptr;
   w.bytes = off;
   return w;
@@ -643,7 +661,7 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
                       const void* act_scales, int batch, int h, int w_, int n, float eps,
                       float out_scale, void* work, const GemmTiles& tiles, int splits1, int kper1,
                       int splits2, int kper2, bool train, const int8_t* mask, float inv_keep,
-                      void* out, cudaStream_t st) {
+                      void* out, cudaStream_t st, const StaticSkip& sk) {
   const int hw = h * w_;
   const int cin = c0 + c1;
   const bool gn1 = groups1 > 0;
@@ -658,12 +676,47 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
       (gn_ctas && (!gn1 || x_f32)) || (train && !f32_act) ||
       (f32_act && gn1 && s0 != nullptr && (s0 != x0 || s1 != x1 || cs0 != c0 || cs1 != c1)))
     return (int)cudaErrorInvalidValue;
+  const bool static_skip = sk.wss != nullptr;
+  if (static_skip && (!int8 || act_scales == nullptr || s0 == nullptr || (sk.q8 && s1 != nullptr)))
+    return (int)cudaErrorInvalidValue;
   const WorkGemm wk = carve_gemm((char*)work, batch, (long)batch * hw, cin, n,
                                  splits1 > splits2 ? splits1 : splits2, tiles.tiles_h,
-                                 int8 ? 1 : 2, f32_act && s0 ? cs0 + cs1 : 0);
+                                 int8 ? 1 : 2, f32_act && s0 ? cs0 + cs1 : 0,
+                                 static_skip ? cs0 + cs1 : 0);
   const float* qs = (const float*)act_scales;
   const float* am1 = amax1 ? amax1 : wk.amax;
   int err = 0;
+  if (static_skip) {
+    // skip = f32(int32 sum of q(x) by the int8 skip weights) * (wss * sx) + b_skip,
+    // q(x) = clip(rint(x * (1/sx))) of the skip input as stored (K9: quantized already)
+    const void* xq = s0;
+    if (!sk.q8) {
+      const Int8Args q = {qs + 2, nullptr, 0};
+      err = prepass_launch(s0, s1, cs0, cs1, false, batch, hw, nullptr, nullptr, 0, &q, wk.xq,
+                           st);
+      xq = wk.xq;
+    }
+    BlockGemm gs = {};
+    gs.int8 = true;
+    gs.a = xq;
+    gs.w = ws;
+    gs.cin = cs0 + cs1;
+    gs.taps = 1;
+    gs.B = batch;
+    gs.H = h;
+    gs.W = w_;
+    gs.N = n;
+    gs.wsc = sk.wss;
+    gs.qs = qs + 2;
+    gs.bias = (const float*)bs;
+    gs.out_scale = 1.0f;
+    gs.out = wk.skip;
+    gs.out_f32 = true;
+    gs.splits = 1;  // K unsplit: the int32 sums converted once, as the TPU kernels'
+    gs.kper = (cs0 + cs1) / 128;
+    if (!err) err = block_gemm_launch(gs, sk.tiles, st);
+    if (!err) count_launch(COUNT_STATIC_SKIP);
+  }
   // conv1's operand: x0 as it is (bf16 without GN1: K4's and K9's h; K9's
   // q(h) with x_q8), else a1 = silu(GN1(x)) in bf16 (f32 x without GN1:
   // bf16(h)), or q(a1) (the pair's a * (127 / amax)), made once into the
@@ -754,18 +807,20 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
     g.a = wk.a;
     g.w = w2;
     g.cin = n;
-    g.s0 = f32_act ? wk.xs : s0;  // f32 activations: one bf16 copy of the parts
-    g.s1 = f32_act ? nullptr : s1;
+    g.s0 = static_skip ? nullptr : f32_act ? wk.xs : s0;  // f32 activations: one bf16 copy
+    g.s1 = static_skip || f32_act ? nullptr : s1;
     g.cs0 = f32_act ? cs0 + cs1 : cs0;
     g.cs1 = f32_act ? 0 : cs1;
-    g.ws = ws;
+    g.ws = static_skip ? nullptr : ws;
     g.wsc = (const float*)w2s;
     g.qs = qs ? qs + 1 : nullptr;
     g.amax = wk.amax + batch;
     g.bias = (const float*)b2;
-    g.bias2 = (const float*)bs;
+    g.bias2 = static_skip ? nullptr : (const float*)bs;
     g.temb = nullptr;
-    g.resid = s0 ? nullptr : x0;  // of out's type
+    // the static skip's f32 product, or the identity residual of out's type
+    g.resid = static_skip ? wk.skip : s0 ? nullptr : x0;
+    g.resid_f32 = static_skip;
     g.out_scale = out_scale;
     g.out = out;
     g.out_f32 = out_f32;
@@ -779,10 +834,27 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
 
 extern "C" {
 
+// sx: the skip's channels with the static skip (ws int8), else 0
 long long gddim_resblock_int8_workspace(int batch, int h, int w, int cin, int n, int splits,
-                                        int parts) {
-  return (long long)carve_gemm(nullptr, batch, (long)batch * h * w, cin, n, splits, parts, 1, 0)
+                                        int parts, int sx) {
+  return (long long)carve_gemm(nullptr, batch, (long)batch * h * w, cin, n, splits, parts, 1, 0,
+                               sx)
       .bytes;
+}
+
+// The byte offsets in gddim_resblock_int8's workspace (arguments as
+// gddim_resblock_int8_workspace, sx > 0) of the static skip's int8 input
+// q(x) (M, sx) and of its f32 product + b_skip (M, N): offs[0], offs[1].
+// Both hold their values after the launch (conv2 reads the product as its
+// residual), so that a caller may check them.
+int gddim_resblock_int8_skip_offsets(int batch, int h, int w, int cin, int n, int splits,
+                                     int parts, int sx, long long* offs) {
+  if (sx <= 0) return (int)cudaErrorInvalidValue;
+  const WorkGemm wk =
+      carve_gemm(nullptr, batch, (long)batch * h * w, cin, n, splits, parts, 1, 0, sx);
+  offs[0] = (long long)wk.xq_off;
+  offs[1] = (long long)wk.skip_off;
+  return 0;
 }
 
 // The int8 mode of K2 / K3 / K4 (arguments as gddim_resblock, with the
@@ -790,24 +862,34 @@ long long gddim_resblock_int8_workspace(int batch, int h, int w, int cin, int n,
 // makes them, and their per-output-channel scales w1s/w2s). act_scales: the
 // static scales [s1, s2] (a device array), or null for per-sample scales;
 // x1 non-null (the pair) quantizes conv1's input as a * (127 / amax). The
-// skip (ws, bs) is bf16. The tile plan (ops/resblock.py:s8_tile_plan): the
-// M tiling (mw, box_h, box_b, tiles_h, m_tiles), shared by both convs, and
-// each conv's split of K.
+// skip (ws, bs) is bf16, or with wss non-null the static skip (StaticSkip):
+// act_scales [s1, s2, sx], ws int8 K-major (N, cs0 + cs1), wss its (N,)
+// scales, skip_plan the host address of its GEMM's M tiling (mw, box_h,
+// box_b, tiles_h, m_tiles). The tile plan (ops/resblock.py:s8_tile_plan):
+// the convs' M tiling (mw, box_h, box_b, tiles_h, m_tiles), shared by both,
+// and each conv's split of K. Scratch: gddim_resblock_int8_workspace bytes
+// (sx: cs0 + cs1 with the static skip).
 int gddim_resblock_int8(const void* x0, const void* x1, int c0, int c1, const void* temb_row,
                         int temb_ld, const void* gn1_g, const void* gn1_b, int groups1,
                         const void* w1q, const void* w1s, const void* b1, const void* gn2_g,
                         const void* gn2_b, int groups2, const void* w2q, const void* w2s,
                         const void* b2, const void* s0, const void* s1, int cs0, int cs1,
-                        const void* ws, const void* bs, const void* act_scales, int batch, int h,
-                        int w_, int n, float eps, float out_scale, void* work, int mw, int box_h,
-                        int box_b, int tiles_h, int m_tiles, int splits1, int kper1, int splits2,
-                        int kper2, int gn_ctas, void* out, void* stream) {
+                        const void* ws, const void* bs, const void* wss, const int* skip_plan,
+                        const void* act_scales, int batch, int h, int w_, int n, float eps,
+                        float out_scale, void* work, int mw, int box_h, int box_b, int tiles_h,
+                        int m_tiles, int splits1, int kper1, int splits2, int kper2, int gn_ctas,
+                        void* out, void* stream) {
+  if ((wss != nullptr) != (skip_plan != nullptr)) return (int)cudaErrorInvalidValue;
+  StaticSkip sk = {};
+  if (wss != nullptr)
+    sk = {(const float*)wss, false,
+          GemmTiles{skip_plan[0], skip_plan[1], skip_plan[2], skip_plan[3], skip_plan[4]}};
   return resblock_gemm_run(true, x0, x1, c0, c1, false, false, false, gn_ctas, nullptr,
                            temb_row, temb_ld, gn1_g, gn1_b, groups1, w1q, w1s, b1, gn2_g, gn2_b,
                            groups2, w2q, w2s, b2, s0, s1, cs0, cs1, ws, bs, act_scales, batch, h,
                            w_, n, eps, out_scale, work,
                            GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1,
-                           splits2, kper2, false, nullptr, 1.0f, out, (cudaStream_t)stream);
+                           splits2, kper2, false, nullptr, 1.0f, out, (cudaStream_t)stream, sk);
 }
 
 // The int8 block's quantize pre-pass alone: out (B, H, W, ca+cb) int8 from

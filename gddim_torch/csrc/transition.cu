@@ -10,6 +10,11 @@
 //   h1   = conv3x3(q(h), W1) + b1 + temb   q: bf16, or int8 (per sample / static)
 //   out  = (conv3x3(q(silu(GN2(h1))), W2) + b2 + xr @ Wskip + bskip) / sqrt(2)
 //
+// xr @ Wskip in bf16, or (int8 with a static skip scale sx) as the int8
+// product of q(xr) = clip(rint(xr * (1/sx))), xr quantized from its f32
+// sums before any rounding (resblock.py:1490: sx was calibrated after the
+// resample), written int8 by the first launch in xr's place.
+//
 // out-of-border taps of the resample are zero AFTER the activation (the TPU
 // kernel fills a zero-bordered scratch with the activation, rounded to the
 // scratch dtype, bf16, and resamples that). Each C call runs:
@@ -35,7 +40,8 @@
 //                                    the int8 mode, which quantizes it
 //                                    unrounded, with the per-sample amax by
 //                                    atomicMax on the float bits) and xr
-//                                    (the raw x resampled, rounded to bf16),
+//                                    (the raw x resampled, rounded to bf16,
+//                                    or int8 by sx),
 //                                    both bf16 on f32 x too: the TPU kernel
 //                                    rounds h to its bf16 conv scratch and
 //                                    xr to bf16 before the skip's product
@@ -70,7 +76,9 @@
 extern "C" long long gddim_resblock_workspace(int batch, int h, int w, int cin, int n,
                                               int splits, int parts, int xs);
 extern "C" long long gddim_resblock_int8_workspace(int batch, int h, int w, int cin, int n,
-                                                   int splits, int parts);
+                                                   int splits, int parts, int sx);
+extern "C" int gddim_resblock_int8_skip_offsets(int batch, int h, int w, int cin, int n,
+                                                int splits, int parts, int sx, long long* offs);
 namespace {
 
 constexpr int RS_THREADS = 256;
@@ -99,7 +107,8 @@ __device__ __forceinline__ void store8(float* d, const float f[8]) {
 }
 
 // grid (ceil(Ho*Wo*C/8 / RS_THREADS), B), RS_THREADS threads: one thread per
-// output pixel and 8 consecutive channels. TX: x's type; TH: h's; xr bf16.
+// output pixel and 8 consecutive channels. TX: x's type; TH: h's; xr bf16,
+// or int8 by the static skip scale *qsx when qsx is non-null.
 // round_h: h rounded to bf16 (the bf16 mode, whose conv reads h as bf16);
 // else (int8 mode) h stays f32 and, when amax is non-null, its per-sample
 // amax is folded into amax[b] (zeroed before the launch).
@@ -107,8 +116,8 @@ template <typename TX, typename TH>
 __global__ void __launch_bounds__(RS_THREADS)
 transition_resample_kernel(const TX* __restrict__ x, const float* __restrict__ scale,
                            const float* __restrict__ shift, int hin, int win, int c, int up,
-                           Taps k, int round_h, TH* __restrict__ h_out, bf16* __restrict__ x_out,
-                           float* __restrict__ amax) {
+                           Taps k, int round_h, TH* __restrict__ h_out, void* __restrict__ x_out,
+                           float* __restrict__ amax, const float* __restrict__ qsx) {
   __shared__ float red[RS_THREADS / 32];
   const int b = blockIdx.y;
   const int ho = up ? 2 * hin : hin / 2, wo = up ? 2 * win : win / 2;
@@ -156,12 +165,22 @@ transition_resample_kernel(const TX* __restrict__ x, const float* __restrict__ s
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       if (round_h) acc_h[j] = round_bf16(acc_h[j]);
-      acc_x[j] = round_bf16(acc_x[j]);
       mx = fmaxf(mx, fabsf(acc_h[j]));
     }
     const long o = (((long)b * ho + yo) * wo + xo) * c + c0;
     store8(h_out + o, acc_h);
-    store8(x_out + o, acc_x);
+    if (qsx != nullptr) {
+      const float inv = 1.0f / *qsx;
+      uint2 qv;
+      int8_t* e8 = reinterpret_cast<int8_t*>(&qv);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e8[j] = quant8(acc_x[j] * inv);
+      *reinterpret_cast<uint2*>((int8_t*)x_out + o) = qv;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc_x[j] = round_bf16(acc_x[j]);
+      store8((bf16*)x_out + o, acc_x);
+    }
   }
   if (amax == nullptr) return;  // uniform over the grid
   for (int s = 16; s > 0; s >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, s));
@@ -178,23 +197,24 @@ transition_resample_kernel(const TX* __restrict__ x, const float* __restrict__ s
 template <typename TX, typename TH>
 int resample_launch(const void* x, const float* sc, const float* sh, int batch, int hin, int win,
                     int c, int up, const Taps& k, int round_h, void* h_out, void* x_out,
-                    float* amax, cudaStream_t st) {
+                    float* amax, const float* qsx, cudaStream_t st) {
   const long ho = up ? 2L * hin : hin / 2, wo = up ? 2L * win : win / 2;
   const long vecs = ho * wo * (c / 8);
   const dim3 grid((unsigned)((vecs + RS_THREADS - 1) / RS_THREADS), batch);
   transition_resample_kernel<TX, TH><<<grid, RS_THREADS, 0, st>>>(
-      (const TX*)x, sc, sh, hin, win, c, up, k, round_h, (TH*)h_out, (bf16*)x_out, amax);
+      (const TX*)x, sc, sh, hin, win, c, up, k, round_h, (TH*)h_out, x_out, amax, qsx);
   return (int)cudaGetLastError();
 }
 
 // Scratch of one call before the block's own (null base: sizes only).
 struct Work {
   void* h;     // (B, Ho, Wo, C) resampled activation
-  void* xr;    // (B, Ho, Wo, C) resampled x
+  void* xr;    // (B, Ho, Wo, C) resampled x, bf16 (int8 with the static skip)
   float* sc1;  // (B, C) GN1 affine
   float* sh1;
   float* amax;  // (B,) int8 per-sample mode: amax of h
   char* rest;   // the K4 path's workspace
+  size_t xr_off;  // the byte offset of xr
   size_t bytes;
 };
 
@@ -208,6 +228,7 @@ Work carve(char* base, int batch, int ho, int wo, int c, size_t h_bytes, size_t 
   };
   const size_t m = (size_t)batch * ho * wo * c;
   w.h = take(h_bytes * m);
+  w.xr_off = off;
   w.xr = take(x_bytes * m);
   w.sc1 = (float*)take(sizeof(float) * batch * c);
   w.sh1 = (float*)take(sizeof(float) * batch * c);
@@ -222,11 +243,13 @@ int out_size(int n, int up) { return up ? 2 * n : n / 2; }
 // GN1 of x and the resample into h and xr, the first launch of every mode:
 // gn_apply_kernel's resample variant on gn_ctas CTAs a sample (bf16 x; h
 // bf16 (out_type 0), f32 with its per-sample amax into amax when non-null
-// (1), or int8 by the static scale *qs (2)).
+// (1), or int8 by the static scale *qs (2); xr int8 by *qsx when qsx is
+// non-null).
 int gn1_resample_fused(const void* x, int c, const void* gn1_g, const void* gn1_b, int groups1,
                        int batch, int h_in, int w_in, int up, const Taps& k, float eps,
                        int out_type, const float* qs, const Work& wk, float* amax, int gn_ctas,
-                       cudaStream_t st, float* scale = nullptr, float* shift = nullptr) {
+                       cudaStream_t st, float* scale = nullptr, float* shift = nullptr,
+                       const float* qsx = nullptr) {
   GnApply a = {};
   a.xa = x;
   a.ca = c;
@@ -245,6 +268,7 @@ int gn1_resample_fused(const void* x, int c, const void* gn1_g, const void* gn1_
   a.k = k;
   a.out = wk.h;
   a.xr = wk.xr;
+  a.qsx = qsx;
   a.amax_out = amax;
   a.scale = scale;
   a.shift = shift;
@@ -257,14 +281,14 @@ int gn1_resample_fused(const void* x, int c, const void* gn1_g, const void* gn1_
 template <typename TX, typename TH>
 int gn1_resample(const void* x, int c, const void* gn1_g, const void* gn1_b, int groups1,
                  int batch, int h_in, int w_in, int up, const Taps& k, float eps, int round_h,
-                 const Work& wk, float* amax, cudaStream_t st) {
+                 const Work& wk, float* amax, cudaStream_t st, const float* qsx = nullptr) {
   int err = gn_stats_launch(x, nullptr, c, 0, batch, h_in * w_in, groups1, (const float*)gn1_g,
                             (const float*)gn1_b, eps, wk.sc1, wk.sh1, nullptr, nullptr,
                             std::is_same<TX, float>::value, st);
   if (!err && amax) err = (int)cudaMemsetAsync(amax, 0, sizeof(float) * batch, st);
   if (!err)
     err = resample_launch<TX, TH>(x, wk.sc1, wk.sh1, batch, h_in, w_in, c, up, k, round_h, wk.h,
-                                  wk.xr, amax, st);
+                                  wk.xr, amax, qsx, st);
   return err;
 }
 
@@ -354,16 +378,35 @@ int gddim_resblock_transition(const void* x, int c, int act_f32, const void* tem
                            kper2, false, nullptr, 1.0f, out, st);
 }
 
+// sx: c with the static skip, else 0
 long long gddim_resblock_transition_int8_workspace(int batch, int h, int w, int c, int n,
-                                                   int splits, int parts) {
+                                                   int splits, int parts, int sx) {
   return (long long)(carve(nullptr, batch, h, w, c, sizeof(float), sizeof(bf16)).bytes +
-                     gddim_resblock_int8_workspace(batch, h, w, c, n, splits, parts));
+                     gddim_resblock_int8_workspace(batch, h, w, c, n, splits, parts, sx));
+}
+
+// The byte offsets in gddim_resblock_transition_int8's workspace
+// (arguments as gddim_resblock_transition_int8_workspace with sx = c) of the
+// static skip's int8 input q(xr) (M, C) and of its f32 product + b_skip
+// (M, N): offs[0], offs[1], as gddim_resblock_int8_skip_offsets.
+int gddim_resblock_transition_int8_skip_offsets(int batch, int h, int w, int c, int n,
+                                                int splits, int parts, long long* offs) {
+  const Work wk = carve(nullptr, batch, h, w, c, sizeof(float), sizeof(bf16));
+  long long inner[2];
+  const int err = gddim_resblock_int8_skip_offsets(batch, h, w, c, n, splits, parts, c, inner);
+  if (err) return err;
+  offs[0] = (long long)wk.xr_off;
+  offs[1] = (long long)wk.bytes + inner[1];
+  return 0;
 }
 
 // K9, int8 mode: x bf16; conv weights int8 K-major (N, 9 * Cin) with
 // per-output-channel scales; act_scales the static [s1, s2] (a device array),
 // or null for per-sample scales. h stays f32 (quantized unrounded by the
-// int8 block's pre-pass); the skip runs bf16 on xr. The tile plan as
+// int8 block's pre-pass); the skip runs bf16 on xr, or with wss non-null
+// the static skip (conv.cuh's StaticSkip): act_scales [s1, s2, sx], ws int8
+// K-major (N, C), wss its scales, skip_plan the host address of its GEMM's M
+// tiling, xr written int8 by the first launch. The tile plan as
 // gddim_resblock_int8 takes it, at the output resolution. Scratch:
 // gddim_resblock_transition_int8_workspace bytes.
 int gddim_resblock_transition_int8(const void* x, int c, const void* temb_row, int temb_ld,
@@ -371,35 +414,44 @@ int gddim_resblock_transition_int8(const void* x, int c, const void* temb_row, i
                                    const void* w1q, const void* w1s, const void* b1,
                                    const void* gn2_g, const void* gn2_b, int groups2,
                                    const void* w2q, const void* w2s, const void* b2,
-                                   const void* ws, const void* bs, const void* act_scales,
+                                   const void* ws, const void* bs, const void* wss,
+                                   const int* skip_plan, const void* act_scales,
                                    int batch, int h_in, int w_in, int up,
                                    float kh0, float kh1, float kh2, float kh3, float kw0,
                                    float kw1, float kw2, float kw3, int n, float eps,
                                    float out_scale, void* work, int mw, int box_h, int box_b,
                                    int tiles_h, int m_tiles, int splits1, int kper1, int splits2,
                                    int kper2, int gn_ctas, void* out, void* stream) {
-  if (c % 8 || h_in % 2 || w_in % 2) return (int)cudaErrorInvalidValue;
+  if (c % 8 || h_in % 2 || w_in % 2 || (wss != nullptr) != (skip_plan != nullptr) ||
+      (wss != nullptr && act_scales == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int ho = out_size(h_in, up), wo = out_size(w_in, up);
   const Work wk = carve((char*)work, batch, ho, wo, c, sizeof(float), sizeof(bf16));
   const Taps k = {{kh0, kh1, kh2, kh3}, {kw0, kw1, kw2, kw3}};
   const float* qs = (const float*)act_scales;
   const bool dynamic = qs == nullptr;
+  const float* qsx = wss != nullptr ? qs + 2 : nullptr;
+  StaticSkip sk = {};
+  if (wss != nullptr)
+    sk = {(const float*)wss, true,
+          GemmTiles{skip_plan[0], skip_plan[1], skip_plan[2], skip_plan[3], skip_plan[4]}};
   // the one-launch route writes q(h) itself with a static scale: conv1 then
   // needs no pre-pass; else h f32 (and its per-sample amax) for the pre-pass
   const bool q8 = gn_ctas && !dynamic;
   const int err =
       gn_ctas ? gn1_resample_fused(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up, k, eps,
-                                   q8 ? 2 : 1, qs, wk, dynamic ? wk.amax : nullptr, gn_ctas, st)
+                                   q8 ? 2 : 1, qs, wk, dynamic ? wk.amax : nullptr, gn_ctas, st,
+                                   nullptr, nullptr, qsx)
               : gn1_resample<bf16, float>(x, c, gn1_g, gn1_b, groups1, batch, h_in, w_in, up, k,
-                                          eps, 0, wk, dynamic ? wk.amax : nullptr, st);
+                                          eps, 0, wk, dynamic ? wk.amax : nullptr, st, qsx);
   if (err) return err;
   return resblock_gemm_run(true, wk.h, nullptr, c, 0, !q8, false, q8, 0,
                            dynamic ? wk.amax : nullptr, temb_row, temb_ld, nullptr, nullptr, 0,
                            w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, wk.xr, nullptr, c, 0,
                            ws, bs, act_scales, batch, ho, wo, n, eps, out_scale, wk.rest,
                            GemmTiles{mw, box_h, box_b, tiles_h, m_tiles}, splits1, kper1, splits2,
-                           kper2, false, nullptr, 1.0f, out, st);
+                           kper2, false, nullptr, 1.0f, out, st, sk);
 }
 
 }  // extern "C"

@@ -85,7 +85,7 @@ from gddim_torch.models.layers import (
 )
 from gddim_torch.ops import attnblock as attn_ops
 from gddim_torch.ops import resblock as rb
-from gddim_torch.ops.attention import self_attention_2d
+from gddim_torch.ops.attention import resolve_impl, self_attention_2d
 from gddim_torch.ops.conv3x3 import conv3x3_vjp
 from gddim_torch.parallel.draws import draw_rows
 
@@ -531,11 +531,14 @@ class AttnBlockpp(nn.Module):
         ``qscales`` amaxes. layer (with fused): the layer-wise path, K1, the
         NIN projections and K8, as in training. fused_attn (with train and
         fused): K10 where the kernels take the shape. With fused, K5 runs
-        where ``attn_ops.supported`` takes the block, the plain composition
-        elsewhere. sow: calibration (the plain composition).
-        attention_impl (``model.attention_impl``): the attention core
-        wherever the block runs its layers, not K5 or K10 (``self_attention_2d``:
-        'auto' is K8 on the kernel paths, the plain version on the plain one)."""
+        where ``attn_ops.supported`` takes the block, the composition
+        elsewhere, its attention core K8 where K8 takes the shape (as the JAX
+        block's fallback takes its kernel, gddim_tpu/models/blocks.py:141:
+        S = 4096 at 64x64 runs K8's online-softmax kernel). sow: calibration
+        (the plain composition). attention_impl (``model.attention_impl``):
+        the attention core wherever the block runs its layers, not K5 or K10
+        (``self_attention_2d``: 'auto' is K8 on the kernel paths where it
+        takes the shape, the plain version on the plain one)."""
         kw = dict(num_groups=num_groups_for(x.shape[-1]), eps=self.norm.eps,
                   skip_rescale=self.skip_rescale)
         if train and fused and fused_attn and attn_ops.supported(x.shape):
@@ -559,8 +562,9 @@ class AttnBlockpp(nn.Module):
                                                    self._weights(), **kw)
         if not fused and sow is not None:
             kw["sow"] = sow
-        if not kernel:
-            kw["attention_impl"] = attention_impl
+        if not kernel:  # the composition, its attention core K8 where it takes it
+            kw["attention_impl"] = resolve_impl(attention_impl, fused, x.shape[1] * x.shape[2],
+                                                x.shape[3])
         op = attn_ops.fused_attnblock if kernel else attn_ops.attnblock_reference
         return op(x, self.norm.weight, self.norm.bias,
                   self.q.weight, self.q.bias, self.k.weight, self.k.bias,

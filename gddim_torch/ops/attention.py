@@ -4,15 +4,21 @@ Counterpart of ``gddim_tpu/ops/attention.py`` and ``gddim_tpu/ops/flash.py``:
 
 - ``attention_xla``: the plain version, softmax(q k^T / sqrt(C)) v with f32
   logits and softmax (``attention.py:21``);
-- ``flash_attention``: K8 (``flash.py:97``), the hand-written kernel
-  ``csrc/flash.cu`` on the tensor cores (its header says what bounds it on
-  the H100), in the input's dtype: f32 (3xTF32) or bf16 (bf16 products, f32
-  sums and softmax, the normalised weights rounded to bf16 before w v, the
-  plain version's rounding points). One kernel covers the JAX package's
-  whole-sequence and k-blocked branches, and every S that is a multiple of
-  16 up to the length whose row of scores fits shared memory
-  (``flash_plan``), so the 4x4 mid-block attention (S = 16), which the JAX
-  package sends to XLA for the TPU's 128-lane gate, runs it too;
+- ``flash_attention``: K8 (``flash.py:97``), hand-written kernels on the
+  tensor cores (each header says what bounds it on the H100), in the input's
+  dtype: f32 (3xTF32) or bf16, S a multiple of 16, C in {64, 128, 256}, as
+  the JAX wrapper branches (``flash_plan``): S <= 1024 the whole-sequence
+  kernels of ``csrc/flash.cu`` (a query's row of scores on chip; the
+  normalised weights rounded to bf16 before w v, the plain version's
+  rounding points), so the 4x4 mid-block attention (S = 16), which the JAX
+  package sends to XLA for the TPU's 128-lane gate, runs them too; S > 1024
+  the k-blocked online-softmax kernel of ``csrc/flash_online.cu`` with the
+  TPU blocked branch's rounding points (``flash_attention_blocked_reference``),
+  for any length;
+- ``flash_attention_blocked_reference``: the plain version of the blocked
+  branch (``flash.py:50-95``): the running max, sum and accumulator over
+  512-key blocks, the unnormalised weights rounded to v's dtype, one
+  division at the end;
 - ``attention_pallas``: K8 forward with the gradient of the plain version
   recomputed from (q, k, v), as the JAX ``custom_vjp`` (``attention.py:35-54``);
 - ``attention_einsum5d``: the reference-shaped attention
@@ -22,8 +28,9 @@ Counterpart of ``gddim_tpu/ops/attention.py`` and ``gddim_tpu/ops/flash.py``:
 - ``self_attention_2d``: the (B, H, W, C) entry the attention block calls,
   by ``impl`` (``ATTENTION_IMPLS``, the JAX values).
 
-On a CPU tensor ``flash_attention`` runs the plain version; on a CUDA tensor
-it launches the kernel or raises.
+On a CPU tensor ``flash_attention`` runs the plain version ``attention_xla``
+(what the JAX package runs off the TPU); on a CUDA tensor it launches a
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ import torch
 
 from gddim_torch import _build
 from gddim_torch.configs import ATTENTION_IMPLS
-from gddim_torch.ops.resblock import _operand, require_no_grad
+from gddim_torch.ops.resblock import _on_cpu, _operand, require_no_grad
 
 
 def attention_xla(q, k, v):
@@ -69,13 +76,35 @@ def flash_smem(bf16: bool, s: int, c: int, qt: int) -> int:
     return qt * ldt * size + 2 * kt * ldt * size + qt * (s + 4) * 4 + 2 * qt * 4
 
 
+ONLINE_MIN_S = 1024  # longer sequences take the online-softmax kernel (the JAX branch point)
+ONLINE_QT = 64  # its query tile (csrc/flash_online.cu)
+BLOCK_K = 512  # its statistics block, the TPU kernel's block_k
+
+
+def flash_online(s: int) -> bool:
+    """Whether K8 runs the k-blocked online-softmax kernel at length S (S >
+    1024, as ``flash.py:97`` branches) rather than a whole-row one."""
+    return s > ONLINE_MIN_S
+
+
+def flash_supported(s: int, c: int) -> bool:
+    """Whether K8 takes a sequence of S tokens of C channels on the card (S a
+    multiple of 16, C in {64, 128, 256}): the port's counterpart of the JAX
+    package's ``_pallas_supported`` (``attention.py:57-62``), which 'auto'
+    consults."""
+    return s >= 16 and s % 16 == 0 and c in (64, 128, 256)
+
+
 def flash_plan(b: int, s: int, c: int, bf16: bool) -> int:
-    """K8's query tile: 64 where the row stays in registers; else the
-    largest of 64, 32, 16 that divides S and whose CTA fits shared memory,
-    halved while the grid leaves SMs idle. Raises for shapes the kernel
-    does not take."""
-    if s % 16 or c not in (64, 128, 256):
+    """K8's query tile: for S > 1024 the online-softmax kernel's 64; else 64
+    where the row stays in registers, or the largest of 64, 32, 16 that
+    divides S and whose CTA fits shared memory, halved while the grid leaves
+    SMs idle. Raises for shapes neither kernel takes (S not a multiple of
+    16, C outside {64, 128, 256})."""
+    if not flash_supported(s, c):
         raise ValueError(f"flash_attention: unsupported shape {(b, s, c)}")
+    if flash_online(s):
+        return ONLINE_QT
     if flash_in_registers(bf16, s):
         return 64
     tiles = [qt for qt in (64, 32, 16) if s % qt == 0 and flash_smem(bf16, s, c, qt) <= SMEM_MAX]
@@ -87,13 +116,38 @@ def flash_plan(b: int, s: int, c: int, bf16: bool) -> int:
     return qt
 
 
+def flash_attention_blocked_reference(q, k, v, block_k: int = BLOCK_K):
+    """Plain version of the TPU kernel's blocked branch (``flash.py:50-95``)
+    on (B, S, C): s = (q . k) * C^-0.5 in f32; per block of ``block_k`` keys
+    (the last one may be shorter), m_new = max(m, rowmax(s)), alpha =
+    exp(m - m_new), p = exp(s - m_new), l = l * alpha + rowsum(p) (p
+    unrounded), acc = acc * alpha + (p rounded to v's dtype) . v in f32;
+    then acc / l rounded once to q's dtype."""
+    b, s, c = q.shape
+    qf = q.float()
+    m = torch.full((b, s, 1), float("-inf"), device=q.device)
+    l = torch.zeros((b, s, 1), device=q.device)
+    acc = torch.zeros((b, s, c), device=q.device)
+    for k0 in range(0, s, block_k):
+        kb, vb = k[:, k0:k0 + block_k], v[:, k0:k0 + block_k]
+        logits = torch.einsum("bsc,btc->bst", qf, kb.float()) * c ** (-0.5)
+        m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bst,btc->bsc", p.to(v.dtype).float(), vb.float())
+        m = m_new
+    return (acc / l).to(q.dtype)
+
+
 def flash_attention(q, k, v):
     """K8: (B, S, C) attention in q's dtype (f32 or bf16 on the card); S a
-    multiple of 16, C in {64, 128, 256}."""
-    if q.device.type == "cpu":
+    multiple of 16, C in {64, 128, 256}: the whole-row kernels up to S =
+    1024 (counted in ``flash_attention.launches``), the online-softmax
+    kernel above (counted in C: ``ops/resblock.py:block_launches``'s
+    flash_online_kernel)."""
+    if _on_cpu(q, "flash_attention"):
         return attention_xla(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
     require_no_grad("flash_attention", q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention: the kernel takes f32 or bf16, got {q.dtype}")
@@ -102,13 +156,17 @@ def flash_attention(q, k, v):
     qt = flash_plan(b, s, c, bf16)
     ops = [_operand(t, name, q.dtype, (b, s, c)) for t, name in ((q, "q"), (k, "k"), (v, "v"))]
     out = torch.empty((b, s, c), device=q.device, dtype=q.dtype)
+    if flash_online(s):
+        _build.launch("gddim_flash_online", q.device, *map(_build.ptr, ops), out.data_ptr(),
+                      b, s, c, int(bf16), c ** -0.5)
+        return out
     _build.launch("gddim_flash_attention", q.device, *map(_build.ptr, ops), out.data_ptr(),
                   b, s, c, qt, int(bf16), c ** -0.5)
     flash_attention.launches += 1
     return out
 
 
-flash_attention.launches = 0  # kernel launches on CUDA tensors
+flash_attention.launches = 0  # whole-row kernel launches on CUDA tensors
 
 
 class _AttentionPallas(torch.autograd.Function):
@@ -142,18 +200,28 @@ def attention_einsum5d(q, k, v):
     return torch.einsum("bhwHW,bHWc->bhwc", weights, v)
 
 
+def resolve_impl(impl: str, fused: bool, s: int, c: int) -> str:
+    """``impl`` with 'auto' resolved for S tokens of C channels: 'pallas'
+    (K8) when ``fused`` and K8 takes the shape (``flash_supported``), else
+    'xla'; any other impl as it is."""
+    if impl != "auto":
+        return impl
+    return "pallas" if fused and flash_supported(s, c) else "xla"
+
+
 def self_attention_2d(q, k, v, impl: str = "auto", fused: bool = True):
     """Attention over spatial tokens; q, k, v (B, H, W, C). impl (one of
-    ATTENTION_IMPLS): 'auto' is K8 (attention_pallas) when ``fused``, else
-    the plain version; 'xla' the plain version; 'pallas' K8;
-    'einsum5d' attention_einsum5d."""
+    ATTENTION_IMPLS): 'auto' is K8 (attention_pallas) when ``fused`` and K8
+    takes the shape (``flash_supported``), else the plain version, as the
+    JAX package's 'auto' takes its kernel where its gate does; 'xla' the
+    plain version; 'pallas' K8 (raises on the card where it does not take
+    the shape); 'einsum5d' attention_einsum5d."""
     if impl not in ATTENTION_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; one of {ATTENTION_IMPLS}")
     if impl == "einsum5d":
         return attention_einsum5d(q, k, v)
-    if impl == "auto":
-        impl = "pallas" if fused else "xla"
     b, h, w, c = q.shape
+    impl = resolve_impl(impl, fused, h * w, c)
     qf, kf, vf = (t.reshape(b, h * w, c) for t in (q, k, v))
     out = attention_pallas(qf, kf, vf) if impl == "pallas" else attention_xla(qf, kf, vf)
     return out.reshape(b, h, w, c)

@@ -59,7 +59,6 @@ from gddim_torch.ops.resblock import (
     _operand,
     activation_dtype,
     bf16_tile_plan,
-    check_act_scales,
     gn_apply_ctas,
     group_norm_tpu,
     int8_matmul_exact,
@@ -180,6 +179,13 @@ def attnblock_bf16_reference(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wo, b
     return out.reshape(x.shape).to(x.dtype)
 
 
+def check_attn_scales(act_scales) -> None:
+    """K5's act_scales: None (per sample) or the two static scales [s_h, s_a]."""
+    if act_scales is not None and act_scales.numel() != 2:
+        raise ValueError(f"K5 int8 takes 2 static activation scales (s_h, s_a), got "
+                         f"{act_scales.numel()}")
+
+
 def attnblock_int8_reference(x, gn_scale, gn_bias, wqkv, bqkv, wo, bo, act_scales=None, *,
                              num_groups: int, eps: float = 1e-6, skip_rescale: bool = False):
     """Plain version of K5's int8 mode (``_attnblock_kernel``, attnblock.py:47-163).
@@ -187,7 +193,7 @@ def attnblock_int8_reference(x, gn_scale, gn_bias, wqkv, bqkv, wo, bo, act_scale
     quantize_weight makes column by column, so it equals the three quantized
     apart; bqkv (3C,); wo: (int8 (C, C), scales); either may be packed
     K-major (``KMajorInt8``); act_scales None (per sample) or [s_h, s_a]."""
-    check_act_scales(act_scales)
+    check_attn_scales(act_scales)
     b, h, w, c = x.shape
     (wq, ws), (woq, wos) = unpack_projection(wqkv), unpack_projection(wo)
     hn = group_norm_tpu(x.float(), gn_scale, gn_bias, num_groups, eps, False,
@@ -381,7 +387,7 @@ def fused_attnblock_int8(x, gn_scale, gn_bias, wqkv, bqkv, wo, bo, act_scales=No
         return attnblock_int8_reference(x, gn_scale, gn_bias, wqkv, bqkv, wo, bo, act_scales,
                                         num_groups=num_groups, eps=eps, skip_rescale=skip_rescale)
     require_no_grad("fused_attnblock_int8", x, gn_scale, gn_bias, *wqkv, bqkv, *wo, bo)
-    check_act_scales(act_scales)
+    check_attn_scales(act_scales)
     bf16 = activation_dtype(x, "fused_attnblock_int8", int8=True)
     if not (isinstance(wqkv, KMajorInt8) and isinstance(wo, KMajorInt8)):
         raise ValueError("fused_attnblock_int8: the int8 block GEMM takes K-major int8 "

@@ -68,9 +68,14 @@ with calibrated static scales ``act_scales = [s1, s2]``
 clip(round(a / s_b)), s_b = max(max|a|, 1e-12) / 127 (the pair's a1:
 a * (127 / amax), as its TPU kernel writes it). The int32 sums are
 dequantized by (weight scale * s), h1 stays f32 between the convs, and the
-1x1 skip runs bf16 with f32 sums: the model never hands the kernels a static
-skip scale (the JAX package's ``static_skip`` opt-in), and these wrappers
-refuse one. On the card each conv is a quantize pre-pass
+1x1 skip runs bf16 with f32 sums, as the model runs it. A third static
+scale, ``act_scales = [s1, s2, sx]`` (calibration's "x" amax), opts into the
+JAX package's ``static_skip``: the skip's input quantized as
+clip(round(x * (1/sx))) (K9: the resampled x before any rounding), its 1x1
+an exact int8 product by the skip weights as ``quantize_weight`` made them
+((int8 (Cin, Cout), scale) pairs, ``pack_skip_int8`` for the card), and
+skip = f32(int32 sum) * (w_skip_scale * sx) + b_skip; a block without a 1x1
+skip ignores sx. On the card each conv is a quantize pre-pass
 (``quantize_conv_input``) and the block GEMM in its int8 mode
 (``int8_conv_gemm``): wgmma s8 fed by TMA, which reads the int8 weights
 K-major, (Cout, 9 * Cin), as ``pack_int8_weight`` makes them once from
@@ -86,6 +91,7 @@ the skip (Cin, Cout), the temb Dense (K, Cout).
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -216,13 +222,56 @@ def hwio_int8_weight(wq, cin: int):
     return wq.t().reshape(3, 3, cin, -1) if wq.dim() == 2 else wq
 
 
-def check_act_scales(act_scales):
-    """act_scales must be None (dynamic) or the two static scales; the static
-    int8 skip projection (a third scale, sx) is not ported."""
-    if act_scales is not None and act_scales.numel() != 2:
-        raise NotImplementedError(
-            f"int8 kernels take 2 static activation scales, got {act_scales.numel()}: "
-            "the static int8 skip projection (sx) is not ported")
+def check_act_scales(act_scales) -> bool:
+    """act_scales: None (per-sample scales), the two static scales [s1, s2]
+    (the 1x1 skip bf16) or three, [s1, s2, sx] (also the static int8 skip
+    projection, the TPU kernels' ``static_skip``; a block without a 1x1 skip
+    ignores sx), e.g. ``torch.stack(act_scales_from_amax((a1, a2, ax)))``.
+    Returns whether sx is given; raises for another count."""
+    if act_scales is None:
+        return False
+    if act_scales.numel() not in (2, 3):
+        raise ValueError(f"int8 kernels take 2 or 3 static activation scales (s1, s2[, sx]), "
+                         f"got {act_scales.numel()}")
+    return act_scales.numel() == 3
+
+
+def pack_skip_int8(w):
+    """(int8 (Cin, Cout), scale) of ``quantize_weight`` -> the same pair with
+    the int8 weights stored K-major, (Cout, Cin) in memory, as the int8 block
+    GEMM reads the static skip's 1x1 (still shaped (Cin, Cout): a transposed
+    view), so that the CUDA wrappers copy nothing."""
+    wq, sc = w
+    return wq.t().contiguous().t(), sc
+
+
+def skip_int8(w_skip, what: str):
+    """The static skip's (int8 (Cin, Cout), scale) pair, checked."""
+    if not (isinstance(w_skip, (tuple, list)) and len(w_skip) == 2
+            and w_skip[0].dtype == torch.int8):
+        raise ValueError(f"{what}: with sx the skip weights are an (int8 (Cin, Cout), scale) "
+                         "pair (quantize_weight, pack_skip_int8)")
+    return list(w_skip)
+
+
+def static_skip_product(x_skip, w_skip, b_skip, sx):
+    """The static int8 skip of the TPU kernels (``static_skip``): q =
+    clip(round(x * (1/sx))) of f32 x_skip (B, H, W, Cin), the exact int32
+    sums of q by the int8 (Cin, Cout) weights of ``w_skip = (wq, scale)``,
+    then f32(sums) * (scale * sx) + b_skip, the scale product in f32 first."""
+    wq, wsc = skip_int8(w_skip, "static skip")
+    q = quant_static(x_skip.float(), sx)
+    return int8_matmul_exact(q, wq) * (wsc.float() * sx) + b_skip.float()
+
+
+def _plain_skip_buffers(buffers: dict, x_skip, w_skip, b_skip, act_scales) -> None:
+    """The int8 entries' ``skip_buffers`` on the CPU: "xq" the plain static
+    skip's int8 input q(x_skip), "skip" its f32 product + b_skip."""
+    if not check_act_scales(act_scales) or w_skip is None:
+        raise ValueError("skip_buffers: needs the static skip (act_scales [s1, s2, sx], a 1x1 skip)")
+    sx = act_scales.float()[2]
+    buffers["xq"] = quant_static(x_skip.float(), sx).to(torch.int8)
+    buffers["skip"] = static_skip_product(x_skip, w_skip, b_skip, sx)
 
 
 def quant_static(a, s):
@@ -369,9 +418,9 @@ def _int8_block(a1, x_skip, temb_proj, w1, b1, gn2_scale, gn2_bias, w2, b2, w_sk
     bodies; K9 never folds)."""
     (w1q, w1s), (w2q, w2s) = w1, w2
     w1q, w2q = hwio_int8_weight(w1q, a1.shape[-1]), hwio_int8_weight(w2q, w1s.shape[-1])
-    static = act_scales is not None
+    static, sx = act_scales is not None, check_act_scales(act_scales)
     if static:
-        s1, s2 = act_scales.float()
+        s1, s2 = act_scales.float()[:2]
         q1, dq1 = quant_static(a1, s1), w1s * s1
     else:
         q1, sb = quant_dynamic(a1, inv_mul=pair)
@@ -387,6 +436,8 @@ def _int8_block(a1, x_skip, temb_proj, w1, b1, gn2_scale, gn2_bias, w2, b2, w_sk
     h = conv3x3_int8_exact(q2, w2q) * dq2 + b2.float()
     if w_skip is None:
         skip = x_skip.float()
+    elif sx:
+        skip = static_skip_product(x_skip, w_skip, b_skip, act_scales.float()[2])
     else:
         skip = x_skip.to(torch.bfloat16).float() @ w_skip.to(torch.bfloat16).float()
         skip = skip + b_skip.float()
@@ -399,7 +450,9 @@ def resblock_int8_reference(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, 
                             act_scales=None, *, num_groups1: int, num_groups2: int,
                             eps: float = 1e-6, skip_rescale: bool = True):
     """Plain version of K2's int8 mode. w1, w2: (int8 HWIO, scale) pairs
-    from quantize_weight; act_scales: None (per-sample) or [s1, s2]."""
+    from quantize_weight; act_scales: None (per-sample), [s1, s2] or [s1, s2,
+    sx] (check_act_scales; with sx, w_skip an (int8 (Cin, Cout), scale) pair
+    and the skip ``static_skip_product``)."""
     check_act_scales(act_scales)
     a1 = group_norm_tpu(x.float(), gn1_scale, gn1_bias, num_groups1, eps, True,
                         fold=act_scales is not None)
@@ -412,7 +465,8 @@ def resblock_pair_int8_reference(xa, xb, temb, dense_w, dense_b, gn1_scale, gn1_
                                  gn2_scale, gn2_bias, w2, b2, w_skip, b_skip, act_scales=None,
                                  *, num_groups1: int, num_groups2: int, eps: float = 1e-6,
                                  skip_rescale: bool = True):
-    """Plain version of K3's int8 mode: K2's on concat(xa, xb)."""
+    """Plain version of K3's int8 mode: K2's on concat(xa, xb) (with sx, both
+    halves quantized by it: the TPU kernel's two products sum exactly)."""
     check_act_scales(act_scales)
     x = torch.cat([xa, xb], -1)
     a1 = group_norm_tpu(x.float(), gn1_scale, gn1_bias, num_groups1, eps, True,
@@ -591,8 +645,9 @@ def resblock_transition_int8_reference(x, temb, dense_w, dense_b, gn1_scale, gn1
     mm_dtype int8): silu(GN1(x)) rounded to bf16 and resampled in f32, then
     quantized unrounded, with the static s1 or per sample (a / s_b); GN2 never
     folded; int8 sums exact (float64); the skip bf16 on the resampled x
-    rounded to bf16. w1, w2: (int8 HWIO, scale) pairs; act_scales None or
-    [s1, s2]."""
+    rounded to bf16, or with sx int8 on the resampled x quantized unrounded
+    (``static_skip_product``). w1, w2: (int8 HWIO, scale) pairs; act_scales
+    None, [s1, s2] or [s1, s2, sx] (w_skip then an (int8, scale) pair)."""
     check_act_scales(act_scales)
     kerns = transition_kerns(up, fir, fir_kernel)
     a1 = _bf16r(group_norm_tpu(x.float(), gn1_scale, gn1_bias, num_groups1, eps, True, False))
@@ -1063,21 +1118,59 @@ def bf16_tile_plan(b: int, h: int, w: int, cin: int, cskip: int, n: int,
 
 @functools.lru_cache(maxsize=None)
 def _plan_gemm(entry: str, b: int, h: int, w: int, cin: int, cskip: int, n: int, int8: bool,
-               f32: bool = False):
+               f32: bool = False, static_skip: bool = False):
     """(M tiling, (splits1, kper1, splits2, kper2), workspace bytes) of one
     block on the block GEMM through ``entry`` (gddim_resblock, which K6's
     gddim_resblock_train shares, gddim_resblock_int8 or the transition's):
     conv1 (cin -> n) and conv2 (n -> n, + the cskip-channel skip) share the M
     tiling; the workspace holds GN2's partial sums, conv1's tiles_h rows a
     sample, and on ``f32`` activations (gddim_resblock) the skip's bf16
-    copy."""
+    copy. ``static_skip`` (the int8 entries): conv2 has no skip slices, the
+    workspace holds the skip's int8 input and f32 product."""
     plan = s8_tile_plan if int8 else bf16_tile_plan
-    p1, p2 = plan(b, h, w, cin, 0, n), plan(b, h, w, n, cskip, n)
+    p1, p2 = plan(b, h, w, cin, 0, n), plan(b, h, w, n, 0 if static_skip else cskip, n)
     tiles = (p1.mw, p1.box_h, p1.box_b, p1.tiles_h, p1.m_tiles)
-    xs = (cskip if f32 else 0,) if entry == "gddim_resblock" else ()
+    if entry == "gddim_resblock":
+        extra = (cskip if f32 else 0,)
+    else:
+        extra = (cskip if static_skip else 0,) if int8 else ()
     nbytes = _build.workspace_bytes(entry, b, h, w, cin, n, max(p1.splits, p2.splits),
-                                    p1.tiles_h, *xs)
+                                    p1.tiles_h, *extra)
     return tiles, (p1.splits, p1.kper, p2.splits, p2.kper), nbytes
+
+
+def skip_plan(b: int, h: int, w: int, cskip: int, n: int) -> torch.Tensor:
+    """The static int8 skip's 1x1 on the int8 block GEMM (``s8_tile_plan`` at
+    taps 1, K never split, so that its int32 sums are converted once): its M
+    tiling (mw, box_h, box_b, tiles_h, m_tiles) as a host int32 array, whose
+    address the int8 block entries take."""
+    p = s8_tile_plan(b, h, w, cskip, 0, n, taps=1)
+    return torch.tensor([p.mw, p.box_h, p.box_b, p.tiles_h, p.m_tiles], dtype=torch.int32)
+
+
+def _static_skip_args(op, w_skip, cskip: int, n: int, plan, what: str):
+    """The static skip's C arguments (ws, wss, skip plan): its int8 weights
+    K-major (Cout, cskip) (a copy unless ``pack_skip_int8`` stored them so),
+    their scales and the plan's address; ``plan`` stays referenced by the
+    caller until the launch."""
+    wq, wsc = w_skip
+    if tuple(wq.shape) != (cskip, n) or cskip % S8_SLICE:
+        raise ValueError(f"{what}: static skip weights {tuple(wq.shape)}, want {(cskip, n)} "
+                         f"(Cin a multiple of {S8_SLICE})")
+    return [op(wq.t(), "skip int8", torch.int8, (n, cskip)), op(wsc, "skip scales",
+                                                                torch.float32, (n,)),
+            plan.data_ptr()]
+
+
+def _skip_views(buffers: dict, entry: str, work, shape, cskip: int, n: int, args) -> None:
+    """The int8 entries' ``skip_buffers`` on CUDA: views of the launch's
+    workspace ``work`` (``args`` its ``_workspace`` arguments): "xq" the
+    static skip's int8 input (*shape, cskip), "skip" its f32 product + b_skip
+    (*shape, N), as the kernels left them."""
+    o_q, o_s = _build.skip_offsets(entry, *args)
+    m = math.prod(shape)
+    buffers["xq"] = work[o_q:o_q + m * cskip].view(torch.int8).view(*shape, cskip)
+    buffers["skip"] = work[o_s:o_s + 4 * m * n].view(torch.float32).view(*shape, n)
 
 
 def require_no_grad(what: str, *tensors) -> None:
@@ -1124,18 +1217,22 @@ def activation_dtype(x, what: str, int8: bool):
 
 def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias, w2, b2,
                 skip_parts, w_skip, b_skip, *, num_groups2, eps, skip_rescale, int8=False,
-                act_scales=None):
+                act_scales=None, skip_buffers=None):
     """One block through gddim_resblock (bf16 or f32 activations, the block
     GEMM), or gddim_resblock_int8 when int8 (w1, w2 then (int8 weights, scale) pairs;
-    act_scales None or [s1, s2]). gn1: (scale, bias, groups), or None (K4);
+    act_scales None, [s1, s2] or [s1, s2, sx]: with sx and skip parts, the
+    static skip, w_skip an (int8, scale) pair). gn1: (scale, bias, groups), or None (K4);
     skip_parts None: identity residual parts[0]; temb with dense_w None: the
     (B, Cout) temb row. The activations and the output take parts[0]'s dtype
-    (bf16 or f32; bf16 only when int8)."""
+    (bf16 or f32; bf16 only when int8). skip_buffers (the static skip): a
+    dict that receives ``_skip_views``."""
     convs = [*w1, *w2] if int8 else [w1, w2]
+    sx = int8 and check_act_scales(act_scales) and skip_parts is not None
+    if skip_buffers is not None and not sx:
+        raise ValueError("skip_buffers: needs the static skip (act_scales [s1, s2, sx], a 1x1 skip)")
+    skips = skip_int8(w_skip, "resblock int8 kernel") if sx else [w_skip]
     require_no_grad("resblock kernel", *parts, temb, dense_w, dense_b, *(gn1 or ())[:2], *convs,
-                    b1, gn2_scale, gn2_bias, b2, *(skip_parts or ()), w_skip, b_skip)
-    if int8:
-        check_act_scales(act_scales)
+                    b1, gn2_scale, gn2_bias, b2, *(skip_parts or ()), *skips, b_skip)
     bf16, f32 = torch.bfloat16, torch.float32
     act = activation_dtype(parts[0], "resblock int8 kernel" if int8 else "resblock kernel", int8)
     b, h, w, _ = parts[0].shape
@@ -1154,7 +1251,7 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
         raise ValueError("resblock: identity skip needs Cin == Cout")
     f32_act = act == f32
     entry = "gddim_resblock" + ("_int8" if int8 else "")
-    tiles, splits, nbytes = _plan_gemm(entry, b, h, w, cin, cs0 + cs1, n, int8, f32_act)
+    tiles, splits, nbytes = _plan_gemm(entry, b, h, w, cin, cs0 + cs1, n, int8, f32_act, sx)
     plan = [*tiles, *splits]
     row, ld = _temb_row(temb, dense_w, dense_b, b, n)
     gn1 = gn1 or (None, None, 0)
@@ -1179,11 +1276,18 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
         op(gn2_scale, "gn2 scale", f32, (n,)), op(gn2_bias, "gn2 bias", f32, (n,)), num_groups2,
         *conv(w2, "conv2", (3, 3, n, n)), op(b2, "b2", f32, (n,)),
         _build.ptr(ss[0]), _build.ptr(ss[1]), cs0, cs1,
-        op(w_skip, "skip", bf16, (cs0 + cs1, n)) if skip else None,
-        op(b_skip, "b_skip", f32, (n,)) if skip else None,
     ]
+    if sx:
+        sk_plan = skip_plan(b, h, w, cs0 + cs1, n)
+        ws, wss, sk_ptr = _static_skip_args(op, w_skip, cs0 + cs1, n, sk_plan, entry)
+        args += [ws, op(b_skip, "b_skip", f32, (n,)), wss, sk_ptr]
+    else:
+        args += [op(w_skip, "skip", bf16, (cs0 + cs1, n)) if skip else None,
+                 op(b_skip, "b_skip", f32, (n,)) if skip else None]
+        args += [None, None] if int8 else []
     if int8:
-        args.append(op(act_scales, "act scales", f32, (2,)))
+        args.append(op(None if act_scales is None else act_scales[:3 if sx else 2],
+                       "act scales", f32, (3 if sx else 2,)))
     # GN1's route: one launch, or the statistics then the pre-pass
     plan.append(gn_apply_ctas(h, w, cin, f32_act) if gn1[2] else 0)
     dev = xs[0].device
@@ -1191,6 +1295,9 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
     out = torch.empty((b, h, w, n), device=dev, dtype=act)
     _build.launch(entry, dev, *args, b, h, w, n, eps, _INV_SQRT2 if skip_rescale else 1.0,
                   work.data_ptr(), *plan, out.data_ptr())
+    if skip_buffers is not None:
+        _skip_views(skip_buffers, entry, work, (b, h, w), cs0 + cs1, n,
+                    (b, h, w, cin, n, max(splits[0], splits[2]), tiles[3], cs0 + cs1))
     return out
 
 
@@ -1266,16 +1373,24 @@ def fused_resblock_tail(h, x_skip, temb, dense_w, dense_b, w1, b1, gn2_scale, gn
 def fused_resblock_int8(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale,
                         gn2_bias, w2, b2, w_skip=None, b_skip=None, act_scales=None, *,
                         num_groups1: int, num_groups2: int, eps: float = 1e-6,
-                        skip_rescale: bool = True):
-    """K2's int8 mode (see resblock_int8_reference for the arguments)."""
+                        skip_rescale: bool = True, skip_buffers: dict | None = None):
+    """K2's int8 mode (see resblock_int8_reference for the arguments; with
+    sx, act_scales [s1, s2, sx], and a 1x1 skip, the static skip: w_skip an
+    (int8 (Cin, Cout), scale) pair, pack_skip_int8's on CUDA to copy nothing).
+    skip_buffers (the static skip only): a dict that receives "xq", the
+    skip's int8 input (B, H, W, Cin), and "skip", its f32 product + b_skip
+    (B, H, W, Cout), as the kernels left them in their workspace (on the
+    CPU the plain version's), for checks."""
     args = (x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias,
             w2, b2, w_skip, b_skip, act_scales)
     kw = dict(num_groups2=num_groups2, eps=eps, skip_rescale=skip_rescale)
     if _on_cpu(x, "fused_resblock_int8"):
+        if skip_buffers is not None:
+            _plain_skip_buffers(skip_buffers, x, w_skip, b_skip, act_scales)
         return resblock_int8_reference(*args, num_groups1=num_groups1, **kw)
     out = _block_cuda([x], temb, dense_w, dense_b, (gn1_scale, gn1_bias, num_groups1), w1, b1,
                       gn2_scale, gn2_bias, w2, b2, None if w_skip is None else [x], w_skip,
-                      b_skip, int8=True, act_scales=act_scales, **kw)
+                      b_skip, int8=True, act_scales=act_scales, skip_buffers=skip_buffers, **kw)
     fused_resblock_int8.launches += 1
     return out
 
@@ -1283,47 +1398,59 @@ def fused_resblock_int8(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, 
 def fused_resblock_pair_int8(xa, xb, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1,
                              gn2_scale, gn2_bias, w2, b2, w_skip, b_skip, act_scales=None, *,
                              num_groups1: int, num_groups2: int, eps: float = 1e-6,
-                             skip_rescale: bool = True):
-    """K3's int8 mode: K2's on concat(xa, xb) without building the concat."""
+                             skip_rescale: bool = True, skip_buffers: dict | None = None):
+    """K3's int8 mode: K2's on concat(xa, xb) without building the concat
+    (with sx both halves quantized by it into one int8 skip input;
+    skip_buffers as K2's, "xq" of the concat)."""
     kw = dict(num_groups2=num_groups2, eps=eps, skip_rescale=skip_rescale)
     if _on_cpu(xa, "fused_resblock_pair_int8"):
+        if skip_buffers is not None:
+            _plain_skip_buffers(skip_buffers, torch.cat([xa, xb], -1), w_skip, b_skip, act_scales)
         return resblock_pair_int8_reference(
             xa, xb, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias,
             w2, b2, w_skip, b_skip, act_scales, num_groups1=num_groups1, **kw)
     out = _block_cuda([xa, xb], temb, dense_w, dense_b, (gn1_scale, gn1_bias, num_groups1),
                       w1, b1, gn2_scale, gn2_bias, w2, b2, [xa, xb], w_skip, b_skip,
-                      int8=True, act_scales=act_scales, **kw)
+                      int8=True, act_scales=act_scales, skip_buffers=skip_buffers, **kw)
     fused_resblock_pair_int8.launches += 1
     return out
 
 
 def fused_resblock_tail_int8(h, x_skip, temb, dense_w, dense_b, w1, b1, gn2_scale, gn2_bias,
                              w2, b2, w_skip, b_skip, act_scales=None, *, num_groups2: int,
-                             eps: float = 1e-6, skip_rescale: bool = True):
-    """K4's int8 mode: the transition tail on h = silu(GN1(x)) resampled."""
+                             eps: float = 1e-6, skip_rescale: bool = True,
+                             skip_buffers: dict | None = None):
+    """K4's int8 mode: the transition tail on h = silu(GN1(x)) resampled
+    (with sx, x_skip quantized by it; skip_buffers as K2's)."""
     kw = dict(num_groups2=num_groups2, eps=eps, skip_rescale=skip_rescale)
     if _on_cpu(h, "fused_resblock_tail_int8"):
+        if skip_buffers is not None:
+            _plain_skip_buffers(skip_buffers, x_skip, w_skip, b_skip, act_scales)
         return resblock_tail_int8_reference(h, x_skip, temb, dense_w, dense_b, w1, b1,
                                             gn2_scale, gn2_bias, w2, b2, w_skip, b_skip,
                                             act_scales, **kw)
     out = _block_cuda([h], temb, dense_w, dense_b, None, w1, b1, gn2_scale, gn2_bias, w2, b2,
-                      [x_skip], w_skip, b_skip, int8=True, act_scales=act_scales, **kw)
+                      [x_skip], w_skip, b_skip, int8=True, act_scales=act_scales,
+                      skip_buffers=skip_buffers, **kw)
     fused_resblock_tail_int8.launches += 1
     return out
 
 
 def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale,
                      gn2_bias, w2, b2, w_skip, b_skip, act_scales, *, up, fir, fir_kernel,
-                     num_groups1, num_groups2, eps, skip_rescale, int8):
+                     num_groups1, num_groups2, eps, skip_rescale, int8, skip_buffers=None):
     """K9 through gddim_resblock_transition (bf16 or f32 x, the block GEMM), or
     gddim_resblock_transition_int8 (w1, w2 then (int8 weights, scale) pairs;
-    act_scales None or [s1, s2])."""
+    act_scales None, [s1, s2] or [s1, s2, sx]: the static skip, w_skip an
+    (int8, scale) pair; skip_buffers a dict that receives ``_skip_views``)."""
     convs = [*w1, *w2] if int8 else [w1, w2]
+    sx = int8 and check_act_scales(act_scales)
+    if skip_buffers is not None and not sx:
+        raise ValueError("skip_buffers: needs the static skip (act_scales [s1, s2, sx], a 1x1 skip)")
+    skips = skip_int8(w_skip, "resblock transition int8 kernel") if sx else [w_skip]
     require_no_grad("resblock transition kernel", x, temb, dense_w, dense_b, gn1_scale, gn1_bias,
-                    *convs, b1, gn2_scale, gn2_bias, b2, w_skip, b_skip)
+                    *convs, b1, gn2_scale, gn2_bias, b2, *skips, b_skip)
     what = "fused_resblock_transition" + ("_int8" if int8 else "")
-    if int8:
-        check_act_scales(act_scales)
     bf16, f32 = torch.bfloat16, torch.float32
     act = activation_dtype(x, what, int8)
     b, hin, win, cin = x.shape
@@ -1335,7 +1462,7 @@ def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2
     kh, kw = transition_kerns(up, fir, fir_kernel)
     f32_act = act == f32
     entry = "gddim_resblock_transition" + ("_int8" if int8 else "")
-    tiles, splits, nbytes = _plan_gemm(entry, b, ho, wo, cin, cin, n, int8)
+    tiles, splits, nbytes = _plan_gemm(entry, b, ho, wo, cin, cin, n, int8, False, sx)
     plan = (*tiles, *splits, gn_resample_ctas(hin, win, cin, up, f32_act))
     row, ld = _temb_row(temb, dense_w, dense_b, b, n)
     keep = []  # operands stay referenced until the launch: a cast's temporary must not be freed
@@ -1357,15 +1484,25 @@ def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2
         op(gn1_bias, "gn1 bias", f32, (cin,)), num_groups1, *conv(w1, "conv1", (3, 3, cin, n)),
         op(b1, "b1", f32, (n,)), op(gn2_scale, "gn2 scale", f32, (n,)),
         op(gn2_bias, "gn2 bias", f32, (n,)), num_groups2, *conv(w2, "conv2", (3, 3, n, n)),
-        op(b2, "b2", f32, (n,)), op(w_skip, "skip", bf16, (cin, n)),
-        op(b_skip, "b_skip", f32, (n,)),
+        op(b2, "b2", f32, (n,)),
     ]
+    if sx:
+        sk_plan = skip_plan(b, ho, wo, cin, n)
+        ws, wss, sk_ptr = _static_skip_args(op, w_skip, cin, n, sk_plan, what)
+        args += [ws, op(b_skip, "b_skip", f32, (n,)), wss, sk_ptr]
+    else:
+        args += [op(w_skip, "skip", bf16, (cin, n)), op(b_skip, "b_skip", f32, (n,))]
+        args += [None, None] if int8 else []
     if int8:
-        args.append(op(act_scales, "act scales", f32, (2,)))
+        args.append(op(None if act_scales is None else act_scales[:3 if sx else 2],
+                       "act scales", f32, (3 if sx else 2,)))
     work = torch.empty(nbytes, device=x.device, dtype=torch.uint8)
     out = torch.empty((b, ho, wo, n), device=x.device, dtype=act)
     _build.launch(entry, x.device, *args, b, hin, win, int(up), *kh, *kw, n, eps,
                   _INV_SQRT2 if skip_rescale else 1.0, work.data_ptr(), *plan, out.data_ptr())
+    if skip_buffers is not None:
+        _skip_views(skip_buffers, entry, work, (b, ho, wo), cin, n,
+                    (b, ho, wo, cin, n, max(splits[0], splits[2]), tiles[3]))
     return out
 
 
@@ -1391,16 +1528,21 @@ def fused_resblock_transition_int8(x, temb, dense_w, dense_b, gn1_scale, gn1_bia
                                    gn2_scale, gn2_bias, w2, b2, w_skip, b_skip, act_scales=None,
                                    *, up: bool, fir: bool = True, fir_kernel=(1, 3, 3, 1),
                                    num_groups1: int, num_groups2: int, eps: float = 1e-6,
-                                   skip_rescale: bool = True):
+                                   skip_rescale: bool = True, skip_buffers: dict | None = None):
     """K9's int8 mode (see resblock_transition_int8_reference for the
-    arguments); bf16 x on CUDA. A static skip scale (sx) is refused."""
+    arguments); bf16 x on CUDA. With sx (act_scales [s1, s2, sx]) the
+    static skip: w_skip an (int8 (Cin, Cout), scale) pair (pack_skip_int8);
+    skip_buffers as K2's, "xq" q(xr) of the resampled x (B, Ho, Wo, Cin)."""
     kw = dict(up=up, fir=fir, fir_kernel=fir_kernel, num_groups1=num_groups1,
               num_groups2=num_groups2, eps=eps, skip_rescale=skip_rescale)
     args = (x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias, w2, b2,
             w_skip, b_skip, act_scales)
     if _on_cpu(x, "fused_resblock_transition_int8"):
+        if skip_buffers is not None:
+            xr = resample_transition(_bf16r(x.float()), transition_kerns(up, fir, fir_kernel), up)
+            _plain_skip_buffers(skip_buffers, xr, w_skip, b_skip, act_scales)
         return resblock_transition_int8_reference(*args, **kw)
-    out = _transition_cuda(*args, int8=True, **kw)
+    out = _transition_cuda(*args, int8=True, skip_buffers=skip_buffers, **kw)
     fused_resblock_transition_int8.launches += 1
     return out
 
@@ -1755,12 +1897,15 @@ def gn_resample(x, gamma, beta, *, up: bool, fir: bool = True, fir_kernel=(1, 3,
 # gn_stats_kernel, gn_apply_kernel (both variants: K2/K3/K5's GN1 and K9's
 # resample), K7's wgrad_kernel, K1's gn_silu_kernel,
 # the block GEMM in the training blocks (K6's convs, K7's conv1 and dgrads),
-# K7's GroupNorm backward (gn_bwd_kernel, two a block) and GN2's folding
-# pre-pass (gn_prepass_kernel, every mode; also counted as its mode's pre-pass)
+# K7's GroupNorm backward (gn_bwd_kernel, two a block), GN2's folding
+# pre-pass (gn_prepass_kernel, every mode; also counted as its mode's
+# pre-pass), K8's online-softmax kernel (ops/attention.py, S > 1024) and the
+# int8 blocks' static skip GEMM (also counted as the int8 block GEMM)
 BLOCK_COUNTED = ("block_gemm_kernel<int8>", "prepass_kernel<int8>", "block_gemm_kernel<bf16>",
                  "prepass_kernel<bf16>", "attention_wgmma_kernel", "gn_stats_kernel",
                  "gn_apply_kernel", "wgrad_kernel", "gn_silu_kernel",
-                 "block_gemm_kernel<bf16, train>", "gn_bwd_kernel", "gn_prepass_kernel")
+                 "block_gemm_kernel<bf16, train>", "gn_bwd_kernel", "gn_prepass_kernel",
+                 "flash_online_kernel", "block_gemm_kernel<int8, static skip>")
 S8_COUNTED = BLOCK_COUNTED[:2]
 BF16_COUNTED = BLOCK_COUNTED[2:4]
 

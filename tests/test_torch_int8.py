@@ -149,18 +149,6 @@ def test_quantized_concat_is_the_concat_of_the_quantized():
     assert torch.equal(sc, torch.cat([p[1] for p in parts]))
 
 
-def test_static_skip_scale_is_refused():
-    """The static int8 skip projection (a third scale, sx) is not ported."""
-    d = Draw(3)
-    x = torch.from_numpy(d.act(1, 4, 4, 32))
-    with pytest.raises(NotImplementedError, match="sx"):
-        t_rb.fused_resblock_int8(
-            x, torch.from_numpy(d.act(1, TEMB)), *_t([d.w(TEMB, 32), d.vec(32)]),
-            *_t([d.vec(32, 1.0), d.vec(32)]), _q(d.w(3, 3, 32, 32)), torch.zeros(32),
-            *_t([d.vec(32, 1.0), d.vec(32)]), _q(d.w(3, 3, 32, 32)), torch.zeros(32),
-            act_scales=torch.ones(3), num_groups1=8, num_groups2=8)
-
-
 # --------------------------------------------------------------------------
 # (b) the blocks against the JAX int8 kernels (interpret mode)
 # --------------------------------------------------------------------------

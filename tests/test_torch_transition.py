@@ -214,16 +214,6 @@ def test_transition_int8_plain_matches_jax_kernel(jx, static, up):
     assert t_rb.fused_resblock_transition_int8.launches == 0
 
 
-def test_transition_static_skip_scale_is_refused():
-    """The fully static int8 skip (a third scale, sx) has no model path."""
-    x, temb, dw, db, g1s, g1b, w1, b1, g2s, g2b, w2, b2, ws, bs = transition_args(
-        Draw(4), 1, 4, 32, 64)
-    with pytest.raises(NotImplementedError, match="sx"):
-        t_rb.fused_resblock_transition_int8(
-            *_t([x, temb, dw, db, g1s, g1b]), _q(w1), torch.from_numpy(b1), *_t([g2s, g2b]),
-            _q(w2), *_t([b2, ws, bs]), torch.ones(3), up=False, num_groups1=8, num_groups2=16)
-
-
 def test_transition_supported_shapes():
     assert t_rb.transition_supported((2, 16, 16, 128), 128, False, True, FIR)
     assert t_rb.transition_supported((2, 4, 4, 256), 256, True, True, FIR)
@@ -568,8 +558,9 @@ def test_transition_int8_kernel_matches_plain(cuda, static, h, c, up):
 
 @pytest.mark.cuda
 def test_transition_kernel_refusals(cuda):
-    """An unsupported shape, a static skip scale (sx) and f32 x in int8 mode
-    raise on the card; none falls back."""
+    """An unsupported shape, a static skip scale (sx) with skip weights that
+    are not an int8 pair, and f32 x in int8 mode raise on the card; none
+    falls back."""
     x, temb, dw, db, g1s, g1b, w1, b1, g2s, g2b, w2, b2, ws, bs = _on(
         transition_args(Draw(42), 2, 6, 64, 32), cuda)
     kw = dict(up=False, num_groups1=16, num_groups2=8)
@@ -579,7 +570,7 @@ def test_transition_kernel_refusals(cuda):
     x, temb, dw, db, g1s, g1b, w1, b1, g2s, g2b, w2, b2, ws, bs = _on(
         transition_args(Draw(43), 2, 8, 64, 64), cuda)
     args = (temb, dw, db, g1s, g1b, _q(w1), b1, g2s, g2b, _q(w2), b2, ws, bs)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="sx"):
+    with torch.no_grad(), pytest.raises(ValueError, match="pair"):
         t_rb.fused_resblock_transition_int8(x.bfloat16(), *args, torch.ones(3, device=cuda), **kw)
     with torch.no_grad(), pytest.raises(ValueError, match="activations"):
         t_rb.fused_resblock_transition_int8(x, *args, None, **kw)
