@@ -137,13 +137,15 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      path (the train phase's bounds), launches, peak memory; the CelebA
      trunk with DDPM blocks and both pyramids, one eps eval (K2 with the
      NIN skip);
-  7d'. long_attn: K8's online-softmax kernel (S > 1024) at SHAPES
-     ["K8-online"] against its plain version with the TPU blocked branch's
-     rounding points (bf16 K8_BF16_BOUND, f32 K8_F32_BOUND), device time
-     beside SDPA; then cld/ddpmpp_celeba with model.attn_resolutions (16,
-     64) (5 attention blocks at S = 4096): one eps eval under 'fused',
-     'fused_int8' (static scales calibrated on the card) and 'pallas'
-     against the f32 plain path, deis-2 NFE=50 at --batch under each
+  7d'. long_attn: K8's online-softmax kernels (S > 1024; bf16 on wgmma,
+     csrc/flash_online_wgmma.cu, f32 on mma.sync) at SHAPES["K8-online"]
+     against their plain version with the TPU blocked branch's rounding
+     points (bf16 K8_BF16_BOUND, f32 K8_F32_BOUND), device time beside SDPA,
+     the bound and TFLOP/s; then cld/ddpmpp_celeba with
+     model.attn_resolutions (16, 64) (5 attention blocks at S = 4096): one
+     eps eval under 'fused', 'fused_int8' (static scales calibrated on the
+     card) and 'pallas' against the f32 plain path, deis-2 NFE=50 at --batch
+     under each
      (finite samples, launches nfe x the eval's, img/s), one f32 training
      step at B=32 against the plain path (the step gates); the online
      kernel's launches held to the 64x64 attention blocks in each;
@@ -612,9 +614,11 @@ KERNELS = {
                replaces="gddim_tpu/ops/resblock_bwd.py:353"),
     "K8": dict(name="flash_attention", route="cuda", source="gddim_torch/csrc/flash.cu",
                replaces="gddim_tpu/ops/flash.py:97"),
-    # K8's k-blocked online-softmax kernel, S > 1024 (flash.cu takes S <= 1024)
+    # K8's k-blocked online-softmax kernels, S > 1024 (flash.cu takes S <=
+    # 1024): bf16 on wgmma fed by TMA (the sampling path), f32 on the
+    # mma.sync kernel of csrc/flash_online.cu (the f32 training step)
     "K8-online": dict(name="flash_attention", route="cuda",
-                      source="gddim_torch/csrc/flash_online.cu",
+                      source="gddim_torch/csrc/flash_online_wgmma.cu",
                       replaces="gddim_tpu/ops/flash.py:134"),
     # the int8 blocks' static skip projection (act_scales [s1, s2, sx]; K2, K3,
     # K4 and K9): q(x) by the int8 pre-pass, its 1x1 on the int8 block GEMM,
@@ -736,10 +740,12 @@ SHAPES = {
            (4, 256, 256, True), (8, 256, 256, True), (16, 256, 256, True)],
     # K10: (H, C) of the training path's attention, f32
     "K10": [(16, 256), (4, 256)],
-    # K8's online-softmax kernel (B, S, C, dtype): 64x64 attention at the
-    # CelebA sampling batch, C = 256, S = 3072, 128x128, and f32
+    # K8's online-softmax kernels (B, S, C, dtype): 64x64 attention at the
+    # CelebA sampling batch, C = 256, S = 3072, 128x128, C = 64, a ragged S
+    # (its last block and slice 16 keys), and f32
     "K8-online": [(16, 4096, 128, "bf16"), (4, 4096, 256, "bf16"), (2, 3072, 128, "bf16"),
-                  (1, 16384, 128, "bf16"), (8, 4096, 128, "f32")],
+                  (1, 16384, 128, "bf16"), (8, 4096, 64, "bf16"), (2, 2064, 128, "bf16"),
+                  (8, 4096, 128, "f32")],
 }
 GRADS = ["dx", "dtemb", "dgn1s", "dgn1b", "dw1", "db1", "dgn2s", "dgn2b", "dw2", "db2", "dwsk",
          "dbsk"]
@@ -6646,6 +6652,7 @@ def check_online_attention(results: dict, q, k, v, tol: float, card: str):
 
     (b, s_, c), dt = q.shape, str(q.dtype).split(".")[-1]
     label = f"{dt} B={b} S={s_} C={c}"
+    qt = attention.flash_plan(b, s_, c, dt == "bfloat16")
     fused = lambda: attention.flash_attention(q, k, v)  # noqa: E731
     plain = lambda: attention.flash_attention_blocked_reference(q, k, v)  # noqa: E731
     sdpa = lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])  # noqa: E731
@@ -6667,8 +6674,8 @@ def check_online_attention(results: dict, q, k, v, tol: float, card: str):
           f"(bound {tol:.0e}) ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
           f"bound_ms={bd[0]:.4f} ({'bytes' if bd[1] >= bd[2] else 'operations'}); device (CUDA "
           f"graph) ms={dev_ms:.4f} sdpa_ms={library_dev_ms:.4f} "
-          f"({verdict(dev_ms, library_dev_ms)}), {prod / dev_ms / 1e9:.1f} TFLOP/s [{card}]",
-          flush=True)
+          f"({verdict(dev_ms, library_dev_ms)}), {prod / dev_ms / 1e9:.1f} TFLOP/s counted on "
+          f"4 S^2 C, {qt} queries a CTA [{card}]", flush=True)
     _record(results, "K8-online", label, err, rel, ms, plain_ms, bd, library_ms=library_ms,
             graph_ms=dev_ms, library_graph_ms=library_dev_ms)
     if not np.isfinite(rel) or rel > tol:
@@ -6684,9 +6691,23 @@ def long_attn_blocks(config) -> int:
                if kind == "attn" and attention.flash_online(shapes[0][1] * shapes[0][2]))
 
 
+def online_kernels(results: dict, card: str) -> None:
+    """K8's online-softmax kernels alone at SHAPES["K8-online"]
+    (check_online_attention); also the opt-in phase online_time, which a
+    parent's checkout runs too (copy this script there)."""
+    g = torch.Generator(device="cuda").manual_seed(71)
+    for b, s_, c, dt in SHAPES["K8-online"]:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q, k, v = (torch.randn((b, s_, c), generator=g, device="cuda").to(dtype)
+                   for _ in range(3))
+        check_online_attention(results, q, k, v, K8_BF16_BOUND if dt == "bf16" else K8_F32_BOUND,
+                               card)
+        del q, k, v
+
+
 def phase_long_attn(results: dict, card: str, batch: int) -> dict:
-    """K8's online-softmax kernel alone at SHAPES["K8-online"] (check_online_
-    attention), then cld/ddpmpp_celeba with model.attn_resolutions (16, 64)
+    """K8's online-softmax kernels alone (online_kernels), then
+    cld/ddpmpp_celeba with model.attn_resolutions (16, 64)
     at full width (seeded weights): one eps eval (B=4, t=0.5) under 'fused',
     'fused_int8' (static scales calibrated on the card) and 'pallas' against
     the f32 plain path (EPS_BOUND, CONFIG_EXTRA_BOUND), deis-2 NFE=50 at
@@ -6698,14 +6719,7 @@ def phase_long_attn(results: dict, card: str, batch: int) -> dict:
     from gddim_torch.configs import get_config
 
     t0 = time.perf_counter()
-    g = torch.Generator(device="cuda").manual_seed(71)
-    for b, s_, c, dt in SHAPES["K8-online"]:
-        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
-        q, k, v = (torch.randn((b, s_, c), generator=g, device="cuda").to(dtype)
-                   for _ in range(3))
-        check_online_attention(results, q, k, v, K8_BF16_BOUND if dt == "bf16" else K8_F32_BOUND,
-                               card)
-        del q, k, v
+    online_kernels(results, card)
     config = get_config("cld/ddpmpp_celeba")
     for key, val in LONG_ATTN_FIELDS.items():
         setattr(config.model, key, val)
@@ -6761,7 +6775,9 @@ def main(argv=None):
     # f32 B=64 eval), k1_time (K1 at its sites, B=4/16/64, beside
     # F.group_norm; --k1-save / --k1-ref hold two trees' outputs), each of the
     # three on a parent's checkout too; static_skip (the int8 blocks' static
-    # skip path alone, as the kernels phase runs it)
+    # skip path alone, as the kernels phase runs it); online_time (K8's
+    # online-softmax kernels alone, as long_attn runs them; a parent's
+    # checkout runs it too)
     parser.add_argument("--phases", default="build,kernels,eps,gates,sample,int8,blur,samplers,"
                         "blur_deis,configs,long_attn,f32,train,blur_train,run_lib,layer_f32,"
                         "train_layer,remat,adamw,points,classifier,ref,corpora,compat,legacy,"
@@ -6886,6 +6902,9 @@ def main(argv=None):
         long_counts = phase_long_attn(results, card, args.batch)
         counts.update({k: n for k, n in long_counts.items() if k not in counts})
         lap("long_attn")
+    if "online_time" in phases:
+        online_kernels(results, card)
+        lap("online_time")
     if "f32" in phases:
         f32_counts = phase_f32(card, args.batch)
         counts.update({k: n for k, n in f32_counts.items() if k not in counts})

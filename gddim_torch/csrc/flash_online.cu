@@ -1,7 +1,8 @@
-// K8's k-blocked online-softmax attention for Hopper (sm_90a): o =
-// softmax(q k^T / sqrt(C)) v over (B, S, C), f32 or bf16, for S > 1024,
-// with the (S, S) scores never written to device memory and nothing kept
-// per key, so S has no upper limit but the index range.
+// K8's k-blocked online-softmax attention in f32 for Hopper (sm_90a): o =
+// softmax(q k^T / sqrt(C)) v over (B, S, C) f32 for S > 1024, with the
+// (S, S) scores never written to device memory and nothing kept per key, so
+// S has no upper limit but the index range; and the entry gddim_flash_online,
+// which sends bf16 to flash_online_wgmma.cu's kernel (wgmma fed by TMA).
 //
 // Replaces gddim_tpu/ops/flash.py:_attn_kernel_blocked (its pallas_call in
 // flash_attention, which the TPU wrapper takes for every S > 1024): the
@@ -12,9 +13,9 @@
 //   per 512-key block:
 //   m_new  = max(m, rowmax(s over the whole block)), alpha = exp(m - m_new)
 //   p      = exp(s - m_new)
-//   l      = l * alpha + rowsum(p)                 p unrounded
-//   acc    = acc * alpha + round_to_dtype(v)(p) . v
-//   o      = acc / l, rounded once to q's dtype
+//   l      = l * alpha + rowsum(p)
+//   acc    = acc * alpha + p . v
+//   o      = acc / l
 // Each weight is exponentiated from the max of its whole 512-key block, as
 // on the TPU: the block's k tiles pass twice, once for the max and once for
 // the weights (q k^T recomputed: 1.5x the products of one pass, no score
@@ -23,35 +24,35 @@
 // the plain version (ops/attention.py:flash_attention_blocked_reference):
 // l and acc take the block's sums a 64-key tile at a time.
 //
-// flash_online_kernel<BF16, C>: grid (ceil(S / 64), B), 4 warps, one CTA a
+// flash_online_kernel<C>: grid (ceil(S / 64), B), 4 warps, one CTA a
 // (sample, 64-query tile), 16 query rows a warp, so that a row's statistics
 // stay in one warp's quad (shuffles, no shared memory). q sits in shared
 // memory; k and v stream in 64-key tiles through two cp.async buffers (rows
 // padded by 16 bytes): a block's k tiles (the max), then k0, v0, k1, v1, ...
 // (the weights, then p v). Keys past S load as zeros and score -inf.
-// - bf16: mma.sync m16n8k16 for q k^T (ldmatrix fragments) and p v; p's
-//   accumulators, rounded to bf16, are A fragments of p v as they lie.
-// - f32: 3xTF32 on m16n8k8 (flash.cu's note: each 32 channels of q k^T a
-//   partial sum of its own, added in f32; likewise each 64-key tile of p v
-//   for each 8 output columns, since the tensor cores' sums do not round to
-//   nearest). p's accumulators feed p v without a shuffle: the k8 step over
-//   an n8 score tile takes its keys in the order (0, 2, 4, 6, 1, 3, 5, 7),
-//   and reads v's rows in that order.
-// A simple kernel that is right: wgmma, TMA and warp specialisation are
-// later work.
+// 3xTF32 on mma.sync m16n8k8 (flash.cu's note: each 32 channels of q k^T a
+// partial sum of its own, added in f32; likewise each 64-key tile of p v
+// for each 8 output columns, since the tensor cores' sums do not round to
+// nearest). p's accumulators feed p v without a shuffle: the k8 step over
+// an n8 score tile takes its keys in the order (0, 2, 4, 6, 1, 3, 5, 7),
+// and reads v's rows in that order. A simple kernel that is right; its
+// redesign on wgmma tf32 is queued (ROADMAP.md).
 //
-// What bounds it on the H100: 4 S^2 C operations a sample (6 S^2 C as run)
-// against 4 S C bytes of q, k, v and o an element size: at S = 4096, C = 128
-// some 16,000 operations a byte, far above the bf16 ridge (~295), so the
-// tensor cores' rate bounds it.
+// What bounds it on the H100: 4 S^2 C operations a sample (6 S^2 C as run,
+// each three TF32 products) against 4 S C bytes of q, k, v and o an
+// element size: at S = 4096, C = 128 some 8,000 operations a byte, far
+// above the ridge, so the tensor cores' TF32 rate bounds it.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "conv.cuh"
 #include "mma.cuh"
+
+// flash_online_wgmma.cu: the bf16 form
+int flash_online_wgmma(const void* q, const void* k, const void* v, void* o, int batch, int s,
+                       int c, int qt, float scale, cudaStream_t st);
 
 namespace {
 
@@ -60,20 +61,10 @@ constexpr int ON_QT = 64;        // queries a CTA
 constexpr int ON_KT = 64;        // keys a k or v tile
 constexpr int ON_BLOCK = 512;    // keys a statistics block (the TPU kernel's block_k)
 constexpr int ON_NT = ON_KT / 8;  // n8 score tiles of a k tile
+constexpr int ON_PAD = 4;         // row padding, elements (16 bytes)
 
-template <bool BF16>
-struct OnMode {
-  using T = float;
-  static constexpr int PAD = 4;  // row padding, elements (16 bytes)
-};
-template <>
-struct OnMode<true> {
-  using T = __nv_bfloat16;
-  static constexpr int PAD = 8;
-};
-
-__host__ __device__ constexpr int on_smem(bool bf16, int c) {
-  return 3 * ON_QT * (c + (bf16 ? 8 : 4)) * (bf16 ? 2 : 4);  // q and two k / v tiles
+__host__ __device__ constexpr int on_smem(int c) {
+  return 3 * ON_QT * (c + ON_PAD) * 4;  // q and two k / v tiles
 }
 
 // Tile i of the stream: a block b of 24 tiles (the last block 3 nt), its
@@ -115,17 +106,15 @@ __device__ __forceinline__ int tiles_of(int S) {
   return 3 * (ON_BLOCK / ON_KT) * (nb - 1) + 3 * ((last + ON_KT - 1) / ON_KT);
 }
 
-// grid (ceil(S / ON_QT), B), ON_THREADS threads, on_smem(BF16, C) bytes.
-template <bool BF16, int C>
+// grid (ceil(S / ON_QT), B), ON_THREADS threads, on_smem(C) bytes.
+template <int C>
 __global__ void __launch_bounds__(ON_THREADS)
-flash_online_kernel(const typename OnMode<BF16>::T* __restrict__ q,
-                    const typename OnMode<BF16>::T* __restrict__ k,
-                    const typename OnMode<BF16>::T* __restrict__ v,
-                    typename OnMode<BF16>::T* __restrict__ o, int S, float scale) {
-  using T = typename OnMode<BF16>::T;
-  constexpr int LDT = C + OnMode<BF16>::PAD;
+flash_online_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o, int S, float scale) {
+  using T = float;
+  constexpr int LDT = C + ON_PAD;
   constexpr int CHUNKS = C * (int)sizeof(T) / 16;  // 16-byte chunks of a row
-  constexpr int F32_CHUNK = 32;  // f32: channels of one q k^T partial sum
+  constexpr int F32_CHUNK = 32;  // channels of one q k^T partial sum
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
   T* KVs = Qs + ON_QT * LDT;  // two tiles of ON_KT rows
@@ -168,9 +157,8 @@ flash_online_kernel(const typename OnMode<BF16>::T* __restrict__ q,
   float acc[C / 8][4];                   // n8 output tiles: [0..1] row g, [2..3] row g + 8
 #pragma unroll
   for (int j = 0; j < C / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  // p of the last k tile of the weights pass, as the A fragments of p v
-  uint32_t pw[BF16 ? ON_KT / 16 : 1][4];
-  uint32_t ph[BF16 ? 1 : ON_NT][4], pl[BF16 ? 1 : ON_NT][4];
+  // p of the last k tile of the weights pass, split for 3xTF32
+  uint32_t ph[ON_NT][4], pl[ON_NT][4];
 
   const T* Qw = Qs + warp * 16 * LDT;
   for (int i = 0; i < ntiles; ++i) {
@@ -191,48 +179,30 @@ flash_online_kernel(const typename OnMode<BF16>::T* __restrict__ q,
       float sc[ON_NT][4];
 #pragma unroll
       for (int j = 0; j < ON_NT; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-      if constexpr (BF16) {
-#pragma unroll 4
-        for (int kc = 0; kc < C; kc += 16) {
-          uint32_t a[4];
-          ldsm_x4(a, Qw + (lane & 15) * LDT + kc + (lane >> 4) * 8);
+      for (int kc0 = 0; kc0 < C; kc0 += F32_CHUNK) {
+        float part[ON_NT][4];
 #pragma unroll
-          for (int j = 0; j < ON_NT; j += 2) {
-            // two n8 key tiles: matrices (keys 8j.., ch kc), (8j.., kc+8), (8j+8.., kc), (8j+8.., kc+8)
-            uint32_t bb[4];
-            ldsm_x4(bb, tile + (8 * j + (lane & 7) + ((lane >> 4) << 3)) * LDT + kc +
-                            ((lane >> 3) & 1) * 8);
-            const uint32_t b0[2] = {bb[0], bb[1]}, b1[2] = {bb[2], bb[3]};
-            mma_bf16(sc[j], a, b0);
-            mma_bf16(sc[j + 1], a, b1);
+        for (int j = 0; j < ON_NT; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.f;
+#pragma unroll
+        for (int kc = kc0; kc < kc0 + F32_CHUNK; kc += 8) {
+          uint32_t ah[4], al[4];
+          split(Qw[g * LDT + kc + t4], ah[0], al[0]);
+          split(Qw[(g + 8) * LDT + kc + t4], ah[1], al[1]);
+          split(Qw[g * LDT + kc + t4 + 4], ah[2], al[2]);
+          split(Qw[(g + 8) * LDT + kc + t4 + 4], ah[3], al[3]);
+#pragma unroll
+          for (int j = 0; j < ON_NT; ++j) {
+            const T* kr = tile + (8 * j + g) * LDT + kc + t4;
+            uint32_t bh[2], bl[2];
+            split(kr[0], bh[0], bl[0]);
+            split(kr[4], bh[1], bl[1]);
+            mma_3xtf32(part[j], ah, al, bh, bl);
           }
         }
-      } else {
-        for (int kc0 = 0; kc0 < C; kc0 += F32_CHUNK) {
-          float part[ON_NT][4];
 #pragma unroll
-          for (int j = 0; j < ON_NT; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.f;
+        for (int j = 0; j < ON_NT; ++j)
 #pragma unroll
-          for (int kc = kc0; kc < kc0 + F32_CHUNK; kc += 8) {
-            uint32_t ah[4], al[4];
-            split(Qw[g * LDT + kc + t4], ah[0], al[0]);
-            split(Qw[(g + 8) * LDT + kc + t4], ah[1], al[1]);
-            split(Qw[g * LDT + kc + t4 + 4], ah[2], al[2]);
-            split(Qw[(g + 8) * LDT + kc + t4 + 4], ah[3], al[3]);
-#pragma unroll
-            for (int j = 0; j < ON_NT; ++j) {
-              const T* kr = tile + (8 * j + g) * LDT + kc + t4;
-              uint32_t bh[2], bl[2];
-              split(kr[0], bh[0], bl[0]);
-              split(kr[4], bh[1], bl[1]);
-              mma_3xtf32(part[j], ah, al, bh, bl);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < ON_NT; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) sc[j][e] += part[j][e];
-        }
+          for (int e = 0; e < 4; ++e) sc[j][e] += part[j][e];
       }
 #pragma unroll
       for (int j = 0; j < ON_NT; ++j)
@@ -252,7 +222,7 @@ flash_online_kernel(const typename OnMode<BF16>::T* __restrict__ q,
             mb[h] = fmaxf(mb[h], __shfl_xor_sync(0xffffffffu, mb[h], 1));
             mb[h] = fmaxf(mb[h], __shfl_xor_sync(0xffffffffu, mb[h], 2));
             const float m_new = fmaxf(m[h], mb[h]);
-            const float alpha = BF16 ? __expf(m[h] - m_new) : expf(m[h] - m_new);
+            const float alpha = expf(m[h] - m_new);
             m[h] = m_new;
             mb[h] = -INFINITY;
             l[h] *= alpha;
@@ -264,66 +234,37 @@ flash_online_kernel(const typename OnMode<BF16>::T* __restrict__ q,
           }
         }
       } else {
-        // the weights pass: p = exp(s - m), l += p, p as p v's A fragments
+        // the weights pass: p = exp(s - m), l += p; the k8 step of n8 tile
+        // j: column t4 is key 8 j + 2 t4, column t4 + 4 key 8 j + 2 t4 + 1
 #pragma unroll
-        for (int j = 0; j < ON_NT; ++j)
+        for (int j = 0; j < ON_NT; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            sc[j][e] = BF16 ? __expf(sc[j][e] - m[e >> 1]) : expf(sc[j][e] - m[e >> 1]);
+            sc[j][e] = expf(sc[j][e] - m[e >> 1]);
             l[e >> 1] += sc[j][e];
           }
-        if constexpr (BF16) {
-          // keys 16 kk.. are tiles 2 kk (a0 row g, a1 row g + 8) and 2 kk + 1 (a2, a3)
-#pragma unroll
-          for (int kk = 0; kk < ON_KT / 16; ++kk) {
-            pw[kk][0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
-            pw[kk][1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
-            pw[kk][2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-            pw[kk][3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-          }
-        } else {
-          // the k8 step of n8 tile j: column t4 is key 8 j + 2 t4, column
-          // t4 + 4 key 8 j + 2 t4 + 1
-#pragma unroll
-          for (int j = 0; j < ON_NT; ++j) {
-            split(sc[j][0], ph[j][0], pl[j][0]);
-            split(sc[j][2], ph[j][1], pl[j][1]);
-            split(sc[j][1], ph[j][2], pl[j][2]);
-            split(sc[j][3], ph[j][3], pl[j][3]);
-          }
+          split(sc[j][0], ph[j][0], pl[j][0]);
+          split(sc[j][2], ph[j][1], pl[j][1]);
+          split(sc[j][1], ph[j][2], pl[j][2]);
+          split(sc[j][3], ph[j][3], pl[j][3]);
         }
       }
     } else {
-      // acc += p v over the tile's keys
-      if constexpr (BF16) {
+      // acc += p v over the tile's keys: each 8 output columns, the tile's
+      // 64 keys a partial sum, added in f32
 #pragma unroll
-        for (int kk = 0; kk < ON_KT / 16; ++kk) {
+      for (int n = 0; n < C / 8; ++n) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-          for (int j = 0; j < C / 8; j += 2) {
-            // two n8 column tiles: matrices (keys 16kk.., ch 8j), (16kk+8.., 8j), (16kk.., 8j+8), (16kk+8.., 8j+8)
-            uint32_t bb[4];
-            ldsm_x4_trans(bb, tile + (16 * kk + (lane & 15)) * LDT + 8 * j + ((lane >> 4) << 3));
-            const uint32_t b0[2] = {bb[0], bb[1]}, b1[2] = {bb[2], bb[3]};
-            mma_bf16(acc[j], pw[kk], b0);
-            mma_bf16(acc[j + 1], pw[kk], b1);
-          }
+        for (int j = 0; j < ON_NT; ++j) {
+          const T* vr = tile + (8 * j + 2 * t4) * LDT + 8 * n + g;
+          uint32_t bh[2], bl[2];
+          split(vr[0], bh[0], bl[0]);
+          split(vr[LDT], bh[1], bl[1]);
+          mma_3xtf32(part, ph[j], pl[j], bh, bl);
         }
-      } else {
-        // each 8 output columns: the tile's 64 keys a partial sum, added in f32
 #pragma unroll
-        for (int n = 0; n < C / 8; ++n) {
-          float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int j = 0; j < ON_NT; ++j) {
-            const T* vr = tile + (8 * j + 2 * t4) * LDT + 8 * n + g;
-            uint32_t bh[2], bl[2];
-            split(vr[0], bh[0], bl[0]);
-            split(vr[LDT], bh[1], bl[1]);
-            mma_3xtf32(part, ph[j], pl[j], bh, bl);
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
-        }
+        for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
       }
     }
     __syncthreads();  // this buffer is refilled next iteration
@@ -343,42 +284,27 @@ flash_online_kernel(const typename OnMode<BF16>::T* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < C / 8; ++j) {
       const float x0 = __fdiv_rn(acc[j][2 * h], l[h]), x1 = __fdiv_rn(acc[j][2 * h + 1], l[h]);
-      if constexpr (BF16)
-        *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) = __floats2bfloat162_rn(x0, x1);
-      else
-        *reinterpret_cast<float2*>(o0 + 8 * j) = make_float2(x0, x1);
+      *reinterpret_cast<float2*>(o0 + 8 * j) = make_float2(x0, x1);
     }
   }
 }
 
-template <bool BF16, int C>
+template <int C>
 int run_online(const void* q, const void* k, const void* v, void* o, int batch, int s,
                float scale, cudaStream_t st) {
-  using T = typename OnMode<BF16>::T;
-  constexpr int smem = on_smem(BF16, C);
+  constexpr int smem = on_smem(C);
   static bool attr = false;
   if (!attr) {
     const int err = (int)cudaFuncSetAttribute(
-        flash_online_kernel<BF16, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_online_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err) return err;
     attr = true;
   }
-  flash_online_kernel<BF16, C><<<dim3((s + ON_QT - 1) / ON_QT, batch), ON_THREADS, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, s, scale);
+  flash_online_kernel<C><<<dim3((s + ON_QT - 1) / ON_QT, batch), ON_THREADS, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, s, scale);
   const int err = (int)cudaGetLastError();
   if (!err) count_launch(COUNT_FLASH_ONLINE);
   return err;
-}
-
-template <bool BF16>
-int run_online_c(const void* q, const void* k, const void* v, void* o, int batch, int s, int c,
-                 float scale, cudaStream_t st) {
-  switch (c) {
-    case 64: return run_online<BF16, 64>(q, k, v, o, batch, s, scale, st);
-    case 128: return run_online<BF16, 128>(q, k, v, o, batch, s, scale, st);
-    case 256: return run_online<BF16, 256>(q, k, v, o, batch, s, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -386,14 +312,21 @@ int run_online_c(const void* q, const void* k, const void* v, void* o, int batch
 extern "C" {
 
 // K8 for S > 1024: q, k, v, o (B, S, C) contiguous, f32 (bf16 = 0) or bf16
-// (bf16 = 1); S a multiple of 16, C in {64, 128, 256}; scale = C^-0.5.
+// (bf16 = 1); S a multiple of 16, C in {64, 128, 256}; qt the queries a CTA
+// (ops/attention.py:flash_plan): bf16 128 or 64, f32 64; scale = C^-0.5.
 // Counted where it launches (COUNT_FLASH_ONLINE).
 int gddim_flash_online(const void* q, const void* k, const void* v, void* o, int batch, int s,
-                       int c, int bf16, float scale, void* stream) {
+                       int c, int qt, int bf16, float scale, void* stream) {
   if (s < 16 || s % 16 != 0 || batch < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? run_online_c<true>(q, k, v, o, batch, s, c, scale, st)
-              : run_online_c<false>(q, k, v, o, batch, s, c, scale, st);
+  if (bf16) return flash_online_wgmma(q, k, v, o, batch, s, c, qt, scale, st);
+  if (qt != ON_QT) return (int)cudaErrorInvalidValue;
+  switch (c) {
+    case 64: return run_online<64>(q, k, v, o, batch, s, scale, st);
+    case 128: return run_online<128>(q, k, v, o, batch, s, scale, st);
+    case 256: return run_online<256>(q, k, v, o, batch, s, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -12,9 +12,11 @@ Counterpart of ``gddim_tpu/ops/attention.py`` and ``gddim_tpu/ops/flash.py``:
   normalised weights rounded to bf16 before w v, the plain version's
   rounding points), so the 4x4 mid-block attention (S = 16), which the JAX
   package sends to XLA for the TPU's 128-lane gate, runs them too; S > 1024
-  the k-blocked online-softmax kernel of ``csrc/flash_online.cu`` with the
-  TPU blocked branch's rounding points (``flash_attention_blocked_reference``),
-  for any length;
+  the k-blocked online-softmax kernels with the TPU blocked branch's
+  rounding points (``flash_attention_blocked_reference``), for any length:
+  bf16 on ``csrc/flash_online_wgmma.cu`` (wgmma for q k^T and p v, fed by
+  TMA from a producer warpgroup, 64 or 128 queries a CTA by
+  ``flash_plan``), f32 on ``csrc/flash_online.cu`` (3xTF32 on mma.sync);
 - ``flash_attention_blocked_reference``: the plain version of the blocked
   branch (``flash.py:50-95``): the running max, sum and accumulator over
   512-key blocks, the unnormalised weights rounded to v's dtype, one
@@ -77,8 +79,19 @@ def flash_smem(bf16: bool, s: int, c: int, qt: int) -> int:
 
 
 ONLINE_MIN_S = 1024  # longer sequences take the online-softmax kernel (the JAX branch point)
-ONLINE_QT = 64  # its query tile (csrc/flash_online.cu)
-BLOCK_K = 512  # its statistics block, the TPU kernel's block_k
+ONLINE_QT = 64  # the f32 form's query tile (csrc/flash_online.cu)
+BLOCK_K = 512  # the statistics block, the TPU kernel's block_k
+
+
+def flash_online_smem(c: int, qt: int) -> int:
+    """Shared memory of one CTA of the bf16 online kernel
+    (``csrc/flash_online_wgmma.cu``, ``ow_smem``) with ``qt`` queries (one
+    consumer warpgroup each 64): the q tiles, a ring of 4 (qt 128) or 2 (qt
+    64, two CTAs an SM) K / V slices of 128 keys (64 at C = 256), 1 KB of
+    alignment and the mbarriers."""
+    stages = 4 if qt == 128 else 2
+    kn = 64 if c == 256 else 128
+    return qt * c * 2 + stages * kn * c * 2 + 1024 + 8 * (2 * stages + 1)
 
 
 def flash_online(s: int) -> bool:
@@ -96,15 +109,19 @@ def flash_supported(s: int, c: int) -> bool:
 
 
 def flash_plan(b: int, s: int, c: int, bf16: bool) -> int:
-    """K8's query tile: for S > 1024 the online-softmax kernel's 64; else 64
-    where the row stays in registers, or the largest of 64, 32, 16 that
+    """K8's query tile: for S > 1024 the online-softmax kernels' (bf16: 128
+    queries a CTA, two consumer warpgroups, where that grid covers at least
+    half the SMs, else 64, one warpgroup and two CTAs an SM; f32: 64); else
+    64 where the row stays in registers, or the largest of 64, 32, 16 that
     divides S and whose CTA fits shared memory, halved while the grid leaves
     SMs idle. Raises for shapes neither kernel takes (S not a multiple of
     16, C outside {64, 128, 256})."""
     if not flash_supported(s, c):
         raise ValueError(f"flash_attention: unsupported shape {(b, s, c)}")
     if flash_online(s):
-        return ONLINE_QT
+        if not bf16:
+            return ONLINE_QT
+        return 128 if 2 * b * -(-s // 128) >= SMS else 64
     if flash_in_registers(bf16, s):
         return 64
     tiles = [qt for qt in (64, 32, 16) if s % qt == 0 and flash_smem(bf16, s, c, qt) <= SMEM_MAX]
@@ -144,8 +161,8 @@ def flash_attention(q, k, v):
     """K8: (B, S, C) attention in q's dtype (f32 or bf16 on the card); S a
     multiple of 16, C in {64, 128, 256}: the whole-row kernels up to S =
     1024 (counted in ``flash_attention.launches``), the online-softmax
-    kernel above (counted in C: ``ops/resblock.py:block_launches``'s
-    flash_online_kernel)."""
+    kernels above, with ``flash_plan``'s queries a CTA (counted in C:
+    ``ops/resblock.py:block_launches``'s flash_online_kernel, both forms)."""
     if _on_cpu(q, "flash_attention"):
         return attention_xla(q, k, v)
     require_no_grad("flash_attention", q, k, v)
@@ -158,7 +175,7 @@ def flash_attention(q, k, v):
     out = torch.empty((b, s, c), device=q.device, dtype=q.dtype)
     if flash_online(s):
         _build.launch("gddim_flash_online", q.device, *map(_build.ptr, ops), out.data_ptr(),
-                      b, s, c, int(bf16), c ** -0.5)
+                      b, s, c, qt, int(bf16), c ** -0.5)
         return out
     _build.launch("gddim_flash_attention", q.device, *map(_build.ptr, ops), out.data_ptr(),
                   b, s, c, qt, int(bf16), c ** -0.5)

@@ -4,11 +4,13 @@ On the CPU: its plain version (``flash_attention_blocked_reference``, the
 TPU blocked branch's recurrence and rounding points) against the JAX
 package's ``flash_attention`` in interpret mode on the same inputs, f32 and
 bf16; the gate and plan (``flash_plan``: every S > 1024 that is a multiple
-of 16 takes the online kernel); the short last block; the wrapper's C call
-with ``_build.launch`` replaced; and a small NCSN++ that attends at its top
-level (48x48, S = 2304) against the JAX package's on the same weights.
-Cases marked ``cuda`` hold the kernel against its plain version on the card
-and skip without one (the card's machine runs them with ``pytest
+of 16 takes the online kernels, bf16 with 128 or 64 queries a CTA by grid
+fill, and each CTA fits shared memory); the short last block; the wrapper's
+C call with ``_build.launch`` replaced; and a small NCSN++ that attends at
+its top level (48x48, S = 2304) against the JAX package's on the same
+weights. Cases marked ``cuda`` hold the kernels against their plain version
+on the card, and the bf16 kernel's output against itself on a second
+launch, and skip without one (the card's machine runs them with ``pytest
 --noconftest -m cuda``; the JAX package is imported only by CPU cases).
 """
 
@@ -89,15 +91,32 @@ def test_blocked_reference_short_last_block():
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("b,s,c,bf16", [
-    (1, 2048, 128, False), (1, 2048, 256, True), (1, 1040, 64, True), (2, 3072, 128, True),
-    (16, 4096, 128, True), (4, 4096, 256, True), (8, 4096, 128, False), (1, 16384, 128, True),
-    (1, 65536, 256, False), (1, 65536, 64, True)])
-def test_flash_online_plan(b, s, c, bf16):
-    """Every S > 1024 that is a multiple of 16 takes the online kernel, at
-    any length (its 64-query CTA keeps nothing per key)."""
+@pytest.mark.parametrize("b,s,c,bf16,qt", [
+    (1, 2048, 128, False, 64), (1, 2048, 256, True, 64), (1, 1040, 64, True, 64),
+    (2, 3072, 128, True, 64), (16, 4096, 128, True, 128), (4, 4096, 256, True, 128),
+    (8, 4096, 128, False, 64), (1, 16384, 128, True, 128), (1, 65536, 256, False, 64),
+    (1, 65536, 64, True, 128), (8, 4096, 64, True, 128), (2, 2064, 128, True, 64),
+    (5, 1664, 256, True, 64), (6, 1408, 256, True, 128)])
+def test_flash_online_plan(b, s, c, bf16, qt):
+    """Every S > 1024 that is a multiple of 16 takes the online kernels, at
+    any length (a CTA keeps nothing per key): f32 64 queries a CTA; bf16
+    128 (two consumer warpgroups) where B * ceil(S / 128) CTAs cover at
+    least half the 132 SMs, else 64 (one warpgroup, two CTAs an SM)."""
     assert t_att.flash_online(s)
-    assert t_att.flash_plan(b, s, c, bf16) == t_att.ONLINE_QT
+    assert t_att.flash_plan(b, s, c, bf16) == qt
+
+
+@pytest.mark.parametrize("c", [64, 128, 256])
+def test_flash_online_smem_fits(c):
+    """The bf16 kernel's CTA fits the H100's shared memory at every plan and
+    length, and two of the 64-query CTAs fit one SM (228 KB, 1 KB of each
+    reserved), as their launch bounds assume."""
+    for s in range(1040, 65537, 16 * 97):
+        for b in (1, 2, 16, 64):
+            qt = t_att.flash_plan(b, s, c, True)
+            assert t_att.flash_online_smem(c, qt) <= t_att.SMEM_MAX
+    assert 2 * (t_att.flash_online_smem(c, 64) + 1024) <= 228 * 1024
+    assert t_att.flash_online_smem(c, 128) <= t_att.SMEM_MAX
 
 
 def test_whole_row_kernels_keep_s_up_to_1024():
@@ -118,8 +137,8 @@ def test_flash_attention_cpu_long_sequence_is_the_plain_version():
 def test_flash_attention_calls_the_online_entry(monkeypatch):
     """On a CUDA tensor (CPU tensors with the device test and ``_build.launch``
     replaced) S > 1024 calls gddim_flash_online with its signature's
-    arguments; S <= 1024 the whole-row entry, which alone counts in
-    flash_attention.launches."""
+    arguments (B, S, C, the plan's queries a CTA, bf16); S <= 1024 the
+    whole-row entry, which alone counts in flash_attention.launches."""
     calls = []
 
     def launch(name, device, *args):
@@ -131,11 +150,15 @@ def test_flash_attention_calls_the_online_entry(monkeypatch):
     monkeypatch.setattr(t_att, "_on_cpu", lambda x, what: False)
     monkeypatch.setattr(t_att, "_operand", lambda t, what, dtype, shape=None: t)
     monkeypatch.setattr(t_att.flash_attention, "launches", 0)
-    for s, dtype in ((2048, torch.bfloat16), (4096, torch.float32), (256, torch.bfloat16)):
-        q = torch.zeros((2, s, 128), dtype=dtype)
+    for b, s, dtype in ((2, 2048, torch.bfloat16), (2, 4096, torch.float32),
+                        (1, 16384, torch.bfloat16), (2, 256, torch.bfloat16)):
+        q = torch.zeros((b, s, 128), dtype=dtype)
         assert t_att.flash_attention(q, q, q).dtype == dtype
-    assert [n for n, _ in calls] == ["gddim_flash_online"] * 2 + ["gddim_flash_attention"]
-    assert calls[0][1][4:8] == (2, 2048, 128, 1) and calls[1][1][4:8] == (2, 4096, 128, 0)
+    assert [n for n, _ in calls] == ["gddim_flash_online"] * 3 + ["gddim_flash_attention"]
+    assert calls[0][1][4:9] == (2, 2048, 128, 64, 1)
+    assert calls[1][1][4:9] == (2, 4096, 128, 64, 0)
+    assert calls[2][1][4:9] == (1, 16384, 128, 128, 1)
+    assert calls[0][1][9] == pytest.approx(128 ** -0.5)
     assert t_att.flash_attention.launches == 1
 
 
@@ -215,7 +238,8 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,s,c", [(2, 1040, 64), (1, 2048, 256), (2, 3072, 128),
-                                   (1, 4096, 256)])
+                                   (1, 4096, 256), (8, 4096, 64), (2, 2064, 128),
+                                   (1, 16384, 128)])
 def test_flash_online_kernel_matches_plain(cuda, b, s, c, dtype):
     g = torch.Generator(device=cuda).manual_seed(63)
     q, k, v = (torch.randn((b, s, c), generator=g, device=cuda).to(dtype) for _ in range(3))
@@ -226,3 +250,17 @@ def test_flash_online_kernel_matches_plain(cuda, b, s, c, dtype):
     bound = K8_BF16_BOUND if dtype == torch.bfloat16 else K8_F32_BOUND
     assert got.dtype == dtype
     assert rel_err(got.float().cpu(), want.float().cpu()) <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c", [(2, 2064, 128), (16, 4096, 128), (4, 4096, 256)])
+def test_flash_online_kernel_repeats_bit_for_bit(cuda, b, s, c):
+    """The bf16 kernel launched twice on the same inputs writes the same bits
+    (no atomics, a fixed summation order), at 64 and 128 queries a CTA."""
+    g = torch.Generator(device=cuda).manual_seed(64)
+    q, k, v = (torch.randn((b, s, c), generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    first = t_att.flash_attention(q, k, v)
+    second = t_att.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
