@@ -138,17 +138,20 @@ Phases (each prints one line per check; any failure raises and exits non-zero):
      trunk with DDPM blocks and both pyramids, one eps eval (K2 with the
      NIN skip);
   7d'. long_attn: K8's online-softmax kernels (S > 1024; bf16 on wgmma,
-     csrc/flash_online_wgmma.cu, f32 on mma.sync) at SHAPES["K8-online"]
-     against their plain version with the TPU blocked branch's rounding
-     points (bf16 K8_BF16_BOUND, f32 K8_F32_BOUND), device time beside SDPA,
-     the bound and TFLOP/s; then cld/ddpmpp_celeba with
+     csrc/flash_online_wgmma.cu, f32 on 3xTF32 wgmma, csrc/flash_online.cu,
+     after its split pre-pass) at SHAPES["K8-online"] against their plain
+     version with the TPU blocked branch's rounding points (bf16
+     K8_BF16_BOUND, f32 K8_F32_BOUND), device time beside SDPA, the bound
+     and TFLOP/s, and the f32 form's pre-pass alone bit for bit against its
+     plain version (online_split_reference); then cld/ddpmpp_celeba with
      model.attn_resolutions (16, 64) (5 attention blocks at S = 4096): one
      eps eval under 'fused', 'fused_int8' (static scales calibrated on the
      card) and 'pallas' against the f32 plain path, deis-2 NFE=50 at --batch
      under each
      (finite samples, launches nfe x the eval's, img/s), one f32 training
      step at B=32 against the plain path (the step gates); the online
-     kernel's launches held to the 64x64 attention blocks in each;
+     kernel's launches (and in the f32 step its pre-pass's) held to the
+     64x64 attention blocks in each;
   7d. f32: the f32 path (model.dtype float32, conv_impl 'fused', the
      transitions 'full'): one full-width eps evaluation (B=4, t=0.5)
      against the f32 plain path with its launch counts (every block on the
@@ -615,11 +618,17 @@ KERNELS = {
     "K8": dict(name="flash_attention", route="cuda", source="gddim_torch/csrc/flash.cu",
                replaces="gddim_tpu/ops/flash.py:97"),
     # K8's k-blocked online-softmax kernels, S > 1024 (flash.cu takes S <=
-    # 1024): bf16 on wgmma fed by TMA (the sampling path), f32 on the
-    # mma.sync kernel of csrc/flash_online.cu (the f32 training step)
+    # 1024): bf16 on wgmma fed by TMA (the sampling path), f32 on 3xTF32
+    # wgmma fed by TMA (the f32 training step), after its split pre-pass
+    # (q, k and v^T into TF32 hi and lo planes)
     "K8-online": dict(name="flash_attention", route="cuda",
                       source="gddim_torch/csrc/flash_online_wgmma.cu",
                       replaces="gddim_tpu/ops/flash.py:134"),
+    "K8-online-f32": dict(name="flash_attention", route="cuda",
+                          source="gddim_torch/csrc/flash_online.cu",
+                          replaces="gddim_tpu/ops/flash.py:134"),
+    "K8-split": dict(name="online_split", route="cuda", source="gddim_torch/csrc/flash_online.cu",
+                     replaces="gddim_tpu/ops/flash.py:134"),
     # the int8 blocks' static skip projection (act_scales [s1, s2, sx]; K2, K3,
     # K4 and K9): q(x) by the int8 pre-pass, its 1x1 on the int8 block GEMM,
     # added as conv2's f32 residual
@@ -742,10 +751,12 @@ SHAPES = {
     "K10": [(16, 256), (4, 256)],
     # K8's online-softmax kernels (B, S, C, dtype): 64x64 attention at the
     # CelebA sampling batch, C = 256, S = 3072, 128x128, C = 64, a ragged S
-    # (its last block and slice 16 keys), and f32
+    # (its last block and slice 16 keys); f32 at each C and the ragged S, and
+    # at the CelebA training batch (32)
     "K8-online": [(16, 4096, 128, "bf16"), (4, 4096, 256, "bf16"), (2, 3072, 128, "bf16"),
                   (1, 16384, 128, "bf16"), (8, 4096, 64, "bf16"), (2, 2064, 128, "bf16"),
-                  (8, 4096, 128, "f32")],
+                  (8, 4096, 128, "f32"), (4, 4096, 256, "f32"), (8, 4096, 64, "f32"),
+                  (2, 2064, 128, "f32"), (32, 4096, 128, "f32")],
 }
 GRADS = ["dx", "dtemb", "dgn1s", "dgn1b", "dw1", "db1", "dgn2s", "dgn2b", "dw2", "db2", "dwsk",
          "dbsk"]
@@ -819,6 +830,23 @@ class Inputs:
 
 def _f32(args):
     return [a.float() if isinstance(a, torch.Tensor) else a for a in args]
+
+
+def _f64(args):
+    return [a.double() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+            for a in args]
+
+
+def _f64_eval(fn):
+    """fn() with every Tensor.float() taken as Tensor.double(): a plain
+    version evaluated in f64 on f64 inputs (_f64) and the same int8 weights
+    and scales, its bf16 rounding points kept, each quantization decided on
+    f64 values."""
+    torch.Tensor.float = lambda self, *a, **kw: self.double()
+    try:
+        return fn()
+    finally:
+        del torch.Tensor.float
 
 
 def kernel_cases(B: int, shapes=SHAPES):
@@ -3552,7 +3580,8 @@ DEVICE_COUNTED = {"S8-GEMM": "block_gemm_kernel<int8>", "S8-prepass": "prepass_k
                   "wgrad": "wgrad_kernel",
                   "GN-bwd": "gn_bwd_kernel", "GN2-prepass": "gn_prepass_kernel",
                   "K8-online": "flash_online_kernel",
-                  "S8-skip": "block_gemm_kernel<int8, static skip>"}
+                  "S8-skip": "block_gemm_kernel<int8, static skip>",
+                  "K8-split": "online_split_kernel"}
 
 
 def reset_counts():
@@ -6384,14 +6413,16 @@ def phase_scripts(card: str):
 # calibration's "x" amaxes through the ops API (the model never passes sx)
 # ---------------------------------------------------------------------------
 
-def static_skip_cases(B: int, inp):
+def static_skip_cases(B: int, inp, amax_of=None):
     """(kernel, label, static fn, dynamic-skip fn, plain fn, kernel args, the
-    skip's f32 input) of every int8 block with a 1x1 skip at the sampling
-    path's shapes (SHAPES' K2 with Cin != Cout, K3, K4, K9), seeded inputs
-    (int8_kernel_cases' draws), static scales [s1, s2, sx] from INT8_AMAX
-    and an "x" amax of 4 (the N(0, 1) inputs reach about 5: a few clip).
-    The dynamic-skip fn is the same call with the bf16 skip and [s1, s2];
-    the static fn passes its keywords on (skip_buffers)."""
+    skip's f32 input, the plain fn in f64 (_f64_eval)) of every int8 block
+    with a 1x1 skip at the sampling path's shapes (SHAPES' K2 with Cin !=
+    Cout, K3, K4, K9), seeded inputs (int8_kernel_cases' draws), static
+    scales [s1, s2, sx] from INT8_AMAX and an "x" amax of 4 (the N(0, 1)
+    inputs reach about 5: a few clip), or from amax_of(kernel, label)'s
+    (a1, a2, x) where it gives them. The dynamic-skip fn is the same call
+    with the bf16 skip and [s1, s2]; the static fn passes its keywords on
+    (skip_buffers)."""
     from gddim_torch.ops import resblock as rb
 
     qk = lambda *shape: rb.pack_int8_weight(rb.quantize_weight(inp.w(*shape)))  # noqa: E731
@@ -6401,10 +6432,13 @@ def static_skip_cases(B: int, inp):
     def case(kernel, label, fn, plain, head, cin, cout, tail, x_skip, **kw):
         ws = inp.w(cin, cout)
         wq = rb.pack_skip_int8(rb.quantize_weight(ws))
-        args = (*head, wq, tail, s3)
-        dyn = (*head, ws, tail, s3[:2])
+        am = amax_of(kernel, label) if amax_of else None
+        sc = s3 if am is None else torch.stack(rb.act_scales_from_amax(am)).cuda()
+        args = (*head, wq, tail, sc)
+        dyn = (*head, ws, tail, sc[:2])
         return (kernel, f"{tag}{label}", lambda **o: fn(*args, **kw, **o),
-                lambda: fn(*dyn, **kw), lambda: plain(*_f32(args), **kw), args, x_skip.float())
+                lambda: fn(*dyn, **kw), lambda: plain(*_f32(args), **kw), args, x_skip.float(),
+                lambda: _f64_eval(lambda: plain(*_f64(args), **kw)))
 
     for h, cin, cout in SHAPES["K2"]:
         if cin == cout:
@@ -6458,7 +6492,7 @@ def check_static_skip(res: dict, case, B: int, card: str):
     the bound, and the skip product alone beside torch._int_mm."""
     from gddim_torch.ops import resblock as rb
 
-    kernel, label, fused, dynamic, plain, args, x_skip = case
+    kernel, label, fused, dynamic, plain, args, x_skip, _ = case
     bufs = {}
     out = fused(skip_buffers=bufs)
     torch.cuda.synchronize()
@@ -6614,6 +6648,130 @@ def static_skip_path(card: str, batch: int) -> dict:
     return {"S8-skip": launched}
 
 
+def _skip_label(kind: str, head, block) -> str:
+    """static_skip_cases' label of a traced block's _skip_block_call."""
+    cout = block.conv1.weight.shape[-1]
+    b, h, _, c = head[0].shape
+    if kind == "K3-int8":
+        return f"{h}x{h} {c}+{head[1].shape[-1]}->{cout}"
+    if kind == "K9-int8":
+        return f"{'up' if block.up else 'down'} {h}x{h} {c}->{cout}"
+    return f"{h}x{h} {c}->{cout}"
+
+
+def calibrated_skip_amaxes(card: str) -> dict:
+    """cld/accr_dcifar10 ('fused_int8', seeded weights) calibrated on the
+    card (calibrate_int8, as static_skip_path), one eps eval at B=4 with the
+    transitions 'tail' and one 'full', whose int8 blocks with a 1x1 skip a
+    forward pre-hook traces: {(kernel, static_skip_cases label): [(a1, a2,
+    x) calibrated amaxes of each such block]}."""
+    from gddim_torch.cli import build_model, calibrate_int8
+    from gddim_torch.configs import get_config
+    from gddim_torch.math.cld import CLD
+    from gddim_torch.models import blocks
+    from gddim_torch.models.wrappers import make_cld_eps_fn
+
+    config = get_config("cld/accr_dcifar10")
+    config.model.conv_impl = "fused_int8"
+    model = build_model(config, "cuda", None, seed=0)
+    calibrate_int8(config, model, seed=0)
+    eps_apply = make_cld_eps_fn(CLD.from_config(config))
+    traced = []
+
+    def hook(block, args, kw):
+        if kw.get("int8") and block.skip is not None:
+            traced.append((block, args[0], args[1], kw))
+
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True) for m in model.modules()
+               if isinstance(m, blocks.ResnetBlockBigGANpp)]
+    u, t = eps_inputs(4)
+    try:
+        with torch.inference_mode():
+            for transition in ("tail", "full"):
+                model.transition = transition
+                eps_apply(model, u, t)
+    finally:
+        for handle in handles:
+            handle.remove()
+    out = {}
+    with torch.inference_mode():
+        for block, x, temb, kw in traced:
+            call = _skip_block_call(block, x, temb, kw)
+            if call is None:
+                continue
+            qs = kw["qscales"]
+            key = (call[0], _skip_label(call[0], call[2], block))
+            am = tuple(float(qs[k]) for k in ("a1", "a2", "x"))
+            if am not in out.setdefault(key, []):
+                out[key].append(am)
+    print(f"static skip calibration [{card}]: (a1, a2, x) amaxes " + "; ".join(
+        f"{k} [{label}] {ams[0]}" + (f" (+{len(ams) - 1} more blocks)" if len(ams) > 1 else "")
+        for (k, label), ams in sorted(out.items())), flush=True)
+    del model
+    return out
+
+
+def phase_static_skip_calib(card: str):
+    """The int8 blocks' static skip at its 18 shapes (static_skip_cases, B=4,
+    the default gate's seeded inputs) with accr's calibrated amaxes
+    (calibrated_skip_amaxes; a label's first block): "x" alone (s1, s2 from
+    INT8_AMAX, as the gate), then all three. For each: the kernel against
+    the f32 plain version (the gate's rel), and the kernel and the plain
+    version each against the plain version evaluated in f64 on the same
+    int8 weights and scales (_f64_eval), max|err| / max|f64|; the share of
+    skip inputs that clip and of those that quantize to 0. Information:
+    raises only on a non-finite output."""
+    from gddim_torch.ops import resblock as rb
+
+    amaxes = calibrated_skip_amaxes(card)
+    for variant in ("x", "a1, a2, x"):
+        def amax_of(kernel, label, variant=variant):
+            ams = amaxes.get((kernel, label))
+            if not ams:
+                return None
+            return ams[0] if variant != "x" else INT8_AMAX["res"] + (ams[0][2],)
+
+        rows = []
+        for case in static_skip_cases(4, Inputs(8), amax_of):
+            kernel, label, fused, _, plain, args, x_skip, plain64 = case
+            if amax_of(kernel, label) is None:
+                print(f"static skip calibrated ({variant}) {kernel} [{label}]: no calibrated "
+                      "block of this shape", flush=True)
+                continue
+            with torch.inference_mode():
+                out, ref = fused().float(), plain().float()
+                torch.cuda.synchronize()
+                ref64 = plain64()
+            den = ref64.abs().max().item()
+            gate = _rel(out, ref)
+            k64 = (out.double() - ref64).abs().max().item() / den
+            p64 = (ref.double() - ref64).abs().max().item() / den
+            # the kernel writes bf16: against the f64 output rounded once to
+            # bf16, what is left is int8 steps that flipped
+            r64 = ref64.to(torch.bfloat16).double()
+            k64r = (out.double() - r64).abs().max().item() / den
+            flips = (out.double() != r64).double().mean().item()
+            sx = args[-1].float()[2]
+            xq = rb.quant_static(x_skip, sx)
+            clip = (xq.abs() == 127).float().mean().item()
+            zero = (xq == 0).float().mean().item()
+            rows.append((gate, k64, p64, k64r))
+            print(f"static skip calibrated ({variant}) {kernel} [{label}]: scales "
+                  f"{[round(v, 6) for v in args[-1].tolist()]}; kernel vs plain rel {gate:.3e} "
+                  f"(gate {KERNEL_BOUND['S8-skip']:.0e}); vs f64: kernel {k64:.3e}, plain "
+                  f"{p64:.3e}; kernel vs bf16(f64) {k64r:.3e} ({flips:.3%} of outputs "
+                  f"differ); max|f64 out| {den:.4f}, max|kernel - plain| "
+                  f"{(out - ref).abs().max().item():.4e}; q(x) clipped {clip:.2%}, zero "
+                  f"{zero:.2%} [{card}]", flush=True)
+            if not (np.isfinite(gate) and np.isfinite(k64)):
+                raise AssertionError(f"static skip calibrated {kernel} {label}: not finite")
+        if rows:
+            print(f"static skip calibrated ({variant}): {len(rows)} blocks; kernel vs plain rel up "
+                  f"to {max(r[0] for r in rows):.3e}; vs f64 kernel up to "
+                  f"{max(r[1] for r in rows):.3e}, plain up to {max(r[2] for r in rows):.3e}; "
+                  f"kernel vs bf16(f64) up to {max(r[3] for r in rows):.3e}", flush=True)
+
+
 def phase_static_skip(results: dict, batch_results: dict, card: str, batches=(4, 16, 64),
                       path_batch: int = 16) -> dict:
     """The int8 blocks' static skip: each block with a 1x1 skip alone at the
@@ -6647,11 +6805,14 @@ def check_online_attention(results: dict, q, k, v, tol: float, card: str):
     """K8's online-softmax kernel on q/k/v of one dtype (launched once,
     counted in C) against its plain version with the TPU blocked branch's
     rounding points on the same inputs, beside scaled_dot_product_attention
-    on (B, 1, S, C) views in that dtype; device times from CUDA graphs."""
+    on (B, 1, S, C) views in that dtype; device times from CUDA graphs. bf16
+    rows go to K8-online, f32 rows (the entry: the split pre-pass and the
+    kernel) to K8-online-f32."""
     from gddim_torch.ops import attention, resblock as rb
 
     (b, s_, c), dt = q.shape, str(q.dtype).split(".")[-1]
     label = f"{dt} B={b} S={s_} C={c}"
+    row = "K8-online" if dt == "bfloat16" else "K8-online-f32"
     qt = attention.flash_plan(b, s_, c, dt == "bfloat16")
     fused = lambda: attention.flash_attention(q, k, v)  # noqa: E731
     plain = lambda: attention.flash_attention_blocked_reference(q, k, v)  # noqa: E731
@@ -6676,10 +6837,43 @@ def check_online_attention(results: dict, q, k, v, tol: float, card: str):
           f"graph) ms={dev_ms:.4f} sdpa_ms={library_dev_ms:.4f} "
           f"({verdict(dev_ms, library_dev_ms)}), {prod / dev_ms / 1e9:.1f} TFLOP/s counted on "
           f"4 S^2 C, {qt} queries a CTA [{card}]", flush=True)
-    _record(results, "K8-online", label, err, rel, ms, plain_ms, bd, library_ms=library_ms,
+    _record(results, row, label, err, rel, ms, plain_ms, bd, library_ms=library_ms,
             graph_ms=dev_ms, library_graph_ms=library_dev_ms)
     if not np.isfinite(rel) or rel > tol:
         raise AssertionError(f"K8-online {label}: rel err {rel:.3e} > {tol:.0e}")
+
+
+def check_online_split(results: dict, q, k, v, card: str):
+    """The f32 online kernel's split pre-pass alone (``online_split``,
+    launched once, counted in C): its six planes bit for bit against the
+    plain version (``online_split_reference``: hi = TF32 round to nearest,
+    lo = the rest, v^T's keys in the kernel's order), its time beside the
+    bound (the bytes: q, k, v read once, six planes written) and the plain
+    version's; no single PyTorch call computes the split (library_ms None)."""
+    from gddim_torch.ops import attention, resblock as rb
+
+    b, s_, c = q.shape
+    label = f"B={b} S={s_} C={c}"
+    before = rb.block_launches()["online_split_kernel"]
+    got = attention.online_split(q, k, v)
+    torch.cuda.synchronize()
+    if rb.block_launches()["online_split_kernel"] != before + 1:
+        raise AssertionError(f"K8-split {label}: the pre-pass did not launch once")
+    want = attention.online_split_reference(q, k, v)
+    differ = sum(int((g != w).sum().item()) for g, w in zip(got, want))
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    fused = lambda: attention.online_split(q, k, v)  # noqa: E731
+    plain = lambda: attention.online_split_reference(q, k, v)  # noqa: E731
+    ms, plain_ms, dev_ms = time_ms(fused, 10), time_ms(plain, 3), graph_ms(fused, 10)
+    bd = bound(nbytes(q, k, v, got), {})
+    print(f"kernel K8-split online_split [{label}]: {differ} of {sum(w.numel() for w in want)} "
+          f"plane elements differ from the plain version (max|err|={err:.3e}) ms={ms:.4f} "
+          f"device (CUDA graph) ms={dev_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bd[0]:.4f} "
+          f"(bytes) [{card}]", flush=True)
+    _record(results, "K8-split", label, err, 0.0 if differ == 0 else float("inf"), ms, plain_ms,
+            bd, graph_ms=dev_ms)
+    if differ:
+        raise AssertionError(f"K8-split {label}: {differ} plane elements differ")
 
 
 def long_attn_blocks(config) -> int:
@@ -6695,6 +6889,8 @@ def online_kernels(results: dict, card: str) -> None:
     """K8's online-softmax kernels alone at SHAPES["K8-online"]
     (check_online_attention); also the opt-in phase online_time, which a
     parent's checkout runs too (copy this script there)."""
+    from gddim_torch.ops import attention
+
     g = torch.Generator(device="cuda").manual_seed(71)
     for b, s_, c, dt in SHAPES["K8-online"]:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
@@ -6702,6 +6898,9 @@ def online_kernels(results: dict, card: str) -> None:
                    for _ in range(3))
         check_online_attention(results, q, k, v, K8_BF16_BOUND if dt == "bf16" else K8_F32_BOUND,
                                card)
+        # the f32 form's pre-pass (a parent's checkout has none)
+        if dt == "f32" and hasattr(attention, "online_split"):
+            check_online_split(results, q, k, v, card)
         del q, k, v
 
 
@@ -6753,10 +6952,64 @@ def phase_long_attn(results: dict, card: str, batch: int) -> dict:
     model.int8, model.layer = False, None
     del model
     train = configs_train(card, **LONG_ATTN_FIELDS)
-    if train.get("K8-online") != n_long:
+    if train.get("K8-online") != n_long or train.get("K8-split") != n_long:
         raise AssertionError(f"{tag} train: online kernel launches {train} for {n_long} blocks")
+    # the f32 form and its pre-pass ran in the f32 training step
+    launches.update({"K8-online-f32": train["K8-online"], "K8-split": train["K8-split"]})
     print(f"long_attn phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
+
+
+def phase_online_span(card: str):
+    """The f32 training step of cld/ddpmpp_celeba with attn_resolutions (16,
+    64) at CELEBA_TRAIN_BATCH (one loss + backward, as configs_train takes
+    it), wall time over 3 steps and two traced steps: device time as the
+    kernels' sum and union, and the online-softmax kernels' share (every
+    kernel whose name holds "online": the kernel, and its split pre-pass
+    where the tree has one). Uses only what a parent's checkout has too
+    (copy this file there to run it on the parent)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gddim_torch.configs import train_config
+    from gddim_torch.math.cld import CLD
+    from gddim_torch.models.init import seeded_model
+    from gddim_torch.train.losses import make_cld_loss_fn
+
+    config = train_config("cld/ddpmpp_celeba")
+    for key, val in LONG_ATTN_FIELDS.items():
+        setattr(config.model, key, val)
+    b, size = CELEBA_TRAIN_BATCH, config.data.image_size
+    model = seeded_model(config, seed=0, device="cuda").train()
+    sde = CLD.from_config(config)
+    loss_fn = make_cld_loss_fn(sde, train=True)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    images = 2 * torch.rand((b, size, size, 3), generator=g, device="cuda") - 1
+    t = 1e-5 + (sde.T - 1e-5) * torch.rand((b,), generator=g, device="cuda")
+    z = torch.randn((b, size, size, 3, 2), generator=g, device="cuda")
+    step = lambda: _loss_and_grads(model, loss_fn, images, t, z, seed=9)  # noqa: E731
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 3 * 1e3
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        hit = [(k, m, n) for k, m, n in dev if "online" in k]
+        total = sum(m for _, m, _ in dev)
+        online = sum(m for _, m, _ in hit)
+        print(f"span f32 train step cld/ddpmpp_celeba attn (16, 64) B={b} [{card}]: wall "
+              f"{wall:.3f} ms (3 untraced steps); kernels {sum(n for *_, n in dev)}, sum "
+              f"{total:.3f} ms, union {busy_ms(prof):.3f} ms; online {online:.3f} ms "
+              f"({online / total:.1%} of the sum): "
+              + ", ".join(f"{k[:48]} {m:.3f} ms {n}x" for k, m, n in hit), flush=True)
+    del model
 
 
 def main(argv=None):
@@ -6775,9 +7028,13 @@ def main(argv=None):
     # f32 B=64 eval), k1_time (K1 at its sites, B=4/16/64, beside
     # F.group_norm; --k1-save / --k1-ref hold two trees' outputs), each of the
     # three on a parent's checkout too; static_skip (the int8 blocks' static
-    # skip path alone, as the kernels phase runs it); online_time (K8's
+    # skip path alone, as the kernels phase runs it), static_skip_calib (its
+    # 18 shapes with accr's calibrated amaxes, kernel and plain version each
+    # against an f64 evaluation); online_time (K8's
     # online-softmax kernels alone, as long_attn runs them; a parent's
-    # checkout runs it too)
+    # checkout runs it too), online_span (the f32 B=32 CelebA step with
+    # 64x64 attention traced: the online kernels' share; a parent's checkout
+    # runs it too)
     parser.add_argument("--phases", default="build,kernels,eps,gates,sample,int8,blur,samplers,"
                         "blur_deis,configs,long_attn,f32,train,blur_train,run_lib,layer_f32,"
                         "train_layer,remat,adamw,points,classifier,ref,corpora,compat,legacy,"
@@ -6905,6 +7162,9 @@ def main(argv=None):
     if "online_time" in phases:
         online_kernels(results, card)
         lap("online_time")
+    if "online_span" in phases:
+        phase_online_span(card)
+        lap("online_span")
     if "f32" in phases:
         f32_counts = phase_f32(card, args.batch)
         counts.update({k: n for k, n in f32_counts.items() if k not in counts})
@@ -6978,6 +7238,9 @@ def main(argv=None):
     if "train_gemms" in phases and "kernels" not in phases:
         check_train_gemms({}, {})
         lap("train_gemms")
+    if "static_skip_calib" in phases:
+        phase_static_skip_calib(card)
+        lap("static_skip_calib")
     if "static_skip" in phases and "kernels" not in phases:
         phase_static_skip({}, {}, card)
         lap("static_skip")

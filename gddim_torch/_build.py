@@ -155,9 +155,12 @@ _SIGNATURES = {
     "gddim_wgrad": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # gddim_flash_attention(q, k, v, o, B, S, C, qt, bf16, scale, stream)
     "gddim_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # gddim_flash_online(q, k, v, o, B, S, C, qt, bf16, scale, stream): K8 for S > 1024,
-    #   qt the queries a CTA (ops/attention.py:flash_plan)
-    "gddim_flash_online": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # gddim_flash_online(q, k, v, o, B, S, C, qt, bf16, scale, work, stream): K8 for
+    #   S > 1024, qt the queries a CTA (ops/attention.py:flash_plan), work the f32 form's
+    #   scratch (ops/attention.py:online_workspace; NULL for bf16)
+    "gddim_flash_online": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
+    # gddim_flash_online_split(q, k, v, work, B, S, C, stream): the f32 form's pre-pass alone
+    "gddim_flash_online_split": [_P, _P, _P, _P, _I, _I, _I, _P],
     # gddim_attention_core(qkv, B, S, C, stages, mode, qs, amax, out, stream)
     "gddim_attention_core": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # gddim_attnblock(x, act_f32, gn_g, gn_b, groups, wqkv, bqkv, wo, bo, B, H, W, C, eps,

@@ -114,8 +114,9 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t strea
 // (K6, K7) apart from the bf16 ones of the sampling path, K7's GroupNorm
 // backward (resblock_bwd.cu), GN2's folding pre-pass (gn_prepass_kernel,
 // every mode; counted as its mode's pre-pass too), K8's online-softmax
-// kernel (flash_online.cu), and the int8 blocks' static skip GEMM (counted
-// as the int8 GEMM too).
+// kernels (flash_online.cu's f32 and flash_online_wgmma.cu's bf16 form),
+// the int8 blocks' static skip GEMM (counted as the int8 GEMM too), and the
+// f32 online kernel's split pre-pass (online_split_kernel).
 enum Counted {
   COUNT_GEMM_S8 = 0,
   COUNT_PREPASS_S8 = 1,
@@ -131,7 +132,8 @@ enum Counted {
   COUNT_GN2_PREPASS = 11,
   COUNT_FLASH_ONLINE = 12,
   COUNT_STATIC_SKIP = 13,
-  N_COUNTED = 14
+  COUNT_ONLINE_SPLIT = 14,
+  N_COUNTED = 15
 };
 void count_launch(Counted kernel);
 

@@ -16,7 +16,9 @@ Counterpart of ``gddim_tpu/ops/attention.py`` and ``gddim_tpu/ops/flash.py``:
   rounding points (``flash_attention_blocked_reference``), for any length:
   bf16 on ``csrc/flash_online_wgmma.cu`` (wgmma for q k^T and p v, fed by
   TMA from a producer warpgroup, 64 or 128 queries a CTA by
-  ``flash_plan``), f32 on ``csrc/flash_online.cu`` (3xTF32 on mma.sync);
+  ``flash_plan``), f32 on ``csrc/flash_online.cu`` (3xTF32 on wgmma fed by
+  TMA, after a pre-pass that splits q, k and v^T into TF32 hi and lo planes:
+  ``online_split``, plain version ``online_split_reference``);
 - ``flash_attention_blocked_reference``: the plain version of the blocked
   branch (``flash.py:50-95``): the running max, sum and accumulator over
   512-key blocks, the unnormalised weights rounded to v's dtype, one
@@ -79,8 +81,9 @@ def flash_smem(bf16: bool, s: int, c: int, qt: int) -> int:
 
 
 ONLINE_MIN_S = 1024  # longer sequences take the online-softmax kernel (the JAX branch point)
-ONLINE_QT = 64  # the f32 form's query tile (csrc/flash_online.cu)
 BLOCK_K = 512  # the statistics block, the TPU kernel's block_k
+# the f32 form's key order within each 8 keys of v^T (csrc/flash_online.cu)
+ONLINE_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
 def flash_online_smem(c: int, qt: int) -> int:
@@ -92,6 +95,78 @@ def flash_online_smem(c: int, qt: int) -> int:
     stages = 4 if qt == 128 else 2
     kn = 64 if c == 256 else 128
     return qt * c * 2 + stages * kn * c * 2 + 1024 + 8 * (2 * stages + 1)
+
+
+def online_f32_qt(c: int) -> int:
+    """The f32 online kernel's queries a CTA (``csrc/flash_online.cu``,
+    ``OtShape<C>::NWG`` consumer warpgroups of 64): 128 at C = 64 and 128,
+    64 at C = 256, where one warpgroup's q planes fill half the CTA's shared
+    memory."""
+    return 64 if c == 256 else 128
+
+
+def flash_online_f32_smem(c: int, qt: int) -> int:
+    """Shared memory of one CTA of the f32 online kernel
+    (``csrc/flash_online.cu``, ``ot_smem``) with ``qt`` queries: the q
+    planes (hi and lo, 64 rows x C f32 each, a consumer warpgroup each 64
+    queries), a ring of planes of KN keys x C f32 (KN 64, or 32 at C = 256;
+    8 stages at C = 64, else 3), 1 KB of alignment and the mbarriers."""
+    stages = 8 if c == 64 else 3
+    kn = 32 if c == 256 else 64
+    return (qt // 64) * 2 * 64 * c * 4 + stages * kn * c * 4 + 1024 + 8 * (2 * stages + 1)
+
+
+def online_workspace(b: int, s: int, c: int) -> int:
+    """f32 elements of the f32 online kernel's scratch: the split
+    pre-pass's six planes, q and k (hi, lo) (2, B, S, C) and v^T (hi, lo)
+    (2, B, C, S)."""
+    return 6 * b * s * c
+
+
+def tf32_round(x):
+    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds (to nearest, ties
+    away from zero; the low 13 bits of the result zero), on f32 bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def online_split_reference(q, k, v):
+    """Plain version of the f32 online kernel's pre-pass
+    (``online_split_kernel``), bit for bit: (qs, ks, vts) with qs, ks
+    (2, B, S, C) the (hi, lo) planes of q and k, hi = tf32_round(x) and lo =
+    tf32_round(x - hi), and vts (2, B, C, S) those of v^T, the keys of each 8
+    in ONLINE_KEY_ORDER."""
+    b, s, c = v.shape
+
+    def split(x):
+        hi = tf32_round(x)
+        return torch.stack([hi, tf32_round(x - hi)])
+
+    order = torch.tensor(ONLINE_KEY_ORDER, device=v.device).repeat(s // 8)
+    order += torch.arange(s, device=v.device) // 8 * 8
+    return split(q.float()), split(k.float()), split(v.float().transpose(1, 2)[..., order])
+
+
+def online_split(q, k, v):
+    """The f32 online kernel's pre-pass alone (``gddim_flash_online_split``):
+    q, k, v (B, S, C) f32, S a multiple of 16, C in {64, 128, 256} -> (qs,
+    ks, vts) as ``online_split_reference`` returns them, views of one
+    workspace (counted in C: ``block_launches()['online_split_kernel']``).
+    On CPU tensors the plain version."""
+    if _on_cpu(q, "online_split"):
+        return online_split_reference(q, k, v)
+    require_no_grad("online_split", q, k, v)
+    b, s, c = q.shape
+    if q.dtype != torch.float32 or not flash_supported(s, c):
+        raise ValueError(f"online_split: needs f32 of a supported shape, got {q.dtype} "
+                         f"{(b, s, c)}")
+    ops = [_operand(t, name, q.dtype, (b, s, c)) for t, name in ((q, "q"), (k, "k"), (v, "v"))]
+    work = torch.empty(online_workspace(b, s, c), device=q.device, dtype=torch.float32)
+    _build.launch("gddim_flash_online_split", q.device, *map(_build.ptr, ops), work.data_ptr(),
+                  b, s, c)
+    n = b * s * c
+    return (work[:2 * n].view(2, b, s, c), work[2 * n:4 * n].view(2, b, s, c),
+            work[4 * n:].view(2, b, c, s))
 
 
 def flash_online(s: int) -> bool:
@@ -111,7 +186,8 @@ def flash_supported(s: int, c: int) -> bool:
 def flash_plan(b: int, s: int, c: int, bf16: bool) -> int:
     """K8's query tile: for S > 1024 the online-softmax kernels' (bf16: 128
     queries a CTA, two consumer warpgroups, where that grid covers at least
-    half the SMs, else 64, one warpgroup and two CTAs an SM; f32: 64); else
+    half the SMs, else 64, one warpgroup and two CTAs an SM; f32:
+    ``online_f32_qt``); else
     64 where the row stays in registers, or the largest of 64, 32, 16 that
     divides S and whose CTA fits shared memory, halved while the grid leaves
     SMs idle. Raises for shapes neither kernel takes (S not a multiple of
@@ -120,7 +196,7 @@ def flash_plan(b: int, s: int, c: int, bf16: bool) -> int:
         raise ValueError(f"flash_attention: unsupported shape {(b, s, c)}")
     if flash_online(s):
         if not bf16:
-            return ONLINE_QT
+            return online_f32_qt(c)
         return 128 if 2 * b * -(-s // 128) >= SMS else 64
     if flash_in_registers(bf16, s):
         return 64
@@ -162,7 +238,8 @@ def flash_attention(q, k, v):
     multiple of 16, C in {64, 128, 256}: the whole-row kernels up to S =
     1024 (counted in ``flash_attention.launches``), the online-softmax
     kernels above, with ``flash_plan``'s queries a CTA (counted in C:
-    ``ops/resblock.py:block_launches``'s flash_online_kernel, both forms)."""
+    ``ops/resblock.py:block_launches``'s flash_online_kernel, both forms, and
+    for f32 its pre-pass, online_split_kernel)."""
     if _on_cpu(q, "flash_attention"):
         return attention_xla(q, k, v)
     require_no_grad("flash_attention", q, k, v)
@@ -174,8 +251,11 @@ def flash_attention(q, k, v):
     ops = [_operand(t, name, q.dtype, (b, s, c)) for t, name in ((q, "q"), (k, "k"), (v, "v"))]
     out = torch.empty((b, s, c), device=q.device, dtype=q.dtype)
     if flash_online(s):
+        # f32: the split pre-pass's planes (online_split), then the kernel
+        work = None if bf16 else torch.empty(online_workspace(b, s, c), device=q.device,
+                                             dtype=torch.float32)
         _build.launch("gddim_flash_online", q.device, *map(_build.ptr, ops), out.data_ptr(),
-                      b, s, c, qt, int(bf16), c ** -0.5)
+                      b, s, c, qt, int(bf16), c ** -0.5, 0 if work is None else work.data_ptr())
         return out
     _build.launch("gddim_flash_attention", q.device, *map(_build.ptr, ops), out.data_ptr(),
                   b, s, c, qt, int(bf16), c ** -0.5)

@@ -1899,13 +1899,15 @@ def gn_resample(x, gamma, beta, *, up: bool, fir: bool = True, fir_kernel=(1, 3,
 # the block GEMM in the training blocks (K6's convs, K7's conv1 and dgrads),
 # K7's GroupNorm backward (gn_bwd_kernel, two a block), GN2's folding
 # pre-pass (gn_prepass_kernel, every mode; also counted as its mode's
-# pre-pass), K8's online-softmax kernel (ops/attention.py, S > 1024) and the
-# int8 blocks' static skip GEMM (also counted as the int8 block GEMM)
+# pre-pass), K8's online-softmax kernels (ops/attention.py, S > 1024; both
+# forms), the int8 blocks' static skip GEMM (also counted as the int8 block
+# GEMM) and the f32 online kernel's split pre-pass
 BLOCK_COUNTED = ("block_gemm_kernel<int8>", "prepass_kernel<int8>", "block_gemm_kernel<bf16>",
                  "prepass_kernel<bf16>", "attention_wgmma_kernel", "gn_stats_kernel",
                  "gn_apply_kernel", "wgrad_kernel", "gn_silu_kernel",
                  "block_gemm_kernel<bf16, train>", "gn_bwd_kernel", "gn_prepass_kernel",
-                 "flash_online_kernel", "block_gemm_kernel<int8, static skip>")
+                 "flash_online_kernel", "block_gemm_kernel<int8, static skip>",
+                 "online_split_kernel")
 S8_COUNTED = BLOCK_COUNTED[:2]
 BF16_COUNTED = BLOCK_COUNTED[2:4]
 
