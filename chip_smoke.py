@@ -289,6 +289,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -633,7 +634,7 @@ KERNELS = {
     # K4 and K9): q(x) by the int8 pre-pass, its 1x1 on the int8 block GEMM,
     # added as conv2's f32 residual
     "S8-skip": dict(name="fused_resblock_int8", route="cuda",
-                    source="gddim_torch/csrc/resblock.cu",
+                    source="gddim_torch/csrc/block_gemm.cu",
                     replaces="gddim_tpu/ops/resblock.py:697"),
     "K2-int8": dict(name="fused_resblock_int8", route="cuda",
                     source="gddim_torch/csrc/resblock.cu", replaces="gddim_tpu/ops/resblock.py:600"),
@@ -6483,11 +6484,9 @@ def static_skip_cases(B: int, inp, amax_of=None):
 
 def check_static_skip(res: dict, case, B: int, card: str):
     """One static_skip_cases case: the kernel against its int8 plain version
-    (KERNEL_BOUND["S8-skip"]); the block's own static-skip buffers
-    (skip_buffers: q(x) as the block's pre-pass, or K9's first launch from
-    the unrounded resample, wrote it, and the f32 skip product + b_skip that
-    the block's skip GEMM wrote and conv2 added) bit for bit against
-    quant_static and static_skip_product (exact int32 sums) on the same f32
+    (KERNEL_BOUND["S8-skip"]); the block's own q(x) (skip_buffers: as GN1's
+    launch or the block's pre-pass, or K9's first launch from the unrounded
+    resample, wrote it) bit for bit against quant_static on the same f32
     skip input; its device time beside the same call's dynamic-skip form,
     the bound, and the skip product alone beside torch._int_mm."""
     from gddim_torch.ops import resblock as rb
@@ -6498,10 +6497,8 @@ def check_static_skip(res: dict, case, B: int, card: str):
     torch.cuda.synchronize()
     ref = plain()
     err, rel = (out.float() - ref.float()).abs().max().item(), _rel(out, ref)
-    wq, b_skip, sx = args[-3], args[-2], args[-1][2]
+    wq, sx = args[-3], args[-1][2]
     q_diff = int((bufs["xq"] != rb.quant_static(x_skip, sx).to(torch.int8)).sum().item())
-    skip_ref = rb.static_skip_product(x_skip, wq, b_skip, sx)
-    skip_diff = int((bufs["skip"] != skip_ref).sum().item())
     cin, cout = wq[0].shape
     # the skip product alone on the int8 block GEMM, beside torch._int_mm (int32 out)
     q, wk = bufs["xq"].clone(), wq[0].t().contiguous()
@@ -6517,18 +6514,15 @@ def check_static_skip(res: dict, case, B: int, card: str):
     bd = bound(nbytes(args, out), ops)
     print(f"kernel S8-skip {kernel} static skip [{label}]: max|err|={err:.3e} rel={rel:.3e} "
           f"(bound {KERNEL_BOUND['S8-skip']:.0e}); the block's q(x): {q_diff} of {q.numel()} "
-          f"differ, its f32 skip product: {skip_diff} of {skip_ref.numel()} differ (largest "
-          f"|product| {skip_ref.abs().max().item():.4e}); ms={ms:.4f} device ms={dev:.4f} "
+          f"differ; ms={ms:.4f} device ms={dev:.4f} "
           f"(dynamic skip {dev_dyn:.4f}, {dev / dev_dyn:.2f}x) plain_ms={plain_ms:.4f} "
           f"bound_ms={bd[0]:.4f} ({'bytes' if bd[1] >= bd[2] else 'operations'}); the skip "
           f"product alone device ms={skip_ms:.4f}, torch._int_mm {library_ms:.4f} "
           f"({verdict(skip_ms, library_ms)}) [{card}]", flush=True)
     _record(res, "S8-skip", label, err, rel, ms, plain_ms, bd, library_ms=library_ms,
             graph_ms=dev, dynamic_graph_ms=dev_dyn, skip_graph_ms=skip_ms)
-    if not (np.isfinite(rel) and rel <= KERNEL_BOUND["S8-skip"] and q_diff == 0
-            and skip_diff == 0):
-        raise AssertionError(f"S8-skip {label}: rel {rel:.3e}, q(x) {q_diff} differ, skip "
-                             f"product {skip_diff} differ")
+    if not (np.isfinite(rel) and rel <= KERNEL_BOUND["S8-skip"] and q_diff == 0):
+        raise AssertionError(f"S8-skip {label}: rel {rel:.3e}, q(x) {q_diff} differ")
 
 
 def _skip_block_call(block, x, temb, kw: dict):
@@ -6590,7 +6584,8 @@ def static_skip_path(card: str, batch: int) -> dict:
     traces (their inputs at the path's shapes); then each of those blocks
     through its int8 entry, fully static ([s1, s2, sx] from its calibrated
     amaxes: no model switch), and with the dynamic skip. The static skip
-    GEMM's launches (counted in C) held to the static calls; how far the two
+    skip's launches (conv2's GEMMs that carry it, counted in C) held to the
+    static calls; how far the two
     forms part, and each skip input's max|x| against its calibrated amax
     (information). Returns the launches."""
     from gddim_torch.cli import build_model, calibrate_int8
@@ -6637,8 +6632,9 @@ def static_skip_path(card: str, batch: int) -> dict:
     for kind, *_ in calls:
         by_kind[kind] = by_kind.get(kind, 0) + 1
     print(f"static skip path B={batch}: {len(traced)} int8 block calls with a 1x1 skip traced, "
-          f"{len(calls)} through their entries with [s1, s2, sx] {by_kind}, the static skip "
-          f"GEMM launched {launched} times [{card}]", flush=True)
+          f"{len(calls)} through their entries with [s1, s2, sx] {by_kind}, the static skip's "
+          f"GEMM (block_gemm_kernel<int8, static skip>) launched {launched} times [{card}]",
+          flush=True)
     if launched != len(calls) or set(by_kind) != {"K2-int8", "K3-int8", "K4-int8", "K9-int8"}:
         raise AssertionError(f"static skip B={batch}: {launched} launches for {by_kind}")
     ratio = [c[6].abs().max().item() / float(c[7]) for c in calls]
@@ -6709,6 +6705,118 @@ def calibrated_skip_amaxes(card: str) -> dict:
         for (k, label), ams in sorted(out.items())), flush=True)
     del model
     return out
+
+
+def _bf16_ulps(a, b) -> int:
+    """The largest distance in bf16 steps between two bf16 tensors (-0 and
+    +0 one value)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+def phase_skip_bits(save: str, ref: str | None, card: str):
+    """The 18 int8 blocks with a 1x1 skip (static_skip_cases) at B=4/16/64 on
+    seeded inputs through the int8 entries' public API, fully static
+    ([s1, s2, sx]) and with the dynamic bf16 skip, saved to ``save``; with
+    ``ref`` (another tree's file, e.g. the parent's), each output against
+    it: the dynamic form and the static form where conv2's K is not split
+    bit for bit, the static form where it is split reported in bf16 steps
+    (there the skip's product enters the last split's partial before the
+    split-order sum). Uses only what a parent's checkout has too."""
+    from gddim_torch.ops import resblock as rb
+
+    out, split = {}, {}
+    with torch.inference_mode():
+        for B in (4, 16, 64):
+            for case in static_skip_cases(B, Inputs(8)):
+                kernel, label, fused, dynamic = case[:4]
+                key = f"{kernel} {label if B != 4 else 'B=4 ' + label}"
+                out[f"{key} static"] = fused()
+                out[f"{key} dynamic"] = dynamic()
+                b_, h, w, n = out[f"{key} static"].shape
+                split[f"{key} static"] = rb.s8_tile_plan(b_, h, w, n, 0, n).splits
+    torch.cuda.synchronize()
+    torch.save({k: v.cpu() for k, v in out.items()}, save)
+    print(f"skip bits: {len(out)} tensors saved to {save} [{card}]", flush=True)
+    if not ref:
+        return
+    want = torch.load(ref)
+    bad, rows = [], []
+    for k, v in out.items():
+        v = v.cpu()
+        if torch.equal(v, want[k]):
+            continue
+        diff, ulps = int((v != want[k]).sum().item()), _bf16_ulps(v, want[k])
+        rows.append(f"{k} (conv2 splits {split.get(k, '-')}): {diff} of {v.numel()} differ, "
+                    f"up to {ulps} bf16 steps")
+        if split.get(k, 1) == 1:
+            bad.append(k)
+    same = len(out) - len(rows)
+    print(f"skip bits: the same bits as {ref}: {same} of {len(out)} ("
+          f"{sum(1 for k in out if k.endswith('static'))} static, of which "
+          f"{sum(1 for k, s_ in split.items() if s_ > 1)} with conv2's K split) [{card}]",
+          flush=True)
+    for r in rows:
+        print(f"skip bits: {r}", flush=True)
+    if bad:
+        raise AssertionError(f"skip bits: unsplit or dynamic outputs differ from {ref}: {bad}")
+
+
+def phase_ptxas(card: str):
+    """Registers, spills and shared memory of every instantiation of the
+    block GEMM and of gn_apply_kernel, as ptxas reports them for the build's
+    flags (nvcc -Xptxas -v); fails where a block_gemm_kernel spills."""
+    from gddim_torch import _build
+
+    csrc = Path(__file__).resolve().parent / "gddim_torch" / "csrc"
+    spilled = []
+    for name in ("block_gemm.cu", "gn_apply.cu"):
+        with tempfile.TemporaryDirectory() as tmp:
+            proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc),
+                                   "-Xptxas", "-v", "-c", "-o", str(Path(tmp) / "k.o"),
+                                   str(csrc / name)], capture_output=True, text=True)
+        if proc.returncode:
+            raise AssertionError(f"ptxas {name}: nvcc failed\n{proc.stderr[-4000:]}")
+        entry = None
+        for line in proc.stderr.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                try:
+                    entry = subprocess.run(["c++filt", m.group(1)], capture_output=True,
+                                           text=True).stdout.strip() or m.group(1)
+                except FileNotFoundError:
+                    entry = m.group(1)
+                spill = "spills not reported"
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and entry:
+                stores, loads = int(m.group(1)), int(m.group(2))
+                if (stores or loads) and "block_gemm_kernel" in entry:
+                    spilled.append(entry)
+                spill = f"spill stores {stores} B, loads {loads} B"
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry and ("block_gemm_kernel" in entry or "gn_apply_kernel" in entry):
+                short = entry.replace("(anonymous namespace)::", "").replace("__nv_bfloat16",
+                                                                              "bf16")
+                occ = ""
+                mw = re.search(r"block_gemm_kernel<[^,]+, (\d)", short)
+                if mw:  # CTAs an SM: 9 warps, registers by 256 a warp; Tile<MW>'s ring
+                    mw, regs = int(mw.group(1)), int(m.group(1))
+                    by_regs = 65536 // (9 * -(-regs * 32 // 256) * 256)
+                    stages = 3 if mw == 1 else 4
+                    ring = stages * (128 * mw * 128 + 128 * 128) + 1024 + 16 * stages
+                    by_smem = 228 * 1024 // (ring + 1024)
+                    occ = (f"; {min(by_regs, by_smem)} CTAs an SM (registers {by_regs}, "
+                           f"shared memory {by_smem})")
+                print(f"ptxas {name}: {short.split('(')[0]}: {m.group(1)} registers, {spill}; "
+                      f"{line.split(',', 1)[-1].strip()}{occ} [{card}]", flush=True)
+                entry = None
+    if spilled:
+        raise AssertionError(f"ptxas: block_gemm_kernel spills in {spilled}")
 
 
 def phase_static_skip_calib(card: str):
@@ -7030,7 +7138,10 @@ def main(argv=None):
     # three on a parent's checkout too; static_skip (the int8 blocks' static
     # skip path alone, as the kernels phase runs it), static_skip_calib (its
     # 18 shapes with accr's calibrated amaxes, kernel and plain version each
-    # against an f64 evaluation); online_time (K8's
+    # against an f64 evaluation), skip_bits (those 18 blocks' outputs at
+    # B=4/16/64, static and dynamic skip, saved and held against another
+    # tree's; a parent's checkout runs it too), ptxas (the block GEMM's and
+    # gn_apply_kernel's registers and spills); online_time (K8's
     # online-softmax kernels alone, as long_attn runs them; a parent's
     # checkout runs it too), online_span (the f32 B=32 CelebA step with
     # 64x64 attention traced: the online kernels' share; a parent's checkout
@@ -7042,6 +7153,10 @@ def main(argv=None):
     parser.add_argument("--batch", type=int, default=16, help="sampling batch")
     parser.add_argument("--bits", default=None, help="phase bits: the file to save to")
     parser.add_argument("--bits-ref", default=None, help="phase bits: another tree's file")
+    parser.add_argument("--skip-bits", default=None,
+                        help="phase skip_bits: the file to save the 18 skip blocks' outputs to")
+    parser.add_argument("--skip-bits-ref", default=None,
+                        help="phase skip_bits: another tree's file to hold them against")
     parser.add_argument("--k1-save", default=None, help="phase k1_time: save K1's outputs here")
     parser.add_argument("--k1-ref", default=None,
                         help="phase k1_time: another tree's K1 outputs to hold them against")
@@ -7244,6 +7359,12 @@ def main(argv=None):
     if "static_skip" in phases and "kernels" not in phases:
         phase_static_skip({}, {}, card)
         lap("static_skip")
+    if "skip_bits" in phases:
+        phase_skip_bits(args.skip_bits or "skip_bits.pt", args.skip_bits_ref, card)
+        lap("skip_bits")
+    if "ptxas" in phases:
+        phase_ptxas(card)
+        lap("ptxas")
     if "gn_bwd" in phases and "kernels" not in phases:
         check_gn_bwd({}, {})
         lap("gn_bwd")

@@ -33,9 +33,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
-# C entry points: name -> argtypes. The *_workspace and *_smem entries
-# return a byte count (long long); every other entry returns cudaError_t as
-# int.
+# C entry points: name -> argtypes. The *_workspace, *_smem and *_offset
+# entries return a byte count (long long); every other entry returns
+# cudaError_t as int.
 _SIGNATURES = {
     # gddim_resblock_workspace(B, H, W, Cin, N, splits, parts, xs): the bf16 block
     #   (and K6), parts the tile plan's tiles_h (GN2's partial rows a sample), xs
@@ -61,35 +61,36 @@ _SIGNATURES = {
         _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
         _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
-    # gddim_resblock_transition_int8_workspace(B, H_out, W_out, C, N, splits, parts, sx)
-    "gddim_resblock_transition_int8_workspace": [_I, _I, _I, _I, _I, _I, _I, _I],
-    # gddim_resblock_transition_int8_skip_offsets(B, H_out, W_out, C, N, splits, parts, offs)
-    "gddim_resblock_transition_int8_skip_offsets": [_I, _I, _I, _I, _I, _I, _I, _P],
+    # gddim_resblock_transition_int8_workspace(B, H_out, W_out, C, N, splits, parts)
+    "gddim_resblock_transition_int8_workspace": [_I, _I, _I, _I, _I, _I, _I],
+    # gddim_resblock_transition_int8_xq_offset(B, H_out, W_out, C, N, splits, parts): the
+    #   static skip's q(xr) in the workspace (a byte offset)
+    "gddim_resblock_transition_int8_xq_offset": [_I, _I, _I, _I, _I, _I, _I],
     # gddim_resblock_transition_int8(x, c, temb_row, temb_ld, gn1_g, gn1_b, groups1,
-    #   w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, ws, bs, wss, skip_plan, act_scales,
+    #   w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, ws, bs, wss, act_scales,
     #   B, H_in, W_in, up, kh0..kh3, kw0..kw3, N, eps, out_scale, work, mw, box_h, box_b,
-    #   tiles_h, m_tiles, splits1, kper1, splits2, kper2, gn_ctas, out, stream); wss and
-    #   skip_plan (a host int32 array) non-null: the static int8 skip
+    #   tiles_h, m_tiles, splits1, kper1, splits2, kper2, gn_ctas, out, stream); wss
+    #   non-null: the static int8 skip
     "gddim_resblock_transition_int8": [
         _P, _I, _P, _I, _P, _P, _I,
-        _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
         _F, _F, _F, _F, _F, _F, _F, _F, _I, _F, _F, _P, _I, _I, _I, _I, _I,
         _I, _I, _I, _I, _I, _P, _P,
     ],
     # gddim_resblock_int8_workspace(B, H, W, Cin, N, splits, parts, sx)
     "gddim_resblock_int8_workspace": [_I, _I, _I, _I, _I, _I, _I, _I],
-    # gddim_resblock_int8_skip_offsets(B, H, W, Cin, N, splits, parts, sx, offs): the static
-    #   skip's q(x) and product in the workspace (offs: 2 int64 written)
-    "gddim_resblock_int8_skip_offsets": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # gddim_resblock_int8_xq_offset(B, H, W, Cin, N, splits, parts, sx): the static
+    #   skip's q(x) in the workspace (a byte offset)
+    "gddim_resblock_int8_xq_offset": [_I, _I, _I, _I, _I, _I, _I, _I],
     # gddim_resblock_int8(x0, x1, c0, c1, temb_row, temb_ld, gn1_g, gn1_b,
     #   groups1, w1q, w1s, b1, gn2_g, gn2_b, groups2, w2q, w2s, b2, s0, s1, cs0, cs1, ws, bs,
-    #   wss, skip_plan, act_scales, B, H, W, N, eps, out_scale, work, mw, box_h, box_b,
-    #   tiles_h, m_tiles, splits1, kper1, splits2, kper2, gn_ctas, out, stream); wss and
-    #   skip_plan (a host int32 array) non-null: the static int8 skip
+    #   wss, act_scales, B, H, W, N, eps, out_scale, work, mw, box_h, box_b,
+    #   tiles_h, m_tiles, splits1, kper1, splits2, kper2, gn_ctas, out, stream); wss
+    #   non-null: the static int8 skip
     "gddim_resblock_int8": [
         _P, _P, _I, _I, _P, _I, _P, _P,
         _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P,
-        _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+        _P, _P, _I, _I, _I, _I, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
     # gddim_s8_prepass(xa, xb, ca, cb, act_f32, B, HW, scale, shift, silu, qs, amax, inv_mul,
     #   out, stream)
@@ -269,7 +270,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = (ctypes.c_longlong if name.endswith(("_workspace", "_smem"))
+            fn.restype = (ctypes.c_longlong if name.endswith(("_workspace", "_smem", "_offset"))
                           else ctypes.c_int)
         _lib = lib
         return lib
@@ -289,14 +290,13 @@ def workspace_bytes(name: str, *args) -> int:
     return int(getattr(library(), f"{name}_workspace")(*args))
 
 
-def skip_offsets(name: str, *args) -> tuple:
-    """The byte offsets of the static skip's int8 input and f32 product in an
-    int8 block entry's workspace (``<name>_skip_offsets``)."""
-    offs = (_L * 2)()
-    err = getattr(library(), f"{name}_skip_offsets")(*args, ctypes.addressof(offs))
-    if err != 0:
-        raise RuntimeError(f"{name}_skip_offsets: error {err}")
-    return int(offs[0]), int(offs[1])
+def xq_offset(name: str, *args) -> int:
+    """The byte offset of the static skip's int8 input q(x) in an int8 block
+    entry's workspace (``<name>_xq_offset``)."""
+    off = int(getattr(library(), f"{name}_xq_offset")(*args))
+    if off < 0:
+        raise RuntimeError(f"{name}_xq_offset: no static skip in {args}")
+    return off
 
 
 def ptr(t) -> int | None:

@@ -1,6 +1,7 @@
-// The block GEMM for Hopper (sm_90a): both 3x3 convs, and conv2's bf16 1x1
-// skip, of the bf16 and int8 modes of K2, K3, K4 and K9 (conv_impl 'fused'
-// on bf16 activations, and 'fused_int8'), and K5's q/k/v and output
+// The block GEMM for Hopper (sm_90a): both 3x3 convs, and conv2's 1x1 skip
+// (bf16, or the int8 blocks' static int8 skip), of the bf16 and int8 modes
+// of K2, K3, K4 and K9 (conv_impl 'fused' on bf16 activations, and
+// 'fused_int8'), and K5's q/k/v and output
 // projections as 1x1 convs over M = B*H*W pixels (taps 1, attnblock.cu);
 // the training blocks' GEMMs over M: K6's two convs (resblock.cu), K7's
 // recomputed conv1, its two 3x3 dgrads and its 1x1 skip dgrad
@@ -13,7 +14,9 @@
 // _resblock_pair_kernel(_v2) for K3, _resblock_transition_kernel for K9):
 // _conv9's nine shifted products on the zero-padded activation tile, with
 // mm_dtype bf16 (f32 sums) or int8 (s32 sums, dequantized as acc * (w_scale
-// * s)), and the bf16 skip product with f32 sums, and conv1's share of GN2's
+// * s)), and the skip product (bf16 with f32 sums, or with act_scales [s1,
+// s2, sx] the static_skip branch's int8 product, resblock.py:283-290,
+// 408-415, 830-833, 957, 1152-1173, 1404-1409), and conv1's share of GN2's
 // statistics (gn_silu_tile's per-channel sums of acc3, resblock.py:345-356,
 // 385-386), taken while the tile is in registers. The block around it (GN1
 // statistics, amax, and the pre-pass that writes each conv's input once and
@@ -21,9 +24,9 @@
 //
 // block_gemm_kernel<TA> is an implicit GEMM, M = B*H*W output pixels, N =
 // Cout, K = taps * Cin channels of TA (bf16 or int8; taps 9 for a 3x3 conv,
-// 1 for a 1x1 projection), then Cskip bf16 channels.
+// 1 for a 1x1 projection), then Cskip bf16 channels (or, SK8, Cskip int8).
 // A K slice is 128 bytes a pixel: 64 bf16 or 128 int8 channels of one tap,
-// or 64 bf16 skip channels.
+// or 64 bf16 (128 int8) skip channels.
 // - A by TMA with no im2col and no padded copy: the pre-pass's activation
 //   is a 4-D tensor map (C, W, H, B) with the 128-byte swizzle; a conv
 //   slice is one box of (the slice's channels, W, box_h rows, box_b
@@ -54,17 +57,37 @@
 //   over the tile's pixels, which are consecutive rows of M) then run as
 //   bf16 products into the same f32 registers; in the bf16 mode they follow
 //   the conv slices in one loop.
+// - The int8 blocks' static skip (SK8): its cs / 128 int8 K slices (q(x),
+//   the skip input quantized by sx, by a 2-D box of the tile's rows, and the
+//   K-major (N, cs) int8 skip weights, one 128 x 128 box) all join the last
+//   split, after its conv slices, so that the skip's int32 sums are
+//   converted once, to f32 * (w_skip_scale[n] * sx) + b_skip, and every
+//   other split's partial is the conv's own. Its sums need a second int32
+//   set while the conv's f32 values wait, and registers have no room for
+//   one: 64 a thread per m64 block, at MW 2 (256-pixel tiles) 128 already,
+//   and two CTAs an SM leave about 112 at MW 1. So each consumer parks its
+//   f32 conv values in the ring's first STAGES - 1 stages, which the conv
+//   has drained (64 KB at MW 1, 128 KB at MW 2: a thread's own float4s,
+//   read back by the same thread), runs the skip slices into the same
+//   accumulators through the last stage, one after another (the producer
+//   reloads that stage for each), converts them and adds: ((conv + b2) +
+//   0) + skip, the order of the former separate skip GEMM's f32 product
+//   added as conv2's residual, so that an unsplit conv2 gives those bits.
+//   The registers, the shared memory and the occupancy are the int8
+//   kernel's; the cost is the park (a 64 or 128 KB round trip through
+//   shared memory) and skip slices that do not overlap each other's loads.
 // - The epilogue (bias + b_skip, the temb row, the identity residual of the
 //   output's type, out_scale; f32 h1 or bf16 out, f32 out and residual in
-//   K6's conv2; the int8 blocks' static skip: conv2's bf16 out with the
-//   skip's f32 product as the residual, RF32; tile_epilogue) stages the tile's sums in
+//   K6's conv2; tile_epilogue) stages the tile's sums in
 //   the drained ring and stores from there along whole rows. With gn_part
 //   (conv1: the STATS instantiation) each thread also sums its 2 columns of
 //   each sample's rows and their squares, and the row lanes' sums meet in a
 //   fixed order in one row of GN2's partials a (tile, sample). GN2 then
 //   never reads h1 back for its statistics.
 // - Small grids split K as K11 does: each split writes its f32 partial
-//   (dequantized in the int8 mode; conv and skip), and block_splitk_kernel
+//   (dequantized in the int8 mode; conv and skip, SK8's skip in the last
+//   split's: there conv + skip enter the split-order sum before b2), and
+//   block_splitk_kernel
 //   sums them in split order, so the result does not depend on the run
 //   (block_splitk_stats_kernel for conv1: by tile, with GN2's sums; K11
 //   int8 (S32): raw int32 partials, block_splitk_s32_kernel). The
@@ -125,6 +148,12 @@ static_assert((128 * (TILE_N + 8) + 8 * TILE_N) * 4 <= Tile<1>::STAGES * Tile<1>
               "the staged 128-pixel tile exceeds the ring");
 static_assert((256 * (TILE_N + 8) + 8 * TILE_N) * 4 <= Tile<2>::STAGES * Tile<2>::STAGE_BYTES,
               "the staged 256-pixel tile exceeds the ring");
+// the static skip parks the consumers' f32 conv sums (64 * MW a thread) in
+// all stages but the last, through which its own slices then pass
+static_assert(256 * 64 * 4 <= (Tile<1>::STAGES - 1) * Tile<1>::STAGE_BYTES,
+              "the parked 128-pixel conv sums exceed the ring's first stages");
+static_assert(256 * 128 * 4 <= (Tile<2>::STAGES - 1) * Tile<2>::STAGE_BYTES,
+              "the parked 256-pixel conv sums exceed the ring's first stages");
 
 long long launch_counts[N_COUNTED];
 
@@ -134,6 +163,10 @@ struct Plan {
   int box_h, box_b, tiles_h;  // the A box: W x box_h pixels of box_b samples
   int conv_slices;  // taps * cin * sizeof(TA) / 128
   int skip0_slices;  // cs0 / 64: the skip slices that read s0, then those of s1
+  int skip8;         // SK8: the static skip's 128-channel int8 slices, in the last split
+  const float* wss;    // SK8: the skip weights' (N,) scales
+  const float* sx;     // SK8: the static skip scale (one device float)
+  const float* bskip;  // SK8: b_skip (N,), or null
   int slices, kper, splits;
   const float* wsc;
   const float* qs;
@@ -142,8 +175,7 @@ struct Plan {
   const float* bias;
   const float* bias2;
   const float* temb;
-  const void* resid;  // of the output's type (TO), or f32 with resid_f32
-  bool resid_f32;     // an f32 residual under a bf16 output (the int8 blocks' static skip)
+  const void* resid;  // of the output's type (TO)
   float out_scale;
   void* out;
   float* partial;
@@ -176,10 +208,10 @@ __device__ __forceinline__ float2 load2(const bf16* s) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(s));
 }
 
-// The temb row and the residual (of type TR) for output channels n, n+1 of
-// pixel m (whose bias + b_skip r0, r1 hold already), then the scale;
-// returns the values stored (in f32)
-template <typename TO, typename TR = TO>
+// The temb row and the residual (of the output's type) for output channels
+// n, n+1 of pixel m (whose bias + b_skip r0, r1 hold already), then the
+// scale; returns the values stored (in f32)
+template <typename TO>
 __device__ __forceinline__ float2 epilogue2(const Plan& p, long m, int n, float r0, float r1) {
   if (p.temb) {
     const float* tr = p.temb + (m / (p.H * p.W)) * p.temb_ld + n;
@@ -187,7 +219,7 @@ __device__ __forceinline__ float2 epilogue2(const Plan& p, long m, int n, float 
     r1 += tr[1];
   }
   if (p.resid) {
-    const float2 v = load2((const TR*)p.resid + m * p.N + n);
+    const float2 v = load2((const TO*)p.resid + m * p.N + n);
     r0 += v.x;
     r1 += v.y;
   }
@@ -216,9 +248,9 @@ __device__ __forceinline__ float2 bias2(const Plan& p, int n) {
 // The epilogue of a tile whose K is not split: the f32 sums through
 // shared memory (the drained ring, rows of STAGE_LD floats), then each
 // thread takes 2 columns down a quarter of the tile's rows, so that the
-// stores (and the residual's loads) run along whole rows: + bias + b_skip,
-// the sample's temb row, the residual (of type TR), times out_scale, as
-// epilogue2. With
+// stores (and the residual's loads) run along whole rows: + bias + b_skip
+// (not with BIAS off: SK8 added them in registers), the sample's temb row,
+// the residual, times out_scale, as epilogue2. With
 // STATS (conv1, f32 out) each thread also sums its columns' values of each
 // sample and their squares, and the 4 row lanes' sums meet in order in the
 // tile's row of GN2's partials. Stores straight from the accumulator layout
@@ -227,7 +259,7 @@ __device__ __forceinline__ float2 bias2(const Plan& p, int n) {
 // instantiation of it (PERF.md §6).
 constexpr int STAGE_LD = TILE_N + 8;  // floats a staged row: 64-bit stores in 2 wavefronts
 
-template <int MW, typename TO, bool STATS, typename TR = TO>
+template <int MW, typename TO, bool STATS, bool BIAS = true>
 __device__ __forceinline__ void tile_epilogue(const Plan& p, const uint32_t (&acc)[MW][64],
                                               unsigned char* ring, int g, int row0, int col0,
                                               int b0, int y0, int n0) {
@@ -247,7 +279,7 @@ __device__ __forceinline__ void tile_epilogue(const Plan& p, const uint32_t (&ac
   float* red = tile + 128 * MW * STAGE_LD;  // [sums, squares][4 row lanes][TILE_N]
   const int x = threadIdx.x, c = 2 * (x & 63), rl = x >> 6;
   const int n = n0 + c;
-  const float2 cb = bias2(p, n);
+  const float2 cb = BIAS ? bias2(p, n) : make_float2(0.f, 0.f);
   // the tile's rows are the pixels m0 + r; those past the image or the batch
   // are the last ones
   const int hw = p.H * p.W, m0 = (b0 * p.H + y0) * p.W;
@@ -265,7 +297,7 @@ __device__ __forceinline__ void tile_epilogue(const Plan& p, const uint32_t (&ac
       const float2 a = *reinterpret_cast<const float2*>(tile + r * STAGE_LD + c);
       float v0 = a.x + cb.x + tr.x, v1 = a.y + cb.y + tr.y;
       if (p.resid) {
-        const float2 e = load2((const TR*)p.resid + base + (long)r * p.N);
+        const float2 e = load2((const TO*)p.resid + base + (long)r * p.N);
         v0 += e.x;
         v1 += e.y;
       }
@@ -301,6 +333,109 @@ __device__ __forceinline__ void load_nmajor(uint32_t b, const CUtensorMap* map, 
   tma_load_2d(b + B_BYTES / 2, map, full, n0 + 64, k0);
 }
 
+// Uses of ring stage `st` by the first n slices (slice i in stage i % STAGES)
+template <int MW>
+__device__ __forceinline__ int stage_uses(int n, int st) {
+  return n > st ? (n - 1 - st) / Tile<MW>::STAGES + 1 : 0;
+}
+
+// A consumer's parked float4 (shared memory): the load is volatile, so that
+// the compiler reads it back there and does not keep the value in
+// registers across the skip's wgmmas
+__device__ __forceinline__ void park_store(uint32_t addr, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "f"(v.x), "f"(v.y),
+               "f"(v.z), "f"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ float4 park_load(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.volatile.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// The static skip's slices (SK8, in the last split), after its n_conv conv
+// slices: each consumer parks its f32 conv sums in the ring's first STAGES -
+// 1 stages (float4 k of thread x at k * 256 + x: its own layout, so that it
+// reads back what it wrote), runs the skip's int32 sums in the same
+// accumulators from the last stage (the first wgmma starts the sums:
+// accumulate 0), each skip slice there in turn (the producer's loads), and
+// converts them once: skip = (f32(sums) * (wss[n] * sx) + b_skip) + 0, the
+// separate skip GEMM's values, as its epilogue made them. Then acc = ((conv
+// + b2) + 0) + skip, conv2's epilogue order with that product as its
+// residual (the epilogue then adds no bias: the value is never -0, so its
+// + 0 + 0 keeps it), or a split's partial conv + skip.
+template <int MW>
+__device__ __forceinline__ void static_skip(const Plan& p, uint32_t (&acc)[MW][64],
+                                            uint32_t ring_u32, uint32_t full0, uint32_t empty0,
+                                            int n_conv, int g, int lane, int col0, int n0) {
+  using T = Tile<MW>;
+  constexpr int SK = T::STAGES - 1;
+  const uint32_t park = ring_u32 + 16 * threadIdx.x;  // float4 k at park + 4096 k
+  consumer_sync();  // every consumer's conv wgmmas have read the ring
+#pragma unroll
+  for (int t = 0; t < MW; ++t)
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      park_store(park + 4096 * (16 * t + k),
+                 make_float4(__uint_as_float(acc[t][4 * k]), __uint_as_float(acc[t][4 * k + 1]),
+                             __uint_as_float(acc[t][4 * k + 2]),
+                             __uint_as_float(acc[t][4 * k + 3])));
+  const int used = stage_uses<MW>(n_conv, SK);
+  const uint32_t a = ring_u32 + SK * T::STAGE_BYTES + g * MW * (64 * ROW);
+  const uint32_t b = ring_u32 + SK * T::STAGE_BYTES + T::A_BYTES;
+  for (int j = 0; j < p.skip8; ++j) {
+    mbar_wait(full0 + 8 * SK, (used + j) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < ROW / 32; ++kk) {
+      const uint64_t db = sw128_desc(b + 32 * kk, 16, 1024);
+#pragma unroll
+      for (int t = 0; t < MW; ++t)
+        wgmma_s8_m64n128k32(acc[t], sw128_desc(a + t * (64 * ROW) + 32 * kk, 16, 1024), db,
+                            j > 0 || kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();  // the next skip slice takes this stage
+    if (lane == 0) mbar_arrive(empty0 + 8 * SK);
+  }
+  const float sx = *p.sx;
+  const bool whole = p.splits == 1;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    // a barrier every 2 of the 16 column pairs: no load of a later pair's
+    // scales moves above it, so that the scheduler does not run the
+    // registers out (hoisted, they spilled at 128-pixel tiles)
+    if (j % 2 == 0 && j > 0) consumer_sync();
+    float ws[2], bs[2], b2[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = n0 + col0 + 8 * j + e;
+      ws[e] = __fmul_rn(p.wss[n], sx);
+      bs[e] = p.bskip != nullptr ? p.bskip[n] : 0.f;
+      b2[e] = p.bias != nullptr ? p.bias[n] : 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < MW; ++t) {
+      const float4 c4 = park_load(park + 4096 * (16 * t + j));
+      const float conv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          uint32_t& r = acc[t][4 * j + 2 * h + e];
+          const float skip =
+              __fadd_rn(__fadd_rn(__fmul_rn(__int2float_rn((int)r), ws[e]), bs[e]), 0.f);
+          const float c = conv[2 * h + e];
+          r = __float_as_uint(whole ? __fadd_rn(__fadd_rn(__fadd_rn(c, b2[e]), 0.f), skip)
+                                    : __fadd_rn(c, skip));
+        }
+    }
+  }
+}
+
 // grid (m_tiles, N / 128, splits), THREADS threads, Tile<MW>::SMEM dynamic
 // shared memory. Split z runs the slices [z*kper, min((z+1)*kper, slices)):
 // first those of the conv (TA), then those of the skip (bf16). STATS (conv1,
@@ -308,9 +443,12 @@ __device__ __forceinline__ void load_nmajor(uint32_t b, const CUtensorMap* map, 
 // skip): a dgrad, the weights K-major and tap-reversed. S32 (int8, no skip,
 // K split: K11 int8): a split stores its raw int32 sums, which
 // block_splitk_s32_kernel adds in int32 before it dequantizes them once.
-// RF32 (int8, bf16 out): the residual is f32 (the static skip's product).
+// SK8 (int8, bf16 out, no residual): the int8 blocks' static skip, p.skip8
+// int8 slices of the quantized skip input q(x) (s0map, (M, cs) by 2-D boxes
+// of the tile's rows) by the K-major int8 skip weights (wsmap, (N, cs)) after
+// the last split's conv slices (static_skip).
 template <typename TA, int MW, typename TO, bool STATS, bool KMAJ = false, bool S32 = false,
-          bool RF32 = false>
+          bool SK8 = false>
 __global__ void __launch_bounds__(THREADS, 3 - MW)
 block_gemm_kernel(const __grid_constant__ CUtensorMap amap,
                   const __grid_constant__ CUtensorMap wmap,
@@ -375,6 +513,18 @@ block_gemm_kernel(const __grid_constant__ CUtensorMap amap,
           else
             tma_load_2d(a, &s1map, full, 64 * (j - p.skip0_slices), m0);
           load_nmajor(b, &wsmap, full, n0, 64 * j);
+        }
+      }
+      if constexpr (SK8) {
+        // the static skip's slices, each in the ring's last stage in turn
+        constexpr int SK = T::STAGES - 1;
+        const int used = stage_uses<MW>(n_sl, SK);
+        const uint32_t full = full0 + 8 * SK, a = ring_u32 + SK * T::STAGE_BYTES;
+        for (int j = 0; blockIdx.z == gridDim.z - 1 && j < p.skip8; ++j) {
+          if (used + j > 0) mbar_wait(empty0 + 8 * SK, (used + j - 1) & 1);
+          mbar_expect_tx(full, T::A_BYTES + B_BYTES);
+          tma_load_2d(a, &s0map, full, ROW * j, m0);
+          tma_load_2d(a + T::A_BYTES, &wsmap, full, ROW * j, n0);
         }
       }
     }
@@ -504,9 +654,15 @@ block_gemm_kernel(const __grid_constant__ CUtensorMap amap,
   }
   wgmma_wait<0>();
 
-  if (p.splits == 1) {
-    tile_epilogue<MW, TO, STATS, std::conditional_t<RF32, float, TO>>(p, acc, ring, g, row0,
-                                                                       col0, b0, y0, n0);
+  if constexpr (SK8) {
+    if (blockIdx.z == gridDim.z - 1)
+      static_skip<MW>(p, acc, ring_u32, full0, empty0, n_conv, g, lane, col0, n0);
+    if (p.splits == 1) {
+      tile_epilogue<MW, TO, false, false>(p, acc, ring, g, row0, col0, b0, y0, n0);
+      return;
+    }
+  } else if (p.splits == 1) {
+    tile_epilogue<MW, TO, STATS>(p, acc, ring, g, row0, col0, b0, y0, n0);
     return;
   }
   // a split's f32 partial, straight from the accumulators
@@ -526,9 +682,8 @@ block_gemm_kernel(const __grid_constant__ CUtensorMap amap,
 }
 
 // Split-K reduction: the f32 partials summed in split order, then the
-// epilogue (TR: the residual's type). grid ceil(M*N/2 / 256), 256 threads,
-// 2 channels each.
-template <typename TO, typename TR = TO>
+// epilogue. grid ceil(M*N/2 / 256), 256 threads, 2 channels each.
+template <typename TO>
 __global__ void __launch_bounds__(256) block_splitk_kernel(const Plan p) {
   const long mn = (long)p.B * p.H * p.W * p.N;
   const long v = ((long)blockIdx.x * 256 + threadIdx.x) * 2;
@@ -541,7 +696,7 @@ __global__ void __launch_bounds__(256) block_splitk_kernel(const Plan p) {
   }
   const int n = (int)(v % p.N);
   const float2 cb = bias2(p, n);
-  epilogue2<TO, TR>(p, v / p.N, n, r.x + cb.x, r.y + cb.y);
+  epilogue2<TO>(p, v / p.N, n, r.x + cb.x, r.y + cb.y);
 }
 
 // The split-K reduction of conv1 (gn_part): the same sums in split order,
@@ -629,23 +784,25 @@ __global__ void __launch_bounds__(256) block_splitk_s32_kernel(const Plan p) {
 }
 
 template <typename TA, int MW, typename TO, bool STATS = false, bool KMAJ = false,
-          bool S32 = false, bool RF32 = false>
+          bool S32 = false, bool SK8 = false>
 int launch(dim3 grid, const CUtensorMap* maps, const Plan& p, cudaStream_t st) {
   static bool attr = false;
   if (!attr) {
     const int err = (int)cudaFuncSetAttribute(
-        block_gemm_kernel<TA, MW, TO, STATS, KMAJ, S32, RF32>,
+        block_gemm_kernel<TA, MW, TO, STATS, KMAJ, S32, SK8>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<MW>::SMEM);
     if (err) return err;
     attr = true;
   }
-  block_gemm_kernel<TA, MW, TO, STATS, KMAJ, S32, RF32><<<grid, THREADS, Tile<MW>::SMEM, st>>>(
+  block_gemm_kernel<TA, MW, TO, STATS, KMAJ, S32, SK8><<<grid, THREADS, Tile<MW>::SMEM, st>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], p);
   int err = (int)cudaGetLastError();
-  if (!err)
+  if (!err) {
     count_launch(std::is_same<TA, int8_t>::value ? COUNT_GEMM_S8
                  : p.train                       ? COUNT_GEMM_TRAIN
                                                  : COUNT_GEMM_BF16);
+    if (SK8) count_launch(COUNT_STATIC_SKIP);
+  }
   if (!err && p.splits > 1) {
     if constexpr (S32) {
       const long vecs = (long)p.B * p.H * p.W * p.N / 2;
@@ -654,8 +811,7 @@ int launch(dim3 grid, const CUtensorMap* maps, const Plan& p, cudaStream_t st) {
       block_splitk_stats_kernel<TO><<<dim3(grid.x, p.N / 32, p.box_b), 256, 0, st>>>(p);
     } else {
       const long vecs = (long)p.B * p.H * p.W * p.N / 2;
-      block_splitk_kernel<TO, std::conditional_t<RF32, float, TO>>
-          <<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>(p);
+      block_splitk_kernel<TO><<<(unsigned)((vecs + 255) / 256), 256, 0, st>>>(p);
     }
     err = (int)cudaGetLastError();
   }
@@ -675,8 +831,8 @@ int launch_mw(int mw, bool out_f32, dim3 grid, const CUtensorMap* maps, const Pl
     if (p.asc != nullptr && p.splits > 1)
       return out_f32 ? launch<int8_t, 1, float, false, false, true>(grid, maps, p, st)
                      : launch<int8_t, 1, bf16, false, false, true>(grid, maps, p, st);
-    // the static skip's conv2: bf16 out, the skip product as an f32 residual
-    if (p.resid_f32)
+    // the static skip's conv2: bf16 out, the skip's int8 slices after the conv's
+    if (p.skip8 > 0)
       return mw == 1 ? launch<int8_t, 1, bf16, false, false, false, true>(grid, maps, p, st)
                      : launch<int8_t, 2, bf16, false, false, false, true>(grid, maps, p, st);
   }
@@ -694,7 +850,8 @@ void count_launch(Counted kernel) { ++launch_counts[kernel]; }
 
 int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
   const int slice_k = g.int8 ? ROW : ROW / 2;  // conv channels of a slice
-  const int cskip = g.s0 ? g.cs0 + g.cs1 : 0;
+  const bool sk8 = g.wss != nullptr;  // the static skip: int8 slices, not in the split plan
+  const int cskip = g.s0 && !sk8 ? g.cs0 + g.cs1 : 0;
   const int conv_slices = g.taps * g.cin / slice_k;
   const int slices = conv_slices + cskip / 64;
   const int bm = 128 * t.mw;
@@ -708,9 +865,11 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
       // K11 int8's scales: int8, no skip, residual, temb or statistics
       (g.asc != nullptr && (!g.int8 || g.qs != nullptr || g.s0 || g.resid ||
                             g.temb || g.gn_part != nullptr || (g.splits > 1 && t.mw != 1))) ||
-      // an f32 residual under bf16 out: int8, no statistics or K11 scales
-      (g.resid_f32 && (!g.int8 || g.resid == nullptr || g.out_f32 || g.gn_part != nullptr ||
-                       g.asc != nullptr)) ||
+      // the static skip: int8, bf16 out, q(x) in s0 alone (128-channel slices), no
+      // residual, statistics or K11 scales
+      (sk8 && (!g.int8 || g.s0 == nullptr || g.s1 != nullptr || g.cs0 < ROW || g.cs0 % ROW ||
+               g.sx == nullptr || g.resid != nullptr || g.out_f32 || g.gn_part != nullptr ||
+               g.asc != nullptr)) ||
       // a dgrad: bf16, f32 out, no skip, no statistics
       (g.w_kmajor && (g.int8 || !g.out_f32 || g.s0 || g.gn_part != nullptr)) ||
       // GN2's sums: f32 out with no residual (conv1), a warp's 16 rows one sample's
@@ -730,7 +889,11 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
   p.box_b = t.box_b;
   p.tiles_h = t.tiles_h;
   p.conv_slices = conv_slices;
-  p.skip0_slices = g.s0 ? g.cs0 / 64 : 0;
+  p.skip0_slices = cskip ? g.cs0 / 64 : 0;
+  p.skip8 = sk8 ? g.cs0 / ROW : 0;
+  p.wss = g.wss;
+  p.sx = g.sx;
+  p.bskip = sk8 ? g.bias2 : nullptr;
   p.slices = slices;
   p.kper = g.kper;
   p.splits = g.splits;
@@ -739,11 +902,10 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
   p.amax = g.amax;
   p.asc = g.asc;
   p.bias = g.bias;
-  p.bias2 = g.bias2;
+  p.bias2 = sk8 ? nullptr : g.bias2;  // the static skip adds b_skip to its own product
   p.temb = g.temb;
   p.temb_ld = g.temb_ld;
   p.resid = g.resid;
-  p.resid_f32 = g.resid_f32;
   p.out_scale = g.out_scale;
   p.out = g.out;
   p.partial = g.partial;
@@ -779,7 +941,15 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t st) {
     ok = bf16_map(&maps[0], g.a, 4, adims, astrides, abox) &&
          bf16_map(&maps[1], g.w, 2, wdims, wstrides, nbox);
   }
-  if (ok && g.s0) {
+  if (ok && sk8) {  // q(x) (M, cs0) int8 by boxes of the tile's rows; its weights K-major
+    const cuuint64_t qdims[2] = {(cuuint64_t)g.cs0, (cuuint64_t)m};
+    const cuuint64_t qstrides[1] = {(cuuint64_t)g.cs0};
+    const cuuint32_t qbox[2] = {ROW, (cuuint32_t)bm};
+    const cuuint64_t wsdims[2] = {(cuuint64_t)g.cs0, (cuuint64_t)g.N};
+    const cuuint32_t wsbox[2] = {ROW, TILE_N};
+    ok = sw128_map(&maps[2], CU_TENSOR_MAP_DATA_TYPE_UINT8, g.s0, 2, qdims, qstrides, qbox) &&
+         sw128_map(&maps[4], CU_TENSOR_MAP_DATA_TYPE_UINT8, g.ws, 2, wsdims, qstrides, wsbox);
+  } else if (ok && g.s0) {
     const cuuint32_t sbox[2] = {64, (cuuint32_t)bm};
     const cuuint64_t s0dims[2] = {(cuuint64_t)g.cs0, (cuuint64_t)m};
     const cuuint64_t s0strides[1] = {(cuuint64_t)g.cs0 * 2};
@@ -932,7 +1102,8 @@ int gddim_dgrad_bf16(const void* g_, const void* w, int batch, int h, int w_, in
 // GEMM, the int8 pre-pass, the bf16 GEMM, the bf16 pre-pass, K5's attention
 // core, the GroupNorm statistics, the GN1 kernel, the wgrad kernel, K1's
 // kernel, the training blocks' block GEMM, the GN backward, GN2's pre-pass,
-// K8's online-softmax kernel, the static skip's int8 GEMM) into out
+// K8's online-softmax kernel, the int8 conv2 GEMMs that carry the static
+// skip, the f32 online kernel's split pre-pass) into out
 // (N_COUNTED long long); with reset, zeroed after reading.
 int gddim_block_launches(long long* out, int reset) {
   for (int k = 0; k < N_COUNTED; ++k) {

@@ -60,7 +60,12 @@ struct GemmTiles {
 // a dgrad, bf16 weights read K-major and tap-reversed, f32 out, no skip):
 //   out = (conv(a, w) [* (wsc[n] * s)] + skip + bias + bias2 + temb[b] + resid) * out_scale
 // s = *qs (static), asc[b] (K11 int8: the given per-sample scale), else
-// max(amax[b], 1e-12) / 127 of the row's sample b.
+// max(amax[b], 1e-12) / 127 of the row's sample b. With wss (the int8
+// blocks' static skip, int8 bf16 out): s0 the skip input quantized by sx,
+// (M, cs0) int8, ws its K-major (N, cs0) int8 weights, bias2 b_skip, and
+//   out = (((conv(a, w) * (wsc[n] * s) + bias) + 0) + ((f32(q(x) ws) * (wss[n] * sx)
+//          + bias2) + 0)) * out_scale
+// the skip's int32 sums converted once (in the last split where K splits).
 // With gn_part, the epilogue (or the split-K reduction) also writes each
 // output channel's sum and sum of squares over every (M tile, sample in the
 // tile): gn_part (2, B, tiles_h, N), [0] the sums, [1] the squares, row
@@ -74,10 +79,12 @@ struct BlockGemm {
   bool w_kmajor;
   int cin;
   int taps;         // 9: 3x3 SAME, 1: 1x1
-  const void* s0;   // skip inputs (M, cs0) and (M, cs1) bf16, or s0 null: no skip
+  const void* s0;   // skip inputs (M, cs0) and (M, cs1) bf16 (wss: int8), or s0 null: no skip
   const void* s1;
   int cs0, cs1;
-  const void* ws;   // (cs0 + cs1, N) bf16
+  const void* ws;   // (cs0 + cs1, N) bf16 (wss: (N, cs0) int8, K-major)
+  const float* wss;  // the static skip's (N,) weight scales, or null
+  const float* sx;   // the static skip's scale (one device float)
   int B, H, W, N;
   const float* wsc;   // int8: (N,) weight scales
   const float* qs;    // int8: static activation scale (one device float), or null
@@ -89,7 +96,6 @@ struct BlockGemm {
   const float* temb;   // (B, N) row added per sample (row b at temb + b * temb_ld), or null
   int temb_ld;
   const void* resid;   // (M, N) identity residual of out's type (bf16, or f32), or null
-  bool resid_f32;      // resid is f32 under a bf16 out (int8: the static skip's product)
   float out_scale;
   void* out;  // (M, N) f32 (out_f32) or bf16
   bool out_f32;
@@ -115,8 +121,9 @@ int block_gemm_launch(const BlockGemm& g, const GemmTiles& t, cudaStream_t strea
 // backward (resblock_bwd.cu), GN2's folding pre-pass (gn_prepass_kernel,
 // every mode; counted as its mode's pre-pass too), K8's online-softmax
 // kernels (flash_online.cu's f32 and flash_online_wgmma.cu's bf16 form),
-// the int8 blocks' static skip GEMM (counted as the int8 GEMM too), and the
-// f32 online kernel's split pre-pass (online_split_kernel).
+// the int8 blocks' conv2 GEMMs that carry the static skip (counted as the
+// int8 GEMM too), and the f32 online kernel's split pre-pass
+// (online_split_kernel).
 enum Counted {
   COUNT_GEMM_S8 = 0,
   COUNT_PREPASS_S8 = 1,
@@ -138,15 +145,15 @@ enum Counted {
 void count_launch(Counted kernel);
 
 // The int8 blocks' static skip projection (act_scales [s1, s2, sx], the
-// TPU kernels' static_skip): the skip input (s0, s1) quantized by sx, or
-// (q8) s0 quantized already (K9's resampled x), its 1x1 by the int8 skip
-// weights ws (K-major (N, cs0 + cs1)) on the int8 block GEMM into an f32
-// buffer, f32(int32 sums) * (wss[n] * sx) + b_skip, under its own M tiling
-// (s8_tile_plan at taps 1, K unsplit); conv2 adds it as an f32 residual.
+// TPU kernels' static_skip): the skip input (s0, s1) quantized by sx into
+// the workspace's q(x) (M, cs0 + cs1) int8 (by GN1's gn_apply_kernel, which
+// holds the input, or by a pre-pass), or (q8) s0 quantized already (K9's
+// resampled x); its 1x1 by the int8 skip weights ws (K-major (N, cs0 +
+// cs1)) runs as int8 K slices of conv2's block GEMM (BlockGemm's wss),
+// f32(int32 sums) * (wss[n] * sx) + b_skip.
 struct StaticSkip {
   const float* wss;  // (N,) the skip weights' scales; null: no static skip
   bool q8;
-  GemmTiles tiles;
 };
 
 // One residual block on the block GEMM (gddim_resblock's and
@@ -239,7 +246,9 @@ struct Taps {
 //     the cluster, and writes it to amax_out and its scale max(amax, 1e-12)
 //     / 127 to qs_out, each where non-null); with unfold (K12, per-sample
 //     int8), the affine unfolded as the TPU kernel's group_norm_silu_quant
-//     computes it, ((x - mean) * rstd) * gamma + beta;
+//     computes it, ((x - mean) * rstd) * gamma + beta; with qsx (the int8
+//     blocks' static skip, static int8 out), also the concat itself
+//     quantized by *qsx into xr (B, h*w, ca+cb) int8, the skip's q(x);
 //   resample (resample 1, xb null, h x w the input): K9's silu(GN1(x))
 //     rounded to bf16 once, resampled by the taps k (up or down) into out
 //     (out_type 0 bf16, 1 f32 with its per-sample amax into amax_out when
@@ -264,8 +273,9 @@ struct GnApply {
   int out_type;   // resample: 0 bf16, 1 f32, 2 int8
   Taps k;
   void* out;
-  void* xr;          // resample: the resampled x, bf16, or int8 by *qsx when qsx is set
-  const float* qsx;  // resample: the static skip scale sx, or null
+  void* xr;          // resample: the resampled x, bf16, or int8 by *qsx when qsx is set;
+                     // convert with qsx: q(x) int8
+  const float* qsx;  // the static skip scale sx, or null
   float* amax_out;
   float* qs_out;
   int unfold;

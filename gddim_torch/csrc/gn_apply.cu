@@ -28,7 +28,9 @@
 //   3. convert: the resident share through the affine (+SiLU), then bf16
 //      or int8, written NHWC where the block pre-pass wrote it (convert8,
 //      the pre-pass's own arithmetic: the same bits), each thread over one
-//      channel vector, its affine in registers. The per-sample int8
+//      channel vector, its affine in registers; with the int8 blocks' static
+//      skip (QX), the same held values quantized by sx too, the skip's q(x),
+//      as its pre-pass wrote it. The per-sample int8
 //      mode first takes the amax of the activated share, a cluster max
 //      (exact in any order), then quantizes; it writes the amax for the
 //      GEMM's dequantization.
@@ -174,8 +176,9 @@ __device__ __forceinline__ void block_max(float v, float* red, float* out) {
 // grid (a.ctas, B), GA_THREADS threads, ga_layout(C, a.px, RESAMPLE).total
 // bytes of shared memory, clusters of a.ctas along x. TQ: convert's output
 // (bf16, int8_t), or the resample's h (bf16, float, int8_t). UNFOLD: K12
-// (int8 per sample; the affine unfolded).
-template <typename TQ, bool RESAMPLE, bool UNFOLD = false>
+// (int8 per sample; the affine unfolded). QX: convert also writes q(x) by
+// the static skip scale (int8 static).
+template <typename TQ, bool RESAMPLE, bool UNFOLD = false, bool QX = false>
 __global__ void __launch_bounds__(GA_THREADS, RESAMPLE ? GA_MIN_CTAS_RS : GA_MIN_CTAS)
 gn_apply_kernel(const GnApply a, const int px) {
   extern __shared__ __align__(128) unsigned char gsm[];
@@ -382,8 +385,10 @@ gn_apply_kernel(const GnApply a, const int px) {
       qb = 0;
     }
     TQ* out = (TQ*)a.out + ((long)b * hw + l0) * c_tot + c8;
+    int8_t* xq = QX ? (int8_t*)a.xr + ((long)b * hw + l0) * c_tot + c8 : nullptr;
     // convert8's static scale, taken once a thread rather than once a vector
     const float inv_static = qa.qs != nullptr ? 1.0f / *qa.qs : 0.0f;
+    const float inv_sx = QX ? 1.0f / *a.qsx : 0.0f;
     for (int pl = lane; on && pl < n; pl += GA_UNROLL * lanes) {
       float f[GA_UNROLL][8];
 #pragma unroll
@@ -397,6 +402,13 @@ gn_apply_kernel(const GnApply a, const int px) {
       for (int u = 0; u < GA_UNROLL; ++u) {
         if (pl + u * lanes >= n) continue;
         TQ* dst = out + (long)(pl + u * lanes) * c_tot;
+        if constexpr (QX) {  // the skip's q(x) of the value as stored
+          uint2 qv;
+          int8_t* e8 = reinterpret_cast<int8_t*>(&qv);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) e8[j] = quant8(f[u][j] * inv_sx);
+          *reinterpret_cast<uint2*>(xq + (long)(pl + u * lanes) * c_tot) = qv;
+        }
         if constexpr (UNFOLD) {
           unfolded8(f[u], m, d, gam + c8, bet + c8, a.silu);
           *reinterpret_cast<uint2*>(dst) = quantize8(f[u], nullptr, nullptr, 0, 0.f, qa, qb);
@@ -531,11 +543,11 @@ long ga_share(int h, int w, bool resample, int up) {
   return px;
 }
 
-template <typename TQ, bool RESAMPLE, bool UNFOLD = false>
+template <typename TQ, bool RESAMPLE, bool UNFOLD = false, bool QX = false>
 int ga_run(const GnApply& a, int px, size_t smem, cudaStream_t st) {
   static bool attr = false;
   if (!attr) {
-    const int err = (int)cudaFuncSetAttribute(gn_apply_kernel<TQ, RESAMPLE, UNFOLD>,
+    const int err = (int)cudaFuncSetAttribute(gn_apply_kernel<TQ, RESAMPLE, UNFOLD, QX>,
                                               cudaFuncAttributeMaxDynamicSharedMemorySize, GA_SMEM);
     if (err) return err;
     attr = true;
@@ -552,7 +564,7 @@ int ga_run(const GnApply& a, int px, size_t smem, cudaStream_t st) {
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  int err = (int)cudaLaunchKernelEx(&cfg, gn_apply_kernel<TQ, RESAMPLE, UNFOLD>, a, px);
+  int err = (int)cudaLaunchKernelEx(&cfg, gn_apply_kernel<TQ, RESAMPLE, UNFOLD, QX>, a, px);
   if (!err) err = (int)cudaGetLastError();
   return err;
 }
@@ -575,7 +587,7 @@ int gn_apply_launch(const GnApply& a, cudaStream_t st) {
       ((uintptr_t)a.xa % 16 == 0) && ((uintptr_t)a.xb % 16 == 0) && (a.cb == 0) == (a.xb == nullptr) &&
       (rs ? (a.cb == 0 && a.h % 2 == 0 && a.w % 2 == 0 && a.out_type >= 0 && a.out_type <= 2 &&
              (a.out_type != 2 || a.q.qs != nullptr) && a.xr != nullptr)
-          : (a.qsx == nullptr &&
+          : ((a.qsx == nullptr || (a.int8 && a.q.qs != nullptr && a.xr != nullptr)) &&
              (!a.int8 || a.q.qs != nullptr || a.amax_out != nullptr || a.qs_out != nullptr))) &&
       // K12: int8 per sample, its scales out
       (!a.unfold || (!rs && a.int8 && a.q.qs == nullptr && !a.q.inv_mul && a.qs_out != nullptr));
@@ -586,6 +598,8 @@ int gn_apply_launch(const GnApply& a, cudaStream_t st) {
   int err;
   if (a.unfold)
     err = ga_run<int8_t, false, true>(a, (int)px, smem, st);
+  else if (!rs && a.qsx != nullptr)
+    err = ga_run<int8_t, false, false, true>(a, (int)px, smem, st);
   else if (!rs)
     err = a.int8 ? ga_run<int8_t, false>(a, (int)px, smem, st) : ga_run<bf16, false>(a, (int)px, smem, st);
   else if (a.out_type == 0)

@@ -158,8 +158,10 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 // converted in place to f32, then more f32 products into the same registers.
 //
 // d (64 x 128 s32, the wgmma accumulator layout) += A (64 x 32 s8) *
-// B (32 x 128 s8), both K-major: 8-bit wgmma has no transpose bit
-__device__ __forceinline__ void wgmma_s8_m64n128k32(uint32_t (&d)[64], uint64_t da, uint64_t db) {
+// B (32 x 128 s8), both K-major: 8-bit wgmma has no transpose bit; with
+// accumulate 0, d = A * B (a new sum starts without zero stores)
+__device__ __forceinline__ void wgmma_s8_m64n128k32(uint32_t (&d)[64], uint64_t da, uint64_t db,
+                                                    int accumulate = 1) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
@@ -178,7 +180,7 @@ __device__ __forceinline__ void wgmma_s8_m64n128k32(uint32_t (&d)[64], uint64_t 
         "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
         "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // d (64 x 128 f32 as .b32 registers) += A (64 x 16) * B (16 x 128): A

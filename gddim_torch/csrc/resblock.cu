@@ -75,14 +75,14 @@
 // form; the model never passes a static skip scale), or, with act_scales
 // [s1, s2, sx] (the ops API fed by calibration's "x" amaxes; StaticSkip in
 // conv.cuh), as the TPU kernels' static skip (resblock.py:283-290, 408-415,
-// 830-833, 957, 1404): two launches first, the int8 pre-pass writing
-// q(x) = clip(rint(x * (1/sx))) of the skip input as stored (K3: both
-// halves; K9's gn_apply_kernel writes q(xr) itself), then its 1x1 on the
-// int8 block GEMM (taps 1, K unsplit) into an f32 buffer,
-// f32(int32 sum) * (w_skip_scale * sx) + b_skip; conv2 runs without skip
-// slices and adds that buffer as an f32 residual under its bf16 out
-// (block_gemm.cu's RF32), before the 1/sqrt(2). Folding the skip into
-// conv2's GEMM as a second int32 accumulator set is later work.
+// 830-833, 957, 1404): q(x) = clip(rint(x * (1/sx))) of the skip input as
+// stored (K3: both halves) into the workspace, by GN1's gn_apply_kernel
+// beside q(a1) from the input it holds (K2, K3), or by the int8 pre-pass
+// (K4, whose skip input no launch reads, and GN1's route 0; K9's first
+// launch writes q(xr) itself); then its 1x1 runs as int8 K slices of conv2's
+// block GEMM (block_gemm.cu's SK8): its int32 sums converted once,
+// f32(sums) * (w_skip_scale * sx) + b_skip, added after conv2's + b2,
+// before the 1/sqrt(2). No launch and no f32 (M, N) buffer of its own.
 //
 // f32 activations (K2-K4 on f32 x, which write f32 as the TPU kernels write
 // x's dtype: gddim_resblock with act_f32), the bf16 mode's runner and
@@ -516,9 +516,9 @@ int gn2_prepass_run(bool int8, const float* h1, const GnFold& f, int batch, int 
 // the pre-pass's output type, 1 (int8) or 2 (bf16); parts: conv1's tiles
 // along H (GN2's partial rows a sample); xs: the skip's channels on f32
 // activations (their bf16 copy), else 0; sx: the skip's channels with the
-// int8 static skip (its int8 input and f32 product), else 0. Of
+// int8 static skip (its int8 input q(x)), else 0. Of
 //   8 B Cin + 4 M N + 8 B N + 8 B parts N + 8 B + act_bytes M max(Cin, N)
-//   + 2 M xs + (M sx + 4 M N when sx) (+ 4 splits M N when a conv splits K)
+//   + 2 M xs + M sx (+ 4 splits M N when a conv splits K)
 //   bytes, each buffer on 256 bytes.
 struct WorkGemm {
   float* sc1;      // (B, Cin) GN1 affine
@@ -531,9 +531,8 @@ struct WorkGemm {
   void* a;         // (M, max(Cin, N)) the pre-pass's conv input, conv1's then conv2's
   void* xs;        // (M, xs) bf16 skip input (f32 activations), or null
   int8_t* xq;      // (M, sx) the static skip's int8 input, or null
-  float* skip;     // (M, N) the static skip's product + b_skip, f32, or null
   float* partial;  // (splits, M, N) split-K partial sums
-  size_t xq_off, skip_off;  // the byte offsets of xq and skip
+  size_t xq_off;   // the byte offset of xq
   size_t bytes;
 };
 
@@ -557,8 +556,6 @@ WorkGemm carve_gemm(char* base, int batch, long m, int cin, int n, int splits, i
   w.xs = xs ? take(2 * m * xs) : nullptr;
   w.xq_off = off;
   w.xq = sx ? (int8_t*)take(m * sx) : nullptr;
-  w.skip_off = off;
-  w.skip = sx ? (float*)take(sizeof(float) * m * n) : nullptr;
   w.partial = splits > 1 ? (float*)take(sizeof(float) * splits * m * n) : nullptr;
   w.bytes = off;
   return w;
@@ -679,43 +676,20 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
   const bool static_skip = sk.wss != nullptr;
   if (static_skip && (!int8 || act_scales == nullptr || s0 == nullptr || (sk.q8 && s1 != nullptr)))
     return (int)cudaErrorInvalidValue;
+  // the static skip's q(x): K9's s0 as it is; GN1's one launch writes it
+  // beside a1 where the skip input is GN1's input (K2, K3); else a pre-pass
+  const bool xq_gn1 = static_skip && !sk.q8 && gn_ctas && s0 == x0 && s1 == x1;
   const WorkGemm wk = carve_gemm((char*)work, batch, (long)batch * hw, cin, n,
                                  splits1 > splits2 ? splits1 : splits2, tiles.tiles_h,
                                  int8 ? 1 : 2, f32_act && s0 ? cs0 + cs1 : 0,
-                                 static_skip ? cs0 + cs1 : 0);
+                                 static_skip && !sk.q8 ? cs0 + cs1 : 0);
   const float* qs = (const float*)act_scales;
   const float* am1 = amax1 ? amax1 : wk.amax;
+  const void* xq = static_skip && !sk.q8 ? wk.xq : s0;
   int err = 0;
-  if (static_skip) {
-    // skip = f32(int32 sum of q(x) by the int8 skip weights) * (wss * sx) + b_skip,
-    // q(x) = clip(rint(x * (1/sx))) of the skip input as stored (K9: quantized already)
-    const void* xq = s0;
-    if (!sk.q8) {
-      const Int8Args q = {qs + 2, nullptr, 0};
-      err = prepass_launch(s0, s1, cs0, cs1, false, batch, hw, nullptr, nullptr, 0, &q, wk.xq,
-                           st);
-      xq = wk.xq;
-    }
-    BlockGemm gs = {};
-    gs.int8 = true;
-    gs.a = xq;
-    gs.w = ws;
-    gs.cin = cs0 + cs1;
-    gs.taps = 1;
-    gs.B = batch;
-    gs.H = h;
-    gs.W = w_;
-    gs.N = n;
-    gs.wsc = sk.wss;
-    gs.qs = qs + 2;
-    gs.bias = (const float*)bs;
-    gs.out_scale = 1.0f;
-    gs.out = wk.skip;
-    gs.out_f32 = true;
-    gs.splits = 1;  // K unsplit: the int32 sums converted once, as the TPU kernels'
-    gs.kper = (cs0 + cs1) / 128;
-    if (!err) err = block_gemm_launch(gs, sk.tiles, st);
-    if (!err) count_launch(COUNT_STATIC_SKIP);
+  if (static_skip && !sk.q8 && !xq_gn1) {  // q(x) = clip(rint(x * (1/sx))) of x as stored
+    const Int8Args q = {qs + 2, nullptr, 0};
+    err = prepass_launch(s0, s1, cs0, cs1, false, batch, hw, nullptr, nullptr, 0, &q, wk.xq, st);
   }
   // conv1's operand: x0 as it is (bf16 without GN1: K4's and K9's h; K9's
   // q(h) with x_q8), else a1 = silu(GN1(x)) in bf16 (f32 x without GN1:
@@ -740,6 +714,10 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
     g1.q = Int8Args{qs, nullptr, x1 != nullptr};
     g1.out = wk.a;
     g1.amax_out = int8 && qs == nullptr ? wk.amax : nullptr;
+    if (xq_gn1) {
+      g1.xr = wk.xq;
+      g1.qsx = qs + 2;
+    }
     g1.ctas = gn_ctas;
     err = gn_apply_launch(g1, st);
     a1 = wk.a;
@@ -807,20 +785,21 @@ int resblock_gemm_run(bool int8, const void* x0, const void* x1, int c0, int c1,
     g.a = wk.a;
     g.w = w2;
     g.cin = n;
-    g.s0 = static_skip ? nullptr : f32_act ? wk.xs : s0;  // f32 activations: one bf16 copy
+    // f32 activations: one bf16 copy; the static skip: q(x), its int8 slices
+    g.s0 = static_skip ? xq : f32_act ? wk.xs : s0;
     g.s1 = static_skip || f32_act ? nullptr : s1;
-    g.cs0 = f32_act ? cs0 + cs1 : cs0;
-    g.cs1 = f32_act ? 0 : cs1;
-    g.ws = static_skip ? nullptr : ws;
+    g.cs0 = f32_act || static_skip ? cs0 + cs1 : cs0;
+    g.cs1 = f32_act || static_skip ? 0 : cs1;
+    g.ws = ws;
+    g.wss = sk.wss;
+    g.sx = static_skip ? qs + 2 : nullptr;
     g.wsc = (const float*)w2s;
     g.qs = qs ? qs + 1 : nullptr;
     g.amax = wk.amax + batch;
     g.bias = (const float*)b2;
-    g.bias2 = static_skip ? nullptr : (const float*)bs;
+    g.bias2 = (const float*)bs;
     g.temb = nullptr;
-    // the static skip's f32 product, or the identity residual of out's type
-    g.resid = static_skip ? wk.skip : s0 ? nullptr : x0;
-    g.resid_f32 = static_skip;
+    g.resid = s0 ? nullptr : x0;  // the identity residual of out's type
     g.out_scale = out_scale;
     g.out = out;
     g.out_f32 = out_f32;
@@ -842,19 +821,16 @@ long long gddim_resblock_int8_workspace(int batch, int h, int w, int cin, int n,
       .bytes;
 }
 
-// The byte offsets in gddim_resblock_int8's workspace (arguments as
+// The byte offset in gddim_resblock_int8's workspace (arguments as
 // gddim_resblock_int8_workspace, sx > 0) of the static skip's int8 input
-// q(x) (M, sx) and of its f32 product + b_skip (M, N): offs[0], offs[1].
-// Both hold their values after the launch (conv2 reads the product as its
-// residual), so that a caller may check them.
-int gddim_resblock_int8_skip_offsets(int batch, int h, int w, int cin, int n, int splits,
-                                     int parts, int sx, long long* offs) {
-  if (sx <= 0) return (int)cudaErrorInvalidValue;
-  const WorkGemm wk =
-      carve_gemm(nullptr, batch, (long)batch * h * w, cin, n, splits, parts, 1, 0, sx);
-  offs[0] = (long long)wk.xq_off;
-  offs[1] = (long long)wk.skip_off;
-  return 0;
+// q(x) (M, sx), which holds its values after the launch, so that a caller
+// may check them; -1 without sx.
+long long gddim_resblock_int8_xq_offset(int batch, int h, int w, int cin, int n, int splits,
+                                        int parts, int sx) {
+  if (sx <= 0) return -1;
+  return (long long)carve_gemm(nullptr, batch, (long)batch * h * w, cin, n, splits, parts, 1, 0,
+                               sx)
+      .xq_off;
 }
 
 // The int8 mode of K2 / K3 / K4 (arguments as gddim_resblock, with the
@@ -864,26 +840,22 @@ int gddim_resblock_int8_skip_offsets(int batch, int h, int w, int cin, int n, in
 // x1 non-null (the pair) quantizes conv1's input as a * (127 / amax). The
 // skip (ws, bs) is bf16, or with wss non-null the static skip (StaticSkip):
 // act_scales [s1, s2, sx], ws int8 K-major (N, cs0 + cs1), wss its (N,)
-// scales, skip_plan the host address of its GEMM's M tiling (mw, box_h,
-// box_b, tiles_h, m_tiles). The tile plan (ops/resblock.py:s8_tile_plan):
-// the convs' M tiling (mw, box_h, box_b, tiles_h, m_tiles), shared by both,
-// and each conv's split of K. Scratch: gddim_resblock_int8_workspace bytes
-// (sx: cs0 + cs1 with the static skip).
+// scales; its (cs0 + cs1) / 128 K slices join conv2's last split. The tile
+// plan (ops/resblock.py:s8_tile_plan): the convs' M tiling (mw, box_h,
+// box_b, tiles_h, m_tiles), shared by both, and each conv's split of K
+// (conv2's over its conv slices alone with the static skip). Scratch:
+// gddim_resblock_int8_workspace bytes (sx: cs0 + cs1 with the static skip).
 int gddim_resblock_int8(const void* x0, const void* x1, int c0, int c1, const void* temb_row,
                         int temb_ld, const void* gn1_g, const void* gn1_b, int groups1,
                         const void* w1q, const void* w1s, const void* b1, const void* gn2_g,
                         const void* gn2_b, int groups2, const void* w2q, const void* w2s,
                         const void* b2, const void* s0, const void* s1, int cs0, int cs1,
-                        const void* ws, const void* bs, const void* wss, const int* skip_plan,
+                        const void* ws, const void* bs, const void* wss,
                         const void* act_scales, int batch, int h, int w_, int n, float eps,
                         float out_scale, void* work, int mw, int box_h, int box_b, int tiles_h,
                         int m_tiles, int splits1, int kper1, int splits2, int kper2, int gn_ctas,
                         void* out, void* stream) {
-  if ((wss != nullptr) != (skip_plan != nullptr)) return (int)cudaErrorInvalidValue;
-  StaticSkip sk = {};
-  if (wss != nullptr)
-    sk = {(const float*)wss, false,
-          GemmTiles{skip_plan[0], skip_plan[1], skip_plan[2], skip_plan[3], skip_plan[4]}};
+  const StaticSkip sk = {(const float*)wss, false};
   return resblock_gemm_run(true, x0, x1, c0, c1, false, false, false, gn_ctas, nullptr,
                            temb_row, temb_ld, gn1_g, gn1_b, groups1, w1q, w1s, b1, gn2_g, gn2_b,
                            groups2, w2q, w2s, b2, s0, s1, cs0, cs1, ws, bs, act_scales, batch, h,

@@ -77,8 +77,6 @@ extern "C" long long gddim_resblock_workspace(int batch, int h, int w, int cin, 
                                               int splits, int parts, int xs);
 extern "C" long long gddim_resblock_int8_workspace(int batch, int h, int w, int cin, int n,
                                                    int splits, int parts, int sx);
-extern "C" int gddim_resblock_int8_skip_offsets(int batch, int h, int w, int cin, int n,
-                                                int splits, int parts, int sx, long long* offs);
 namespace {
 
 constexpr int RS_THREADS = 256;
@@ -378,26 +376,18 @@ int gddim_resblock_transition(const void* x, int c, int act_f32, const void* tem
                            kper2, false, nullptr, 1.0f, out, st);
 }
 
-// sx: c with the static skip, else 0
 long long gddim_resblock_transition_int8_workspace(int batch, int h, int w, int c, int n,
-                                                   int splits, int parts, int sx) {
+                                                   int splits, int parts) {
   return (long long)(carve(nullptr, batch, h, w, c, sizeof(float), sizeof(bf16)).bytes +
-                     gddim_resblock_int8_workspace(batch, h, w, c, n, splits, parts, sx));
+                     gddim_resblock_int8_workspace(batch, h, w, c, n, splits, parts, 0));
 }
 
-// The byte offsets in gddim_resblock_transition_int8's workspace
-// (arguments as gddim_resblock_transition_int8_workspace with sx = c) of the
-// static skip's int8 input q(xr) (M, C) and of its f32 product + b_skip
-// (M, N): offs[0], offs[1], as gddim_resblock_int8_skip_offsets.
-int gddim_resblock_transition_int8_skip_offsets(int batch, int h, int w, int c, int n,
-                                                int splits, int parts, long long* offs) {
-  const Work wk = carve(nullptr, batch, h, w, c, sizeof(float), sizeof(bf16));
-  long long inner[2];
-  const int err = gddim_resblock_int8_skip_offsets(batch, h, w, c, n, splits, parts, c, inner);
-  if (err) return err;
-  offs[0] = (long long)wk.xr_off;
-  offs[1] = (long long)wk.bytes + inner[1];
-  return 0;
+// The byte offset in gddim_resblock_transition_int8's workspace (arguments
+// as gddim_resblock_transition_int8_workspace) of the static skip's int8
+// input q(xr) (M, C), as gddim_resblock_int8_xq_offset.
+long long gddim_resblock_transition_int8_xq_offset(int batch, int h, int w, int c, int n,
+                                                   int splits, int parts) {
+  return (long long)carve(nullptr, batch, h, w, c, sizeof(float), sizeof(bf16)).xr_off;
 }
 
 // K9, int8 mode: x bf16; conv weights int8 K-major (N, 9 * Cin) with
@@ -405,25 +395,23 @@ int gddim_resblock_transition_int8_skip_offsets(int batch, int h, int w, int c, 
 // or null for per-sample scales. h stays f32 (quantized unrounded by the
 // int8 block's pre-pass); the skip runs bf16 on xr, or with wss non-null
 // the static skip (conv.cuh's StaticSkip): act_scales [s1, s2, sx], ws int8
-// K-major (N, C), wss its scales, skip_plan the host address of its GEMM's M
-// tiling, xr written int8 by the first launch. The tile plan as
-// gddim_resblock_int8 takes it, at the output resolution. Scratch:
-// gddim_resblock_transition_int8_workspace bytes.
+// K-major (N, C), wss its scales, xr written int8 by the first launch. The
+// tile plan as gddim_resblock_int8 takes it, at the output resolution.
+// Scratch: gddim_resblock_transition_int8_workspace bytes.
 int gddim_resblock_transition_int8(const void* x, int c, const void* temb_row, int temb_ld,
                                    const void* gn1_g, const void* gn1_b, int groups1,
                                    const void* w1q, const void* w1s, const void* b1,
                                    const void* gn2_g, const void* gn2_b, int groups2,
                                    const void* w2q, const void* w2s, const void* b2,
                                    const void* ws, const void* bs, const void* wss,
-                                   const int* skip_plan, const void* act_scales,
+                                   const void* act_scales,
                                    int batch, int h_in, int w_in, int up,
                                    float kh0, float kh1, float kh2, float kh3, float kw0,
                                    float kw1, float kw2, float kw3, int n, float eps,
                                    float out_scale, void* work, int mw, int box_h, int box_b,
                                    int tiles_h, int m_tiles, int splits1, int kper1, int splits2,
                                    int kper2, int gn_ctas, void* out, void* stream) {
-  if (c % 8 || h_in % 2 || w_in % 2 || (wss != nullptr) != (skip_plan != nullptr) ||
-      (wss != nullptr && act_scales == nullptr))
+  if (c % 8 || h_in % 2 || w_in % 2 || (wss != nullptr && act_scales == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int ho = out_size(h_in, up), wo = out_size(w_in, up);
@@ -432,10 +420,7 @@ int gddim_resblock_transition_int8(const void* x, int c, const void* temb_row, i
   const float* qs = (const float*)act_scales;
   const bool dynamic = qs == nullptr;
   const float* qsx = wss != nullptr ? qs + 2 : nullptr;
-  StaticSkip sk = {};
-  if (wss != nullptr)
-    sk = {(const float*)wss, true,
-          GemmTiles{skip_plan[0], skip_plan[1], skip_plan[2], skip_plan[3], skip_plan[4]}};
+  const StaticSkip sk = {(const float*)wss, true};
   // the one-launch route writes q(h) itself with a static scale: conv1 then
   // needs no pre-pass; else h f32 (and its per-sample amax) for the pre-pass
   const bool q8 = gn_ctas && !dynamic;

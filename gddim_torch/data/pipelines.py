@@ -26,7 +26,10 @@ bilinear, CelebA central crop 140 then bilinear, LSUN at 128 resize-small
 then crop, other LSUN sizes square crop, bicubic and uint8 rounding, FFHQ /
 CelebA-HQ as stored). Its antialiased resize is PIL's ``Image.resize`` on
 mode-"F" planes written in numpy (``pil_resize``), so that the port needs
-no PIL. Image folders (PNG / JPEG) need PIL to decode and are refused.
+no PIL for it. An image folder (PNG / JPEG / WebP files under data_dir, at
+any depth, in sorted order, each converted to RGB) is decoded by PIL, as
+the JAX package decodes it, imported only there: without PIL it raises
+ImportError, and the images can be stored as <name>_train.npz instead.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ import numpy as np
 logger = logging.getLogger("gddim_torch")
 
 SYNTHETIC_SIZE = 2048  # images in the synthetic training corpus
-IMAGE_SUFFIXES = (".png", ".jpg", ".jpeg", ".webp")  # an image folder's files (refused)
+IMAGE_SUFFIXES = (".png", ".jpg", ".jpeg", ".webp")  # an image folder's files
 
 
 def get_data_scaler(config):
@@ -421,10 +424,16 @@ def _find_corpus(config, train: bool) -> np.ndarray | None:
         if npz.exists():
             with np.load(npz) as z:
                 return z["images"]
-        if d.is_dir() and any(p.suffix.lower() in IMAGE_SUFFIXES for p in d.rglob("*")):
-            raise NotImplementedError(
-                f"{d} is an image folder: decoding PNG / JPEG needs PIL, which the port does "
-                "not use; store the images as <name>_train.npz ('images', uint8 NHWC) instead")
+        files = (sorted(p for p in d.rglob("*") if p.suffix.lower() in IMAGE_SUFFIXES)
+                 if d.is_dir() else [])
+        if files:  # an image folder, decoded as the JAX package decodes it
+            try:
+                from PIL import Image  # image folders alone need PIL: imported here
+            except ImportError as e:
+                raise ImportError(
+                    f"{d} is an image folder: decoding PNG / JPEG / WebP needs PIL; without "
+                    "it, store the images as <name>_train.npz ('images', uint8 NHWC)") from e
+            return np.stack([np.asarray(Image.open(f).convert("RGB")) for f in files])
     return None
 
 

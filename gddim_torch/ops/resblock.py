@@ -264,14 +264,12 @@ def static_skip_product(x_skip, w_skip, b_skip, sx):
     return int8_matmul_exact(q, wq) * (wsc.float() * sx) + b_skip.float()
 
 
-def _plain_skip_buffers(buffers: dict, x_skip, w_skip, b_skip, act_scales) -> None:
+def _plain_skip_buffers(buffers: dict, x_skip, w_skip, act_scales) -> None:
     """The int8 entries' ``skip_buffers`` on the CPU: "xq" the plain static
-    skip's int8 input q(x_skip), "skip" its f32 product + b_skip."""
+    skip's int8 input q(x_skip)."""
     if not check_act_scales(act_scales) or w_skip is None:
         raise ValueError("skip_buffers: needs the static skip (act_scales [s1, s2, sx], a 1x1 skip)")
-    sx = act_scales.float()[2]
-    buffers["xq"] = quant_static(x_skip.float(), sx).to(torch.int8)
-    buffers["skip"] = static_skip_product(x_skip, w_skip, b_skip, sx)
+    buffers["xq"] = quant_static(x_skip.float(), act_scales.float()[2]).to(torch.int8)
 
 
 def quant_static(a, s):
@@ -1125,52 +1123,53 @@ def _plan_gemm(entry: str, b: int, h: int, w: int, cin: int, cskip: int, n: int,
     conv1 (cin -> n) and conv2 (n -> n, + the cskip-channel skip) share the M
     tiling; the workspace holds GN2's partial sums, conv1's tiles_h rows a
     sample, and on ``f32`` activations (gddim_resblock) the skip's bf16
-    copy. ``static_skip`` (the int8 entries): conv2 has no skip slices, the
-    workspace holds the skip's int8 input and f32 product."""
+    copy. ``static_skip`` (the int8 entries): conv2's K split is that of its
+    conv slices alone, the skip's cskip / 128 int8 slices join its last
+    split (``static_skip_slices``), and gddim_resblock_int8's workspace
+    holds the skip's int8 input q(x) (the transition's holds q(xr) in place
+    of its bf16 xr)."""
     plan = s8_tile_plan if int8 else bf16_tile_plan
     p1, p2 = plan(b, h, w, cin, 0, n), plan(b, h, w, n, 0 if static_skip else cskip, n)
     tiles = (p1.mw, p1.box_h, p1.box_b, p1.tiles_h, p1.m_tiles)
     if entry == "gddim_resblock":
         extra = (cskip if f32 else 0,)
     else:
-        extra = (cskip if static_skip else 0,) if int8 else ()
+        extra = (cskip if static_skip else 0,) if entry == "gddim_resblock_int8" else ()
     nbytes = _build.workspace_bytes(entry, b, h, w, cin, n, max(p1.splits, p2.splits),
                                     p1.tiles_h, *extra)
     return tiles, (p1.splits, p1.kper, p2.splits, p2.kper), nbytes
 
 
-def skip_plan(b: int, h: int, w: int, cskip: int, n: int) -> torch.Tensor:
-    """The static int8 skip's 1x1 on the int8 block GEMM (``s8_tile_plan`` at
-    taps 1, K never split, so that its int32 sums are converted once): its M
-    tiling (mw, box_h, box_b, tiles_h, m_tiles) as a host int32 array, whose
-    address the int8 block entries take."""
-    p = s8_tile_plan(b, h, w, cskip, 0, n, taps=1)
-    return torch.tensor([p.mw, p.box_h, p.box_b, p.tiles_h, p.m_tiles], dtype=torch.int32)
+def static_skip_slices(plan: GemmPlan, cskip: int) -> list:
+    """(conv slices, int8 skip slices) of each split of conv2 with the static
+    skip, as block_gemm_kernel (SK8) runs them: ``plan`` splits the conv
+    slices alone, and the skip's cskip / S8_SLICE slices all join the last
+    split, so that their int32 sums are converted once and every other
+    split's partial is the conv's own."""
+    if cskip <= 0 or cskip % S8_SLICE:
+        raise ValueError(f"static skip: {cskip} channels (a multiple of {S8_SLICE})")
+    conv = [min(plan.kper, plan.conv_slices - z * plan.kper) for z in range(plan.splits)]
+    return [(c, cskip // S8_SLICE if z == plan.splits - 1 else 0) for z, c in enumerate(conv)]
 
 
-def _static_skip_args(op, w_skip, cskip: int, n: int, plan, what: str):
-    """The static skip's C arguments (ws, wss, skip plan): its int8 weights
-    K-major (Cout, cskip) (a copy unless ``pack_skip_int8`` stored them so),
-    their scales and the plan's address; ``plan`` stays referenced by the
-    caller until the launch."""
+def _static_skip_weights(op, w_skip, cskip: int, n: int, what: str):
+    """The static skip's C arguments (ws, wss): its int8 weights K-major
+    (Cout, cskip) (a copy unless ``pack_skip_int8`` stored them so) and
+    their scales."""
     wq, wsc = w_skip
     if tuple(wq.shape) != (cskip, n) or cskip % S8_SLICE:
         raise ValueError(f"{what}: static skip weights {tuple(wq.shape)}, want {(cskip, n)} "
                          f"(Cin a multiple of {S8_SLICE})")
     return [op(wq.t(), "skip int8", torch.int8, (n, cskip)), op(wsc, "skip scales",
-                                                                torch.float32, (n,)),
-            plan.data_ptr()]
+                                                                torch.float32, (n,))]
 
 
-def _skip_views(buffers: dict, entry: str, work, shape, cskip: int, n: int, args) -> None:
-    """The int8 entries' ``skip_buffers`` on CUDA: views of the launch's
-    workspace ``work`` (``args`` its ``_workspace`` arguments): "xq" the
-    static skip's int8 input (*shape, cskip), "skip" its f32 product + b_skip
-    (*shape, N), as the kernels left them."""
-    o_q, o_s = _build.skip_offsets(entry, *args)
-    m = math.prod(shape)
-    buffers["xq"] = work[o_q:o_q + m * cskip].view(torch.int8).view(*shape, cskip)
-    buffers["skip"] = work[o_s:o_s + 4 * m * n].view(torch.float32).view(*shape, n)
+def _skip_views(buffers: dict, entry: str, work, shape, cskip: int, args) -> None:
+    """The int8 entries' ``skip_buffers`` on CUDA: "xq", the static skip's
+    int8 input (*shape, cskip) as the kernels left it, a view of the
+    launch's workspace ``work`` (``args`` its ``_workspace`` arguments)."""
+    o = _build.xq_offset(entry, *args)
+    buffers["xq"] = work[o:o + math.prod(shape) * cskip].view(torch.int8).view(*shape, cskip)
 
 
 def require_no_grad(what: str, *tensors) -> None:
@@ -1278,13 +1277,12 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
         _build.ptr(ss[0]), _build.ptr(ss[1]), cs0, cs1,
     ]
     if sx:
-        sk_plan = skip_plan(b, h, w, cs0 + cs1, n)
-        ws, wss, sk_ptr = _static_skip_args(op, w_skip, cs0 + cs1, n, sk_plan, entry)
-        args += [ws, op(b_skip, "b_skip", f32, (n,)), wss, sk_ptr]
+        ws, wss = _static_skip_weights(op, w_skip, cs0 + cs1, n, entry)
+        args += [ws, op(b_skip, "b_skip", f32, (n,)), wss]
     else:
         args += [op(w_skip, "skip", bf16, (cs0 + cs1, n)) if skip else None,
                  op(b_skip, "b_skip", f32, (n,)) if skip else None]
-        args += [None, None] if int8 else []
+        args += [None] if int8 else []
     if int8:
         args.append(op(None if act_scales is None else act_scales[:3 if sx else 2],
                        "act scales", f32, (3 if sx else 2,)))
@@ -1296,7 +1294,7 @@ def _block_cuda(parts, temb, dense_w, dense_b, gn1, w1, b1, gn2_scale, gn2_bias,
     _build.launch(entry, dev, *args, b, h, w, n, eps, _INV_SQRT2 if skip_rescale else 1.0,
                   work.data_ptr(), *plan, out.data_ptr())
     if skip_buffers is not None:
-        _skip_views(skip_buffers, entry, work, (b, h, w), cs0 + cs1, n,
+        _skip_views(skip_buffers, entry, work, (b, h, w), cs0 + cs1,
                     (b, h, w, cin, n, max(splits[0], splits[2]), tiles[3], cs0 + cs1))
     return out
 
@@ -1378,15 +1376,14 @@ def fused_resblock_int8(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, 
     sx, act_scales [s1, s2, sx], and a 1x1 skip, the static skip: w_skip an
     (int8 (Cin, Cout), scale) pair, pack_skip_int8's on CUDA to copy nothing).
     skip_buffers (the static skip only): a dict that receives "xq", the
-    skip's int8 input (B, H, W, Cin), and "skip", its f32 product + b_skip
-    (B, H, W, Cout), as the kernels left them in their workspace (on the
-    CPU the plain version's), for checks."""
+    skip's int8 input (B, H, W, Cin), as the kernels left it in their
+    workspace (on the CPU the plain version's), for checks."""
     args = (x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias,
             w2, b2, w_skip, b_skip, act_scales)
     kw = dict(num_groups2=num_groups2, eps=eps, skip_rescale=skip_rescale)
     if _on_cpu(x, "fused_resblock_int8"):
         if skip_buffers is not None:
-            _plain_skip_buffers(skip_buffers, x, w_skip, b_skip, act_scales)
+            _plain_skip_buffers(skip_buffers, x, w_skip, act_scales)
         return resblock_int8_reference(*args, num_groups1=num_groups1, **kw)
     out = _block_cuda([x], temb, dense_w, dense_b, (gn1_scale, gn1_bias, num_groups1), w1, b1,
                       gn2_scale, gn2_bias, w2, b2, None if w_skip is None else [x], w_skip,
@@ -1405,7 +1402,7 @@ def fused_resblock_pair_int8(xa, xb, temb, dense_w, dense_b, gn1_scale, gn1_bias
     kw = dict(num_groups2=num_groups2, eps=eps, skip_rescale=skip_rescale)
     if _on_cpu(xa, "fused_resblock_pair_int8"):
         if skip_buffers is not None:
-            _plain_skip_buffers(skip_buffers, torch.cat([xa, xb], -1), w_skip, b_skip, act_scales)
+            _plain_skip_buffers(skip_buffers, torch.cat([xa, xb], -1), w_skip, act_scales)
         return resblock_pair_int8_reference(
             xa, xb, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2_scale, gn2_bias,
             w2, b2, w_skip, b_skip, act_scales, num_groups1=num_groups1, **kw)
@@ -1425,7 +1422,7 @@ def fused_resblock_tail_int8(h, x_skip, temb, dense_w, dense_b, w1, b1, gn2_scal
     kw = dict(num_groups2=num_groups2, eps=eps, skip_rescale=skip_rescale)
     if _on_cpu(h, "fused_resblock_tail_int8"):
         if skip_buffers is not None:
-            _plain_skip_buffers(skip_buffers, x_skip, w_skip, b_skip, act_scales)
+            _plain_skip_buffers(skip_buffers, x_skip, w_skip, act_scales)
         return resblock_tail_int8_reference(h, x_skip, temb, dense_w, dense_b, w1, b1,
                                             gn2_scale, gn2_bias, w2, b2, w_skip, b_skip,
                                             act_scales, **kw)
@@ -1487,12 +1484,11 @@ def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2
         op(b2, "b2", f32, (n,)),
     ]
     if sx:
-        sk_plan = skip_plan(b, ho, wo, cin, n)
-        ws, wss, sk_ptr = _static_skip_args(op, w_skip, cin, n, sk_plan, what)
-        args += [ws, op(b_skip, "b_skip", f32, (n,)), wss, sk_ptr]
+        ws, wss = _static_skip_weights(op, w_skip, cin, n, what)
+        args += [ws, op(b_skip, "b_skip", f32, (n,)), wss]
     else:
         args += [op(w_skip, "skip", bf16, (cin, n)), op(b_skip, "b_skip", f32, (n,))]
-        args += [None, None] if int8 else []
+        args += [None] if int8 else []
     if int8:
         args.append(op(None if act_scales is None else act_scales[:3 if sx else 2],
                        "act scales", f32, (3 if sx else 2,)))
@@ -1501,7 +1497,7 @@ def _transition_cuda(x, temb, dense_w, dense_b, gn1_scale, gn1_bias, w1, b1, gn2
     _build.launch(entry, x.device, *args, b, hin, win, int(up), *kh, *kw, n, eps,
                   _INV_SQRT2 if skip_rescale else 1.0, work.data_ptr(), *plan, out.data_ptr())
     if skip_buffers is not None:
-        _skip_views(skip_buffers, entry, work, (b, ho, wo), cin, n,
+        _skip_views(skip_buffers, entry, work, (b, ho, wo), cin,
                     (b, ho, wo, cin, n, max(splits[0], splits[2]), tiles[3]))
     return out
 
@@ -1540,7 +1536,7 @@ def fused_resblock_transition_int8(x, temb, dense_w, dense_b, gn1_scale, gn1_bia
     if _on_cpu(x, "fused_resblock_transition_int8"):
         if skip_buffers is not None:
             xr = resample_transition(_bf16r(x.float()), transition_kerns(up, fir, fir_kernel), up)
-            _plain_skip_buffers(skip_buffers, xr, w_skip, b_skip, act_scales)
+            _plain_skip_buffers(skip_buffers, xr, w_skip, act_scales)
         return resblock_transition_int8_reference(*args, **kw)
     out = _transition_cuda(*args, int8=True, skip_buffers=skip_buffers, **kw)
     fused_resblock_transition_int8.launches += 1
@@ -1900,8 +1896,8 @@ def gn_resample(x, gamma, beta, *, up: bool, fir: bool = True, fir_kernel=(1, 3,
 # K7's GroupNorm backward (gn_bwd_kernel, two a block), GN2's folding
 # pre-pass (gn_prepass_kernel, every mode; also counted as its mode's
 # pre-pass), K8's online-softmax kernels (ops/attention.py, S > 1024; both
-# forms), the int8 blocks' static skip GEMM (also counted as the int8 block
-# GEMM) and the f32 online kernel's split pre-pass
+# forms), the int8 blocks' conv2 GEMMs that carry the static skip (also
+# counted as the int8 block GEMM) and the f32 online kernel's split pre-pass
 BLOCK_COUNTED = ("block_gemm_kernel<int8>", "prepass_kernel<int8>", "block_gemm_kernel<bf16>",
                  "prepass_kernel<bf16>", "attention_wgmma_kernel", "gn_stats_kernel",
                  "gn_apply_kernel", "wgrad_kernel", "gn_silu_kernel",

@@ -1,8 +1,11 @@
 """The corpora of ``gddim_torch/data/pipelines.py`` against the JAX
 package's on the CPU: the numpy resample against PIL's (which the JAX
 package calls, and which this box has), every ``preprocess_corpus`` rule,
-the TFRecord codec both ways, and ``get_dataset`` batches of CelebA stored
-at 218x178 and of FFHQ from records, on corpora made from a seed."""
+the TFRecord codec both ways, ``get_dataset`` batches of CelebA stored at
+218x178 and of FFHQ from records, and an image folder decoded by PIL (and
+refused without it), on corpora made from a seed."""
+
+import sys
 
 import numpy as np
 import pytest
@@ -131,10 +134,40 @@ def test_ffhq_records_batches_bit_for_bit(tmp_path):
             jp.get_dataset(jcfg)
 
 
-def test_image_folders_stay_refused(tmp_path):
-    """PNG / JPEG folders need PIL, which the port does not use."""
-    (tmp_path / "img").mkdir()
-    (tmp_path / "img" / "a.jpg").write_bytes(b"")
-    cfg, _ = _configs(tmp_path / "img", "faces", 32)
-    with pytest.raises(NotImplementedError, match="PIL"):
+def _image_folder(root):
+    """A nested folder of 16x16 PNG, JPEG and WebP files in RGB, RGBA and L
+    modes (upper- and lower-case suffixes) and a file that is no image, drawn
+    from a seed."""
+    from PIL import Image
+
+    rng = np.random.default_rng(9)
+    files = [("0.png", "RGB"), ("a/1.PNG", "RGBA"), ("a/2.jpg", "RGB"), ("a/b/3.jpeg", "L"),
+             ("a/b/4.webp", "RGBA"), ("5.WEBP", "RGB"), ("a/6.png", "L"), ("c/7.JPG", "L")]
+    for name, mode in files:
+        f = root / name
+        f.parent.mkdir(parents=True, exist_ok=True)
+        shape = (16, 16) + ((len(mode),) if len(mode) > 1 else ())
+        Image.fromarray(rng.integers(0, 256, shape, dtype=np.uint8), mode).save(f)
+    (root / "a" / "notes.txt").write_text("not an image")
+    return len(files)
+
+
+def test_image_folders_decode_as_jax(tmp_path):
+    """An image folder decodes as the JAX package decodes it (PIL, every
+    file converted to RGB, sorted over the nested folders), bit for bit, and
+    its batches follow."""
+    n = _image_folder(tmp_path / "img")
+    cfg, jcfg = _configs(tmp_path / "img", "faces", 16)
+    got, want = tp._find_corpus(cfg, True), jp._find_corpus(jcfg, True)
+    assert got.dtype == want.dtype == np.uint8 and got.shape == want.shape == (n, 16, 16, 3)
+    np.testing.assert_array_equal(got, want)
+    _same_batches(cfg, jcfg)
+
+
+def test_image_folders_without_pil_raise(tmp_path, monkeypatch):
+    """Without PIL an image folder raises ImportError, naming the .npz route."""
+    _image_folder(tmp_path / "img")
+    cfg, _ = _configs(tmp_path / "img", "faces", 16)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match="_train.npz"):
         tp.get_dataset(cfg)

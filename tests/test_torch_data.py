@@ -148,7 +148,8 @@ def test_scalers_and_shape_match_jax():
 def test_preprocessing_matches_jax_and_unported_paths_raise(tmp_path):
     """Preprocessing at the stored size, a resize, a corpus stored at
     another size and an FFHQ TFRecord all as the JAX package gives them,
-    bit for bit; the one refusal left is the image folder (PIL)."""
+    bit for bit; a missing record raises (image folders:
+    tests/test_torch_corpora.py)."""
     rng = np.random.default_rng(3)
     imgs = rng.integers(0, 256, (4, 16, 16, 3), dtype=np.uint8)
     floats = rng.uniform(-0.5, 1.5, (4, 16, 16, 3)).astype(np.float32)
@@ -168,11 +169,6 @@ def test_preprocessing_matches_jax_and_unported_paths_raise(tmp_path):
     assert_same_stream(tp.get_dataset(cfg, prefetch=False)[0], jp.get_dataset(jcfg)[0], 2)
     cfg.data.tfrecords_path = str(tmp_path / "missing.tfrecords")
     with pytest.raises(FileNotFoundError):
-        tp.get_dataset(cfg)
-    (tmp_path / "folder").mkdir()
-    (tmp_path / "folder" / "0.png").write_bytes(b"")
-    cfg.data.dataset, cfg.data.data_dir = "myimages", str(tmp_path / "folder")
-    with pytest.raises(NotImplementedError, match="PIL"):
         tp.get_dataset(cfg)
     cfg.data.dataset = "olympic_ps"  # ported: the point set (tests/test_torch_points.py)
     train, _ = tp.get_dataset(cfg, prefetch=False)

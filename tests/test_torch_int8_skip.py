@@ -249,17 +249,17 @@ def _skip_case(kind: str, d):
 @pytest.mark.parametrize("kind", ["K2", "K3", "K4", "K9-up", "K9-down"])
 def test_skip_buffers_hold_the_plain_skip_on_cpu(kind):
     """skip_buffers on the CPU: the plain static skip's q(x) of the skip input
-    (K3 the concat, K9 the resampled x) and its f32 product + b_skip; the
-    block's output is unchanged by asking for them."""
+    (K3 the concat, K9 the resampled x), and nothing else (the kernels keep
+    no skip product of their own); the block's output is unchanged by asking
+    for it."""
     fn, args, kw, x_skip = _skip_case(kind, Draw(17))
     bufs = {}
     out = fn(*args, **kw, skip_buffers=bufs)
     assert torch.equal(out, fn(*args, **kw))
     sx = args[-1][2]
+    assert list(bufs) == ["xq"]
     assert bufs["xq"].dtype == torch.int8 and bufs["xq"].shape == x_skip.shape
     assert torch.equal(bufs["xq"], t_rb.quant_static(x_skip, sx).to(torch.int8))
-    assert bufs["skip"].shape == out.shape
-    assert torch.equal(bufs["skip"], t_rb.static_skip_product(x_skip, args[-3], args[-2], sx))
 
 
 def test_skip_buffers_need_the_static_skip():
@@ -321,8 +321,10 @@ def glue(monkeypatch):
 @pytest.mark.parametrize("sx", [True, False], ids=["static_skip", "bf16_skip"])
 def test_int8_wrappers_pass_the_static_skip(glue, sx):
     """K2/K3/K4/K9 int8 hand their entries the static skip (the skip's int8
-    weights K-major, their scales, its plan's address and three scales), or
-    nulls and two scales; the workspace holds the skip's channels or 0."""
+    weights K-major, their scales and three scales; no plan of its own: its
+    slices join conv2's), or a null and two scales; gddim_resblock_int8's
+    workspace holds the skip's channels (q(x)) or 0, the transition's takes
+    no such count (q(xr) in its own xr)."""
     calls, sizes = glue
     d = Draw(16)
     (x,), (temb, dw, db), g1, (w1, b1), g2, (w2, b2), (ws, bs) = _block(d, 16, 128, 256)
@@ -353,17 +355,20 @@ def test_int8_wrappers_pass_the_static_skip(glue, sx):
         torch.from_numpy(bts), s, up=True, **kw)
     assert [n for n, _ in calls] == ["gddim_resblock_int8"] * 3 + ["gddim_resblock_transition_int8"]
     for name, args in calls:
-        i = 24 if name == "gddim_resblock_int8" else 18  # wss, skip_plan, act_scales
-        assert all(a is not None for a in args[i:i + 3]) if sx else (
-            args[i] is None and args[i + 1] is None and args[i + 2] is not None)
-    assert [a[-1] for _, a in sizes] == ([128, 384, 256, 256] if sx else [0, 0, 0, 0])
+        i = 24 if name == "gddim_resblock_int8" else 18  # wss, act_scales
+        assert all(a is not None for a in args[i:i + 2]) if sx else (
+            args[i] is None and args[i + 1] is not None)
+        assert isinstance(args[i + 2], int)  # the batch: no skip plan between
+    assert [(n, a[-1]) for n, a in sizes[:3]] == [("gddim_resblock_int8", c) for c in (
+        [128, 384, 256] if sx else [0, 0, 0])]
+    assert sizes[3][0] == "gddim_resblock_transition_int8" and len(sizes[3][1]) == 7
 
 
 @pytest.mark.parametrize("kind", ["K2", "K3", "K4", "K9-up"])
 def test_skip_buffers_view_the_workspace(glue, monkeypatch, kind):
-    """On CUDA, skip_buffers views the launch's workspace at the offsets the
+    """On CUDA, skip_buffers views the launch's workspace at the offset the
     C entry gives for the workspace's own arguments: "xq" int8 (B, H, W,
-    Cskip) and "skip" f32 (B, H, W, Cout)."""
+    Cskip), and no f32 skip product (the kernels keep none)."""
     calls, sizes = glue
     fn, args, kw, x_skip = _skip_case(kind, Draw(19))
     bf = lambda t: t.bfloat16()  # noqa: E731  the int8 modes' activations
@@ -376,27 +381,25 @@ def test_skip_buffers_view_the_workspace(glue, monkeypatch, kind):
     rest[-3] = t_rb.pack_skip_int8(rest[-3])
     asked = []
 
-    def skip_offsets(name, *a):
+    def xq_offset(name, *a):
         asked.append((name, a))
-        return 256, 1024
+        return 256
 
     def workspace(name, *a):
         sizes.append((name, a))
         return 1 << 20
 
-    monkeypatch.setattr(_build, "skip_offsets", skip_offsets)
+    monkeypatch.setattr(_build, "xq_offset", xq_offset)
     monkeypatch.setattr(_build, "workspace_bytes", workspace)
     bufs = {}
     out = fn(*xs, *rest, **kw, skip_buffers=bufs)
     name, a = asked[0]
-    # the transition's offsets take no sx: it is its C
-    assert name == calls[0][0] and sizes[0] == (name, a + (() if name == "gddim_resblock_int8"
-                                                         else (x_skip.shape[-1],)))
+    assert name == calls[0][0] and sizes[0] == (name, a)
     b, h, w, cout = out.shape
+    assert list(bufs) == ["xq"]
     assert bufs["xq"].dtype == torch.int8 and bufs["xq"].shape == (b, h, w, x_skip.shape[-1])
-    assert bufs["skip"].dtype == torch.float32 and bufs["skip"].shape == (b, h, w, cout)
     base = bufs["xq"].untyped_storage().data_ptr()
-    assert bufs["xq"].data_ptr() - base == 256 and bufs["skip"].data_ptr() - base == 1024
+    assert bufs["xq"].data_ptr() - base == 256
 
 
 def test_static_skip_gemm_is_counted_in_c():
@@ -409,12 +412,25 @@ def test_static_skip_gemm_is_counted_in_c():
 @pytest.mark.parametrize("h,cin,cout", [(32, 128, 128), (16, 128, 256), (16, 384, 256),
                                         (32, 384, 128), (8, 512, 256), (4, 512, 256)])
 def test_skip_plan_takes_the_skip_shapes_unsplit(b, h, cin, cout):
-    """The skip's 1x1 has a plan at every skip shape of the int8 blocks, and
-    its K is short enough that the plan would not split it anyway."""
-    plan = t_rb.s8_tile_plan(b, h, h, cin, 0, cout, taps=1)
-    assert plan.splits == 1 and plan.mw == 1
-    assert t_rb.skip_plan(b, h, h, cin, cout).tolist() == [plan.mw, plan.box_h, plan.box_b,
-                                                           plan.tiles_h, plan.m_tiles]
+    """conv2's plan at every skip shape of the int8 blocks: its K split is
+    the conv slices' own (each split's conv partial as without the skip),
+    every int8 skip slice falls in one split, the last, and the ring with
+    the parked conv sums of the skip's phase fits the H100's 227 KB (two
+    CTAs an SM at 128-pixel tiles)."""
+    plan = t_rb.s8_tile_plan(b, h, h, cout, 0, cout)
+    slices = t_rb.static_skip_slices(plan, cin)
+    assert [c for c, _ in slices] == [min(plan.kper, plan.conv_slices - z * plan.kper)
+                                      for z in range(plan.splits)]
+    assert all(c > 0 for c, _ in slices) and sum(c for c, _ in slices) == plan.conv_slices
+    assert [k for _, k in slices] == [0] * (plan.splits - 1) + [cin // t_rb.S8_SLICE]
+    # csrc/block_gemm.cu's Tile<MW>: 3 stages at mw 1, 4 at mw 2, each 128 * mw
+    # pixel rows and a 128 x 128 weight box of 128 bytes a row
+    stages = 3 if plan.mw == 1 else 4
+    stage = (128 * plan.mw + 128) * 128
+    smem = stages * stage + 1024 + 2 * stages * 8
+    park = 256 * 64 * plan.mw * 4  # each consumer thread's f32 conv sums
+    assert park <= (stages - 1) * stage  # the stages the skip's slices leave alone
+    assert smem <= 227 * 1024 and (plan.mw == 2 or 2 * (smem + 1024) <= 228 * 1024)
 
 
 # --------------------------------------------------------------------------
@@ -442,8 +458,8 @@ def _on(args, dev):
 def test_static_skip_kernel_matches_plain(cuda, kind, h, cin, cout):
     """K9 down at 64x64x128 takes GN1's two-launch route (its resample kernel
     writes q(xr)); the other transitions the one-launch route. The block's
-    own q(x) and f32 skip product (skip_buffers) bit for bit against the
-    plain static skip on the same f32 skip input."""
+    own q(x) (skip_buffers) bit for bit against the plain static skip's on
+    the same f32 skip input."""
     d = Draw(40)
     (x,), (temb, dw, db), g1, (w1, b1), g2, (w2, b2), (ws, bs) = _block(d, h, cin, cout)
     x = torch.from_numpy(x).to(cuda).bfloat16()
@@ -482,4 +498,3 @@ def test_static_skip_kernel_matches_plain(cuda, kind, h, cin, cout):
     assert out.dtype == torch.bfloat16
     assert rel_err(out.float().cpu(), ref.float().cpu()) <= KERNEL_BOUND
     assert torch.equal(bufs["xq"], t_rb.quant_static(x_skip, s[2]).to(torch.int8))
-    assert torch.equal(bufs["skip"], t_rb.static_skip_product(x_skip, wsq, bs, s[2]))
